@@ -1,0 +1,128 @@
+"""Request queue + deadline-aware micro-batcher (port of
+``deepdfa_tpu/serve/batcher.py``).
+
+Requests accumulate per lane and flush as one padded micro-batch when
+the lane holds a full ``batch_slots`` bucket (fill-flush) or its oldest
+request has spent ``flush_fraction`` of its deadline waiting
+(deadline-flush). When several lanes are due, the one with the least
+remaining budget flushes first. A bucket is sealed when the pump takes
+it, so admissions that land in between ride along. Backpressure is
+explicit: :class:`RejectedError` past ``queue_capacity``,
+:class:`OversizedError` for a graph no slot could hold.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
+
+from deepdfa_tpu_torch.serve.config import ServeConfig
+
+
+class RejectedError(Exception):
+    """Queue full — retry after ``retry_after_s``."""
+
+    def __init__(self, retry_after_s: float):
+        self.retry_after_s = retry_after_s
+        super().__init__(
+            f"serving queue full; retry after {retry_after_s:.3f}s")
+
+
+class OversizedError(Exception):
+    """Request exceeds the per-slot graph budget (no bucket could hold it)."""
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One function to score, plus its result."""
+
+    rid: int
+    key: str                      # content hash (cache line)
+    graph: Mapping
+    lane: str
+    arrival: float                # engine-clock seconds
+    deadline_s: float
+    completed_at: Optional[float] = None
+    result: Optional[Dict] = None
+
+    def finish(self, result: Dict) -> None:
+        self.result = result
+
+    def flush_at(self, fraction: float) -> float:
+        """Clock time at which this request forces a deadline-flush."""
+        return self.arrival + fraction * self.deadline_s
+
+
+class MicroBatcher:
+    """Per-lane FIFO queues with the two-condition flush policy; time
+    comes from the caller (the engine's clock), never the wall."""
+
+    def __init__(self, config: ServeConfig, lanes: Sequence[str] = ("gnn",)):
+        self.config = config
+        self._pending: Dict[str, Deque[ServeRequest]] = {
+            lane: collections.deque() for lane in lanes}
+        self._lock = threading.Lock()
+
+    def depth(self) -> int:
+        with self._lock:
+            return sum(len(q) for q in self._pending.values())
+
+    def admit(self, req: ServeRequest) -> None:
+        """Enqueue or raise (RejectedError / OversizedError)."""
+        n = int(req.graph["num_nodes"])
+        e = len(req.graph["senders"]) + n  # + self loops, as batching
+        reason = self.config.admission_caps(n, e)
+        if reason is not None:
+            raise OversizedError(reason)
+        with self._lock:
+            if req.lane not in self._pending:
+                raise ValueError(f"unknown lane {req.lane!r}")
+            if sum(len(q) for q in self._pending.values()) \
+                    >= self.config.queue_capacity:
+                raise RejectedError(
+                    self.config.flush_fraction * self.config.deadline_ms
+                    / 1000.0)
+            self._pending[req.lane].append(req)
+
+    def due(self, now: float) -> Optional[str]:
+        """The lane to flush at ``now`` (least remaining budget first), or
+        None. Deadlines are scanned over the whole queue: a short-deadline
+        request behind a long-deadline head still forces its flush."""
+        with self._lock:
+            best: Optional[Tuple[float, str]] = None
+            for lane, q in self._pending.items():
+                if not q:
+                    continue
+                filled = len(q) >= self.config.batch_slots
+                deadline_due = now >= min(
+                    r.flush_at(self.config.flush_fraction) for r in q)
+                if not (filled or deadline_due):
+                    continue
+                remaining = min(r.arrival + r.deadline_s for r in q) - now
+                if best is None or remaining < best[0]:
+                    best = (remaining, lane)
+            return best[1] if best else None
+
+    def next_flush_time(self, now: float) -> Optional[float]:
+        """Earliest clock time any lane becomes due (<= now when one is)."""
+        with self._lock:
+            t: Optional[float] = None
+            for q in self._pending.values():
+                if not q:
+                    continue
+                when = (now if len(q) >= self.config.batch_slots
+                        else min(r.flush_at(self.config.flush_fraction)
+                                 for r in q))
+                if t is None or when < t:
+                    t = when
+            return t
+
+    def take(self, lane: str) -> List[ServeRequest]:
+        """Pop the lane's next micro-batch (FIFO, up to batch_slots) — the
+        seal point of the bucket."""
+        with self._lock:
+            q = self._pending[lane]
+            return [q.popleft()
+                    for _ in range(min(len(q), self.config.batch_slots))]
