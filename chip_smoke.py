@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``deepdfa_tpu_torch``; nothing of JAX)
-at the published FlowGNN width and checks every hand-written kernel it
-runs against that kernel's plain PyTorch version. Phases, in order; each
-raises on failure and nothing is caught around one:
+Drives the port's serving and training paths (``deepdfa_tpu_torch``;
+nothing of JAX) at the published FlowGNN width and checks every
+hand-written kernel they run against that kernel's plain PyTorch version.
+Phases, in order; each raises on failure and nothing is caught around
+one:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
    No CUDA: exit 1 with no result.
@@ -19,6 +20,18 @@ raises on failure and nothing is caught around one:
    launches counted over that run, probabilities held against the same
    engine on the CPU.
 5. Serve, fused lane: the same with ``message_impl="fused"``.
+6. Backward kernels against their plain versions at the training shape
+   (a batch as ``fit`` packs it: 256 graphs, N = 16384 rows, H = 128, 5
+   steps), with times and bounds; ``persistent_fwd_hist_kernel``'s
+   ``h_k`` bit for bit against ``persistent_fwd_kernel`` run for k steps,
+   and ``persistent_bwd_kernel`` plus ``step_weight_grad_kernel`` bit for
+   bit against the scan of ``fused_step_bwd_kernel``.
+7. Train, persistent lane: ``train.loop.fit`` on the card (published
+   widths, ``DataConfig(batch_size=256)``, ``TrainConfig`` defaults but
+   one epoch: 9 steps and a validation pass), launches counted over the
+   run; the same initial weights and batches through the port on the
+   CPU, per-step losses compared; then a step-time breakdown.
+8. Train, fused lane: the same with ``message_impl="fused"``.
 
 Every number goes on a line of its own before the last; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -26,6 +39,7 @@ Every number goes on a line of its own before the last; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,7 +49,10 @@ import time
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.core.config import FlowGNNConfig
+from deepdfa_tpu_torch.cli import load_dataset
+from deepdfa_tpu_torch.core.config import DataConfig, FlowGNNConfig, TrainConfig
+from deepdfa_tpu_torch.data.sampling import epoch_indices
+from deepdfa_tpu_torch.data.splits import make_splits
 from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
 from deepdfa_tpu_torch.graphs.batch import batch_graphs, pad_budget_for
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
@@ -43,6 +60,7 @@ from deepdfa_tpu_torch.ops import _build, fused_gnn
 from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE, align_to_tile
 from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
 from deepdfa_tpu_torch.serve.engine import bucket_batch
+from deepdfa_tpu_torch.train import loop
 
 SEED = 0
 N_REQUESTS = 64
@@ -57,12 +75,41 @@ PEAK_BYTES_PER_S = 3.35e12
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 UNROLL_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_TOL = 1e-4
-# Each kernel's TPU counterpart (the Pallas kernel body it replaces).
+# Backward kernels: per-row cotangents (dh, x, dp, dmsg) elementwise as
+# above; weight gradients are sums over all 16384 rows of a step, so the
+# rounding-order difference scales with the largest gradient entry:
+# |kernel - plain| <= GRAD_TOL * max|plain|, per gradient tensor.
+GRAD_TOL = 1e-4
+# Per-step training losses, card against the CPU run of the same weights
+# and batches: every step's gradients differ in f32 rounding order (and
+# the embedding and segment scatters use atomics on the card), and Adam
+# turns a tiny gradient difference into an update of up to lr = 1e-3 on
+# near-zero gradient entries, so the trajectories drift apart a little
+# each step.
+TRAIN_LOSS_TOL = 2e-3
+# Synthetic graphs for the train lanes: 80 % train, half positive, one
+# epoch undersampled to all positives plus as many negatives = about
+# 2080 graphs = 9 steps of 256, and 260 validation graphs.
+N_TRAIN_EXAMPLES = 2600
+TRAIN_EPOCHS = 1
+# Each kernel's TPU counterpart (the Pallas kernel body it replaces) and
+# its source here.
 REPLACES = {
     "fused_step_kernel": "deepdfa_tpu/ops/fused_gnn.py:271",
     "persistent_fwd_kernel": "deepdfa_tpu/ops/fused_gnn.py:626",
+    "fused_step_bwd_kernel": "deepdfa_tpu/ops/fused_gnn.py:369",
+    "persistent_fwd_hist_kernel": "deepdfa_tpu/ops/fused_gnn.py:626",
+    "persistent_bwd_kernel": "deepdfa_tpu/ops/fused_gnn.py:751",
+    # the weight-gradient accumulation of _bwd_kernel (and the per-step
+    # partials and fold of _persist_bwd_kernel, :854-895)
+    "step_weight_grad_kernel": "deepdfa_tpu/ops/fused_gnn.py:446",
 }
-SOURCE = "deepdfa_tpu_torch/csrc/fused_gnn.cu"
+SOURCES = {name: "deepdfa_tpu_torch/csrc/fused_gnn.cu"
+           for name in ("fused_step_kernel", "persistent_fwd_kernel",
+                        "persistent_fwd_hist_kernel")}
+SOURCES.update({name: "deepdfa_tpu_torch/csrc/fused_gnn_bwd.cu"
+                for name in ("fused_step_bwd_kernel", "persistent_bwd_kernel",
+                             "step_weight_grad_kernel")})
 
 
 def emit(**record) -> None:
@@ -93,7 +140,8 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     info = _build.build_all()
-    _build.load("fused_gnn")
+    for name in _build.SOURCES:
+        _build.load(name)
     ptxas = [line.strip() for _, log in info.values()
              for line in log.splitlines() if "registers" in line]
     emit(phase="build", seconds=time.perf_counter() - t0,
@@ -322,27 +370,289 @@ def phase_serve(impl: str) -> dict:
     return rec
 
 
+def _train_data(feature, seed: int):
+    examples = load_dataset(f"synthetic:{N_TRAIN_EXAMPLES}", feature,
+                            seed=seed)
+    return examples, make_splits(examples, mode="random", seed=seed)
+
+
+def _training_batch(model: FlowGNN):
+    """The first batch of fit's first epoch at the published sizes."""
+    examples, splits = _train_data(model.config.feature, TrainConfig().seed)
+    train = splits["train"]
+    idx = epoch_indices([examples[i]["label"] for i in train], 0,
+                        seed=DataConfig().seed)
+    batches = loop._batches(examples, train[idx], DataConfig(),
+                            list(model.subkeys), DataConfig().batch_size,
+                            build_band_adj=True)
+    return next(iter(batches)).to("cuda")
+
+
+def _check_grads(name, got, want) -> float:
+    """Weight gradients: |got - want| <= GRAD_TOL * max|want|; returns
+    the largest difference over max|want|."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}[{i}]: shape {tuple(a.shape)} vs "
+                                 f"{tuple(b.shape)}, or non-finite values")
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if rel > GRAD_TOL:
+            raise AssertionError(f"{name}[{i}]: max |diff| / max |plain| "
+                                 f"{rel:.3e} > {GRAD_TOL}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _same_bits(name, got, want) -> None:
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            diff = (a - b).abs().max().item() if a.shape == b.shape else None
+            raise AssertionError(f"{name}[{i}] is not bitwise equal "
+                                 f"(max |diff| {diff})")
+
+
+def phase_train_kernels(model: FlowGNN) -> dict:
+    """The four backward-path kernels at the training shape: each against
+    its plain version (tolerances above), timed; the bitwise identities
+    the persistent kernels owe the per-step ones. Returns the numbers by
+    kernel."""
+    cfg = model.config
+    k_steps = cfg.n_steps
+    batch = _training_batch(model)
+    adj = batch.band_adj
+    out = {}
+    with torch.no_grad():
+        h = torch.cat([model.embeds[k](batch.node_feats[k])
+                       for k in model.subkeys], dim=-1).contiguous()
+        params = model.ggnn_step.step_params()
+        packed = [w.detach().contiguous()
+                  for w in fused_gnn.packed_weights(params)]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        g = torch.randn(h.shape, generator=gen, device="cuda")
+        hidden = h.shape[1]
+        if not fused_gnn.persistent_bwd_smem_ok(adj, hidden):
+            raise AssertionError("training batch over the backward gate")
+        tvals = fused_gnn.band_transpose_vals(adj.vals, adj.bandwidth,
+                                              adj.n_tiles)
+
+        def record(name, err, kernel, plain, steps, tol, iters=10, reps=3):
+            before = fused_gnn.launch_counts()[name]
+            kernel_ms = _time_ms(kernel, iters, reps)
+            launches = fused_gnn.launch_counts()[name] - before
+            plain_ms = _time_ms(plain, iters, reps)
+            cost = fused_gnn.kernel_cost(adj, hidden, steps, kernel=name)
+            bound_ms, bound_by = _bound(cost)
+            rec = dict(kernel=name, shape="training", n_rows=h.shape[0],
+                       hidden=hidden, bandwidth=adj.bandwidth,
+                       row_groups=adj.row_groups.numel() - 1,
+                       max_group_rows=adj.max_group_rows, nnz=cost["nnz"],
+                       steps=steps, max_abs_err=err, tol=tol,
+                       kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       bound_us=bound_ms * 1e3, bound_by=bound_by,
+                       flops=cost["flops"], bytes=cost["bytes"],
+                       timing_launches=launches)
+            emit(phase="train_kernels", **rec)
+            out[name] = rec
+
+        # fused_step_bwd_kernel: one step's cotangents.
+        got = fused_gnn.fused_step_bwd_rows(params, h, adj, g, packed, tvals)
+        want = fused_gnn.fused_step_bwd_rows_reference(params, h, adj, g)
+        err = max(_check(f"fused_step_bwd_kernel[{i}]", a, b, STEP_TOL)
+                  for i, (a, b) in enumerate(zip(got, want)))
+        record("fused_step_bwd_kernel", err,
+               lambda: fused_gnn.fused_step_bwd_rows(params, h, adj, g, packed,
+                                                     tvals),
+               lambda: fused_gnn.fused_step_bwd_rows_reference(
+                   params, h, adj, g), 1, STEP_TOL)
+
+        # persistent_fwd_hist_kernel: h_1..h_{K-1}; each h_k bit for bit
+        # the persistent forward's after k steps.
+        hist = fused_gnn.persistent_hist(params, h, adj, k_steps, packed)
+        want = fused_gnn.persistent_hist_reference(params, h, adj, k_steps)
+        err = _check("persistent_fwd_hist_kernel", hist, want, UNROLL_TOL)
+        _same_bits("persistent_fwd_hist_kernel vs persistent_fwd_kernel",
+                   list(hist), [fused_gnn.persistent_unroll(
+                       params, h, adj, k, packed) for k in range(1, k_steps)])
+        record("persistent_fwd_hist_kernel", err,
+               lambda: fused_gnn.persistent_hist(params, h, adj, k_steps,
+                                                 packed),
+               lambda: fused_gnn.persistent_hist_reference(
+                   params, h, adj, k_steps), k_steps, UNROLL_TOL)
+
+        # persistent_bwd_kernel: the reverse sweep over the kernel's hist.
+        rows = fused_gnn.persistent_bwd_rows(params, h, hist, adj, g, k_steps,
+                                             packed, tvals)
+        want = fused_gnn.persistent_bwd_rows_reference(params, h, hist, adj,
+                                                       g, k_steps)
+        err = max(_check(f"persistent_bwd_kernel[{i}]", a, b, UNROLL_TOL)
+                  for i, (a, b) in enumerate(zip(rows, want)))
+        # ... and bit for bit the scan of fused_step_bwd_kernel.
+        gs, scan = g, [None] * k_steps
+        for s in reversed(range(k_steps)):
+            hs = h if s == 0 else hist[s - 1]
+            gs, *scan[s] = fused_gnn.fused_step_bwd_rows(params, hs, adj, gs,
+                                                         packed, tvals)
+        _same_bits("persistent_bwd_kernel vs scan of fused_step_bwd_kernel",
+                   rows, [gs] + [torch.stack([c[j] for c in scan])
+                                 for j in range(3)])
+        record("persistent_bwd_kernel", err,
+               lambda: fused_gnn.persistent_bwd_rows(
+                   params, h, hist, adj, g, k_steps, packed, tvals),
+               lambda: fused_gnn.persistent_bwd_rows_reference(
+                   params, h, hist, adj, g, k_steps),
+               k_steps, UNROLL_TOL, iters=5)
+
+        # step_weight_grad_kernel: the K-step weight gradients from those
+        # cotangents, and bit for bit the descending fold of K one-step
+        # calls (what autograd does over the fused lane's K steps).
+        _, x, dp, dmsg = rows
+        grads = fused_gnn.step_weight_grads(h, hist, x, dp, dmsg, k_steps)
+        want = fused_gnn.step_weight_grad_reference(h, hist, x, dp, dmsg,
+                                                    k_steps)
+        err = _check_grads("step_weight_grad_kernel", grads, want)
+        fold = None
+        for s in reversed(range(k_steps)):
+            hs = (h if s == 0 else hist[s - 1]).contiguous()
+            one = fused_gnn.step_weight_grads(hs, None, x[s:s + 1],
+                                              dp[s:s + 1], dmsg[s:s + 1], 1)
+            fold = one if fold is None else tuple(
+                a + b for a, b in zip(fold, one))
+        _same_bits("step_weight_grad_kernel vs the fold of one-step calls",
+                   grads, fold)
+        record("step_weight_grad_kernel", err,
+               lambda: fused_gnn.step_weight_grads(h, hist, x, dp, dmsg,
+                                                   k_steps),
+               lambda: fused_gnn.step_weight_grad_reference(
+                   h, hist, x, dp, dmsg, k_steps),
+               k_steps, dict(rel=GRAD_TOL), iters=5)
+    return out
+
+
+def _step_breakdown(model: FlowGNN, batch, reps: int = 10) -> dict:
+    """Median device ms of one train step's parts on one batch (CUDA
+    events around the forward with the loss, the backward and the AdamW
+    step, as make_train_step runs them) and its host wall ms."""
+    cfg = TrainConfig()
+    opt = loop.make_optimizer(model.parameters(), cfg)
+    labels, mask = loop._labels_for(model, batch)
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [],
+             "step_wall_ms": []}
+    for _ in range(reps + 2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss = loop.bce_with_logits(model(batch), labels, mask)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
+                          ("optimizer_ms", 2, 3)):
+            parts[key].append(ev[a].elapsed_time(ev[b]))
+        parts["step_wall_ms"].append(wall)
+    return {k: statistics.median(v[2:]) for k, v in parts.items()}
+
+
+def phase_train(impl: str) -> dict:
+    cfg = FlowGNNConfig(message_impl=impl)
+    train_cfg = dataclasses.replace(TrainConfig(), max_epochs=TRAIN_EPOCHS)
+    data_cfg = DataConfig(batch_size=256)
+    examples, splits = _train_data(cfg.feature, train_cfg.seed)
+    model = FlowGNN(cfg, device="cuda", seed=SEED)
+    cpu_model = FlowGNN(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+
+    fused_gnn.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, history = loop.fit(model, examples, splits, train_cfg, data_cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = fused_gnn.launch_counts()
+
+    losses = [x for e in history["epochs"] for x in e["step_losses"]]
+    _, cpu_history = loop.fit(cpu_model, examples, splits, train_cfg,
+                              data_cfg)
+    cpu_losses = [x for e in cpu_history["epochs"] for x in e["step_losses"]]
+    if len(losses) < 8 or len(losses) != len(cpu_losses):
+        raise AssertionError(f"{impl}: {len(losses)} card steps, "
+                             f"{len(cpu_losses)} CPU steps")
+    diffs = np.abs(np.asarray(losses) - np.asarray(cpu_losses))
+    if not np.all(np.isfinite(losses)) or diffs.max() > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{impl}: per-step loss |card - cpu| "
+                             f"{diffs.max():.3e} > {TRAIN_LOSS_TOL}")
+    val_diff = abs(history["epochs"][-1]["val_loss"]
+                   - cpu_history["epochs"][-1]["val_loss"])
+    steps = len(losses)
+    if impl == "persistent":
+        need = ("persistent_fwd_kernel", "persistent_fwd_hist_kernel",
+                "persistent_bwd_kernel", "step_weight_grad_kernel")
+        exact = ({"persistent_bwd_kernel": steps}
+                 if model.over_gate_dispatches == 0 else {})
+    else:
+        need = ("fused_step_kernel", "fused_step_bwd_kernel",
+                "step_weight_grad_kernel")
+        exact = {"fused_step_bwd_kernel": cfg.n_steps * steps}
+    if any(launches[k] == 0 for k in need) or any(
+            launches[k] != v for k, v in exact.items()):
+        raise AssertionError(f"{impl} train lane: launches {launches} over "
+                             f"{steps} steps")
+
+    batch = _training_batch(model)
+    breakdown = _step_breakdown(model, batch)
+    n_graphs = int(batch.graph_mask.sum())
+    step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
+               + breakdown["optimizer_ms"])
+    rec = dict(phase="train", message_impl=impl, steps=steps,
+               epochs=len(history["epochs"]), launches=launches,
+               over_gate_dispatches=model.over_gate_dispatches,
+               losses=losses, cpu_losses=cpu_losses,
+               max_abs_loss_diff_vs_cpu=float(diffs.max()),
+               val_loss=history["epochs"][-1]["val_loss"],
+               val_loss_diff_vs_cpu=val_diff,
+               val_f1=history["epochs"][-1]["val_metrics"]["f1"],
+               fit_wall_s=wall_s, step_breakdown=breakdown,
+               graphs_per_step=n_graphs,
+               graphs_per_s=n_graphs / (step_ms / 1e3))
+    emit(**rec)
+    return rec
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
     model = FlowGNN(FlowGNNConfig(message_impl="persistent"), device="cuda",
                     seed=SEED)
     timings = phase_kernels(model)
-    path_launches = {}
-    for impl, kernel in (("persistent", "persistent_fwd_kernel"),
-                         ("fused", "fused_step_kernel")):
-        path_launches[kernel] = phase_serve(impl)["launches"][kernel]
+    path_launches = {k: 0 for k in REPLACES}
+    for impl in ("persistent", "fused"):
+        for k, v in phase_serve(impl)["launches"].items():
+            path_launches[k] += v
+    timings.update(phase_train_kernels(model))
+    for impl in ("persistent", "fused"):
+        for k, v in phase_train(impl)["launches"].items():
+            path_launches[k] += v
     kernels = []
     for kname, replaces in REPLACES.items():
         t = timings[kname]
         if path_launches[kname] <= 0:
             raise AssertionError(f"{kname} never ran on the main path")
         kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": path_launches[kname],
             "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_us"] / 1e3,
             "bound_by": t["bound_by"], "library_ms": None})
+    # library_ms is null for every kernel: no single PyTorch call computes
+    # a GRU gated graph step or its VJP.
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

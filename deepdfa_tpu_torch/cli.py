@@ -1,6 +1,16 @@
 """Command line of the port (counterpart of ``deepdfa_tpu/cli.py``).
 
-One subcommand so far, the offline client of the serving path::
+Two subcommands so far. ``fit`` trains the published FlowGNN::
+
+    python -m deepdfa_tpu_torch.cli fit --dataset synthetic:2720 \\
+        [--message-impl persistent] [--max-epochs 25] [--batch-size 256] \\
+        [--lr 1e-3] [--seed 1] [--device cuda] [--out-dir runs/fit]
+
+It splits the dataset 80/10/10 from ``--seed``, trains with
+``train.loop.fit``, writes ``history.json`` into ``--out-dir`` and
+prints the reference's result record (best epoch, best validation loss,
+the last epoch's validation metrics). ``score`` is the offline client of
+the serving path::
 
     python -m deepdfa_tpu_torch.cli score --dataset synthetic:256 \\
         [--message-impl persistent] [--batch-slots 16] [--device cuda]
@@ -92,9 +102,59 @@ def cmd_score(args) -> Dict[str, Any]:
     return report
 
 
+def cmd_fit(args) -> Dict[str, Any]:
+    from deepdfa_tpu_torch.core.config import (
+        DataConfig,
+        FlowGNNConfig,
+        TrainConfig,
+    )
+    from deepdfa_tpu_torch.data.splits import make_splits
+    from deepdfa_tpu_torch.models.flowgnn import FlowGNN
+    from deepdfa_tpu_torch.ops import fused_gnn
+    from deepdfa_tpu_torch.train.loop import fit
+
+    model_cfg = FlowGNNConfig(message_impl=args.message_impl)
+    data_cfg = DataConfig(batch_size=args.batch_size)
+    train_cfg = TrainConfig(learning_rate=args.lr, max_epochs=args.max_epochs,
+                            seed=args.seed)
+    examples = load_dataset(args.dataset, model_cfg.feature,
+                            seed=train_cfg.seed)
+    splits = make_splits(examples, mode="random", seed=train_cfg.seed)
+    model = FlowGNN(model_cfg, device=args.device, seed=train_cfg.seed)
+    fused_gnn.reset_launch_counts()
+    _, history = fit(model, examples, splits, train_cfg, data_cfg)
+    history["kernel_launches"] = fused_gnn.launch_counts()
+    history["over_gate_dispatches"] = model.over_gate_dispatches
+    result = {
+        "best_epoch": history["best_epoch"],
+        "best_val_loss": history["best_val_loss"],
+        "final_val_metrics": history["epochs"][-1]["val_metrics"]
+        if history["epochs"] else {},
+    }
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "history.json"), "w") as f:
+        json.dump(history, f, indent=1)
+    print(json.dumps(result))
+    return result
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deepdfa_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
+    ft = sub.add_parser(
+        "fit", help="train FlowGNN (best state by validation loss); "
+                    "writes history.json")
+    ft.add_argument("--dataset", default="synthetic:256")
+    ft.add_argument("--message-impl", default="persistent",
+                    choices=["segment", "band", "fused", "persistent"])
+    ft.add_argument("--max-epochs", type=int, default=25)
+    ft.add_argument("--batch-size", type=int, default=256)
+    ft.add_argument("--lr", type=float, default=1e-3)
+    ft.add_argument("--seed", type=int, default=1)
+    ft.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without CUDA) or cpu")
+    ft.add_argument("--out-dir", default="runs/fit")
+    ft.set_defaults(func=cmd_fit)
     sc = sub.add_parser(
         "score", help="offline batch client of the serving path (cache + "
                       "micro-batcher + bucketed execution)")

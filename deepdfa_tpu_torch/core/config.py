@@ -2,8 +2,8 @@
 
 Field for field the same dataclasses, with the same defaults, so a
 configuration reads the same in both packages (pinned by
-tests/test_torch_imports.py). Only the model and data configs the
-serving path needs are carried over.
+tests/test_torch_imports.py). The model, data and training configs are
+carried over; the transformer configs wait for their slice.
 """
 
 from __future__ import annotations
@@ -103,6 +103,31 @@ class DataConfig:
     @property
     def max_edges(self) -> int:
         return self.max_nodes * self.max_edges_per_node
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer/trainer configuration; defaults are the published DeepDFA
+    settings (AdamW lr 1e-3, weight decay 1e-2, 25 epochs, batch 256).
+
+    ``checkpoint_dir``, ``checkpoint_every_epochs`` and ``tensorboard_dir``
+    are kept for parity; the port's ``fit`` does not checkpoint or log to
+    TensorBoard yet. ``detect_anomaly``/``anomaly_policy`` ("raise" or
+    "rollback") and ``anomaly_retry_budget`` act at ``log_every`` windows.
+    """
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-2
+    max_epochs: int = 25
+    grad_clip_norm: Optional[float] = None
+    positive_weight: Optional[float] = None
+    seed: int = 1
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every_epochs: int = 25
+    detect_anomaly: bool = False
+    anomaly_policy: str = "raise"
+    anomaly_retry_budget: int = 3
+    tensorboard_dir: Optional[str] = None
 
 
 def subkeys_for(spec: FeatureSpec) -> Sequence[str]:

@@ -1,17 +1,69 @@
-"""Serving metrics (port of ``ServingStats`` and ``latency_quantile`` from
-``deepdfa_tpu/core/metrics.py``).
+"""Classification and serving metrics (port of ``BinaryStats``,
+``binary_stats``, ``compute_metrics``, ``ServingStats`` and
+``latency_quantile`` from ``deepdfa_tpu/core/metrics.py``).
 
-Host-side counters, a rolling latency window and per-(lane, bucket)
-padding cells. Unlike the reference there is no process-wide telemetry
-registry yet: the snapshot is the only view.
+Confusion counts are summable tensors, so a training epoch folds them on
+the device and reads them once. Serving keeps host-side counters, a
+rolling latency window and per-(lane, bucket) padding cells; unlike the
+reference there is no process-wide telemetry registry yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
+import torch
+
+
+class BinaryStats(NamedTuple):
+    """Sufficient statistics for binary classification metrics (f32
+    scalar tensors), summable across batches."""
+
+    tp: torch.Tensor
+    fp: torch.Tensor
+    tn: torch.Tensor
+    fn: torch.Tensor
+
+    def __add__(self, other: "BinaryStats") -> "BinaryStats":  # type: ignore[override]
+        return BinaryStats(self.tp + other.tp, self.fp + other.fp,
+                           self.tn + other.tn, self.fn + other.fn)
+
+    @staticmethod
+    def zeros(device=None) -> "BinaryStats":
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return BinaryStats(z, z, z, z)
+
+
+def binary_stats(probs: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, threshold: float = 0.5) -> BinaryStats:
+    """Confusion counts at ``threshold`` over masked entries."""
+    pred = (probs >= threshold).float()
+    lab = labels.float()
+    m = mask.float()
+    return BinaryStats(
+        tp=torch.sum(m * pred * lab),
+        fp=torch.sum(m * pred * (1.0 - lab)),
+        tn=torch.sum(m * (1.0 - pred) * (1.0 - lab)),
+        fn=torch.sum(m * (1.0 - pred) * lab),
+    )
+
+
+def compute_metrics(stats: BinaryStats) -> Dict[str, torch.Tensor]:
+    """Accuracy / precision / recall / F1 from counts; an empty
+    denominator gives 0."""
+    tp, fp, tn, fn = stats.tp, stats.fp, stats.tn, stats.fn
+
+    def _safe(n, d):
+        return torch.where(d > 0, n / torch.where(d > 0, d, 1.0),
+                           torch.zeros_like(d))
+
+    acc = _safe(tp + tn, tp + fp + tn + fn)
+    prec = _safe(tp, tp + fp)
+    rec = _safe(tp, tp + fn)
+    f1 = _safe(2 * prec * rec, prec + rec)
+    return {"acc": acc, "precision": prec, "recall": rec, "f1": f1}
 
 
 def latency_quantile(samples_ms, q: float) -> float:

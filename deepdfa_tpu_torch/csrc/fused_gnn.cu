@@ -8,6 +8,12 @@
 //                       _persist_fwd_kernel (launched from
 //                       _run_persistent_fwd, emit_hist=False): all K steps
 //                       in one launch, h resident on chip.
+// persistent_fwd_hist_kernel (the kHist instance of persistent_fwd_kernel)
+//                       replaces its emit_hist=True variant: K - 1 steps
+//                       from h_0, writing h_1..h_{K-1} for the backward.
+//
+// The device functions they share with the backward kernels
+// (fused_gnn_bwd.cu) are in gated_step.cuh.
 //
 // Plain PyTorch versions: fused_step_reference / persistent_reference in
 // deepdfa_tpu_torch/ops/fused_gnn.py. Built by ops/_build.py with
@@ -62,190 +68,9 @@
 //   (weight slabs staged in shared memory, more rows per weight load,
 //   large row groups spread over a thread-block cluster).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "gated_step.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;         // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxH = 128;            // one thread per hidden column
-constexpr int kChunk = 16;            // rows per dense-product chunk
-constexpr int kRowsPerThread = 8;     // kChunk / 2 row halves
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float load_val(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// agg_row[:] = sum_s A[r, s] * hsrc[s - hbase][:] and *rs_out = sum_s A[r, s]
-// over senders s in [lo, hi) of receiver row r's band window. One warp.
-template <typename VT>
-__device__ void warp_aggregate_row(const VT* __restrict__ vals, int r,
-                                   int tile, int n_tiles, int bw,
-                                   const float* hsrc, int hbase, int lo,
-                                   int hi, int H, float* agg_row,
-                                   float* rs_out, int lane) {
-  const int tr = r / tile, rr = r % tile;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float rs = 0.f;
-  for (int d = 0; d <= 2 * bw; ++d) {
-    const int j = tr + d - bw;
-    if (j < 0 || j >= n_tiles) continue;  // sender tile out of range
-    const VT* arow =
-        vals + ((static_cast<size_t>(d) * n_tiles + tr) * tile + rr) * tile;
-    const int base = j * tile;
-    for (int c0 = 0; c0 < tile; c0 += 32) {
-      const int c = c0 + lane;
-      const int s = base + c;
-      float a = 0.f;
-      if (c < tile && s >= lo && s < hi) a = load_val(arow + c);
-      rs += a;
-      unsigned nz = __ballot_sync(kFull, a != 0.f);
-      while (nz) {
-        const int src = __ffs(nz) - 1;
-        nz &= nz - 1;
-        const float av = __shfl_sync(kFull, a, src);
-        const float* hs = hsrc + static_cast<size_t>(base + c0 + src - hbase) * H;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = lane + 32 * q;
-          if (col < H) acc[q] = fmaf(av, hs[col], acc[q]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(kFull, rs, off);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int col = lane + 32 * q;
-    if (col < H) agg_row[col] = acc[q];
-  }
-  if (lane == 0) *rs_out = rs;
-}
-
-// In place on rows [row0, row0 + nrows) of a_s (nrows <= kChunk):
-// a_s[r] <- a_s[r] @ ek + rs_s[r] * eb. Called by the whole block.
-__device__ void chunk_edge_linear(float* a_s, const float* rs_s, int row0,
-                                  int nrows, const float* __restrict__ ek,
-                                  const float* __restrict__ eb, int H,
-                                  int tid) {
-  const int col = tid & (kMaxH - 1), half = tid / kMaxH;
-  const bool active = col < H;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
-  if (active) {
-    for (int k = 0; k < H; k += 4) {
-      float w[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) w[kk] = __ldg(ek + (k + kk) * H + col);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int li = half * kRowsPerThread + i;
-        if (li < nrows) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(a_s + (row0 + li) * H + k);
-          acc[i] = fmaf(x.x, w[0], acc[i]);
-          acc[i] = fmaf(x.y, w[1], acc[i]);
-          acc[i] = fmaf(x.z, w[2], acc[i]);
-          acc[i] = fmaf(x.w, w[3], acc[i]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (active) {
-    const float b = __ldg(eb + col);
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int li = half * kRowsPerThread + i;
-      if (li < nrows) {
-        const int lr = row0 + li;
-        a_s[lr * H + col] = acc[i] + rs_s[lr] * b;
-      }
-    }
-  }
-}
-
-// The GRU gate on rows [row0, row0 + nrows): x from x_s, the carry from
-// h_s, h' into dst (same local row indexing; dst may alias h_s). Called by
-// the whole block.
-__device__ void chunk_gate(const float* x_s, const float* h_s, int row0,
-                           int nrows, const float* __restrict__ wi,
-                           const float* __restrict__ bi,
-                           const float* __restrict__ wh,
-                           const float* __restrict__ bh, int H, float* dst,
-                           int tid) {
-  const int col = tid & (kMaxH - 1), half = tid / kMaxH;
-  const bool active = col < H;
-  const int H3 = 3 * H;
-  float pr[kRowsPerThread], pz[kRowsPerThread], gn[kRowsPerThread],
-      hn[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) pr[i] = pz[i] = gn[i] = hn[i] = 0.f;
-  if (active) {
-    for (int k = 0; k < H; k += 4) {
-      float wir[4], wiz[4], win[4], whr[4], whz[4], whn[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* wi_k = wi + (k + kk) * H3 + col;
-        const float* wh_k = wh + (k + kk) * H3 + col;
-        wir[kk] = __ldg(wi_k);
-        wiz[kk] = __ldg(wi_k + H);
-        win[kk] = __ldg(wi_k + 2 * H);
-        whr[kk] = __ldg(wh_k);
-        whz[kk] = __ldg(wh_k + H);
-        whn[kk] = __ldg(wh_k + 2 * H);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int li = half * kRowsPerThread + i;
-        if (li < nrows) {
-          const int lr = row0 + li;
-          const float4 x4 = *reinterpret_cast<const float4*>(x_s + lr * H + k);
-          const float4 h4 = *reinterpret_cast<const float4*>(h_s + lr * H + k);
-          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            pr[i] = fmaf(xv[kk], wir[kk], pr[i]);
-            pr[i] = fmaf(hv[kk], whr[kk], pr[i]);
-            pz[i] = fmaf(xv[kk], wiz[kk], pz[i]);
-            pz[i] = fmaf(hv[kk], whz[kk], pz[i]);
-            gn[i] = fmaf(xv[kk], win[kk], gn[i]);
-            hn[i] = fmaf(hv[kk], whn[kk], hn[i]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // every read of this chunk's h rows is done
-  if (active) {
-    const float b_r = __ldg(bi + col) + __ldg(bh + col);
-    const float b_z = __ldg(bi + H + col) + __ldg(bh + H + col);
-    const float b_in = __ldg(bi + 2 * H + col);
-    const float b_hn = __ldg(bh + 2 * H + col);
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int li = half * kRowsPerThread + i;
-      if (li < nrows) {
-        const int lr = row0 + li;
-        const float rg = sigmoidf_(pr[i] + b_r);
-        const float zg = sigmoidf_(pz[i] + b_z);
-        const float ng = tanhf(gn[i] + b_in + rg * (hn[i] + b_hn));
-        const float hc = h_s[lr * H + col];
-        dst[lr * H + col] = (1.0f - zg) * ng + zg * hc;
-      }
-    }
-  }
-}
 
 template <typename VT>
 __global__ void __launch_bounds__(kThreads)
@@ -276,7 +101,13 @@ __global__ void __launch_bounds__(kThreads)
              out + static_cast<size_t>(r0) * H, tid);
 }
 
-template <typename VT>
+// kHist = false: h_K into out. kHist = true (the backward's recompute
+// sweep, replacing _persist_fwd_kernel's emit_hist variant): after each
+// of the n_steps steps the group's h_{k+1} goes to hist[k] ([n_steps,
+// n_rows, H]) and out is not written. Both instances run the same step
+// code, so hist[k] equals persistent_fwd_kernel's h after k + 1 steps bit
+// for bit.
+template <typename VT, bool kHist>
 __global__ void __launch_bounds__(kThreads)
     persistent_fwd_kernel(const float* __restrict__ h0,
                           const VT* __restrict__ vals,
@@ -288,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ bh,
                           const int* __restrict__ groups,
                           float* __restrict__ out, int H, int tile,
-                          int n_tiles, int bw, int n_steps) {
+                          int n_tiles, int bw, int n_steps, int n_rows) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g0 = groups[blockIdx.x], g1 = groups[blockIdx.x + 1];
@@ -311,9 +142,15 @@ __global__ void __launch_bounds__(kThreads)
       chunk_gate(a_s, h_s, c0, min(kChunk, R - c0), wi, bi, wh, bh, H, h_s,
                  tid);
     __syncthreads();
+    if (kHist) {
+      float* hk = out + (static_cast<size_t>(step) * n_rows + g0) * H;
+      for (int i = tid; i < R * H; i += kThreads) hk[i] = h_s[i];
+    }
   }
-  float* o_blk = out + static_cast<size_t>(g0) * H;
-  for (int i = tid; i < R * H; i += kThreads) o_blk[i] = h_s[i];
+  if (!kHist) {
+    float* o_blk = out + static_cast<size_t>(g0) * H;
+    for (int i = tid; i < R * H; i += kThreads) o_blk[i] = h_s[i];
+  }
 }
 
 template <typename VT>
@@ -332,7 +169,7 @@ int launch_fused(const void* h, const void* vals, const void* ek,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename VT>
+template <typename VT, bool kHist>
 int launch_persistent(const void* h0, const void* vals, const void* ek,
                       const void* eb, const void* wi, const void* bi,
                       const void* wh, const void* bh, const void* groups,
@@ -342,16 +179,16 @@ int launch_persistent(const void* h0, const void* vals, const void* ek,
   const size_t smem =
       static_cast<size_t>(max_group_rows) * (2 * hidden + 1) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      persistent_fwd_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      persistent_fwd_kernel<VT, kHist>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  persistent_fwd_kernel<VT><<<n_groups, kThreads, smem, st>>>(
+  persistent_fwd_kernel<VT, kHist><<<n_groups, kThreads, smem, st>>>(
       static_cast<const float*>(h0), static_cast<const VT*>(vals),
       static_cast<const float*>(ek), static_cast<const float*>(eb),
       static_cast<const float*>(wi), static_cast<const float*>(bi),
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<const int*>(groups), static_cast<float*>(out), hidden, tile,
-      n_tiles, bw, n_steps);
+      n_tiles, bw, n_steps, n_tiles * tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -390,12 +227,32 @@ int persistent_fwd_launch(const void* h0, const void* vals, int vals_bf16,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
-    return launch_persistent<__nv_bfloat16>(
+    return launch_persistent<__nv_bfloat16, false>(
         h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
         n_steps, out, hidden, tile, n_tiles, bandwidth, st);
-  return launch_persistent<float>(h0, vals, ek, eb, wi, bi, wh, bh, groups,
-                                  n_groups, max_group_rows, n_steps, out,
-                                  hidden, tile, n_tiles, bandwidth, st);
+  return launch_persistent<float, false>(
+      h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+      n_steps, out, hidden, tile, n_tiles, bandwidth, st);
+}
+
+// The backward's recompute sweep: n_steps gated steps from h0 (the
+// caller passes K - 1), writing each step's h into hist [n_steps, n_rows,
+// hidden]. Otherwise as persistent_fwd_launch.
+int persistent_fwd_hist_launch(const void* h0, const void* vals,
+                               int vals_bf16, const void* ek, const void* eb,
+                               const void* wi, const void* bi, const void* wh,
+                               const void* bh, const void* groups,
+                               int n_groups, int max_group_rows, int n_steps,
+                               void* hist, int hidden, int tile, int n_tiles,
+                               int bandwidth, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16)
+    return launch_persistent<__nv_bfloat16, true>(
+        h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+        n_steps, hist, hidden, tile, n_tiles, bandwidth, st);
+  return launch_persistent<float, true>(
+      h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+      n_steps, hist, hidden, tile, n_tiles, bandwidth, st);
 }
 
 }  // extern "C"

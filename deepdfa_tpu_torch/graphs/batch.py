@@ -5,8 +5,10 @@ node slots and ``max_edges`` edge slots; real entries are marked by
 masks and padding is inert under the masked ops. Budgets round up a
 power-of-two ladder so traffic sees a handful of shapes.
 
-Only the python packing path is ported; the reference's C++ batcher
-(``native.fill_batch``) and dense-slot packing are not ported yet.
+Only the python packing path is ported, with the greedy
+:func:`batch_iterator`; the reference's C++ batcher
+(``native.fill_batch``) and dense-slot packing (``slot_nodes``) are not
+ported yet.
 Batches are built on the host as CPU tensors; ``GraphBatch.to`` moves
 them to the device.
 """
@@ -14,12 +16,13 @@ them to the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from deepdfa_tpu_torch.contracts.schema import ContractError
+from deepdfa_tpu_torch.graphs.segment import segment_max
 from deepdfa_tpu_torch.ops.band_spmm import BandAdjacency, build_band_adjacency
 from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE
 
@@ -75,6 +78,14 @@ class GraphBatch:
         if self.band_adj is not None:
             moved["band_adj"] = self.band_adj.to(device)
         return GraphBatch(**moved)
+
+
+def graph_label_from_nodes(batch: GraphBatch) -> torch.Tensor:
+    """Graph-level label = max node ``vuln`` over the graph's real nodes
+    (the reference's segment form); an empty slot gets 0."""
+    vuln = torch.where(batch.node_mask, batch.node_vuln.float(), -torch.inf)
+    out = segment_max(vuln, batch.node_graph, batch.n_graphs)
+    return torch.where(torch.isneginf(out), 0.0, out)
 
 
 # Bucket ladder top for padding budgets: beyond it, sizes stay exact.
@@ -219,3 +230,39 @@ def batch_graphs(
         graph_ids=t(graph_ids),
         band_adj=band_adj,
     )
+
+
+def batch_iterator(
+    graphs: List[Mapping],
+    n_graphs: int,
+    max_nodes: int,
+    max_edges: int,
+    subkeys: Sequence[str],
+    add_self_loops: bool = True,
+    tile: Optional[int] = None,
+    build_band_adj: bool = False,
+    band_bandwidth: Optional[int] = None,
+) -> Iterator[GraphBatch]:
+    """Greedy packer: yields GraphBatches in order, starting a new batch
+    when the next graph would overflow the graph, node or edge budget."""
+    pending: List[Mapping] = []
+    nodes = edges = 0
+    kw = dict(add_self_loops=add_self_loops, tile=tile,
+              build_band_adj=build_band_adj, band_bandwidth=band_bandwidth)
+    for g in graphs:
+        n = int(g["num_nodes"])
+        e = len(g["senders"]) + (n if add_self_loops else 0)
+        if pending and (len(pending) >= n_graphs or nodes + n > max_nodes
+                        or edges + e > max_edges):
+            yield batch_graphs(pending, n_graphs, max_nodes, max_edges,
+                               subkeys, **kw)
+            pending, nodes, edges = [], 0, 0
+        if n > max_nodes or e > max_edges:
+            raise ValueError(f"single graph exceeds budget: {n} nodes / "
+                             f"{e} edges")
+        pending.append(g)
+        nodes += n
+        edges += e
+    if pending:
+        yield batch_graphs(pending, n_graphs, max_nodes, max_edges, subkeys,
+                           **kw)

@@ -16,9 +16,13 @@ kernels, orthogonal recurrent kernels, zero biases) from an explicit
 ``message_impl``: "segment" and "band" are plain PyTorch on any device;
 "fused" runs ``ops.fused_gnn.fused_gate_step`` per step and "persistent"
 runs ``ops.fused_gnn.persistent_unroll`` once — the CUDA kernels on the
-card, their plain versions on the CPU. A persistent batch whose row
-groups exceed the kernel's shared memory runs the fused kernel per step
-instead, counted in ``FlowGNN.over_gate_dispatches``.
+card, their plain versions on the CPU. Under autograd the kernels run
+through ``torch.autograd.Function``s whose backwards are CUDA kernels
+too; under ``torch.inference_mode()`` or ``no_grad`` only the forward
+kernels launch. A persistent batch whose row groups exceed the kernel's
+shared memory (the backward's larger gate when a gradient is needed)
+runs the fused kernel per step instead, counted in
+``FlowGNN.over_gate_dispatches``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from deepdfa_tpu_torch.core.config import FlowGNNConfig, subkeys_for
@@ -88,7 +93,10 @@ def _linear(n_in: int, n_out: int, gen: torch.Generator, bias: bool = True,
 
 class EmbedTable(nn.Module):
     """An embedding table (flax ``{name}/embedding``), looked up with a
-    gather."""
+    gather. ``F.embedding`` rather than indexing: the same forward, and
+    its backward reduces the rows of each index in parallel, where
+    indexing's backward walks repeated indices one by one (most nodes
+    share index 0, "not a definition")."""
 
     def __init__(self, num: int, dim: int, gen: torch.Generator):
         super().__init__()
@@ -98,7 +106,7 @@ class EmbedTable(nn.Module):
             torch.randn((num, dim), generator=gen) * math.sqrt(1.0 / dim))
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.embedding[idx.long()]
+        return F.embedding(idx.long(), self.embedding)
 
 
 class GatedGraphStep(nn.Module):
@@ -225,14 +233,20 @@ class FlowGNN(nn.Module):
         step = self.ggnn_step
         packed = None
         if h.is_cuda and cfg.message_impl in ("fused", "persistent"):
-            # Pack the r|z|n weights once for every launch of this pass.
+            # Pack the r|z|n weights once for every launch of this pass
+            # (differentiable: autograd maps the packed gradients back).
             packed = fused_gnn.packed_weights(step.step_params())
         if cfg.message_impl == "persistent":
             if batch.band_adj is None:
                 raise ValueError("message_impl='persistent' needs "
                                  "batch_graphs(build_band_adj=True)")
-            if h.is_cuda and not fused_gnn.persistent_smem_ok(
-                    batch.band_adj, cfg.ggnn_hidden):
+            # A pass that needs a gradient runs the persistent backward
+            # too, which holds more a row: its gate decides.
+            if h.is_cuda and not (
+                    fused_gnn.persistent_bwd_smem_ok
+                    if fused_gnn.needs_grad(h, packed)
+                    else fused_gnn.persistent_smem_ok)(batch.band_adj,
+                                                       cfg.ggnn_hidden):
                 # Over the shared-memory gate: the fused kernel per step.
                 self.over_gate_dispatches += 1
             else:

@@ -24,7 +24,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: library name -> source path, relative to the package.
-SOURCES: Dict[str, str] = {"fused_gnn": os.path.join("csrc", "fused_gnn.cu")}
+SOURCES: Dict[str, str] = {
+    "fused_gnn": os.path.join("csrc", "fused_gnn.cu"),
+    "fused_gnn_bwd": os.path.join("csrc", "fused_gnn_bwd.cu"),
+}
+#: Headers every source may include; their text joins each library's hash.
+HEADERS: Tuple[str, ...] = (os.path.join("csrc", "gated_step.cuh"),)
 
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +52,28 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # stream
         "persistent_fwd_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _P, _I, _I, _I, _I, _P],
+        # the same arguments, hist in place of out
+        "persistent_fwd_hist_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                                       _P],
+    },
+    "fused_gnn_bwd": {
+        # h, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT, whT,
+        # ekT, x, dp, dx, dhl, dmsg, dh, n_rows, hidden, tile, n_tiles,
+        # bandwidth, stream
+        "fused_step_bwd_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _P],
+        # h0, hist, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT,
+        # whT, ekT, groups, n_groups, max_group_rows, n_steps, x, dp, dmsg,
+        # dh, hidden, tile, n_tiles, bandwidth, stream
+        "persistent_bwd_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _P],
+        # h0, hist, x, dp, dmsg, n_rows, hidden, n_steps, rows_per_split,
+        # partial, dek, deb, dwi, dbi, dwh, dbh, stream
+        "step_weight_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                    _P, _P, _P, _P, _P, _P, _P],
     },
 }
 
@@ -68,8 +95,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(_PKG, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in (SOURCES[name], *HEADERS):
+        with open(os.path.join(_PKG, rel), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

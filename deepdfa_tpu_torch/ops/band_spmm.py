@@ -154,6 +154,29 @@ def vals_compute(adj: BandAdjacency, dt: torch.dtype
     return vals.to(dt), dt
 
 
+def band_transpose_vals(vals: torch.Tensor, bandwidth: int,
+                        n_tiles: int) -> torch.Tensor:
+    """The block-band form of A^T from the block-band form of A:
+    ``t_vals[e, c] = vals[2B-e, c+e-B]^T``, zero where the source row tile
+    falls outside the batch (the reference's ``band_transpose_vals``,
+    plain torch as it is plain XLA there). A row group closed under the
+    edges stays closed under A^T."""
+    w = 2 * bandwidth + 1
+    outs = []
+    for e in range(w):
+        shift = e - bandwidth
+        padded = F.pad(vals[w - 1 - e], (0, 0, 0, 0, bandwidth, bandwidth))
+        sl = padded[shift + bandwidth: shift + bandwidth + n_tiles]
+        outs.append(sl.transpose(1, 2))
+    return torch.stack(outs).contiguous()
+
+
+def transpose_band(adj: BandAdjacency) -> BandAdjacency:
+    """A^T as a BandAdjacency (same tiles, bandwidth and row groups)."""
+    return dataclasses.replace(
+        adj, vals=band_transpose_vals(adj.vals, adj.bandwidth, adj.n_tiles))
+
+
 def band_spmm(adj: BandAdjacency, msg: torch.Tensor) -> torch.Tensor:
     """``agg = A @ msg`` over the block diagonals: one batched matmul
     ``[T, t, t] x [T, t, H]`` per diagonal, shifted sender tiles from a

@@ -43,7 +43,10 @@ def test_port_imports_with_jax_blocked_and_loads_no_reference_module():
     for name in ("deepdfa_tpu_torch.cli", "deepdfa_tpu_torch.ops.fused_gnn",
                  "deepdfa_tpu_torch.ops._build",
                  "deepdfa_tpu_torch.serve.engine",
-                 "deepdfa_tpu_torch.models.convert"):
+                 "deepdfa_tpu_torch.models.convert",
+                 "deepdfa_tpu_torch.train.loop",
+                 "deepdfa_tpu_torch.data.splits",
+                 "deepdfa_tpu_torch.data.sampling"):
         assert name in report["modules"]
 
 
@@ -94,7 +97,7 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("name", ["FeatureSpec", "FlowGNNConfig",
-                                  "DataConfig"])
+                                  "DataConfig", "TrainConfig"])
 def test_config_dataclasses_match_the_reference(name):
     pytest.importorskip("jax")
     from deepdfa_tpu.core import config as jcfg

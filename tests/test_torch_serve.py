@@ -202,8 +202,10 @@ def test_cli_score_report_parses(tmp_path, capsys):
     assert report["message_impl"] == "persistent"
     assert report["serving"]["completed"] == 32
     # On the CPU the plain versions run: no kernel launch is counted.
-    assert report["kernel_launches"] == fused_gnn.launch_counts() == {
-        "fused_step_kernel": 0, "persistent_fwd_kernel": 0}
+    assert report["kernel_launches"] == fused_gnn.launch_counts()
+    assert set(report["kernel_launches"]) >= {"fused_step_kernel",
+                                              "persistent_fwd_kernel"}
+    assert not any(report["kernel_launches"].values())
     with open(report["out"]) as f:
         lines = f.read().splitlines()
     assert lines[0] == "index,prob,label" and len(lines) == 33
