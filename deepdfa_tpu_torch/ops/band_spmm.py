@@ -44,6 +44,9 @@ class BandAdjacency:
            adjacency was not built from an edge list.
     max_group_rows : the largest ``c_{g+1} - c_g`` (host int, so the
            kernel's shared-memory gate needs no device read).
+
+    :meth:`transpose_vals` builds A^T's block diagonals at first use and
+    keeps them, so every backward over one batch reads the same A^T.
     """
 
     vals: torch.Tensor
@@ -52,12 +55,21 @@ class BandAdjacency:
     bandwidth: int = 1
     row_groups: Optional[torch.Tensor] = None
     max_group_rows: int = 0
+    _tvals: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def to(self, device: Union[str, torch.device]) -> "BandAdjacency":
         return dataclasses.replace(
             self, vals=self.vals.to(device),
             row_groups=(None if self.row_groups is None
                         else self.row_groups.to(device)))
+
+    def transpose_vals(self) -> torch.Tensor:
+        """:func:`band_transpose_vals` of this band, built once."""
+        if self._tvals is None:
+            self._tvals = band_transpose_vals(self.vals, self.bandwidth,
+                                              self.n_tiles)
+        return self._tvals
 
 
 def _bucket_bandwidth(b: int) -> int:
@@ -173,8 +185,7 @@ def band_transpose_vals(vals: torch.Tensor, bandwidth: int,
 
 def transpose_band(adj: BandAdjacency) -> BandAdjacency:
     """A^T as a BandAdjacency (same tiles, bandwidth and row groups)."""
-    return dataclasses.replace(
-        adj, vals=band_transpose_vals(adj.vals, adj.bandwidth, adj.n_tiles))
+    return dataclasses.replace(adj, vals=adj.transpose_vals())
 
 
 def band_spmm(adj: BandAdjacency, msg: torch.Tensor) -> torch.Tensor:

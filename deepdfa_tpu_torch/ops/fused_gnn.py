@@ -61,7 +61,6 @@ import torch
 from deepdfa_tpu_torch.ops.band_spmm import (
     BandAdjacency,
     band_spmm,
-    band_transpose_vals,
     transpose_band,
 )
 
@@ -408,14 +407,6 @@ def _transposed(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return wi.t().contiguous(), wh.t().contiguous(), ek.t().contiguous()
 
 
-def _tvals(adj: BandAdjacency, tvals: Optional[torch.Tensor]) -> torch.Tensor:
-    if tvals is None:
-        tvals = band_transpose_vals(adj.vals, adj.bandwidth, adj.n_tiles)
-    if tvals.shape != adj.vals.shape or tvals.dtype != adj.vals.dtype:
-        raise ValueError("tvals must be band_transpose_vals of the band")
-    return tvals.contiguous()
-
-
 class _FusedStep(torch.autograd.Function):
     """``fused_step_kernel`` forward, ``fused_step_bwd_kernel`` and
     ``step_weight_grad_kernel`` backward. Differentiable in ``h`` and the
@@ -524,17 +515,16 @@ persistent_unroll.launches = 0
 
 def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
                         adj: BandAdjacency, g: torch.Tensor,
-                        packed: Optional[Sequence[torch.Tensor]] = None,
-                        tvals: Optional[torch.Tensor] = None):
+                        packed: Optional[Sequence[torch.Tensor]] = None):
     """One step's backward down to ``(dh, x, dp, dmsg)`` (see
     :func:`fused_step_bwd_rows_reference`). CUDA tensors:
-    ``fused_step_bwd_kernel`` (two passes, one count); ``tvals``:
-    :func:`band_transpose_vals` of the band, when the caller has it."""
+    ``fused_step_bwd_kernel`` (two passes, one count), reading A^T from
+    :meth:`BandAdjacency.transpose_vals`."""
     if h.device.type == "cpu":
         return fused_step_bwd_rows_reference(params, h, adj, g)
     _check_cuda_inputs(h, adj)
     g = _check_like(g, h, "the output cotangent")
-    tv = _tvals(adj, tvals)
+    tv = adj.transpose_vals()
     with torch.cuda.device(h.device):
         lib, weights, bf16, stream = _launch_args(params, h, adj, packed,
                                                   "fused_gnn_bwd")
@@ -612,14 +602,13 @@ step_weight_grads.launches = 0
 
 def fused_step_backward(params: Optional[Mapping], h: torch.Tensor,
                         adj: BandAdjacency, g: torch.Tensor,
-                        packed: Optional[Sequence[torch.Tensor]] = None,
-                        tvals: Optional[torch.Tensor] = None):
+                        packed: Optional[Sequence[torch.Tensor]] = None):
     """The step VJP ``(dh, dek, deb, dwi, dbi, dwh, dbh)``: CPU tensors
     :func:`fused_step_backward_reference`; CUDA tensors
     ``fused_step_bwd_kernel`` then ``step_weight_grad_kernel``."""
     if h.device.type == "cpu":
         return fused_step_backward_reference(params, h, adj, g)
-    dh, x, dp, dmsg = fused_step_bwd_rows(params, h, adj, g, packed, tvals)
+    dh, x, dp, dmsg = fused_step_bwd_rows(params, h, adj, g, packed)
     return (dh, *step_weight_grads(h.contiguous(), None, x[None], dp[None],
                                    dmsg[None], 1))
 
@@ -651,8 +640,7 @@ persistent_hist.launches = 0
 def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
                         hist: torch.Tensor, adj: BandAdjacency,
                         g: torch.Tensor, n_steps: int,
-                        packed: Optional[Sequence[torch.Tensor]] = None,
-                        tvals: Optional[torch.Tensor] = None):
+                        packed: Optional[Sequence[torch.Tensor]] = None):
     """The reverse sweep ``(dh_0, x, dp, dmsg)`` of ``n_steps`` steps (see
     :func:`persistent_bwd_rows_reference`). CUDA tensors: one
     ``persistent_bwd_kernel`` launch, which needs
@@ -673,7 +661,7 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
         raise ValueError(f"hist must be contiguous [{n_steps - 1}, {n}, "
                          f"{hidden}]")
     groups = _row_groups(adj, h0)
-    tv = _tvals(adj, tvals)
+    tv = adj.transpose_vals()
     with torch.cuda.device(h0.device):
         lib, weights, bf16, stream = _launch_args(params, h0, adj, packed,
                                                   "fused_gnn_bwd")

@@ -391,6 +391,21 @@ def test_transposed_band_aggregates_a_transpose():
                                atol=1e-5)
 
 
+def test_band_keeps_its_transpose():
+    rng = np.random.default_rng(6)
+    s, r, n = _edges(rng, 8, 5, 12)
+    adj = pt_band.build_band_adjacency(s, r, np.ones(len(s), bool), n, tile=8)
+    tv = adj.transpose_vals()
+    assert torch.equal(tv, pt_band.band_transpose_vals(adj.vals,
+                                                       adj.bandwidth,
+                                                       adj.n_tiles))
+    # Built once: every backward over the batch reads the same A^T.
+    assert adj.transpose_vals() is tv
+    assert pt_band.transpose_band(adj).vals is tv
+    # A copy on another device builds its own.
+    assert adj.to("cpu").transpose_vals() is not tv
+
+
 def test_persistent_backward_shared_memory_gate():
     rng = np.random.default_rng(3)
     s, r, _ = _graph_edges(rng, [40] * 16)
