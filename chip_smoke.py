@@ -34,8 +34,29 @@ one:
    CPU, per-step losses compared; then a step-time breakdown (CUDA
    events) and each kernel's device ms a step (``torch.profiler``).
 8. Train, fused lane: the same with ``message_impl="fused"``.
+9. The four flash-attention kernels against their plain versions at the
+   text training shape (B 16, T 512, H 12, D 64: random q/k/v at the
+   encoder's init scale, a mask with padded tails and one all-pad row)
+   and at the long shape (B 8, T 4096, H 12), the fused backward against
+   the two-pass pair at T 512, with times, bounds and the time of
+   ``F.scaled_dot_product_attention`` on the same inputs without the
+   all-pad row (forward, and its autograd backward).
+10. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
+   width and depth (codebert-base, 12 layers, T 512, batch 16, the
+   FlowGNN encoder, ``TransformerTrainConfig`` defaults but one epoch:
+   6 steps and one validation batch on ``synthetic:120``), launches
+   counted over the run; then a step-time breakdown (CUDA events),
+   examples per second and each kernel's device ms a step
+   (``torch.profiler``).
+11. The same ``fit_text`` on the card and on the CPU, at full width with
+   the depth cut to 2 layers, batch 4, dropout off (the two devices'
+   random streams differ): 3 steps, per-step losses compared.
+12. ``fit_text`` at T 4096 (batch 8, 2 layers, 2 steps): one
+   (batch, head)'s dq no longer fits shared memory, so the backward runs
+   the two-pass pair.
 
-Every number goes on a line of its own before the last; the last line is
+Each phase's seconds go into a ``phase_seconds`` record. Every number
+goes on a line of its own before the last; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,17 +73,30 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch.cli import load_dataset
-from deepdfa_tpu_torch.core.config import DataConfig, FlowGNNConfig, TrainConfig
+from deepdfa_tpu_torch.core.config import (
+    DataConfig,
+    FlowGNNConfig,
+    TrainConfig,
+    TransformerTrainConfig,
+    subkeys_for,
+)
+from deepdfa_tpu_torch.data.combined import (
+    graph_join_and_budget,
+    load_combined_dataset,
+)
 from deepdfa_tpu_torch.data.sampling import epoch_indices
 from deepdfa_tpu_torch.data.splits import make_splits
 from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
+from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
 from deepdfa_tpu_torch.graphs.batch import batch_graphs, pad_budget_for
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
-from deepdfa_tpu_torch.ops import _build, fused_gnn
+from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
+from deepdfa_tpu_torch.models.transformer import EncoderConfig
+from deepdfa_tpu_torch.ops import _build, attention, fused_gnn
 from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE, align_to_tile
 from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
 from deepdfa_tpu_torch.serve.engine import bucket_batch
-from deepdfa_tpu_torch.train import loop
+from deepdfa_tpu_torch.train import loop, text_loop
 
 SEED = 0
 N_REQUESTS = 64
@@ -114,6 +148,35 @@ SOURCES = {name: "deepdfa_tpu_torch/csrc/fused_gnn.cu"
 SOURCES.update({name: "deepdfa_tpu_torch/csrc/fused_gnn_bwd.cu"
                 for name in ("fused_step_bwd_kernel", "persistent_bwd_kernel",
                              "step_weight_grad_kernel")})
+
+
+# DeepDFA+LineVul. Attention kernel shapes (B, T, H, D): the text
+# training batch (16 functions of 512 tokens, codebert-base's 12 heads of
+# 64) and the long-context shape the reference trains at T 4096.
+ATTN_TRAIN_SHAPE = (16, 512, 12, 64)
+ATTN_LONG_SHAPE = (8, 4096, 12, 64)
+# Forward against the plain version: f32 in another order (64-key tiles
+# against 512-key blocks). Gradients sum over up to 4096 keys or queries:
+# |kernel - plain| <= atol + rtol * |plain| elementwise, as _check.
+ATTN_FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+ATTN_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# fit_text runs: synthetic:N split 80/10/10. Full depth: 96 training
+# rows = 6 steps of 16 and 12 validation rows = one batch. Card against
+# CPU: 12 rows = 3 steps of 4. Long context: 16 rows = 2 steps of 8.
+TEXT_N_FULL, TEXT_N_VS_CPU, TEXT_N_LONG = 120, 15, 20
+TEXT_SEED = 1
+# Per-step losses of the 2-layer run, card against CPU (f32 order, and
+# the FlowGNN scatters' atomics on the card).
+TEXT_LOSS_TOL = 1e-4
+TEXT_PROFILE_STEPS = 3
+REPLACES.update({
+    "flash_fwd_kernel": "deepdfa_tpu/ops/attention.py:220",
+    "flash_bwd_fused_kernel": "deepdfa_tpu/ops/attention.py:320",
+    "flash_bwd_dq_kernel": "deepdfa_tpu/ops/attention.py:262",
+    "flash_bwd_dkv_kernel": "deepdfa_tpu/ops/attention.py:293",
+})
+SOURCES.update({name: "deepdfa_tpu_torch/csrc/flash_attn.cu"
+                for name in attention.KERNELS})
 
 
 def emit(**record) -> None:
@@ -593,24 +656,21 @@ def _step_breakdown(model: FlowGNN, batch, reps: int = 10) -> dict:
     return {k: statistics.median(v[2:]) for k, v in parts.items()}
 
 
-def _profile_step(model: FlowGNN, batch) -> dict:
-    """Device ms a train step by kernel: ``PROFILE_STEPS`` steps of
-    ``make_train_step`` under ``torch.profiler`` after three warm-up
-    steps; the ``PROFILE_TOP`` kernels with the most device time, and the
-    device-busy ms a step (the sum over every kernel; overlapping kernels
-    would count twice, and this path runs one stream)."""
+def _device_profile(step, n_steps: int) -> dict:
+    """Device ms a call of ``step`` by kernel: ``n_steps`` calls under
+    ``torch.profiler`` after three warm-up calls; the ``PROFILE_TOP``
+    kernels with the most device time, and the device-busy ms a call (the
+    sum over every kernel; overlapping kernels would count twice, and
+    these paths run one stream)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = loop.make_train_step(
-        model, loop.make_optimizer(model.parameters(), TrainConfig()),
-        TrainConfig())
     for _ in range(3):
-        step(batch)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            step(batch)
+        for _ in range(n_steps):
+            step()
         torch.cuda.synchronize()
     kernels = []
     for evt in prof.key_averages():
@@ -621,14 +681,22 @@ def _profile_step(model: FlowGNN, batch) -> dict:
         if getattr(evt, "is_user_annotation", False):
             continue
         if us > 0 and "cuda" in str(evt.device_type).lower():
-            kernels.append((us / 1e3 / PROFILE_STEPS, evt.key,
-                            evt.count / PROFILE_STEPS))
+            kernels.append((us / 1e3 / n_steps, evt.key, evt.count / n_steps))
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
     kernels.sort(reverse=True)
     return {"device_busy_ms": sum(k[0] for k in kernels),
             "top_kernels": [{"name": name[:90], "ms": ms, "calls": calls}
                             for ms, name, calls in kernels[:PROFILE_TOP]]}
+
+
+def _profile_step(model: FlowGNN, batch) -> dict:
+    """``_device_profile`` of ``PROFILE_STEPS`` steps of
+    ``make_train_step``."""
+    step = loop.make_train_step(
+        model, loop.make_optimizer(model.parameters(), TrainConfig()),
+        TrainConfig())
+    return _device_profile(lambda: step(batch), PROFILE_STEPS)
 
 
 def phase_train(impl: str) -> dict:
@@ -697,35 +765,364 @@ def phase_train(impl: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# DeepDFA+LineVul: the flash-attention kernels and fit_text
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(shape, seed: int, all_pad_row: bool = True):
+    """q, k, v and a cotangent at the encoder's init scale (x after
+    LayerNorm times lecun-normal weights: unit variance), and a kv mask
+    with padded tails (and one all-pad row)."""
+    b, t, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(4))
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen,
+                            device="cuda")
+    if all_pad_row:
+        lengths[-1] = 0
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    return q, k, v, mask, g
+
+
+def _sdpa_calls(q, k, v, mask, g):
+    """``F.scaled_dot_product_attention`` with the same boolean mask, as
+    (forward, autograd backward) callables: the yardstick of
+    ``library_ms``, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    am = mask[:, None, None, :]
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    gt = g.transpose(1, 2).contiguous()
+
+    def bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+    return fwd, bwd
+
+
+def phase_attention_kernels() -> dict:
+    """Each flash kernel against its plain version at the text training
+    shape and the long shape, timed beside its bound and SDPA. Returns
+    the numbers at the main-path shapes by kernel: the forward and the
+    fused backward at T 512, the two-pass pair at T 4096."""
+    out = {}
+    for shape_name, shape, iters, reps in (("train", ATTN_TRAIN_SHAPE, 10, 3),
+                                           ("long", ATTN_LONG_SHAPE, 2, 3)):
+        b, t, h, d = shape
+        q, k, v, mask, g = _attn_inputs(shape, SEED)
+        # SDPA gives a fully masked row NaN: time it on the same inputs
+        # with every row holding tokens.
+        full = mask.clone()
+        full[-1, : t // 2] = True
+        lib_fwd, lib_bwd = _sdpa_calls(q, k, v, full, g)
+        o, lse = attention.flash_fwd(q, k, v, mask)
+        o_ref, lse_ref = attention.flash_fwd_reference(q, k, v, mask)
+        err = max(_check(f"flash_fwd_kernel@{shape_name}", o, o_ref,
+                         ATTN_FWD_TOL),
+                  _check(f"flash_fwd_kernel@{shape_name} lse", lse, lse_ref,
+                         ATTN_FWD_TOL))
+        if not bool((o[-1] == 0).all()):
+            raise AssertionError("flash_fwd_kernel: the all-pad row is not 0")
+        delta = attention.flash_delta(o_ref, g)
+        args = (q, k, v, mask, g, lse_ref, delta)
+        runs = {"flash_fwd_kernel": (
+            err, lambda: attention.flash_fwd(q, k, v, mask),
+            lambda: attention.flash_fwd_reference(q, k, v, mask), lib_fwd)}
+        dq = attention.flash_bwd_dq(*args)
+        dk, dv = attention.flash_bwd_dkv(*args)
+        if attention.flash_fused_bwd_smem_ok(t, d):
+            want = attention.flash_bwd_fused_reference(*args)
+            fused = attention.flash_bwd_fused(*args)
+            err = max(_check(f"flash_bwd_fused_kernel[{i}]@{shape_name}", a,
+                             w, ATTN_GRAD_TOL)
+                      for i, (a, w) in enumerate(zip(fused, want)))
+            # Fused against the two-pass pair, kernel against kernel.
+            for i, (a, c) in enumerate(zip(fused, (dq, dk, dv))):
+                _check(f"fused vs two-pass [{i}]@{shape_name}", a, c,
+                       ATTN_GRAD_TOL)
+            runs["flash_bwd_fused_kernel"] = (
+                err, lambda: attention.flash_bwd_fused(*args),
+                lambda: attention.flash_bwd_fused_reference(*args), lib_bwd)
+        else:
+            want = (attention.flash_bwd_dq_reference(*args),
+                    *attention.flash_bwd_dkv_reference(*args))
+        err_dq = _check(f"flash_bwd_dq_kernel@{shape_name}", dq, want[0],
+                        ATTN_GRAD_TOL)
+        err_dkv = max(_check(f"flash_bwd_dkv_kernel[{i}]@{shape_name}", a, w,
+                             ATTN_GRAD_TOL)
+                      for i, (a, w) in enumerate(zip((dk, dv), want[1:])))
+        runs["flash_bwd_dq_kernel"] = (
+            err_dq, lambda: attention.flash_bwd_dq(*args),
+            lambda: attention.flash_bwd_dq_reference(*args), lib_bwd)
+        runs["flash_bwd_dkv_kernel"] = (
+            err_dkv, lambda: attention.flash_bwd_dkv(*args),
+            lambda: attention.flash_bwd_dkv_reference(*args), lib_bwd)
+        for name, (err, kernel, plain, library) in runs.items():
+            kernel_ms = _time_ms(kernel, iters, reps)
+            plain_ms = _time_ms(plain, iters, reps)
+            library_ms = _time_ms(library, iters, reps)
+            cost = attention.kernel_cost(b, h, t, t, d, name)
+            bound_ms, bound_by = _bound(cost)
+            rec = dict(kernel=name, shape=shape_name, B=b, T=t, H=h, D=d,
+                       max_abs_err=err,
+                       tol=ATTN_FWD_TOL if name == "flash_fwd_kernel"
+                       else ATTN_GRAD_TOL,
+                       kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_us=bound_ms * 1e3,
+                       bound_by=bound_by, flops=cost["flops"],
+                       bytes=cost["bytes"],
+                       tflops=cost["flops"] / kernel_ms / 1e9)
+            emit(phase="attention_kernels", **rec)
+            main_shape = ("long" if name in ("flash_bwd_dq_kernel",
+                                             "flash_bwd_dkv_kernel")
+                          else "train")
+            if shape_name == main_shape:
+                out[name] = rec
+        del q, k, v, g, o, o_ref, args, dq, dk, dv, lib_fwd, lib_bwd, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _text_setup(enc: EncoderConfig, n: int, batch: int, block: int):
+    """The model, data and fit_text arguments of ``cli fit-text
+    --graphs synthetic`` at these sizes (one epoch)."""
+    graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph")
+    tcfg = TransformerTrainConfig(max_epochs=1, batch_size=batch,
+                                  eval_batch_size=batch, block_size=block,
+                                  seed=TEXT_SEED)
+    data, splits, graphs = load_combined_dataset(
+        f"synthetic:{n}", graph_cfg.feature, HashingCodeTokenizer(
+            enc.vocab_size), block, graphs="synthetic", seed=TEXT_SEED)
+    graphs, budget = graph_join_and_budget(list(graphs.values()), batch)
+    kw = dict(graphs_by_id=graphs, subkeys=list(subkeys_for(
+        graph_cfg.feature)), graph_budget=budget, pad_id=enc.pad_token_id)
+    return graph_cfg, tcfg, data, splits, kw
+
+
+def _fit_text_counted(model: LineVul, data, splits, tcfg, kw):
+    """``fit_text`` with the attention counts set to 0 just before and
+    read just after: (history, launches, two-pass dispatches, seconds)."""
+    attention.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, history = text_loop.fit_text(model, data, splits, tcfg, **kw)
+    torch.cuda.synchronize()
+    return (history, attention.launch_counts(),
+            attention.flash_backward.two_pass_dispatches,
+            time.perf_counter() - t0)
+
+
+def _text_steps(history) -> list:
+    losses = [x for e in history["epochs"] for x in e["step_losses"]]
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"fit_text losses {losses}")
+    return losses
+
+
+def _require_launches(what: str, launches: dict, want: dict) -> None:
+    if launches != {**dict.fromkeys(attention.KERNELS, 0), **want}:
+        raise AssertionError(f"{what}: flash launches {launches}, want "
+                             f"{want}")
+
+
+def _text_step_breakdown(model: LineVul, batch, tcfg,
+                         reps: int = 5) -> dict:
+    """Median device ms of one fit_text step's parts on one batch (CUDA
+    events around the forward with the loss, the backward, and the clip
+    with the AdamW update, as make_text_train_step runs them) and its
+    host wall ms."""
+    opt = text_loop.make_text_optimizer(model.parameters(), tcfg)
+    params = list(model.parameters())
+    ids, labels, mask, graphs = text_loop._on_device(batch, "cuda")
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [],
+             "step_wall_ms": []}
+    gen = torch.Generator().manual_seed(TEXT_SEED)
+    for _ in range(reps + 2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(ids, graphs, deterministic=False,
+                                        generator=gen), labels, mask)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        loop.clip_by_global_norm_(params, tcfg.grad_clip_norm)
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
+                          ("optimizer_ms", 2, 3)):
+            parts[key].append(ev[a].elapsed_time(ev[b]))
+    return {k: statistics.median(v[2:]) for k, v in parts.items()}
+
+
+def phase_fit_text() -> dict:
+    """DeepDFA+LineVul at the published width and depth."""
+    enc = dataclasses.replace(EncoderConfig(), attention_impl="auto")
+    graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_FULL, 16,
+                                                    512)
+    model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
+    history, launches, two_pass, wall_s = _fit_text_counted(
+        model, data, splits, tcfg, kw)
+    losses = _text_steps(history)
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    layers = enc.num_layers
+    _require_launches("fit_text", launches, {
+        "flash_fwd_kernel": layers * (len(losses) + val_batches),
+        "flash_bwd_fused_kernel": layers * len(losses)})
+    batch = next(text_loop.text_graph_batches(data, splits["train"],
+                                              tcfg.batch_size, **kw))
+    breakdown = _text_step_breakdown(model, batch, tcfg)
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    profile = _device_profile(lambda: step(batch, tcfg.learning_rate),
+                              TEXT_PROFILE_STEPS)
+    step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
+               + breakdown["optimizer_ms"])
+    n_rows = int(batch.example_mask.sum())
+    rec = dict(phase="fit_text", layers=layers, hidden=enc.hidden_size,
+               block_size=tcfg.block_size, batch_size=tcfg.batch_size,
+               steps=len(losses), val_batches=val_batches, losses=losses,
+               val_loss=history["epochs"][-1]["val_loss"],
+               val_f1=history["epochs"][-1]["val_metrics"]["f1"],
+               num_missing=history["epochs"][-1]["num_missing"],
+               launches=launches, two_pass_dispatches=two_pass,
+               fit_wall_s=wall_s, step_breakdown=breakdown,
+               step_profile=profile, examples_per_step=n_rows,
+               examples_per_s=n_rows / (step_ms / 1e3),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(**rec)
+    return rec
+
+
+def phase_fit_text_vs_cpu() -> dict:
+    """fit_text on the card and on the CPU from the same weights: full
+    width, 2 layers, batch 4, dropout off, 3 steps."""
+    enc = dataclasses.replace(EncoderConfig(), attention_impl="auto",
+                              num_layers=2, dropout_rate=0.0)
+    graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_VS_CPU, 4,
+                                                    512)
+    model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
+    cpu_model = LineVul(enc, graph_cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    history, launches, _, wall_s = _fit_text_counted(model, data, splits,
+                                                     tcfg, kw)
+    losses = _text_steps(history)
+    t0 = time.perf_counter()
+    _, cpu_history = text_loop.fit_text(cpu_model, data, splits, tcfg, **kw)
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = _text_steps(cpu_history)
+    diffs = np.abs(np.asarray(losses) - np.asarray(cpu_losses))
+    if len(losses) != 3 or len(cpu_losses) != 3 or diffs.max() > \
+            TEXT_LOSS_TOL:
+        raise AssertionError(f"fit_text card {losses} against cpu "
+                             f"{cpu_losses} (limit {TEXT_LOSS_TOL})")
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    _require_launches("fit_text vs cpu", launches, {
+        "flash_fwd_kernel": enc.num_layers * (3 + val_batches),
+        "flash_bwd_fused_kernel": enc.num_layers * 3})
+    rec = dict(phase="fit_text_vs_cpu", layers=enc.num_layers,
+               batch_size=tcfg.batch_size, losses=losses,
+               cpu_losses=cpu_losses,
+               max_abs_loss_diff_vs_cpu=float(diffs.max()),
+               val_loss_diff_vs_cpu=abs(
+                   history["epochs"][-1]["val_loss"]
+                   - cpu_history["epochs"][-1]["val_loss"]),
+               launches=launches, fit_wall_s=wall_s, cpu_fit_s=cpu_s)
+    emit(**rec)
+    return rec
+
+
+def phase_fit_text_long() -> dict:
+    """fit_text at T 4096: the backward's gate sends it to the two-pass
+    pair."""
+    enc = dataclasses.replace(EncoderConfig(), attention_impl="auto",
+                              num_layers=2)
+    b, t = ATTN_LONG_SHAPE[:2]
+    if attention.flash_fused_bwd_smem_ok(t, enc.hidden_size
+                                         // enc.num_heads):
+        raise AssertionError("T 4096 passes the fused backward's gate")
+    graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_LONG, b, t)
+    model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
+    history, launches, two_pass, wall_s = _fit_text_counted(
+        model, data, splits, tcfg, kw)
+    losses = _text_steps(history)
+    steps = len(losses)
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    _require_launches("fit_text at T 4096", launches, {
+        "flash_fwd_kernel": enc.num_layers * (steps + val_batches),
+        "flash_bwd_dq_kernel": enc.num_layers * steps,
+        "flash_bwd_dkv_kernel": enc.num_layers * steps})
+    if two_pass != enc.num_layers * steps:
+        raise AssertionError(f"{two_pass} two-pass dispatches")
+    rec = dict(phase="fit_text_long", layers=enc.num_layers, block_size=t,
+               batch_size=b, steps=steps, losses=losses, launches=launches,
+               two_pass_dispatches=two_pass, fit_wall_s=wall_s,
+               step_s=wall_s / max(steps, 1))
+    emit(**rec)
+    return rec
+
+
 def main() -> int:
-    name = phase_device()
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    name = timed("device", phase_device)
+    timed("build", phase_build)
     model = FlowGNN(FlowGNNConfig(message_impl="persistent"), device="cuda",
                     seed=SEED)
-    timings = phase_kernels(model)
+    timings = timed("kernels", phase_kernels, model)
     path_launches = {k: 0 for k in REPLACES}
     for impl in ("persistent", "fused"):
-        for k, v in phase_serve(impl)["launches"].items():
+        for k, v in timed(f"serve_{impl}", phase_serve, impl)[
+                "launches"].items():
             path_launches[k] += v
-    timings.update(phase_train_kernels(model))
+    timings.update(timed("train_kernels", phase_train_kernels, model))
     for impl in ("persistent", "fused"):
-        for k, v in phase_train(impl)["launches"].items():
+        for k, v in timed(f"train_{impl}", phase_train, impl)[
+                "launches"].items():
             path_launches[k] += v
+    timings.update(timed("attention_kernels", phase_attention_kernels))
+    for phase, fn in (("fit_text", phase_fit_text),
+                      ("fit_text_vs_cpu", phase_fit_text_vs_cpu),
+                      ("fit_text_long", phase_fit_text_long)):
+        for k, v in timed(phase, fn)["launches"].items():
+            path_launches[k] += v
+    emit(phase_seconds=seconds, total_s=sum(seconds.values()))
     kernels = []
     for kname, replaces in REPLACES.items():
         t = timings[kname]
         if path_launches[kname] <= 0:
             raise AssertionError(f"{kname} never ran on the main path")
+        # library_ms: SDPA for the attention kernels; null for the GNN
+        # kernels (no single PyTorch call computes a GRU gated graph step
+        # or its VJP).
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": path_launches[kname],
             "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_us"] / 1e3,
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             **({"max_rel_err": t["max_rel_err"]} if "max_rel_err" in t
                else {})})
-    # library_ms is null for every kernel: no single PyTorch call computes
-    # a GRU gated graph step or its VJP.
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """Command line of the port (counterpart of ``deepdfa_tpu/cli.py``).
 
-Two subcommands so far. ``fit`` trains the published FlowGNN::
+Three subcommands so far. ``fit`` trains the published FlowGNN::
 
     python -m deepdfa_tpu_torch.cli fit --dataset synthetic:2720 \\
         [--message-impl persistent] [--max-epochs 25] [--batch-size 256] \\
@@ -20,8 +20,19 @@ micro-batcher, bucketed execution), writes ``score_predictions.csv`` as
 the reference's ``cmd_score`` does, and prints the reference's JSON
 report plus the hand-written kernels' launch counts. The weights are a
 random init from ``--seed`` (the reference's smoke mode: the serving
-stack is real, the scores are not). Flags replace the reference's YAML
-configuration, since the port needs no PyYAML.
+stack is real, the scores are not). ``fit-text`` trains DeepDFA+LineVul
+(the codebert-base encoder combined with the FlowGNN graph encoder)::
+
+    python -m deepdfa_tpu_torch.cli fit-text --dataset synthetic:256 \\
+        --graphs synthetic [--tiny] [--attention-impl auto] [--remat] \\
+        [--epochs 10] [--batch-size 16] [--block-size 512] [--device cuda] \\
+        [--out-dir runs/fit_text]
+
+from a seeded random init (no pretrained weights are in the repository
+yet), writes ``history.json``, ``model.json`` (the reference's run
+descriptor) and, after the test split's evaluation of the best state,
+``predictions.csv``. Flags replace the reference's YAML configuration,
+since the port needs no PyYAML.
 """
 
 from __future__ import annotations
@@ -138,6 +149,97 @@ def cmd_fit(args) -> Dict[str, Any]:
     return result
 
 
+def cmd_fit_text(args) -> Dict[str, Any]:
+    import dataclasses
+
+    from deepdfa_tpu_torch.core.config import (
+        FlowGNNConfig,
+        TransformerTrainConfig,
+        subkeys_for,
+    )
+    from deepdfa_tpu_torch.data.combined import (
+        graph_join_and_budget,
+        load_combined_dataset,
+    )
+    from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+    from deepdfa_tpu_torch.models.linevul import LineVul
+    from deepdfa_tpu_torch.models.transformer import EncoderConfig
+    from deepdfa_tpu_torch.ops import attention
+    from deepdfa_tpu_torch.train.text_loop import (
+        evaluate_text,
+        fit_text,
+        make_text_eval_step,
+    )
+
+    graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph")
+    combined = args.graphs is not None
+    tcfg = TransformerTrainConfig(
+        learning_rate=args.learning_rate, max_epochs=args.epochs,
+        batch_size=args.batch_size,
+        eval_batch_size=args.eval_batch_size or args.batch_size,
+        block_size=args.block_size, seed=args.seed)
+    enc = EncoderConfig.tiny() if args.tiny else EncoderConfig()
+    if args.tiny:
+        # The tiny position table (66) must still cover --block-size.
+        enc = dataclasses.replace(enc, max_position_embeddings=max(
+            enc.max_position_embeddings,
+            args.block_size + enc.pad_token_id + 1))
+    enc = dataclasses.replace(enc, attention_impl=args.attention_impl,
+                              remat_layers=args.remat)
+    logger.warning("training from a RANDOM init (seed %d): no pretrained "
+                   "codebert weights are loaded", args.seed)
+    model = LineVul(enc, graph_config=graph_cfg if combined else None,
+                    device=args.device, seed=args.seed)
+    tok = HashingCodeTokenizer(enc.vocab_size)
+    data, splits, graphs_by_id = load_combined_dataset(
+        args.dataset, graph_cfg.feature, tok, tcfg.block_size,
+        graphs=args.graphs, seed=args.seed)
+    subkeys = list(subkeys_for(graph_cfg.feature)) if combined else None
+    budget = None
+    if combined:
+        graphs_by_id, budget = graph_join_and_budget(
+            list(graphs_by_id.values()),
+            max(tcfg.batch_size, tcfg.eval_batch_size),
+            max_nodes=args.max_nodes, max_edges=args.max_edges)
+    attention.reset_launch_counts()
+    best_state, history = fit_text(model, data, splits, tcfg,
+                                   graphs_by_id=graphs_by_id,
+                                   subkeys=subkeys, graph_budget=budget,
+                                   pad_id=enc.pad_token_id)
+    history["kernel_launches"] = attention.launch_counts()
+    history["two_pass_dispatches"] = (
+        attention.flash_backward.two_pass_dispatches)
+    os.makedirs(args.out_dir, exist_ok=True)
+    descriptor = {
+        "model": args.model, "tiny": args.tiny,
+        "attention_impl": args.attention_impl, "remat": args.remat,
+        "gelu_approximate": enc.gelu_approximate, "combined": combined,
+        "block_size": tcfg.block_size, "dataset": args.dataset,
+        "split_mode": "random", "graphs": args.graphs,
+        "tokenizer": None,
+        "batch_size": max(tcfg.batch_size, tcfg.eval_batch_size),
+        "graph_budget": budget,
+        "graph_config": dataclasses.asdict(graph_cfg), "seed": args.seed,
+    }
+    with open(os.path.join(args.out_dir, "model.json"), "w") as f:
+        json.dump(descriptor, f, indent=1)
+    result: Dict[str, Any] = {"best_epoch": history["best_epoch"],
+                              "best_val_f1": history["best_val_f1"]}
+    if len(splits["test"]):
+        model.load_state_dict(best_state.params)
+        test = evaluate_text(make_text_eval_step(model), data,
+                             splits["test"], tcfg, graphs_by_id, subkeys,
+                             budget, pad_id=enc.pad_token_id)
+        result["test"] = {"loss": test["loss"], **test["metrics"],
+                          "num_missing": test["num_missing"]}
+        _dump_predictions(args.out_dir, test["index"], test["probs"],
+                          test["labels"], name="predictions.csv")
+    with open(os.path.join(args.out_dir, "history.json"), "w") as f:
+        json.dump(history, f, indent=1)
+    print(json.dumps(result))
+    return result
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deepdfa_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -167,6 +269,36 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--seed", type=int, default=0)
     sc.add_argument("--out-dir", default="runs/score")
     sc.set_defaults(func=cmd_score)
+    tx = sub.add_parser(
+        "fit-text", help="train LineVul, optionally combined with the "
+                         "FlowGNN graph encoder; writes history.json, "
+                         "model.json and predictions.csv")
+    tx.add_argument("--model", choices=["linevul"], default="linevul")
+    tx.add_argument("--dataset", default="synthetic:256")
+    tx.add_argument("--graphs", default=None, choices=["synthetic"],
+                    help="graph source (omit for text only)")
+    tx.add_argument("--tiny", action="store_true",
+                    help="tiny encoder shapes (smoke tests)")
+    tx.add_argument("--attention-impl", default="auto",
+                    choices=["auto", "dense", "blockwise", "flash"],
+                    help="encoder attention (auto = the flash kernels on "
+                         "the card, their plain versions on the CPU)")
+    tx.add_argument("--remat", action="store_true",
+                    help="recompute each encoder layer in the backward")
+    tx.add_argument("--epochs", type=int, default=10)
+    tx.add_argument("--batch-size", type=int, default=16)
+    tx.add_argument("--eval-batch-size", type=int, default=None)
+    tx.add_argument("--learning-rate", type=float, default=2e-5)
+    tx.add_argument("--block-size", type=int, default=512)
+    tx.add_argument("--seed", type=int, default=1)
+    tx.add_argument("--max-nodes", type=int, default=None,
+                    help="graph batch node budget (default: sized from the "
+                         "data)")
+    tx.add_argument("--max-edges", type=int, default=None)
+    tx.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without CUDA) or cpu")
+    tx.add_argument("--out-dir", default="runs/fit_text")
+    tx.set_defaults(func=cmd_fit_text)
     return p
 
 

@@ -3,7 +3,9 @@
 Field for field the same dataclasses, with the same defaults, so a
 configuration reads the same in both packages (pinned by
 tests/test_torch_imports.py). The model, data and training configs are
-carried over; the transformer configs wait for their slice.
+carried over, and the transformer fine-tune's ``TransformerTrainConfig``;
+``EncoderConfig`` lives with the encoder (``models/transformer.py``), as
+in the reference.
 """
 
 from __future__ import annotations
@@ -128,6 +130,34 @@ class TrainConfig:
     anomaly_policy: str = "raise"
     anomaly_retry_budget: int = 3
     tensorboard_dir: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerTrainConfig:
+    """LineVul-style fine-tune settings (the reference's defaults: AdamW
+    lr 2e-5, eps 1e-8, no weight decay, linear warmup over 20 % of the
+    steps then linear decay, global-norm clip 1.0, batch 16, 512 tokens).
+
+    ``early_stop_patience``: stop after that many epochs without a
+    validation-F1 improvement. ``detect_anomaly``/``anomaly_policy``
+    ("raise" or "rollback" to the epoch-start state) and
+    ``anomaly_retry_budget`` act once an epoch.
+    """
+
+    learning_rate: float = 2e-5
+    adam_epsilon: float = 1e-8
+    weight_decay: float = 0.0
+    max_epochs: int = 10
+    batch_size: int = 16
+    eval_batch_size: int = 16
+    block_size: int = 512
+    warmup_fraction: float = 0.2
+    grad_clip_norm: float = 1.0
+    seed: int = 1
+    early_stop_patience: Optional[int] = None
+    detect_anomaly: bool = False
+    anomaly_policy: str = "raise"
+    anomaly_retry_budget: int = 3
 
 
 def subkeys_for(spec: FeatureSpec) -> Sequence[str]:

@@ -5,8 +5,9 @@ into a shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes). The build
 happens at first use, from the sources in the checkout only, into
 ``deepdfa_tpu_torch/_build/`` (git-ignored); a library is named by a
-hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads as is. Nothing here runs at import time.
+hash of its source, the headers it includes and the flags, so an edited
+source rebuilds and an unchanged one loads as is. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -27,9 +28,16 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES: Dict[str, str] = {
     "fused_gnn": os.path.join("csrc", "fused_gnn.cu"),
     "fused_gnn_bwd": os.path.join("csrc", "fused_gnn_bwd.cu"),
+    "flash_attn": os.path.join("csrc", "flash_attn.cu"),
 }
-#: Headers every source may include; their text joins each library's hash.
-HEADERS: Tuple[str, ...] = (os.path.join("csrc", "gated_step.cuh"),)
+#: library name -> the headers its source includes; their text joins
+#: that library's hash (and no other's, so editing one header rebuilds
+#: only the libraries that include it).
+HEADERS: Dict[str, Tuple[str, ...]] = {
+    "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),),
+    "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),),
+    "flash_attn": (os.path.join("csrc", "flash_tile.cuh"),),
+}
 
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,6 +46,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 #: C signatures: library -> {function: argtypes}; every function returns
 #: the launch's cudaError_t as an int.
@@ -75,6 +84,23 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "step_weight_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                     _P, _P, _P, _P, _P, _P, _P],
     },
+    "flash_attn": {
+        # q, k, v, mask, o, lse, B, H, tq, tk, D, causal, scale, stream
+        "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _P],
+        # q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, tq, tk, D,
+        # causal, scale, stream
+        "flash_bwd_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk, D, causal,
+        # scale, stream
+        "flash_bwd_dq_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _F, _P],
+        # q, k, v, mask, dout, lse, delta, dk, dv, B, H, tq, tk, D, causal,
+        # scale, stream
+        "flash_bwd_dkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -96,7 +122,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in (SOURCES[name], *HEADERS):
+    for rel in (SOURCES[name], *HEADERS[name]):
         with open(os.path.join(_PKG, rel), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")

@@ -331,3 +331,157 @@ def test_backward_refusals(cuda):
     with pytest.raises(ValueError, match="x must be"):
         fused_gnn.step_weight_grads(h, None, h[None, :128], h[None],
                                     h[None], 1)
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention kernels
+# ---------------------------------------------------------------------------
+
+# Forward against the plain version: f32 in another summation order
+# (64-key tiles against 512-key blocks). Gradients sum over every key
+# (dq) or query (dk, dv) of a (batch, head): 1e-4 relative, 1e-5 absolute.
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+ATTN_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_fused_kernel",
+                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
+def _attn_inputs(b, t, h, d, dev, seed=0, all_pad_row=True):
+    """q, k, v at the init scale the encoder gives them, a mask with
+    padded tails (and one all-pad row), a cotangent."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(dev) for _ in range(4))
+    lengths = rng.integers(t // 2, t + 1, size=b)
+    if all_pad_row:
+        lengths[-1] = 0
+    mask = torch.from_numpy(np.arange(t)[None, :] < lengths[:, None]).to(dev)
+    return q, k, v, mask, g
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", [
+    (2, 64, 2, 64, False), (3, 100, 2, 64, False), (3, 100, 2, 64, True),
+    (2, 200, 3, 16, False), (2, 130, 2, 32, True), (2, 96, 2, 128, False),
+    (2, 512, 2, 64, False)])
+def test_flash_kernels_match_plain_versions(cuda, b, t, h, d, causal):
+    from deepdfa_tpu_torch.ops import attention as A
+
+    q, k, v, mask, g = _attn_inputs(b, t, h, d, cuda)
+    o, lse = A.flash_fwd(q, k, v, mask, causal)
+    o_ref, lse_ref = A.flash_fwd_reference(q, k, v, mask, causal)
+    torch.testing.assert_close(o, o_ref, **FWD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+    assert torch.all(o[-1] == 0)  # the all-pad row: O = 0, not NaN
+    delta = A.flash_delta(o_ref, g)
+    args = (q, k, v, mask, g, lse_ref, delta, causal)
+    want = A.flash_bwd_fused_reference(*args)
+    dq = A.flash_bwd_dq(*args)
+    dk, dv = A.flash_bwd_dkv(*args)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, **ATTN_GRAD_TOL)
+    if A.flash_fused_bwd_smem_ok(t, d):
+        fused = A.flash_bwd_fused(*args)
+        for got, ref in zip(fused, want):
+            torch.testing.assert_close(got, ref, **ATTN_GRAD_TOL)
+        # Fused against two-pass, kernel against kernel.
+        for a, c in zip(fused, (dq, dk, dv)):
+            torch.testing.assert_close(a, c, **ATTN_GRAD_TOL)
+    assert all(torch.all(x[-1] == 0) for x in (dq, dk, dv))
+
+
+def test_flash_gate_picks_fused_at_512_and_two_pass_at_4096(cuda):
+    from deepdfa_tpu_torch.ops import attention as A
+
+    assert A.flash_fused_bwd_smem_ok(512, 64)
+    assert not A.flash_fused_bwd_smem_ok(4096, 64)
+    for t, want in ((512, {"flash_fwd_kernel": 1,
+                           "flash_bwd_fused_kernel": 1}),
+                    (4096, {"flash_fwd_kernel": 1, "flash_bwd_dq_kernel": 1,
+                            "flash_bwd_dkv_kernel": 1})):
+        q, k, v, mask, g = _attn_inputs(1, t, 1, 64, cuda, all_pad_row=False)
+        q.requires_grad_()
+        A.reset_launch_counts()
+        out = A.flash_attention(q, k, v, mask)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        assert A.launch_counts() == {**dict.fromkeys(FLASH_KERNELS, 0),
+                                     **want}
+        assert A.flash_backward.two_pass_dispatches == int(t == 4096)
+        # The plain versions launch nothing.
+        A.reset_launch_counts()
+        A.flash_fwd_reference(q.detach(), k, v, mask)
+        assert sum(A.launch_counts().values()) == 0
+
+
+def test_flash_refusals(cuda):
+    from deepdfa_tpu_torch.ops import attention as A
+
+    q, k, v, mask, g = _attn_inputs(2, 64, 2, 64, cuda)
+    with pytest.raises(NotImplementedError, match="float32"):
+        A.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
+    with pytest.raises(ValueError, match="head width"):
+        A.flash_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                    v[..., :8].contiguous(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_fwd(q.transpose(1, 2), k, v, mask)
+    with pytest.raises(ValueError, match="kv_mask"):
+        A.flash_fwd(q, k, v, mask.int())
+    lse = torch.zeros(2, 2, 4096, device=cuda)
+    big = torch.zeros(2, 4096, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="two-pass"):
+        A.flash_bwd_fused(big, big, big, None, big, lse, lse)
+
+
+def test_linevul_gradients_match_cpu(cuda):
+    """loss.backward() through DeepDFA+LineVul on the card (flash kernels,
+    D 64, a length that is not a tile multiple, a padded row) gives the
+    CPU model's parameter gradients for the same weights."""
+    from deepdfa_tpu_torch.data.combined import (
+        graph_join_and_budget,
+        load_combined_dataset,
+    )
+    from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+    from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
+    from deepdfa_tpu_torch.models.transformer import EncoderConfig
+    from deepdfa_tpu_torch.ops import attention as A
+    from deepdfa_tpu_torch.train.text_loop import text_graph_batches
+
+    enc = EncoderConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=130, dropout_rate=0.0,
+                        attention_impl="auto")
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    gcfg = FlowGNNConfig(feature=feature, hidden_dim=8, n_steps=2,
+                         encoder_mode=True)
+    data, _, graphs = load_combined_dataset(
+        "synthetic:7", feature, HashingCodeTokenizer(512), 100,
+        graphs="synthetic")
+    graphs, budget = graph_join_and_budget(list(graphs.values()), 8)
+    batch = next(text_graph_batches(data, np.arange(7), 8, graphs, SUBKEYS,
+                                    budget))
+    gpu = LineVul(enc, gcfg, device=cuda, seed=0)
+    cpu = LineVul(enc, gcfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+
+    def grads(model, dev):
+        ids, labels, mask = (torch.from_numpy(x).to(dev) for x in (
+            batch.input_ids, batch.labels, batch.example_mask))
+        model.zero_grad(set_to_none=True)
+        logits = model(ids, batch.graphs.to(dev))
+        cross_entropy_loss(logits, labels, mask).backward()
+        return {k: p.grad for k, p in model.named_parameters()}
+
+    A.reset_launch_counts()
+    got = grads(gpu, cuda)
+    torch.cuda.synchronize()
+    assert A.launch_counts() == {**dict.fromkeys(FLASH_KERNELS, 0),
+                                 "flash_fwd_kernel": 2,
+                                 "flash_bwd_fused_kernel": 2}
+    want = grads(cpu, "cpu")
+    assert got.keys() == want.keys()
+    for name, g in got.items():
+        w = want[name]
+        assert g is not None and torch.isfinite(g).all(), name
+        # As FlowGNN's rule above: 1e-4 of the tensor's largest entry.
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-6, (name, err)

@@ -46,7 +46,13 @@ def test_port_imports_with_jax_blocked_and_loads_no_reference_module():
                  "deepdfa_tpu_torch.models.convert",
                  "deepdfa_tpu_torch.train.loop",
                  "deepdfa_tpu_torch.data.splits",
-                 "deepdfa_tpu_torch.data.sampling"):
+                 "deepdfa_tpu_torch.data.sampling",
+                 "deepdfa_tpu_torch.ops.attention",
+                 "deepdfa_tpu_torch.models.transformer",
+                 "deepdfa_tpu_torch.models.linevul",
+                 "deepdfa_tpu_torch.data.text",
+                 "deepdfa_tpu_torch.data.combined",
+                 "deepdfa_tpu_torch.train.text_loop"):
         assert name in report["modules"]
 
 
@@ -97,7 +103,8 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("name", ["FeatureSpec", "FlowGNNConfig",
-                                  "DataConfig", "TrainConfig"])
+                                  "DataConfig", "TrainConfig",
+                                  "TransformerTrainConfig"])
 def test_config_dataclasses_match_the_reference(name):
     pytest.importorskip("jax")
     from deepdfa_tpu.core import config as jcfg
