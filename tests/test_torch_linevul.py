@@ -236,6 +236,29 @@ def test_encoder_matches_jax(impl, gelu_approximate):
                                atol=TOL, rtol=TOL)
 
 
+def test_positions_past_the_table_clamp_as_in_jax():
+    # 80 tokens ride the tiny 66-entry position table (as T 4096 rides
+    # codebert's 514): ids past it clamp to the last entry.
+    jcfg, params, enc = _encoder_pair("dense")
+    ids = _ids(b=2, t=80, seed=3)
+    want, _ = jtransformer.RobertaEncoder(jcfg).apply(params, jnp.asarray(ids))
+    got, _ = enc(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=TOL, rtol=TOL)
+
+
+def test_input_embeds_replace_the_word_lookup():
+    enc = transformer.RobertaEncoder(_enc(transformer, attention_impl="flash"),
+                                     torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(_ids())
+    want, _ = enc(ids)
+    embeds = enc.word_embeddings(ids).detach().requires_grad_()
+    got, _ = enc(ids, input_embeds=embeds)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got.sum().backward()  # the attribution hook: a gradient wrt embeds
+    assert embeds.grad is not None and torch.isfinite(embeds.grad).all()
+
+
 def test_output_attentions_dense_only():
     jcfg, params, enc = _encoder_pair("dense")
     ids = _ids()
