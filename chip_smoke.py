@@ -72,7 +72,6 @@ import time
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.cli import load_dataset
 from deepdfa_tpu_torch.core.config import (
     DataConfig,
     FlowGNNConfig,
@@ -83,6 +82,7 @@ from deepdfa_tpu_torch.core.config import (
 from deepdfa_tpu_torch.data.combined import (
     graph_join_and_budget,
     load_combined_dataset,
+    load_graph_source,
 )
 from deepdfa_tpu_torch.data.sampling import epoch_indices
 from deepdfa_tpu_torch.data.splits import make_splits
@@ -438,8 +438,8 @@ def phase_serve(impl: str) -> dict:
 
 
 def _train_data(feature, seed: int):
-    examples = load_dataset(f"synthetic:{N_TRAIN_EXAMPLES}", feature,
-                            seed=seed)
+    examples = load_graph_source(f"synthetic:{N_TRAIN_EXAMPLES}", feature,
+                                 seed=seed)
     return examples, make_splits(examples, mode="random", seed=seed)
 
 
@@ -626,13 +626,12 @@ def phase_train_kernels(model: FlowGNN) -> dict:
     return out
 
 
-def _step_breakdown(model: FlowGNN, batch, reps: int = 10) -> dict:
-    """Median device ms of one train step's parts on one batch (CUDA
-    events around the forward with the loss, the backward and the AdamW
-    step, as make_train_step runs them) and its host wall ms."""
-    cfg = TrainConfig()
-    opt = loop.make_optimizer(model.parameters(), cfg)
-    labels, mask = loop._labels_for(model, batch)
+def _step_breakdown(forward_loss, update, reps: int) -> dict:
+    """Median device ms of one train step's parts, as the train steps run
+    them (CUDA events around ``forward_loss()``: zero_grad, forward and
+    loss; the loss's backward; ``update()``: the optimizer step, after
+    the clip where the step clips), and the step's host wall ms; two
+    warm-up steps first."""
     parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [],
              "step_wall_ms": []}
     for _ in range(reps + 2):
@@ -640,20 +639,30 @@ def _step_breakdown(model: FlowGNN, batch, reps: int = 10) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        opt.zero_grad(set_to_none=True)
-        loss = loop.bce_with_logits(model(batch), labels, mask)
+        loss = forward_loss()
         ev[1].record()
         loss.backward()
         ev[2].record()
-        opt.step()
+        update()
         ev[3].record()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        parts["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
         for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
                           ("optimizer_ms", 2, 3)):
             parts[key].append(ev[a].elapsed_time(ev[b]))
-        parts["step_wall_ms"].append(wall)
     return {k: statistics.median(v[2:]) for k, v in parts.items()}
+
+
+def _gnn_step_breakdown(model: FlowGNN, batch) -> dict:
+    """``_step_breakdown`` of make_train_step's step on one batch."""
+    opt = loop.make_optimizer(model.parameters(), TrainConfig())
+    labels, mask = loop._labels_for(model, batch)
+
+    def forward_loss():
+        opt.zero_grad(set_to_none=True)
+        return loop.bce_with_logits(model(batch), labels, mask)
+
+    return _step_breakdown(forward_loss, opt.step, reps=10)
 
 
 def _device_profile(step, n_steps: int) -> dict:
@@ -745,7 +754,7 @@ def phase_train(impl: str) -> dict:
                              f"{steps} steps")
 
     batch = _training_batch(model)
-    breakdown = _step_breakdown(model, batch)
+    breakdown = _gnn_step_breakdown(model, batch)
     n_graphs = int(batch.graph_mask.sum())
     step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
                + breakdown["optimizer_ms"])
@@ -933,38 +942,24 @@ def _require_launches(what: str, launches: dict, want: dict) -> None:
                              f"{want}")
 
 
-def _text_step_breakdown(model: LineVul, batch, tcfg,
-                         reps: int = 5) -> dict:
-    """Median device ms of one fit_text step's parts on one batch (CUDA
-    events around the forward with the loss, the backward, and the clip
-    with the AdamW update, as make_text_train_step runs them) and its
-    host wall ms."""
+def _text_step_breakdown(model: LineVul, batch, tcfg) -> dict:
+    """``_step_breakdown`` of make_text_train_step's step on one batch
+    (dropout on; the clip belongs to the update)."""
     opt = text_loop.make_text_optimizer(model.parameters(), tcfg)
     params = list(model.parameters())
     ids, labels, mask, graphs = text_loop._on_device(batch, "cuda")
-    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [],
-             "step_wall_ms": []}
     gen = torch.Generator().manual_seed(TEXT_SEED)
-    for _ in range(reps + 2):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
+
+    def forward_loss():
         opt.zero_grad(set_to_none=True)
-        loss = cross_entropy_loss(model(ids, graphs, deterministic=False,
+        return cross_entropy_loss(model(ids, graphs, deterministic=False,
                                         generator=gen), labels, mask)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
+
+    def update():
         loop.clip_by_global_norm_(params, tcfg.grad_clip_norm)
         opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        parts["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
-        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
-                          ("optimizer_ms", 2, 3)):
-            parts[key].append(ev[a].elapsed_time(ev[b]))
-    return {k: statistics.median(v[2:]) for k, v in parts.items()}
+
+    return _step_breakdown(forward_loss, update, reps=5)
 
 
 def phase_fit_text() -> dict:

@@ -42,27 +42,9 @@ import json
 import logging
 import os
 import sys
-from typing import Any, Dict, List, Optional, Sequence
-
-import numpy as np
+from typing import Any, Dict, Optional, Sequence
 
 logger = logging.getLogger(__name__)
-
-
-def load_dataset(spec: str, feature, seed: int = 0) -> List[Dict]:
-    """``synthetic[:N]``: the built-in generator, labelled and numbered
-    as the reference's ``load_dataset`` does."""
-    from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
-
-    if not spec.startswith("synthetic"):
-        raise ValueError(f"unknown dataset spec {spec!r} (the port reads "
-                         "synthetic:N only; the JSONL loader is not ported)")
-    n = int(spec.split(":")[1]) if ":" in spec else 256
-    examples = synthetic_bigvul(n, feature, positive_fraction=0.5, seed=seed)
-    for i, ex in enumerate(examples):
-        ex["label"] = int(np.asarray(ex["vuln"]).max())
-        ex["id"] = i
-    return examples
 
 
 def _dump_predictions(out_dir: str, ids, probs, labels,
@@ -78,6 +60,7 @@ def _dump_predictions(out_dir: str, ids, probs, labels,
 
 def cmd_score(args) -> Dict[str, Any]:
     from deepdfa_tpu_torch.core.config import FlowGNNConfig
+    from deepdfa_tpu_torch.data.combined import load_graph_source
     from deepdfa_tpu_torch.models.flowgnn import FlowGNN
     from deepdfa_tpu_torch.ops import fused_gnn
     from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
@@ -89,7 +72,8 @@ def cmd_score(args) -> Dict[str, Any]:
     engine = ServeEngine(model, ServeConfig(batch_slots=args.batch_slots),
                          device=args.device)
     engine.warmup()
-    examples = load_dataset(args.dataset, model_cfg.feature, seed=args.seed)
+    examples = load_graph_source(args.dataset, model_cfg.feature,
+                                 seed=args.seed)
     fused_gnn.reset_launch_counts()
     results = engine.score_sync(examples)
     launches = fused_gnn.launch_counts()
@@ -119,6 +103,7 @@ def cmd_fit(args) -> Dict[str, Any]:
         FlowGNNConfig,
         TrainConfig,
     )
+    from deepdfa_tpu_torch.data.combined import load_graph_source
     from deepdfa_tpu_torch.data.splits import make_splits
     from deepdfa_tpu_torch.models.flowgnn import FlowGNN
     from deepdfa_tpu_torch.ops import fused_gnn
@@ -128,8 +113,8 @@ def cmd_fit(args) -> Dict[str, Any]:
     data_cfg = DataConfig(batch_size=args.batch_size)
     train_cfg = TrainConfig(learning_rate=args.lr, max_epochs=args.max_epochs,
                             seed=args.seed)
-    examples = load_dataset(args.dataset, model_cfg.feature,
-                            seed=train_cfg.seed)
+    examples = load_graph_source(args.dataset, model_cfg.feature,
+                                 seed=train_cfg.seed)
     splits = make_splits(examples, mode="random", seed=train_cfg.seed)
     model = FlowGNN(model_cfg, device=args.device, seed=train_cfg.seed)
     fused_gnn.reset_launch_counts()

@@ -20,13 +20,15 @@ from deepdfa_tpu_torch.graphs.batch import pad_budget_for
 
 def load_graph_source(spec: str, feature: FeatureSpec,
                       seed: int = 0) -> List[Dict]:
-    """Graph examples from ``synthetic[:N]`` (labelled and numbered as
-    the reference numbers them)."""
+    """Graph examples from ``synthetic[:N]``, labelled and numbered as the
+    reference's ``load_graph_source`` and ``cli.load_dataset`` do (``cli
+    fit``, ``score`` and ``fit-text`` all read them here)."""
     from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
 
     if not spec.startswith("synthetic"):
-        raise ValueError(f"unknown graph source {spec!r} (the port reads "
-                         "synthetic[:N] only)")
+        raise ValueError(f"unknown dataset {spec!r} (the port reads "
+                         "synthetic[:N] only; the JSONL loader is not "
+                         "ported)")
     n = int(spec.split(":")[1]) if ":" in spec else 256
     examples = synthetic_bigvul(n, feature, positive_fraction=0.5, seed=seed)
     for i, ex in enumerate(examples):

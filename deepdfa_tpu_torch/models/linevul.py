@@ -59,12 +59,10 @@ class LineVul(nn.Module):
 
     def __init__(self, encoder_config: EncoderConfig,
                  graph_config: Optional[FlowGNNConfig] = None,
-                 device: DeviceLike = None, seed: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 device: DeviceLike = None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = generator if generator is not None else (
-            torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
         self.encoder_config = encoder_config
         self.graph_config = graph_config
         self.roberta = RobertaEncoder(encoder_config, gen)

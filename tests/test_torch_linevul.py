@@ -298,7 +298,10 @@ def test_remat_equals_no_remat(dropout_on):
         assert torch.equal(a[k], b[k]), k
 
 
-def test_encoder_matches_hf_roberta():
+def test_encoder_matches_hf_roberta(monkeypatch):
+    # The comparison is with HF's torch model: keep transformers from
+    # importing TensorFlow as well (about half of this test's time).
+    monkeypatch.setenv("USE_TF", "0")
     tr = pytest.importorskip("transformers")
     cfg = _enc(transformer, gelu_approximate=False)
     hf_cfg = tr.RobertaConfig(
