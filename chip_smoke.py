@@ -38,9 +38,12 @@ one:
    text training shape (B 16, T 512, H 12, D 64: random q/k/v at the
    encoder's init scale, a mask with padded tails and one all-pad row)
    and at the long shape (B 8, T 4096, H 12), the fused backward against
-   the two-pass pair at T 512, with times, bounds and the time of
+   the two-pass pair at T 512, with times, bounds (the operations and
+   bytes of the (query, key) pairs the mask leaves) and the time of
    ``F.scaled_dot_product_attention`` on the same inputs without the
-   all-pad row (forward, and its autograd backward).
+   all-pad row (forward, and its autograd backward, which computes dq,
+   dk and dv together: the two-pass pair's summed time stands beside
+   it).
 10. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
    width and depth (codebert-base, 12 layers, T 512, batch 16, the
    FlowGNN encoder, ``TransformerTrainConfig`` defaults but one epoch:
@@ -50,7 +53,9 @@ one:
    (``torch.profiler``).
 11. The same ``fit_text`` on the card and on the CPU, at full width with
    the depth cut to 2 layers, batch 4, dropout off (the two devices'
-   random streams differ): 3 steps, per-step losses compared.
+   random streams differ): first one batch's parameter gradients from
+   the same weights, each tensor compared; then 3 steps, per-step losses
+   compared.
 12. ``fit_text`` at T 4096 (batch 8, 2 layers, 2 steps): one
    (batch, head)'s dq no longer fits shared memory, so the backward runs
    the two-pass pair.
@@ -160,14 +165,23 @@ ATTN_LONG_SHAPE = (8, 4096, 12, 64)
 # |kernel - plain| <= atol + rtol * |plain| elementwise, as _check.
 ATTN_FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 ATTN_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# What the library_ms of each backward kernel covers: SDPA's autograd
+# backward gives dq, dk and dv in one call.
+BWD_COVERS = ["dq", "dk", "dv"]
 # fit_text runs: synthetic:N split 80/10/10. Full depth: 96 training
 # rows = 6 steps of 16 and 12 validation rows = one batch. Card against
 # CPU: 12 rows = 3 steps of 4. Long context: 16 rows = 2 steps of 8.
 TEXT_N_FULL, TEXT_N_VS_CPU, TEXT_N_LONG = 120, 15, 20
 TEXT_SEED = 1
 # Per-step losses of the 2-layer run, card against CPU (f32 order, and
-# the FlowGNN scatters' atomics on the card).
+# the FlowGNN scatters' atomics on the card). The schedule's first update
+# runs at lr 0, so of the 3 steps only the last follows a moved weight:
+# the gradients are compared directly, per tensor, |card - cpu| <=
+# GRAD_TOL * max|cpu| + TEXT_GRAD_FLOOR (the floor covers gradients that
+# are zero in exact arithmetic, such as the pooling gate's bias, and are
+# rounding noise on both devices).
 TEXT_LOSS_TOL = 1e-4
+TEXT_GRAD_FLOOR = 1e-6
 TEXT_PROFILE_STEPS = 3
 REPLACES.update({
     "flash_fwd_kernel": "deepdfa_tpu/ops/attention.py:220",
@@ -845,7 +859,8 @@ def phase_attention_kernels() -> dict:
         args = (q, k, v, mask, g, lse_ref, delta)
         runs = {"flash_fwd_kernel": (
             err, lambda: attention.flash_fwd(q, k, v, mask),
-            lambda: attention.flash_fwd_reference(q, k, v, mask), lib_fwd)}
+            lambda: attention.flash_fwd_reference(q, k, v, mask), lib_fwd,
+            ["o"])}
         dq = attention.flash_bwd_dq(*args)
         dk, dv = attention.flash_bwd_dkv(*args)
         if attention.flash_fused_bwd_smem_ok(t, d):
@@ -860,7 +875,8 @@ def phase_attention_kernels() -> dict:
                        ATTN_GRAD_TOL)
             runs["flash_bwd_fused_kernel"] = (
                 err, lambda: attention.flash_bwd_fused(*args),
-                lambda: attention.flash_bwd_fused_reference(*args), lib_bwd)
+                lambda: attention.flash_bwd_fused_reference(*args), lib_bwd,
+                BWD_COVERS)
         else:
             want = (attention.flash_bwd_dq_reference(*args),
                     *attention.flash_bwd_dkv_reference(*args))
@@ -871,32 +887,47 @@ def phase_attention_kernels() -> dict:
                       for i, (a, w) in enumerate(zip((dk, dv), want[1:])))
         runs["flash_bwd_dq_kernel"] = (
             err_dq, lambda: attention.flash_bwd_dq(*args),
-            lambda: attention.flash_bwd_dq_reference(*args), lib_bwd)
+            lambda: attention.flash_bwd_dq_reference(*args), lib_bwd,
+            BWD_COVERS)
         runs["flash_bwd_dkv_kernel"] = (
             err_dkv, lambda: attention.flash_bwd_dkv(*args),
-            lambda: attention.flash_bwd_dkv_reference(*args), lib_bwd)
-        for name, (err, kernel, plain, library) in runs.items():
+            lambda: attention.flash_bwd_dkv_reference(*args), lib_bwd,
+            BWD_COVERS)
+        recs = {}
+        for name, (err, kernel, plain, library, covers) in runs.items():
             kernel_ms = _time_ms(kernel, iters, reps)
             plain_ms = _time_ms(plain, iters, reps)
             library_ms = _time_ms(library, iters, reps)
-            cost = attention.kernel_cost(b, h, t, t, d, name)
+            cost = attention.kernel_cost(mask, t, h, d, name)
             bound_ms, bound_by = _bound(cost)
-            rec = dict(kernel=name, shape=shape_name, B=b, T=t, H=h, D=d,
-                       max_abs_err=err,
-                       tol=ATTN_FWD_TOL if name == "flash_fwd_kernel"
-                       else ATTN_GRAD_TOL,
-                       kernel_ms=kernel_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_us=bound_ms * 1e3,
-                       bound_by=bound_by, flops=cost["flops"],
-                       bytes=cost["bytes"],
-                       tflops=cost["flops"] / kernel_ms / 1e9)
+            recs[name] = dict(
+                kernel=name, shape=shape_name, B=b, T=t, H=h, D=d,
+                real_key_fraction=float(mask.float().mean()),
+                max_abs_err=err,
+                tol=ATTN_FWD_TOL if name == "flash_fwd_kernel"
+                else ATTN_GRAD_TOL,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_covers=covers,
+                bound_us=bound_ms * 1e3, bound_by=bound_by,
+                flops=cost["flops"], executed_flops=cost["executed_flops"],
+                bytes=cost["bytes"],
+                tflops=cost["flops"] / kernel_ms / 1e9,
+                executed_tflops=cost["executed_flops"] / kernel_ms / 1e9)
+        # SDPA's backward computes dq, dk and dv together: set the
+        # two-pass pair's summed time beside it.
+        pair_ms = (recs["flash_bwd_dq_kernel"]["kernel_ms"]
+                   + recs["flash_bwd_dkv_kernel"]["kernel_ms"])
+        for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+            recs[name]["pair_ms"] = pair_ms
+        for name, rec in recs.items():
             emit(phase="attention_kernels", **rec)
             main_shape = ("long" if name in ("flash_bwd_dq_kernel",
                                              "flash_bwd_dkv_kernel")
                           else "train")
             if shape_name == main_shape:
                 out[name] = rec
-        del q, k, v, g, o, o_ref, args, dq, dk, dv, lib_fwd, lib_bwd, runs
+        del q, k, v, g, o, o_ref, args, dq, dk, dv, lib_fwd, lib_bwd, runs, \
+            recs
         torch.cuda.empty_cache()
     return out
 
@@ -1002,9 +1033,46 @@ def phase_fit_text() -> dict:
     return rec
 
 
+def _text_grads(model: LineVul, batch, device) -> dict:
+    """Parameter name -> the gradient of the loss on ``batch``."""
+    ids, labels, mask, graphs = text_loop._on_device(batch, device)
+    model.zero_grad(set_to_none=True)
+    cross_entropy_loss(model(ids, graphs), labels, mask).backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def _compare_text_grads(got: dict, want: dict) -> dict:
+    """Each gradient tensor, card against CPU: |got - want| <= GRAD_TOL
+    * max|want| + TEXT_GRAD_FLOOR; returns the largest share of its limit
+    a tensor's gap takes, and that tensor (``.cpu()`` waits for the
+    card)."""
+    if got.keys() != want.keys():
+        raise AssertionError("card and CPU models differ in parameters")
+    worst_share, worst_name = 0.0, None
+    for name, w in want.items():
+        g = got[name]
+        if g is None or w is None or not torch.isfinite(g).all():
+            raise AssertionError(f"gradient of {name}: missing or "
+                                 "non-finite")
+        diff = float((g.cpu() - w).abs().max())
+        top = float(w.abs().max())
+        limit = GRAD_TOL * top + TEXT_GRAD_FLOOR
+        if diff > limit:
+            raise AssertionError(f"gradient of {name}: |card - cpu| "
+                                 f"{diff:.3e} > {GRAD_TOL} * {top:.3e} + "
+                                 f"{TEXT_GRAD_FLOOR}")
+        if worst_name is None or diff / limit > worst_share:
+            worst_share, worst_name = diff / limit, name
+    return {"grad_gap_share_of_limit": worst_share,
+            "worst_tensor": worst_name, "tensors": len(want)}
+
+
 def phase_fit_text_vs_cpu() -> dict:
     """fit_text on the card and on the CPU from the same weights: full
-    width, 2 layers, batch 4, dropout off, 3 steps."""
+    width, 2 layers, batch 4, dropout off; one batch's gradients, then 3
+    steps."""
     enc = dataclasses.replace(EncoderConfig(), attention_impl="auto",
                               num_layers=2, dropout_rate=0.0)
     graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_VS_CPU, 4,
@@ -1013,6 +1081,10 @@ def phase_fit_text_vs_cpu() -> dict:
     cpu_model = LineVul(enc, graph_cfg, device="cpu")
     cpu_model.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
+    batch = next(text_loop.text_graph_batches(data, splits["train"],
+                                              tcfg.batch_size, **kw))
+    grads = _compare_text_grads(_text_grads(model, batch, "cuda"),
+                                _text_grads(cpu_model, batch, "cpu"))
     history, launches, _, wall_s = _fit_text_counted(model, data, splits,
                                                      tcfg, kw)
     losses = _text_steps(history)
@@ -1030,7 +1102,7 @@ def phase_fit_text_vs_cpu() -> dict:
         "flash_fwd_kernel": enc.num_layers * (3 + val_batches),
         "flash_bwd_fused_kernel": enc.num_layers * 3})
     rec = dict(phase="fit_text_vs_cpu", layers=enc.num_layers,
-               batch_size=tcfg.batch_size, losses=losses,
+               batch_size=tcfg.batch_size, **grads, losses=losses,
                cpu_losses=cpu_losses,
                max_abs_loss_diff_vs_cpu=float(diffs.max()),
                val_loss_diff_vs_cpu=abs(
@@ -1116,8 +1188,8 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_us"] / 1e3,
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
-            **({"max_rel_err": t["max_rel_err"]} if "max_rel_err" in t
-               else {})})
+            **{key: t[key] for key in ("library_covers", "pair_ms",
+                                       "max_rel_err") if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

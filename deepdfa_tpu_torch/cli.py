@@ -171,6 +171,14 @@ def cmd_fit_text(args) -> Dict[str, Any]:
             args.block_size + enc.pad_token_id + 1))
     enc = dataclasses.replace(enc, attention_impl=args.attention_impl,
                               remat_layers=args.remat)
+    head_dim = enc.hidden_size // enc.num_heads
+    if (not str(args.device).startswith("cpu")
+            and args.attention_impl in ("auto", "flash")
+            and head_dim != attention.KERNEL_HEAD_DIM):
+        raise ValueError(
+            f"fit-text: head width {head_dim}: the CUDA flash kernels take "
+            f"{attention.KERNEL_HEAD_DIM} only; pass --attention-impl dense "
+            "or blockwise (or --device cpu)")
     logger.warning("training from a RANDOM init (seed %d): no pretrained "
                    "codebert weights are loaded", args.seed)
     model = LineVul(enc, graph_config=graph_cfg if combined else None,
@@ -263,7 +271,10 @@ def build_parser() -> argparse.ArgumentParser:
     tx.add_argument("--graphs", default=None, choices=["synthetic"],
                     help="graph source (omit for text only)")
     tx.add_argument("--tiny", action="store_true",
-                    help="tiny encoder shapes (smoke tests)")
+                    help="tiny encoder shapes (smoke tests). Its head width "
+                         "is 8, which the CUDA flash kernels (head width 64) "
+                         "do not take: on the card, pass --attention-impl "
+                         "dense or blockwise")
     tx.add_argument("--attention-impl", default="auto",
                     choices=["auto", "dense", "blockwise", "flash"],
                     help="encoder attention (auto = the flash kernels on "

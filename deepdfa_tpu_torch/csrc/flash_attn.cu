@@ -26,15 +26,19 @@
 // into a library with the plain C interface at the bottom of this file.
 //
 // What bounds them. At the training shape (B 16, T 512, H 12, D 64) the
-// forward does 4 B H T^2 D = 12.9 GFLOP against 25 MB of compulsory
-// traffic (q, k, v in, o out); the fused backward 10 B H T^2 D and the
-// two-pass pair 14 B H T^2 D against ~60 MB. At the H100 SXM data-sheet
-// peaks for a 700 W card (67 TFLOP/s f32 outside the tensor cores,
-// 3.35 TB/s) that is ~190 us of arithmetic against ~8 us of bytes for
-// the forward: every kernel is bound by f32 operations
-// (ops/attention.py:kernel_cost counts them; chip_smoke.py prints the
-// bound beside the measured time). f32 is held to the reference's f32
-// semantics, so TF32 tensor cores are out: every product is an f32 FMA.
+// forward needs at most 4 B H T^2 D = 12.9 GFLOP (fewer with padded
+// keys: only the (query, key) pairs the mask leaves count) against at
+// most 25 MB of compulsory traffic (q, k, v in, o out); the fused
+// backward 10 B H T^2 D and the two-pass pair 14 B H T^2 D against
+// ~60 MB. At the H100 SXM data-sheet peaks for a 700 W card
+// (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) that is ~190 us
+// of arithmetic against ~8 us of bytes for the forward: every kernel is
+// bound by f32 operations (ops/attention.py:kernel_cost counts them on
+// the call's mask; chip_smoke.py prints the bound beside the measured
+// time). The kernels compute whole 64 x 64 tiles, padded keys included,
+// so they do more operations than the bound counts. f32 is held to the
+// reference's f32 semantics, so TF32 tensor cores are out: every
+// product is an f32 FMA.
 //
 // Design.
 // * Tiles of 64 queries by 64 keys; 256 threads a block, each owning a
@@ -67,7 +71,11 @@
 
 namespace flash {
 
-template <int D>
+// The head width the kernels are built for: codebert-base and
+// unixcoder-base (768 / 12 heads). ops/attention.py:KERNEL_HEAD_DIM
+// refuses any other before a launch.
+constexpr int D = 64;
+
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -156,14 +164,12 @@ __global__ void __launch_bounds__(NT)
 // Shared memory of the fused backward: dq for every query row of one
 // (batch, head), the q, dO, k and v tiles, P and dS, lse and delta, the
 // key mask. ops/attention.py:fused_bwd_smem_bytes computes the same.
-template <int D>
 size_t fused_bwd_smem(int tq) {
   const size_t rows = (size_t)((tq + BQ - 1) / BQ) * BQ;
   return sizeof(float) * (rows * D + 4 * 64 * (D + 1) + 2 * BQ * PS + 2 * BQ)
          + sizeof(int) * BK;
 }
 
-template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_fused_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const unsigned char* __restrict__ mask,
@@ -241,7 +247,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_fused_kernel(
   }
 }
 
-template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const unsigned char* __restrict__ mask,
@@ -292,7 +297,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   store_tile<D>(dq + qoff, dq_acc, q0, tq, rs, scale);
 }
 
-template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const unsigned char* __restrict__ mask,
@@ -345,18 +349,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   store_tile<D>(dv + koff, dv_acc, k0, tk, rs, 1.f);
 }
 
-template <int D>
 size_t fwd_smem() {
   return sizeof(float) * (3 * 64 * (D + 1) + BQ * PS) + sizeof(int) * BK;
 }
 
-template <int D>
 size_t dq_smem() {
   return sizeof(float) * (4 * 64 * (D + 1) + BQ * PS + 2 * BQ)
          + sizeof(int) * BK;
 }
 
-template <int D>
 size_t dkv_smem() {
   return sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * PS + 2 * BQ)
          + sizeof(int) * BK;
@@ -374,58 +375,43 @@ int launch(Kernel kernel, dim3 grid, size_t bytes, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <int D>
 int fwd(const float* q, const float* k, const float* v,
         const unsigned char* mask, float* o, float* lse, int B, int H, int tq,
         int tk, int causal, float scale, cudaStream_t stream) {
   dim3 grid((tq + BQ - 1) / BQ, B * H);
-  return launch(flash_fwd_kernel<D>, grid, fwd_smem<D>(), stream, q, k, v,
+  return launch(flash_fwd_kernel, grid, fwd_smem(), stream, q, k, v,
                 mask, o, lse, H, tq, tk, causal, scale);
 }
 
-template <int D>
 int bwd_fused(const float* q, const float* k, const float* v,
               const unsigned char* mask, const float* dout, const float* lse,
               const float* delta, float* dq, float* dk, float* dv, int B,
               int H, int tq, int tk, int causal, float scale,
               cudaStream_t stream) {
-  return launch(flash_bwd_fused_kernel<D>, dim3(B * H), fused_bwd_smem<D>(tq),
+  return launch(flash_bwd_fused_kernel, dim3(B * H), fused_bwd_smem(tq),
                 stream, q, k, v, mask, dout, lse, delta, dq, dk, dv, H, tq,
                 tk, causal, scale);
 }
 
-template <int D>
 int bwd_dq(const float* q, const float* k, const float* v,
            const unsigned char* mask, const float* dout, const float* lse,
            const float* delta, float* dq, int B, int H, int tq, int tk,
            int causal, float scale, cudaStream_t stream) {
   dim3 grid((tq + BQ - 1) / BQ, B * H);
-  return launch(flash_bwd_dq_kernel<D>, grid, dq_smem<D>(), stream, q, k, v,
+  return launch(flash_bwd_dq_kernel, grid, dq_smem(), stream, q, k, v,
                 mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
 }
 
-template <int D>
 int bwd_dkv(const float* q, const float* k, const float* v,
             const unsigned char* mask, const float* dout, const float* lse,
             const float* delta, float* dk, float* dv, int B, int H, int tq,
             int tk, int causal, float scale, cudaStream_t stream) {
   dim3 grid((tk + BK - 1) / BK, B * H);
-  return launch(flash_bwd_dkv_kernel<D>, grid, dkv_smem<D>(), stream, q, k,
+  return launch(flash_bwd_dkv_kernel, grid, dkv_smem(), stream, q, k,
                 v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal, scale);
 }
 
 }  // namespace flash
-
-// Head widths the kernels are instantiated for; ops/attention.py checks
-// the same list before a launch.
-#define FLASH_DISPATCH(D, FN, ARGS)              \
-  switch (D) {                                   \
-    case 16: return flash::FN<16> ARGS;          \
-    case 32: return flash::FN<32> ARGS;          \
-    case 64: return flash::FN<64> ARGS;          \
-    case 128: return flash::FN<128> ARGS;        \
-    default: return (int)cudaErrorInvalidValue;  \
-  }
 
 // ---------------------------------------------------------------------------
 // Plain C interface (ctypes): each returns the launch's cudaError_t.
@@ -436,38 +422,38 @@ int bwd_dkv(const float* q, const float* k, const float* v,
 extern "C" int flash_fwd_launch(const float* q, const float* k,
                                 const float* v, const unsigned char* mask,
                                 float* o, float* lse, int B, int H, int tq,
-                                int tk, int D, int causal, float scale,
+                                int tk, int causal, float scale,
                                 cudaStream_t stream) {
-  FLASH_DISPATCH(D, fwd, (q, k, v, mask, o, lse, B, H, tq, tk, causal,
-                          scale, stream))
+  return flash::fwd(q, k, v, mask, o, lse, B, H, tq, tk, causal, scale,
+                    stream);
 }
 
 extern "C" int flash_bwd_fused_launch(
     const float* q, const float* k, const float* v, const unsigned char* mask,
     const float* dout, const float* lse, const float* delta, float* dq,
-    float* dk, float* dv, int B, int H, int tq, int tk, int D, int causal,
+    float* dk, float* dv, int B, int H, int tq, int tk, int causal,
     float scale, cudaStream_t stream) {
-  FLASH_DISPATCH(D, bwd_fused, (q, k, v, mask, dout, lse, delta, dq, dk, dv,
-                                B, H, tq, tk, causal, scale, stream))
+  return flash::bwd_fused(q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H,
+                          tq, tk, causal, scale, stream);
 }
 
 extern "C" int flash_bwd_dq_launch(const float* q, const float* k,
                                    const float* v, const unsigned char* mask,
                                    const float* dout, const float* lse,
                                    const float* delta, float* dq, int B,
-                                   int H, int tq, int tk, int D, int causal,
+                                   int H, int tq, int tk, int causal,
                                    float scale, cudaStream_t stream) {
-  FLASH_DISPATCH(D, bwd_dq, (q, k, v, mask, dout, lse, delta, dq, B, H, tq,
-                             tk, causal, scale, stream))
+  return flash::bwd_dq(q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk,
+                       causal, scale, stream);
 }
 
 extern "C" int flash_bwd_dkv_launch(const float* q, const float* k,
                                     const float* v, const unsigned char* mask,
                                     const float* dout, const float* lse,
                                     const float* delta, float* dk, float* dv,
-                                    int B, int H, int tq, int tk, int D,
+                                    int B, int H, int tq, int tk,
                                     int causal, float scale,
                                     cudaStream_t stream) {
-  FLASH_DISPATCH(D, bwd_dkv, (q, k, v, mask, dout, lse, delta, dk, dv, B, H,
-                              tq, tk, causal, scale, stream))
+  return flash::bwd_dkv(q, k, v, mask, dout, lse, delta, dk, dv, B, H, tq,
+                        tk, causal, scale, stream);
 }

@@ -85,21 +85,21 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                     _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attn": {
-        # q, k, v, mask, o, lse, B, H, tq, tk, D, causal, scale, stream
-        "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _P],
-        # q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, tq, tk, D,
+        # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream
+        "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P],
+        # q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, tq, tk,
         # causal, scale, stream
         "flash_bwd_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _F, _P],
-        # q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk, D, causal,
-        # scale, stream
+                                   _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk, causal, scale,
+        # stream
         "flash_bwd_dq_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _F, _P],
-        # q, k, v, mask, dout, lse, delta, dk, dv, B, H, tq, tk, D, causal,
+                                _I, _I, _F, _P],
+        # q, k, v, mask, dout, lse, delta, dk, dv, B, H, tq, tk, causal,
         # scale, stream
         "flash_bwd_dkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, _F, _P],
+                                 _I, _I, _I, _F, _P],
     },
 }
 

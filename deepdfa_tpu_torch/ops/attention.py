@@ -60,8 +60,9 @@ import torch
 
 NEG_INF = -1e30
 
-#: Head widths the CUDA kernels are instantiated for.
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: The head width the CUDA kernels are built for (codebert-base and
+#: unixcoder-base: 768 / 12 heads).
+KERNEL_HEAD_DIM = 64
 #: The kernels' query and key tile (rows).
 TILE = 64
 #: Dynamic shared memory one H100 block may opt into (227 KB).
@@ -315,7 +316,7 @@ def _check_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
                 rows: Tuple[Tuple[str, torch.Tensor, tuple], ...] = ()
                 ) -> None:
     """Raise on what the kernels do not take: CUDA tensors on one device,
-    f32 [B, T, H, D] with D in KERNEL_HEAD_DIMS, contiguous and 16-byte
+    f32 [B, T, H, D] with D = KERNEL_HEAD_DIM, contiguous and 16-byte
     aligned (the tiles load float4s), a bool [B, Tk] mask; ``rows``:
     further (name, tensor, shape) f32 inputs."""
     if not q.is_cuda:
@@ -326,9 +327,10 @@ def _check_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(q.shape)}")
     b, _, h, d = q.shape
     tk = k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
+    if d != KERNEL_HEAD_DIM:
         raise ValueError(f"{kernel}: head width {d}; the kernels take "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIM} (use impl='dense' or "
+                         "'blockwise' for other widths)")
     tensors = (("q", q, tuple(q.shape)), ("k", k, (b, tk, h, d)),
                ("v", v, (b, tk, h, d))) + tuple(rows)
     for name, t, shape in tensors:
@@ -358,7 +360,7 @@ def _library(q: torch.Tensor):
 
 def _dims(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple:
     b, tq, h, d = q.shape
-    return (b, h, tq, k.shape[1], d, int(causal),
+    return (b, h, tq, k.shape[1], int(causal),
             ctypes.c_float(1.0 / math.sqrt(d)))
 
 
@@ -571,26 +573,54 @@ _PRODUCTS = {"flash_fwd_kernel": 2, "flash_bwd_fused_kernel": 5,
              "flash_bwd_dq_kernel": 3, "flash_bwd_dkv_kernel": 4}
 
 
-def kernel_cost(b: int, h: int, tq: int, tk: int, d: int,
-                kernel: str) -> Dict[str, float]:
+def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
+                kernel: str, causal: bool = False) -> Dict[str, float]:
     """Operations and compulsory bytes of one ``kernel`` call on [B, T,
-    H, D] f32 inputs (non-causal; masked tiles counted, as the kernels
-    compute them), each input read once and each output written once:
-    the forward reads q, k, v and the mask and writes o and lse; each
-    backward kernel reads q, k, v, dO, lse, delta and the mask and writes
-    its gradients."""
+    H, D] f32 inputs with this ``kv_mask`` ([B, Tk], True = token), as
+    the function needs them on this data:
+
+    - ``flops``: 2 operations a multiply-add of each product, over the
+      (query, key) pairs that survive the masks: every query row against
+      the real keys it may see (causal: at or before it). Padded keys,
+      all-pad rows and the causal triangle's far side cost nothing.
+    - ``bytes``: each input read once and each output written once. The
+      forward reads q of the live query rows (those that see a key), k
+      and v of the real keys they see and the mask, and writes o and lse
+      for every row; each backward kernel reads q, dO, lse and delta of
+      the live rows, k and v of the seen keys and the mask, and writes
+      its gradients for every row.
+    - ``executed_flops``: the operations the kernel does, whole 64 x 64
+      tiles and masked scores included (it skips only the causal tiles
+      wholly above the diagonal)."""
     if kernel not in _PRODUCTS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
-    flops = 2.0 * _PRODUCTS[kernel] * b * h * tq * tk * d
-    qside, kside, rows = 4.0 * b * tq * h * d, 4.0 * b * tk * h * d, \
-        4.0 * b * h * tq
-    mask = 1.0 * b * tk
-    if kernel == "flash_fwd_kernel":
-        nbytes = 2 * qside + 2 * kside + mask + rows
+    mask = kv_mask.detach().to("cpu", torch.bool)
+    b, tk = mask.shape
+    if causal:
+        # seen[b, i]: real keys j <= i; key j is seen iff j < tq.
+        seen = torch.cumsum(mask.long(), 1)[:, :tq]
+        if tq > tk:
+            seen = torch.cat([seen, seen[:, -1:].expand(b, tq - tk)], 1)
+        keys = int(mask[:, :tq].sum())
     else:
-        reads = 2 * qside + 2 * kside + 2 * rows + mask
-        writes = {"flash_bwd_fused_kernel": qside + 2 * kside,
-                  "flash_bwd_dq_kernel": qside,
-                  "flash_bwd_dkv_kernel": 2 * kside}[kernel]
+        seen = mask.long().sum(1, keepdim=True).expand(b, tq)
+        keys = int(mask.sum())
+    pairs = int(seen.sum())
+    live = int((seen > 0).sum())
+    unit = 2.0 * _PRODUCTS[kernel] * h * d
+    nq, nk = -(-tq // TILE), -(-tk // TILE)
+    tiles = (sum(min(nk, i + 1) for i in range(nq)) if causal
+             else nq * nk)
+    row = 4.0 * h * d  # one [H, D] f32 row
+    mask_bytes, rowvec = 1.0 * b * tk, 4.0 * h
+    if kernel == "flash_fwd_kernel":
+        nbytes = (live * row + 2 * keys * row + mask_bytes
+                  + b * tq * (row + rowvec))
+    else:
+        reads = 2 * live * (row + rowvec) + 2 * keys * row + mask_bytes
+        writes = {"flash_bwd_fused_kernel": b * tq * row + 2 * b * tk * row,
+                  "flash_bwd_dq_kernel": b * tq * row,
+                  "flash_bwd_dkv_kernel": 2 * b * tk * row}[kernel]
         nbytes = reads + writes
-    return {"flops": flops, "bytes": nbytes}
+    return {"flops": unit * pairs, "bytes": nbytes,
+            "executed_flops": unit * b * tiles * TILE * TILE}

@@ -174,12 +174,31 @@ def test_fused_backward_gate():
 def test_kernel_cost_counts_the_products():
     b, h, t, d = 16, 12, 512, 64
     unit = b * h * t * t * d
+    full = torch.ones(b, t, dtype=torch.bool)
     for name, ops in (("flash_fwd_kernel", 4), ("flash_bwd_fused_kernel", 10),
                       ("flash_bwd_dq_kernel", 6),
                       ("flash_bwd_dkv_kernel", 8)):
-        assert A.kernel_cost(b, h, t, t, d, name)["flops"] == ops * unit
+        cost = A.kernel_cost(full, t, h, d, name)
+        assert cost["flops"] == cost["executed_flops"] == ops * unit
     plane = 4 * b * t * h * d
-    fwd = A.kernel_cost(b, h, t, t, d, "flash_fwd_kernel")["bytes"]
+    fwd = A.kernel_cost(full, t, h, d, "flash_fwd_kernel")["bytes"]
     assert fwd == 4 * plane + b * t + 4 * b * h * t
     with pytest.raises(ValueError, match="unknown kernel"):
-        A.kernel_cost(b, h, t, t, d, "nope")
+        A.kernel_cost(full, t, h, d, "nope")
+
+    # Only the pairs the masks leave count: row 0 has 3 real keys of 100,
+    # row 1 none (its queries see nothing and read nothing); the kernel
+    # still runs two whole 64-key tiles for each of two query tiles.
+    t = 100
+    mask = torch.zeros(2, t, dtype=torch.bool)
+    mask[0, :3] = True
+    cost = A.kernel_cost(mask, t, 1, d, "flash_fwd_kernel")
+    assert cost["flops"] == 4 * d * t * 3
+    assert cost["executed_flops"] == 4 * d * 2 * 128 * 128
+    row = 4 * d
+    assert cost["bytes"] == (t * row + 2 * 3 * row + 2 * t
+                             + 2 * t * (row + 4))
+    # Causal: query i sees the real keys at or before it, 1 + 2 + 3 * 98.
+    causal = A.kernel_cost(mask, t, 1, d, "flash_bwd_dq_kernel", causal=True)
+    assert causal["flops"] == 6 * d * (1 + 2 + 3 * 98)
+    assert causal["executed_flops"] == 6 * d * 2 * 3 * 64 * 64

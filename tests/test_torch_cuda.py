@@ -361,8 +361,7 @@ def _attn_inputs(b, t, h, d, dev, seed=0, all_pad_row=True):
 
 @pytest.mark.parametrize("b,t,h,d,causal", [
     (2, 64, 2, 64, False), (3, 100, 2, 64, False), (3, 100, 2, 64, True),
-    (2, 200, 3, 16, False), (2, 130, 2, 32, True), (2, 96, 2, 128, False),
-    (2, 512, 2, 64, False)])
+    (2, 200, 3, 64, False), (2, 130, 2, 64, True), (2, 512, 2, 64, False)])
 def test_flash_kernels_match_plain_versions(cuda, b, t, h, d, causal):
     from deepdfa_tpu_torch.ops import attention as A
 

@@ -513,3 +513,40 @@ def test_cli_fit_text_on_cpu(tmp_path, capsys):
     assert history["kernel_launches"] == dict.fromkeys(A.KERNELS, 0)
     lines = (out / "predictions.csv").read_text().splitlines()
     assert lines[0] == "index,prob,label" and len(lines) == 1 + 4
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_cli_fit_text_tiny_refuses_the_card_kernels(tmp_path, impl):
+    # The tiny encoder's head width is 8; the CUDA kernels take 64. The
+    # refusal comes before a model is built or a device is touched.
+    from deepdfa_tpu_torch.cli import main
+
+    with pytest.raises(ValueError, match="--attention-impl dense"):
+        main(["fit-text", "--tiny", "--device", "cuda", "--attention-impl",
+              impl, "--out-dir", str(tmp_path / "run")])
+
+
+def test_smoke_gradient_check_catches_a_zeroed_dq(monkeypatch):
+    """chip_smoke's card-against-CPU gradient check passes equal
+    gradients and refuses a backward whose dq is dropped (the first
+    tensor it reads, the word embeddings, then misses by about 1e-1 of
+    its largest entry against the 1e-4 limit)."""
+    import chip_smoke
+
+    model, data, splits, cfg, kw = _fit_setup()
+    batch = next(text_loop.text_graph_batches(data, splits["train"], 8,
+                                              **kw))
+    good = chip_smoke._text_grads(model, batch, "cpu")
+    same = chip_smoke._compare_text_grads(good, good)
+    assert same["grad_gap_share_of_limit"] == 0.0
+    assert same["tensors"] == len(list(model.parameters()))
+    fused = A.flash_bwd_fused
+
+    def no_dq(*args, **kwargs):
+        dq, dk, dv = fused(*args, **kwargs)
+        return torch.zeros_like(dq), dk, dv
+
+    monkeypatch.setattr(A, "flash_bwd_fused", no_dq)
+    bad = chip_smoke._text_grads(model, batch, "cpu")
+    with pytest.raises(AssertionError, match=r"gradient of \S+: \|card"):
+        chip_smoke._compare_text_grads(bad, good)
