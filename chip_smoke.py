@@ -27,14 +27,24 @@ one:
    ``h_k`` bit for bit against ``persistent_fwd_kernel`` run for k steps,
    and ``persistent_bwd_kernel`` plus ``step_weight_grad_kernel`` bit for
    bit against the scan of ``fused_step_bwd_kernel``.
-7. Train, persistent lane: ``train.loop.fit`` on the card (published
+7. ``tile_spmm_kernel`` against its plain version at the training shape
+   (the first batch of ``fit`` packed with its tile adjacency: N = 16384
+   rows, H = 128), over A and over A^T (the backward's launch): times,
+   the bound of the sparse product, the whole-tile work, the time of
+   ``torch.sparse.mm`` on the same A as an f32 CSR tensor (cuSPARSE), the
+   tile counts (with an edge, filler, pad) and the host's build and copy
+   of the adjacency.
+8. Train, persistent lane: ``train.loop.fit`` on the card (published
    widths, ``DataConfig(batch_size=256)``, ``TrainConfig`` defaults but
    one epoch: 9 steps and a validation pass), launches counted over the
    run; the same initial weights and batches through the port on the
    CPU, per-step losses compared; then a step-time breakdown (CUDA
    events) and each kernel's device ms a step (``torch.profiler``).
-8. Train, fused lane: the same with ``message_impl="fused"``.
-9. The four flash-attention kernels against their plain versions at the
+9. Train, fused lane: the same with ``message_impl="fused"``.
+10. Train, tile lane: the same with ``message_impl="tile"``: exactly 10
+   launches of ``tile_spmm_kernel`` a train step (5 gated steps
+   forward, 5 backward over A^T) and 5 an evaluation batch.
+11. The four flash-attention kernels against their plain versions at the
    text training shape (B 16, T 512, H 12, D 64: random q/k/v at the
    encoder's init scale, a mask with padded tails and one all-pad row)
    and at the long shape (B 8, T 4096, H 12), the fused backward against
@@ -44,25 +54,28 @@ one:
    all-pad row (forward, and its autograd backward, which computes dq,
    dk and dv together: the two-pass pair's summed time stands beside
    it).
-10. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
+12. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
    width and depth (codebert-base, 12 layers, T 512, batch 16, the
    FlowGNN encoder, ``TransformerTrainConfig`` defaults but one epoch:
    6 steps and one validation batch on ``synthetic:120``), launches
    counted over the run; then a step-time breakdown (CUDA events),
    examples per second and each kernel's device ms a step
    (``torch.profiler``).
-11. The same ``fit_text`` on the card and on the CPU, at full width with
+13. The same ``fit_text`` on the card and on the CPU, at full width with
    the depth cut to 2 layers, batch 4, dropout off (the two devices'
    random streams differ): first one batch's parameter gradients from
    the same weights, each tensor compared; then 3 steps, per-step losses
    compared.
-12. ``fit_text`` at T 4096 (batch 8, 2 layers, 2 steps): one
+14. Phase 13 with a tile graph encoder (``--set
+   model.message_impl=tile``): its launches count toward the path.
+15. ``fit_text`` at T 4096 (batch 8, 2 layers, 2 steps): one
    (batch, head)'s dq no longer fits shared memory, so the backward runs
    the two-pass pair.
 
-Each phase's seconds go into a ``phase_seconds`` record. Every number
-goes on a line of its own before the last; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase's seconds go into a ``phase_seconds`` record. Each main-path
+run sets every kernel's launch count to 0 just before it and reads the
+counts just after. Every number goes on a line of its own before the
+last; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -97,8 +110,15 @@ from deepdfa_tpu_torch.graphs.batch import batch_graphs, pad_budget_for
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
 from deepdfa_tpu_torch.models.transformer import EncoderConfig
-from deepdfa_tpu_torch.ops import _build, attention, fused_gnn
-from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE, align_to_tile
+from deepdfa_tpu_torch.ops import (
+    _build,
+    attention,
+    fused_gnn,
+    launch_counts,
+    reset_launch_counts,
+    tile_spmm,
+)
+from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE, align_to_tile
 from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
 from deepdfa_tpu_torch.serve.engine import bucket_batch
 from deepdfa_tpu_torch.train import loop, text_loop
@@ -191,6 +211,14 @@ REPLACES.update({
 })
 SOURCES.update({name: "deepdfa_tpu_torch/csrc/flash_attn.cu"
                 for name in attention.KERNELS})
+REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
+SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
+# The tile product against its plain version: each output sums a row's
+# few edges in another order (f32 FMAs against cuBLAS's bmm and
+# index_add_).
+TILE_TOL = dict(rtol=1e-5, atol=1e-5)
+# What torch.sparse.mm on A (f32 CSR) computes of the kernel's output.
+TILE_LIBRARY_COVERS = ["agg = A @ msg"]
 
 
 def emit(**record) -> None:
@@ -391,7 +419,7 @@ def phase_serve(impl: str) -> dict:
     warm_s = time.perf_counter() - t0
     reqs = _requests()
 
-    fused_gnn.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     handles = []
     for g in reqs:
@@ -401,7 +429,7 @@ def phase_serve(impl: str) -> dict:
     engine.drain()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = fused_gnn.launch_counts()
+    launches = launch_counts()
 
     snap = engine.snapshot()
     flushes = snap["batches"]
@@ -457,16 +485,18 @@ def _train_data(feature, seed: int):
     return examples, make_splits(examples, mode="random", seed=seed)
 
 
-def _training_batch(model: FlowGNN):
-    """The first batch of fit's first epoch at the published sizes."""
+def _training_batch(model: FlowGNN, device: str = "cuda"):
+    """The first batch of fit's first epoch at the published sizes, with
+    the tile adjacency for a tile model and the band one otherwise."""
     examples, splits = _train_data(model.config.feature, TrainConfig().seed)
     train = splits["train"]
     idx = epoch_indices([examples[i]["label"] for i in train], 0,
                         seed=DataConfig().seed)
+    tile = model.config.uses_tile_adj
     batches = loop._batches(examples, train[idx], DataConfig(),
                             list(model.subkeys), DataConfig().batch_size,
-                            build_band_adj=True)
-    return next(iter(batches)).to("cuda")
+                            build_band_adj=not tile, build_tile_adj=tile)
+    return next(iter(batches)).to(device)
 
 
 def _check_grads(name, got, want) -> tuple:
@@ -722,6 +752,69 @@ def _profile_step(model: FlowGNN, batch) -> dict:
     return _device_profile(lambda: step(batch), PROFILE_STEPS)
 
 
+def phase_tile_kernels() -> dict:
+    """``tile_spmm_kernel`` against its plain version at the training
+    shape, over A and over A^T, timed beside its bound and cuSPARSE.
+    Returns the numbers over A (its backward's launch, over A^T, stands
+    beside them as ``transpose_ms``)."""
+    model = FlowGNN(FlowGNNConfig(message_impl="tile"), device="cuda",
+                    seed=SEED)
+    host = _training_batch(model, device="cpu")
+    s, r, m = (x.numpy() for x in (host.senders, host.receivers,
+                                    host.edge_mask))
+    n, hidden = host.max_nodes, model.config.ggnn_hidden
+    build_ms, copy_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tile_spmm.build_tile_adjacency(s, r, m, n)
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adj = host.tile_adj.to("cuda")
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    msg = torch.randn((n, hidden), generator=gen, device="cuda")
+    recs = {}
+    for direction, a, (row, col) in (("A", adj, (r, s)),
+                                     ("A^T", adj.transposed(), (s, r))):
+        got = tile_spmm.tile_spmm(a, msg)
+        want = tile_spmm.tile_spmm_reference(a, msg)
+        err = _check(f"tile_spmm_kernel@{direction}", got, want, TILE_TOL)
+        # The yardstick: the same A as an f32 CSR matrix (duplicate
+        # edges summed), one torch.sparse.mm call.
+        csr = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([row[m], col[m]]).astype(np.int64)),
+            torch.ones(int(m.sum())), (n, n)).coalesce().to_sparse_csr()
+        csr = csr.to("cuda")
+        _check(f"torch.sparse.mm@{direction}", torch.sparse.mm(csr, msg),
+               want, TILE_TOL)
+        kernel_ms = _time_ms(lambda: tile_spmm.tile_spmm(a, msg))
+        plain_ms = _time_ms(lambda: tile_spmm.tile_spmm_reference(a, msg))
+        library_ms = _time_ms(lambda: torch.sparse.mm(csr, msg))
+        cost = tile_spmm.kernel_cost(adj, hidden,
+                                     transposed=direction == "A^T")
+        bound_ms, bound_by = _bound(cost)
+        recs[direction] = dict(
+            kernel="tile_spmm_kernel", over=direction, shape="training",
+            n_rows=n, hidden=hidden, tile=adj.tile, max_abs_err=err,
+            tol=TILE_TOL, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_covers=TILE_LIBRARY_COVERS,
+            bound_us=bound_ms * 1e3, bound_by=bound_by,
+            flops=cost["flops"], bytes=cost["bytes"],
+            executed_flops=cost["executed_flops"],
+            executed_tflops=cost["executed_flops"] / kernel_ms / 1e9,
+            nnz=cost["nnz"], edge_tiles=cost["edge_tiles"],
+            sender_tiles=cost["sender_tiles"],
+            filler_tiles=cost["filler_tiles"], pad_tiles=cost["pad_tiles"],
+            vals_dtype=str(adj.vals.dtype),
+            host_build_ms=statistics.median(build_ms),
+            host_to_device_ms=statistics.median(copy_ms))
+        emit(phase="tile_kernels", **recs[direction])
+    return {"tile_spmm_kernel": dict(
+        recs["A"], transpose_ms=recs["A^T"]["kernel_ms"])}
+
+
 def phase_train(impl: str) -> dict:
     cfg = FlowGNNConfig(message_impl=impl)
     train_cfg = dataclasses.replace(TrainConfig(), max_epochs=TRAIN_EPOCHS)
@@ -732,12 +825,12 @@ def phase_train(impl: str) -> dict:
     cpu_model.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
 
-    fused_gnn.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     _, history = loop.fit(model, examples, splits, train_cfg, data_cfg)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = fused_gnn.launch_counts()
+    launches = launch_counts()
 
     losses = [x for e in history["epochs"] for x in e["step_losses"]]
     _, cpu_history = loop.fit(cpu_model, examples, splits, train_cfg,
@@ -753,15 +846,25 @@ def phase_train(impl: str) -> dict:
     val_diff = abs(history["epochs"][-1]["val_loss"]
                    - cpu_history["epochs"][-1]["val_loss"])
     steps = len(losses)
+    exact = {"tile_spmm_kernel": 0}
     if impl == "persistent":
         need = ("persistent_fwd_kernel", "persistent_fwd_hist_kernel",
                 "persistent_bwd_kernel", "step_weight_grad_kernel")
-        exact = ({"persistent_bwd_kernel": steps}
-                 if model.over_gate_dispatches == 0 else {})
-    else:
+        if model.over_gate_dispatches == 0:
+            exact["persistent_bwd_kernel"] = steps
+    elif impl == "fused":
         need = ("fused_step_kernel", "fused_step_bwd_kernel",
                 "step_weight_grad_kernel")
-        exact = {"fused_step_bwd_kernel": cfg.n_steps * steps}
+        exact["fused_step_bwd_kernel"] = cfg.n_steps * steps
+    else:
+        # Each train step: n_steps forward launches and n_steps backward
+        # ones (over A^T); each evaluation batch: n_steps forward.
+        val_batches = sum(1 for _ in loop._batches(
+            examples, splits["val"], data_cfg, list(model.subkeys),
+            data_cfg.eval_batch_size, build_tile_adj=True))
+        need = ("tile_spmm_kernel",)
+        exact = {**dict.fromkeys(fused_gnn.KERNELS, 0), "tile_spmm_kernel":
+                 2 * cfg.n_steps * steps + cfg.n_steps * val_batches}
     if any(launches[k] == 0 for k in need) or any(
             launches[k] != v for k, v in exact.items()):
         raise AssertionError(f"{impl} train lane: launches {launches} over "
@@ -932,10 +1035,13 @@ def phase_attention_kernels() -> dict:
     return out
 
 
-def _text_setup(enc: EncoderConfig, n: int, batch: int, block: int):
+def _text_setup(enc: EncoderConfig, n: int, batch: int, block: int,
+                message_impl: str = "segment"):
     """The model, data and fit_text arguments of ``cli fit-text
-    --graphs synthetic`` at these sizes (one epoch)."""
-    graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph")
+    --graphs synthetic [--set model.message_impl=...]`` at these sizes
+    (one epoch)."""
+    graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph",
+                              message_impl=message_impl)
     tcfg = TransformerTrainConfig(max_epochs=1, batch_size=batch,
                                   eval_batch_size=batch, block_size=block,
                                   seed=TEXT_SEED)
@@ -949,13 +1055,13 @@ def _text_setup(enc: EncoderConfig, n: int, batch: int, block: int):
 
 
 def _fit_text_counted(model: LineVul, data, splits, tcfg, kw):
-    """``fit_text`` with the attention counts set to 0 just before and
+    """``fit_text`` with every kernel's count set to 0 just before and
     read just after: (history, launches, two-pass dispatches, seconds)."""
-    attention.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     _, history = text_loop.fit_text(model, data, splits, tcfg, **kw)
     torch.cuda.synchronize()
-    return (history, attention.launch_counts(),
+    return (history, launch_counts(),
             attention.flash_backward.two_pass_dispatches,
             time.perf_counter() - t0)
 
@@ -968,9 +1074,9 @@ def _text_steps(history) -> list:
 
 
 def _require_launches(what: str, launches: dict, want: dict) -> None:
-    if launches != {**dict.fromkeys(attention.KERNELS, 0), **want}:
-        raise AssertionError(f"{what}: flash launches {launches}, want "
-                             f"{want}")
+    """Exactly ``want``, and no launch of any other kernel."""
+    if launches != {**dict.fromkeys(REPLACES, 0), **want}:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
 
 
 def _text_step_breakdown(model: LineVul, batch, tcfg) -> dict:
@@ -1069,20 +1175,21 @@ def _compare_text_grads(got: dict, want: dict) -> dict:
             "worst_tensor": worst_name, "tensors": len(want)}
 
 
-def phase_fit_text_vs_cpu() -> dict:
+def phase_fit_text_vs_cpu(message_impl: str = "segment") -> dict:
     """fit_text on the card and on the CPU from the same weights: full
-    width, 2 layers, batch 4, dropout off; one batch's gradients, then 3
-    steps."""
+    width, 2 layers, batch 4, dropout off, the graph encoder's
+    ``message_impl``; one batch's gradients, then 3 steps."""
     enc = dataclasses.replace(EncoderConfig(), attention_impl="auto",
                               num_layers=2, dropout_rate=0.0)
     graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_VS_CPU, 4,
-                                                    512)
+                                                    512, message_impl)
     model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
     cpu_model = LineVul(enc, graph_cfg, device="cpu")
     cpu_model.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
-    batch = next(text_loop.text_graph_batches(data, splits["train"],
-                                              tcfg.batch_size, **kw))
+    batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size,
+        build_tile_adj=graph_cfg.uses_tile_adj, **kw))
     grads = _compare_text_grads(_text_grads(model, batch, "cuda"),
                                 _text_grads(cpu_model, batch, "cpu"))
     history, launches, _, wall_s = _fit_text_counted(model, data, splits,
@@ -1098,10 +1205,15 @@ def phase_fit_text_vs_cpu() -> dict:
         raise AssertionError(f"fit_text card {losses} against cpu "
                              f"{cpu_losses} (limit {TEXT_LOSS_TOL})")
     val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
-    _require_launches("fit_text vs cpu", launches, {
-        "flash_fwd_kernel": enc.num_layers * (3 + val_batches),
-        "flash_bwd_fused_kernel": enc.num_layers * 3})
-    rec = dict(phase="fit_text_vs_cpu", layers=enc.num_layers,
+    want = {"flash_fwd_kernel": enc.num_layers * (3 + val_batches),
+            "flash_bwd_fused_kernel": enc.num_layers * 3}
+    if graph_cfg.uses_tile_adj:
+        # The graph encoder: n_steps launches forward, n_steps backward a
+        # train step; n_steps forward an evaluation batch.
+        want["tile_spmm_kernel"] = graph_cfg.n_steps * (2 * 3 + val_batches)
+    _require_launches(f"fit_text vs cpu ({message_impl})", launches, want)
+    rec = dict(phase="fit_text_vs_cpu", graph_message_impl=message_impl,
+               layers=enc.num_layers,
                batch_size=tcfg.batch_size, **grads, losses=losses,
                cpu_losses=cpu_losses,
                max_abs_loss_diff_vs_cpu=float(diffs.max()),
@@ -1163,15 +1275,18 @@ def main() -> int:
                 "launches"].items():
             path_launches[k] += v
     timings.update(timed("train_kernels", phase_train_kernels, model))
-    for impl in ("persistent", "fused"):
+    timings.update(timed("tile_kernels", phase_tile_kernels))
+    for impl in ("persistent", "fused", "tile"):
         for k, v in timed(f"train_{impl}", phase_train, impl)[
                 "launches"].items():
             path_launches[k] += v
     timings.update(timed("attention_kernels", phase_attention_kernels))
-    for phase, fn in (("fit_text", phase_fit_text),
-                      ("fit_text_vs_cpu", phase_fit_text_vs_cpu),
-                      ("fit_text_long", phase_fit_text_long)):
-        for k, v in timed(phase, fn)["launches"].items():
+    for phase, fn, args in (
+            ("fit_text", phase_fit_text, ()),
+            ("fit_text_vs_cpu", phase_fit_text_vs_cpu, ()),
+            ("fit_text_vs_cpu_tile", phase_fit_text_vs_cpu, ("tile",)),
+            ("fit_text_long", phase_fit_text_long, ())):
+        for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))
     kernels = []
@@ -1179,7 +1294,8 @@ def main() -> int:
         t = timings[kname]
         if path_launches[kname] <= 0:
             raise AssertionError(f"{kname} never ran on the main path")
-        # library_ms: SDPA for the attention kernels; null for the GNN
+        # library_ms: SDPA for the attention kernels, torch.sparse.mm
+        # (cuSPARSE) for the tile product; null for the gated-step
         # kernels (no single PyTorch call computes a GRU gated graph step
         # or its VJP).
         kernels.append({
@@ -1189,7 +1305,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_us"] / 1e3,
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             **{key: t[key] for key in ("library_covers", "pair_ms",
-                                       "max_rel_err") if key in t}})
+                                       "max_rel_err", "transpose_ms")
+               if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

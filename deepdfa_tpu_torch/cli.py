@@ -3,8 +3,9 @@
 Three subcommands so far. ``fit`` trains the published FlowGNN::
 
     python -m deepdfa_tpu_torch.cli fit --dataset synthetic:2720 \\
-        [--message-impl persistent] [--max-epochs 25] [--batch-size 256] \\
-        [--lr 1e-3] [--seed 1] [--device cuda] [--out-dir runs/fit]
+        [--message-impl persistent|fused|tile|band|segment] \\
+        [--max-epochs 25] [--batch-size 256] [--lr 1e-3] [--seed 1] \\
+        [--device cuda] [--out-dir runs/fit]
 
 It splits the dataset 80/10/10 from ``--seed``, trains with
 ``train.loop.fit``, writes ``history.json`` into ``--out-dir`` and
@@ -25,14 +26,16 @@ stack is real, the scores are not). ``fit-text`` trains DeepDFA+LineVul
 
     python -m deepdfa_tpu_torch.cli fit-text --dataset synthetic:256 \\
         --graphs synthetic [--tiny] [--attention-impl auto] [--remat] \\
-        [--epochs 10] [--batch-size 16] [--block-size 512] [--device cuda] \\
-        [--out-dir runs/fit_text]
+        [--set model.message_impl=tile] [--epochs 10] [--batch-size 16] \\
+        [--block-size 512] [--device cuda] [--out-dir runs/fit_text]
 
 from a seeded random init (no pretrained weights are in the repository
 yet), writes ``history.json``, ``model.json`` (the reference's run
 descriptor) and, after the test split's evaluation of the best state,
 ``predictions.csv``. Flags replace the reference's YAML configuration,
-since the port needs no PyYAML.
+since the port needs no PyYAML; ``--set model.<field>=<value>``
+(repeatable) sets a field of the graph encoder's ``FlowGNNConfig``, as
+the reference's ``fit-text --set`` does, and refuses any other section.
 """
 
 from __future__ import annotations
@@ -56,6 +59,55 @@ def _dump_predictions(out_dir: str, ids, probs, labels,
         for i, p, lab in zip(ids, probs, labels):
             f.write(f"{int(i)},{float(p):.6f},{int(lab)}\n")
     return path
+
+
+def _coerce(value: str, field_type: Any):
+    """The reference's ``_coerce``: a bool field reads 1/true/yes, any
+    other field an int, else a float, else the string."""
+    if field_type is bool or str(field_type) == "bool":
+        return value.lower() in ("1", "true", "yes")
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except (TypeError, ValueError):
+            continue
+    return value
+
+
+def graph_overrides(items: Sequence[str]) -> Dict[str, Any]:
+    """``fit-text --set`` items -> ``FlowGNNConfig`` fields, by the
+    reference's rules: only ``model.*`` keys, ``section.key=value``,
+    known fields, values coerced to the field's type (``feature``, a
+    nested spec, is not settable here)."""
+    import dataclasses
+
+    from deepdfa_tpu_torch.core.config import FlowGNNConfig
+
+    fields = {f.name: f for f in dataclasses.fields(FlowGNNConfig)}
+    out: Dict[str, Any] = {}
+    for item in items:
+        if not item.startswith("model."):
+            raise ValueError(
+                f"fit-text --set only configures the graph encoder "
+                f"(model.*); use the native flags instead of {item!r}")
+        dotted, _, value = item.partition("=")
+        key = dotted.partition(".")[2]
+        if not key:
+            raise ValueError(f"override must be section.key=value, got "
+                             f"{item!r}")
+        if key not in fields or key == "feature":
+            raise ValueError(f"unknown model option {key!r}")
+        ftype = fields[key].type
+        out[key] = value if ftype in (str, "str") else _coerce(value, ftype)
+    return out
+
+
+def _launches(*modules) -> Dict[str, int]:
+    """The launch counts of the kernels of ``modules`` (ops modules)."""
+    from deepdfa_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    return {name: counts[name] for m in modules for name in m.KERNELS}
 
 
 def cmd_score(args) -> Dict[str, Any]:
@@ -106,7 +158,7 @@ def cmd_fit(args) -> Dict[str, Any]:
     from deepdfa_tpu_torch.data.combined import load_graph_source
     from deepdfa_tpu_torch.data.splits import make_splits
     from deepdfa_tpu_torch.models.flowgnn import FlowGNN
-    from deepdfa_tpu_torch.ops import fused_gnn
+    from deepdfa_tpu_torch.ops import fused_gnn, reset_launch_counts, tile_spmm
     from deepdfa_tpu_torch.train.loop import fit
 
     model_cfg = FlowGNNConfig(message_impl=args.message_impl)
@@ -117,9 +169,9 @@ def cmd_fit(args) -> Dict[str, Any]:
                                  seed=train_cfg.seed)
     splits = make_splits(examples, mode="random", seed=train_cfg.seed)
     model = FlowGNN(model_cfg, device=args.device, seed=train_cfg.seed)
-    fused_gnn.reset_launch_counts()
+    reset_launch_counts()
     _, history = fit(model, examples, splits, train_cfg, data_cfg)
-    history["kernel_launches"] = fused_gnn.launch_counts()
+    history["kernel_launches"] = _launches(fused_gnn, tile_spmm)
     history["over_gate_dispatches"] = model.over_gate_dispatches
     result = {
         "best_epoch": history["best_epoch"],
@@ -149,14 +201,20 @@ def cmd_fit_text(args) -> Dict[str, Any]:
     from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
     from deepdfa_tpu_torch.models.linevul import LineVul
     from deepdfa_tpu_torch.models.transformer import EncoderConfig
-    from deepdfa_tpu_torch.ops import attention
+    from deepdfa_tpu_torch.ops import (
+        attention,
+        fused_gnn,
+        reset_launch_counts,
+        tile_spmm,
+    )
     from deepdfa_tpu_torch.train.text_loop import (
         evaluate_text,
         fit_text,
         make_text_eval_step,
     )
 
-    graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph")
+    graph_cfg = dataclasses.replace(FlowGNNConfig(**graph_overrides(args.set)),
+                                    encoder_mode=True, label_style="graph")
     combined = args.graphs is not None
     tcfg = TransformerTrainConfig(
         learning_rate=args.learning_rate, max_epochs=args.epochs,
@@ -194,14 +252,15 @@ def cmd_fit_text(args) -> Dict[str, Any]:
             list(graphs_by_id.values()),
             max(tcfg.batch_size, tcfg.eval_batch_size),
             max_nodes=args.max_nodes, max_edges=args.max_edges)
-    attention.reset_launch_counts()
+    reset_launch_counts()
     best_state, history = fit_text(model, data, splits, tcfg,
                                    graphs_by_id=graphs_by_id,
                                    subkeys=subkeys, graph_budget=budget,
                                    pad_id=enc.pad_token_id)
-    history["kernel_launches"] = attention.launch_counts()
+    history["kernel_launches"] = _launches(attention)
     history["two_pass_dispatches"] = (
         attention.flash_backward.two_pass_dispatches)
+    history["graph_kernel_launches"] = _launches(fused_gnn, tile_spmm)
     os.makedirs(args.out_dir, exist_ok=True)
     descriptor = {
         "model": args.model, "tiny": args.tiny,
@@ -222,7 +281,9 @@ def cmd_fit_text(args) -> Dict[str, Any]:
         model.load_state_dict(best_state.params)
         test = evaluate_text(make_text_eval_step(model), data,
                              splits["test"], tcfg, graphs_by_id, subkeys,
-                             budget, pad_id=enc.pad_token_id)
+                             budget, pad_id=enc.pad_token_id,
+                             build_band_adj=graph_cfg.uses_band_adj,
+                             build_tile_adj=graph_cfg.uses_tile_adj)
         result["test"] = {"loss": test["loss"], **test["metrics"],
                           "num_missing": test["num_missing"]}
         _dump_predictions(args.out_dir, test["index"], test["probs"],
@@ -241,7 +302,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "writes history.json")
     ft.add_argument("--dataset", default="synthetic:256")
     ft.add_argument("--message-impl", default="persistent",
-                    choices=["segment", "band", "fused", "persistent"])
+                    choices=["segment", "band", "tile", "fused",
+                             "persistent"])
     ft.add_argument("--max-epochs", type=int, default=25)
     ft.add_argument("--batch-size", type=int, default=256)
     ft.add_argument("--lr", type=float, default=1e-3)
@@ -281,6 +343,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "the card, their plain versions on the CPU)")
     tx.add_argument("--remat", action="store_true",
                     help="recompute each encoder layer in the backward")
+    tx.add_argument("--set", action="append", default=[],
+                    metavar="model.K=V",
+                    help="set a field of the graph encoder's FlowGNNConfig "
+                         "(e.g. model.message_impl=tile); repeatable")
     tx.add_argument("--epochs", type=int, default=10)
     tx.add_argument("--batch-size", type=int, default=16)
     tx.add_argument("--eval-batch-size", type=int, default=None)

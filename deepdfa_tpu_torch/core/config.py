@@ -42,11 +42,11 @@ class FlowGNNConfig:
     per-subkey embedding tables concatenated).
 
     ``message_impl``: "segment" (gather + ``index_add_``), "band" (the
-    block-banded batched matmul), "fused" (one hand-written CUDA kernel
+    block-banded batched matmul), "tile" (the block-sparse tile product,
+    a hand-written CUDA kernel), "fused" (one hand-written CUDA kernel
     per gated step) or "persistent" (one CUDA kernel for all
-    ``n_steps``). "tile" exists for parity with the reference config but
-    is not ported yet. ``pool_impl``/``embed_impl`` are kept for parity;
-    the port always pools with segment ops and embeds with a gather.
+    ``n_steps``). ``pool_impl``/``embed_impl`` are kept for parity; the
+    port always pools with segment ops and embeds with a gather.
     """
 
     feature: FeatureSpec = dataclasses.field(default_factory=FeatureSpec)
@@ -69,6 +69,11 @@ class FlowGNNConfig:
     def uses_band_adj(self) -> bool:
         """Batches for this model must carry the band adjacency."""
         return self.message_impl in ("band", "fused", "persistent")
+
+    @property
+    def uses_tile_adj(self) -> bool:
+        """Batches for this model must carry the tile adjacency."""
+        return self.message_impl == "tile"
 
     @property
     def embedding_dim(self) -> int:

@@ -24,7 +24,11 @@ import torch
 from deepdfa_tpu_torch.contracts.schema import ContractError
 from deepdfa_tpu_torch.graphs.segment import segment_max
 from deepdfa_tpu_torch.ops.band_spmm import BandAdjacency, build_band_adjacency
-from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE
+from deepdfa_tpu_torch.ops.tile_spmm import (
+    DEFAULT_TILE,
+    TileAdjacency,
+    build_tile_adjacency,
+)
 
 
 @dataclasses.dataclass
@@ -42,6 +46,7 @@ class GraphBatch:
     graph_ids   : int32[n_graphs] example ids, -1 for empty slots
     band_adj    : optional block-banded adjacency (message_impl band,
                   fused, persistent)
+    tile_adj    : optional block-sparse tile adjacency (message_impl tile)
     """
 
     node_feats: Dict[str, torch.Tensor]
@@ -54,6 +59,7 @@ class GraphBatch:
     graph_mask: torch.Tensor
     graph_ids: torch.Tensor
     band_adj: Optional[BandAdjacency] = None
+    tile_adj: Optional[TileAdjacency] = None
 
     @property
     def n_graphs(self) -> int:
@@ -75,8 +81,9 @@ class GraphBatch:
                 moved[name] = value.to(device)
         moved["node_feats"] = {k: v.to(device)
                                for k, v in self.node_feats.items()}
-        if self.band_adj is not None:
-            moved["band_adj"] = self.band_adj.to(device)
+        for name in ("band_adj", "tile_adj"):
+            if moved[name] is not None:
+                moved[name] = moved[name].to(device)
         return GraphBatch(**moved)
 
 
@@ -139,6 +146,7 @@ def batch_graphs(
     tile: Optional[int] = None,
     build_band_adj: bool = False,
     band_bandwidth: Optional[int] = None,
+    build_tile_adj: bool = False,
 ) -> GraphBatch:
     """Pack up to ``n_graphs`` graphs into one padded batch on the host.
 
@@ -146,7 +154,8 @@ def batch_graphs(
     ``vuln`` and ``feats`` (subkey -> int[num_nodes]), optionally ``id``.
     Graphs that overflow the budget raise; edge endpoints are checked
     before any copy (a dangling endpoint would silently land in another
-    graph's rows).
+    graph's rows). ``build_band_adj``/``build_tile_adj`` attach the band
+    or tile adjacency (the tile budget is the next power of two).
     """
     if len(graphs) > n_graphs:
         raise ValueError(f"{len(graphs)} graphs > {n_graphs} slots")
@@ -216,6 +225,11 @@ def batch_graphs(
             senders, receivers, edge_mask, max_nodes,
             tile=tile if tile is not None else DEFAULT_TILE,
             bandwidth=band_bandwidth)
+    tile_adj = None
+    if build_tile_adj:
+        tile_adj = build_tile_adjacency(
+            senders, receivers, edge_mask, max_nodes,
+            tile=tile if tile is not None else DEFAULT_TILE)
 
     t = torch.from_numpy
     return GraphBatch(
@@ -229,6 +243,7 @@ def batch_graphs(
         graph_mask=t(graph_mask),
         graph_ids=t(graph_ids),
         band_adj=band_adj,
+        tile_adj=tile_adj,
     )
 
 
@@ -242,13 +257,15 @@ def batch_iterator(
     tile: Optional[int] = None,
     build_band_adj: bool = False,
     band_bandwidth: Optional[int] = None,
+    build_tile_adj: bool = False,
 ) -> Iterator[GraphBatch]:
     """Greedy packer: yields GraphBatches in order, starting a new batch
     when the next graph would overflow the graph, node or edge budget."""
     pending: List[Mapping] = []
     nodes = edges = 0
     kw = dict(add_self_loops=add_self_loops, tile=tile,
-              build_band_adj=build_band_adj, band_bandwidth=band_bandwidth)
+              build_band_adj=build_band_adj, band_bandwidth=band_bandwidth,
+              build_tile_adj=build_tile_adj)
     for g in graphs:
         n = int(g["num_nodes"])
         e = len(g["senders"]) + (n if add_self_loops else 0)

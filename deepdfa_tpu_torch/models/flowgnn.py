@@ -14,12 +14,14 @@ kernels, orthogonal recurrent kernels, zero biases) from an explicit
 ``torch.Generator``.
 
 ``message_impl``: "segment" and "band" are plain PyTorch on any device;
-"fused" runs ``ops.fused_gnn.fused_gate_step`` per step and "persistent"
-runs ``ops.fused_gnn.persistent_unroll`` once — the CUDA kernels on the
-card, their plain versions on the CPU. Under autograd the kernels run
-through ``torch.autograd.Function``s whose backwards are CUDA kernels
-too; under ``torch.inference_mode()`` or ``no_grad`` only the forward
-kernels launch. A persistent batch whose row groups exceed the kernel's
+"tile" aggregates with ``ops.tile_spmm.tile_spmm`` each step, "fused"
+runs ``ops.fused_gnn.fused_gate_step`` per step and "persistent" runs
+``ops.fused_gnn.persistent_unroll`` once — the CUDA kernels on the card,
+their plain versions on the CPU. Under autograd the kernels run through
+``torch.autograd.Function``s whose backwards are CUDA kernels too (the
+tile lane's is the same kernel over A^T); under
+``torch.inference_mode()`` or ``no_grad`` only the forward kernels
+launch. A persistent batch whose row groups exceed the kernel's
 shared memory (the backward's larger gate when a gradient is needed)
 runs the fused kernel per step instead, counted in
 ``FlowGNN.over_gate_dispatches``.
@@ -40,6 +42,7 @@ from deepdfa_tpu_torch.graphs.batch import GraphBatch
 from deepdfa_tpu_torch.graphs.segment import segment_softmax, segment_sum
 from deepdfa_tpu_torch.ops import fused_gnn
 from deepdfa_tpu_torch.ops.band_spmm import band_spmm
+from deepdfa_tpu_torch.ops.tile_spmm import tile_spmm
 
 # flax's truncated normal keeps |x| <= 2 sigma and rescales the stddev by
 # this constant so the truncated draw has the intended variance.
@@ -158,8 +161,13 @@ class GatedGraphStep(nn.Module):
         if impl in ("fused", "persistent"):
             return fused_gnn.fused_gate_step(self.step_params(), h,
                                              batch.band_adj, packed=packed)
+        if impl == "tile" and batch.tile_adj is None:
+            raise ValueError(
+                "message_impl='tile' needs batch_graphs(build_tile_adj=True)")
         msg = self.edge_linear(h)
-        if impl == "band":
+        if impl == "tile":
+            agg = tile_spmm(batch.tile_adj, msg)
+        elif impl == "band":
             agg = band_spmm(batch.band_adj, msg)
         elif impl == "segment":
             gathered = msg[batch.senders.long()]
@@ -201,7 +209,7 @@ class FlowGNN(nn.Module):
             raise NotImplementedError(
                 f"dtype {config.dtype!r}: the port serves float32 only; "
                 "bf16 kernels are not ported yet")
-        if config.message_impl not in ("segment", "band", "fused",
+        if config.message_impl not in ("segment", "band", "tile", "fused",
                                        "persistent"):
             raise ValueError(
                 f"message_impl {config.message_impl!r} is not ported")

@@ -29,6 +29,7 @@ SOURCES: Dict[str, str] = {
     "fused_gnn": os.path.join("csrc", "fused_gnn.cu"),
     "fused_gnn_bwd": os.path.join("csrc", "fused_gnn_bwd.cu"),
     "flash_attn": os.path.join("csrc", "flash_attn.cu"),
+    "tile_spmm": os.path.join("csrc", "tile_spmm.cu"),
 }
 #: library name -> the headers its source includes; their text joins
 #: that library's hash (and no other's, so editing one header rebuilds
@@ -37,6 +38,7 @@ HEADERS: Dict[str, Tuple[str, ...]] = {
     "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),),
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),),
     "flash_attn": (os.path.join("csrc", "flash_tile.cuh"),),
+    "tile_spmm": (),
 }
 
 NVCC_FLAGS: Tuple[str, ...] = (
@@ -100,6 +102,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # scale, stream
         "flash_bwd_dkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _F, _P],
+    },
+    "tile_spmm": {
+        # vals, vals_bf16, row_ptr, cols, msg, out, n_row_tiles, tile,
+        # hidden, stream
+        "tile_spmm_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -23,7 +23,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE, _round_up_pow2, tile_vals_dtype
+from deepdfa_tpu_torch.ops.tile_spmm import (
+    DEFAULT_TILE,
+    _round_up_pow2,
+    tile_vals_dtype,
+)
 
 #: Rows a persistent-kernel row group aims for. A group is made of whole
 #: closed components (graphs, or single padding rows), so a graph larger

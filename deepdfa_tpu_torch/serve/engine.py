@@ -31,7 +31,7 @@ from deepdfa_tpu_torch.core.metrics import ServingStats
 from deepdfa_tpu_torch.graphs.batch import GraphBatch, batch_graphs
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.infer import make_gnn_infer
-from deepdfa_tpu_torch.ops.tile import DEFAULT_TILE
+from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE
 from deepdfa_tpu_torch.serve.batcher import (
     MicroBatcher,
     OversizedError,

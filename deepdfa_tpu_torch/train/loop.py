@@ -10,7 +10,9 @@ The loss, the confusion counts and the first non-finite step accumulate
 on the device and are read once a window and once an epoch, never every
 step. One process, one device: the model's. With ``message_impl``
 "fused" or "persistent" on CUDA, the forward and the backward of the
-gated steps are the hand-written kernels of ``ops/fused_gnn.py``.
+gated steps are the hand-written kernels of ``ops/fused_gnn.py``; with
+"tile", each step's aggregate and its VJP are the block-sparse kernel
+of ``ops/tile_spmm.py``.
 
 Not ported yet: the mesh and multi-host paths, checkpoints and resume,
 the preemption lifecycle and fleet drain, telemetry spans, fault
@@ -38,7 +40,7 @@ from deepdfa_tpu_torch.graphs.batch import (
     graph_label_from_nodes,
 )
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
-from deepdfa_tpu_torch.ops.tile import align_to_tile
+from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
 
 logger = logging.getLogger(__name__)
 
@@ -152,18 +154,19 @@ def make_eval_step(model: FlowGNN, cfg: TrainConfig) -> Callable:
 
 
 def _batches(examples: List[dict], indices: np.ndarray, data_cfg: DataConfig,
-             subkeys, batch_size: int,
-             build_band_adj: bool = False) -> Iterable[GraphBatch]:
+             subkeys, batch_size: int, build_band_adj: bool = False,
+             build_tile_adj: bool = False) -> Iterable[GraphBatch]:
     """Pack ``examples[indices]`` greedily into padded host batches of
-    ``batch_size`` graph slots (a band batch's node budget aligned to the
-    tile), as the reference's single-shard ``_batches``."""
+    ``batch_size`` graph slots (a band or tile batch's node budget
+    aligned to the tile), as the reference's single-shard ``_batches``."""
     chosen = [examples[i] for i in indices]
     budget_nodes = batch_size * data_cfg.max_nodes_per_graph
     budget_edges = budget_nodes * data_cfg.max_edges_per_node
-    if build_band_adj:
+    if build_band_adj or build_tile_adj:
         budget_nodes = align_to_tile(budget_nodes)
     return batch_iterator(chosen, batch_size, budget_nodes, budget_edges,
-                          subkeys, build_band_adj=build_band_adj)
+                          subkeys, build_band_adj=build_band_adj,
+                          build_tile_adj=build_tile_adj)
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
@@ -172,7 +175,8 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 
 def evaluate(eval_step: Callable, examples: List[dict], indices: np.ndarray,
              data_cfg: DataConfig, subkeys, device,
-             build_band_adj: bool = False) -> EvalResult:
+             build_band_adj: bool = False,
+             build_tile_adj: bool = False) -> EvalResult:
     """Loss, metrics and per-example probabilities over
     ``examples[indices]`` in ``data_cfg.eval_batch_size`` batches. The
     loss sums on the device and is read once."""
@@ -181,7 +185,8 @@ def evaluate(eval_step: Callable, examples: List[dict], indices: np.ndarray,
     stats = BinaryStats.zeros(device)
     probs_all, labels_all, ids_all = [], [], []
     for batch in _batches(examples, indices, data_cfg, subkeys,
-                          data_cfg.eval_batch_size, build_band_adj):
+                          data_cfg.eval_batch_size, build_band_adj,
+                          build_tile_adj):
         graph_ids = batch.graph_ids.numpy()
         node_graph = batch.node_graph.numpy()
         loss, probs, labels, mask = eval_step(batch.to(device))
@@ -275,6 +280,7 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
             f"got {train_cfg.anomaly_policy!r}")
     subkeys = subkeys_for(model.config.feature)
     use_band = model.config.uses_band_adj
+    use_tile = model.config.uses_tile_adj
     device = _device_of(model)
     optimizer = make_optimizer(model.parameters(), train_cfg)
     train_step = make_train_step(model, optimizer, train_cfg)
@@ -305,7 +311,7 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
         window = ((_snapshot(model, optimizer, steps), loss_sum, stats,
                    n_batches) if guard.active else None)
         for batch in _batches(examples, train_idx[idx], data_cfg, subkeys,
-                              data_cfg.batch_size, use_band):
+                              data_cfg.batch_size, use_band, use_tile):
             loss, bstats = train_step(batch.to(device))
             steps += 1
             if guard.active:
@@ -343,7 +349,8 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
         train_metrics = {k: float(v)
                          for k, v in compute_metrics(stats).items()}
         val = evaluate(eval_step, examples, splits["val"], data_cfg, subkeys,
-                       device, build_band_adj=use_band)
+                       device, build_band_adj=use_band,
+                       build_tile_adj=use_tile)
         record = {
             "epoch": epoch,
             "train_loss": epoch_loss / max(n_batches, 1),

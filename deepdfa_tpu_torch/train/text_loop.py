@@ -16,7 +16,8 @@ budget, stay in the batch but are masked out of loss and metrics
 The loss and the confusion counts accumulate on the device and are read
 once an epoch. With ``attention_impl`` "auto" or "flash" on CUDA, the
 encoder's attention runs the hand-written flash kernels forward and
-backward (``ops/attention.py``).
+backward (``ops/attention.py``); a graph encoder with ``message_impl``
+"tile" runs the block-sparse kernel of ``ops/tile_spmm.py``.
 
 Not ported yet: checkpoints (``checkpointer``), the mesh and
 multi-process paths, frozen submodules (``--freeze-graph``), pretrained
@@ -39,7 +40,7 @@ from deepdfa_tpu_torch.core.config import TransformerTrainConfig
 from deepdfa_tpu_torch.core.metrics import BinaryStats, binary_stats, compute_metrics
 from deepdfa_tpu_torch.graphs.batch import GraphBatch, batch_graphs
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
-from deepdfa_tpu_torch.ops.tile import align_to_tile
+from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
 from deepdfa_tpu_torch.train.loop import (
     TrainState,
     _restore,
@@ -99,14 +100,16 @@ def make_text_optimizer(params: Iterable[torch.nn.Parameter],
 
 def _slotted_graph_batch(slot_graphs, n_slots: int, max_nodes: int,
                          max_edges: int, subkeys,
-                         build_band_adj: bool = False) -> GraphBatch:
+                         build_band_adj: bool = False,
+                         build_tile_adj: bool = False) -> GraphBatch:
     """``batch_graphs``, but graph k lands in text-row slot
     ``slot_graphs[k][0]``; empty slots are masked."""
     ordered = [g for _, g in slot_graphs]
-    if build_band_adj:
+    if build_band_adj or build_tile_adj:
         max_nodes = align_to_tile(max_nodes)
     b = batch_graphs(ordered, n_slots, max_nodes, max_edges, subkeys,
-                     build_band_adj=build_band_adj)
+                     build_band_adj=build_band_adj,
+                     build_tile_adj=build_tile_adj)
     remap = np.zeros(max(len(ordered), 1), np.int32)
     graph_mask = np.zeros(n_slots, bool)
     graph_ids = np.full(n_slots, -1, np.int32)
@@ -115,8 +118,8 @@ def _slotted_graph_batch(slot_graphs, n_slots: int, max_nodes: int,
         remap[k] = row
         graph_mask[row] = True
         graph_ids[row] = int(old_ids[k])
-    # The band adjacency depends only on senders/receivers, which the slot
-    # remap leaves untouched.
+    # The band and tile adjacencies depend only on senders/receivers,
+    # which the slot remap leaves untouched.
     return dataclasses.replace(
         b, node_graph=torch.from_numpy(remap[b.node_graph.numpy()]),
         graph_mask=torch.from_numpy(graph_mask),
@@ -128,7 +131,7 @@ def text_graph_batches(
     graphs_by_id: Optional[Mapping[int, Mapping]] = None, subkeys=None,
     graph_budget: Optional[Dict[str, int]] = None,
     shuffle_rng: Optional[np.random.Generator] = None, pad_id: int = 1,
-    build_band_adj: bool = False,
+    build_band_adj: bool = False, build_tile_adj: bool = False,
 ) -> Iterable[TextBatch]:
     """Fixed-size text batches, each joined with its graphs. The final
     short batch is padded with masked rows (pad ids, label 0, index -1)
@@ -173,7 +176,8 @@ def text_graph_batches(
                 edges += e
                 slots.append((row, g))
             gbatch = _slotted_graph_batch(slots, batch_size, max_nodes,
-                                          max_edges, subkeys, build_band_adj)
+                                          max_edges, subkeys, build_band_adj,
+                                          build_tile_adj)
         n_missing = int((index >= 0).sum() - mask.sum())
         yield TextBatch(ids, labels, mask, index, gbatch, n_missing)
 
@@ -231,8 +235,8 @@ def make_text_eval_step(model: LineVul) -> Callable:
 def evaluate_text(eval_step: Callable, data: Mapping[str, np.ndarray],
                   indices: np.ndarray, cfg: TransformerTrainConfig,
                   graphs_by_id=None, subkeys=None, graph_budget=None,
-                  pad_id: int = 1, build_band_adj: bool = False
-                  ) -> Dict[str, Any]:
+                  pad_id: int = 1, build_band_adj: bool = False,
+                  build_tile_adj: bool = False) -> Dict[str, Any]:
     """Loss (the mean over batches), metrics and per-example
     probabilities over ``indices`` in ``cfg.eval_batch_size`` batches."""
     stats = None
@@ -241,7 +245,8 @@ def evaluate_text(eval_step: Callable, data: Mapping[str, np.ndarray],
     num_missing = 0
     for batch in text_graph_batches(
             data, indices, cfg.eval_batch_size, graphs_by_id, subkeys,
-            graph_budget, pad_id=pad_id, build_band_adj=build_band_adj):
+            graph_budget, pad_id=pad_id, build_band_adj=build_band_adj,
+            build_tile_adj=build_tile_adj):
         num_missing += batch.n_missing
         loss, probs = eval_step(batch)
         p = probs.cpu()
@@ -287,8 +292,9 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
     # ceil: the padded partial batch is a real step the schedule covers.
     steps_per_epoch = max(-(-len(splits["train"]) // cfg.batch_size), 1)
     schedule = make_schedule(cfg, steps_per_epoch * cfg.max_epochs)
-    build_band_adj = (model.graph_config is not None
-                      and model.graph_config.uses_band_adj)
+    graph_cfg = model.graph_config
+    build_band_adj = graph_cfg is not None and graph_cfg.uses_band_adj
+    build_tile_adj = graph_cfg is not None and graph_cfg.uses_tile_adj
     device = next(model.parameters()).device
     optimizer = make_text_optimizer(model.parameters(), cfg)
     train_step = make_text_train_step(
@@ -303,7 +309,7 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
     rng = np.random.default_rng(cfg.seed)
     kw = dict(graphs_by_id=graphs_by_id, subkeys=subkeys,
               graph_budget=graph_budget, pad_id=pad_id,
-              build_band_adj=build_band_adj)
+              build_band_adj=build_band_adj, build_tile_adj=build_tile_adj)
     for epoch in range(cfg.max_epochs):
         t0 = time.time()
         epoch_start = (_snapshot(model, optimizer, steps) if detect_anomaly

@@ -10,7 +10,10 @@ It covers what ``chip_smoke.py`` does not: f32 band values (a multiplicity
 that is not bf16-exact), wider bands, odd shapes, the over-gate dispatch
 and the refusals, for the forward kernels and the backward ones; and
 that ``loss.backward()`` through FlowGNN on the card gives the CPU
-model's parameter gradients in both kernel lanes.
+model's parameter gradients in every kernel lane. The tile product is
+held to its plain version at tile 16 and 128, H 32 and 128, bf16 and
+f32 values, with row tiles no edge reaches, an adjacency of fillers only
+and pad tiles overwritten with nonzeros (which must change nothing).
 """
 
 import dataclasses
@@ -24,8 +27,9 @@ from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
 from deepdfa_tpu_torch.graphs.batch import batch_graphs, pad_budget_for
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.ops import fused_gnn
+from deepdfa_tpu_torch.ops import tile_spmm as T
 from deepdfa_tpu_torch.ops.band_spmm import build_band_adjacency
-from deepdfa_tpu_torch.ops.tile import align_to_tile
+from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
 
 pytestmark = pytest.mark.cuda
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -331,6 +335,110 @@ def test_backward_refusals(cuda):
     with pytest.raises(ValueError, match="x must be"):
         fused_gnn.step_weight_grads(h, None, h[None, :128], h[None],
                                     h[None], 1)
+
+
+# ---------------------------------------------------------------------------
+# The tile SpMM kernel
+# ---------------------------------------------------------------------------
+
+
+def _tile_adj(sizes, n, tile, seed=0):
+    """Contiguous graphs as ``_graph_adj`` builds them, their tile
+    adjacency padded to twice its tiles (so pad tiles always follow the
+    built ones). Rows past the graphs are reached by no edge."""
+    rng = np.random.default_rng(seed)
+    s, r, off = [], [], 0
+    for size in sizes:
+        s += list(range(off, off + size - 1)) + list(range(off, off + size))
+        r += list(range(off + 1, off + size)) + list(range(off, off + size))
+        s += list(rng.integers(off, off + size, 3))
+        r += list(rng.integers(off, off + size, 3))
+        off += size
+    adj = T.build_tile_adjacency(s, r, np.ones(len(s), bool), n, tile=tile)
+    return T.pad_tiles(adj, 2 * int(adj.vals.shape[0])), off
+
+
+@pytest.mark.parametrize("tile,n,sizes", [
+    (16, 256, [40, 30, 25, 9]),      # rows 104.. reached by no edge
+    (128, 1024, [200, 150, 90, 60]),  # graphs across tiles; rows 500..
+])
+@pytest.mark.parametrize("hidden", [32, 128])
+@pytest.mark.parametrize("f32_vals", [False, True])
+def test_tile_spmm_kernel_matches_plain_version(cuda, tile, n, sizes, hidden,
+                                                f32_vals):
+    adj, used = _tile_adj(sizes, n, tile)
+    if f32_vals:
+        adj = T.cast_tiles(adj, torch.float32)
+    adj = adj.to(cuda)
+    msg = torch.randn(n, hidden, device=cuda)
+    T.reset_launch_counts()
+    got = T.tile_spmm(adj, msg)
+    torch.cuda.synchronize()
+    assert T.launch_counts() == {"tile_spmm_kernel": 1}
+    torch.testing.assert_close(got, T.tile_spmm_reference(adj, msg),
+                               **STEP_TOL)
+    assert not got[used:].any()  # rows no edge reaches
+    # The kernel never reads past row_ptr: nonzero pad tiles change
+    # nothing, bit for bit (the plain version multiplies them).
+    built = int(adj.row_ptr[-1])
+    assert built < adj.vals.shape[0]
+    poisoned = dataclasses.replace(adj, vals=adj.vals.clone())
+    poisoned.vals[built:] = 1.0
+    assert torch.equal(T.tile_spmm(poisoned, msg), got)
+    # The autograd backward (the same kernel over A^T) against the CPU's.
+    g = torch.randn_like(msg)
+    m = msg.clone().requires_grad_()
+    T.tile_spmm(adj, m).backward(g)
+    mc = msg.cpu().requires_grad_()
+    T.tile_spmm(adj.to("cpu"), mc).backward(g.cpu())
+    torch.testing.assert_close(m.grad.cpu(), mc.grad, **STEP_TOL)
+    assert T.launch_counts() == {"tile_spmm_kernel": 4}
+
+
+def test_tile_spmm_kernel_fillers_only_and_heavy_multiplicity(cuda):
+    empty = T.build_tile_adjacency([0], [0], np.zeros(1, bool), 64,
+                                   tile=16).to(cuda)
+    assert int(empty.row_ptr[-1]) == 4  # four fillers, no edge
+    msg = torch.randn(64, 40, device=cuda)
+    assert torch.equal(T.tile_spmm(empty, msg), torch.zeros_like(msg))
+    # A multiplicity of 300 keeps f32 values (not bf16-exact).
+    heavy = T.build_tile_adjacency(np.zeros(300, np.int64),
+                                   np.ones(300, np.int64),
+                                   np.ones(300, bool), 16, tile=16).to(cuda)
+    assert heavy.vals.dtype == torch.float32
+    out = T.tile_spmm(heavy, torch.ones(16, 4, device=cuda))
+    assert out[1].tolist() == [300.0] * 4 and not out[2:].any()
+
+
+def test_tile_spmm_refusals(cuda):
+    adj, _ = _tile_adj([40, 30], 128, 16)
+    on_card = adj.to(cuda)
+    msg = torch.randn(128, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        T.tile_spmm(on_card, msg.bfloat16())
+    with pytest.raises(ValueError, match="does not match"):
+        T.tile_spmm(on_card, msg[:64])
+    with pytest.raises(ValueError, match="vals must be"):
+        T.tile_spmm(adj, msg)  # the tiles on the CPU
+    with pytest.raises(ValueError, match="contiguous msg"):
+        T.tile_spmm(on_card, torch.randn(32, 128, device=cuda).T)
+    big = T.build_tile_adjacency([0], [0], np.ones(1, bool), 256, tile=256)
+    with pytest.raises(ValueError, match="tile 256"):
+        T.tile_spmm(big.to(cuda), torch.randn(256, 8, device=cuda))
+
+
+def test_tile_flowgnn_backward_matches_cpu(cuda):
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    cfg = FlowGNNConfig(feature=feature, message_impl="tile")
+    graphs = synthetic_bigvul(24, feature, positive_fraction=0.5, seed=3)
+    budget = pad_budget_for(graphs, 24)
+    batch = batch_graphs(graphs, 24, align_to_tile(budget["max_nodes"]),
+                         budget["max_edges"], SUBKEYS, build_tile_adj=True)
+    T.reset_launch_counts()
+    _, counts = _grad_parity(cfg, batch, cuda)
+    assert counts == dict.fromkeys(ALL_KERNELS, 0)
+    # Each gated step: one launch forward, one over A^T backward.
+    assert T.launch_counts() == {"tile_spmm_kernel": 2 * cfg.n_steps}
 
 
 # ---------------------------------------------------------------------------

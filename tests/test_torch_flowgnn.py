@@ -141,5 +141,6 @@ def test_random_init_follows_flax_initializers():
 def test_bf16_and_unported_impls_raise():
     with pytest.raises(NotImplementedError, match="bf16"):
         FlowGNN(FlowGNNConfig(dtype="bfloat16"), device="cpu")
+    # Every impl of the reference is ported now: a name outside them.
     with pytest.raises(ValueError, match="not ported"):
-        FlowGNN(FlowGNNConfig(message_impl="tile"), device="cpu")
+        FlowGNN(FlowGNNConfig(message_impl="onehot"), device="cpu")

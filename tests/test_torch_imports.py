@@ -42,6 +42,7 @@ def test_port_imports_with_jax_blocked_and_loads_no_reference_module():
     assert report["reference_loaded"] == []
     for name in ("deepdfa_tpu_torch.cli", "deepdfa_tpu_torch.ops.fused_gnn",
                  "deepdfa_tpu_torch.ops._build",
+                 "deepdfa_tpu_torch.ops.tile_spmm",
                  "deepdfa_tpu_torch.serve.engine",
                  "deepdfa_tpu_torch.models.convert",
                  "deepdfa_tpu_torch.train.loop",
@@ -126,8 +127,8 @@ def test_config_properties_match_the_reference(impl, concat_all):
                            message_impl=impl)
     p = pcfg.FlowGNNConfig(feature=pcfg.FeatureSpec(concat_all=concat_all),
                            message_impl=impl)
-    for prop in ("input_dim", "uses_band_adj", "embedding_dim",
-                 "ggnn_hidden", "out_dim"):
+    for prop in ("input_dim", "uses_band_adj", "uses_tile_adj",
+                 "embedding_dim", "ggnn_hidden", "out_dim"):
         assert getattr(p, prop) == getattr(j, prop), prop
     assert tuple(pcfg.subkeys_for(p.feature)) == tuple(
         jcfg.subkeys_for(j.feature))

@@ -327,11 +327,14 @@ def test_encoder_matches_hf_roberta(monkeypatch):
         torch.testing.assert_close(got[keep], want[keep], atol=TOL, rtol=TOL)
 
 
-def _linevul_pair(combined_model=True, impl="flash", dropout_rate=0.1):
+def _linevul_pair(combined_model=True, impl="flash", dropout_rate=0.1,
+                  message_impl="segment"):
     jcfg = _enc(jtransformer, attention_impl=impl, dropout_rate=dropout_rate)
     pcfg = _enc(transformer, attention_impl=impl, dropout_rate=dropout_rate)
-    jg = _gcfg(JFlowGNNConfig, JFeatureSpec) if combined_model else None
-    pg = _gcfg(FlowGNNConfig, FeatureSpec) if combined_model else None
+    jg = (_gcfg(JFlowGNNConfig, JFeatureSpec, message_impl=message_impl)
+          if combined_model else None)
+    pg = (_gcfg(FlowGNNConfig, FeatureSpec, message_impl=message_impl)
+          if combined_model else None)
     return jlinevul.LineVul(jcfg, jg), linevul.LineVul(pcfg, pg,
                                                        device="cpu")
 
@@ -392,13 +395,16 @@ def test_cross_entropy_neutralizes_masked_rows():
 # ---------------------------------------------------------------------------
 
 
-def test_train_trajectory_matches_jax():
-    """20 train steps (TINY encoder + a tiny FlowGNN, dropout off): the
-    port's step (flash's plain versions through the autograd Function,
-    clip, AdamW at the scheduled lr) against make_text_train_step
-    (blockwise attention, the JAX package's "auto" on the CPU)."""
-    jmodel, pmodel = _linevul_pair(True, "auto", dropout_rate=0.0)
+def _trajectory_gap(message_impl="segment"):
+    """20 train steps (TINY encoder + a tiny FlowGNN with this
+    ``message_impl``, dropout off): the port's step (flash's plain
+    versions through the autograd Function, clip, AdamW at the scheduled
+    lr) against make_text_train_step (blockwise attention, the JAX
+    package's "auto" on the CPU). Returns (port losses, JAX losses)."""
+    jmodel, pmodel = _linevul_pair(True, "auto", dropout_rate=0.0,
+                                   message_impl=message_impl)
     _, _, data, graphs, kw = _combined_batch(n=48, batch=8)
+    kw = dict(kw, build_tile_adj=message_impl == "tile")
     train = np.arange(40)
     cfg_j = JTrainConfig(batch_size=8, max_epochs=4, learning_rate=1e-3,
                          block_size=BLOCK)
@@ -430,8 +436,22 @@ def test_train_trajectory_matches_jax():
     schedule = text_loop.make_schedule(cfg_p, max_steps)
     pb = batches(text_loop)
     got = [float(step(next(pb), schedule(i))[0]) for i in range(max_steps)]
+    return got, want
+
+
+def test_train_trajectory_matches_jax():
+    got, want = _trajectory_gap()
     np.testing.assert_allclose(got, want, atol=TRAJ_TOL, rtol=0)
     assert want[-1] < want[0]  # it trains
+
+
+def test_tile_graph_encoder_trajectory_matches_jax():
+    """The same 20 steps with the graph encoder's ``message_impl="tile"``
+    (the counterpart of tests/test_tile_pipeline.py:77): the port's tile
+    product and its VJP against the JAX package's."""
+    got, want = _trajectory_gap("tile")
+    np.testing.assert_allclose(got, want, atol=TRAJ_TOL, rtol=0)
+    assert want[-1] < want[0]
 
 
 def _fit_setup(n=40, **cfg_kw):

@@ -250,25 +250,28 @@ def test_labels_for_styles():
 # Both sides start from the same params and see the same batches. The
 # per-step losses drift apart only by f32 rounding order (XLA's fused
 # CPU kernels against torch's, the port's persistent step against the
-# Pallas interpreter); AdamW normalises each gradient entry, so an entry
-# near zero can move by up to lr = 2e-3 on one side and less on the
-# other. 1e-4 absolute on a loss of ~0.7 bounds that over 50 steps (the
-# gap measures ~5e-6 in both lanes).
+# Pallas interpreter, its tile product against ``_spmm_xla``); AdamW
+# normalises each gradient entry, so an entry near zero can move by up
+# to lr = 2e-3 on one side and less on the other. 1e-4 absolute on a
+# loss of ~0.7 bounds that over 50 steps (the gap measures ~5e-6 in the
+# segment and persistent lanes).
 TRAJ_TOL = 1e-4
 
 
-@pytest.mark.parametrize("impl", ["segment", "persistent"])
+@pytest.mark.parametrize("impl", ["segment", "persistent", "tile"])
 def test_fifty_step_trajectory_matches_jax(impl, monkeypatch):
     if impl == "persistent":
         monkeypatch.setenv("DEEPDFA_FUSED_IMPL", "interpret")
     jcfg, pcfg = _configs(impl)
     ex = _examples(160, seed=1)
     idx = np.arange(len(ex))
-    band = pcfg.uses_band_adj
+    band, tile = pcfg.uses_band_adj, pcfg.uses_tile_adj
     jdata, pdata = JDataConfig(**DATA), DataConfig(**DATA)
     jb = list(jloop._batches(ex, idx, jdata, SUBKEYS, 16,
-                             build_band_adj=band, shape_series=None))
-    pb = list(loop._batches(ex, idx, pdata, SUBKEYS, 16, build_band_adj=band))
+                             build_band_adj=band, build_tile_adj=tile,
+                             shape_series=None))
+    pb = list(loop._batches(ex, idx, pdata, SUBKEYS, 16, build_band_adj=band,
+                            build_tile_adj=tile))
     assert len(jb) == len(pb) == 10
     train = dict(learning_rate=2e-3, seed=0)
     jmodel = JFlowGNN(jcfg)
