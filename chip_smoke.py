@@ -28,12 +28,12 @@ one:
    and ``persistent_bwd_kernel`` plus ``step_weight_grad_kernel`` bit for
    bit against the scan of ``fused_step_bwd_kernel``.
 7. ``tile_spmm_kernel`` against its plain version at the training shape
-   (the first batch of ``fit`` packed with its tile adjacency: N = 16384
+   (the first batch of ``fit`` packed with its nonzero lists: N = 16384
    rows, H = 128), over A and over A^T (the backward's launch): times,
-   the bound of the sparse product, the whole-tile work, the time of
-   ``torch.sparse.mm`` on the same A as an f32 CSR tensor (cuSPARSE), the
-   tile counts (with an edge, filler, pad) and the host's build and copy
-   of the adjacency.
+   the bound of the sparse product, the time of ``torch.sparse.mm`` on
+   the same lists as an f32 CSR tensor (cuSPARSE), the tile counts the
+   reference's dense layout would have, and the host's build and copy of
+   the nonzero lists a batch beside those of the dense layout.
 8. Train, persistent lane: ``train.loop.fit`` on the card (published
    widths, ``DataConfig(batch_size=256)``, ``TrainConfig`` defaults but
    one epoch: 9 steps and a validation pass), launches counted over the
@@ -53,7 +53,8 @@ one:
    ``F.scaled_dot_product_attention`` on the same inputs without the
    all-pad row (forward, and its autograd backward, which computes dq,
    dk and dv together: the two-pass pair's summed time stands beside
-   it).
+   it). The fused backward is also run twice on the same inputs and
+   compared bit for bit, and the key tiles it skips are counted.
 12. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
    width and depth (codebert-base, 12 layers, T 512, batch 16, the
    FlowGNN encoder, ``TransformerTrainConfig`` defaults but one epoch:
@@ -82,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +113,7 @@ from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
 from deepdfa_tpu_torch.models.transformer import EncoderConfig
 from deepdfa_tpu_torch.ops import (
+    PEAK_BYTES_PER_S,
     _build,
     attention,
     fused_gnn,
@@ -126,10 +129,6 @@ from deepdfa_tpu_torch.train import loop, text_loop
 SEED = 0
 N_REQUESTS = 64
 N_DUPLICATES = 16
-# Published H100 SXM peaks at the full 700 W (NVIDIA data sheet): f32
-# outside the tensor cores, and HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|, elementwise. One
 # step differs only in f32 rounding order (the kernel aggregates h before
 # the edge linear); five steps let it compound.
@@ -211,6 +210,7 @@ REPLACES.update({
 })
 SOURCES.update({name: "deepdfa_tpu_torch/csrc/flash_attn.cu"
                 for name in attention.KERNELS})
+SOURCES["flash_bwd_fused_kernel"] = "deepdfa_tpu_torch/csrc/flash_bwd_fused.cu"
 REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
 SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
 # The tile product against its plain version: each output sums a row's
@@ -219,6 +219,13 @@ SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
 TILE_TOL = dict(rtol=1e-5, atol=1e-5)
 # What torch.sparse.mm on A (f32 CSR) computes of the kernel's output.
 TILE_LIBRARY_COVERS = ["agg = A @ msg"]
+# Every __global__ function of csrc/ by its name in the source, as
+# torch.profiler reports it: the kernels above (persistent_fwd_hist_kernel
+# is an instance of persistent_fwd_kernel and counts under that name) and
+# the second steps of two of them, the weight gradients' and the fused
+# flash backward's reductions.
+PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel"}) | {
+    "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel"}
 
 
 def emit(**record) -> None:
@@ -285,10 +292,18 @@ def _time_ms(fn, iters: int = 20, reps: int = 5) -> float:
 
 
 def _bound(cost) -> tuple:
-    t_ops = cost["flops"] / PEAK_F32_FLOPS
+    """(bound ms, what bounds it): the larger of the operations over the
+    peak the kernel's ``kernel_cost`` names (published H100 SXM rates at
+    700 W) and the bytes over 3.35 TB/s."""
+    t_ops = cost["flops"] / cost["peak_flops"]
     t_bytes = cost["bytes"] / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _peak(cost) -> dict:
+    return {"bound_peak": cost["peak"],
+            "bound_peak_tflops": cost["peak_flops"] / 1e12}
 
 
 def _serving_batch(model: FlowGNN):
@@ -364,7 +379,8 @@ def phase_kernels(model: FlowGNN) -> dict:
                            nnz=cost["nnz"], steps=steps,
                            max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                            plain_ms=plain_ms, bound_us=bound_ms * 1e3,
-                           bound_by=bound_by, flops=cost["flops"],
+                           bound_by=bound_by, **_peak(cost),
+                           flops=cost["flops"],
                            bytes=cost["bytes"], launches=launches,
                            launches_per_forward=per_forward)
                 emit(phase="kernels", **rec)
@@ -564,8 +580,9 @@ def phase_train_kernels(model: FlowGNN) -> dict:
                        steps=steps, max_abs_err=err, tol=tol,
                        kernel_ms=kernel_ms, plain_ms=plain_ms,
                        bound_us=bound_ms * 1e3, bound_by=bound_by,
-                       flops=cost["flops"], bytes=cost["bytes"],
-                       timing_launches=launches, **extra)
+                       **_peak(cost), flops=cost["flops"],
+                       bytes=cost["bytes"], timing_launches=launches,
+                       **extra)
             emit(phase="train_kernels", **rec)
             return rec
 
@@ -738,9 +755,19 @@ def _device_profile(step, n_steps: int) -> dict:
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
     kernels.sort(reverse=True)
+    # The port's own kernels, by the name in their source, wherever they
+    # rank.
+    port = {}
+    for ms, key, calls in kernels:
+        name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
+        if name and name.group(1) in PORT_KERNELS:
+            entry = port.setdefault(name.group(1), {"ms": 0.0, "calls": 0.0})
+            entry["ms"] += ms
+            entry["calls"] += calls
     return {"device_busy_ms": sum(k[0] for k in kernels),
             "top_kernels": [{"name": name[:90], "ms": ms, "calls": calls}
-                            for ms, name, calls in kernels[:PROFILE_TOP]]}
+                            for ms, name, calls in kernels[:PROFILE_TOP]],
+            "port_kernels": port}
 
 
 def _profile_step(model: FlowGNN, batch) -> dict:
@@ -752,41 +779,64 @@ def _profile_step(model: FlowGNN, batch) -> dict:
     return _device_profile(lambda: step(batch), PROFILE_STEPS)
 
 
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn()``, synchronising the card around it."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_tile_kernels() -> dict:
     """``tile_spmm_kernel`` against its plain version at the training
-    shape, over A and over A^T, timed beside its bound and cuSPARSE.
-    Returns the numbers over A (its backward's launch, over A^T, stands
-    beside them as ``transpose_ms``)."""
+    shape, over A and over A^T, timed beside its bound and cuSPARSE; the
+    host's build and copy of a batch's nonzero lists beside those of the
+    reference's dense tile layout. Returns the numbers over A (its
+    backward's launch, over A^T, stands beside them as
+    ``transpose_ms``)."""
     model = FlowGNN(FlowGNNConfig(message_impl="tile"), device="cuda",
                     seed=SEED)
     host = _training_batch(model, device="cpu")
     s, r, m = (x.numpy() for x in (host.senders, host.receivers,
                                     host.edge_mask))
     n, hidden = host.max_nodes, model.config.ggnn_hidden
-    build_ms, copy_ms = [], []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        tile_spmm.build_tile_adjacency(s, r, m, n)
-        build_ms.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        adj = host.tile_adj.to("cuda")
-        torch.cuda.synchronize()
-        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    lists = host.tile_adj
+    dense = tile_spmm.tile_layout(lists)
+    dense_tensors = [getattr(dense, f) for f in ("vals", "rows", "cols",
+                                                 "t_vals", "t_rows",
+                                                 "t_cols")]
+    list_tensors = [lists.ptr, lists.src, lists.val, lists.t_ptr,
+                    lists.t_src, lists.t_val]
+    host_cost = dict(
+        host_build_ms=_host_ms(
+            lambda: tile_spmm.build_csr_adjacency(s, r, m, n)),
+        host_to_device_ms=_host_ms(lambda: lists.to("cuda")),
+        bytes_to_device=_nbytes(*list_tensors),
+        dense_build_ms=_host_ms(
+            lambda: tile_spmm.build_tile_adjacency(s, r, m, n)),
+        dense_to_device_ms=_host_ms(
+            lambda: [x.to("cuda") for x in dense_tensors]),
+        dense_bytes_to_device=_nbytes(*dense_tensors))
+    adj = lists.to("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     msg = torch.randn((n, hidden), generator=gen, device="cuda")
     recs = {}
-    for direction, a, (row, col) in (("A", adj, (r, s)),
-                                     ("A^T", adj.transposed(), (s, r))):
+    for direction, a in (("A", adj), ("A^T", adj.transposed())):
         got = tile_spmm.tile_spmm(a, msg)
         want = tile_spmm.tile_spmm_reference(a, msg)
         err = _check(f"tile_spmm_kernel@{direction}", got, want, TILE_TOL)
-        # The yardstick: the same A as an f32 CSR matrix (duplicate
-        # edges summed), one torch.sparse.mm call.
-        csr = torch.sparse_coo_tensor(
-            torch.from_numpy(np.stack([row[m], col[m]]).astype(np.int64)),
-            torch.ones(int(m.sum())), (n, n)).coalesce().to_sparse_csr()
-        csr = csr.to("cuda")
+        # The yardstick: the same lists as an f32 CSR matrix, one
+        # torch.sparse.mm call (cuSPARSE).
+        csr = torch.sparse_csr_tensor(a.ptr.long(), a.src.long(), a.val,
+                                      (n, n))
         _check(f"torch.sparse.mm@{direction}", torch.sparse.mm(csr, msg),
                want, TILE_TOL)
         kernel_ms = _time_ms(lambda: tile_spmm.tile_spmm(a, msg))
@@ -797,19 +847,18 @@ def phase_tile_kernels() -> dict:
         bound_ms, bound_by = _bound(cost)
         recs[direction] = dict(
             kernel="tile_spmm_kernel", over=direction, shape="training",
-            n_rows=n, hidden=hidden, tile=adj.tile, max_abs_err=err,
-            tol=TILE_TOL, kernel_ms=kernel_ms, plain_ms=plain_ms,
-            library_ms=library_ms, library_covers=TILE_LIBRARY_COVERS,
-            bound_us=bound_ms * 1e3, bound_by=bound_by,
-            flops=cost["flops"], bytes=cost["bytes"],
-            executed_flops=cost["executed_flops"],
-            executed_tflops=cost["executed_flops"] / kernel_ms / 1e9,
-            nnz=cost["nnz"], edge_tiles=cost["edge_tiles"],
-            sender_tiles=cost["sender_tiles"],
-            filler_tiles=cost["filler_tiles"], pad_tiles=cost["pad_tiles"],
-            vals_dtype=str(adj.vals.dtype),
-            host_build_ms=statistics.median(build_ms),
-            host_to_device_ms=statistics.median(copy_ms))
+            n_rows=n, hidden=hidden, max_abs_err=err, tol=TILE_TOL,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_covers=TILE_LIBRARY_COVERS, bound_us=bound_ms * 1e3,
+            bound_by=bound_by, **_peak(cost), flops=cost["flops"],
+            bytes=cost["bytes"], executed_flops=cost["executed_flops"],
+            gbytes_per_s=cost["bytes"] / kernel_ms / 1e6, nnz=cost["nnz"],
+            sender_rows=cost["sender_rows"],
+            dense_layout_tiles=dict(edge=cost["edge_tiles"],
+                                    filler=cost["filler_tiles"],
+                                    pad=cost["pad_tiles"],
+                                    vals_dtype=str(dense.vals.dtype)),
+            **host_cost)
         emit(phase="tile_kernels", **recs[direction])
     return {"tile_spmm_kernel": dict(
         recs["A"], transpose_ms=recs["A^T"]["kernel_ms"])}
@@ -966,16 +1015,20 @@ def phase_attention_kernels() -> dict:
             ["o"])}
         dq = attention.flash_bwd_dq(*args)
         dk, dv = attention.flash_bwd_dkv(*args)
-        if attention.flash_fused_bwd_smem_ok(t, d):
+        if attention.flash_fused_bwd_ok(t, d):
             want = attention.flash_bwd_fused_reference(*args)
             fused = attention.flash_bwd_fused(*args)
             err = max(_check(f"flash_bwd_fused_kernel[{i}]@{shape_name}", a,
                              w, ATTN_GRAD_TOL)
                       for i, (a, w) in enumerate(zip(fused, want)))
-            # Fused against the two-pass pair, kernel against kernel.
+            # Fused against the two-pass pair, kernel against kernel; and
+            # against itself: no atomics, so a second launch on the same
+            # inputs gives the same bits.
             for i, (a, c) in enumerate(zip(fused, (dq, dk, dv))):
                 _check(f"fused vs two-pass [{i}]@{shape_name}", a, c,
                        ATTN_GRAD_TOL)
+            _same_bits(f"flash_bwd_fused_kernel twice@{shape_name}",
+                       list(attention.flash_bwd_fused(*args)), list(fused))
             runs["flash_bwd_fused_kernel"] = (
                 err, lambda: attention.flash_bwd_fused(*args),
                 lambda: attention.flash_bwd_fused_reference(*args), lib_bwd,
@@ -1011,11 +1064,18 @@ def phase_attention_kernels() -> dict:
                 else ATTN_GRAD_TOL,
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_covers=covers,
-                bound_us=bound_ms * 1e3, bound_by=bound_by,
+                bound_us=bound_ms * 1e3, bound_by=bound_by, **_peak(cost),
                 flops=cost["flops"], executed_flops=cost["executed_flops"],
                 bytes=cost["bytes"],
                 tflops=cost["flops"] / kernel_ms / 1e9,
                 executed_tflops=cost["executed_flops"] / kernel_ms / 1e9)
+            if name == "flash_bwd_fused_kernel":
+                # Its two launches apart: the products, then the dq sum.
+                split = _device_profile(kernel, iters)["port_kernels"]
+                recs[name].update(
+                    bitwise_repeatable=True, key_tiles=b * h * -(-t // 64),
+                    key_tiles_skipped=cost["dead_key_tiles"],
+                    device_split_ms={k: v["ms"] for k, v in split.items()})
         # SDPA's backward computes dq, dk and dv together: set the
         # two-pass pair's summed time beside it.
         pair_ms = (recs["flash_bwd_dq_kernel"]["kernel_ms"]
@@ -1231,8 +1291,7 @@ def phase_fit_text_long() -> dict:
     enc = dataclasses.replace(EncoderConfig(), attention_impl="auto",
                               num_layers=2)
     b, t = ATTN_LONG_SHAPE[:2]
-    if attention.flash_fused_bwd_smem_ok(t, enc.hidden_size
-                                         // enc.num_heads):
+    if attention.flash_fused_bwd_ok(t, enc.hidden_size // enc.num_heads):
         raise AssertionError("T 4096 passes the fused backward's gate")
     graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_LONG, b, t)
     model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
@@ -1303,7 +1362,9 @@ def main() -> int:
             "replaces": replaces, "launches": path_launches[kname],
             "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_us"] / 1e3,
-            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "bound_by": t["bound_by"], "bound_peak": t["bound_peak"],
+            "bound_peak_tflops": t["bound_peak_tflops"],
+            "library_ms": t.get("library_ms"),
             **{key: t[key] for key in ("library_covers", "pair_ms",
                                        "max_rel_err", "transpose_ms")
                if key in t}})

@@ -7,19 +7,16 @@
 //                         O = softmax(scale Q K^T + mask) V by the online
 //                         softmax, and the row logsumexp the backward
 //                         rebuilds P from.
-// flash_bwd_fused_kernel  replaces _flash_bwd_fused_kernel (the
-//                         single-pass branch of _flash_backward): dq, dk
-//                         and dv in one pass with one (batch, head)'s dq
-//                         resident in shared memory.
 // flash_bwd_dq_kernel     replaces _flash_bwd_dq_kernel (the two-pass
 //                         branch): dq = scale sum_j dS K.
 // flash_bwd_dkv_kernel    replaces _flash_bwd_dkv_kernel (the two-pass
 //                         branch): dv = sum_i P^T dO, dk = sum_i dS^T
 //                         (scale Q).
 //
-// The score tile and the tile-gradient step they share are in
-// flash_tile.cuh. Plain PyTorch versions: flash_fwd_reference,
-// flash_bwd_fused_reference, flash_bwd_dq_reference and
+// The single-pass backward (_flash_bwd_fused_kernel) is
+// flash_bwd_fused_kernel in flash_bwd_fused.cu. The score tile and the
+// tile-gradient step the kernels here share are in flash_tile.cuh. Plain
+// PyTorch versions: flash_fwd_reference, flash_bwd_dq_reference and
 // flash_bwd_dkv_reference in deepdfa_tpu_torch/ops/attention.py. Built
 // by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -28,9 +25,8 @@
 // What bounds them. At the training shape (B 16, T 512, H 12, D 64) the
 // forward needs at most 4 B H T^2 D = 12.9 GFLOP (fewer with padded
 // keys: only the (query, key) pairs the mask leaves count) against at
-// most 25 MB of compulsory traffic (q, k, v in, o out); the fused
-// backward 10 B H T^2 D and the two-pass pair 14 B H T^2 D against
-// ~60 MB. At the H100 SXM data-sheet peaks for a 700 W card
+// most 25 MB of compulsory traffic (q, k, v in, o out); the two-pass
+// backward pair 14 B H T^2 D against ~60 MB. At the H100 SXM data-sheet peaks for a 700 W card
 // (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) that is ~190 us
 // of arithmetic against ~8 us of bytes for the forward: every kernel is
 // bound by f32 operations (ops/attention.py:kernel_cost counts them on
@@ -54,14 +50,11 @@
 // * The ragged edge (T not a multiple of 64) is masked by index in the
 //   kernels, so every length runs here; the reference's blockwise
 //   fallback for lengths it cannot tile has no counterpart.
-// * Backward: the fused kernel is one block per (batch, head) walking kv
-//   tiles outside and q tiles inside, as the TPU grid (B*H, nk, nq) did,
-//   with dk and dv in registers and the whole [T, D] dq accumulator in
-//   shared memory (128 KB at T 512, D 64). Every dq element has one
-//   owner thread and a fixed summation order: no atomics, deterministic.
-//   Where dq does not fit (flash_fused_bwd_smem_ok in ops/attention.py;
-//   T 4096 at D 64 would need 1 MB) the pair of two-pass kernels runs
-//   instead, each with one block per (batch, head, tile).
+// * Backward: where the fused kernel's dq partials grow too large
+//   (flash_fused_bwd_ok in ops/attention.py: T 4096 at D 64) the pair of
+//   two-pass kernels runs, each with one block per (batch, head, tile).
+//   Every output element has one owner thread and a fixed summation
+//   order: no atomics, deterministic.
 // * Causal: key tiles wholly above a query tile's diagonal are skipped;
 //   their scores would all be masked.
 
@@ -158,92 +151,6 @@ __global__ void __launch_bounds__(NT)
     // a fully masked row lands at log(1e-30).
     if (tx == 0)
       lse[(long)bh * tq + r] = (m[i] <= NEG_INF / 2 ? 0.f : m[i]) + logf(lc);
-  }
-}
-
-// Shared memory of the fused backward: dq for every query row of one
-// (batch, head), the q, dO, k and v tiles, P and dS, lse and delta, the
-// key mask. ops/attention.py:fused_bwd_smem_bytes computes the same.
-size_t fused_bwd_smem(int tq) {
-  const size_t rows = (size_t)((tq + BQ - 1) / BQ) * BQ;
-  return sizeof(float) * (rows * D + 4 * 64 * (D + 1) + 2 * BQ * PS + 2 * BQ)
-         + sizeof(int) * BK;
-}
-
-__global__ void __launch_bounds__(NT) flash_bwd_fused_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ mask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq,
-    float* __restrict__ dk, float* __restrict__ dv, int H, int tq, int tk,
-    int causal, float scale) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  const int nq = (tq + BQ - 1) / BQ;
-  float* dQs = smem;
-  float* Qs = dQs + (size_t)nq * BQ * D;
-  float* dOs = Qs + 64 * (D + 1);
-  float* Ks = dOs + 64 * (D + 1);
-  float* Vs = Ks + 64 * (D + 1);
-  float* Ps = Vs + 64 * (D + 1);
-  float* dSs = Ps + BQ * PS;
-  float* lse_s = dSs + BQ * PS;
-  float* delta_s = lse_s + BQ;
-  int* kvalid = reinterpret_cast<int*>(delta_s + BQ);
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int ty = tid_y(), tx = tid_x();
-  const long rs = (long)H * D;
-  const long qoff = ((long)b * tq * H + h) * D;
-  const long koff = ((long)b * tk * H + h) * D;
-
-  for (int e = threadIdx.x; e < nq * BQ * D; e += NT) dQs[e] = 0.f;
-  const int nk = (tk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(Ks, k + koff, k0, tk, rs, 1.f);
-    load_tile<D>(Vs, v + koff, k0, tk, rs, 1.f);
-    load_key_valid(kvalid, mask + (long)b * tk, k0, tk);
-    float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-    // Causal: query tiles wholly before this key tile see none of it.
-    for (int qt = causal ? k0 / BQ : 0; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      load_tile<D>(Qs, q + qoff, q0, tq, rs, scale);
-      load_tile<D>(dOs, dout + qoff, q0, tq, rs, 1.f);
-      load_rowvec(lse_s, lse + (long)bh * tq, q0, tq);
-      load_rowvec(delta_s, delta + (long)bh * tq, q0, tq);
-      __syncthreads();
-      float s[4][4];
-      tile_scores<D>(Qs, Ks, kvalid, q0, k0, causal != 0, s);
-      tile_grads<D, true>(s, dOs, Vs, lse_s, delta_s, q0, tq, Ps, dSs);
-      __syncthreads();
-      acc_tn<D>(dv_acc, Ps, dOs);
-      acc_tn<D>(dk_acc, dSs, Qs);  // Qs is pre-scaled: the scale dK needs
-      float dq_acc[4][DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
-      acc_nn<D>(dq_acc, dSs, Ks);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j)
-          dQs[(q0 + ty + 16 * i) * D + tx + 16 * j] += dq_acc[i][j];
-    }
-    store_tile<D>(dk + koff, dk_acc, k0, tk, rs, 1.f);
-    store_tile<D>(dv + koff, dv_acc, k0, tk, rs, 1.f);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < tq * D; e += NT) {
-    const int r = e / D, c = e % D;
-    dq[qoff + (long)r * rs + c] = dQs[e] * scale;
   }
 }
 
@@ -383,16 +290,6 @@ int fwd(const float* q, const float* k, const float* v,
                 mask, o, lse, H, tq, tk, causal, scale);
 }
 
-int bwd_fused(const float* q, const float* k, const float* v,
-              const unsigned char* mask, const float* dout, const float* lse,
-              const float* delta, float* dq, float* dk, float* dv, int B,
-              int H, int tq, int tk, int causal, float scale,
-              cudaStream_t stream) {
-  return launch(flash_bwd_fused_kernel, dim3(B * H), fused_bwd_smem(tq),
-                stream, q, k, v, mask, dout, lse, delta, dq, dk, dv, H, tq,
-                tk, causal, scale);
-}
-
 int bwd_dq(const float* q, const float* k, const float* v,
            const unsigned char* mask, const float* dout, const float* lse,
            const float* delta, float* dq, int B, int H, int tq, int tk,
@@ -426,15 +323,6 @@ extern "C" int flash_fwd_launch(const float* q, const float* k,
                                 cudaStream_t stream) {
   return flash::fwd(q, k, v, mask, o, lse, B, H, tq, tk, causal, scale,
                     stream);
-}
-
-extern "C" int flash_bwd_fused_launch(
-    const float* q, const float* k, const float* v, const unsigned char* mask,
-    const float* dout, const float* lse, const float* delta, float* dq,
-    float* dk, float* dv, int B, int H, int tq, int tk, int causal,
-    float scale, cudaStream_t stream) {
-  return flash::bwd_fused(q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H,
-                          tq, tk, causal, scale, stream);
 }
 
 extern "C" int flash_bwd_dq_launch(const float* q, const float* k,

@@ -1,7 +1,7 @@
 // Tile math shared by the flash-attention kernels of flash_attn.cu: the
 // score tile every kernel rebuilds and the tile-gradient step of the
-// backward, so that the forward and the three backward kernels can never
-// drift apart (the counterpart of _tile_scores/_tile_grads in
+// backward, so that the forward and the two-pass backward kernels can
+// never drift apart (the counterpart of _tile_scores/_tile_grads in
 // deepdfa_tpu/ops/attention.py:181-217).
 //
 // Layout. A block of NT = 256 threads works on 64-row query tiles and

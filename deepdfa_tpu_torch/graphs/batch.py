@@ -26,8 +26,8 @@ from deepdfa_tpu_torch.graphs.segment import segment_max
 from deepdfa_tpu_torch.ops.band_spmm import BandAdjacency, build_band_adjacency
 from deepdfa_tpu_torch.ops.tile_spmm import (
     DEFAULT_TILE,
-    TileAdjacency,
-    build_tile_adjacency,
+    CsrAdjacency,
+    build_csr_adjacency,
 )
 
 
@@ -46,7 +46,9 @@ class GraphBatch:
     graph_ids   : int32[n_graphs] example ids, -1 for empty slots
     band_adj    : optional block-banded adjacency (message_impl band,
                   fused, persistent)
-    tile_adj    : optional block-sparse tile adjacency (message_impl tile)
+    tile_adj    : optional nonzero lists of A and A^T (message_impl tile;
+                  ``ops.tile_spmm.tile_layout`` gives the reference's
+                  dense tiles of them)
     """
 
     node_feats: Dict[str, torch.Tensor]
@@ -59,7 +61,7 @@ class GraphBatch:
     graph_mask: torch.Tensor
     graph_ids: torch.Tensor
     band_adj: Optional[BandAdjacency] = None
-    tile_adj: Optional[TileAdjacency] = None
+    tile_adj: Optional[CsrAdjacency] = None
 
     @property
     def n_graphs(self) -> int:
@@ -155,7 +157,7 @@ def batch_graphs(
     Graphs that overflow the budget raise; edge endpoints are checked
     before any copy (a dangling endpoint would silently land in another
     graph's rows). ``build_band_adj``/``build_tile_adj`` attach the band
-    or tile adjacency (the tile budget is the next power of two).
+    adjacency or the tile path's nonzero lists.
     """
     if len(graphs) > n_graphs:
         raise ValueError(f"{len(graphs)} graphs > {n_graphs} slots")
@@ -227,9 +229,8 @@ def batch_graphs(
             bandwidth=band_bandwidth)
     tile_adj = None
     if build_tile_adj:
-        tile_adj = build_tile_adjacency(
-            senders, receivers, edge_mask, max_nodes,
-            tile=tile if tile is not None else DEFAULT_TILE)
+        tile_adj = build_csr_adjacency(senders, receivers, edge_mask,
+                                       max_nodes)
 
     t = torch.from_numpy
     return GraphBatch(

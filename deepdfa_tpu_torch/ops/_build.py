@@ -29,6 +29,7 @@ SOURCES: Dict[str, str] = {
     "fused_gnn": os.path.join("csrc", "fused_gnn.cu"),
     "fused_gnn_bwd": os.path.join("csrc", "fused_gnn_bwd.cu"),
     "flash_attn": os.path.join("csrc", "flash_attn.cu"),
+    "flash_bwd_fused": os.path.join("csrc", "flash_bwd_fused.cu"),
     "tile_spmm": os.path.join("csrc", "tile_spmm.cu"),
 }
 #: library name -> the headers its source includes; their text joins
@@ -38,6 +39,7 @@ HEADERS: Dict[str, Tuple[str, ...]] = {
     "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),),
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),),
     "flash_attn": (os.path.join("csrc", "flash_tile.cuh"),),
+    "flash_bwd_fused": (),
     "tile_spmm": (),
 }
 
@@ -90,10 +92,6 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream
         "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P],
-        # q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, tq, tk,
-        # causal, scale, stream
-        "flash_bwd_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _F, _P],
         # q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk, causal, scale,
         # stream
         "flash_bwd_dq_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -103,10 +101,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_bwd_dkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _F, _P],
     },
+    "flash_bwd_fused": {
+        # q, k, v, mask, dout, lse, delta, dq_part, dq, dk, dv, B, H, tq,
+        # tk, causal, scale, stream
+        "flash_bwd_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _F, _P],
+    },
     "tile_spmm": {
-        # vals, vals_bf16, row_ptr, cols, msg, out, n_row_tiles, tile,
-        # hidden, stream
-        "tile_spmm_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        # ptr, src, val, msg, out, n_rows, hidden, stream
+        "tile_spmm_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 

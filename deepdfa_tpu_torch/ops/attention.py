@@ -11,15 +11,18 @@ optionally returning the weights) and :func:`blockwise_attention`, the
 streaming softmax over key blocks (:class:`AttnState`,
 :func:`update_state`, :func:`finalize_state`).
 
-Flash attention runs hand-written CUDA kernels (``csrc/flash_attn.cu``;
-its header note says what bounds them and how they are laid out), each
-with its plain PyTorch version here:
+Flash attention runs hand-written CUDA kernels (``csrc/flash_attn.cu``
+and ``csrc/flash_bwd_fused.cu``; their header notes say what bounds them
+and how they are laid out), each with its plain PyTorch version here:
 
 - :func:`flash_fwd` launches ``flash_fwd_kernel``: O and the row
   logsumexp; replaces the TPU kernel ``_flash_kernel``. Plain version
   :func:`flash_fwd_reference`.
 - :func:`flash_bwd_fused` launches ``flash_bwd_fused_kernel``: dq, dk and
-  dv in one pass; replaces ``_flash_bwd_fused_kernel``. Plain version
+  dv in one pass (one block a key tile, the products as 3xTF32 on the
+  tensor cores, the key tiles' dq partials then summed in a fixed order by
+  its second step, ``flash_dq_sum_kernel``); replaces
+  ``_flash_bwd_fused_kernel``. Plain version
   :func:`flash_bwd_fused_reference`.
 - :func:`flash_bwd_dq` launches ``flash_bwd_dq_kernel`` and
   :func:`flash_bwd_dkv` ``flash_bwd_dkv_kernel``, the two-pass backward;
@@ -31,10 +34,10 @@ with its plain PyTorch version here:
 which saves ``q, k, v, mask, o, lse`` as the reference's ``_flash_fwd``
 does; its backward, :func:`flash_backward`, computes
 ``delta = rowsum(dO * O)`` outside the kernels and picks the fused
-kernel or the two-pass pair by a shape gate,
-:func:`flash_fused_bwd_smem_ok`: one (batch, head)'s ``[T, D]`` f32 dq
-accumulator and the kernel's tiles must fit a block's 227 KB of shared
-memory (T 512 at D 64 does; T 4096 does not). Two-pass dispatches are
+kernel or the two-pass pair by a shape gate, :func:`flash_fused_bwd_ok`:
+the fused kernel's f32 dq partials for one (batch, head), one
+``[Tq, D]`` plane a key tile, must stay within 1 MiB (T 512 at D 64
+does; T 4096 would need 64 MiB). Two-pass dispatches are
 counted in ``flash_backward.two_pass_dispatches``. The reference's
 ``_FUSED_BWD_MAX_BYTES``, ``_pick_block_h``/``_confirmed_block_h`` (TPU
 VMEM heuristics) and ``_pick_block``'s blockwise fallback for lengths it
@@ -58,6 +61,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_F32_SIMT
+
 NEG_INF = -1e30
 
 #: The head width the CUDA kernels are built for (codebert-base and
@@ -65,8 +70,10 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
 #: The kernels' query and key tile (rows).
 TILE = 64
-#: Dynamic shared memory one H100 block may opt into (227 KB).
-FLASH_SMEM_BUDGET_BYTES = 232_448
+#: The fused backward's dq partials for one (batch, head) at most: T 512
+#: at D 64 (192 MiB of scratch at B 16, H 12). They grow as T^2: T 4096
+#: would need 64 MiB a (batch, head), 6 GiB at B 8, H 12.
+FUSED_BWD_PARTIAL_BYTES = 1 << 20
 #: Key block of the plain versions' streaming softmax (the reference's
 #: blockwise default).
 PLAIN_BLOCK = 512
@@ -272,22 +279,22 @@ def flash_bwd_fused_reference(q, k, v, kv_mask, do, lse, delta,
 # ---------------------------------------------------------------------------
 
 
-def fused_bwd_smem_bytes(tq: int, d: int) -> int:
-    """Shared memory of ``flash_bwd_fused_kernel``'s block: the [Tq, D]
-    f32 dq accumulator (rows rounded up to the tile), the q, dO, k and v
-    tiles ([64, D + 1] each), P and dS ([64, 65]), lse and delta, the key
-    mask (``fused_bwd_smem`` in csrc/flash_attn.cu)."""
-    rows = -(-tq // TILE) * TILE
-    floats = rows * d + 4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE
-    return 4 * floats + 4 * TILE
+def fused_bwd_partial_bytes(tq: int, d: int, tk: Optional[int] = None
+                             ) -> int:
+    """The f32 dq partials ``flash_bwd_fused_kernel`` writes for one
+    (batch, head): a ``[Tq, D]`` plane for each of the ``ceil(Tk / 64)``
+    key tiles (``Tk`` defaults to ``Tq``)."""
+    tk = tq if tk is None else tk
+    return 4 * -(-tk // TILE) * tq * d
 
 
-def flash_fused_bwd_smem_ok(tq: int, d: int) -> bool:
+def flash_fused_bwd_ok(tq: int, d: int, tk: Optional[int] = None) -> bool:
     """The backward's gate (replaces the reference's
     ``_FUSED_BWD_MAX_BYTES``, which is sized to the TPU's VMEM): the fused
-    kernel where one (batch, head)'s dq and the tiles fit 227 KB of
-    shared memory (T <= 512 at D 64); the two-pass pair otherwise."""
-    return fused_bwd_smem_bytes(tq, d) <= FLASH_SMEM_BUDGET_BYTES
+    kernel where one (batch, head)'s dq partials stay within
+    ``FUSED_BWD_PARTIAL_BYTES`` (T <= 512 at D 64); the two-pass pair,
+    which needs no partials, otherwise."""
+    return fused_bwd_partial_bytes(tq, d, tk) <= FUSED_BWD_PARTIAL_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -351,11 +358,11 @@ def _check_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(kv_mask.shape)} on {kv_mask.device}")
 
 
-def _library(q: torch.Tensor):
+def _library(q: torch.Tensor, name: str = "flash_attn"):
     from deepdfa_tpu_torch.ops import _build
 
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    return _build.load("flash_attn"), stream
+    return _build.load(name), stream
 
 
 def _dims(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple:
@@ -400,27 +407,32 @@ def _bwd_rows(q: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
 def flash_bwd_fused(q, k, v, kv_mask, do, lse, delta, causal: bool = False):
     """``(dq, dk, dv)`` in one pass. CPU tensors:
     :func:`flash_bwd_fused_reference`. CUDA tensors:
-    ``flash_bwd_fused_kernel`` where :func:`flash_fused_bwd_smem_ok`
-    holds (raises otherwise: :func:`flash_backward` checks the gate)."""
+    ``flash_bwd_fused_kernel`` and its dq sum where
+    :func:`flash_fused_bwd_ok` holds (raises otherwise:
+    :func:`flash_backward` checks the gate)."""
     if q.device.type == "cpu":
         return flash_bwd_fused_reference(q, k, v, kv_mask, do, lse, delta,
                                          causal)
     mask = _ones_mask(kv_mask, k)
     _check_cuda("flash_bwd_fused_kernel", q, k, v, mask,
                 _bwd_rows(q, do, lse, delta))
-    tq, d = q.shape[1], q.shape[3]
-    if not flash_fused_bwd_smem_ok(tq, d):
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if not flash_fused_bwd_ok(tq, d, tk):
         raise ValueError(
-            f"flash_bwd_fused_kernel: Tq {tq}, D {d} needs "
-            f"{fused_bwd_smem_bytes(tq, d)} B of shared memory > "
-            f"{FLASH_SMEM_BUDGET_BYTES}: use the two-pass kernels")
+            f"flash_bwd_fused_kernel: Tq {tq}, Tk {tk}, D {d} needs "
+            f"{fused_bwd_partial_bytes(tq, d, tk)} B of dq partials a "
+            f"(batch, head) > {FUSED_BWD_PARTIAL_BYTES}: use the two-pass "
+            "kernels")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = torch.empty((-(-tk // TILE), b, tq, h, d), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
-        lib, stream = _library(q)
+        lib, stream = _library(q, "flash_bwd_fused")
         err = lib.flash_bwd_fused_launch(
             _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), *_dims(q, k, causal),
-            stream)
+            _ptr(delta), _ptr(part), _ptr(dq), _ptr(dk), _ptr(dv),
+            *_dims(q, k, causal), stream)
         _raise_on_error(err, "flash_bwd_fused_kernel")
     flash_bwd_fused.launches += 1
     return dq, dk, dv
@@ -481,10 +493,10 @@ flash_bwd_dkv.launches = 0
 
 def flash_backward(q, k, v, kv_mask, o, lse, do, causal: bool = False):
     """The attention VJP ``(dq, dk, dv)``: ``delta`` outside the kernels,
-    then the fused kernel where :func:`flash_fused_bwd_smem_ok` holds, the
-    dq and dk/dv pair otherwise (counted in ``two_pass_dispatches``)."""
+    then the fused kernel where :func:`flash_fused_bwd_ok` holds, the dq
+    and dk/dv pair otherwise (counted in ``two_pass_dispatches``)."""
     delta = flash_delta(o, do)
-    if flash_fused_bwd_smem_ok(q.shape[1], q.shape[3]):
+    if flash_fused_bwd_ok(q.shape[1], q.shape[3], k.shape[1]):
         return flash_bwd_fused(q, k, v, kv_mask, do, lse, delta, causal)
     flash_backward.two_pass_dispatches += 1
     dq = flash_bwd_dq(q, k, v, kv_mask, do, lse, delta, causal)
@@ -590,8 +602,14 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
       the live rows, k and v of the seen keys and the mask, and writes
       its gradients for every row.
     - ``executed_flops``: the operations the kernel does, whole 64 x 64
-      tiles and masked scores included (it skips only the causal tiles
-      wholly above the diagonal)."""
+      tiles and masked scores included. Every kernel skips the causal
+      tiles wholly above the diagonal; ``flash_bwd_fused_kernel`` also
+      the key tiles with no real key (``dead_key_tiles``, counted over
+      batch rows and heads).
+    - ``peak_flops``/``peak``: the rate the operations bound divides by:
+      the f32 work of the 3xTF32 products on the tensor cores for
+      ``flash_bwd_fused_kernel``, f32 FMAs on the CUDA cores for the
+      others."""
     if kernel not in _PRODUCTS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
     mask = kv_mask.detach().to("cpu", torch.bool)
@@ -609,8 +627,19 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     live = int((seen > 0).sum())
     unit = 2.0 * _PRODUCTS[kernel] * h * d
     nq, nk = -(-tq // TILE), -(-tk // TILE)
-    tiles = (sum(min(nk, i + 1) for i in range(nq)) if causal
-             else nq * nk)
+    # Query tiles that meet key tile kt (causal: those not before it), and
+    # which (batch row, key tile) pairs hold a real key.
+    meets = torch.tensor([nq - min(kt, nq) if causal else nq
+                          for kt in range(nk)])
+    padded = torch.zeros(b, nk * TILE, dtype=torch.bool)
+    padded[:, :tk] = mask
+    live_tiles = padded.reshape(b, nk, TILE).any(2)
+    if kernel == "flash_bwd_fused_kernel":
+        tiles = int((live_tiles * meets).sum())
+        peak = PEAK_3XTF32
+    else:
+        tiles = b * int(meets.sum())
+        peak = PEAK_F32_SIMT
     row = 4.0 * h * d  # one [H, D] f32 row
     mask_bytes, rowvec = 1.0 * b * tk, 4.0 * h
     if kernel == "flash_fwd_kernel":
@@ -623,4 +652,6 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
                   "flash_bwd_dkv_kernel": 2 * b * tk * row}[kernel]
         nbytes = reads + writes
     return {"flops": unit * pairs, "bytes": nbytes,
-            "executed_flops": unit * b * tiles * TILE * TILE}
+            "executed_flops": unit * tiles * TILE * TILE,
+            "dead_key_tiles": h * int((~live_tiles).sum()),
+            "peak": peak[0], "peak_flops": peak[1]}

@@ -58,6 +58,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from deepdfa_tpu_torch.ops import PEAK_F32_SIMT
 from deepdfa_tpu_torch.ops.band_spmm import (
     BandAdjacency,
     band_spmm,
@@ -773,7 +774,9 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
       ``n_steps`` steps; each step's ``h``, ``x``, ``dp``, ``dmsg`` in,
       the gradients out.
 
-    Also ``bwd_flops``/``bwd_bytes``: the whole ``n_steps``-step VJP, as
+    ``peak_flops``/``peak``: the rate the operations bound divides by
+    (f32 FMAs on the CUDA cores). Also ``bwd_flops``/``bwd_bytes``: the
+    whole ``n_steps``-step VJP, as
     the reference's ``fused_step_cost`` counts its ``bwd_*``, with only
     its compulsory traffic (h_0 and g in, dh_0 out, A and A^T, the
     weights in and the f32 gradients out).
@@ -808,6 +811,8 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
     return {
         "flops": flops,
         "bytes": nbytes,
+        "peak": PEAK_F32_SIMT[0],
+        "peak_flops": PEAK_F32_SIMT[1],
         "nnz": nnz,
         "bwd_flops": n_steps * (bwd + wgrad) + (n_steps - 1) * fwd,
         "bwd_bytes": 3 * plane + 2 * band + 2 * weights,

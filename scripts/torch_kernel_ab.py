@@ -1,0 +1,74 @@
+"""Time the port's tile SpMM and flash-attention kernels of two checkouts
+on one card, in turns.
+
+    python3 scripts/torch_kernel_ab.py OLD_DIR NEW_DIR [--out FILE]
+
+Each checkout's own ``chip_smoke.py`` runs its device, build,
+``tile_kernels`` and ``attention_kernels`` phases in a process of its
+own, in the order OLD, NEW, NEW, OLD, so that a drift of the card or its
+host over the call shows as a gap between the two runs of one checkout.
+Prints one JSON object: for each checkout and run, each kernel's
+``kernel_ms``, ``plain_ms``, ``library_ms`` and bound at each shape (and
+over A and A^T for the tile product), and the card's name and power
+limit. Needs one NVIDIA GPU; the checkouts build their kernels into
+their own trees.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
+          "cs.phase_tile_kernels(); cs.phase_attention_kernels()")
+KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_us", "max_abs_err")
+
+
+def run(checkout: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", PHASES], cwd=checkout,
+                          capture_output=True, text=True, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"
+                           f"{proc.stderr[-4000:]}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        rec = json.loads(line)
+        if rec.get("phase") == "device":
+            out["device"] = rec["device"]
+        elif rec.get("phase") in ("tile_kernels", "attention_kernels"):
+            where = rec.get("over") or rec.get("shape")
+            out[f"{rec['kernel']}@{where}"] = {k: rec.get(k) for k in KEYS}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old")
+    ap.add_argument("new")
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON object to this file")
+    args = ap.parse_args()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    runs = []
+    for label in ("old", "new", "new", "old"):
+        checkout = os.path.abspath(getattr(args, label))
+        runs.append({"checkout": label, **run(checkout)})
+    result = {"nvidia_smi": smi, "runs": runs}
+    text = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

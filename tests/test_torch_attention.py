@@ -85,7 +85,7 @@ def test_flash_forward_matches_jax(causal, t):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_gradients_match_jax_fused(causal):
     q, k, v, g, mask = _inputs(t=37)
-    assert A.flash_fused_bwd_smem_ok(37, 8)
+    assert A.flash_fused_bwd_ok(37, 8)
     want = _jax_flash_grads(q, k, v, g, mask, causal)
     before = A.flash_backward.two_pass_dispatches
     _, got = _port_flash_grads(q, k, v, g, mask, causal)
@@ -100,7 +100,7 @@ def test_flash_two_pass_gradients_match_jax(monkeypatch, causal):
     q, k, v, g, mask = _inputs(t=32)
     monkeypatch.setattr(JA, "_FUSED_BWD_MAX_BYTES", 0)
     want = _jax_flash_grads(q, k, v, g, mask, causal)
-    monkeypatch.setattr(A, "flash_fused_bwd_smem_ok", lambda tq, d: False)
+    monkeypatch.setattr(A, "flash_fused_bwd_ok", lambda tq, d, tk: False)
     before = A.flash_backward.two_pass_dispatches
     _, got = _port_flash_grads(q, k, v, g, mask, causal)
     assert A.flash_backward.two_pass_dispatches == before + 1
@@ -161,14 +161,18 @@ def test_attention_dispatch(impl):
 
 
 def test_fused_backward_gate():
-    # One (batch, head)'s [T, 64] f32 dq (128 KB at T 512) plus the
-    # kernel's tiles: 231,680 B of the 232,448 a block may use.
-    assert A.fused_bwd_smem_bytes(512, 64) == 231_680
-    assert A.flash_fused_bwd_smem_ok(512, 64)
-    assert not A.flash_fused_bwd_smem_ok(513, 64)  # rounds up to 576 rows
-    assert not A.flash_fused_bwd_smem_ok(4096, 64)
-    assert A.flash_fused_bwd_smem_ok(1024, 16)
-    assert not A.flash_fused_bwd_smem_ok(512, 128)
+    # One (batch, head)'s f32 dq partials, a [T, 64] plane for each of the
+    # 8 key tiles at T 512: 1 MiB, the limit.
+    assert A.fused_bwd_partial_bytes(512, 64) == 8 * 512 * 64 * 4 == 1 << 20
+    assert A.flash_fused_bwd_ok(512, 64)
+    assert not A.flash_fused_bwd_ok(513, 64)  # 9 key tiles
+    assert not A.flash_fused_bwd_ok(4096, 64)
+    assert A.flash_fused_bwd_ok(1024, 16)
+    assert not A.flash_fused_bwd_ok(512, 128)
+    # Cross lengths: Tk sets the key tiles, Tq the plane.
+    assert A.fused_bwd_partial_bytes(100, 64, tk=600) == 10 * 100 * 64 * 4
+    assert A.flash_fused_bwd_ok(256, 64, tk=1024)
+    assert not A.flash_fused_bwd_ok(512, 64, tk=520)
 
 
 def test_kernel_cost_counts_the_products():
@@ -202,3 +206,15 @@ def test_kernel_cost_counts_the_products():
     causal = A.kernel_cost(mask, t, 1, d, "flash_bwd_dq_kernel", causal=True)
     assert causal["flops"] == 6 * d * (1 + 2 + 3 * 98)
     assert causal["executed_flops"] == 6 * d * 2 * 3 * 64 * 64
+    assert causal["peak_flops"] == 67e12
+    # The fused backward skips key tiles with no real key: of the four
+    # (row, key tile) pairs only row 0's first tile holds one. It meets
+    # both query tiles, causal or not (no query tile comes before it).
+    fused = A.kernel_cost(mask, t, 1, d, "flash_bwd_fused_kernel")
+    assert fused["flops"] == 10 * d * t * 3
+    assert fused["executed_flops"] == 10 * d * 2 * 64 * 64
+    assert fused["dead_key_tiles"] == 3
+    assert fused["peak_flops"] == pytest.approx(495e12 / 3)
+    assert A.kernel_cost(mask, t, 1, d, "flash_bwd_fused_kernel",
+                         causal=True)["executed_flops"] == \
+        fused["executed_flops"]

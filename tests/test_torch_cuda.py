@@ -11,9 +11,12 @@ that is not bf16-exact), wider bands, odd shapes, the over-gate dispatch
 and the refusals, for the forward kernels and the backward ones; and
 that ``loss.backward()`` through FlowGNN on the card gives the CPU
 model's parameter gradients in every kernel lane. The tile product is
-held to its plain version at tile 16 and 128, H 32 and 128, bf16 and
-f32 values, with row tiles no edge reaches, an adjacency of fillers only
-and pad tiles overwritten with nonzeros (which must change nothing).
+held to its plain version over A and A^T at H 32, 128 and 30 (not a
+multiple of 4), with rows no edge reaches, an edgeless batch, a
+multiplicity of 300 and entries past ``ptr[N]`` that must change
+nothing. The fused flash backward is held to its plain version and to
+the two-pass pair, with whole key tiles of padding, and to its own bits
+across two launches.
 """
 
 import dataclasses
@@ -342,10 +345,9 @@ def test_backward_refusals(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _tile_adj(sizes, n, tile, seed=0):
-    """Contiguous graphs as ``_graph_adj`` builds them, their tile
-    adjacency padded to twice its tiles (so pad tiles always follow the
-    built ones). Rows past the graphs are reached by no edge."""
+def _tile_lists(sizes, n, seed=0):
+    """Contiguous graphs as ``_graph_adj`` builds them, as the tile path's
+    nonzero lists. Rows past the graphs are reached by no edge."""
     rng = np.random.default_rng(seed)
     s, r, off = [], [], 0
     for size in sizes:
@@ -354,21 +356,32 @@ def _tile_adj(sizes, n, tile, seed=0):
         s += list(rng.integers(off, off + size, 3))
         r += list(rng.integers(off, off + size, 3))
         off += size
-    adj = T.build_tile_adjacency(s, r, np.ones(len(s), bool), n, tile=tile)
-    return T.pad_tiles(adj, 2 * int(adj.vals.shape[0])), off
+    return T.build_csr_adjacency(s, r, np.ones(len(s), bool), n), off
 
 
-@pytest.mark.parametrize("tile,n,sizes", [
-    (16, 256, [40, 30, 25, 9]),      # rows 104.. reached by no edge
-    (128, 1024, [200, 150, 90, 60]),  # graphs across tiles; rows 500..
+def _poisoned(adj):
+    """The same lists with 64 more entries past ptr[N] in each direction,
+    each a NaN multiplicity on sender 0: any read of them shows in the
+    output."""
+    def grow(src, val):
+        return (torch.cat([src, torch.zeros(64, dtype=src.dtype,
+                                            device=src.device)]),
+                torch.cat([val, torch.full((64,), float("nan"),
+                                           device=val.device)]))
+
+    (src, val), (t_src, t_val) = grow(adj.src, adj.val), grow(adj.t_src,
+                                                              adj.t_val)
+    return dataclasses.replace(adj, src=src, val=val, t_src=t_src,
+                               t_val=t_val)
+
+
+@pytest.mark.parametrize("n,sizes", [
+    (256, [40, 30, 25, 9]),        # rows 104.. reached by no edge
+    (1024, [200, 150, 90, 60]),    # rows 500..
 ])
-@pytest.mark.parametrize("hidden", [32, 128])
-@pytest.mark.parametrize("f32_vals", [False, True])
-def test_tile_spmm_kernel_matches_plain_version(cuda, tile, n, sizes, hidden,
-                                                f32_vals):
-    adj, used = _tile_adj(sizes, n, tile)
-    if f32_vals:
-        adj = T.cast_tiles(adj, torch.float32)
+@pytest.mark.parametrize("hidden", [32, 128, 30])  # 30: the one-float path
+def test_tile_spmm_kernel_matches_plain_version(cuda, n, sizes, hidden):
+    adj, used = _tile_lists(sizes, n)
     adj = adj.to(cuda)
     msg = torch.randn(n, hidden, device=cuda)
     T.reset_launch_counts()
@@ -378,13 +391,16 @@ def test_tile_spmm_kernel_matches_plain_version(cuda, tile, n, sizes, hidden,
     torch.testing.assert_close(got, T.tile_spmm_reference(adj, msg),
                                **STEP_TOL)
     assert not got[used:].any()  # rows no edge reaches
-    # The kernel never reads past row_ptr: nonzero pad tiles change
-    # nothing, bit for bit (the plain version multiplies them).
-    built = int(adj.row_ptr[-1])
-    assert built < adj.vals.shape[0]
-    poisoned = dataclasses.replace(adj, vals=adj.vals.clone())
-    poisoned.vals[built:] = 1.0
-    assert torch.equal(T.tile_spmm(poisoned, msg), got)
+    # A^T, the backward's launch, against its plain version.
+    at = adj.transposed()
+    torch.testing.assert_close(T.tile_spmm(at, msg),
+                               T.tile_spmm_reference(at, msg), **STEP_TOL)
+    # The kernel reads nothing past ptr[N]: entries there change nothing,
+    # bit for bit (the plain version multiplies every entry).
+    bad = _poisoned(adj)
+    assert torch.equal(T.tile_spmm(bad, msg), got)
+    assert torch.equal(T.tile_spmm(bad.transposed(), msg),
+                       T.tile_spmm(at, msg))
     # The autograd backward (the same kernel over A^T) against the CPU's.
     g = torch.randn_like(msg)
     m = msg.clone().requires_grad_()
@@ -392,39 +408,46 @@ def test_tile_spmm_kernel_matches_plain_version(cuda, tile, n, sizes, hidden,
     mc = msg.cpu().requires_grad_()
     T.tile_spmm(adj.to("cpu"), mc).backward(g.cpu())
     torch.testing.assert_close(m.grad.cpu(), mc.grad, **STEP_TOL)
-    assert T.launch_counts() == {"tile_spmm_kernel": 4}
+    assert T.launch_counts() == {"tile_spmm_kernel": 7}
 
 
 def test_tile_spmm_kernel_fillers_only_and_heavy_multiplicity(cuda):
-    empty = T.build_tile_adjacency([0], [0], np.zeros(1, bool), 64,
-                                   tile=16).to(cuda)
-    assert int(empty.row_ptr[-1]) == 4  # four fillers, no edge
+    # An edgeless batch: no nonzero, every row written as zeros.
+    empty = T.build_csr_adjacency([0], [0], np.zeros(1, bool), 64).to(cuda)
+    assert empty.nnz == 0 and not empty.ptr.any()
     msg = torch.randn(64, 40, device=cuda)
     assert torch.equal(T.tile_spmm(empty, msg), torch.zeros_like(msg))
-    # A multiplicity of 300 keeps f32 values (not bf16-exact).
-    heavy = T.build_tile_adjacency(np.zeros(300, np.int64),
-                                   np.ones(300, np.int64),
-                                   np.ones(300, bool), 16, tile=16).to(cuda)
-    assert heavy.vals.dtype == torch.float32
+    assert torch.equal(T.tile_spmm(empty.transposed(), msg),
+                       torch.zeros_like(msg))
+    # A multiplicity of 300: one nonzero holding 300, exact in f32.
+    heavy = T.build_csr_adjacency(np.zeros(300, np.int64),
+                                  np.ones(300, np.int64),
+                                  np.ones(300, bool), 16).to(cuda)
+    assert heavy.nnz == 1 and heavy.val.tolist() == [300.0]
     out = T.tile_spmm(heavy, torch.ones(16, 4, device=cuda))
     assert out[1].tolist() == [300.0] * 4 and not out[2:].any()
+    assert not out[0].any()
+    back = T.tile_spmm(heavy.transposed(), torch.ones(16, 4, device=cuda))
+    assert back[0].tolist() == [300.0] * 4 and not back[1:].any()
 
 
 def test_tile_spmm_refusals(cuda):
-    adj, _ = _tile_adj([40, 30], 128, 16)
+    adj, _ = _tile_lists([40, 30], 128)
     on_card = adj.to(cuda)
     msg = torch.randn(128, 32, device=cuda)
     with pytest.raises(NotImplementedError, match="bf16"):
         T.tile_spmm(on_card, msg.bfloat16())
     with pytest.raises(ValueError, match="does not match"):
         T.tile_spmm(on_card, msg[:64])
-    with pytest.raises(ValueError, match="vals must be"):
-        T.tile_spmm(adj, msg)  # the tiles on the CPU
+    with pytest.raises(ValueError, match="ptr must be"):
+        T.tile_spmm(adj, msg)  # the lists on the CPU
     with pytest.raises(ValueError, match="contiguous msg"):
         T.tile_spmm(on_card, torch.randn(32, 128, device=cuda).T)
-    big = T.build_tile_adjacency([0], [0], np.ones(1, bool), 256, tile=256)
-    with pytest.raises(ValueError, match="tile 256"):
-        T.tile_spmm(big.to(cuda), torch.randn(256, 8, device=cuda))
+    with pytest.raises(ValueError, match="src must be"):
+        T.tile_spmm(dataclasses.replace(on_card, src=on_card.src.long()),
+                    msg)
+    with pytest.raises(ValueError, match="val must be"):
+        T.tile_spmm(dataclasses.replace(on_card, val=on_card.val[:-1]), msg)
 
 
 def test_tile_flowgnn_backward_matches_cpu(cuda):
@@ -486,7 +509,7 @@ def test_flash_kernels_match_plain_versions(cuda, b, t, h, d, causal):
     dk, dv = A.flash_bwd_dkv(*args)
     for got, ref in zip((dq, dk, dv), want):
         torch.testing.assert_close(got, ref, **ATTN_GRAD_TOL)
-    if A.flash_fused_bwd_smem_ok(t, d):
+    if A.flash_fused_bwd_ok(t, d):
         fused = A.flash_bwd_fused(*args)
         for got, ref in zip(fused, want):
             torch.testing.assert_close(got, ref, **ATTN_GRAD_TOL)
@@ -499,8 +522,8 @@ def test_flash_kernels_match_plain_versions(cuda, b, t, h, d, causal):
 def test_flash_gate_picks_fused_at_512_and_two_pass_at_4096(cuda):
     from deepdfa_tpu_torch.ops import attention as A
 
-    assert A.flash_fused_bwd_smem_ok(512, 64)
-    assert not A.flash_fused_bwd_smem_ok(4096, 64)
+    assert A.flash_fused_bwd_ok(512, 64)
+    assert not A.flash_fused_bwd_ok(4096, 64)
     for t, want in ((512, {"flash_fwd_kernel": 1,
                            "flash_bwd_fused_kernel": 1}),
                     (4096, {"flash_fwd_kernel": 1, "flash_bwd_dq_kernel": 1,
@@ -518,6 +541,46 @@ def test_flash_gate_picks_fused_at_512_and_two_pass_at_4096(cuda):
         A.reset_launch_counts()
         A.flash_fwd_reference(q.detach(), k, v, mask)
         assert sum(A.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("t,lengths,causal", [
+    (512, [70, 0, 300], False),   # key tiles 2-7, all, 5-7 of a row dead
+    (200, [10, 130, 0], True),    # ragged T, causal
+])
+def test_fused_backward_skips_dead_key_tiles_and_repeats_its_bits(
+        cuda, t, lengths, causal):
+    from deepdfa_tpu_torch.ops import attention as A
+
+    b, h, d = len(lengths), 2, 64
+    q, k, v, _, g = _attn_inputs(b, t, h, d, cuda)
+    mask = torch.arange(t, device=cuda)[None, :] < torch.tensor(
+        lengths, device=cuda)[:, None]
+    o, lse = A.flash_fwd_reference(q, k, v, mask, causal)
+    args = (q, k, v, mask, g, lse, A.flash_delta(o, g), causal)
+    A.reset_launch_counts()
+    fused = A.flash_bwd_fused(*args)
+    again = A.flash_bwd_fused(*args)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["flash_bwd_fused_kernel"] == 2
+    for a, c in zip(fused, again):  # no atomics: the same bits
+        assert torch.equal(a, c)
+    want = A.flash_bwd_fused_reference(*args)
+    pair = (A.flash_bwd_dq(*args), *A.flash_bwd_dkv(*args))
+    for a, w, p in zip(fused, want, pair):
+        torch.testing.assert_close(a, w, **ATTN_GRAD_TOL)
+        torch.testing.assert_close(a, p, **ATTN_GRAD_TOL)
+    # A key tile with no real key: its dk and dv are exactly 0; a row
+    # with no real key at all has zero gradients everywhere.
+    for row, n in enumerate(lengths):
+        first_dead = -(-n // 64) * 64
+        for x in fused[1:]:
+            assert not x[row, first_dead:].any()
+        if n == 0:
+            assert not any(x[row].any() for x in fused)
+    cost = A.kernel_cost(mask, t, h, d, "flash_bwd_fused_kernel", causal)
+    nk = -(-t // 64)
+    assert cost["dead_key_tiles"] == h * sum(nk - -(-n // 64)
+                                             for n in lengths)
 
 
 def test_flash_refusals(cuda):

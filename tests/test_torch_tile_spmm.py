@@ -1,12 +1,14 @@
 """The port's tile message path (deepdfa_tpu_torch/ops/tile_spmm.py and
 the batches, model, loops and CLI around it) against the JAX package.
 
-Inputs are made once with numpy and go through both packages. The JAX
-product runs as its own tests run it on the CPU: the Pallas kernel in
-interpret mode, or ``_spmm_xla``; the port's wrapper takes its plain
-version for CPU tensors. Tolerances: the host builder and the batches
-byte for byte; the product, its VJP and the model within 1e-5 (f32 sums
-of a few products in another order).
+Inputs are made once with numpy and go through both packages. The port
+carries A and A^T as nonzero lists; turned into the reference's dense
+tile layout (``tile_layout``) they equal the JAX package's tiles byte
+for byte. The JAX product runs as its own tests run it on the CPU: the
+Pallas kernel in interpret mode, or ``_spmm_xla``; the port's wrapper
+takes its plain version for CPU tensors. Tolerances: the host layouts
+and the batches byte for byte; the product, its VJP and the model within
+1e-5 (f32 sums of a few products in another order).
 """
 
 import importlib
@@ -98,21 +100,44 @@ def test_build_tile_adjacency_is_byte_equal(case):
     s, r, mask, max_nodes, tile, pad_nz = CASES[case]
     want = J.build_tile_adjacency(s, r, mask, max_nodes, tile=tile,
                                   pad_nz=pad_nz)
-    got = T.build_tile_adjacency(s, r, mask, max_nodes, tile=tile,
-                                 pad_nz=pad_nz)
+    lists = T.build_csr_adjacency(s, r, mask, max_nodes)
+    got = T.tile_layout(lists, tile, pad_nz)
     _same_adjacency(got, want)
+    _same_adjacency(T.build_tile_adjacency(s, r, mask, max_nodes, tile=tile,
+                                           pad_nz=pad_nz), want)
     if case == "multiplicity_300_f32":
         assert got.vals.dtype == torch.float32
     else:
         assert got.vals.dtype == torch.bfloat16
-    # row_ptr covers the built tiles only; the pad tiles lie past it.
-    for rows, ptr in ((got.rows, got.row_ptr), (got.t_rows, got.t_row_ptr)):
-        assert ptr.dtype == torch.int32
-        assert ptr.shape == (got.n_row_tiles + 1,) and int(ptr[0]) == 0
-        for row in range(got.n_row_tiles):
-            run = rows[int(ptr[row]):int(ptr[row + 1])]
-            assert len(run) >= 1 and bool((run == row).all())
-    assert not got.vals[int(got.row_ptr[-1]):].any()
+    # The lists: int32 pointers over every row, f32 multiplicities.
+    for ptr, src, val in ((lists.ptr, lists.src, lists.val),
+                          (lists.t_ptr, lists.t_src, lists.t_val)):
+        assert ptr.dtype == src.dtype == torch.int32
+        assert val.dtype == torch.float32
+        assert ptr.shape == (max_nodes + 1,) and int(ptr[0]) == 0
+        assert int(ptr[-1]) == src.shape[0] == val.shape[0]
+        assert bool((ptr[1:] >= ptr[:-1]).all())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_csr_lists_hold_each_edge_once(case):
+    """Each distinct (receiver, sender) pair is one nonzero holding its
+    multiplicity, senders ascending within a row; A^T holds the same
+    nonzeros by sender."""
+    s, r, mask, max_nodes, _, _ = CASES[case]
+    dense = np.zeros((max_nodes, max_nodes))
+    np.add.at(dense, (np.asarray(r)[mask], np.asarray(s)[mask]), 1.0)
+    adj = T.build_csr_adjacency(s, r, mask, max_nodes)
+    for lists, want in ((adj, dense), (adj.transposed(), dense.T)):
+        rows = lists.row_ids().numpy()
+        src = lists.src.numpy()
+        got = np.zeros_like(want)
+        got[rows, src] = lists.val.numpy()
+        np.testing.assert_array_equal(got, want)
+        assert lists.nnz == int(np.count_nonzero(want))
+        # Ascending senders within a row: (row, src) keys strictly rise.
+        keys = rows.astype(np.int64) * max_nodes + src
+        assert bool(np.all(np.diff(keys) > 0))
 
 
 def test_dense_tiles_budget_and_refusals_match_jax():
@@ -145,8 +170,8 @@ def test_pad_and_cast_tiles_match_jax():
     assert T.pad_tiles(got, n) is got
     grown = T.pad_tiles(got, 2 * n)
     _same_adjacency(grown, J.pad_tiles(want, 2 * n))
-    assert torch.equal(grown.row_ptr, got.row_ptr)
-    assert torch.equal(grown.t_row_ptr, got.t_row_ptr)
+    assert bool((grown.rows[1:] >= grown.rows[:-1]).all())
+    assert not grown.vals[n:].any() and not grown.t_vals[n:].any()
     for mod, adj in ((T, got), (J, want)):
         with pytest.raises(ValueError, match=f"pad budget {n - 1} < {n}"):
             mod.pad_tiles(adj, n - 1)
@@ -171,8 +196,7 @@ def test_tile_spmm_and_vjp_match_jax(impl, case, h):
     s, r, mask, max_nodes, tile, pad_nz = CASES[case]
     jadj = J.build_tile_adjacency(s, r, mask, max_nodes, tile=tile,
                                   pad_nz=pad_nz)
-    padj = T.build_tile_adjacency(s, r, mask, max_nodes, tile=tile,
-                                  pad_nz=pad_nz)
+    padj = T.build_csr_adjacency(s, r, mask, max_nodes)
     rng = np.random.default_rng(3)
     msg = rng.standard_normal((max_nodes, h)).astype(np.float32)
     cot = rng.standard_normal((max_nodes, h)).astype(np.float32)
@@ -194,8 +218,9 @@ def test_f32_vals_are_not_downcast_for_bf16_messages():
     tests/test_tile_spmm.py holds the reference)."""
     s, r, mask, max_nodes, tile, _ = CASES["multiplicity_300_f32"]
     jadj = J.build_tile_adjacency(s, r, mask, max_nodes, tile=tile)
-    padj = T.build_tile_adjacency(s, r, mask, max_nodes, tile=tile)
-    assert padj.vals.dtype == torch.float32
+    padj = T.build_csr_adjacency(s, r, mask, max_nodes)
+    assert padj.val.dtype == torch.float32
+    assert T.tile_layout(padj, tile).vals.dtype == torch.float32
     got = T.tile_spmm(padj, torch.ones((8, 4), dtype=torch.bfloat16))
     assert got.dtype == torch.bfloat16
     want = np.asarray(J.tile_spmm(jadj, jnp.ones((8, 4), jnp.bfloat16),
@@ -205,42 +230,47 @@ def test_f32_vals_are_not_downcast_for_bf16_messages():
 
 
 def test_kernel_cost_counts_what_the_product_needs():
-    # Edges 0->2 twice, 0->0, 3->3 twice and 9->1 at tile 8 over 16
-    # nodes: nonzeros A[2,0] (2), A[0,0], A[3,3] (2) in row tile 0 and
-    # A[1,9] in tile (0, 1); row tile 1 has no edge and gets a filler.
+    # Edges 0->2 twice, 0->0, 3->3 twice and 9->1 over 16 nodes: the
+    # nonzeros A[0,0], A[1,9], A[2,0] (2) and A[3,3] (2).
     s = np.array([0, 0, 0, 3, 3, 9])
     r = np.array([2, 2, 0, 3, 3, 1])
-    adj = T.build_tile_adjacency(s, r, np.ones(6, bool), 16, tile=8)
-    assert adj.vals.shape[0] == 4  # budget pow2(2 + 2): one pad tile
-    cost = T.kernel_cost(adj, hidden=32)
-    assert cost["nnz"] == 4 and cost["flops"] == 2.0 * 4 * 32
+    adj = T.build_csr_adjacency(s, r, np.ones(6, bool), 16)
+    cost = T.kernel_cost(adj, hidden=32, tile=8)
+    assert cost["nnz"] == 4
+    assert cost["flops"] == cost["executed_flops"] == 2.0 * 4 * 32
+    # Each nonzero's sender and value (8 bytes), 17 row pointers, the
+    # three distinct sender rows of msg (0, 3, 9) and all 16 rows of out.
+    assert cost["sender_rows"] == 3
+    assert cost["bytes"] == 4 * 8 + 17 * 4 + 3 * 32 * 4 + 16 * 32 * 4
+    assert cost["peak_flops"] == 67e12
+    # The reference layout at tile 8: edge tiles (0, 0) and (0, 1), a
+    # filler for row tile 1, one pad tile up to the budget of 4.
     assert (cost["edge_tiles"], cost["filler_tiles"],
             cost["pad_tiles"]) == (2, 1, 1)
-    # Two bf16 edge tiles, their rows and cols, row_ptr, the two sender
-    # row tiles of msg they point to, and out.
-    assert cost["sender_tiles"] == 2
-    assert cost["bytes"] == (2 * 64 * 2 + 2 * 2 * 4 + 3 * 4 + 2 * 8 * 32 * 4
-                             + 16 * 32 * 4)
-    assert cost["executed_flops"] == 2.0 * 64 * 32 * 3
-    # A^T: the same nonzeros; its row tile 1 holds the edge 9->1. Both of
-    # its edge tiles read sender row tile 0 only: tile 1 of msg is never
-    # read and costs no bytes.
-    tcost = T.kernel_cost(adj, hidden=32, transposed=True)
-    assert tcost["flops"] == cost["flops"]
-    assert (tcost["edge_tiles"], tcost["filler_tiles"]) == (2, 0)
-    assert tcost["sender_tiles"] == 1
-    assert tcost["bytes"] == (2 * 64 * 2 + 2 * 2 * 4 + 3 * 4 + 8 * 32 * 4
-                              + 16 * 32 * 4)
-    # Edges only among nodes 0-2 of 24: one edge tile, one sender tile of
-    # three; the two fillers add neither bytes nor operations.
-    small = T.build_tile_adjacency(np.array([0, 1]), np.array([1, 2]),
-                                   np.ones(2, bool), 24, tile=8)
-    scost = T.kernel_cost(small, hidden=32)
-    assert (scost["edge_tiles"], scost["filler_tiles"],
-            scost["sender_tiles"]) == (1, 2, 1)
-    assert scost["flops"] == 2.0 * 2 * 32
-    assert scost["bytes"] == (64 * 2 + 2 * 4 + 4 * 4 + 8 * 32 * 4
-                              + 24 * 32 * 4)
+    # A^T: the same nonzeros by sender; its rows 0-3 read msg rows 0, 1,
+    # 2 and 3 (the receivers), and both row tiles hold an edge tile.
+    tcost = T.kernel_cost(adj, hidden=32, transposed=True, tile=8)
+    assert tcost["flops"] == cost["flops"] and tcost["sender_rows"] == 4
+    assert tcost["bytes"] == 4 * 8 + 17 * 4 + 4 * 32 * 4 + 16 * 32 * 4
+    assert (tcost["edge_tiles"], tcost["filler_tiles"],
+            tcost["pad_tiles"]) == (2, 0, 2)
+    # Edges 0->1 and 1->2 among 24 nodes: two nonzeros, two sender rows;
+    # one edge tile and two fillers at tile 8, which cost nothing.
+    small = T.build_csr_adjacency(np.array([0, 1]), np.array([1, 2]),
+                                  np.ones(2, bool), 24)
+    scost = T.kernel_cost(small, hidden=32, tile=8)
+    assert scost["flops"] == 2.0 * 2 * 32 and scost["sender_rows"] == 2
+    assert scost["bytes"] == 2 * 8 + 25 * 4 + 2 * 32 * 4 + 24 * 32 * 4
+    assert (scost["edge_tiles"], scost["filler_tiles"]) == (1, 2)
+    # The tile counts are the built layout's.
+    for lists, transposed in ((adj, False), (adj, True), (small, False)):
+        c = T.kernel_cost(lists, hidden=32, transposed=transposed, tile=8)
+        lay = T.tile_layout(lists, 8)
+        vals = lay.t_vals if transposed else lay.vals
+        edge = int((vals.reshape(vals.shape[0], -1) != 0).any(1).sum())
+        assert c["edge_tiles"] == edge
+        assert c["edge_tiles"] + c["filler_tiles"] + c["pad_tiles"] == \
+            vals.shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -258,22 +288,23 @@ def test_batch_iterator_tile_batches_match_jax():
     assert len(got) == len(want) > 2
     for gb, jb in zip(got, want):
         assert gb.band_adj is None
-        _same_adjacency(gb.tile_adj, jb.tile_adj)
+        _same_adjacency(T.tile_layout(gb.tile_adj), jb.tile_adj)
         for name in ("senders", "receivers", "node_mask", "edge_mask"):
             assert _np(getattr(gb, name)).tobytes() == _np(
                 getattr(jb, name)).tobytes()
     moved = got[0].to("cpu")
     assert moved.tile_adj is not got[0].tile_adj
-    assert torch.equal(moved.tile_adj.row_ptr, got[0].tile_adj.row_ptr)
+    assert torch.equal(moved.tile_adj.ptr, got[0].tile_adj.ptr)
     # A pinned budget: the port pads the built batch with pad_tiles,
     # byte for byte the reference's batch built with tile_pad_nz.
     one = pt_batch.batch_graphs(ex[:4], 4, 256, 1024, SUBKEYS,
                                 build_tile_adj=True)
     pinned = jax_batch.batch_graphs(ex[:4], 4, 256, 1024, SUBKEYS,
                                     build_tile_adj=True, tile_pad_nz=32)
-    padded = T.pad_tiles(one.tile_adj, 32)
+    padded = T.pad_tiles(T.tile_layout(one.tile_adj), 32)
     assert padded.vals.shape[0] == 32
     _same_adjacency(padded, pinned.tile_adj)
+    _same_adjacency(T.tile_layout(one.tile_adj, pad_nz=32), pinned.tile_adj)
 
 
 def test_text_graph_batches_tile_match_jax():
@@ -301,7 +332,8 @@ def test_text_graph_batches_tile_match_jax():
         assert gb.n_missing == jb.n_missing
         assert _np(gb.graphs.node_graph).tobytes() == _np(
             jb.graphs.node_graph).tobytes()
-        _same_adjacency(gb.graphs.tile_adj, jb.graphs.tile_adj)
+        _same_adjacency(T.tile_layout(gb.graphs.tile_adj),
+                        jb.graphs.tile_adj)
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +350,8 @@ def _tile_batches(n_graphs=6, seed=0, tile=16):
     jb = jax_batch.batch_graphs(*args, tile=tile, build_tile_adj=True,
                                 impl="python", shape_series=None)
     pb = pt_batch.batch_graphs(*args, tile=tile, build_tile_adj=True)
-    assert pb.tile_adj.n_row_tiles > 1
+    assert pb.tile_adj.n_rows > tile
+    _same_adjacency(T.tile_layout(pb.tile_adj, tile), jb.tile_adj)
     return jb, pb
 
 
