@@ -53,8 +53,10 @@ one:
    ``F.scaled_dot_product_attention`` on the same inputs without the
    all-pad row (forward, and its autograd backward, which computes dq,
    dk and dv together: the two-pass pair's summed time stands beside
-   it). The fused backward is also run twice on the same inputs and
-   compared bit for bit, and the key tiles it skips are counted.
+   it). Each backward kernel is also run twice on the same inputs and
+   compared bit for bit, the padded keys' dk and dv and the all-pad row's
+   gradients must be exactly 0, the key tiles each skips are counted and
+   its device time is read by the profiler.
 12. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
    width and depth (codebert-base, 12 layers, T 512, batch 16, the
    FlowGNN encoder, ``TransformerTrainConfig`` defaults but one epoch:
@@ -69,9 +71,10 @@ one:
    compared.
 14. Phase 13 with a tile graph encoder (``--set
    model.message_impl=tile``): its launches count toward the path.
-15. ``fit_text`` at T 4096 (batch 8, 2 layers, 2 steps): one
-   (batch, head)'s dq no longer fits shared memory, so the backward runs
-   the two-pass pair.
+15. ``fit_text`` at T 4096 (batch 8, 2 layers, 2 steps): the fused
+   backward's dq partials would outgrow their bound, so the backward runs
+   the two-pass pair; then each kernel's device ms a step
+   (``torch.profiler``) and the pair's share of it.
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -1049,6 +1052,21 @@ def phase_attention_kernels() -> dict:
             err_dkv, lambda: attention.flash_bwd_dkv(*args),
             lambda: attention.flash_bwd_dkv_reference(*args), lib_bwd,
             BWD_COVERS)
+        # The backward kernels own every sum (no atomics): a second launch
+        # on the same inputs gives the same bits. A padded key has P = dS
+        # = 0, so its dk and dv are exactly 0 (a key tile with no real key
+        # is skipped and written as zeros), and the all-pad row's
+        # gradients are 0 everywhere.
+        _same_bits(f"flash_bwd_dq_kernel twice@{shape_name}",
+                   [attention.flash_bwd_dq(*args)], [dq])
+        _same_bits(f"flash_bwd_dkv_kernel twice@{shape_name}",
+                   list(attention.flash_bwd_dkv(*args)), [dk, dv])
+        for grad_name, x in (("dk", dk), ("dv", dv)):
+            if bool(x[~mask].any()):
+                raise AssertionError(f"{grad_name}@{shape_name}: a padded "
+                                     "key's gradient is not 0")
+        if bool(dq[-1].any()):
+            raise AssertionError(f"dq@{shape_name}: the all-pad row is not 0")
         recs = {}
         for name, (err, kernel, plain, library, covers) in runs.items():
             kernel_ms = _time_ms(kernel, iters, reps)
@@ -1069,13 +1087,18 @@ def phase_attention_kernels() -> dict:
                 bytes=cost["bytes"],
                 tflops=cost["flops"] / kernel_ms / 1e9,
                 executed_tflops=cost["executed_flops"] / kernel_ms / 1e9)
-            if name == "flash_bwd_fused_kernel":
-                # Its two launches apart: the products, then the dq sum.
+            if name != "flash_fwd_kernel":
+                # Each backward kernel's device ms a launch by the profiler
+                # (the fused kernel's two launches apart: the products, then
+                # the dq sum), over the launches it recorded.
                 split = _device_profile(kernel, iters)["port_kernels"]
                 recs[name].update(
                     bitwise_repeatable=True, key_tiles=b * h * -(-t // 64),
                     key_tiles_skipped=cost["dead_key_tiles"],
-                    device_split_ms={k: v["ms"] for k, v in split.items()})
+                    device_split_ms={k: v["ms"] / v["calls"]
+                                     for k, v in split.items()},
+                    device_split_calls={k: v["calls"] * iters
+                                        for k, v in split.items()})
         # SDPA's backward computes dq, dk and dv together: set the
         # two-pass pair's summed time beside it.
         pair_ms = (recs["flash_bwd_dq_kernel"]["kernel_ms"]
@@ -1306,10 +1329,23 @@ def phase_fit_text_long() -> dict:
         "flash_bwd_dkv_kernel": enc.num_layers * steps})
     if two_pass != enc.num_layers * steps:
         raise AssertionError(f"{two_pass} two-pass dispatches")
+    # Where a long step's device time goes, the two-pass pair's share read
+    # from the profiler.
+    batch = next(text_loop.text_graph_batches(data, splits["train"],
+                                              tcfg.batch_size, **kw))
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    profile = _device_profile(lambda: step(batch, tcfg.learning_rate),
+                              TEXT_PROFILE_STEPS)
+    pair_ms = sum(profile["port_kernels"].get(name, {}).get("ms", 0.0)
+                  for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
     rec = dict(phase="fit_text_long", layers=enc.num_layers, block_size=t,
                batch_size=b, steps=steps, losses=losses, launches=launches,
                two_pass_dispatches=two_pass, fit_wall_s=wall_s,
-               step_s=wall_s / max(steps, 1))
+               step_s=wall_s / max(steps, 1), step_profile=profile,
+               pair_ms_per_step=pair_ms,
+               pair_share_of_device=pair_ms / profile["device_busy_ms"])
     emit(**rec)
     return rec
 

@@ -14,11 +14,11 @@
 //                         (scale Q).
 //
 // The single-pass backward (_flash_bwd_fused_kernel) is
-// flash_bwd_fused_kernel in flash_bwd_fused.cu. The score tile and the
-// tile-gradient step the kernels here share are in flash_tile.cuh. Plain
-// PyTorch versions: flash_fwd_reference, flash_bwd_dq_reference and
-// flash_bwd_dkv_reference in deepdfa_tpu_torch/ops/attention.py. Built
-// by ops/_build.py with
+// flash_bwd_fused_kernel in flash_bwd_fused.cu. The forward's score tile
+// is in flash_tile.cuh; the pair's 3xTF32 products in tf32_mma.cuh, which
+// the fused backward shares. Plain PyTorch versions: flash_fwd_reference,
+// flash_bwd_dq_reference and flash_bwd_dkv_reference in
+// deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with the plain C interface at the bottom of this file.
 //
@@ -26,20 +26,18 @@
 // forward needs at most 4 B H T^2 D = 12.9 GFLOP (fewer with padded
 // keys: only the (query, key) pairs the mask leaves count) against at
 // most 25 MB of compulsory traffic (q, k, v in, o out); the two-pass
-// backward pair 14 B H T^2 D against ~60 MB. At the H100 SXM data-sheet peaks for a 700 W card
-// (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) that is ~190 us
-// of arithmetic against ~8 us of bytes for the forward: every kernel is
-// bound by f32 operations (ops/attention.py:kernel_cost counts them on
-// the call's mask; chip_smoke.py prints the bound beside the measured
-// time). The kernels compute whole 64 x 64 tiles, padded keys included,
-// so they do more operations than the bound counts. f32 is held to the
-// reference's f32 semantics, so TF32 tensor cores are out: every
-// product is an f32 FMA.
+// backward pair 14 B H T^2 D against ~60 MB. Every kernel is bound by
+// f32 operations (ops/attention.py:kernel_cost counts them on the call's
+// mask; chip_smoke.py prints the bound beside the measured time): the
+// forward's FMAs run on the CUDA cores (67 TFLOP/s at the H100 SXM
+// data-sheet peak for a 700 W card), the pair's products as 3xTF32 on the
+// tensor cores (f32 work at a third of 495 TFLOP/s).
 //
-// Design.
+// Forward design.
 // * Tiles of 64 queries by 64 keys; 256 threads a block, each owning a
 //   4 x 4 piece of a score tile and a 4 x D/16 piece of a [64, D] tile,
-//   so every FMA reads two operands from shared memory for four.
+//   so every FMA reads two operands from shared memory for four. It
+//   computes whole tiles, padded keys included.
 // * A TPU grid is sequential and carries (acc, m, l) across its kv steps
 //   in scratch; here the kv walk is a loop inside the block, and m, l and
 //   O stay in registers. A query row's 16 threads are one half-warp, so
@@ -50,17 +48,43 @@
 // * The ragged edge (T not a multiple of 64) is masked by index in the
 //   kernels, so every length runs here; the reference's blockwise
 //   fallback for lengths it cannot tile has no counterpart.
-// * Backward: where the fused kernel's dq partials grow too large
-//   (flash_fused_bwd_ok in ops/attention.py: T 4096 at D 64) the pair of
-//   two-pass kernels runs, each with one block per (batch, head, tile).
-//   Every output element has one owner thread and a fixed summation
-//   order: no atomics, deterministic.
 // * Causal: key tiles wholly above a query tile's diagonal are skipped;
 //   their scores would all be masked.
+//
+// Two-pass backward design. Where the fused kernel's dq partials grow too
+// large (flash_fused_bwd_ok in ops/attention.py: T 4096 at D 64) the pair
+// runs: flash_bwd_dq_kernel with one block per (batch, head, 128 query
+// rows) walking the key tiles, flash_bwd_dkv_kernel with one block per
+// (batch, head, 128 keys) walking the query tiles.
+// * 8 warps a block, each owning 16 of its 128 rows for the whole walk:
+//   the warp computes its 16 x 64 piece of S and dP (dq kernel) or of S^T
+//   and dP^T (dk/dv kernel), so P and dS stay in its registers and feed
+//   the next products as mma A fragments (frag_acc): no shared-memory
+//   round trip, no barrier between the products.
+// * Every product is 3xTF32 mma.sync (tf32_mma.cuh). Each operand is
+//   split into hi and lo once: the resident one (scale Q and dO; K and V)
+//   once a block, into the A-fragment order its warp reads with one
+//   128-bit load a part; each streamed tile once a load, in place. Both
+//   parts of everything take 225 KB of shared memory, one block an SM.
+// * The streamed tiles (K and V; Q, dO, lse and delta) are double
+//   buffered with cp.async: the next tile's copies overlap this one's
+//   split and products. Streamed tiles are XOR-swizzled by row (swz), so
+//   the B-fragment reads of both orientations hit 32 banks.
+// * Dead key tiles are skipped with no approximation: a key tile with no
+//   real key has P = dS = 0. The dq kernel marks the live tiles of its
+//   walk from the mask (one bit each) and neither loads nor multiplies the
+//   others; in the dk/dv kernel the warps of a dead 64-key tile skip their
+//   products and write zeros, and a block with no real key returns at
+//   once. Each tile is tested on the mask: padding need not be a tail.
+// * Causal: tiles wholly across the diagonal are skipped (64-row tiles,
+//   by warps); rows past T are masked by index.
+// * Every output element has one owner thread and a fixed summation
+//   order: no atomics, so two launches give the same bits.
 
 #include <cuda_runtime.h>
 
 #include "flash_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace flash {
 
@@ -154,120 +178,475 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
+size_t fwd_smem() {
+  return sizeof(float) * (3 * 64 * (D + 1) + BQ * PS) + sizeof(int) * BK;
+}
+
+// ---------------------------------------------------------------------------
+// The two-pass backward pair: products on the tensor cores (3xTF32).
+// ---------------------------------------------------------------------------
+
+using tf32x3::mma3;
+using tf32x3::split;
+
+constexpr int PW = 8;         // warps a block of the pair
+constexpr int PNT = 32 * PW;  // threads a block of the pair
+constexpr int PR = 16 * PW;   // resident rows a block: 16 a warp
+constexpr int PT = 64;        // rows of a streamed tile
+constexpr int RES = PR * D;   // floats of a resident operand's hi or lo part
+constexpr int TILE = PT * D;  // floats of one streamed tile
+static_assert(PNT == NT, "launch() starts NT threads");
+
+// Element (r, c) of a streamed [64, 64] tile in shared memory: each row's
+// 4-column groups XOR'd by r mod 8, so that both fragment reads (frag_bt:
+// 8 rows x 4 columns; frag_bp: 4 even or 4 odd rows x 8 columns) hit 32
+// different banks.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + (c ^ ((r & 7) << 2));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows row0 .. row0 + PR - 1 of one (batch, head) slice (row_stride floats
+// apart), times scale, split once into TF32 hi and lo parts, each stored in
+// the order warp r / 16 reads them as mma A fragments: float4 (w * 8 + kc)
+// * 32 + lane holds a0..a3 of contraction chunk kc. Rows at or past n_rows
+// are zero.
+__device__ void load_resident(float* hi, float* lo,
+                              const float* __restrict__ src, int row0,
+                              int n_rows, long row_stride, float scale) {
+  for (int e = threadIdx.x; e < PR * D / 4; e += PNT) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n_rows)
+      x = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * row_stride
+                                           + c);
+    const float xs[4] = {x.x * scale, x.y * scale, x.z * scale, x.w * scale};
+    // (r, c + u): warp r / 16, chunk c / 8, lane 4 (r % 8) + u, slot
+    // (r / 8) % 2 + 2 ((c / 4) % 2).
+    const int base = (((r >> 4) * 8 + (c >> 3)) * 32 + (r & 7) * 4) * 4
+                     + ((r >> 3) & 1) + 2 * ((c >> 2) & 1);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t h, l;
+      split(xs[u], h, l);
+      hi[base + 4 * u] = __uint_as_float(h);
+      lo[base + 4 * u] = __uint_as_float(l);
+    }
+  }
+}
+
+// Rows row0 .. row0 + 63 of one (batch, head) slice into a swizzled tile by
+// cp.async (not waited for); rows at or past n_rows are zero-filled.
+__device__ __forceinline__ void issue_tile(float* dst,
+                                           const float* __restrict__ src,
+                                           int row0, int n_rows,
+                                           long row_stride) {
+  for (int e = threadIdx.x; e < TILE / 4; e += PNT) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + swz(r, c), src + (long)(in ? row0 + r : 0) * row_stride
+                                    + c, in);
+  }
+}
+
+// A landed tile, times scale, split once: the hi part in place, the lo part
+// beside it (the same swizzled positions).
+__device__ __forceinline__ void split_tile(float* tile, float* lo,
+                                           float scale) {
+  for (int e = threadIdx.x; e < TILE / 4; e += PNT) {
+    float4 x = reinterpret_cast<float4*>(tile)[e];
+    uint32_t h[4], l[4];
+    split(x.x * scale, h[0], l[0]);
+    split(x.y * scale, h[1], l[1]);
+    split(x.z * scale, h[2], l[2]);
+    split(x.w * scale, h[3], l[3]);
+    reinterpret_cast<float4*>(tile)[e] =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    reinterpret_cast<float4*>(lo)[e] =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// Chunk kc of this warp's resident A operand (one part).
+__device__ __forceinline__ void frag_a(uint32_t a[4], const float* part,
+                                       int kc) {
+  const float4 x = reinterpret_cast<const float4*>(
+      part)[((threadIdx.x >> 5) * 8 + kc) * 32 + (threadIdx.x & 31)];
+  a[0] = __float_as_uint(x.x);
+  a[1] = __float_as_uint(x.y);
+  a[2] = __float_as_uint(x.z);
+  a[3] = __float_as_uint(x.w);
+}
+
+// B(k, n) = T[n][k] of a split tile, k in chunk kc, n in column tile j.
+__device__ __forceinline__ void frag_bt(uint32_t hi[2], uint32_t lo[2],
+                                        const float* thi, const float* tlo,
+                                        int kc, int j) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int x = swz(8 * j + g, 8 * kc + t + 4 * i);
+    hi[i] = __float_as_uint(thi[x]);
+    lo[i] = __float_as_uint(tlo[x]);
+  }
+}
+
+// B(k, n) = T[k][n] of a split tile, k in chunk kc with its slots permuted
+// as frag_acc leaves them: slot t is row 8 kc + 2 t, slot t + 4 row
+// 8 kc + 2 t + 1.
+__device__ __forceinline__ void frag_bp(uint32_t hi[2], uint32_t lo[2],
+                                        const float* thi, const float* tlo,
+                                        int kc, int j) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int x = swz(8 * kc + 2 * t + i, 8 * j + g);
+    hi[i] = __float_as_uint(thi[x]);
+    lo[i] = __float_as_uint(tlo[x]);
+  }
+}
+
+// Chunk kc of an A operand straight from this warp's accumulator tile
+// (c = its column tile kc), split: columns 2 t and 2 t + 1 of rows g and
+// g + 8 become slots t and t + 4, the order frag_bp reads B's rows in. P and
+// dS never leave the registers.
+__device__ __forceinline__ void frag_acc(uint32_t hi[4], uint32_t lo[4],
+                                         const float c[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// acc += A B^T over this warp's 16 rows: A [16, 64] from a resident operand,
+// B [64, 64] a split streamed tile, contracted over D.
+__device__ __forceinline__ void mma_resident(float acc[8][4], const float* ahi,
+                                             const float* alo,
+                                             const float* thi,
+                                             const float* tlo) {
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    uint32_t a_hi[4], a_lo[4];
+    frag_a(a_hi, ahi, kc);
+    frag_a(a_lo, alo, kc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t b_hi[2], b_lo[2];
+      frag_bt(b_hi, b_lo, thi, tlo, kc, j);
+      mma3(acc[j], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// acc += A T over this warp's 16 rows: A [16, 64] the warp's accumulator
+// tile (P or dS), T [64, D] a split streamed tile, contracted over its rows.
+__device__ __forceinline__ void mma_registers(float acc[8][4],
+                                              const float a[8][4],
+                                              const float* thi,
+                                              const float* tlo) {
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    uint32_t a_hi[4], a_lo[4];
+    frag_acc(a_hi, a_lo, a[kc]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      uint32_t b_hi[2], b_lo[2];
+      frag_bp(b_hi, b_lo, thi, tlo, kc, j);
+      mma3(acc[j], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// Write this warp's [16, D] accumulator (rows row0 + 16 warp + g, + 8) to a
+// [T, H, D] slice, times scale, rows < n_rows only.
+__device__ __forceinline__ void store_rows(float* dst, const float acc[8][4],
+                                           int row0, int n_rows,
+                                           long row_stride, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + 16 * (threadIdx.x >> 5) + g + 8 * half;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + (long)r * row_stride + 8 * j + 2 * t) =
+          make_float2(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+  }
+}
+
+__device__ __forceinline__ void zero(float acc[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+}
+
+// Shared memory of flash_bwd_dq_kernel: scale Q and dO split (4 resident
+// parts), K and V in two stages, their lo parts, a stage's key bits, and
+// one bit a key tile of the walk.
+size_t dq_smem(int tk) {
+  const int nk = (tk + PT - 1) / PT;
+  return sizeof(float) * (4 * RES + 6 * TILE)
+         + sizeof(unsigned) * (4 + (nk + 31) / 32);
+}
+
+// Shared memory of flash_bwd_dkv_kernel: K and V split (4 resident parts),
+// Q and dO in two stages, their lo parts, a stage's lse and delta.
+constexpr size_t kDkvSmem = sizeof(float) * (4 * RES + 6 * TILE + 4 * PT);
+
+__global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const unsigned char* __restrict__ mask,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int H, int tq,
     int tk, int causal, float scale) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + 64 * (D + 1);
-  float* Ks = dOs + 64 * (D + 1);
-  float* Vs = Ks + 64 * (D + 1);
-  float* dSs = Vs + 64 * (D + 1);
-  float* lse_s = dSs + BQ * PS;
-  float* delta_s = lse_s + BQ;
-  int* kvalid = reinterpret_cast<int*>(delta_s + BQ);
+  extern __shared__ float4 smem_dq[];
+  float* Qhi = reinterpret_cast<float*>(smem_dq);
+  float* Qlo = Qhi + RES;
+  float* Ohi = Qlo + RES;
+  float* Olo = Ohi + RES;
+  float* Ks = Olo + RES;  // [2][TILE]: a stage's tile, its hi part once split
+  float* Vs = Ks + 2 * TILE;
+  float* Klo = Vs + 2 * TILE;
+  float* Vlo = Klo + TILE;
+  unsigned* kbits = reinterpret_cast<unsigned*>(Vlo + TILE);  // [2][2]
+  unsigned* live = kbits + 4;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * PR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const long rs = (long)H * D;
   const long qoff = ((long)b * tq * H + h) * D;
   const long koff = ((long)b * tk * H + h) * D;
+  const unsigned char* mrow = mask + (long)b * tk;
+  int kend = (tk + PT - 1) / PT;
+  // Causal: key tiles wholly above the block's last query row see nothing.
+  if (causal) kend = min(kend, (q0 + PR - 1) / PT + 1);
 
-  load_tile<D>(Qs, q + qoff, q0, tq, rs, scale);
-  load_tile<D>(dOs, dout + qoff, q0, tq, rs, 1.f);
-  load_rowvec(lse_s, lse + (long)bh * tq, q0, tq);
-  load_rowvec(delta_s, delta + (long)bh * tq, q0, tq);
-  float dq_acc[4][DJ];
+  // Which key tiles of the walk hold a real key, one bit each: a thread
+  // reads 16 keys, a warp 8 tiles.
+  const int kmax = min(tk, kend * PT);
+  for (int i = tid; i < (kend + 31) / 32; i += PNT) live[i] = 0;
+  __syncthreads();
+  for (int base = 0; base < kmax; base += PNT * 16) {
+    const int c0 = base + tid * 16;
+    bool any = false;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int u = 0; u < 16; ++u) any |= c0 + u < kmax && mrow[c0 + u];
+    const unsigned vote = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) {
+      unsigned bits = 0;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
-  int nk = (tk + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(Ks, k + koff, k0, tk, rs, 1.f);
-    load_tile<D>(Vs, v + koff, k0, tk, rs, 1.f);
-    load_key_valid(kvalid, mask + (long)b * tk, k0, tk);
-    __syncthreads();
-    float s[4][4];
-    tile_scores<D>(Qs, Ks, kvalid, q0, k0, causal != 0, s);
-    tile_grads<D, false>(s, dOs, Vs, lse_s, delta_s, q0, tq, nullptr, dSs);
-    __syncwarp();  // a row's dS comes from its own half-warp
-    acc_nn<D>(dq_acc, dSs, Ks);
+      for (int i = 0; i < 8; ++i)
+        if ((vote >> (4 * i)) & 0xfu) bits |= 1u << i;
+      const int tile0 = base / PT + 8 * warp;
+      if (bits) atomicOr(&live[tile0 >> 5], bits << (tile0 & 31));
+    }
   }
-  store_tile<D>(dq + qoff, dq_acc, q0, tq, rs, scale);
+  __syncthreads();
+  // The first live key tile at or after kt (kend if none): dead ones are
+  // skipped, neither loaded nor multiplied.
+  auto next_live = [&](int kt) {
+    while (kt < kend && !((live[kt >> 5] >> (kt & 31)) & 1u)) ++kt;
+    return kt;
+  };
+  // Start the copies of key tile kt into stage st; warps 0 and 1 vote its
+  // real keys into kbits[st].
+  auto issue = [&](int kt, int st) {
+    issue_tile(Ks + st * TILE, k + koff, kt * PT, tk, rs);
+    issue_tile(Vs + st * TILE, v + koff, kt * PT, tk, rs);
+    if (warp < 2) {
+      const int key = kt * PT + tid;
+      const unsigned vote = __ballot_sync(0xffffffffu,
+                                          key < tk && mrow[key]);
+      if (lane == 0) kbits[2 * st + warp] = vote;
+    }
+  };
+
+  int kt = next_live(0);
+  if (kt < kend) issue(kt, 0);
+  cp_async_commit();
+  // Resident for the whole walk, split once: scale Q (S) and dO (dP).
+  load_resident(Qhi, Qlo, q + qoff, q0, tq, rs, scale);
+  load_resident(Ohi, Olo, dout + qoff, q0, tq, rs, 1.f);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + 16 * warp + g + 8 * half;
+    lse_r[half] = r < tq ? lse[(long)bh * tq + r] : 0.f;
+    delta_r[half] = r < tq ? delta[(long)bh * tq + r] : 0.f;
+  }
+  // This warp's 64-row query tile: past tq, it has nothing to compute.
+  const int qtile0 = q0 + 64 * (warp >> 2);
+  float dq_acc[8][4];
+  zero(dq_acc);
+  for (int s = 0; kt < kend; ++s) {
+    const int st = s & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage st landed; stage st ^ 1 and the lo parts free
+    const int kn = next_live(kt + 1);
+    if (kn < kend) issue(kn, st ^ 1);  // overlaps this tile's products
+    cp_async_commit();
+    const float* Khi = Ks + st * TILE;
+    const float* Vhi = Vs + st * TILE;
+    split_tile(Ks + st * TILE, Klo, 1.f);
+    split_tile(Vs + st * TILE, Vlo, 1.f);
+    __syncthreads();
+    const int k0 = kt * PT;
+    // Causal: a query tile wholly before the key tile sees none of it.
+    if (qtile0 < tq && (!causal || k0 <= qtile0 + PT - 1)) {
+      float s_acc[8][4], dp[8][4];
+      zero(s_acc);
+      zero(dp);
+      mma_resident(s_acc, Qhi, Qlo, Khi, Klo);  // S = (scale Q) K^T
+      mma_resident(dp, Ohi, Olo, Vhi, Vlo);     // dP = dO V^T
+      const unsigned kb0 = kbits[2 * st], kb1 = kbits[2 * st + 1];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + 16 * warp + g + 8 * (i >> 1);
+          const int c = 8 * j + 2 * t + (i & 1);
+          const bool real = ((j < 4 ? kb0 >> c : kb1 >> (c - 32)) & 1u);
+          const bool keep = r < tq && real && (!causal || r >= k0 + c);
+          const float p = keep ? expf(s_acc[j][i] - lse_r[i >> 1]) : 0.f;
+          s_acc[j][i] = p * (dp[j][i] - delta_r[i >> 1]);  // dS
+        }
+      mma_registers(dq_acc, s_acc, Khi, Klo);  // dq += dS K
+    }
+    kt = kn;
+  }
+  store_rows(dq + qoff, dq_acc, q0, tq, rs, scale);
 }
 
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const unsigned char* __restrict__ mask,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int H, int tq, int tk, int causal, float scale) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + 64 * (D + 1);
-  float* Ks = dOs + 64 * (D + 1);
-  float* Vs = Ks + 64 * (D + 1);
-  float* Ps = Vs + 64 * (D + 1);
-  float* dSs = Ps + BQ * PS;
-  float* lse_s = dSs + BQ * PS;
-  float* delta_s = lse_s + BQ;
-  int* kvalid = reinterpret_cast<int*>(delta_s + BQ);
+  extern __shared__ float4 smem_dkv[];
+  float* Khi = reinterpret_cast<float*>(smem_dkv);
+  float* Klo = Khi + RES;
+  float* Vhi = Klo + RES;
+  float* Vlo = Vhi + RES;
+  float* Qs = Vlo + RES;  // [2][TILE]: a stage's tile, its hi part once split
+  float* Os = Qs + 2 * TILE;
+  float* Qlo = Os + 2 * TILE;
+  float* Olo = Qlo + TILE;
+  float* rowv = Olo + TILE;  // [2][2][PT]: a stage's lse, then delta
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * PR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const long rs = (long)H * D;
   const long qoff = ((long)b * tq * H + h) * D;
   const long koff = ((long)b * tk * H + h) * D;
+  const unsigned char* mrow = mask + (long)b * tk;
 
-  load_tile<D>(Ks, k + koff, k0, tk, rs, 1.f);
-  load_tile<D>(Vs, v + koff, k0, tk, rs, 1.f);
-  load_key_valid(kvalid, mask + (long)b * tk, k0, tk);
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  const int nq = (tq + BQ - 1) / BQ;
-  for (int qt = causal ? k0 / BQ : 0; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<D>(Qs, q + qoff, q0, tq, rs, scale);
-    load_tile<D>(dOs, dout + qoff, q0, tq, rs, 1.f);
-    load_rowvec(lse_s, lse + (long)bh * tq, q0, tq);
-    load_rowvec(delta_s, delta + (long)bh * tq, q0, tq);
-    __syncthreads();
-    float s[4][4];
-    tile_scores<D>(Qs, Ks, kvalid, q0, k0, causal != 0, s);
-    tile_grads<D, true>(s, dOs, Vs, lse_s, delta_s, q0, tq, Ps, dSs);
-    __syncthreads();
-    acc_tn<D>(dv_acc, Ps, dOs);
-    acc_tn<D>(dk_acc, dSs, Qs);  // no extra scale: Qs is pre-scaled
+  // This warp's 64-key tile (warps 0-3 the block's first, 4-7 its second)
+  // and whether it holds a real key; this thread's keys (rows g, g + 8).
+  const int ktile0 = k0 + PT * (warp >> 2);
+  const int key = ktile0 + lane;
+  const bool tile_live =
+      __any_sync(0xffffffffu, (key < tk && mrow[key]) ||
+                                  (key + 32 < tk && mrow[key + 32]));
+  const int kr = k0 + 16 * warp + g;
+  const bool real[2] = {kr < tk && mrow[kr], kr + 8 < tk && mrow[kr + 8]};
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (!__syncthreads_or(tile_live)) {
+    // No real key: P = dS = 0, so dk = dv = 0; nothing is loaded.
+    store_rows(dk + koff, dk_acc, k0, tk, rs, 1.f);
+    store_rows(dv + koff, dv_acc, k0, tk, rs, 1.f);
+    return;
   }
-  store_tile<D>(dk + koff, dk_acc, k0, tk, rs, 1.f);
-  store_tile<D>(dv + koff, dv_acc, k0, tk, rs, 1.f);
-}
+  // Start the copies of query tile qt (Q, dO, lse, delta) into stage st.
+  auto issue = [&](int qt, int st) {
+    issue_tile(Qs + st * TILE, q + qoff, qt * PT, tq, rs);
+    issue_tile(Os + st * TILE, dout + qoff, qt * PT, tq, rs);
+    for (int i = tid; i < 2 * PT; i += PNT) {
+      const int r = qt * PT + i % PT;
+      const float* src = (i < PT ? lse : delta) + (long)bh * tq;
+      cp_async4(rowv + 2 * PT * st + i, src + (r < tq ? r : 0), r < tq);
+    }
+  };
 
-size_t fwd_smem() {
-  return sizeof(float) * (3 * 64 * (D + 1) + BQ * PS) + sizeof(int) * BK;
-}
-
-size_t dq_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * PS + 2 * BQ)
-         + sizeof(int) * BK;
-}
-
-size_t dkv_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * PS + 2 * BQ)
-         + sizeof(int) * BK;
+  const int nq = (tq + PT - 1) / PT;
+  // Causal: query tiles wholly before the block's first key see none of it.
+  int qt = causal ? min(nq, k0 / PT) : 0;
+  if (qt < nq) issue(qt, 0);
+  cp_async_commit();
+  // Resident for the whole walk, split once: K (S^T) and V (dP^T).
+  load_resident(Khi, Klo, k + koff, k0, tk, rs, 1.f);
+  load_resident(Vhi, Vlo, v + koff, k0, tk, rs, 1.f);
+  for (int s = 0; qt < nq; ++s, ++qt) {
+    const int st = s & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage st landed; stage st ^ 1 and the lo parts free
+    if (qt + 1 < nq) issue(qt + 1, st ^ 1);  // overlaps this tile's products
+    cp_async_commit();
+    const float* Qhi = Qs + st * TILE;
+    const float* Ohi = Os + st * TILE;
+    split_tile(Qs + st * TILE, Qlo, scale);  // scale Q: S and dK
+    split_tile(Os + st * TILE, Olo, 1.f);
+    __syncthreads();
+    const int q0 = qt * PT;
+    // A dead key tile, or (causal) a query tile wholly before it: skipped.
+    if (tile_live && (!causal || q0 + PT - 1 >= ktile0)) {
+      float s_acc[8][4], dp[8][4];
+      zero(s_acc);
+      zero(dp);
+      mma_resident(s_acc, Khi, Klo, Qhi, Qlo);  // S^T = K (scale Q)^T
+      mma_resident(dp, Vhi, Vlo, Ohi, Olo);     // dP^T = V dO^T
+      const float* lse_s = rowv + 2 * PT * st;
+      const float* delta_s = lse_s + PT;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = kr + 8 * (i >> 1);  // key
+          const int c = 8 * j + 2 * t + (i & 1);  // query q0 + c
+          const bool keep = real[i >> 1] && q0 + c < tq &&
+                            (!causal || q0 + c >= r);
+          const float p = keep ? expf(s_acc[j][i] - lse_s[c]) : 0.f;
+          s_acc[j][i] = p;                             // P^T
+          dp[j][i] = p * (dp[j][i] - delta_s[c]);      // dS^T
+        }
+      mma_registers(dv_acc, s_acc, Ohi, Olo);  // dV += P^T dO
+      mma_registers(dk_acc, dp, Qhi, Qlo);     // dK += dS^T (scale Q)
+    }
+  }
+  store_rows(dk + koff, dk_acc, k0, tk, rs, 1.f);
+  store_rows(dv + koff, dv_acc, k0, tk, rs, 1.f);
 }
 
 // Opt the kernel into ``bytes`` of dynamic shared memory (above 48 KB
@@ -294,8 +673,8 @@ int bwd_dq(const float* q, const float* k, const float* v,
            const unsigned char* mask, const float* dout, const float* lse,
            const float* delta, float* dq, int B, int H, int tq, int tk,
            int causal, float scale, cudaStream_t stream) {
-  dim3 grid((tq + BQ - 1) / BQ, B * H);
-  return launch(flash_bwd_dq_kernel, grid, dq_smem(), stream, q, k, v,
+  dim3 grid((tq + PR - 1) / PR, B * H);
+  return launch(flash_bwd_dq_kernel, grid, dq_smem(tk), stream, q, k, v,
                 mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
 }
 
@@ -303,8 +682,8 @@ int bwd_dkv(const float* q, const float* k, const float* v,
             const unsigned char* mask, const float* dout, const float* lse,
             const float* delta, float* dk, float* dv, int B, int H, int tq,
             int tk, int causal, float scale, cudaStream_t stream) {
-  dim3 grid((tk + BK - 1) / BK, B * H);
-  return launch(flash_bwd_dkv_kernel, grid, dkv_smem(), stream, q, k,
+  dim3 grid((tk + PR - 1) / PR, B * H);
+  return launch(flash_bwd_dkv_kernel, grid, kDkvSmem, stream, q, k,
                 v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal, scale);
 }
 

@@ -42,12 +42,9 @@
 // * A key tile with no real key has P = dS = 0: its block writes zero dk
 //   and dv and no partials, and the sum skips it (the same test on the
 //   same mask). This is the same function, with no approximation.
-// * The five products are mma.sync.m16n8k8 TF32 with each f32 operand
-//   split as hi = tf32(x), lo = tf32(x - hi) and hi*hi + hi*lo + lo*hi
-//   accumulated in f32 (CUTLASS's OpMultiplyAddFastF32, the scheme of
-//   PyTorch's own f32 memory-efficient attention): f32 accuracy, as the
-//   reference runs f32 at Precision.HIGHEST. Single-pass TF32 is never
-//   used.
+// * The five products are 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh, shared
+//   with the two-pass pair): f32 accuracy, as the reference runs f32 at
+//   Precision.HIGHEST. Single-pass TF32 is never used.
 // * 8 warps a block; each product's [64, 64] output is 4 x 2 warp tiles
 //   of 16 x 32. Operands come from shared memory, where every [64, 64]
 //   tile is stored with its 4-column groups XOR-swizzled by row, so the
@@ -61,79 +58,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace flash_bwd {
 
-constexpr int D = 64;    // head width (ops/attention.py:KERNEL_HEAD_DIM)
-constexpr int TB = 64;   // query and key tile rows
+using tf32x3::D;  // head width (ops/attention.py:KERNEL_HEAD_DIM)
+using tf32x3::sw;
+using tf32x3::warp_mma;
+
+constexpr int TB = 64;  // query and key tile rows
 constexpr int NT = 256;  // threads a block: 8 warps
 constexpr int TILE_FLOATS = TB * D;  // one swizzled [64, 64] tile
 constexpr float NEG_INF = -1e30f;    // the reference's NEG_INF
-
-// Element (r, c) of a [64, 64] tile in shared memory: each row's 4-column
-// groups permuted by an XOR of the row. Fragment loads read 8 rows x 4
-// columns (row-major operands) or 4 rows x 8 columns (transposed ones);
-// sigma spreads both over 32 banks.
-__device__ __forceinline__ int sw(int r, int c) {
-  const int x = r & 7;
-  const int sigma = ((x << 1) | (x >> 2)) & 7;
-  return r * D + (c ^ (sigma << 2));
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r & 0xffffe000u;
-}
-
-// x = hi + lo to about 2^-22 relative, each part a TF32 value.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += A B for this warp's 16 x 32 piece of a [64, 64] product with a
-// contraction of 64: rows m0.., columns n0.. (4 tiles of 8). A(m, k) and
-// B(k, n) read swizzled tiles, each either as stored (row index first) or
-// transposed (kAT / kBT). acc[j] is the mma accumulator of column tile j:
-// (row m0 + g, columns n0 + 8 j + 2 t, +1) and (row m0 + g + 8, the same).
-template <bool kAT, bool kBT>
-__device__ __forceinline__ void warp_mma(float acc[4][4], const float* A,
-                                         const float* B, int m0, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k0 = 0; k0 < 64; k0 += 8) {
-    const int ra[4][2] = {{m0 + g, k0 + t}, {m0 + g + 8, k0 + t},
-                          {m0 + g, k0 + t + 4}, {m0 + g + 8, k0 + t + 4}};
-    uint32_t ahi[4], alo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ra[i][0], k = ra[i][1];
-      split(kAT ? A[sw(k, m)] : A[sw(m, k)], ahi[i], alo[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 8 * j + g;
-      uint32_t bhi[2], blo[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int k = k0 + t + 4 * i;
-        split(kBT ? B[sw(n, k)] : B[sw(k, n)], bhi[i], blo[i]);
-      }
-      // The small terms first, then the large one (CUTLASS's order).
-      mma(acc[j], alo, bhi);
-      mma(acc[j], ahi, blo);
-      mma(acc[j], ahi, bhi);
-    }
-  }
-}
 
 __device__ __forceinline__ void zero(float acc[4][4]) {
 #pragma unroll

@@ -1,8 +1,6 @@
-// Tile math shared by the flash-attention kernels of flash_attn.cu: the
-// score tile every kernel rebuilds and the tile-gradient step of the
-// backward, so that the forward and the two-pass backward kernels can
-// never drift apart (the counterpart of _tile_scores/_tile_grads in
-// deepdfa_tpu/ops/attention.py:181-217).
+// Tile math of the flash-attention forward (flash_fwd_kernel in
+// flash_attn.cu): the score tile and the P V product (the counterpart of
+// _tile_scores in deepdfa_tpu/ops/attention.py:181).
 //
 // Layout. A block of NT = 256 threads works on 64-row query tiles and
 // 64-row key tiles of one (batch, head). Thread t = 16 * ty + tx owns
@@ -67,15 +65,6 @@ __device__ void load_tile(float* dst, const float* __restrict__ src, int row0,
   }
 }
 
-// 64 entries of a per-row vector (lse, delta), zero past n.
-__device__ __forceinline__ void load_rowvec(float* dst,
-                                            const float* __restrict__ src,
-                                            int row0, int n) {
-  if (threadIdx.x < 64)
-    dst[threadIdx.x] = row0 + (int)threadIdx.x < n ? src[row0 + threadIdx.x]
-                                                   : 0.f;
-}
-
 // Which of the key tile's 64 rows are real tokens: in range and set in
 // the [Tk] padding mask of this batch row.
 __device__ __forceinline__ void load_key_valid(int* dst,
@@ -121,73 +110,8 @@ __device__ __forceinline__ void tile_scores(const float* Qs, const float* Ks,
     }
 }
 
-// The backward's tile step: P = exp(s - lse) rebuilt from the saved row
-// logsumexp, dP = dO V^T, dS = P (dP - delta). Stores dS (and P when
-// kStoreP) as [BQ, BK] tiles for the products. Query rows at or past tq
-// (the ragged edge) get P = dS = 0.
-template <int D, bool kStoreP>
-__device__ __forceinline__ void tile_grads(const float s[4][4],
-                                           const float* dOs, const float* Vs,
-                                           const float* lse_s,
-                                           const float* delta_s, int q0,
-                                           int tq, float* Ps, float* dSs) {
-  const int ty = tid_y(), tx = tid_x();
-  float dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], b[j], dp[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const bool live = q0 + r < tq;
-    const float lse = lse_s[r], delta = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float p = live ? expf(s[i][j] - lse) : 0.f;
-      if (kStoreP) Ps[r * PS + c] = p;
-      dSs[r * PS + c] = p * (dp[i][j] - delta);
-    }
-  }
-}
-
-// acc[a][b] += sum_r A[r][ty + 16 a] * B[r][tx + 16 b]: A^T B over the 64
-// rows of a [BQ, BK] tile A and a [BQ, D] tile B (dV += P^T dO,
-// dK += dS^T (scale Q)).
-template <int D>
-__device__ __forceinline__ void acc_tn(float acc[4][D / 16], const float* A,
-                                       const float* B) {
-  const int ty = tid_y(), tx = tid_x();
-#pragma unroll 4
-  for (int r = 0; r < 64; ++r) {
-    float a[4], b[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[r * PS + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) b[j] = B[r * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
 // acc[a][b] += sum_c A[ty + 16 a][c] * B[c][tx + 16 b]: A B over the 64
-// columns of a [BQ, BK] tile A and the rows of a [BK, D] tile B
-// (O += P V, dQ += dS K).
+// columns of a [BQ, BK] tile A and the rows of a [BK, D] tile B (O += P V).
 template <int D>
 __device__ __forceinline__ void acc_nn(float acc[4][D / 16], const float* A,
                                        const float* B) {
@@ -203,23 +127,6 @@ __device__ __forceinline__ void acc_nn(float acc[4][D / 16], const float* A,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Write a [64, D] register tile (rows ty + 16 i, columns tx + 16 j) to
-// rows row0.. of a [T, H, D] slice, times ``scale``, rows < n_rows only.
-template <int D>
-__device__ __forceinline__ void store_tile(float* dst, const float acc[4][D / 16],
-                                           int row0, int n_rows,
-                                           long row_stride, float scale) {
-  const int ty = tid_y(), tx = tid_x();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      dst[(long)r * row_stride + tx + 16 * j] = acc[i][j] * scale;
   }
 }
 

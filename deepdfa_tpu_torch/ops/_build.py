@@ -38,8 +38,9 @@ SOURCES: Dict[str, str] = {
 HEADERS: Dict[str, Tuple[str, ...]] = {
     "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),),
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),),
-    "flash_attn": (os.path.join("csrc", "flash_tile.cuh"),),
-    "flash_bwd_fused": (),
+    "flash_attn": (os.path.join("csrc", "flash_tile.cuh"),
+                   os.path.join("csrc", "tf32_mma.cuh")),
+    "flash_bwd_fused": (os.path.join("csrc", "tf32_mma.cuh"),),
     "tile_spmm": (),
 }
 

@@ -25,10 +25,11 @@ and how they are laid out), each with its plain PyTorch version here:
   ``_flash_bwd_fused_kernel``. Plain version
   :func:`flash_bwd_fused_reference`.
 - :func:`flash_bwd_dq` launches ``flash_bwd_dq_kernel`` and
-  :func:`flash_bwd_dkv` ``flash_bwd_dkv_kernel``, the two-pass backward;
-  they replace ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
-  Plain versions :func:`flash_bwd_dq_reference`,
-  :func:`flash_bwd_dkv_reference`.
+  :func:`flash_bwd_dkv` ``flash_bwd_dkv_kernel``, the two-pass backward
+  (the products as 3xTF32 on the tensor cores, the key tiles with no real
+  key skipped); they replace ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``. Plain versions
+  :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`.
 
 :func:`flash_attention` differentiates through :class:`_FlashAttention`,
 which saves ``q, k, v, mask, o, lse`` as the reference's ``_flash_fwd``
@@ -603,13 +604,12 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
       its gradients for every row.
     - ``executed_flops``: the operations the kernel does, whole 64 x 64
       tiles and masked scores included. Every kernel skips the causal
-      tiles wholly above the diagonal; ``flash_bwd_fused_kernel`` also
-      the key tiles with no real key (``dead_key_tiles``, counted over
-      batch rows and heads).
+      tiles wholly above the diagonal; the backward kernels also the key
+      tiles with no real key (``dead_key_tiles``, counted over batch rows
+      and heads).
     - ``peak_flops``/``peak``: the rate the operations bound divides by:
-      the f32 work of the 3xTF32 products on the tensor cores for
-      ``flash_bwd_fused_kernel``, f32 FMAs on the CUDA cores for the
-      others."""
+      the f32 work of the 3xTF32 products on the tensor cores for the
+      backward kernels, f32 FMAs on the CUDA cores for the forward."""
     if kernel not in _PRODUCTS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
     mask = kv_mask.detach().to("cpu", torch.bool)
@@ -634,12 +634,12 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     padded = torch.zeros(b, nk * TILE, dtype=torch.bool)
     padded[:, :tk] = mask
     live_tiles = padded.reshape(b, nk, TILE).any(2)
-    if kernel == "flash_bwd_fused_kernel":
-        tiles = int((live_tiles * meets).sum())
-        peak = PEAK_3XTF32
-    else:
+    if kernel == "flash_fwd_kernel":
         tiles = b * int(meets.sum())
         peak = PEAK_F32_SIMT
+    else:
+        tiles = int((live_tiles * meets).sum())
+        peak = PEAK_3XTF32
     row = 4.0 * h * d  # one [H, D] f32 row
     mask_bytes, rowvec = 1.0 * b * tk, 4.0 * h
     if kernel == "flash_fwd_kernel":

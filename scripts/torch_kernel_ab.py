@@ -10,8 +10,10 @@ host over the call shows as a gap between the two runs of one checkout.
 Prints one JSON object: for each checkout and run, each kernel's
 ``kernel_ms``, ``plain_ms``, ``library_ms`` and bound at each shape (and
 over A and A^T for the tile product), and the card's name and power
-limit. Needs one NVIDIA GPU; the checkouts build their kernels into
-their own trees.
+limit, and whether the fused flash backward gave the same output bits in
+every run (``fused_bits_equal``: each run hashes its outputs on
+chip_smoke's seeded T 512 inputs). Needs one NVIDIA GPU; the checkouts
+build their kernels into their own trees.
 """
 
 from __future__ import annotations
@@ -23,7 +25,15 @@ import subprocess
 import sys
 
 PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
-          "cs.phase_tile_kernels(); cs.phase_attention_kernels()")
+          "cs.phase_tile_kernels(); cs.phase_attention_kernels(); "
+          # The fused flash backward's output bits on chip_smoke's seeded
+          # T 512 inputs: equal across the checkouts where its code is.
+          "import hashlib; A = cs.attention; "
+          "q, k, v, m, g = cs._attn_inputs(cs.ATTN_TRAIN_SHAPE, cs.SEED); "
+          "o, lse = A.flash_fwd_reference(q, k, v, m); "
+          "out = A.flash_bwd_fused(q, k, v, m, g, lse, A.flash_delta(o, g)); "
+          "cs.emit(phase='fused_bits', sha256=hashlib.sha256(b''.join("
+          "x.cpu().numpy().tobytes() for x in out)).hexdigest())")
 KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_us", "max_abs_err")
 
 
@@ -40,6 +50,8 @@ def run(checkout: str) -> dict:
         rec = json.loads(line)
         if rec.get("phase") == "device":
             out["device"] = rec["device"]
+        elif rec.get("phase") == "fused_bits":
+            out["fused_bits_sha256"] = rec["sha256"]
         elif rec.get("phase") in ("tile_kernels", "attention_kernels"):
             where = rec.get("over") or rec.get("shape")
             out[f"{rec['kernel']}@{where}"] = {k: rec.get(k) for k in KEYS}
@@ -61,7 +73,9 @@ def main() -> int:
     for label in ("old", "new", "new", "old"):
         checkout = os.path.abspath(getattr(args, label))
         runs.append({"checkout": label, **run(checkout)})
-    result = {"nvidia_smi": smi, "runs": runs}
+    hashes = {run["fused_bits_sha256"] for run in runs}
+    result = {"nvidia_smi": smi, "runs": runs,
+              "fused_bits_equal": len(hashes) == 1}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

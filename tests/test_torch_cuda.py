@@ -14,8 +14,9 @@ model's parameter gradients in every kernel lane. The tile product is
 held to its plain version over A and A^T at H 32, 128 and 30 (not a
 multiple of 4), with rows no edge reaches, an edgeless batch, a
 multiplicity of 300 and entries past ``ptr[N]`` that must change
-nothing. The fused flash backward is held to its plain version and to
-the two-pass pair, with whole key tiles of padding, and to its own bits
+nothing. The fused flash backward and the two-pass pair are held to
+their plain versions and to each other, with whole key tiles of padding
+(in the pair's T 4096 cases also inside a row), and to their own bits
 across two launches.
 """
 
@@ -581,6 +582,58 @@ def test_fused_backward_skips_dead_key_tiles_and_repeats_its_bits(
     nk = -(-t // 64)
     assert cost["dead_key_tiles"] == h * sum(nk - -(-n // 64)
                                              for n in lengths)
+
+
+@pytest.mark.parametrize("t,lengths,causal,hole", [
+    (512, [70, 0, 300], False, None),  # key tiles 2-7, all, 5-7 of a row dead
+    (200, [10, 130, 0], True, None),   # ragged T, causal
+    # T 4096, as the long-context path runs it; padding inside a row (keys
+    # 64-1599 of row 0), not only at its tail.
+    (4096, [4096, 2100], False, (64, 1600)),
+    (4096, [3000, 0], True, (128, 256)),
+])
+def test_two_pass_pair_skips_dead_key_tiles_and_repeats_its_bits(
+        cuda, t, lengths, causal, hole):
+    from deepdfa_tpu_torch.ops import attention as A
+
+    b, h, d = len(lengths), 2, 64
+    q, k, v, _, g = _attn_inputs(b, t, h, d, cuda)
+    keep = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    if hole is not None:
+        keep[0, hole[0]:hole[1]] = False
+    mask = torch.from_numpy(keep).to(cuda)
+    o, lse = A.flash_fwd_reference(q, k, v, mask, causal)
+    args = (q, k, v, mask, g, lse, A.flash_delta(o, g), causal)
+    A.reset_launch_counts()
+    pair = (A.flash_bwd_dq(*args), *A.flash_bwd_dkv(*args))
+    again = (A.flash_bwd_dq(*args), *A.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert A.launch_counts()["flash_bwd_dq_kernel"] == 2
+    assert A.launch_counts()["flash_bwd_dkv_kernel"] == 2
+    for a, c in zip(pair, again):  # no atomics: the same bits
+        assert torch.equal(a, c)
+    want = (A.flash_bwd_dq_reference(*args), *A.flash_bwd_dkv_reference(*args))
+    for a, w in zip(pair, want):
+        torch.testing.assert_close(a, w, **ATTN_GRAD_TOL)
+    if A.flash_fused_bwd_ok(t, d):
+        for a, f in zip(pair, A.flash_bwd_fused(*args)):
+            torch.testing.assert_close(a, f, **ATTN_GRAD_TOL)
+    # A padded key has P = dS = 0: its dk and dv are exactly 0, so a key
+    # tile with no real key is all zeros; a row with no real key at all
+    # has zero gradients everywhere.
+    pad = torch.from_numpy(~keep).to(cuda)
+    for x in pair[1:]:
+        assert not x[pad].any()
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert not any(x[row].any() for x in pair)
+    nk = -(-t // 64)
+    tiles = np.zeros((b, nk * 64), bool)
+    tiles[:, :t] = keep
+    dead = h * int((~tiles.reshape(b, nk, 64).any(2)).sum())
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        assert A.kernel_cost(mask, t, h, d, name, causal)[
+            "dead_key_tiles"] == dead
 
 
 def test_flash_refusals(cuda):

@@ -56,12 +56,17 @@ TRAJ_TOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """The tier-1 run shares the cores among several workers, some of
-    whose tests time themselves: keep torch's intra-op pool small here
-    (these shapes gain nothing from more)."""
+def _one_thread():
+    """One intra-op thread. The tier-1 run shares the cores among several
+    workers, and these shapes gain nothing from more. And the first
+    ``torch.exp`` of a process that splits across threads (more than 2048
+    elements; MKL's ``vmsExp``, here fed the masked scores at NEG_INF) can
+    come back with a relative error near 1e-4 in one thread's chunk: a
+    race in MKL's first use, seen in a few percent of fresh processes at
+    two threads and never at one (``scripts/torch_first_exp_race.py``).
+    Run in one thread, the plain versions give the same bits every call."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
