@@ -26,7 +26,9 @@ one:
    ones with times and bounds; ``persistent_fwd_hist_kernel``'s
    ``h_k`` bit for bit against ``persistent_fwd_kernel`` run for k steps,
    and ``persistent_bwd_kernel`` plus ``step_weight_grad_kernel`` bit for
-   bit against the scan of ``fused_step_bwd_kernel``.
+   bit against the scan of ``fused_step_bwd_kernel``; the weight pass also
+   against its own second launch, and timed beside three ``torch.mm``
+   calls over the step-stacked operands (``library_ms``).
 7. ``tile_spmm_kernel`` against its plain version at the training shape
    (the first batch of ``fit`` packed with its nonzero lists: N = 16384
    rows, H = 128), over A and over A^T (the backward's launch): times,
@@ -53,10 +55,11 @@ one:
    ``F.scaled_dot_product_attention`` on the same inputs without the
    all-pad row (forward, and its autograd backward, which computes dq,
    dk and dv together: the two-pass pair's summed time stands beside
-   it). Each backward kernel is also run twice on the same inputs and
-   compared bit for bit, the padded keys' dk and dv and the all-pad row's
-   gradients must be exactly 0, the key tiles each skips are counted and
-   its device time is read by the profiler.
+   it). Each kernel is also run twice on the same inputs and compared bit
+   for bit, the all-pad row's output and the padded keys' dk and dv and
+   the all-pad row's gradients must be exactly 0, the key tiles each skips
+   are counted and each backward kernel's device time is read by the
+   profiler.
 12. Train DeepDFA+LineVul: ``train.text_loop.fit_text`` at the published
    width and depth (codebert-base, 12 layers, T 512, batch 16, the
    FlowGNN encoder, ``TransformerTrainConfig`` defaults but one epoch:
@@ -229,6 +232,10 @@ TILE_LIBRARY_COVERS = ["agg = A @ msg"]
 # flash backward's reductions.
 PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel"}) | {
     "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel"}
+# What the weight pass's library_ms covers: three torch.mm calls over the
+# step-stacked operands ([K N, H]^T x [K N, .]) and three column sums.
+WGRAD_LIBRARY_COVERS = ["dW_e, dW_i, dW_h as torch.mm over the K steps' "
+                        "stacked rows", "db_e, db_i, db_h column sums"]
 
 
 def emit(**record) -> None:
@@ -569,11 +576,14 @@ def phase_train_kernels(model: FlowGNN) -> dict:
             raise AssertionError("training batch over the backward gate")
 
         def record(name, err, kernel, plain, steps, tol, iters=10, reps=3,
-                   **extra):
+                   library=None, **extra):
             before = fused_gnn.launch_counts()[name]
             kernel_ms = _time_ms(kernel, iters, reps)
             launches = fused_gnn.launch_counts()[name] - before
             plain_ms = _time_ms(plain, iters, reps)
+            if library is not None:
+                extra.update(library_ms=_time_ms(library, iters, reps),
+                             library_covers=WGRAD_LIBRARY_COVERS)
             cost = fused_gnn.kernel_cost(adj, hidden, steps, kernel=name)
             bound_ms, bound_by = _bound(cost)
             rec = dict(kernel=name, shape="training", n_rows=h.shape[0],
@@ -680,13 +690,34 @@ def phase_train_kernels(model: FlowGNN) -> dict:
                 a + b for a, b in zip(fold, one))
         _same_bits("step_weight_grad_kernel vs the fold of one-step calls",
                    grads, fold)
+        _same_bits("step_weight_grad_kernel twice",
+                   fused_gnn.step_weight_grads(h, hist, x, dp, dmsg, k_steps),
+                   grads)
+        # The yardstick: the same contractions as three torch.mm calls
+        # (cuBLAS, f32: TF32 is off) over every step's rows at once, the
+        # operands stacked [K N, .] before the timer, and the bias sums.
+        hs_all = torch.cat([h[None], hist]).reshape(-1, hidden)
+        x_all, dmsg_all = x.reshape(-1, hidden), dmsg.reshape(-1, hidden)
+        dp_all = dp.reshape(-1, 4 * hidden)
+        dpi_all = dp_all[:, :3 * hidden].contiguous()
+        dph_all = torch.cat([dp_all[:, :2 * hidden],
+                             dp_all[:, 3 * hidden:]], dim=1)
+
+        def library():
+            return (torch.mm(hs_all.T, dmsg_all),
+                    dmsg_all.sum(0, keepdim=True),
+                    torch.mm(x_all.T, dpi_all), dpi_all.sum(0, keepdim=True),
+                    torch.mm(hs_all.T, dph_all), dph_all.sum(0, keepdim=True))
+
+        _check_grads("stacked torch.mm", library(), want)
         out["step_weight_grad_kernel"] = record(
             "step_weight_grad_kernel", err,
             lambda: fused_gnn.step_weight_grads(h, hist, x, dp, dmsg,
                                                 k_steps),
             lambda: fused_gnn.step_weight_grad_reference(h, hist, x, dp,
                                                          dmsg, k_steps),
-            k_steps, dict(rel=GRAD_TOL), iters=5, max_rel_err=rel)
+            k_steps, dict(rel=GRAD_TOL), iters=5, library=library,
+            max_rel_err=rel, bitwise_repeatable=True)
     return out
 
 
@@ -1010,6 +1041,8 @@ def phase_attention_kernels() -> dict:
                          ATTN_FWD_TOL))
         if not bool((o[-1] == 0).all()):
             raise AssertionError("flash_fwd_kernel: the all-pad row is not 0")
+        _same_bits(f"flash_fwd_kernel twice@{shape_name}",
+                   list(attention.flash_fwd(q, k, v, mask)), [o, lse])
         delta = attention.flash_delta(o_ref, g)
         args = (q, k, v, mask, g, lse_ref, delta)
         runs = {"flash_fwd_kernel": (
@@ -1087,14 +1120,15 @@ def phase_attention_kernels() -> dict:
                 bytes=cost["bytes"],
                 tflops=cost["flops"] / kernel_ms / 1e9,
                 executed_tflops=cost["executed_flops"] / kernel_ms / 1e9)
+            recs[name].update(bitwise_repeatable=True,
+                              key_tiles=b * h * -(-t // 64),
+                              key_tiles_skipped=cost["dead_key_tiles"])
             if name != "flash_fwd_kernel":
                 # Each backward kernel's device ms a launch by the profiler
                 # (the fused kernel's two launches apart: the products, then
                 # the dq sum), over the launches it recorded.
                 split = _device_profile(kernel, iters)["port_kernels"]
                 recs[name].update(
-                    bitwise_repeatable=True, key_tiles=b * h * -(-t // 64),
-                    key_tiles_skipped=cost["dead_key_tiles"],
                     device_split_ms={k: v["ms"] / v["calls"]
                                      for k, v in split.items()},
                     device_split_calls={k: v["calls"] * iters

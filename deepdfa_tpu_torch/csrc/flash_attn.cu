@@ -14,11 +14,10 @@
 //                         (scale Q).
 //
 // The single-pass backward (_flash_bwd_fused_kernel) is
-// flash_bwd_fused_kernel in flash_bwd_fused.cu. The forward's score tile
-// is in flash_tile.cuh; the pair's 3xTF32 products in tf32_mma.cuh, which
-// the fused backward shares. Plain PyTorch versions: flash_fwd_reference,
-// flash_bwd_dq_reference and flash_bwd_dkv_reference in
-// deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
+// flash_bwd_fused_kernel in flash_bwd_fused.cu. The 3xTF32 products are
+// in tf32_mma.cuh, which the fused backward shares. Plain PyTorch
+// versions: flash_fwd_reference, flash_bwd_dq_reference and
+// flash_bwd_dkv_reference in deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with the plain C interface at the bottom of this file.
 //
@@ -28,62 +27,70 @@
 // most 25 MB of compulsory traffic (q, k, v in, o out); the two-pass
 // backward pair 14 B H T^2 D against ~60 MB. Every kernel is bound by
 // f32 operations (ops/attention.py:kernel_cost counts them on the call's
-// mask; chip_smoke.py prints the bound beside the measured time): the
-// forward's FMAs run on the CUDA cores (67 TFLOP/s at the H100 SXM
-// data-sheet peak for a 700 W card), the pair's products as 3xTF32 on the
-// tensor cores (f32 work at a third of 495 TFLOP/s).
+// mask; chip_smoke.py prints the bound beside the measured time), all
+// run as 3xTF32 on the tensor cores: f32 work at a third of the H100 SXM
+// data-sheet 495 TFLOP/s for a 700 W card.
 //
-// Forward design.
-// * Tiles of 64 queries by 64 keys; 256 threads a block, each owning a
-//   4 x 4 piece of a score tile and a 4 x D/16 piece of a [64, D] tile,
-//   so every FMA reads two operands from shared memory for four. It
-//   computes whole tiles, padded keys included.
-// * A TPU grid is sequential and carries (acc, m, l) across its kv steps
-//   in scratch; here the kv walk is a loop inside the block, and m, l and
-//   O stay in registers. A query row's 16 threads are one half-warp, so
-//   its max and sum are shuffles and P needs no block-wide barrier.
+// Shared design. One block a (batch, head, 64 query rows) for the
+// forward, a (batch, head, 128 query rows) for the dq kernel and a
+// (batch, head, 128 keys) for the dk/dv kernel, each walking the other
+// side's 64-row tiles.
+// * Each warp owns 16 rows for the whole walk: it computes its 16 x 64
+//   piece of S (and dP in the backward; S^T and dP^T in the dk/dv kernel),
+//   so P and dS stay in its registers and feed the next products as mma A
+//   fragments (frag_acc): no shared-memory round trip, no barrier between
+//   the products. The forward's online softmax (row max, row sum, the
+//   rescale of the O accumulator) runs on those registers, a row's four
+//   lanes combined by quad shuffles.
+// * Every product is 3xTF32 mma.sync (tf32_mma.cuh). Each operand is
+//   split into hi and lo once: the resident one (scale Q, dO; K and V)
+//   once a block, into the A-fragment order its warp reads with one
+//   128-bit load a part; each streamed tile once a load, in place.
+// * The streamed tiles (K and V; Q, dO, lse and delta) arrive by
+//   cp.async: in the pair double buffered (the next tile's copies overlap
+//   this one's split and products), in the forward single buffered with
+//   two blocks an SM (one block's copies overlap the other's products).
+//   Streamed tiles are XOR-swizzled by row (swz), so the B-fragment reads
+//   of both orientations hit 32 banks.
+// * Dead key tiles are skipped with no approximation: a key tile with no
+//   real key has P = dS = 0 and leaves the forward's running max and sum
+//   as they were. The forward and the dq kernel mark the live tiles of
+//   their walk from the mask (one bit each) and neither load nor multiply
+//   the others; in the dk/dv kernel the warps of a dead 64-key tile skip
+//   their products and write zeros, and a block with no real key returns
+//   at once. Each tile is tested on the mask: padding need not be a tail.
 // * Fully masked rows: m stays NEG_INF, the shift is pinned to 0, every
 //   P is 0, so O = 0 and lse = log(1e-30); the backward's exp(s - lse)
 //   then underflows to 0 and the row's gradients are 0, not NaN.
-// * The ragged edge (T not a multiple of 64) is masked by index in the
-//   kernels, so every length runs here; the reference's blockwise
-//   fallback for lengths it cannot tile has no counterpart.
-// * Causal: key tiles wholly above a query tile's diagonal are skipped;
-//   their scores would all be masked.
-//
-// Two-pass backward design. Where the fused kernel's dq partials grow too
-// large (flash_fused_bwd_ok in ops/attention.py: T 4096 at D 64) the pair
-// runs: flash_bwd_dq_kernel with one block per (batch, head, 128 query
-// rows) walking the key tiles, flash_bwd_dkv_kernel with one block per
-// (batch, head, 128 keys) walking the query tiles.
-// * 8 warps a block, each owning 16 of its 128 rows for the whole walk:
-//   the warp computes its 16 x 64 piece of S and dP (dq kernel) or of S^T
-//   and dP^T (dk/dv kernel), so P and dS stay in its registers and feed
-//   the next products as mma A fragments (frag_acc): no shared-memory
-//   round trip, no barrier between the products.
-// * Every product is 3xTF32 mma.sync (tf32_mma.cuh). Each operand is
-//   split into hi and lo once: the resident one (scale Q and dO; K and V)
-//   once a block, into the A-fragment order its warp reads with one
-//   128-bit load a part; each streamed tile once a load, in place. Both
-//   parts of everything take 225 KB of shared memory, one block an SM.
-// * The streamed tiles (K and V; Q, dO, lse and delta) are double
-//   buffered with cp.async: the next tile's copies overlap this one's
-//   split and products. Streamed tiles are XOR-swizzled by row (swz), so
-//   the B-fragment reads of both orientations hit 32 banks.
-// * Dead key tiles are skipped with no approximation: a key tile with no
-//   real key has P = dS = 0. The dq kernel marks the live tiles of its
-//   walk from the mask (one bit each) and neither loads nor multiplies the
-//   others; in the dk/dv kernel the warps of a dead 64-key tile skip their
-//   products and write zeros, and a block with no real key returns at
-//   once. Each tile is tested on the mask: padding need not be a tail.
 // * Causal: tiles wholly across the diagonal are skipped (64-row tiles,
-//   by warps); rows past T are masked by index.
+//   by warps); the ragged edge (T not a multiple of 64) is masked by
+//   index, so every length runs here; the reference's blockwise fallback
+//   for lengths it cannot tile has no counterpart.
 // * Every output element has one owner thread and a fixed summation
 //   order: no atomics, so two launches give the same bits.
+//
+// Forward block size: 64 query rows (4 warps), K and V single buffered,
+// 96 KB of shared memory, two blocks an SM. Two layouts were built and
+// timed: this one, and 128 query rows (8 warps) with K and V double
+// buffered, 160 KB, one block an SM (64-row blocks double buffered would
+// take 128 KB, one block an SM, 4 warps). ptxas gave 193-194 registers to
+// this one and 183 to the 128-row one, neither spilling, so both reach
+// their occupancy. On an H100 SXM at 700 W (chip_smoke.py's attention phase
+// under scripts/torch_kernel_ab.py, both runs of the new tree) the 64-row
+// blocks took 0.281-0.284 ms at B 16, T 512 and 6.02-6.06 ms at B 8,
+// T 4096, the 128-row ones 0.290-0.293 and 6.32: twice the blocks, each
+// waiting on half the rows at a tile's barriers, in finer waves over 132
+// SMs, with the other block's products hiding a tile's copy.
+//
+// Backward pair. Where the fused kernel's dq partials grow too large
+// (flash_fused_bwd_ok in ops/attention.py: T 4096 at D 64) the pair runs:
+// flash_bwd_dq_kernel with one block per (batch, head, 128 query rows)
+// walking the key tiles, flash_bwd_dkv_kernel with one block per (batch,
+// head, 128 keys) walking the query tiles. Both parts of everything take
+// 225 KB of shared memory, one block an SM.
 
 #include <cuda_runtime.h>
 
-#include "flash_tile.cuh"
 #include "tf32_mma.cuh"
 
 namespace flash {
@@ -92,98 +99,10 @@ namespace flash {
 // unixcoder-base (768 / 12 heads). ops/attention.py:KERNEL_HEAD_DIM
 // refuses any other before a launch.
 constexpr int D = 64;
-
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const unsigned char* __restrict__ mask,
-                     float* __restrict__ o, float* __restrict__ lse, int H,
-                     int tq, int tk, int causal, float scale) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + 64 * (D + 1);
-  float* Vs = Ks + 64 * (D + 1);
-  float* Ps = Vs + 64 * (D + 1);
-  int* kvalid = reinterpret_cast<int*>(Ps + BQ * PS);
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = tid_y(), tx = tid_x();
-  const long rs = (long)H * D;
-  const float* qb = q + ((long)b * tq * H + h) * D;
-  const float* kb = k + ((long)b * tk * H + h) * D;
-  const float* vb = v + ((long)b * tk * H + h) * D;
-
-  load_tile<D>(Qs, qb, q0, tq, rs, scale);
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-  int nk = (tk + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, kb, k0, tk, rs, 1.f);
-    load_tile<D>(Vs, vb, k0, tk, rs, 1.f);
-    load_key_valid(kvalid, mask + (long)b * tk, k0, tk);
-    __syncthreads();
-    float s[4][4];
-    tile_scores<D>(Qs, Ks, kvalid, q0, k0, causal != 0, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      // Fully masked so far: pin the shift to 0 so the exps stay finite.
-      const float shift = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      const float corr =
-          expf((m[i] <= NEG_INF / 2 ? NEG_INF : m[i]) - shift);
-      float row = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = kvalid[c] ? expf(s[i][j] - shift) : 0.f;
-        Ps[r * PS + c] = p;
-        row += p;
-      }
-      l[i] = l[i] * corr + half_warp_sum(row);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncwarp();  // a row's P comes from its own half-warp
-    acc_nn<D>(acc, Ps, Vs);
-  }
-  float* ob = o + ((long)b * tq * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= tq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      ob[(long)r * rs + tx + 16 * j] = acc[i][j] / lc;
-    // lse = shift + log(l): exp(s - lse) is the normalized probability;
-    // a fully masked row lands at log(1e-30).
-    if (tx == 0)
-      lse[(long)bh * tq + r] = (m[i] <= NEG_INF / 2 ? 0.f : m[i]) + logf(lc);
-  }
-}
-
-size_t fwd_smem() {
-  return sizeof(float) * (3 * 64 * (D + 1) + BQ * PS) + sizeof(int) * BK;
-}
+constexpr float NEG_INF = -1e30f;  // the reference's NEG_INF
 
 // ---------------------------------------------------------------------------
-// The two-pass backward pair: products on the tensor cores (3xTF32).
+// Device code shared by the forward and the two-pass backward pair.
 // ---------------------------------------------------------------------------
 
 using tf32x3::mma3;
@@ -195,7 +114,6 @@ constexpr int PR = 16 * PW;   // resident rows a block: 16 a warp
 constexpr int PT = 64;        // rows of a streamed tile
 constexpr int RES = PR * D;   // floats of a resident operand's hi or lo part
 constexpr int TILE = PT * D;  // floats of one streamed tile
-static_assert(PNT == NT, "launch() starts NT threads");
 
 // Element (r, c) of a streamed [64, 64] tile in shared memory: each row's
 // 4-column groups XOR'd by r mod 8, so that both fragment reads (frag_bt:
@@ -229,15 +147,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Rows row0 .. row0 + PR - 1 of one (batch, head) slice (row_stride floats
-// apart), times scale, split once into TF32 hi and lo parts, each stored in
-// the order warp r / 16 reads them as mma A fragments: float4 (w * 8 + kc)
-// * 32 + lane holds a0..a3 of contraction chunk kc. Rows at or past n_rows
-// are zero.
+// Rows row0 .. row0 + ROWS - 1 of one (batch, head) slice (row_stride
+// floats apart), times scale, split once into TF32 hi and lo parts, each
+// stored in the order warp r / 16 reads them as mma A fragments: float4
+// (w * 8 + kc) * 32 + lane holds a0..a3 of contraction chunk kc. Rows at or
+// past n_rows are zero. NTH threads share the work.
+template <int ROWS = PR, int NTH = PNT>
 __device__ void load_resident(float* hi, float* lo,
                               const float* __restrict__ src, int row0,
                               int n_rows, long row_stride, float scale) {
-  for (int e = threadIdx.x; e < PR * D / 4; e += PNT) {
+  for (int e = threadIdx.x; e < ROWS * D / 4; e += NTH) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < n_rows)
@@ -260,11 +179,12 @@ __device__ void load_resident(float* hi, float* lo,
 
 // Rows row0 .. row0 + 63 of one (batch, head) slice into a swizzled tile by
 // cp.async (not waited for); rows at or past n_rows are zero-filled.
+template <int NTH = PNT>
 __device__ __forceinline__ void issue_tile(float* dst,
                                            const float* __restrict__ src,
                                            int row0, int n_rows,
                                            long row_stride) {
-  for (int e = threadIdx.x; e < TILE / 4; e += PNT) {
+  for (int e = threadIdx.x; e < TILE / 4; e += NTH) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     const bool in = row0 + r < n_rows;
     cp_async16(dst + swz(r, c), src + (long)(in ? row0 + r : 0) * row_stride
@@ -274,9 +194,10 @@ __device__ __forceinline__ void issue_tile(float* dst,
 
 // A landed tile, times scale, split once: the hi part in place, the lo part
 // beside it (the same swizzled positions).
+template <int NTH = PNT>
 __device__ __forceinline__ void split_tile(float* tile, float* lo,
                                            float scale) {
-  for (int e = threadIdx.x; e < TILE / 4; e += PNT) {
+  for (int e = threadIdx.x; e < TILE / 4; e += NTH) {
     float4 x = reinterpret_cast<float4*>(tile)[e];
     uint32_t h[4], l[4];
     split(x.x * scale, h[0], l[0]);
@@ -406,6 +327,210 @@ __device__ __forceinline__ void zero(float acc[8][4]) {
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
 
+// Which of key tiles 0 .. kend - 1 hold a real key (in range and set in
+// this batch row's mask), one bit each in live[]: NTH threads, each
+// reading 16 keys, a warp 8 tiles. Starts and ends with a barrier.
+template <int NTH>
+__device__ void mark_live_tiles(unsigned* live,
+                                const unsigned char* __restrict__ mrow,
+                                int kend, int tk) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kmax = min(tk, kend * PT);
+  for (int i = tid; i < (kend + 31) / 32; i += NTH) live[i] = 0;
+  __syncthreads();
+  for (int base = 0; base < kmax; base += NTH * 16) {
+    const int c0 = base + tid * 16;
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) any |= c0 + u < kmax && mrow[c0 + u];
+    const unsigned vote = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) {
+      unsigned bits = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if ((vote >> (4 * i)) & 0xfu) bits |= 1u << i;
+      const int tile0 = base / PT + 8 * warp;
+      if (bits) atomicOr(&live[tile0 >> 5], bits << (tile0 & 31));
+    }
+  }
+  __syncthreads();
+}
+
+// The first live key tile at or after kt (kend if none): dead ones are
+// skipped, neither loaded nor multiplied.
+__device__ __forceinline__ int next_live(const unsigned* live, int kt,
+                                         int kend) {
+  while (kt < kend && !((live[kt >> 5] >> (kt & 31)) & 1u)) ++kt;
+  return kt;
+}
+
+// Start the copies of key tile kt (K into ks, V into vs; not waited for);
+// warps 0 and 1 vote its real keys into kbits[0] and kbits[1].
+template <int NTH>
+__device__ __forceinline__ void issue_kv(float* ks, float* vs,
+                                         unsigned* kbits,
+                                         const float* __restrict__ kb,
+                                         const float* __restrict__ vb,
+                                         const unsigned char* __restrict__ mrow,
+                                         int kt, int tk, long rs) {
+  issue_tile<NTH>(ks, kb, kt * PT, tk, rs);
+  issue_tile<NTH>(vs, vb, kt * PT, tk, rs);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int key = kt * PT + threadIdx.x;
+    const unsigned vote = __ballot_sync(0xffffffffu, key < tk && mrow[key]);
+    if ((threadIdx.x & 31) == 0) kbits[warp] = vote;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+constexpr int FW = 4;         // warps a block of the forward
+constexpr int FNT = 32 * FW;  // threads a block of the forward
+constexpr int FR = 16 * FW;   // query rows a block of the forward
+
+// Shared memory of flash_fwd_kernel: scale Q split (2 resident parts), K
+// and V, their lo parts, the tile's key bits, and one bit a key tile of
+// the walk: 96 KB, two blocks an SM.
+size_t fwd_smem(int tk) {
+  const int nk = (tk + PT - 1) / PT;
+  return sizeof(float) * (2 * FR * D + 4 * TILE)
+         + sizeof(unsigned) * (2 + (nk + 31) / 32);
+}
+
+// One block a (batch, head, 64 query rows), 4 warps of 16 rows each,
+// walking the live key tiles: a tile is split once it lands, multiplied,
+// and only then is the next one's copy issued (the other block on the SM
+// runs its products meanwhile).
+__global__ void __launch_bounds__(FNT, 2)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const unsigned char* __restrict__ mask,
+                     float* __restrict__ o, float* __restrict__ lse, int H,
+                     int tq, int tk, int causal, float scale) {
+  extern __shared__ float4 smem_fwd[];
+  float* Qhi = reinterpret_cast<float*>(smem_fwd);
+  float* Qlo = Qhi + FR * D;
+  float* Khi = Qlo + FR * D;  // a landed tile, its hi part once split
+  float* Vhi = Khi + TILE;
+  float* Klo = Vhi + TILE;
+  float* Vlo = Klo + TILE;
+  unsigned* kbits = reinterpret_cast<unsigned*>(Vlo + TILE);  // [2]
+  unsigned* live = kbits + 2;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * FR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long rs = (long)H * D;
+  const long qoff = ((long)b * tq * H + h) * D;
+  const long koff = ((long)b * tk * H + h) * D;
+  const unsigned char* mrow = mask + (long)b * tk;
+  int kend = (tk + PT - 1) / PT;
+  // Causal: key tiles wholly above the block's last query row see nothing.
+  if (causal) kend = min(kend, (q0 + FR - 1) / PT + 1);
+  auto issue = [&](int kt) {
+    issue_kv<FNT>(Khi, Vhi, kbits, k + koff, v + koff, mrow, kt, tk, rs);
+  };
+
+  mark_live_tiles<FNT>(live, mrow, kend, tk);
+  int kt = next_live(live, 0, kend);
+  if (kt < kend) issue(kt);
+  cp_async_commit();
+  // Resident for the whole walk, split once: scale Q.
+  load_resident<FR, FNT>(Qhi, Qlo, q + qoff, q0, tq, rs, scale);
+  // Rows g and g + 8 of the warp: running max, sum, and the O accumulator.
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o_acc[8][4];
+  zero(o_acc);
+  while (kt < kend) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed
+    split_tile<FNT>(Khi, Klo, 1.f);
+    split_tile<FNT>(Vhi, Vlo, 1.f);
+    __syncthreads();
+    const int k0 = kt * PT;
+    // Causal: a query tile wholly before the key tile sees none of it.
+    if (!causal || k0 <= q0 + PT - 1) {
+      float s_acc[8][4];
+      zero(s_acc);
+      mma_resident(s_acc, Qhi, Qlo, Khi, Klo);  // S = (scale Q) K^T
+      const unsigned kb0 = kbits[0], kb1 = kbits[1];
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + 16 * warp + g + 8 * (i >> 1);
+          const int c = 8 * j + 2 * t + (i & 1);
+          const bool real = ((j < 4 ? kb0 >> c : kb1 >> (c - 32)) & 1u);
+          if (!real || (causal && r < k0 + c)) s_acc[j][i] = NEG_INF;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s_acc[j][i]);
+        }
+      float shift[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float m_new = fmaxf(m_r[half], quad_max(mx[half]));
+        // Fully masked so far: pin the shift to 0 so the exps stay finite.
+        shift[half] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+        corr[half] = expf((m_r[half] <= NEG_INF / 2 ? NEG_INF : m_r[half])
+                          - shift[half]);
+        m_r[half] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sv = s_acc[j][i];
+          const float p = sv <= NEG_INF / 2 ? 0.f : expf(sv - shift[i >> 1]);
+          s_acc[j][i] = p;  // P, the A operand of P V
+          sum[i >> 1] += p;
+          o_acc[j][i] *= corr[i >> 1];
+        }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        l_r[half] = l_r[half] * corr[half] + quad_sum(sum[half]);
+      mma_registers(o_acc, s_acc, Vhi, Vlo);  // O += P V
+    }
+    __syncthreads();  // every reader of the tile and its key bits done
+    kt = next_live(live, kt + 1, kend);
+    if (kt < kend) issue(kt);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + 16 * warp + g + 8 * half;
+    if (r >= tq) continue;
+    const float lc = fmaxf(l_r[half], 1e-30f);
+    float* orow = o + qoff + (long)r * rs;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+          make_float2(o_acc[j][2 * half] / lc, o_acc[j][2 * half + 1] / lc);
+    // lse = shift + log(l): exp(s - lse) is the normalized probability; a
+    // fully masked row lands at log(1e-30).
+    if (t == 0)
+      lse[(long)bh * tq + r] =
+          (m_r[half] <= NEG_INF / 2 ? 0.f : m_r[half]) + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The two-pass backward pair.
+// ---------------------------------------------------------------------------
+
 // Shared memory of flash_bwd_dq_kernel: scale Q and dO split (4 resident
 // parts), K and V in two stages, their lo parts, a stage's key bits, and
 // one bit a key tile of the walk.
@@ -449,47 +574,15 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
   // Causal: key tiles wholly above the block's last query row see nothing.
   if (causal) kend = min(kend, (q0 + PR - 1) / PT + 1);
 
-  // Which key tiles of the walk hold a real key, one bit each: a thread
-  // reads 16 keys, a warp 8 tiles.
-  const int kmax = min(tk, kend * PT);
-  for (int i = tid; i < (kend + 31) / 32; i += PNT) live[i] = 0;
-  __syncthreads();
-  for (int base = 0; base < kmax; base += PNT * 16) {
-    const int c0 = base + tid * 16;
-    bool any = false;
-#pragma unroll
-    for (int u = 0; u < 16; ++u) any |= c0 + u < kmax && mrow[c0 + u];
-    const unsigned vote = __ballot_sync(0xffffffffu, any);
-    if (lane == 0) {
-      unsigned bits = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if ((vote >> (4 * i)) & 0xfu) bits |= 1u << i;
-      const int tile0 = base / PT + 8 * warp;
-      if (bits) atomicOr(&live[tile0 >> 5], bits << (tile0 & 31));
-    }
-  }
-  __syncthreads();
-  // The first live key tile at or after kt (kend if none): dead ones are
-  // skipped, neither loaded nor multiplied.
-  auto next_live = [&](int kt) {
-    while (kt < kend && !((live[kt >> 5] >> (kt & 31)) & 1u)) ++kt;
-    return kt;
-  };
-  // Start the copies of key tile kt into stage st; warps 0 and 1 vote its
-  // real keys into kbits[st].
+  // Start the copies of key tile kt into stage st, its real keys into
+  // kbits[st].
   auto issue = [&](int kt, int st) {
-    issue_tile(Ks + st * TILE, k + koff, kt * PT, tk, rs);
-    issue_tile(Vs + st * TILE, v + koff, kt * PT, tk, rs);
-    if (warp < 2) {
-      const int key = kt * PT + tid;
-      const unsigned vote = __ballot_sync(0xffffffffu,
-                                          key < tk && mrow[key]);
-      if (lane == 0) kbits[2 * st + warp] = vote;
-    }
+    issue_kv<PNT>(Ks + st * TILE, Vs + st * TILE, kbits + 2 * st, k + koff,
+                  v + koff, mrow, kt, tk, rs);
   };
 
-  int kt = next_live(0);
+  mark_live_tiles<PNT>(live, mrow, kend, tk);
+  int kt = next_live(live, 0, kend);
   if (kt < kend) issue(kt, 0);
   cp_async_commit();
   // Resident for the whole walk, split once: scale Q (S) and dO (dP).
@@ -510,7 +603,7 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
     const int st = s & 1;
     cp_async_wait_all();
     __syncthreads();  // stage st landed; stage st ^ 1 and the lo parts free
-    const int kn = next_live(kt + 1);
+    const int kn = next_live(live, kt + 1, kend);
     if (kn < kend) issue(kn, st ^ 1);  // overlaps this tile's products
     cp_async_commit();
     const float* Khi = Ks + st * TILE;
@@ -650,22 +743,22 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
 }
 
 // Opt the kernel into ``bytes`` of dynamic shared memory (above 48 KB
-// needs it), then launch; returns the first CUDA error.
+// needs it), then launch ``threads`` a block; returns the first CUDA error.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t bytes, cudaStream_t stream,
-           Args... args) {
+int launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
+           cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, bytes, stream>>>(args...);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 int fwd(const float* q, const float* k, const float* v,
         const unsigned char* mask, float* o, float* lse, int B, int H, int tq,
         int tk, int causal, float scale, cudaStream_t stream) {
-  dim3 grid((tq + BQ - 1) / BQ, B * H);
-  return launch(flash_fwd_kernel, grid, fwd_smem(), stream, q, k, v,
+  dim3 grid((tq + FR - 1) / FR, B * H);
+  return launch(flash_fwd_kernel, grid, FNT, fwd_smem(tk), stream, q, k, v,
                 mask, o, lse, H, tq, tk, causal, scale);
 }
 
@@ -674,7 +767,7 @@ int bwd_dq(const float* q, const float* k, const float* v,
            const float* delta, float* dq, int B, int H, int tq, int tk,
            int causal, float scale, cudaStream_t stream) {
   dim3 grid((tq + PR - 1) / PR, B * H);
-  return launch(flash_bwd_dq_kernel, grid, dq_smem(tk), stream, q, k, v,
+  return launch(flash_bwd_dq_kernel, grid, PNT, dq_smem(tk), stream, q, k, v,
                 mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
 }
 
@@ -683,7 +776,7 @@ int bwd_dkv(const float* q, const float* k, const float* v,
             const float* delta, float* dk, float* dv, int B, int H, int tq,
             int tk, int causal, float scale, cudaStream_t stream) {
   dim3 grid((tk + PR - 1) / PR, B * H);
-  return launch(flash_bwd_dkv_kernel, grid, kDkvSmem, stream, q, k,
+  return launch(flash_bwd_dkv_kernel, grid, PNT, kDkvSmem, stream, q, k,
                 v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal, scale);
 }
 

@@ -39,8 +39,12 @@
 // steps) one step's backward is ~7.5 GFLOP of dense f32 work (the
 // recomputed forward and four [N, H] x [H, 3H]-sized products) and the
 // weight gradients another ~3.8 GFLOP a step, against some 100 MB of
-// traffic a step: bound by f32 operations (67 TFLOP/s without tensor
-// cores; TF32 is out, as the reference holds f32 to Precision.HIGHEST).
+// traffic a step: bound by f32 operations. The step kernels run them as
+// f32 FMAs on the CUDA cores (67 TFLOP/s); the weight pass as 3xTF32 on
+// the tensor cores (tf32_mma.cuh: f32 work at a third of 495 TFLOP/s;
+// single-pass TF32 is out, as the reference holds f32 to
+// Precision.HIGHEST), where its 294 MB of cotangents in (5 steps) come
+// close to bounding it too (0.088 ms at 3.35 TB/s against 0.114 ms).
 // ops/fused_gnn.py:kernel_cost counts each kernel's operations and bytes
 // on the run's inputs; chip_smoke.py prints the bound beside the time.
 //
@@ -51,15 +55,26 @@
 //   gate kernels write their per-row cotangents (x [N, H], dp = dpre_r |
 //   dpre_z | dpre_n | dpre_hn [N, 4H], dmsg [N, H]: 24 H bytes a row a
 //   step) and step_weight_grad_kernel contracts them in two passes. Pass
-//   1: each block owns one 64 x 64 tile of one gradient (4 x 4 a thread)
-//   and one 2048-row split of the rows, and writes the split's sum for
-//   each step (32-row partial sums, in row order; the blocks of the first
-//   row tile also sum the bias columns). Pass 2 adds, for every entry,
-//   the splits in order into each step's sum and the steps from K-1 down
-//   to 0 (the scan VJP's association). The order depends only on the row
-//   count, so the gradients are deterministic and a K-step call equals
-//   the fold of K one-step calls bit for bit; with it the persistent
-//   backward equals the scan of fused_step_bwd_kernel.
+//   1: each block owns one 128 x 128 tile of one gradient (all of its H
+//   rows for H <= 128: x and h are read once a tile of R), one step (the
+//   step is on the grid, so the steps run side by side) and one split of
+//   the rows, and writes the split's sum for that step; the blocks of the
+//   first row tile also sum their bias columns. Splits are sized from the
+//   row count and width alone so that one step's tiles fill the 132 SMs
+//   (ops/fused_gnn.py:wgrad_rows_per_split: 19 splits of 864 rows, 133
+//   blocks a step at N = 16384, H = 128). Slabs of 32 rows arrive by
+//   cp.async, double buffered, are split into TF32 hi and lo once, in
+//   place, and are contracted as 3xTF32 mma.sync, each warp's 32 x 64
+//   piece accumulated in registers in row order; a slab row is 136 floats
+//   apart, so both fragment reads (4 rows x 8 columns) hit 32 banks. 102
+//   KB of shared memory and 128 registers (ptxas: 64 B of spill) give two
+//   blocks an SM. Pass 2 adds, for
+//   every entry, the splits in order into each step's sum and the steps
+//   from K-1 down to 0 (the scan VJP's association). One owner an entry
+//   in each pass, no atomics, and an order that depends only on the row
+//   count: the gradients are deterministic and a K-step call equals the
+//   fold of K one-step calls bit for bit; with it the persistent backward
+//   equals the scan of fused_step_bwd_kernel.
 // * A^T rows come from the block-band form of A^T
 //   (ops/band_spmm.py:band_transpose_vals), read by the forward's own
 //   warp-per-row aggregate.
@@ -74,10 +89,13 @@
 //   hist (persistent_fwd_hist_kernel) or h_0. ops/fused_gnn.py:
 //   persistent_bwd_smem_ok gates it against 227 KB; a batch over the gate
 //   runs fused_step_bwd_kernel K times instead.
-// * This is the simple version: the same chunked CUDA-core products as
-//   the forward, no tensor cores, no staging of weights.
+// * The step kernels are the simple version: the same chunked CUDA-core
+//   products as the forward, no tensor cores, no staging of weights.
+
+#include <stdint.h>
 
 #include "gated_step.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -202,121 +220,207 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < R * H; i += kThreads) dh_out[goff + i] = dh_s[i];
 }
 
-constexpr int kWTile = 64;      // output tile edge (4 x 4 a thread)
-constexpr int kWSlab = 32;      // rows per partial sum
+constexpr int kWTile = 128;     // output tile edge: all of H by 128 columns
+constexpr int kWSlab = 32;      // rows a slab (the contraction's step)
+constexpr int kWLd = kWTile + 8;  // row stride of a slab in shared memory
+constexpr int kWThreads = 256;  // 8 warps, each a 32 x 64 piece of the tile
+// Shared memory: L and R slabs in two stages, their lo parts, and half of
+// the bias sums.
+constexpr size_t kWSmem =
+    sizeof(float) * (6 * kWSlab * kWLd + kWTile);
 
-// Pass 1: one 64 x 64 tile of one weight gradient over one split of the
-// rows (rows_per_split, a multiple of kWSlab, in order), for each step: partial[split][s][out] =
-// sum over the split's rows of L_s[r, a] R_s[r, b]. Products: 0 dW_i
-// (L = x, R = dpre_i), 1 dW_h (L = h, R = dpre_h), 2 dW_e (L = h, R =
-// dmsg). Blocks with a0 == 0 also sum R's columns: the bias gradients.
-// Rows add into 32-row partial sums, those into the split's sum.
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Pass 1: one 128 x 128 tile of one weight gradient (every row a of it
+// when H <= 128) for one step s = blockIdx.z over one split of the rows
+// (rows_per_split, a multiple of kWSlab, from split blockIdx.y on):
+// partial[split][s][out] = sum over the split's rows of L_s[r, a] R_s[r, b].
+// Products: 0 dW_i (L = x, R = dpre_i), 1 dW_h (L = h, R = dpre_h), 2 dW_e
+// (L = h, R = dmsg); blocks with a0 == 0 also sum their R columns (the
+// bias gradients). Slabs of 32 rows stream in by cp.async, double buffered, and
+// are split into TF32 hi and lo parts once, in place; the contraction over
+// rows is 3xTF32 mma.sync (A = L^T read transposed from the row-major slab,
+// B = R), each warp's 32 x 64 piece accumulated in registers in slab order.
+// vec: every row of L and R starts 16-byte aligned (H % 4 == 0), so the
+// slabs copy in 16-byte pieces.
+__global__ void __launch_bounds__(kWThreads, 2)
     step_weight_grad_kernel(const float* __restrict__ h0,
                             const float* __restrict__ hist,
                             const float* __restrict__ xbuf,
                             const float* __restrict__ dpbuf,
                             const float* __restrict__ dmsgbuf,
                             float* __restrict__ partial, int n_rows, int H,
-                            int n_steps, int rows_per_split) {
-  __shared__ __align__(16) float l_s[kWSlab][kWTile];
-  __shared__ __align__(16) float r_s[kWSlab][kWTile];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+                            int n_steps, int rows_per_split, int vec) {
+  extern __shared__ __align__(16) float wsmem[];
+  float* Ls = wsmem;                      // [2][kWSlab * kWLd]
+  float* Rs = Ls + 2 * kWSlab * kWLd;     // [2][kWSlab * kWLd]
+  float* Llo = Rs + 2 * kWSlab * kWLd;    // [kWSlab * kWLd]
+  float* Rlo = Llo + kWSlab * kWLd;       // [kWSlab * kWLd]
+  float* bias_s = Rlo + kWSlab * kWLd;    // [kWTile]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int tiles_a = (H + kWTile - 1) / kWTile;
   const int tiles_g = tiles_a * ((3 * H + kWTile - 1) / kWTile);
-  int t = blockIdx.x, prod;
-  if (t < tiles_g) {
+  int tile = blockIdx.x, prod;
+  if (tile < tiles_g) {
     prod = 0;
-  } else if (t < 2 * tiles_g) {
+  } else if (tile < 2 * tiles_g) {
     prod = 1;
-    t -= tiles_g;
+    tile -= tiles_g;
   } else {
     prod = 2;
-    t -= 2 * tiles_g;
+    tile -= 2 * tiles_g;
   }
+  const int s = blockIdx.z;
   const int width = prod == 2 ? H : 3 * H;
-  const int a0 = (t % tiles_a) * kWTile, b0 = (t / tiles_a) * kWTile;
-  const bool bias_block = a0 == 0;
+  const int a0 = (tile % tiles_a) * kWTile, b0 = (tile / tiles_a) * kWTile;
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(n_rows, r_begin + rows_per_split);
   const size_t plane = static_cast<size_t>(n_rows) * H;
+  const float* hs = s == 0 ? h0 : hist + (s - 1) * plane;
+  const float* L = prod == 0 ? xbuf + s * plane : hs;
+  const float* Rm = prod == 2 ? dmsgbuf + s * plane : dpbuf + 4 * s * plane;
+  const int rstride = prod == 2 ? H : 4 * H;
+  // dpre_h's n block (prod 1) is dpre_hn, stored H columns on.
+  auto rcol = [&](int b) { return (prod == 1 && b >= 2 * H) ? b + H : b; };
+
+  // Slab i (rows r_begin + 32 i ..) into stage st, zeros past r_end, H or
+  // width; not waited for.
+  auto issue = [&](int i, int st) {
+    const int r0 = r_begin + i * kWSlab;
+    float* ld = Ls + st * kWSlab * kWLd;
+    float* rd = Rs + st * kWSlab * kWLd;
+    if (vec) {
+      for (int e = tid; e < kWSlab * kWTile / 4; e += kWThreads) {
+        const int rr = e / (kWTile / 4), c = (e % (kWTile / 4)) * 4;
+        const size_t row = static_cast<size_t>(r0 + rr);
+        const bool in_r = r0 + rr < r_end;
+        const bool in_l = in_r && a0 + c < H, in_b = in_r && b0 + c < width;
+        cp_async16(ld + rr * kWLd + c, in_l ? L + row * H + a0 + c : L, in_l);
+        cp_async16(rd + rr * kWLd + c,
+                   in_b ? Rm + row * rstride + rcol(b0 + c) : Rm, in_b);
+      }
+    } else {
+      for (int e = tid; e < kWSlab * kWTile; e += kWThreads) {
+        const int rr = e / kWTile, c = e % kWTile;
+        const size_t row = static_cast<size_t>(r0 + rr);
+        const bool in_r = r0 + rr < r_end;
+        const bool in_l = in_r && a0 + c < H, in_b = in_r && b0 + c < width;
+        cp_async4(ld + rr * kWLd + c, in_l ? L + row * H + a0 + c : L, in_l);
+        cp_async4(rd + rr * kWLd + c,
+                  in_b ? Rm + row * rstride + rcol(b0 + c) : Rm, in_b);
+      }
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
+  // This thread's bias column (c = tid % 128) over its rows of each slab
+  // (tid / 128, then every other).
+  const int bc = tid & (kWTile - 1), brow = tid >> 7;
+  float bias = 0.f;
+  const int wa = (warp >> 1) * 32, wb = (warp & 1) * 64;
+  const int n_slabs = (r_end - r_begin + kWSlab - 1) / kWSlab;
+  if (n_slabs > 0) issue(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_slabs; ++i) {
+    const int st = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // slab i landed; stage st ^ 1 and the lo parts free
+    if (i + 1 < n_slabs) issue(i + 1, st ^ 1);  // overlaps this slab's work
+    cp_async_commit();
+    float* lh = Ls + st * kWSlab * kWLd;
+    float* rh = Rs + st * kWSlab * kWLd;
+    for (int rr = brow; rr < kWSlab; rr += 2) {
+      const int e = rr * kWLd + bc;
+      uint32_t hi, lo;
+      tf32x3::split(lh[e], hi, lo);
+      lh[e] = __uint_as_float(hi);
+      Llo[e] = __uint_as_float(lo);
+      const float rv = rh[e];
+      bias += rv;
+      tf32x3::split(rv, hi, lo);
+      rh[e] = __uint_as_float(hi);
+      Rlo[e] = __uint_as_float(lo);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < kWSlab / 8; ++kc) {
+      // A(m, k) = L[8 kc + k][wa + 16 mi + m]: a0 (g, t), a1 (g + 8, t),
+      // a2 (g, t + 4), a3 (g + 8, t + 4).
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = (8 * kc + t4 + 4 * (u >> 1)) * kWLd + wa + 16 * mi
+                        + g + 8 * (u & 1);
+          ahi[mi][u] = __float_as_uint(lh[e]);
+          alo[mi][u] = __float_as_uint(Llo[e]);
+        }
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        // B(k, n) = R[8 kc + k][wb + 8 nj + n]: b0 (t, g), b1 (t + 4, g).
+        uint32_t bhi[2], blo[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = (8 * kc + t4 + 4 * u) * kWLd + wb + 8 * nj + g;
+          bhi[u] = __float_as_uint(rh[e]);
+          blo[u] = __float_as_uint(Rlo[e]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          tf32x3::mma3(acc[mi][nj], ahi[mi], alo[mi], bhi, blo);
+      }
+    }
+  }
   const size_t n_out = 7 * static_cast<size_t>(H) * H + 7 * H;
   const size_t w_off = static_cast<size_t>(prod) * 3 * H * H;
   const size_t b_off = 7 * static_cast<size_t>(H) * H + prod * 3 * H;
-  for (int s = 0; s < n_steps; ++s) {
-    const float* hs = s == 0 ? h0 : hist + (s - 1) * plane;
-    const float* L = prod == 0 ? xbuf + s * plane : hs;
-    const float* Rm = prod == 2 ? dmsgbuf + s * plane : dpbuf + 4 * s * plane;
-    const int rstride = prod == 2 ? H : 4 * H;
-    float acc[4][4], bacc[4];
+  float* out = partial + (static_cast<size_t>(blockIdx.y) * n_steps + s) * n_out;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      bacc[u] = 0.f;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    }
-    for (int r0 = r_begin; r0 < r_end; r0 += kWSlab) {
-      const int nr = min(kWSlab, r_end - r0);
-      for (int i = tid; i < kWSlab * kWTile; i += kThreads) {
-        const int rr = i / kWTile, c = i % kWTile;
-        const int a = a0 + c, b = b0 + c;
-        float lv = 0.f, rv = 0.f;
-        if (rr < nr) {
-          const size_t row = static_cast<size_t>(r0 + rr);
-          if (a < H) lv = L[row * H + a];
-          if (b < width) {
-            // dpre_h's n block (prod 1) is dpre_hn, stored H columns on.
-            const int bc = (prod == 1 && b >= 2 * H) ? b + H : b;
-            rv = Rm[row * rstride + bc];
-          }
-        }
-        l_s[rr][c] = lv;
-        r_s[rr][c] = rv;
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = a0 + wa + 16 * mi + g + 8 * (i >> 1);
+        const int b = b0 + wb + 8 * nj + 2 * t4 + (i & 1);
+        if (a < H && b < width)
+          out[w_off + static_cast<size_t>(a) * width + b] = acc[mi][nj][i];
       }
-      __syncthreads();
-      float part[4][4], bpart[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        bpart[u] = 0.f;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) part[u][v] = 0.f;
-      }
-      for (int rr = 0; rr < nr; ++rr) {
-        const float4 l4 = *reinterpret_cast<const float4*>(&l_s[rr][4 * ty]);
-        const float4 r4 = *reinterpret_cast<const float4*>(&r_s[rr][4 * tx]);
-        const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
-        const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) part[u][v] = fmaf(lv[u], rv[v], part[u][v]);
-        if (bias_block) {
-#pragma unroll
-          for (int v = 0; v < 4; ++v) bpart[v] += rv[v];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        bacc[u] += bpart[u];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] += part[u][v];
-      }
-      __syncthreads();
-    }
-    float* out = partial + (static_cast<size_t>(blockIdx.y) * n_steps + s) * n_out;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int b = b0 + 4 * tx + v;
-      if (b >= width) continue;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int a = a0 + 4 * ty + u;
-        if (a < H) out[w_off + static_cast<size_t>(a) * width + b] = acc[u][v];
-      }
-      if (bias_block && ty == 0) out[b_off + b] = bacc[v];
-    }
-  }
+  // The bias: the even rows' sum plus the odd rows'.
+  if (brow == 1) bias_s[bc] = bias;
+  __syncthreads();
+  if (a0 == 0 && brow == 0 && b0 + bc < width)
+    out[b_off + b0 + bc] = bias + bias_s[bc];
 }
 
 // Pass 2: each gradient entry = its per-step sums (splits added in
@@ -471,17 +575,26 @@ int step_weight_grad_launch(const void* h0, const void* hist, const void* x,
                             void* partial, void* dek, void* deb, void* dwi,
                             void* dbi, void* dwh, void* dbh, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows_per_split <= 0 || rows_per_split % kWSlab) return 1;  // invalid value
+  if (rows_per_split <= 0 || rows_per_split % kWSlab)
+    return 1;  // invalid value
+  const void* rows[] = {h0, hist, x, dp, dmsg};
+  int vec = hidden % 4 == 0;
+  for (const void* p : rows)
+    vec &= reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      step_weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_a = (hidden + kWTile - 1) / kWTile;
   const dim3 grid(tiles_a * (2 * ((3 * hidden + kWTile - 1) / kWTile) +
                              (hidden + kWTile - 1) / kWTile),
-                  (n_rows + rows_per_split - 1) / rows_per_split);
-  step_weight_grad_kernel<<<grid, kThreads, 0, st>>>(
+                  (n_rows + rows_per_split - 1) / rows_per_split, n_steps);
+  step_weight_grad_kernel<<<grid, kWThreads, kWSmem, st>>>(
       static_cast<const float*>(h0), static_cast<const float*>(hist),
       static_cast<const float*>(x), static_cast<const float*>(dp),
       static_cast<const float*>(dmsg), static_cast<float*>(partial), n_rows,
-      hidden, n_steps, rows_per_split);
-  cudaError_t e = cudaGetLastError();
+      hidden, n_steps, rows_per_split, vec);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long n_out = 7LL * hidden * hidden + 7LL * hidden;
   step_weight_grad_reduce_kernel<<<static_cast<int>((n_out + 255) / 256), 256,

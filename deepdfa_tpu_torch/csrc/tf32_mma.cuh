@@ -1,7 +1,9 @@
 // f32 products on Hopper's tensor cores at f32 accuracy (3xTF32), shared
-// by the flash-attention backward kernels: flash_bwd_fused_kernel
-// (flash_bwd_fused.cu) and the two-pass pair flash_bwd_dq_kernel and
-// flash_bwd_dkv_kernel (flash_attn.cu).
+// by the flash-attention kernels: flash_bwd_fused_kernel
+// (flash_bwd_fused.cu), the forward flash_fwd_kernel and the two-pass pair
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel (flash_attn.cu); the GNN
+// weight pass step_weight_grad_kernel (fused_gnn_bwd.cu) uses split and
+// mma3.
 //
 // Each f32 operand is split as hi = tf32(x), lo = tf32(x - hi), and
 // hi*hi + hi*lo + lo*hi is accumulated in f32 by mma.sync.m16n8k8, the

@@ -37,9 +37,9 @@ SOURCES: Dict[str, str] = {
 #: only the libraries that include it).
 HEADERS: Dict[str, Tuple[str, ...]] = {
     "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),),
-    "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),),
-    "flash_attn": (os.path.join("csrc", "flash_tile.cuh"),
-                   os.path.join("csrc", "tf32_mma.cuh")),
+    "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),
+                      os.path.join("csrc", "tf32_mma.cuh")),
+    "flash_attn": (os.path.join("csrc", "tf32_mma.cuh"),),
     "flash_bwd_fused": (os.path.join("csrc", "tf32_mma.cuh"),),
     "tile_spmm": (),
 }

@@ -16,8 +16,9 @@ and ``csrc/flash_bwd_fused.cu``; their header notes say what bounds them
 and how they are laid out), each with its plain PyTorch version here:
 
 - :func:`flash_fwd` launches ``flash_fwd_kernel``: O and the row
-  logsumexp; replaces the TPU kernel ``_flash_kernel``. Plain version
-  :func:`flash_fwd_reference`.
+  logsumexp (the products as 3xTF32 on the tensor cores, the key tiles
+  with no real key skipped); replaces the TPU kernel ``_flash_kernel``.
+  Plain version :func:`flash_fwd_reference`.
 - :func:`flash_bwd_fused` launches ``flash_bwd_fused_kernel``: dq, dk and
   dv in one pass (one block a key tile, the products as 3xTF32 on the
   tensor cores, the key tiles' dq partials then summed in a fixed order by
@@ -62,7 +63,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import PEAK_3XTF32
 
 NEG_INF = -1e30
 
@@ -604,12 +605,11 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
       its gradients for every row.
     - ``executed_flops``: the operations the kernel does, whole 64 x 64
       tiles and masked scores included. Every kernel skips the causal
-      tiles wholly above the diagonal; the backward kernels also the key
-      tiles with no real key (``dead_key_tiles``, counted over batch rows
-      and heads).
+      tiles wholly above the diagonal and the key tiles with no real key
+      (``dead_key_tiles``, counted over batch rows and heads).
     - ``peak_flops``/``peak``: the rate the operations bound divides by:
-      the f32 work of the 3xTF32 products on the tensor cores for the
-      backward kernels, f32 FMAs on the CUDA cores for the forward."""
+      the f32 work of the 3xTF32 products on the tensor cores, for every
+      kernel."""
     if kernel not in _PRODUCTS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
     mask = kv_mask.detach().to("cpu", torch.bool)
@@ -634,12 +634,7 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     padded = torch.zeros(b, nk * TILE, dtype=torch.bool)
     padded[:, :tk] = mask
     live_tiles = padded.reshape(b, nk, TILE).any(2)
-    if kernel == "flash_fwd_kernel":
-        tiles = b * int(meets.sum())
-        peak = PEAK_F32_SIMT
-    else:
-        tiles = int((live_tiles * meets).sum())
-        peak = PEAK_3XTF32
+    tiles = int((live_tiles * meets).sum())
     row = 4.0 * h * d  # one [H, D] f32 row
     mask_bytes, rowvec = 1.0 * b * tk, 4.0 * h
     if kernel == "flash_fwd_kernel":
@@ -654,4 +649,4 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     return {"flops": unit * pairs, "bytes": nbytes,
             "executed_flops": unit * tiles * TILE * TILE,
             "dead_key_tiles": h * int((~live_tiles).sum()),
-            "peak": peak[0], "peak_flops": peak[1]}
+            "peak": PEAK_3XTF32[0], "peak_flops": PEAK_3XTF32[1]}

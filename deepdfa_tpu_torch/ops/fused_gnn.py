@@ -23,9 +23,9 @@ with its plain PyTorch version here:
   replaces ``_persist_bwd_kernel``. Plain version
   :func:`persistent_bwd_rows_reference`.
 - :func:`step_weight_grads` launches ``step_weight_grad_kernel`` — the six
-  packed weight gradients from the per-row cotangents, in a fixed order
-  (steps folded K-1 down to 0). Plain version
-  :func:`step_weight_grad_reference`.
+  packed weight gradients from the per-row cotangents (3xTF32 products on
+  the tensor cores), in a fixed order (steps folded K-1 down to 0). Plain
+  version :func:`step_weight_grad_reference`.
 
 :func:`fused_step_backward` and :func:`persistent_backward` compose the
 backward kernels into the step VJP and the K-step VJP (plain versions
@@ -58,7 +58,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_F32_SIMT
 from deepdfa_tpu_torch.ops.band_spmm import (
     BandAdjacency,
     band_spmm,
@@ -72,10 +72,27 @@ PERSISTENT_SMEM_BUDGET_BYTES = 232_448
 #: The kernels map one thread to one hidden column.
 MAX_HIDDEN = 128
 
-#: Rows a block of step_weight_grad_kernel sums (a multiple of 32): the
-#: row split of its first pass. 2048 gives 8 splits and 224 blocks at the
-#: training batch (N = 16384, H = 128), about two per SM.
-WGRAD_ROWS_PER_SPLIT = 2048
+#: step_weight_grad_kernel's first pass: rows a slab (the split sizes are
+#: multiples of it), output columns a tile, and the SMs one step's blocks
+#: should fill (an H100 SXM has 132).
+WGRAD_SLAB_ROWS = 32
+WGRAD_TILE = 128
+WGRAD_FILL_SMS = 132
+
+
+def wgrad_rows_per_split(n_rows: int, hidden: int) -> int:
+    """Rows a block of ``step_weight_grad_kernel``'s first pass sums: as
+    many splits as one step's output tiles need to fill
+    ``WGRAD_FILL_SMS`` SMs, each a multiple of ``WGRAD_SLAB_ROWS`` rows.
+    It depends on the row count and width alone (never on the number of
+    steps), so a K-step call sums each step exactly as a one-step call
+    does. The training batch (N = 16384, H = 128): 7 tiles, 19 splits of
+    864 rows."""
+    tiles_a = -(-hidden // WGRAD_TILE)  # output tiles a side: x^T . and h^T .
+    tiles = tiles_a * (2 * -(-3 * hidden // WGRAD_TILE) + tiles_a)
+    splits = -(-WGRAD_FILL_SMS // tiles)
+    rows = -(-n_rows // splits)
+    return max(WGRAD_SLAB_ROWS, -(-rows // WGRAD_SLAB_ROWS) * WGRAD_SLAB_ROWS)
 
 
 def _dense(p: Mapping, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -583,7 +600,8 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
         deb = torch.empty((1, hidden), **f32)
         dbi = torch.empty((1, 3 * hidden), **f32)
         dbh = torch.empty((1, 3 * hidden), **f32)
-        splits = -(-n // WGRAD_ROWS_PER_SPLIT)
+        rows_per_split = wgrad_rows_per_split(n, hidden)
+        splits = -(-n // rows_per_split)
         partial = torch.empty(
             splits * n_steps * (7 * hidden * hidden + 7 * hidden), **f32)
         stream = ctypes.c_void_p(
@@ -591,7 +609,7 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
         err = lib.step_weight_grad_launch(
             _ptr(h0), ctypes.c_void_p(hist.data_ptr() if n_steps > 1 else 0),
             _ptr(x), _ptr(dp), _ptr(dmsg), n, hidden, n_steps,
-            WGRAD_ROWS_PER_SPLIT, _ptr(partial), _ptr(dek), _ptr(deb),
+            rows_per_split, _ptr(partial), _ptr(dek), _ptr(deb),
             _ptr(dwi), _ptr(dbi), _ptr(dwh), _ptr(dbh), stream)
         _raise_on_error(err, "step_weight_grad_kernel")
     step_weight_grads.launches += 1
@@ -774,8 +792,10 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
       ``n_steps`` steps; each step's ``h``, ``x``, ``dp``, ``dmsg`` in,
       the gradients out.
 
-    ``peak_flops``/``peak``: the rate the operations bound divides by
-    (f32 FMAs on the CUDA cores). Also ``bwd_flops``/``bwd_bytes``: the
+    ``peak_flops``/``peak``: the rate the operations bound divides by:
+    the f32 work of 3xTF32 products on the tensor cores for
+    ``step_weight_grad_kernel``, f32 FMAs on the CUDA cores for the
+    others. Also ``bwd_flops``/``bwd_bytes``: the
     whole ``n_steps``-step VJP, as
     the reference's ``fused_step_cost`` counts its ``bwd_*``, with only
     its compulsory traffic (h_0 and g in, dh_0 out, A and A^T, the
@@ -808,11 +828,13 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
         nbytes = n_steps * (plane + cotangents) + weights
     else:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    peak = (PEAK_3XTF32 if kernel == "step_weight_grad_kernel"
+            else PEAK_F32_SIMT)
     return {
         "flops": flops,
         "bytes": nbytes,
-        "peak": PEAK_F32_SIMT[0],
-        "peak_flops": PEAK_F32_SIMT[1],
+        "peak": peak[0],
+        "peak_flops": peak[1],
         "nnz": nnz,
         "bwd_flops": n_steps * (bwd + wgrad) + (n_steps - 1) * fwd,
         "bwd_bytes": 3 * plane + 2 * band + 2 * weights,

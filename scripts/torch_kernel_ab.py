@@ -1,19 +1,22 @@
-"""Time the port's tile SpMM and flash-attention kernels of two checkouts
-on one card, in turns.
+"""Time the port's GNN train-path, tile SpMM and flash-attention kernels
+of two checkouts on one card, in turns.
 
     python3 scripts/torch_kernel_ab.py OLD_DIR NEW_DIR [--out FILE]
 
 Each checkout's own ``chip_smoke.py`` runs its device, build,
-``tile_kernels`` and ``attention_kernels`` phases in a process of its
-own, in the order OLD, NEW, NEW, OLD, so that a drift of the card or its
-host over the call shows as a gap between the two runs of one checkout.
-Prints one JSON object: for each checkout and run, each kernel's
-``kernel_ms``, ``plain_ms``, ``library_ms`` and bound at each shape (and
-over A and A^T for the tile product), and the card's name and power
-limit, and whether the fused flash backward gave the same output bits in
-every run (``fused_bits_equal``: each run hashes its outputs on
-chip_smoke's seeded T 512 inputs). Needs one NVIDIA GPU; the checkouts
-build their kernels into their own trees.
+``train_kernels`` (the GNN kernels at the training shape, the weight
+pass ``step_weight_grad_kernel`` among them), ``tile_kernels`` and
+``attention_kernels`` phases in a process of its own, in the order OLD,
+NEW, NEW, OLD, so that a drift of the card or its host over the call
+shows as a gap between the two runs of one checkout. Prints one JSON
+object: for each checkout and run, each kernel's ``kernel_ms``,
+``plain_ms``, ``library_ms`` and bound at each shape (and over A and A^T
+for the tile product), and the card's name and power limit; whether the
+fused flash backward gave the same output bits in every run
+(``fused_bits_equal``), and whether the flash forward's output and lse
+did in the two runs of each checkout (``fwd_bits_equal``: each run
+hashes them on chip_smoke's seeded T 512 inputs). Needs one NVIDIA GPU;
+the checkouts build their kernels into their own trees.
 """
 
 from __future__ import annotations
@@ -25,15 +28,19 @@ import subprocess
 import sys
 
 PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
+          "cs.phase_train_kernels(cs.FlowGNN(cs.FlowGNNConfig("
+          "message_impl='persistent'), device='cuda', seed=cs.SEED)); "
           "cs.phase_tile_kernels(); cs.phase_attention_kernels(); "
-          # The fused flash backward's output bits on chip_smoke's seeded
-          # T 512 inputs: equal across the checkouts where its code is.
+          # The fused flash backward's output bits, and the forward's, on
+          # chip_smoke's seeded T 512 inputs.
           "import hashlib; A = cs.attention; "
+          "sha = lambda xs: hashlib.sha256(b''.join("
+          "x.cpu().numpy().tobytes() for x in xs)).hexdigest(); "
           "q, k, v, m, g = cs._attn_inputs(cs.ATTN_TRAIN_SHAPE, cs.SEED); "
           "o, lse = A.flash_fwd_reference(q, k, v, m); "
           "out = A.flash_bwd_fused(q, k, v, m, g, lse, A.flash_delta(o, g)); "
-          "cs.emit(phase='fused_bits', sha256=hashlib.sha256(b''.join("
-          "x.cpu().numpy().tobytes() for x in out)).hexdigest())")
+          "cs.emit(phase='fused_bits', sha256=sha(out)); "
+          "cs.emit(phase='fwd_bits', sha256=sha(A.flash_fwd(q, k, v, m)))")
 KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_us", "max_abs_err")
 
 
@@ -50,9 +57,10 @@ def run(checkout: str) -> dict:
         rec = json.loads(line)
         if rec.get("phase") == "device":
             out["device"] = rec["device"]
-        elif rec.get("phase") == "fused_bits":
-            out["fused_bits_sha256"] = rec["sha256"]
-        elif rec.get("phase") in ("tile_kernels", "attention_kernels"):
+        elif rec.get("phase") in ("fused_bits", "fwd_bits"):
+            out[f"{rec['phase']}_sha256"] = rec["sha256"]
+        elif rec.get("phase") in ("train_kernels", "tile_kernels",
+                                  "attention_kernels"):
             where = rec.get("over") or rec.get("shape")
             out[f"{rec['kernel']}@{where}"] = {k: rec.get(k) for k in KEYS}
     return out
@@ -73,9 +81,13 @@ def main() -> int:
     for label in ("old", "new", "new", "old"):
         checkout = os.path.abspath(getattr(args, label))
         runs.append({"checkout": label, **run(checkout)})
-    hashes = {run["fused_bits_sha256"] for run in runs}
+    fwd = {label: {run["fwd_bits_sha256"] for run in runs
+                   if run["checkout"] == label} for label in ("old", "new")}
     result = {"nvidia_smi": smi, "runs": runs,
-              "fused_bits_equal": len(hashes) == 1}
+              "fused_bits_equal": len({run["fused_bits_sha256"]
+                                       for run in runs}) == 1,
+              "fwd_bits_equal": {label: len(hashes) == 1
+                                 for label, hashes in fwd.items()}}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

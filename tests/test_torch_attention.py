@@ -197,18 +197,20 @@ def test_kernel_cost_counts_the_products():
 
     # Only the pairs the masks leave count: row 0 has 3 real keys of 100,
     # row 1 none (its queries see nothing and read nothing); the kernel
-    # still runs two whole 64-key tiles for each of two query tiles.
+    # runs row 0's first key tile, the only one holding a real key, whole
+    # for each of two query tiles.
     t = 100
     mask = torch.zeros(2, t, dtype=torch.bool)
     mask[0, :3] = True
     cost = A.kernel_cost(mask, t, 1, d, "flash_fwd_kernel")
     assert cost["flops"] == 4 * d * t * 3
-    assert cost["executed_flops"] == 4 * d * 2 * 128 * 128
+    assert cost["executed_flops"] == 4 * d * 2 * 64 * 64
+    assert cost["dead_key_tiles"] == 3
     row = 4 * d
     assert cost["bytes"] == (t * row + 2 * 3 * row + 2 * t
                              + 2 * t * (row + 4))
     # Causal: query i sees the real keys at or before it, 1 + 2 + 3 * 98.
-    # Every backward kernel skips key tiles with no real key: of the four
+    # Every kernel skips key tiles with no real key: of the four
     # (row, key tile) pairs only row 0's first tile holds one, and it meets
     # both query tiles, causal or not (no query tile comes before it).
     causal = A.kernel_cost(mask, t, 1, d, "flash_bwd_dq_kernel", causal=True)
@@ -217,7 +219,7 @@ def test_kernel_cost_counts_the_products():
     assert causal["dead_key_tiles"] == 3
     assert causal["peak_flops"] == pytest.approx(495e12 / 3)
     assert A.kernel_cost(mask, t, 1, d, "flash_fwd_kernel")[
-        "peak_flops"] == 67e12
+        "peak_flops"] == pytest.approx(495e12 / 3)
     for name, ops in (("flash_bwd_fused_kernel", 10),
                       ("flash_bwd_dkv_kernel", 8)):
         cost = A.kernel_cost(mask, t, 1, d, name)

@@ -36,7 +36,8 @@ def test_headers_list_every_include(library):
 
 def test_shared_header_edit_changes_both_flash_hashes(tmp_path, monkeypatch):
     # A copy of the package's sources with one byte of the shared 3xTF32
-    # header changed: both flash libraries get a new name, the others not.
+    # header changed: both flash libraries and the GNN backward (its weight
+    # pass) get a new name, the others not.
     for rel in {*_build.SOURCES.values(),
                 *(h for hs in _build.HEADERS.values() for h in hs)}:
         dst = tmp_path / rel
@@ -49,4 +50,4 @@ def test_shared_header_edit_changes_both_flash_hashes(tmp_path, monkeypatch):
     header.write_bytes(header.read_bytes() + b"\n")
     after = {name: _build.library_path(name) for name in _build.SOURCES}
     changed = {name for name in before if before[name] != after[name]}
-    assert changed == {"flash_attn", "flash_bwd_fused"}
+    assert changed == {"flash_attn", "flash_bwd_fused", "fused_gnn_bwd"}

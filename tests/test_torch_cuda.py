@@ -14,10 +14,12 @@ model's parameter gradients in every kernel lane. The tile product is
 held to its plain version over A and A^T at H 32, 128 and 30 (not a
 multiple of 4), with rows no edge reaches, an edgeless batch, a
 multiplicity of 300 and entries past ``ptr[N]`` that must change
-nothing. The fused flash backward and the two-pass pair are held to
-their plain versions and to each other, with whole key tiles of padding
-(in the pair's T 4096 cases also inside a row), and to their own bits
-across two launches.
+nothing. The flash forward, the fused flash backward and the two-pass
+pair are held to their plain versions and to each
+other, with whole key tiles of padding (also inside a row), and to their
+own bits across two launches; the GNN weight pass likewise, with row
+counts that are no multiple of its slab or split, 1 and 5 steps, and the
+fold of one-step calls bit for bit.
 """
 
 import dataclasses
@@ -634,6 +636,87 @@ def test_two_pass_pair_skips_dead_key_tiles_and_repeats_its_bits(
     for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
         assert A.kernel_cost(mask, t, h, d, name, causal)[
             "dead_key_tiles"] == dead
+
+
+@pytest.mark.parametrize("t,lengths,causal,hole", [
+    # Key tiles 1-4 of row 0 hold no real key (padding inside the row, not
+    # only at its tail); row 1 is all padding; row 2 has a padded tail.
+    (512, [512, 0, 300], False, (64, 320)),
+    (200, [10, 130, 0], True, None),      # ragged T, causal, all-pad row
+    (300, [300, 257], True, (100, 200)),  # ragged T, causal, a hole
+    # Causal with the first two key tiles dead: query rows 0-127 see no
+    # real key at all and end at O = 0, lse = log(1e-30).
+    (256, [256, 256], True, (0, 128)),
+    (4096, [4096, 2100], False, (64, 1600)),
+])
+def test_forward_skips_dead_key_tiles_and_repeats_its_bits(
+        cuda, t, lengths, causal, hole):
+    from deepdfa_tpu_torch.ops import attention as A
+
+    b, h, d = len(lengths), 2, 64
+    q, k, v, _, _ = _attn_inputs(b, t, h, d, cuda)
+    keep = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    if hole is not None:
+        keep[0, hole[0]:hole[1]] = False
+    mask = torch.from_numpy(keep).to(cuda)
+    A.reset_launch_counts()
+    o, lse = A.flash_fwd(q, k, v, mask, causal)
+    again = A.flash_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["flash_fwd_kernel"] == 2
+    # No atomics, one owner an output: the same bits on a second launch.
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    o_ref, lse_ref = A.flash_fwd_reference(q, k, v, mask, causal)
+    torch.testing.assert_close(o, o_ref, **FWD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+    # A query row that sees no real key: O exactly 0, lse = log(1e-30).
+    seen = np.cumsum(keep, 1) if causal else keep.sum(1, keepdims=True)
+    blind = torch.from_numpy(np.broadcast_to(seen == 0, (b, t)).copy())
+    assert not o[blind.to(cuda)].any()
+    floor = torch.log(torch.tensor(1e-30)).item()
+    assert torch.all(lse.transpose(1, 2)[blind.to(cuda)] == floor)
+    nk = -(-t // 64)
+    tiles = np.zeros((b, nk * 64), bool)
+    tiles[:, :t] = keep
+    assert A.kernel_cost(mask, t, h, d, "flash_fwd_kernel", causal)[
+        "dead_key_tiles"] == h * int((~tiles.reshape(b, nk, 64).any(2)).sum())
+
+
+@pytest.mark.parametrize("n,hidden", [
+    (1000, 128),   # 64-row splits, the last of 40 rows (not a slab multiple)
+    (16384, 128),  # the training batch: 19 splits of 864 rows
+    (333, 64),     # a 13-row last split
+    (100, 30),     # a width that is not a multiple of 4 (4-byte copies)
+])
+def test_weight_pass_ragged_rows_steps_and_the_fold(cuda, n, hidden):
+    k = 5
+    rng = np.random.default_rng(3)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+
+    h0, hist = rand(n, hidden), rand(k - 1, n, hidden)
+    x, dp, dmsg = rand(k, n, hidden), rand(k, n, 4 * hidden), rand(k, n,
+                                                                    hidden)
+    assert n % fused_gnn.wgrad_rows_per_split(n, hidden)
+    for steps in (1, k):
+        args = (h0, hist[:steps - 1] if steps > 1 else None, x[:steps],
+                dp[:steps], dmsg[:steps], steps)
+        got = fused_gnn.step_weight_grads(*args)
+        again = fused_gnn.step_weight_grads(*args)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        _grads_close(got, fused_gnn.step_weight_grad_reference(*args))
+    # The K-step call is bit for bit the fold of K one-step calls, added
+    # from step K-1 down to 0 (what autograd does over the fused lane).
+    fold = None
+    for s in reversed(range(k)):
+        hs = (h0 if s == 0 else hist[s - 1]).contiguous()
+        one = fused_gnn.step_weight_grads(hs, None, x[s:s + 1], dp[s:s + 1],
+                                          dmsg[s:s + 1], 1)
+        fold = one if fold is None else tuple(a + b for a, b in zip(fold,
+                                                                    one))
+    assert all(torch.equal(a, b) for a, b in zip(got, fold))
 
 
 def test_flash_refusals(cuda):

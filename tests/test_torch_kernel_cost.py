@@ -1,0 +1,111 @@
+"""What the port's kernel costs name: the peak each kernel's operations
+bound divides by, and the work it does on a given mask. No card needed.
+
+The flash forward and the GNN weight pass run their products as 3xTF32
+on the tensor cores; the forward skips key tiles with no real key, as the
+backward kernels do. The weight pass cuts its rows by the row count and
+width alone."""
+
+import numpy as np
+import pytest
+import torch
+
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import attention as A
+from deepdfa_tpu_torch.ops import fused_gnn
+from deepdfa_tpu_torch.ops.band_spmm import build_band_adjacency
+
+FLASH = ("flash_fwd_kernel", "flash_bwd_fused_kernel", "flash_bwd_dq_kernel",
+         "flash_bwd_dkv_kernel")
+# Products of a [T, T] by [T, D] shape each flash kernel does.
+PRODUCTS = {"flash_fwd_kernel": 2, "flash_bwd_fused_kernel": 5,
+            "flash_bwd_dq_kernel": 3, "flash_bwd_dkv_kernel": 4}
+
+
+def _mask(t, lengths, hole=None):
+    keep = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    if hole is not None:
+        keep[0, hole[0]:hole[1]] = False
+    return torch.from_numpy(keep)
+
+
+def _tiles(t, causal):
+    """(query tile, key tile) pairs a kernel runs with every key real:
+    causal ones wholly above the diagonal skipped."""
+    n = -(-t // 64)
+    return sum(1 for qt in range(n) for kt in range(n)
+               if not causal or kt <= qt)
+
+
+@pytest.mark.parametrize("kernel", FLASH)
+def test_every_flash_kernel_names_the_3xtf32_peak(kernel):
+    cost = A.kernel_cost(torch.ones(2, 100, dtype=torch.bool), 100, 3, 64,
+                         kernel)
+    assert cost["peak"] == PEAK_3XTF32[0]
+    assert cost["peak_flops"] == pytest.approx(495e12 / 3)
+
+
+@pytest.mark.parametrize("kernel", FLASH)
+@pytest.mark.parametrize("t,lengths,hole,causal,dead", [
+    (512, [300], None, False, 3),            # a tail: key tiles 5-7
+    (512, [512], (64, 320), False, 4),       # inside a row: tiles 1-4
+    (256, [256, 0], None, False, 4),         # an all-pad row
+    (200, [200, 70], (0, 128), True, 4),     # causal; ragged T; a hole
+    (130, [130], None, False, 0),            # ragged T, nothing dead
+])
+def test_executed_flops_drop_by_exactly_the_dead_tiles(kernel, t, lengths,
+                                                       hole, causal, dead):
+    h, d = 3, 64
+    mask = _mask(t, lengths, hole)
+    cost = A.kernel_cost(mask, t, h, d, kernel, causal)
+    assert cost["dead_key_tiles"] == h * dead
+    unit = 2.0 * PRODUCTS[kernel] * h * d * 64 * 64
+    full = len(lengths) * _tiles(t, causal)
+    # Each dead key tile takes out the query tiles it meets: all of them,
+    # or (causal) those at or after it.
+    nq = -(-t // 64)
+    padded = np.zeros((len(lengths), nq * 64), bool)
+    padded[:, :t] = mask.numpy()
+    gone = sum(nq - kt if causal else nq
+               for row in padded.reshape(len(lengths), nq, 64)
+               for kt, tile in enumerate(row) if not tile.any())
+    assert cost["executed_flops"] == unit * (full - gone)
+    whole = A.kernel_cost(torch.ones(len(lengths), t, dtype=torch.bool), t,
+                          h, d, kernel, causal)
+    assert whole["executed_flops"] == unit * full
+    assert whole["dead_key_tiles"] == 0
+
+
+def test_forward_runs_no_tile_of_an_all_pad_batch():
+    cost = A.kernel_cost(torch.zeros(2, 300, dtype=torch.bool), 300, 2, 64,
+                         "flash_fwd_kernel")
+    assert cost["flops"] == cost["executed_flops"] == 0
+    assert cost["dead_key_tiles"] == 2 * 2 * 5
+
+
+def _band(n=256, tile=64):
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, n, 400)
+    r = np.clip(s + rng.integers(-20, 20, 400), 0, n - 1)
+    return build_band_adjacency(s, r, np.ones(400, bool), n, tile=tile)
+
+
+@pytest.mark.parametrize("kernel", fused_gnn.KERNELS)
+def test_gnn_peaks_by_kernel(kernel):
+    cost = fused_gnn.kernel_cost(_band(), 32, 5, kernel=kernel)
+    want = (PEAK_3XTF32 if kernel == "step_weight_grad_kernel"
+            else PEAK_F32_SIMT)
+    assert (cost["peak"], cost["peak_flops"]) == want
+
+
+@pytest.mark.parametrize("n,hidden,rows,splits", [
+    (16384, 128, 864, 19),  # the training batch: 7 tiles, 19 splits
+    (1000, 128, 64, 16),
+    (333, 64, 32, 11),      # 5 tiles, 27 wanted; a slab is the floor
+    (100, 30, 32, 4),
+    (16384, 256, 3296, 5),  # 28 tiles (two a side), 5 splits
+])
+def test_weight_pass_splits_follow_rows_and_width(n, hidden, rows, splits):
+    got = fused_gnn.wgrad_rows_per_split(n, hidden)
+    assert got == rows and -(-n // got) == splits
+    assert got % fused_gnn.WGRAD_SLAB_ROWS == 0
