@@ -14,7 +14,10 @@ one:
 3. Kernels against their plain versions, on the card, at the serving
    shape (16 slots: N = 1024 rows, H = 128, bandwidth 1) and at the
    flagship shape (256 synthetic graphs packed for a band batch), with
-   times from CUDA events and the least time the card could take.
+   times from CUDA events and the least time the card could take;
+   ``persistent_fwd_kernel`` also bit for bit against 5 launches of
+   ``fused_step_kernel``, with that scan's time (``scan_ms``), the blocks
+   an SM holds and the blocks of a thread-block cluster a row group gets.
 4. Serve, persistent lane: ``ServeEngine`` with random weights from a
    seed, 64 requests and 16 duplicates through submit/pump/drain, kernel
    launches counted over that run, probabilities held against the same
@@ -24,9 +27,11 @@ one:
    training shape (a batch as ``fit`` packs it: 256 graphs, N = 16384
    rows, H = 128, 5 steps): the two forward kernels, then the backward
    ones with times and bounds; ``persistent_fwd_hist_kernel``'s
-   ``h_k`` bit for bit against ``persistent_fwd_kernel`` run for k steps,
-   and ``persistent_bwd_kernel`` plus ``step_weight_grad_kernel`` bit for
-   bit against the scan of ``fused_step_bwd_kernel``; the weight pass also
+   ``h_k`` bit for bit against ``persistent_fwd_kernel`` run for k steps
+   and against the fused scan, and ``persistent_bwd_kernel`` plus
+   ``step_weight_grad_kernel`` bit for bit against the scan of
+   ``fused_step_bwd_kernel``, each persistent kernel timed beside its scan
+   (``scan_ms``); the weight pass also
    against its own second launch, and timed beside three ``torch.mm``
    calls over the step-stacked operands (``library_ms``).
 7. ``tile_spmm_kernel`` against its plain version at the training shape
@@ -157,9 +162,12 @@ TRAIN_LOSS_TOL = 1e-4
 # 2080 graphs = 9 steps of 256, and 260 validation graphs.
 N_TRAIN_EXAMPLES = 2600
 TRAIN_EPOCHS = 1
-# Train steps under torch.profiler a lane, and the kernels it reports.
+# Train steps under torch.profiler a lane, the kernels it reports, and
+# the profiler sessions tried before one that recorded no device time
+# fails the run.
 PROFILE_STEPS = 5
 PROFILE_TOP = 8
+PROFILE_SESSIONS = 3
 # Each kernel's TPU counterpart (the Pallas kernel body it replaces) and
 # its source here.
 REPLACES = {
@@ -346,6 +354,35 @@ def _check(name, got, want, tol) -> float:
     return float(err.max())
 
 
+def _fused_scan(params, h, adj, steps, packed):
+    """``steps`` launches of fused_step_kernel: the per-step scan a
+    persistent forward owes its bits to."""
+    for _ in range(steps):
+        h = fused_gnn.fused_gate_step(params, h, adj, packed=packed)
+    return h
+
+
+def _scan_record(name, kernel, scan, adj, hidden,
+                 which="persistent_fwd_kernel", iters=20, reps=5) -> dict:
+    """A persistent kernel against the scan of its per-step counterpart:
+    the same bits, the scan's time (``scan_ms``), the blocks a group gets
+    (``cluster``) and, for the instance that this batch launches, the
+    blocks one SM holds (``blocks_per_sm``) and, in clusters, the
+    clusters the card holds at once (``active_clusters``)."""
+    _same_bits(f"{name} vs the per-step scan", _as_list(kernel()),
+               _as_list(scan()))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cluster = (fused_gnn.persistent_cluster_size(adj, hidden, sms)
+               if which == "persistent_fwd_kernel" else 1)
+    return dict(scan_ms=_time_ms(scan, iters, reps), cluster=cluster,
+                **fused_gnn.persistent_occupancy(adj, hidden, which,
+                                                 cluster))
+
+
+def _as_list(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
 def phase_kernels(model: FlowGNN) -> dict:
     """Both kernels against their plain versions at both shapes; returns
     the serving-shape numbers by kernel."""
@@ -393,6 +430,12 @@ def phase_kernels(model: FlowGNN) -> dict:
                            flops=cost["flops"],
                            bytes=cost["bytes"], launches=launches,
                            launches_per_forward=per_forward)
+                if name == "persistent_fwd_kernel":
+                    rec.update(_scan_record(
+                        f"persistent_fwd_kernel@{shape}", kernel,
+                        lambda: _fused_scan(params, h, adj, cfg.n_steps,
+                                            packed),
+                        adj, cfg.ggnn_hidden))
                 emit(phase="kernels", **rec)
                 if shape == "serving":
                     serving[name] = rec
@@ -614,12 +657,15 @@ def phase_train_kernels(model: FlowGNN) -> dict:
                                                  packed=packed),
                      fused_gnn.persistent_reference(params, h, adj, k_steps),
                      UNROLL_TOL)
-        record("persistent_fwd_kernel", err,
-               lambda: fused_gnn.persistent_unroll(params, h, adj, k_steps,
-                                                   packed=packed),
+        unroll = lambda: fused_gnn.persistent_unroll(params, h, adj, k_steps,
+                                                     packed=packed)
+        record("persistent_fwd_kernel", err, unroll,
                lambda: fused_gnn.persistent_reference(params, h, adj,
                                                       k_steps),
-               k_steps, UNROLL_TOL)
+               k_steps, UNROLL_TOL, **_scan_record(
+                   "persistent_fwd_kernel@training", unroll,
+                   lambda: _fused_scan(params, h, adj, k_steps, packed), adj,
+                   hidden, iters=10, reps=3))
 
         # fused_step_bwd_kernel: one step's cotangents.
         got = fused_gnn.fused_step_bwd_rows(params, h, adj, g, packed)
@@ -634,20 +680,32 @@ def phase_train_kernels(model: FlowGNN) -> dict:
             1, STEP_TOL)
 
         # persistent_fwd_hist_kernel: h_1..h_{K-1}; each h_k bit for bit
-        # the persistent forward's after k steps.
+        # the persistent forward's after k steps and the k-th state of the
+        # fused scan.
         hist = fused_gnn.persistent_hist(params, h, adj, k_steps, packed)
         want = fused_gnn.persistent_hist_reference(params, h, adj, k_steps)
         err = _check("persistent_fwd_hist_kernel", hist, want, UNROLL_TOL)
         _same_bits("persistent_fwd_hist_kernel vs persistent_fwd_kernel",
                    list(hist), [fused_gnn.persistent_unroll(
                        params, h, adj, k, packed) for k in range(1, k_steps)])
+
+        def hist_scan():
+            states = [h]
+            for _ in range(k_steps - 1):
+                states.append(fused_gnn.fused_gate_step(
+                    params, states[-1], adj, packed=packed))
+            return states[1:]
+
+        hist_kernel = lambda: fused_gnn.persistent_hist(params, h, adj,
+                                                        k_steps, packed)
         out["persistent_fwd_hist_kernel"] = record(
-            "persistent_fwd_hist_kernel", err,
-            lambda: fused_gnn.persistent_hist(params, h, adj, k_steps,
-                                              packed),
+            "persistent_fwd_hist_kernel", err, hist_kernel,
             lambda: fused_gnn.persistent_hist_reference(params, h, adj,
                                                         k_steps),
-            k_steps, UNROLL_TOL)
+            k_steps, UNROLL_TOL, **_scan_record(
+                "persistent_fwd_hist_kernel@training",
+                lambda: list(hist_kernel()), hist_scan, adj, hidden,
+                iters=10, reps=3))
 
         # persistent_bwd_kernel: the reverse sweep over the kernel's hist.
         rows = fused_gnn.persistent_bwd_rows(params, h, hist, adj, g, k_steps,
@@ -656,22 +714,28 @@ def phase_train_kernels(model: FlowGNN) -> dict:
                                                        g, k_steps)
         err = max(_check(f"persistent_bwd_kernel[{i}]", a, b, UNROLL_TOL)
                   for i, (a, b) in enumerate(zip(rows, want)))
-        # ... and bit for bit the scan of fused_step_bwd_kernel.
-        gs, scan = g, [None] * k_steps
-        for s in reversed(range(k_steps)):
-            hs = h if s == 0 else hist[s - 1]
-            gs, *scan[s] = fused_gnn.fused_step_bwd_rows(params, hs, adj, gs,
-                                                         packed)
-        _same_bits("persistent_bwd_kernel vs scan of fused_step_bwd_kernel",
-                   rows, [gs] + [torch.stack([c[j] for c in scan])
-                                 for j in range(3)])
+        # ... and bit for bit the scan of fused_step_bwd_kernel: dh_0, then
+        # each step's x, dp and dmsg.
+        def bwd_scan():
+            gs, scan = g, [None] * k_steps
+            for s in reversed(range(k_steps)):
+                hs = h if s == 0 else hist[s - 1]
+                gs, *scan[s] = fused_gnn.fused_step_bwd_rows(params, hs, adj,
+                                                             gs, packed)
+            return [gs] + [c[j] for j in range(3) for c in scan]
+
+        def bwd_kernel():
+            dh, *per_step = fused_gnn.persistent_bwd_rows(
+                params, h, hist, adj, g, k_steps, packed)
+            return [dh] + [t for c in per_step for t in c.unbind(0)]
+
         out["persistent_bwd_kernel"] = record(
-            "persistent_bwd_kernel", err,
-            lambda: fused_gnn.persistent_bwd_rows(params, h, hist, adj, g,
-                                                  k_steps, packed),
+            "persistent_bwd_kernel", err, bwd_kernel,
             lambda: fused_gnn.persistent_bwd_rows_reference(
                 params, h, hist, adj, g, k_steps),
-            k_steps, UNROLL_TOL, iters=5)
+            k_steps, UNROLL_TOL, iters=5, **_scan_record(
+                "persistent_bwd_kernel@training", bwd_kernel, bwd_scan, adj,
+                hidden, "persistent_bwd_kernel", iters=5, reps=3))
 
         # step_weight_grad_kernel: the K-step weight gradients from those
         # cotangents, and bit for bit the descending fold of K one-step
@@ -765,29 +829,37 @@ def _device_profile(step, n_steps: int) -> dict:
     ``torch.profiler`` after three warm-up calls; the ``PROFILE_TOP``
     kernels with the most device time, and the device-busy ms a call (the
     sum over every kernel; overlapping kernels would count twice, and
-    these paths run one stream)."""
+    these paths run one stream). A session that records no device
+    activity at all (CUPTI now and then hands back none in a process that
+    has run many sessions) is run again, up to ``PROFILE_SESSIONS`` in
+    all; ``profile_sessions`` says how many it took."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            step()
-        torch.cuda.synchronize()
-    kernels = []
-    for evt in prof.key_averages():
-        us = float(getattr(evt, "device_time_total",
-                           getattr(evt, "cuda_time_total", 0.0)))
-        # A user annotation's device range (the optimizer step's) spans
-        # kernels already counted on their own.
-        if getattr(evt, "is_user_annotation", False):
-            continue
-        if us > 0 and "cuda" in str(evt.device_type).lower():
-            kernels.append((us / 1e3 / n_steps, evt.key, evt.count / n_steps))
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device time")
+    for sessions in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                step()
+            torch.cuda.synchronize()
+        kernels = []
+        for evt in prof.key_averages():
+            us = float(getattr(evt, "device_time_total",
+                               getattr(evt, "cuda_time_total", 0.0)))
+            # A user annotation's device range (the optimizer step's) spans
+            # kernels already counted on their own.
+            if getattr(evt, "is_user_annotation", False):
+                continue
+            if us > 0 and "cuda" in str(evt.device_type).lower():
+                kernels.append((us / 1e3 / n_steps, evt.key,
+                                evt.count / n_steps))
+        if kernels:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded no device time in "
+                             f"{PROFILE_SESSIONS} sessions")
     kernels.sort(reverse=True)
     # The port's own kernels, by the name in their source, wherever they
     # rank.
@@ -801,7 +873,7 @@ def _device_profile(step, n_steps: int) -> dict:
     return {"device_busy_ms": sum(k[0] for k in kernels),
             "top_kernels": [{"name": name[:90], "ms": ms, "calls": calls}
                             for ms, name, calls in kernels[:PROFILE_TOP]],
-            "port_kernels": port}
+            "port_kernels": port, "profile_sessions": sessions}
 
 
 def _profile_step(model: FlowGNN, batch) -> dict:
@@ -925,7 +997,8 @@ def phase_train(impl: str) -> dict:
     diffs = np.abs(np.asarray(losses) - np.asarray(cpu_losses))
     if not np.all(np.isfinite(losses)) or diffs.max() > TRAIN_LOSS_TOL:
         raise AssertionError(f"{impl}: per-step loss |card - cpu| "
-                             f"{diffs.max():.3e} > {TRAIN_LOSS_TOL}")
+                             f"{diffs.max():.3e} > {TRAIN_LOSS_TOL}: card "
+                             f"{losses} against cpu {cpu_losses}")
     val_diff = abs(history["epochs"][-1]["val_loss"]
                    - cpu_history["epochs"][-1]["val_loss"])
     steps = len(losses)
@@ -1436,7 +1509,9 @@ def main() -> int:
             "bound_peak_tflops": t["bound_peak_tflops"],
             "library_ms": t.get("library_ms"),
             **{key: t[key] for key in ("library_covers", "pair_ms",
-                                       "max_rel_err", "transpose_ms")
+                                       "max_rel_err", "transpose_ms",
+                                       "scan_ms", "blocks_per_sm", "cluster",
+                                       "active_clusters")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

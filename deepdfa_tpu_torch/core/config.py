@@ -45,8 +45,10 @@ class FlowGNNConfig:
     block-banded batched matmul), "tile" (the block-sparse tile product,
     a hand-written CUDA kernel), "fused" (one hand-written CUDA kernel
     per gated step) or "persistent" (one CUDA kernel for all
-    ``n_steps``). ``pool_impl``/``embed_impl`` are kept for parity; the
-    port always pools with segment ops and embeds with a gather.
+    ``n_steps``). ``pool_impl``: "segment" (``index_add_``), "matmul"
+    (the reference's assignment-matrix sums, in one order on CUDA too) or
+    "auto" (matmul on CUDA, segment on the CPU). ``embed_impl`` is kept
+    for parity; the port embeds with a gather.
     """
 
     feature: FeatureSpec = dataclasses.field(default_factory=FeatureSpec)

@@ -57,18 +57,30 @@
 // * Persistent: the TPU overwrote h rows in place along its sequential
 //   grid. A Hopper block cannot see another block's rows mid-step, so the
 //   host cuts the rows into groups that no edge crosses (whole graphs;
-//   ops/band_spmm.py:closed_row_groups) and each block keeps its group's
-//   h, and its aggregate, in shared memory for all K steps: h crosses
-//   device memory once in and once out. A group needs (2H + 1) * 4 bytes
-//   a row; ops/fused_gnn.py:persistent_smem_ok gates it against the
-//   227 KB a block may opt into, and a batch over the gate runs
-//   fused_step_kernel K times instead.
-// * This is the simple version, and it runs far from the bound above:
-//   PERF.md has the measured times and what a faster version changes
-//   (weight slabs staged in shared memory, more rows per weight load,
-//   large row groups spread over a thread-block cluster).
+//   ops/band_spmm.py:closed_row_groups, 32 rows aimed for) and each block
+//   keeps its group's h, and its aggregate, in shared memory for all K
+//   steps: h crosses device memory once in and once out. The same bound
+//   holds (f32 operations: 0.28 ms for 5 steps at the training batch,
+//   N = 16384), and the simple kernel of the first port ran at 18 % of it:
+//   every 16-row chunk re-read all 460 KB of weights from L2 with one
+//   weight column and 8 rows a thread. This one (group_step.cuh) register
+//   tiles the products (4 rows x 4 columns a thread, 32 rows a pass at
+//   H 128, operands as float4), streams the weights through shared memory
+//   in slabs by cp.async (three stages in flight, each slab crossing L2
+//   once a pass), scans each row's senders within its group only, and
+//   fits two blocks an SM (128 registers, 87,744 bytes of shared memory
+//   for groups of 48 rows; ops/fused_gnn.py:persistent_smem_ok gates the
+//   largest group against 227 KB, and a batch over the gate runs
+//   fused_step_kernel K times instead). Where the groups are fewer than
+//   the SMs (the serving bucket: 34 groups), kCS blocks of a thread-block
+//   cluster share a group (ops/fused_gnn.py:persistent_cluster_size): each
+//   owns 1/kCS of the product columns, and its x and h' slices reach the
+//   other blocks' shared memory through distributed shared memory between
+//   cluster barriers. Every element keeps fused_step_kernel's chain of
+//   FMAs, so K steps here equal K fused_step_kernel launches bit for bit.
+//   PERF.md has the measured times.
 
-#include "gated_step.cuh"
+#include "group_step.cuh"
 
 namespace {
 
@@ -106,9 +118,15 @@ __global__ void __launch_bounds__(kThreads)
 // of the n_steps steps the group's h_{k+1} goes to hist[k] ([n_steps,
 // n_rows, H]) and out is not written. Both instances run the same step
 // code, so hist[k] equals persistent_fwd_kernel's h after k + 1 steps bit
-// for bit.
-template <typename VT, bool kHist>
-__global__ void __launch_bounds__(kThreads)
+// for bit. kCS blocks (a thread-block cluster) a row group, each owning
+// 1/kCS of the product columns. Shared memory: kStages weight-slab
+// stages, then [max_rows, ld] arrays: h_s (the resident h, all columns)
+// and a_s (the aggregate; with kCS == 1 the edge linear turns it into x
+// in place), and with kCS > 1 x_s (every block's x slice lands there
+// while a_s is still read; a_s then holds the block's h' slice until
+// every block's gate has read h_s); then the row sums.
+template <typename VT, bool kHist, int kCS>
+__global__ void __launch_bounds__(kGroupThreads, 2)
     persistent_fwd_kernel(const float* __restrict__ h0,
                           const VT* __restrict__ vals,
                           const float* __restrict__ ek,
@@ -119,38 +137,84 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ bh,
                           const int* __restrict__ groups,
                           float* __restrict__ out, int H, int tile,
-                          int n_tiles, int bw, int n_steps, int n_rows) {
+                          int n_tiles, int bw, int n_steps, int n_rows,
+                          int max_rows) {
+  namespace cg = cooperative_groups;
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g0 = groups[blockIdx.x], g1 = groups[blockIdx.x + 1];
-  const int R = g1 - g0;
-  float* h_s = smem;           // [R, H] the resident hidden state
-  float* a_s = smem + R * H;   // [R, H] aggregate, then x
-  float* rs_s = a_s + R * H;   // [R] adjacency row sums
-  const float* h_blk = h0 + static_cast<size_t>(g0) * H;
-  for (int i = tid; i < R * H; i += kThreads) h_s[i] = h_blk[i];
-  __syncthreads();
-  for (int step = 0; step < n_steps; ++step) {
-    for (int lr = warp; lr < R; lr += kWarps)
-      warp_aggregate_row(vals, g0 + lr, tile, n_tiles, bw, h_s, g0, g0, g1,
-                         H, a_s + lr * H, rs_s + lr, lane);
-    __syncthreads();
-    for (int c0 = 0; c0 < R; c0 += kChunk)
-      chunk_edge_linear(a_s, rs_s, c0, min(kChunk, R - c0), ek, eb, H, tid);
-    __syncthreads();
-    for (int c0 = 0; c0 < R; c0 += kChunk)
-      chunk_gate(a_s, h_s, c0, min(kChunk, R - c0), wi, bi, wh, bh, H, h_s,
-                 tid);
-    __syncthreads();
-    if (kHist) {
-      float* hk = out + (static_cast<size_t>(step) * n_rows + g0) * H;
-      for (int i = tid; i < R * H; i += kThreads) hk[i] = h_s[i];
+  const int grp = blockIdx.x / kCS;
+  const int rank = kCS > 1 ? static_cast<int>(cg::this_cluster().block_rank())
+                           : 0;
+  const Tile t(H, rank, kCS);
+  const int g0 = groups[grp], g1 = groups[grp + 1];
+  const int R = g1 - g0, ld = t.ld, hi = min(t.hi, H);
+  float* stages = smem;                                   // [kStages][stage]
+  float* h_s = stages + kStages * group_stage_floats(H);  // [R, ld] h
+  float* a_s = h_s + max_rows * ld;                       // [R, ld] agg (x)
+  float* x_s = kCS > 1 ? a_s + max_rows * ld : a_s;       // [R, ld] x
+  float* rs_s = x_s + max_rows * ld;                      // [R] row sums
+  // The cluster's copies of x_s and h_s (distributed shared memory).
+  float* x_at[kCS];
+  float* h_at[kCS];
+  if constexpr (kCS > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+    for (int c = 0; c < kCS; ++c) {
+      x_at[c] = cluster.map_shared_rank(x_s, c);
+      h_at[c] = cluster.map_shared_rank(h_s, c);
     }
   }
-  if (!kHist) {
-    float* o_blk = out + static_cast<size_t>(g0) * H;
-    for (int i = tid; i < R * H; i += kThreads) o_blk[i] = h_s[i];
+  const size_t goff = static_cast<size_t>(g0) * H;
+  rows_to_shared(h_s, ld, h0 + goff, R, H);
+  __syncthreads();
+  // Every block of the cluster has started before any writes another's
+  // shared memory (the first step's x slices).
+  if constexpr (kCS > 1) cg::this_cluster().sync();
+  for (int step = 0; step < n_steps; ++step) {
+    group_aggregate(vals, tile, n_tiles, bw, h_s, ld, g0, g1, H, a_s, rs_s);
+    __syncthreads();
+    group_rows_times<(kCS > 1)>(t, a_s, R, ek, stages, [&](int r,
+                                                           const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = r * ld + t.c0 + j;
+        const float x = edge_out(acc[j], rs_s[r], __ldg(eb + t.c0 + j));
+        if constexpr (kCS == 1) {
+          x_s[e] = x;
+        } else {
+#pragma unroll
+          for (int c = 0; c < kCS; ++c) x_at[c][e] = x;
+        }
+      }
+    });
+    if constexpr (kCS > 1) cg::this_cluster().sync();  // every x slice in
+    float* hn_s = kCS > 1 ? a_s : h_s;
+    group_gate<(kCS > 1)>(t, x_s, h_s, R, wi, wh, stages,
+               [&](int r, const float* pr, const float* pz, const float* gn,
+                   const float* hn) {
+#pragma unroll
+                 for (int j = 0; j < 4; ++j) {
+                   const int e = r * ld + t.c0 + j;
+                   hn_s[e] = gate_out(pr[j], pz[j], gn[j], hn[j],
+                                      gate_bias(bi, bh, H, t.c0 + j), h_s[e]);
+                 }
+               });
+    if constexpr (kCS > 1) {
+      cg::this_cluster().sync();  // every block's gate has read h_s
+      const int q = (hi - t.lo) / 4;
+      for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
+        const int i = (e / q) * ld + t.lo + 4 * (e % q);
+        const float4 v = *reinterpret_cast<const float4*>(a_s + i);
+#pragma unroll
+        for (int c = 0; c < kCS; ++c)
+          *reinterpret_cast<float4*>(h_at[c] + i) = v;
+      }
+      cg::this_cluster().sync();  // every h' slice in
+    }
+    if (kHist)
+      rows_to_global(out + (static_cast<size_t>(step) * n_rows + g0) * H,
+                     h_s, ld, R, H, t.lo, hi);
   }
+  if (!kHist) rows_to_global(out + goff, h_s, ld, R, H, t.lo, hi);
 }
 
 template <typename VT>
@@ -169,27 +233,110 @@ int launch_fused(const void* h, const void* vals, const void* ek,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename VT, bool kHist>
-int launch_persistent(const void* h0, const void* vals, const void* ek,
-                      const void* eb, const void* wi, const void* bi,
-                      const void* wh, const void* bh, const void* groups,
-                      int n_groups, int max_group_rows, int n_steps,
-                      void* out, int hidden, int tile, int n_tiles, int bw,
-                      cudaStream_t st) {
-  const size_t smem =
-      static_cast<size_t>(max_group_rows) * (2 * hidden + 1) * sizeof(float);
+// Dynamic shared memory of persistent_fwd_kernel for groups of up to
+// max_rows rows, cluster blocks a group (ops/fused_gnn.py:
+// persistent_smem_bytes mirrors it).
+size_t persistent_fwd_smem(int max_rows, int hidden, int cluster) {
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
+          (cluster > 1 ? 3 : 2) * static_cast<size_t>(max_rows) *
+              group_ld(hidden) +
+          max_rows);
+}
+
+// A launch of grid blocks in clusters of cs blocks; attr holds the
+// cluster dimension the config points at.
+cudaLaunchConfig_t cluster_config(int grid, int cs, size_t smem,
+                                  cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kGroupThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename VT, bool kHist, int kCS>
+int launch_persistent_cs(const void* h0, const void* vals, const void* ek,
+                         const void* eb, const void* wi, const void* bi,
+                         const void* wh, const void* bh, const void* groups,
+                         int n_groups, int max_group_rows, int n_steps,
+                         void* out, int hidden, int tile, int n_tiles, int bw,
+                         cudaStream_t st) {
+  const size_t smem = persistent_fwd_smem(max_group_rows, hidden, kCS);
   cudaError_t e = cudaFuncSetAttribute(
-      persistent_fwd_kernel<VT, kHist>,
+      persistent_fwd_kernel<VT, kHist, kCS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  persistent_fwd_kernel<VT, kHist><<<n_groups, kThreads, smem, st>>>(
+  if (kCS == 1) {
+    persistent_fwd_kernel<VT, kHist, 1><<<n_groups, kGroupThreads, smem, st>>>(
+        static_cast<const float*>(h0), static_cast<const VT*>(vals),
+        static_cast<const float*>(ek), static_cast<const float*>(eb),
+        static_cast<const float*>(wi), static_cast<const float*>(bi),
+        static_cast<const float*>(wh), static_cast<const float*>(bh),
+        static_cast<const int*>(groups), static_cast<float*>(out), hidden,
+        tile, n_tiles, bw, n_steps, n_tiles * tile, max_group_rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(n_groups * kCS, kCS, smem, st, &attr);
+  e = cudaLaunchKernelEx(
+      &cfg, persistent_fwd_kernel<VT, kHist, kCS>,
       static_cast<const float*>(h0), static_cast<const VT*>(vals),
       static_cast<const float*>(ek), static_cast<const float*>(eb),
       static_cast<const float*>(wi), static_cast<const float*>(bi),
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<const int*>(groups), static_cast<float*>(out), hidden, tile,
-      n_tiles, bw, n_steps, n_tiles * tile);
+      n_tiles, bw, n_steps, n_tiles * tile, max_group_rows);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename VT, bool kHist>
+int launch_persistent(const void* h0, const void* vals, const void* ek,
+                      const void* eb, const void* wi, const void* bi,
+                      const void* wh, const void* bh, const void* groups,
+                      int n_groups, int max_group_rows, int n_steps,
+                      int cluster, void* out, int hidden, int tile,
+                      int n_tiles, int bw, cudaStream_t st) {
+  switch (cluster) {
+    case 1:
+      return launch_persistent_cs<VT, kHist, 1>(
+          h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+          n_steps, out, hidden, tile, n_tiles, bw, st);
+    case 2:
+      return launch_persistent_cs<VT, kHist, 2>(
+          h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+          n_steps, out, hidden, tile, n_tiles, bw, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename VT, int kCS>
+int fwd_occupancy(int max_group_rows, int hidden, int* blocks,
+                  int* clusters) {
+  const size_t smem = persistent_fwd_smem(max_group_rows, hidden, kCS);
+  cudaError_t e = cudaFuncSetAttribute(
+      persistent_fwd_kernel<VT, false, kCS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, persistent_fwd_kernel<VT, false, kCS>, kGroupThreads, smem);
+  if (e == cudaSuccess && kCS > 1) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(kCS, kCS, smem, 0, &attr);
+    e = cudaOccupancyMaxActiveClusters(
+        clusters, persistent_fwd_kernel<VT, false, kCS>, &cfg);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -214,25 +361,26 @@ int fused_step_launch(const void* h, const void* vals, int vals_bf16,
                              hidden, tile, n_tiles, bandwidth, st);
 }
 
-// n_steps gated steps in one launch: one block per row group
+// n_steps gated steps in one launch: cluster (1 or 2; hidden / cluster
+// >= 32 after rounding hidden up to 32, 64 or 128) blocks per row group
 // groups[g]..groups[g+1] (int32, n_groups + 1 cut points, no edge crossing
 // a cut), h resident in shared memory. max_group_rows sizes the dynamic
-// shared memory ((2 * hidden + 1) * 4 bytes a row).
+// shared memory (persistent_fwd_smem).
 int persistent_fwd_launch(const void* h0, const void* vals, int vals_bf16,
                           const void* ek, const void* eb, const void* wi,
                           const void* bi, const void* wh, const void* bh,
                           const void* groups, int n_groups,
-                          int max_group_rows, int n_steps, void* out,
-                          int hidden, int tile, int n_tiles, int bandwidth,
-                          void* stream) {
+                          int max_group_rows, int n_steps, int cluster,
+                          void* out, int hidden, int tile, int n_tiles,
+                          int bandwidth, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
     return launch_persistent<__nv_bfloat16, false>(
         h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
-        n_steps, out, hidden, tile, n_tiles, bandwidth, st);
+        n_steps, cluster, out, hidden, tile, n_tiles, bandwidth, st);
   return launch_persistent<float, false>(
       h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
-      n_steps, out, hidden, tile, n_tiles, bandwidth, st);
+      n_steps, cluster, out, hidden, tile, n_tiles, bandwidth, st);
 }
 
 // The backward's recompute sweep: n_steps gated steps from h0 (the
@@ -243,16 +391,38 @@ int persistent_fwd_hist_launch(const void* h0, const void* vals,
                                const void* wi, const void* bi, const void* wh,
                                const void* bh, const void* groups,
                                int n_groups, int max_group_rows, int n_steps,
-                               void* hist, int hidden, int tile, int n_tiles,
-                               int bandwidth, void* stream) {
+                               int cluster, void* hist, int hidden, int tile,
+                               int n_tiles, int bandwidth, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
     return launch_persistent<__nv_bfloat16, true>(
         h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
-        n_steps, hist, hidden, tile, n_tiles, bandwidth, st);
+        n_steps, cluster, hist, hidden, tile, n_tiles, bandwidth, st);
   return launch_persistent<float, true>(
       h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
-      n_steps, hist, hidden, tile, n_tiles, bandwidth, st);
+      n_steps, cluster, hist, hidden, tile, n_tiles, bandwidth, st);
+}
+
+// The instance of persistent_fwd_kernel that a launch with cluster blocks
+// a group and groups of up to max_group_rows rows runs: the blocks of it
+// one SM holds into *blocks and, for cluster > 1, the clusters of it the
+// card holds at once into *clusters (0 for cluster 1).
+int persistent_fwd_occupancy(int vals_bf16, int max_group_rows, int hidden,
+                             int cluster, int* blocks, int* clusters) {
+  *clusters = 0;
+  if (cluster != 1 && cluster != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vals_bf16)
+    return cluster == 1
+               ? fwd_occupancy<__nv_bfloat16, 1>(max_group_rows, hidden,
+                                                 blocks, clusters)
+               : fwd_occupancy<__nv_bfloat16, 2>(max_group_rows, hidden,
+                                                 blocks, clusters);
+  return cluster == 1
+             ? fwd_occupancy<float, 1>(max_group_rows, hidden, blocks,
+                                       clusters)
+             : fwd_occupancy<float, 2>(max_group_rows, hidden, blocks,
+                                       clusters);
 }
 
 }  // extern "C"

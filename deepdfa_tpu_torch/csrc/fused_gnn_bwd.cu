@@ -83,18 +83,28 @@
 //   (gate backward; dx and dhl to device memory), pass 1 (dmsg = A^T dx,
 //   dh = dhl + dmsg W_e^T).
 // * Persistent: one block per closed row group (no edge leaves it, so
-//   A^T does not either). The block keeps the group's cotangent dh, h_s,
-//   the aggregate (then dmsg) and dx in shared memory, (4H + 1) * 4 bytes
-//   a row, from step K-1 down to 0; h_s comes from the recompute sweep's
-//   hist (persistent_fwd_hist_kernel) or h_0. ops/fused_gnn.py:
-//   persistent_bwd_smem_ok gates it against 227 KB; a batch over the gate
-//   runs fused_step_bwd_kernel K times instead.
-// * The step kernels are the simple version: the same chunked CUDA-core
-//   products as the forward, no tensor cores, no staging of weights.
+//   A^T does not either). The block keeps the group's cotangent dh, h (then
+//   dx) and the aggregate (then x, then dmsg) in shared memory, three row
+//   arrays, from step K-1 down to 0; h comes from the recompute sweep's
+//   hist (persistent_fwd_hist_kernel) or h_0, and dp goes through device
+//   memory (the weight pass reads it anyway). Bound by f32 operations
+//   (0.57 ms for 5 steps at the training batch); the simple kernel of the
+//   first port ran at 11 % of it, slower than its own plain version: six
+//   weight matrices (~900 KB) re-read from L2 for every 16-row chunk. This
+//   one runs the forward's register-tiled, slab-streamed products
+//   (group_step.cuh) for the recompute, the dx/dh pair (j over 3H against
+//   [w_i^T | w_h^T] slabs) and dmsg W_e^T, with two blocks an SM (113,088
+//   bytes for groups of 48 rows; ops/fused_gnn.py:persistent_bwd_smem_ok
+//   gates it against 227 KB, and a batch over the gate runs
+//   fused_step_bwd_kernel K times instead). Each element keeps
+//   fused_step_bwd_kernel's FMA chain: the sweep equals its scan bit for
+//   bit.
+// * The per-step kernels stay the simple version: the chunked CUDA-core
+//   products of gated_step.cuh, no staging of weights.
 
 #include <stdint.h>
 
-#include "gated_step.cuh"
+#include "group_step.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -153,8 +163,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The reverse sweep, one block a row group. Shared memory: kStages weight-slab
+// stages, then dh_s (the resident cotangent), h_s (the step's input h,
+// then dx: h is dead once the gate's cotangents are out) and a_s (the
+// aggregate, then x, then dmsg), [max_rows, ld] each, then the row sums.
 template <typename VT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGroupThreads, 2)
     persistent_bwd_kernel(const float* __restrict__ h0,
                           const float* __restrict__ hist,
                           const VT* __restrict__ vals,
@@ -172,52 +186,69 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ groups, float* xbuf,
                           float* dpbuf, float* dmsgbuf, float* dh_out,
                           int n_rows, int H, int tile, int n_tiles, int bw,
-                          int n_steps) {
+                          int n_steps, int max_rows) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Tile t(H, 0, 1);
   const int g0 = groups[blockIdx.x], g1 = groups[blockIdx.x + 1];
-  const int R = g1 - g0;
-  float* dh_s = smem;            // [R, H] the resident cotangent
-  float* h_s = dh_s + R * H;     // [R, H] h_s, the step's input
-  float* a_s = h_s + R * H;      // [R, H] aggregate -> x, then dmsg
-  float* dx_s = a_s + R * H;     // [R, H] dx
-  float* rs_s = dx_s + R * H;    // [R] adjacency row sums
+  const int R = g1 - g0, ld = t.ld;
+  float* stages = smem;                              // [kStages][stage]
+  float* dh_s = stages + kStages * group_stage_floats(H);  // [R, ld] cotangent
+  float* h_s = dh_s + max_rows * ld;                 // [R, ld] h, then dx
+  float* a_s = h_s + max_rows * ld;                  // [R, ld] agg, x, dmsg
+  float* rs_s = a_s + max_rows * ld;                 // [R] row sums
   const size_t goff = static_cast<size_t>(g0) * H;
   const size_t plane = static_cast<size_t>(n_rows) * H;
-  for (int i = tid; i < R * H; i += kThreads) dh_s[i] = g[goff + i];
+  rows_to_shared(dh_s, ld, g + goff, R, H);
   for (int s = n_steps - 1; s >= 0; --s) {
     const float* src = s == 0 ? h0 : hist + (s - 1) * plane;
-    for (int i = tid; i < R * H; i += kThreads) h_s[i] = src[goff + i];
+    rows_to_shared(h_s, ld, src + goff, R, H);
     __syncthreads();
-    for (int lr = warp; lr < R; lr += kWarps)
-      warp_aggregate_row(vals, g0 + lr, tile, n_tiles, bw, h_s, g0, g0, g1,
-                         H, a_s + lr * H, rs_s + lr, lane);
+    group_aggregate(vals, tile, n_tiles, bw, h_s, ld, g0, g1, H, a_s, rs_s);
     __syncthreads();
-    for (int c0 = 0; c0 < R; c0 += kChunk)
-      chunk_edge_linear(a_s, rs_s, c0, min(kChunk, R - c0), ek, eb, H, tid);
-    __syncthreads();
-    float* x_step = xbuf + s * plane + goff;
+    group_rows_times(t, a_s, R, ek, stages, [&](int r, const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a_s[r * ld + t.c0 + j] =
+            edge_out(acc[j], rs_s[r], __ldg(eb + t.c0 + j));
+    });
+    rows_to_global(xbuf + s * plane + goff, a_s, ld, R, H);
     float* dp_step = dpbuf + 4 * (s * plane + goff);
-    for (int i = tid; i < R * H; i += kThreads) x_step[i] = a_s[i];
-    for (int c0 = 0; c0 < R; c0 += kChunk)
-      chunk_gate_bwd_a(a_s, h_s, c0, min(kChunk, R - c0), wi, bi, wh, bh, H,
-                       dh_s, dp_step, dh_s, tid);
+    group_gate(t, a_s, h_s, R, wi, wh, stages,
+               [&](int r, const float* pr, const float* pz, const float* gn,
+                   const float* hn) {
+                 float d[4][4];
+#pragma unroll
+                 for (int j = 0; j < 4; ++j) {
+                   const int e = r * ld + t.c0 + j;
+                   const GateGrads gg = gate_bwd_out(
+                       pr[j], pz[j], gn[j], hn[j],
+                       gate_bias(bi, bh, H, t.c0 + j), h_s[e], dh_s[e]);
+                   d[0][j] = gg.dr;
+                   d[1][j] = gg.dz;
+                   d[2][j] = gg.dn;
+                   d[3][j] = gg.dhn;
+                   dh_s[e] = gg.dhc;
+                 }
+                 float* dprow = dp_step + static_cast<size_t>(r) * 4 * H;
+#pragma unroll
+                 for (int b = 0; b < 4; ++b)
+                   *reinterpret_cast<float4*>(dprow + b * H + t.c0) =
+                       make_float4(d[b][0], d[b][1], d[b][2], d[b][3]);
+               });
+    // dp (device memory) of every row is visible to the block.
+    group_gate_bwd_b(t, dp_step, R, wiT, whT, stages, h_s, dh_s);
+    group_aggregate(tvals, tile, n_tiles, bw, h_s, ld, g0, g1, H, a_s, rs_s);
     __syncthreads();
-    for (int c0 = 0; c0 < R; c0 += kChunk)
-      chunk_gate_bwd_b(dp_step, c0, min(kChunk, R - c0), wiT, whT, H, dx_s,
-                       dh_s, tid);
-    __syncthreads();
-    for (int lr = warp; lr < R; lr += kWarps)
-      warp_aggregate_row(tvals, g0 + lr, tile, n_tiles, bw, dx_s, g0, g0, g1,
-                         H, a_s + lr * H, rs_s + lr, lane);
-    __syncthreads();
-    float* dmsg_step = dmsgbuf + s * plane + goff;
-    for (int i = tid; i < R * H; i += kThreads) dmsg_step[i] = a_s[i];
-    for (int c0 = 0; c0 < R; c0 += kChunk)
-      chunk_edge_bwd(a_s, c0, min(kChunk, R - c0), ekT, H, dh_s, dh_s, tid);
-    __syncthreads();
+    rows_to_global(dmsgbuf + s * plane + goff, a_s, ld, R, H);
+    group_rows_times(t, a_s, R, ekT, stages, [&](int r, const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = r * ld + t.c0 + j;
+        dh_s[e] = dh_s[e] + acc[j];
+      }
+    });
   }
-  for (int i = tid; i < R * H; i += kThreads) dh_out[goff + i] = dh_s[i];
+  rows_to_global(dh_out + goff, dh_s, ld, R, H);
 }
 
 constexpr int kWTile = 128;     // output tile edge: all of H by 128 columns
@@ -228,30 +259,6 @@ constexpr int kWThreads = 256;  // 8 warps, each a 32 x 64 piece of the tile
 // the bias sums.
 constexpr size_t kWSmem =
     sizeof(float) * (6 * kWSlab * kWLd + kWTile);
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Pass 1: one 128 x 128 tile of one weight gradient (every row a of it
 // when H <= 128) for one step s = blockIdx.z over one split of the rows
@@ -477,6 +484,14 @@ int launch_fused_bwd(const void* h, const void* vals, const void* tvals,
   return 0;
 }
 
+// Dynamic shared memory of persistent_bwd_kernel for groups of up to
+// max_rows rows (ops/fused_gnn.py:persistent_bwd_smem_bytes mirrors it).
+size_t persistent_bwd_smem(int max_rows, int hidden) {
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
+          3 * static_cast<size_t>(max_rows) * group_ld(hidden) + max_rows);
+}
+
 template <typename VT>
 int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
                           const void* tvals, const void* g, const void* ek,
@@ -487,13 +502,12 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
                           int max_group_rows, int n_steps, void* x, void* dp,
                           void* dmsg, void* dh, int hidden, int tile,
                           int n_tiles, int bw, cudaStream_t st) {
-  const size_t smem =
-      static_cast<size_t>(max_group_rows) * (4 * hidden + 1) * sizeof(float);
+  const size_t smem = persistent_bwd_smem(max_group_rows, hidden);
   cudaError_t e = cudaFuncSetAttribute(
       persistent_bwd_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  persistent_bwd_kernel<VT><<<n_groups, kThreads, smem, st>>>(
+  persistent_bwd_kernel<VT><<<n_groups, kGroupThreads, smem, st>>>(
       static_cast<const float*>(h0), static_cast<const float*>(hist),
       static_cast<const VT*>(vals), static_cast<const VT*>(tvals),
       static_cast<const float*>(g), static_cast<const float*>(ek),
@@ -504,7 +518,7 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
       static_cast<const int*>(groups), static_cast<float*>(x),
       static_cast<float*>(dp), static_cast<float*>(dmsg),
       static_cast<float*>(dh), n_tiles * tile, hidden, tile, n_tiles, bw,
-      n_steps);
+      n_steps, max_group_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -606,4 +620,29 @@ int step_weight_grad_launch(const void* h0, const void* hist, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of persistent_bwd_kernel that fit one SM for groups of up to
+// max_group_rows rows, into *blocks.
+int persistent_bwd_occupancy(int vals_bf16, int max_group_rows, int hidden,
+                             int* blocks) {
+  const size_t smem = persistent_bwd_smem(max_group_rows, hidden);
+  cudaError_t e;
+  if (vals_bf16) {
+    e = cudaFuncSetAttribute(persistent_bwd_kernel<__nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, persistent_bwd_kernel<__nv_bfloat16>, kGroupThreads, smem);
+  } else {
+    e = cudaFuncSetAttribute(persistent_bwd_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, persistent_bwd_kernel<float>, kGroupThreads, smem);
+  }
+  return static_cast<int>(e);
+}
+
 }  // extern "C"
+

@@ -2,8 +2,11 @@
 // fused_gnn_bwd.cu). Forward and backward call the same code for the
 // same quantity (the aggregate, the edge linear, the gate
 // pre-activations), so a backward recomputes exactly the forward's f32
-// values, and the persistent kernels equal their per-step counterparts
-// bit for bit.
+// values. The per-element epilogues (edge_out, gate_out, gate_bwd_out)
+// are shared with the persistent kernels' register-tiled products
+// (group_step.cuh): nvcc contracts a*b+c into FMAs by expression, so one
+// expression in one place keeps the persistent kernels bit for bit equal
+// to the scan of the per-step ones.
 //
 // Layout conventions: a block has kThreads threads; in the dense chunk
 // products thread (col = tid % 128, half = tid / 128) owns hidden column
@@ -31,6 +34,63 @@ __device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// The edge linear's epilogue: x = (a W_e)[col] + rowsum(A) b_e[col].
+__device__ __forceinline__ float edge_out(float acc, float rs, float b) {
+  return acc + rs * b;
+}
+
+// The gate biases of column col: r and z add the input and recurrent
+// biases (the recurrent ones are 0 in the packed layout), n keeps them
+// apart (b_hn sits inside r * (.)).
+struct GateBias {
+  float r, z, in, hn;
+};
+
+__device__ __forceinline__ GateBias gate_bias(const float* __restrict__ bi,
+                                              const float* __restrict__ bh,
+                                              int H, int col) {
+  return {__ldg(bi + col) + __ldg(bh + col),
+          __ldg(bi + H + col) + __ldg(bh + H + col), __ldg(bi + 2 * H + col),
+          __ldg(bh + 2 * H + col)};
+}
+
+// h' of one element from its pre-activation sums and the carry hc. The
+// blend is the FMA nvcc formed from (1 - z) n + z hc where the first port
+// wrote it inline: written as an expression here, it may contract the
+// other product and move h' by an ulp.
+__device__ __forceinline__ float gate_out(float pr, float pz, float gn,
+                                          float hn, const GateBias& b,
+                                          float hc) {
+  const float rg = sigmoidf_(pr + b.r);
+  const float zg = sigmoidf_(pz + b.z);
+  const float ng = tanhf(gn + b.in + rg * (hn + b.hn));
+  return fmaf(1.0f - zg, ng, zg * hc);
+}
+
+// The gate's backward for one element: the output cotangent gv through
+// the recomputed gates gives the pre-activation cotangents (dp's four
+// blocks: dpre_r, dpre_z, dpre_n, dpre_hn) and the direct carry
+// cotangent dhc = gv * z.
+struct GateGrads {
+  float dr, dz, dn, dhn, dhc;
+};
+
+__device__ __forceinline__ GateGrads gate_bwd_out(float pr, float pz,
+                                                  float gn, float hn,
+                                                  const GateBias& b, float hc,
+                                                  float gv) {
+  const float rg = sigmoidf_(pr + b.r);
+  const float zg = sigmoidf_(pz + b.z);
+  const float pre_hn = hn + b.hn;
+  const float ng = tanhf(gn + b.in + rg * pre_hn);
+  const float dz = gv * (hc - ng);
+  const float dn = gv * (1.0f - zg);
+  const float dpre_n = dn * (1.0f - ng * ng);
+  const float drg = dpre_n * pre_hn;
+  return {drg * rg * (1.0f - rg), dz * zg * (1.0f - zg), dpre_n,
+          dpre_n * rg, gv * zg};
 }
 
 // agg_row[:] = sum_s A[r, s] * hsrc[s - hbase][:] and *rs_out = sum_s A[r, s]
@@ -129,7 +189,7 @@ __device__ void chunk_edge_linear(float* a_s, const float* rs_s, int row0,
       const int li = half * kRowsPerThread + i;
       if (li < nrows) {
         const int lr = row0 + li;
-        a_s[lr * H + col] = acc[i] + rs_s[lr] * b;
+        a_s[lr * H + col] = edge_out(acc[i], rs_s[lr], b);
       }
     }
   }
@@ -198,20 +258,14 @@ __device__ void chunk_gate(const float* x_s, const float* h_s, int row0,
     gate_preacts(x_s, h_s, row0, nrows, wi, wh, H, col, half, pr, pz, gn, hn);
   __syncthreads();  // every read of this chunk's h rows is done
   if (active) {
-    const float b_r = __ldg(bi + col) + __ldg(bh + col);
-    const float b_z = __ldg(bi + H + col) + __ldg(bh + H + col);
-    const float b_in = __ldg(bi + 2 * H + col);
-    const float b_hn = __ldg(bh + 2 * H + col);
+    const GateBias b = gate_bias(bi, bh, H, col);
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int li = half * kRowsPerThread + i;
       if (li < nrows) {
         const int lr = row0 + li;
-        const float rg = sigmoidf_(pr[i] + b_r);
-        const float zg = sigmoidf_(pz[i] + b_z);
-        const float ng = tanhf(gn[i] + b_in + rg * (hn[i] + b_hn));
-        const float hc = h_s[lr * H + col];
-        dst[lr * H + col] = (1.0f - zg) * ng + zg * hc;
+        dst[lr * H + col] =
+            gate_out(pr[i], pz[i], gn[i], hn[i], b, h_s[lr * H + col]);
       }
     }
   }
@@ -239,31 +293,20 @@ __device__ void chunk_gate_bwd_a(const float* x_s, const float* h_s,
   if (active)
     gate_preacts(x_s, h_s, row0, nrows, wi, wh, H, col, half, pr, pz, gn, hn);
   if (active) {
-    const float b_r = __ldg(bi + col) + __ldg(bh + col);
-    const float b_z = __ldg(bi + H + col) + __ldg(bh + H + col);
-    const float b_in = __ldg(bi + 2 * H + col);
-    const float b_hn = __ldg(bh + 2 * H + col);
+    const GateBias b = gate_bias(bi, bh, H, col);
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int li = half * kRowsPerThread + i;
       if (li < nrows) {
         const int lr = row0 + li;
-        const float rg = sigmoidf_(pr[i] + b_r);
-        const float zg = sigmoidf_(pz[i] + b_z);
-        const float pre_hn = hn[i] + b_hn;
-        const float ng = tanhf(gn[i] + b_in + rg * pre_hn);
-        const float hc = h_s[lr * H + col];
-        const float gv = g[lr * H + col];
-        const float dz = gv * (hc - ng);
-        const float dn = gv * (1.0f - zg);
-        const float dpre_n = dn * (1.0f - ng * ng);
-        const float drg = dpre_n * pre_hn;
+        const GateGrads d = gate_bwd_out(pr[i], pz[i], gn[i], hn[i], b,
+                                         h_s[lr * H + col], g[lr * H + col]);
         float* dprow = dp + static_cast<size_t>(lr) * 4 * H;
-        dprow[col] = drg * rg * (1.0f - rg);
-        dprow[H + col] = dz * zg * (1.0f - zg);
-        dprow[2 * H + col] = dpre_n;
-        dprow[3 * H + col] = dpre_n * rg;
-        dhc_dst[lr * H + col] = gv * zg;
+        dprow[col] = d.dr;
+        dprow[H + col] = d.dz;
+        dprow[2 * H + col] = d.dn;
+        dprow[3 * H + col] = d.dhn;
+        dhc_dst[lr * H + col] = d.dhc;
       }
     }
   }

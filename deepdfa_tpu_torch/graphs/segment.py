@@ -1,5 +1,7 @@
 """Segment ops (port of ``deepdfa_tpu/graphs/segment.py``): masked
-per-segment sums and softmax with ``index_add_`` and ``scatter_reduce``.
+per-segment sums and softmax with ``index_add_`` and ``scatter_reduce``,
+and the dense assignment matrix that turns a masked segment sum into a
+matmul.
 """
 
 from __future__ import annotations
@@ -25,6 +27,18 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
                      dtype=data.dtype, device=data.device)
     return out.scatter_reduce(0, segment_ids.long(), data, "amax",
                               include_self=True)
+
+
+def segment_onehot(segment_ids: torch.Tensor, num_segments: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense f32 assignment matrix ``M`` [num_segments, n]: ``M @ x`` is
+    the masked ``segment_sum(x)`` as one matmul, whose backward is a
+    matmul too. Structural: it carries no gradient."""
+    m = segment_ids.long()[None, :] == torch.arange(
+        num_segments, device=segment_ids.device)[:, None]
+    if mask is not None:
+        m = m & mask[None, :]
+    return m.to(torch.float32)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,

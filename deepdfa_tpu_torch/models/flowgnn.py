@@ -39,7 +39,11 @@ from torch import nn
 from deepdfa_tpu_torch.core.config import FlowGNNConfig, subkeys_for
 from deepdfa_tpu_torch.core.device import DeviceLike, resolve_device
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
-from deepdfa_tpu_torch.graphs.segment import segment_softmax, segment_sum
+from deepdfa_tpu_torch.graphs.segment import (
+    segment_onehot,
+    segment_softmax,
+    segment_sum,
+)
 from deepdfa_tpu_torch.ops import fused_gnn
 from deepdfa_tpu_torch.ops.band_spmm import band_spmm
 from deepdfa_tpu_torch.ops.tile_spmm import tile_spmm
@@ -179,19 +183,45 @@ class GatedGraphStep(nn.Module):
 
 
 class GlobalAttentionPool(nn.Module):
-    """Masked per-graph attention pooling (segment form): gate logits
-    softmaxed over each graph's nodes, then a weighted node sum."""
+    """Masked per-graph attention pooling: gate logits softmaxed over each
+    graph's nodes, then a weighted node sum.
 
-    def __init__(self, width: int, gen: torch.Generator):
+    ``impl="segment"``: scatter sums (``index_add_``). ``impl="matmul"``:
+    the reference's assignment-matrix form (``pool_impl="matmul"``):
+    every per-graph sum and graph-to-node broadcast is a matmul with
+    :func:`segment_onehot`, and the softmax shift (each graph's largest
+    logit, the segment form's values) carries no gradient. On CUDA
+    ``index_add_`` adds with atomics in whatever order the threads
+    arrive; the matmuls sum in one order, so a training run on the card
+    repeats its bits. ``impl="auto"``: matmul on CUDA, segment on the CPU.
+    """
+
+    def __init__(self, width: int, gen: torch.Generator, impl: str = "auto"):
         super().__init__()
         self.gate = _linear(width, 1, gen)
+        self.impl = impl
 
     def forward(self, feat, node_graph, node_mask, n_graphs: int):
         gate = self.gate(feat)[:, 0]
-        weights = segment_softmax(gate, node_graph, n_graphs, mask=node_mask)
-        weighted = feat * weights[:, None]
-        weighted = torch.where(node_mask[:, None], weighted, 0.0)
-        return segment_sum(weighted, node_graph, n_graphs)
+        impl = self.impl
+        if impl == "auto":
+            impl = "matmul" if feat.is_cuda else "segment"
+        if impl == "segment":
+            weights = segment_softmax(gate, node_graph, n_graphs,
+                                      mask=node_mask)
+            weighted = feat * weights[:, None]
+            weighted = torch.where(node_mask[:, None], weighted, 0.0)
+            return segment_sum(weighted, node_graph, n_graphs)
+        onehot = segment_onehot(node_graph, n_graphs, mask=node_mask)
+        gate = torch.where(node_mask, gate, -torch.inf)
+        with torch.no_grad():
+            shift = torch.where(onehot != 0, gate[None, :],
+                                -torch.inf).amax(dim=1)
+            shift = torch.where(torch.isneginf(shift), 0.0, shift)
+        e = torch.where(node_mask, torch.exp(gate - shift @ onehot), 0.0)
+        denom = onehot @ e
+        denom = torch.where(denom > 0, denom, 1.0)  # empty graphs pool to 0
+        return (onehot @ (feat * e[:, None])) / denom[:, None]
 
 
 class FlowGNN(nn.Module):
@@ -213,6 +243,8 @@ class FlowGNN(nn.Module):
                                        "persistent"):
             raise ValueError(
                 f"message_impl {config.message_impl!r} is not ported")
+        if config.pool_impl not in ("auto", "segment", "matmul"):
+            raise ValueError(f"unknown pool_impl {config.pool_impl!r}")
         dev = resolve_device(device)
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(seed))
@@ -225,7 +257,8 @@ class FlowGNN(nn.Module):
             config.ggnn_hidden, config.embedding_dim, gen,
             message_impl=config.message_impl)
         if config.label_style == "graph":
-            self.pooling = GlobalAttentionPool(config.out_dim, gen)
+            self.pooling = GlobalAttentionPool(config.out_dim, gen,
+                                               impl=config.pool_impl)
         if not config.encoder_mode:
             self.head = nn.ModuleDict({
                 f"output_{i}": _linear(

@@ -36,8 +36,10 @@ SOURCES: Dict[str, str] = {
 #: that library's hash (and no other's, so editing one header rebuilds
 #: only the libraries that include it).
 HEADERS: Dict[str, Tuple[str, ...]] = {
-    "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),),
+    "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),
+                  os.path.join("csrc", "group_step.cuh")),
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),
+                      os.path.join("csrc", "group_step.cuh"),
                       os.path.join("csrc", "tf32_mma.cuh")),
     "flash_attn": (os.path.join("csrc", "tf32_mma.cuh"),),
     "flash_bwd_fused": (os.path.join("csrc", "tf32_mma.cuh"),),
@@ -62,14 +64,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "fused_step_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
         # h0, vals, vals_bf16, ek, eb, wi, bi, wh, bh, groups, n_groups,
-        # max_group_rows, n_steps, out, hidden, tile, n_tiles, bandwidth,
-        # stream
+        # max_group_rows, n_steps, cluster, out, hidden, tile, n_tiles,
+        # bandwidth, stream
         "persistent_fwd_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _I, _P, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _P, _I, _I, _I, _I, _P],
         # the same arguments, hist in place of out
         "persistent_fwd_hist_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                       _P, _I, _I, _I, _P, _I, _I, _I, _I,
-                                       _P],
+                                       _P, _I, _I, _I, _I, _P, _I, _I, _I,
+                                       _I, _P],
+        # vals_bf16, max_group_rows, hidden, cluster, blocks, clusters
+        # (int outs)
+        "persistent_fwd_occupancy": [_I, _I, _I, _I, _P, _P],
     },
     "fused_gnn_bwd": {
         # h, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT, whT,
@@ -88,6 +93,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # partial, dek, deb, dwi, dbi, dwh, dbh, stream
         "step_weight_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                     _P, _P, _P, _P, _P, _P, _P],
+        # vals_bf16, max_group_rows, hidden, blocks (int out)
+        "persistent_bwd_occupancy": [_I, _I, _I, _P],
     },
     "flash_attn": {
         # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream

@@ -8,10 +8,11 @@ live in tile ``t + (i - B)``. :func:`band_spmm` aggregates with 2B+1
 batched matmuls; it is plain XLA in the reference and stays plain torch
 here.
 
-The same fact gives the persistent CUDA kernel its work split: the host
-cuts the rows into ranges that no edge crosses (:func:`closed_row_groups`)
-so one thread block can own a range and keep its hidden state on chip
-across all gated steps.
+The same fact gives the persistent CUDA kernels their work split: the
+host cuts the rows into ranges that no edge crosses
+(:func:`closed_row_groups`) so one thread block, or one thread-block
+cluster, can own a range and keep its hidden state on chip across all
+gated steps.
 """
 
 from __future__ import annotations
@@ -31,8 +32,12 @@ from deepdfa_tpu_torch.ops.tile_spmm import (
 
 #: Rows a persistent-kernel row group aims for. A group is made of whole
 #: closed components (graphs, or single padding rows), so a graph larger
-#: than this becomes a group of its own. Small groups mean many thread
-#: blocks: the serving bucket (1024 rows) splits into ~30 of them.
+#: than this becomes a group of its own. 32 rows are one pass of the
+#: persistent kernels' register tile at H 128 (csrc/group_step.cuh), so a
+#: group of up to 32 rows reads each weight slab from L2 once a step; small
+#: groups also mean many thread blocks (523 at the training batch, 34 at
+#: the serving bucket, where ops/fused_gnn.py:persistent_cluster_size
+#: spreads each over a cluster). 64-row groups ran slower on an H100.
 PERSISTENT_GROUP_ROWS = 32
 
 

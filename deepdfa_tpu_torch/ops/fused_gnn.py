@@ -66,7 +66,7 @@ from deepdfa_tpu_torch.ops.band_spmm import (
 )
 
 #: Dynamic shared memory one H100 block may opt into (227 KB). The
-#: persistent kernel holds its row group's h and aggregate there.
+#: persistent kernels hold their row group's rows there.
 PERSISTENT_SMEM_BUDGET_BYTES = 232_448
 
 #: The kernels map one thread to one hidden column.
@@ -148,36 +148,115 @@ def packed_weights(params: Mapping) -> Tuple[torch.Tensor, ...]:
     return ek, eb, wi, bi, wh, bh
 
 
-def persistent_smem_bytes(adj: BandAdjacency, hidden: int) -> int:
-    """Shared memory of ``persistent_fwd_kernel``'s largest block: the
-    group's resident h and aggregate (f32) plus one row sum a row."""
-    return adj.max_group_rows * (2 * hidden + 1) * 4
+#: The persistent kernels' weight-slab stages (``kStages`` in
+#: ``csrc/group_step.cuh``), each ``kGateRows`` k rows of ``[w_i | w_h]``.
+PERSISTENT_STAGES = 3
+PERSISTENT_SLAB_ROWS = 4
+
+
+def persistent_row_stride(hidden: int) -> int:
+    """Floats a row of the persistent kernels' shared row arrays: the
+    hidden width rounded up to 32, 64 or 128 (whole warps of 4-column
+    groups) plus 4, so 4 consecutive rows fall on distinct banks."""
+    return (32 if hidden <= 32 else 64 if hidden <= 64 else 128) + 4
+
+
+def _persistent_smem(adj: BandAdjacency, hidden: int, row_arrays: int) -> int:
+    hp = persistent_row_stride(hidden) - 4
+    stages = PERSISTENT_STAGES * PERSISTENT_SLAB_ROWS * 6 * hp
+    rows = adj.max_group_rows
+    return 4 * (stages + row_arrays * rows * persistent_row_stride(hidden)
+                + rows)
+
+
+def persistent_smem_bytes(adj: BandAdjacency, hidden: int,
+                          cluster: int = 1) -> int:
+    """Shared memory of ``persistent_fwd_kernel``'s blocks (every block
+    gets the largest group's): the weight-slab stages, the group's
+    resident h and its aggregate (x) at :func:`persistent_row_stride`, a
+    third such array (x apart from the aggregate) when ``cluster`` blocks
+    share a group, one row sum a row. 87,744 bytes for groups of 48 rows
+    at H 128 (two blocks an SM)."""
+    return _persistent_smem(adj, hidden, 2 if cluster == 1 else 3)
 
 
 def persistent_smem_ok(adj: BandAdjacency, hidden: int) -> bool:
     """The persistent kernel's eligibility gate (replaces the
     reference's 12 MiB VMEM budget): the adjacency carries closed row
-    groups and the largest fits a block's shared memory. Over the gate
-    the model runs ``fused_step_kernel`` ``n_steps`` times instead."""
+    groups and the largest fits a block's shared memory (184 rows at
+    H 128). Over the gate the model runs ``fused_step_kernel``
+    ``n_steps`` times instead."""
     return (adj.row_groups is not None
             and persistent_smem_bytes(adj, hidden)
             <= PERSISTENT_SMEM_BUDGET_BYTES)
 
 
+#: Blocks of a thread-block cluster that share a row group where the
+#: groups are fewer than the SMs.
+PERSISTENT_CLUSTER = 2
+
+
+def persistent_cluster_size(adj: BandAdjacency, hidden: int,
+                            sms: int) -> int:
+    """Blocks of ``persistent_fwd_kernel`` a row group gets on a card with
+    ``sms`` SMs: :data:`PERSISTENT_CLUSTER` where those blocks still fit
+    one to an SM, each owning a slice of at least 32 product columns, with
+    the three row arrays in shared memory; else 1. The serving bucket (34
+    groups of up to 48 rows, H 128, 132 SMs) gets 2, the training batch
+    (523 groups) 1. Host ints only: no device read."""
+    n_groups = adj.row_groups.numel() - 1
+    hp = persistent_row_stride(hidden) - 4
+    cs = PERSISTENT_CLUSTER
+    if (n_groups * cs <= sms and hp // cs >= 32
+            and persistent_smem_bytes(adj, hidden, cs)
+            <= PERSISTENT_SMEM_BUDGET_BYTES):
+        return cs
+    return 1
+
+
 def persistent_bwd_smem_bytes(adj: BandAdjacency, hidden: int) -> int:
-    """Shared memory of ``persistent_bwd_kernel``'s largest block: the
-    group's resident cotangent, h_s, aggregate and dx (f32) plus one row
-    sum a row."""
-    return adj.max_group_rows * (4 * hidden + 1) * 4
+    """Shared memory of ``persistent_bwd_kernel``'s blocks: the weight-slab
+    stages, the group's resident cotangent, h (then dx) and the aggregate
+    (then x, then dmsg), one row sum a row. 113,088 bytes for groups of
+    48 rows at H 128: two blocks an SM."""
+    return _persistent_smem(adj, hidden, 3)
 
 
 def persistent_bwd_smem_ok(adj: BandAdjacency, hidden: int) -> bool:
     """The persistent backward's gate, as :func:`persistent_smem_ok` with
-    its ``(4H + 1) * 4`` bytes a row (113 rows at H 128). A training batch
-    over it runs the fused step forward and backward ``n_steps`` times."""
+    three row arrays (123 rows at H 128). A training batch over it runs
+    the fused step forward and backward ``n_steps`` times."""
     return (adj.row_groups is not None
             and persistent_bwd_smem_bytes(adj, hidden)
             <= PERSISTENT_SMEM_BUDGET_BYTES)
+
+
+def persistent_occupancy(adj: BandAdjacency, hidden: int,
+                         kernel: str = "persistent_fwd_kernel",
+                         cluster: int = 1) -> dict:
+    """The CUDA occupancy query (registers, shared memory, threads) for the
+    instance of ``persistent_fwd_kernel`` (its hist instance is the same
+    code) or ``persistent_bwd_kernel`` that a launch at this adjacency's
+    largest group runs, ``cluster`` blocks a group (the forward only):
+    ``blocks_per_sm``, the blocks one SM holds, and ``active_clusters``,
+    the clusters the card holds at once (None for cluster 1)."""
+    from deepdfa_tpu_torch.ops import _build
+
+    bf16 = int(adj.vals.dtype == torch.bfloat16)
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    if kernel == "persistent_fwd_kernel":
+        err = _build.load("fused_gnn").persistent_fwd_occupancy(
+            bf16, adj.max_group_rows, hidden, cluster, ctypes.byref(blocks),
+            ctypes.byref(clusters))
+    elif kernel == "persistent_bwd_kernel" and cluster == 1:
+        err = _build.load("fused_gnn_bwd").persistent_bwd_occupancy(
+            bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
+    else:
+        raise ValueError(f"no occupancy query for {kernel} in clusters of "
+                         f"{cluster}")
+    _raise_on_error(err, f"{kernel} occupancy")
+    return dict(blocks_per_sm=blocks.value,
+                active_clusters=clusters.value if cluster > 1 else None)
 
 
 def _check_cuda_inputs(h: torch.Tensor, adj: BandAdjacency) -> None:
@@ -412,10 +491,14 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
             out = torch.empty_like(h)
             fn, steps, name = (lib.persistent_fwd_launch, n_steps,
                                "persistent_fwd_kernel")
+        cluster = persistent_cluster_size(
+            adj, hidden,
+            torch.cuda.get_device_properties(h.device).multi_processor_count)
         err = fn(_ptr(h), _ptr(adj.vals), bf16, _ptr(ek), _ptr(eb), _ptr(wi),
                  _ptr(bi), _ptr(wh), _ptr(bh), _ptr(groups),
-                 groups.numel() - 1, adj.max_group_rows, steps, _ptr(out),
-                 hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
+                 groups.numel() - 1, adj.max_group_rows, steps, cluster,
+                 _ptr(out), hidden, adj.tile, adj.n_tiles, adj.bandwidth,
+                 stream)
         _raise_on_error(err, name)
     return out
 

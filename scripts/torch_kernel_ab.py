@@ -1,22 +1,27 @@
-"""Time the port's GNN train-path, tile SpMM and flash-attention kernels
-of two checkouts on one card, in turns.
+"""Time the port's GNN, tile SpMM and flash-attention kernels of two
+checkouts on one card, in turns.
 
     python3 scripts/torch_kernel_ab.py OLD_DIR NEW_DIR [--out FILE]
 
-Each checkout's own ``chip_smoke.py`` runs its device, build,
-``train_kernels`` (the GNN kernels at the training shape, the weight
-pass ``step_weight_grad_kernel`` among them), ``tile_kernels`` and
-``attention_kernels`` phases in a process of its own, in the order OLD,
-NEW, NEW, OLD, so that a drift of the card or its host over the call
-shows as a gap between the two runs of one checkout. Prints one JSON
-object: for each checkout and run, each kernel's ``kernel_ms``,
-``plain_ms``, ``library_ms`` and bound at each shape (and over A and A^T
-for the tile product), and the card's name and power limit; whether the
-fused flash backward gave the same output bits in every run
-(``fused_bits_equal``), and whether the flash forward's output and lse
-did in the two runs of each checkout (``fwd_bits_equal``: each run
-hashes them on chip_smoke's seeded T 512 inputs). Needs one NVIDIA GPU;
-the checkouts build their kernels into their own trees.
+Each checkout's own ``chip_smoke.py`` runs its device, build, ``kernels``
+(the two GNN forward kernels at the serving and flagship shapes),
+``train_kernels`` (the GNN kernels at the training shape, the persistent
+pair and the weight pass ``step_weight_grad_kernel`` among them),
+``tile_kernels`` and ``attention_kernels`` phases in a process of its
+own, in the order OLD, NEW, NEW, OLD, so that a drift of the card or its
+host over the call shows as a gap between the two runs of one checkout.
+Prints one JSON object: for each checkout and run, each kernel's
+``kernel_ms``, ``plain_ms``, ``library_ms``, ``scan_ms`` (a persistent
+kernel's per-step scan, where the checkout times it) and bound at each
+shape (and over A and A^T for the tile product), and the card's name and
+power limit; whether the fused flash backward gave the same output bits
+in every run (``fused_bits_equal``), whether the flash forward's output
+and lse did in the two runs of each checkout (``fwd_bits_equal``: each
+run hashes them on chip_smoke's seeded T 512 inputs), and whether
+``fused_step_kernel``'s output and ``fused_step_bwd_kernel``'s four
+outputs on the training batch hashed equal in every run of both
+checkouts (``gnn_step_bits_equal``). Needs one NVIDIA GPU; the checkouts
+build their kernels into their own trees.
 """
 
 from __future__ import annotations
@@ -28,20 +33,35 @@ import subprocess
 import sys
 
 PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
-          "cs.phase_train_kernels(cs.FlowGNN(cs.FlowGNNConfig("
-          "message_impl='persistent'), device='cuda', seed=cs.SEED)); "
+          "model = cs.FlowGNN(cs.FlowGNNConfig(message_impl='persistent'), "
+          "device='cuda', seed=cs.SEED); cs.phase_kernels(model); "
+          "cs.phase_train_kernels(model); "
           "cs.phase_tile_kernels(); cs.phase_attention_kernels(); "
           # The fused flash backward's output bits, and the forward's, on
           # chip_smoke's seeded T 512 inputs.
-          "import hashlib; A = cs.attention; "
+          "import hashlib, torch; A = cs.attention; F = cs.fused_gnn; "
           "sha = lambda xs: hashlib.sha256(b''.join("
           "x.cpu().numpy().tobytes() for x in xs)).hexdigest(); "
           "q, k, v, m, g = cs._attn_inputs(cs.ATTN_TRAIN_SHAPE, cs.SEED); "
           "o, lse = A.flash_fwd_reference(q, k, v, m); "
           "out = A.flash_bwd_fused(q, k, v, m, g, lse, A.flash_delta(o, g)); "
           "cs.emit(phase='fused_bits', sha256=sha(out)); "
-          "cs.emit(phase='fwd_bits', sha256=sha(A.flash_fwd(q, k, v, m)))")
-KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_us", "max_abs_err")
+          "cs.emit(phase='fwd_bits', sha256=sha(A.flash_fwd(q, k, v, m))); "
+          # fused_step_kernel's and fused_step_bwd_kernel's outputs on the
+          # training batch (embeddings of the seeded model, a seeded
+          # cotangent).
+          "torch.set_grad_enabled(False); "
+          "b = cs._training_batch(model); adj = b.band_adj; "
+          "h = torch.cat([model.embeds[s](b.node_feats[s]) "
+          "for s in model.subkeys], dim=-1).detach().contiguous(); "
+          "p = model.ggnn_step.step_params(); "
+          "gn = torch.Generator(device='cuda').manual_seed(cs.SEED); "
+          "gc = torch.randn(h.shape, generator=gn, device='cuda'); "
+          "cs.emit(phase='gnn_step_bits', sha256=sha("
+          "[F.fused_gate_step(p, h, adj)] + list(F.fused_step_bwd_rows("
+          "p, h, adj, gc))))")
+KEYS = ("kernel_ms", "plain_ms", "library_ms", "scan_ms", "bound_us",
+        "max_abs_err", "blocks_per_sm", "cluster", "active_clusters")
 
 
 def run(checkout: str) -> dict:
@@ -57,10 +77,11 @@ def run(checkout: str) -> dict:
         rec = json.loads(line)
         if rec.get("phase") == "device":
             out["device"] = rec["device"]
-        elif rec.get("phase") in ("fused_bits", "fwd_bits"):
+        elif rec.get("phase") in ("fused_bits", "fwd_bits",
+                                  "gnn_step_bits"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
-        elif rec.get("phase") in ("train_kernels", "tile_kernels",
-                                  "attention_kernels"):
+        elif rec.get("phase") in ("kernels", "train_kernels",
+                                  "tile_kernels", "attention_kernels"):
             where = rec.get("over") or rec.get("shape")
             out[f"{rec['kernel']}@{where}"] = {k: rec.get(k) for k in KEYS}
     return out
@@ -87,7 +108,9 @@ def main() -> int:
               "fused_bits_equal": len({run["fused_bits_sha256"]
                                        for run in runs}) == 1,
               "fwd_bits_equal": {label: len(hashes) == 1
-                                 for label, hashes in fwd.items()}}
+                                 for label, hashes in fwd.items()},
+              "gnn_step_bits_equal": len({run["gnn_step_bits_sha256"]
+                                          for run in runs}) == 1}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

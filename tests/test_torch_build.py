@@ -51,3 +51,25 @@ def test_shared_header_edit_changes_both_flash_hashes(tmp_path, monkeypatch):
     after = {name: _build.library_path(name) for name in _build.SOURCES}
     changed = {name for name in before if before[name] != after[name]}
     assert changed == {"flash_attn", "flash_bwd_fused", "fused_gnn_bwd"}
+
+
+@pytest.mark.parametrize("header", sorted({h for hs in _build.HEADERS.values()
+                                           for h in hs}))
+def test_header_edit_rebuilds_the_libraries_that_include_it(
+        tmp_path, monkeypatch, header):
+    # One byte more in a header renames exactly the libraries whose
+    # sources include it (group_step.cuh: both GNN libraries).
+    for rel in {*_build.SOURCES.values(),
+                *(h for hs in _build.HEADERS.values() for h in hs)}:
+        dst = tmp_path / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        with open(os.path.join(_build._PKG, rel), "rb") as f:
+            dst.write_bytes(f.read())
+    monkeypatch.setattr(_build, "_PKG", str(tmp_path))
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    (tmp_path / header).write_bytes((tmp_path / header).read_bytes() + b"\n")
+    changed = {name for name in before
+               if before[name] != _build.library_path(name)}
+    assert changed == {name for name in _build.SOURCES
+                       if header in _build.HEADERS[name]}
+    assert changed

@@ -8,9 +8,13 @@ fixture, never at import). On a machine with the card::
 This file imports nothing of JAX, so it also runs where JAX is absent.
 It covers what ``chip_smoke.py`` does not: f32 band values (a multiplicity
 that is not bf16-exact), wider bands, odd shapes, the over-gate dispatch
-and the refusals, for the forward kernels and the backward ones; and
-that ``loss.backward()`` through FlowGNN on the card gives the CPU
-model's parameter gradients in every kernel lane. The tile product is
+and the refusals, for the forward kernels and the backward ones; that
+the persistent pair equals the scan of the per-step kernels bit for bit
+(the serving bucket's 2-block clusters, a one-group batch's 2-block
+cluster, groups over a tile, H 32) and repeats its bits, with the
+occupancy of the instance each launch runs; and that
+``loss.backward()`` through FlowGNN on the card gives the CPU model's
+parameter gradients in every kernel lane. The tile product is
 held to its plain version over A and A^T at H 32, 128 and 30 (not a
 multiple of 4), with rows no edge reaches, an edgeless batch, a
 multiplicity of 300 and entries past ``ptr[N]`` that must change
@@ -19,7 +23,8 @@ pair are held to their plain versions and to each
 other, with whole key tiles of padding (also inside a row), and to their
 own bits across two launches; the GNN weight pass likewise, with row
 counts that are no multiple of its slab or split, 1 and 5 steps, and the
-fold of one-step calls bit for bit.
+fold of one-step calls bit for bit; and a FlowGNN backward on the card
+repeats its bits (the matmul pooling).
 """
 
 import dataclasses
@@ -36,6 +41,8 @@ from deepdfa_tpu_torch.ops import fused_gnn
 from deepdfa_tpu_torch.ops import tile_spmm as T
 from deepdfa_tpu_torch.ops.band_spmm import build_band_adjacency
 from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
+from deepdfa_tpu_torch.serve import ServeConfig
+from deepdfa_tpu_torch.serve.engine import bucket_batch
 
 pytestmark = pytest.mark.cuda
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -243,6 +250,100 @@ def test_backward_kernels_match_plain_versions(cuda, sizes, n, tile, hidden,
         params, h, adj, g, k)[1:])
 
 
+def _persistent_case(case):
+    """(band adjacency, hidden) of one persistent-kernel case."""
+    if case == "serving":
+        # The serving bucket: 16 synthetic graphs in 1024 rows, 34 groups.
+        graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=0)
+        return bucket_batch(ServeConfig(), graphs, 16, SUBKEYS,
+                            band=True).band_adj, 128
+    sizes, n, tile, hidden, bandwidth = {
+        # Groups over a tile, several passes each; 300 rows at H 64 pass
+        # the forward's gate, not the backward's.
+        "over_a_tile": ([300, 200, 48], 640, 128, 64, 2),
+        "over_a_tile_bwd": ([200, 150, 48], 512, 128, 64, 2),
+        "h32": ([30, 20, 9], 64, 16, 32, 4),
+        # One graph over every row: one group, so a 2-block cluster.
+        "one_group": ([112], 112, 16, 128, None),
+    }[case]
+    return _graph_adj(sizes, n, tile, bandwidth=bandwidth), hidden
+
+
+@pytest.mark.parametrize("case", ["serving", "over_a_tile",
+                                  "over_a_tile_bwd", "h32", "one_group"])
+def test_persistent_kernels_equal_the_per_step_scan(cuda, case):
+    # The persistent pair's claim: persistent_fwd_kernel is K launches of
+    # fused_step_kernel, its hist instance the states between them, and
+    # persistent_bwd_kernel the reverse scan of fused_step_bwd_kernel, bit
+    # for bit; each kernel repeats its own bits launch to launch.
+    adj, hidden = _persistent_case(case)
+    adj = adj.to(cuda)
+    groups = adj.row_groups.numel() - 1
+    assert {"serving": groups == 34, "one_group": groups == 1}.get(case, True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    # 2-block clusters where the groups are fewer than the SMs and the
+    # cluster's three row arrays fit (300 rows at H 64 do not; H 32 has
+    # no two slices of 32 columns).
+    assert fused_gnn.persistent_cluster_size(adj, hidden, sms) == (
+        1 if case in ("over_a_tile", "h32") else 2)
+    bwd = fused_gnn.persistent_bwd_smem_ok(adj, hidden)
+    assert fused_gnn.persistent_smem_ok(adj, hidden)
+    assert bwd == (case != "over_a_tile")
+    n, k = adj.n_tiles * adj.tile, 5
+    params = _params(hidden, cuda, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randn(n, hidden, generator=gen).to(cuda)
+    g = torch.randn(n, hidden, generator=gen).to(cuda)
+    states = [h]
+    for _ in range(k):
+        states.append(fused_gnn.fused_gate_step(params, states[-1], adj))
+    fused_gnn.reset_launch_counts()
+    out = fused_gnn.persistent_unroll(params, h, adj, k)
+    assert torch.equal(out, states[k])
+    assert torch.equal(fused_gnn.persistent_unroll(params, h, adj, k), out)
+    torch.testing.assert_close(out, fused_gnn.persistent_reference(
+        params, h, adj, k), **UNROLL_TOL)
+    hist = fused_gnn.persistent_hist(params, h, adj, k)
+    assert torch.equal(hist, torch.stack(states[1:k]))
+    assert torch.equal(fused_gnn.persistent_hist(params, h, adj, k), hist)
+    if not bwd:
+        return
+    rows = fused_gnn.persistent_bwd_rows(params, h, hist, adj, g, k)
+    gs, scan = g, [None] * k
+    for s in reversed(range(k)):
+        gs, *scan[s] = fused_gnn.fused_step_bwd_rows(params, states[s], adj,
+                                                     gs)
+    want = [gs] + [torch.stack([c[j] for c in scan]) for j in range(3)]
+    assert all(torch.equal(a, b) for a, b in zip(rows, want))
+    again = fused_gnn.persistent_bwd_rows(params, h, hist, adj, g, k)
+    assert all(torch.equal(a, b) for a, b in zip(again, rows))
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0), "persistent_fwd_kernel": 2,
+        "persistent_fwd_hist_kernel": 2, "persistent_bwd_kernel": 2,
+        "fused_step_bwd_kernel": k}
+
+
+@pytest.mark.parametrize("case,cluster,blocks", [
+    ("serving", 1, 2), ("serving", 2, 2), ("one_group", 2, 1)])
+def test_persistent_occupancy_of_the_launched_instance(cuda, case, cluster,
+                                                       blocks):
+    # 87,744 bytes (one block a group) or 113,088 (a cluster's third row
+    # array) at 48-row groups: two blocks an SM; 214,720 at 112 rows: one.
+    adj, hidden = _persistent_case(case)
+    occ = fused_gnn.persistent_occupancy(adj.to(cuda), hidden,
+                                         "persistent_fwd_kernel", cluster)
+    assert occ["blocks_per_sm"] == blocks
+    if cluster == 1:
+        assert occ["active_clusters"] is None
+    else:  # every group's cluster resident at once
+        assert occ["active_clusters"] >= adj.row_groups.numel() - 1
+    assert fused_gnn.persistent_occupancy(
+        adj.to(cuda), hidden, "persistent_bwd_kernel") == dict(
+            blocks_per_sm=2 if case == "serving" else 1,
+            active_clusters=None)
+
+
 def _flowgnn_grads(model, batch):
     from deepdfa_tpu_torch.train.loop import _labels_for, bce_with_logits
 
@@ -293,6 +394,26 @@ def test_flowgnn_backward_matches_cpu(cuda, impl):
                 "persistent_bwd_kernel": 1, "step_weight_grad_kernel": 1}
     assert counts == {**dict.fromkeys(ALL_KERNELS, 0), **want}
     assert model.over_gate_dispatches == 0
+
+
+def test_flowgnn_backward_repeats_its_bits(cuda):
+    # Every sum of the persistent lane's backward owns one order: the
+    # kernels', the matmul pooling's ("auto" on CUDA; the segment form's
+    # index_add_ adds with atomics, and a training run on the card took
+    # another loss trajectory from time to time).
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    cfg = FlowGNNConfig(feature=feature, message_impl="persistent")
+    graphs = synthetic_bigvul(64, feature, positive_fraction=0.5, seed=5)
+    budget = pad_budget_for(graphs, 64)
+    batch = batch_graphs(graphs, 64, align_to_tile(budget["max_nodes"]),
+                         budget["max_edges"], SUBKEYS,
+                         build_band_adj=True).to(cuda)
+    model = FlowGNN(cfg, device=cuda, seed=5)
+    assert model.pooling.impl == "auto"
+    first = {k: g.clone() for k, g in _flowgnn_grads(model, batch).items()}
+    for _ in range(3):
+        again = _flowgnn_grads(model, batch)
+        assert all(torch.equal(again[k], g) for k, g in first.items())
 
 
 @pytest.mark.parametrize("nodes,max_nodes", [(150, 256), (600, 640)])

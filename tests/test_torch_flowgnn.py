@@ -8,6 +8,8 @@ its wrappers take for CPU tensors. 1e-5 is the tolerance of
 tests/test_flowgnn.py:278.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -90,6 +92,30 @@ def test_node_label_logits_match_jax(impl, monkeypatch):
     got, want = _run_both(impl, monkeypatch, seed=2, label_style="node")
     assert got.shape == want.shape and got.shape[0] > 6
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("encoder_mode", [False, True])
+def test_matmul_pooling_matches_jax(encoder_mode, monkeypatch):
+    # pool_impl="matmul" on both sides: the assignment-matrix pooling that
+    # "auto" picks on the card (and the reference on its accelerator).
+    got, want = _run_both("segment", monkeypatch, seed=3,
+                          encoder_mode=encoder_mode, pool_impl="matmul")
+    assert got.shape == want.shape == ((6, 64) if encoder_mode else (6,))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_pool_impls_agree_and_an_unknown_one_raises():
+    _, cfg = _configs("segment")
+    _, batch = _batches(seed=4)
+    out = {}
+    for pool in ("segment", "matmul"):
+        model = FlowGNN(dataclasses.replace(cfg, pool_impl=pool),
+                        device="cpu", seed=4)
+        with torch.inference_mode():
+            out[pool] = model(batch)
+    torch.testing.assert_close(out["matmul"], out["segment"], **TOL)
+    with pytest.raises(ValueError, match="pool_impl"):
+        FlowGNN(dataclasses.replace(cfg, pool_impl="onehot"), device="cpu")
 
 
 def test_converted_tree_fills_every_port_parameter():

@@ -254,9 +254,12 @@ def test_persistent_shared_memory_gate():
     s, r, _ = _graph_edges(rng, [40] * 16)
     adj = pt_band.build_band_adjacency(s, r, np.ones(len(s), bool), 1024)
     assert pt_fused.persistent_smem_ok(adj, 128)
+    # Three weight-slab stages of 4 k rows of [w_i | w_h], then h and the
+    # aggregate at a row stride of 132 floats, then the row sums.
     assert (pt_fused.persistent_smem_bytes(adj, 128)
-            == adj.max_group_rows * (2 * 128 + 1) * 4)
-    # One component over ~226 rows cannot stay in a block's 227 KB.
+            == 4 * (3 * 4 * 6 * 128 + 2 * adj.max_group_rows * 132
+                    + adj.max_group_rows))
+    # One component over 184 rows cannot stay in a block's 227 KB.
     chain = np.arange(600)
     big = pt_band.build_band_adjacency(chain[:-1], chain[1:],
                                        np.ones(599, bool), 640)
@@ -411,10 +414,13 @@ def test_persistent_backward_shared_memory_gate():
     s, r, _ = _graph_edges(rng, [40] * 16)
     adj = pt_band.build_band_adjacency(s, r, np.ones(len(s), bool), 1024)
     assert pt_fused.persistent_bwd_smem_ok(adj, 128)
+    # The forward's stages, then three row arrays (the cotangent, h then
+    # dx, the aggregate then x then dmsg), then the row sums.
     assert (pt_fused.persistent_bwd_smem_bytes(adj, 128)
-            == adj.max_group_rows * (4 * 128 + 1) * 4)
-    # 150 rows fit the forward's (2H+1)*4 bytes a row, not the
-    # backward's (4H+1)*4: a training batch runs the fused step instead.
+            == 4 * (3 * 4 * 6 * 128 + 3 * adj.max_group_rows * 132
+                    + adj.max_group_rows))
+    # 150 rows fit the forward's two row arrays, not the backward's
+    # three: a training batch runs the fused step instead.
     chain = np.arange(150)
     mid = pt_band.build_band_adjacency(chain[:-1], chain[1:],
                                        np.ones(149, bool), 256)
