@@ -17,7 +17,13 @@ one:
    times from CUDA events and the least time the card could take;
    ``persistent_fwd_kernel`` also bit for bit against 5 launches of
    ``fused_step_kernel``, with that scan's time (``scan_ms``), the blocks
-   an SM holds and the blocks of a thread-block cluster a row group gets.
+   an SM holds and the blocks of a thread-block cluster a row group gets;
+   the per-step pair (``fused_step_kernel`` and, at the serving shape,
+   ``fused_step_bwd_kernel``) with its launch geometry: the row tile,
+   the grid's blocks, the blocks of a cluster a tile gets, the k rows of
+   a gate slab, the blocks an SM holds of the instance that runs and a
+   block's shared memory, each as the host's plan (``fused_gnn.step_plan``,
+   ``step_smem_bytes``) says for the card's SM count.
 4. Serve, persistent lane: ``ServeEngine`` with random weights from a
    seed, 64 requests and 16 duplicates through submit/pump/drain, kernel
    launches counted over that run, probabilities held against the same
@@ -26,7 +32,8 @@ one:
 6. Every kernel of the train path against its plain version at the
    training shape (a batch as ``fit`` packs it: 256 graphs, N = 16384
    rows, H = 128, 5 steps): the two forward kernels, then the backward
-   ones with times and bounds; ``persistent_fwd_hist_kernel``'s
+   ones with times and bounds (the per-step pair with its launch
+   geometry); ``persistent_fwd_hist_kernel``'s
    ``h_k`` bit for bit against ``persistent_fwd_kernel`` run for k steps
    and against the fused scan, and ``persistent_bwd_kernel`` plus
    ``step_weight_grad_kernel`` bit for bit against the scan of
@@ -379,6 +386,25 @@ def _scan_record(name, kernel, scan, adj, hidden,
                                                  cluster))
 
 
+def _step_geometry(adj, hidden, kernel) -> dict:
+    """The launch geometry of a per-step kernel at this adjacency, as its
+    library reports it, held to the host plan it mirrors on this card's
+    SMs, shared memory included."""
+    geo = fused_gnn.step_geometry(adj, hidden, kernel)
+    n = adj.n_tiles * adj.tile
+    plan = fused_gnn.step_plan(n, hidden, geo["sms"], kernel)
+    plan["smem_bytes"] = fused_gnn.step_smem_bytes(n, hidden, geo["sms"],
+                                                   kernel, 0)
+    if kernel == "fused_step_bwd_kernel":
+        plan["smem_bytes_pass1"] = fused_gnn.step_smem_bytes(
+            n, hidden, geo["sms"], kernel, 1)
+    for key in plan.keys() - {"wide"}:
+        if geo[key] != plan[key]:
+            raise AssertionError(f"{kernel}: the library plans {key} "
+                                 f"{geo[key]}, step_plan {plan[key]}")
+    return dict(geo, wide=plan["wide"])
+
+
 def _as_list(out) -> list:
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
@@ -436,9 +462,42 @@ def phase_kernels(model: FlowGNN) -> dict:
                         lambda: _fused_scan(params, h, adj, cfg.n_steps,
                                             packed),
                         adj, cfg.ggnn_hidden))
+                else:
+                    rec.update(_step_geometry(adj, cfg.ggnn_hidden, name))
                 emit(phase="kernels", **rec)
                 if shape == "serving":
                     serving[name] = rec
+            if shape == "serving":
+                # The per-step backward at the serving bucket (a batch
+                # over the persistent backward's gate trains through it).
+                gen = torch.Generator(device="cuda").manual_seed(SEED)
+                g = torch.randn(h.shape, generator=gen, device="cuda")
+                bwd = lambda: fused_gnn.fused_step_bwd_rows(params, h, adj,
+                                                            g, packed)
+                want = fused_gnn.fused_step_bwd_rows_reference(params, h,
+                                                               adj, g)
+                err = max(_check(f"fused_step_bwd_kernel@{shape}[{i}]", a, b,
+                                 STEP_TOL)
+                          for i, (a, b) in enumerate(zip(bwd(), want)))
+                before = fused_gnn.launch_counts()["fused_step_bwd_kernel"]
+                kernel_ms = _time_ms(bwd)
+                launches = (fused_gnn.launch_counts()["fused_step_bwd_kernel"]
+                            - before)
+                cost = fused_gnn.kernel_cost(adj, cfg.ggnn_hidden, 1,
+                                             kernel="fused_step_bwd_kernel")
+                bound_ms, bound_by = _bound(cost)
+                emit(phase="kernels", kernel="fused_step_bwd_kernel",
+                     shape=shape, n_rows=h.shape[0], hidden=h.shape[1],
+                     bandwidth=adj.bandwidth, nnz=cost["nnz"], steps=1,
+                     max_abs_err=err, tol=STEP_TOL, kernel_ms=kernel_ms,
+                     plain_ms=_time_ms(lambda: fused_gnn.
+                                       fused_step_bwd_rows_reference(
+                                           params, h, adj, g)),
+                     bound_us=bound_ms * 1e3, bound_by=bound_by,
+                     **_peak(cost), flops=cost["flops"],
+                     bytes=cost["bytes"], launches=launches,
+                     **_step_geometry(adj, cfg.ggnn_hidden,
+                                      "fused_step_bwd_kernel"))
     return serving
 
 
@@ -651,7 +710,7 @@ def phase_train_kernels(model: FlowGNN) -> dict:
                lambda: fused_gnn.fused_gate_step(params, h, adj,
                                                  packed=packed),
                lambda: fused_gnn.fused_step_reference(params, h, adj), 1,
-               STEP_TOL)
+               STEP_TOL, **_step_geometry(adj, hidden, "fused_step_kernel"))
         err = _check("persistent_fwd_kernel@training",
                      fused_gnn.persistent_unroll(params, h, adj, k_steps,
                                                  packed=packed),
@@ -677,7 +736,8 @@ def phase_train_kernels(model: FlowGNN) -> dict:
             lambda: fused_gnn.fused_step_bwd_rows(params, h, adj, g, packed),
             lambda: fused_gnn.fused_step_bwd_rows_reference(params, h, adj,
                                                             g),
-            1, STEP_TOL)
+            1, STEP_TOL, **_step_geometry(adj, hidden,
+                                          "fused_step_bwd_kernel"))
 
         # persistent_fwd_hist_kernel: h_1..h_{K-1}; each h_k bit for bit
         # the persistent forward's after k steps and the k-th state of the
@@ -1511,7 +1571,9 @@ def main() -> int:
             **{key: t[key] for key in ("library_covers", "pair_ms",
                                        "max_rel_err", "transpose_ms",
                                        "scan_ms", "blocks_per_sm", "cluster",
-                                       "active_clusters")
+                                       "active_clusters", "row_tile",
+                                       "slab_rows", "blocks", "wide",
+                                       "blocks_per_sm_pass1")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

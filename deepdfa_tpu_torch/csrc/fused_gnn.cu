@@ -42,18 +42,31 @@
 //   window (3x the message FLOPs at B = 1). Aggregating h first costs no
 //   extra FLOPs and no message buffer; it changes the f32 rounding order,
 //   which the tests hold to 1e-5.
-// * The aggregate skips zeros. A warp owns one receiver row: each lane
-//   reads one band value per 32-wide slice (coalesced), a ballot finds
-//   the nonzeros, and the warp adds those sender rows (128 floats, one
-//   512-byte read) scaled by the shuffled value. Out-of-range sender
-//   tiles are masked by index, as the TPU kernel masks them, not trusted
-//   to hold zero blocks. CFG rows have a handful of in-edges, so this is
-//   ~1% of the step's FLOPs.
-// * The dense products run on 16-row chunks: thread (column c, half)
-//   computes 8 rows of column c of x W_e, then of the r|z|n gates, with
-//   the row operands read as float4 broadcasts from shared memory and the
-//   weight columns read coalesced through L1 (all blocks read the same
-//   460 KB of weights, which stay L2 resident).
+// * The aggregate skips zeros. A warp owns one receiver row: its lanes
+//   read 16 bytes each of the row's band window (a 128-sender tile of f32
+//   values in one load), a ballot finds the lanes holding a nonzero, and
+//   the warp adds those sender rows (128 floats, one 512-byte read)
+//   scaled by the broadcast value, in ascending sender order. A warp
+//   stages its rows' windows into shared memory by cp.async four rows
+//   ahead of the one it scans. Out-of-range sender tiles are masked by
+//   index, as the TPU kernel masks them, not trusted to hold zero blocks.
+//   CFG rows have a handful of in-edges, so this is ~1% of the step's
+//   FLOPs, but a scan of every row's window: 15 % of fused_step_kernel's
+//   time at the training batch on an H100 (PERF.md).
+// * fused_step_kernel gives each block a fixed tile of rows, with no gate: its
+//   shared memory never grows with a graph, so it serves every batch the
+//   persistent kernel's gate turns away. The tile's h and aggregate sit in
+//   shared memory; the tile's senders are read there, the halo's from h. The
+//   products are group_step.cuh's, the weights streamed in slabs by cp.async.
+//   At the training and flagship batches (ops/fused_gnn.py: step_plan) a block
+//   owns 64 rows, one block an SM, and a thread 8 rows by 4 columns (128 gate
+//   accumulators, wide_gate): each loaded weight feeds 8 rows and the rows'
+//   offsets are compile-time, so the gate's inner loop is 86 % FFMA; on an H100
+//   it still issues at about half the FFMA rate (PERF.md says what was tried).
+//   At the serving bucket (1024 rows, too few tiles for 132 SMs) two blocks of
+//   a cluster share a 16-row tile, each owning half the product columns, x
+//   crossing through distributed shared memory, as the persistent kernel's
+//   clusters do.
 // * Persistent: the TPU overwrote h rows in place along its sequential
 //   grid. A Hopper block cannot see another block's rows mid-step, so the
 //   host cuts the rows into groups that no edge crosses (whole graphs;
@@ -83,35 +96,6 @@
 #include "group_step.cuh"
 
 namespace {
-
-template <typename VT>
-__global__ void __launch_bounds__(kThreads)
-    fused_step_kernel(const float* __restrict__ h,
-                      const VT* __restrict__ vals,
-                      const float* __restrict__ ek,
-                      const float* __restrict__ eb,
-                      const float* __restrict__ wi,
-                      const float* __restrict__ bi,
-                      const float* __restrict__ wh,
-                      const float* __restrict__ bh, float* __restrict__ out,
-                      int n_rows, int H, int tile, int n_tiles, int bw) {
-  __shared__ __align__(16) float h_s[kChunk * kMaxH];
-  __shared__ __align__(16) float a_s[kChunk * kMaxH];
-  __shared__ float rs_s[kChunk];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * kChunk;
-  const int nrows = min(kChunk, n_rows - r0);
-  const float* h_blk = h + static_cast<size_t>(r0) * H;
-  for (int i = tid; i < nrows * H; i += kThreads) h_s[i] = h_blk[i];
-  for (int lr = warp; lr < nrows; lr += kWarps)
-    warp_aggregate_row(vals, r0 + lr, tile, n_tiles, bw, h, 0, 0, n_rows, H,
-                       a_s + lr * H, rs_s + lr, lane);
-  __syncthreads();
-  chunk_edge_linear(a_s, rs_s, 0, nrows, ek, eb, H, tid);
-  __syncthreads();
-  chunk_gate(a_s, h_s, 0, nrows, wi, bi, wh, bh, H,
-             out + static_cast<size_t>(r0) * H, tid);
-}
 
 // kHist = false: h_K into out. kHist = true (the backward's recompute
 // sweep, replacing _persist_fwd_kernel's emit_hist variant): after each
@@ -217,22 +201,6 @@ __global__ void __launch_bounds__(kGroupThreads, 2)
   if (!kHist) rows_to_global(out + goff, h_s, ld, R, H, t.lo, hi);
 }
 
-template <typename VT>
-int launch_fused(const void* h, const void* vals, const void* ek,
-                 const void* eb, const void* wi, const void* bi,
-                 const void* wh, const void* bh, void* out, int n_rows,
-                 int hidden, int tile, int n_tiles, int bw,
-                 cudaStream_t st) {
-  const dim3 grid((n_rows + kChunk - 1) / kChunk);
-  fused_step_kernel<VT><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(h), static_cast<const VT*>(vals),
-      static_cast<const float*>(ek), static_cast<const float*>(eb),
-      static_cast<const float*>(wi), static_cast<const float*>(bi),
-      static_cast<const float*>(wh), static_cast<const float*>(bh),
-      static_cast<float*>(out), n_rows, hidden, tile, n_tiles, bw);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Dynamic shared memory of persistent_fwd_kernel for groups of up to
 // max_rows rows, cluster blocks a group (ops/fused_gnn.py:
 // persistent_smem_bytes mirrors it).
@@ -320,6 +288,185 @@ int launch_persistent(const void* h0, const void* vals, const void* ek,
   }
 }
 
+// One gated step over a fixed tile of row_tile rows a block. kWide (kCS == 1, H
+// > 64): the wide products (kWideRows rows a thread, one block an SM). Else the
+// 4 x 4 tiles (two blocks an SM); with kCS == 2 two blocks of a thread-block
+// cluster share a tile, each owning half the product columns, and each block's
+// x slice reaches its partner's shared memory through distributed shared
+// memory. Shared memory: kStages weight-slab stages of kGR k rows, then
+// [row_tile, ld] arrays: h_s (the tile's h, all columns) and a_s (the
+// aggregate; with kCS == 1 the edge linear turns it into x in place), with kCS
+// > 1 x_s (every x slice lands there while a_s is still read); then the row
+// sums. The aggregate reads the tile's senders from h_s and the halo's from h;
+// h' goes straight to out.
+template <typename VT, int kCS, int kGR, bool kWide>
+__global__ void __launch_bounds__(kGroupThreads, kWide ? 1 : 2)
+    fused_step_kernel(const float* __restrict__ h,
+                      const VT* __restrict__ vals,
+                      const float* __restrict__ ek,
+                      const float* __restrict__ eb,
+                      const float* __restrict__ wi,
+                      const float* __restrict__ bi,
+                      const float* __restrict__ wh,
+                      const float* __restrict__ bh, float* __restrict__ out,
+                      int n_rows, int H, int tile, int n_tiles, int bw,
+                      int row_tile) {
+  namespace cg = cooperative_groups;
+  static_assert(kCS == 1 || kCS == 2, "one block or a pair a tile");
+  static_assert(!kWide || kCS == 1, "the wide products own every column");
+  extern __shared__ __align__(16) float smem[];
+  const int rank = kCS > 1 ? static_cast<int>(cg::this_cluster().block_rank())
+                           : 0;
+  const Tile t(H, rank, kCS);
+  const int r0 = (blockIdx.x / kCS) * row_tile;
+  const int R = min(row_tile, n_rows - r0), ld = t.ld;
+  float* stages = smem;  // [kStages][stage]
+  float* h_s = stages + kStages * group_stage_floats<kGR>(H);  // [R, ld] h
+  float* a_s = h_s + row_tile * ld;                  // [R, ld] agg (x)
+  float* x_s = kCS > 1 ? a_s + row_tile * ld : a_s;  // [R, ld] x
+  float* rs_s = x_s + row_tile * ld;                 // [R] row sums
+  // The partner's x_s (distributed shared memory).
+  float* x_peer = x_s;
+  if constexpr (kCS > 1)
+    x_peer = cg::this_cluster().map_shared_rank(x_s, rank ^ 1);
+  const size_t off = static_cast<size_t>(r0) * H;
+  rows_to_shared(h_s, ld, h + off, R, H);
+  __syncthreads();
+  tile_aggregate(vals, tile, n_tiles, bw, h, h_s, r0, R, ld, H, a_s, rs_s,
+                 stages, kStages * group_stage_floats<kGR>(H));
+  // Every block of the cluster has started before any writes another's
+  // shared memory.
+  if constexpr (kCS > 1) cg::this_cluster().sync();
+  const auto edge = [&](int r, const float* acc) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = r * ld + t.c0 + j;
+      const float x = edge_out(acc[j], rs_s[r], __ldg(eb + t.c0 + j));
+      x_s[e] = x;
+      if constexpr (kCS > 1) x_peer[e] = x;
+    }
+  };
+  float* dst = out + off;
+  const auto gate = [&](int r, const float* pr, const float* pz,
+                        const float* gn, const float* hn) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = gate_out(pr[j], pz[j], gn[j], hn[j],
+                      gate_bias(bi, bh, H, t.c0 + j), h_s[r * ld + t.c0 + j]);
+    *reinterpret_cast<float4*>(dst + r * H + t.c0) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  };
+  if constexpr (kWide) {
+    wide_rows_times<kGR>(t, a_s, R, ek, stages, edge);
+    wide_gate<kGR>(t, x_s, h_s, R, wi, wh, stages, gate);
+  } else if constexpr (kCS == 1) {
+    group_rows_times<false, kGR>(t, a_s, R, ek, stages, edge);
+    group_gate<false, kGR>(t, x_s, h_s, R, wi, wh, stages, gate);
+  } else {
+    group_rows_times<true, kGR>(t, a_s, R, ek, stages, edge);
+    // Every x slice in; no block touches another's shared memory after
+    // this.
+    cg::this_cluster().sync();
+    group_gate<true, kGR>(t, x_s, h_s, R, wi, wh, stages, gate);
+  }
+}
+
+// Dynamic shared memory of fused_step_kernel<., cluster, slab_rows> for
+// tiles of row_tile rows (ops/fused_gnn.py:step_smem_bytes mirrors it).
+size_t step_fwd_smem(int row_tile, int hidden, int cluster, int slab_rows) {
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(slab_rows) * 6 * group_hp(hidden) +
+          (cluster > 1 ? 3 : 2) * static_cast<size_t>(row_tile) *
+              group_ld(hidden) +
+          row_tile);
+}
+
+// The per-step forward's cut of n_rows rows on a card of sms SMs
+// (ops/fused_gnn.py:step_plan mirrors it). Where 32-row tiles already make
+// sms blocks, 64-row tiles, one block each: at H > 64 the wide products
+// (one block an SM, gate slabs of 16 k rows where 16 divides H, else 4),
+// else the 4 x 4 ones (slabs of 4). Else (the serving bucket) 2-block
+// clusters over 16-row tiles split the product columns (while hp / 2 >=
+// 32): slabs of 8 k rows where 8 divides H, else 4, two blocks an SM.
+struct StepPlan {
+  int row_tile, cluster, slab_rows, blocks;
+  bool wide;
+};
+
+StepPlan step_fwd_plan(int n_rows, int hidden, int sms) {
+  if ((n_rows + 31) / 32 >= sms || group_hp(hidden) / 2 < 32) {
+    const bool wide = group_hp(hidden) == 128;
+    return {kWideTile, 1, wide && hidden % 16 == 0 ? 16 : 4,
+            (n_rows + kWideTile - 1) / kWideTile, wide};
+  }
+  return {16, 2, hidden % 8 == 0 ? 8 : 4, (n_rows + 15) / 16 * 2, false};
+}
+
+// Launches (occupancy == nullptr) or queries the occupancy of the
+// instance of fused_step_kernel that plan p runs.
+template <typename VT, int kCS, int kGR, bool kWide>
+int step_instance(const void* h, const void* vals, const void* ek,
+                  const void* eb, const void* wi, const void* bi,
+                  const void* wh, const void* bh, void* out, int n_rows,
+                  int hidden, int tile, int n_tiles, int bw,
+                  const StepPlan& p, cudaStream_t st, int* occupancy) {
+  const auto kernel = fused_step_kernel<VT, kCS, kGR, kWide>;
+  const size_t smem = step_fwd_smem(p.row_tile, hidden, kCS, kGR);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (occupancy)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occupancy, kernel, kGroupThreads, smem));
+  if (kCS == 1) {
+    kernel<<<p.blocks, kGroupThreads, smem, st>>>(
+        static_cast<const float*>(h), static_cast<const VT*>(vals),
+        static_cast<const float*>(ek), static_cast<const float*>(eb),
+        static_cast<const float*>(wi), static_cast<const float*>(bi),
+        static_cast<const float*>(wh), static_cast<const float*>(bh),
+        static_cast<float*>(out), n_rows, hidden, tile, n_tiles, bw,
+        p.row_tile);
+  } else {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(p.blocks, kCS, smem, st, &attr);
+    e = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const float*>(h),
+        static_cast<const VT*>(vals), static_cast<const float*>(ek),
+        static_cast<const float*>(eb), static_cast<const float*>(wi),
+        static_cast<const float*>(bi), static_cast<const float*>(wh),
+        static_cast<const float*>(bh), static_cast<float*>(out), n_rows,
+        hidden, tile, n_tiles, bw, p.row_tile);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One step with the instance that step_fwd_plan picks for n_rows rows on
+// this device (or that instance's occupancy query).
+template <typename VT>
+int launch_step(const void* h, const void* vals, const void* ek,
+                const void* eb, const void* wi, const void* bi, const void* wh,
+                const void* bh, void* out, int n_rows, int hidden, int tile,
+                int n_tiles, int bw, cudaStream_t st,
+                int* occupancy = nullptr) {
+  const StepPlan p = step_fwd_plan(n_rows, hidden, device_sms());
+#define STEP_INSTANCE(CS, GR, WIDE)                                         \
+  return step_instance<VT, CS, GR, WIDE>(h, vals, ek, eb, wi, bi, wh, bh,   \
+                                         out, n_rows, hidden, tile, n_tiles, \
+                                         bw, p, st, occupancy)
+  if (p.wide) {
+    if (p.slab_rows == 16) STEP_INSTANCE(1, 16, true);
+    STEP_INSTANCE(1, 4, true);
+  }
+  if (p.cluster == 1) STEP_INSTANCE(1, 4, false);
+  if (p.slab_rows == 8) STEP_INSTANCE(2, 8, false);
+  STEP_INSTANCE(2, 4, false);
+#undef STEP_INSTANCE
+}
+
 template <typename VT, int kCS>
 int fwd_occupancy(int max_group_rows, int hidden, int* blocks,
                   int* clusters) {
@@ -354,11 +501,36 @@ int fused_step_launch(const void* h, const void* vals, int vals_bf16,
                       int n_tiles, int bandwidth, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
-    return launch_fused<__nv_bfloat16>(h, vals, ek, eb, wi, bi, wh, bh, out,
-                                       n_rows, hidden, tile, n_tiles,
-                                       bandwidth, st);
-  return launch_fused<float>(h, vals, ek, eb, wi, bi, wh, bh, out, n_rows,
-                             hidden, tile, n_tiles, bandwidth, st);
+    return launch_step<__nv_bfloat16>(h, vals, ek, eb, wi, bi, wh, bh, out,
+                                      n_rows, hidden, tile, n_tiles,
+                                      bandwidth, st);
+  return launch_step<float>(h, vals, ek, eb, wi, bi, wh, bh, out, n_rows,
+                            hidden, tile, n_tiles, bandwidth, st);
+}
+
+// The launch geometry of fused_step_launch over n_rows rows: the row tile,
+// the blocks of a cluster that share it, the k rows of a gate slab, the
+// grid's blocks, the blocks of that instance one SM holds, a block's
+// dynamic shared memory, and the SMs the plan filled.
+int fused_step_geometry(int vals_bf16, int n_rows, int hidden, int* row_tile,
+                        int* cluster, int* slab_rows, int* blocks,
+                        int* blocks_per_sm, int* smem_bytes, int* sms) {
+  *sms = device_sms();
+  const StepPlan p = step_fwd_plan(n_rows, hidden, *sms);
+  *row_tile = p.row_tile;
+  *cluster = p.cluster;
+  *slab_rows = p.slab_rows;
+  *blocks = p.blocks;
+  *smem_bytes = static_cast<int>(
+      step_fwd_smem(p.row_tile, hidden, p.cluster, p.slab_rows));
+  return vals_bf16 ? launch_step<__nv_bfloat16>(
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, n_rows, hidden, 0, 0, 0,
+                         nullptr, blocks_per_sm)
+                   : launch_step<float>(nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, n_rows, hidden, 0, 0, 0,
+                                        nullptr, blocks_per_sm);
 }
 
 // n_steps gated steps in one launch: cluster (1 or 2; hidden / cluster

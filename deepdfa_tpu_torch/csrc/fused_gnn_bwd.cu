@@ -78,10 +78,17 @@
 // * A^T rows come from the block-band form of A^T
 //   (ops/band_spmm.py:band_transpose_vals), read by the forward's own
 //   warp-per-row aggregate.
-// * The fused backward needs dx of neighbouring rows for A^T, which other
-//   blocks compute, so it runs as two passes of the same kernel: pass 0
-//   (gate backward; dx and dhl to device memory), pass 1 (dmsg = A^T dx,
-//   dh = dhl + dmsg W_e^T).
+// * The per-step backward needs dx of neighbouring rows for A^T, which
+//   other blocks compute, so it runs as two passes (instances of one
+//   kernel): pass 0 (the recompute, the gate backward; x, dp, dx and dhl
+//   to device memory), pass 1 (dmsg = A^T dx, dh = dhl + dmsg W_e^T). A
+//   block owns a fixed tile of 32 rows (16 at the serving bucket, to fill
+//   the SMs; ops/fused_gnn.py:step_plan), no gate, and runs
+//   persistent_bwd_kernel's register-tiled products over it: the
+//   recompute, the dx/dh pair over [w_i^T | w_h^T] slabs, dmsg W_e^T, and
+//   the same staged aggregate as the forward (fused_gnn.cu). dp is read
+//   back from device memory within pass 0, as the persistent kernel does
+//   (the weight pass reads it anyway).
 // * Persistent: one block per closed row group (no edge leaves it, so
 //   A^T does not either). The block keeps the group's cotangent dh, h (then
 //   dx) and the aggregate (then x, then dmsg) in shared memory, three row
@@ -99,8 +106,6 @@
 //   fused_step_bwd_kernel K times instead). Each element keeps
 //   fused_step_bwd_kernel's FMA chain: the sweep equals its scan bit for
 //   bit.
-// * The per-step kernels stay the simple version: the chunked CUDA-core
-//   products of gated_step.cuh, no staging of weights.
 
 #include <stdint.h>
 
@@ -109,10 +114,18 @@
 
 namespace {
 
-// Pass 0: per 16-row chunk, recompute x, write x and the gate cotangents
-// dp, then dx and dhl. Pass 1: dmsg = A^T dx (rows of the chunk), dh.
-template <typename VT>
-__global__ void __launch_bounds__(kThreads)
+// One step's backward over a fixed tile of row_tile rows a block, in two
+// passes (kPass). Pass 0: recompute x (written out), the gate cotangents
+// dp (written out, then read back by this block for) dx and dhl. Shared
+// memory: kStages weight-slab stages of kGR k rows, then [row_tile, ld]
+// arrays d_s (g, then dhc, then dhl), h_s (h, then dx) and a_s (the
+// aggregate, then x), then the row sums. Pass 1: dmsg = A^T dx over the
+// tile's rows (dx of the tile from x_s, the halo's from device memory;
+// written out) and dh = dhl + dmsg W_e^T. Shared memory: the stages, x_s
+// (dx) and a_s (dmsg), then the row sums. Each element keeps
+// persistent_bwd_kernel's chains.
+template <typename VT, int kPass, int kGR>
+__global__ void __launch_bounds__(kGroupThreads, 2)
     fused_step_bwd_kernel(const float* __restrict__ h,
                           const VT* __restrict__ vals,
                           const VT* __restrict__ tvals,
@@ -128,38 +141,78 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ ekT, float* x_out,
                           float* dp, float* dx, float* dhl,
                           float* dmsg_out, float* dh_out, int n_rows, int H,
-                          int tile, int n_tiles, int bw, int pass) {
-  __shared__ __align__(16) float h_s[kChunk * kMaxH];
-  __shared__ __align__(16) float a_s[kChunk * kMaxH];
-  __shared__ __align__(16) float d_s[kChunk * kMaxH];
-  __shared__ float rs_s[kChunk];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * kChunk;
-  const int nrows = min(kChunk, n_rows - r0);
+                          int tile, int n_tiles, int bw, int row_tile) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile t(H, 0, 1);
+  const int r0 = blockIdx.x * row_tile;
+  const int R = min(row_tile, n_rows - r0), ld = t.ld;
   const size_t off = static_cast<size_t>(r0) * H;
-  if (pass == 0) {
-    for (int i = tid; i < nrows * H; i += kThreads) h_s[i] = h[off + i];
-    for (int lr = warp; lr < nrows; lr += kWarps)
-      warp_aggregate_row(vals, r0 + lr, tile, n_tiles, bw, h, 0, 0, n_rows,
-                         H, a_s + lr * H, rs_s + lr, lane);
+  float* stages = smem;                                     // [kStages][stage]
+  float* rows = stages + kStages * group_stage_floats<kGR>(H);
+  if constexpr (kPass == 0) {
+    float* d_s = rows;                  // [R, ld] g, dhc, dhl
+    float* h_s = d_s + row_tile * ld;   // [R, ld] h, then dx
+    float* a_s = h_s + row_tile * ld;   // [R, ld] agg, then x
+    float* rs_s = a_s + row_tile * ld;  // [R] row sums
+    rows_to_shared(h_s, ld, h + off, R, H);
+    rows_to_shared(d_s, ld, g + off, R, H);
     __syncthreads();
-    chunk_edge_linear(a_s, rs_s, 0, nrows, ek, eb, H, tid);
-    __syncthreads();
-    for (int i = tid; i < nrows * H; i += kThreads) x_out[off + i] = a_s[i];
-    chunk_gate_bwd_a(a_s, h_s, 0, nrows, wi, bi, wh, bh, H, g + off,
-                     dp + 4 * off, d_s, tid);
-    __syncthreads();  // dp (device memory) and dhc visible to the block
-    chunk_gate_bwd_b(dp + 4 * off, 0, nrows, wiT, whT, H, dx + off, d_s,
-                     tid);
-    __syncthreads();
-    for (int i = tid; i < nrows * H; i += kThreads) dhl[off + i] = d_s[i];
+    tile_aggregate(vals, tile, n_tiles, bw, h, h_s, r0, R, ld, H, a_s, rs_s,
+                   stages, kStages * group_stage_floats<kGR>(H));
+    group_rows_times<false, kGR>(t, a_s, R, ek, stages,
+                                 [&](int r, const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a_s[r * ld + t.c0 + j] =
+            edge_out(acc[j], rs_s[r], __ldg(eb + t.c0 + j));
+    });
+    rows_to_global(x_out + off, a_s, ld, R, H);
+    float* dp_t = dp + 4 * off;
+    group_gate<false, kGR>(t, a_s, h_s, R, wi, wh, stages,
+               [&](int r, const float* pr, const float* pz, const float* gn,
+                   const float* hn) {
+                 float d[4][4];
+#pragma unroll
+                 for (int j = 0; j < 4; ++j) {
+                   const int e = r * ld + t.c0 + j;
+                   const GateGrads gg = gate_bwd_out(
+                       pr[j], pz[j], gn[j], hn[j],
+                       gate_bias(bi, bh, H, t.c0 + j), h_s[e], d_s[e]);
+                   d[0][j] = gg.dr;
+                   d[1][j] = gg.dz;
+                   d[2][j] = gg.dn;
+                   d[3][j] = gg.dhn;
+                   d_s[e] = gg.dhc;
+                 }
+                 float* dprow = dp_t + static_cast<size_t>(r) * 4 * H;
+#pragma unroll
+                 for (int b = 0; b < 4; ++b)
+                   *reinterpret_cast<float4*>(dprow + b * H + t.c0) =
+                       make_float4(d[b][0], d[b][1], d[b][2], d[b][3]);
+               });
+    // dp (device memory) of every row of the tile is visible to the block.
+    group_gate_bwd_b<kGR>(t, dp_t, R, wiT, whT, stages, h_s, d_s);
+    rows_to_global(dx + off, h_s, ld, R, H);
+    rows_to_global(dhl + off, d_s, ld, R, H);
   } else {
-    for (int lr = warp; lr < nrows; lr += kWarps)
-      warp_aggregate_row(tvals, r0 + lr, tile, n_tiles, bw, dx, 0, 0,
-                         n_rows, H, a_s + lr * H, rs_s + lr, lane);
+    float* x_s = rows;                  // [R, ld] dx of the tile
+    float* a_s = x_s + row_tile * ld;   // [R, ld] dmsg
+    float* rs_s = a_s + row_tile * ld;  // [R] row sums (unused)
+    rows_to_shared(x_s, ld, dx + off, R, H);
     __syncthreads();
-    for (int i = tid; i < nrows * H; i += kThreads) dmsg_out[off + i] = a_s[i];
-    chunk_edge_bwd(a_s, 0, nrows, ekT, H, dhl + off, dh_out + off, tid);
+    tile_aggregate(tvals, tile, n_tiles, bw, dx, x_s, r0, R, ld, H, a_s,
+                   rs_s, stages, kStages * group_stage_floats<kGR>(H));
+    rows_to_global(dmsg_out + off, a_s, ld, R, H);
+    const float* dhl_t = dhl + off;
+    float* dh_t = dh_out + off;
+    group_rows_times<false, kGR>(t, a_s, R, ekT, stages,
+                                 [&](int r, const float* acc) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = dhl_t[r * H + t.c0 + j] + acc[j];
+      *reinterpret_cast<float4*>(dh_t + r * H + t.c0) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    });
   }
 }
 
@@ -457,6 +510,59 @@ __global__ void step_weight_grad_reduce_kernel(
   else deb[idx - e - 6 * H] = total;
 }
 
+// Dynamic shared memory of fused_step_bwd_kernel's pass for tiles of
+// row_tile rows (ops/fused_gnn.py:step_smem_bytes mirrors it).
+size_t step_bwd_smem(int pass, int row_tile, int hidden, int slab_rows) {
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(slab_rows) * 6 * group_hp(hidden) +
+          (pass == 0 ? 3 : 2) * static_cast<size_t>(row_tile) *
+              group_ld(hidden) +
+          row_tile);
+}
+
+// The backward's cut of n_rows rows on a card of sms SMs
+// (ops/fused_gnn.py:step_plan mirrors it): 32-row tiles (two blocks an SM
+// with pass 0's three row arrays), 16 where those are fewer than sms
+// blocks; gate slabs of 4 k rows. No clusters.
+struct StepPlan {
+  int row_tile, slab_rows, blocks;
+};
+
+StepPlan step_bwd_plan(int n_rows, int sms) {
+  const int rt = (n_rows + 31) / 32 < sms ? 16 : 32;
+  return {rt, kGateRows, (n_rows + rt - 1) / rt};
+}
+
+template <int kPass, typename VT>
+int launch_bwd_pass(const void* h, const void* vals, const void* tvals,
+                    const void* g, const void* ek, const void* eb,
+                    const void* wi, const void* bi, const void* wh,
+                    const void* bh, const void* wiT, const void* whT,
+                    const void* ekT, void* x, void* dp, void* dx, void* dhl,
+                    void* dmsg, void* dh, int n_rows, int hidden, int tile,
+                    int n_tiles, int bw, const StepPlan& p, cudaStream_t st) {
+  constexpr int kGR = kGateRows;
+  const size_t smem = step_bwd_smem(kPass, p.row_tile, hidden, kGR);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_step_bwd_kernel<VT, kPass, kGR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_step_bwd_kernel<VT, kPass, kGR><<<p.blocks, kGroupThreads, smem,
+                                          st>>>(
+      static_cast<const float*>(h), static_cast<const VT*>(vals),
+      static_cast<const VT*>(tvals), static_cast<const float*>(g),
+      static_cast<const float*>(ek), static_cast<const float*>(eb),
+      static_cast<const float*>(wi), static_cast<const float*>(bi),
+      static_cast<const float*>(wh), static_cast<const float*>(bh),
+      static_cast<const float*>(wiT), static_cast<const float*>(whT),
+      static_cast<const float*>(ekT), static_cast<float*>(x),
+      static_cast<float*>(dp), static_cast<float*>(dx),
+      static_cast<float*>(dhl), static_cast<float*>(dmsg),
+      static_cast<float*>(dh), n_rows, hidden, tile, n_tiles, bw,
+      p.row_tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename VT>
 int launch_fused_bwd(const void* h, const void* vals, const void* tvals,
                      const void* g, const void* ek, const void* eb,
@@ -465,23 +571,28 @@ int launch_fused_bwd(const void* h, const void* vals, const void* tvals,
                      const void* ekT, void* x, void* dp, void* dx, void* dhl,
                      void* dmsg, void* dh, int n_rows, int hidden, int tile,
                      int n_tiles, int bw, cudaStream_t st) {
-  const dim3 grid((n_rows + kChunk - 1) / kChunk);
-  for (int pass = 0; pass < 2; ++pass) {
-    fused_step_bwd_kernel<VT><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(h), static_cast<const VT*>(vals),
-        static_cast<const VT*>(tvals), static_cast<const float*>(g),
-        static_cast<const float*>(ek), static_cast<const float*>(eb),
-        static_cast<const float*>(wi), static_cast<const float*>(bi),
-        static_cast<const float*>(wh), static_cast<const float*>(bh),
-        static_cast<const float*>(wiT), static_cast<const float*>(whT),
-        static_cast<const float*>(ekT), static_cast<float*>(x),
-        static_cast<float*>(dp), static_cast<float*>(dx),
-        static_cast<float*>(dhl), static_cast<float*>(dmsg),
-        static_cast<float*>(dh), n_rows, hidden, tile, n_tiles, bw, pass);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  const StepPlan p = step_bwd_plan(n_rows, device_sms());
+  const int e = launch_bwd_pass<0, VT>(h, vals, tvals, g, ek, eb, wi, bi, wh,
+                                       bh, wiT, whT, ekT, x, dp, dx, dhl,
+                                       dmsg, dh, n_rows, hidden, tile,
+                                       n_tiles, bw, p, st);
+  if (e != 0) return e;
+  return launch_bwd_pass<1, VT>(h, vals, tvals, g, ek, eb, wi, bi, wh, bh,
+                                wiT, whT, ekT, x, dp, dx, dhl, dmsg, dh,
+                                n_rows, hidden, tile, n_tiles, bw, p, st);
+}
+
+template <int kPass, typename VT>
+int bwd_pass_occupancy(const StepPlan& p, int hidden, int* blocks) {
+  constexpr int kGR = kGateRows;
+  const size_t smem = step_bwd_smem(kPass, p.row_tile, hidden, kGR);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_step_bwd_kernel<VT, kPass, kGR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fused_step_bwd_kernel<VT, kPass, kGR>, kGroupThreads, smem);
+  return static_cast<int>(e);
 }
 
 // Dynamic shared memory of persistent_bwd_kernel for groups of up to
@@ -527,8 +638,8 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
 extern "C" {
 
 // One step's backward over n_rows = n_tiles * tile rows (two launches of
-// fused_step_bwd_kernel). vals/tvals: A and A^T in block-band form, bf16
-// (vals_bf16 != 0) or f32; h, g, x, dx, dhl, dmsg, dh [n_rows, hidden]
+// fused_step_bwd_kernel, its passes). vals/tvals: A and A^T in block-band form,
+// bf16 (vals_bf16 != 0) or f32; h, g, x, dx, dhl, dmsg, dh [n_rows, hidden]
 // f32, dp [n_rows, 4 * hidden]; packed weights as the forward plus their
 // transposes wiT, whT [3H, H] and ekT [H, H]. Returns the cudaError_t.
 int fused_step_bwd_launch(const void* h, const void* vals, const void* tvals,
@@ -618,6 +729,34 @@ int step_weight_grad_launch(const void* h0, const void* hist, const void* x,
       static_cast<float*>(dbi), static_cast<float*>(dwh),
       static_cast<float*>(dbh), hidden, n_steps, static_cast<int>(grid.y));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry of fused_step_bwd_launch over n_rows rows: the row
+// tile, the k rows of a gate slab, each pass's blocks, the blocks of pass
+// 0's and pass 1's instances one SM holds, their blocks' dynamic shared
+// memory, and the SMs the plan filled.
+int fused_step_bwd_geometry(int vals_bf16, int n_rows, int hidden,
+                            int* row_tile, int* slab_rows, int* blocks,
+                            int* blocks_per_sm, int* blocks_per_sm_pass1,
+                            int* smem_bytes, int* smem_bytes_pass1,
+                            int* sms) {
+  *sms = device_sms();
+  const StepPlan p = step_bwd_plan(n_rows, *sms);
+  *row_tile = p.row_tile;
+  *slab_rows = p.slab_rows;
+  *blocks = p.blocks;
+  *smem_bytes =
+      static_cast<int>(step_bwd_smem(0, p.row_tile, hidden, p.slab_rows));
+  *smem_bytes_pass1 =
+      static_cast<int>(step_bwd_smem(1, p.row_tile, hidden, p.slab_rows));
+  int e = vals_bf16
+              ? bwd_pass_occupancy<0, __nv_bfloat16>(p, hidden, blocks_per_sm)
+              : bwd_pass_occupancy<0, float>(p, hidden, blocks_per_sm);
+  if (e != 0) return e;
+  return vals_bf16 ? bwd_pass_occupancy<1, __nv_bfloat16>(
+                         p, hidden, blocks_per_sm_pass1)
+                   : bwd_pass_occupancy<1, float>(p, hidden,
+                                                  blocks_per_sm_pass1);
 }
 
 // Blocks of persistent_bwd_kernel that fit one SM for groups of up to

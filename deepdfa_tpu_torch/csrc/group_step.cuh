@@ -1,9 +1,11 @@
-// The building blocks of the persistent gated-step kernels
-// (fused_gnn.cu: persistent_fwd_kernel and its hist instance;
-// fused_gnn_bwd.cu: persistent_bwd_kernel). A block owns one closed row
-// group (ops/band_spmm.py:closed_row_groups) and keeps its rows in shared
-// memory, row stride ld = hp + 4 floats (hp: H rounded up to 32, 64 or
-// 128), for all K steps.
+// The building blocks of every gated-step kernel (fused_gnn.cu:
+// fused_step_kernel, persistent_fwd_kernel and its hist instance;
+// fused_gnn_bwd.cu: fused_step_bwd_kernel, persistent_bwd_kernel). A
+// persistent block owns one closed row group
+// (ops/band_spmm.py:closed_row_groups) and keeps its rows in shared
+// memory for all K steps; a per-step block owns a fixed tile of rows for
+// one step. Either way the rows sit at row stride ld = hp + 4 floats (hp:
+// H rounded up to 32, 64 or 128).
 //
 // The dense products are register tiled: thread (column group cg, row
 // lane rl) holds 4 adjacent columns c0 = 4 cg .. c0 + 3 of kTR rows
@@ -14,15 +16,18 @@
 // them on distinct banks. The weights stream through shared memory in
 // slabs by cp.async, three stages in flight: each slab crosses L2
 // once a pass, and every row of the pass consumes it before the next one
-// lands (the simple kernels re-read all 460 KB of weights from L2 for
-// every 16-row chunk).
+// lands (the first port's kernels re-read all 460 KB of weights from L2
+// for every 16-row chunk). A slab holds kGR k rows of [w_i | w_h] (the
+// persistent kernels: kGateRows); the narrower products fit more.
 //
-// Every output element keeps the exact chain of the per-step kernels
-// (gated_step.cuh): the accumulator starts at 0, k runs ascending over all
-// H inputs one fmaf at a time, the gate interleaves x w_i and h w_h per k
-// as gate_preacts does, and the epilogues are the shared edge_out,
-// gate_out and gate_bwd_out. So a persistent kernel equals the scan of
-// its per-step counterpart bit for bit.
+// Every output element keeps one chain in every kernel: the accumulator
+// starts at 0, k runs ascending over all H inputs one fmaf at a time, the
+// gate interleaves x w_i and h w_h per k (pr += x wir, pr += h whr, pz
+// likewise, gn += x win, hn += h whn), the dx/dh pair runs j ascending
+// over 3H, and the epilogues are the shared edge_out, gate_out and
+// gate_bwd_out (gated_step.cuh). Which rows a thread holds, and how the
+// weights reach it, change no chain. So a persistent kernel equals the
+// scan of its per-step counterpart bit for bit.
 
 #pragma once
 
@@ -37,6 +42,15 @@ constexpr int kStages = 3;         // weight-slab stages in flight
 constexpr int kGateRows = 4;       // k rows a [w_i | w_h] slab
 constexpr int kGroupThreads = 256;
 constexpr int kGroupWarps = kGroupThreads / 32;
+
+// SMs of the current device: the per-step launchers plan their grids to
+// fill them (ops/fused_gnn.py:step_plan takes the same count).
+inline int device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool in) {
@@ -73,17 +87,19 @@ __host__ __device__ inline int group_hp(int H) {
   return H <= 32 ? 32 : (H <= 64 ? 64 : 128);
 }
 __host__ __device__ inline int group_ld(int H) { return group_hp(H) + 4; }
-// Floats of one slab stage: 4 k rows of [w_i | w_h] (6 hp floats a row).
-// The narrower products fit more k rows a stage (slab_rows).
+// Floats of one slab stage: kGR k rows of [w_i | w_h] (6 hp floats a
+// row). The narrower products fit more k rows a stage (slab_rows).
+template <int kGR = kGateRows>
 __host__ __device__ inline int group_stage_floats(int H) {
-  return kGateRows * 6 * group_hp(H);
+  return kGR * 6 * group_hp(H);
 }
 
 // k rows a slab of a product whose k rows are row_floats wide: as many as
-// a stage holds, a multiple of 4 (24 for w_e, 12 for [w_i^T | w_h^T], 4
-// for [w_i | w_h] at H 128).
+// a stage holds, a multiple of 4 (at kGR = 4 and H 128: 24 for w_e, 12
+// for [w_i^T | w_h^T], 4 for [w_i | w_h]).
+template <int kGR = kGateRows>
 __device__ __forceinline__ int slab_rows(int H, int row_floats) {
-  return (group_stage_floats(H) / row_floats) & ~3;
+  return (group_stage_floats<kGR>(H) / row_floats) & ~3;
 }
 
 // Thread (column group, row lane) of a block that owns columns [lo, hi)
@@ -153,6 +169,78 @@ __device__ void group_aggregate_row(const VT* __restrict__ vals, int r,
     if (col < H) agg_row[col] = acc[q];
   }
   if (lane == 0) *rs_out = rs;
+}
+
+// Rows a warp of tile_aggregate stages ahead of the one it scans.
+constexpr int kAggSlots = 4;
+
+// Every warp aggregates rows lr = warp, warp + kGroupWarps, .. of a
+// per-step block's row tile [r0, r0 + R) (warp_aggregate_row: the tile's
+// senders from hloc, at stride ld, the halo's from hsrc, [n_rows, H]);
+// agg and rs as group_aggregate's. Each warp stages its rows' band windows
+// into its own ring of kAggSlots rows in buf (buf_floats floats of shared
+// memory that the products use later: the weight-slab stages) by
+// cp.async, that many rows ahead of the one it scans, so the scans read
+// shared memory and the rows' device-memory round trips overlap. Where
+// the ring does not fit a warp's share or a window's tiles are no
+// multiple of 16 bytes, the warps read the band in device memory instead.
+// Not inlined: its registers stay apart from the products'. Ends with a
+// barrier.
+template <typename VT>
+__device__ __noinline__ void tile_aggregate(
+    const VT* __restrict__ vals, int tile, int n_tiles, int bw,
+    const float* __restrict__ hsrc, const float* hloc, int r0, int R, int ld,
+    int H, float* agg, float* rs, float* buf, int buf_floats) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int W = 2 * bw + 1, seg = tile * static_cast<int>(sizeof(VT));
+  const int row_bytes = W * seg;
+  const int share = buf_floats * static_cast<int>(sizeof(float)) /
+                    kGroupWarps / 16 * 16;
+  const size_t plane = static_cast<size_t>(n_tiles) * tile * tile;
+  const auto row_vals = [&](int lr) {  // row lr's window tile d = 0
+    const int r = r0 + lr;
+    return vals + (static_cast<size_t>(r / tile) * tile + r % tile) * tile;
+  };
+  if (kAggSlots * row_bytes > share || seg % 16) {
+    for (int lr = warp; lr < R; lr += kGroupWarps)
+      warp_aggregate_row(row_vals(lr), plane, r0 + lr, tile, n_tiles, bw,
+                         hsrc, hloc, r0, R, ld, H, agg + lr * ld, rs + lr,
+                         lane);
+    __syncthreads();
+    return;
+  }
+  char* ring = reinterpret_cast<char*>(buf) + warp * share;
+  const int mine = warp < R ? (R - warp + kGroupWarps - 1) / kGroupWarps : 0;
+  // The warp's k-th row into slot k % kAggSlots, one commit group a row
+  // (empty past the warp's rows, so every wait counts the same groups).
+  const auto stage = [&](int k) {
+    if (k < mine) {
+      const char* src = reinterpret_cast<const char*>(
+          row_vals(warp + k * kGroupWarps));
+      char* dst = ring + (k % kAggSlots) * row_bytes;
+      for (int d = 0; d < W; ++d)
+        for (int p = 16 * lane; p < seg; p += 16 * 32)
+          cp_async16(reinterpret_cast<float*>(dst + d * seg + p),
+                     reinterpret_cast<const float*>(
+                         src + d * plane * sizeof(VT) + p),
+                     true);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < kAggSlots; ++k) stage(k);
+  for (int k = 0; k < mine; ++k) {
+    cp_async_wait_group<kAggSlots - 1>();  // row k landed
+    __syncwarp();
+    const int lr = warp + k * kGroupWarps;
+    warp_aggregate_row(
+        reinterpret_cast<const VT*>(ring + (k % kAggSlots) * row_bytes),
+        static_cast<size_t>(tile), r0 + lr, tile, n_tiles, bw, hsrc, hloc,
+        r0, R, ld, H, agg + lr * ld, rs + lr, lane);
+    __syncwarp();  // every lane has read slot k % kAggSlots
+    stage(k + kAggSlots);
+  }
+  cp_async_wait_group<0>();
+  __syncthreads();  // the rows are in; buf is free again
 }
 
 // Every warp aggregates the group's rows, one row at a time.
@@ -248,12 +336,12 @@ __device__ __forceinline__ float f4(const float4& v, int i) {
 // Rows [0, R) of a_s (stride ld) times w ([H, H]): for each pass, acc[i][j]
 // = sum_k a_s[row_i][k] w[k][c0 + j], then epi(row, acc[i]) for the
 // thread's rows below R (after a barrier: epi may write a_s in place).
-// chunk_rows_times's chain. Ends with a barrier.
-template <bool kExact = false, typename Epi>
+// Ends with a barrier.
+template <bool kExact = false, int kGR = kGateRows, typename Epi>
 __device__ void group_rows_times(const Tile& t, const float* a_s, int R,
                                  const float* __restrict__ w, float* stages,
                                  Epi epi) {
-  const int H = t.H, sf = group_stage_floats(H);
+  const int H = t.H, sf = group_stage_floats<kGR>(H);
   for (int base = 0; base < R; base += t.pass_rows()) {
     const int nri = min(kTR, (R - base + t.RL - 1) / t.RL);
     int row[kTR];
@@ -264,7 +352,7 @@ __device__ void group_rows_times(const Tile& t, const float* a_s, int R,
     for (int i = 0; i < kTR; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    const int ks = slab_rows(H, H);
+    const int ks = slab_rows<kGR>(H, H);
     slab_pipeline(
         (H + ks - 1) / ks, stages, sf,
         [&](int s, float* st) {
@@ -309,15 +397,16 @@ __device__ void group_rows_times(const Tile& t, const float* a_s, int R,
 // The gate pre-activation sums of rows [0, R) (x_s, h_s at stride ld)
 // against the packed w_i, w_h ([H, 3H]): per pass, for each of the
 // thread's rows and 4 columns, pr = (x w_i + h w_h)[:, c], pz = [:, H + c],
-// gn = (x w_i)[:, 2H + c], hn = (h w_h)[:, 2H + c], each in
-// gate_preacts's chain; then epi(row, pr, pz, gn, hn) for the rows below R
-// after a barrier (epi may write h_s in place). Ends with a barrier.
-template <bool kExact = false, typename Epi>
+// gn = (x w_i)[:, 2H + c], hn = (h w_h)[:, 2H + c], in the interleaved
+// chain; then epi(row, pr, pz, gn, hn) for the rows below R after a
+// barrier (epi may write h_s in place). Slabs of kGR k rows: kGR divides
+// H. Ends with a barrier.
+template <bool kExact = false, int kGR = kGateRows, typename Epi>
 __device__ void group_gate(const Tile& t, const float* x_s, const float* h_s,
                            int R, const float* __restrict__ wi,
                            const float* __restrict__ wh, float* stages,
                            Epi epi) {
-  const int H = t.H, H3 = 3 * H, sf = group_stage_floats(H);
+  const int H = t.H, H3 = 3 * H, sf = group_stage_floats<kGR>(H);
   for (int base = 0; base < R; base += t.pass_rows()) {
     const int nri = min(kTR, (R - base + t.RL - 1) / t.RL);
     int row[kTR];
@@ -329,7 +418,7 @@ __device__ void group_gate(const Tile& t, const float* x_s, const float* h_s,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         pr[i][j] = pz[i][j] = gn[i][j] = hn[i][j] = 0.f;
-    const int ks = kGateRows;  // divides H (H % 4 == 0)
+    const int ks = kGR;  // divides H
     slab_pipeline(
         H / ks, stages, sf,
         [&](int s, float* st) { issue_slab(t, st, s * ks, ks, wi, wh, H3); },
@@ -339,7 +428,7 @@ __device__ void group_gate(const Tile& t, const float* x_s, const float* h_s,
           with_rows<kExact>(nri, [&](auto nr) {
             constexpr int NR = decltype(nr)::value;
 #pragma unroll
-            for (int kq = 0; kq < kGateRows; kq += 4) {
+            for (int kq = 0; kq < kGR; kq += 4) {
               float4 xv[NR], hv[NR];
 #pragma unroll
               for (int i = 0; i < NR; ++i) {
@@ -388,16 +477,129 @@ __device__ void group_gate(const Tile& t, const float* x_s, const float* h_s,
   __syncthreads();
 }
 
+// The per-step forward's products at H > 64 (hp = 128, one block an SM:
+// 128 gate accumulators a thread) over a tile of exactly one pass: thread
+// (column group, row lane rl) holds kWideRows rows rl + kWideRL * i, so
+// one weight value feeds 8 rows, and the rows' offsets are compile-time
+// constants (the 4 x 4 tile's clamped, runtime-strided row indices cost
+// as many address instructions as its FMAs' third). Rows past R in the
+// last tile compute on stale rows and are dropped. The rows' operands are
+// scalar loads (4 rows a warp on 4 banks), the weights float4 from the
+// slab. Each element keeps the chain of group_rows_times and group_gate.
+constexpr int kWideRows = 8;
+constexpr int kWideRL = 8;               // row lanes at hp = 128
+constexpr int kWideLd = 128 + 4;         // group_ld at hp = 128
+constexpr int kWideTile = kWideRows * kWideRL;  // rows a wide tile
+
+template <int kGR, typename Epi>
+__device__ void wide_rows_times(const Tile& t, const float* a_s, int R,
+                                const float* __restrict__ w, float* stages,
+                                Epi epi) {
+  const int H = t.H, sf = group_stage_floats<kGR>(H);
+  const float* ar = a_s + t.rl * kWideLd;
+  float acc[kWideRows][4];
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int ks = slab_rows<kGR>(H, H);
+  slab_pipeline(
+      (H + ks - 1) / ks, stages, sf,
+      [&](int s, float* st) {
+        issue_slab(t, st, s * ks, min(ks, H - s * ks), w, nullptr, H);
+      },
+      [&](int s, const float* st) {
+        if (!t.active) return;
+        const int k0 = s * ks, kn = min(ks, H - k0);
+#pragma unroll 4
+        for (int kk = 0; kk < kn; ++kk) {
+          const float4 wk =
+              *reinterpret_cast<const float4*>(st + kk * H + t.c0);
+#pragma unroll
+          for (int i = 0; i < kWideRows; ++i) {
+            const float av = ar[i * kWideRL * kWideLd + k0 + kk];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(av, f4(wk, j), acc[i][j]);
+          }
+        }
+      });
+  if (t.active) {
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) {
+      const int r = t.rl + kWideRL * i;
+      if (r < R) epi(r, acc[i]);
+    }
+  }
+  __syncthreads();
+}
+
+template <int kGR, typename Epi>
+__device__ void wide_gate(const Tile& t, const float* x_s, const float* h_s,
+                          int R, const float* __restrict__ wi,
+                          const float* __restrict__ wh, float* stages,
+                          Epi epi) {
+  const int H = t.H, H3 = 3 * H, sf = group_stage_floats<kGR>(H);
+  const float* xr = x_s + t.rl * kWideLd;
+  const float* hr = h_s + t.rl * kWideLd;
+  float pr[kWideRows][4], pz[kWideRows][4], gn[kWideRows][4],
+      hn[kWideRows][4];
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pr[i][j] = pz[i][j] = gn[i][j] = hn[i][j] = 0.f;
+  slab_pipeline(
+      H / kGR, stages, sf,
+      [&](int s, float* st) { issue_slab(t, st, s * kGR, kGR, wi, wh, H3); },
+      [&](int s, const float* st) {
+        if (!t.active) return;
+        const int k0 = s * kGR;
+#pragma unroll 2
+        for (int kk = 0; kk < kGR; ++kk) {
+          const float* wrow = st + kk * 2 * H3 + t.c0;
+          const float4 wir = *reinterpret_cast<const float4*>(wrow);
+          const float4 wiz = *reinterpret_cast<const float4*>(wrow + H);
+          const float4 win = *reinterpret_cast<const float4*>(wrow + 2 * H);
+          const float4 whr = *reinterpret_cast<const float4*>(wrow + H3);
+          const float4 whz = *reinterpret_cast<const float4*>(wrow + H3 + H);
+          const float4 whn =
+              *reinterpret_cast<const float4*>(wrow + H3 + 2 * H);
+#pragma unroll
+          for (int i = 0; i < kWideRows; ++i) {
+            const float x = xr[i * kWideRL * kWideLd + k0 + kk];
+            const float h = hr[i * kWideRL * kWideLd + k0 + kk];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              pr[i][j] = fmaf(x, f4(wir, j), pr[i][j]);
+              pr[i][j] = fmaf(h, f4(whr, j), pr[i][j]);
+              pz[i][j] = fmaf(x, f4(wiz, j), pz[i][j]);
+              pz[i][j] = fmaf(h, f4(whz, j), pz[i][j]);
+              gn[i][j] = fmaf(x, f4(win, j), gn[i][j]);
+              hn[i][j] = fmaf(h, f4(whn, j), hn[i][j]);
+            }
+          }
+        }
+      });
+  if (t.active) {
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) {
+      const int r = t.rl + kWideRL * i;
+      if (r < R) epi(r, pr[i], pz[i], gn[i], hn[i]);
+    }
+  }
+  __syncthreads();
+}
+
 // The gate backward's second half on rows [0, R): with dp (device memory,
 // [R, 4H] from row 0, written by this block: plain loads, no read-only
-// path) dx[r] = dpre_i[r] w_i^T -> dx_s, dh_s[r] += dpre_h[r] w_h^T, in
-// chunk_gate_bwd_b's chains over j ascending (wiT, whT: [3H, H]). Ends
-// with a barrier.
+// path) dx[r] = dpre_i[r] w_i^T -> dx_s, dh_s[r] += dpre_h[r] w_h^T, each
+// a chain over j ascending (wiT, whT: [3H, H]). Ends with a barrier.
+template <int kGR = kGateRows>
 __device__ void group_gate_bwd_b(const Tile& t, const float* dp, int R,
                                  const float* __restrict__ wiT,
                                  const float* __restrict__ whT,
                                  float* stages, float* dx_s, float* dh_s) {
-  const int H = t.H, H2 = 2 * H, sf = group_stage_floats(H);
+  const int H = t.H, H2 = 2 * H, sf = group_stage_floats<kGR>(H);
   for (int base = 0; base < R; base += t.pass_rows()) {
     const float* dprow[kTR];
 #pragma unroll
@@ -409,7 +611,7 @@ __device__ void group_gate_bwd_b(const Tile& t, const float* dp, int R,
     for (int i = 0; i < kTR; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) ax[i][j] = ah[i][j] = 0.f;
-    const int ks = slab_rows(H, H2), J = 3 * H;
+    const int ks = slab_rows<kGR>(H, H2), J = 3 * H;
     slab_pipeline(
         (J + ks - 1) / ks, stages, sf,
         [&](int s, float* st) {

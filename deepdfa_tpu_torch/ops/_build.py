@@ -75,6 +75,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # vals_bf16, max_group_rows, hidden, cluster, blocks, clusters
         # (int outs)
         "persistent_fwd_occupancy": [_I, _I, _I, _I, _P, _P],
+        # vals_bf16, n_rows, hidden, row_tile, cluster, slab_rows, blocks,
+        # blocks_per_sm, smem_bytes, sms (int outs)
+        "fused_step_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },
     "fused_gnn_bwd": {
         # h, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT, whT,
@@ -95,6 +98,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                     _P, _P, _P, _P, _P, _P, _P],
         # vals_bf16, max_group_rows, hidden, blocks (int out)
         "persistent_bwd_occupancy": [_I, _I, _I, _P],
+        # vals_bf16, n_rows, hidden, row_tile, slab_rows, blocks,
+        # blocks_per_sm, blocks_per_sm_pass1, smem_bytes, smem_bytes_pass1,
+        # sms (int outs)
+        "fused_step_bwd_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                    _P],
     },
     "flash_attn": {
         # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream

@@ -69,7 +69,8 @@ from deepdfa_tpu_torch.ops.band_spmm import (
 #: persistent kernels hold their row group's rows there.
 PERSISTENT_SMEM_BUDGET_BYTES = 232_448
 
-#: The kernels map one thread to one hidden column.
+#: The kernels' row arrays hold at most 128 columns (H rounded up to 32,
+#: 64 or 128).
 MAX_HIDDEN = 128
 
 #: step_weight_grad_kernel's first pass: rows a slab (the split sizes are
@@ -257,6 +258,103 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
     _raise_on_error(err, f"{kernel} occupancy")
     return dict(blocks_per_sm=blocks.value,
                 active_clusters=clusters.value if cluster > 1 else None)
+
+
+#: Rows of a per-step forward tile where 32-row tiles fill the SMs
+#: (``kWideTile`` in ``csrc/group_step.cuh``: one pass of the wide
+#: products' 8 rows a thread at H > 64).
+STEP_WIDE_TILE = 64
+
+
+def step_plan(n_rows: int, hidden: int, sms: int,
+              kernel: str = "fused_step_kernel") -> dict:
+    """How a per-step launch on a card of ``sms`` SMs cuts ``n_rows`` rows
+    into fixed row tiles, a block (or a 2-block cluster) a tile for one
+    step: no closed groups, so no gate, and a tile's shared memory never
+    grows with a graph. The CUDA launchers plan the same on the host with
+    the device's SM count (``csrc/fused_gnn.cu:step_fwd_plan``,
+    ``csrc/fused_gnn_bwd.cu:step_bwd_plan``); :func:`step_geometry` reads
+    theirs back.
+
+    ``fused_step_kernel``: where 32-row tiles make ``sms`` blocks, tiles
+    of :data:`STEP_WIDE_TILE` rows, one block each, with the wide products
+    (8 rows a thread, one block an SM; gate slabs of 16 k rows where 16
+    divides ``hidden``, else 4) at ``hidden`` > 64 (``wide``), else the
+    4 x 4 ones (slabs of 4); else (the serving bucket) 2-block clusters
+    over 16-row tiles that split the product columns (while the padded
+    width leaves each block 32; slabs of 8 k rows where 8 divides
+    ``hidden``, else 4: two blocks an SM either way).
+    ``fused_step_bwd_kernel``: 32-row tiles, 16 where those are fewer
+    than ``sms`` blocks, slabs of 4, no clusters. Returns ``row_tile``,
+    ``cluster``, ``slab_rows``, ``blocks`` (each pass's grid) and
+    ``wide``. Host ints only."""
+    cdiv = lambda a, b: -(-a // b)
+    hp = persistent_row_stride(hidden) - 4
+    wide = False
+    if kernel == "fused_step_kernel":
+        if cdiv(n_rows, 32) >= sms or hp // 2 < 32:
+            cs, rt, wide = 1, STEP_WIDE_TILE, hp == 128
+            gr = 16 if wide and hidden % 16 == 0 else 4
+        else:
+            cs, rt, gr = 2, 16, 8 if hidden % 8 == 0 else 4
+    elif kernel == "fused_step_bwd_kernel":
+        cs, gr = 1, PERSISTENT_SLAB_ROWS
+        rt = 16 if cdiv(n_rows, 32) < sms else 32
+    else:
+        raise ValueError(f"no per-step plan for {kernel}")
+    return dict(row_tile=rt, cluster=cs, slab_rows=gr,
+                blocks=cdiv(n_rows, rt) * cs, wide=wide)
+
+
+def step_smem_bytes(n_rows: int, hidden: int, sms: int,
+                    kernel: str = "fused_step_kernel", bwd_pass: int = 0
+                    ) -> int:
+    """Dynamic shared memory of a per-step block (``csrc``'s
+    ``step_fwd_smem`` / ``step_bwd_smem``, which :func:`step_geometry`
+    reports): the weight-slab stages, then row arrays of the tile at
+    :func:`persistent_row_stride` (the forward: h and the aggregate, and x
+    apart from it in a cluster; the backward's pass 0: the cotangent, h
+    and the aggregate; pass 1: dx and dmsg), one row sum a row. Bounded by
+    the tile, never by a graph."""
+    p = step_plan(n_rows, hidden, sms, kernel)
+    ld = persistent_row_stride(hidden)
+    stages = PERSISTENT_STAGES * p["slab_rows"] * 6 * (ld - 4)
+    if kernel == "fused_step_kernel":
+        arrays = 3 if p["cluster"] > 1 else 2
+    else:
+        arrays = 3 if bwd_pass == 0 else 2
+    return 4 * (stages + arrays * p["row_tile"] * ld + p["row_tile"])
+
+
+def step_geometry(adj: BandAdjacency, hidden: int,
+                  kernel: str = "fused_step_kernel") -> dict:
+    """The launch geometry the CUDA launcher of a per-step kernel picks at
+    this adjacency: :func:`step_plan`'s keys as the library reports them,
+    ``blocks_per_sm``, the CUDA occupancy query of the instance that
+    launches, ``smem_bytes``, its blocks' dynamic shared memory (for the
+    backward, of pass 0, and ``blocks_per_sm_pass1``, ``smem_bytes_pass1``)
+    and ``sms``, the device's SM count the plan filled."""
+    from deepdfa_tpu_torch.ops import _build
+
+    bf16 = int(adj.vals.dtype == torch.bfloat16)
+    n = adj.n_tiles * adj.tile
+    if kernel == "fused_step_kernel":
+        keys = ("row_tile", "cluster", "slab_rows", "blocks",
+                "blocks_per_sm", "smem_bytes", "sms")
+        geometry = _build.load("fused_gnn").fused_step_geometry
+    elif kernel == "fused_step_bwd_kernel":
+        keys = ("row_tile", "slab_rows", "blocks", "blocks_per_sm",
+                "blocks_per_sm_pass1", "smem_bytes", "smem_bytes_pass1",
+                "sms")
+        geometry = _build.load("fused_gnn_bwd").fused_step_bwd_geometry
+    else:
+        raise ValueError(f"no per-step geometry for {kernel}")
+    out = [ctypes.c_int(0) for _ in keys]
+    err = geometry(bf16, n, hidden, *(ctypes.byref(v) for v in out))
+    _raise_on_error(err, f"{kernel} geometry")
+    geo = {k: v.value for k, v in zip(keys, out)}
+    geo.setdefault("cluster", 1)
+    return geo
 
 
 def _check_cuda_inputs(h: torch.Tensor, adj: BandAdjacency) -> None:
@@ -860,9 +958,9 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
     this run's data sets the sparse terms). f32 h and weights.
 
     - ``fused_step_kernel``/``persistent_fwd_kernel``: ``n_steps``
-      forward steps; ``h`` in and out, the band and the packed weights
-      (``n_steps`` launches of the fused kernel move the bytes
-      ``n_steps`` times).
+      forward steps; ``h`` in and out, the band and the packed weights,
+      once for the persistent kernel's one launch and ``n_steps`` times
+      for the ``n_steps`` launches of the fused kernel.
     - ``persistent_fwd_hist_kernel``: ``n_steps - 1`` steps; ``h_0`` in,
       ``K-1`` planes of hist out.
     - ``fused_step_bwd_kernel``: one step's backward (``n_steps`` is
@@ -893,7 +991,9 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
     bwd = _step_bwd_flops(n, hidden, nnz)
     wgrad = 2.0 * n * hidden * 7 * hidden + 7.0 * n * hidden
     cotangents = 6 * plane  # x, dmsg and the 4H dp of one step
-    if kernel in ("fused_step_kernel", "persistent_fwd_kernel"):
+    if kernel == "fused_step_kernel":
+        flops, nbytes = n_steps * fwd, n_steps * (2 * plane + band + weights)
+    elif kernel == "persistent_fwd_kernel":
         flops, nbytes = n_steps * fwd, 2 * plane + band + weights
     elif kernel == "persistent_fwd_hist_kernel":
         flops = (n_steps - 1) * fwd

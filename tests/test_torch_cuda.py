@@ -265,12 +265,17 @@ def _persistent_case(case):
         "h32": ([30, 20, 9], 64, 16, 32, 4),
         # One graph over every row: one group, so a 2-block cluster.
         "one_group": ([112], 112, 16, 128, None),
+        # The training batch's size: 16384 rows of 8-60-row graphs, the
+        # per-step forward's wide 64-row tiles (which cut graphs).
+        "training": (list(np.random.default_rng(7).integers(8, 61, 420)),
+                     16384, 128, 128, None),
     }[case]
     return _graph_adj(sizes, n, tile, bandwidth=bandwidth), hidden
 
 
 @pytest.mark.parametrize("case", ["serving", "over_a_tile",
-                                  "over_a_tile_bwd", "h32", "one_group"])
+                                  "over_a_tile_bwd", "h32", "one_group",
+                                  "training"])
 def test_persistent_kernels_equal_the_per_step_scan(cuda, case):
     # The persistent pair's claim: persistent_fwd_kernel is K launches of
     # fused_step_kernel, its hist instance the states between them, and
@@ -285,7 +290,7 @@ def test_persistent_kernels_equal_the_per_step_scan(cuda, case):
     # cluster's three row arrays fit (300 rows at H 64 do not; H 32 has
     # no two slices of 32 columns).
     assert fused_gnn.persistent_cluster_size(adj, hidden, sms) == (
-        1 if case in ("over_a_tile", "h32") else 2)
+        1 if case in ("over_a_tile", "h32", "training") else 2)
     bwd = fused_gnn.persistent_bwd_smem_ok(adj, hidden)
     assert fused_gnn.persistent_smem_ok(adj, hidden)
     assert bwd == (case != "over_a_tile")
@@ -416,13 +421,16 @@ def test_flowgnn_backward_repeats_its_bits(cuda):
         assert all(torch.equal(again[k], g) for k, g in first.items())
 
 
-@pytest.mark.parametrize("nodes,max_nodes", [(150, 256), (600, 640)])
+@pytest.mark.parametrize("nodes,max_nodes", [(150, 256), (600, 640),
+                                             (5000, 5120)])
 def test_over_backward_gate_trains_through_the_fused_step(cuda, nodes,
                                                          max_nodes):
-    # 150 rows pass the forward gate and fail the backward's; 600 fail
-    # both. A training pass runs the fused step forward and backward K
-    # times, counted; serving the 150-row batch keeps the persistent
-    # kernel.
+    # 150 rows pass the forward gate and fail the backward's; 600 and
+    # 5000 fail both. A training pass runs the fused step forward and
+    # backward K times, counted (at 5120 rows the forward's wide 64-row
+    # tiles, the backward's 32-row ones; at 256 and 640 rows the
+    # forward's 2-block clusters); serving the 150-row batch keeps the
+    # persistent kernel.
     feature = FeatureSpec(limit_all=20, limit_subkeys=20)
     graph = synthetic_bigvul(1, feature, seed=0, min_nodes=nodes,
                              max_nodes=nodes)
@@ -449,6 +457,91 @@ def test_over_backward_gate_trains_through_the_fused_step(cuda, nodes,
             params, torch.zeros(max_nodes, 128, device=cuda,
                                 requires_grad=True),
             batch.band_adj.to(cuda), k)
+
+
+def _step_case(sizes, n, tile, hidden, f32_vals, bandwidth, cuda):
+    if sizes:
+        adj = _graph_adj(sizes, n, tile, bandwidth=bandwidth)
+    else:  # a batch of only padding rows: no edge at all
+        adj = build_band_adjacency([], [], np.zeros(0, bool), n, tile=tile,
+                                   bandwidth=bandwidth)
+    adj = adj.to(cuda)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    return adj
+
+
+@pytest.mark.parametrize("sizes,n,tile,hidden,f32_vals,bandwidth,plan", [
+    # 1000 rows: 2-block clusters over 16-row tiles, the last one short.
+    ([40] * 24, 1000, 8, 128, False, None, (16, 2, False)),
+    ([40] * 24, 1000, 8, 128, True, None, (16, 2, False)),
+    ([40] * 24, 1000, 8, 36, False, None, (16, 2, False)),
+    # 4400 rows: the wide 64-row tiles (H 128: slabs of 16; H 72: of
+    # 4), the 4 x 4 ones at H 64 and 36, the last tile short.
+    ([40] * 108, 4400, 16, 128, False, None, (64, 1, True)),
+    ([40] * 108, 4400, 16, 128, True, None, (64, 1, True)),
+    ([40] * 108, 4400, 16, 72, False, None, (64, 1, True)),
+    ([40] * 108, 4400, 16, 64, False, None, (64, 1, False)),
+    ([40] * 108, 4400, 16, 36, True, None, (64, 1, False)),
+    # Bandwidth 1 and 2 at tile 128 (full tiles).
+    ([60] * 74, 4480, 128, 128, False, 1, (64, 1, True)),
+    ([60] * 74, 4480, 128, 128, False, 2, (64, 1, True)),
+    ([60] * 15, 1024, 128, 128, True, 2, (16, 2, False)),
+    # Only padding rows.
+    ([], 4480, 128, 128, False, None, (64, 1, True)),
+    ([], 1024, 128, 64, False, None, (16, 2, False)),
+    # Band windows over a warp's staging share (f32 at B 16 and B 32)
+    # and 4-row tiles (8 bytes a bf16 tile row): the band read where it
+    # lies in device memory, one value a lane.
+    ([60] * 15, 1024, 128, 128, True, 16, (16, 2, False)),
+    ([60] * 74, 4480, 128, 128, True, 32, (64, 1, True)),
+    ([40] * 24, 1000, 4, 128, False, None, (16, 2, False)),
+])
+def test_per_step_pair_on_ragged_tiles_widths_and_bands(
+        cuda, sizes, n, tile, hidden, f32_vals, bandwidth, plan):
+    # fused_step_kernel and fused_step_bwd_kernel against their plain
+    # versions, each twice on the same inputs for the same bits, one
+    # launch counted a call, the geometry the libraries report being the
+    # host's plan.
+    adj = _step_case(sizes, n, tile, hidden, f32_vals, bandwidth, cuda)
+    assert adj.n_tiles * adj.tile == n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = fused_gnn.step_plan(n, hidden, sms)
+    assert (want["row_tile"], want["cluster"], want["wide"]) == plan
+    for kernel in ("fused_step_kernel", "fused_step_bwd_kernel"):
+        geo = fused_gnn.step_geometry(adj, hidden, kernel)
+        plan_k = fused_gnn.step_plan(n, hidden, sms, kernel)
+        assert geo["sms"] == sms
+        assert {k: geo[k] for k in ("row_tile", "cluster", "slab_rows",
+                                    "blocks")} == {
+            k: plan_k[k] for k in ("row_tile", "cluster", "slab_rows",
+                                   "blocks")}
+        assert geo["smem_bytes"] == fused_gnn.step_smem_bytes(
+            n, hidden, sms, kernel, 0)
+        assert geo["blocks_per_sm"] == (1 if plan_k["wide"] else 2)
+        if kernel == "fused_step_bwd_kernel":
+            assert geo["smem_bytes_pass1"] == fused_gnn.step_smem_bytes(
+                n, hidden, sms, kernel, 1)
+            assert geo["blocks_per_sm_pass1"] >= 2
+    params = _params(hidden, cuda, seed=4)
+    gen = torch.Generator().manual_seed(5)
+    h = torch.randn(n, hidden, generator=gen).to(cuda)
+    g = torch.randn(n, hidden, generator=gen).to(cuda)
+    fused_gnn.reset_launch_counts()
+    out = fused_gnn.fused_gate_step(params, h, adj)
+    assert torch.equal(fused_gnn.fused_gate_step(params, h, adj), out)
+    rows = fused_gnn.fused_step_bwd_rows(params, h, adj, g)
+    again = fused_gnn.fused_step_bwd_rows(params, h, adj, g)
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0), "fused_step_kernel": 2,
+        "fused_step_bwd_kernel": 2}
+    assert all(torch.equal(a, b) for a, b in zip(again, rows))
+    torch.testing.assert_close(out, fused_gnn.fused_step_reference(
+        params, h, adj), **STEP_TOL)
+    for a, b in zip(rows, fused_gnn.fused_step_bwd_rows_reference(
+            params, h, adj, g)):
+        torch.testing.assert_close(a, b, **STEP_TOL)
 
 
 def test_backward_refusals(cuda):

@@ -438,7 +438,10 @@ def test_kernel_cost_counts_each_kernel():
     adj = pt_band.build_band_adjacency(s, r, np.ones(len(s), bool), 1024)
     n, hid, k = 1024, 128, 5
     fwd = pt_fused.kernel_cost(adj, hid, k)
-    assert fwd == pt_fused.kernel_cost(adj, hid, k, "persistent_fwd_kernel")
+    # k launches of fused_step_kernel do the persistent kernel's work and
+    # move its bytes (h in and out, the band, the weights) k times.
+    persist = pt_fused.kernel_cost(adj, hid, k, "persistent_fwd_kernel")
+    assert fwd == dict(persist, bytes=k * persist["bytes"])
     nnz = fwd["nnz"]
     assert nnz == int(np.count_nonzero(adj.vals.float().numpy()))
     step = (2.0 * n * hid * hid + 12.0 * n * hid * hid + 2.0 * nnz * hid

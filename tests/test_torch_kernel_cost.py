@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BYTES_PER_S, PEAK_F32_SIMT
 from deepdfa_tpu_torch.ops import attention as A
 from deepdfa_tpu_torch.ops import fused_gnn
 from deepdfa_tpu_torch.ops.band_spmm import build_band_adjacency
@@ -109,3 +109,23 @@ def test_weight_pass_splits_follow_rows_and_width(n, hidden, rows, splits):
     got = fused_gnn.wgrad_rows_per_split(n, hidden)
     assert got == rows and -(-n // got) == splits
     assert got % fused_gnn.WGRAD_SLAB_ROWS == 0
+
+
+@pytest.mark.parametrize("n,tile,hidden", [(256, 64, 32), (1024, 128, 128)])
+def test_fused_step_bytes_count_every_launch(n, tile, hidden):
+    # K launches of fused_step_kernel move h in and out, the band and the
+    # weights K times; the persistent kernel's one launch moves them once.
+    # Both do K steps of operations; at the published width (H 128) they
+    # stay bound by them.
+    adj = _band(n, tile)
+    one = fused_gnn.kernel_cost(adj, hidden, 1)
+    five = fused_gnn.kernel_cost(adj, hidden, 5)
+    assert five["flops"] == 5 * one["flops"]
+    assert five["bytes"] == 5 * one["bytes"]
+    p1 = fused_gnn.kernel_cost(adj, hidden, 1, "persistent_fwd_kernel")
+    p5 = fused_gnn.kernel_cost(adj, hidden, 5, "persistent_fwd_kernel")
+    assert p1 == one
+    assert p5["bytes"] == one["bytes"] and p5["flops"] == five["flops"]
+    for cost in (one, five, p5) if hidden == 128 else ():
+        assert (cost["flops"] / cost["peak_flops"]
+                > cost["bytes"] / PEAK_BYTES_PER_S)
