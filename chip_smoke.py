@@ -91,6 +91,21 @@ one:
    the two-pass pair; then each kernel's device ms a step
    (``torch.profiler``) and the pair's share of it.
 
+16. The paper's two-stage recipe through the CLI, snapshots on disk in a
+   temporary directory removed afterwards: ``fit`` (persistent lane,
+   ``synthetic_bigvul(2600)``) for 2 epochs, and for 1 epoch resumed to
+   2, which must repeat the uninterrupted run's epoch-1 losses bit for
+   bit; ``test`` of its ``best`` on the card and on the CPU (loss within
+   1e-5); ``score --split test`` (probabilities within 1e-4 of
+   ``test``'s); ``fit-text --ddfa-checkpoint --freeze-graph`` at
+   codebert-base width (12 layers, T 512, batch 16, ``synthetic:120``,
+   one epoch, a persistent graph encoder), whose ``best`` must hold the
+   grafted encoder and the seeded pooling bit for bit and whose launches
+   must hold no GNN backward kernel; ``test-text``, which must repeat
+   fit-text's test loss and ``predictions.csv`` bit for bit. Then each
+   snapshot's bytes and its checksum, restore and save ms, and the frozen
+   fine-tune's device ms a step by kernel (``torch.profiler``).
+
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
 counts just after. Every number goes on a line of its own before the
@@ -99,17 +114,24 @@ last; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
+import io
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from deepdfa_tpu_torch import cli
 from deepdfa_tpu_torch.core.config import (
     DataConfig,
     FlowGNNConfig,
@@ -142,6 +164,7 @@ from deepdfa_tpu_torch.ops import (
 from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE, align_to_tile
 from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
 from deepdfa_tpu_torch.serve.engine import bucket_batch
+from deepdfa_tpu_torch.train import checkpoint as train_checkpoint
 from deepdfa_tpu_torch.train import loop, text_loop
 
 SEED = 0
@@ -223,6 +246,9 @@ TEXT_SEED = 1
 TEXT_LOSS_TOL = 1e-4
 TEXT_GRAD_FLOOR = 1e-6
 TEXT_PROFILE_STEPS = 3
+# The recipe phase: ``cli test`` of one snapshot on the card against the
+# CPU, one evaluation pass, f32 in another order (loss).
+RECIPE_TEST_TOL = 1e-5
 REPLACES.update({
     "flash_fwd_kernel": "deepdfa_tpu/ops/attention.py:220",
     "flash_bwd_fused_kernel": "deepdfa_tpu/ops/attention.py:320",
@@ -1517,6 +1543,245 @@ def phase_fit_text_long() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The paper's two-stage recipe through the CLI, snapshots on disk
+# ---------------------------------------------------------------------------
+
+
+def _cli(argv) -> dict:
+    """One command of ``deepdfa_tpu_torch.cli``, as ``main`` runs it; its
+    JSON report (printed by the command, kept off this script's output)."""
+    args = cli.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return args.func(args)
+
+
+def _counted_cli(argv) -> tuple:
+    """``_cli`` with every kernel's count set to 0 just before and read
+    just after: (report, launches)."""
+    reset_launch_counts()
+    report = _cli(argv)
+    torch.cuda.synchronize()
+    return report, launch_counts()
+
+
+def _read_history(run: str) -> dict:
+    with open(os.path.join(run, "history.json")) as f:
+        return json.load(f)
+
+
+def _read_probs(path: str) -> dict:
+    with open(path) as f:
+        return {int(r["index"]): float(r["prob"]) for r in csv.DictReader(f)}
+
+
+def _snapshot_costs(run: str, scratch: str) -> list:
+    """Each snapshot of ``run``: its bytes; the ms of its sha256
+    (``checksum_ms``), of a verified restore onto the card by a fresh
+    manager (``restore_ms``: the checksum, then ``torch.load``), and of
+    writing the restored state back from the card into ``scratch``
+    (``save_ms``: the copy to the host, ``torch.save`` with fsync, the
+    checksum and the meta commit, as a trainer's save runs). The files
+    are in the host's page cache throughout."""
+    out = []
+    for name in sorted(os.listdir(run)):
+        path = os.path.join(run, name)
+        if not os.path.isdir(path):
+            continue
+        t0 = time.perf_counter()
+        train_checkpoint.snapshot_checksum(path)
+        checksum_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tree = train_checkpoint.CheckpointManager(run).restore(
+            name, map_location="cuda")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        train_checkpoint.CheckpointManager(scratch).save_last(tree, 0)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        out.append(dict(run=os.path.basename(run), snapshot=name,
+                        trainer_state="opt_state" in tree,
+                        bytes=os.path.getsize(os.path.join(
+                            path, train_checkpoint.STATE_FILE)),
+                        save_ms=save_ms, checksum_ms=checksum_ms,
+                        restore_ms=restore_ms))
+        del tree
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
+def _frozen_step_profile(model: LineVul, data, splits, tcfg, kw) -> dict:
+    """Device ms a step of the frozen fine-tune, by kernel: the graph
+    encoder frozen as ``fit_text(freeze_submodules=("flowgnn",))``
+    freezes it, one batch."""
+    model.flowgnn.requires_grad_(False)
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size, build_band_adj=True, **kw))
+    return _device_profile(lambda: step(batch, tcfg.learning_rate),
+                           TEXT_PROFILE_STEPS)
+
+
+def phase_recipe() -> dict:
+    """``fit`` -> ``test`` -> ``score`` -> ``fit-text --ddfa-checkpoint
+    --freeze-graph`` -> ``test-text`` at the published widths, each
+    through the CLI, in a temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="recipe_")
+    try:
+        return _recipe(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _recipe(root: str) -> dict:
+    full, cut, text_run = (os.path.join(root, d)
+                           for d in ("ddfa", "ddfa_cut", "combined"))
+    gnn = ["--dataset", f"synthetic:{N_TRAIN_EXAMPLES}", "--message-impl",
+           "persistent", "--device", "cuda"]
+    launches = {k: 0 for k in REPLACES}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+        return counts
+
+    # Stage 1: train DDFA, 2 epochs; then 1 epoch resumed to 2.
+    t0 = time.perf_counter()
+    fit_report, counts = _counted_cli(["fit", *gnn, "--max-epochs", "2",
+                                       "--checkpoint-dir", full])
+    fit_s = time.perf_counter() - t0
+    fit_launches = add(counts)
+    add(_counted_cli(["fit", *gnn, "--max-epochs", "1", "--checkpoint-dir",
+                      cut])[1])
+    resumed, counts = _counted_cli(["fit", *gnn, "--max-epochs", "2",
+                                    "--checkpoint-dir", cut, "--resume"])
+    add(counts)
+    want, got = _read_history(full), _read_history(cut)
+    if (got["resumed_from"] != {"name": "last", "epoch": 0,
+                                "fallback": False}
+            or [e["epoch"] for e in got["epochs"]] != [1]
+            or got["epochs"][0]["step_losses"]
+            != want["epochs"][1]["step_losses"]
+            or got["epochs"][0]["val_loss"] != want["epochs"][1]["val_loss"]
+            or resumed != fit_report):
+        raise AssertionError(
+            f"resumed fit {got['epochs'][0]['step_losses']} val "
+            f"{got['epochs'][0]['val_loss']} against the uninterrupted "
+            f"epoch 1 {want['epochs'][1]['step_losses']} val "
+            f"{want['epochs'][1]['val_loss']}")
+    if any(fit_launches[k] == 0 for k in (
+            "persistent_fwd_kernel", "persistent_fwd_hist_kernel",
+            "persistent_bwd_kernel", "step_weight_grad_kernel")):
+        raise AssertionError(f"fit launches {fit_launches}")
+
+    # Evaluate: test on the card and on the CPU, score the test split.
+    test_card, counts = _counted_cli(["test", *gnn, "--checkpoint-dir",
+                                      full])
+    add(counts)
+    card_probs = _read_probs(os.path.join(full, "test_predictions.csv"))
+    if counts["persistent_fwd_kernel"] == 0:
+        raise AssertionError(f"test launches {counts}")
+    test_cpu = _cli(["test", *gnn[:-1], "cpu", "--checkpoint-dir", full])
+    test_loss_diff = abs(test_card["loss"] - test_cpu["loss"])
+    if test_loss_diff > RECIPE_TEST_TOL:
+        raise AssertionError(f"test loss card {test_card['loss']} against "
+                             f"cpu {test_cpu['loss']}")
+    score, counts = _counted_cli([
+        "score", *gnn, "--seed", "1", "--split", "test", "--checkpoint-dir",
+        full, "--out-dir", os.path.join(root, "score")])
+    add(counts)
+    scored = _read_probs(score["out"])
+    if scored.keys() != card_probs.keys() or score["n_errors"]:
+        raise AssertionError(f"score covers {sorted(scored)}, test "
+                             f"{sorted(card_probs)}")
+    score_diff = max(abs(scored[i] - card_probs[i]) for i in scored)
+    if score_diff > SERVE_TOL or counts["persistent_fwd_kernel"] == 0:
+        raise AssertionError(f"score against test: {score_diff} (limit "
+                             f"{SERVE_TOL}); launches {counts}")
+
+    # Stage 2: fine-tune DeepDFA+LineVul from the frozen encoder.
+    enc = EncoderConfig()
+    t0 = time.perf_counter()
+    ft, ft_launches = _counted_cli([
+        "fit-text", "--dataset", f"synthetic:{TEXT_N_FULL}", "--graphs",
+        "synthetic", "--epochs", "1", "--batch-size", "16", "--block-size",
+        "512", "--set", "model.message_impl=persistent", "--ddfa-checkpoint",
+        full, "--which", "best", "--freeze-graph", "--checkpoint-dir",
+        text_run, "--device", "cuda"])
+    fit_text_s = time.perf_counter() - t0
+    add(ft_launches)
+    history = _read_history(text_run)
+    steps = len(history["epochs"][0]["step_losses"])
+    graph_cfg, tcfg, data, splits, kw = _text_setup(
+        enc, TEXT_N_FULL, 16, 512, "persistent")
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    test_batches = -(-len(splits["test"]) // tcfg.eval_batch_size)
+    batches = steps + val_batches + test_batches
+    over_gate = ft_launches["fused_step_kernel"] // graph_cfg.n_steps
+    _require_launches("frozen fit-text", ft_launches, {
+        "flash_fwd_kernel": enc.num_layers * batches,
+        "flash_bwd_fused_kernel": enc.num_layers * steps,
+        "persistent_fwd_kernel": batches - over_gate,
+        "fused_step_kernel": graph_cfg.n_steps * over_gate})
+
+    # The frozen encoder: T's best holds D's best encoder bit for bit,
+    # and the pooling at the combined model's seeded init.
+    encoder = train_checkpoint.load_encoder_params(
+        train_checkpoint.CheckpointManager(full).restore_params("best"))
+    tuned = train_checkpoint.CheckpointManager(text_run).restore_params(
+        "best", map_location="cuda")
+    model = LineVul(dataclasses.replace(enc, attention_impl="auto"),
+                    graph_cfg, device="cuda", seed=TEXT_SEED)
+    fresh = model.state_dict()
+    pooling = [k for k in fresh if k.startswith("flowgnn.pooling.")]
+    changed = [k for k, v in encoder.items()
+               if not torch.equal(tuned[f"flowgnn.{k}"].cpu(), v)]
+    changed += [k for k in pooling if not torch.equal(tuned[k], fresh[k])]
+    if changed or not pooling:
+        raise AssertionError(f"frozen encoder moved: {changed}")
+    model.load_state_dict(tuned)
+    frozen_profile = _frozen_step_profile(model, data, splits, tcfg, kw)
+    del model, tuned
+
+    # Evaluate the fine-tune from its snapshot.
+    tt, counts = _counted_cli(["test-text", "--checkpoint-dir", text_run,
+                               "--device", "cuda"])
+    add(counts)
+    with open(os.path.join(text_run, "predictions.csv")) as f:
+        fit_rows = f.read()
+    with open(os.path.join(text_run, "test_predictions.csv")) as f:
+        test_rows = f.read()
+    if tt["loss"] != ft["test"]["loss"] or test_rows != fit_rows:
+        raise AssertionError(f"test-text loss {tt['loss']} against "
+                             f"fit-text's {ft['test']['loss']}")
+
+    snapshots = []
+    for run in (full, text_run):
+        snapshots += _snapshot_costs(run, os.path.join(root, "resave"))
+    rec = dict(phase="recipe", fit_epochs=len(want["epochs"]),
+               fit_steps=sum(len(e["step_losses"]) for e in want["epochs"]),
+               fit_wall_s=fit_s, best_epoch=fit_report["best_epoch"],
+               best_val_loss=fit_report["best_val_loss"],
+               resumed_bits_equal=True,
+               resumed_step_losses=got["epochs"][0]["step_losses"],
+               test_loss=test_card["loss"], test_loss_cpu=test_cpu["loss"],
+               test_loss_diff_vs_cpu=test_loss_diff,
+               score_max_abs_diff_vs_test=score_diff,
+               n_test=len(card_probs),
+               fit_text_wall_s=fit_text_s, fit_text_steps=steps,
+               fit_text_losses=history["epochs"][0]["step_losses"],
+               fit_text_test_loss=ft["test"]["loss"],
+               frozen_encoder_bits_equal=True,
+               test_text_bits_equal=True, fit_text_launches=ft_launches,
+               fit_text_over_gate_dispatches=over_gate,
+               frozen_step_profile=frozen_profile, snapshots=snapshots,
+               launches=launches)
+    emit(**rec)
+    return rec
+
+
 def main() -> int:
     seconds = {}
 
@@ -1547,7 +1812,8 @@ def main() -> int:
             ("fit_text", phase_fit_text, ()),
             ("fit_text_vs_cpu", phase_fit_text_vs_cpu, ()),
             ("fit_text_vs_cpu_tile", phase_fit_text_vs_cpu, ("tile",)),
-            ("fit_text_long", phase_fit_text_long, ())):
+            ("fit_text_long", phase_fit_text_long, ()),
+            ("recipe", phase_recipe, ())):
         for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))

@@ -119,10 +119,12 @@ class TrainConfig:
     """Optimizer/trainer configuration; defaults are the published DeepDFA
     settings (AdamW lr 1e-3, weight decay 1e-2, 25 epochs, batch 256).
 
-    ``checkpoint_dir``, ``checkpoint_every_epochs`` and ``tensorboard_dir``
-    are kept for parity; the port's ``fit`` does not checkpoint or log to
-    TensorBoard yet. ``detect_anomaly``/``anomaly_policy`` ("raise" or
-    "rollback") and ``anomaly_retry_budget`` act at ``log_every`` windows.
+    ``checkpoint_dir`` set: ``fit`` writes its snapshots there
+    (``train/checkpoint.py``), with a periodic one every
+    ``checkpoint_every_epochs`` epochs. ``tensorboard_dir`` is kept for
+    parity; the port does not log to TensorBoard yet.
+    ``detect_anomaly``/``anomaly_policy`` ("raise" or "rollback") and
+    ``anomaly_retry_budget`` act at ``log_every`` windows.
     """
 
     learning_rate: float = 1e-3

@@ -14,8 +14,16 @@ gated steps are the hand-written kernels of ``ops/fused_gnn.py``; with
 "tile", each step's aggregate and its VJP are the block-sparse kernel
 of ``ops/tile_spmm.py``.
 
-Not ported yet: the mesh and multi-host paths, checkpoints and resume,
-the preemption lifecycle and fleet drain, telemetry spans, fault
+With a ``checkpointer`` (or ``TrainConfig.checkpoint_dir``) ``fit``
+snapshots the trainer state at the reference's points: ``best`` when the
+validation loss improves, then ``last`` and the periodic snapshot every
+epoch (``train/checkpoint.py``). ``resume=True`` continues at epoch
+granularity from the newest intact snapshot; the data order comes from
+``(seed, epoch)``, so a resumed run repeats the uninterrupted run's
+later epochs.
+
+Not ported yet: the mesh and multi-host paths, step-granular (preempt)
+resume, the preemption lifecycle and fleet drain, telemetry spans, fault
 injection hooks and TensorBoard (ROADMAP.md, section A).
 """
 
@@ -41,6 +49,10 @@ from deepdfa_tpu_torch.graphs.batch import (
 )
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
+from deepdfa_tpu_torch.train.checkpoint import (
+    CheckpointError,
+    make_checkpoint_manager,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -217,10 +229,63 @@ def _snapshot(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         opt_state=copy.deepcopy(optimizer.state_dict()))
 
 
+def _live_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                step: int) -> TrainState:
+    """The current state without copies, for a snapshot written at once
+    (the checkpointer copies it to the host)."""
+    return TrainState(step=step, params=model.state_dict(),
+                      opt_state=optimizer.state_dict())
+
+
 def _restore(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
              state: TrainState) -> None:
     model.load_state_dict(state.params)
     optimizer.load_state_dict(state.opt_state)
+
+
+def _resume(checkpointer, candidate: str, model: torch.nn.Module,
+            optimizer: torch.optim.Optimizer, device, history: Dict[str, Any],
+            best_state: TrainState) -> Tuple[int, int, TrainState]:
+    """Restore ``candidate`` (verified, with fallback) into ``model`` and
+    ``optimizer``: ``(start_epoch, steps, best_state)``, and the best
+    epoch and loss from the meta into ``history``. Every snapshot
+    damaged: log it and start from scratch."""
+    meta = checkpointer.best_meta
+    try:
+        state = TrainState(**checkpointer.restore(candidate,
+                                                  map_location=device))
+    except CheckpointError:
+        logger.exception("resume: no intact snapshot under %s; restarting "
+                         "from scratch", checkpointer.directory)
+        return 0, 0, best_state
+    _restore(model, optimizer, state)
+    restored = dict(checkpointer.last_restored)
+    history["resumed_from"] = restored
+    if candidate != "last":
+        logger.warning("resume: no 'last' snapshot on disk; resuming from "
+                       "%s (epoch %d)", candidate, restored["epoch"])
+    if restored["epoch"] < 0:
+        logger.warning("resume: checkpoint dir has a snapshot but no epoch "
+                       "record in meta.json — restarting the epoch schedule "
+                       "at 0 on top of the restored weights")
+    start_epoch = restored["epoch"] + 1
+    if restored["fallback"]:
+        logger.warning("resume: restored fallback snapshot %s; restarting "
+                       "at epoch %d", restored["name"], start_epoch)
+    history["best_epoch"] = int(meta.get("best_epoch", -1))
+    history["best_val_loss"] = float(meta.get("best_val_loss",
+                                              float("inf")))
+    best_state = state
+    if checkpointer.has("best"):
+        try:
+            best_state = TrainState(**checkpointer.restore(
+                "best", map_location=device))
+        except CheckpointError:
+            logger.exception("resume: no intact 'best' snapshot; tracking "
+                             "best from the restored state")
+    logger.info("resuming from epoch %d (best val_loss %.4f @ epoch %d)",
+                start_epoch, history["best_val_loss"], history["best_epoch"])
+    return start_epoch, state.step, best_state
 
 
 class _AnomalyGuard:
@@ -263,6 +328,7 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
         train_cfg: TrainConfig = TrainConfig(),
         data_cfg: DataConfig = DataConfig(), log_every: int = 50,
         on_epoch_end: Optional[Callable[[int, Dict[str, Any]], bool]] = None,
+        checkpointer=None, resume: bool = False,
         ) -> Tuple[TrainState, Dict[str, Any]]:
     """Train ``model`` in place to ``max_epochs``, tracking the best state
     by validation loss.
@@ -273,6 +339,15 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
     per-step losses (read from the device once, at the epoch's end).
     ``on_epoch_end(epoch, record) -> bool``: True stops training
     (``history["early_stopped"]``).
+
+    ``checkpointer``: a ``CheckpointManager``; built from
+    ``train_cfg.checkpoint_dir`` and ``checkpoint_every_epochs`` when
+    None. ``resume=True`` restores its newest intact snapshot (model,
+    optimizer, step count) and continues at the epoch after it, with
+    ``best_epoch``/``best_val_loss`` from its meta and the best state
+    from ``best``; ``history["epochs"]`` then holds only the resumed
+    epochs and ``history["resumed_from"]`` what was loaded. With no
+    intact snapshot it logs that and starts from scratch.
     """
     if train_cfg.anomaly_policy not in ("raise", "rollback"):
         raise ValueError(
@@ -292,7 +367,18 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
                                "best_val_loss": float("inf")}
     steps = 0
     best_state = _snapshot(model, optimizer, steps)
-    for epoch in range(train_cfg.max_epochs):
+    if checkpointer is None and train_cfg.checkpoint_dir:
+        checkpointer = make_checkpoint_manager(
+            train_cfg.checkpoint_dir,
+            periodic_every=train_cfg.checkpoint_every_epochs)
+    start_epoch = 0
+    candidate = (checkpointer.resume_candidate(include_preempt=False)
+                 if resume and checkpointer is not None else None)
+    if candidate is not None:
+        start_epoch, steps, best_state = _resume(
+            checkpointer, candidate, model, optimizer, device, history,
+            best_state)
+    for epoch in range(start_epoch, train_cfg.max_epochs):
         # Fresh undersample + reshuffle every epoch.
         train_idx = splits["train"]
         idx = epoch_indices(
@@ -371,6 +457,12 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
             history["best_val_loss"] = val.loss
             history["best_epoch"] = epoch
             best_state = _snapshot(model, optimizer, steps)
+            if checkpointer is not None:
+                checkpointer.save_best(best_state, epoch, val.loss)
+        if checkpointer is not None:
+            live = _live_state(model, optimizer, steps)
+            checkpointer.save_last(live, epoch)
+            checkpointer.maybe_save_periodic(live, epoch)
         if (on_epoch_end is not None and on_epoch_end(epoch, record)
                 and epoch < train_cfg.max_epochs - 1):
             history["early_stopped"] = True

@@ -19,10 +19,21 @@ encoder's attention runs the hand-written flash kernels forward and
 backward (``ops/attention.py``); a graph encoder with ``message_impl``
 "tile" runs the block-sparse kernel of ``ops/tile_spmm.py``.
 
-Not ported yet: checkpoints (``checkpointer``), the mesh and
-multi-process paths, frozen submodules (``--freeze-graph``), pretrained
-init (``init_params``), the preemption lifecycle and fleet drain,
-telemetry spans and the fault-injection hooks (ROADMAP.md, section A).
+``init_params`` grafts a ``state_dict`` fragment (a trained graph
+encoder, ``flowgnn.*``) over the fresh init. ``freeze_submodules`` holds
+top-level submodules at their loaded values the way the paper's own
+code does (linevul_main.py:595-602): ``requires_grad_(False)``, and the
+frozen parameters stay out of AdamW and out of the global-norm clip.
+The reference's ``optax.multi_transform`` with ``set_to_zero`` gives the
+same updates (its clip sees only the trainable gradients); it computes
+the frozen gradients and zeroes them, where here autograd computes none,
+so a frozen graph encoder runs its forward kernels only. With a
+``checkpointer`` the loop writes ``last`` and the periodic snapshot each
+epoch and ``best`` on a validation-F1 improvement.
+
+Not ported yet: the mesh and multi-process paths, the preemption
+lifecycle and fleet drain, telemetry spans and the fault-injection hooks
+(ROADMAP.md, section A).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
 from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
 from deepdfa_tpu_torch.train.loop import (
     TrainState,
+    _live_state,
     _restore,
     _snapshot,
     clip_by_global_norm_,
@@ -91,11 +103,35 @@ def make_schedule(cfg: TransformerTrainConfig,
 
 def make_text_optimizer(params: Iterable[torch.nn.Parameter],
                         cfg: TransformerTrainConfig) -> torch.optim.AdamW:
-    """``optax.adamw(schedule, eps, weight_decay)``; the train step sets
-    each update's learning rate and clips the gradients first."""
-    return torch.optim.AdamW(params, lr=cfg.learning_rate,
+    """``optax.adamw(schedule, eps, weight_decay)`` over the parameters
+    that train (frozen ones are left out); the train step sets each
+    update's learning rate and clips the gradients first."""
+    return torch.optim.AdamW([p for p in params if p.requires_grad],
+                             lr=cfg.learning_rate,
                              betas=(0.9, 0.999), eps=cfg.adam_epsilon,
                              weight_decay=cfg.weight_decay)
+
+
+def _merge_params(model: torch.nn.Module,
+                  overrides: Mapping[str, torch.Tensor]) -> None:
+    """Graft pretrained tensors (e.g. a trained ``flowgnn.*`` encoder)
+    onto the model's fresh init, in place. A key the model lacks, or a
+    shape that differs, raises: it would leave that part at its random
+    init without a word."""
+    own = model.state_dict()
+    unknown = [k for k in overrides if k not in own]
+    if unknown:
+        raise KeyError(
+            f"{len(unknown)} override params not present in the model, e.g. "
+            f"{unknown[0]!r}; prefix the pretrained keys with the submodule "
+            "name (e.g. 'flowgnn.')")
+    for k, v in overrides.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"override {k!r} has shape {tuple(v.shape)}, "
+                             f"the model's is {tuple(own[k].shape)}")
+    with torch.no_grad():
+        for k, v in overrides.items():
+            own[k].copy_(v)
 
 
 def _slotted_graph_batch(slot_graphs, n_slots: int, max_nodes: int,
@@ -196,8 +232,8 @@ def make_text_train_step(model: LineVul, optimizer: torch.optim.Optimizer,
     """``step(batch, lr) -> (loss, stats)``: one clipped AdamW update at
     learning rate ``lr`` on a host :class:`TextBatch`, dropout on (its
     seeds from the CPU ``generator``); loss and counts stay on the
-    device."""
-    params = list(model.parameters())
+    device. The clip sees the parameters that train."""
+    params = [p for p in model.parameters() if p.requires_grad]
     device = next(model.parameters()).device
 
     def step(batch: TextBatch, lr: float):
@@ -278,14 +314,24 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
              cfg: TransformerTrainConfig = TransformerTrainConfig(),
              graphs_by_id: Optional[Mapping[int, Mapping]] = None,
              subkeys=None, graph_budget: Optional[Dict[str, int]] = None,
-             pad_id: int = 1) -> Tuple[TrainState, Dict[str, Any]]:
+             pad_id: int = 1,
+             init_params: Optional[Mapping[str, torch.Tensor]] = None,
+             freeze_submodules: Tuple[str, ...] = (),
+             checkpointer=None) -> Tuple[TrainState, Dict[str, Any]]:
     """Fine-tune ``model`` in place, keeping the best state by
     validation F1.
 
     Returns ``(best_state, history)``; the model keeps the last epoch's
     weights (load ``best_state.params`` for the best). Each epoch record
     holds the reference's keys plus ``step_losses`` (read once, at the
-    epoch's end)."""
+    epoch's end).
+
+    ``init_params``: a ``state_dict`` fragment merged over the model's
+    init. ``freeze_submodules``: top-level submodule names (e.g.
+    ``("flowgnn",)``) left untrained; they stay frozen
+    (``requires_grad`` False) after the fit. ``checkpointer``: a
+    ``CheckpointManager`` that gets ``last`` (and the periodic snapshot)
+    each epoch and ``best`` on improvement."""
     if cfg.anomaly_policy not in ("raise", "rollback"):
         raise ValueError(f"anomaly_policy must be 'raise' or 'rollback', "
                          f"got {cfg.anomaly_policy!r}")
@@ -296,6 +342,10 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
     build_band_adj = graph_cfg is not None and graph_cfg.uses_band_adj
     build_tile_adj = graph_cfg is not None and graph_cfg.uses_tile_adj
     device = next(model.parameters()).device
+    if init_params is not None:
+        _merge_params(model, init_params)
+    for name in freeze_submodules:
+        getattr(model, name).requires_grad_(False)
     optimizer = make_text_optimizer(model.parameters(), cfg)
     train_step = make_text_train_step(
         model, optimizer, cfg, torch.Generator().manual_seed(cfg.seed))
@@ -365,10 +415,18 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
         logger.info("epoch %d train_loss %.4f val_f1 %.4f (%.1fs)", epoch,
                     record["train_loss"], val["metrics"]["f1"],
                     record["seconds"])
+        if checkpointer is not None:
+            live = _live_state(model, optimizer, steps)
+            checkpointer.save_last(live, epoch)
+            checkpointer.maybe_save_periodic(live, epoch)
         if val["metrics"]["f1"] > history["best_val_f1"]:
             history["best_val_f1"] = val["metrics"]["f1"]
             history["best_epoch"] = epoch
             best_state = _snapshot(model, optimizer, steps)
+            if checkpointer is not None:
+                checkpointer.save_best(
+                    best_state, epoch,
+                    metrics={"val_f1": val["metrics"]["f1"]})
         elif (cfg.early_stop_patience is not None
               and epoch - history["best_epoch"] >= cfg.early_stop_patience):
             logger.info("early stop at epoch %d (best %d)", epoch,

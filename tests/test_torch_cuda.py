@@ -24,7 +24,9 @@ other, with whole key tiles of padding (also inside a row), and to their
 own bits across two launches; the GNN weight pass likewise, with row
 counts that are no multiple of its slab or split, 1 and 5 steps, and the
 fold of one-step calls bit for bit; and a FlowGNN backward on the card
-repeats its bits (the matmul pooling).
+repeats its bits (the matmul pooling). A trainer state saved from the
+card restores on the CPU, and a train step with the graph encoder frozen
+launches its forward kernel only.
 """
 
 import dataclasses
@@ -1005,3 +1007,77 @@ def test_linevul_gradients_match_cpu(cuda):
         # As FlowGNN's rule above: 1e-4 of the tensor's largest entry.
         err = (g.cpu() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-6, (name, err)
+
+
+def test_snapshot_written_on_the_card_restores_on_the_cpu(cuda, tmp_path):
+    """A trainer state saved from the card (model and AdamW state as CUDA
+    tensors) restores on the CPU and on the card, the same bits."""
+    from deepdfa_tpu_torch.train import checkpoint as C
+    from deepdfa_tpu_torch.train.loop import TrainState
+
+    model = FlowGNN(FlowGNNConfig(feature=FeatureSpec(limit_all=20,
+                                                      limit_subkeys=20),
+                                  hidden_dim=8), device=cuda, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    m = C.CheckpointManager(str(tmp_path))
+    m.save_last(TrainState(1, model.state_dict(), opt.state_dict()), 0)
+    for dev in ("cpu", cuda):
+        got = C.CheckpointManager(str(tmp_path)).restore("last",
+                                                         map_location=dev)
+        assert got["step"] == 1
+        for k, v in model.state_dict().items():
+            assert got["params"][k].device.type == torch.device(dev).type
+            assert torch.equal(got["params"][k].cpu(), v.cpu()), k
+        for i, p in enumerate(model.parameters()):
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(got["opt_state"]["state"][i][k].cpu(),
+                                   opt.state[p][k].cpu())
+
+
+def test_frozen_graph_encoder_launches_no_backward_kernel(cuda):
+    """A train step of DeepDFA+LineVul with the persistent graph encoder
+    frozen (``fit_text(freeze_submodules=("flowgnn",))``): the encoder
+    runs ``persistent_fwd_kernel`` once and no GNN backward kernel, gets
+    no gradient and does not move; the text side trains."""
+    from deepdfa_tpu_torch.core.config import TransformerTrainConfig
+    from deepdfa_tpu_torch.data.combined import (
+        graph_join_and_budget,
+        load_combined_dataset,
+    )
+    from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+    from deepdfa_tpu_torch.models.linevul import LineVul
+    from deepdfa_tpu_torch.models.transformer import EncoderConfig
+    from deepdfa_tpu_torch.train import text_loop
+
+    enc = EncoderConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=130, attention_impl="auto")
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    gcfg = FlowGNNConfig(feature=feature, hidden_dim=8, n_steps=2,
+                         encoder_mode=True, message_impl="persistent")
+    data, _, graphs = load_combined_dataset(
+        "synthetic:7", feature, HashingCodeTokenizer(512), 100,
+        graphs="synthetic")
+    graphs, budget = graph_join_and_budget(list(graphs.values()), 8)
+    batch = next(text_loop.text_graph_batches(
+        data, np.arange(7), 8, graphs, SUBKEYS, budget, build_band_adj=True))
+    model = LineVul(enc, gcfg, device=cuda, seed=0)
+    model.flowgnn.requires_grad_(False)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    cfg = TransformerTrainConfig(batch_size=8, block_size=100)
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), cfg), cfg,
+        torch.Generator().manual_seed(0))
+    fused_gnn.reset_launch_counts()
+    step(batch, 1e-3)
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {**dict.fromkeys(ALL_KERNELS, 0),
+                                         "persistent_fwd_kernel": 1}
+    for k, p in model.named_parameters():
+        if k.startswith("flowgnn."):
+            assert p.grad is None and torch.equal(p, before[k]), k
+    assert not torch.equal(model.state_dict()["classifier.dense.weight"],
+                           before["classifier.dense.weight"])

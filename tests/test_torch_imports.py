@@ -1,6 +1,6 @@
-"""The port stands alone: it imports with jax and flax blocked, loads no
-module of the JAX package, names none in its sources, and keeps the JAX
-package's configuration dataclasses field for field."""
+"""The port stands alone: it imports with jax, flax, optax and orbax
+blocked, loads no module of the JAX package, names none in its sources,
+and keeps the JAX package's configuration dataclasses field for field."""
 
 import dataclasses
 import json
@@ -18,7 +18,7 @@ PORT = os.path.join(REPO, "deepdfa_tpu_torch")
 
 _BLOCKED_IMPORT = r"""
 import importlib, json, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
     sys.modules[name] = None  # any import of them now raises ImportError
 import deepdfa_tpu_torch
 names = ["deepdfa_tpu_torch"] + [
@@ -46,6 +46,7 @@ def test_port_imports_with_jax_blocked_and_loads_no_reference_module():
                  "deepdfa_tpu_torch.serve.engine",
                  "deepdfa_tpu_torch.models.convert",
                  "deepdfa_tpu_torch.train.loop",
+                 "deepdfa_tpu_torch.train.checkpoint",
                  "deepdfa_tpu_torch.data.splits",
                  "deepdfa_tpu_torch.data.sampling",
                  "deepdfa_tpu_torch.ops.attention",
@@ -69,7 +70,7 @@ def _port_sources():
 # deepdfa_tpu.
 _REFERENCE_IMPORT = re.compile(
     r"^\s*(import\s+deepdfa_tpu(\s|\.|,|$)|from\s+deepdfa_tpu[. ])", re.M)
-_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b",
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b",
                          re.M)
 
 
