@@ -105,6 +105,29 @@ one:
    fit-text's test loss and ``predictions.csv`` bit for bit. Then each
    snapshot's bytes and its checksum, restore and save ms, and the frozen
    fine-tune's device ms a step by kernel (``torch.profiler``).
+17. Real inputs, in a temporary directory removed afterwards: a
+   ``synthetic_bigvul(2600)`` corpus written by the port's
+   ``write_examples_jsonl`` in the ETL's export format (1002-row tables,
+   ``df_in``/``df_out``, a pinned ``splits.json``) and a file of planted
+   bad rows (seven fatal reasons, one ``float_field`` repair); ``cli
+   validate`` exits 1 with exactly the planted counts and 0 on the clean
+   corpus; ``cli analyze`` gives a numpy count's coverage; the corpus
+   loads as the generated examples byte for byte; ``cli fit --config
+   configs/default.yaml --set train.max_epochs=1`` (persistent lane)
+   repeats the in-memory fit's losses bit for bit; one epoch with
+   ``model.label_style=dataflow_solution_in``, its first step's loss
+   within 1e-4 of the CPU's; MSR CSVs written with ``csv`` (one function
+   over 131,072 characters, one field with quotes and newlines); a
+   roberta-order BPE asset pair learned by pair counting on the corpus's
+   functions and the checkout's code (up to codebert's 50,004 merges,
+   until every word is one token); an HF directory
+   at codebert-base width that ``load_pretrained`` reads back bit for
+   bit; ``fit_text`` from those weights and the fit run's frozen graph
+   encoder on the CSVs, the corpus and the BPE tokenizer; ``cli test-text
+   --tokenizer`` on its snapshot, bit for bit its test. Each step's
+   seconds, the corpus's rows/s and the tokenizer's functions/s (a fresh
+   load, then all 2600 functions), and the
+   fine-tune step's device ms by kernel.
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -117,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import heapq
 import io
 import json
 import os
@@ -132,6 +156,8 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch import cli
+from deepdfa_tpu_torch.contracts import ingest, schema
+from deepdfa_tpu_torch.core import config as core_config
 from deepdfa_tpu_torch.core.config import (
     DataConfig,
     FlowGNNConfig,
@@ -147,11 +173,18 @@ from deepdfa_tpu_torch.data.combined import (
 from deepdfa_tpu_torch.data.sampling import epoch_indices
 from deepdfa_tpu_torch.data.splits import make_splits
 from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
-from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+from deepdfa_tpu_torch.data import bpe
+from deepdfa_tpu_torch.data.text import (
+    HashingCodeTokenizer,
+    attach_synthetic_text,
+    encode_dataset,
+    load_bpe_tokenizer,
+)
 from deepdfa_tpu_torch.graphs.batch import batch_graphs, pad_budget_for
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
-from deepdfa_tpu_torch.models.transformer import EncoderConfig
+from deepdfa_tpu_torch.models import convert, pretrained
+from deepdfa_tpu_torch.models.transformer import EncoderConfig, RobertaEncoder
 from deepdfa_tpu_torch.ops import (
     PEAK_BYTES_PER_S,
     _build,
@@ -1782,6 +1815,504 @@ def _recipe(root: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Real inputs: a JSONL corpus, MSR CSVs, BPE assets and HF weights
+# ---------------------------------------------------------------------------
+
+# Rows planted in the validate phase's bad file: one per fatal reason,
+# and one integral-float feature array (repaired, kept).
+PLANTED_FATAL = ("truncated_json", "dangling_endpoint", "negative_feature",
+                 "empty_graph", "missing_subkey", "label_domain",
+                 "checksum_mismatch")
+# The CSV subset fit_text reads (the pinned partition's first rows):
+# 6 steps of 16, two evaluation batches each for val and test.
+CSV_ROWS = {"train": 96, "val": 32, "test": 32}
+# The most merges the phase learns for its BPE assets by pair counting:
+# codebert-base's table (50,265 ids: 5 specials, 256 bytes, the merges).
+BPE_MERGES = 50004
+# The checkout's source files that the merges are also learned on, so
+# the table holds real code's words beside the corpus's.
+CODE_SUFFIXES = (".py", ".cu", ".cuh", ".cc", ".h")
+# codebert-base's config.json, as HuggingFace writes it.
+CODEBERT_CONFIG = {
+    "model_type": "roberta", "architectures": ["RobertaModel"],
+    "vocab_size": 50265, "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "intermediate_size": 3072,
+    "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+    "attention_probs_dropout_prob": 0.1, "max_position_embeddings": 514,
+    "type_vocab_size": 1, "initializer_range": 0.02,
+    "layer_norm_eps": 1e-05, "pad_token_id": 1, "bos_token_id": 0,
+    "eos_token_id": 2, "position_embedding_type": "absolute"}
+CONFIG_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "default.yaml")
+
+
+def _cli_rc(argv) -> tuple:
+    """``cli.main(argv)``: (exit code, its JSON report), the report kept
+    off this script's output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _planted_rows(examples) -> list:
+    """The bad file's lines: each reason of ``PLANTED_FATAL`` once, one
+    float_field repair and two clean rows."""
+    rows = [ingest.encode_row(ex) for ex in examples[:len(PLANTED_FATAL) + 3]]
+    lines = []
+    for reason, row in zip(PLANTED_FATAL, rows):
+        n = int(row["num_nodes"])
+        if reason == "dangling_endpoint":
+            row["senders"][0] = n + 3
+        elif reason == "negative_feature":
+            row["feats"]["api"][0] = -5
+        elif reason == "empty_graph":
+            row.update(num_nodes=0, senders=[], receivers=[], vuln=[],
+                       df_in=[], df_out=[])
+            row["feats"] = {k: [] for k in row["feats"]}
+        elif reason == "missing_subkey":
+            row["feats"].pop("literal")
+        elif reason == "label_domain":
+            row["label"] = 7
+        text = json.dumps(row)
+        if reason == "checksum_mismatch":
+            row[schema.CHECKSUM_KEY] = schema.row_checksum(row)
+            row["label"] = 1 - int(row["label"])
+            text = json.dumps(row)
+        elif reason == "truncated_json":
+            text = text[: len(text) // 2]
+        lines.append(text)
+    repaired = rows[len(PLANTED_FATAL)]
+    repaired["feats"]["api"] = [float(v) for v in repaired["feats"]["api"]]
+    lines.append(json.dumps(repaired))
+    lines += [json.dumps(r) for r in rows[len(PLANTED_FATAL) + 1:]]
+    return lines
+
+
+def _same_examples(loaded, generated) -> None:
+    """The loaded examples are the generated ones, byte for byte (the
+    loader's int32 arrays against the generator's arrays as int32; the
+    loader's fast path, as the reference's, passes the optional per-node
+    keys through as the parsed lists)."""
+    if [ex["id"] for ex in loaded] != [ex["id"] for ex in generated]:
+        raise AssertionError("loaded ids differ from the generated ones")
+    for got, want in zip(loaded, generated):
+        if (got["num_nodes"] != want["num_nodes"]
+                or got["label"] != want["label"]):
+            raise AssertionError(f"example {want['id']}: scalars differ")
+        if any(got[k].dtype != np.int32 for k in ("senders", "receivers",
+                                                  "vuln")):
+            raise AssertionError(f"example {want['id']}: not int32")
+        pairs = [(got[k], want[k]) for k in ("senders", "receivers", "vuln",
+                                             "df_in", "df_out")]
+        pairs += [(got["feats"][k], want["feats"][k]) for k in want["feats"]]
+        for g, w in pairs:
+            if np.asarray(g, np.int32).tobytes() != np.asarray(
+                    w, np.int32).tobytes():
+                raise AssertionError(f"example {want['id']}: arrays differ")
+
+
+def _write_msr_csvs(root: str, examples, pin) -> dict:
+    """train/val/test.csv in the MSR layout (first column the example id,
+    ``processed_func``, ``target``) from the pinned partition's first
+    rows; one function passes the csv module's 131,072-character field
+    limit and one field holds quotes and newlines."""
+    by_id = {ex["id"]: ex for ex in examples}
+    rows = {}
+    for split, n in CSV_ROWS.items():
+        ids = [i for i, part in sorted(pin.items()) if part == split][:n]
+        rows[split] = attach_synthetic_text(
+            [dict(by_id[i]) for i in ids], seed=TEXT_SEED)
+    rows["train"][0]["code"] += "\n/* " + "padding " * 17000 + "*/"
+    rows["train"][1]["code"] = rows["train"][1]["code"].replace(
+        "{\n", '{\n  printf("a \\"quoted\\" %s,\\n", buf);\n', 1)
+    if len(rows["train"][0]["code"]) <= 131072:
+        raise AssertionError("the long function is too short")
+    for split, table in rows.items():
+        with open(os.path.join(root, f"{split}.csv"), "w",
+                  newline="", encoding="utf-8") as f:
+            w = csv.writer(f)
+            w.writerow(["", "processed_func", "target"])
+            for ex in table:
+                w.writerow([ex["id"], ex["code"], ex["label"]])
+    return rows
+
+
+def _code_texts() -> list:
+    """The checkout's source files (``CODE_SUFFIXES``), in path order,
+    without hidden directories and build outputs."""
+    top = os.path.dirname(os.path.abspath(__file__))
+    texts = []
+    for here, dirs, files in os.walk(top):
+        dirs[:] = sorted(d for d in dirs if not d.startswith(".")
+                         and d not in ("_build", "__pycache__"))
+        for name in sorted(files):
+            if name.endswith(CODE_SUFFIXES):
+                with open(os.path.join(here, name), encoding="utf-8",
+                          errors="replace") as f:
+                    texts.append(f.read())
+    return texts
+
+
+def _learn_bpe(root: str, texts) -> int:
+    """A roberta-order byte-level BPE asset pair (``<s>`` 0, ``<pad>`` 1,
+    ``</s>`` 2, ``<unk>`` 3, ``<mask>`` 4, then the 256 byte symbols and
+    the merged ones), its merges learned by pair counting over the
+    texts' words: each round merges the most frequent adjacent pair
+    (the least pair on a tie), until every word is one symbol or
+    ``BPE_MERGES`` are learned. Pair counts are updated in the words a
+    merge touches only. Returns (merges, vocabulary size): two merges
+    can make one string."""
+    table = bpe.bytes_to_unicode()
+    counts = {}
+    for text in texts:
+        for w in bpe.split_words(text):
+            key = "".join(table[b] for b in w.encode("utf-8"))
+            counts[key] = counts.get(key, 0) + 1
+    words = [list(w) for w in counts]
+    freq = list(counts.values())
+    pairs, where = {}, {}
+    for i, w in enumerate(words):
+        for pair in zip(w, w[1:]):
+            pairs[pair] = pairs.get(pair, 0) + freq[i]
+            where.setdefault(pair, set()).add(i)
+    heap = [(-c, pair) for pair, c in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap and len(merges) < BPE_MERGES:
+        c, pair = heapq.heappop(heap)
+        if pairs.get(pair) != -c:
+            continue  # a count that a later merge changed
+        merges.append(pair)
+        a, b = pair
+        touched = set()
+        for i in where.pop(pair):
+            w, f = words[i], freq[i]
+            for old in zip(w, w[1:]):
+                pairs[old] -= f
+                touched.add(old)
+            out, k = [], 0
+            while k < len(w):
+                if k + 1 < len(w) and w[k] == a and w[k + 1] == b:
+                    out.append(a + b)
+                    k += 2
+                else:
+                    out.append(w[k])
+                    k += 1
+            words[i] = out
+            for new in zip(out, out[1:]):
+                pairs[new] = pairs.get(new, 0) + f
+                where.setdefault(new, set()).add(i)
+                touched.add(new)
+        del pairs[pair]
+        for t in touched:
+            if pairs.get(t, 0) > 0:
+                heapq.heappush(heap, (-pairs[t], t))
+    vocab = {t: i for i, t in enumerate(
+        ["<s>", "<pad>", "</s>", "<unk>", "<mask>"])}
+    for t in list(table.values()) + [a + b for a, b in merges]:
+        vocab.setdefault(t, len(vocab))
+    with open(os.path.join(root, "codebert-vocab.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(root, "codebert-merges.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n"
+                                            for a, b in merges))
+    return len(merges), len(vocab)
+
+
+def phase_inputs() -> dict:
+    """Real inputs through validate, analyze, fit (both label styles), a
+    pretrained fine-tune from CSVs and BPE assets, and test-text, in a
+    temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="inputs_")
+    try:
+        return _inputs(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _inputs(root: str) -> dict:
+    seconds = {}
+    launches = {k: 0 for k in REPLACES}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+        return counts
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # The corpus: the ETL export format (no digests: the fast path),
+    # df_in/df_out attached, and a pinned 80/10/10 partition by id.
+    cfgs = core_config.build_configs([CONFIG_YAML], ["train.max_epochs=1"])
+    feature = cfgs["model"].feature
+    generated = load_graph_source(f"synthetic:{N_TRAIN_EXAMPLES}", feature,
+                                  seed=TrainConfig().seed)
+    corpus_dir = os.path.join(root, "cache")
+    corpus = os.path.join(corpus_dir, "corpus.jsonl")
+    timed("write_corpus", ingest.write_examples_jsonl, generated, corpus,
+          False)
+    perm = np.random.default_rng(SEED).permutation(len(generated))
+    n_train, n_val = int(0.8 * len(perm)), int(0.1 * len(perm))
+    pin = {int(generated[i]["id"]): ("train" if k < n_train else "val"
+                                     if k < n_train + n_val else "test")
+           for k, i in enumerate(perm)}
+    with open(os.path.join(corpus_dir, "splits.json"), "w") as f:
+        json.dump({str(i): part for i, part in pin.items()}, f)
+    bad_dir = os.path.join(root, "bad")
+    os.makedirs(bad_dir)
+    bad = os.path.join(bad_dir, "bad.jsonl")
+    with open(bad, "w") as f:
+        f.write("\n".join(_planted_rows(generated)) + "\n")
+
+    # validate: the planted reasons exactly; the clean corpus passes.
+    rc_bad, rep_bad = timed("validate_bad", _cli_rc, ["validate", bad])
+    want_reasons = dict.fromkeys(sorted(PLANTED_FATAL), 1)
+    if (rc_bad != 1 or rep_bad["quarantined"] != len(PLANTED_FATAL)
+            or rep_bad["by_reason"] != want_reasons
+            or rep_bad["repaired"] != 1 or rep_bad["loaded"] != 3):
+        raise AssertionError(f"validate of the planted rows: rc {rc_bad}, "
+                             f"{rep_bad}")
+    rc_clean, rep_clean = timed("validate_clean", _cli_rc,
+                                ["validate", corpus])
+    if rc_clean != 0 or rep_clean["loaded"] != len(generated):
+        raise AssertionError(f"validate of the corpus: rc {rc_clean}, "
+                             f"{rep_clean}")
+
+    # analyze: the coverage a numpy count over the same arrays gives.
+    _, coverage = timed("analyze", _cli_rc, [
+        "analyze", "--dataset", corpus, "--config", CONFIG_YAML])
+    for k in subkeys_for(feature):
+        f = np.concatenate([np.asarray(ex["feats"][k]) for ex in generated])
+        want = {"definitions": int((f > 0).sum()),
+                "coverage": float((f > 1).sum() / (f > 0).sum()),
+                "nondef_nodes": int((f == 0).sum())}
+        if coverage[k] != want:
+            raise AssertionError(f"analyze {k}: {coverage[k]} against {want}")
+
+    # The corpus as fit reads it: the generated examples, byte for byte,
+    # split by the pin.
+    t0 = time.perf_counter()
+    loaded, splits = cli.load_dataset(corpus, feature, seed=TrainConfig().seed)
+    seconds["load_corpus"] = time.perf_counter() - t0
+    _same_examples(loaded, generated)
+    for part, idx in splits.items():
+        if any(pin[int(loaded[i]["id"])] != part for i in idx):
+            raise AssertionError(f"the {part} split is not the pinned one")
+
+    # fit from the corpus, graph labels, persistent lane; then the same
+    # fit from the generated examples in memory: the same losses, bit for
+    # bit.
+    run = os.path.join(root, "ddfa")
+    gnn = ["--dataset", corpus, "--config", CONFIG_YAML, "--set",
+           "train.max_epochs=1", "--device", "cuda"]
+    t0 = time.perf_counter()
+    fit_report, counts = _counted_cli(["fit", *gnn, "--checkpoint-dir", run])
+    seconds["fit_jsonl"] = time.perf_counter() - t0
+    fit_launches = add(counts)
+    history = _read_history(run)
+    if any(fit_launches[k] == 0 for k in (
+            "persistent_fwd_kernel", "persistent_fwd_hist_kernel",
+            "persistent_bwd_kernel", "step_weight_grad_kernel")):
+        raise AssertionError(f"fit launches {fit_launches}")
+    if not any(f.startswith("run_") and f.endswith(".log")
+               for f in os.listdir(run)):
+        raise AssertionError(f"no run log in {os.listdir(run)}")
+    model_cfg = dataclasses.replace(cfgs["model"], message_impl="persistent")
+    model = FlowGNN(model_cfg, device="cuda", seed=cfgs["train"].seed)
+    pinned = make_splits(generated, mode="fixed", fixed=pin)
+    _, memory = loop.fit(model, generated, pinned, cfgs["train"], cfgs["data"])
+    card_losses = history["epochs"][0]["step_losses"]
+    if (memory["epochs"][0]["step_losses"] != card_losses
+            or memory["epochs"][0]["val_loss"]
+            != history["epochs"][0]["val_loss"]):
+        raise AssertionError(f"fit from the corpus {card_losses} against "
+                             f"the in-memory fit "
+                             f"{memory['epochs'][0]['step_losses']}")
+    del model
+
+    # The dataflow labels: one epoch on the card, its first step's loss
+    # held to the CPU's from the same weights and batch.
+    df_run = os.path.join(root, "ddfa_df")
+    style = "dataflow_solution_in"
+    t0 = time.perf_counter()
+    _, counts = _counted_cli(["fit", *gnn, "--set",
+                              f"model.label_style={style}",
+                              "--checkpoint-dir", df_run])
+    seconds["fit_dataflow"] = time.perf_counter() - t0
+    df_launches = add(counts)
+    df_losses = _read_history(df_run)["epochs"][0]["step_losses"]
+    df_cfg = dataclasses.replace(model_cfg, label_style=style)
+    cpu_model = FlowGNN(df_cfg, device="cpu", seed=cfgs["train"].seed)
+    data_cfg = cfgs["data"]
+    train_idx = pinned["train"]
+    order = epoch_indices([generated[i]["label"] for i in train_idx], 0,
+                          seed=data_cfg.seed,
+                          undersample_factor=data_cfg.undersample_factor,
+                          oversample_factor=data_cfg.oversample_factor)
+    first = next(iter(loop._batches(
+        generated, train_idx[order], data_cfg, list(subkeys_for(feature)),
+        data_cfg.batch_size, build_band_adj=True, with_dataflow=True)))
+    cpu_step = loop.make_train_step(cpu_model, loop.make_optimizer(
+        cpu_model.parameters(), cfgs["train"]), cfgs["train"])
+    cpu_loss = float(cpu_step(first)[0])
+    df_diff = abs(df_losses[0] - cpu_loss)
+    if not np.all(np.isfinite(df_losses)) or df_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{style}: first step {df_losses[0]} on the "
+                             f"card against {cpu_loss} on the CPU")
+    if df_launches["persistent_bwd_kernel"] == 0:
+        raise AssertionError(f"{style} fit launches {df_launches}")
+    del cpu_model
+
+    # MSR CSVs, BPE assets learned from them, HF weights on disk.
+    csv_dir = os.path.join(root, "msr")
+    tok_dir = os.path.join(root, "bpe")
+    hf_dir = os.path.join(root, "codebert")
+    for d in (csv_dir, tok_dir, hf_dir):
+        os.makedirs(d)
+    rows = _write_msr_csvs(csv_dir, generated, pin)
+    texts = [ex["code"] for table in rows.values() for ex in table]
+    functions = attach_synthetic_text([dict(ex) for ex in generated],
+                                      seed=TEXT_SEED)
+    n_merges, vocab_size = timed("learn_bpe", _learn_bpe, tok_dir,
+                     [ex["code"] for ex in functions] + _code_texts())
+    # The tokenizer's rate: a fresh load, then every corpus function.
+    t0 = time.perf_counter()
+    tok = load_bpe_tokenizer(tok_dir)
+    by_function = encode_dataset(functions, tok, block_size=512)
+    seconds["tokenize_corpus"] = time.perf_counter() - t0
+    encoded = encode_dataset([dict(ex) for t in rows.values() for ex in t],
+                             tok, block_size=512)
+    if tok.pad_token_id != 1 or tok.vocab_size != vocab_size:
+        raise AssertionError(f"BPE assets: pad {tok.pad_token_id}, vocab "
+                             f"{tok.vocab_size}")
+    enc = EncoderConfig()
+    t0 = time.perf_counter()
+    seeded = RobertaEncoder(enc, torch.Generator().manual_seed(TEXT_SEED))
+    source = seeded.state_dict()
+    pretrained.write_safetensors(os.path.join(hf_dir, "model.safetensors"),
+                                 convert.roberta_to_hf(source),
+                                 {"format": "pt"})
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(CODEBERT_CONFIG, f, indent=2)
+    seconds["write_hf"] = time.perf_counter() - t0
+    del seeded
+    t0 = time.perf_counter()
+    kind, hf_enc, hf_params = pretrained.load_pretrained(
+        hf_dir, attention_impl="auto")
+    seconds["load_pretrained"] = time.perf_counter() - t0
+    moved = [k for k, v in source.items() if not torch.equal(hf_params[k], v)]
+    if kind != "roberta" or moved or sorted(hf_params) != sorted(source):
+        raise AssertionError(f"load_pretrained: {kind}, changed {moved}")
+    del source
+
+    # fit_text from the pretrained encoder and the fit run's frozen graph
+    # encoder, on the CSVs joined with the corpus, the BPE tokenizer.
+    graph_cfg = dataclasses.replace(model_cfg, encoder_mode=True,
+                                    label_style="graph")
+    tcfg = TransformerTrainConfig(max_epochs=1, batch_size=16,
+                                  eval_batch_size=16, block_size=512,
+                                  seed=TEXT_SEED)
+    data, tsplits, graphs = load_combined_dataset(
+        csv_dir, feature, tok, tcfg.block_size, graphs=corpus,
+        seed=TEXT_SEED)
+    if data["input_ids"].tobytes() != encoded["input_ids"].tobytes():
+        raise AssertionError("the CSVs tokenized two ways differ")
+    graphs, budget = graph_join_and_budget(list(graphs.values()),
+                                           tcfg.batch_size)
+    kw = dict(graphs_by_id=graphs, subkeys=list(subkeys_for(feature)),
+              graph_budget=budget, pad_id=hf_enc.pad_token_id)
+    model = LineVul(hf_enc, graph_cfg, device="cuda", seed=TEXT_SEED)
+    init = {f"roberta.{k}": v for k, v in hf_params.items()}
+    init.update({f"flowgnn.{k}": v for k, v in
+                 train_checkpoint.load_encoder_params(
+                     train_checkpoint.CheckpointManager(run).restore_params(
+                         "best")).items()})
+    del hf_params
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best, ft_history = text_loop.fit_text(
+        model, data, tsplits, tcfg, init_params=init,
+        freeze_submodules=("flowgnn",), **kw)
+    torch.cuda.synchronize()
+    seconds["fit_text"] = time.perf_counter() - t0
+    ft_launches = add(launch_counts())
+    ft_losses = _text_steps(ft_history)
+    if len(ft_losses) != CSV_ROWS["train"] // tcfg.batch_size or any(
+            ft_launches[k] == 0 for k in ("flash_fwd_kernel",
+                                          "flash_bwd_fused_kernel",
+                                          "persistent_fwd_kernel")):
+        raise AssertionError(f"fit_text: {ft_losses}, launches "
+                             f"{ft_launches}")
+    text_run = os.path.join(root, "combined")
+    train_checkpoint.make_checkpoint_manager(text_run).save_best(
+        {"params": best.params}, ft_history["best_epoch"],
+        metrics={"val_f1": ft_history["best_val_f1"]})
+    with open(os.path.join(text_run, "model.json"), "w") as f:
+        json.dump({"model": "linevul", "tiny": False, "attention_impl": "auto",
+                   "remat": False, "gelu_approximate": hf_enc.gelu_approximate,
+                   "combined": True, "block_size": tcfg.block_size,
+                   "dataset": csv_dir, "split_mode": "random",
+                   "graphs": corpus, "tokenizer": tok_dir,
+                   "batch_size": tcfg.batch_size, "graph_budget": budget,
+                   "graph_config": dataclasses.asdict(graph_cfg),
+                   "seed": TEXT_SEED}, f, indent=1)
+    model.load_state_dict(best.params)
+    ft_test = text_loop.evaluate_text(
+        text_loop.make_text_eval_step(model), data, tsplits["test"], tcfg,
+        build_band_adj=True, **kw)
+    step_profile = _frozen_step_profile(model, data, tsplits, tcfg, kw)
+    del model, best, init
+
+    # test-text from the snapshot, with the BPE assets: fit_text's test,
+    # bit for bit.
+    t0 = time.perf_counter()
+    tt, counts = _counted_cli(["test-text", "--checkpoint-dir", text_run,
+                               "--tokenizer", tok_dir, "--device", "cuda"])
+    seconds["test_text"] = time.perf_counter() - t0
+    add(counts)
+    got = _read_probs(os.path.join(text_run, "test_predictions.csv"))
+    want = {int(i): float(f"{p:.6f}") for i, p in zip(ft_test["index"],
+                                                      ft_test["probs"])}
+    if tt["loss"] != ft_test["loss"] or got != want or tt["split"] != "test":
+        raise AssertionError(f"test-text loss {tt['loss']} against "
+                             f"fit_text's test {ft_test['loss']}")
+
+    rec = dict(phase="inputs", seconds=seconds,
+               corpus_rows=len(generated),
+               corpus_rows_per_s=len(generated) / seconds["load_corpus"],
+               tokenizer_functions=len(functions),
+               tokenizer_functions_per_s=len(functions)
+               / seconds["tokenize_corpus"],
+               corpus_tokens_per_row_mean=float(
+                   (by_function["input_ids"] != tok.pad_token_id).sum(1)
+                   .mean()),
+               longest_function_chars=max(len(t) for t in texts),
+               tokens_per_row_mean=float(
+                   (data["input_ids"] != tok.pad_token_id).sum(1).mean()),
+               validate_bad=rep_bad, validate_clean_exit=rc_clean,
+               coverage=coverage, fit_losses=card_losses,
+               fit_bits_equal_in_memory=True,
+               best_val_loss=fit_report["best_val_loss"],
+               dataflow_style=style, dataflow_losses=df_losses,
+               dataflow_first_step_cpu=cpu_loss,
+               dataflow_first_step_diff_vs_cpu=df_diff,
+               bpe_vocab=vocab_size, bpe_merges=n_merges,
+               load_pretrained_bits_equal=True, fit_text_losses=ft_losses,
+               fit_text_test_loss=ft_test["loss"],
+               test_text_bits_equal=True,
+               fine_tune_step_profile=step_profile, launches=launches)
+    emit(**rec)
+    return rec
+
+
 def main() -> int:
     seconds = {}
 
@@ -1813,7 +2344,8 @@ def main() -> int:
             ("fit_text_vs_cpu", phase_fit_text_vs_cpu, ()),
             ("fit_text_vs_cpu_tile", phase_fit_text_vs_cpu, ("tile",)),
             ("fit_text_long", phase_fit_text_long, ()),
-            ("recipe", phase_recipe, ())):
+            ("recipe", phase_recipe, ()),
+            ("inputs", phase_inputs, ())):
         for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))

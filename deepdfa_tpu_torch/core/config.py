@@ -1,17 +1,21 @@
-"""Structured configuration (port of ``deepdfa_tpu/core/config.py``).
+"""Structured configuration (port of ``deepdfa_tpu/core/config.py``, and
+of ``build_configs`` from ``deepdfa_tpu/cli.py``).
 
 Field for field the same dataclasses, with the same defaults, so a
 configuration reads the same in both packages (pinned by
 tests/test_torch_imports.py). The model, data and training configs are
 carried over, and the transformer fine-tune's ``TransformerTrainConfig``;
 ``EncoderConfig`` lives with the encoder (``models/transformer.py``), as
-in the reference.
+in the reference. :func:`build_configs` layers YAML files and
+``section.key=value`` overrides onto them as the reference's CLI does;
+the YAML is read by ``core/yaml_subset.py``, so PyYAML is not needed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import re
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 # The four abstract-dataflow subkeys mined from each definition node.
 ALL_SUBKEYS = ("api", "datatype", "literal", "operator")
@@ -33,6 +37,32 @@ class FeatureSpec:
     @property
     def input_dim(self) -> int:
         return self.limit_all + 2
+
+    @property
+    def legacy_name(self) -> str:
+        return (
+            f"_ABS_DATAFLOW_{self.subkey}_all"
+            f"_limitall_{self.limit_all}_limitsubkeys_{self.limit_subkeys}"
+        )
+
+    @classmethod
+    def parse_legacy(cls, name: str, concat_all: bool = True) -> "FeatureSpec":
+        """Parse a reference-style feature name
+        (``_ABS_DATAFLOW_<subkey>_all[_limitall_N][_limitsubkeys_M]``);
+        a missing limit reads 1000, the published configuration."""
+        m = re.match(
+            r"_ABS_DATAFLOW_(?P<subkey>\w+?)_all"
+            r"(?:_limitall_(?P<la>\d+))?(?:_limitsubkeys_(?P<ls>\d+))?$",
+            name,
+        )
+        if not m:
+            raise ValueError(f"unparseable legacy feature name: {name!r}")
+        return cls(
+            subkey=m.group("subkey"),
+            limit_all=int(m.group("la") or 1000),
+            limit_subkeys=int(m.group("ls") or 1000),
+            concat_all=concat_all,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,3 +201,81 @@ class TransformerTrainConfig:
 
 def subkeys_for(spec: FeatureSpec) -> Sequence[str]:
     return ALL_SUBKEYS if spec.concat_all else (spec.subkey,)
+
+
+_SECTIONS = {"model": FlowGNNConfig, "data": DataConfig, "train": TrainConfig}
+
+
+def _coerce(value: str, field_type: Any):
+    """The reference's ``_coerce``: a bool field reads 1/true/yes, any
+    other field an int, else a float, else the string."""
+    if field_type is bool or str(field_type) == "bool":
+        return value.lower() in ("1", "true", "yes")
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except (TypeError, ValueError):
+            continue
+    return value
+
+
+def build_configs(
+    config_files: Sequence[str], overrides: Sequence[str],
+    defaults: Optional[Mapping[str, Mapping[str, Any]]] = None,
+) -> Dict[str, Any]:
+    """Layered YAML files + ``section.key=value`` overrides ->
+    ``{"model", "data", "train"}`` (the reference's ``build_configs``).
+
+    Later files override earlier ones; each ``--set`` item overrides
+    them all, its value coerced to the field's type. ``defaults``
+    (port only) is a layer under the files: the port's CLI puts its own
+    flag defaults there, so a file or ``--set`` still overrides them.
+    The reference's tune-parameter injection (NNI,
+    ``DEEPDFA_TUNE_PARAMS``) is not ported.
+    """
+    from deepdfa_tpu_torch.core.yaml_subset import safe_load
+
+    def deep_update(dst: Dict, src: Mapping) -> None:
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                deep_update(dst[k], v)
+            else:
+                dst[k] = v
+
+    merged: Dict[str, Dict[str, Any]] = {k: {} for k in _SECTIONS}
+    for section, values in (defaults or {}).items():
+        deep_update(merged[section], dict(values))
+    for path in config_files:
+        with open(path) as f:
+            doc = safe_load(f) or {}
+        for section, values in doc.items():
+            if section not in merged:
+                raise ValueError(
+                    f"unknown config section {section!r} in {path}")
+            deep_update(merged[section], values or {})
+    for item in overrides:
+        dotted, _, value = item.partition("=")
+        section, _, key = dotted.partition(".")
+        if section not in merged or not key:
+            raise ValueError(
+                f"override must be section.key=value, got {item!r}")
+        merged[section][key] = value
+
+    out: Dict[str, Any] = {}
+    for section, cls in _SECTIONS.items():
+        kwargs = dict(merged[section])
+        if section == "model" and "feature" in kwargs:
+            feat = kwargs["feature"]
+            kwargs["feature"] = (
+                FeatureSpec.parse_legacy(feat) if isinstance(feat, str)
+                else FeatureSpec(**feat)
+            )
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        for k in list(kwargs):
+            if k not in fields:
+                raise ValueError(f"unknown {section} option {k!r}")
+            if isinstance(kwargs[k], str) and fields[k].type not in (
+                    str, "str"):
+                kwargs[k] = _coerce(kwargs[k], fields[k].type)
+        out[section] = cls(**kwargs)
+    return out

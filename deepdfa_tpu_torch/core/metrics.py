@@ -1,6 +1,7 @@
-"""Classification and serving metrics (port of ``BinaryStats``,
-``binary_stats``, ``compute_metrics``, ``ServingStats`` and
-``latency_quantile`` from ``deepdfa_tpu/core/metrics.py``).
+"""Classification, serving and ingest metrics (port of ``BinaryStats``,
+``binary_stats``, ``compute_metrics``, ``ServingStats``,
+``latency_quantile`` and ``IngestStats`` from
+``deepdfa_tpu/core/metrics.py``).
 
 Confusion counts are summable tensors, so a training epoch folds them on
 the device and reads them once. Serving keeps host-side counters, a
@@ -208,3 +209,37 @@ class ServingStats:
         if padding:
             out["padding_waste"] = padding
         return out
+
+
+class IngestStats:
+    """Per-boundary ingestion counters (``contracts.STATS``).
+
+    Boundaries are free-form strings ("cache", "serve", ...); fields are
+    ``seen``/``valid``/``rejected``/``repaired`` plus ``reason:<code>``
+    and ``repair:<code>`` counters. Host-side and thread-safe; the port
+    has no process registry to mirror them into.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Dict[str, Dict[str, int]] = {}
+
+    def bump(self, boundary: str, field: str, by: int = 1) -> None:
+        with self._lock:
+            b = self._counts.setdefault(boundary, {})
+            b[field] = b.get(field, 0) + by
+
+    def get(self, boundary: str, field: str) -> int:
+        with self._lock:
+            return self._counts.get(boundary, {}).get(field, 0)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+
+    def snapshot(self) -> Dict[str, Dict[str, int]]:
+        """JSON-able per-boundary counter map (``cli validate``'s
+        ``ingest_stats``)."""
+        with self._lock:
+            return {b: dict(sorted(fields.items()))
+                    for b, fields in sorted(self._counts.items())}

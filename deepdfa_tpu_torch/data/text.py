@@ -3,11 +3,12 @@
 
 Reference semantics: tokenize the function, truncate to
 ``block_size - 2`` tokens, wrap with <s>/</s>, pad with the pad id to
-``block_size``; the attention mask is ``ids != pad``. The port has no
-pretrained vocabulary yet, so :class:`HashingCodeTokenizer` (identifier,
-number and operator tokens hashed into a fixed vocabulary) stands in, as
-it does in the reference's sample mode. The BPE adapter and the CodeT5
-encoding wait for their slices.
+``block_size``; the attention mask is ``ids != pad``. Tokenizers:
+``data/bpe.py``'s :class:`ByteLevelBPE` over trained byte-level BPE
+assets, in plain Python (``load_bpe_tokenizer``: a ``tokenizer.json``, or
+a ``<prefix>-vocab.json`` + ``<prefix>-merges.txt`` pair); or :class:`HashingCodeTokenizer` (identifier, number and operator
+tokens hashed into a fixed vocabulary), the reference's sample mode. The
+CodeT5 encoding waits for its slice.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import re
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+
+from deepdfa_tpu_torch.data.bpe import ByteLevelBPE
 
 # RoBERTa special-token convention (codebert/unixcoder share it).
 CLS_ID = 0
@@ -52,6 +55,59 @@ class HashingCodeTokenizer:
             out.append(self._n_special + h % (self.vocab_size
                                               - self._n_special))
         return out
+
+
+# The reference's name for its tokenizer over BPE assets.
+BPETokenizerAdapter = ByteLevelBPE
+
+
+def check_tok_vocab(tok, vocab: int, pad_id=None, eos_id=None) -> None:
+    """Tokenizer/model compatibility: the ids must fit the embedding
+    table and the special-token conventions agree (rows are padded with
+    the tokenizer's pad id but masked with the model's)."""
+    if tok is None:
+        return
+    if tok.vocab_size > vocab:
+        raise ValueError(
+            f"tokenizer vocab {tok.vocab_size} exceeds the model's "
+            f"embedding table ({vocab}) — ids would index out of bounds")
+    if pad_id is not None and tok.pad_token_id != pad_id:
+        raise ValueError(
+            f"tokenizer pad id {tok.pad_token_id} != model pad id {pad_id}")
+    if eos_id is not None and tok.eos_token_id != eos_id:
+        raise ValueError(
+            f"tokenizer eos id {tok.eos_token_id} != model eos id {eos_id}")
+
+
+def load_bpe_tokenizer(path: str) -> ByteLevelBPE:
+    """Trained tokenizer assets: a ``tokenizer.json`` file, a directory
+    holding one, or a directory with one ``<prefix>-vocab.json`` +
+    ``<prefix>-merges.txt`` pair (two pairs are ambiguous and raise)."""
+    import glob
+    import os
+
+    if os.path.isfile(path):
+        return ByteLevelBPE.from_tokenizer_json(path)
+    tj = os.path.join(path, "tokenizer.json")
+    if os.path.exists(tj):
+        return ByteLevelBPE.from_tokenizer_json(tj)
+
+    def prefix(p, suffix):
+        return os.path.basename(p)[: -len(suffix)]
+
+    vocabs = {prefix(p, "vocab.json"): p
+              for p in glob.glob(os.path.join(path, "*vocab.json"))}
+    merges = {prefix(p, "merges.txt"): p
+              for p in glob.glob(os.path.join(path, "*merges.txt"))}
+    pairs = sorted(set(vocabs) & set(merges))
+    if len(pairs) > 1:
+        raise ValueError(
+            f"ambiguous tokenizer assets under {path!r}: prefixes {pairs}")
+    if pairs:
+        return ByteLevelBPE.from_pair(vocabs[pairs[0]], merges[pairs[0]])
+    raise FileNotFoundError(
+        f"no tokenizer assets under {path!r} (want tokenizer.json or a "
+        "matching *vocab.json + *merges.txt pair)")
 
 
 def encode_function(code: str, tokenizer, block_size: int = 512) -> np.ndarray:

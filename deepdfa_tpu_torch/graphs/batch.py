@@ -6,9 +6,9 @@ masks and padding is inert under the masked ops. Budgets round up a
 power-of-two ladder so traffic sees a handful of shapes.
 
 Only the python packing path is ported, with the greedy
-:func:`batch_iterator`; the reference's C++ batcher
-(``native.fill_batch``) and dense-slot packing (``slot_nodes``) are not
-ported yet.
+:func:`batch_iterator` and the dataflow-solution bits
+(``with_dataflow``); the reference's C++ batcher (``native.fill_batch``)
+and dense-slot packing (``slot_nodes``) are not ported yet.
 Batches are built on the host as CPU tensors; ``GraphBatch.to`` moves
 them to the device.
 """
@@ -49,6 +49,8 @@ class GraphBatch:
     tile_adj    : optional nonzero lists of A and A^T (message_impl tile;
                   ``ops.tile_spmm.tile_layout`` gives the reference's
                   dense tiles of them)
+    node_df_in, node_df_out : optional int32[max_nodes] dataflow-solution
+                  bits (``with_dataflow``; the dataflow label styles)
     """
 
     node_feats: Dict[str, torch.Tensor]
@@ -62,6 +64,8 @@ class GraphBatch:
     graph_ids: torch.Tensor
     band_adj: Optional[BandAdjacency] = None
     tile_adj: Optional[CsrAdjacency] = None
+    node_df_in: Optional[torch.Tensor] = None
+    node_df_out: Optional[torch.Tensor] = None
 
     @property
     def n_graphs(self) -> int:
@@ -149,6 +153,7 @@ def batch_graphs(
     build_band_adj: bool = False,
     band_bandwidth: Optional[int] = None,
     build_tile_adj: bool = False,
+    with_dataflow: bool = False,
 ) -> GraphBatch:
     """Pack up to ``n_graphs`` graphs into one padded batch on the host.
 
@@ -157,7 +162,9 @@ def batch_graphs(
     Graphs that overflow the budget raise; edge endpoints are checked
     before any copy (a dangling endpoint would silently land in another
     graph's rows). ``build_band_adj``/``build_tile_adj`` attach the band
-    adjacency or the tile path's nonzero lists.
+    adjacency or the tile path's nonzero lists; ``with_dataflow`` the
+    examples' ``df_in``/``df_out`` bits (an example without them
+    raises).
     """
     if len(graphs) > n_graphs:
         raise ValueError(f"{len(graphs)} graphs > {n_graphs} slots")
@@ -232,6 +239,23 @@ def batch_graphs(
         tile_adj = build_csr_adjacency(senders, receivers, edge_mask,
                                        max_nodes)
 
+    df_in = df_out = None
+    if with_dataflow:
+        df_in = np.zeros(max_nodes, np.int32)
+        df_out = np.zeros(max_nodes, np.int32)
+        off = 0
+        for g in graphs:
+            n = int(g["num_nodes"])
+            if "df_in" not in g or "df_out" not in g:
+                raise ValueError(
+                    "with_dataflow=True but example "
+                    f"{g.get('id', '?')} carries no df_in/df_out bits — "
+                    "re-run the ETL export (it attaches them) or "
+                    "regenerate synthetic data")
+            df_in[off: off + n] = np.asarray(g["df_in"], np.int32)
+            df_out[off: off + n] = np.asarray(g["df_out"], np.int32)
+            off += n
+
     t = torch.from_numpy
     return GraphBatch(
         node_feats={k: t(v) for k, v in feats.items()},
@@ -245,6 +269,8 @@ def batch_graphs(
         graph_ids=t(graph_ids),
         band_adj=band_adj,
         tile_adj=tile_adj,
+        node_df_in=t(df_in) if df_in is not None else None,
+        node_df_out=t(df_out) if df_out is not None else None,
     )
 
 
@@ -259,6 +285,7 @@ def batch_iterator(
     build_band_adj: bool = False,
     band_bandwidth: Optional[int] = None,
     build_tile_adj: bool = False,
+    with_dataflow: bool = False,
 ) -> Iterator[GraphBatch]:
     """Greedy packer: yields GraphBatches in order, starting a new batch
     when the next graph would overflow the graph, node or edge budget."""
@@ -266,7 +293,7 @@ def batch_iterator(
     nodes = edges = 0
     kw = dict(add_self_loops=add_self_loops, tile=tile,
               build_band_adj=build_band_adj, band_bandwidth=band_bandwidth,
-              build_tile_adj=build_tile_adj)
+              build_tile_adj=build_tile_adj, with_dataflow=with_dataflow)
     for g in graphs:
         n = int(g["num_nodes"])
         e = len(g["senders"]) + (n if add_self_loops else 0)

@@ -20,7 +20,8 @@ a ``state_dict`` of :class:`deepdfa_tpu_torch.models.flowgnn.FlowGNN`:
 ``flowgnn`` and ``classifier`` subtrees) to a ``LineVul`` ``state_dict``;
 ``roberta_from_hf`` maps a HuggingFace RoBERTa ``state_dict``
 (codebert-base, unixcoder-base; with or without the ``roberta.``
-prefix), the counterpart of the reference's ``convert_hf_roberta``.
+prefix), the counterpart of the reference's ``convert_hf_roberta``;
+``roberta_to_hf`` maps back, to a ``RobertaModel``'s keys.
 
 flax ``Dense`` kernels are ``[in, out]``; torch ``Linear`` weights are
 ``[out, in]``, so every kernel is transposed. HuggingFace weights are
@@ -113,6 +114,41 @@ def linevul_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+_HF_EMBEDDINGS = (
+    ("word_embeddings.embedding", "embeddings.word_embeddings.weight"),
+    ("position_embeddings.embedding",
+     "embeddings.position_embeddings.weight"),
+    ("token_type_embeddings.embedding",
+     "embeddings.token_type_embeddings.weight"),
+    ("embeddings_ln.weight", "embeddings.LayerNorm.weight"),
+    ("embeddings_ln.bias", "embeddings.LayerNorm.bias"))
+_HF_LAYER_PAIRS = (("attention.query", "attention.self.query"),
+                   ("attention.key", "attention.self.key"),
+                   ("attention.value", "attention.self.value"),
+                   ("attention_output", "attention.output.dense"),
+                   ("attention_ln", "attention.output.LayerNorm"),
+                   ("intermediate", "intermediate.dense"),
+                   ("output", "output.dense"),
+                   ("output_ln", "output.LayerNorm"))
+
+
+def roberta_to_hf(state_dict: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """A HuggingFace ``RobertaModel`` ``state_dict`` (bare
+    ``embeddings.``/``encoder.`` keys, no pooler) from a port
+    ``RobertaEncoder`` ``state_dict``: the inverse of
+    :func:`roberta_from_hf`."""
+    out = {theirs: state_dict[ours] for ours, theirs in _HF_EMBEDDINGS}
+    num_layers = 1 + max(int(k.split(".")[1]) for k in state_dict
+                         if k.startswith("layer."))
+    for i in range(num_layers):
+        for ours, theirs in _HF_LAYER_PAIRS:
+            for w in ("weight", "bias"):
+                out[f"encoder.layer.{i}.{theirs}.{w}"] = state_dict[
+                    f"layer.{i}.{ours}.{w}"]
+    return out
+
+
 def roberta_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     """A ``RobertaEncoder`` ``state_dict`` from a HuggingFace RoBERTa
     ``state_dict`` (``roberta.``-prefixed keys of a
@@ -130,25 +166,9 @@ def roberta_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
 
     num_layers = 1 + max(int(k.split("encoder.layer.")[1].split(".")[0])
                          for k in state_dict if "encoder.layer." in k)
-    out = {
-        "word_embeddings.embedding": get("embeddings.word_embeddings.weight"),
-        "position_embeddings.embedding":
-            get("embeddings.position_embeddings.weight"),
-        "token_type_embeddings.embedding":
-            get("embeddings.token_type_embeddings.weight"),
-        "embeddings_ln.weight": get("embeddings.LayerNorm.weight"),
-        "embeddings_ln.bias": get("embeddings.LayerNorm.bias"),
-    }
-    pairs = (("attention.query", "attention.self.query"),
-             ("attention.key", "attention.self.key"),
-             ("attention.value", "attention.self.value"),
-             ("attention_output", "attention.output.dense"),
-             ("attention_ln", "attention.output.LayerNorm"),
-             ("intermediate", "intermediate.dense"),
-             ("output", "output.dense"),
-             ("output_ln", "output.LayerNorm"))
+    out = {ours: get(theirs) for ours, theirs in _HF_EMBEDDINGS}
     for i in range(num_layers):
-        for ours, theirs in pairs:
+        for ours, theirs in _HF_LAYER_PAIRS:
             for w in ("weight", "bias"):
                 out[f"layer.{i}.{ours}.{w}"] = get(
                     f"encoder.layer.{i}.{theirs}.{w}")

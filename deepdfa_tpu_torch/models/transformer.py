@@ -215,8 +215,13 @@ class RobertaEncoder(nn.Module):
         m = attn_mask.to(torch.int64)
         positions = torch.cumsum(m, dim=1) * m + c.pad_token_id
         positions = torch.clamp(positions, max=c.max_position_embeddings - 1)
+        # Every token has type 0: row 0 broadcast adds the same values as
+        # a lookup of zeros, and its backward sums the tokens' gradients
+        # in a fixed order. The lookup's backward on CUDA adds all B * T
+        # rows into one with atomics, in an order that changes the bits
+        # from run to run (scripts/torch_text_determinism.py).
         x = (word + self.position_embeddings(positions)
-             + self.token_type_embeddings(torch.zeros_like(input_ids)))
+             + self.token_type_embeddings.embedding[0])
         x = self.embeddings_ln(x)
         active = not deterministic and c.dropout_rate > 0.0
         dev = x.device

@@ -112,18 +112,41 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+class MissingDataflowBits(ValueError, NotImplementedError):
+    """A dataflow label style met a batch without ``df_in``/``df_out``
+    bits. A ValueError, as the reference raises; also the
+    NotImplementedError that the port raised for these styles before it
+    built dataflow batches, so a caller catching that still does."""
+
+
 def _labels_for(model: FlowGNN, batch: GraphBatch
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(labels, mask) per the configured label style."""
+    """(labels, mask) per the configured label style.
+
+    ``dataflow_solution_in/out`` train against per-node
+    reaching-definitions bits (``df_in``/``df_out``, batches built with
+    ``with_dataflow``). The "in" style also cuts the loss and metrics to
+    definition nodes (a nonzero abstract-dataflow index on any subkey),
+    the reference's ``cut_nodef``.
+    """
     style = model.config.label_style
     if style == "graph":
         return graph_label_from_nodes(batch), batch.graph_mask
     if style == "node":
         return batch.node_vuln.float(), batch.node_mask
     if style in ("dataflow_solution_in", "dataflow_solution_out"):
-        raise NotImplementedError(
-            f"label_style {style!r} needs with_dataflow batches, which the "
-            "port does not build yet")
+        sol = batch.node_df_in if style.endswith("_in") else batch.node_df_out
+        if sol is None:
+            raise MissingDataflowBits(
+                f"label_style {style!r} needs batches built with "
+                "with_dataflow=True (examples carrying df_in/df_out bits)")
+        mask = batch.node_mask
+        if style.endswith("_in"):
+            is_def = torch.zeros_like(mask)
+            for f in batch.node_feats.values():
+                is_def = is_def | (f != 0)
+            mask = mask & is_def
+        return sol.float(), mask
     raise NotImplementedError(f"label_style {style!r}")
 
 
@@ -167,10 +190,12 @@ def make_eval_step(model: FlowGNN, cfg: TrainConfig) -> Callable:
 
 def _batches(examples: List[dict], indices: np.ndarray, data_cfg: DataConfig,
              subkeys, batch_size: int, build_band_adj: bool = False,
-             build_tile_adj: bool = False) -> Iterable[GraphBatch]:
+             build_tile_adj: bool = False,
+             with_dataflow: bool = False) -> Iterable[GraphBatch]:
     """Pack ``examples[indices]`` greedily into padded host batches of
     ``batch_size`` graph slots (a band or tile batch's node budget
-    aligned to the tile), as the reference's single-shard ``_batches``."""
+    aligned to the tile), as the reference's single-shard ``_batches``;
+    ``with_dataflow`` carries the dataflow-solution bits."""
     chosen = [examples[i] for i in indices]
     budget_nodes = batch_size * data_cfg.max_nodes_per_graph
     budget_edges = budget_nodes * data_cfg.max_edges_per_node
@@ -178,7 +203,8 @@ def _batches(examples: List[dict], indices: np.ndarray, data_cfg: DataConfig,
         budget_nodes = align_to_tile(budget_nodes)
     return batch_iterator(chosen, batch_size, budget_nodes, budget_edges,
                           subkeys, build_band_adj=build_band_adj,
-                          build_tile_adj=build_tile_adj)
+                          build_tile_adj=build_tile_adj,
+                          with_dataflow=with_dataflow)
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
@@ -188,7 +214,8 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 def evaluate(eval_step: Callable, examples: List[dict], indices: np.ndarray,
              data_cfg: DataConfig, subkeys, device,
              build_band_adj: bool = False,
-             build_tile_adj: bool = False) -> EvalResult:
+             build_tile_adj: bool = False,
+             with_dataflow: bool = False) -> EvalResult:
     """Loss, metrics and per-example probabilities over
     ``examples[indices]`` in ``data_cfg.eval_batch_size`` batches. The
     loss sums on the device and is read once."""
@@ -198,7 +225,7 @@ def evaluate(eval_step: Callable, examples: List[dict], indices: np.ndarray,
     probs_all, labels_all, ids_all = [], [], []
     for batch in _batches(examples, indices, data_cfg, subkeys,
                           data_cfg.eval_batch_size, build_band_adj,
-                          build_tile_adj):
+                          build_tile_adj, with_dataflow):
         graph_ids = batch.graph_ids.numpy()
         node_graph = batch.node_graph.numpy()
         loss, probs, labels, mask = eval_step(batch.to(device))
@@ -356,6 +383,7 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
     subkeys = subkeys_for(model.config.feature)
     use_band = model.config.uses_band_adj
     use_tile = model.config.uses_tile_adj
+    use_df = model.config.label_style.startswith("dataflow_solution")
     device = _device_of(model)
     optimizer = make_optimizer(model.parameters(), train_cfg)
     train_step = make_train_step(model, optimizer, train_cfg)
@@ -397,7 +425,8 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
         window = ((_snapshot(model, optimizer, steps), loss_sum, stats,
                    n_batches) if guard.active else None)
         for batch in _batches(examples, train_idx[idx], data_cfg, subkeys,
-                              data_cfg.batch_size, use_band, use_tile):
+                              data_cfg.batch_size, use_band, use_tile,
+                              use_df):
             loss, bstats = train_step(batch.to(device))
             steps += 1
             if guard.active:
@@ -436,7 +465,7 @@ def fit(model: FlowGNN, examples: List[dict], splits: Dict[str, np.ndarray],
                          for k, v in compute_metrics(stats).items()}
         val = evaluate(eval_step, examples, splits["val"], data_cfg, subkeys,
                        device, build_band_adj=use_band,
-                       build_tile_adj=use_tile)
+                       build_tile_adj=use_tile, with_dataflow=use_df)
         record = {
             "epoch": epoch,
             "train_loss": epoch_loss / max(n_batches, 1),

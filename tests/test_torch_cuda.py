@@ -26,7 +26,9 @@ counts that are no multiple of its slab or split, 1 and 5 steps, and the
 fold of one-step calls bit for bit; and a FlowGNN backward on the card
 repeats its bits (the matmul pooling). A trainer state saved from the
 card restores on the CPU, and a train step with the graph encoder frozen
-launches its forward kernel only.
+launches its forward kernel only. A train step of each dataflow label
+style gives the CPU's loss and gradients, and HF weights written to disk
+load onto the card bit for bit.
 """
 
 import dataclasses
@@ -1081,3 +1083,122 @@ def test_frozen_graph_encoder_launches_no_backward_kernel(cuda):
             assert p.grad is None and torch.equal(p, before[k]), k
     assert not torch.equal(model.state_dict()["classifier.dense.weight"],
                            before["classifier.dense.weight"])
+
+
+@pytest.mark.parametrize("style", ["dataflow_solution_in",
+                                   "dataflow_solution_out"])
+def test_dataflow_label_step_matches_cpu(cuda, style):
+    """One train step of each dataflow label style in the persistent
+    lane: the card's loss and parameter gradients against the CPU's from
+    the same weights and batch."""
+    from deepdfa_tpu_torch.core.config import TrainConfig
+    from deepdfa_tpu_torch.train import loop
+
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    cfg = FlowGNNConfig(feature=feature, label_style=style,
+                        message_impl="persistent")
+    ex = synthetic_bigvul(32, feature, positive_fraction=0.5, seed=3)
+    budget = pad_budget_for(ex, 32)
+    batch = batch_graphs(ex, 32, align_to_tile(budget["max_nodes"]),
+                         budget["max_edges"], SUBKEYS, build_band_adj=True,
+                         with_dataflow=True)
+    train = TrainConfig(learning_rate=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = FlowGNN(cfg, device=dev, seed=0)
+        step = loop.make_train_step(
+            model, loop.make_optimizer(model.parameters(), train), train)
+        fused_gnn.reset_launch_counts()
+        loss, _ = step(batch.to(dev))
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        out[str(dev)] = (float(loss), grads, fused_gnn.launch_counts())
+    (lc, gc, _), (lg, gg, launches) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= STEP_TOL["atol"], (lg, lc)
+    for k, want in gc.items():
+        floor = GRAD_TOL * max(float(want.abs().max()), 1e-6)
+        assert float((gg[k] - want).abs().max()) <= floor, k
+    assert launches["persistent_fwd_hist_kernel"] == 1
+    assert launches["persistent_bwd_kernel"] == 1
+
+
+def test_load_pretrained_onto_the_card(cuda, tmp_path):
+    """An HF directory written with the port's own writer (the card's
+    host has no transformers) loads onto the card bit for bit, and the
+    encoder there gives the CPU's output."""
+    import json
+
+    from deepdfa_tpu_torch.models.convert import roberta_to_hf
+    from deepdfa_tpu_torch.models.pretrained import (
+        load_pretrained,
+        write_safetensors,
+    )
+    from deepdfa_tpu_torch.models.transformer import (
+        EncoderConfig,
+        RobertaEncoder,
+    )
+
+    cfg = EncoderConfig(vocab_size=300, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=70, gelu_approximate=False,
+                        attention_impl="auto")
+    src = RobertaEncoder(cfg, torch.Generator().manual_seed(4))
+    write_safetensors(str(tmp_path / "model.safetensors"),
+                      roberta_to_hf(src.state_dict()))
+    (tmp_path / "config.json").write_text(json.dumps({
+        "model_type": "roberta", "vocab_size": 300, "hidden_size": 128,
+        "num_hidden_layers": 2, "num_attention_heads": 2,
+        "intermediate_size": 256, "max_position_embeddings": 70,
+        "type_vocab_size": 1, "pad_token_id": 1, "layer_norm_eps": 1e-5,
+        "hidden_act": "gelu", "hidden_dropout_prob": 0.0}))
+    kind, got_cfg, params = load_pretrained(str(tmp_path), map_location=cuda,
+                                            attention_impl="auto")
+    assert kind == "roberta"
+    for k, v in src.state_dict().items():
+        assert params[k].device.type == "cuda"
+        assert torch.equal(params[k].cpu(), v), k
+    ids = torch.randint(3, 300, (2, 64), generator=torch.Generator(
+    ).manual_seed(0))
+    ids[1, 40:] = 1
+    outs = []
+    for dev in ("cpu", cuda):
+        enc = RobertaEncoder(got_cfg, torch.Generator()).to(dev)
+        enc.load_state_dict(params)
+        with torch.no_grad():
+            outs.append(enc(ids.to(dev))[0].cpu())
+    keep = ids != 1
+    torch.testing.assert_close(outs[1][keep], outs[0][keep], **STEP_TOL)
+
+
+def test_text_train_step_repeats_its_bits(cuda):
+    """Three train steps of the text encoder from the same weights, batch
+    and dropout seeds give the same parameters bit for bit: no update of
+    the step sums with atomics (the token-type row's gradient was one,
+    scripts/torch_text_determinism.py)."""
+    from deepdfa_tpu_torch.core.config import TransformerTrainConfig
+    from deepdfa_tpu_torch.data.combined import load_combined_dataset
+    from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+    from deepdfa_tpu_torch.models.linevul import LineVul
+    from deepdfa_tpu_torch.models.transformer import EncoderConfig
+    from deepdfa_tpu_torch.train import text_loop
+
+    enc = EncoderConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=130, attention_impl="auto")
+    data, _, _ = load_combined_dataset(
+        "synthetic:16", FeatureSpec(limit_all=20), HashingCodeTokenizer(512),
+        128)
+    batch = next(text_loop.text_graph_batches(data, np.arange(16), 16))
+    cfg = TransformerTrainConfig(batch_size=16, block_size=128)
+    states = []
+    for _ in range(3):
+        model = LineVul(enc, device=cuda, seed=0)
+        step = text_loop.make_text_train_step(
+            model, text_loop.make_text_optimizer(model.parameters(), cfg),
+            cfg, torch.Generator().manual_seed(0))
+        for _ in range(2):
+            step(batch, 1e-3)
+        states.append({k: v.cpu() for k, v in model.state_dict().items()})
+    for other in states[1:]:
+        for k, v in states[0].items():
+            assert torch.equal(other[k], v), k
