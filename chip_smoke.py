@@ -127,7 +127,33 @@ one:
    --tokenizer`` on its snapshot, bit for bit its test. Each step's
    seconds, the corpus's rows/s and the tokenizer's functions/s (a fresh
    load, then all 2600 functions), and the
-   fine-tune step's device ms by kernel.
+   fine-tune step's device ms by kernel. Also: the same 2600 graphs
+   written as the reference pipeline's dbize cache (``csv``) load as the
+   corpus does; the JSONL ``fit``, whose batches come from the C++
+   batcher, repeats an in-memory fit on the numpy batcher bit for bit;
+   both batchers' host ms at the flagship batch (256 graphs), their
+   bytes equal; ``entry()``'s logits on the card against the CPU
+   (1e-5) and its forward ms; ``cli validate --smoke`` exits 0.
+18. Serving over HTTP: a combined run dir at codebert-base width (12
+   layers, 768 wide, block 512, the persistent graph encoder) from a
+   seed, written by the phase; ``cli serve`` in its own process on the
+   card (``--port 0 --port-file``), once on the GNN lane's default
+   (persistent) and once with ``--set model.message_impl=fused``.
+   Each is driven over HTTP with graph-only and coded functions in
+   4-function POSTs (client-side p50/p99 ms by lane, requests/s), their
+   first chunks again (cached), an unencodable function (a forced
+   tokenizer failure: degraded to the gnn lane), a malformed and an
+   oversized POST (400, 413); every answer held to the same engine on
+   the CPU within 1e-5; no compile after warmup; the kernels' launches
+   read from ``/metrics`` just before and just after the traffic (the
+   server's counts, taken as a difference); stopped with Ctrl-C (exit
+   0). Then the combined lane's device ms a flush at each slot bucket.
+19. The reference's 200-request replay gate (``tests/test_serve.py``)
+   on the card: a seeded bursty trace through a warmed 8-slot engine
+   (published FlowGNN, persistent lane) on a virtual clock: all
+   completed, none dropped, occupancy at least 0.5, cache hits, no
+   compile after warmup, every answer within 1e-6 of the offline eval
+   of the same graphs.
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -137,25 +163,34 @@ last; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import csv
 import dataclasses
+import functools
 import heapq
+import http.client
 import io
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
 
 from deepdfa_tpu_torch import cli
+from deepdfa_tpu_torch import entry as port_entry
 from deepdfa_tpu_torch.contracts import ingest, schema
 from deepdfa_tpu_torch.core import config as core_config
 from deepdfa_tpu_torch.core.config import (
@@ -178,9 +213,14 @@ from deepdfa_tpu_torch.data.text import (
     HashingCodeTokenizer,
     attach_synthetic_text,
     encode_dataset,
+    encode_function,
     load_bpe_tokenizer,
 )
-from deepdfa_tpu_torch.graphs.batch import batch_graphs, pad_budget_for
+from deepdfa_tpu_torch.graphs.batch import (
+    batch_graphs,
+    batch_iterator,
+    pad_budget_for,
+)
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
 from deepdfa_tpu_torch.models import convert, pretrained
@@ -196,7 +236,9 @@ from deepdfa_tpu_torch.ops import (
 )
 from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE, align_to_tile
 from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
+from deepdfa_tpu_torch.serve.batcher import ServeRequest
 from deepdfa_tpu_torch.serve.engine import bucket_batch
+from deepdfa_tpu_torch.serve.replay import VirtualClock, bursty_trace, replay
 from deepdfa_tpu_torch.train import checkpoint as train_checkpoint
 from deepdfa_tpu_torch.train import loop, text_loop
 
@@ -990,6 +1032,7 @@ def _device_profile(step, n_steps: int) -> dict:
             entry["ms"] += ms
             entry["calls"] += calls
     return {"device_busy_ms": sum(k[0] for k in kernels),
+            "kernels_a_call": sum(k[2] for k in kernels),
             "top_kernels": [{"name": name[:90], "ms": ms, "calls": calls}
                             for ms, name, calls in kernels[:PROFILE_TOP]],
             "port_kernels": port, "profile_sessions": sessions}
@@ -1845,6 +1888,32 @@ CODEBERT_CONFIG = {
     "eos_token_id": 2, "position_embedding_type": "absolute"}
 CONFIG_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "default.yaml")
+# entry()'s per-graph logits, card against the CPU: one band forward,
+# f32 in another order.
+ENTRY_TOL = dict(rtol=0.0, atol=1e-5)
+# The serve_http phase: cli serve in its own process on the card, over
+# real HTTP, against the same engine on the CPU (one forward: f32 in
+# another order, the encoder's flash kernel against the dense plain
+# version). Graph-only and coded functions, POSTed a chunk at a time.
+HTTP_TOL = 1e-5
+N_HTTP_GRAPHS = 24
+N_HTTP_CODED = 8
+HTTP_CHUNK = 4
+HTTP_START_S = 600
+# The load windows: LOAD_CLIENTS closed-loop clients, each on its own
+# keep-alive connection, send LOAD_POSTS one-function POSTs a lane, every
+# function new to the server (no cache hit), so 16 clients can fill the
+# 16-slot bucket and a flush does not wait out the deadline.
+LOAD_CLIENTS = 16
+LOAD_POSTS = 32
+# A lone surrogate cannot be encoded to UTF-8: the tokenizer raises on
+# such code, which forces the request onto the gnn lane, degraded.
+UNENCODABLE = "int f(char *p) { return '\ud800'; }"
+# The reference's 200-request replay gate (tests/test_serve.py), at the
+# published FlowGNN width on the card: every answer against the offline
+# eval of the same graphs (another packing: f32 in another order).
+REPLAY_REQUESTS = 200
+REPLAY_TOL = 1e-6
 
 
 def _cli_rc(argv) -> tuple:
@@ -1888,6 +1957,18 @@ def _planted_rows(examples) -> list:
     lines.append(json.dumps(repaired))
     lines += [json.dumps(r) for r in rows[len(PLANTED_FATAL) + 1:]]
     return lines
+
+
+@contextlib.contextmanager
+def _numpy_batcher():
+    """``loop.fit``/``evaluate`` batch with the numpy loop inside (they
+    take the C++ batcher otherwise)."""
+    native_iterator = loop.batch_iterator
+    loop.batch_iterator = functools.partial(batch_iterator, impl="python")
+    try:
+        yield
+    finally:
+        loop.batch_iterator = native_iterator
 
 
 def _same_examples(loaded, generated) -> None:
@@ -2023,6 +2104,80 @@ def _learn_bpe(root: str, texts) -> int:
     return len(merges), len(vocab)
 
 
+def _write_dbize(root: str, examples, feature) -> None:
+    """``examples`` as the reference pipeline's dbize stage writes them,
+    with the ``csv`` module: nodes.csv, edges.csv and one
+    nodes_feat_<feature>_fixed.csv a subkey, each led by an index
+    column; node ids are not the dense ids (1000 + 7 x dgl id)."""
+    os.makedirs(root, exist_ok=True)
+    nodes = [["", "graph_id", "dgl_id", "node_id", "vuln"]]
+    edges = [["", "graph_id", "innode", "outnode"]]
+    feats = {k: [] for k in subkeys_for(feature)}
+    for ex in examples:
+        gid = int(ex["id"])
+        for d, v in enumerate(np.asarray(ex["vuln"]).tolist()):
+            nodes.append([len(nodes) - 1, gid, d, 1000 + 7 * d, v])
+        for s, r in zip(np.asarray(ex["senders"]).tolist(),
+                        np.asarray(ex["receivers"]).tolist()):
+            edges.append([len(edges) - 1, gid, s, r])
+        for k, rows in feats.items():
+            for d, v in enumerate(np.asarray(ex["feats"][k]).tolist()):
+                rows.append([len(rows), gid, 1000 + 7 * d, v])
+    tables = {"nodes.csv": nodes, "edges.csv": edges}
+    for k, rows in feats.items():
+        col = (f"_ABS_DATAFLOW_{k}_all_limitall_{feature.limit_all}"
+               f"_limitsubkeys_{feature.limit_subkeys}")
+        tables[f"nodes_feat_{col}_fixed.csv"] = [
+            ["", "graph_id", "node_id", col]] + rows
+    for name, rows in tables.items():
+        with open(os.path.join(root, name), "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+
+
+def _batcher_ms(feature, reps: int = 20) -> dict:
+    """Host ms of one flagship batch (256 synthetic graphs, the reference
+    example's budget) by the C++ batcher and by the numpy loop, the
+    median of ``reps``; the two batches' bytes must agree."""
+    graphs = synthetic_bigvul(256, feature, positive_fraction=0.5,
+                              seed=SEED)
+    budget = pad_budget_for(graphs, 256)
+    args = (graphs, 256, budget["max_nodes"], budget["max_edges"],
+            list(subkeys_for(feature)))
+    out, batches = {}, {}
+    for impl in ("native", "python"):
+        batches[impl] = batch_graphs(*args, impl=impl)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            batch_graphs(*args, impl=impl)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{impl}_ms"] = statistics.median(times)
+    a, b = batches["native"], batches["python"]
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            raise AssertionError(f"native and python batches differ: "
+                                 f"{f.name}")
+    if any(not torch.equal(a.node_feats[k], b.node_feats[k])
+           for k in a.node_feats):
+        raise AssertionError("native and python batches differ: node_feats")
+    return out
+
+
+def _entry_forward() -> dict:
+    """``entry()`` on the card against the same weights and batch on the
+    CPU, and the card's forward ms."""
+    fn, (params, batch) = port_entry.entry(device="cuda")
+    logits = fn(params, batch)
+    cpu_fn, (_, cpu_batch) = port_entry.entry(device="cpu")
+    want = cpu_fn({k: v.cpu() for k, v in params.items()}, cpu_batch)
+    diff = _check("entry() logits", logits.cpu(), want, ENTRY_TOL)
+    return {"entry_logits": int(logits.shape[0]),
+            "entry_max_abs_diff_vs_cpu": diff,
+            "entry_forward_ms": _time_ms(lambda: fn(params, batch),
+                                         iters=10, reps=5)}
+
+
 def phase_inputs() -> dict:
     """Real inputs through validate, analyze, fit (both label styles), a
     pretrained fine-tune from CSVs and BPE assets, and test-text, in a
@@ -2107,9 +2262,27 @@ def _inputs(root: str) -> dict:
         if any(pin[int(loaded[i]["id"])] != part for i in idx):
             raise AssertionError(f"the {part} split is not the pinned one")
 
-    # fit from the corpus, graph labels, persistent lane; then the same
-    # fit from the generated examples in memory: the same losses, bit for
-    # bit.
+    # The same graphs as a dbize cache directory: they load as the corpus
+    # does (ascending ids; the CSVs carry no dataflow bits).
+    dbize = os.path.join(root, "dbize")
+    timed("write_dbize", _write_dbize, dbize, generated, feature)
+    from_dbize = timed("load_dbize", load_graph_source, dbize, feature)
+    by_id = {int(ex["id"]): ex for ex in loaded}
+    if sorted(by_id) != [ex["id"] for ex in from_dbize]:
+        raise AssertionError("dbize ids differ from the corpus's")
+    for ex in from_dbize:
+        want = by_id[ex["id"]]
+        pairs = [(ex[k], want[k]) for k in ("senders", "receivers", "vuln")]
+        pairs += [(ex["feats"][k], want["feats"][k]) for k in want["feats"]]
+        if (ex["num_nodes"] != want["num_nodes"]
+                or ex["label"] != want["label"]
+                or any(not np.array_equal(g, w) for g, w in pairs)):
+            raise AssertionError(f"dbize example {ex['id']} differs from "
+                                 "the corpus's")
+
+    # fit from the corpus, graph labels, persistent lane, its batches from
+    # the C++ batcher; then the same fit from the generated examples in
+    # memory on the numpy batcher: the same losses, bit for bit.
     run = os.path.join(root, "ddfa")
     gnn = ["--dataset", corpus, "--config", CONFIG_YAML, "--set",
            "train.max_epochs=1", "--device", "cuda"]
@@ -2128,7 +2301,9 @@ def _inputs(root: str) -> dict:
     model_cfg = dataclasses.replace(cfgs["model"], message_impl="persistent")
     model = FlowGNN(model_cfg, device="cuda", seed=cfgs["train"].seed)
     pinned = make_splits(generated, mode="fixed", fixed=pin)
-    _, memory = loop.fit(model, generated, pinned, cfgs["train"], cfgs["data"])
+    with _numpy_batcher():
+        _, memory = loop.fit(model, generated, pinned, cfgs["train"],
+                             cfgs["data"])
     card_losses = history["epochs"][0]["step_losses"]
     if (memory["epochs"][0]["step_losses"] != card_losses
             or memory["epochs"][0]["val_loss"]
@@ -2285,7 +2460,19 @@ def _inputs(root: str) -> dict:
         raise AssertionError(f"test-text loss {tt['loss']} against "
                              f"fit_text's test {ft_test['loss']}")
 
-    rec = dict(phase="inputs", seconds=seconds,
+    # The flagship forward against the CPU, both batchers at the
+    # flagship batch, and the corrupt-corpus self-test.
+    more = timed("entry", _entry_forward)
+    more["batcher_256_graphs"] = timed("batcher", _batcher_ms, feature)
+    rc_smoke, smoke = timed("validate_smoke", _cli_rc,
+                            ["validate", "--smoke"])
+    if rc_smoke != 0 or not smoke["ok"] or smoke["classes"] != 14:
+        raise AssertionError(f"validate --smoke: rc {rc_smoke}, {smoke}")
+
+    rec = dict(phase="inputs", seconds=seconds, **more,
+               dbize_rows_per_s=len(from_dbize) / seconds["load_dbize"],
+               fit_native_bits_equal_python=True,
+               validate_smoke_grade=smoke["grade"],
                corpus_rows=len(generated),
                corpus_rows_per_s=len(generated) / seconds["load_corpus"],
                tokenizer_functions=len(functions),
@@ -2309,6 +2496,445 @@ def _inputs(root: str) -> dict:
                fit_text_test_loss=ft_test["loss"],
                test_text_bits_equal=True,
                fine_tune_step_profile=step_profile, launches=launches)
+    emit(**rec)
+    return rec
+
+
+def _write_combined_run(run: str) -> None:
+    """A combined fit-text run dir at codebert-base width (12 layers,
+    768 wide, block 512) with the published FlowGNN encoder on the
+    persistent lane, random weights from ``TEXT_SEED``: the ``best``
+    snapshot and the ``model.json`` that ``cli serve`` restores."""
+    graph_cfg = FlowGNNConfig(message_impl="persistent", encoder_mode=True)
+    enc = EncoderConfig()
+    model = LineVul(enc, graph_cfg, device="cpu", seed=TEXT_SEED)
+    train_checkpoint.make_checkpoint_manager(run).save_best(
+        {"params": model.state_dict()}, 0, metrics={"val_f1": 0.0})
+    with open(os.path.join(run, "model.json"), "w") as f:
+        json.dump({"model": "linevul", "tiny": False, "attention_impl": "auto",
+                   "remat": False, "gelu_approximate": enc.gelu_approximate,
+                   "combined": True, "block_size": 512,
+                   "dataset": "synthetic", "split_mode": "random",
+                   "graphs": "synthetic", "tokenizer": None,
+                   "batch_size": 16, "graph_budget": None,
+                   "graph_config": dataclasses.asdict(graph_cfg),
+                   "seed": TEXT_SEED}, f, indent=1)
+
+
+def _serve_args(run: str, impl: str, device: str) -> argparse.Namespace:
+    return cli.build_parser().parse_args([
+        "serve", "--combined-checkpoint-dir", run, "--set",
+        f"model.message_impl={impl}", "--device", device])
+
+
+def _http(base: str, path: str, doc=None) -> tuple:
+    """(status, headers, JSON body) of a GET (``doc`` None) or a POST."""
+    req = urllib.request.Request(
+        f"{base}{path}", data=None if doc is None else json.dumps(
+            doc).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _functions(graphs, codes=None) -> list:
+    out = []
+    for i, g in enumerate(graphs):
+        fn = {"id": int(g["id"]), "graph": {
+            "num_nodes": int(g["num_nodes"]),
+            "senders": np.asarray(g["senders"]).tolist(),
+            "receivers": np.asarray(g["receivers"]).tolist(),
+            "feats": {k: np.asarray(v).tolist()
+                      for k, v in g["feats"].items()}}}
+        if codes is not None:
+            fn["code"] = codes[i]
+        out.append(fn)
+    return out
+
+
+def _start_server(run: str, impl: str, root: str) -> tuple:
+    """``cli serve`` on the card in its own process, on an ephemeral
+    port: (process, base URL, its log path)."""
+    port_file = os.path.join(root, f"port_{impl}")
+    log = os.path.join(root, f"serve_{impl}.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepdfa_tpu_torch.cli", "serve",
+             "--combined-checkpoint-dir", run, "--set",
+             f"model.message_impl={impl}", "--device", "cuda", "--port", "0",
+             "--port-file", port_file], cwd=here, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    t0 = time.monotonic()
+    while not os.path.exists(port_file):
+        if proc.poll() is not None or time.monotonic() - t0 > HTTP_START_S:
+            _stop_server(proc)
+            with open(log) as f:
+                raise AssertionError(f"cli serve ({impl}) did not start: "
+                                     f"{f.read()[-3000:]}")
+        time.sleep(0.2)
+    with open(port_file) as f:
+        return proc, f"http://127.0.0.1:{int(f.read())}", log
+
+
+def _stop_server(proc) -> int:
+    """Ctrl-C, as a user stops it; killed if it does not exit."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.returncode
+
+
+def _combined_bucket_ms(run: str) -> dict:
+    """One combined-lane flush at each slot bucket (full 512-token rows),
+    in an engine of this process restored from the same run dir: the
+    forward alone on a batch already on the card (``forward_ms``, CUDA
+    events; ``busy_ms`` and ``kernels``, the device-busy ms and kernel
+    launches a forward under ``torch.profiler``), and the whole flush
+    (``flush_wall_ms``, host clock: packing on the host, the copies, the
+    forward)."""
+    engine, _ = cli._build_serve_engine(_serve_args(run, "persistent",
+                                                    "cuda"))
+    graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=SEED + 9)
+    texts = attach_synthetic_text([dict(g) for g in graphs], seed=TEXT_SEED)
+    reqs = []
+    for i, (g, t) in enumerate(zip(graphs, texts)):
+        norm = engine._normalize_graph(g)
+        reqs.append(ServeRequest(
+            rid=i, key="", graph=norm, lane="combined", arrival=0.0,
+            deadline_s=0.1, input_ids=encode_function(
+                t["code"], engine.tokenizer, engine.config.block_size)))
+    lane = engine._lanes["combined"]
+    out = {}
+    for slots in engine.config.slot_buckets:
+        gb = engine._graph_batch(lane, [r.graph for r in reqs[:slots]],
+                                 slots)
+        ids = torch.from_numpy(np.stack(
+            [r.input_ids for r in reqs[:slots]])).to("cuda")
+        with torch.inference_mode():
+            forward_ms = _time_ms(lambda: engine._combined_infer(ids, gb),
+                                  iters=5, reps=3)
+            prof = _device_profile(lambda: engine._combined_infer(ids, gb),
+                                   3)
+        out[str(slots)] = {
+            "forward_ms": forward_ms, "busy_ms": prof["device_busy_ms"],
+            "kernels": prof["kernels_a_call"],
+            "flush_wall_ms": _host_ms(lambda: engine._execute(
+                "combined", reqs[:slots], slots), reps=5)}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _post_all(base: str, bodies) -> tuple:
+    """``LOAD_CLIENTS`` closed-loop clients, each on its own keep-alive
+    connection, POST the encoded ``bodies`` (client c takes every c-th):
+    (ms from send to answer by body, the answers by body, the window's
+    wall seconds from the first send to the last answer)."""
+    url = urllib.parse.urlsplit(base)
+    ms = [None] * len(bodies)
+    answers = [None] * len(bodies)
+    faults = []
+    ready = threading.Barrier(LOAD_CLIENTS + 1)
+
+    def client(c):
+        conn = http.client.HTTPConnection(url.hostname, url.port, timeout=120)
+        try:
+            # Connected before the window: 16 connects at once overflow
+            # the server's listen backlog (socketserver's 5), and a
+            # dropped SYN is retried after a second.
+            conn.connect()
+            ready.wait()
+            for i in range(c, len(bodies), LOAD_CLIENTS):
+                t0 = time.perf_counter()
+                conn.request("POST", "/score", body=bodies[i], headers={
+                    "Content-Type": "application/json"})
+                resp = conn.getresponse()
+                doc = json.loads(resp.read())
+                ms[i] = (time.perf_counter() - t0) * 1e3
+                if resp.status != 200:
+                    faults.append((resp.status, doc))
+                    return
+                answers[i] = doc["results"]
+        except Exception as e:  # reported below, after every client ends
+            faults.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(LOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    ready.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if faults:
+        raise AssertionError(f"load POSTs failed: {faults[:3]}")
+    return ms, answers, wall
+
+
+def _flushes(metrics: dict, lane: str) -> dict:
+    return {key.split(":b")[1]: cell["flushes"]
+            for key, cell in metrics.get("padding_waste", {}).items()
+            if key.startswith(f"{lane}:")}
+
+
+def _load_http(base: str, lane: str, graphs, codes=None) -> dict:
+    """One lane's load window: every function once, one a POST, from
+    ``LOAD_CLIENTS`` clients at once. Checks every answer (the lane, not
+    cached, not degraded, a probability) and that the window hit no
+    cache line; returns the probabilities with the client's latency
+    quantiles, the rates (requests and functions counted apart) and the
+    flushes by slot bucket."""
+    bodies = [json.dumps({"functions": [fn]}).encode()
+              for fn in _functions(graphs, codes)]
+    _, _, m0 = _http(base, "/metrics")
+    ms, answers, wall = _post_all(base, bodies)
+    _, _, m1 = _http(base, "/metrics")
+    functions = [r for res in answers for r in res]
+    probs = np.asarray([r.get("prob", np.nan) for r in functions])
+    if (len(functions) != len(bodies) or not np.all(np.isfinite(probs))
+            or not np.all((probs >= 0) & (probs <= 1))
+            or any(r.get("model") != lane or r["cached"] or r["degraded"]
+                   for r in functions)):
+        raise AssertionError(f"{lane} load answers: {functions[:3]}")
+    hits = m1["cache_hits"] - m0["cache_hits"]
+    if hits or m1["completed"] - m0["completed"] != len(bodies):
+        raise AssertionError(f"{lane} load window: {hits} cache hits, "
+                             f"{m1['completed'] - m0['completed']} "
+                             f"completed of {len(bodies)}")
+    before = _flushes(m0, lane)
+    flushes = {k: v - before.get(k, 0) for k, v in _flushes(m1, lane).items()
+               if v - before.get(k, 0)}
+    slots = sum(int(k) * v for k, v in flushes.items())
+    return {"probs": probs, "clients": LOAD_CLIENTS,
+            "requests": len(bodies), "functions": len(functions),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(max(ms)), "wall_s": wall,
+            "requests_per_s": len(bodies) / wall,
+            "functions_per_s": len(functions) / wall,
+            "flushes_by_bucket": flushes,
+            "slot_occupancy": len(functions) / slots}
+
+
+def _check_http(base: str, graphs, coded, codes, fresh) -> dict:
+    """The smoke traffic, one POST at a time: graph-only and coded
+    functions a chunk a POST, their first chunks again (cached), an
+    unencodable function with a graph the server has not seen (degraded,
+    its own gnn flush), a malformed POST (400) and an oversized one
+    (413). Returns the answers and the status codes."""
+    answers = {"gnn": [], "combined": []}
+    for lane, fns in (("gnn", _functions(graphs)),
+                      ("combined", _functions(coded, codes))):
+        for start in range(0, len(fns), HTTP_CHUNK):
+            status, _, body = _http(base, "/score", {
+                "functions": fns[start:start + HTTP_CHUNK]})
+            if status != 200:
+                raise AssertionError(f"{lane} POST: {status} {body}")
+            answers[lane] += body["results"]
+        status, _, body = _http(base, "/score",
+                                {"functions": fns[:HTTP_CHUNK]})
+        if status != 200 or not all(r["cached"] for r in body["results"]):
+            raise AssertionError(f"{lane} replay not cached: {body}")
+    for lane, res in answers.items():
+        if any(r.get("model") != lane or r.get("degraded") or r["cached"]
+               for r in res):
+            raise AssertionError(f"{lane} answers: {res[:3]}")
+    status, _, body = _http(base, "/score", {"functions": _functions(
+        [fresh], [UNENCODABLE])})
+    degraded = body["results"][0]
+    if (status != 200 or not degraded["degraded"] or degraded["cached"]
+            or degraded["model"] != "gnn"):
+        raise AssertionError(f"forced tokenizer failure: {status} {body}")
+    big = synthetic_bigvul(1, FlowGNNConfig().feature, seed=SEED,
+                           min_nodes=80, max_nodes=90)
+    codes_seen = (_http(base, "/score", {"functions": []})[0],
+                  _http(base, "/score", {"functions": _functions(big)})[0])
+    if codes_seen != (400, 413):
+        raise AssertionError(f"bad requests answered {codes_seen}")
+    return {"answers": answers, "degraded": degraded,
+            "bad_request_codes": list(codes_seen)}
+
+
+def phase_serve_http() -> dict:
+    """``cli serve`` on the card over real HTTP, the combined lane at
+    codebert-base width beside the GNN lane on the persistent (default)
+    and the fused message paths, each against the same engine on the
+    CPU; a temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="serve_http_")
+    try:
+        return _serve_http(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _serve_http(root: str) -> dict:
+    run = os.path.join(root, "combined")
+    t0 = time.perf_counter()
+    _write_combined_run(run)
+    write_s = time.perf_counter() - t0
+    feature = FlowGNNConfig().feature
+    keep = ("num_nodes", "senders", "receivers", "feats", "id")
+
+    def functions(n, seed):
+        made = synthetic_bigvul(n, feature, seed=seed)
+        codes = [t["code"] for t in attach_synthetic_text(
+            [dict(g) for g in made], seed=TEXT_SEED)]
+        return [{k: g[k] for k in keep} for g in made], codes
+
+    graphs, _ = functions(N_HTTP_GRAPHS, SEED + 7)
+    coded, codes = functions(N_HTTP_CODED, SEED + 8)
+    load_graphs, _ = functions(LOAD_CLIENTS * LOAD_POSTS, SEED + 11)
+    load_coded, load_codes = functions(LOAD_CLIENTS * LOAD_POSTS, SEED + 12)
+    fresh = functions(1, SEED + 13)[0][0]
+    launches = {k: 0 for k in REPLACES}
+    lanes = {}
+    load_probs = {}
+    for impl in ("persistent", "fused"):
+        t0 = time.perf_counter()
+        proc, base, log = _start_server(run, impl, root)
+        start_s = time.perf_counter() - t0
+        try:
+            _, _, m0 = _http(base, "/metrics")
+            _, _, health = _http(base, "/healthz")
+            load = {"gnn": _load_http(base, "gnn", load_graphs)}
+            _, _, m_gnn = _http(base, "/metrics")
+            load["combined"] = _load_http(base, "combined", load_coded,
+                                          load_codes)
+            traffic = _check_http(base, graphs, coded, codes, fresh)
+            _, _, m1 = _http(base, "/metrics")
+        finally:
+            rc = _stop_server(proc)
+        if rc != 0:
+            with open(log) as f:
+                raise AssertionError(f"cli serve ({impl}) exited {rc}: "
+                                     f"{f.read()[-3000:]}")
+        delta = {k: m1["kernel_launches"][k] - m0["kernel_launches"][k]
+                 for k in launches}
+        for k, v in delta.items():
+            launches[k] += v
+        step = "persistent_fwd_kernel" if impl == "persistent" \
+            else "fused_step_kernel"
+        if (delta["flash_fwd_kernel"] == 0 or delta[step] == 0
+                or delta["persistent_fwd_kernel"] == 0):
+            raise AssertionError(f"{impl} server launches {delta}")
+        if m1["compiles"] != m0["compiles"] or m0["compiles"] != \
+                health["warm_buckets"] or health["warm_buckets"] != 10:
+            raise AssertionError(f"{impl}: compiles {m0['compiles']} -> "
+                                 f"{m1['compiles']}, health {health}")
+        hits = m1["cache_hits"] - m0["cache_hits"]
+        if hits != 2 * HTTP_CHUNK or m1["degraded"] - m0["degraded"] != 1:
+            raise AssertionError(f"{impl}: {hits} cache hits (want "
+                                 f"{2 * HTTP_CHUNK}: the replayed chunks), "
+                                 f"{m1['degraded'] - m0['degraded']} "
+                                 f"degraded")
+        # The same engine on the CPU: the checked functions, the gnn
+        # lane's load and a bucket of the combined lane's load.
+        cpu_engine, _ = cli._build_serve_engine(_serve_args(run, impl,
+                                                            "cpu"))
+        cpu_engine.warmup()
+        n_cpu = 16
+        want = {"gnn": cpu_engine.score_sync(graphs),
+                "combined": cpu_engine.score_sync(coded, codes),
+                "degraded": cpu_engine.score_sync([fresh]),
+                "gnn_load": cpu_engine.score_sync(load_graphs),
+                "combined_load": cpu_engine.score_sync(
+                    load_coded[:n_cpu], load_codes[:n_cpu])}
+        del cpu_engine
+        got = {"gnn": [r["prob"] for r in traffic["answers"]["gnn"]],
+               "combined": [r["prob"] for r in
+                            traffic["answers"]["combined"]],
+               "degraded": [traffic["degraded"]["prob"]],
+               "gnn_load": load["gnn"]["probs"],
+               "combined_load": load["combined"]["probs"][:n_cpu]}
+        gaps = {k: float(np.abs(np.asarray(got[k]) - np.asarray(
+            [r["prob"] for r in want[k]])).max()) for k in want}
+        if max(gaps.values()) > HTTP_TOL:
+            raise AssertionError(f"{impl}: |card - cpu| {gaps} > {HTTP_TOL}")
+        load_probs[impl] = load["combined"]["probs"]
+        lanes[impl] = dict(
+            start_s=start_s, warm_buckets=health["warm_buckets"],
+            compiles=m1["compiles"], launches=delta,
+            max_abs_prob_diff_vs_cpu=gaps, cache_hits=hits,
+            degraded=m1["degraded"] - m0["degraded"],
+            gnn_engine_latency_p50_ms=m_gnn["latency_p50_ms"],
+            gnn_engine_latency_p99_ms=m_gnn["latency_p99_ms"],
+            device_bytes_in_use=health.get("device_bytes_in_use"),
+            bad_request_codes=traffic["bad_request_codes"],
+            load={lane: {k: v for k, v in rec.items() if k != "probs"}
+                  for lane, rec in load.items()})
+    # Every combined load answer, one server against the other.
+    combined_load_gap = float(np.abs(load_probs["persistent"]
+                                     - load_probs["fused"]).max())
+    if combined_load_gap > HTTP_TOL:
+        raise AssertionError(f"combined load answers differ between the "
+                             f"servers by {combined_load_gap}")
+    t0 = time.perf_counter()
+    bucket_ms = _combined_bucket_ms(run)
+    rec = dict(phase="serve_http", write_checkpoint_s=write_s, lanes=lanes,
+               combined_load_persistent_vs_fused=combined_load_gap,
+               combined_flush_by_bucket=bucket_ms,
+               bucket_timing_s=time.perf_counter() - t0, launches=launches)
+    emit(**rec)
+    return rec
+
+
+def phase_replay() -> dict:
+    """The reference's replay gate on the card: 200 seeded bursty
+    requests through a warmed engine (published FlowGNN, persistent
+    lane, 8 slots) on a virtual clock."""
+    model = FlowGNN(FlowGNNConfig(message_impl="persistent"), device="cuda",
+                    seed=SEED)
+    clock = VirtualClock()
+    engine = ServeEngine(model, ServeConfig(batch_slots=8,
+                                            deadline_ms=100.0),
+                         clock=clock, device="cuda")
+    warmed = engine.warmup()
+    trace = bursty_trace(REPLAY_REQUESTS, model.config.feature, seed=1)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = replay(engine, trace, clock)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    m = out["metrics"]
+    if (m["completed"] != REPLAY_REQUESTS or m["dropped"]
+            or m["batch_occupancy"] < 0.5 or not m["cache_hit_rate"] > 0
+            or m["compiles"] != warmed or m["failures"]
+            or launches["persistent_fwd_kernel"] == 0):
+        raise AssertionError(f"replay gate: {m}, warmed {warmed}, "
+                             f"launches {launches}")
+    by_id = {int(r.graph["id"]): r.result["prob"] for r in out["requests"]}
+    graphs = [e.graph for e in trace]
+    offline = loop.evaluate(loop.make_eval_step(model, TrainConfig()),
+                            graphs, np.arange(len(graphs)),
+                            DataConfig(eval_batch_size=16),
+                            list(subkeys_for(model.config.feature)), "cuda",
+                            build_band_adj=True)
+    gap = max(abs(by_id[int(i)] - float(p))
+              for i, p in zip(offline.graph_ids, offline.probs))
+    if gap > REPLAY_TOL:
+        raise AssertionError(f"replay against the offline eval: {gap:.3e} "
+                             f"> {REPLAY_TOL}")
+    rec = dict(phase="replay", requests=REPLAY_REQUESTS, warmed=warmed,
+               completed=m["completed"], dropped=m["dropped"],
+               compiles=m["compiles"], batch_occupancy=m["batch_occupancy"],
+               cache_hit_rate=m["cache_hit_rate"], batches=m["batches"],
+               latency_p50_ms=m["latency_p50_ms"],
+               latency_p99_ms=m["latency_p99_ms"],
+               graphs_per_sec_virtual=m["graphs_per_sec"], wall_s=wall_s,
+               max_abs_prob_diff_vs_offline=gap, launches=launches)
     emit(**rec)
     return rec
 
@@ -2345,7 +2971,9 @@ def main() -> int:
             ("fit_text_vs_cpu_tile", phase_fit_text_vs_cpu, ("tile",)),
             ("fit_text_long", phase_fit_text_long, ()),
             ("recipe", phase_recipe, ()),
-            ("inputs", phase_inputs, ())):
+            ("inputs", phase_inputs, ()),
+            ("serve_http", phase_serve_http, ()),
+            ("replay", phase_replay, ())):
         for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))

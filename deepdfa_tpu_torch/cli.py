@@ -73,7 +73,7 @@ import sys
 import time
 from typing import Any, Dict, Optional, Sequence
 
-from deepdfa_tpu_torch.core.config import _coerce, build_configs  # noqa: F401
+from deepdfa_tpu_torch.core.config import build_configs
 
 logger = logging.getLogger(__name__)
 
@@ -107,15 +107,6 @@ def _model_items_only(items: Sequence[str]) -> None:
             raise ValueError(
                 f"fit-text --set only configures the graph encoder "
                 f"(model.*); use the native flags instead of {item!r}")
-
-
-def graph_overrides(items: Sequence[str]) -> Dict[str, Any]:
-    """``fit-text --set`` items -> the ``FlowGNNConfig`` fields they set,
-    coerced by ``build_configs``."""
-    _model_items_only(items)
-    cfg = build_configs([], items)["model"]
-    return {k: getattr(cfg, k) for k in
-            (item.partition("=")[0].partition(".")[2] for item in items)}
 
 
 def _configs(args, flags: Dict[str, Any]) -> Dict[str, Any]:
@@ -156,15 +147,16 @@ def _read_pinned_split(path: str) -> Optional[Dict[int, str]]:
 def load_dataset(spec: str, feature, seed: int = 0,
                  split_mode: str = "random"):
     """(examples, splits) for ``fit``/``test``/``score``/``analyze`` (the
-    reference's ``load_dataset``): ``synthetic[:N]``, split by
-    ``split_mode`` from ``seed``, or a ``.jsonl`` corpus read through
+    reference's ``load_dataset``): ``synthetic[:N]`` or a dbize cache
+    directory (``nodes.csv``), split by ``split_mode`` from ``seed``, or
+    a ``.jsonl`` corpus read through
     the contracts, whose sibling ``splits.json`` pins the partition the
     abstract-dataflow vocabulary was built on."""
     from deepdfa_tpu_torch.core.config import subkeys_for
     from deepdfa_tpu_torch.data.combined import load_graph_source
     from deepdfa_tpu_torch.data.splits import make_splits
 
-    if spec.startswith("synthetic"):
+    if spec.startswith("synthetic") or os.path.isdir(spec):
         examples = load_graph_source(spec, feature, seed=seed)
         return examples, make_splits(examples, mode=split_mode, seed=seed)
     if spec.endswith(".jsonl") and os.path.exists(spec):
@@ -189,9 +181,6 @@ def load_dataset(spec: str, feature, seed: int = 0,
                 split_mode)
         return examples, make_splits(examples, mode=split_mode, seed=seed)
     raise ValueError(f"unknown dataset spec {spec!r}")
-
-
-_graph_data = load_dataset
 
 
 @contextlib.contextmanager
@@ -402,14 +391,19 @@ def cmd_validate(args) -> Dict[str, Any]:
     it) through the data contracts: violating rows go to
     ``quarantine/`` beside each file, with a reason-coded manifest, and
     the command exits 1 (fail-closed: a dirty cache fails a pipeline
-    gate)."""
+    gate).
+
+    ``--smoke``: the self-test instead: poison a small synthetic corpus
+    (seeded by ``--seed``) across every corruption class of the gauntlet
+    and check that each is repaired or quarantined under its expected
+    reason code; exit 1 otherwise."""
     from deepdfa_tpu_torch.contracts import STATS, gauntlet
     from deepdfa_tpu_torch.core.config import FeatureSpec, subkeys_for
 
     if args.smoke:
-        raise NotImplementedError(
-            "validate --smoke needs the corrupt-corpus fuzzer "
-            "(contracts/gauntlet.py poison_corpus), which is not ported yet")
+        report = gauntlet.smoke(seed=args.seed)
+        print(json.dumps(report))
+        return report
     if not args.cache_dir:
         raise ValueError("validate needs a cache dir/corpus (or --smoke)")
     # The required subkeys follow the export's feature: a single-subkey
@@ -469,6 +463,156 @@ def _text_model(tiny: bool, attention_impl: str, remat: bool,
         tok = HashingCodeTokenizer(enc.vocab_size)
     model = LineVul(enc, graph_config=graph_cfg, device=device, seed=seed)
     return model, tok
+
+
+def _combined_model(args):
+    """(LineVul, tokenizer, block_size) of a ``fit-text`` combined run
+    dir, restored from its ``model.json`` and ``--combined-which``
+    snapshot; ``--tokenizer`` overrides the recorded assets."""
+    from deepdfa_tpu_torch.core.config import FeatureSpec, FlowGNNConfig
+    from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+
+    run = args.combined_checkpoint_dir
+    with open(os.path.join(run, "model.json")) as f:
+        desc = json.load(f)
+    if desc["model"] != "linevul" or not desc["combined"]:
+        raise ValueError("--combined-checkpoint-dir must hold a combined "
+                         "linevul fit-text run (model.json says otherwise)")
+    gdict = dict(desc["graph_config"])
+    gdict["feature"] = FeatureSpec(**gdict["feature"])
+    model, tok = _text_model(
+        desc["tiny"], desc.get("attention_impl", "auto"),
+        desc.get("remat", False), desc["block_size"], FlowGNNConfig(**gdict),
+        args.device, desc["seed"],
+        gelu_approximate=desc.get("gelu_approximate", False),
+        tokenizer=args.tokenizer or desc.get("tokenizer"))
+    model.load_state_dict(
+        CheckpointManager(run).restore_params(args.combined_which))
+    return model, tok, desc["block_size"]
+
+
+def _build_serve_engine(args):
+    """(engine, model_cfg): the serving engine from ``fit`` and
+    ``fit-text`` run dirs (the reference's ``_build_serve_engine``).
+    Without ``--checkpoint-dir`` the GNN lane serves a random init
+    from ``train.seed`` (the serving stack is real, the scores are not);
+    ``--combined-checkpoint-dir`` attaches the DeepDFA+LineVul lane, at
+    its recorded block size."""
+    from deepdfa_tpu_torch.models.flowgnn import FlowGNN
+    from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
+    from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfgs = _configs(args, {"message_impl": "persistent", "seed": 0})
+    model_cfg, seed = cfgs["model"], cfgs["train"].seed
+    if model_cfg.label_style != "graph":
+        raise ValueError("serving scores functions; use label_style=graph")
+    model = FlowGNN(model_cfg, device=args.device, seed=seed)
+    if args.checkpoint_dir:
+        model.load_state_dict(
+            CheckpointManager(args.checkpoint_dir).restore_params(args.which))
+    else:
+        logger.warning("no --checkpoint-dir: serving RANDOM-INIT weights "
+                       "(seed %d): the serving stack is real, the scores "
+                       "are not", seed)
+    combined = tok = None
+    knobs: Dict[str, Any] = dict(
+        batch_slots=args.batch_slots, deadline_ms=args.deadline_ms,
+        queue_capacity=args.queue_capacity,
+        cache_capacity=args.cache_capacity)
+    if args.combined_checkpoint_dir:
+        combined, tok, knobs["block_size"] = _combined_model(args)
+    engine = ServeEngine(model, ServeConfig(**knobs), device=args.device,
+                         combined_model=combined, tokenizer=tok)
+    return engine, model_cfg
+
+
+def _smoke_http(engine, host: str, port: int, n: int, feature
+                ) -> Dict[str, Any]:
+    """Drive the HTTP stack with ``n`` synthetic functions in half-bucket
+    chunks, then the first chunk again (it must come back from the
+    cache); with a combined lane the same graphs once more with their
+    source. ``ok`` when every function was scored on its lane, the
+    replay was cached and nothing compiled after warmup."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
+    from deepdfa_tpu_torch.serve.http import ServeHTTPServer
+
+    server = ServeHTTPServer((host, port), engine)
+    server.start_pump()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://{host}:{server.server_address[1]}"
+
+    def post(doc):
+        req = urllib.request.Request(
+            f"{base}/score", data=json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    try:
+        graphs = synthetic_bigvul(n, feature, positive_fraction=0.5, seed=0)
+        payload = [
+            {"id": int(g["id"]),
+             "graph": {"num_nodes": int(g["num_nodes"]),
+                       "senders": np.asarray(g["senders"]).tolist(),
+                       "receivers": np.asarray(g["receivers"]).tolist(),
+                       "feats": {k: np.asarray(v).tolist()
+                                 for k, v in g["feats"].items()}}}
+            for g in graphs]
+        results = []
+        chunk = max(engine.config.batch_slots // 2, 1)
+        for start in range(0, n, chunk):
+            results += post({"functions": payload[start:start + chunk]}
+                            )["results"]
+        dup = post({"functions": payload[:chunk]})["results"]
+        lanes = {"gnn": all(r.get("model") == "gnn" for r in results)}
+        if engine.combined_model is not None:
+            coded = [dict(p, code=f"int f_{p['id']}(char *p) "
+                                  "{ return p[0]; }") for p in payload]
+            combined = []
+            for start in range(0, n, chunk):
+                combined += post({"functions": coded[start:start + chunk]}
+                                 )["results"]
+            lanes["combined"] = all(r.get("model") == "combined"
+                                    for r in combined)
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as resp:
+            metrics = json.loads(resp.read())
+        after = engine.compiles_after_warmup
+        ok = (all("prob" in r for r in results) and all(lanes.values())
+              and all(r.get("cached") for r in dup) and not after)
+        return {"smoke": n, "ok": ok, "cached_replay": len(dup),
+                "lanes": lanes, "compiles_after_warmup": after,
+                "metrics": metrics}
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def cmd_serve(args) -> Dict[str, Any]:
+    """Serve scoring requests over HTTP (``serve/http.py``): bucketed
+    micro-batching, warmup of every (lane, bucket) pair, content-hash
+    caching, 429 backpressure, GNN-only degradation. ``--smoke N``
+    drives the HTTP stack with N synthetic functions, prints the report
+    and exits (1 when a check failed); otherwise serve until Ctrl-C."""
+    from deepdfa_tpu_torch.serve.http import serve_forever
+
+    engine, model_cfg = _build_serve_engine(args)
+    if not args.no_warmup:
+        logger.info("warmed %d (lane, bucket) pairs", engine.warmup())
+    if args.smoke is not None:
+        report = _smoke_http(engine, args.host, args.port, args.smoke,
+                             model_cfg.feature)
+        if not report["ok"]:
+            report["exit_code"] = 1
+        print(json.dumps(report))
+        return report
+    serve_forever(engine, args.host, args.port, port_file=args.port_file)
+    return {}
 
 
 def cmd_fit_text(args) -> Dict[str, Any]:
@@ -767,13 +911,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cache directory (every *.jsonl under it) or one "
                          "corpus file")
     va.add_argument("--smoke", action="store_true",
-                    help="the corrupt-corpus self-test (not ported yet: "
-                         "raises)")
+                    help="the corrupt-corpus self-test: poison a small "
+                         "synthetic corpus across every corruption class "
+                         "and grade the quarantine manifest")
     va.add_argument("--max-nodes", type=int, default=None,
                     help="oversize-graph cap (default: no cap)")
     va.add_argument("--feature", default=None,
                     help="legacy feature name of the export (sets the "
                          "required subkeys; default: all four)")
+    va.add_argument("--seed", type=int, default=0,
+                    help="--smoke's corruption plan seed")
     va.set_defaults(func=cmd_validate)
     tx = sub.add_parser(
         "fit-text", help="train LineVul, optionally combined with the "
@@ -844,6 +991,47 @@ def build_parser() -> argparse.ArgumentParser:
     tt.add_argument("--eval-batch-size", type=int, default=16)
     device_flag(tt)
     tt.set_defaults(func=cmd_test_text)
+    sv = sub.add_parser(
+        "serve", help="HTTP scoring endpoint: bucketed micro-batching over "
+                      "warmed (lane, bucket) pairs; the DeepDFA+LineVul lane "
+                      "for functions sent with their code")
+    sv.add_argument("--config", action="append", default=[],
+                    help="YAML config file of the GNN lane (repeatable)")
+    sv.add_argument("--set", action="append", default=[], metavar="S.K=V",
+                    help="override a config value (repeatable), e.g. "
+                         "model.message_impl=fused (default persistent)")
+    sv.add_argument("--checkpoint-dir", default=None,
+                    help="cli fit run dir (omit for random-init weights)")
+    sv.add_argument("--which", default="best")
+    sv.add_argument("--combined-checkpoint-dir", default=None,
+                    help="fit-text combined linevul run dir: attaches the "
+                         "DeepDFA+LineVul lane for functions with code")
+    sv.add_argument("--combined-which", default="best")
+    sv.add_argument("--tokenizer", default=None,
+                    help="override the combined run's recorded tokenizer "
+                         "assets")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8321)
+    sv.add_argument("--port-file", default=None, metavar="FILE",
+                    help="write the bound port here after bind (how a "
+                         "client finds an ephemeral --port 0)")
+    sv.add_argument("--no-warmup", action="store_true",
+                    help="skip the warmup (first requests then load the "
+                         "kernels and count as compiles)")
+    sv.add_argument("--smoke", type=int, default=None, metavar="N",
+                    help="drive the HTTP stack with N synthetic functions, "
+                         "print the report, exit")
+    sv.add_argument("--batch-slots", type=int, default=16,
+                    help="largest micro-batch (slot-bucket ladder top)")
+    sv.add_argument("--deadline-ms", type=float, default=100.0,
+                    help="per-request latency budget; a bucket flushes once "
+                         "the oldest request has spent half of it")
+    sv.add_argument("--queue-capacity", type=int, default=256,
+                    help="pending requests before 429 rejections")
+    sv.add_argument("--cache-capacity", type=int, default=4096,
+                    help="content-hash result cache entries (0 = off)")
+    device_flag(sv)
+    sv.set_defaults(func=cmd_serve)
     return p
 
 

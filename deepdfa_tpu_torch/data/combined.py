@@ -4,18 +4,19 @@
 The combined model trains on text and graphs joined by example id.
 
 Graph sources (``load_graph_source``):
-  - ``synthetic[:N]``   generated sample graphs (ids 0..N-1)
-  - ``<file.jsonl>``    the ETL's export format, read through the
-                        validated loader (``contracts/ingest.py``)
+  - ``synthetic[:N]``          generated sample graphs (ids 0..N-1)
+  - ``<dir with nodes.csv>``   the reference pipeline's dbize cache
+                               (``etl/legacy_cache.py``; a directory
+                               holding only ``nodes_sample.csv`` reads
+                               the sample files)
+  - ``<file.jsonl>``           the ETL's export format, read through the
+                               validated loader (``contracts/ingest.py``)
 
 Text sources (``load_combined_dataset``):
   - ``synthetic[:N]``          C-like functions rendered from the graphs
   - ``<dir with train.csv>``   train/val/test CSVs in the MSR layout,
                                read with the standard library's ``csv``;
                                the CSV partition is the fixed split
-
-The reference's dbize cache (a directory holding ``nodes.csv``,
-``etl/legacy_cache.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,9 +71,16 @@ def load_graph_source(spec: str, feature: FeatureSpec,
         return examples
     if spec.endswith(".jsonl") and os.path.exists(spec):
         return read_examples_jsonl(spec, feature)
+    if os.path.isdir(spec) and (
+            os.path.exists(os.path.join(spec, "nodes.csv"))
+            or os.path.exists(os.path.join(spec, "nodes_sample.csv"))):
+        from deepdfa_tpu_torch.etl.legacy_cache import load_reference_cache
+
+        sample = not os.path.exists(os.path.join(spec, "nodes.csv"))
+        return load_reference_cache(spec, feature, sample=sample)
     raise ValueError(
-        f"unknown graph source {spec!r} (want synthetic[:N] or an etl "
-        "export .jsonl; the dbize cache directory is not ported)")
+        f"unknown graph source {spec!r} (want synthetic[:N], an etl export "
+        ".jsonl, or a dbize cache directory holding nodes.csv)")
 
 
 def _csv_int(text: str, what: str, path: str) -> int:

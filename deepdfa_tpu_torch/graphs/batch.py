@@ -5,10 +5,13 @@ node slots and ``max_edges`` edge slots; real entries are marked by
 masks and padding is inert under the masked ops. Budgets round up a
 power-of-two ladder so traffic sees a handful of shapes.
 
-Only the python packing path is ported, with the greedy
-:func:`batch_iterator` and the dataflow-solution bits
-(``with_dataflow``); the reference's C++ batcher (``native.fill_batch``)
-and dense-slot packing (``slot_nodes``) are not ported yet.
+Graphs pack contiguously, or each into a fixed dense slot
+(``slot_nodes``, :func:`slot_nodes_for`); the greedy
+:func:`batch_iterator` spills into the next batch. The padded arrays come
+from the C++ batcher (``deepdfa_tpu_torch/native``, ``impl="native"``;
+``"auto"`` means native too, and a failed build raises) or from the
+numpy loop (``impl="python"``, the oracle). Slot packing and the
+dataflow-solution bits (``with_dataflow``) always take the Python path.
 Batches are built on the host as CPU tensors; ``GraphBatch.to`` moves
 them to the device.
 """
@@ -121,6 +124,20 @@ def select_bucket(n: int, maximum: Optional[int] = None,
     return b if maximum is None else min(b, maximum)
 
 
+def slot_nodes_for(graphs: Sequence[Mapping], minimum: int = 16,
+                   tile: Optional[int] = None) -> int:
+    """The dense-slot size for ``slot_nodes`` packing: the bucket ladder
+    (:func:`select_bucket`) rounded up from the largest graph. A power of
+    two, so with a power-of-two ``tile`` either the slot divides the tile
+    or the tile divides the slot; ``tile`` only checks that contract and
+    never widens the slot."""
+    biggest = max((int(g["num_nodes"]) for g in graphs), default=1)
+    slot = select_bucket(max(biggest, 1), minimum=minimum)
+    if tile is not None and tile & (tile - 1):
+        raise ValueError(f"tile {tile} is not a power of two")
+    return slot
+
+
 def pad_budget_for(graphs: Sequence[Mapping], n_graphs: int,
                    add_self_loops: bool = True) -> Dict[str, int]:
     """Bucketed node/edge budgets covering every graph in ``graphs``
@@ -142,54 +159,10 @@ def pad_budget_for(graphs: Sequence[Mapping], n_graphs: int,
     }
 
 
-def batch_graphs(
-    graphs: Sequence[Mapping],
-    n_graphs: int,
-    max_nodes: int,
-    max_edges: int,
-    subkeys: Sequence[str],
-    add_self_loops: bool = True,
-    tile: Optional[int] = None,
-    build_band_adj: bool = False,
-    band_bandwidth: Optional[int] = None,
-    build_tile_adj: bool = False,
-    with_dataflow: bool = False,
-) -> GraphBatch:
-    """Pack up to ``n_graphs`` graphs into one padded batch on the host.
-
-    Each graph mapping needs ``num_nodes``, ``senders``, ``receivers``,
-    ``vuln`` and ``feats`` (subkey -> int[num_nodes]), optionally ``id``.
-    Graphs that overflow the budget raise; edge endpoints are checked
-    before any copy (a dangling endpoint would silently land in another
-    graph's rows). ``build_band_adj``/``build_tile_adj`` attach the band
-    adjacency or the tile path's nonzero lists; ``with_dataflow`` the
-    examples' ``df_in``/``df_out`` bits (an example without them
-    raises).
-    """
-    if len(graphs) > n_graphs:
-        raise ValueError(f"{len(graphs)} graphs > {n_graphs} slots")
-    for gi, g in enumerate(graphs):
-        n = int(g["num_nodes"])
-        s = np.asarray(g["senders"])
-        r = np.asarray(g["receivers"])
-        if s.shape != r.shape or s.ndim != 1:
-            raise ContractError(
-                "edge_shape",
-                f"graph {gi} (id {g.get('id', '?')}): senders/receivers "
-                "must be equal-length 1-d",
-                boundary="batch", item_id=g.get("id", gi))
-        if s.size and (int(s.min()) < 0 or int(r.min()) < 0
-                       or int(s.max()) >= n or int(r.max()) >= n):
-            raise ContractError(
-                "dangling_endpoint",
-                f"graph {gi} (id {g.get('id', '?')}): edge endpoint out of "
-                f"range for {n} nodes "
-                f"(senders [{int(s.min())}, {int(s.max())}], receivers "
-                f"[{int(r.min())}, {int(r.max())}])",
-                boundary="batch", item_id=g.get("id", gi))
-
-    graph_mask = np.zeros(n_graphs, bool)
-    graph_ids = np.full(n_graphs, -1, np.int32)
+def _fill_python(graphs, max_nodes, max_edges, subkeys, add_self_loops,
+                 slot_nodes):
+    """The padded arrays by the numpy loop (the oracle of the native
+    batcher; the only path of slot packing)."""
     feats = {k: np.zeros(max_nodes, np.int32) for k in subkeys}
     vuln = np.zeros(max_nodes, np.int32)
     senders = np.zeros(max_edges, np.int32)
@@ -197,12 +170,11 @@ def batch_graphs(
     node_graph = np.zeros(max_nodes, np.int32)
     node_mask = np.zeros(max_nodes, bool)
     edge_mask = np.zeros(max_edges, bool)
-
     node_off = 0
     edge_off = 0
     for gi, g in enumerate(graphs):
-        graph_mask[gi] = True
-        graph_ids[gi] = int(g.get("id", gi))
+        if slot_nodes is not None:
+            node_off = gi * slot_nodes
         n = int(g["num_nodes"])
         s = np.asarray(g["senders"], np.int32)
         r = np.asarray(g["receivers"], np.int32)
@@ -227,6 +199,103 @@ def batch_graphs(
         edge_mask[edge_off: edge_off + e] = True
         node_off += n
         edge_off += e
+    return feats, vuln, senders, receivers, node_graph, node_mask, edge_mask
+
+
+def batch_graphs(
+    graphs: Sequence[Mapping],
+    n_graphs: int,
+    max_nodes: int,
+    max_edges: int,
+    subkeys: Sequence[str],
+    add_self_loops: bool = True,
+    tile: Optional[int] = None,
+    build_band_adj: bool = False,
+    band_bandwidth: Optional[int] = None,
+    build_tile_adj: bool = False,
+    with_dataflow: bool = False,
+    slot_nodes: Optional[int] = None,
+    impl: str = "auto",
+) -> GraphBatch:
+    """Pack up to ``n_graphs`` graphs into one padded batch on the host.
+
+    Each graph mapping needs ``num_nodes``, ``senders``, ``receivers``,
+    ``vuln`` and ``feats`` (subkey -> int[num_nodes]), optionally ``id``.
+    Graphs that overflow the budget raise; edge endpoints are checked
+    before any copy (a dangling endpoint would silently land in another
+    graph's rows). ``build_band_adj``/``build_tile_adj`` attach the band
+    adjacency or the tile path's nonzero lists; ``with_dataflow`` the
+    examples' ``df_in``/``df_out`` bits (an example without them
+    raises).
+
+    ``slot_nodes``: graph ``gi`` occupies the node range
+    ``[gi * slot_nodes, (gi + 1) * slot_nodes)`` instead of packing
+    contiguously, so one slot size (:func:`slot_nodes_for`) pins the
+    band's bandwidth whatever the batch mix; the in-slot tails are
+    masked padding. ``impl``: "native" (the C++ batcher), "python" (the
+    numpy loop) or "auto" (native); slot packing takes the python path
+    and refuses "native".
+    """
+    if len(graphs) > n_graphs:
+        raise ValueError(f"{len(graphs)} graphs > {n_graphs} slots")
+    if slot_nodes is not None:
+        if slot_nodes < 1:
+            raise ValueError(f"slot_nodes {slot_nodes} < 1")
+        if n_graphs * slot_nodes > max_nodes:
+            raise ValueError(
+                f"{n_graphs} slots of {slot_nodes} nodes exceed the "
+                f"{max_nodes}-node budget")
+        for gi, g in enumerate(graphs):
+            if int(g["num_nodes"]) > slot_nodes:
+                raise ValueError(
+                    f"graph {gi} (id {g.get('id', '?')}): "
+                    f"{int(g['num_nodes'])} nodes > slot_nodes {slot_nodes}")
+    for gi, g in enumerate(graphs):
+        n = int(g["num_nodes"])
+        s = np.asarray(g["senders"])
+        r = np.asarray(g["receivers"])
+        if s.shape != r.shape or s.ndim != 1:
+            raise ContractError(
+                "edge_shape",
+                f"graph {gi} (id {g.get('id', '?')}): senders/receivers "
+                "must be equal-length 1-d",
+                boundary="batch", item_id=g.get("id", gi))
+        if s.size and (int(s.min()) < 0 or int(r.min()) < 0
+                       or int(s.max()) >= n or int(r.max()) >= n):
+            raise ContractError(
+                "dangling_endpoint",
+                f"graph {gi} (id {g.get('id', '?')}): edge endpoint out of "
+                f"range for {n} nodes "
+                f"(senders [{int(s.min())}, {int(s.max())}], receivers "
+                f"[{int(r.min())}, {int(r.max())}])",
+                boundary="batch", item_id=g.get("id", gi))
+
+    graph_mask = np.zeros(n_graphs, bool)
+    graph_ids = np.full(n_graphs, -1, np.int32)
+    for gi, g in enumerate(graphs):
+        graph_mask[gi] = True
+        graph_ids[gi] = int(g.get("id", gi))
+
+    if impl not in ("auto", "native", "python"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if slot_nodes is not None and impl == "native":
+        raise ValueError("slot_nodes packing has no native batcher path")
+    if slot_nodes is None and impl != "python":
+        from deepdfa_tpu_torch import native
+
+        arrs = native.fill_batch(graphs, n_graphs, max_nodes, max_edges,
+                                 subkeys, add_self_loops)
+        feats = {k: arrs["feats"][ki] for ki, k in enumerate(subkeys)}
+        vuln = arrs["vuln"]
+        senders = arrs["senders"]
+        receivers = arrs["receivers"]
+        node_graph = arrs["node_graph"]
+        node_mask = arrs["node_mask"].astype(bool)
+        edge_mask = arrs["edge_mask"].astype(bool)
+    else:
+        feats, vuln, senders, receivers, node_graph, node_mask, edge_mask = \
+            _fill_python(graphs, max_nodes, max_edges, subkeys,
+                         add_self_loops, slot_nodes)
 
     band_adj = None
     if build_band_adj:
@@ -244,7 +313,10 @@ def batch_graphs(
         df_in = np.zeros(max_nodes, np.int32)
         df_out = np.zeros(max_nodes, np.int32)
         off = 0
-        for g in graphs:
+        for gi, g in enumerate(graphs):
+            if slot_nodes is not None:
+                # The bits land at the same slot offsets as the features.
+                off = gi * slot_nodes
             n = int(g["num_nodes"])
             if "df_in" not in g or "df_out" not in g:
                 raise ValueError(
@@ -286,22 +358,32 @@ def batch_iterator(
     band_bandwidth: Optional[int] = None,
     build_tile_adj: bool = False,
     with_dataflow: bool = False,
+    slot_nodes: Optional[int] = None,
+    impl: str = "auto",
 ) -> Iterator[GraphBatch]:
     """Greedy packer: yields GraphBatches in order, starting a new batch
-    when the next graph would overflow the graph, node or edge budget."""
+    when the next graph would overflow the graph, node or edge budget.
+    With ``slot_nodes`` each graph costs one slot of the node budget (pin
+    it, e.g. :func:`slot_nodes_for` over the whole corpus, so every batch
+    shares one slot layout)."""
     pending: List[Mapping] = []
     nodes = edges = 0
     kw = dict(add_self_loops=add_self_loops, tile=tile,
               build_band_adj=build_band_adj, band_bandwidth=band_bandwidth,
-              build_tile_adj=build_tile_adj, with_dataflow=with_dataflow)
+              build_tile_adj=build_tile_adj, with_dataflow=with_dataflow,
+              slot_nodes=slot_nodes, impl=impl)
     for g in graphs:
-        n = int(g["num_nodes"])
-        e = len(g["senders"]) + (n if add_self_loops else 0)
+        n_real = int(g["num_nodes"])
+        n = n_real if slot_nodes is None else slot_nodes
+        e = len(g["senders"]) + (n_real if add_self_loops else 0)
         if pending and (len(pending) >= n_graphs or nodes + n > max_nodes
                         or edges + e > max_edges):
             yield batch_graphs(pending, n_graphs, max_nodes, max_edges,
                                subkeys, **kw)
             pending, nodes, edges = [], 0, 0
+        if slot_nodes is not None and n_real > slot_nodes:
+            raise ValueError(f"single graph exceeds slot: {n_real} nodes > "
+                             f"slot_nodes {slot_nodes}")
         if n > max_nodes or e > max_edges:
             raise ValueError(f"single graph exceeds budget: {n} nodes / "
                              f"{e} edges")

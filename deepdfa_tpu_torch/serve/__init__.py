@@ -1,4 +1,6 @@
-"""The serving layer, GNN lane: config, cache, micro-batcher, engine."""
+"""The serving layer, GNN and combined lanes: config, cache,
+micro-batcher, engine; the replay harness (``serve.replay``) and the HTTP
+transport (``serve.http``) import on their own."""
 
 from deepdfa_tpu_torch.serve.batcher import (  # noqa: F401
     MicroBatcher,

@@ -18,6 +18,8 @@ import dataclasses
 import threading
 from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
+
 from deepdfa_tpu_torch.serve.config import ServeConfig
 
 
@@ -36,19 +38,26 @@ class OversizedError(Exception):
 
 @dataclasses.dataclass
 class ServeRequest:
-    """One function to score, plus its result."""
+    """One function to score, plus its result. ``event`` lets a transport
+    thread block until the pump thread (or a cache hit) finishes it;
+    single-threaded callers read ``result`` after draining."""
 
     rid: int
     key: str                      # content hash (cache line)
-    graph: Mapping
-    lane: str
+    graph: Optional[Mapping]
+    lane: str                     # "gnn" | "combined"
     arrival: float                # engine-clock seconds
     deadline_s: float
+    input_ids: Optional[np.ndarray] = None   # the combined lane's row
+    degraded: bool = False        # tokenizer failed -> gnn lane
     completed_at: Optional[float] = None
     result: Optional[Dict] = None
+    event: threading.Event = dataclasses.field(
+        default_factory=threading.Event, repr=False)
 
     def finish(self, result: Dict) -> None:
         self.result = result
+        self.event.set()
 
     def flush_at(self, fraction: float) -> float:
         """Clock time at which this request forces a deadline-flush."""
@@ -65,17 +74,22 @@ class MicroBatcher:
             lane: collections.deque() for lane in lanes}
         self._lock = threading.Lock()
 
+    @property
+    def lanes(self) -> Tuple[str, ...]:
+        return tuple(self._pending)
+
     def depth(self) -> int:
         with self._lock:
             return sum(len(q) for q in self._pending.values())
 
     def admit(self, req: ServeRequest) -> None:
         """Enqueue or raise (RejectedError / OversizedError)."""
-        n = int(req.graph["num_nodes"])
-        e = len(req.graph["senders"]) + n  # + self loops, as batching
-        reason = self.config.admission_caps(n, e)
-        if reason is not None:
-            raise OversizedError(reason)
+        if req.graph is not None:
+            n = int(req.graph["num_nodes"])
+            e = len(req.graph["senders"]) + n  # + self loops, as batching
+            reason = self.config.admission_caps(n, e)
+            if reason is not None:
+                raise OversizedError(reason)
         with self._lock:
             if req.lane not in self._pending:
                 raise ValueError(f"unknown lane {req.lane!r}")

@@ -1,8 +1,9 @@
 """Content-hash result cache (port of ``deepdfa_tpu/serve/cache.py``).
 
-Keys hash the model inputs only — graph structure and features — so two
-submissions of the same function share a cache line whoever sends them.
-The digest is the reference's, byte for byte.
+Keys hash the model inputs only — graph structure and features, plus the
+source text on the combined lane — so two submissions of the same
+function share a cache line whoever sends them. The digest is the
+reference's, byte for byte.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 
 
-def content_hash(graph: Mapping) -> str:
-    """Stable digest of a scoring request's graph (arrays canonicalized
-    to int64 little-endian bytes, so the caller's dtypes do not matter)."""
+def content_hash(graph: Mapping, code: Optional[str] = None) -> str:
+    """Stable digest of a scoring request's model inputs (arrays
+    canonicalized to int64 little-endian bytes, so the caller's dtypes do
+    not matter). ``code`` joins only when it is scored (the combined
+    lane): a degraded or graph-only request shares the graph's line."""
     h = hashlib.blake2b(digest_size=16)
     h.update(int(graph["num_nodes"]).to_bytes(8, "little"))
     for key in ("senders", "receivers"):
@@ -27,6 +30,9 @@ def content_hash(graph: Mapping) -> str:
         h.update(name.encode())
         arr = np.ascontiguousarray(np.asarray(graph["feats"][name], np.int64))
         h.update(arr.tobytes())
+    if code is not None:
+        h.update(b"\x00code\x00")
+        h.update(str(code).encode("utf-8", "replace"))
     return h.hexdigest()
 
 

@@ -1,11 +1,11 @@
-"""Serving configuration (port of the GNN-lane part of
+"""Serving configuration (port of the graph and combined lanes' part of
 ``deepdfa_tpu/serve/config.py``).
 
 Every batch shape the engine runs derives from this config alone: slot
 counts round up the power-of-two ladder (``select_bucket``), node and
-edge budgets scale per slot, and the band bandwidth is pinned. The
-combined/gen lanes, fleet geometry and adaptive flush are not ported
-yet.
+edge budgets scale per slot, the band bandwidth is pinned and the
+combined lane's token rows are ``block_size`` long. The gen lane's
+geometry, fleet geometry and adaptive flush are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ class ServeConfig:
     flush_fraction: float = 0.5
     queue_capacity: int = 256
     cache_capacity: int = 4096
+    # Combined-lane text geometry (must match the checkpoint's block_size).
+    block_size: int = 512
     latency_window: int = 8192
     # Pinned block-band width (1 covers any packing of <= 128-node graphs).
     band_bandwidth: int = 1

@@ -1,36 +1,53 @@
-"""The serving engine, GNN lane (port of ``deepdfa_tpu/serve/engine.py``).
+"""The serving engine, graph and combined lanes (port of
+``deepdfa_tpu/serve/engine.py``).
 
 Requests are validated at admission (the reference's contract and 400
 messages), answered from a content-hash LRU when they repeat, and
 otherwise queued per lane and flushed as padded micro-batches on the
-bucket ladder of ``ServeConfig``. Each flush packs its graphs on the
-host, moves the batch to the engine's device, runs the model under
-``torch.inference_mode`` and brings the probabilities back in one
-transfer. A flush that raises fails only its own requests (flush
-isolation); the queue keeps draining.
+bucket ladder of ``ServeConfig``. Two lanes:
+
+- ``gnn``: a FlowGNN classifier scores the graph;
+- ``combined``: DeepDFA+LineVul scores the graph and the function's
+  source together (a request that carries ``code`` when the engine has a
+  combined model). When the tokenizer fails on a request's code, the
+  request degrades to the ``gnn`` lane and its answer says
+  ``degraded``.
+
+Each flush packs its graphs on the host, moves the batch to the engine's
+device, runs the lane's model under ``torch.inference_mode`` and brings
+the probabilities back in one transfer. A flush that raises fails only
+its own requests (flush isolation); the queue keeps draining.
+
+Warmup runs every (lane, slot bucket) pair once, so every kernel library
+is built and loaded before the first request. ``stats.compiles`` counts
+warmed pairs, and also a flush of a pair warmup did not run: after
+warmup it must not move (``compiles_after_warmup`` stays 0).
 
 Time comes from an injected ``clock`` (monotonic seconds); virtual
 clocks exposing ``advance(dt)`` are advanced by each flush's measured
-time, as in the reference. The combined and gen lanes, fleet, policy,
-HTTP transport, telemetry spans and fault-injection hooks are not ported
-yet.
+time, as in the reference. The gen lane, fleet, policy, telemetry spans,
+fault-injection hooks and lame-duck drain are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Set, \
+    Tuple
 
+import numpy as np
 import torch
 
 from deepdfa_tpu_torch.contracts.schema import ContractError, validate_example
+from deepdfa_tpu_torch.core.config import subkeys_for
 from deepdfa_tpu_torch.core.device import DeviceLike, resolve_device
 from deepdfa_tpu_torch.core.metrics import ServingStats
 from deepdfa_tpu_torch.graphs.batch import GraphBatch, batch_graphs
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
-from deepdfa_tpu_torch.models.infer import make_gnn_infer
+from deepdfa_tpu_torch.models.infer import make_combined_infer, make_gnn_infer
 from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE
 from deepdfa_tpu_torch.serve.batcher import (
     MicroBatcher,
@@ -43,11 +60,15 @@ from deepdfa_tpu_torch.serve.config import ServeConfig
 
 logger = logging.getLogger(__name__)
 
-LANE = "gnn"
-
 
 class BadRequestError(Exception):
     """Malformed scoring payload (missing subkeys, out-of-range edges)."""
+
+
+@dataclasses.dataclass
+class _Lane:
+    subkeys: Sequence[str]
+    band: bool  # uses_band_adj: banded adjacency, tile-aligned budgets
 
 
 def bucket_batch(config: ServeConfig, graphs: Sequence[Mapping], slots: int,
@@ -61,57 +82,125 @@ def bucket_batch(config: ServeConfig, graphs: Sequence[Mapping], slots: int,
         band_bandwidth=config.band_bandwidth if band else None)
 
 
-class ServeEngine:
-    """Model-to-responses inference engine for the GNN lane.
+def _make_lane(graph_cfg) -> _Lane:
+    if graph_cfg.message_impl not in ("segment", "band", "fused",
+                                      "persistent"):
+        raise ValueError(
+            f"serving supports message_impl 'segment', 'band', 'fused' "
+            f"or 'persistent', got {graph_cfg.message_impl!r}")
+    return _Lane(subkeys_for(graph_cfg.feature),
+                 band=graph_cfg.uses_band_adj)
 
-    ``gnn_model``: a FlowGNN classifier (label_style "graph"); it is moved
-    to ``device`` (default ``cuda``; raises without CUDA unless "cpu" is
-    asked for). ``submit`` may run on several threads; ``pump``/``drain``
-    on one.
+
+class ServeEngine:
+    """Model-to-responses inference engine.
+
+    ``gnn_model``: a FlowGNN classifier (label_style "graph"), always
+    present: the graph-only lane and the degradation target.
+    ``combined_model`` (a ``LineVul`` with a graph encoder) and
+    ``tokenizer``: the DeepDFA+LineVul lane for requests that carry
+    source code. The models move to ``device`` (default ``cuda``; raises
+    without CUDA unless "cpu" is asked for). ``submit`` may run on
+    several threads; ``pump``/``drain`` on one.
     """
 
     def __init__(self, gnn_model: FlowGNN, config: Optional[ServeConfig] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, combined_model=None,
+                 tokenizer=None):
         self.config = config or ServeConfig()
         self.device = resolve_device(device)
-        graph_cfg = gnn_model.config
-        if graph_cfg.message_impl not in ("segment", "band", "fused",
-                                          "persistent"):
-            raise ValueError(
-                f"serving supports message_impl 'segment', 'band', 'fused' "
-                f"or 'persistent', got {graph_cfg.message_impl!r}")
         self.model = gnn_model.to(self.device)
         self._infer = make_gnn_infer(self.model)
-        self._subkeys = list(gnn_model.subkeys)
-        self._band = graph_cfg.uses_band_adj
+        self._lanes: Dict[str, _Lane] = {
+            "gnn": _make_lane(gnn_model.config)}
+        self.combined_model = None
+        self.tokenizer = tokenizer
+        if combined_model is not None:
+            if tokenizer is None:
+                raise ValueError("combined serving needs a tokenizer")
+            self.combined_model = combined_model.to(self.device)
+            self._combined_infer = make_combined_infer(self.combined_model)
+            self._lanes["combined"] = _make_lane(combined_model.graph_config)
         self.stats = ServingStats(self.config.latency_window)
         self.cache = ResultCache(self.config.cache_capacity)
         self._clock = clock
         self._rid = itertools.count()
-        self.batcher = MicroBatcher(self.config, lanes=(LANE,))
+        self._warm: Set[Tuple[str, int]] = set()
+        # Compile count at the end of warmup(): the baseline of
+        # compiles_after_warmup (None until warmed).
+        self.warmup_compiles: Optional[int] = None
+        self.batcher = MicroBatcher(self.config, lanes=tuple(self._lanes))
+
+    def now(self) -> float:
+        return self._clock()
 
     @property
     def required_subkeys(self) -> List[str]:
-        return sorted(self._subkeys)
+        """The union of every lane's feature subkeys: the feats a request
+        graph must carry."""
+        return sorted({k for lane in self._lanes.values()
+                       for k in lane.subkeys})
 
     # -- buckets -----------------------------------------------------------
 
+    @property
+    def n_warm(self) -> int:
+        """(lane, slot bucket) pairs run so far."""
+        return len(self._warm)
+
+    def warm_buckets(self) -> List[Tuple[str, int]]:
+        return [(lane, slots) for lane in self._lanes
+                for slots in self.config.slot_buckets]
+
     def warmup(self) -> int:
-        """Run every slot bucket once on an empty batch, so the kernel
-        library is built and loaded before the first request; returns the
-        number of buckets warmed."""
-        for slots in self.config.slot_buckets:
-            self._infer(self._graph_batch([], slots))
-            self.stats.bump("compiles")
+        """Run every (lane, slot bucket) pair not yet run once, on an
+        empty batch, so each kernel library is built and loaded before
+        the first request; returns the pairs run now (0 when already
+        warm)."""
+        before = self.stats.compiles
+        for lane, slots in self.warm_buckets():
+            if (lane, slots) in self._warm:
+                continue
+            self._execute(lane, [], slots)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return len(self.config.slot_buckets)
+        self.warmup_compiles = self.stats.compiles
+        return self.stats.compiles - before
 
-    def _graph_batch(self, graphs: Sequence[Mapping], slots: int) -> GraphBatch:
-        gb = bucket_batch(self.config, graphs, slots, self._subkeys,
-                          band=self._band)
+    @property
+    def compiles_after_warmup(self) -> Optional[int]:
+        """Pairs first run after warmup() (must stay 0); None before."""
+        if self.warmup_compiles is None:
+            return None
+        return self.stats.compiles - self.warmup_compiles
+
+    def _graph_batch(self, lane: _Lane, graphs: Sequence[Mapping],
+                     slots: int) -> GraphBatch:
+        gb = bucket_batch(self.config, graphs, slots, lane.subkeys,
+                          band=lane.band)
         return gb.to(self.device)
+
+    def _execute(self, lane_name: str, reqs: Sequence[ServeRequest],
+                 slots: int) -> torch.Tensor:
+        """One lane's forward over ``reqs`` packed in the ``slots``-slot
+        bucket: per-slot probabilities on the device. The first run of a
+        (lane, bucket) pair counts as a compile."""
+        lane = self._lanes[lane_name]
+        gb = self._graph_batch(lane, [r.graph for r in reqs], slots)
+        if lane_name == "combined":
+            ids = np.full((slots, self.config.block_size),
+                          int(self.tokenizer.pad_token_id), np.int32)
+            for i, r in enumerate(reqs):
+                ids[i] = r.input_ids
+            probs = self._combined_infer(
+                torch.from_numpy(ids).to(self.device), gb)
+        else:
+            probs = self._infer(gb)
+        if (lane_name, slots) not in self._warm:
+            self._warm.add((lane_name, slots))
+            self.stats.bump("compiles")
+        return probs
 
     # -- admission ---------------------------------------------------------
 
@@ -122,26 +211,56 @@ class ServeEngine:
         except ContractError as e:
             raise BadRequestError(str(e))
 
-    def submit(self, graph: Mapping,
-               deadline_ms: Optional[float] = None) -> ServeRequest:
-        """Admit one scoring request. Cache hits complete at once; misses
-        enqueue for the next micro-batch. Raises BadRequestError /
-        OversizedError / RejectedError (HTTP 400 / 413 / 429)."""
+    def submit(self, graph: Optional[Mapping], code: Optional[str] = None,
+               deadline_ms: Optional[float] = None,
+               lane: Optional[str] = None) -> ServeRequest:
+        """Admit one scoring request. A request with ``code`` rides the
+        combined lane when the engine has one (the ``gnn`` lane, flagged
+        ``degraded``, when the tokenizer fails on it); ``lane`` must be
+        omitted (the gen lane is not ported). Cache hits complete at
+        once; misses enqueue for the next micro-batch. Raises
+        BadRequestError / OversizedError / RejectedError (HTTP 400 / 413
+        / 429)."""
         now = self._clock()
         self.stats.bump("submitted")
         deadline_s = (deadline_ms if deadline_ms is not None
                       else self.config.deadline_ms) / 1000.0
+        if lane == "gen":
+            raise BadRequestError(
+                "lane 'gen': no generation lane attached (the gen lane is "
+                "not ported)")
+        if lane is not None:
+            raise BadRequestError(
+                f"unknown lane {lane!r} (expected 'gen' or omitted)")
         norm = self._normalize_graph(graph)
-        req = ServeRequest(rid=next(self._rid), key=content_hash(norm),
-                           graph=norm, lane=LANE, arrival=now,
-                           deadline_s=deadline_s)
+        lane, input_ids, degraded = "gnn", None, False
+        if code is not None and "combined" in self._lanes:
+            try:
+                from deepdfa_tpu_torch.data.text import encode_function
+
+                input_ids = encode_function(code, self.tokenizer,
+                                            self.config.block_size)
+                lane = "combined"
+            except Exception:
+                # The tokenizer is down for this payload: degrade to the
+                # graph-only lane rather than fail the request.
+                logger.warning("tokenizer failed; degrading to gnn lane",
+                               exc_info=True)
+                degraded = True
+                self.stats.bump("degraded")
+        req = ServeRequest(
+            rid=next(self._rid),
+            key=content_hash(norm, code if lane == "combined" else None),
+            graph=norm, lane=lane, arrival=now, deadline_s=deadline_s,
+            input_ids=input_ids, degraded=degraded)
         cached = self.cache.get(req.key)
         if cached is not None:
             self.stats.bump("cache_hits")
             self.stats.bump("completed")
             self.stats.observe_latency(0.0)
             req.completed_at = now
-            req.finish(dict(cached, rid=req.rid, cached=True, degraded=False))
+            req.finish(dict(cached, rid=req.rid, cached=True,
+                            degraded=req.degraded))
             return req
         try:
             self.batcher.admit(req)
@@ -151,6 +270,8 @@ class ServeEngine:
         except RejectedError:
             self.stats.bump("rejected")
             raise
+        # Counted for admitted requests only: a rejected submission that
+        # is retried must not count twice.
         self.stats.bump("cache_misses")
         return req
 
@@ -165,7 +286,7 @@ class ServeEngine:
                 break
             reqs = self.batcher.take(lane)
             if reqs:
-                self._run_batch(reqs)
+                self._run_batch(lane, reqs)
                 n += 1
         return n
 
@@ -173,10 +294,11 @@ class ServeEngine:
         """Flush everything pending regardless of deadlines."""
         n = 0
         while self.batcher.depth():
-            reqs = self.batcher.take(LANE)
-            if reqs:
-                self._run_batch(reqs)
-                n += 1
+            for lane in self.batcher.lanes:
+                reqs = self.batcher.take(lane)
+                if reqs:
+                    self._run_batch(lane, reqs)
+                    n += 1
         return n
 
     def pending(self) -> int:
@@ -185,60 +307,68 @@ class ServeEngine:
     def next_flush_time(self) -> Optional[float]:
         return self.batcher.next_flush_time(self._clock())
 
-    def _run_batch(self, reqs: List[ServeRequest]) -> None:
+    def _run_batch(self, lane_name: str, reqs: List[ServeRequest]) -> None:
         slots = self.config.bucket_for(len(reqs))
         w0 = time.perf_counter()
+        band = self._lanes[lane_name].band
         budget = self.config.budget_for(
-            slots, tile=DEFAULT_TILE if self._band else None)
+            slots, tile=DEFAULT_TILE if band else None)
         e_used = sum(int(r.graph["num_nodes"]) for r in reqs)
         try:
-            gb = self._graph_batch([r.graph for r in reqs], slots)
             # One host transfer per micro-batch (it is also the flush's
             # device barrier).
-            p = self._infer(gb).cpu().numpy()
-            values = [{"prob": float(p[i]), "model": LANE}
+            p = self._execute(lane_name, reqs, slots).cpu().numpy()
+            values = [{"prob": float(p[i]), "model": lane_name}
                       for i in range(len(reqs))]
         except Exception as e:
             # Flush isolation: this micro-batch's requests fail (HTTP 500
             # class); the queue keeps draining.
-            logger.exception("micro-batch failed (%d requests)", len(reqs))
+            logger.exception("micro-batch failed (%s lane, %d requests)",
+                             lane_name, len(reqs))
             self.stats.bump("failures", by=len(reqs))
             detail = f"{type(e).__name__}: {e}"
             for r in reqs:
                 r.finish({"rid": r.rid, "error": "internal", "detail": detail,
-                          "cached": False, "degraded": False})
+                          "cached": False, "degraded": r.degraded})
             return
         elapsed = time.perf_counter() - w0
         advance = getattr(self._clock, "advance", None)
         if advance is not None:
             advance(elapsed)
         done = self._clock()
-        self.stats.record_batch(len(reqs), slots, lane=LANE,
+        self.stats.record_batch(len(reqs), slots, lane=lane_name,
                                 elems_used=e_used,
                                 elems_per_slot=self.config.max_nodes_per_graph,
                                 elems_budget=budget["max_nodes"])
         for r, value in zip(reqs, values):
+            # The cache line holds content-derived values only; "degraded"
+            # describes this request's handling, not the content.
             self.cache.put(r.key, value)
             r.completed_at = done
-            r.finish(dict(value, rid=r.rid, cached=False, degraded=False))
+            r.finish(dict(value, rid=r.rid, cached=False,
+                          degraded=r.degraded))
             self.stats.bump("completed")
             self.stats.observe_latency(done - r.arrival)
 
     # -- offline client ----------------------------------------------------
 
-    def score_sync(self, graphs: Sequence[Mapping]) -> List[Dict]:
+    def score_sync(self, graphs: Sequence[Mapping],
+                   codes: Optional[Sequence[Optional[str]]] = None
+                   ) -> List[Dict]:
         """Score a list of functions through the full serving path (cache
-        + batcher + bucketed execution), results in submission order.
+        + batcher + bucketed execution), results in submission order;
+        ``codes[i]`` sends function i's source to the combined lane.
         Backpressure drains and retries; per-function admission failures
         come back inline as ``{"error", "detail"}``."""
         out: List[Optional[ServeRequest]] = []
         errors: Dict[int, Dict] = {}
         for i, graph in enumerate(graphs):
+            code = codes[i] if codes is not None else None
             try:
-                out.append(self.submit(graph))
+                out.append(self.submit(graph, code=code))
             except RejectedError:
                 self.drain()
-                out.append(self.submit(graph))
+                out.append(self.submit(graph, code=code))
             except OversizedError as e:
                 errors[i] = {"error": "oversized", "detail": str(e)}
                 out.append(None)

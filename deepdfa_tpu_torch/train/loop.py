@@ -112,11 +112,9 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-class MissingDataflowBits(ValueError, NotImplementedError):
+class MissingDataflowBits(ValueError):
     """A dataflow label style met a batch without ``df_in``/``df_out``
-    bits. A ValueError, as the reference raises; also the
-    NotImplementedError that the port raised for these styles before it
-    built dataflow batches, so a caller catching that still does."""
+    bits (a ValueError, as the reference raises)."""
 
 
 def _labels_for(model: FlowGNN, batch: GraphBatch

@@ -249,3 +249,27 @@ def test_no_port_source_imports_a_missing_host_library():
     for path in _port_sources():
         with open(path) as f:
             assert not _HOST_LACKS_IMPORT.search(f.read()), path
+
+
+def test_serving_and_input_modules_import_with_everything_blocked():
+    """The flagship forward, the C++ batcher's binding, the dbize reader,
+    the gauntlet, the combined lane and the HTTP transport import with
+    jax, the reference and the libraries the card's host lacks blocked,
+    and importing the batcher builds nothing."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = _ALL_BLOCKED_IMPORT + (
+        "from deepdfa_tpu_torch import native\n"
+        "assert native._lib is None\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["reference_loaded"] == []
+    for name in ("deepdfa_tpu_torch.entry", "deepdfa_tpu_torch.native",
+                 "deepdfa_tpu_torch.etl.legacy_cache",
+                 "deepdfa_tpu_torch.contracts.gauntlet",
+                 "deepdfa_tpu_torch.models.infer",
+                 "deepdfa_tpu_torch.serve.engine",
+                 "deepdfa_tpu_torch.serve.http",
+                 "deepdfa_tpu_torch.serve.replay"):
+        assert name in report["modules"]

@@ -460,7 +460,7 @@ def test_score_and_test_give_the_restored_models_probabilities(
     cfg = FlowGNNConfig(message_impl="segment")
     model = FlowGNN(cfg, device="cpu")
     model.load_state_dict(pckpt.CheckpointManager(ddfa_run).restore_params())
-    examples, splits = cli._graph_data("synthetic:48", cfg.feature, 1)
+    examples, splits = cli.load_dataset("synthetic:48", cfg.feature, 1)
     res = loop.evaluate(loop.make_eval_step(model, TrainConfig()), examples,
                         splits["test"], DataConfig(), subkeys_for(cfg.feature),
                         "cpu")

@@ -476,15 +476,19 @@ def test_cli_fit_text_set_refusals(tmp_path, item, match):
 def test_set_coerces_like_the_reference():
     from deepdfa_tpu.cli import _coerce as jcoerce
     from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core.config import _coerce, build_configs
 
-    got = cli.graph_overrides(["model.hidden_dim=16", "model.remat_steps=no",
-                               "model.message_impl=tile",
-                               "model.dtype=float32"])
+    items = ["model.hidden_dim=16", "model.remat_steps=no",
+             "model.message_impl=tile", "model.dtype=float32"]
+    cli._model_items_only(items)
+    cfg = build_configs([], items)["model"]
+    got = {k: getattr(cfg, k) for k in ("hidden_dim", "remat_steps",
+                                        "message_impl", "dtype")}
     assert got == {"hidden_dim": 16, "remat_steps": False,
                    "message_impl": "tile", "dtype": "float32"}
     for value, ftype in (("16", "int"), ("yes", "bool"), ("0.5", "float"),
                          ("tile", "str")):
-        assert cli._coerce(value, ftype) == jcoerce(value, ftype)
+        assert _coerce(value, ftype) == jcoerce(value, ftype)
 
 
 def test_serving_refuses_tile_as_the_reference_does():

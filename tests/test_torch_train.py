@@ -239,7 +239,7 @@ def test_labels_for_styles():
         assert labels.shape == mask.shape == (n,)
     cfg = FlowGNNConfig(feature=FeatureSpec(**LIMITS),
                         label_style="dataflow_solution_in", **SMALL)
-    with pytest.raises(NotImplementedError, match="with_dataflow"):
+    with pytest.raises(loop.MissingDataflowBits, match="with_dataflow"):
         loop._labels_for(FlowGNN(cfg, device="cpu"), batch)
 
 
