@@ -154,6 +154,24 @@ one:
    completed, none dropped, occupancy at least 0.5, cache hits, no
    compile after warmup, every answer within 1e-6 of the offline eval
    of the same graphs.
+20. DeepDFA+CodeT5 (``DefectModel``: the T5 stack in plain torch, the
+   FlowGNN encoder's hand kernels under it), in a temporary directory
+   removed afterwards: ``cli fit-text --model codet5`` at codet5-base
+   width (12 encoder and 12 decoder layers, 768 wide, T 512, batch 16,
+   ``synthetic:120``, one epoch, ``--set model.message_impl=persistent``),
+   its launches exactly what the batches' gates say (the persistent
+   kernels with their backward for training, ``persistent_fwd_kernel``
+   for evaluation; the fused kernel per step for a batch over a gate),
+   in ``history.json`` too; ``test-text`` on the run dir, bit for bit
+   ``predictions.csv``; then the step at the same shapes (CUDA events,
+   examples per second, device ms by kernel from ``torch.profiler``,
+   peak memory). Against the CPU: 2 encoder and 2 decoder layers at
+   width 768, batch 4, the fused graph lane, dropout off: logits and
+   gradients within 1e-4 of the largest entry + 1e-6, 3 steps' losses
+   within 1e-4. A codet5-base HF directory (random, from a seed, written
+   by ``write_safetensors`` with a ``config.json``) read back through
+   ``load_pretrained`` bit for bit, and one ``fit_text`` step from it
+   with the graph encoder frozen.
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -211,6 +229,7 @@ from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
 from deepdfa_tpu_torch.data import bpe
 from deepdfa_tpu_torch.data.text import (
     HashingCodeTokenizer,
+    HashingT5Tokenizer,
     attach_synthetic_text,
     encode_dataset,
     encode_function,
@@ -224,6 +243,7 @@ from deepdfa_tpu_torch.graphs.batch import (
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
 from deepdfa_tpu_torch.models import convert, pretrained
+from deepdfa_tpu_torch.models.t5 import DefectModel, T5Config, T5Model
 from deepdfa_tpu_torch.models.transformer import EncoderConfig, RobertaEncoder
 from deepdfa_tpu_torch.ops import (
     PEAK_BYTES_PER_S,
@@ -2939,6 +2959,317 @@ def phase_replay() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# DeepDFA+CodeT5: the paper's third model family
+# ---------------------------------------------------------------------------
+
+# synthetic:20 split 80/10/10: 16 training rows, one step of 16 (the HF
+# weights' step).
+CODET5_N_HF = 20
+# What a codet5-base config.json holds (Salesforce/codet5-base's keys
+# that the port reads; the card's host has no transformers).
+CODET5_CONFIG = {
+    "model_type": "t5", "vocab_size": 32100, "d_model": 768, "d_kv": 64,
+    "d_ff": 3072, "num_layers": 12, "num_decoder_layers": 12,
+    "num_heads": 12, "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128, "dropout_rate": 0.1,
+    "layer_norm_epsilon": 1e-6, "feed_forward_proj": "relu",
+    "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2,
+    "decoder_start_token_id": 0, "tie_word_embeddings": True}
+
+
+def _codet5_setup(n: int, batch: int, block: int, message_impl: str):
+    """The data and fit_text arguments of ``cli fit-text --model codet5
+    --graphs synthetic --set model.message_impl=...`` at these sizes (one
+    epoch): t5-style ids from the hashing tokenizer, pad id 0."""
+    graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph",
+                              message_impl=message_impl)
+    tcfg = TransformerTrainConfig(max_epochs=1, batch_size=batch,
+                                  eval_batch_size=batch, block_size=block,
+                                  seed=TEXT_SEED)
+    t5cfg = T5Config.codet5_base()
+    data, splits, graphs = load_combined_dataset(
+        f"synthetic:{n}", graph_cfg.feature,
+        HashingT5Tokenizer(t5cfg.vocab_size), block, style="t5",
+        graphs="synthetic", seed=TEXT_SEED)
+    graphs, budget = graph_join_and_budget(list(graphs.values()), batch)
+    kw = dict(graphs_by_id=graphs, subkeys=list(subkeys_for(
+        graph_cfg.feature)), graph_budget=budget,
+        pad_id=t5cfg.pad_token_id)
+    return graph_cfg, tcfg, data, splits, kw
+
+
+def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
+                       shuffle_seed=None) -> dict:
+    """The GNN kernels a graph encoder of ``graph_cfg.message_impl``
+    (fused or persistent) launches over the batches fit_text makes of
+    ``indices`` (train: a gradient through the encoder; else forward
+    only, as an evaluation or a frozen encoder runs it). A persistent
+    batch over its gate runs the fused kernel per step
+    (``FlowGNN._message_pass``)."""
+    k, hidden = graph_cfg.n_steps, graph_cfg.ggnn_hidden
+    gate = (fused_gnn.persistent_bwd_smem_ok if train
+            else fused_gnn.persistent_smem_ok)
+    rng = (np.random.default_rng(shuffle_seed) if shuffle_seed is not None
+           else None)
+    out = dict.fromkeys(REPLACES, 0)
+    for b in text_loop.text_graph_batches(
+            data, indices, tcfg.batch_size if train else tcfg.eval_batch_size,
+            shuffle_rng=rng, build_band_adj=True, **kw):
+        if graph_cfg.message_impl == "persistent" and gate(
+                b.graphs.band_adj, hidden):
+            names = (["persistent_fwd_kernel", "persistent_fwd_hist_kernel",
+                      "persistent_bwd_kernel", "step_weight_grad_kernel"]
+                     if train else ["persistent_fwd_kernel"])
+            for name in names:
+                out[name] += 1
+        else:
+            names = (["fused_step_kernel", "fused_step_bwd_kernel",
+                      "step_weight_grad_kernel"] if train
+                     else ["fused_step_kernel"])
+            for name in names:
+                out[name] += k
+    return out
+
+
+def _sum_launches(*counts) -> dict:
+    return {name: sum(c[name] for c in counts) for name in REPLACES}
+
+
+def phase_codet5() -> dict:
+    """DeepDFA+CodeT5 (``DefectModel`` with the FlowGNN encoder): fit-text
+    and test-text through the CLI at codet5-base width, 2 layers each
+    side against the CPU, and a codet5-base HF directory read back and
+    trained from; in a temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="codet5_")
+    try:
+        return _codet5(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _codet5(root: str) -> dict:
+    t_phase = time.perf_counter()
+    run = os.path.join(root, "run")
+    t5cfg = T5Config.codet5_base()
+    graph_cfg, tcfg, data, splits, kw = _codet5_setup(TEXT_N_FULL, 16, 512,
+                                                      "persistent")
+
+    # (a) fit-text --model codet5, then test-text, through the CLI.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ft, ft_launches = _counted_cli([
+        "fit-text", "--model", "codet5", "--dataset",
+        f"synthetic:{TEXT_N_FULL}", "--graphs", "synthetic", "--epochs",
+        "1", "--batch-size", "16", "--block-size", "512", "--set",
+        "model.message_impl=persistent", "--checkpoint-dir", run,
+        "--device", "cuda"])
+    fit_text_s = time.perf_counter() - t0
+    fit_text_peak = torch.cuda.max_memory_allocated()
+    history = _read_history(run)
+    losses = _text_steps(history)
+    train_want = _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg,
+                                    kw, train=True, shuffle_seed=TEXT_SEED)
+    val_want = _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                                  train=False)
+    test_want = _gnn_lane_launches(graph_cfg, data, splits["test"], tcfg,
+                                   kw, train=False)
+    for name in ("persistent_fwd_hist_kernel", "persistent_bwd_kernel",
+                 "step_weight_grad_kernel"):
+        if train_want[name] == 0:
+            raise AssertionError(f"no training batch under the persistent "
+                                 f"backward's gate: {train_want}")
+    if val_want["persistent_fwd_kernel"] == 0:
+        raise AssertionError(f"no evaluation batch under the persistent "
+                             f"forward's gate: {val_want}")
+    # history.json: fit_text's launches (train and validation); the CLI's
+    # count adds the test split's evaluation.
+    fit_want = {k: v for k, v in _sum_launches(train_want, val_want).items()
+                if v}
+    history_launches = {k: v for k, v in
+                        history["graph_kernel_launches"].items() if v}
+    if history_launches != fit_want:
+        raise AssertionError(f"fit-text codet5 history launches "
+                             f"{history_launches}, want {fit_want}")
+    _require_launches("fit-text --model codet5", ft_launches, {
+        k: v for k, v in _sum_launches(train_want, val_want,
+                                       test_want).items() if v})
+    desc = json.load(open(os.path.join(run, "model.json")))
+    if desc["model"] != "codet5" or desc["tiny"] or not desc["combined"]:
+        raise AssertionError(f"model.json {desc}")
+    tt, tt_launches = _counted_cli(["test-text", "--checkpoint-dir", run,
+                                    "--device", "cuda"])
+    _require_launches("test-text --model codet5", tt_launches,
+                      {k: v for k, v in test_want.items() if v})
+    with open(os.path.join(run, "predictions.csv")) as f:
+        fit_rows = f.read()
+    with open(os.path.join(run, "test_predictions.csv")) as f:
+        test_rows = f.read()
+    if tt["loss"] != ft["test"]["loss"] or test_rows != fit_rows:
+        raise AssertionError(f"test-text loss {tt['loss']} against "
+                             f"fit-text's {ft['test']['loss']}")
+    shutil.rmtree(run, ignore_errors=True)
+
+    # The step at the same shapes: events, device ms by kernel, memory.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = DefectModel(t5cfg, graph_cfg, device="cuda", seed=TEXT_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size, build_band_adj=True, **kw))
+    breakdown = _text_step_breakdown(model, batch, tcfg)
+    step_peak = torch.cuda.max_memory_allocated()
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    profile = _device_profile(lambda: step(batch, tcfg.learning_rate),
+                              TEXT_PROFILE_STEPS)
+    del model, step
+    torch.cuda.empty_cache()
+    step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
+               + breakdown["optimizer_ms"])
+    n_rows = int(batch.example_mask.sum())
+
+    vs_cpu = _codet5_vs_cpu()
+    hf = _codet5_hf(root)
+    launches = _sum_launches(ft_launches, tt_launches, vs_cpu["launches"],
+                             hf["launches"])
+    rec = dict(phase="codet5", d_model=t5cfg.d_model,
+               layers=[t5cfg.num_layers, t5cfg.num_decoder_layers],
+               params=n_params, block_size=tcfg.block_size,
+               batch_size=tcfg.batch_size, steps=len(losses), losses=losses,
+               val_f1=history["epochs"][-1]["val_metrics"]["f1"],
+               test_loss=ft["test"]["loss"], test_text_bits_equal=True,
+               fit_text_wall_s=fit_text_s,
+               fit_text_peak_mem_gb=fit_text_peak / 1e9,
+               fit_text_launches=ft_launches, test_text_launches=tt_launches,
+               step_breakdown=breakdown, step_profile=profile,
+               examples_per_step=n_rows,
+               examples_per_s=n_rows / (step_ms / 1e3),
+               peak_mem_gb=step_peak / 1e9, vs_cpu=vs_cpu, hf=hf,
+               launches=launches, seconds=time.perf_counter() - t_phase)
+    emit(**rec)
+    return rec
+
+
+def _codet5_vs_cpu() -> dict:
+    """DeepDFA+CodeT5 on the card and on the CPU from the same weights:
+    width 768, 2 encoder and 2 decoder layers, batch 4, dropout off, the
+    fused graph lane; one batch's logits and gradients, then 3 steps of
+    fit_text, held to the fit_text_vs_cpu limits."""
+    cfg = dataclasses.replace(T5Config.codet5_base(), num_layers=2,
+                              num_decoder_layers=2, dropout_rate=0.0)
+    graph_cfg, tcfg, data, splits, kw = _codet5_setup(TEXT_N_VS_CPU, 4, 512,
+                                                      "fused")
+    model = DefectModel(cfg, graph_cfg, device="cuda", seed=SEED)
+    cpu_model = DefectModel(cfg, graph_cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size, build_band_adj=True, **kw))
+    with torch.no_grad():
+        ids, _, _, graphs = text_loop._on_device(batch, "cuda")
+        card = model(ids, graphs).cpu()
+        ids, _, _, graphs = text_loop._on_device(batch, "cpu")
+        want = cpu_model(ids, graphs)
+    logit_gap = float((card - want).abs().max())
+    logit_limit = GRAD_TOL * float(want.abs().max()) + TEXT_GRAD_FLOOR
+    if not torch.isfinite(card).all() or logit_gap > logit_limit:
+        raise AssertionError(f"codet5 logits card against cpu: {logit_gap} "
+                             f"> {logit_limit}")
+    grads = _compare_text_grads(_text_grads(model, batch, "cuda"),
+                                _text_grads(cpu_model, batch, "cpu"))
+    history, launches, _, wall_s = _fit_text_counted(model, data, splits,
+                                                     tcfg, kw)
+    losses = _text_steps(history)
+    t0 = time.perf_counter()
+    _, cpu_history = text_loop.fit_text(cpu_model, data, splits, tcfg, **kw)
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = _text_steps(cpu_history)
+    diffs = np.abs(np.asarray(losses) - np.asarray(cpu_losses))
+    if len(losses) != 3 or len(cpu_losses) != 3 or diffs.max() > \
+            TEXT_LOSS_TOL:
+        raise AssertionError(f"codet5 fit_text card {losses} against cpu "
+                             f"{cpu_losses} (limit {TEXT_LOSS_TOL})")
+    want_launches = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    _require_launches("codet5 fit_text vs cpu (fused)", launches,
+                      {k: v for k, v in want_launches.items() if v})
+    return dict(layers=[cfg.num_layers, cfg.num_decoder_layers],
+                graph_message_impl=graph_cfg.message_impl,
+                batch_size=tcfg.batch_size, logit_gap=logit_gap,
+                logit_gap_share_of_limit=logit_gap / logit_limit, **grads,
+                losses=losses, cpu_losses=cpu_losses,
+                max_abs_loss_diff_vs_cpu=float(diffs.max()),
+                launches=launches, fit_wall_s=wall_s, cpu_fit_s=cpu_s)
+
+
+def _codet5_hf(root: str) -> dict:
+    """A codet5-base-shaped HF directory (random weights from a seed,
+    written with ``write_safetensors`` and a ``config.json``), read back
+    through ``load_pretrained`` bit for bit; then one fit_text step from
+    those weights with the persistent graph encoder frozen (the step runs
+    at lr 0: the weights after it are the loaded ones, bit for bit)."""
+    cfg = T5Config.codet5_base()
+    hf_dir = os.path.join(root, "codet5_hf")
+    os.makedirs(hf_dir)
+    src = T5Model(cfg, device="cpu", seed=SEED).state_dict()
+    t0 = time.perf_counter()
+    pretrained.write_safetensors(os.path.join(hf_dir, "model.safetensors"),
+                                 convert.t5_to_hf(src, cfg))
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(CODET5_CONFIG, f)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kind, got_cfg, params = pretrained.load_pretrained(hf_dir)
+    read_s = time.perf_counter() - t0
+    if kind != "t5" or got_cfg != cfg or params.keys() != src.keys():
+        raise AssertionError(f"load_pretrained: {kind} {got_cfg}")
+    moved = [k for k, v in src.items() if not torch.equal(params[k], v)]
+    if moved:
+        raise AssertionError(f"HF T5 read back differs: {moved[:4]}")
+    hf_bytes = os.path.getsize(os.path.join(hf_dir, "model.safetensors"))
+    del src
+    shutil.rmtree(hf_dir, ignore_errors=True)
+
+    graph_cfg, tcfg, data, splits, kw = _codet5_setup(CODET5_N_HF, 16, 512,
+                                                      "persistent")
+    model = DefectModel(got_cfg, graph_cfg, device="cuda", seed=TEXT_SEED)
+    encoder = {k: v.clone() for k, v in model.flowgnn.state_dict().items()}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, history = text_loop.fit_text(
+        model, data, splits, tcfg, init_params={
+            f"t5.{k}": v for k, v in params.items()},
+        freeze_submodules=("flowgnn",), **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    losses = _text_steps(history)
+    want = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=False),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    _require_launches("codet5 from HF weights, graph encoder frozen",
+                      launches, {k: v for k, v in want.items() if v})
+    tuned = model.t5.state_dict()
+    moved = [k for k, v in params.items()
+             if not torch.equal(tuned[k].cpu(), v)]
+    moved += [k for k, v in model.flowgnn.state_dict().items()
+              if not torch.equal(v, encoder[k])]
+    if len(losses) != 1 or moved:
+        raise AssertionError(f"one lr-0 step from the HF weights: losses "
+                             f"{losses}, moved {moved[:4]}")
+    return dict(hf_bytes=hf_bytes, write_s=write_s, read_s=read_s,
+                read_back_bits_equal=True, steps=len(losses), losses=losses,
+                fit_s=fit_s, launches=launches)
+
+
 def main() -> int:
     seconds = {}
 
@@ -2973,7 +3304,8 @@ def main() -> int:
             ("recipe", phase_recipe, ()),
             ("inputs", phase_inputs, ()),
             ("serve_http", phase_serve_http, ()),
-            ("replay", phase_replay, ())):
+            ("replay", phase_replay, ()),
+            ("codet5", phase_codet5, ())):
         for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))

@@ -421,48 +421,79 @@ def cmd_validate(args) -> Dict[str, Any]:
 def _text_model(tiny: bool, attention_impl: str, remat: bool,
                 block_size: int, graph_cfg, device, seed: int,
                 gelu_approximate: Optional[bool] = None,
-                tokenizer: Optional[str] = None):
-    """(LineVul, tokenizer) as ``fit-text`` builds them: codebert-base
-    (or the tiny encoder, its position table stretched to cover
-    ``block_size``) with the FlowGNN encoder when ``graph_cfg`` is given.
-    The card's flash kernels take head width 64 only. ``tokenizer``:
-    BPE assets, held to the model's vocabulary and pad id; None for the
-    hashing tokenizer."""
+                tokenizer: Optional[str] = None,
+                model_name: str = "linevul"):
+    """(model, tokenizer) as ``fit-text`` builds them (the reference's
+    ``_text_model_and_tokenizer``), with the FlowGNN encoder when
+    ``graph_cfg`` is given. ``model_name`` "linevul": LineVul at
+    codebert-base (or the tiny encoder, its position table stretched to
+    cover ``block_size``); the card's flash kernels take head width 64
+    only. "codet5": ``DefectModel`` at codet5-base (or ``T5Config.tiny()``),
+    which takes no ``--attention-impl`` or ``--remat``. ``tokenizer``: BPE
+    assets, held to the model's vocabulary, pad id and (codet5) eos id;
+    None for the hashing tokenizer."""
     import dataclasses
 
     from deepdfa_tpu_torch.data.text import (
         HashingCodeTokenizer,
+        HashingT5Tokenizer,
         check_tok_vocab,
         load_bpe_tokenizer,
     )
-    from deepdfa_tpu_torch.models.linevul import LineVul
-    from deepdfa_tpu_torch.models.transformer import EncoderConfig
-    from deepdfa_tpu_torch.ops import attention
 
-    enc = EncoderConfig.tiny() if tiny else EncoderConfig()
-    if tiny:
-        enc = dataclasses.replace(enc, max_position_embeddings=max(
-            enc.max_position_embeddings,
-            block_size + enc.pad_token_id + 1))
-    enc = dataclasses.replace(enc, attention_impl=attention_impl,
-                              remat_layers=remat)
-    if gelu_approximate is not None:
-        enc = dataclasses.replace(enc, gelu_approximate=gelu_approximate)
-    head_dim = enc.hidden_size // enc.num_heads
-    if (not str(device).startswith("cpu")
-            and attention_impl in ("auto", "flash")
-            and head_dim != attention.KERNEL_HEAD_DIM):
-        raise ValueError(
-            f"fit-text: head width {head_dim}: the CUDA flash kernels take "
-            f"{attention.KERNEL_HEAD_DIM} only; pass --attention-impl dense "
-            "or blockwise (or --device cpu)")
+    if model_name == "codet5":
+        from deepdfa_tpu_torch.models.t5 import DefectModel, T5Config
+
+        if attention_impl != "auto" or remat:
+            # The T5 stack has its own attention: recording settings that
+            # were never in effect would mislead test-text's rebuild.
+            raise ValueError(
+                "--attention-impl/--remat configure the RoBERTa encoder "
+                "(--model linevul); the codet5 stack does not take them")
+        cfg = T5Config.tiny() if tiny else T5Config.codet5_base()
+        model_cls, tok_cls = DefectModel, HashingT5Tokenizer
+        vocab, pad_id, eos_id = (cfg.vocab_size, cfg.pad_token_id,
+                                 cfg.eos_token_id)
+    elif model_name == "linevul":
+        from deepdfa_tpu_torch.models.linevul import LineVul
+        from deepdfa_tpu_torch.models.transformer import EncoderConfig
+        from deepdfa_tpu_torch.ops import attention
+
+        cfg = EncoderConfig.tiny() if tiny else EncoderConfig()
+        if tiny:
+            cfg = dataclasses.replace(cfg, max_position_embeddings=max(
+                cfg.max_position_embeddings,
+                block_size + cfg.pad_token_id + 1))
+        cfg = dataclasses.replace(cfg, attention_impl=attention_impl,
+                                  remat_layers=remat)
+        if gelu_approximate is not None:
+            cfg = dataclasses.replace(cfg, gelu_approximate=gelu_approximate)
+        head_dim = cfg.hidden_size // cfg.num_heads
+        if (not str(device).startswith("cpu")
+                and attention_impl in ("auto", "flash")
+                and head_dim != attention.KERNEL_HEAD_DIM):
+            raise ValueError(
+                f"fit-text: head width {head_dim}: the CUDA flash kernels "
+                f"take {attention.KERNEL_HEAD_DIM} only; pass "
+                "--attention-impl dense or blockwise (or --device cpu)")
+        model_cls, tok_cls = LineVul, HashingCodeTokenizer
+        vocab, pad_id, eos_id = cfg.vocab_size, cfg.pad_token_id, None
+    else:
+        raise ValueError(f"unknown text model {model_name!r} (want linevul "
+                         "or codet5)")
     if tokenizer:
         tok = load_bpe_tokenizer(tokenizer)
-        check_tok_vocab(tok, enc.vocab_size, pad_id=enc.pad_token_id)
+        check_tok_vocab(tok, vocab, pad_id=pad_id, eos_id=eos_id)
     else:
-        tok = HashingCodeTokenizer(enc.vocab_size)
-    model = LineVul(enc, graph_config=graph_cfg, device=device, seed=seed)
+        tok = tok_cls(vocab)
+    model = model_cls(cfg, graph_config=graph_cfg, device=device, seed=seed)
     return model, tok
+
+
+def _text_style(model_name: str) -> str:
+    """The text encoding a text model reads: "t5" for codet5, else
+    "roberta"."""
+    return "t5" if model_name == "codet5" else "roberta"
 
 
 def _combined_model(args):
@@ -475,7 +506,7 @@ def _combined_model(args):
     run = args.combined_checkpoint_dir
     with open(os.path.join(run, "model.json")) as f:
         desc = json.load(f)
-    if desc["model"] != "linevul" or not desc["combined"]:
+    if desc.get("model", "linevul") != "linevul" or not desc["combined"]:
         raise ValueError("--combined-checkpoint-dir must hold a combined "
                          "linevul fit-text run (model.json says otherwise)")
     gdict = dict(desc["graph_config"])
@@ -666,10 +697,12 @@ def cmd_fit_text(args) -> Dict[str, Any]:
         model, tok = _text_model(args.tiny, args.attention_impl, args.remat,
                                  tcfg.block_size,
                                  graph_cfg if combined else None, args.device,
-                                 args.seed, tokenizer=args.tokenizer)
-        enc = model.encoder_config
+                                 args.seed, tokenizer=args.tokenizer,
+                                 model_name=args.model)
+        pad_id = model.pad_token_id
         logger.warning("training from a RANDOM init (seed %d): no pretrained "
-                       "codebert weights are loaded", args.seed)
+                       "%s weights are loaded", args.seed,
+                       "codet5" if args.model == "codet5" else "codebert")
         result: Dict[str, Any] = {}
         init_params = None
         if args.ddfa_checkpoint:
@@ -682,7 +715,8 @@ def cmd_fit_text(args) -> Dict[str, Any]:
                 ddfa, args.which, "fit-text --ddfa-checkpoint").items()})
         data, splits, graphs_by_id = load_combined_dataset(
             args.dataset, graph_cfg.feature, tok, tcfg.block_size,
-            graphs=args.graphs, seed=args.seed, split_mode=args.split_mode)
+            style=_text_style(args.model), graphs=args.graphs,
+            seed=args.seed, split_mode=args.split_mode)
         subkeys = list(subkeys_for(graph_cfg.feature)) if combined else None
         budget = None
         if combined:
@@ -694,7 +728,7 @@ def cmd_fit_text(args) -> Dict[str, Any]:
         reset_launch_counts()
         best_state, history = fit_text(
             model, data, splits, tcfg, graphs_by_id=graphs_by_id,
-            subkeys=subkeys, graph_budget=budget, pad_id=enc.pad_token_id,
+            subkeys=subkeys, graph_budget=budget, pad_id=pad_id,
             init_params=init_params,
             freeze_submodules=("flowgnn",) if args.freeze_graph else (),
             checkpointer=ckpt)
@@ -709,7 +743,11 @@ def cmd_fit_text(args) -> Dict[str, Any]:
         descriptor = {
             "model": args.model, "tiny": args.tiny,
             "attention_impl": args.attention_impl, "remat": args.remat,
-            "gelu_approximate": enc.gelu_approximate, "combined": combined,
+            # The activation LineVul's encoder used (the codet5 stack is
+            # relu and ignores it on the rebuild).
+            "gelu_approximate": getattr(getattr(
+                model, "encoder_config", None), "gelu_approximate", True),
+            "combined": combined,
             "block_size": tcfg.block_size, "dataset": args.dataset,
             "split_mode": args.split_mode, "graphs": args.graphs,
             "tokenizer": args.tokenizer,
@@ -725,7 +763,7 @@ def cmd_fit_text(args) -> Dict[str, Any]:
             model.load_state_dict(best_state.params)
             test = evaluate_text(make_text_eval_step(model), data,
                                  splits["test"], tcfg, graphs_by_id, subkeys,
-                                 budget, pad_id=enc.pad_token_id,
+                                 budget, pad_id=pad_id,
                                  build_band_adj=graph_cfg.uses_band_adj,
                                  build_tile_adj=graph_cfg.uses_tile_adj)
             result["test"] = {"loss": test["loss"], **test["metrics"],
@@ -764,20 +802,22 @@ def cmd_test_text(args) -> Dict[str, Any]:
     gdict["feature"] = FeatureSpec(**gdict["feature"])
     graph_cfg = FlowGNNConfig(**gdict)
     combined = desc["combined"]
+    model_name = desc.get("model", "linevul")
     model, tok = _text_model(
         desc["tiny"], desc.get("attention_impl", "auto"),
         desc.get("remat", False), desc["block_size"],
         graph_cfg if combined else None, args.device, desc["seed"],
         gelu_approximate=desc.get("gelu_approximate", False),
-        tokenizer=args.tokenizer or desc.get("tokenizer"))
+        tokenizer=args.tokenizer or desc.get("tokenizer"),
+        model_name=model_name)
     tcfg = TransformerTrainConfig(
         block_size=desc["block_size"], eval_batch_size=args.eval_batch_size,
         batch_size=args.eval_batch_size, seed=desc["seed"])
     dataset = args.dataset or desc["dataset"]
     graphs = (args.graphs or desc["graphs"]) if combined else None
     data, splits, graphs_by_id = load_combined_dataset(
-        dataset, graph_cfg.feature, tok, tcfg.block_size, graphs=graphs,
-        seed=desc["seed"],
+        dataset, graph_cfg.feature, tok, tcfg.block_size,
+        style=_text_style(model_name), graphs=graphs, seed=desc["seed"],
         # The recorded split protocol: re-splitting otherwise would leak
         # fit-time train examples into the reported test metric.
         split_mode=desc.get("split_mode", "random"))
@@ -800,7 +840,7 @@ def cmd_test_text(args) -> Dict[str, Any]:
     model.load_state_dict(ckpt.restore_params(args.which))
     res = evaluate_text(make_text_eval_step(model), data, splits[split_used],
                         tcfg, graphs_by_id, subkeys, budget,
-                        pad_id=model.encoder_config.pad_token_id,
+                        pad_id=model.pad_token_id,
                         build_band_adj=graph_cfg.uses_band_adj,
                         build_tile_adj=graph_cfg.uses_tile_adj)
     report: Dict[str, Any] = {"loss": res["loss"], **res["metrics"],
@@ -923,8 +963,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--smoke's corruption plan seed")
     va.set_defaults(func=cmd_validate)
     tx = sub.add_parser(
-        "fit-text", help="train LineVul, optionally combined with the "
-                         "FlowGNN graph encoder; writes snapshots, "
+        "fit-text", help="train LineVul or CodeT5's defect model, "
+                         "optionally combined with the FlowGNN graph "
+                         "encoder; writes snapshots, "
                          "history.json, model.json, predictions.csv and "
                          "the run log")
     common(tx, set_help="set a field of the graph encoder's FlowGNNConfig "
@@ -932,7 +973,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "repeatable",
            dataset_help="synthetic[:N] or a directory of MSR-layout "
                         "train.csv/val.csv[/test.csv]")
-    tx.add_argument("--model", choices=["linevul"], default="linevul")
+    tx.add_argument("--model", choices=["linevul", "codet5"],
+                    default="linevul",
+                    help="linevul (codebert-base) or codet5 (codet5-base's "
+                         "DefectModel)")
     tx.add_argument("--graphs", default=None,
                     help="graph source: synthetic or an etl export .jsonl "
                          "(omit for text only)")
@@ -953,16 +997,18 @@ def build_parser() -> argparse.ArgumentParser:
     tx.add_argument("--freeze-graph", action="store_true",
                     help="keep the loaded graph encoder frozen")
     tx.add_argument("--tiny", action="store_true",
-                    help="tiny encoder shapes (smoke tests). Its head width "
-                         "is 8, which the CUDA flash kernels (head width 64) "
-                         "do not take: on the card, pass --attention-impl "
-                         "dense or blockwise")
+                    help="tiny model shapes (smoke tests). LineVul's tiny "
+                         "head width is 8, which the CUDA flash kernels "
+                         "(head width 64) do not take: on the card, pass "
+                         "--attention-impl dense or blockwise")
     tx.add_argument("--attention-impl", default="auto",
                     choices=["auto", "dense", "blockwise", "flash"],
-                    help="encoder attention (auto = the flash kernels on "
-                         "the card, their plain versions on the CPU)")
+                    help="LineVul's attention (auto = the flash kernels on "
+                         "the card, their plain versions on the CPU); "
+                         "codet5 takes auto only")
     tx.add_argument("--remat", action="store_true",
-                    help="recompute each encoder layer in the backward")
+                    help="recompute each LineVul encoder layer in the "
+                         "backward (not codet5)")
     tx.add_argument("--epochs", type=int, default=10)
     tx.add_argument("--batch-size", type=int, default=16)
     tx.add_argument("--eval-batch-size", type=int, default=None)

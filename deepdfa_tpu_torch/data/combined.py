@@ -1,4 +1,4 @@
-"""Data for the combined DeepDFA+LineVul model (port of
+"""Data for the combined DeepDFA+LineVul and DeepDFA+CodeT5 models (port of
 ``deepdfa_tpu/data/combined.py``).
 
 The combined model trains on text and graphs joined by example id.
@@ -173,14 +173,16 @@ def graph_join_and_budget(
 
 def load_combined_dataset(
     dataset: str, feature: FeatureSpec, tokenizer, block_size: int,
-    graphs: Optional[str] = None, seed: int = 0, split_mode: str = "random",
+    style: str = "roberta", graphs: Optional[str] = None, seed: int = 0,
+    split_mode: str = "random",
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
            Optional[Mapping[int, Mapping]]]:
     """(data, splits, graphs_by_id) for ``fit_text``.
 
     ``dataset``: ``synthetic[:N]`` (text rendered from generated graphs,
     split by ``split_mode`` from ``seed``) or a directory of MSR CSVs
-    (their partition is the split). ``graphs``: a graph source spec
+    (their partition is the split), encoded in ``style`` ("roberta" for
+    LineVul, "t5" for CodeT5). ``graphs``: a graph source spec
     joined by id (None: text only); synthetic text joins only its own
     synthetic graphs, and the CSVs only a graph cache of their ids.
     """
@@ -200,7 +202,8 @@ def load_combined_dataset(
             graphs_by_id = {int(g["id"]): g for g in gexamples}
         rows = attach_synthetic_text([dict(g) for g in gexamples], seed=seed)
         splits = make_splits(rows, mode=split_mode, seed=seed)
-        data = encode_dataset(rows, tokenizer, block_size=block_size)
+        data = encode_dataset(rows, tokenizer, block_size=block_size,
+                              style=style)
         return data, splits, graphs_by_id
     if os.path.isdir(dataset):
         if graphs is not None and graphs.startswith("synthetic"):
@@ -210,7 +213,8 @@ def load_combined_dataset(
                 "a CSV dataset needs its own graph cache (dbize dir or etl "
                 ".jsonl); synthetic graphs join by positional id only")
         rows, split_pos = _read_text_csvs(dataset)
-        data = encode_dataset(rows, tokenizer, block_size=block_size)
+        data = encode_dataset(rows, tokenizer, block_size=block_size,
+                              style=style)
         splits = {k: np.asarray(v, np.int64) for k, v in split_pos.items()}
         if graphs is not None:
             gexamples = load_graph_source(graphs, feature, seed=seed)

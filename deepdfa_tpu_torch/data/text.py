@@ -1,14 +1,19 @@
 """Text pipeline for the transformer models (port of
-``deepdfa_tpu/data/text.py``, the parts the LineVul path runs).
+``deepdfa_tpu/data/text.py``, the parts the LineVul and CodeT5 paths
+run).
 
 Reference semantics: tokenize the function, truncate to
 ``block_size - 2`` tokens, wrap with <s>/</s>, pad with the pad id to
-``block_size``; the attention mask is ``ids != pad``. Tokenizers:
-``data/bpe.py``'s :class:`ByteLevelBPE` over trained byte-level BPE
-assets, in plain Python (``load_bpe_tokenizer``: a ``tokenizer.json``, or
-a ``<prefix>-vocab.json`` + ``<prefix>-merges.txt`` pair); or :class:`HashingCodeTokenizer` (identifier, number and operator
-tokens hashed into a fixed vocabulary), the reference's sample mode. The
-CodeT5 encoding waits for its slice.
+``block_size``; the attention mask is ``ids != pad``. The "roberta"
+style wraps with the cls/sep ids (codebert: pad 1), the "t5" style with
+the bos/eos ids (codet5: pad 0, <s> 1, </s> 2; exactly one eos a row,
+which the eos-pooled classifier needs). Tokenizers: ``data/bpe.py``'s
+:class:`ByteLevelBPE` over trained byte-level BPE assets, in plain
+Python (``load_bpe_tokenizer``: a ``tokenizer.json``, or a
+``<prefix>-vocab.json`` + ``<prefix>-merges.txt`` pair); or
+:class:`HashingCodeTokenizer` / :class:`HashingT5Tokenizer`
+(identifier, number and operator tokens hashed into a fixed
+vocabulary), the reference's sample mode.
 """
 
 from __future__ import annotations
@@ -119,11 +124,37 @@ def encode_function(code: str, tokenizer, block_size: int = 512) -> np.ndarray:
     return np.asarray(ids, np.int32)
 
 
+def encode_function_t5(code: str, tokenizer,
+                       block_size: int = 512) -> np.ndarray:
+    """<s> + tokens[:block_size - 2] + </s> with the bos/eos ids, padded
+    to ``block_size`` with the pad id (codet5's 0)."""
+    tokens = tokenizer.tokenize(str(code))[: block_size - 2]
+    ids = ([tokenizer.bos_token_id] + tokenizer.convert_tokens_to_ids(tokens)
+           + [tokenizer.eos_token_id])
+    ids = ids + [tokenizer.pad_token_id] * (block_size - len(ids))
+    return np.asarray(ids, np.int32)
+
+
+class HashingT5Tokenizer(HashingCodeTokenizer):
+    """The hashing tokenizer with codet5's special ids (<pad> 0, <s> 1,
+    </s> 2)."""
+
+    pad_token_id = 0
+    bos_token_id = 1
+    eos_token_id = 2
+    _n_special = 3
+
+
 def encode_dataset(examples: Sequence[Mapping], tokenizer,
-                   block_size: int = 512) -> Dict[str, np.ndarray]:
-    """Batch-encode ``ex["code"]`` in the roberta style to
-    ``{input_ids [N, block], labels [N], index [N]}``."""
-    ids = np.stack([encode_function(ex["code"], tokenizer, block_size)
+                   block_size: int = 512,
+                   style: str = "roberta") -> Dict[str, np.ndarray]:
+    """Batch-encode ``ex["code"]`` in the ``style`` ("roberta" or "t5")
+    to ``{input_ids [N, block], labels [N], index [N]}``."""
+    if style not in ("roberta", "t5"):
+        raise ValueError(
+            f"unknown encoding style: {style!r} (want 'roberta' or 't5')")
+    enc = encode_function if style == "roberta" else encode_function_t5
+    ids = np.stack([enc(ex["code"], tokenizer, block_size)
                     for ex in examples])
     labels = np.asarray([int(ex["label"]) for ex in examples], np.int32)
     index = np.asarray([int(ex["id"]) for ex in examples], np.int64)

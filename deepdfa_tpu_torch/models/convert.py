@@ -23,6 +23,16 @@ a ``state_dict`` of :class:`deepdfa_tpu_torch.models.flowgnn.FlowGNN`:
 prefix), the counterpart of the reference's ``convert_hf_roberta``;
 ``roberta_to_hf`` maps back, to a ``RobertaModel``'s keys.
 
+``t5_from_flax`` maps a flax ``T5Model`` tree to a ``state_dict`` of
+:class:`deepdfa_tpu_torch.models.t5.T5Model` (``block_{i}`` ->
+``block.{i}``; the relative bias table and the RMS norms' ``weight`` as
+they are); ``defect_from_flax`` maps a flax ``DefectModel`` tree (its
+``t5``, ``flowgnn`` and ``classifier`` subtrees; the classifier's input
+is ``[t5 vector, graph embedding]`` in that order) to a ``DefectModel``
+``state_dict``; ``t5_from_hf`` maps a HuggingFace T5 ``state_dict``
+(t5-*, Salesforce/codet5-*), the counterpart of the reference's
+``convert_hf_t5``, and ``t5_to_hf`` maps back.
+
 flax ``Dense`` kernels are ``[in, out]``; torch ``Linear`` weights are
 ``[out, in]``, so every kernel is transposed. HuggingFace weights are
 torch's layout already.
@@ -173,3 +183,104 @@ def roberta_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
                 out[f"layer.{i}.{ours}.{w}"] = get(
                     f"encoder.layer.{i}.{theirs}.{w}")
     return out
+
+
+def t5_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A ``T5Model`` ``state_dict`` from a flax ``T5Model`` tree (keys
+    under ``prefix``)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: str) -> None:
+        for name, sub in node.items():
+            if isinstance(sub, Mapping):
+                key = (f"block.{int(name[len('block_'):])}"
+                       if name.startswith("block_") else name)
+                walk(sub, f"{path}{key}.")
+            elif name == "kernel":
+                out[f"{path}weight"] = _tensor(np.asarray(sub).T)
+            else:
+                out[f"{path}{name}"] = _tensor(sub)
+
+    walk(_unwrap(tree), prefix)
+    return out
+
+
+def defect_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``DefectModel`` ``state_dict`` from a flax DefectModel tree."""
+    params = _unwrap(tree)
+    unknown = set(params) - {"t5", "flowgnn", "classifier"}
+    if unknown:
+        raise ValueError(
+            f"unexpected DefectModel param subtrees {sorted(unknown)}")
+    out = t5_from_flax(params["t5"], prefix="t5.")
+    if "flowgnn" in params:
+        out.update({f"flowgnn.{k}": v
+                    for k, v in flowgnn_from_flax(params["flowgnn"]).items()})
+    _dense("classifier", params["classifier"], out)
+    return out
+
+
+def _t5_pairs(num_layers: int, num_decoder_layers: int, gated_ffn: bool,
+              tie_word_embeddings: bool):
+    """(port key, HuggingFace key) of every T5 tensor."""
+    pairs = [("shared.embedding", "shared.weight")]
+    ffn = ("wi_0", "wi_1", "wo") if gated_ffn else ("wi", "wo")
+    for side, n, causal in (("encoder", num_layers, False),
+                            ("decoder", num_decoder_layers, True)):
+        for i in range(n):
+            ours, theirs = f"{side}.block.{i}", f"{side}.block.{i}.layer"
+            pairs.append((f"{ours}.self_attn_ln.weight",
+                          f"{theirs}.0.layer_norm.weight"))
+            for p in "qkvo":
+                pairs.append((f"{ours}.self_attn.{p}.weight",
+                              f"{theirs}.0.SelfAttention.{p}.weight"))
+            if i == 0:
+                pairs.append((
+                    f"{ours}.self_attn.relative_attention_bias",
+                    f"{theirs}.0.SelfAttention.relative_attention_bias."
+                    "weight"))
+            at = 1
+            if causal:
+                pairs.append((f"{ours}.cross_attn_ln.weight",
+                              f"{theirs}.1.layer_norm.weight"))
+                for p in "qkvo":
+                    pairs.append((f"{ours}.cross_attn.{p}.weight",
+                                  f"{theirs}.1.EncDecAttention.{p}.weight"))
+                at = 2
+            pairs.append((f"{ours}.ffn_ln.weight",
+                          f"{theirs}.{at}.layer_norm.weight"))
+            for w in ffn:
+                pairs.append((f"{ours}.ffn.{w}.weight",
+                              f"{theirs}.{at}.DenseReluDense.{w}.weight"))
+        pairs.append((f"{side}.final_ln.weight",
+                      f"{side}.final_layer_norm.weight"))
+    if not tie_word_embeddings:
+        pairs.append(("lm_head.weight", "lm_head.weight"))
+    return pairs
+
+
+def t5_from_hf(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A ``T5Model`` ``state_dict`` from a HuggingFace T5 ``state_dict``
+    and the model's ``T5Config``. The embedding comes from
+    ``shared.weight``: ``save_pretrained`` drops the tied copies
+    (``encoder.embed_tokens``, ``decoder.embed_tokens``, ``lm_head``)."""
+
+    def get(key: str) -> torch.Tensor:
+        value = state_dict[key]
+        if hasattr(value, "detach"):
+            value = value.detach().cpu().numpy()
+        return _tensor(value)
+
+    return {ours: get(theirs) for ours, theirs in _t5_pairs(
+        cfg.num_layers, cfg.num_decoder_layers, cfg.gated_ffn,
+        cfg.tie_word_embeddings)}
+
+
+def t5_to_hf(state_dict: Mapping[str, torch.Tensor], cfg
+             ) -> Dict[str, torch.Tensor]:
+    """A HuggingFace ``T5ForConditionalGeneration`` ``state_dict`` as
+    ``save_pretrained`` writes it (no tied copies) from a port
+    ``T5Model`` ``state_dict``: the inverse of :func:`t5_from_hf`."""
+    return {theirs: state_dict[ours] for ours, theirs in _t5_pairs(
+        cfg.num_layers, cfg.num_decoder_layers, cfg.gated_ffn,
+        cfg.tie_word_embeddings)}

@@ -77,6 +77,10 @@ class LineVul(nn.Module):
             encoder_config.dropout_rate, gen)
         self.to(dev)
 
+    @property
+    def pad_token_id(self) -> int:
+        return self.encoder_config.pad_token_id
+
     def forward(self, input_ids: torch.Tensor,
                 graphs: Optional[GraphBatch] = None,
                 deterministic: bool = True, output_attentions: bool = False,

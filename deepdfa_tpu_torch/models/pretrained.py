@@ -11,9 +11,11 @@ reads the same directory (``config.json`` and the weights that
   ``data_offsets``, then the raw little-endian bytes);
 - else ``pytorch_model.bin`` by ``torch.load(weights_only=True)``.
 
-The weights map through ``roberta_from_hf`` to a ``RobertaEncoder``
-``state_dict``. Nest it under the model's submodule name
-(``roberta.`` in ``LineVul``) before ``fit_text(init_params=)``.
+A RoBERTa directory maps through ``roberta_from_hf`` to a
+``RobertaEncoder`` ``state_dict``, a T5 one (t5-*, Salesforce/codet5-*)
+through ``t5_from_hf`` to a ``T5Model`` ``state_dict``. Nest it under
+the model's submodule name (``roberta.`` in ``LineVul``, ``t5.`` in
+``DefectModel``) before ``fit_text(init_params=)``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.models.convert import roberta_from_hf
+from deepdfa_tpu_torch.models.convert import roberta_from_hf, t5_from_hf
+from deepdfa_tpu_torch.models.t5 import T5Config
 from deepdfa_tpu_torch.models.transformer import EncoderConfig
 
 _SAFETENSORS_DTYPES = {
@@ -45,6 +48,20 @@ _HF_DEFAULTS = {
     "layer_norm_eps": 1e-12, "pad_token_id": 1,
     "position_embedding_type": "absolute",
 }
+# T5Config's defaults, for keys a config.json leaves out
+# (``save_pretrained`` drops ``tie_word_embeddings`` when it is True).
+_HF_T5_DEFAULTS = {
+    "vocab_size": 32128, "d_model": 512, "d_kv": 64, "d_ff": 2048,
+    "num_layers": 6, "num_decoder_layers": None, "num_heads": 8,
+    "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128, "dropout_rate": 0.1,
+    "layer_norm_epsilon": 1e-6, "feed_forward_proj": "relu",
+    "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": None,
+    "tie_word_embeddings": True,
+}
+# The FFN forms the T5 stack computes: relu, and gated tanh gelu
+# (HuggingFace's "gated-gelu" is gelu_new, the tanh form).
+_T5_FFNS = ("relu", "gated-gelu")
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
@@ -158,28 +175,65 @@ def encoder_config_from_hf(hf_cfg: Mapping[str, Any],
     )
 
 
+def t5_config_from_hf(hf_cfg: Mapping[str, Any], **overrides) -> T5Config:
+    """:class:`T5Config` from a T5 ``config.json`` (a dict):
+    ``num_decoder_layers`` falls back to ``num_layers``,
+    ``relative_attention_max_distance`` to 128, and the FFN is gated
+    when ``feed_forward_proj`` says so. ``overrides`` replace fields
+    after the checkpoint's (``dropout_rate`` etc.)."""
+    cfg = dict(_HF_T5_DEFAULTS, **hf_cfg)
+    if cfg["feed_forward_proj"] not in _T5_FFNS:
+        raise ValueError(f"feed_forward_proj {cfg['feed_forward_proj']!r}: "
+                         f"the T5 stack computes {list(_T5_FFNS)}")
+    if cfg["decoder_start_token_id"] is None:
+        raise ValueError("config.json has no decoder_start_token_id: the "
+                         "decoder's inputs need one")
+    fields = dict(
+        vocab_size=cfg["vocab_size"],
+        d_model=cfg["d_model"],
+        d_kv=cfg["d_kv"],
+        d_ff=cfg["d_ff"],
+        num_layers=cfg["num_layers"],
+        num_decoder_layers=cfg["num_decoder_layers"] or cfg["num_layers"],
+        num_heads=cfg["num_heads"],
+        relative_attention_num_buckets=cfg["relative_attention_num_buckets"],
+        relative_attention_max_distance=(
+            cfg["relative_attention_max_distance"] or 128),
+        dropout_rate=cfg["dropout_rate"],
+        layer_norm_epsilon=cfg["layer_norm_epsilon"],
+        gated_ffn="gated" in cfg["feed_forward_proj"],
+        pad_token_id=cfg["pad_token_id"],
+        eos_token_id=cfg["eos_token_id"],
+        decoder_start_token_id=cfg["decoder_start_token_id"],
+        tie_word_embeddings=cfg["tie_word_embeddings"],
+    )
+    fields.update(overrides)
+    return T5Config(**fields)
+
+
 def load_pretrained(path: str, map_location=None, **config_overrides
                     ) -> Tuple[str, Any, Dict[str, torch.Tensor]]:
     """Load a HuggingFace checkpoint directory.
 
     Returns ``(kind, config, params)``: ``"roberta"``, its
-    :class:`EncoderConfig` and a ``RobertaEncoder`` ``state_dict`` (f32,
-    on ``map_location``, the CPU by default). The ``t5`` branch waits
-    for the CodeT5 port.
+    :class:`EncoderConfig` and a ``RobertaEncoder`` ``state_dict``; or
+    ``"t5"``, its :class:`T5Config` and a ``T5Model`` ``state_dict``
+    (f32, on ``map_location``, the CPU by default).
     """
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
     kind = hf_cfg.get("model_type")
-    if kind == "t5":
-        raise NotImplementedError(
-            "t5 checkpoints: the CodeT5 model is not ported yet")
-    if kind != "roberta":
+    if kind not in ("roberta", "t5"):
         raise ValueError(f"unsupported model_type {kind!r} in {path} "
-                         "(supported: roberta; t5 not yet)")
-    cfg = encoder_config_from_hf(hf_cfg, **config_overrides)
+                         "(supported: t5, roberta)")
+    if kind == "t5":
+        cfg = t5_config_from_hf(hf_cfg, **config_overrides)
+    else:
+        cfg = encoder_config_from_hf(hf_cfg, **config_overrides)
     state = {k: (v.float() if v.is_floating_point() else v)
              for k, v in read_hf_weights(path).items()}
-    params = roberta_from_hf(state)
+    params = (t5_from_hf(state, cfg) if kind == "t5"
+              else roberta_from_hf(state))
     if map_location is not None:
         params = {k: v.to(map_location) for k, v in params.items()}
-    return "roberta", cfg, params
+    return kind, cfg, params

@@ -1,5 +1,6 @@
-"""Fine-tuning loop for LineVul and the DeepDFA+LineVul combined model
-(port of ``deepdfa_tpu/train/text_loop.py``, one device).
+"""Fine-tuning loop for the text models, LineVul and CodeT5's
+``DefectModel``, alone or combined with the DeepDFA graph encoder (port
+of ``deepdfa_tpu/train/text_loop.py``, one device).
 
 Reference semantics: AdamW (lr 2e-5, eps 1e-8) behind a global-norm clip
 (1.0), the learning rate warming up linearly over the first 20 % of the
@@ -14,10 +15,14 @@ budget, stay in the batch but are masked out of loss and metrics
 (``n_missing``).
 
 The loss and the confusion counts accumulate on the device and are read
-once an epoch. With ``attention_impl`` "auto" or "flash" on CUDA, the
-encoder's attention runs the hand-written flash kernels forward and
-backward (``ops/attention.py``); a graph encoder with ``message_impl``
-"tile" runs the block-sparse kernel of ``ops/tile_spmm.py``.
+once an epoch. With ``attention_impl`` "auto" or "flash" on CUDA,
+LineVul's attention runs the hand-written flash kernels forward and
+backward (``ops/attention.py``; the T5 stack's attention is plain
+torch); a graph encoder runs the gated-step kernels of
+``ops/fused_gnn.py`` ("fused", "persistent") or the block-sparse kernel
+of ``ops/tile_spmm.py`` ("tile"). Batches are padded with the model's
+pad id (``model.pad_token_id``: 1 for codebert, 0 for codet5) unless
+the caller gives one.
 
 ``init_params`` grafts a ``state_dict`` fragment (a trained graph
 encoder, ``flowgnn.*``) over the fresh init. ``freeze_submodules`` holds
@@ -42,7 +47,8 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -51,6 +57,7 @@ from deepdfa_tpu_torch.core.config import TransformerTrainConfig
 from deepdfa_tpu_torch.core.metrics import BinaryStats, binary_stats, compute_metrics
 from deepdfa_tpu_torch.graphs.batch import GraphBatch, batch_graphs
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
+from deepdfa_tpu_torch.models.t5 import DefectModel
 from deepdfa_tpu_torch.ops.tile_spmm import align_to_tile
 from deepdfa_tpu_torch.train.loop import (
     TrainState,
@@ -61,6 +68,11 @@ from deepdfa_tpu_torch.train.loop import (
 )
 
 logger = logging.getLogger(__name__)
+
+# The models the loop trains: ``forward(input_ids, graphs, deterministic,
+# generator) -> logits [B, 2]``, a ``graph_config`` and a
+# ``pad_token_id``.
+TextModel = Union[LineVul, DefectModel]
 
 
 @dataclasses.dataclass
@@ -225,7 +237,7 @@ def _on_device(batch: TextBatch, device: torch.device):
             None if batch.graphs is None else batch.graphs.to(device))
 
 
-def make_text_train_step(model: LineVul, optimizer: torch.optim.Optimizer,
+def make_text_train_step(model: TextModel, optimizer: torch.optim.Optimizer,
                          cfg: TransformerTrainConfig,
                          generator: Optional[torch.Generator] = None
                          ) -> Callable:
@@ -252,7 +264,7 @@ def make_text_train_step(model: LineVul, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_text_eval_step(model: LineVul) -> Callable:
+def make_text_eval_step(model: TextModel) -> Callable:
     """``step(batch) -> (loss, probs)`` under ``torch.inference_mode()``
     (the forward kernels only)."""
     device = next(model.parameters()).device
@@ -309,12 +321,12 @@ def evaluate_text(eval_step: Callable, data: Mapping[str, np.ndarray],
     }
 
 
-def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
+def fit_text(model: TextModel, data: Mapping[str, np.ndarray],
              splits: Mapping[str, np.ndarray],
              cfg: TransformerTrainConfig = TransformerTrainConfig(),
              graphs_by_id: Optional[Mapping[int, Mapping]] = None,
              subkeys=None, graph_budget: Optional[Dict[str, int]] = None,
-             pad_id: int = 1,
+             pad_id: Optional[int] = None,
              init_params: Optional[Mapping[str, torch.Tensor]] = None,
              freeze_submodules: Tuple[str, ...] = (),
              checkpointer=None) -> Tuple[TrainState, Dict[str, Any]]:
@@ -327,7 +339,8 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
     epoch's end).
 
     ``init_params``: a ``state_dict`` fragment merged over the model's
-    init. ``freeze_submodules``: top-level submodule names (e.g.
+    init. ``pad_id``: the id padding rows get (None: the model's).
+    ``freeze_submodules``: top-level submodule names (e.g.
     ``("flowgnn",)``) left untrained; they stay frozen
     (``requires_grad`` False) after the fit. ``checkpointer``: a
     ``CheckpointManager`` that gets ``last`` (and the periodic snapshot)
@@ -339,6 +352,8 @@ def fit_text(model: LineVul, data: Mapping[str, np.ndarray],
     steps_per_epoch = max(-(-len(splits["train"]) // cfg.batch_size), 1)
     schedule = make_schedule(cfg, steps_per_epoch * cfg.max_epochs)
     graph_cfg = model.graph_config
+    if pad_id is None:
+        pad_id = model.pad_token_id
     build_band_adj = graph_cfg is not None and graph_cfg.uses_band_adj
     build_tile_adj = graph_cfg is not None and graph_cfg.uses_tile_adj
     device = next(model.parameters()).device

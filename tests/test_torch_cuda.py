@@ -28,7 +28,8 @@ repeats its bits (the matmul pooling). A trainer state saved from the
 card restores on the CPU, and a train step with the graph encoder frozen
 launches its forward kernel only. A train step of each dataflow label
 style gives the CPU's loss and gradients, and HF weights written to disk
-load onto the card bit for bit.
+load onto the card bit for bit. A DeepDFA+CodeT5 train step gives the
+CPU's loss and gradients in the persistent and the fused graph lanes.
 """
 
 import dataclasses
@@ -1202,3 +1203,74 @@ def test_text_train_step_repeats_its_bits(cuda):
     for other in states[1:]:
         for k, v in states[0].items():
             assert torch.equal(other[k], v), k
+
+
+@pytest.mark.parametrize("impl", ["persistent", "fused"])
+def test_codet5_combined_train_step_matches_cpu(cuda, impl):
+    """A train step of DeepDFA+CodeT5 (``DefectModel``: the T5 stack in
+    plain torch over head width 64, the graph encoder's ``impl`` kernels
+    forward and backward) on the card against the CPU model of the same
+    weights: the loss within 1e-5, every parameter gradient within 1e-4
+    of its largest entry (+ 1e-6), the lane's GNN kernels launched, and
+    the update finite."""
+    from deepdfa_tpu_torch.core.config import TransformerTrainConfig
+    from deepdfa_tpu_torch.data.combined import (
+        graph_join_and_budget,
+        load_combined_dataset,
+    )
+    from deepdfa_tpu_torch.data.text import HashingT5Tokenizer
+    from deepdfa_tpu_torch.models.linevul import cross_entropy_loss
+    from deepdfa_tpu_torch.models.t5 import DefectModel, T5Config
+    from deepdfa_tpu_torch.train import text_loop
+
+    cfg = T5Config(vocab_size=512, d_model=128, d_kv=64, d_ff=256,
+                   num_layers=2, num_decoder_layers=2, num_heads=2,
+                   dropout_rate=0.0)
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    gcfg = FlowGNNConfig(feature=feature, hidden_dim=8, n_steps=2,
+                         encoder_mode=True, message_impl=impl)
+    data, _, graphs = load_combined_dataset(
+        "synthetic:7", feature, HashingT5Tokenizer(512), 100, style="t5",
+        graphs="synthetic")
+    graphs, budget = graph_join_and_budget(list(graphs.values()), 8)
+    batch = next(text_loop.text_graph_batches(
+        data, np.arange(7), 8, graphs, SUBKEYS, budget, pad_id=0,
+        build_band_adj=True))
+    gpu = DefectModel(cfg, gcfg, device=cuda, seed=0)
+    cpu = DefectModel(cfg, gcfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+
+    def loss_and_grads(model, dev):
+        ids, labels, mask, g = text_loop._on_device(batch, dev)
+        model.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(ids, g), labels, mask)
+        loss.backward()
+        return float(loss), {k: p.grad for k, p in model.named_parameters()}
+
+    fused_gnn.reset_launch_counts()
+    got_loss, got = loss_and_grads(gpu, cuda)
+    torch.cuda.synchronize()
+    counts = fused_gnn.launch_counts()
+    want_loss, want = loss_and_grads(cpu, "cpu")
+    assert abs(got_loss - want_loss) <= 1e-5
+    assert got.keys() == want.keys()
+    for name, g in got.items():
+        w = want[name]
+        assert g is not None and torch.isfinite(g).all(), name
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-6, (name, err)
+    k = gcfg.n_steps
+    if impl == "fused":
+        lane = {"fused_step_kernel": k, "fused_step_bwd_kernel": k,
+                "step_weight_grad_kernel": k}
+    else:
+        lane = {"persistent_fwd_kernel": 1, "persistent_fwd_hist_kernel": 1,
+                "persistent_bwd_kernel": 1, "step_weight_grad_kernel": 1}
+    assert counts == {**dict.fromkeys(ALL_KERNELS, 0), **lane}
+    tcfg = TransformerTrainConfig(batch_size=8, block_size=100)
+    step = text_loop.make_text_train_step(
+        gpu, text_loop.make_text_optimizer(gpu.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(0))
+    loss, _ = step(batch, 1e-3)
+    assert abs(float(loss) - want_loss) <= 1e-5
+    assert all(torch.isfinite(p).all() for p in gpu.parameters())

@@ -273,3 +273,54 @@ def test_serving_and_input_modules_import_with_everything_blocked():
                  "deepdfa_tpu_torch.serve.http",
                  "deepdfa_tpu_torch.serve.replay"):
         assert name in report["modules"]
+
+
+_T5_RUN = r"""
+import json, os, sys, tempfile
+for name in %r:
+    sys.modules[name] = None
+import torch
+from deepdfa_tpu_torch.models import t5
+from deepdfa_tpu_torch.models.convert import t5_to_hf
+from deepdfa_tpu_torch.models.pretrained import (load_pretrained,
+                                                 write_safetensors)
+cfg = t5.T5Config.tiny()
+model = t5.DefectModel(cfg, device="cpu")
+ids = torch.tensor([[1, 5, 6, 2, 0, 0]])
+logits = model(ids)
+d = tempfile.mkdtemp()
+write_safetensors(os.path.join(d, "model.safetensors"),
+                  t5_to_hf(model.t5.state_dict(), cfg))
+json.dump({"model_type": "t5", "vocab_size": 128, "d_model": 32, "d_kv": 8,
+           "d_ff": 64, "num_layers": 2, "num_heads": 4, "eos_token_id": 2,
+           "decoder_start_token_id": 0},
+          open(os.path.join(d, "config.json"), "w"))
+kind, got, params = load_pretrained(d)
+loaded = sorted(m for m in sys.modules
+                if m == "deepdfa_tpu" or m.startswith("deepdfa_tpu."))
+print(json.dumps({"shape": list(logits.shape), "kind": kind,
+                  "same": got == cfg, "params": len(params),
+                  "reference_loaded": loaded}))
+"""
+
+
+def test_t5_imports_and_runs_with_everything_blocked():
+    """``models/t5.py`` and its HF reader import and run with jax, the
+    reference, transformers, safetensors and the host's other missing
+    libraries blocked: a DefectModel forward, and a T5 directory written
+    by the port's own writer read back."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _ALL_BLOCKED_IMPORT],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "deepdfa_tpu_torch.models.t5" in report["modules"]
+    blocked = ("jax", "jaxlib", "flax", "optax", "orbax") + _HOST_LACKS
+    out = subprocess.run([sys.executable, "-c", _T5_RUN % (blocked,)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"shape": [1, 2], "kind": "t5", "same": True,
+                      "params": 47, "reference_loaded": []}
