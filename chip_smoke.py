@@ -172,6 +172,32 @@ one:
    by ``write_safetensors`` with a ``config.json``) read back through
    ``load_pretrained`` bit for bit, and one ``fit_text`` step from it
    with the graph encoder frozen.
+21. The four flash kernels' bf16 instances as phase 11 (right after
+   it): bf16 q, k, v and cotangent, each against its plain version
+   within a bf16 step (rtol 2^-7) plus phase 11's atol, lse within 1e-5,
+   each bit for bit the f32 kernel's output on the widened inputs
+   rounded once to bf16, twice the same bits, timed beside its bound
+   (bf16 bytes; the products of two bf16 inputs at the bf16 tensor-core
+   rate, those with an f32 operand at 3xTF32's) and SDPA at bf16 with
+   the same mask.
+22. The reference's flagship at bf16: ``LineVul(EncoderConfig(dtype=
+   "bfloat16"), FlowGNNConfig(encoder_mode=True))`` at codebert-base
+   width and depth (T 512, batch 16, the graph encoder f32 on the
+   persistent lane) through one epoch of ``fit_text``, then
+   ``evaluate_text`` on the test split and ``make_combined_infer`` on its
+   first batch (within 1e-6 of the evaluation's probabilities), each
+   run's launches exactly the bf16 flash instances and the GNN lane's
+   kernels its batches' gates call for; the step's breakdown (CUDA
+   events), device ms by kernel, examples/s and peak memory; a 2-layer
+   copy against the CPU at full width (logits and 3 steps' losses within
+   5e-2, the CPU tests' bf16 tolerance).
+23. ``fit_text`` at T 4096 (batch 8, 2 layers) at bf16: the bf16
+   two-pass pair, its share of the step's device time.
+24. DeepDFA+CodeT5 at bf16 (``T5Config.codet5_base()`` with
+   ``dtype="bfloat16"``, persistent graph encoder) through one epoch of
+   ``fit_text``, its GNN launches as the batches' gates say; the step's
+   breakdown, profile, examples/s and peak memory; a 2 + 2 layer copy
+   against the CPU (logits and losses within 5e-2).
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -243,6 +269,7 @@ from deepdfa_tpu_torch.graphs.batch import (
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.linevul import LineVul, cross_entropy_loss
 from deepdfa_tpu_torch.models import convert, pretrained
+from deepdfa_tpu_torch.models import infer as models_infer
 from deepdfa_tpu_torch.models.t5 import DefectModel, T5Config, T5Model
 from deepdfa_tpu_torch.models.transformer import EncoderConfig, RobertaEncoder
 from deepdfa_tpu_torch.ops import (
@@ -353,6 +380,22 @@ REPLACES.update({
 SOURCES.update({name: "deepdfa_tpu_torch/csrc/flash_attn.cu"
                 for name in attention.KERNELS})
 SOURCES["flash_bwd_fused_kernel"] = "deepdfa_tpu_torch/csrc/flash_bwd_fused.cu"
+# The flash kernels' bf16 instances: the same TPU kernels (generic over
+# the dtype there), the same sources.
+for _name in ("flash_fwd_kernel", "flash_bwd_fused_kernel",
+              "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+    REPLACES[_name + "_bf16"] = REPLACES[_name]
+    SOURCES[_name + "_bf16"] = SOURCES[_name]
+# A bf16 instance against its plain version: both compute in f32 (in
+# another order) and round once to bf16, so within a bf16 step (rtol
+# 2^-7) of each other, plus the f32 kernels' order gap (ATTN_*_TOL's
+# atol); lse is f32 (ATTN_FWD_TOL).
+ATTN_BF16_FWD_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+ATTN_BF16_GRAD_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+# The bf16 text paths against the CPU: the CPU tests' tolerance
+# (tests/test_torch_bf16_text.py, the reference's own bf16 tolerance):
+# logits and losses within 5e-2 absolute and relative.
+BF16_TEXT_TOL = dict(rtol=5e-2, atol=5e-2)
 REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
 SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
 # The tile product against its plain version: each output sums a row's
@@ -367,7 +410,8 @@ TILE_LIBRARY_COVERS = ["agg = A @ msg"]
 # the second steps of two of them, the weight gradients' and the fused
 # flash backward's reductions.
 PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel"}) | {
-    "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel"}
+    "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel",
+    "flash_dq_sum_kernel_bf16"}
 # What the weight pass's library_ms covers: three torch.mm calls over the
 # step-stacked operands ([K N, H]^T x [K N, .]) and three column sums.
 WGRAD_LIBRARY_COVERS = ["dW_e, dW_i, dW_h as torch.mm over the K steps' "
@@ -1044,15 +1088,27 @@ def _device_profile(step, n_steps: int) -> dict:
     kernels.sort(reverse=True)
     # The port's own kernels, by the name in their source, wherever they
     # rank.
+    # A flash kernel's bf16 instance (<__nv_bfloat16>) under its own
+    # name; the GNN kernels' template arguments do not name them.
     port = {}
     for ms, key, calls in kernels:
-        name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
-        if name and name.group(1) in PORT_KERNELS:
-            entry = port.setdefault(name.group(1), {"ms": 0.0, "calls": 0.0})
+        found = re.search(r"(\w+)(<[^(]*>)?\(", key)
+        if not found:
+            continue
+        name = found.group(1)
+        if (name + "_bf16" in PORT_KERNELS
+                and "bfloat16" in (found.group(2) or "")):
+            name += "_bf16"
+        if name in PORT_KERNELS:
+            entry = port.setdefault(name, {"ms": 0.0, "calls": 0.0})
             entry["ms"] += ms
             entry["calls"] += calls
+    # cuBLAS's products (the linears, and the T5 attention's matmuls).
+    gemm = [k for k in kernels if re.search(r"gemm|nvjet", k[1])]
     return {"device_busy_ms": sum(k[0] for k in kernels),
             "kernels_a_call": sum(k[2] for k in kernels),
+            "gemm_ms": sum(k[0] for k in gemm),
+            "gemm_calls": sum(k[2] for k in gemm),
             "top_kernels": [{"name": name[:90], "ms": ms, "calls": calls}
                             for ms, name, calls in kernels[:PROFILE_TOP]],
             "port_kernels": port, "profile_sessions": sessions}
@@ -1273,16 +1329,46 @@ def _sdpa_calls(q, k, v, mask, g):
     return fwd, bwd
 
 
-def phase_attention_kernels() -> dict:
-    """Each flash kernel against its plain version at the text training
-    shape and the long shape, timed beside its bound and SDPA. Returns
-    the numbers at the main-path shapes by kernel: the forward and the
-    fused backward at T 512, the two-pass pair at T 4096."""
+def _wide(xs) -> list:
+    """Each floating tensor of ``xs`` as f32 (a bf16 one widened)."""
+    return [x.float() if torch.is_tensor(x) and x.is_floating_point()
+            and x.dtype == torch.bfloat16 else x for x in xs]
+
+
+def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
+    """Each flash kernel's ``dtype`` instance against its plain version
+    at the text training shape and the long shape, timed beside its bound
+    and SDPA (at the same dtype). A bf16 instance is also held bit for bit
+    to the f32 kernel on the widened inputs, rounded once to bf16 (the
+    identity its design keeps). Returns the numbers at the main-path
+    shapes by kernel instance: the forward and the fused backward at
+    T 512, the two-pass pair at T 4096."""
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    fwd_tol = ATTN_BF16_FWD_TOL if bf16 else ATTN_FWD_TOL
+    grad_tol = ATTN_BF16_GRAD_TOL if bf16 else ATTN_GRAD_TOL
+
+    def check(name, got, want, tol):
+        return _check(name + sfx, got.float(), want.float(), tol)
+
+    def identity(name, got, fn, args):
+        """bf16: ``got`` is the f32 kernel's output on the widened
+        inputs, rounded once."""
+        if bf16:
+            want = fn(*_wide(args))
+            want = [want] if torch.is_tensor(want) else list(want)
+            got = [got] if torch.is_tensor(got) else list(got)
+            _same_bits(f"{name}_bf16 = {name} on the widened inputs", got,
+                       [w.bfloat16() if w.dtype == torch.float32
+                        and g.dtype == torch.bfloat16 else w
+                        for g, w in zip(got, want)])
+
     out = {}
     for shape_name, shape, iters, reps in (("train", ATTN_TRAIN_SHAPE, 10, 3),
                                            ("long", ATTN_LONG_SHAPE, 2, 3)):
         b, t, h, d = shape
         q, k, v, mask, g = _attn_inputs(shape, SEED)
+        q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
         # SDPA gives a fully masked row NaN: time it on the same inputs
         # with every row holding tokens.
         full = mask.clone()
@@ -1290,14 +1376,15 @@ def phase_attention_kernels() -> dict:
         lib_fwd, lib_bwd = _sdpa_calls(q, k, v, full, g)
         o, lse = attention.flash_fwd(q, k, v, mask)
         o_ref, lse_ref = attention.flash_fwd_reference(q, k, v, mask)
-        err = max(_check(f"flash_fwd_kernel@{shape_name}", o, o_ref,
-                         ATTN_FWD_TOL),
-                  _check(f"flash_fwd_kernel@{shape_name} lse", lse, lse_ref,
-                         ATTN_FWD_TOL))
+        err = max(check(f"flash_fwd_kernel@{shape_name}", o, o_ref, fwd_tol),
+                  check(f"flash_fwd_kernel@{shape_name} lse", lse, lse_ref,
+                        ATTN_FWD_TOL))
         if not bool((o[-1] == 0).all()):
             raise AssertionError("flash_fwd_kernel: the all-pad row is not 0")
-        _same_bits(f"flash_fwd_kernel twice@{shape_name}",
+        _same_bits(f"flash_fwd_kernel{sfx} twice@{shape_name}",
                    list(attention.flash_fwd(q, k, v, mask)), [o, lse])
+        identity("flash_fwd_kernel", (o, lse), attention.flash_fwd,
+                 (q, k, v, mask))
         delta = attention.flash_delta(o_ref, g)
         args = (q, k, v, mask, g, lse_ref, delta)
         runs = {"flash_fwd_kernel": (
@@ -1306,20 +1393,25 @@ def phase_attention_kernels() -> dict:
             ["o"])}
         dq = attention.flash_bwd_dq(*args)
         dk, dv = attention.flash_bwd_dkv(*args)
+        identity("flash_bwd_dq_kernel", dq, attention.flash_bwd_dq, args)
+        identity("flash_bwd_dkv_kernel", (dk, dv), attention.flash_bwd_dkv,
+                 args)
         if attention.flash_fused_bwd_ok(t, d):
             want = attention.flash_bwd_fused_reference(*args)
             fused = attention.flash_bwd_fused(*args)
-            err = max(_check(f"flash_bwd_fused_kernel[{i}]@{shape_name}", a,
-                             w, ATTN_GRAD_TOL)
+            err = max(check(f"flash_bwd_fused_kernel[{i}]@{shape_name}", a,
+                            w, grad_tol)
                       for i, (a, w) in enumerate(zip(fused, want)))
             # Fused against the two-pass pair, kernel against kernel; and
             # against itself: no atomics, so a second launch on the same
             # inputs gives the same bits.
             for i, (a, c) in enumerate(zip(fused, (dq, dk, dv))):
-                _check(f"fused vs two-pass [{i}]@{shape_name}", a, c,
-                       ATTN_GRAD_TOL)
-            _same_bits(f"flash_bwd_fused_kernel twice@{shape_name}",
+                check(f"fused vs two-pass [{i}]@{shape_name}", a, c,
+                      grad_tol)
+            _same_bits(f"flash_bwd_fused_kernel{sfx} twice@{shape_name}",
                        list(attention.flash_bwd_fused(*args)), list(fused))
+            identity("flash_bwd_fused_kernel", fused,
+                     attention.flash_bwd_fused, args)
             runs["flash_bwd_fused_kernel"] = (
                 err, lambda: attention.flash_bwd_fused(*args),
                 lambda: attention.flash_bwd_fused_reference(*args), lib_bwd,
@@ -1327,10 +1419,10 @@ def phase_attention_kernels() -> dict:
         else:
             want = (attention.flash_bwd_dq_reference(*args),
                     *attention.flash_bwd_dkv_reference(*args))
-        err_dq = _check(f"flash_bwd_dq_kernel@{shape_name}", dq, want[0],
-                        ATTN_GRAD_TOL)
-        err_dkv = max(_check(f"flash_bwd_dkv_kernel[{i}]@{shape_name}", a, w,
-                             ATTN_GRAD_TOL)
+        err_dq = check(f"flash_bwd_dq_kernel@{shape_name}", dq, want[0],
+                       grad_tol)
+        err_dkv = max(check(f"flash_bwd_dkv_kernel[{i}]@{shape_name}", a, w,
+                            grad_tol)
                       for i, (a, w) in enumerate(zip((dk, dv), want[1:])))
         runs["flash_bwd_dq_kernel"] = (
             err_dq, lambda: attention.flash_bwd_dq(*args),
@@ -1345,9 +1437,9 @@ def phase_attention_kernels() -> dict:
         # = 0, so its dk and dv are exactly 0 (a key tile with no real key
         # is skipped and written as zeros), and the all-pad row's
         # gradients are 0 everywhere.
-        _same_bits(f"flash_bwd_dq_kernel twice@{shape_name}",
+        _same_bits(f"flash_bwd_dq_kernel{sfx} twice@{shape_name}",
                    [attention.flash_bwd_dq(*args)], [dq])
-        _same_bits(f"flash_bwd_dkv_kernel twice@{shape_name}",
+        _same_bits(f"flash_bwd_dkv_kernel{sfx} twice@{shape_name}",
                    list(attention.flash_bwd_dkv(*args)), [dk, dv])
         for grad_name, x in (("dk", dk), ("dv", dv)):
             if bool(x[~mask].any()):
@@ -1356,18 +1448,19 @@ def phase_attention_kernels() -> dict:
         if bool(dq[-1].any()):
             raise AssertionError(f"dq@{shape_name}: the all-pad row is not 0")
         recs = {}
-        for name, (err, kernel, plain, library, covers) in runs.items():
+        for base, (err, kernel, plain, library, covers) in runs.items():
+            name = base + sfx
             kernel_ms = _time_ms(kernel, iters, reps)
             plain_ms = _time_ms(plain, iters, reps)
             library_ms = _time_ms(library, iters, reps)
             cost = attention.kernel_cost(mask, t, h, d, name)
             bound_ms, bound_by = _bound(cost)
             recs[name] = dict(
-                kernel=name, shape=shape_name, B=b, T=t, H=h, D=d,
+                kernel=name, dtype=str(dtype).removeprefix("torch."),
+                shape=shape_name, B=b, T=t, H=h, D=d,
                 real_key_fraction=float(mask.float().mean()),
                 max_abs_err=err,
-                tol=ATTN_FWD_TOL if name == "flash_fwd_kernel"
-                else ATTN_GRAD_TOL,
+                tol=fwd_tol if base == "flash_fwd_kernel" else grad_tol,
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_covers=covers,
                 bound_us=bound_ms * 1e3, bound_by=bound_by, **_peak(cost),
@@ -1378,7 +1471,9 @@ def phase_attention_kernels() -> dict:
             recs[name].update(bitwise_repeatable=True,
                               key_tiles=b * h * -(-t // 64),
                               key_tiles_skipped=cost["dead_key_tiles"])
-            if name != "flash_fwd_kernel":
+            if bf16:
+                recs[name]["bits_equal_f32_kernel_rounded"] = True
+            if base != "flash_fwd_kernel":
                 # Each backward kernel's device ms a launch by the profiler
                 # (the fused kernel's two launches apart: the products, then
                 # the dq sum), over the launches it recorded.
@@ -1390,15 +1485,13 @@ def phase_attention_kernels() -> dict:
                                         for k, v in split.items()})
         # SDPA's backward computes dq, dk and dv together: set the
         # two-pass pair's summed time beside it.
-        pair_ms = (recs["flash_bwd_dq_kernel"]["kernel_ms"]
-                   + recs["flash_bwd_dkv_kernel"]["kernel_ms"])
-        for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        pair = ("flash_bwd_dq_kernel" + sfx, "flash_bwd_dkv_kernel" + sfx)
+        pair_ms = sum(recs[name]["kernel_ms"] for name in pair)
+        for name in pair:
             recs[name]["pair_ms"] = pair_ms
         for name, rec in recs.items():
-            emit(phase="attention_kernels", **rec)
-            main_shape = ("long" if name in ("flash_bwd_dq_kernel",
-                                             "flash_bwd_dkv_kernel")
-                          else "train")
+            emit(phase="attention_kernels" + sfx, **rec)
+            main_shape = "long" if name in pair else "train"
             if shape_name == main_shape:
                 out[name] = rec
         del q, k, v, g, o, o_ref, args, dq, dk, dv, lib_fwd, lib_bwd, runs, \
@@ -1631,6 +1724,210 @@ def phase_fit_text_long() -> dict:
                   for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
     rec = dict(phase="fit_text_long", layers=enc.num_layers, block_size=t,
                batch_size=b, steps=steps, losses=losses, launches=launches,
+               two_pass_dispatches=two_pass, fit_wall_s=wall_s,
+               step_s=wall_s / max(steps, 1), step_profile=profile,
+               pair_ms_per_step=pair_ms,
+               pair_share_of_device=pair_ms / profile["device_busy_ms"])
+    emit(**rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The text models at bf16 (the reference's flagship configuration)
+# ---------------------------------------------------------------------------
+
+
+def _bf16(cfg):
+    return dataclasses.replace(cfg, dtype="bfloat16")
+
+
+def _counted(fn, *args, **kw):
+    """``fn``'s result and the kernels' launches in it (counts set to 0
+    just before, read just after)."""
+    reset_launch_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def _flash_want(layers: int, fwd: int, bwd: int, two_pass: bool = False
+                ) -> dict:
+    """The bf16 flash launches of ``fwd`` forward and ``bwd`` backward
+    passes through ``layers`` layers."""
+    if two_pass:
+        bwd_names = ("flash_bwd_dq_kernel_bf16", "flash_bwd_dkv_kernel_bf16")
+    else:
+        bwd_names = ("flash_bwd_fused_kernel_bf16",)
+    want = {"flash_fwd_kernel_bf16": layers * fwd}
+    want.update({name: layers * bwd for name in bwd_names if bwd})
+    return want
+
+
+def _vs_cpu_bf16(model, cpu_model, data, splits, tcfg, kw) -> dict:
+    """A bf16 text model on the card and on the CPU from the same
+    weights: one batch's logits, then fit_text's per-step losses, each
+    within BF16_TEXT_TOL (the CPU tests' tolerance)."""
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size,
+        build_band_adj=model.graph_config.uses_band_adj, **kw))
+    with torch.no_grad():
+        ids, _, _, graphs = text_loop._on_device(batch, "cuda")
+        card = model(ids, graphs).float().cpu()
+        ids, _, _, graphs = text_loop._on_device(batch, "cpu")
+        want = cpu_model(ids, graphs)
+    logit_gap = _check("bf16 logits card vs cpu", card, want, BF16_TEXT_TOL)
+    history, launches, _, wall_s = _fit_text_counted(model, data, splits,
+                                                     tcfg, kw)
+    losses = _text_steps(history)
+    t0 = time.perf_counter()
+    _, cpu_history = text_loop.fit_text(cpu_model, data, splits, tcfg, **kw)
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = _text_steps(cpu_history)
+    gap = _check("bf16 fit_text losses card vs cpu", torch.tensor(losses),
+                 torch.tensor(cpu_losses), BF16_TEXT_TOL)
+    return dict(batch_size=tcfg.batch_size, logit_gap=logit_gap,
+                losses=losses, cpu_losses=cpu_losses,
+                max_abs_loss_diff_vs_cpu=gap, tol=BF16_TEXT_TOL,
+                launches=launches, fit_wall_s=wall_s, cpu_fit_s=cpu_s)
+
+
+def phase_fit_text_bf16() -> dict:
+    """The reference's flagship DeepDFA+LineVul at bf16
+    (``EncoderConfig(dtype="bfloat16")``, codebert-base, T 512, batch 16;
+    the graph encoder f32 on the persistent lane): one epoch of
+    ``fit_text``, then ``evaluate_text`` on the test split and the
+    combined serving forward on the same weights, each with its launches;
+    the step's breakdown, profile, examples/s and peak memory; a 2-layer
+    copy against the CPU."""
+    enc = _bf16(dataclasses.replace(EncoderConfig(), attention_impl="auto"))
+    graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_FULL, 16,
+                                                    512, "persistent")
+    layers = enc.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
+    history, fit_launches, two_pass, wall_s = _fit_text_counted(
+        model, data, splits, tcfg, kw)
+    fit_peak = torch.cuda.max_memory_allocated()
+    losses = _text_steps(history)
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    gnn = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    _require_launches("fit_text bf16", fit_launches, {
+        **{k: v for k, v in gnn.items() if v},
+        **_flash_want(layers, len(losses) + val_batches, len(losses))})
+    # evaluate_text and the serving forward, the fitted weights.
+    band = dict(build_band_adj=True, **kw)
+    test, eval_launches = _counted(
+        text_loop.evaluate_text, text_loop.make_text_eval_step(model), data,
+        splits["test"], tcfg, **band)
+    test_batches = -(-len(splits["test"]) // tcfg.eval_batch_size)
+    gnn_eval = _gnn_lane_launches(graph_cfg, data, splits["test"], tcfg, kw,
+                                  train=False)
+    _require_launches("evaluate_text bf16", eval_launches, {
+        **{k: v for k, v in gnn_eval.items() if v},
+        **_flash_want(layers, test_batches, 0)})
+    batch = next(text_loop.text_graph_batches(
+        data, splits["test"], tcfg.eval_batch_size, **band))
+    ids, _, mask, graphs = text_loop._on_device(batch, "cuda")
+    infer = models_infer.make_combined_infer(model)
+    probs, serve_launches = _counted(infer, ids, graphs)
+    rows = int(batch.example_mask.sum())
+    serve_gap = _check("make_combined_infer vs evaluate_text",
+                       probs[mask].cpu(),
+                       torch.from_numpy(test["probs"][:rows]),
+                       dict(rtol=0.0, atol=1e-6))
+    model.train()
+    train_batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size, **band))
+    torch.cuda.reset_peak_memory_stats()
+    breakdown = _text_step_breakdown(model, train_batch, tcfg)
+    step_peak = torch.cuda.max_memory_allocated()
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    profile = _device_profile(lambda: step(train_batch, tcfg.learning_rate),
+                              TEXT_PROFILE_STEPS)
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError("bf16 LineVul: master parameters not f32")
+    del model, step
+    torch.cuda.empty_cache()
+    step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
+               + breakdown["optimizer_ms"])
+    n_rows = int(train_batch.example_mask.sum())
+
+    # The 2-layer copy against the CPU.
+    enc2 = dataclasses.replace(enc, num_layers=2, dropout_rate=0.0)
+    graph2, tcfg2, data2, splits2, kw2 = _text_setup(enc2, TEXT_N_VS_CPU, 4,
+                                                     512, "persistent")
+    vs_cpu = _vs_cpu_bf16(LineVul(enc2, graph2, device="cuda", seed=SEED),
+                          LineVul(enc2, graph2, device="cpu"), data2,
+                          splits2, tcfg2, kw2)
+    vs_cpu["layers"] = enc2.num_layers
+    launches = _sum_launches(fit_launches, eval_launches, serve_launches,
+                             vs_cpu["launches"])
+    rec = dict(phase="fit_text_bf16", dtype=enc.dtype, layers=layers,
+               hidden=enc.hidden_size, block_size=tcfg.block_size,
+               batch_size=tcfg.batch_size,
+               graph_message_impl=graph_cfg.message_impl,
+               steps=len(losses), val_batches=val_batches, losses=losses,
+               val_loss=history["epochs"][-1]["val_loss"],
+               val_f1=history["epochs"][-1]["val_metrics"]["f1"],
+               test_loss=test["loss"], test_f1=test["metrics"]["f1"],
+               serve_gap_vs_eval=serve_gap,
+               fit_launches=fit_launches, eval_launches=eval_launches,
+               serve_launches=serve_launches, two_pass_dispatches=two_pass,
+               fit_wall_s=wall_s, fit_peak_mem_gb=fit_peak / 1e9,
+               step_breakdown=breakdown, step_profile=profile,
+               examples_per_step=n_rows,
+               examples_per_s=n_rows / (step_ms / 1e3),
+               device_idle_share=1.0 - profile["device_busy_ms"]
+               / breakdown["step_wall_ms"],
+               peak_mem_gb=step_peak / 1e9, vs_cpu=vs_cpu,
+               launches=launches)
+    emit(**rec)
+    return rec
+
+
+def phase_fit_text_long_bf16() -> dict:
+    """fit_text at T 4096 (batch 8, 2 layers) at bf16: the backward's
+    gate sends it to the bf16 two-pass pair; the step's profile."""
+    enc = _bf16(dataclasses.replace(EncoderConfig(), attention_impl="auto",
+                                    num_layers=2))
+    b, t = ATTN_LONG_SHAPE[:2]
+    if attention.flash_fused_bwd_ok(t, enc.hidden_size // enc.num_heads):
+        raise AssertionError("T 4096 passes the fused backward's gate")
+    graph_cfg, tcfg, data, splits, kw = _text_setup(enc, TEXT_N_LONG, b, t)
+    model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
+    history, launches, two_pass, wall_s = _fit_text_counted(
+        model, data, splits, tcfg, kw)
+    losses = _text_steps(history)
+    steps = len(losses)
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    _require_launches("fit_text bf16 at T 4096", launches, _flash_want(
+        enc.num_layers, steps + val_batches, steps, two_pass=True))
+    if two_pass != enc.num_layers * steps:
+        raise AssertionError(f"{two_pass} two-pass dispatches")
+    batch = next(text_loop.text_graph_batches(data, splits["train"],
+                                              tcfg.batch_size, **kw))
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    profile = _device_profile(lambda: step(batch, tcfg.learning_rate),
+                              TEXT_PROFILE_STEPS)
+    pair_ms = sum(profile["port_kernels"].get(name, {}).get("ms", 0.0)
+                  for name in ("flash_bwd_dq_kernel_bf16",
+                               "flash_bwd_dkv_kernel_bf16"))
+    del model, step
+    torch.cuda.empty_cache()
+    rec = dict(phase="fit_text_long_bf16", dtype=enc.dtype,
+               layers=enc.num_layers, block_size=t, batch_size=b,
+               steps=steps, losses=losses, launches=launches,
                two_pass_dispatches=two_pass, fit_wall_s=wall_s,
                step_s=wall_s / max(steps, 1), step_profile=profile,
                pair_ms_per_step=pair_ms,
@@ -3270,6 +3567,70 @@ def _codet5_hf(root: str) -> dict:
                 fit_s=fit_s, launches=launches)
 
 
+def phase_codet5_bf16() -> dict:
+    """DeepDFA+CodeT5 at bf16 (``T5Config.codet5_base()`` with
+    ``dtype="bfloat16"``, the T5 attention plain torch; the graph encoder
+    f32 on the persistent lane) through ``fit_text``: one epoch of
+    ``synthetic:120`` at T 512, batch 16, its GNN launches as the
+    batches' gates say; the step's breakdown, profile, examples/s and
+    peak memory; a 2 + 2 layer copy against the CPU."""
+    t5cfg = _bf16(T5Config.codet5_base())
+    graph_cfg, tcfg, data, splits, kw = _codet5_setup(TEXT_N_FULL, 16, 512,
+                                                      "persistent")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = DefectModel(t5cfg, graph_cfg, device="cuda", seed=TEXT_SEED)
+    history, fit_launches, _, wall_s = _fit_text_counted(
+        model, data, splits, tcfg, kw)
+    fit_peak = torch.cuda.max_memory_allocated()
+    losses = _text_steps(history)
+    want = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    _require_launches("codet5 bf16 fit_text", fit_launches,
+                      {k: v for k, v in want.items() if v})
+    batch = next(text_loop.text_graph_batches(
+        data, splits["train"], tcfg.batch_size, build_band_adj=True, **kw))
+    torch.cuda.reset_peak_memory_stats()
+    breakdown = _text_step_breakdown(model, batch, tcfg)
+    step_peak = torch.cuda.max_memory_allocated()
+    step = text_loop.make_text_train_step(
+        model, text_loop.make_text_optimizer(model.parameters(), tcfg), tcfg,
+        torch.Generator().manual_seed(TEXT_SEED))
+    profile = _device_profile(lambda: step(batch, tcfg.learning_rate),
+                              TEXT_PROFILE_STEPS)
+    del model, step
+    torch.cuda.empty_cache()
+    step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
+               + breakdown["optimizer_ms"])
+    n_rows = int(batch.example_mask.sum())
+    cfg2 = dataclasses.replace(t5cfg, num_layers=2, num_decoder_layers=2,
+                               dropout_rate=0.0)
+    graph2, tcfg2, data2, splits2, kw2 = _codet5_setup(TEXT_N_VS_CPU, 4, 512,
+                                                       "persistent")
+    vs_cpu = _vs_cpu_bf16(DefectModel(cfg2, graph2, device="cuda", seed=SEED),
+                          DefectModel(cfg2, graph2, device="cpu"), data2,
+                          splits2, tcfg2, kw2)
+    vs_cpu["layers"] = [cfg2.num_layers, cfg2.num_decoder_layers]
+    rec = dict(phase="codet5_bf16", dtype=t5cfg.dtype, d_model=t5cfg.d_model,
+               layers=[t5cfg.num_layers, t5cfg.num_decoder_layers],
+               block_size=tcfg.block_size, batch_size=tcfg.batch_size,
+               steps=len(losses), losses=losses,
+               val_f1=history["epochs"][-1]["val_metrics"]["f1"],
+               fit_launches=fit_launches, fit_wall_s=wall_s,
+               fit_peak_mem_gb=fit_peak / 1e9, step_breakdown=breakdown,
+               step_profile=profile, examples_per_step=n_rows,
+               examples_per_s=n_rows / (step_ms / 1e3),
+               device_idle_share=1.0 - profile["device_busy_ms"]
+               / breakdown["step_wall_ms"],
+               peak_mem_gb=step_peak / 1e9, vs_cpu=vs_cpu,
+               launches=_sum_launches(fit_launches, vs_cpu["launches"]))
+    emit(**rec)
+    return rec
+
+
 def main() -> int:
     seconds = {}
 
@@ -3296,6 +3657,8 @@ def main() -> int:
                 "launches"].items():
             path_launches[k] += v
     timings.update(timed("attention_kernels", phase_attention_kernels))
+    timings.update(timed("attention_kernels_bf16", phase_attention_kernels,
+                         torch.bfloat16))
     for phase, fn, args in (
             ("fit_text", phase_fit_text, ()),
             ("fit_text_vs_cpu", phase_fit_text_vs_cpu, ()),
@@ -3305,7 +3668,10 @@ def main() -> int:
             ("inputs", phase_inputs, ()),
             ("serve_http", phase_serve_http, ()),
             ("replay", phase_replay, ()),
-            ("codet5", phase_codet5, ())):
+            ("codet5", phase_codet5, ()),
+            ("fit_text_bf16", phase_fit_text_bf16, ()),
+            ("fit_text_long_bf16", phase_fit_text_long_bf16, ()),
+            ("codet5_bf16", phase_codet5_bf16, ())):
         for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))

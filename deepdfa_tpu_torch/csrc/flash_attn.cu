@@ -1,6 +1,9 @@
 // Flash-attention kernels for Hopper (sm_90a): exact softmax attention
 // over the [B, T, H, D] layout with a [B, Tk] padding mask (1 = token)
-// and an optional causal mask, f32 throughout.
+// and an optional causal mask. Each kernel has an f32 instance and a bf16
+// one (q, k, v, dO in and o, dq, dk, dv out in bf16; lse and delta f32; every
+// score, probability and sum f32, as the reference's kernels widen their
+// operands and accumulate with preferred_element_type=f32).
 //
 // flash_fwd_kernel        replaces deepdfa_tpu/ops/attention.py:
 //                         _flash_kernel (launched from _flash_forward):
@@ -88,8 +91,23 @@
 // walking the key tiles, flash_bwd_dkv_kernel with one block per (batch,
 // head, 128 keys) walking the query tiles. Both parts of everything take
 // 225 KB of shared memory, one block an SM.
+//
+// The bf16 instances. A bf16 streamed tile lands by cp.async in a row-major
+// bf16 staging buffer (two for the pair's two stages) and is widened and
+// split from there into the same swizzled f32 hi and lo tiles the f32
+// instance splits in place; the resident operands are widened as they load.
+// Everything after is the f32 instance's code: the 3xTF32 products of
+// widened values (exact splits, lo = 0) and of f32 P and dS, so a bf16
+// instance gives bit for bit the f32 kernel's result on the widened inputs,
+// rounded once to bf16 (RNE) as it is stored. Shared memory: the forward
+// 112 KB (two blocks an SM), the pair 224 and 226 KB (the streamed hi and
+// lo tiles single, their bf16 stages double). Their bound counts S and dP,
+// products of two bf16 inputs, at the dense bf16 tensor-core rate (989
+// TFLOP/s) and the rest at 3xTF32's (ops/attention.py:kernel_cost), so
+// they run further from it than the f32 instances from theirs.
 
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -105,8 +123,15 @@ constexpr float NEG_INF = -1e30f;  // the reference's NEG_INF
 // Device code shared by the forward and the two-pass backward pair.
 // ---------------------------------------------------------------------------
 
+using tf32x3::load4;
 using tf32x3::mma3;
 using tf32x3::split;
+using tf32x3::store2;
+using bf16 = __nv_bfloat16;
+
+// True for the bf16 instances.
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16>::value;
 
 constexpr int PW = 8;         // warps a block of the pair
 constexpr int PNT = 32 * PW;  // threads a block of the pair
@@ -123,7 +148,7 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * D + (c ^ ((r & 7) << 2));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -148,20 +173,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows row0 .. row0 + ROWS - 1 of one (batch, head) slice (row_stride
-// floats apart), times scale, split once into TF32 hi and lo parts, each
-// stored in the order warp r / 16 reads them as mma A fragments: float4
-// (w * 8 + kc) * 32 + lane holds a0..a3 of contraction chunk kc. Rows at or
-// past n_rows are zero. NTH threads share the work.
-template <int ROWS = PR, int NTH = PNT>
+// elements apart), widened to f32, times scale, split once into TF32 hi and
+// lo parts, each stored in the order warp r / 16 reads them as mma A
+// fragments: float4 (w * 8 + kc) * 32 + lane holds a0..a3 of contraction
+// chunk kc. Rows at or past n_rows are zero. NTH threads share the work.
+template <int ROWS = PR, int NTH = PNT, typename T>
 __device__ void load_resident(float* hi, float* lo,
-                              const float* __restrict__ src, int row0,
+                              const T* __restrict__ src, int row0,
                               int n_rows, long row_stride, float scale) {
   for (int e = threadIdx.x; e < ROWS * D / 4; e += NTH) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < n_rows)
-      x = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * row_stride
-                                           + c);
+      x = load4(src + (long)(row0 + r) * row_stride + c);
     const float xs[4] = {x.x * scale, x.y * scale, x.z * scale, x.w * scale};
     // (r, c + u): warp r / 16, chunk c / 8, lane 4 (r % 8) + u, slot
     // (r / 8) % 2 + 2 ((c / 4) % 2).
@@ -192,6 +216,21 @@ __device__ __forceinline__ void issue_tile(float* dst,
   }
 }
 
+// The bf16 instance's copy: the rows into a row-major bf16 staging tile,
+// 8 elements a copy.
+template <int NTH = PNT>
+__device__ __forceinline__ void issue_tile(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int row0, int n_rows,
+                                           long row_stride) {
+  for (int e = threadIdx.x; e < TILE / 8; e += NTH) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + r * D + c, src + (long)(in ? row0 + r : 0) * row_stride
+                                    + c, in);
+  }
+}
+
 // A landed tile, times scale, split once: the hi part in place, the lo part
 // beside it (the same swizzled positions).
 template <int NTH = PNT>
@@ -208,6 +247,36 @@ __device__ __forceinline__ void split_tile(float* tile, float* lo,
         make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
                     __uint_as_float(h[2]), __uint_as_float(h[3]));
     reinterpret_cast<float4*>(lo)[e] =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// A landed tile split: an f32 one in place (hi is where it landed), a bf16
+// one widened from its staging tile into hi and lo at the swizzled positions
+// an f32 tile takes, so the hi and lo tiles are the f32 instance's on the
+// widened values.
+template <int NTH = PNT>
+__device__ __forceinline__ void split_landed(const float* landed, float* hi,
+                                             float* lo, float scale) {
+  split_tile<NTH>(hi, lo, scale);
+}
+
+template <int NTH = PNT>
+__device__ __forceinline__ void split_landed(const bf16* landed, float* hi,
+                                             float* lo, float scale) {
+  for (int e = threadIdx.x; e < TILE / 4; e += NTH) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    const float4 x = load4(landed + r * D + c);
+    uint32_t h[4], l[4];
+    split(x.x * scale, h[0], l[0]);
+    split(x.y * scale, h[1], l[1]);
+    split(x.z * scale, h[2], l[2]);
+    split(x.w * scale, h[3], l[3]);
+    *reinterpret_cast<float4*>(hi + swz(r, c)) =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(lo + swz(r, c)) =
         make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
                     __uint_as_float(l[2]), __uint_as_float(l[3]));
   }
@@ -304,8 +373,9 @@ __device__ __forceinline__ void mma_registers(float acc[8][4],
 }
 
 // Write this warp's [16, D] accumulator (rows row0 + 16 warp + g, + 8) to a
-// [T, H, D] slice, times scale, rows < n_rows only.
-__device__ __forceinline__ void store_rows(float* dst, const float acc[8][4],
+// [T, H, D] slice of T, times scale, rows < n_rows only.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float acc[8][4],
                                            int row0, int n_rows,
                                            long row_stride, float scale) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -315,8 +385,8 @@ __device__ __forceinline__ void store_rows(float* dst, const float acc[8][4],
     if (r >= n_rows) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + (long)r * row_stride + 8 * j + 2 * t) =
-          make_float2(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+      store2(dst + (long)r * row_stride + 8 * j + 2 * t,
+             acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
   }
 }
 
@@ -366,11 +436,11 @@ __device__ __forceinline__ int next_live(const unsigned* live, int kt,
 
 // Start the copies of key tile kt (K into ks, V into vs; not waited for);
 // warps 0 and 1 vote its real keys into kbits[0] and kbits[1].
-template <int NTH>
-__device__ __forceinline__ void issue_kv(float* ks, float* vs,
+template <int NTH, typename T>
+__device__ __forceinline__ void issue_kv(T* ks, T* vs,
                                          unsigned* kbits,
-                                         const float* __restrict__ kb,
-                                         const float* __restrict__ vb,
+                                         const T* __restrict__ kb,
+                                         const T* __restrict__ vb,
                                          const unsigned char* __restrict__ mrow,
                                          int kt, int tk, long rs) {
   issue_tile<NTH>(ks, kb, kt * PT, tk, rs);
@@ -402,11 +472,14 @@ constexpr int FNT = 32 * FW;  // threads a block of the forward
 constexpr int FR = 16 * FW;   // query rows a block of the forward
 
 // Shared memory of flash_fwd_kernel: scale Q split (2 resident parts), K
-// and V, their lo parts, the tile's key bits, and one bit a key tile of
-// the walk: 96 KB, two blocks an SM.
+// and V, their lo parts, (bf16) K and V's staging tiles, the tile's key
+// bits, and one bit a key tile of the walk: 96 KB (bf16 112 KB), two
+// blocks an SM.
+template <typename T>
 size_t fwd_smem(int tk) {
   const int nk = (tk + PT - 1) / PT;
   return sizeof(float) * (2 * FR * D + 4 * TILE)
+         + (kBf16<T> ? sizeof(bf16) * 2 * TILE : 0)
          + sizeof(unsigned) * (2 + (nk + 31) / 32);
 }
 
@@ -414,20 +487,27 @@ size_t fwd_smem(int tk) {
 // walking the live key tiles: a tile is split once it lands, multiplied,
 // and only then is the next one's copy issued (the other block on the SM
 // runs its products meanwhile).
+template <typename T>
 __global__ void __launch_bounds__(FNT, 2)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const unsigned char* __restrict__ mask,
-                     float* __restrict__ o, float* __restrict__ lse, int H,
+                     T* __restrict__ o, float* __restrict__ lse, int H,
                      int tq, int tk, int causal, float scale) {
   extern __shared__ float4 smem_fwd[];
   float* Qhi = reinterpret_cast<float*>(smem_fwd);
   float* Qlo = Qhi + FR * D;
-  float* Khi = Qlo + FR * D;  // a landed tile, its hi part once split
+  float* Khi = Qlo + FR * D;  // f32: the landed tile, its hi part once split
   float* Vhi = Khi + TILE;
   float* Klo = Vhi + TILE;
   float* Vlo = Klo + TILE;
-  unsigned* kbits = reinterpret_cast<unsigned*>(Vlo + TILE);  // [2]
+  bf16* stage = reinterpret_cast<bf16*>(Vlo + TILE);  // bf16: K, V landed
+  // Where a key tile's K and V land: in place (f32) or staged (bf16).
+  T* Kland = reinterpret_cast<T*>(kBf16<T> ? (void*)stage : (void*)Khi);
+  T* Vland = reinterpret_cast<T*>(kBf16<T> ? (void*)(stage + TILE)
+                                           : (void*)Vhi);
+  unsigned* kbits = reinterpret_cast<unsigned*>(
+      kBf16<T> ? (void*)(stage + 2 * TILE) : (void*)(Vlo + TILE));  // [2]
   unsigned* live = kbits + 2;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -442,7 +522,7 @@ __global__ void __launch_bounds__(FNT, 2)
   // Causal: key tiles wholly above the block's last query row see nothing.
   if (causal) kend = min(kend, (q0 + FR - 1) / PT + 1);
   auto issue = [&](int kt) {
-    issue_kv<FNT>(Khi, Vhi, kbits, k + koff, v + koff, mrow, kt, tk, rs);
+    issue_kv<FNT>(Kland, Vland, kbits, k + koff, v + koff, mrow, kt, tk, rs);
   };
 
   mark_live_tiles<FNT>(live, mrow, kend, tk);
@@ -458,8 +538,8 @@ __global__ void __launch_bounds__(FNT, 2)
   while (kt < kend) {
     cp_async_wait_all();
     __syncthreads();  // tile kt landed
-    split_tile<FNT>(Khi, Klo, 1.f);
-    split_tile<FNT>(Vhi, Vlo, 1.f);
+    split_landed<FNT>(Kland, Khi, Klo, 1.f);
+    split_landed<FNT>(Vland, Vhi, Vlo, 1.f);
     __syncthreads();
     const int k0 = kt * PT;
     // Causal: a query tile wholly before the key tile sees none of it.
@@ -514,11 +594,11 @@ __global__ void __launch_bounds__(FNT, 2)
     const int r = q0 + 16 * warp + g + 8 * half;
     if (r >= tq) continue;
     const float lc = fmaxf(l_r[half], 1e-30f);
-    float* orow = o + qoff + (long)r * rs;
+    T* orow = o + qoff + (long)r * rs;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
-          make_float2(o_acc[j][2 * half] / lc, o_acc[j][2 * half + 1] / lc);
+      store2(orow + 8 * j + 2 * t, o_acc[j][2 * half] / lc,
+             o_acc[j][2 * half + 1] / lc);
     // lse = shift + log(l): exp(s - lse) is the normalized probability; a
     // fully masked row lands at log(1e-30).
     if (t == 0)
@@ -531,36 +611,63 @@ __global__ void __launch_bounds__(FNT, 2)
 // The two-pass backward pair.
 // ---------------------------------------------------------------------------
 
+// f32 tiles a streamed operand of the pair takes for its hi parts: both
+// stages in place (f32), or one widened from the stage that landed (bf16).
+template <typename T>
+constexpr int kHiStages = kBf16<T> ? 1 : 2;
+
 // Shared memory of flash_bwd_dq_kernel: scale Q and dO split (4 resident
-// parts), K and V in two stages, their lo parts, a stage's key bits, and
-// one bit a key tile of the walk.
+// parts), K and V in two stages (bf16: their hi parts once and two bf16
+// stages), their lo parts, a stage's key bits, and one bit a key tile of
+// the walk.
+template <typename T>
 size_t dq_smem(int tk) {
   const int nk = (tk + PT - 1) / PT;
-  return sizeof(float) * (4 * RES + 6 * TILE)
+  return sizeof(float) * (4 * RES + (2 * kHiStages<T> + 2) * TILE)
+         + (kBf16<T> ? sizeof(bf16) * 4 * TILE : 0)
          + sizeof(unsigned) * (4 + (nk + 31) / 32);
 }
 
 // Shared memory of flash_bwd_dkv_kernel: K and V split (4 resident parts),
-// Q and dO in two stages, their lo parts, a stage's lse and delta.
-constexpr size_t kDkvSmem = sizeof(float) * (4 * RES + 6 * TILE + 4 * PT);
+// Q and dO in two stages (bf16: as dq_smem), their lo parts, a stage's lse
+// and delta.
+template <typename T>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (4 * RES + (2 * kHiStages<T> + 2) * TILE + 4 * PT)
+         + (kBf16<T> ? sizeof(bf16) * 4 * TILE : 0);
+}
 
+template <typename T>
 __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ mask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int H, int tq,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const unsigned char* __restrict__ mask,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int H, int tq,
     int tk, int causal, float scale) {
+  constexpr int HS = kHiStages<T>;
   extern __shared__ float4 smem_dq[];
   float* Qhi = reinterpret_cast<float*>(smem_dq);
   float* Qlo = Qhi + RES;
   float* Ohi = Qlo + RES;
   float* Olo = Ohi + RES;
-  float* Ks = Olo + RES;  // [2][TILE]: a stage's tile, its hi part once split
-  float* Vs = Ks + 2 * TILE;
-  float* Klo = Vs + 2 * TILE;
+  float* Ks = Olo + RES;  // [HS][TILE]: hi parts (f32: a stage's landed tile)
+  float* Vs = Ks + HS * TILE;
+  float* Klo = Vs + HS * TILE;
   float* Vlo = Klo + TILE;
-  unsigned* kbits = reinterpret_cast<unsigned*>(Vlo + TILE);  // [2][2]
+  bf16* stage = reinterpret_cast<bf16*>(Vlo + TILE);  // bf16: [2][K, V]
+  unsigned* kbits = reinterpret_cast<unsigned*>(
+      kBf16<T> ? (void*)(stage + 4 * TILE) : (void*)(Vlo + TILE));  // [2][2]
   unsigned* live = kbits + 4;
+  // Where stage st's K and V land.
+  auto kland = [&](int st) {
+    return reinterpret_cast<T*>(kBf16<T> ? (void*)(stage + 2 * st * TILE)
+                                         : (void*)(Ks + st * TILE));
+  };
+  auto vland = [&](int st) {
+    return reinterpret_cast<T*>(kBf16<T>
+                                    ? (void*)(stage + (2 * st + 1) * TILE)
+                                    : (void*)(Vs + st * TILE));
+  };
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * PR;
@@ -577,8 +684,8 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
   // Start the copies of key tile kt into stage st, its real keys into
   // kbits[st].
   auto issue = [&](int kt, int st) {
-    issue_kv<PNT>(Ks + st * TILE, Vs + st * TILE, kbits + 2 * st, k + koff,
-                  v + koff, mrow, kt, tk, rs);
+    issue_kv<PNT>(kland(st), vland(st), kbits + 2 * st, k + koff, v + koff,
+                  mrow, kt, tk, rs);
   };
 
   mark_live_tiles<PNT>(live, mrow, kend, tk);
@@ -606,10 +713,10 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
     const int kn = next_live(live, kt + 1, kend);
     if (kn < kend) issue(kn, st ^ 1);  // overlaps this tile's products
     cp_async_commit();
-    const float* Khi = Ks + st * TILE;
-    const float* Vhi = Vs + st * TILE;
-    split_tile(Ks + st * TILE, Klo, 1.f);
-    split_tile(Vs + st * TILE, Vlo, 1.f);
+    float* Khi = Ks + (st % HS) * TILE;
+    float* Vhi = Vs + (st % HS) * TILE;
+    split_landed(kland(st), Khi, Klo, 1.f);
+    split_landed(vland(st), Vhi, Vlo, 1.f);
     __syncthreads();
     const int k0 = kt * PT;
     // Causal: a query tile wholly before the key tile sees none of it.
@@ -638,22 +745,34 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
   store_rows(dq + qoff, dq_acc, q0, tq, rs, scale);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ mask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk,
-    float* __restrict__ dv, int H, int tq, int tk, int causal, float scale) {
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const unsigned char* __restrict__ mask,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int H, int tq, int tk, int causal, float scale) {
+  constexpr int HS = kHiStages<T>;
   extern __shared__ float4 smem_dkv[];
   float* Khi = reinterpret_cast<float*>(smem_dkv);
   float* Klo = Khi + RES;
   float* Vhi = Klo + RES;
   float* Vlo = Vhi + RES;
-  float* Qs = Vlo + RES;  // [2][TILE]: a stage's tile, its hi part once split
-  float* Os = Qs + 2 * TILE;
-  float* Qlo = Os + 2 * TILE;
+  float* Qs = Vlo + RES;  // [HS][TILE]: hi parts (f32: a stage's landed tile)
+  float* Os = Qs + HS * TILE;
+  float* Qlo = Os + HS * TILE;
   float* Olo = Qlo + TILE;
   float* rowv = Olo + TILE;  // [2][2][PT]: a stage's lse, then delta
+  bf16* stage = reinterpret_cast<bf16*>(rowv + 4 * PT);  // bf16: [2][Q, dO]
+  auto qland = [&](int st) {
+    return reinterpret_cast<T*>(kBf16<T> ? (void*)(stage + 2 * st * TILE)
+                                         : (void*)(Qs + st * TILE));
+  };
+  auto oland = [&](int st) {
+    return reinterpret_cast<T*>(kBf16<T>
+                                    ? (void*)(stage + (2 * st + 1) * TILE)
+                                    : (void*)(Os + st * TILE));
+  };
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = blockIdx.x * PR;
@@ -684,8 +803,8 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
   }
   // Start the copies of query tile qt (Q, dO, lse, delta) into stage st.
   auto issue = [&](int qt, int st) {
-    issue_tile(Qs + st * TILE, q + qoff, qt * PT, tq, rs);
-    issue_tile(Os + st * TILE, dout + qoff, qt * PT, tq, rs);
+    issue_tile(qland(st), q + qoff, qt * PT, tq, rs);
+    issue_tile(oland(st), dout + qoff, qt * PT, tq, rs);
     for (int i = tid; i < 2 * PT; i += PNT) {
       const int r = qt * PT + i % PT;
       const float* src = (i < PT ? lse : delta) + (long)bh * tq;
@@ -707,10 +826,10 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
     __syncthreads();  // stage st landed; stage st ^ 1 and the lo parts free
     if (qt + 1 < nq) issue(qt + 1, st ^ 1);  // overlaps this tile's products
     cp_async_commit();
-    const float* Qhi = Qs + st * TILE;
-    const float* Ohi = Os + st * TILE;
-    split_tile(Qs + st * TILE, Qlo, scale);  // scale Q: S and dK
-    split_tile(Os + st * TILE, Olo, 1.f);
+    float* Qhi = Qs + (st % HS) * TILE;
+    float* Ohi = Os + (st % HS) * TILE;
+    split_landed(qland(st), Qhi, Qlo, scale);  // scale Q: S and dK
+    split_landed(oland(st), Ohi, Olo, 1.f);
     __syncthreads();
     const int q0 = qt * PT;
     // A dead key tile, or (causal) a query tile wholly before it: skipped.
@@ -754,30 +873,34 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
   return (int)cudaGetLastError();
 }
 
-int fwd(const float* q, const float* k, const float* v,
-        const unsigned char* mask, float* o, float* lse, int B, int H, int tq,
-        int tk, int causal, float scale, cudaStream_t stream) {
+template <typename T>
+int fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* o,
+        float* lse, int B, int H, int tq, int tk, int causal, float scale,
+        cudaStream_t stream) {
   dim3 grid((tq + FR - 1) / FR, B * H);
-  return launch(flash_fwd_kernel, grid, FNT, fwd_smem(tk), stream, q, k, v,
-                mask, o, lse, H, tq, tk, causal, scale);
+  return launch(flash_fwd_kernel<T>, grid, FNT, fwd_smem<T>(tk), stream, q, k,
+                v, mask, o, lse, H, tq, tk, causal, scale);
 }
 
-int bwd_dq(const float* q, const float* k, const float* v,
-           const unsigned char* mask, const float* dout, const float* lse,
-           const float* delta, float* dq, int B, int H, int tq, int tk,
-           int causal, float scale, cudaStream_t stream) {
+template <typename T>
+int bwd_dq(const T* q, const T* k, const T* v, const unsigned char* mask,
+           const T* dout, const float* lse, const float* delta, T* dq, int B,
+           int H, int tq, int tk, int causal, float scale,
+           cudaStream_t stream) {
   dim3 grid((tq + PR - 1) / PR, B * H);
-  return launch(flash_bwd_dq_kernel, grid, PNT, dq_smem(tk), stream, q, k, v,
-                mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
+  return launch(flash_bwd_dq_kernel<T>, grid, PNT, dq_smem<T>(tk), stream, q,
+                k, v, mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
 }
 
-int bwd_dkv(const float* q, const float* k, const float* v,
-            const unsigned char* mask, const float* dout, const float* lse,
-            const float* delta, float* dk, float* dv, int B, int H, int tq,
-            int tk, int causal, float scale, cudaStream_t stream) {
+template <typename T>
+int bwd_dkv(const T* q, const T* k, const T* v, const unsigned char* mask,
+            const T* dout, const float* lse, const float* delta, T* dk, T* dv,
+            int B, int H, int tq, int tk, int causal, float scale,
+            cudaStream_t stream) {
   dim3 grid((tk + PR - 1) / PR, B * H);
-  return launch(flash_bwd_dkv_kernel, grid, PNT, kDkvSmem, stream, q, k,
-                v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal, scale);
+  return launch(flash_bwd_dkv_kernel<T>, grid, PNT, dkv_smem<T>(), stream, q,
+                k, v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal,
+                scale);
 }
 
 }  // namespace flash
@@ -785,35 +908,33 @@ int bwd_dkv(const float* q, const float* k, const float* v,
 // ---------------------------------------------------------------------------
 // Plain C interface (ctypes): each returns the launch's cudaError_t.
 // q, o, dq: [B, Tq, H, D]; k, v, dk, dv: [B, Tk, H, D]; mask: [B, Tk]
-// bytes; lse, delta: [B, H, Tq]; all f32 and contiguous.
+// bytes; lse, delta: [B, H, Tq] f32; the rest f32 (the *_bf16_launch
+// instances: bf16); all contiguous.
 // ---------------------------------------------------------------------------
 
-extern "C" int flash_fwd_launch(const float* q, const float* k,
-                                const float* v, const unsigned char* mask,
-                                float* o, float* lse, int B, int H, int tq,
-                                int tk, int causal, float scale,
-                                cudaStream_t stream) {
-  return flash::fwd(q, k, v, mask, o, lse, B, H, tq, tk, causal, scale,
-                    stream);
-}
+#define FLASH_ATTN_C_INTERFACE(SUFFIX, T)                                     \
+  extern "C" int flash_fwd##SUFFIX##_launch(                                  \
+      const T* q, const T* k, const T* v, const unsigned char* mask, T* o,    \
+      float* lse, int B, int H, int tq, int tk, int causal, float scale,      \
+      cudaStream_t stream) {                                                  \
+    return flash::fwd<T>(q, k, v, mask, o, lse, B, H, tq, tk, causal, scale,  \
+                         stream);                                             \
+  }                                                                           \
+  extern "C" int flash_bwd_dq##SUFFIX##_launch(                               \
+      const T* q, const T* k, const T* v, const unsigned char* mask,          \
+      const T* dout, const float* lse, const float* delta, T* dq, int B,      \
+      int H, int tq, int tk, int causal, float scale, cudaStream_t stream) {  \
+    return flash::bwd_dq<T>(q, k, v, mask, dout, lse, delta, dq, B, H, tq,    \
+                            tk, causal, scale, stream);                       \
+  }                                                                           \
+  extern "C" int flash_bwd_dkv##SUFFIX##_launch(                              \
+      const T* q, const T* k, const T* v, const unsigned char* mask,          \
+      const T* dout, const float* lse, const float* delta, T* dk, T* dv,      \
+      int B, int H, int tq, int tk, int causal, float scale,                  \
+      cudaStream_t stream) {                                                  \
+    return flash::bwd_dkv<T>(q, k, v, mask, dout, lse, delta, dk, dv, B, H,   \
+                             tq, tk, causal, scale, stream);                  \
+  }
 
-extern "C" int flash_bwd_dq_launch(const float* q, const float* k,
-                                   const float* v, const unsigned char* mask,
-                                   const float* dout, const float* lse,
-                                   const float* delta, float* dq, int B,
-                                   int H, int tq, int tk, int causal,
-                                   float scale, cudaStream_t stream) {
-  return flash::bwd_dq(q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk,
-                       causal, scale, stream);
-}
-
-extern "C" int flash_bwd_dkv_launch(const float* q, const float* k,
-                                    const float* v, const unsigned char* mask,
-                                    const float* dout, const float* lse,
-                                    const float* delta, float* dk, float* dv,
-                                    int B, int H, int tq, int tk,
-                                    int causal, float scale,
-                                    cudaStream_t stream) {
-  return flash::bwd_dkv(q, k, v, mask, dout, lse, delta, dk, dv, B, H, tq,
-                        tk, causal, scale, stream);
-}
+FLASH_ATTN_C_INTERFACE(, float)
+FLASH_ATTN_C_INTERFACE(_bf16, __nv_bfloat16)

@@ -1,7 +1,9 @@
 // The single-pass flash-attention backward for Hopper (sm_90a): dq, dk and
 // dv of exact softmax attention over the [B, T, H, D] layout with a
-// [B, Tk] padding mask (1 = token) and an optional causal mask, f32 in and
-// out, the products on the tensor cores at f32 accuracy (3xTF32).
+// [B, Tk] padding mask (1 = token) and an optional causal mask, the
+// products on the tensor cores at f32 accuracy (3xTF32). An f32 instance
+// and a bf16 one (q, k, v, dO in and dq, dk, dv out in bf16; lse, delta and
+// the dq partials f32).
 //
 // flash_bwd_fused_kernel replaces deepdfa_tpu/ops/attention.py:
 //                        _flash_bwd_fused_kernel (the single-pass branch
@@ -54,6 +56,10 @@
 //   and their gradients are 0, not NaN; ragged edges (T not a multiple of
 //   64) are masked by index; causal skips the query tiles wholly before
 //   the key tile.
+// * The bf16 instance widens each operand as it loads into the same f32
+//   tiles (exact, and the TF32 split of a widened value is exact) and
+//   rounds dq, dk and dv once to bf16 (RNE) as it stores them: bit for bit
+//   the f32 instance's result on the widened inputs, so rounded.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +69,9 @@
 namespace flash_bwd {
 
 using tf32x3::D;  // head width (ops/attention.py:KERNEL_HEAD_DIM)
+using tf32x3::load4;
+using tf32x3::store2;
+using tf32x3::store4;
 using tf32x3::sw;
 using tf32x3::warp_mma;
 
@@ -78,18 +87,17 @@ __device__ __forceinline__ void zero(float acc[4][4]) {
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
 
-// Rows [row0, row0 + 64) of one (batch, head) slice into a swizzled tile,
-// times scale; rows at or past n_rows read as zero.
+// Rows [row0, row0 + 64) of one (batch, head) slice into a swizzled f32
+// tile, widened, times scale; rows at or past n_rows read as zero.
+template <typename T>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int row0, int n_rows,
                                           long row_stride, float scale) {
   for (int e = threadIdx.x; e < TB * D / 4; e += NT) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      x = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * row_stride
-                                           + c);
+    if (row0 + r < n_rows) x = load4(src + (long)(row0 + r) * row_stride + c);
     x.x *= scale;
     x.y *= scale;
     x.z *= scale;
@@ -99,8 +107,9 @@ __device__ __forceinline__ void load_tile(float* dst,
 }
 
 // Write this warp's 16 x 32 accumulator piece to rows row0 + m0.. of a
-// [T, H, D] slice (row_stride floats apart), rows < n_rows only.
-__device__ __forceinline__ void store_acc(float* dst, const float acc[4][4],
+// [T, H, D] slice of T (row_stride elements apart), rows < n_rows only.
+template <typename T>
+__device__ __forceinline__ void store_acc(T* dst, const float acc[4][4],
                                           int row0, int m0, int n0,
                                           int n_rows, long row_stride) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -110,9 +119,8 @@ __device__ __forceinline__ void store_acc(float* dst, const float acc[4][4],
     if (r >= n_rows) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float2*>(dst + (long)r * row_stride + n0 + 8 * j
-                                 + 2 * t) =
-          make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      store2(dst + (long)r * row_stride + n0 + 8 * j + 2 * t,
+             acc[j][2 * half], acc[j][2 * half + 1]);
   }
 }
 
@@ -121,12 +129,13 @@ __device__ __forceinline__ void store_acc(float* dst, const float acc[4][4],
 constexpr size_t kSmemBytes =
     sizeof(float) * (6 * TILE_FLOATS + 2 * TB) + sizeof(int) * TB;
 
+template <typename T>
 __global__ void __launch_bounds__(NT, 2) flash_bwd_fused_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ mask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const unsigned char* __restrict__ mask,
+    const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq_part,
-    float* __restrict__ dk, float* __restrict__ dv, int B, int H, int tq,
+    T* __restrict__ dk, T* __restrict__ dv, int B, int H, int tq,
     int tk, int causal, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -224,10 +233,12 @@ constexpr int SUM_ROWS = 16;  // query rows a block of flash_dq_sum_kernel
 // dq[b, r] = scale * sum over key tiles kt, ascending, of the partial of
 // (kt, r) where flash_bwd_fused_kernel wrote one: kt holds a real key and
 // (causal) r's query tile is not before it. One block a (16 rows, batch
-// row); the key tiles' liveness is read from the same mask.
+// row); the key tiles' liveness is read from the same mask. dq is written
+// as T (bf16: rounded once, from the f32 sum).
+template <typename T>
 __global__ void __launch_bounds__(NT) flash_dq_sum_kernel(
     const float* __restrict__ dq_part, const unsigned char* __restrict__ mask,
-    float* __restrict__ dq, int B, int H, int tq, int tk, int causal,
+    T* __restrict__ dq, int B, int H, int tq, int tk, int causal,
     float scale) {
   extern __shared__ int live[];
   const int b = blockIdx.y, r0 = blockIdx.x * SUM_ROWS;
@@ -242,7 +253,6 @@ __global__ void __launch_bounds__(NT) flash_dq_sum_kernel(
   const int row4 = H * D / 4;  // float4s a [H, D] row
   const int rows = min(SUM_ROWS, tq - r0);
   const float4* part = reinterpret_cast<const float4*>(dq_part);
-  float4* out = reinterpret_cast<float4*>(dq);
   for (int e = threadIdx.x; e < rows * row4; e += NT) {
     const int r = r0 + e / row4, c = e % row4;
     const int kt_end = causal ? min(nk, r / TB + 1) : nk;
@@ -255,30 +265,31 @@ __global__ void __launch_bounds__(NT) flash_dq_sum_kernel(
       acc.z += x.z;
       acc.w += x.w;
     }
-    out[((long)b * tq + r) * row4 + c] =
-        make_float4(acc.x * scale, acc.y * scale, acc.z * scale,
-                    acc.w * scale);
+    store4(dq + (((long)b * tq + r) * row4 + c) * 4,
+           make_float4(acc.x * scale, acc.y * scale, acc.z * scale,
+                       acc.w * scale));
   }
 }
 
-int bwd_fused(const float* q, const float* k, const float* v,
-              const unsigned char* mask, const float* dout, const float* lse,
-              const float* delta, float* dq_part, float* dq, float* dk,
-              float* dv, int B, int H, int tq, int tk, int causal,
-              float scale, cudaStream_t stream) {
+template <typename T>
+int bwd_fused(const T* q, const T* k, const T* v, const unsigned char* mask,
+              const T* dout, const float* lse, const float* delta,
+              float* dq_part, T* dq, T* dk, T* dv, int B, int H, int tq,
+              int tk, int causal, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int nk = (tk + TB - 1) / TB;
-  flash_bwd_fused_kernel<<<dim3(nk, B * H), NT, kSmemBytes, stream>>>(
+  flash_bwd_fused_kernel<T><<<dim3(nk, B * H), NT, kSmemBytes, stream>>>(
       q, k, v, mask, dout, lse, delta, dq_part, dk, dv, B, H, tq, tk, causal,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_dq_sum_kernel<<<dim3((tq + SUM_ROWS - 1) / SUM_ROWS, B), NT,
-                        sizeof(int) * nk, stream>>>(dq_part, mask, dq, B, H,
-                                                    tq, tk, causal, scale);
+  flash_dq_sum_kernel<T><<<dim3((tq + SUM_ROWS - 1) / SUM_ROWS, B), NT,
+                           sizeof(int) * nk, stream>>>(dq_part, mask, dq, B,
+                                                       H, tq, tk, causal,
+                                                       scale);
   return (int)cudaGetLastError();
 }
 
@@ -287,8 +298,9 @@ int bwd_fused(const float* q, const float* k, const float* v,
 // ---------------------------------------------------------------------------
 // Plain C interface (ctypes): returns the launches' first cudaError_t.
 // q, dout, dq: [B, Tq, H, D]; k, v, dk, dv: [B, Tk, H, D]; mask: [B, Tk]
-// bytes; lse, delta: [B, H, Tq]; dq_part: [ceil(Tk / 64), B, Tq, H, D]
-// scratch; all f32 (but mask) and contiguous, D = 64.
+// bytes; lse, delta: [B, H, Tq] f32; dq_part: [ceil(Tk / 64), B, Tq, H, D]
+// f32 scratch; the rest f32 (flash_bwd_fused_bf16_launch: bf16); all
+// contiguous, D = 64.
 // ---------------------------------------------------------------------------
 
 extern "C" int flash_bwd_fused_launch(
@@ -296,6 +308,18 @@ extern "C" int flash_bwd_fused_launch(
     const float* dout, const float* lse, const float* delta, float* dq_part,
     float* dq, float* dk, float* dv, int B, int H, int tq, int tk, int causal,
     float scale, cudaStream_t stream) {
-  return flash_bwd::bwd_fused(q, k, v, mask, dout, lse, delta, dq_part, dq,
-                              dk, dv, B, H, tq, tk, causal, scale, stream);
+  return flash_bwd::bwd_fused<float>(q, k, v, mask, dout, lse, delta,
+                                     dq_part, dq, dk, dv, B, H, tq, tk,
+                                     causal, scale, stream);
+}
+
+extern "C" int flash_bwd_fused_bf16_launch(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const unsigned char* mask, const __nv_bfloat16* dout, const float* lse,
+    const float* delta, float* dq_part, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int tq, int tk,
+    int causal, float scale, cudaStream_t stream) {
+  return flash_bwd::bwd_fused<__nv_bfloat16>(q, k, v, mask, dout, lse, delta,
+                                             dq_part, dq, dk, dv, B, H, tq,
+                                             tk, causal, scale, stream);
 }

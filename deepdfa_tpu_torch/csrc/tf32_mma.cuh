@@ -11,6 +11,11 @@
 // PyTorch's own f32 memory-efficient attention): f32 accuracy, as the
 // reference runs f32 at Precision.HIGHEST. Single-pass TF32 is never used.
 //
+// The flash kernels' bf16 instances read bf16 inputs through load4 and write
+// bf16 outputs through store2/store4: a bf16 value widens to f32 exactly, and
+// its TF32 split is exact (lo = 0), so such an instance computes what the f32
+// kernel computes on the widened inputs, rounded once (RNE) on the way out.
+//
 // Fragments of mma.sync.m16n8k8 (lane = 4 g + t): A (16 x 8, row-major)
 // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8)
 // b0 (k t, n g), b1 (k t + 4, n g); C (16 x 8) c0, c1 (g, 2 t and 2 t + 1),
@@ -18,10 +23,44 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tf32x3 {
+
+// Four consecutive elements as f32: one 16-byte load of f32, one 8-byte load
+// of bf16 widened (a bf16 value is the high half of its f32).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Two or four consecutive f32 results stored as the output's type; bf16
+// rounds to nearest even (__float2bfloat16_rn, torch's rounding).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  store2(p, x.x, x.y);
+  store2(p + 2, x.z, x.w);
+}
 
 constexpr int D = 64;  // head width (ops/attention.py:KERNEL_HEAD_DIM)
 

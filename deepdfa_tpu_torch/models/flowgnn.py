@@ -237,8 +237,8 @@ class FlowGNN(nn.Module):
         super().__init__()
         if config.dtype != "float32":
             raise NotImplementedError(
-                f"dtype {config.dtype!r}: the port serves float32 only; "
-                "bf16 kernels are not ported yet")
+                f"dtype {config.dtype!r}: the port's graph encoder is float32 "
+                "only; its bf16 kernels come with ROADMAP A3b")
         if config.message_impl not in ("segment", "band", "tile", "fused",
                                        "persistent"):
             raise ValueError(

@@ -6,7 +6,10 @@ optionally concatenated with the pooled FlowGNN embedding
 (``FlowGNNConfig(encoder_mode=True)``), then the RoBERTa head (dropout,
 dense to the hidden width, tanh, dropout, projection to 2 logits) and a
 masked two-class cross entropy. Parameters are named as the flax tree:
-``roberta.*``, ``flowgnn.*``, ``classifier.{dense,out_proj}``.
+``roberta.*``, ``flowgnn.*``, ``classifier.{dense,out_proj}``. With a
+bf16 encoder (``EncoderConfig(dtype="bfloat16")``) the head stays f32,
+as the reference's Dense layers there carry no dtype: the f32 CLS vector
+and graph embedding in, f32 logits and loss out.
 """
 
 from __future__ import annotations

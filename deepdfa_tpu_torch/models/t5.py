@@ -28,6 +28,26 @@ position bias is not an input of the port's flash kernels. A combined
 model's graph encoder runs the hand kernels of ``ops/fused_gnn.py`` or
 ``ops/tile_spmm.py`` as ``FlowGNN`` does.
 
+``dtype`` ("float32" or "bfloat16") follows the reference's rounding
+points, as explicit casts: every attention and FFN projection is an
+``nn.Dense(dtype=d)`` (input and kernel cast to ``d``,
+``models/transformer.dense``), the scores are the ``d`` product of q and
+k plus the f32 position bias (promoted to f32) and the mask bias (in the
+scores' dtype: the reference's ``jnp.where(mask, 0.0, -1e9)`` is weakly
+typed), softmax runs in f32 and its weights go back to ``d``. The shared
+embedding, the RMS norms, the residual stream, the tied logits and the
+classifier carry no dtype: f32.
+
+Block 0's relative position bias table (32 buckets, looked up by a
+[Q, K] grid: 262,144 lookups at T 512) is read through ``_Embed``:
+``F.embedding``'s forward, and a backward that sums each bucket's
+gradients in a fixed order (a product with the one-hot matrix of the
+grid, ``graphs/segment.segment_onehot``). ``F.embedding``'s
+CUDA backward added them in an order that changed from run to run, so a
+CodeT5 train step did not repeat its bits on the card
+(``scripts/torch_text_determinism.py``; the shared embedding's backward
+repeats its bits there).
+
 Parameters follow the flax tree's names (``shared.embedding``,
 ``encoder.block.{i}.self_attn.{q,k,v,o}``, ``...relative_attention_bias``
 in block 0, ``self_attn_ln``, ``cross_attn_ln``, ``cross_attn``,
@@ -57,8 +77,15 @@ from torch import nn
 from deepdfa_tpu_torch.core.config import FlowGNNConfig
 from deepdfa_tpu_torch.core.device import DeviceLike, resolve_device
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
+from deepdfa_tpu_torch.graphs.segment import segment_onehot
 from deepdfa_tpu_torch.models.flowgnn import EmbedTable, FlowGNN, _linear
-from deepdfa_tpu_torch.models.transformer import draw_seed, dropout, seeded
+from deepdfa_tpu_torch.models.transformer import (
+    compute_dtype,
+    dense,
+    draw_seed,
+    dropout,
+    seeded,
+)
 
 _DECODE_NOT_PORTED = ("incremental decoding (decode=True, beam_anc) is not "
                       "ported yet: it comes with generation (ROADMAP A5b)")
@@ -107,6 +134,24 @@ class T5Config:
     def codet5_large(cls) -> "T5Config":
         return cls(d_model=1024, d_kv=64, d_ff=4096, num_layers=24,
                    num_decoder_layers=24, num_heads=16)
+
+
+class _Embed(torch.autograd.Function):
+    """``F.embedding(index, table)``; its backward sums each row's
+    gradients in a fixed order: the product of the one-hot matrix of
+    ``index`` (:func:`segment_onehot`) and the gradient."""
+
+    @staticmethod
+    def forward(ctx, table, index):
+        ctx.save_for_backward(index)
+        ctx.rows = table.shape[0]
+        return F.embedding(index, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        grad = grad.reshape(-1, grad.shape[-1])
+        return segment_onehot(index.reshape(-1), ctx.rows) @ grad, None
 
 
 def _normal_linear(n_in: int, n_out: int, std: float,
@@ -181,6 +226,7 @@ class T5Attention(nn.Module):
                  causal: bool = False, has_relative_bias: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)
         self.causal = causal
         self.has_relative_bias = has_relative_bias
         inner = cfg.num_heads * cfg.d_kv
@@ -204,7 +250,7 @@ class T5Attention(nn.Module):
                                c.relative_attention_num_buckets,
                                c.relative_attention_max_distance,
                                self.relative_attention_bias.device)
-        return F.embedding(buckets, self.relative_attention_bias).permute(
+        return _Embed.apply(self.relative_attention_bias, buckets).permute(
             2, 0, 1)[None]
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor],
@@ -223,29 +269,31 @@ class T5Attention(nn.Module):
         def heads(y, t):
             return y.view(b, t, c.num_heads, c.d_kv).transpose(1, 2)
 
-        q = heads(self.q(x), q_len)
-        k = heads(self.k(kv), k_len)
-        v = heads(self.v(kv), k_len)
+        d = self.dtype
+        q = heads(dense(self.q, x, d), q_len)
+        k = heads(dense(self.k, kv, d), k_len)
+        v = heads(dense(self.v, kv, d), k_len)
         scores = torch.matmul(q, k.transpose(-1, -2))  # no sqrt(d_kv)
         if position_bias is None and self.has_relative_bias:
             position_bias = self.rel_bias(q_len, k_len)
         if position_bias is not None:
-            scores = scores + position_bias
+            scores = scores + position_bias  # f32 bias: f32 scores
         if mask is not None:
             # -1e9, not -inf: an all-pad row stays finite and uniform.
-            scores = scores + torch.where(mask, 0.0, -1e9)
-        weights = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+            scores = scores + torch.where(mask, 0.0, -1e9).to(scores.dtype)
+        weights = torch.softmax(scores.float(), dim=-1).to(d)
         weights = dropout(weights, c.dropout_rate, not deterministic,
                           generator)
         out = torch.matmul(weights, v).transpose(1, 2).reshape(
             b, q_len, c.num_heads * c.d_kv)
-        return self.o(out), position_bias
+        return dense(self.o, out, d), position_bias
 
 
 class T5FFN(nn.Module):
     def __init__(self, cfg: T5Config, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)
         std_in, std_out = cfg.d_model ** -0.5, cfg.d_ff ** -0.5
         if cfg.gated_ffn:
             self.wi_0 = _normal_linear(cfg.d_model, cfg.d_ff, std_in, gen)
@@ -256,13 +304,15 @@ class T5FFN(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        d = self.dtype
         if self.cfg.gated_ffn:
             # flax's nn.gelu: the tanh form.
-            h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
+            h = (F.gelu(dense(self.wi_0, x, d), approximate="tanh")
+                 * dense(self.wi_1, x, d))
         else:
-            h = F.relu(self.wi(x))
+            h = F.relu(dense(self.wi, x, d))
         h = dropout(h, self.cfg.dropout_rate, not deterministic, generator)
-        return self.wo(h)
+        return dense(self.wo, h, d)
 
 
 class T5Block(nn.Module):
@@ -368,10 +418,7 @@ class T5Model(nn.Module):
     def __init__(self, cfg: T5Config, device: DeviceLike = None,
                  seed: int = 0, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {cfg.dtype!r}: the port's T5 is float32 only; bf16 "
-                "kernels are not ported yet")
+        compute_dtype(cfg.dtype)
         dev = resolve_device(device)
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(seed))

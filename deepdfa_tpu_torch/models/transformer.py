@@ -19,11 +19,25 @@ on the card, their plain versions on the CPU). As in the reference, the
 non-dense paths apply no attention-probability dropout. "ring" waits for
 the several-GPU slice.
 
+``dtype`` ("float32" or "bfloat16") is the reference's compute dtype,
+with its rounding points as explicit casts (no ``torch.autocast``, whose
+op lists are not the reference's): each of its ``nn.Dense(dtype=d)``
+casts its input, kernel and bias to ``d`` (:func:`dense`; the parameters
+stay f32), the attention output is cast to ``d`` and gelu runs on the
+``d`` activations. The embeddings and LayerNorms carry no dtype: the
+residual stream stays f32, each residual sum of it and a ``d`` branch is
+promoted to f32 before its LayerNorm, and the hidden states come out
+f32. At bf16 the dense impl's scores are the bf16 product of q and k,
+divided in f32 (the reference divides by a numpy f64 scalar, which
+promotes); flash and blockwise widen q, k and v (``ops/attention.py``).
+
 Dropout draws from a CPU ``torch.Generator`` passed to ``forward``: each
 layer (and the embeddings) takes one seed from it and runs its dropouts
 on a generator of its own device seeded with it, so a rematerialized
 layer (``remat_layers``, ``torch.utils.checkpoint``) replays the same
-masks. Without a generator, dropout uses torch's default one.
+masks. Without a generator, dropout uses torch's default one. The keep
+mask is drawn in f32 whatever the input's dtype (flax's Bernoulli does
+not depend on it), so a bf16 model sees the f32 model's masks.
 """
 
 from __future__ import annotations
@@ -82,14 +96,39 @@ class EncoderConfig:
         return cls(vocab_size=51416, max_position_embeddings=1026)
 
 
+#: The text models' compute dtypes (the reference's ``dtype`` strings).
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string."""
+    if name not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"dtype {name!r}: the port's text models compute in "
+            f"{' or '.join(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` with f32 parameters: the input, the
+    kernel and the bias cast to ``dtype`` (``promote_dtype``), the product
+    and the bias added in it. At f32: ``lin(x)``."""
+    if dtype == torch.float32:
+        return lin(x)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
 def dropout(x: torch.Tensor, rate: float, active: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - rate``, scale kept
-    entries by ``1 / (1 - rate)``."""
+    entries by ``1 / (1 - rate)`` (in x's dtype). The keep mask is drawn
+    in f32 whatever x's dtype."""
     if not active or rate == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= rate
+                      dtype=torch.float32) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -112,6 +151,7 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)
         w = cfg.hidden_size
         self.query = _linear(w, w, gen)
         self.key = _linear(w, w, gen)
@@ -127,15 +167,19 @@ class SelfAttention(nn.Module):
         def split(y):
             return y.view(b, t, c.num_heads, hd)
 
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        d = self.dtype
+        q, k, v = (split(dense(lin, x, d))
+                   for lin in (self.query, self.key, self.value))
         weights = None
         if c.attention_impl == "dense":
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            # At bf16: the bf16 product, divided in f32 (as the reference).
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(
+                hd)
             bias = torch.where(attn_mask[:, None, None, :], 0.0, -1e9)
             weights = torch.softmax(scores + bias, dim=-1)
             weights = dropout(weights, c.dropout_rate, not deterministic,
                               generator)
-            out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+            out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
         elif c.attention_impl in ("blockwise", "flash", "auto"):
             out = attention(q, k, v, kv_mask=attn_mask,
                             impl=c.attention_impl)
@@ -144,13 +188,14 @@ class SelfAttention(nn.Module):
                 "attention_impl='ring' is not ported yet (several GPUs)")
         else:
             raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
-        return out.reshape(b, t, c.hidden_size), weights
+        return out.to(d).reshape(b, t, c.hidden_size), weights
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)
         w, f = cfg.hidden_size, cfg.intermediate_size
         self.attention = SelfAttention(cfg, gen)
         self.attention_output = _linear(w, w, gen)
@@ -164,13 +209,15 @@ class EncoderLayer(nn.Module):
         c = self.cfg
         gen = seeded(seed, x.device)
         active = not deterministic
+        d = self.dtype
         attn_out, weights = self.attention(x, attn_mask, deterministic, gen)
-        attn_out = dropout(self.attention_output(attn_out), c.dropout_rate,
-                           active, gen)
+        attn_out = dropout(dense(self.attention_output, attn_out, d),
+                           c.dropout_rate, active, gen)
+        # x (f32) + a d branch: promoted to f32 before the LayerNorm.
         x = self.attention_ln(x + attn_out)
-        ff = F.gelu(self.intermediate(x),
+        ff = F.gelu(dense(self.intermediate, x, d),
                     approximate="tanh" if c.gelu_approximate else "none")
-        ff = dropout(self.output(ff), c.dropout_rate, active, gen)
+        ff = dropout(dense(self.output, ff, d), c.dropout_rate, active, gen)
         return self.output_ln(x + ff), weights
 
 
@@ -180,10 +227,7 @@ class RobertaEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig, gen: torch.Generator):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {cfg.dtype!r}: the port's encoder is float32 only; "
-                "bf16 kernels are not ported yet")
+        compute_dtype(cfg.dtype)
         self.cfg = cfg
         w = cfg.hidden_size
         self.word_embeddings = EmbedTable(cfg.vocab_size, w, gen)

@@ -129,6 +129,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
 }
 
+# The bf16 instances of the flash kernels take the f32 ones' arguments
+# (bf16 tensors where those take f32, lse, delta and the dq partials f32).
+for _lib in ("flash_attn", "flash_bwd_fused"):
+    SIGNATURES[_lib].update({
+        fn.replace("_launch", "_bf16_launch"): argtypes
+        for fn, argtypes in list(SIGNATURES[_lib].items())})
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: library -> (seconds spent building, or 0.0 when it was already built;

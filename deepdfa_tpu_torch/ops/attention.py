@@ -46,13 +46,23 @@ VMEM heuristics) and ``_pick_block``'s blockwise fallback for lengths it
 cannot tile have no counterpart: the kernels mask their ragged edge, so
 every length runs through them.
 
+Dtypes. Every kernel has an f32 instance and a bf16 one (``*_bf16`` in
+:func:`launch_counts`), as the reference's Pallas kernels are generic over
+the input dtype: q, k, v and dO in bf16, every score, probability and
+sum in f32, lse and delta f32, and o, dq, dk and dv written in bf16. A
+bf16 instance gives bit for bit the f32 kernel's result on the widened
+inputs, rounded once to bf16. The plain versions widen and compute in
+f32 and cast at the same points.
+
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
-For a CUDA tensor it launches its kernel or raises: no fallback, no
-switch that puts the plain version on the card. Each wrapper counts its
-launches in a plain integer attribute (``flash_fwd.launches`` and so on;
-:func:`launch_counts`), bumped where the kernel is launched and nowhere
-else. ``impl="auto"`` means ``"flash"`` on every device: the kernels on
-the card, their plain versions (the blockwise composition) on the CPU.
+For a CUDA tensor it launches its kernel (the instance of the inputs'
+dtype) or raises: no fallback, no switch that puts the plain version on
+the card. Each wrapper counts its launches in plain integer attributes,
+``launches`` for the f32 instance and ``launches_bf16`` for the bf16 one
+(``flash_fwd.launches`` and so on; :func:`launch_counts`), bumped where
+the kernel is launched and nowhere else. ``impl="auto"`` means
+``"flash"`` on every device: the kernels on the card, their plain
+versions (the blockwise composition) on the CPU.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BF16
 
 NEG_INF = -1e30
 
@@ -320,14 +330,20 @@ def _ones_mask(kv_mask: Optional[torch.Tensor],
     return torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
 
 
+#: The input dtypes the kernels have an instance for, and the suffix of
+#: each instance's C function and launch-count key.
+INSTANCES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
 def _check_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, kv_mask: torch.Tensor,
-                rows: Tuple[Tuple[str, torch.Tensor, tuple], ...] = ()
+                rows: Tuple[Tuple[str, torch.Tensor, tuple, bool], ...] = ()
                 ) -> None:
     """Raise on what the kernels do not take: CUDA tensors on one device,
-    f32 [B, T, H, D] with D = KERNEL_HEAD_DIM, contiguous and 16-byte
-    aligned (the tiles load float4s), a bool [B, Tk] mask; ``rows``:
-    further (name, tensor, shape) f32 inputs."""
+    f32 or bf16 [B, T, H, D] with D = KERNEL_HEAD_DIM, q, k and v of one
+    dtype, contiguous and 16-byte aligned (the tiles load 16 bytes at a
+    time), a bool [B, Tk] mask; ``rows``: further (name, tensor, shape,
+    in q's dtype or else f32) inputs."""
     if not q.is_cuda:
         raise ValueError(f"{kernel} takes CPU tensors (plain version) or "
                          f"CUDA tensors, got {q.device}")
@@ -340,13 +356,17 @@ def _check_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{kernel}: head width {d}; the kernels take "
                          f"{KERNEL_HEAD_DIM} (use impl='dense' or "
                          "'blockwise' for other widths)")
-    tensors = (("q", q, tuple(q.shape)), ("k", k, (b, tk, h, d)),
-               ("v", v, (b, tk, h, d))) + tuple(rows)
-    for name, t, shape in tensors:
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{kernel}: {name} is {t.dtype}; the CUDA kernels take "
-                "float32 (bf16 kernels are not ported yet)")
+    if q.dtype not in INSTANCES:
+        raise NotImplementedError(
+            f"{kernel}: q is {q.dtype}; the CUDA kernels take float32 or "
+            "bfloat16")
+    tensors = (("q", q, tuple(q.shape), True), ("k", k, (b, tk, h, d), True),
+               ("v", v, (b, tk, h, d), True)) + tuple(rows)
+    for name, t, shape, like_q in tensors:
+        want = q.dtype if like_q else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{kernel}: {name} is {t.dtype}, want {want} "
+                             f"(q is {q.dtype})")
         if tuple(t.shape) != shape or t.device != q.device:
             raise ValueError(f"{kernel}: {name} {tuple(t.shape)} on "
                              f"{t.device}, want {shape} on {q.device}")
@@ -360,11 +380,21 @@ def _check_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(kv_mask.shape)} on {kv_mask.device}")
 
 
-def _library(q: torch.Tensor, name: str = "flash_attn"):
+def _launcher(q: torch.Tensor, fn: str, name: str = "flash_attn"):
+    """The C launch function ``fn`` of the instance for q's dtype, and the
+    current stream."""
     from deepdfa_tpu_torch.ops import _build
 
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    return _build.load(name), stream
+    lib = _build.load(name)
+    return getattr(lib, fn.replace("_launch",
+                                   INSTANCES[q.dtype] + "_launch")), stream
+
+
+def _count(wrapper, q: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel, on the count of q's instance."""
+    attr = "launches" + INSTANCES[q.dtype]
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def _dims(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple:
@@ -387,23 +417,22 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        lib, stream = _library(q)
-        err = lib.flash_fwd_launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-                                   _ptr(o), _ptr(lse), *_dims(q, k, causal),
-                                   stream)
+        launch, stream = _launcher(q, "flash_fwd_launch")
+        err = launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(o),
+                     _ptr(lse), *_dims(q, k, causal), stream)
         _raise_on_error(err, "flash_fwd_kernel")
-    flash_fwd.launches += 1
+    _count(flash_fwd, q)
     return o, lse
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.launches_bf16 = 0
 
 
 def _bwd_rows(q: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
               delta: torch.Tensor) -> tuple:
     b, tq, h, _ = q.shape
-    return (("do", do, tuple(q.shape)), ("lse", lse, (b, h, tq)),
-            ("delta", delta, (b, h, tq)))
+    return (("do", do, tuple(q.shape), True), ("lse", lse, (b, h, tq), False),
+            ("delta", delta, (b, h, tq), False))
 
 
 def flash_bwd_fused(q, k, v, kv_mask, do, lse, delta, causal: bool = False):
@@ -430,17 +459,17 @@ def flash_bwd_fused(q, k, v, kv_mask, do, lse, delta, causal: bool = False):
     part = torch.empty((-(-tk // TILE), b, tq, h, d), dtype=torch.float32,
                        device=q.device)
     with torch.cuda.device(q.device):
-        lib, stream = _library(q, "flash_bwd_fused")
-        err = lib.flash_bwd_fused_launch(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
-            _ptr(delta), _ptr(part), _ptr(dq), _ptr(dk), _ptr(dv),
-            *_dims(q, k, causal), stream)
+        launch, stream = _launcher(q, "flash_bwd_fused_launch",
+                                   "flash_bwd_fused")
+        err = launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do),
+                     _ptr(lse), _ptr(delta), _ptr(part), _ptr(dq), _ptr(dk),
+                     _ptr(dv), *_dims(q, k, causal), stream)
         _raise_on_error(err, "flash_bwd_fused_kernel")
-    flash_bwd_fused.launches += 1
+    _count(flash_bwd_fused, q)
     return dq, dk, dv
 
 
-flash_bwd_fused.launches = 0
+flash_bwd_fused.launches = flash_bwd_fused.launches_bf16 = 0
 
 
 def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta,
@@ -456,16 +485,16 @@ def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta,
                 _bwd_rows(q, do, lse, delta))
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        lib, stream = _library(q)
-        err = lib.flash_bwd_dq_launch(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
-            _ptr(delta), _ptr(dq), *_dims(q, k, causal), stream)
+        launch, stream = _launcher(q, "flash_bwd_dq_launch")
+        err = launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do),
+                     _ptr(lse), _ptr(delta), _ptr(dq), *_dims(q, k, causal),
+                     stream)
         _raise_on_error(err, "flash_bwd_dq_kernel")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q)
     return dq
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_bf16 = 0
 
 
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta,
@@ -481,16 +510,16 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta,
                 _bwd_rows(q, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        lib, stream = _library(q)
-        err = lib.flash_bwd_dkv_launch(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
-            _ptr(delta), _ptr(dk), _ptr(dv), *_dims(q, k, causal), stream)
+        launch, stream = _launcher(q, "flash_bwd_dkv_launch")
+        err = launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do),
+                     _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+                     *_dims(q, k, causal), stream)
         _raise_on_error(err, "flash_bwd_dkv_kernel")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.launches_bf16 = 0
 
 
 def flash_backward(q, k, v, kv_mask, o, lse, do, causal: bool = False):
@@ -511,7 +540,8 @@ flash_backward.two_pass_dispatches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """:func:`flash_fwd` forward, :func:`flash_backward` backward. Saves
-    ``q, k, v, mask, o, lse``: no [T, T] residual."""
+    ``q, k, v, mask, o, lse``: no [T, T] residual. The gradients come in
+    the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal):
@@ -555,23 +585,28 @@ def attention(q, k, v, kv_mask=None, causal: bool = False,
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-_COUNTED = {
+_WRAPPERS = {
     "flash_fwd_kernel": flash_fwd,
     "flash_bwd_fused_kernel": flash_bwd_fused,
     "flash_bwd_dq_kernel": flash_bwd_dq,
     "flash_bwd_dkv_kernel": flash_bwd_dkv,
 }
+#: Kernel instance name -> (wrapper, its count attribute): the f32
+#: instances under the kernels' names, the bf16 ones with ``_bf16``.
+_COUNTED = {name + suffix: (fn, "launches" + suffix)
+            for suffix in INSTANCES.values()
+            for name, fn in _WRAPPERS.items()}
 KERNELS = tuple(_COUNTED)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel name -> launches so far."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    """Kernel instance name -> launches so far."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    for fn, attr in _COUNTED.values():
+        setattr(fn, attr, 0)
     flash_backward.two_pass_dispatches = 0
 
 
@@ -585,13 +620,20 @@ def reset_launch_counts() -> None:
 #: those 7 products).
 _PRODUCTS = {"flash_fwd_kernel": 2, "flash_bwd_fused_kernel": 5,
              "flash_bwd_dq_kernel": 3, "flash_bwd_dkv_kernel": 4}
+#: Of those, the products whose two operands are both inputs (S = QK^T
+#: and dP = dO V^T): at bf16 both operands are bf16 and the product is
+#: exact in f32. The others have an f32 operand (P or dS).
+_INPUT_PRODUCTS = {"flash_fwd_kernel": 1, "flash_bwd_fused_kernel": 2,
+                   "flash_bwd_dq_kernel": 2, "flash_bwd_dkv_kernel": 2}
 
 
 def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
                 kernel: str, causal: bool = False) -> Dict[str, float]:
     """Operations and compulsory bytes of one ``kernel`` call on [B, T,
-    H, D] f32 inputs with this ``kv_mask`` ([B, Tk], True = token), as
-    the function needs them on this data:
+    H, D] inputs with this ``kv_mask`` ([B, Tk], True = token), as the
+    function needs them on this data; ``kernel`` names an instance
+    (``KERNELS``: a ``_bf16`` one moves q, k, v, dO, o, dq, dk and dv at 2
+    bytes an element, lse and delta at 4):
 
     - ``flops``: 2 operations a multiply-add of each product, over the
       (query, key) pairs that survive the masks: every query row against
@@ -607,11 +649,17 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
       tiles and masked scores included. Every kernel skips the causal
       tiles wholly above the diagonal and the key tiles with no real key
       (``dead_key_tiles``, counted over batch rows and heads).
-    - ``peak_flops``/``peak``: the rate the operations bound divides by:
-      the f32 work of the 3xTF32 products on the tensor cores, for every
-      kernel."""
-    if kernel not in _PRODUCTS:
+    - ``peak_flops``/``peak``: the rate the operations bound divides by.
+      f32: the f32 work of the 3xTF32 products on the tensor cores. bf16:
+      the products of two bf16 inputs (``_INPUT_PRODUCTS``) at the dense
+      bf16 tensor-core rate and those with an f32 operand at the 3xTF32
+      rate, as one rate over all the products (``flops`` over the sum of
+      the two times); ``flops_bf16`` counts the first kind."""
+    if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    bf16 = kernel.endswith("_bf16")
+    esize = 2.0 if bf16 else 4.0
+    kernel = kernel.removesuffix("_bf16")
     mask = kv_mask.detach().to("cpu", torch.bool)
     b, tk = mask.shape
     if causal:
@@ -635,7 +683,7 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     padded[:, :tk] = mask
     live_tiles = padded.reshape(b, nk, TILE).any(2)
     tiles = int((live_tiles * meets).sum())
-    row = 4.0 * h * d  # one [H, D] f32 row
+    row = esize * h * d  # one [H, D] row of q, k, v, dO or an output
     mask_bytes, rowvec = 1.0 * b * tk, 4.0 * h
     if kernel == "flash_fwd_kernel":
         nbytes = (live * row + 2 * keys * row + mask_bytes
@@ -646,7 +694,14 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
                   "flash_bwd_dq_kernel": b * tq * row,
                   "flash_bwd_dkv_kernel": 2 * b * tk * row}[kernel]
         nbytes = reads + writes
-    return {"flops": unit * pairs, "bytes": nbytes,
-            "executed_flops": unit * tiles * TILE * TILE,
+    peak, flops_bf16 = PEAK_3XTF32, 0.0
+    if bf16:
+        n, nb = _PRODUCTS[kernel], _INPUT_PRODUCTS[kernel]
+        flops_bf16 = unit * pairs * nb / n
+        peak = (f"{PEAK_BF16[0]} ({nb} of {n} products), {PEAK_3XTF32[0]} "
+                f"({n - nb})",
+                n / (nb / PEAK_BF16[1] + (n - nb) / PEAK_3XTF32[1]))
+    return {"flops": unit * pairs, "flops_bf16": flops_bf16,
+            "bytes": nbytes, "executed_flops": unit * tiles * TILE * TILE,
             "dead_key_tiles": h * int((~live_tiles).sum()),
-            "peak": PEAK_3XTF32[0], "peak_flops": PEAK_3XTF32[1]}
+            "peak": peak[0], "peak_flops": peak[1]}

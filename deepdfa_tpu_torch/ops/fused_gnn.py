@@ -364,7 +364,7 @@ def _check_cuda_inputs(h: torch.Tensor, adj: BandAdjacency) -> None:
     if h.dtype != torch.float32:
         raise NotImplementedError(
             f"the CUDA gated-step kernels take float32 h, got {h.dtype}: "
-            "bf16 kernels are not ported yet")
+            "their bf16 instances come with ROADMAP A3b")
     n, hidden = h.shape
     if hidden > MAX_HIDDEN or hidden % 4:
         raise ValueError(f"hidden {hidden}: the kernels take hidden <= "

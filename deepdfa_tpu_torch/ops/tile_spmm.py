@@ -348,7 +348,7 @@ def _check_cuda(adj: CsrAdjacency, msg: torch.Tensor) -> None:
     if msg.dtype != torch.float32:
         raise NotImplementedError(
             f"tile_spmm_kernel takes float32 messages, got {msg.dtype}: "
-            "bf16 kernels are not ported yet")
+            "its bf16 instance comes with ROADMAP A3b")
     n = adj.n_rows
     if msg.dim() != 2 or msg.shape[0] != n or msg.shape[1] < 1:
         raise ValueError(f"msg {tuple(msg.shape)} does not match "

@@ -695,8 +695,11 @@ def test_tile_flowgnn_backward_matches_cpu(cuda):
 # (dq) or query (dk, dv) of a (batch, head): 1e-4 relative, 1e-5 absolute.
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 ATTN_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_fused_kernel",
-                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# Every instance the launch counts name: the f32 kernels and their bf16
+# instances (``*_bf16``).
+FLASH_KERNELS = tuple(name + suffix for suffix in ("", "_bf16") for name in (
+    "flash_fwd_kernel", "flash_bwd_fused_kernel", "flash_bwd_dq_kernel",
+    "flash_bwd_dkv_kernel"))
 
 
 def _attn_inputs(b, t, h, d, dev, seed=0, all_pad_row=True):
@@ -942,8 +945,14 @@ def test_flash_refusals(cuda):
     from deepdfa_tpu_torch.ops import attention as A
 
     q, k, v, mask, g = _attn_inputs(2, 64, 2, 64, cuda)
-    with pytest.raises(NotImplementedError, match="float32"):
-        A.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
+    # bf16 runs (its instance: test_flash_bf16_instances_*); another
+    # dtype, or q, k and v of two dtypes, is refused.
+    o, lse = A.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        A.flash_fwd(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(ValueError, match="want torch.bfloat16"):
+        A.flash_fwd(q.bfloat16(), k, v, mask)
     with pytest.raises(ValueError, match="head width"):
         A.flash_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
                     v[..., :8].contiguous(), mask)
@@ -1274,3 +1283,189 @@ def test_codet5_combined_train_step_matches_cpu(cuda, impl):
     loss, _ = step(batch, 1e-3)
     assert abs(float(loss) - want_loss) <= 1e-5
     assert all(torch.isfinite(p).all() for p in gpu.parameters())
+
+
+# ---------------------------------------------------------------------------
+# The flash kernels' bf16 instances and the text models at bf16
+# ---------------------------------------------------------------------------
+
+# A bf16 output against its plain version: both compute in f32 (in
+# another order) and round once to bf16, so they land within a bf16 step
+# of each other, plus the f32 order gap of the f32 kernels (1e-5).
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def _bf16_inputs(b, t, h, d, dev):
+    q, k, v, mask, g = _attn_inputs(b, t, h, d, dev)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, g.bfloat16()
+
+
+def _close_bf16(got, want, tol):
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", [
+    (2, 64, 2, 64, False), (3, 100, 2, 64, True), (2, 200, 3, 64, False),
+    (2, 512, 2, 64, False), (1, 4096, 2, 64, False)])
+def test_flash_bf16_instances_match_plain_versions(cuda, b, t, h, d,
+                                                   causal):
+    """Each bf16 instance against its plain version (bf16 in, f32
+    inside, bf16 out); only the bf16 instances launch."""
+    from deepdfa_tpu_torch.ops import attention as A
+
+    q, k, v, mask, g = _bf16_inputs(b, t, h, d, cuda)
+    A.reset_launch_counts()
+    o, lse = A.flash_fwd(q, k, v, mask, causal)
+    o_ref, lse_ref = A.flash_fwd_reference(q, k, v, mask, causal)
+    _close_bf16(o, o_ref, BF16_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+    assert torch.all(o[-1] == 0)
+    delta = A.flash_delta(o_ref, g)
+    args = (q, k, v, mask, g, lse_ref, delta, causal)
+    want = A.flash_bwd_fused_reference(*args)
+    dq = A.flash_bwd_dq(*args)
+    dk, dv = A.flash_bwd_dkv(*args)
+    for got, ref in zip((dq, dk, dv), want):
+        _close_bf16(got, ref, BF16_TOL)
+    launched = {"flash_fwd_kernel_bf16": 1, "flash_bwd_dq_kernel_bf16": 1,
+                "flash_bwd_dkv_kernel_bf16": 1}
+    if A.flash_fused_bwd_ok(t, d):
+        for got, ref in zip(A.flash_bwd_fused(*args), want):
+            _close_bf16(got, ref, BF16_TOL)
+        launched["flash_bwd_fused_kernel_bf16"] = 1
+    torch.cuda.synchronize()
+    assert A.launch_counts() == {**dict.fromkeys(FLASH_KERNELS, 0),
+                                 **launched}
+    assert all(torch.all(x[-1] == 0) for x in (dq, dk, dv))
+    for x in (dk, dv):  # padded keys: P = dS = 0
+        assert not x[~mask].any()
+
+
+@pytest.mark.parametrize("t,lengths,causal", [
+    (512, [70, 0, 300], False),   # dead key tiles in two rows, one all-pad
+    (200, [10, 130, 0], True),    # ragged T, causal
+    (4096, [3000, 100], False),   # the two-pass pair
+])
+def test_flash_bf16_instances_are_the_f32_kernels_rounded(cuda, t, lengths,
+                                                          causal):
+    """The identity the bf16 design keeps: each bf16 instance gives bit
+    for bit the f32 kernel's output on the widened inputs, rounded once
+    to bf16 (lse bit for bit), so it skips the same dead key tiles; and
+    two launches give the same bits."""
+    from deepdfa_tpu_torch.ops import attention as A
+
+    b, h, d = len(lengths), 2, 64
+    q, k, v, _, g = _bf16_inputs(b, t, h, d, cuda)
+    mask = torch.arange(t, device=cuda)[None, :] < torch.tensor(
+        lengths, device=cuda)[:, None]
+    wide = lambda *xs: [x.float() for x in xs]  # noqa: E731
+    o, lse = A.flash_fwd(q, k, v, mask, causal)
+    o32, lse32 = A.flash_fwd(*wide(q, k, v), mask, causal)
+    assert torch.equal(o, o32.bfloat16()) and torch.equal(lse, lse32)
+    again = A.flash_fwd(q, k, v, mask, causal)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    delta = A.flash_delta(o, g)
+    args = (q, k, v, mask, g, lse, delta, causal)
+    args32 = (*wide(q, k, v), mask, g.float(), lse, delta, causal)
+    fns = [A.flash_bwd_dq, A.flash_bwd_dkv]
+    if A.flash_fused_bwd_ok(t, d):
+        fns.append(A.flash_bwd_fused)
+    for fn in fns:
+        got, want, rep = fn(*args), fn(*args32), fn(*args)
+        got, want, rep = ([x] if torch.is_tensor(x) else list(x)
+                          for x in (got, want, rep))
+        for a, w, r in zip(got, want, rep):
+            assert a.dtype == torch.bfloat16
+            assert torch.equal(a, w.bfloat16()), fn.__name__
+            assert torch.equal(a, r), fn.__name__
+    dead = A.kernel_cost(mask, t, h, d, "flash_fwd_kernel_bf16", causal)[
+        "dead_key_tiles"]
+    assert dead == A.kernel_cost(mask, t, h, d, "flash_fwd_kernel", causal)[
+        "dead_key_tiles"] > 0
+
+
+def _text_step_states(make_model, batch, cfg, cuda, runs=2, steps=2):
+    from deepdfa_tpu_torch.train import text_loop
+
+    states = []
+    for _ in range(runs):
+        model = make_model()
+        step = text_loop.make_text_train_step(
+            model, text_loop.make_text_optimizer(model.parameters(), cfg),
+            cfg, torch.Generator().manual_seed(0))
+        for _ in range(steps):
+            step(batch, 1e-3)
+        states.append({k: v.cpu() for k, v in model.state_dict().items()})
+    return states
+
+
+def test_bf16_text_train_step_repeats_its_bits(cuda):
+    """Two train steps of a bf16 LineVul encoder (dropout on) from the
+    same weights, batch and seeds, twice: the same f32 master parameters
+    bit for bit; the bf16 flash instances launched and no f32 one."""
+    from deepdfa_tpu_torch.core.config import TransformerTrainConfig
+    from deepdfa_tpu_torch.data.combined import load_combined_dataset
+    from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+    from deepdfa_tpu_torch.models.linevul import LineVul
+    from deepdfa_tpu_torch.models.transformer import EncoderConfig
+    from deepdfa_tpu_torch.ops import attention as A
+    from deepdfa_tpu_torch.train import text_loop
+
+    enc = EncoderConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=130, attention_impl="auto",
+                        dtype="bfloat16")
+    data, _, _ = load_combined_dataset(
+        "synthetic:16", FeatureSpec(limit_all=20), HashingCodeTokenizer(512),
+        128)
+    batch = next(text_loop.text_graph_batches(data, np.arange(16), 16))
+    cfg = TransformerTrainConfig(batch_size=16, block_size=128)
+    A.reset_launch_counts()
+    states = _text_step_states(lambda: LineVul(enc, device=cuda, seed=0),
+                               batch, cfg, cuda)
+    counts = A.launch_counts()
+    assert counts == {**dict.fromkeys(FLASH_KERNELS, 0),
+                      "flash_fwd_kernel_bf16": 2 * 2 * 2,
+                      "flash_bwd_fused_kernel_bf16": 2 * 2 * 2}
+    for k, v in states[0].items():
+        assert v.dtype == torch.float32, k
+        assert torch.equal(states[1][k], v), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_codet5_train_step_repeats_its_bits(cuda, dtype):
+    """Two train steps of DeepDFA+CodeT5 (dropout on, the persistent
+    graph encoder) at the step's token count (16 rows of 512, most of
+    them pad 0), twice from the same weights, batch and seeds: the same
+    parameters bit for bit. The position bias table's gradient is a
+    fixed-order sum (models/t5.py); the shared embedding's backward
+    repeats its bits as it is."""
+    from deepdfa_tpu_torch.core.config import TransformerTrainConfig
+    from deepdfa_tpu_torch.data.combined import (
+        graph_join_and_budget,
+        load_combined_dataset,
+    )
+    from deepdfa_tpu_torch.data.text import HashingT5Tokenizer
+    from deepdfa_tpu_torch.models.t5 import DefectModel, T5Config
+    from deepdfa_tpu_torch.train import text_loop
+
+    cfg = T5Config(d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                   num_decoder_layers=2, num_heads=2, dtype=dtype)
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    gcfg = FlowGNNConfig(feature=feature, hidden_dim=8, n_steps=2,
+                         encoder_mode=True, message_impl="persistent")
+    data, _, graphs = load_combined_dataset(
+        "synthetic:16", feature, HashingT5Tokenizer(cfg.vocab_size), 512,
+        style="t5", graphs="synthetic")
+    graphs, budget = graph_join_and_budget(list(graphs.values()), 16)
+    batch = next(text_loop.text_graph_batches(
+        data, np.arange(16), 16, graphs, SUBKEYS, budget, pad_id=0,
+        build_band_adj=True))
+    assert (batch.input_ids == 0).mean() > 0.5
+    tcfg = TransformerTrainConfig(batch_size=16, block_size=512)
+    states = _text_step_states(
+        lambda: DefectModel(cfg, gcfg, device=cuda, seed=0), batch, tcfg,
+        cuda)
+    for k, v in states[0].items():
+        assert torch.equal(states[1][k], v), k

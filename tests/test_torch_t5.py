@@ -367,8 +367,15 @@ def test_decode_and_bf16_are_refused():
     for kw in ({"decode": True}, {"beam_anc": torch.zeros(4, 1, 24)}):
         with pytest.raises(NotImplementedError, match="A5b"):
             model.decode(ids, ids != 0, enc, ids != 0, **kw)
-    with pytest.raises(NotImplementedError, match="float32"):
-        t5.T5Model(dataclasses.replace(pcfg, dtype="bfloat16"), device="cpu")
+    # bf16 builds and runs (its parity: tests/test_torch_bf16_text.py),
+    # f32 parameters and an f32 hidden state; other dtypes are refused.
+    bf16 = t5.T5Model(dataclasses.replace(pcfg, dtype="bfloat16"),
+                      device="cpu")
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    with torch.no_grad():
+        assert bf16.encode(ids, ids != 0).dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        t5.T5Model(dataclasses.replace(pcfg, dtype="float16"), device="cpu")
     with pytest.raises(ValueError, match="encoder_mode"):
         t5.DefectModel(pcfg, FlowGNNConfig(hidden_dim=4), device="cpu")
     combined_model = t5.DefectModel(pcfg, _graph_cfgs("segment")[1],
