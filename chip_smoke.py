@@ -97,9 +97,12 @@ one:
    2, which must repeat the uninterrupted run's epoch-1 losses bit for
    bit; ``test`` of its ``best`` on the card and on the CPU (loss within
    1e-5); ``score --split test`` (probabilities within 1e-4 of
-   ``test``'s); ``fit-text --ddfa-checkpoint --freeze-graph`` at
-   codebert-base width (12 layers, T 512, batch 16, ``synthetic:120``,
-   one epoch, a persistent graph encoder), whose ``best`` must hold the
+   ``test``'s); ``test --set model.dtype=bfloat16`` of the same
+   snapshot on the card (``persistent_fwd_kernel_bf16``) and on the CPU
+   (loss within 5e-2, and within 5e-2 of the f32 test's); ``fit-text
+   --ddfa-checkpoint --freeze-graph`` at codebert-base width (12 layers,
+   T 512, batch 16, ``synthetic:120``, one epoch, a persistent graph
+   encoder), whose ``best`` must hold the
    grafted encoder and the seeded pooling bit for bit and whose launches
    must hold no GNN backward kernel; ``test-text``, which must repeat
    fit-text's test loss and ``predictions.csv`` bit for bit. Then each
@@ -198,6 +201,28 @@ one:
    ``fit_text``, its GNN launches as the batches' gates say; the step's
    breakdown, profile, examples/s and peak memory; a 2 + 2 layer copy
    against the CPU (logits and losses within 5e-2).
+25. The GNN kernels' bf16 instances (``FlowGNN(dtype="bfloat16")``,
+   serving; run right after phase 5, with 26):
+   ``fused_step_kernel_bf16`` and ``persistent_fwd_kernel_bf16`` at the
+   serving and flagship shapes,
+   bf16 h and band values (and f32 values at the serving shape), each
+   against its plain version (one step within a bf16 step, rtol 2^-7;
+   five steps within 5e-2; the elements that differ counted), the
+   persistent instance bit for bit the scan of five fused launches,
+   each timed beside its bound (bf16 bytes; the products of two bf16
+   values at the bf16 tensor-core rate, the rest at f32 SIMT's), its
+   plain version and the f32 kernel on the same inputs widened; the
+   per-step instance's launch geometry held to the host plan.
+26. Serving at bf16 (``--set model.dtype=bfloat16``, random weights from
+   a seed): ``ServeEngine`` on the persistent and the fused lanes as
+   phases 4-5 (64 requests and 16 duplicates, 16 slots; every flush a
+   bf16 kernel launch and no f32 GNN kernel; probabilities against the
+   same engine on the CPU within 5e-2, the gap recorded); ``cli score``
+   of ``synthetic:64`` on both lanes, its launches and predictions
+   against ``cli score --device cpu``; then ``cli serve`` in its own
+   process over HTTP, GNN lane, 512 one-function POSTs from 16 clients
+   (p50/p99 ms, requests/s), a chunk again (cache hits), the launches
+   from ``/metrics``, the answers against the CPU engine.
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -396,6 +421,20 @@ ATTN_BF16_GRAD_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
 # (tests/test_torch_bf16_text.py, the reference's own bf16 tolerance):
 # logits and losses within 5e-2 absolute and relative.
 BF16_TEXT_TOL = dict(rtol=5e-2, atol=5e-2)
+# The GNN forward kernels' bf16 instances: the same TPU kernels (generic
+# over the dtype there), the same source.
+for _name in ("fused_step_kernel", "persistent_fwd_kernel"):
+    REPLACES[_name + "_bf16"] = REPLACES[_name]
+    SOURCES[_name + "_bf16"] = SOURCES[_name]
+# A bf16 instance against its plain version: both round at the reference
+# kernel's points and compute each sum in f32 in another order, so a
+# value may land one bf16 step apart (rtol 2^-7); five steps carry such a
+# step onward: the CPU tests' bf16 tolerance (tests/test_torch_bf16_gnn.py).
+GNN_BF16_STEP_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
+GNN_BF16_UNROLL_TOL = dict(rtol=5e-2, atol=5e-2)
+# The bf16 GNN paths, card against the CPU on the same weights: served
+# probabilities and test losses (the reference's bf16 tolerance).
+BF16_GNN_TOL = 5e-2
 REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
 SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
 # The tile product against its plain version: each output sums a row's
@@ -545,7 +584,8 @@ def _scan_record(name, kernel, scan, adj, hidden,
                _as_list(scan()))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cluster = (fused_gnn.persistent_cluster_size(adj, hidden, sms)
-               if which == "persistent_fwd_kernel" else 1)
+               if which in ("persistent_fwd_kernel",
+                            "persistent_fwd_kernel_bf16") else 1)
     return dict(scan_ms=_time_ms(scan, iters, reps), cluster=cluster,
                 **fused_gnn.persistent_occupancy(adj, hidden, which,
                                                  cluster))
@@ -560,7 +600,7 @@ def _step_geometry(adj, hidden, kernel) -> dict:
     plan = fused_gnn.step_plan(n, hidden, geo["sms"], kernel)
     plan["smem_bytes"] = fused_gnn.step_smem_bytes(n, hidden, geo["sms"],
                                                    kernel, 0)
-    if kernel == "fused_step_bwd_kernel":
+    if kernel in ("fused_step_bwd_kernel", "fused_step_kernel_bf16"):
         plan["smem_bytes_pass1"] = fused_gnn.step_smem_bytes(
             n, hidden, geo["sms"], kernel, 1)
     for key in plan.keys() - {"wide"}:
@@ -703,8 +743,14 @@ def _flush_breakdown(engine: ServeEngine, graphs, reps: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
-def phase_serve(impl: str) -> dict:
-    cfg = FlowGNNConfig(message_impl=impl)
+def phase_serve(impl: str, dtype: str = "float32") -> dict:
+    """The serving engine on one lane at the published width (phases 4-5;
+    at bf16, part of phase 26): every flush a launch of the lane's kernel
+    (its bf16 instance at bf16, and then no f32 GNN kernel), the
+    probabilities against the same engine on the CPU."""
+    cfg = FlowGNNConfig(message_impl=impl, dtype=dtype)
+    bf16 = dtype == "bfloat16"
+    suffix = "_bf16" if bf16 else ""
     model = FlowGNN(cfg, device="cuda", seed=SEED)
     engine = ServeEngine(model, ServeConfig(), device="cuda")
     t0 = time.perf_counter()
@@ -739,14 +785,19 @@ def phase_serve(impl: str) -> dict:
                              "the cache")
     if snap["cache_hits"] != N_DUPLICATES or snap["failures"]:
         raise AssertionError(f"{impl}: snapshot {snap}")
+    persistent = launches["persistent_fwd_kernel" + suffix]
     if impl == "persistent":
-        if launches["persistent_fwd_kernel"] + model.over_gate_dispatches \
-                < flushes or launches["persistent_fwd_kernel"] == 0:
+        if persistent + model.over_gate_dispatches < flushes \
+                or persistent == 0:
             raise AssertionError(f"persistent lane: {launches} over "
                                  f"{flushes} flushes")
-    elif launches["fused_step_kernel"] != cfg.n_steps * flushes:
+    elif launches["fused_step_kernel" + suffix] != cfg.n_steps * flushes:
         raise AssertionError(f"fused lane: {launches} over {flushes} "
                              "flushes")
+    if bf16 and any(launches[k] for k in fused_gnn.KERNELS
+                    if not k.endswith("_bf16")):
+        raise AssertionError(f"{impl} at bf16 launched an f32 GNN kernel: "
+                             f"{launches}")
 
     # The same weights on the CPU, where the plain versions run.
     cpu_model = FlowGNN(cfg, device="cpu")
@@ -755,10 +806,12 @@ def phase_serve(impl: str) -> dict:
     cpu_engine = ServeEngine(cpu_model, ServeConfig(), device="cpu")
     want = np.asarray([r["prob"] for r in cpu_engine.score_sync(reqs)])
     max_diff = float(np.abs(probs - want).max())
-    if max_diff > SERVE_TOL:
+    tol = BF16_GNN_TOL if bf16 else SERVE_TOL
+    if max_diff > tol:
         raise AssertionError(f"{impl}: |cuda - cpu| prob {max_diff:.3e} > "
-                             f"{SERVE_TOL}")
-    rec = dict(phase="serve", message_impl=impl, warmed_buckets=warmed,
+                             f"{tol}")
+    rec = dict(phase="serve", message_impl=impl, dtype=dtype,
+               warmed_buckets=warmed,
                warmup_s=warm_s, requests=len(results), flushes=flushes,
                cache_hits=snap["cache_hits"], launches=launches,
                over_gate_dispatches=model.over_gate_dispatches,
@@ -768,6 +821,217 @@ def phase_serve(impl: str) -> dict:
                latency_p99_ms=snap["latency_p99_ms"],
                flush_breakdown=_flush_breakdown(
                    engine, [engine._normalize_graph(g) for g in reqs[:16]]))
+    emit(**rec)
+    return rec
+
+
+def _bf16_diff(got, want) -> dict:
+    """A bf16 kernel output against its plain version: the elements that
+    differ, of how many, and the largest difference in bf16 steps of the
+    plain value (2^-8 to 2^-7 of it a step)."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    nonzero = w != 0
+    return {"elements_differing": int((d > 0).sum()),
+            "elements": g.numel(),
+            "max_rel_diff": float((d[nonzero] / w[nonzero].abs()).max())
+            if bool(nonzero.any()) else 0.0}
+
+
+def phase_kernels_bf16(model: FlowGNN) -> dict:
+    """Phase 25: both bf16 instances against their plain versions at the
+    serving and flagship shapes, the persistent one bit for bit the scan
+    of the fused one, timed beside their bounds, their plain versions and
+    the f32 kernels on the same inputs; returns the serving-shape numbers
+    by kernel."""
+    cfg = model.config
+    params = model.ggnn_step.step_params()
+    p16 = fused_gnn.packed_weights(params, torch.bfloat16)
+    p32 = fused_gnn.packed_weights(params)
+    k = cfg.n_steps
+    serving = {}
+    with torch.inference_mode():
+        for shape, batch in (("serving", _serving_batch(model)),
+                             ("flagship", _flagship_batch(model))):
+            h32 = torch.cat([model.embeds[k_](batch.node_feats[k_])
+                             for k_ in model.subkeys], dim=-1).contiguous()
+            h = h32.bfloat16()
+            cases = [("bf16", batch.band_adj)]
+            if shape == "serving":
+                cases.append(("f32", dataclasses.replace(
+                    batch.band_adj, vals=batch.band_adj.vals.float())))
+            for vals, adj in cases:
+                if not fused_gnn.persistent_smem_ok(adj, cfg.ggnn_hidden,
+                                                    torch.bfloat16):
+                    raise AssertionError(f"{shape}: row groups over the "
+                                         "bf16 gate")
+                runs = {
+                    "fused_step_kernel_bf16": (
+                        lambda: fused_gnn.fused_gate_step(params, h, adj,
+                                                          packed=p16),
+                        lambda: fused_gnn.fused_step_reference(params, h,
+                                                               adj),
+                        lambda: fused_gnn.fused_gate_step(params, h32, adj,
+                                                          packed=p32),
+                        GNN_BF16_STEP_TOL, 1, k),
+                    "persistent_fwd_kernel_bf16": (
+                        lambda: fused_gnn.persistent_unroll(
+                            params, h, adj, k, packed=p16),
+                        lambda: fused_gnn.persistent_reference(
+                            params, h, adj, k),
+                        lambda: fused_gnn.persistent_unroll(
+                            params, h32, adj, k, packed=p32),
+                        GNN_BF16_UNROLL_TOL, k, 1),
+                }
+                for name, (kernel, plain, f32, tol, steps,
+                           per_forward) in runs.items():
+                    got, want = kernel(), plain()
+                    if got.dtype != torch.bfloat16:
+                        raise AssertionError(f"{name}: {got.dtype} out")
+                    err = _check(f"{name}@{shape}/{vals}", got.float(),
+                                 want.float(), tol)
+                    rec = dict(kernel=name, shape=shape, band_vals=vals,
+                               n_rows=h.shape[0], hidden=h.shape[1],
+                               bandwidth=adj.bandwidth, steps=steps,
+                               max_abs_err=err, tol=tol,
+                               **_bf16_diff(got, want))
+                    if name == "persistent_fwd_kernel_bf16":
+                        rec.update(_scan_record(
+                            f"{name}@{shape}/{vals}", kernel,
+                            lambda: _fused_scan(params, h, adj, k, p16),
+                            adj, cfg.ggnn_hidden, which=name),
+                            scan_bits_equal=True)
+                    else:
+                        rec.update(_step_geometry(adj, cfg.ggnn_hidden,
+                                                  name))
+                    if vals == "bf16":
+                        before = launch_counts()[name]
+                        kernel_ms = _time_ms(kernel)
+                        launches = launch_counts()[name] - before
+                        cost = fused_gnn.kernel_cost(adj, cfg.ggnn_hidden,
+                                                     steps, kernel=name)
+                        bound_ms, bound_by = _bound(cost)
+                        rec.update(
+                            kernel_ms=kernel_ms, plain_ms=_time_ms(plain),
+                            f32_kernel_ms=_time_ms(f32),
+                            bound_us=bound_ms * 1e3, bound_by=bound_by,
+                            **_peak(cost), flops=cost["flops"],
+                            flops_bf16=cost["flops_bf16"],
+                            bytes=cost["bytes"], nnz=cost["nnz"],
+                            launches=launches,
+                            launches_per_forward=per_forward)
+                    emit(phase="kernels_bf16", **rec)
+                    if shape == "serving" and vals == "bf16":
+                        serving[name] = rec
+    return serving
+
+
+def phase_serve_bf16() -> dict:
+    """Phase 26: serving at bf16 through the engine, ``cli score`` and
+    ``cli serve`` over HTTP; a temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="serve_bf16_")
+    try:
+        return _serve_bf16(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _serve_bf16(root: str) -> dict:
+    bf16 = ["--set", "model.dtype=bfloat16"]
+    launches = {k: 0 for k in REPLACES}
+    engine = {}
+    for impl in ("persistent", "fused"):
+        rec = phase_serve(impl, "bfloat16")
+        engine[impl] = {key: rec[key] for key in (
+            "requests", "flushes", "cache_hits", "launches",
+            "over_gate_dispatches", "max_abs_prob_diff_vs_cpu",
+            "requests_per_s", "latency_p50_ms", "latency_p99_ms",
+            "flush_breakdown", "warmup_s")}
+        for key in launches:
+            launches[key] += rec["launches"][key]
+    score = {}
+    for impl in ("persistent", "fused"):
+        lane = ["--set", f"model.message_impl={impl}"]
+        argv = ["score", "--dataset", f"synthetic:{N_REQUESTS}",
+                "--batch-slots", "16", *bf16, *lane]
+        t0 = time.perf_counter()
+        report, counts = _counted_cli(
+            argv + ["--device", "cuda", "--out-dir",
+                    os.path.join(root, f"score_{impl}")])
+        wall_s = time.perf_counter() - t0
+        cpu = _cli(argv + ["--device", "cpu", "--out-dir",
+                           os.path.join(root, f"score_{impl}_cpu")])
+        card, want = _read_probs(report["out"]), _read_probs(cpu["out"])
+        gap = max(abs(card[i] - want[i]) for i in want)
+        batches = report["serving"]["batches"]
+        kname = ("persistent_fwd_kernel_bf16" if impl == "persistent"
+                 else "fused_step_kernel_bf16")
+        want = batches if impl == "persistent" else 5 * batches
+        if (report["n_scored"] != N_REQUESTS or report["n_errors"]
+                or counts[kname] + report["over_gate_dispatches"] < want
+                or counts[kname] == 0 or gap > BF16_GNN_TOL
+                or any(counts[k] for k in fused_gnn.KERNELS
+                       if not k.endswith("_bf16"))):
+            raise AssertionError(f"cli score ({impl}, bf16): {report}, "
+                                 f"launches {counts}, |card - cpu| {gap}")
+        for key in launches:
+            launches[key] += counts[key]
+        score[impl] = dict(wall_s=wall_s, batches=batches, launches={
+            k: v for k, v in counts.items() if v},
+            max_abs_prob_diff_vs_cpu=gap,
+            latency_p50_ms=report["serving"]["latency_p50_ms"],
+            latency_p99_ms=report["serving"]["latency_p99_ms"])
+    # cli serve over HTTP, GNN lane, the default (persistent) lane.
+    graphs = [{k: g[k] for k in ("num_nodes", "senders", "receivers",
+                                 "feats", "id")}
+              for g in synthetic_bigvul(LOAD_CLIENTS * LOAD_POSTS,
+                                        FlowGNNConfig().feature,
+                                        seed=SEED + 21)]
+    t0 = time.perf_counter()
+    # The GNN lane alone, random weights from the seed.
+    proc, base, log = _start_server(bf16, "gnn_bf16", root)
+    start_s = time.perf_counter() - t0
+    try:
+        _, _, m0 = _http(base, "/metrics")
+        _, _, health = _http(base, "/healthz")
+        load = _load_http(base, "gnn", graphs)
+        status, _, replay = _http(base, "/score", {
+            "functions": _functions(graphs[:HTTP_CHUNK])})
+        _, _, m1 = _http(base, "/metrics")
+    finally:
+        rc = _stop_server(proc)
+    if rc != 0:
+        with open(log) as f:
+            raise AssertionError(f"cli serve (bf16) exited {rc}: "
+                                 f"{f.read()[-3000:]}")
+    delta = {k: m1["kernel_launches"][k] - m0["kernel_launches"][k]
+             for k in launches}
+    hits = m1["cache_hits"] - m0["cache_hits"]
+    if (status != 200 or hits != HTTP_CHUNK
+            or not all(r["cached"] for r in replay["results"])
+            or delta["persistent_fwd_kernel_bf16"] == 0
+            or any(delta[k] for k in fused_gnn.KERNELS
+                   if not k.endswith("_bf16"))
+            or m1["compiles"] != m0["compiles"]):
+        raise AssertionError(f"cli serve (bf16): status {status}, {hits} "
+                             f"cache hits, launches {delta}")
+    for key in launches:
+        launches[key] += delta[key]
+    cpu_engine, _ = cli._build_serve_engine(cli.build_parser().parse_args(
+        ["serve", *bf16, "--device", "cpu"]))
+    cpu_engine.warmup()
+    want = np.asarray([r["prob"] for r in cpu_engine.score_sync(graphs)])
+    http_gap = float(np.abs(load["probs"] - want).max())
+    if http_gap > BF16_GNN_TOL:
+        raise AssertionError(f"cli serve (bf16): |card - cpu| {http_gap}")
+    rec = dict(phase="serve_bf16", engine=engine, score=score,
+               http=dict(start_s=start_s, warm_buckets=health[
+                   "warm_buckets"], launches={k: v for k, v in delta.items()
+                                              if v},
+                         cache_hits=hits, max_abs_prob_diff_vs_cpu=http_gap,
+                         **{k: v for k, v in load.items() if k != "probs"}),
+               launches=launches)
     emit(**rec)
     return rec
 
@@ -2093,6 +2357,23 @@ def _recipe(root: str) -> dict:
     if score_diff > SERVE_TOL or counts["persistent_fwd_kernel"] == 0:
         raise AssertionError(f"score against test: {score_diff} (limit "
                              f"{SERVE_TOL}); launches {counts}")
+    # The f32 snapshot tested at bf16 (the f32 params load into the bf16
+    # model): on the card through the bf16 instance, against the CPU.
+    bf16 = ["--set", "model.dtype=bfloat16"]
+    test_bf16, counts = _counted_cli(["test", *gnn, "--checkpoint-dir", full,
+                                      *bf16])
+    add(counts)
+    test_bf16_cpu = _cli(["test", *gnn[:-1], "cpu", "--checkpoint-dir",
+                          full, *bf16])
+    test_bf16_diff = abs(test_bf16["loss"] - test_bf16_cpu["loss"])
+    if (counts["persistent_fwd_kernel_bf16"] == 0
+            or any(counts[k] for k in fused_gnn.KERNELS
+                   if not k.endswith("_bf16"))
+            or test_bf16_diff > BF16_GNN_TOL
+            or abs(test_bf16["loss"] - test_card["loss"]) > BF16_GNN_TOL):
+        raise AssertionError(f"test at bf16: loss {test_bf16['loss']} (cpu "
+                             f"{test_bf16_cpu['loss']}, f32 "
+                             f"{test_card['loss']}); launches {counts}")
 
     # Stage 2: fine-tune DeepDFA+LineVul from the frozen encoder.
     enc = EncoderConfig()
@@ -2161,6 +2442,8 @@ def _recipe(root: str) -> dict:
                resumed_step_losses=got["epochs"][0]["step_losses"],
                test_loss=test_card["loss"], test_loss_cpu=test_cpu["loss"],
                test_loss_diff_vs_cpu=test_loss_diff,
+               test_bf16={k: v for k, v in test_bf16.items()},
+               test_bf16_loss_diff_vs_cpu=test_bf16_diff,
                score_max_abs_diff_vs_test=score_diff,
                n_test=len(card_probs),
                fit_text_wall_s=fit_text_s, fit_text_steps=steps,
@@ -2871,27 +3154,25 @@ def _functions(graphs, codes=None) -> list:
     return out
 
 
-def _start_server(run: str, impl: str, root: str) -> tuple:
-    """``cli serve`` on the card in its own process, on an ephemeral
-    port: (process, base URL, its log path)."""
-    port_file = os.path.join(root, f"port_{impl}")
-    log = os.path.join(root, f"serve_{impl}.log")
+def _start_server(extra, name: str, root: str) -> tuple:
+    """``cli serve`` with the arguments ``extra`` on the card in its own
+    process, on an ephemeral port: (process, base URL, its log path)."""
+    port_file = os.path.join(root, f"port_{name}")
+    log = os.path.join(root, f"serve_{name}.log")
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     with open(log, "w") as f:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "deepdfa_tpu_torch.cli", "serve",
-             "--combined-checkpoint-dir", run, "--set",
-             f"model.message_impl={impl}", "--device", "cuda", "--port", "0",
-             "--port-file", port_file], cwd=here, env=env, stdout=f,
-            stderr=subprocess.STDOUT)
+            [sys.executable, "-m", "deepdfa_tpu_torch.cli", "serve", *extra,
+             "--device", "cuda", "--port", "0", "--port-file", port_file],
+            cwd=here, env=env, stdout=f, stderr=subprocess.STDOUT)
     t0 = time.monotonic()
     while not os.path.exists(port_file):
         if proc.poll() is not None or time.monotonic() - t0 > HTTP_START_S:
             _stop_server(proc)
             with open(log) as f:
-                raise AssertionError(f"cli serve ({impl}) did not start: "
+                raise AssertionError(f"cli serve ({name}) did not start: "
                                      f"{f.read()[-3000:]}")
         time.sleep(0.2)
     with open(port_file) as f:
@@ -3120,7 +3401,9 @@ def _serve_http(root: str) -> dict:
     load_probs = {}
     for impl in ("persistent", "fused"):
         t0 = time.perf_counter()
-        proc, base, log = _start_server(run, impl, root)
+        proc, base, log = _start_server(
+            ["--combined-checkpoint-dir", run, "--set",
+             f"model.message_impl={impl}"], impl, root)
         start_s = time.perf_counter() - t0
         try:
             _, _, m0 = _http(base, "/metrics")
@@ -3650,6 +3933,9 @@ def main() -> int:
         for k, v in timed(f"serve_{impl}", phase_serve, impl)[
                 "launches"].items():
             path_launches[k] += v
+    timings.update(timed("kernels_bf16", phase_kernels_bf16, model))
+    for k, v in timed("serve_bf16", phase_serve_bf16)["launches"].items():
+        path_launches[k] += v
     timings.update(timed("train_kernels", phase_train_kernels, model))
     timings.update(timed("tile_kernels", phase_tile_kernels))
     for impl in ("persistent", "fused", "tile"):
@@ -3697,7 +3983,9 @@ def main() -> int:
                                        "scan_ms", "blocks_per_sm", "cluster",
                                        "active_clusters", "row_tile",
                                        "slab_rows", "blocks", "wide",
-                                       "blocks_per_sm_pass1")
+                                       "blocks_per_sm_pass1", "f32_kernel_ms",
+                                       "elements_differing",
+                                       "scan_bits_equal")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

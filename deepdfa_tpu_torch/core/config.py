@@ -65,6 +65,10 @@ class FeatureSpec:
         )
 
 
+#: The compute dtypes FlowGNN runs at.
+GNN_DTYPES = ("float32", "bfloat16")
+
+
 @dataclasses.dataclass(frozen=True)
 class FlowGNNConfig:
     """FlowGNN GGNN hyperparameters; defaults are the published
@@ -78,7 +82,10 @@ class FlowGNNConfig:
     ``n_steps``). ``pool_impl``: "segment" (``index_add_``), "matmul"
     (the reference's assignment-matrix sums, in one order on CUDA too) or
     "auto" (matmul on CUDA, segment on the CPU). ``embed_impl`` is kept
-    for parity; the port embeds with a gather.
+    for parity; the port embeds with a gather. ``dtype``: the compute
+    dtype of the embeddings, messages, GRU and pooling, "float32" or
+    "bfloat16" (the parameters stay float32 either way, and the head
+    gives float32 logits, as in the reference).
     """
 
     feature: FeatureSpec = dataclasses.field(default_factory=FeatureSpec)
@@ -92,6 +99,11 @@ class FlowGNNConfig:
     remat_steps: bool = True
     pool_impl: str = "auto"
     embed_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.dtype not in GNN_DTYPES:
+            raise ValueError(f"FlowGNNConfig.dtype {self.dtype!r}: one of "
+                             f"{GNN_DTYPES}")
 
     @property
     def input_dim(self) -> int:

@@ -486,6 +486,360 @@ int fwd_occupancy(int max_group_rows, int hidden, int* blocks,
   return static_cast<int>(e);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instances: FlowGNN(dtype="bfloat16"), serving
+// ---------------------------------------------------------------------------
+//
+// fused_step_kernel_bf16     replaces _fwd_kernel at dt = bfloat16 (the
+//                            same Pallas kernel, generic over the dtype).
+// persistent_fwd_kernel_bf16 replaces _persist_fwd_kernel at dt = bfloat16
+//                            (emit_hist=False; its hist sweep is training's).
+//
+// Unlike the f32 kernels, the reference rounds inside the step at bf16
+// (gated_step.cuh: edge_msg_bf16, gate_out_bf16): the message h W_e + b_e
+// is rounded to bf16 before it is aggregated when the band values are bf16,
+// so the f32 kernels' reassociation (aggregate h first) would skip a
+// rounding point. These instances compute each sender's message first,
+// aggregate the messages (f32 sums, the same sender order as the f32
+// kernels) and round the aggregate, then run the gate with the input and
+// recurrent products apart (group_gate_split: each rounds before its bias).
+// h is read and written as bf16; inside, every row array holds f32 (bf16
+// values widened, exact) and the weights arrive as f32 arrays of bf16
+// values (rounded once on the host, ops/fused_gnn.py:packed_weights). The
+// products stay the f32 kernels' register-tiled SIMT FMAs, so the bound is
+// theirs: f32 operations (kernel_cost counts the products of two bf16
+// values at the bf16 tensor-core rate, the bound of the function, which
+// these instances do not reach). The 96 gate accumulators a thread hold
+// one block an SM.
+//
+// fused_step_kernel_bf16 runs in two passes over the same row tiles as
+// fused_step_kernel (step_fwd_plan; a tile's kCS blocks split the product
+// columns without a cluster: they share no shared memory): pass 0 writes
+// every row's message into msg ([n_rows, H] f32) in device memory, since a
+// tile's halo rows belong to other blocks; pass 1 stages the tile's h and
+// messages in shared memory, aggregates (tile senders from there, the
+// halo's from msg), rounds x and runs the gate. persistent_fwd_kernel_bf16
+// keeps its group's h, messages and x in shared memory for all K steps
+// (three row arrays, one more than the f32 kernel without a cluster:
+// ops/fused_gnn.py:persistent_smem_bytes), the cluster exchanging message
+// slices and h' slices as the f32 kernel exchanges x and h'. Both run the
+// same device functions in the same order per element, so K steps of the
+// persistent kernel equal K launches of the fused one bit for bit.
+
+// Pass 0: msg[r] = edge_msg_bf16((h W_e)[r]); pass 1: the aggregate of the
+// messages, rounded, and the gate; h' into out.
+template <typename VT, int kPass, int kCS>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+    fused_step_kernel_bf16(const __nv_bfloat16* __restrict__ h,
+                           const VT* __restrict__ vals,
+                           const float* __restrict__ ek,
+                           const float* __restrict__ eb,
+                           const float* __restrict__ wi,
+                           const float* __restrict__ bi,
+                           const float* __restrict__ wh,
+                           const float* __restrict__ bh,
+                           float* __restrict__ msg,
+                           __nv_bfloat16* __restrict__ out, int n_rows, int H,
+                           int tile, int n_tiles, int bw, int row_tile) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kRoundMsg = sizeof(VT) == 2;
+  const int rank = static_cast<int>(blockIdx.x) % kCS;
+  const Tile t(H, rank, kCS);
+  const int r0 = (blockIdx.x / kCS) * row_tile;
+  const int R = min(row_tile, n_rows - r0), ld = t.ld;
+  float* stages = smem;  // [kStages][stage]
+  float* h_s = stages + kStages * group_stage_floats(H);  // [R, ld] h
+  const size_t off = static_cast<size_t>(r0) * H;
+  rows_to_shared(h_s, ld, h + off, R, H);
+  if constexpr (kPass == 0) {
+    __syncthreads();
+    float* dst = msg + off;
+    group_rows_times<(kCS > 1)>(t, h_s, R, ek, stages,
+                                [&](int r, const float* acc) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = edge_msg_bf16(acc[j], __ldg(eb + t.c0 + j), kRoundMsg);
+      *reinterpret_cast<float4*>(dst + r * H + t.c0) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    });
+  } else {
+    float* m_s = h_s + row_tile * ld;  // [R, ld] the tile's messages
+    float* x_s = m_s + row_tile * ld;  // [R, ld] the aggregate, then x
+    float* rs_s = x_s + row_tile * ld;  // [R] row sums (unused at bf16)
+    rows_to_shared(m_s, ld, msg + off, R, H);
+    __syncthreads();
+    tile_aggregate(vals, tile, n_tiles, bw, msg, m_s, r0, R, ld, H, x_s, rs_s,
+                   stages, kStages * group_stage_floats(H));
+    for (int e = threadIdx.x; e < R * H; e += kGroupThreads) {
+      const int i = (e / H) * ld + e % H;
+      x_s[i] = round_bf16(x_s[i]);
+    }
+    __syncthreads();
+    __nv_bfloat16* dst = out + off;
+    group_gate_split<(kCS > 1)>(
+        t, x_s, h_s, R, wi, wh, stages,
+        [&](int r, const float* ir, const float* hr, const float* iz,
+            const float* hz, const float* in, const float* hn) {
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = gate_out_bf16(ir[j], hr[j], iz[j], hz[j], in[j], hn[j],
+                                 gate_bias_bf16(bi, bh, H, t.c0 + j),
+                                 h_s[r * ld + t.c0 + j]);
+          store_bf16x4(dst + r * H + t.c0, v[0], v[1], v[2], v[3]);
+        });
+  }
+}
+
+// Dynamic shared memory of fused_step_kernel_bf16's pass: the weight-slab
+// stages, then the tile's h (pass 0), or its h, messages and x and the row
+// sums (pass 1) (ops/fused_gnn.py:step_smem_bytes mirrors it).
+size_t step_bf16_smem(int row_tile, int hidden, int pass) {
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
+          (pass == 0 ? 1 : 3) * static_cast<size_t>(row_tile) *
+              group_ld(hidden) +
+          (pass == 0 ? 0 : row_tile));
+}
+
+// fused_step_kernel_bf16 takes fused_step_kernel's row tiles and blocks a
+// tile, with slabs of kGateRows k rows and the 4 x 4 products everywhere.
+StepPlan step_bf16_plan(int n_rows, int hidden, int sms) {
+  StepPlan p = step_fwd_plan(n_rows, hidden, sms);
+  p.slab_rows = kGateRows;
+  p.wide = false;
+  return p;
+}
+
+// Launches pass kPass (occupancy == nullptr) or queries its occupancy.
+template <typename VT, int kPass, int kCS>
+int step_bf16_pass(const void* h, const void* vals, const void* ek,
+                   const void* eb, const void* wi, const void* bi,
+                   const void* wh, const void* bh, void* msg, void* out,
+                   int n_rows, int hidden, int tile, int n_tiles, int bw,
+                   const StepPlan& p, cudaStream_t st, int* occupancy) {
+  const auto kernel = fused_step_kernel_bf16<VT, kPass, kCS>;
+  const size_t smem = step_bf16_smem(p.row_tile, hidden, kPass);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (occupancy)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occupancy, kernel, kGroupThreads, smem));
+  kernel<<<p.blocks, kGroupThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const VT*>(vals),
+      static_cast<const float*>(ek), static_cast<const float*>(eb),
+      static_cast<const float*>(wi), static_cast<const float*>(bi),
+      static_cast<const float*>(wh), static_cast<const float*>(bh),
+      static_cast<float*>(msg), static_cast<__nv_bfloat16*>(out), n_rows,
+      hidden, tile, n_tiles, bw, p.row_tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Both passes of one step (occupancy: the two passes' blocks an SM).
+template <typename VT, int kCS>
+int launch_step_bf16_cs(const void* h, const void* vals, const void* ek,
+                        const void* eb, const void* wi, const void* bi,
+                        const void* wh, const void* bh, void* msg, void* out,
+                        int n_rows, int hidden, int tile, int n_tiles, int bw,
+                        const StepPlan& p, cudaStream_t st, int* occupancy) {
+  int e = step_bf16_pass<VT, 0, kCS>(h, vals, ek, eb, wi, bi, wh, bh, msg,
+                                      out, n_rows, hidden, tile, n_tiles, bw,
+                                      p, st, occupancy);
+  if (e != 0) return e;
+  return step_bf16_pass<VT, 1, kCS>(h, vals, ek, eb, wi, bi, wh, bh, msg,
+                                    out, n_rows, hidden, tile, n_tiles, bw, p,
+                                    st, occupancy ? occupancy + 1 : nullptr);
+}
+
+template <typename VT>
+int launch_step_bf16(const void* h, const void* vals, const void* ek,
+                     const void* eb, const void* wi, const void* bi,
+                     const void* wh, const void* bh, void* msg, void* out,
+                     int n_rows, int hidden, int tile, int n_tiles, int bw,
+                     cudaStream_t st, int* occupancy = nullptr) {
+  const StepPlan p = step_bf16_plan(n_rows, hidden, device_sms());
+  if (p.cluster == 1)
+    return launch_step_bf16_cs<VT, 1>(h, vals, ek, eb, wi, bi, wh, bh, msg,
+                                      out, n_rows, hidden, tile, n_tiles, bw,
+                                      p, st, occupancy);
+  return launch_step_bf16_cs<VT, 2>(h, vals, ek, eb, wi, bi, wh, bh, msg, out,
+                                    n_rows, hidden, tile, n_tiles, bw, p, st,
+                                    occupancy);
+}
+
+// K steps with the group resident: h_s (h), m_s (the messages; with kCS > 1
+// every block's message slice lands there, and later the block's h' slice),
+// x_s (the aggregate, then x), the row sums.
+template <typename VT, int kCS>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+    persistent_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ h0,
+                               const VT* __restrict__ vals,
+                               const float* __restrict__ ek,
+                               const float* __restrict__ eb,
+                               const float* __restrict__ wi,
+                               const float* __restrict__ bi,
+                               const float* __restrict__ wh,
+                               const float* __restrict__ bh,
+                               const int* __restrict__ groups,
+                               __nv_bfloat16* __restrict__ out, int H,
+                               int tile, int n_tiles, int bw, int n_steps,
+                               int max_rows) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kRoundMsg = sizeof(VT) == 2;
+  const int grp = blockIdx.x / kCS;
+  const int rank = kCS > 1 ? static_cast<int>(cg::this_cluster().block_rank())
+                           : 0;
+  const Tile t(H, rank, kCS);
+  const int g0 = groups[grp], g1 = groups[grp + 1];
+  const int R = g1 - g0, ld = t.ld, hi = min(t.hi, H);
+  float* stages = smem;                                   // [kStages][stage]
+  float* h_s = stages + kStages * group_stage_floats(H);  // [R, ld] h
+  float* m_s = h_s + max_rows * ld;                       // [R, ld] messages
+  float* x_s = m_s + max_rows * ld;                       // [R, ld] x
+  float* rs_s = x_s + max_rows * ld;                      // [R] row sums
+  // The cluster's copies of m_s and h_s (distributed shared memory).
+  float* m_at[kCS];
+  float* h_at[kCS];
+  if constexpr (kCS > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+    for (int c = 0; c < kCS; ++c) {
+      m_at[c] = cluster.map_shared_rank(m_s, c);
+      h_at[c] = cluster.map_shared_rank(h_s, c);
+    }
+  } else {
+    m_at[0] = m_s;
+    h_at[0] = h_s;
+  }
+  const size_t goff = static_cast<size_t>(g0) * H;
+  rows_to_shared(h_s, ld, h0 + goff, R, H);
+  __syncthreads();
+  if constexpr (kCS > 1) cg::this_cluster().sync();
+  for (int step = 0; step < n_steps; ++step) {
+    group_rows_times<(kCS > 1)>(t, h_s, R, ek, stages, [&](int r,
+                                                           const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = r * ld + t.c0 + j;
+        const float m =
+            edge_msg_bf16(acc[j], __ldg(eb + t.c0 + j), kRoundMsg);
+#pragma unroll
+        for (int c = 0; c < kCS; ++c) m_at[c][e] = m;
+      }
+    });
+    if constexpr (kCS > 1) cg::this_cluster().sync();  // every slice in
+    group_aggregate(vals, tile, n_tiles, bw, m_s, ld, g0, g1, H, x_s, rs_s);
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * H; e += kGroupThreads) {
+      const int i = (e / H) * ld + e % H;
+      x_s[i] = round_bf16(x_s[i]);
+    }
+    __syncthreads();
+    float* hn_s = kCS > 1 ? m_s : h_s;
+    group_gate_split<(kCS > 1)>(
+        t, x_s, h_s, R, wi, wh, stages,
+        [&](int r, const float* ir, const float* hr, const float* iz,
+            const float* hz, const float* in, const float* hn) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = r * ld + t.c0 + j;
+            hn_s[e] = gate_out_bf16(ir[j], hr[j], iz[j], hz[j], in[j], hn[j],
+                                    gate_bias_bf16(bi, bh, H, t.c0 + j),
+                                    h_s[e]);
+          }
+        });
+    if constexpr (kCS > 1) {
+      cg::this_cluster().sync();  // every block's gate has read h_s
+      const int q = (hi - t.lo) / 4;
+      for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
+        const int i = (e / q) * ld + t.lo + 4 * (e % q);
+        const float4 v = *reinterpret_cast<const float4*>(m_s + i);
+#pragma unroll
+        for (int c = 0; c < kCS; ++c)
+          *reinterpret_cast<float4*>(h_at[c] + i) = v;
+      }
+      cg::this_cluster().sync();  // every h' slice in
+    }
+  }
+  rows_to_global(out + goff, h_s, ld, R, H, t.lo, hi);
+}
+
+template <typename VT, int kCS>
+int persistent_bf16_instance(const void* h0, const void* vals, const void* ek,
+                             const void* eb, const void* wi, const void* bi,
+                             const void* wh, const void* bh,
+                             const void* groups, int n_groups,
+                             int max_group_rows, int n_steps, void* out,
+                             int hidden, int tile, int n_tiles, int bw,
+                             cudaStream_t st, int* blocks, int* clusters) {
+  const auto kernel = persistent_fwd_kernel_bf16<VT, kCS>;
+  // Three row arrays at any cluster size, as the f32 kernel's in a
+  // cluster (ops/fused_gnn.py:persistent_smem_bytes mirrors it).
+  const size_t smem = persistent_fwd_smem(max_group_rows, hidden, 2);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  if (blocks) {  // the occupancy query
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      kGroupThreads, smem);
+    if (e == cudaSuccess && kCS > 1) {
+      const cudaLaunchConfig_t cfg = cluster_config(kCS, kCS, smem, 0, &attr);
+      e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+    }
+    return static_cast<int>(e);
+  }
+  if (kCS == 1) {
+    kernel<<<n_groups, kGroupThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(h0), static_cast<const VT*>(vals),
+        static_cast<const float*>(ek), static_cast<const float*>(eb),
+        static_cast<const float*>(wi), static_cast<const float*>(bi),
+        static_cast<const float*>(wh), static_cast<const float*>(bh),
+        static_cast<const int*>(groups), static_cast<__nv_bfloat16*>(out),
+        hidden, tile, n_tiles, bw, n_steps, max_group_rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const cudaLaunchConfig_t cfg =
+      cluster_config(n_groups * kCS, kCS, smem, st, &attr);
+  e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(h0),
+      static_cast<const VT*>(vals), static_cast<const float*>(ek),
+      static_cast<const float*>(eb), static_cast<const float*>(wi),
+      static_cast<const float*>(bi), static_cast<const float*>(wh),
+      static_cast<const float*>(bh), static_cast<const int*>(groups),
+      static_cast<__nv_bfloat16*>(out), hidden, tile, n_tiles, bw, n_steps,
+      max_group_rows);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename VT>
+int launch_persistent_bf16(const void* h0, const void* vals, const void* ek,
+                           const void* eb, const void* wi, const void* bi,
+                           const void* wh, const void* bh, const void* groups,
+                           int n_groups, int max_group_rows, int n_steps,
+                           int cluster, void* out, int hidden, int tile,
+                           int n_tiles, int bw, cudaStream_t st,
+                           int* blocks = nullptr, int* clusters = nullptr) {
+  switch (cluster) {
+    case 1:
+      return persistent_bf16_instance<VT, 1>(
+          h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+          n_steps, out, hidden, tile, n_tiles, bw, st, blocks, clusters);
+    case 2:
+      return persistent_bf16_instance<VT, 2>(
+          h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+          n_steps, out, hidden, tile, n_tiles, bw, st, blocks, clusters);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -595,6 +949,90 @@ int persistent_fwd_occupancy(int vals_bf16, int max_group_rows, int hidden,
                                        clusters)
              : fwd_occupancy<float, 2>(max_group_rows, hidden, blocks,
                                        clusters);
+}
+
+// One bf16 gated step (fused_step_kernel_bf16, two passes): h, out
+// [n_rows, hidden] bf16; msg [n_rows, hidden] f32 scratch (the messages);
+// the weights f32 arrays of bf16 values; otherwise as fused_step_launch.
+int fused_step_bf16_launch(const void* h, const void* vals, int vals_bf16,
+                           const void* ek, const void* eb, const void* wi,
+                           const void* bi, const void* wh, const void* bh,
+                           void* msg, void* out, int n_rows, int hidden,
+                           int tile, int n_tiles, int bandwidth,
+                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16)
+    return launch_step_bf16<__nv_bfloat16>(h, vals, ek, eb, wi, bi, wh, bh,
+                                           msg, out, n_rows, hidden, tile,
+                                           n_tiles, bandwidth, st);
+  return launch_step_bf16<float>(h, vals, ek, eb, wi, bi, wh, bh, msg, out,
+                                 n_rows, hidden, tile, n_tiles, bandwidth, st);
+}
+
+// fused_step_bf16_launch's geometry: as fused_step_geometry, with each
+// pass's blocks an SM and shared memory (pass 0: the messages; pass 1: the
+// aggregate and the gate).
+int fused_step_bf16_geometry(int vals_bf16, int n_rows, int hidden,
+                             int* row_tile, int* cluster, int* slab_rows,
+                             int* blocks, int* blocks_per_sm,
+                             int* blocks_per_sm_pass1, int* smem_bytes,
+                             int* smem_bytes_pass1, int* sms) {
+  *sms = device_sms();
+  const StepPlan p = step_bf16_plan(n_rows, hidden, *sms);
+  *row_tile = p.row_tile;
+  *cluster = p.cluster;
+  *slab_rows = p.slab_rows;
+  *blocks = p.blocks;
+  *smem_bytes = static_cast<int>(step_bf16_smem(p.row_tile, hidden, 0));
+  *smem_bytes_pass1 = static_cast<int>(step_bf16_smem(p.row_tile, hidden, 1));
+  int occ[2] = {0, 0};
+  const int e = vals_bf16 ? launch_step_bf16<__nv_bfloat16>(
+                                nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, nullptr, nullptr,
+                                n_rows, hidden, 0, 0, 0, nullptr, occ)
+                          : launch_step_bf16<float>(
+                                nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, nullptr, nullptr,
+                                n_rows, hidden, 0, 0, 0, nullptr, occ);
+  *blocks_per_sm = occ[0];
+  *blocks_per_sm_pass1 = occ[1];
+  return e;
+}
+
+// n_steps bf16 gated steps in one launch (persistent_fwd_kernel_bf16): h0,
+// out bf16; otherwise as persistent_fwd_launch.
+int persistent_fwd_bf16_launch(const void* h0, const void* vals,
+                               int vals_bf16, const void* ek, const void* eb,
+                               const void* wi, const void* bi, const void* wh,
+                               const void* bh, const void* groups,
+                               int n_groups, int max_group_rows, int n_steps,
+                               int cluster, void* out, int hidden, int tile,
+                               int n_tiles, int bandwidth, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16)
+    return launch_persistent_bf16<__nv_bfloat16>(
+        h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+        n_steps, cluster, out, hidden, tile, n_tiles, bandwidth, st);
+  return launch_persistent_bf16<float>(
+      h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+      n_steps, cluster, out, hidden, tile, n_tiles, bandwidth, st);
+}
+
+// persistent_fwd_occupancy for the instance of persistent_fwd_kernel_bf16
+// a launch runs.
+int persistent_fwd_bf16_occupancy(int vals_bf16, int max_group_rows,
+                                  int hidden, int cluster, int* blocks,
+                                  int* clusters) {
+  *clusters = 0;
+  if (vals_bf16)
+    return launch_persistent_bf16<__nv_bfloat16>(
+        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, 0, max_group_rows, 0, cluster, nullptr, hidden, 0,
+        0, 0, nullptr, blocks, clusters);
+  return launch_persistent_bf16<float>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, 0, max_group_rows, 0, cluster, nullptr, hidden, 0, 0, 0,
+      nullptr, blocks, clusters);
 }
 
 }  // extern "C"

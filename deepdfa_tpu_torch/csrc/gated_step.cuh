@@ -59,6 +59,69 @@ __device__ __forceinline__ float gate_out(float pr, float pz, float gn,
   return fmaf(1.0f - zg, ng, zg * hc);
 }
 
+// The bf16 instances (fused_step_kernel_bf16, persistent_fwd_kernel_bf16)
+// round where the reference's _fwd_kernel rounds at dt = bfloat16: every
+// product and sum in f32 (a product of two bf16 values is exact there),
+// then round to bf16 (round to nearest even, as torch and XLA) at each of
+// its points. The _rn intrinsics keep nvcc from contracting a product into
+// the next add across a rounding point.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// jax.nn.sigmoid of a bf16 value as XLA computes it: 1 / (1 + exp(-x)),
+// the exponential, the sum and the quotient each rounded to bf16.
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  const float e = round_bf16(expf(-x));
+  return round_bf16(__fdiv_rn(1.0f, round_bf16(__fadd_rn(1.0f, e))));
+}
+
+// The message of one element at bf16 h: (h W_e)[col] (f32 sum acc) plus
+// b_e[col]. bf16 band values (the message dtype is bf16): the product
+// rounded, then the bias added in bf16. f32 band values (a multiplicity not
+// bf16-exact): an f32 message, as the reference's upcast-only rule.
+__device__ __forceinline__ float edge_msg_bf16(float acc, float b,
+                                               bool round_msg) {
+  return round_msg ? round_bf16(__fadd_rn(round_bf16(acc), b))
+                   : __fadd_rn(acc, b);
+}
+
+// The gate biases of column col at bf16, input and recurrent apart (each
+// product rounds before its bias is added).
+struct GateBiasBf16 {
+  float ir, iz, in, hr, hz, hn;
+};
+
+__device__ __forceinline__ GateBiasBf16 gate_bias_bf16(
+    const float* __restrict__ bi, const float* __restrict__ bh, int H,
+    int col) {
+  return {__ldg(bi + col),     __ldg(bi + H + col), __ldg(bi + 2 * H + col),
+          __ldg(bh + col),     __ldg(bh + H + col), __ldg(bh + 2 * H + col)};
+}
+
+// h' of one element at bf16 from the six f32 product sums (x w_ir, h w_hr,
+// x w_iz, h w_hz, x w_in, h w_hn) and the carry hc: gi = round(round(x w_i)
+// + b_i), gh = round(round(h w_h) + b_h), then the GRU gate with every op
+// rounded to bf16 (the reference kernel's gate, op for op).
+__device__ __forceinline__ float gate_out_bf16(float ir, float hr, float iz,
+                                               float hz, float in, float hn,
+                                               const GateBiasBf16& b,
+                                               float hc) {
+  const float gir = round_bf16(__fadd_rn(round_bf16(ir), b.ir));
+  const float giz = round_bf16(__fadd_rn(round_bf16(iz), b.iz));
+  const float gin = round_bf16(__fadd_rn(round_bf16(in), b.in));
+  const float ghr = round_bf16(__fadd_rn(round_bf16(hr), b.hr));
+  const float ghz = round_bf16(__fadd_rn(round_bf16(hz), b.hz));
+  const float ghn = round_bf16(__fadd_rn(round_bf16(hn), b.hn));
+  const float rg = sigmoid_bf16(round_bf16(__fadd_rn(gir, ghr)));
+  const float zg = sigmoid_bf16(round_bf16(__fadd_rn(giz, ghz)));
+  const float ng = round_bf16(
+      tanhf(round_bf16(__fadd_rn(gin, round_bf16(__fmul_rn(rg, ghn))))));
+  const float keep =
+      round_bf16(__fmul_rn(round_bf16(__fsub_rn(1.0f, zg)), ng));
+  return round_bf16(__fadd_rn(keep, round_bf16(__fmul_rn(zg, hc))));
+}
+
 // The gate's backward for one element: the output cotangent gv through
 // the recomputed gates gives the pre-activation cotangents (dp's four
 // blocks: dpre_r, dpre_z, dpre_n, dpre_hn) and the direct carry

@@ -2,6 +2,15 @@
 per-segment sums and softmax with ``index_add_`` and ``scatter_reduce``,
 and the dense assignment matrix that turns a masked segment sum into a
 matmul.
+
+bf16 data: the reference's ``jax.ops.segment_sum`` on bf16 data adds on
+XLA's CPU backend one update at a time, in update order, rounding the
+running sum to bf16 after each add (its scatter's combiner runs in bf16;
+an f32 sum rounded once differs from it by several bf16 steps on a
+pooled graph of a few hundred nodes). :func:`segment_sum` adds bf16 data
+the same way, in row order, one pass over the rows of each rank within
+their segment. :func:`segment_softmax` on bf16 logits rounds each op to
+bf16, as the reference's does.
 """
 
 from __future__ import annotations
@@ -14,10 +23,43 @@ import torch
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum rows of ``data`` into ``num_segments`` buckets. Callers zero
-    padded rows first (padded ids point at slot 0)."""
+    padded rows first (padded ids point at slot 0). bf16 data: the running
+    sum of each bucket rounds to bf16 after each row, in row order."""
+    if data.dtype == torch.bfloat16:
+        return _segment_sum_bf16(data, segment_ids, num_segments)
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     return out.index_add_(0, segment_ids.long(), data)
+
+
+def _segment_sum_bf16(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """bf16 segment sums with one rounding an add, rows in order. Level j
+    adds each bucket's j-th row (ranks by row order), so a bucket's adds
+    run in its rows' order; all-zero rows change no sum (the running sum
+    starts at +0 and x + 0 = x) and are left out, which drops the padding
+    that callers zero."""
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    keep = (data != 0).reshape(data.shape[0], -1).any(1)
+    rows = torch.nonzero(keep)[:, 0]
+    if rows.numel() == 0:
+        return out
+    ids = segment_ids.long()[rows]
+    counts = torch.bincount(ids, minlength=num_segments)
+    order = torch.argsort(ids, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = (torch.arange(order.numel(), device=ids.device)
+                   - (torch.cumsum(counts, 0) - counts)[ids[order]])
+    level = torch.argsort(rank, stable=True)  # rows by rank, then row order
+    per_level = torch.bincount(rank).tolist()
+    start = 0
+    for n in per_level:
+        pick = level[start:start + n]
+        start += n
+        dst = ids[pick]  # distinct buckets within a level
+        out[dst] = out[dst] + data[rows[pick]]
+    return out
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -45,7 +87,8 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Numerically stable softmax within each segment; masked rows get
-    zero weight."""
+    zero weight. bf16 logits: each op rounds to bf16, the denominators
+    sum in f32 (:func:`segment_sum`)."""
     if mask is not None:
         logits = torch.where(mask, logits, -torch.inf)
     seg_max = segment_max(logits, segment_ids, num_segments)

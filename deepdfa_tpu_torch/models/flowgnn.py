@@ -25,6 +25,17 @@ launch. A persistent batch whose row groups exceed the kernel's
 shared memory (the backward's larger gate when a gradient is needed)
 runs the fused kernel per step instead, counted in
 ``FlowGNN.over_gate_dispatches``.
+
+``dtype="bfloat16"`` (``FlowGNNConfig.dtype``; the reference's TPU
+flagship): the parameters stay f32; the embeddings, messages, GRU,
+skip-concat and pooling compute in bf16 at the reference's rounding
+points (each Dense rounds its product, then its bias add; each
+elementwise op of the GRU rounds; the explicit casts of ``_dense`` and
+``ops/fused_gnn.py``'s bf16 helpers, not ``torch.autocast``); the head
+takes the pooled bf16 rows widened and gives f32 logits. The fused and
+persistent lanes launch the kernels' bf16 instances on the card. Serving
+and evaluation only: a backward through those lanes at bf16 raises on
+the card (ROADMAP A3b-2).
 """
 
 from __future__ import annotations
@@ -105,15 +116,30 @@ class EmbedTable(nn.Module):
     indexing's backward walks repeated indices one by one (most nodes
     share index 0, "not a definition")."""
 
-    def __init__(self, num: int, dim: int, gen: torch.Generator):
+    def __init__(self, num: int, dim: int, gen: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         # variance_scaling(1.0, "fan_in", "normal", out_axis=0): an
         # untruncated normal whose fan_in is the embedding width.
         self.embedding = nn.Parameter(
             torch.randn((num, dim), generator=gen) * math.sqrt(1.0 / dim))
+        self.dtype = dtype
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx.long(), self.embedding)
+        # The f32 rows, cast to the model's dtype after the lookup.
+        return F.embedding(idx.long(), self.embedding).to(self.dtype)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` with f32 parameters. bf16: the
+    product of the rounded input and kernel summed in f32 and rounded,
+    then the rounded bias added in bf16 (XLA keeps both roundings).
+    f32: ``lin(x)``."""
+    if dtype == torch.float32:
+        return lin(x)
+    y = fused_gnn.matmul_bf16(x.to(dtype), lin.weight.T.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 class GatedGraphStep(nn.Module):
@@ -121,9 +147,11 @@ class GatedGraphStep(nn.Module):
     ``h' = GRU(a, h)`` (flax ``GRUCell`` gate names and biases)."""
 
     def __init__(self, hidden: int, in_features: int, gen: torch.Generator,
-                 message_impl: str = "segment"):
+                 message_impl: str = "segment",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.message_impl = message_impl
+        self.dtype = dtype
         self.edge_linear = _linear(in_features, hidden, gen)
         self.gru = nn.ModuleDict({
             "ir": _linear(hidden, hidden, gen),
@@ -148,6 +176,13 @@ class GatedGraphStep(nn.Module):
 
     def _gru(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         g = self.gru
+        if self.dtype == torch.bfloat16:
+            # flax GRUCell(dtype=bfloat16): each Dense and each
+            # elementwise op rounds to bf16.
+            dt = self.dtype
+            gi = torch.cat([_dense(g[k], x, dt) for k in ("ir", "iz", "in")], 1)
+            gh = torch.cat([_dense(g[k], h, dt) for k in ("hr", "hz", "hn")], 1)
+            return fused_gnn.gru_bf16(gi, gh, h)
         r = torch.sigmoid(g["ir"](x) + g["hr"](h))
         z = torch.sigmoid(g["iz"](x) + g["hz"](h))
         n = torch.tanh(g["in"](x) + r * g["hn"](h))
@@ -168,7 +203,7 @@ class GatedGraphStep(nn.Module):
         if impl == "tile" and batch.tile_adj is None:
             raise ValueError(
                 "message_impl='tile' needs batch_graphs(build_tile_adj=True)")
-        msg = self.edge_linear(h)
+        msg = _dense(self.edge_linear, h, self.dtype)
         if impl == "tile":
             agg = tile_spmm(batch.tile_adj, msg)
         elif impl == "band":
@@ -196,24 +231,31 @@ class GlobalAttentionPool(nn.Module):
     repeats its bits. ``impl="auto"``: matmul on CUDA, segment on the CPU.
     """
 
-    def __init__(self, width: int, gen: torch.Generator, impl: str = "auto"):
+    def __init__(self, width: int, gen: torch.Generator, impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.gate = _linear(width, 1, gen)
         self.impl = impl
+        self.dtype = dtype
 
     def forward(self, feat, node_graph, node_mask, n_graphs: int):
-        gate = self.gate(feat)[:, 0]
+        gate = _dense(self.gate, feat, self.dtype)[:, 0]
         impl = self.impl
         if impl == "auto":
             impl = "matmul" if feat.is_cuda else "segment"
         if impl == "segment":
+            # At bf16 each op of the softmax rounds and the sums add row
+            # by row in bf16, as XLA's (graphs/segment.py).
             weights = segment_softmax(gate, node_graph, n_graphs,
                                       mask=node_mask)
             weighted = feat * weights[:, None]
             weighted = torch.where(node_mask[:, None], weighted, 0.0)
             return segment_sum(weighted, node_graph, n_graphs)
         onehot = segment_onehot(node_graph, n_graphs, mask=node_mask)
-        gate = torch.where(node_mask, gate, -torch.inf)
+        # The softmax weights in f32 whatever the dtype (the reference
+        # widens the gate); at bf16 the weighted rows and the pooled
+        # quotient round to bf16, the sums stay f32.
+        gate = torch.where(node_mask, gate.float(), -torch.inf)
         with torch.no_grad():
             shift = torch.where(onehot != 0, gate[None, :],
                                 -torch.inf).amax(dim=1)
@@ -221,7 +263,8 @@ class GlobalAttentionPool(nn.Module):
         e = torch.where(node_mask, torch.exp(gate - shift @ onehot), 0.0)
         denom = onehot @ e
         denom = torch.where(denom > 0, denom, 1.0)  # empty graphs pool to 0
-        return (onehot @ (feat * e[:, None])) / denom[:, None]
+        weighted = feat * e[:, None].to(feat.dtype)
+        return ((onehot @ weighted.float()) / denom[:, None]).to(feat.dtype)
 
 
 class FlowGNN(nn.Module):
@@ -235,10 +278,6 @@ class FlowGNN(nn.Module):
     def __init__(self, config: FlowGNNConfig, device: DeviceLike = None,
                  seed: int = 0, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {config.dtype!r}: the port's graph encoder is float32 "
-                "only; its bf16 kernels come with ROADMAP A3b")
         if config.message_impl not in ("segment", "band", "tile", "fused",
                                        "persistent"):
             raise ValueError(
@@ -249,16 +288,19 @@ class FlowGNN(nn.Module):
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(seed))
         self.config = config
+        self.dtype = getattr(torch, config.dtype)
         self.subkeys = tuple(subkeys_for(config.feature))
         self.embeds = nn.ModuleDict({
-            k: EmbedTable(config.input_dim, config.hidden_dim, gen)
+            k: EmbedTable(config.input_dim, config.hidden_dim, gen,
+                          self.dtype)
             for k in self.subkeys})
         self.ggnn_step = GatedGraphStep(
             config.ggnn_hidden, config.embedding_dim, gen,
-            message_impl=config.message_impl)
+            message_impl=config.message_impl, dtype=self.dtype)
         if config.label_style == "graph":
             self.pooling = GlobalAttentionPool(config.out_dim, gen,
-                                               impl=config.pool_impl)
+                                               impl=config.pool_impl,
+                                               dtype=self.dtype)
         if not config.encoder_mode:
             self.head = nn.ModuleDict({
                 f"output_{i}": _linear(
@@ -276,7 +318,7 @@ class FlowGNN(nn.Module):
         if h.is_cuda and cfg.message_impl in ("fused", "persistent"):
             # Pack the r|z|n weights once for every launch of this pass
             # (differentiable: autograd maps the packed gradients back).
-            packed = fused_gnn.packed_weights(step.step_params())
+            packed = fused_gnn.packed_weights(step.step_params(), self.dtype)
         if cfg.message_impl == "persistent":
             if batch.band_adj is None:
                 raise ValueError("message_impl='persistent' needs "
@@ -284,10 +326,11 @@ class FlowGNN(nn.Module):
             # A pass that needs a gradient runs the persistent backward
             # too, which holds more a row: its gate decides.
             if h.is_cuda and not (
-                    fused_gnn.persistent_bwd_smem_ok
+                    fused_gnn.persistent_bwd_smem_ok(batch.band_adj,
+                                                     cfg.ggnn_hidden)
                     if fused_gnn.needs_grad(h, packed)
-                    else fused_gnn.persistent_smem_ok)(batch.band_adj,
-                                                       cfg.ggnn_hidden):
+                    else fused_gnn.persistent_smem_ok(
+                        batch.band_adj, cfg.ggnn_hidden, self.dtype)):
                 # Over the shared-memory gate: the fused kernel per step.
                 self.over_gate_dispatches += 1
             else:
@@ -310,7 +353,9 @@ class FlowGNN(nn.Module):
                                batch.n_graphs)
         if cfg.encoder_mode:
             return out
-        x = out
+        # The head carries no dtype (flax promotes a bf16 input to the f32
+        # parameters): f32 logits.
+        x = out.float()
         last = cfg.num_output_layers - 1
         for i in range(cfg.num_output_layers):
             x = self.head[f"output_{i}"](x)

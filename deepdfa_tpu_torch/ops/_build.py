@@ -78,6 +78,22 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # vals_bf16, n_rows, hidden, row_tile, cluster, slab_rows, blocks,
         # blocks_per_sm, smem_bytes, sms (int outs)
         "fused_step_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        # the bf16 instances: h, vals, vals_bf16, ek, eb, wi, bi, wh, bh,
+        # msg (f32 scratch), out, n_rows, hidden, tile, n_tiles,
+        # bandwidth, stream
+        "fused_step_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _P],
+        # vals_bf16, n_rows, hidden, row_tile, cluster, slab_rows, blocks,
+        # blocks_per_sm, blocks_per_sm_pass1, smem_bytes,
+        # smem_bytes_pass1, sms (int outs)
+        "fused_step_bf16_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P],
+        # as persistent_fwd_launch
+        "persistent_fwd_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _P, _I, _I, _I,
+                                       _I, _P],
+        # as persistent_fwd_occupancy
+        "persistent_fwd_bf16_occupancy": [_I, _I, _I, _I, _P, _P],
     },
     "fused_gnn_bwd": {
         # h, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT, whT,

@@ -27,6 +27,14 @@ with its plain PyTorch version here:
   the tensor cores), in a fixed order (steps folded K-1 down to 0). Plain
   version :func:`step_weight_grad_reference`.
 
+At bf16 ``h`` (``FlowGNN(dtype="bfloat16")``, serving) :func:`fused_gate_step`
+launches ``fused_step_kernel_bf16`` and :func:`persistent_unroll`
+``persistent_fwd_kernel_bf16``, the same TPU kernels at ``dt =
+bfloat16``: they round where the reference's kernel rounds (the plain
+versions, :func:`fused_step_reference` and :func:`persistent_reference`
+on bf16 ``h``, with it), counted apart (``launches_bf16``). The backward
+kernels take f32 only: a bf16 backward raises (ROADMAP A3b-2).
+
 :func:`fused_step_backward` and :func:`persistent_backward` compose the
 backward kernels into the step VJP and the K-step VJP (plain versions
 :func:`fused_step_backward_reference`, :func:`persistent_backward_reference`).
@@ -58,11 +66,12 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BF16, PEAK_F32_SIMT
 from deepdfa_tpu_torch.ops.band_spmm import (
     BandAdjacency,
     band_spmm,
     transpose_band,
+    vals_compute,
 )
 
 #: Dynamic shared memory one H100 block may opt into (227 KB). The
@@ -103,11 +112,73 @@ def _dense(p: Mapping, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return y
 
 
+# ---------------------------------------------------------------------------
+# bf16: the reference kernel's rounding points
+# ---------------------------------------------------------------------------
+#
+# At dt = bfloat16 the reference's _fwd_kernel rounds inside the step: the
+# packed weights to bf16 first; the message h·W_e (f32 sums) to bf16 and
+# its bias add in bf16 when the band values are bf16 (the message dtype
+# mdt, vals_compute), else the message stays f32; the aggregate (f32 sums)
+# to bf16; each gate product to bf16 and its bias add in bf16; then every
+# elementwise op of the GRU gate in bf16. The plain versions below hold
+# bf16 tensors, take each product and sum in f32 (a product of two bf16
+# values is exact in f32) and round where the kernel rounds; a torch
+# elementwise op on bf16 tensors computes in f32 and rounds its result
+# (round to nearest even), one rounding an op as in the kernel. The CUDA
+# bf16 instances round at the same points.
+
+
+def matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of bf16 tensors: f32 products and sums, rounded once."""
+    return (x.float() @ w.float()).to(torch.bfloat16)
+
+
+def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of a bf16 tensor as XLA computes it:
+    ``1 / (1 + exp(-x))``, the exponential, the sum and the quotient each
+    rounded to bf16 (one rounding of the f32 sigmoid would differ in
+    about a third of the elements)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def gru_bf16(gi: torch.Tensor, gh: torch.Tensor,
+             hc: torch.Tensor) -> torch.Tensor:
+    """The GRU gate on bf16 tensors: ``gi``/``gh`` the [N, 3H] input and
+    recurrent pre-activations (r|z|n, biases added), ``hc`` the carry;
+    each op rounds to bf16, as flax's ``GRUCell(dtype=bfloat16)`` and the
+    reference kernel's gate compute it."""
+    hid = hc.shape[1]
+    r = sigmoid_bf16(gi[:, :hid] + gh[:, :hid])
+    z = sigmoid_bf16(gi[:, hid:2 * hid] + gh[:, hid:2 * hid])
+    n = torch.tanh(gi[:, 2 * hid:] + r * gh[:, 2 * hid:])
+    return (1.0 - z) * n + z * hc
+
+
+def _step_bf16(packed: Sequence[torch.Tensor], h: torch.Tensor,
+               adj: BandAdjacency) -> torch.Tensor:
+    """One step at bf16 from packed bf16 weights, at the reference
+    kernel's rounding points; bf16 ``h`` in and out."""
+    ek, eb, wi, bi, wh, bh = packed
+    if vals_compute(adj, torch.bfloat16)[1] == torch.bfloat16:
+        msg = matmul_bf16(h, ek) + eb
+    else:  # f32 band values: f32 messages
+        msg = h.float() @ ek.float() + eb.float()
+    x = band_spmm(adj, msg).to(torch.bfloat16)
+    gi = matmul_bf16(x, wi) + bi
+    gh = matmul_bf16(h, wh) + bh
+    return gru_bf16(gi, gh, h)
+
+
 def fused_step_reference(params: Mapping, h: torch.Tensor,
                          adj: BandAdjacency) -> torch.Tensor:
     """Plain PyTorch version of ``fused_step_kernel``: edge message ->
-    ``band_spmm`` aggregate -> GRU gate, in ``h``'s dtype."""
+    ``band_spmm`` aggregate -> GRU gate, in ``h``'s dtype. bf16 ``h``:
+    the plain version of ``fused_step_kernel_bf16``, rounding where the
+    reference kernel rounds (weights packed at bf16)."""
     dt = h.dtype
+    if dt == torch.bfloat16:
+        return _step_bf16(packed_weights(params, dt), h, adj)
     msg = _dense(params["edge_linear"], h, dt)
     agg = band_spmm(adj, msg)
     g = params["gru"]
@@ -120,32 +191,35 @@ def fused_step_reference(params: Mapping, h: torch.Tensor,
 
 def persistent_reference(params: Mapping, h: torch.Tensor,
                          adj: BandAdjacency, n_steps: int) -> torch.Tensor:
-    """Plain PyTorch version of ``persistent_fwd_kernel``: ``n_steps``
-    applications of :func:`fused_step_reference` with shared weights."""
+    """Plain PyTorch version of ``persistent_fwd_kernel`` (and, for bf16
+    ``h``, of ``persistent_fwd_kernel_bf16``): ``n_steps`` applications
+    of :func:`fused_step_reference` with shared weights."""
     for _ in range(n_steps):
         h = fused_step_reference(params, h, adj)
     return h
 
 
-def packed_weights(params: Mapping) -> Tuple[torch.Tensor, ...]:
-    """(ek, eb, wi, bi, wh, bh) in f32, the kernels' weight layout: the
+def packed_weights(params: Mapping, dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, ...]:
+    """(ek, eb, wi, bi, wh, bh) at ``dtype`` (the model's: f32, or bf16
+    rounded from the f32 parameters, as the reference's
+    ``_packed_weights(params, dt)``), the kernels' weight layout: the
     edge weights, and the r|z|n gate kernels concatenated on the output
     axis ([H, 3H]); the recurrent bias packs ``[0, 0, b_hn]`` (flax's GRU
     has no hidden-side r/z bias). Biases are ``[1, n]`` rows, as in the
     reference."""
-    dt = torch.float32
     g = params["gru"]
     hidden = g["ir"]["kernel"].shape[0]
-    ek = params["edge_linear"]["kernel"].to(dt)
-    eb = params["edge_linear"]["bias"].to(dt).reshape(1, -1)
+    ek = params["edge_linear"]["kernel"].to(dtype)
+    eb = params["edge_linear"]["bias"].to(dtype).reshape(1, -1)
     wi = torch.cat([g["ir"]["kernel"], g["iz"]["kernel"], g["in"]["kernel"]],
-                   dim=1).to(dt)
+                   dim=1).to(dtype)
     bi = torch.cat([g["ir"]["bias"], g["iz"]["bias"], g["in"]["bias"]]
-                   ).to(dt).reshape(1, -1)
+                   ).to(dtype).reshape(1, -1)
     wh = torch.cat([g["hr"]["kernel"], g["hz"]["kernel"], g["hn"]["kernel"]],
-                   dim=1).to(dt)
-    zeros = torch.zeros(2 * hidden, dtype=dt, device=wh.device)
-    bh = torch.cat([zeros, g["hn"]["bias"].to(dt)]).reshape(1, -1)
+                   dim=1).to(dtype)
+    zeros = torch.zeros(2 * hidden, dtype=dtype, device=wh.device)
+    bh = torch.cat([zeros, g["hn"]["bias"].to(dtype)]).reshape(1, -1)
     return ek, eb, wi, bi, wh, bh
 
 
@@ -171,24 +245,31 @@ def _persistent_smem(adj: BandAdjacency, hidden: int, row_arrays: int) -> int:
 
 
 def persistent_smem_bytes(adj: BandAdjacency, hidden: int,
-                          cluster: int = 1) -> int:
+                          cluster: int = 1,
+                          dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of ``persistent_fwd_kernel``'s blocks (every block
     gets the largest group's): the weight-slab stages, the group's
     resident h and its aggregate (x) at :func:`persistent_row_stride`, a
     third such array (x apart from the aggregate) when ``cluster`` blocks
     share a group, one row sum a row. 87,744 bytes for groups of 48 rows
-    at H 128 (two blocks an SM)."""
-    return _persistent_smem(adj, hidden, 2 if cluster == 1 else 3)
+    at H 128 (two blocks an SM). ``dtype`` bf16: the instance
+    ``persistent_fwd_kernel_bf16``, whose group holds its messages apart
+    from h and x: three arrays at any cluster size (113,088 bytes at 48
+    rows)."""
+    three = cluster > 1 or dtype == torch.bfloat16
+    return _persistent_smem(adj, hidden, 3 if three else 2)
 
 
-def persistent_smem_ok(adj: BandAdjacency, hidden: int) -> bool:
+def persistent_smem_ok(adj: BandAdjacency, hidden: int,
+                       dtype: torch.dtype = torch.float32) -> bool:
     """The persistent kernel's eligibility gate (replaces the
     reference's 12 MiB VMEM budget): the adjacency carries closed row
     groups and the largest fits a block's shared memory (184 rows at
-    H 128). Over the gate the model runs ``fused_step_kernel``
-    ``n_steps`` times instead."""
+    H 128; 123 for the bf16 instance). Over the gate the model runs
+    ``fused_step_kernel`` (bf16: ``fused_step_kernel_bf16``) ``n_steps``
+    times instead."""
     return (adj.row_groups is not None
-            and persistent_smem_bytes(adj, hidden)
+            and persistent_smem_bytes(adj, hidden, 1, dtype)
             <= PERSISTENT_SMEM_BUDGET_BYTES)
 
 
@@ -237,18 +318,22 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
                          cluster: int = 1) -> dict:
     """The CUDA occupancy query (registers, shared memory, threads) for the
     instance of ``persistent_fwd_kernel`` (its hist instance is the same
-    code) or ``persistent_bwd_kernel`` that a launch at this adjacency's
-    largest group runs, ``cluster`` blocks a group (the forward only):
-    ``blocks_per_sm``, the blocks one SM holds, and ``active_clusters``,
-    the clusters the card holds at once (None for cluster 1)."""
+    code), ``persistent_fwd_kernel_bf16`` or ``persistent_bwd_kernel``
+    that a launch at this adjacency's largest group runs, ``cluster``
+    blocks a group (the forwards only): ``blocks_per_sm``, the blocks one
+    SM holds, and ``active_clusters``, the clusters the card holds at once
+    (None for cluster 1)."""
     from deepdfa_tpu_torch.ops import _build
 
     bf16 = int(adj.vals.dtype == torch.bfloat16)
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    if kernel == "persistent_fwd_kernel":
-        err = _build.load("fused_gnn").persistent_fwd_occupancy(
-            bf16, adj.max_group_rows, hidden, cluster, ctypes.byref(blocks),
-            ctypes.byref(clusters))
+    if kernel in ("persistent_fwd_kernel", "persistent_fwd_kernel_bf16"):
+        lib = _build.load("fused_gnn")
+        query = (lib.persistent_fwd_occupancy
+                 if kernel == "persistent_fwd_kernel"
+                 else lib.persistent_fwd_bf16_occupancy)
+        err = query(bf16, adj.max_group_rows, hidden, cluster,
+                    ctypes.byref(blocks), ctypes.byref(clusters))
     elif kernel == "persistent_bwd_kernel" and cluster == 1:
         err = _build.load("fused_gnn_bwd").persistent_bwd_occupancy(
             bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
@@ -285,18 +370,23 @@ def step_plan(n_rows: int, hidden: int, sms: int,
     width leaves each block 32; slabs of 8 k rows where 8 divides
     ``hidden``, else 4: two blocks an SM either way).
     ``fused_step_bwd_kernel``: 32-row tiles, 16 where those are fewer
-    than ``sms`` blocks, slabs of 4, no clusters. Returns ``row_tile``,
-    ``cluster``, ``slab_rows``, ``blocks`` (each pass's grid) and
-    ``wide``. Host ints only."""
+    than ``sms`` blocks, slabs of 4, no clusters.
+    ``fused_step_kernel_bf16``: ``fused_step_kernel``'s tiles and blocks
+    a tile (``cluster``: they split the product columns, without a
+    hardware cluster), slabs of 4, the 4 x 4 products. Returns
+    ``row_tile``, ``cluster``, ``slab_rows``, ``blocks`` (each pass's
+    grid) and ``wide``. Host ints only."""
     cdiv = lambda a, b: -(-a // b)
     hp = persistent_row_stride(hidden) - 4
     wide = False
-    if kernel == "fused_step_kernel":
+    if kernel in ("fused_step_kernel", "fused_step_kernel_bf16"):
         if cdiv(n_rows, 32) >= sms or hp // 2 < 32:
             cs, rt, wide = 1, STEP_WIDE_TILE, hp == 128
             gr = 16 if wide and hidden % 16 == 0 else 4
         else:
             cs, rt, gr = 2, 16, 8 if hidden % 8 == 0 else 4
+        if kernel == "fused_step_kernel_bf16":
+            gr, wide = PERSISTENT_SLAB_ROWS, False
     elif kernel == "fused_step_bwd_kernel":
         cs, gr = 1, PERSISTENT_SLAB_ROWS
         rt = 16 if cdiv(n_rows, 32) < sms else 32
@@ -310,20 +400,26 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
                     kernel: str = "fused_step_kernel", bwd_pass: int = 0
                     ) -> int:
     """Dynamic shared memory of a per-step block (``csrc``'s
-    ``step_fwd_smem`` / ``step_bwd_smem``, which :func:`step_geometry`
-    reports): the weight-slab stages, then row arrays of the tile at
-    :func:`persistent_row_stride` (the forward: h and the aggregate, and x
-    apart from it in a cluster; the backward's pass 0: the cotangent, h
-    and the aggregate; pass 1: dx and dmsg), one row sum a row. Bounded by
-    the tile, never by a graph."""
+    ``step_fwd_smem`` / ``step_bf16_smem`` / ``step_bwd_smem``, which
+    :func:`step_geometry` reports): the weight-slab stages, then row
+    arrays of the tile at :func:`persistent_row_stride` (the forward: h
+    and the aggregate, and x apart from it in a cluster; the bf16
+    forward's pass 0: h, its pass 1: h, the messages and x; the
+    backward's pass 0: the cotangent, h and the aggregate; pass 1: dx and
+    dmsg), one row sum a row (not in the bf16 pass 0). Bounded by the
+    tile, never by a graph. ``bwd_pass`` names the pass of a two-pass
+    kernel."""
     p = step_plan(n_rows, hidden, sms, kernel)
     ld = persistent_row_stride(hidden)
     stages = PERSISTENT_STAGES * p["slab_rows"] * 6 * (ld - 4)
+    sums = p["row_tile"]
     if kernel == "fused_step_kernel":
         arrays = 3 if p["cluster"] > 1 else 2
+    elif kernel == "fused_step_kernel_bf16":
+        arrays, sums = (1, 0) if bwd_pass == 0 else (3, p["row_tile"])
     else:
         arrays = 3 if bwd_pass == 0 else 2
-    return 4 * (stages + arrays * p["row_tile"] * ld + p["row_tile"])
+    return 4 * (stages + arrays * p["row_tile"] * ld + sums)
 
 
 def step_geometry(adj: BandAdjacency, hidden: int,
@@ -332,8 +428,9 @@ def step_geometry(adj: BandAdjacency, hidden: int,
     this adjacency: :func:`step_plan`'s keys as the library reports them,
     ``blocks_per_sm``, the CUDA occupancy query of the instance that
     launches, ``smem_bytes``, its blocks' dynamic shared memory (for the
-    backward, of pass 0, and ``blocks_per_sm_pass1``, ``smem_bytes_pass1``)
-    and ``sms``, the device's SM count the plan filled."""
+    two-pass kernels, of pass 0, and ``blocks_per_sm_pass1``,
+    ``smem_bytes_pass1``) and ``sms``, the device's SM count the plan
+    filled."""
     from deepdfa_tpu_torch.ops import _build
 
     bf16 = int(adj.vals.dtype == torch.bfloat16)
@@ -342,6 +439,11 @@ def step_geometry(adj: BandAdjacency, hidden: int,
         keys = ("row_tile", "cluster", "slab_rows", "blocks",
                 "blocks_per_sm", "smem_bytes", "sms")
         geometry = _build.load("fused_gnn").fused_step_geometry
+    elif kernel == "fused_step_kernel_bf16":
+        keys = ("row_tile", "cluster", "slab_rows", "blocks",
+                "blocks_per_sm", "blocks_per_sm_pass1", "smem_bytes",
+                "smem_bytes_pass1", "sms")
+        geometry = _build.load("fused_gnn").fused_step_bf16_geometry
     elif kernel == "fused_step_bwd_kernel":
         keys = ("row_tile", "slab_rows", "blocks", "blocks_per_sm",
                 "blocks_per_sm_pass1", "smem_bytes", "smem_bytes_pass1",
@@ -361,10 +463,10 @@ def _check_cuda_inputs(h: torch.Tensor, adj: BandAdjacency) -> None:
     if not h.is_cuda:
         raise ValueError(f"the gated-step kernels take CPU tensors (plain "
                          f"version) or CUDA tensors, got {h.device}")
-    if h.dtype != torch.float32:
+    if h.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"the CUDA gated-step kernels take float32 h, got {h.dtype}: "
-            "their bf16 instances come with ROADMAP A3b")
+            f"the CUDA gated-step kernels take float32 or bfloat16 h, got "
+            f"{h.dtype}")
     n, hidden = h.shape
     if hidden > MAX_HIDDEN or hidden % 4:
         raise ValueError(f"hidden {hidden}: the kernels take hidden <= "
@@ -395,11 +497,12 @@ def _launch_args(params: Mapping, h: torch.Tensor, adj: BandAdjacency,
     from deepdfa_tpu_torch.ops import _build
 
     if packed is None:
-        packed = packed_weights(params)
-    weights = [w.detach().contiguous() for w in packed]
-    if any(w.device != h.device or w.dtype != torch.float32
-           for w in weights):
-        raise ValueError(f"step weights must be float32 on {h.device}")
+        packed = packed_weights(params, h.dtype)
+    if any(w.device != h.device or w.dtype != h.dtype for w in packed):
+        raise ValueError(f"step weights must be {h.dtype} on {h.device}, "
+                         "as h")
+    # The kernels read f32 weights: at bf16, the bf16 values widened.
+    weights = [w.detach().float().contiguous() for w in packed]
     stream = ctypes.c_void_p(torch.cuda.current_stream(h.device).cuda_stream)
     bf16 = int(adj.vals.dtype == torch.bfloat16)
     return _build.load(library), weights, bf16, stream
@@ -433,8 +536,10 @@ def _raise_on_error(err: int, kernel: str) -> None:
 
 
 def _packed(params: Optional[Mapping],
-            packed: Optional[Sequence[torch.Tensor]]) -> Tuple:
-    return tuple(packed) if packed is not None else packed_weights(params)
+            packed: Optional[Sequence[torch.Tensor]],
+            dtype: torch.dtype = torch.float32) -> Tuple:
+    return (tuple(packed) if packed is not None
+            else packed_weights(params, dtype))
 
 
 def fused_step_bwd_rows_reference(params: Mapping, h: torch.Tensor,
@@ -556,11 +661,24 @@ def needs_grad(h: torch.Tensor, packed: Sequence[torch.Tensor]) -> bool:
 
 def _fused_step_launch(h: torch.Tensor, adj: BandAdjacency,
                        packed: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``fused_step_kernel``, or for bf16 ``h`` the two passes of
+    ``fused_step_kernel_bf16`` (one count), whose messages cross device
+    memory in an f32 scratch array."""
     with torch.cuda.device(h.device):
         lib, (ek, eb, wi, bi, wh, bh), bf16, stream = _launch_args(
             None, h, adj, packed)
         out = torch.empty_like(h)
         n, hidden = h.shape
+        if h.dtype == torch.bfloat16:
+            msg = torch.empty((n, hidden), dtype=torch.float32,
+                              device=h.device)
+            err = lib.fused_step_bf16_launch(
+                _ptr(h), _ptr(adj.vals), bf16, _ptr(ek), _ptr(eb), _ptr(wi),
+                _ptr(bi), _ptr(wh), _ptr(bh), _ptr(msg), _ptr(out), n,
+                hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
+            _raise_on_error(err, "fused_step_kernel_bf16")
+            fused_gate_step.launches_bf16 += 1
+            return out
         err = lib.fused_step_launch(
             _ptr(h), _ptr(adj.vals), bf16, _ptr(ek), _ptr(eb), _ptr(wi),
             _ptr(bi), _ptr(wh), _ptr(bh), _ptr(out), n, hidden, adj.tile,
@@ -573,8 +691,9 @@ def _fused_step_launch(h: torch.Tensor, adj: BandAdjacency,
 def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
                        packed: Sequence[torch.Tensor], n_steps: int,
                        hist: bool = False) -> torch.Tensor:
-    """``persistent_fwd_kernel`` (h_K), or with ``hist`` its emit-hist
-    instance running ``n_steps - 1`` steps (``[K-1, N, H]``)."""
+    """``persistent_fwd_kernel`` (h_K; ``persistent_fwd_kernel_bf16`` for
+    bf16 ``h``), or with ``hist`` its emit-hist instance running
+    ``n_steps - 1`` steps (``[K-1, N, H]``)."""
     groups = _row_groups(adj, h)
     with torch.cuda.device(h.device):
         lib, (ek, eb, wi, bi, wh, bh), bf16, stream = _launch_args(
@@ -585,6 +704,10 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
                               dtype=h.dtype, device=h.device)
             fn, steps, name = (lib.persistent_fwd_hist_launch, n_steps - 1,
                                "persistent_fwd_hist_kernel")
+        elif h.dtype == torch.bfloat16:
+            out = torch.empty_like(h)
+            fn, steps, name = (lib.persistent_fwd_bf16_launch, n_steps,
+                               "persistent_fwd_kernel_bf16")
         else:
             out = torch.empty_like(h)
             fn, steps, name = (lib.persistent_fwd_launch, n_steps,
@@ -606,10 +729,20 @@ def _transposed(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return wi.t().contiguous(), wh.t().contiguous(), ek.t().contiguous()
 
 
+def _refuse_bf16_backward(h: torch.Tensor, kernel: str) -> None:
+    if h.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{kernel} takes float32 only: the bf16 instances of the "
+            "gated-step backward kernels (and training at bf16) come with "
+            "ROADMAP A3b-2")
+
+
 class _FusedStep(torch.autograd.Function):
     """``fused_step_kernel`` forward, ``fused_step_bwd_kernel`` and
     ``step_weight_grad_kernel`` backward. Differentiable in ``h`` and the
-    six packed weights; saves only those and the adjacency."""
+    six packed weights; saves only those and the adjacency. At bf16 the
+    forward runs ``fused_step_kernel_bf16`` and the backward raises
+    (ROADMAP A3b-2)."""
 
     @staticmethod
     def forward(ctx, adj, h, *packed):
@@ -635,9 +768,7 @@ class _PersistentUnroll(torch.autograd.Function):
     def forward(ctx, adj, n_steps, h, *packed):
         ctx.adj, ctx.n_steps = adj, n_steps
         ctx.save_for_backward(h, *packed)
-        out = _persistent_launch(h, adj, packed, n_steps)
-        persistent_unroll.launches += 1
-        return out
+        return _persistent_unroll_launch(h, adj, packed, n_steps)
 
     @staticmethod
     def backward(ctx, g):
@@ -655,20 +786,33 @@ def fused_gate_step(params: Optional[Mapping], h: torch.Tensor,
 
     CPU tensors: :func:`fused_step_reference` (autograd differentiates
     it). CUDA tensors: ``fused_step_kernel`` (f32 h and weights, bf16 or
-    f32 band values), through :class:`_FusedStep` when a gradient is
-    needed, or an exception. ``packed``: :func:`packed_weights` of
-    ``params``, when the caller packs once for several steps.
+    f32 band values) or, for bf16 ``h`` and weights,
+    ``fused_step_kernel_bf16``, through :class:`_FusedStep` when a
+    gradient is needed, or an exception. ``packed``:
+    :func:`packed_weights` of ``params`` at ``h``'s dtype, when the
+    caller packs once for several steps.
     """
     if h.device.type == "cpu":
         return fused_step_reference(params, h, adj)
     _check_cuda_inputs(h, adj)
-    packed = _packed(params, packed)
+    packed = _packed(params, packed, h.dtype)
     if needs_grad(h, packed):
         return _FusedStep.apply(adj, h, *packed)
     return _fused_step_launch(h, adj, packed)
 
 
-fused_gate_step.launches = 0
+fused_gate_step.launches = fused_gate_step.launches_bf16 = 0
+
+
+def _persistent_unroll_launch(h: torch.Tensor, adj: BandAdjacency,
+                              packed: Sequence[torch.Tensor],
+                              n_steps: int) -> torch.Tensor:
+    out = _persistent_launch(h, adj, packed, n_steps)
+    if h.dtype == torch.bfloat16:
+        persistent_unroll.launches_bf16 += 1
+    else:
+        persistent_unroll.launches += 1
+    return out
 
 
 def persistent_unroll(params: Optional[Mapping], h: torch.Tensor,
@@ -678,7 +822,8 @@ def persistent_unroll(params: Optional[Mapping], h: torch.Tensor,
     """``n_steps`` shared-weight gated steps.
 
     CPU tensors: :func:`persistent_reference`. CUDA tensors: one
-    ``persistent_fwd_kernel`` launch, through :class:`_PersistentUnroll`
+    ``persistent_fwd_kernel`` launch (``persistent_fwd_kernel_bf16`` for
+    bf16 ``h``), through :class:`_PersistentUnroll`
     when a gradient is needed. The adjacency's closed row groups must pass
     :func:`persistent_smem_ok`, and :func:`persistent_bwd_smem_ok` when a
     gradient is needed — callers check the gate and run
@@ -691,25 +836,23 @@ def persistent_unroll(params: Optional[Mapping], h: torch.Tensor,
     if h.device.type == "cpu":
         return persistent_reference(params, h, adj, n_steps)
     _check_cuda_inputs(h, adj)
-    packed = _packed(params, packed)
+    packed = _packed(params, packed, h.dtype)
     grad = needs_grad(h, packed)
     hidden = h.shape[1]
-    if not persistent_smem_ok(adj, hidden) or (
+    if not persistent_smem_ok(adj, hidden, h.dtype) or (
             grad and not persistent_bwd_smem_ok(adj, hidden)):
-        need = (persistent_bwd_smem_bytes if grad
-                else persistent_smem_bytes)(adj, hidden)
+        need = (persistent_bwd_smem_bytes(adj, hidden) if grad
+                else persistent_smem_bytes(adj, hidden, 1, h.dtype))
         raise ValueError(
             f"row groups need {need} B of shared memory > "
             f"{PERSISTENT_SMEM_BUDGET_BYTES} (or the band has no row "
             "groups): dispatch per step through fused_gate_step")
     if grad:
         return _PersistentUnroll.apply(adj, n_steps, h, *packed)
-    out = _persistent_launch(h, adj, packed, n_steps)
-    persistent_unroll.launches += 1
-    return out
+    return _persistent_unroll_launch(h, adj, packed, n_steps)
 
 
-persistent_unroll.launches = 0
+persistent_unroll.launches = persistent_unroll.launches_bf16 = 0
 
 
 def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
@@ -721,6 +864,7 @@ def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
     :meth:`BandAdjacency.transpose_vals`."""
     if h.device.type == "cpu":
         return fused_step_bwd_rows_reference(params, h, adj, g)
+    _refuse_bf16_backward(h, "fused_step_bwd_kernel")
     _check_cuda_inputs(h, adj)
     g = _check_like(g, h, "the output cotangent")
     tv = adj.transpose_vals()
@@ -754,6 +898,7 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
     tensors: ``step_weight_grad_kernel``."""
     if h0.device.type == "cpu":
         return step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps)
+    _refuse_bf16_backward(h0, "step_weight_grad_kernel")
     if not h0.is_cuda:
         raise ValueError(f"the gated-step kernels take CPU tensors (plain "
                          f"version) or CUDA tensors, got {h0.device}")
@@ -808,6 +953,7 @@ def fused_step_backward(params: Optional[Mapping], h: torch.Tensor,
     ``fused_step_bwd_kernel`` then ``step_weight_grad_kernel``."""
     if h.device.type == "cpu":
         return fused_step_backward_reference(params, h, adj, g)
+    _refuse_bf16_backward(h, "fused_step_bwd_kernel")
     dh, x, dp, dmsg = fused_step_bwd_rows(params, h, adj, g, packed)
     return (dh, *step_weight_grads(h.contiguous(), None, x[None], dp[None],
                                    dmsg[None], 1))
@@ -822,6 +968,7 @@ def persistent_hist(params: Optional[Mapping], h: torch.Tensor,
     the forward gate :func:`persistent_smem_ok` applies)."""
     if h.device.type == "cpu":
         return persistent_hist_reference(params, h, adj, n_steps)
+    _refuse_bf16_backward(h, "persistent_fwd_hist_kernel")
     _check_cuda_inputs(h, adj)
     if n_steps < 2:
         return h.new_empty((0,) + tuple(h.shape))
@@ -848,6 +995,7 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
     if h0.device.type == "cpu":
         return persistent_bwd_rows_reference(params, h0, hist, adj, g,
                                              n_steps)
+    _refuse_bf16_backward(h0, "persistent_bwd_kernel")
     _check_cuda_inputs(h0, adj)
     g = _check_like(g, h0, "the output cotangent")
     n, hidden = h0.shape
@@ -896,6 +1044,7 @@ def persistent_backward(params: Optional[Mapping], h0: torch.Tensor,
     sweep, the reverse sweep and the weight gradients, three launches."""
     if h0.device.type == "cpu":
         return persistent_backward_reference(params, h0, adj, g, n_steps)
+    _refuse_bf16_backward(h0, "persistent_bwd_kernel")
     packed = _packed(params, packed)
     hist = persistent_hist(None, h0, adj, n_steps, packed=packed)
     dh, x, dp, dmsg = persistent_bwd_rows(None, h0, hist, adj, g, n_steps,
@@ -904,24 +1053,27 @@ def persistent_backward(params: Optional[Mapping], h0: torch.Tensor,
                                    n_steps))
 
 
+#: Kernel (instance) name -> (wrapper, the attribute counting it).
 _COUNTED = {
-    "fused_step_kernel": fused_gate_step,
-    "persistent_fwd_kernel": persistent_unroll,
-    "fused_step_bwd_kernel": fused_step_bwd_rows,
-    "persistent_fwd_hist_kernel": persistent_hist,
-    "persistent_bwd_kernel": persistent_bwd_rows,
-    "step_weight_grad_kernel": step_weight_grads,
+    "fused_step_kernel": (fused_gate_step, "launches"),
+    "persistent_fwd_kernel": (persistent_unroll, "launches"),
+    "fused_step_bwd_kernel": (fused_step_bwd_rows, "launches"),
+    "persistent_fwd_hist_kernel": (persistent_hist, "launches"),
+    "persistent_bwd_kernel": (persistent_bwd_rows, "launches"),
+    "step_weight_grad_kernel": (step_weight_grads, "launches"),
+    "fused_step_kernel_bf16": (fused_gate_step, "launches_bf16"),
+    "persistent_fwd_kernel_bf16": (persistent_unroll, "launches_bf16"),
 }
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel name -> launches so far."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    for fn, attr in _COUNTED.values():
+        setattr(fn, attr, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -950,6 +1102,39 @@ def _step_bwd_flops(n: int, hidden: int, nnz: int) -> float:
 KERNELS = tuple(_COUNTED)
 
 
+def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
+                    kernel: str, nnz: int) -> Dict[str, float]:
+    """:func:`kernel_cost` of a bf16 instance: ``h`` in and out and the
+    packed weights at 2 bytes, the band as stored. The products of two
+    bf16 values (h W_e, x W_i, h W_h, and A msg when the band values are
+    bf16) at the dense bf16 tensor-core rate, the rest (A msg with f32
+    values, ~20 elementwise operations a gate element: the reference's
+    bf16 gate, op for op) at the f32 SIMT rate; ``peak_flops`` is the one
+    rate that gives the sum of the two times."""
+    n = adj.n_tiles * adj.tile
+    plane = 2.0 * n * hidden
+    band = float(adj.vals.numel() * adj.vals.element_size())
+    weights = (7.0 * hidden * hidden + 7.0 * hidden) * 2
+    dense = 2.0 * n * hidden * hidden + 2.0 * 2.0 * n * hidden * 3 * hidden
+    sparse = 2.0 * nnz * hidden
+    bf16_vals = adj.vals.dtype == torch.bfloat16
+    flops_bf16 = n_steps * (dense + (sparse if bf16_vals else 0.0))
+    flops_f32 = n_steps * ((0.0 if bf16_vals else sparse)
+                           + 20.0 * n * hidden)
+    launches = n_steps if kernel == "fused_step_kernel_bf16" else 1
+    nbytes = 2 * plane * launches + (band + weights) * launches
+    seconds = flops_bf16 / PEAK_BF16[1] + flops_f32 / PEAK_F32_SIMT[1]
+    return {
+        "flops": flops_bf16 + flops_f32,
+        "flops_bf16": flops_bf16,
+        "bytes": nbytes,
+        "peak": f"{PEAK_BF16[0]} (bf16 x bf16 products), {PEAK_F32_SIMT[0]} "
+                "(the rest)",
+        "peak_flops": (flops_bf16 + flops_f32) / seconds,
+        "nnz": nnz,
+    }
+
+
 def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
                 kernel: str = "fused_step_kernel") -> Dict[str, float]:
     """Operations and compulsory bytes of one ``kernel`` call covering
@@ -973,10 +1158,14 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
       ``n_steps`` steps; each step's ``h``, ``x``, ``dp``, ``dmsg`` in,
       the gradients out.
 
+    - ``fused_step_kernel_bf16``/``persistent_fwd_kernel_bf16``: as the
+      f32 forwards, at bf16 (:func:`_bf16_step_cost`: bf16 ``h`` and
+      weights, two rates, ``flops_bf16``).
+
     ``peak_flops``/``peak``: the rate the operations bound divides by:
     the f32 work of 3xTF32 products on the tensor cores for
     ``step_weight_grad_kernel``, f32 FMAs on the CUDA cores for the
-    others. Also ``bwd_flops``/``bwd_bytes``: the
+    other f32 kernels. Also ``bwd_flops``/``bwd_bytes``: the
     whole ``n_steps``-step VJP, as
     the reference's ``fused_step_cost`` counts its ``bwd_*``, with only
     its compulsory traffic (h_0 and g in, dh_0 out, A and A^T, the
@@ -984,6 +1173,8 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
     """
     n = adj.n_tiles * adj.tile
     nnz = int(torch.count_nonzero(adj.vals))
+    if kernel in ("fused_step_kernel_bf16", "persistent_fwd_kernel_bf16"):
+        return _bf16_step_cost(adj, hidden, n_steps, kernel, nnz)
     plane = 4.0 * n * hidden
     band = float(adj.vals.numel() * adj.vals.element_size())
     weights = (7.0 * hidden * hidden + 7.0 * hidden) * 4

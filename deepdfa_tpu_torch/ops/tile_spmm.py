@@ -342,13 +342,13 @@ def _check_cuda(adj: CsrAdjacency, msg: torch.Tensor) -> None:
     ``[n_rows, H]``, contiguous; int32 ``ptr`` ``[n_rows + 1]``, int32
     ``src`` and f32 ``val`` of one length, all contiguous on ``msg``'s
     device."""
-    if not msg.is_cuda:
-        raise ValueError(f"tile_spmm_kernel takes CPU tensors (plain "
-                         f"version) or CUDA tensors, got {msg.device}")
     if msg.dtype != torch.float32:
         raise NotImplementedError(
             f"tile_spmm_kernel takes float32 messages, got {msg.dtype}: "
-            "its bf16 instance comes with ROADMAP A3b")
+            "its bf16 instance comes with ROADMAP A3b-2")
+    if not msg.is_cuda:
+        raise ValueError(f"tile_spmm_kernel takes CPU tensors (plain "
+                         f"version) or CUDA tensors, got {msg.device}")
     n = adj.n_rows
     if msg.dim() != 2 or msg.shape[0] != n or msg.shape[1] < 1:
         raise ValueError(f"msg {tuple(msg.shape)} does not match "

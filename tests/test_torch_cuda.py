@@ -30,6 +30,12 @@ launches its forward kernel only. A train step of each dataflow label
 style gives the CPU's loss and gradients, and HF weights written to disk
 load onto the card bit for bit. A DeepDFA+CodeT5 train step gives the
 CPU's loss and gradients in the persistent and the fused graph lanes.
+The GNN forward kernels' bf16 instances are held to their plain versions
+with bf16 and f32 band values at the serving, flagship and training
+shapes, the persistent one bit for bit the scan of the per-step one;
+their launch geometry to the host plan; a batch over the bf16 persistent
+gate serves through the per-step instance; and the bf16 model on the card
+to the CPU's, its backward refused (ROADMAP A3b-2).
 """
 
 import dataclasses
@@ -58,7 +64,8 @@ GRAD_TOL = 1e-4
 SUBKEYS = ["api", "datatype", "literal", "operator"]
 ALL_KERNELS = ("fused_step_kernel", "persistent_fwd_kernel",
                "fused_step_bwd_kernel", "persistent_fwd_hist_kernel",
-               "persistent_bwd_kernel", "step_weight_grad_kernel")
+               "persistent_bwd_kernel", "step_weight_grad_kernel",
+               "fused_step_kernel_bf16", "persistent_fwd_kernel_bf16")
 
 
 @pytest.fixture
@@ -144,6 +151,7 @@ def test_launch_counts_move_only_on_launch(cuda):
     # the K-step VJP the recompute sweep, the reverse sweep and the
     # weight gradients.
     assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0),
         "fused_step_kernel": 1, "persistent_fwd_kernel": 1,
         "fused_step_bwd_kernel": 1, "persistent_fwd_hist_kernel": 1,
         "persistent_bwd_kernel": 1, "step_weight_grad_kernel": 2}
@@ -182,8 +190,12 @@ def test_refusals(cuda):
     adj = _graph_adj([40] * 4, 256, 128).to(cuda)
     params = _params(128, cuda)
     h = torch.randn(256, 128, device=cuda)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_gnn.fused_gate_step(params, h.bfloat16(), adj)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        fused_gnn.fused_gate_step(params, h.half(), adj)
+    # bf16 h takes bf16 weights (the model packs them at its dtype).
+    with pytest.raises(ValueError, match="bfloat16 on"):
+        fused_gnn.fused_gate_step(None, h.bfloat16(), adj,
+                                  packed=fused_gnn.packed_weights(params))
     with pytest.raises(ValueError, match="rows"):
         fused_gnn.fused_gate_step(params, h[:128], adj)
     with pytest.raises(ValueError, match="hidden"):
@@ -191,8 +203,9 @@ def test_refusals(cuda):
                                   torch.randn(256, 130, device=cuda), adj)
     with pytest.raises(ValueError, match="float32 on"):
         fused_gnn.fused_gate_step(_params(128, "cpu"), h, adj)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FlowGNN(FlowGNNConfig(dtype="bfloat16"), device=cuda)
+    # FlowGNN at bf16 builds on the card, its parameters f32.
+    model = FlowGNN(FlowGNNConfig(dtype="bfloat16"), device=cuda)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 # ---------------------------------------------------------------------------
@@ -1469,3 +1482,155 @@ def test_codet5_train_step_repeats_its_bits(cuda, dtype):
         cuda)
     for k, v in states[0].items():
         assert torch.equal(states[1][k], v), k
+
+
+
+# ---------------------------------------------------------------------------
+# The GNN forward kernels' bf16 instances (FlowGNN(dtype="bfloat16"))
+# ---------------------------------------------------------------------------
+
+# A bf16 instance against its plain version: both round at the reference
+# kernel's points and sum in f32 in another order, so an element may land
+# one bf16 step apart (rtol 2^-7) and carry it onward over K steps (the
+# CPU tests' bf16 tolerance, 5e-2). Measured on an H100: no element
+# differs at any shape below (PERF.md).
+GNN_BF16_STEP_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
+GNN_BF16_UNROLL_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def _bf16_case(case, cuda):
+    """(band adjacency on the card, hidden) of a bf16 case: the serving
+    bucket (N 1024), the flagship batch (N 8192), the training batch's
+    size (N 16384), graphs over a tile at H 64 and small tiles at H 32."""
+    if case == "flagship":
+        graphs = synthetic_bigvul(256, FlowGNNConfig().feature,
+                                  positive_fraction=0.5, seed=0)
+        budget = pad_budget_for(graphs, 256)
+        batch = batch_graphs(graphs, 256, align_to_tile(budget["max_nodes"]),
+                             budget["max_edges"], SUBKEYS,
+                             build_band_adj=True)
+        return batch.band_adj.to(cuda), 128
+    adj, hidden = _persistent_case(case)
+    return adj.to(cuda), hidden
+
+
+@pytest.mark.parametrize("f32_vals", [False, True])
+@pytest.mark.parametrize("case", ["serving", "flagship", "training",
+                                  "over_a_tile_bwd", "h32"])
+def test_bf16_instances_match_plain_and_equal_the_scan(cuda, case,
+                                                        f32_vals):
+    """Each bf16 instance against its plain version; the persistent one
+    bit for bit the scan of the per-step one, and each repeats its bits;
+    bf16 in and out; only the bf16 instances launch."""
+    adj, hidden = _bf16_case(case, cuda)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    n, k = adj.n_tiles * adj.tile, 5
+    params = _params(hidden, cuda, seed=4)
+    h = torch.randn(n, hidden, generator=torch.Generator().manual_seed(5)
+                    ).to(cuda).bfloat16()
+    fused_gnn.reset_launch_counts()
+    step = fused_gnn.fused_gate_step(params, h, adj)
+    assert step.dtype == torch.bfloat16
+    torch.testing.assert_close(step.float(), fused_gnn.fused_step_reference(
+        params, h, adj).float(), **GNN_BF16_STEP_TOL)
+    assert torch.equal(fused_gnn.fused_gate_step(params, h, adj), step)
+    scan = h
+    for _ in range(k):
+        scan = fused_gnn.fused_gate_step(params, scan, adj)
+    assert fused_gnn.persistent_smem_ok(adj, hidden, torch.bfloat16)
+    out = fused_gnn.persistent_unroll(params, h, adj, k)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, scan)
+    assert torch.equal(fused_gnn.persistent_unroll(params, h, adj, k), out)
+    torch.testing.assert_close(out.float(), fused_gnn.persistent_reference(
+        params, h, adj, k).float(), **GNN_BF16_UNROLL_TOL)
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0), "fused_step_kernel_bf16": 2 + k,
+        "persistent_fwd_kernel_bf16": 2}
+
+
+def test_bf16_geometry_and_occupancy_follow_the_host_plan(cuda):
+    """The bf16 per-step instance's two passes take the plan
+    ``step_plan`` mirrors on this card; the persistent instance's launched
+    variant reports its occupancy (one block an SM: 96 gate accumulators
+    a thread)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    name = "fused_step_kernel_bf16"
+    for case in ("serving", "flagship", "training"):
+        adj, hidden = _bf16_case(case, cuda)
+        n = adj.n_tiles * adj.tile
+        geo = fused_gnn.step_geometry(adj, hidden, name)
+        plan = fused_gnn.step_plan(n, hidden, geo["sms"], name)
+        for key in ("row_tile", "cluster", "slab_rows", "blocks"):
+            assert geo[key] == plan[key], (case, key)
+        for p, key in ((0, "smem_bytes"), (1, "smem_bytes_pass1")):
+            assert geo[key] == fused_gnn.step_smem_bytes(n, hidden,
+                                                         geo["sms"], name, p)
+        assert geo["blocks_per_sm"] >= 1 and geo["blocks_per_sm_pass1"] >= 1
+        cluster = fused_gnn.persistent_cluster_size(adj, hidden, sms)
+        occ = fused_gnn.persistent_occupancy(
+            adj, hidden, "persistent_fwd_kernel_bf16", cluster)
+        assert occ["blocks_per_sm"] >= 1
+        assert (occ["active_clusters"] or 0) >= (cluster > 1)
+
+
+def test_bf16_over_gate_batch_serves_through_the_fused_instance(cuda):
+    """A batch whose group fits the f32 persistent gate (184 rows at
+    H 128) but not the bf16 one (123 rows: the bf16 instance holds its
+    messages apart) serves through fused_step_kernel_bf16 per step, and
+    gives the CPU model's logits."""
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    graph = synthetic_bigvul(1, feature, seed=0, min_nodes=150,
+                             max_nodes=150)
+    cfg = FlowGNNConfig(feature=feature, message_impl="persistent",
+                        dtype="bfloat16")
+    batch = batch_graphs(graph, 1, 256, 1024, SUBKEYS,
+                         build_band_adj=True).to(cuda)
+    assert fused_gnn.persistent_smem_ok(batch.band_adj, 128)
+    assert not fused_gnn.persistent_smem_ok(batch.band_adj, 128,
+                                            torch.bfloat16)
+    model = FlowGNN(cfg, device=cuda, seed=0).eval()
+    fused_gnn.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(batch)
+    torch.cuda.synchronize()
+    assert model.over_gate_dispatches == 1
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0), "fused_step_kernel_bf16": cfg.n_steps}
+    cpu = FlowGNN(cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        want = cpu(batch.to("cpu"))
+    torch.testing.assert_close(got.cpu(), want, **GNN_BF16_UNROLL_TOL)
+
+
+@pytest.mark.parametrize("impl", ["persistent", "fused"])
+def test_bf16_flowgnn_serves_the_cpu_logits(cuda, impl):
+    """The bf16 model on the card (the bf16 instances, the matmul
+    pooling) against the same model on the CPU (the plain versions, the
+    segment pooling) at the serving bucket; then a backward at bf16 on
+    the card raises, naming A3b-2."""
+    cfg = FlowGNNConfig(message_impl=impl, dtype="bfloat16")
+    graphs = synthetic_bigvul(16, cfg.feature, seed=1)
+    batch = bucket_batch(ServeConfig(), graphs, 16, SUBKEYS, band=True)
+    model = FlowGNN(cfg, device=cuda, seed=2).eval()
+    fused_gnn.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(batch.to(cuda))
+    torch.cuda.synchronize()
+    name = ("persistent_fwd_kernel_bf16" if impl == "persistent"
+            else "fused_step_kernel_bf16")
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0),
+        name: 1 if impl == "persistent" else cfg.n_steps}
+    cpu = FlowGNN(cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        want = cpu(batch)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, **GNN_BF16_UNROLL_TOL)
+    logits = model.train()(batch.to(cuda))
+    with pytest.raises(NotImplementedError, match="A3b-2"):
+        logits.sum().backward()

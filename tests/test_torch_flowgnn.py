@@ -165,8 +165,12 @@ def test_random_init_follows_flax_initializers():
 
 
 def test_bf16_and_unported_impls_raise():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FlowGNN(FlowGNNConfig(dtype="bfloat16"), device="cpu")
+    # bf16 builds (f32 parameters, as the reference keeps them); a dtype
+    # other than float32 and bfloat16 raises.
+    model = FlowGNN(FlowGNNConfig(dtype="bfloat16"), device="cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    with pytest.raises(ValueError, match="dtype"):
+        FlowGNNConfig(dtype="float16")
     # Every impl of the reference is ported now: a name outside them.
     with pytest.raises(ValueError, match="not ported"):
         FlowGNN(FlowGNNConfig(message_impl="onehot"), device="cpu")

@@ -160,7 +160,8 @@ def test_cpu_wrappers_take_plain_version_and_count_nothing():
     assert pt_fused.launch_counts() == dict.fromkeys(
         ("fused_step_kernel", "persistent_fwd_kernel",
          "fused_step_bwd_kernel", "persistent_fwd_hist_kernel",
-         "persistent_bwd_kernel", "step_weight_grad_kernel"), 0)
+         "persistent_bwd_kernel", "step_weight_grad_kernel",
+         "fused_step_kernel_bf16", "persistent_fwd_kernel_bf16"), 0)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
