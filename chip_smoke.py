@@ -223,6 +223,26 @@ one:
    process over HTTP, GNN lane, 512 one-function POSTs from 16 clients
    (p50/p99 ms, requests/s), a chunk again (cache hits), the launches
    from ``/metrics``, the answers against the CPU engine.
+27. The fused and tile lanes' backward at bf16 (``FlowGNN(dtype=
+   "bfloat16")`` training; run last, with 28) at the
+   training shape (N 16384, H 128, 5 steps), bf16 and f32 band values:
+   ``fused_step_bwd_kernel_bf16`` against its plain version (each output
+   within a bf16 step of the element plus half a step at the tensor's
+   scale, the elements apart counted), ``step_weight_grad_kernel_bf16``
+   over the 5 steps' cotangents against its plain version (1e-4 of each
+   gradient's largest entry) and bit for bit the fold of 5 one-step
+   calls, ``tile_spmm_kernel_bf16`` over A and A^T against its plain
+   version; each run twice for its bits and timed beside its bound,
+   its plain version, the f32 kernel on the same inputs widened and its
+   library call (the three products as stacked ``torch.mm`` at bf16;
+   ``torch.sparse.mm`` on a bf16 CSR matrix).
+28. Train at bf16, in a process of its own (fresh profiler state):
+   ``train.loop.fit`` as phases 8-10 on the fused, tile and band lanes with ``FlowGNNConfig(dtype="bfloat16")`` (f32 master
+   parameters), losses against the CPU within 5e-2, the bf16 instances'
+   launches exact and no f32 GNN or tile kernel launched, the step's
+   breakdown and device ms by kernel beside the f32 lanes'; and the
+   persistent lane at bf16 refused before anything launches (ROADMAP
+   A3b-2b).
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -433,10 +453,26 @@ for _name in ("fused_step_kernel", "persistent_fwd_kernel"):
 GNN_BF16_STEP_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
 GNN_BF16_UNROLL_TOL = dict(rtol=5e-2, atol=5e-2)
 # The bf16 GNN paths, card against the CPU on the same weights: served
-# probabilities and test losses (the reference's bf16 tolerance).
+# probabilities, test losses and per-step training losses (the
+# reference's bf16 tolerance).
 BF16_GNN_TOL = 5e-2
+# The bf16 backward instances and the bf16 tile product: the same TPU
+# kernels at dt = bfloat16.
+for _name in ("fused_step_bwd_kernel", "step_weight_grad_kernel"):
+    REPLACES[_name + "_bf16"] = REPLACES[_name]
+    SOURCES[_name + "_bf16"] = SOURCES[_name]
 REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
 SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
+REPLACES["tile_spmm_kernel_bf16"] = REPLACES["tile_spmm_kernel"]
+SOURCES["tile_spmm_kernel_bf16"] = SOURCES["tile_spmm_kernel"]
+# A bf16 backward output against its plain version: each sums in f32 in
+# another order and rounds at the reference's points, so a rounded
+# intermediate (dpre, dx, dmsg) may land one bf16 step apart, and that
+# step moves a later sum by one step of its term, which is not one step
+# of the sum where the terms cancel: |kernel - plain| <= one bf16 step of
+# the element (2^-7 of it) + half a step at the tensor's scale (2^-8 of
+# its largest entry).
+GNN_BF16_BWD_RTOL, GNN_BF16_BWD_SCALE = 2.0 ** -7, 2.0 ** -8
 # The tile product against its plain version: each output sums a row's
 # few edges in another order (f32 FMAs against cuBLAS's bmm and
 # index_add_).
@@ -451,6 +487,18 @@ TILE_LIBRARY_COVERS = ["agg = A @ msg"]
 PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel"}) | {
     "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel",
     "flash_dq_sum_kernel_bf16"}
+# The launch counters that must move where the profile files time under
+# a name: the reductions' parent kernels (the weight pass's reduction is
+# shared by its f32 and bf16 instances), and the hist instance of the
+# persistent forward, which the profile files under its name.
+PROFILE_COUNTERS = {
+    "step_weight_grad_reduce_kernel": ("step_weight_grad_kernel",
+                                       "step_weight_grad_kernel_bf16"),
+    "flash_dq_sum_kernel": ("flash_bwd_fused_kernel",),
+    "flash_dq_sum_kernel_bf16": ("flash_bwd_fused_kernel_bf16",),
+    "persistent_fwd_kernel": ("persistent_fwd_kernel",
+                              "persistent_fwd_hist_kernel"),
+}
 # What the weight pass's library_ms covers: three torch.mm calls over the
 # step-stacked operands ([K N, H]^T x [K N, .]) and three column sums.
 WGRAD_LIBRARY_COVERS = ["dW_e, dW_i, dW_h as torch.mm over the K steps' "
@@ -475,11 +523,15 @@ def phase_device() -> str:
     print(smi, flush=True)
     emit(phase="device", torch=torch.__version__, cuda=torch.version.cuda,
          device=name, count=torch.cuda.device_count())
+    _full_f32()
+    return name
+
+
+def _full_f32() -> None:
     # The plain versions run f32 products in full f32, as the reference
     # holds them to Precision.HIGHEST.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
 
 
 def phase_build() -> None:
@@ -600,9 +652,13 @@ def _step_geometry(adj, hidden, kernel) -> dict:
     plan = fused_gnn.step_plan(n, hidden, geo["sms"], kernel)
     plan["smem_bytes"] = fused_gnn.step_smem_bytes(n, hidden, geo["sms"],
                                                    kernel, 0)
-    if kernel in ("fused_step_bwd_kernel", "fused_step_kernel_bf16"):
+    if kernel in ("fused_step_bwd_kernel", "fused_step_kernel_bf16",
+                  "fused_step_bwd_kernel_bf16"):
         plan["smem_bytes_pass1"] = fused_gnn.step_smem_bytes(
             n, hidden, geo["sms"], kernel, 1)
+    if kernel == "fused_step_bwd_kernel_bf16":
+        plan["smem_bytes_pass2"] = fused_gnn.step_smem_bytes(
+            n, hidden, geo["sms"], kernel, 2)
     for key in plan.keys() - {"wide"}:
         if geo[key] != plan[key]:
             raise AssertionError(f"{kernel}: the library plans {key} "
@@ -1328,6 +1384,7 @@ def _device_profile(step, n_steps: int) -> dict:
         step()
     torch.cuda.synchronize()
     for sessions in range(1, PROFILE_SESSIONS + 1):
+        before = launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n_steps):
@@ -1351,22 +1408,36 @@ def _device_profile(step, n_steps: int) -> dict:
                              f"{PROFILE_SESSIONS} sessions")
     kernels.sort(reverse=True)
     # The port's own kernels, by the name in their source, wherever they
-    # rank.
-    # A flash kernel's bf16 instance (<__nv_bfloat16>) under its own
-    # name; the GNN kernels' template arguments do not name them.
+    # rank. A flash kernel's bf16 instance is a template instance whose
+    # first argument, the element type, is __nv_bfloat16: filed under
+    # its _bf16 name. The GNN and tile kernels' bf16 instances carry
+    # _bf16 in their own __global__ names; their template arguments
+    # (the band-value type VT is bf16 in the f32 GNN kernels too) name
+    # nothing.
     port = {}
     for ms, key, calls in kernels:
         found = re.search(r"(\w+)(<[^(]*>)?\(", key)
         if not found:
             continue
         name = found.group(1)
-        if (name + "_bf16" in PORT_KERNELS
+        if (name.startswith("flash_") and name + "_bf16" in PORT_KERNELS
                 and "bfloat16" in (found.group(2) or "")):
             name += "_bf16"
         if name in PORT_KERNELS:
             entry = port.setdefault(name, {"ms": 0.0, "calls": 0.0})
             entry["ms"] += ms
             entry["calls"] += calls
+    # Each name filed must have launched in the profiled run, by its own
+    # counter (or its parent's): a kernel filed under another name shows
+    # here. (Not the converse: the profiler drops some launches, all of a
+    # rarely launched kernel's at times.)
+    after = launch_counts()
+    for name in port:
+        counters = PROFILE_COUNTERS.get(name, (name,))
+        if sum(after[c] - before[c] for c in counters) <= 0:
+            raise AssertionError(
+                f"the profile files {port[name]['ms']:.3f} ms under {name}, "
+                f"but {counters} launched nothing in its run")
     # cuBLAS's products (the linears, and the T5 attention's matmuls).
     gemm = [k for k in kernels if re.search(r"gemm|nvjet", k[1])]
     return {"device_busy_ms": sum(k[0] for k in kernels),
@@ -1472,8 +1543,11 @@ def phase_tile_kernels() -> dict:
         recs["A"], transpose_ms=recs["A^T"]["kernel_ms"])}
 
 
-def phase_train(impl: str) -> dict:
-    cfg = FlowGNNConfig(message_impl=impl)
+def phase_train(impl: str, dtype: str = "float32") -> dict:
+    """``fit`` on the card against the CPU on one lane; at bf16 the
+    lane's bf16 instances (phase 28)."""
+    bf16 = dtype == "bfloat16"
+    cfg = FlowGNNConfig(message_impl=impl, dtype=dtype)
     train_cfg = dataclasses.replace(TrainConfig(), max_epochs=TRAIN_EPOCHS)
     data_cfg = DataConfig(batch_size=256)
     examples, splits = _train_data(cfg.feature, train_cfg.seed)
@@ -1497,43 +1571,63 @@ def phase_train(impl: str) -> dict:
         raise AssertionError(f"{impl}: {len(losses)} card steps, "
                              f"{len(cpu_losses)} CPU steps")
     diffs = np.abs(np.asarray(losses) - np.asarray(cpu_losses))
-    if not np.all(np.isfinite(losses)) or diffs.max() > TRAIN_LOSS_TOL:
-        raise AssertionError(f"{impl}: per-step loss |card - cpu| "
-                             f"{diffs.max():.3e} > {TRAIN_LOSS_TOL}: card "
+    tol = BF16_GNN_TOL if bf16 else TRAIN_LOSS_TOL
+    if not np.all(np.isfinite(losses)) or diffs.max() > tol:
+        raise AssertionError(f"{impl} ({dtype}): per-step loss |card - cpu| "
+                             f"{diffs.max():.3e} > {tol}: card "
                              f"{losses} against cpu {cpu_losses}")
     val_diff = abs(history["epochs"][-1]["val_loss"]
                    - cpu_history["epochs"][-1]["val_loss"])
     steps = len(losses)
-    exact = {"tile_spmm_kernel": 0}
+    sfx = "_bf16" if bf16 else ""
+    val_batches = sum(1 for _ in loop._batches(
+        examples, splits["val"], data_cfg, list(model.subkeys),
+        data_cfg.eval_batch_size, build_band_adj=cfg.uses_band_adj,
+        build_tile_adj=cfg.uses_tile_adj))
+    # At bf16 no f32 GNN or tile kernel launches: the bf16 instances
+    # replace them.
+    exact = ({k: 0 for k in (*fused_gnn.KERNELS, *tile_spmm.KERNELS)
+              if not k.endswith("_bf16")} if bf16
+             else {"tile_spmm_kernel": 0})
     if impl == "persistent":
         need = ("persistent_fwd_kernel", "persistent_fwd_hist_kernel",
                 "persistent_bwd_kernel", "step_weight_grad_kernel")
         if model.over_gate_dispatches == 0:
             exact["persistent_bwd_kernel"] = steps
     elif impl == "fused":
-        need = ("fused_step_kernel", "fused_step_bwd_kernel",
-                "step_weight_grad_kernel")
-        exact["fused_step_bwd_kernel"] = cfg.n_steps * steps
-    else:
+        need = (f"fused_step_kernel{sfx}", f"fused_step_bwd_kernel{sfx}",
+                f"step_weight_grad_kernel{sfx}")
+        exact[f"fused_step_bwd_kernel{sfx}"] = cfg.n_steps * steps
+        if bf16:
+            # n_steps forward launches a train step and an evaluation
+            # batch; each step's VJP one backward and one weight pass.
+            exact.update({
+                "fused_step_kernel_bf16": cfg.n_steps * (steps
+                                                         + val_batches),
+                "step_weight_grad_kernel_bf16": cfg.n_steps * steps})
+    elif impl == "tile":
         # Each train step: n_steps forward launches and n_steps backward
         # ones (over A^T); each evaluation batch: n_steps forward.
-        val_batches = sum(1 for _ in loop._batches(
-            examples, splits["val"], data_cfg, list(model.subkeys),
-            data_cfg.eval_batch_size, build_tile_adj=True))
-        need = ("tile_spmm_kernel",)
-        exact = {**dict.fromkeys(fused_gnn.KERNELS, 0), "tile_spmm_kernel":
+        need = (f"tile_spmm_kernel{sfx}",)
+        exact = {**dict.fromkeys(fused_gnn.KERNELS, 0),
+                 **dict.fromkeys(tile_spmm.KERNELS, 0),
+                 f"tile_spmm_kernel{sfx}":
                  2 * cfg.n_steps * steps + cfg.n_steps * val_batches}
+    else:  # band: plain torch on the card, no kernel of the port
+        need = ()
+        exact = dict.fromkeys((*fused_gnn.KERNELS, *tile_spmm.KERNELS), 0)
     if any(launches[k] == 0 for k in need) or any(
             launches[k] != v for k, v in exact.items()):
-        raise AssertionError(f"{impl} train lane: launches {launches} over "
-                             f"{steps} steps")
+        raise AssertionError(f"{impl} ({dtype}) train lane: launches "
+                             f"{launches} over {steps} steps")
 
     batch = _training_batch(model)
     breakdown = _gnn_step_breakdown(model, batch)
     n_graphs = int(batch.graph_mask.sum())
     step_ms = (breakdown["forward_ms"] + breakdown["backward_ms"]
                + breakdown["optimizer_ms"])
-    rec = dict(phase="train", message_impl=impl, steps=steps,
+    rec = dict(phase="train_bf16" if bf16 else "train", message_impl=impl,
+               dtype=dtype, steps=steps,
                epochs=len(history["epochs"]), launches=launches,
                over_gate_dispatches=model.over_gate_dispatches,
                losses=losses, cpu_losses=cpu_losses,
@@ -1547,6 +1641,263 @@ def phase_train(impl: str) -> dict:
                graphs_per_s=n_graphs / (step_ms / 1e3))
     emit(**rec)
     return rec
+
+
+def _check_bf16_bwd(name, got, want) -> dict:
+    """A bf16 backward output against its plain version: within one bf16
+    step of the element plus half a step at the tensor's scale
+    (``GNN_BF16_BWD_*``); the largest difference and the elements apart."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if got.dtype != want.dtype or g.shape != w.shape or not bool(
+            torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: {got.dtype} {tuple(g.shape)} vs "
+                             f"{want.dtype} {tuple(w.shape)}, or non-finite")
+    err = (g - w).abs()
+    limit = (GNN_BF16_BWD_RTOL * w.abs()
+             + GNN_BF16_BWD_SCALE * float(w.abs().max()))
+    if bool((err > limit).any()):
+        raise AssertionError(f"{name}: max |diff| {err.max().item():.3e} "
+                             f"over one bf16 step")
+    return dict(max_abs_err=float(err.max()), **_bf16_diff(got, want))
+
+
+def _bf16_record(name, adj, hidden, steps, kernel, plain, f32, cost, iters,
+                 reps, **extra) -> dict:
+    """Times (kernel, plain version, f32 kernel on the inputs widened),
+    the launches the timing counted and the bound of one bf16 call."""
+    before = launch_counts()[name]
+    kernel_ms = _time_ms(kernel, iters, reps)
+    launches = launch_counts()[name] - before
+    bound_ms, bound_by = _bound(cost)
+    return dict(kernel=name, shape="training", hidden=hidden,
+                bandwidth=getattr(adj, "bandwidth", None), steps=steps,
+                kernel_ms=kernel_ms, plain_ms=_time_ms(plain, iters, reps),
+                f32_kernel_ms=_time_ms(f32, iters, reps),
+                bound_us=bound_ms * 1e3, bound_by=bound_by, **_peak(cost),
+                flops=cost["flops"], flops_bf16=cost.get("flops_bf16"),
+                bytes=cost["bytes"], nnz=cost["nnz"],
+                timing_launches=launches, **extra)
+
+
+def phase_train_kernels_bf16(model: FlowGNN) -> dict:
+    """Phase 27: the bf16 backward instances and the bf16 tile product at
+    the training shape against their plain versions, their bits twice,
+    the weight pass's K steps bit for bit the fold of one-step calls,
+    each timed beside its bound, plain version, f32 kernel and library
+    call; returns the numbers by kernel (bf16 band values)."""
+    cfg = model.config
+    k_steps, hidden = cfg.n_steps, cfg.ggnn_hidden
+    out = {}
+    with torch.no_grad():
+        batch = _training_batch(model)
+        params = model.ggnn_step.step_params()
+        p32 = [w.detach().contiguous()
+               for w in fused_gnn.packed_weights(params)]
+        h32 = torch.cat([model.embeds[k](batch.node_feats[k])
+                         for k in model.subkeys], dim=-1).contiguous()
+        h = h32.bfloat16()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        g = torch.randn(h.shape, generator=gen, device="cuda").bfloat16()
+        for vals in ("bf16", "f32"):
+            adj = batch.band_adj
+            if vals == "f32":
+                adj = dataclasses.replace(adj, vals=adj.vals.float())
+            mdt = fused_gnn.msg_dtype(adj, torch.bfloat16)
+            # fused_step_bwd_kernel_bf16: one step's cotangents.
+            name = "fused_step_bwd_kernel_bf16"
+            rows = lambda: fused_gnn.fused_step_bwd_rows(None, h, adj, g,
+                                                         p32)
+            plain = lambda: fused_gnn.fused_step_bwd_rows_reference(
+                None, h, adj, g, p32)
+            got = rows()
+            outputs = {key: _check_bf16_bwd(f"{name}[{key}]@{vals}", a, b)
+                       for key, a, b in zip(("dh", "x", "dp", "dmsg"), got,
+                                            plain())}
+            _same_bits(f"{name}@{vals} twice", rows(), got)
+            rec = dict(kernel=name, band_vals=vals, n_rows=h.shape[0],
+                       max_abs_err=max(o["max_abs_err"]
+                                       for o in outputs.values()),
+                       outputs=outputs, bits_repeat=True,
+                       **_step_geometry(adj, hidden, name))
+            if vals == "bf16":
+                rec.update(_bf16_record(
+                    name, adj, hidden, 1, rows, plain,
+                    lambda: fused_gnn.fused_step_bwd_rows(
+                        None, h32, adj, g.float(), p32),
+                    fused_gnn.kernel_cost(adj, hidden, 1, name), 10, 3,
+                    library_ms=None,
+                    library_covers=["none: no PyTorch call computes a GRU "
+                                    "gated graph step's VJP"]))
+                out[name] = rec
+            emit(phase="train_kernels_bf16", **rec)
+            # step_weight_grad_kernel_bf16 over K steps: the inputs of the
+            # fused lane's scan (hist from the bf16 forward instance, each
+            # step's cotangents from the backward instance).
+            name = "step_weight_grad_kernel_bf16"
+            states = [h]
+            for _ in range(k_steps - 1):
+                states.append(fused_gnn.fused_gate_step(None, states[-1], adj,
+                                                        packed=p32))
+            hist = torch.stack(states[1:]).contiguous()
+            per_step, gs = [None] * k_steps, g
+            for s in reversed(range(k_steps)):
+                gs, *per_step[s] = fused_gnn.fused_step_bwd_rows(
+                    None, states[s], adj, gs, p32)
+            x, dp, dmsg = (torch.stack([c[j] for c in per_step]).contiguous()
+                           for j in range(3))
+            wgrads = lambda: fused_gnn.step_weight_grads(h, hist, x, dp, dmsg,
+                                                         k_steps, mdt)
+            wplain = lambda: fused_gnn.step_weight_grad_reference(
+                h, hist, x, dp, dmsg, k_steps, mdt)
+            grads = wgrads()
+            err, rel = _check_grads(f"{name}@{vals}", grads, wplain())
+            fold = None
+            for s in reversed(range(k_steps)):
+                one = fused_gnn.step_weight_grads(
+                    states[s].contiguous(), None, x[s:s + 1], dp[s:s + 1],
+                    dmsg[s:s + 1], 1, mdt)
+                fold = one if fold is None else tuple(
+                    a + b for a, b in zip(fold, one))
+            _same_bits(f"{name}@{vals} vs the fold of one-step calls", grads,
+                       fold)
+            _same_bits(f"{name}@{vals} twice", wgrads(), grads)
+            rec = dict(kernel=name, band_vals=vals, n_rows=h.shape[0],
+                       max_abs_err=err, max_rel_err=rel, tol=dict(
+                           rel=GRAD_TOL), fold_bits_equal=True,
+                       bits_repeat=True)
+            if vals == "bf16":
+                # The yardstick: the three products as torch.mm at bf16
+                # (cuBLAS, bf16 out) over every step's rows stacked
+                # [K N, .], dpre rounded as the kernel rounds it, and the
+                # bias sums.
+                hs_all = torch.cat([h[None], hist]).reshape(-1, hidden)
+                x_all = x.reshape(-1, hidden)
+                dm_all = dmsg.reshape(-1, hidden).bfloat16()
+                dp_all = dp.reshape(-1, 4 * hidden)
+                dpi = dp_all[:, :3 * hidden].bfloat16()
+                dph = torch.cat([dp_all[:, :2 * hidden],
+                                 dp_all[:, 3 * hidden:]], 1).bfloat16()
+
+                def library():
+                    return (torch.mm(hs_all.T, dm_all), dm_all.sum(0),
+                            torch.mm(x_all.T, dpi), dpi.sum(0),
+                            torch.mm(hs_all.T, dph), dph.sum(0))
+
+                lib = library()
+                lib_rel = max(float((a.float().reshape(b.shape) - b).abs()
+                                    .max() / b.abs().max())
+                              for a, b in zip(lib, grads))
+                rec.update(_bf16_record(
+                    name, adj, hidden, k_steps, wgrads, wplain,
+                    lambda: fused_gnn.step_weight_grads(
+                        h32, hist.float(), x.float(), dp, dmsg, k_steps),
+                    fused_gnn.kernel_cost(adj, hidden, k_steps, name), 5, 3,
+                    library_ms=_time_ms(library, 5, 3),
+                    library_covers=["dW_e, dW_i, dW_h as torch.mm at bf16 "
+                                    "(bf16 out) over the K steps' stacked "
+                                    "rows", "the bias sums"],
+                    library_max_rel_diff=lib_rel))
+                out[name] = rec
+            emit(phase="train_kernels_bf16", **rec)
+        # tile_spmm_kernel_bf16 over A and A^T, the tile lane's batch.
+        name = "tile_spmm_kernel_bf16"
+        tmodel = FlowGNN(FlowGNNConfig(message_impl="tile"), device="cpu")
+        lists = _training_batch(tmodel, device="cpu").tile_adj.to("cuda")
+        msg = torch.randn(h.shape, generator=gen, device="cuda").bfloat16()
+        recs = {}
+        for direction, a in (("A", lists), ("A^T", lists.transposed())):
+            run = lambda: tile_spmm.tile_spmm(a, msg)
+            got = run()
+            diff = _check_bf16_bwd(f"{name}@{direction}", got,
+                                   tile_spmm.tile_spmm_reference(a, msg))
+            _same_bits(f"{name}@{direction} twice", [run()], [got])
+            n = a.n_rows
+            try:
+                csr = torch.sparse_csr_tensor(a.ptr.long(), a.src.long(),
+                                              a.val.bfloat16(), (n, n))
+                torch.sparse.mm(csr, msg)
+                library = dict(library_ms=_time_ms(
+                    lambda: torch.sparse.mm(csr, msg)),
+                    library_covers=["agg = A @ msg, bf16 CSR x bf16"])
+            except (RuntimeError, NotImplementedError) as exc:
+                library = dict(library_ms=None, library_covers=[
+                    f"none: torch.sparse.mm refuses a bf16 CSR matrix "
+                    f"here ({str(exc).splitlines()[0][:120]})"])
+            recs[direction] = dict(
+                over=direction, n_rows=n, bits_repeat=True, **diff,
+                **_bf16_record(
+                    name, a, hidden, 1, run,
+                    lambda: tile_spmm.tile_spmm_reference(a, msg),
+                    lambda: tile_spmm.tile_spmm(a, msg.float()),
+                    tile_spmm.kernel_cost(lists, hidden,
+                                          transposed=direction == "A^T",
+                                          dtype=torch.bfloat16), 20, 5,
+                    **library))
+            emit(phase="train_kernels_bf16", **recs[direction])
+        out[name] = dict(recs["A"], transpose_ms=recs["A^T"]["kernel_ms"])
+    return out
+
+
+def phase_train_bf16(f32: dict) -> dict:
+    """Phase 28: ``fit`` at bf16 on the fused, tile and band lanes
+    (``phase_train`` at bf16), each step's device ms beside the f32
+    lane's (``f32``: lane -> phases 8-10's ``device_busy_ms`` and
+    ``graphs_per_s``); then the persistent lane at bf16 refused before
+    anything launches. Returns the lanes' launches summed."""
+    launches = {k: 0 for k in REPLACES}
+    lanes = {}
+    for impl in ("fused", "tile", "band"):
+        rec = phase_train(impl, "bfloat16")
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        base = f32.get(impl, {})
+        lanes[impl] = dict(
+            device_busy_ms=rec["step_profile"]["device_busy_ms"],
+            graphs_per_s=rec["graphs_per_s"],
+            max_abs_loss_diff_vs_cpu=rec["max_abs_loss_diff_vs_cpu"],
+            f32_device_busy_ms=base.get("device_busy_ms"),
+            f32_graphs_per_s=base.get("graphs_per_s"))
+    train_cfg = dataclasses.replace(TrainConfig(), max_epochs=TRAIN_EPOCHS)
+    model = FlowGNN(FlowGNNConfig(message_impl="persistent",
+                                  dtype="bfloat16"), device="cuda",
+                    seed=SEED)
+    examples, splits = _train_data(model.config.feature, train_cfg.seed)
+    reset_launch_counts()
+    try:
+        loop.fit(model, examples, splits, train_cfg, DataConfig())
+    except NotImplementedError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("fit on the persistent lane at bf16 ran")
+    if "A3b-2b" not in refusal or any(launch_counts().values()):
+        raise AssertionError(f"persistent lane at bf16: {refusal!r}, "
+                             f"launches {launch_counts()}")
+    emit(phase="train_bf16_summary", lanes=lanes, persistent_refusal=refusal)
+    return dict(launches=launches, lanes=lanes)
+
+
+#: Phases run in a process of their own (``_phase_in_child``).
+CHILD_PHASES = {"train_bf16": phase_train_bf16}
+
+
+def _phase_in_child(name: str, arg: dict) -> dict:
+    """Run phase ``name`` in a fresh process of this script and return
+    its result (the child's last line). Its torch.profiler sessions then
+    run after a short history: late in this script's run the profiler
+    has recorded no device time at all in short windows, three sessions
+    running. The child's records go to this process's output."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase", name,
+         json.dumps(arg)], capture_output=True, text=True, timeout=900)
+    sys.stderr.write(proc.stderr)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase {name} exited {proc.returncode} in its "
+                             f"own process")
+    return json.loads(lines[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -3938,9 +4289,10 @@ def main() -> int:
         path_launches[k] += v
     timings.update(timed("train_kernels", phase_train_kernels, model))
     timings.update(timed("tile_kernels", phase_tile_kernels))
+    train_f32 = {}
     for impl in ("persistent", "fused", "tile"):
-        for k, v in timed(f"train_{impl}", phase_train, impl)[
-                "launches"].items():
+        train_f32[impl] = timed(f"train_{impl}", phase_train, impl)
+        for k, v in train_f32[impl]["launches"].items():
             path_launches[k] += v
     timings.update(timed("attention_kernels", phase_attention_kernels))
     timings.update(timed("attention_kernels_bf16", phase_attention_kernels,
@@ -3960,6 +4312,20 @@ def main() -> int:
             ("codet5_bf16", phase_codet5_bf16, ())):
         for k, v in timed(phase, fn, *args)["launches"].items():
             path_launches[k] += v
+    # Phases 27-28 run last, so every earlier phase keeps its place in
+    # the process's run: with them ahead of the attention phases, the
+    # profiler recorded no device time at all in those phases' short
+    # windows, three sessions running (the same phases after a short
+    # history in a fresh process recorded every window). Phase 28 also
+    # profiles in a fresh process.
+    timings.update(timed("train_kernels_bf16", phase_train_kernels_bf16,
+                         model))
+    f32_lanes = {impl: dict(device_busy_ms=rec["step_profile"][
+        "device_busy_ms"], graphs_per_s=rec["graphs_per_s"])
+        for impl, rec in train_f32.items()}
+    for k, v in timed("train_bf16", _phase_in_child, "train_bf16",
+                      f32_lanes)["launches"].items():
+        path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))
     kernels = []
     for kname, replaces in REPLACES.items():
@@ -3983,9 +4349,10 @@ def main() -> int:
                                        "scan_ms", "blocks_per_sm", "cluster",
                                        "active_clusters", "row_tile",
                                        "slab_rows", "blocks", "wide",
-                                       "blocks_per_sm_pass1", "f32_kernel_ms",
+                                       "blocks_per_sm_pass1",
+                                       "blocks_per_sm_pass2", "f32_kernel_ms",
                                        "elements_differing",
-                                       "scan_bits_equal")
+                                       "scan_bits_equal", "fold_bits_equal")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3994,5 +4361,17 @@ def main() -> int:
     return 0
 
 
+def child_main(name: str, arg: str) -> int:
+    """A phase of ``CHILD_PHASES`` in this process, its result as the
+    last line."""
+    if not torch.cuda.is_available():
+        return 1
+    _full_f32()
+    print(json.dumps(CHILD_PHASES[name](json.loads(arg))), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase":
+        sys.exit(child_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -633,6 +633,397 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instances: FlowGNN(dtype="bfloat16") training, the fused lane
+// ---------------------------------------------------------------------------
+//
+// fused_step_bwd_kernel_bf16    replaces _bwd_kernel at dt = bfloat16 (the
+//                               same Pallas kernel, generic over the
+//                               dtype; its bf16 body, fused_gnn.py:
+//                               405-476), down to the per-row cotangents.
+// step_weight_grad_kernel_bf16  its weight-gradient accumulation at bf16.
+//
+// The reference rounds inside the step at bf16, so the f32 kernels'
+// reassociation (aggregate h before the edge linear) would skip a rounding
+// point, as in the forward instance (fused_gnn.cu, bf16 section). The
+// backward instance therefore runs three passes over fused_step_bwd_kernel's
+// row tiles (step_bwd_plan), one launch count: pass 0 writes every row's
+// message (edge_msg_bf16, fused_step_kernel_bf16's pass 0) into an f32
+// scratch, since a tile's halo messages belong to other blocks; pass 1
+// stages the tile's h, g and messages, aggregates the messages, rounds x
+// (written out, bf16), runs the gate products with the input and recurrent
+// sums apart (group_gate_split: each rounds before its bias) and the gate
+// backward (gate_bwd_out_bf16: f32 cotangents from the gates, dp written
+// out f32 and unrounded), then dx = dpre_i W_i^T and dhl = dhc + dpre_h
+// W_h^T with dp rounded to bf16 on load, and writes dx rounded to the
+// message dtype and dhl; pass 2 aggregates A^T dx (f32 sums; dmsg written
+// out unrounded), rounds dmsg to the message dtype in place and ends with
+// dh = round_bf16(dhl + dmsg W_e^T). Every row array holds f32 (bf16 values
+// widened, exact) and the weights arrive as f32 arrays of bf16 values.
+// The products stay the f32 kernels' register-tiled SIMT FMAs: bound by
+// f32 operations like them (kernel_cost counts the products of two bf16
+// values at the bf16 tensor-core rate, the function's bound, which this
+// instance does not reach). Pass 1 holds 96 gate sums a thread: one block
+// an SM.
+//
+// The weight pass takes h, hist and x as bf16 and dp, dmsg as f32: each
+// block stages its L slabs as bf16 by cp.async and widens them (a bf16
+// value is a TF32 value: no low part), rounds its R slab to bf16 on load
+// (dp always, dmsg when the messages are bf16; no low part either), so
+// each product of two bf16 values is one exact TF32 mma.sync; dW_e with
+// f32 messages keeps an f32 R operand split in two (2xTF32: its L has no
+// low part). The bias columns sum the unrounded R values. Splits, the
+// step on the grid and step_weight_grad_reduce_kernel are the f32
+// pass's: a K-step call equals the fold of K one-step calls bit for bit.
+
+// Pointers and sizes of one bf16 backward step.
+struct BwdBf16Args {
+  const __nv_bfloat16* h;
+  const void* vals;
+  const void* tvals;
+  const __nv_bfloat16* g;
+  const float *ek, *eb, *wi, *bi, *wh, *bh, *wiT, *whT, *ekT;
+  float* msg;
+  __nv_bfloat16* x;
+  float *dp, *dx, *dhl, *dmsg;
+  __nv_bfloat16* dh;
+  int n_rows, H, tile, n_tiles, bw, row_tile;
+};
+
+// Shared memory: kStages weight-slab stages, then pass 0: h_s; pass 1: d_s
+// (g, then dhc, then dhl), h_s (h, then dx), m_s (the tile's messages),
+// a_s (the aggregate, then x), the row sums; pass 2: x_s (dx), a_s (dmsg,
+// then its rounding), the row sums.
+template <typename VT, int kPass>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+    fused_step_bwd_kernel_bf16(const BwdBf16Args a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kRoundMsg = sizeof(VT) == 2;
+  const VT* vals = static_cast<const VT*>(a.vals);
+  const VT* tvals = static_cast<const VT*>(a.tvals);
+  const int H = a.H;
+  const Tile t(H, 0, 1);
+  const int r0 = blockIdx.x * a.row_tile;
+  const int R = min(a.row_tile, a.n_rows - r0), ld = t.ld;
+  const size_t off = static_cast<size_t>(r0) * H;
+  const int sf = kStages * group_stage_floats(H);
+  float* stages = smem;  // [kStages][stage]
+  float* rows = stages + sf;
+  if constexpr (kPass == 0) {
+    float* h_s = rows;
+    rows_to_shared(h_s, ld, a.h + off, R, H);
+    __syncthreads();
+    float* dst = a.msg + off;
+    group_rows_times<false>(t, h_s, R, a.ek, stages,
+                            [&](int r, const float* acc) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = edge_msg_bf16(acc[j], __ldg(a.eb + t.c0 + j), kRoundMsg);
+      *reinterpret_cast<float4*>(dst + r * H + t.c0) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    });
+  } else if constexpr (kPass == 1) {
+    float* d_s = rows;                    // [R, ld] g, dhc, dhl
+    float* h_s = d_s + a.row_tile * ld;   // [R, ld] h, then dx
+    float* m_s = h_s + a.row_tile * ld;   // [R, ld] the tile's messages
+    float* a_s = m_s + a.row_tile * ld;   // [R, ld] the aggregate, then x
+    float* rs_s = a_s + a.row_tile * ld;  // [R] row sums (unused at bf16)
+    rows_to_shared(h_s, ld, a.h + off, R, H);
+    rows_to_shared(d_s, ld, a.g + off, R, H);
+    rows_to_shared(m_s, ld, a.msg + off, R, H);
+    __syncthreads();
+    tile_aggregate(vals, a.tile, a.n_tiles, a.bw, a.msg, m_s, r0, R, ld, H,
+                   a_s, rs_s, stages, sf);
+    for (int e = threadIdx.x; e < R * H; e += kGroupThreads) {
+      const int i = (e / H) * ld + e % H;
+      a_s[i] = round_bf16(a_s[i]);
+    }
+    __syncthreads();
+    rows_to_global(a.x + off, a_s, ld, R, H, 0, H);
+    float* dp_t = a.dp + 4 * off;
+    group_gate_split<false>(
+        t, a_s, h_s, R, a.wi, a.wh, stages,
+        [&](int r, const float* ir, const float* hr, const float* iz,
+            const float* hz, const float* in, const float* hn) {
+          float d[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = r * ld + t.c0 + j;
+            const GateGrads gg = gate_bwd_out_bf16(
+                ir[j], hr[j], iz[j], hz[j], in[j], hn[j],
+                gate_bias_bf16(a.bi, a.bh, H, t.c0 + j), h_s[e], d_s[e]);
+            d[0][j] = gg.dr;
+            d[1][j] = gg.dz;
+            d[2][j] = gg.dn;
+            d[3][j] = gg.dhn;
+            d_s[e] = gg.dhc;
+          }
+          float* dprow = dp_t + static_cast<size_t>(r) * 4 * H;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            *reinterpret_cast<float4*>(dprow + b * H + t.c0) =
+                make_float4(d[b][0], d[b][1], d[b][2], d[b][3]);
+        });
+    // dp (device memory) of every row of the tile is visible to the block.
+    group_gate_bwd_b<kGateRows, true>(t, dp_t, R, a.wiT, a.whT, stages, h_s,
+                                      d_s);
+    // dx at the message dtype (bf16 messages: rounded), then dhl.
+    const int q = H / 4;
+    for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
+      const int r = e / q, c = 4 * (e % q);
+      float4 v = *reinterpret_cast<const float4*>(h_s + r * ld + c);
+      if constexpr (kRoundMsg) v = round_bf16x4(v);
+      *reinterpret_cast<float4*>(a.dx + off + static_cast<size_t>(r) * H +
+                                 c) = v;
+    }
+    rows_to_global(a.dhl + off, d_s, ld, R, H);
+  } else {
+    float* x_s = rows;                    // [R, ld] dx of the tile
+    float* a_s = x_s + a.row_tile * ld;   // [R, ld] dmsg, then rounded
+    float* rs_s = a_s + a.row_tile * ld;  // [R] row sums (unused)
+    rows_to_shared(x_s, ld, a.dx + off, R, H);
+    __syncthreads();
+    tile_aggregate(tvals, a.tile, a.n_tiles, a.bw, a.dx, x_s, r0, R, ld, H,
+                   a_s, rs_s, stages, sf);
+    // dmsg out unrounded (the weight pass sums db_e from it); the product
+    // with W_e^T takes it at the message dtype.
+    const int q = H / 4;
+    for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
+      const int r = e / q, c = 4 * (e % q);
+      float4* p = reinterpret_cast<float4*>(a_s + r * ld + c);
+      *reinterpret_cast<float4*>(a.dmsg + off + static_cast<size_t>(r) * H +
+                                 c) = *p;
+      if constexpr (kRoundMsg) *p = round_bf16x4(*p);
+    }
+    __syncthreads();
+    const float* dhl_t = a.dhl + off;
+    __nv_bfloat16* dh_t = a.dh + off;
+    group_rows_times<false>(t, a_s, R, a.ekT, stages,
+                            [&](int r, const float* acc) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = __fadd_rn(dhl_t[r * H + t.c0 + j], acc[j]);
+      store_bf16x4(dh_t + r * H + t.c0, v[0], v[1], v[2], v[3]);
+    });
+  }
+}
+
+// Dynamic shared memory of fused_step_bwd_kernel_bf16's pass
+// (ops/fused_gnn.py:step_smem_bytes mirrors it).
+size_t step_bwd_bf16_smem(int pass, int row_tile, int hidden) {
+  const int arrays = pass == 0 ? 1 : (pass == 1 ? 4 : 2);
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
+          arrays * static_cast<size_t>(row_tile) * group_ld(hidden) +
+          (pass == 0 ? 0 : row_tile));
+}
+
+// Launches pass kPass over plan p (occupancy == nullptr) or queries its
+// blocks an SM.
+template <typename VT, int kPass>
+int bwd_bf16_pass(const BwdBf16Args& a, const StepPlan& p, cudaStream_t st,
+                  int* occupancy) {
+  const auto kernel = fused_step_bwd_kernel_bf16<VT, kPass>;
+  const size_t smem = step_bwd_bf16_smem(kPass, p.row_tile, a.H);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (occupancy)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occupancy, kernel, kGroupThreads, smem));
+  kernel<<<p.blocks, kGroupThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three passes of one step (occupancy: the passes' blocks an SM).
+template <typename VT>
+int launch_fused_bwd_bf16(BwdBf16Args a, cudaStream_t st,
+                          int* occupancy = nullptr) {
+  const StepPlan p = step_bwd_plan(a.n_rows, device_sms());
+  a.row_tile = p.row_tile;
+  int e = bwd_bf16_pass<VT, 0>(a, p, st, occupancy);
+  if (e != 0) return e;
+  e = bwd_bf16_pass<VT, 1>(a, p, st, occupancy ? occupancy + 1 : nullptr);
+  if (e != 0) return e;
+  return bwd_bf16_pass<VT, 2>(a, p, st, occupancy ? occupancy + 2 : nullptr);
+}
+
+// Row stride of a bf16 L slab: 136 values (272 bytes, 16-byte pieces).
+constexpr int kWLdB = kWTile + 8;
+// Shared memory: R slabs in two stages and the lo part, the widened L
+// slab, half of the bias sums, then the bf16 L slabs in two stages.
+constexpr size_t kWSmemBf16 =
+    sizeof(float) * (4 * kWSlab * kWLd + kWTile) +
+    sizeof(__nv_bfloat16) * 2 * kWSlab * kWLdB;
+
+// step_weight_grad_kernel at bf16: L (h, hist, x) bf16, R (dp, dmsg) f32,
+// rounded to bf16 on load where round_r (dp always; dmsg when round_msg).
+// vec: every row of L starts 16-byte aligned (H % 8 == 0) and of R too,
+// so the slabs copy in 16-byte pieces; else 4-byte ones (H % 4 == 0).
+__global__ void __launch_bounds__(kWThreads, 2)
+    step_weight_grad_kernel_bf16(const __nv_bfloat16* __restrict__ h0,
+                                 const __nv_bfloat16* __restrict__ hist,
+                                 const __nv_bfloat16* __restrict__ xbuf,
+                                 const float* __restrict__ dpbuf,
+                                 const float* __restrict__ dmsgbuf,
+                                 float* __restrict__ partial, int n_rows,
+                                 int H, int n_steps, int rows_per_split,
+                                 int round_msg, int vec) {
+  extern __shared__ __align__(16) float wsmem[];
+  float* Rs = wsmem;                    // [2][kWSlab * kWLd]
+  float* Rlo = Rs + 2 * kWSlab * kWLd;  // [kWSlab * kWLd]
+  float* Lw = Rlo + kWSlab * kWLd;      // [kWSlab * kWLd] L widened
+  float* bias_s = Lw + kWSlab * kWLd;   // [kWTile]
+  __nv_bfloat16* Lb =
+      reinterpret_cast<__nv_bfloat16*>(bias_s + kWTile);  // [2][slab]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tiles_a = (H + kWTile - 1) / kWTile;
+  const int tiles_g = tiles_a * ((3 * H + kWTile - 1) / kWTile);
+  int tile = blockIdx.x, prod;
+  if (tile < tiles_g) {
+    prod = 0;
+  } else if (tile < 2 * tiles_g) {
+    prod = 1;
+    tile -= tiles_g;
+  } else {
+    prod = 2;
+    tile -= 2 * tiles_g;
+  }
+  const int s = blockIdx.z;
+  const int width = prod == 2 ? H : 3 * H;
+  const bool round_r = prod != 2 || round_msg;  // R exact in TF32: no lo
+  const int a0 = (tile % tiles_a) * kWTile, b0 = (tile / tiles_a) * kWTile;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(n_rows, r_begin + rows_per_split);
+  const size_t plane = static_cast<size_t>(n_rows) * H;
+  const __nv_bfloat16* hs = s == 0 ? h0 : hist + (s - 1) * plane;
+  const __nv_bfloat16* L = prod == 0 ? xbuf + s * plane : hs;
+  const float* Rm = prod == 2 ? dmsgbuf + s * plane : dpbuf + 4 * s * plane;
+  const int rstride = prod == 2 ? H : 4 * H;
+  // dpre_h's n block (prod 1) is dpre_hn, stored H columns on.
+  auto rcol = [&](int b) { return (prod == 1 && b >= 2 * H) ? b + H : b; };
+
+  // Slab i (rows r_begin + 32 i ..) into stage st, zeros past r_end, H or
+  // width; not waited for.
+  auto issue = [&](int i, int st) {
+    const int r0 = r_begin + i * kWSlab;
+    __nv_bfloat16* ld = Lb + st * kWSlab * kWLdB;
+    float* rd = Rs + st * kWSlab * kWLd;
+    const int lv = vec ? 8 : 2, rv = vec ? 4 : 1;  // values a piece
+    for (int e = tid; e < kWSlab * kWTile / lv; e += kWThreads) {
+      const int rr = e / (kWTile / lv), c = (e % (kWTile / lv)) * lv;
+      const size_t row = static_cast<size_t>(r0 + rr);
+      const bool in_l = r0 + rr < r_end && a0 + c < H;
+      float* dst = reinterpret_cast<float*>(ld + rr * kWLdB + c);
+      const float* src = reinterpret_cast<const float*>(
+          in_l ? L + row * H + a0 + c : L);
+      if (vec)
+        cp_async16(dst, src, in_l);
+      else
+        cp_async4(dst, src, in_l);
+    }
+    for (int e = tid; e < kWSlab * kWTile / rv; e += kWThreads) {
+      const int rr = e / (kWTile / rv), c = (e % (kWTile / rv)) * rv;
+      const size_t row = static_cast<size_t>(r0 + rr);
+      const bool in_b = r0 + rr < r_end && b0 + c < width;
+      const float* src = in_b ? Rm + row * rstride + rcol(b0 + c) : Rm;
+      if (vec)
+        cp_async16(rd + rr * kWLd + c, src, in_b);
+      else
+        cp_async4(rd + rr * kWLd + c, src, in_b);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
+  const int bc = tid & (kWTile - 1), brow = tid >> 7;
+  float bias = 0.f;
+  const int wa = (warp >> 1) * 32, wb = (warp & 1) * 64;
+  const int n_slabs = (r_end - r_begin + kWSlab - 1) / kWSlab;
+  if (n_slabs > 0) issue(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_slabs; ++i) {
+    const int st = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // slab i landed; stage st ^ 1, Lw and Rlo free
+    if (i + 1 < n_slabs) issue(i + 1, st ^ 1);  // overlaps this slab's work
+    cp_async_commit();
+    const __nv_bfloat16* lb = Lb + st * kWSlab * kWLdB;
+    float* rh = Rs + st * kWSlab * kWLd;
+    for (int rr = brow; rr < kWSlab; rr += 2) {
+      const int e = rr * kWLd + bc;
+      Lw[e] = __bfloat162float(lb[rr * kWLdB + bc]);
+      const float rv = rh[e];
+      bias += rv;
+      if (round_r) {
+        rh[e] = round_bf16(rv);
+      } else {
+        uint32_t hi, lo;
+        tf32x3::split(rv, hi, lo);
+        rh[e] = __uint_as_float(hi);
+        Rlo[e] = __uint_as_float(lo);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < kWSlab / 8; ++kc) {
+      uint32_t ahi[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          ahi[mi][u] = __float_as_uint(
+              Lw[(8 * kc + t4 + 4 * (u >> 1)) * kWLd + wa + 16 * mi + g +
+                 8 * (u & 1)]);
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        uint32_t bhi[2], blo[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = (8 * kc + t4 + 4 * u) * kWLd + wb + 8 * nj + g;
+          bhi[u] = __float_as_uint(rh[e]);
+          blo[u] = round_r ? 0u : __float_as_uint(Rlo[e]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // The small term first, as mma3 (L has no low part).
+          if (!round_r) tf32x3::mma(acc[mi][nj], ahi[mi], blo);
+          tf32x3::mma(acc[mi][nj], ahi[mi], bhi);
+        }
+      }
+    }
+  }
+  const size_t n_out = 7 * static_cast<size_t>(H) * H + 7 * H;
+  const size_t w_off = static_cast<size_t>(prod) * 3 * H * H;
+  const size_t b_off = 7 * static_cast<size_t>(H) * H + prod * 3 * H;
+  float* out =
+      partial + (static_cast<size_t>(blockIdx.y) * n_steps + s) * n_out;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = a0 + wa + 16 * mi + g + 8 * (i >> 1);
+        const int b = b0 + wb + 8 * nj + 2 * t4 + (i & 1);
+        if (a < H && b < width)
+          out[w_off + static_cast<size_t>(a) * width + b] = acc[mi][nj][i];
+      }
+  if (brow == 1) bias_s[bc] = bias;
+  __syncthreads();
+  if (a0 == 0 && brow == 0 && b0 + bc < width)
+    out[b_off + b0 + bc] = bias + bias_s[bc];
+}
+
 }  // namespace
 
 extern "C" {
@@ -781,6 +1172,119 @@ int persistent_bwd_occupancy(int vals_bf16, int max_group_rows, int hidden,
           blocks, persistent_bwd_kernel<float>, kGroupThreads, smem);
   }
   return static_cast<int>(e);
+}
+
+// One bf16 step's backward (fused_step_bwd_kernel_bf16, three launches,
+// its passes): h, g, x, dh [n_rows, hidden] bf16; msg, dx, dhl (scratch)
+// and dmsg [n_rows, hidden] f32, dp [n_rows, 4 * hidden] f32; the weights
+// and their transposes f32 arrays of bf16 values; otherwise as
+// fused_step_bwd_launch.
+int fused_step_bwd_bf16_launch(const void* h, const void* vals,
+                               const void* tvals, int vals_bf16,
+                               const void* g, const void* ek, const void* eb,
+                               const void* wi, const void* bi, const void* wh,
+                               const void* bh, const void* wiT,
+                               const void* whT, const void* ekT, void* msg,
+                               void* x, void* dp, void* dx, void* dhl,
+                               void* dmsg, void* dh, int n_rows, int hidden,
+                               int tile, int n_tiles, int bandwidth,
+                               void* stream) {
+  const BwdBf16Args a{static_cast<const __nv_bfloat16*>(h), vals, tvals,
+                      static_cast<const __nv_bfloat16*>(g),
+                      static_cast<const float*>(ek),
+                      static_cast<const float*>(eb),
+                      static_cast<const float*>(wi),
+                      static_cast<const float*>(bi),
+                      static_cast<const float*>(wh),
+                      static_cast<const float*>(bh),
+                      static_cast<const float*>(wiT),
+                      static_cast<const float*>(whT),
+                      static_cast<const float*>(ekT),
+                      static_cast<float*>(msg),
+                      static_cast<__nv_bfloat16*>(x),
+                      static_cast<float*>(dp), static_cast<float*>(dx),
+                      static_cast<float*>(dhl), static_cast<float*>(dmsg),
+                      static_cast<__nv_bfloat16*>(dh), n_rows, hidden, tile,
+                      n_tiles, bandwidth, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vals_bf16 ? launch_fused_bwd_bf16<__nv_bfloat16>(a, st)
+                   : launch_fused_bwd_bf16<float>(a, st);
+}
+
+// fused_step_bwd_bf16_launch's geometry over n_rows rows: the row tile,
+// the k rows of a gate slab, the blocks of each pass, and for each pass
+// the blocks of its instance one SM holds and its blocks' dynamic shared
+// memory, and the SMs the plan filled.
+int fused_step_bwd_bf16_geometry(int vals_bf16, int n_rows, int hidden,
+                                 int* row_tile, int* slab_rows, int* blocks,
+                                 int* blocks_per_sm, int* blocks_per_sm_pass1,
+                                 int* blocks_per_sm_pass2, int* smem_bytes,
+                                 int* smem_bytes_pass1, int* smem_bytes_pass2,
+                                 int* sms) {
+  *sms = device_sms();
+  const StepPlan p = step_bwd_plan(n_rows, *sms);
+  *row_tile = p.row_tile;
+  *slab_rows = p.slab_rows;
+  *blocks = p.blocks;
+  *smem_bytes = static_cast<int>(step_bwd_bf16_smem(0, p.row_tile, hidden));
+  *smem_bytes_pass1 =
+      static_cast<int>(step_bwd_bf16_smem(1, p.row_tile, hidden));
+  *smem_bytes_pass2 =
+      static_cast<int>(step_bwd_bf16_smem(2, p.row_tile, hidden));
+  BwdBf16Args a{};
+  a.n_rows = n_rows;
+  a.H = hidden;
+  int occ[3] = {0, 0, 0};
+  const int e = vals_bf16 ? launch_fused_bwd_bf16<__nv_bfloat16>(a, 0, occ)
+                          : launch_fused_bwd_bf16<float>(a, 0, occ);
+  *blocks_per_sm = occ[0];
+  *blocks_per_sm_pass1 = occ[1];
+  *blocks_per_sm_pass2 = occ[2];
+  return e;
+}
+
+// step_weight_grad_launch at bf16 (step_weight_grad_kernel_bf16): h0,
+// hist and x bf16, dp and dmsg f32 (rounded to bf16 on load: dp always,
+// dmsg when round_msg); the gradients and partial f32, as there.
+int step_weight_grad_bf16_launch(const void* h0, const void* hist,
+                                 const void* x, const void* dp,
+                                 const void* dmsg, int round_msg, int n_rows,
+                                 int hidden, int n_steps, int rows_per_split,
+                                 void* partial, void* dek, void* deb,
+                                 void* dwi, void* dbi, void* dwh, void* dbh,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows_per_split <= 0 || rows_per_split % kWSlab || hidden % 4)
+    return 1;  // invalid value
+  const void* rows[] = {h0, hist, x, dp, dmsg};
+  int vec = hidden % 8 == 0;
+  for (const void* p : rows)
+    vec &= reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      step_weight_grad_kernel_bf16,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWSmemBf16));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_a = (hidden + kWTile - 1) / kWTile;
+  const dim3 grid(tiles_a * (2 * ((3 * hidden + kWTile - 1) / kWTile) +
+                             (hidden + kWTile - 1) / kWTile),
+                  (n_rows + rows_per_split - 1) / rows_per_split, n_steps);
+  step_weight_grad_kernel_bf16<<<grid, kWThreads, kWSmemBf16, st>>>(
+      static_cast<const __nv_bfloat16*>(h0),
+      static_cast<const __nv_bfloat16*>(hist),
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dp),
+      static_cast<const float*>(dmsg), static_cast<float*>(partial), n_rows,
+      hidden, n_steps, rows_per_split, round_msg, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n_out = 7LL * hidden * hidden + 7LL * hidden;
+  step_weight_grad_reduce_kernel<<<static_cast<int>((n_out + 255) / 256), 256,
+                                   0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dek),
+      static_cast<float*>(deb), static_cast<float*>(dwi),
+      static_cast<float*>(dbi), static_cast<float*>(dwh),
+      static_cast<float*>(dbh), hidden, n_steps, static_cast<int>(grid.y));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -70,10 +70,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // jax.nn.sigmoid of a bf16 value as XLA computes it: 1 / (1 + exp(-x)),
-// the exponential, the sum and the quotient each rounded to bf16.
-__device__ __forceinline__ float sigmoid_bf16(float x) {
+// the exponential, the sum and the quotient each rounded to bf16;
+// sigmoid_bf16_unrounded leaves the quotient f32.
+__device__ __forceinline__ float sigmoid_bf16_unrounded(float x) {
   const float e = round_bf16(expf(-x));
-  return round_bf16(__fdiv_rn(1.0f, round_bf16(__fadd_rn(1.0f, e))));
+  return __fdiv_rn(1.0f, round_bf16(__fadd_rn(1.0f, e)));
+}
+
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  return round_bf16(sigmoid_bf16_unrounded(x));
 }
 
 // The message of one element at bf16 h: (h W_e)[col] (f32 sum acc) plus
@@ -99,24 +104,45 @@ __device__ __forceinline__ GateBiasBf16 gate_bias_bf16(
           __ldg(bh + col),     __ldg(bh + H + col), __ldg(bh + 2 * H + col)};
 }
 
-// h' of one element at bf16 from the six f32 product sums (x w_ir, h w_hr,
-// x w_iz, h w_hz, x w_in, h w_hn) and the carry hc: gi = round(round(x w_i)
-// + b_i), gh = round(round(h w_h) + b_h), then the GRU gate with every op
-// rounded to bf16 (the reference kernel's gate, op for op).
-__device__ __forceinline__ float gate_out_bf16(float ir, float hr, float iz,
-                                               float hz, float in, float hn,
-                                               const GateBiasBf16& b,
-                                               float hc) {
+// The bf16 gate's inputs of one element from the six f32 product sums (x
+// w_ir, h w_hr, x w_iz, h w_hz, x w_in, h w_hn): gi = round(round(x w_i) +
+// b_i), gh = round(round(h w_h) + b_h), then the r and z sigmoids'
+// arguments round(gi + gh), gi_n and gh_n (pre_hn).
+struct GatePreBf16 {
+  float r, z, in, hn;
+};
+
+__device__ __forceinline__ GatePreBf16 gate_pre_bf16(float ir, float hr,
+                                                     float iz, float hz,
+                                                     float in, float hn,
+                                                     const GateBiasBf16& b) {
   const float gir = round_bf16(__fadd_rn(round_bf16(ir), b.ir));
   const float giz = round_bf16(__fadd_rn(round_bf16(iz), b.iz));
   const float gin = round_bf16(__fadd_rn(round_bf16(in), b.in));
   const float ghr = round_bf16(__fadd_rn(round_bf16(hr), b.hr));
   const float ghz = round_bf16(__fadd_rn(round_bf16(hz), b.hz));
   const float ghn = round_bf16(__fadd_rn(round_bf16(hn), b.hn));
-  const float rg = sigmoid_bf16(round_bf16(__fadd_rn(gir, ghr)));
-  const float zg = sigmoid_bf16(round_bf16(__fadd_rn(giz, ghz)));
-  const float ng = round_bf16(
-      tanhf(round_bf16(__fadd_rn(gin, round_bf16(__fmul_rn(rg, ghn))))));
+  return {round_bf16(__fadd_rn(gir, ghr)), round_bf16(__fadd_rn(giz, ghz)),
+          gin, ghn};
+}
+
+// The n gate's tanh argument at bf16: round(gi_n + round(r gh_n)).
+__device__ __forceinline__ float gate_n_arg_bf16(const GatePreBf16& p,
+                                                 float rg) {
+  return round_bf16(__fadd_rn(p.in, round_bf16(__fmul_rn(rg, p.hn))));
+}
+
+// h' of one element at bf16 from the six f32 product sums and the carry
+// hc: the GRU gate with every op rounded to bf16 (the reference kernel's
+// gate, op for op).
+__device__ __forceinline__ float gate_out_bf16(float ir, float hr, float iz,
+                                               float hz, float in, float hn,
+                                               const GateBiasBf16& b,
+                                               float hc) {
+  const GatePreBf16 p = gate_pre_bf16(ir, hr, iz, hz, in, hn, b);
+  const float rg = sigmoid_bf16(p.r);
+  const float zg = sigmoid_bf16(p.z);
+  const float ng = round_bf16(tanhf(gate_n_arg_bf16(p, rg)));
   const float keep =
       round_bf16(__fmul_rn(round_bf16(__fsub_rn(1.0f, zg)), ng));
   return round_bf16(__fadd_rn(keep, round_bf16(__fmul_rn(zg, hc))));
@@ -144,6 +170,32 @@ __device__ __forceinline__ GateGrads gate_bwd_out(float pr, float pz,
   const float drg = dpre_n * pre_hn;
   return {drg * rg * (1.0f - rg), dz * zg * (1.0f - zg), dpre_n,
           dpre_n * rg, gv * zg};
+}
+
+// The gate's backward for one element at bf16 (fused_step_bwd_kernel_bf16):
+// the forward recomputed as gate_out_bf16, then gate_bwd_out's f32
+// cotangents, op for op, each product and difference rounded once in f32
+// (the _rn intrinsics: no contraction, as torch and XLA compute them). The
+// gates enter them as the reference computes its backward where its tests
+// run it (the Pallas interpreter on XLA's CPU backend, whose excess
+// precision elides the f32 -> bf16 -> f32 round trip of a gate's last op):
+// r and z the sigmoid's f32 quotient, n the f32 tanh of its bf16
+// argument; pre_hn, g and hc are bf16 values. ops/fused_gnn.py's
+// _bwd_rows_bf16 computes the same.
+__device__ __forceinline__ GateGrads gate_bwd_out_bf16(
+    float ir, float hr, float iz, float hz, float in, float hn,
+    const GateBiasBf16& b, float hc, float gv) {
+  const GatePreBf16 p = gate_pre_bf16(ir, hr, iz, hz, in, hn, b);
+  const float rg = sigmoid_bf16_unrounded(p.r);
+  const float zg = sigmoid_bf16_unrounded(p.z);
+  const float ng = tanhf(gate_n_arg_bf16(p, round_bf16(rg)));
+  const float dz = __fmul_rn(gv, __fsub_rn(hc, ng));
+  const float dn = __fmul_rn(gv, __fsub_rn(1.0f, zg));
+  const float dpre_n = __fmul_rn(dn, __fsub_rn(1.0f, __fmul_rn(ng, ng)));
+  const float drg = __fmul_rn(dpre_n, p.hn);
+  return {__fmul_rn(__fmul_rn(drg, rg), __fsub_rn(1.0f, rg)),
+          __fmul_rn(__fmul_rn(dz, zg), __fsub_rn(1.0f, zg)), dpre_n,
+          __fmul_rn(dpre_n, rg), __fmul_rn(gv, zg)};
 }
 
 // Band values through a generic pointer (the per-step kernels read their

@@ -676,11 +676,19 @@ __device__ void wide_gate(const Tile& t, const float* x_s, const float* h_s,
   __syncthreads();
 }
 
+// 4 values rounded to bf16 (kept f32).
+__device__ __forceinline__ float4 round_bf16x4(float4 v) {
+  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                     round_bf16(v.w));
+}
+
 // The gate backward's second half on rows [0, R): with dp (device memory,
 // [R, 4H] from row 0, written by this block: plain loads, no read-only
 // path) dx[r] = dpre_i[r] w_i^T -> dx_s, dh_s[r] += dpre_h[r] w_h^T, each
-// a chain over j ascending (wiT, whT: [3H, H]). Ends with a barrier.
-template <int kGR = kGateRows>
+// a chain over j ascending (wiT, whT: [3H, H]). kRoundDp (the bf16
+// instance): dp rounded to bf16 as it is loaded, the products' operands
+// at bf16. Ends with a barrier.
+template <int kGR = kGateRows, bool kRoundDp = false>
 __device__ void group_gate_bwd_b(const Tile& t, const float* dp, int R,
                                  const float* __restrict__ wiT,
                                  const float* __restrict__ whT,
@@ -715,6 +723,10 @@ __device__ void group_gate_bwd_b(const Tile& t, const float* dp, int R,
             for (int i = 0; i < kTR; ++i) {
               di[i] = *reinterpret_cast<const float4*>(dprow[i] + j);
               dh4[i] = *reinterpret_cast<const float4*>(dprow[i] + jh);
+              if constexpr (kRoundDp) {
+                di[i] = round_bf16x4(di[i]);
+                dh4[i] = round_bf16x4(dh4[i]);
+              }
             }
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {

@@ -9,7 +9,8 @@ running sum to bf16 after each add (its scatter's combiner runs in bf16;
 an f32 sum rounded once differs from it by several bf16 steps on a
 pooled graph of a few hundred nodes). :func:`segment_sum` adds bf16 data
 the same way, in row order, one pass over the rows of each rank within
-their segment. :func:`segment_softmax` on bf16 logits rounds each op to
+their segment; its backward is XLA's transpose, a gather of each row's
+bucket gradient. :func:`segment_softmax` on bf16 logits rounds each op to
 bf16, as the reference's does.
 """
 
@@ -26,7 +27,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     padded rows first (padded ids point at slot 0). bf16 data: the running
     sum of each bucket rounds to bf16 after each row, in row order."""
     if data.dtype == torch.bfloat16:
-        return _segment_sum_bf16(data, segment_ids, num_segments)
+        return _SegmentSumBf16.apply(data, segment_ids, num_segments)
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     return out.index_add_(0, segment_ids.long(), data)
@@ -60,6 +61,23 @@ def _segment_sum_bf16(data: torch.Tensor, segment_ids: torch.Tensor,
         dst = ids[pick]  # distinct buckets within a level
         out[dst] = out[dst] + data[rows[pick]]
     return out
+
+
+class _SegmentSumBf16(torch.autograd.Function):
+    """:func:`_segment_sum_bf16` with XLA's transpose of a segment sum as
+    its backward: each row's gradient is its bucket's, gathered (exact at
+    any dtype). Autograd of the forward's level loop would gather the
+    same values but give the all-zero rows the loop leaves out none."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        return _segment_sum_bf16(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return g[segment_ids.long()], None, None
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,

@@ -33,9 +33,12 @@ points (each Dense rounds its product, then its bias add; each
 elementwise op of the GRU rounds; the explicit casts of ``_dense`` and
 ``ops/fused_gnn.py``'s bf16 helpers, not ``torch.autocast``); the head
 takes the pooled bf16 rows widened and gives f32 logits. The fused and
-persistent lanes launch the kernels' bf16 instances on the card. Serving
-and evaluation only: a backward through those lanes at bf16 raises on
-the card (ROADMAP A3b-2).
+persistent lanes launch the kernels' bf16 instances on the card. Training
+at bf16 runs the fused lane's backward instances (their VJP, the
+reference's custom VJP, on the CPU too: ``ops/fused_gnn._FusedStep``),
+the tile product's and autograd of the segment and band lanes, with the
+parameters f32 masters; the persistent lane's backward at bf16 raises on
+the card before anything launches (ROADMAP A3b-2b).
 """
 
 from __future__ import annotations
@@ -315,14 +318,20 @@ class FlowGNN(nn.Module):
         cfg = self.config
         step = self.ggnn_step
         packed = None
-        if h.is_cuda and cfg.message_impl in ("fused", "persistent"):
+        if cfg.message_impl in ("fused", "persistent") and (
+                h.is_cuda or self.dtype == torch.bfloat16):
             # Pack the r|z|n weights once for every launch of this pass
             # (differentiable: autograd maps the packed gradients back).
-            packed = fused_gnn.packed_weights(step.step_params(), self.dtype)
+            # f32 masters at either dtype: at bf16 the kernels' autograd
+            # Function rounds them inside, so their gradients stay f32.
+            packed = fused_gnn.packed_weights(step.step_params())
         if cfg.message_impl == "persistent":
             if batch.band_adj is None:
                 raise ValueError("message_impl='persistent' needs "
                                  "batch_graphs(build_band_adj=True)")
+            if self.dtype == torch.bfloat16 and fused_gnn.needs_grad(
+                    h, packed):
+                fused_gnn.refuse_bf16_persistent_training(h)
             # A pass that needs a gradient runs the persistent backward
             # too, which holds more a row: its gate decides.
             if h.is_cuda and not (

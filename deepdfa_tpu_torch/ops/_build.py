@@ -119,6 +119,22 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # sms (int outs)
         "fused_step_bwd_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                     _P],
+        # the bf16 instances: h, vals, tvals, vals_bf16, g, ek, eb, wi, bi,
+        # wh, bh, wiT, whT, ekT, msg (f32 scratch), x, dp, dx, dhl, dmsg,
+        # dh, n_rows, hidden, tile, n_tiles, bandwidth, stream
+        "fused_step_bwd_bf16_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # vals_bf16, n_rows, hidden, row_tile, slab_rows, blocks, and for
+        # each of the three passes blocks_per_sm and smem_bytes, sms (int
+        # outs)
+        "fused_step_bwd_bf16_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _P],
+        # h0, hist, x, dp, dmsg, round_msg, n_rows, hidden, n_steps,
+        # rows_per_split, partial, dek, deb, dwi, dbi, dwh, dbh, stream
+        "step_weight_grad_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P, _P, _P, _P, _P, _P, _P,
+                                         _P],
     },
     "flash_attn": {
         # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream
@@ -142,6 +158,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "tile_spmm": {
         # ptr, src, val, msg, out, n_rows, hidden, stream
         "tile_spmm_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+        # the same, msg and out bf16
+        "tile_spmm_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 

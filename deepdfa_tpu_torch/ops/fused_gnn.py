@@ -27,13 +27,17 @@ with its plain PyTorch version here:
   the tensor cores), in a fixed order (steps folded K-1 down to 0). Plain
   version :func:`step_weight_grad_reference`.
 
-At bf16 ``h`` (``FlowGNN(dtype="bfloat16")``, serving) :func:`fused_gate_step`
+At bf16 ``h`` (``FlowGNN(dtype="bfloat16")``) :func:`fused_gate_step`
 launches ``fused_step_kernel_bf16`` and :func:`persistent_unroll`
 ``persistent_fwd_kernel_bf16``, the same TPU kernels at ``dt =
 bfloat16``: they round where the reference's kernel rounds (the plain
 versions, :func:`fused_step_reference` and :func:`persistent_reference`
-on bf16 ``h``, with it), counted apart (``launches_bf16``). The backward
-kernels take f32 only: a bf16 backward raises (ROADMAP A3b-2).
+on bf16 ``h``, with it), counted apart (``launches_bf16``). The fused
+lane's backward has its bf16 instances too: :func:`fused_step_bwd_rows`
+launches ``fused_step_bwd_kernel_bf16`` and :func:`step_weight_grads`
+``step_weight_grad_kernel_bf16`` (plain versions, the same functions on
+bf16 ``h``: :func:`_bwd_rows_bf16`). The persistent lane's backward takes
+f32 only: a bf16 backward there raises on the card (ROADMAP A3b-2b).
 
 :func:`fused_step_backward` and :func:`persistent_backward` compose the
 backward kernels into the step VJP and the K-step VJP (plain versions
@@ -155,18 +159,31 @@ def gru_bf16(gi: torch.Tensor, gh: torch.Tensor,
     return (1.0 - z) * n + z * hc
 
 
-def _step_bf16(packed: Sequence[torch.Tensor], h: torch.Tensor,
-               adj: BandAdjacency) -> torch.Tensor:
-    """One step at bf16 from packed bf16 weights, at the reference
-    kernel's rounding points; bf16 ``h`` in and out."""
-    ek, eb, wi, bi, wh, bh = packed
-    if vals_compute(adj, torch.bfloat16)[1] == torch.bfloat16:
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor's values rounded to bf16 (nearest even), kept f32."""
+    return t.bfloat16().float()
+
+
+def _gates_bf16(packed: Sequence[torch.Tensor], h: torch.Tensor,
+                adj: BandAdjacency):
+    """The aggregate ``x`` and the gate pre-activations ``gi``, ``gh`` of
+    one step at bf16, at the reference kernel's rounding points. The
+    packed weights are rounded to bf16 here (a no-op on bf16 ones)."""
+    ek, eb, wi, bi, wh, bh = (w.to(torch.bfloat16) for w in packed)
+    if msg_dtype(adj, torch.bfloat16) == torch.bfloat16:
         msg = matmul_bf16(h, ek) + eb
     else:  # f32 band values: f32 messages
         msg = h.float() @ ek.float() + eb.float()
     x = band_spmm(adj, msg).to(torch.bfloat16)
-    gi = matmul_bf16(x, wi) + bi
-    gh = matmul_bf16(h, wh) + bh
+    return x, matmul_bf16(x, wi) + bi, matmul_bf16(h, wh) + bh
+
+
+def _step_bf16(packed: Sequence[torch.Tensor], h: torch.Tensor,
+               adj: BandAdjacency) -> torch.Tensor:
+    """One step at bf16 from packed weights (bf16, or the f32 masters,
+    rounded), at the reference kernel's rounding points; bf16 ``h`` in
+    and out."""
+    _, gi, gh = _gates_bf16(packed, h, adj)
     return gru_bf16(gi, gh, h)
 
 
@@ -369,8 +386,9 @@ def step_plan(n_rows: int, hidden: int, sms: int,
     over 16-row tiles that split the product columns (while the padded
     width leaves each block 32; slabs of 8 k rows where 8 divides
     ``hidden``, else 4: two blocks an SM either way).
-    ``fused_step_bwd_kernel``: 32-row tiles, 16 where those are fewer
-    than ``sms`` blocks, slabs of 4, no clusters.
+    ``fused_step_bwd_kernel`` and ``fused_step_bwd_kernel_bf16``: 32-row
+    tiles, 16 where those are fewer than ``sms`` blocks, slabs of 4, no
+    clusters.
     ``fused_step_kernel_bf16``: ``fused_step_kernel``'s tiles and blocks
     a tile (``cluster``: they split the product columns, without a
     hardware cluster), slabs of 4, the 4 x 4 products. Returns
@@ -387,7 +405,7 @@ def step_plan(n_rows: int, hidden: int, sms: int,
             cs, rt, gr = 2, 16, 8 if hidden % 8 == 0 else 4
         if kernel == "fused_step_kernel_bf16":
             gr, wide = PERSISTENT_SLAB_ROWS, False
-    elif kernel == "fused_step_bwd_kernel":
+    elif kernel in ("fused_step_bwd_kernel", "fused_step_bwd_kernel_bf16"):
         cs, gr = 1, PERSISTENT_SLAB_ROWS
         rt = 16 if cdiv(n_rows, 32) < sms else 32
     else:
@@ -406,9 +424,10 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
     and the aggregate, and x apart from it in a cluster; the bf16
     forward's pass 0: h, its pass 1: h, the messages and x; the
     backward's pass 0: the cotangent, h and the aggregate; pass 1: dx and
-    dmsg), one row sum a row (not in the bf16 pass 0). Bounded by the
-    tile, never by a graph. ``bwd_pass`` names the pass of a two-pass
-    kernel."""
+    dmsg; the bf16 backward's pass 0: h, its pass 1: the cotangent, h,
+    the messages and the aggregate, its pass 2: dx and dmsg), one row sum
+    a row (not in the bf16 passes 0). Bounded by the tile, never by a
+    graph. ``bwd_pass`` names the pass of a two- or three-pass kernel."""
     p = step_plan(n_rows, hidden, sms, kernel)
     ld = persistent_row_stride(hidden)
     stages = PERSISTENT_STAGES * p["slab_rows"] * 6 * (ld - 4)
@@ -417,6 +436,9 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
         arrays = 3 if p["cluster"] > 1 else 2
     elif kernel == "fused_step_kernel_bf16":
         arrays, sums = (1, 0) if bwd_pass == 0 else (3, p["row_tile"])
+    elif kernel == "fused_step_bwd_kernel_bf16":
+        arrays = (1, 4, 2)[bwd_pass]
+        sums = 0 if bwd_pass == 0 else p["row_tile"]
     else:
         arrays = 3 if bwd_pass == 0 else 2
     return 4 * (stages + arrays * p["row_tile"] * ld + sums)
@@ -429,8 +451,8 @@ def step_geometry(adj: BandAdjacency, hidden: int,
     ``blocks_per_sm``, the CUDA occupancy query of the instance that
     launches, ``smem_bytes``, its blocks' dynamic shared memory (for the
     two-pass kernels, of pass 0, and ``blocks_per_sm_pass1``,
-    ``smem_bytes_pass1``) and ``sms``, the device's SM count the plan
-    filled."""
+    ``smem_bytes_pass1``; the three-pass bf16 backward also
+    ``*_pass2``) and ``sms``, the device's SM count the plan filled."""
     from deepdfa_tpu_torch.ops import _build
 
     bf16 = int(adj.vals.dtype == torch.bfloat16)
@@ -449,6 +471,11 @@ def step_geometry(adj: BandAdjacency, hidden: int,
                 "blocks_per_sm_pass1", "smem_bytes", "smem_bytes_pass1",
                 "sms")
         geometry = _build.load("fused_gnn_bwd").fused_step_bwd_geometry
+    elif kernel == "fused_step_bwd_kernel_bf16":
+        keys = ("row_tile", "slab_rows", "blocks", "blocks_per_sm",
+                "blocks_per_sm_pass1", "blocks_per_sm_pass2", "smem_bytes",
+                "smem_bytes_pass1", "smem_bytes_pass2", "sms")
+        geometry = _build.load("fused_gnn_bwd").fused_step_bwd_bf16_geometry
     else:
         raise ValueError(f"no per-step geometry for {kernel}")
     out = [ctypes.c_int(0) for _ in keys]
@@ -497,12 +524,14 @@ def _launch_args(params: Mapping, h: torch.Tensor, adj: BandAdjacency,
     from deepdfa_tpu_torch.ops import _build
 
     if packed is None:
-        packed = packed_weights(params, h.dtype)
-    if any(w.device != h.device or w.dtype != h.dtype for w in packed):
+        packed = packed_weights(params)
+    if any(w.device != h.device or w.dtype not in (h.dtype, torch.float32)
+           for w in packed):
         raise ValueError(f"step weights must be {h.dtype} on {h.device}, "
-                         "as h")
-    # The kernels read f32 weights: at bf16, the bf16 values widened.
-    weights = [w.detach().float().contiguous() for w in packed]
+                         "as h (or, at bf16 h, the f32 masters)")
+    # The kernels read f32 weights: at bf16, the bf16 values (the f32
+    # masters rounded) widened.
+    weights = [w.detach().to(h.dtype).float().contiguous() for w in packed]
     stream = ctypes.c_void_p(torch.cuda.current_stream(h.device).cuda_stream)
     bf16 = int(adj.vals.dtype == torch.bfloat16)
     return _build.load(library), weights, bf16, stream
@@ -542,14 +571,27 @@ def _packed(params: Optional[Mapping],
             else packed_weights(params, dtype))
 
 
-def fused_step_bwd_rows_reference(params: Mapping, h: torch.Tensor,
-                                  adj: BandAdjacency, g: torch.Tensor):
+def msg_dtype(adj: BandAdjacency, dtype: torch.dtype) -> torch.dtype:
+    """The message dtype ``mdt`` of a step at ``dtype`` on this band:
+    ``dtype``, or f32 for f32 band values (the upcast-only rule,
+    :func:`vals_compute`)."""
+    return vals_compute(adj, dtype)[1]
+
+
+def fused_step_bwd_rows_reference(params: Optional[Mapping], h: torch.Tensor,
+                                  adj: BandAdjacency, g: torch.Tensor,
+                                  packed: Optional[Sequence[torch.Tensor]]
+                                  = None):
     """Plain version of ``fused_step_bwd_kernel``: one step's cotangents,
     the math of the reference's ``_bwd_kernel`` in torch ops. Returns
     ``(dh, x, dp, dmsg)``: the input cotangent, the edge aggregate ``x``
     the gate saw, ``dp = [dpre_r | dpre_z | dpre_n | dpre_hn]`` ([N, 4H])
-    and ``dmsg = A^T dx``."""
-    ek, eb, wi, bi, wh, bh = packed_weights(params)
+    and ``dmsg = A^T dx``. bf16 ``h``: the plain version of
+    ``fused_step_bwd_kernel_bf16`` (:func:`_bwd_rows_bf16`)."""
+    packed = _packed(params, packed)
+    if h.dtype == torch.bfloat16:
+        return _bwd_rows_bf16(packed, h, adj, g)
+    ek, eb, wi, bi, wh, bh = packed
     hid = h.shape[1]
     x = band_spmm(adj, h @ ek + eb)
     gi = x @ wi + bi
@@ -574,36 +616,115 @@ def fused_step_bwd_rows_reference(params: Mapping, h: torch.Tensor,
     return dh, x, torch.cat([dpre_i, dpre_hn], dim=1), dmsg
 
 
+def _bwd_rows_bf16(packed: Sequence[torch.Tensor], h: torch.Tensor,
+                   adj: BandAdjacency, g: torch.Tensor):
+    """One step's cotangents at bf16, rounding where the reference's
+    ``_bwd_kernel`` rounds at ``dt = bfloat16``: the forward recomputed
+    as :func:`_step_bf16` (``x`` rounded); the gate cotangents in f32
+    from the gates as the reference's backward sees them where its tests
+    run it (the Pallas interpreter on XLA's CPU backend, whose excess
+    precision elides a bf16 value's round trip to f32): r and z the
+    sigmoid's f32 quotient, n the f32 tanh of its bf16 argument, pre_hn,
+    g and h bf16; ``dpre_i``/``dpre_h`` rounded to bf16 for the
+    products ``dx = dpre_i W_i^T`` and ``dhl = dhc + dpre_h W_h^T``; ``dx``
+    rounded to the message dtype ``mdt`` before ``A^T``; ``dmsg`` summed
+    in f32, rounded to ``mdt`` for ``dh = round_bf16(dhl + dmsg W_e^T)``.
+    The row buffers: ``x`` bf16; ``dp`` and ``dmsg`` f32, unrounded (the
+    weight pass rounds its product operands on load, and sums the bias
+    gradients unrounded)."""
+    bf16 = torch.bfloat16
+    hid = h.shape[1]
+    round_msg = msg_dtype(adj, bf16) == bf16
+    ek, _, wi, _, wh, _ = (w.to(bf16).float() for w in packed)
+    x, gi, gh = _gates_bf16(packed, h, adj)
+    r = _sigmoid_unrounded(gi[:, :hid] + gh[:, :hid])
+    z = _sigmoid_unrounded(gi[:, hid:2 * hid] + gh[:, hid:2 * hid])
+    pre_hn = gh[:, 2 * hid:]
+    n = torch.tanh((gi[:, 2 * hid:] + r.bfloat16() * pre_hn).float())
+    g, h, pre_hn = g.float(), h.float(), pre_hn.float()
+    dz = g * (h - n)
+    dn = g * (1.0 - z)
+    dhc = g * z
+    dpre_n = dn * (1.0 - n * n)
+    dpre_hn = dpre_n * r
+    dpre_r = dpre_n * pre_hn * r * (1.0 - r)
+    dpre_z = dz * z * (1.0 - z)
+    dp = torch.cat([dpre_r, dpre_z, dpre_n, dpre_hn], dim=1)
+    dpi_c, dph_c = _dpre_operands(dp, hid)
+    dx = dpi_c @ wi.T
+    dhl = dhc + dph_c @ wh.T
+    if round_msg:
+        dx = round_bf16(dx)
+    dmsg = band_spmm(transpose_band(adj), dx)
+    dmsg_c = round_bf16(dmsg) if round_msg else dmsg
+    dh = (dhl + dmsg_c @ ek.T).to(bf16)
+    return dh, x, dp, dmsg
+
+
+def _sigmoid_unrounded(x: torch.Tensor) -> torch.Tensor:
+    """:func:`sigmoid_bf16` of bf16 ``x`` without its last rounding: the
+    exponential and the sum rounded to bf16, the quotient f32."""
+    return 1.0 / (1.0 + torch.exp(-x)).float()
+
+
+def _dpre_operands(dp: torch.Tensor, hid: int):
+    """``dpre_i`` and ``dpre_h`` ([N, 3H] each) of one step's ``dp``,
+    rounded to bf16 (kept f32): the bf16 products' operands."""
+    dpi = dp[:, :3 * hid]
+    dph = torch.cat([dp[:, :2 * hid], dp[:, 3 * hid:]], dim=1)
+    return round_bf16(dpi), round_bf16(dph)
+
+
 def step_weight_grad_reference(h0: torch.Tensor, hist: torch.Tensor,
                                x: torch.Tensor, dp: torch.Tensor,
-                               dmsg: torch.Tensor, n_steps: int):
+                               dmsg: torch.Tensor, n_steps: int,
+                               mdt: Optional[torch.dtype] = None):
     """Plain version of ``step_weight_grad_kernel``: the packed weight
     gradients ``(dek, deb, dwi, dbi, dwh, dbh)`` of ``n_steps`` steps from
     their per-row cotangents (``x``, ``dp``, ``dmsg`` stacked by step;
     step s's input is ``h0`` for s = 0 and ``hist[s-1]`` after), each
     step's sums added into the totals from step K-1 down to 0 (the scan
-    VJP's order). Biases are ``[1, n]`` rows."""
+    VJP's order). Biases are ``[1, n]`` rows, all f32.
+
+    bf16 ``h0`` (and ``hist``, ``x``; ``dp``, ``dmsg`` f32): the plain
+    version of ``step_weight_grad_kernel_bf16``, as the reference's
+    ``_bwd_kernel`` accumulates at bf16: ``dpre_i``/``dpre_h`` rounded to
+    bf16 for ``dW_i = x^T dpre_i`` and ``dW_h = h^T dpre_h``, ``dmsg``
+    rounded to the message dtype ``mdt`` (default ``h0``'s; f32 for f32
+    band values) for ``dW_e = h^T dmsg``; f32 sums; the bias gradients
+    sum the unrounded f32 cotangents."""
     hid = h0.shape[1]
+    bf16 = h0.dtype == torch.bfloat16
+    round_msg = bf16 and (mdt or h0.dtype) == torch.bfloat16
     totals = None
     for s in reversed(range(n_steps)):
-        hs = h0 if s == 0 else hist[s - 1]
+        hs = (h0 if s == 0 else hist[s - 1]).float()
         dpi = dp[s][:, :3 * hid]
         dph = torch.cat([dp[s][:, :2 * hid], dp[s][:, 3 * hid:]], dim=1)
-        step = (hs.T @ dmsg[s], dmsg[s].sum(0, keepdim=True),
-                x[s].T @ dpi, dpi.sum(0, keepdim=True),
-                hs.T @ dph, dph.sum(0, keepdim=True))
+        dpi_c, dph_c = _dpre_operands(dp[s], hid) if bf16 else (dpi, dph)
+        dmsg_c = round_bf16(dmsg[s]) if round_msg else dmsg[s]
+        step = (hs.T @ dmsg_c, dmsg[s].sum(0, keepdim=True),
+                x[s].float().T @ dpi_c, dpi.sum(0, keepdim=True),
+                hs.T @ dph_c, dph.sum(0, keepdim=True))
         totals = step if totals is None else tuple(
             t + u for t, u in zip(totals, step))
     return totals
 
 
-def fused_step_backward_reference(params: Mapping, h: torch.Tensor,
-                                  adj: BandAdjacency, g: torch.Tensor):
+def fused_step_backward_reference(params: Optional[Mapping],
+                                  h: torch.Tensor, adj: BandAdjacency,
+                                  g: torch.Tensor,
+                                  packed: Optional[Sequence[torch.Tensor]]
+                                  = None):
     """The step VJP in plain torch: ``(dh, dek, deb, dwi, dbi, dwh, dbh)``,
-    the gradients in the packed layout of :func:`packed_weights`."""
-    dh, x, dp, dmsg = fused_step_bwd_rows_reference(params, h, adj, g)
+    the gradients in the packed layout of :func:`packed_weights`, f32 at
+    either dtype (the reference's ``_unpack_grads``: never rounded to the
+    step's dtype)."""
+    dh, x, dp, dmsg = fused_step_bwd_rows_reference(params, h, adj, g,
+                                                    packed)
     return (dh, *step_weight_grad_reference(h, None, x[None], dp[None],
-                                            dmsg[None], 1))
+                                            dmsg[None], 1,
+                                            msg_dtype(adj, h.dtype)))
 
 
 def persistent_hist_reference(params: Mapping, h: torch.Tensor,
@@ -643,7 +764,8 @@ def persistent_backward_reference(params: Mapping, h0: torch.Tensor,
     hist = persistent_hist_reference(params, h0, adj, n_steps)
     dh, x, dp, dmsg = persistent_bwd_rows_reference(params, h0, hist, adj, g,
                                                     n_steps)
-    return (dh, *step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps))
+    return (dh, *step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps,
+                                            msg_dtype(adj, h0.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -732,23 +854,40 @@ def _transposed(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 def _refuse_bf16_backward(h: torch.Tensor, kernel: str) -> None:
     if h.dtype == torch.bfloat16:
         raise NotImplementedError(
-            f"{kernel} takes float32 only: the bf16 instances of the "
-            "gated-step backward kernels (and training at bf16) come with "
-            "ROADMAP A3b-2")
+            f"{kernel} takes float32 only: the persistent lane's bf16 "
+            "backward (persistent_fwd_hist_kernel and persistent_bwd_kernel "
+            "at bf16, training the persistent lane at bf16) comes with "
+            "ROADMAP A3b-2b; train at bf16 on the fused, tile, band or "
+            "segment lane")
+
+
+def _fused_step_run(h: torch.Tensor, adj: BandAdjacency,
+                    packed: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One step on packed weights: the kernel for a CUDA ``h``; for a CPU
+    one (bf16 only: :class:`_FusedStep` on the CPU) its plain version."""
+    if h.device.type == "cpu":
+        return _step_bf16(packed, h, adj)
+    return _fused_step_launch(h, adj, packed)
 
 
 class _FusedStep(torch.autograd.Function):
     """``fused_step_kernel`` forward, ``fused_step_bwd_kernel`` and
-    ``step_weight_grad_kernel`` backward. Differentiable in ``h`` and the
-    six packed weights; saves only those and the adjacency. At bf16 the
-    forward runs ``fused_step_kernel_bf16`` and the backward raises
-    (ROADMAP A3b-2)."""
+    ``step_weight_grad_kernel`` backward; at bf16 ``h`` their bf16
+    instances. Differentiable in ``h`` and the six packed weights; saves
+    only those and the adjacency. At bf16 the packed weights are the f32
+    masters, rounded to bf16 inside the forward and the backward, so
+    their f32 gradients reach the masters unrounded, as the reference's
+    custom VJP returns them (``_unpack_grads``): autograd casts a
+    gradient to its input's dtype, and bf16 inputs would round them. On
+    the CPU (bf16 only) the plain versions run in the kernels' place, so
+    the CPU model follows the kernels' VJP and not autograd of the
+    forward, which rounds at other points."""
 
     @staticmethod
     def forward(ctx, adj, h, *packed):
         ctx.adj = adj
         ctx.save_for_backward(h, *packed)
-        return _fused_step_launch(h, adj, packed)
+        return _fused_step_run(h, adj, packed)
 
     @staticmethod
     def backward(ctx, g):
@@ -762,7 +901,7 @@ class _PersistentUnroll(torch.autograd.Function):
     """``persistent_fwd_kernel`` forward; backward
     ``persistent_fwd_hist_kernel``, ``persistent_bwd_kernel`` and
     ``step_weight_grad_kernel``. Saves only ``h_0``, the packed weights
-    and the adjacency."""
+    and the adjacency. f32 only (ROADMAP A3b-2b)."""
 
     @staticmethod
     def forward(ctx, adj, n_steps, h, *packed):
@@ -784,21 +923,26 @@ def fused_gate_step(params: Optional[Mapping], h: torch.Tensor,
                     ) -> torch.Tensor:
     """One gated graph step ``h' = GRU(A @ (h W_e + b_e), h)``.
 
-    CPU tensors: :func:`fused_step_reference` (autograd differentiates
-    it). CUDA tensors: ``fused_step_kernel`` (f32 h and weights, bf16 or
-    f32 band values) or, for bf16 ``h`` and weights,
+    CPU tensors: :func:`fused_step_reference` at f32 (autograd
+    differentiates it); at bf16 its plain version, through
+    :class:`_FusedStep` when a gradient is needed (the kernels' VJP in
+    plain torch). CUDA tensors: ``fused_step_kernel`` (f32 h and weights,
+    bf16 or f32 band values) or, for bf16 ``h``,
     ``fused_step_kernel_bf16``, through :class:`_FusedStep` when a
     gradient is needed, or an exception. ``packed``:
-    :func:`packed_weights` of ``params`` at ``h``'s dtype, when the
-    caller packs once for several steps.
+    :func:`packed_weights` of ``params``, when the caller packs once for
+    several steps: f32, or at bf16 ``h`` the f32 masters (rounded inside;
+    their gradients stay f32) or bf16 ones.
     """
-    if h.device.type == "cpu":
+    bf16 = h.dtype == torch.bfloat16
+    if h.device.type == "cpu" and not bf16:
         return fused_step_reference(params, h, adj)
-    _check_cuda_inputs(h, adj)
-    packed = _packed(params, packed, h.dtype)
+    if h.device.type != "cpu":
+        _check_cuda_inputs(h, adj)
+    packed = _packed(params, packed)
     if needs_grad(h, packed):
         return _FusedStep.apply(adj, h, *packed)
-    return _fused_step_launch(h, adj, packed)
+    return _fused_step_run(h, adj, packed)
 
 
 fused_gate_step.launches = fused_gate_step.launches_bf16 = 0
@@ -815,16 +959,27 @@ def _persistent_unroll_launch(h: torch.Tensor, adj: BandAdjacency,
     return out
 
 
+def refuse_bf16_persistent_training(h: torch.Tensor) -> None:
+    """Raise for a persistent pass at bf16 on the card that needs a
+    gradient: its backward kernels' bf16 instances are ROADMAP A3b-2b.
+    Called before anything launches."""
+    if h.device.type != "cpu":
+        _refuse_bf16_backward(h, "persistent_unroll (training)")
+
+
 def persistent_unroll(params: Optional[Mapping], h: torch.Tensor,
                       adj: BandAdjacency, n_steps: int,
                       packed: Optional[Sequence[torch.Tensor]] = None
                       ) -> torch.Tensor:
     """``n_steps`` shared-weight gated steps.
 
-    CPU tensors: :func:`persistent_reference`. CUDA tensors: one
+    CPU tensors: :func:`persistent_reference`; at bf16 with a gradient,
+    ``n_steps`` steps of :class:`_FusedStep` (the reference's K-step VJP
+    is the scan of its step VJP). CUDA tensors: one
     ``persistent_fwd_kernel`` launch (``persistent_fwd_kernel_bf16`` for
     bf16 ``h``), through :class:`_PersistentUnroll`
-    when a gradient is needed. The adjacency's closed row groups must pass
+    when a gradient is needed (f32 only: at bf16 it raises, ROADMAP
+    A3b-2b). The adjacency's closed row groups must pass
     :func:`persistent_smem_ok`, and :func:`persistent_bwd_smem_ok` when a
     gradient is needed — callers check the gate and run
     :func:`fused_gate_step` per step when it fails (the model does); here
@@ -833,11 +988,19 @@ def persistent_unroll(params: Optional[Mapping], h: torch.Tensor,
     if n_steps < 1:
         raise ValueError(f"persistent_unroll needs n_steps >= 1, "
                          f"got {n_steps}")
+    bf16 = h.dtype == torch.bfloat16
     if h.device.type == "cpu":
+        packed = _packed(params, packed) if bf16 else packed
+        if bf16 and needs_grad(h, packed):
+            for _ in range(n_steps):
+                h = _FusedStep.apply(adj, h, *packed)
+            return h
         return persistent_reference(params, h, adj, n_steps)
     _check_cuda_inputs(h, adj)
-    packed = _packed(params, packed, h.dtype)
+    packed = _packed(params, packed)
     grad = needs_grad(h, packed)
+    if grad:
+        refuse_bf16_persistent_training(h)
     hidden = h.shape[1]
     if not persistent_smem_ok(adj, hidden, h.dtype) or (
             grad and not persistent_bwd_smem_ok(adj, hidden)):
@@ -861,62 +1024,86 @@ def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
     """One step's backward down to ``(dh, x, dp, dmsg)`` (see
     :func:`fused_step_bwd_rows_reference`). CUDA tensors:
     ``fused_step_bwd_kernel`` (two passes, one count), reading A^T from
-    :meth:`BandAdjacency.transpose_vals`."""
+    :meth:`BandAdjacency.transpose_vals`; for bf16 ``h`` and ``g``
+    ``fused_step_bwd_kernel_bf16`` (three passes, one count): ``dh`` and
+    ``x`` bf16, ``dp`` and ``dmsg`` f32."""
     if h.device.type == "cpu":
-        return fused_step_bwd_rows_reference(params, h, adj, g)
-    _refuse_bf16_backward(h, "fused_step_bwd_kernel")
+        return fused_step_bwd_rows_reference(params, h, adj, g, packed)
     _check_cuda_inputs(h, adj)
     g = _check_like(g, h, "the output cotangent")
     tv = adj.transpose_vals()
+    bf16_h = h.dtype == torch.bfloat16
     with torch.cuda.device(h.device):
         lib, weights, bf16, stream = _launch_args(params, h, adj, packed,
                                                   "fused_gnn_bwd")
         ek, eb, wi, bi, wh, bh = weights
         wiT, whT, ekT = _transposed(weights)
         n, hidden = h.shape
-        x, dx, dhl, dmsg, dh = (torch.empty_like(h) for _ in range(5))
-        dp = torch.empty((n, 4 * hidden), dtype=h.dtype, device=h.device)
-        err = lib.fused_step_bwd_launch(
-            _ptr(h), _ptr(adj.vals), _ptr(tv), bf16, _ptr(g), _ptr(ek),
-            _ptr(eb), _ptr(wi), _ptr(bi), _ptr(wh), _ptr(bh), _ptr(wiT),
-            _ptr(whT), _ptr(ekT), _ptr(x), _ptr(dp), _ptr(dx), _ptr(dhl),
-            _ptr(dmsg), _ptr(dh), n, hidden, adj.tile, adj.n_tiles,
-            adj.bandwidth, stream)
-        _raise_on_error(err, "fused_step_bwd_kernel")
-    fused_step_bwd_rows.launches += 1
+        f32 = dict(dtype=torch.float32, device=h.device)
+        x, dh = torch.empty_like(h), torch.empty_like(h)
+        dx, dhl, dmsg = (torch.empty((n, hidden), **f32) for _ in range(3))
+        dp = torch.empty((n, 4 * hidden), **f32)
+        common = (_ptr(g), _ptr(ek), _ptr(eb), _ptr(wi), _ptr(bi), _ptr(wh),
+                  _ptr(bh), _ptr(wiT), _ptr(whT), _ptr(ekT))
+        if bf16_h:
+            # The messages cross device memory (f32 scratch), as in
+            # fused_step_kernel_bf16.
+            msg = torch.empty((n, hidden), **f32)
+            err = lib.fused_step_bwd_bf16_launch(
+                _ptr(h), _ptr(adj.vals), _ptr(tv), bf16, *common, _ptr(msg),
+                _ptr(x), _ptr(dp), _ptr(dx), _ptr(dhl), _ptr(dmsg), _ptr(dh),
+                n, hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
+            _raise_on_error(err, "fused_step_bwd_kernel_bf16")
+        else:
+            err = lib.fused_step_bwd_launch(
+                _ptr(h), _ptr(adj.vals), _ptr(tv), bf16, *common, _ptr(x),
+                _ptr(dp), _ptr(dx), _ptr(dhl), _ptr(dmsg), _ptr(dh), n,
+                hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
+            _raise_on_error(err, "fused_step_bwd_kernel")
+    if bf16_h:
+        fused_step_bwd_rows.launches_bf16 += 1
+    else:
+        fused_step_bwd_rows.launches += 1
     return dh, x, dp, dmsg
 
 
-fused_step_bwd_rows.launches = 0
+fused_step_bwd_rows.launches = fused_step_bwd_rows.launches_bf16 = 0
 
 
 def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
                       x: torch.Tensor, dp: torch.Tensor, dmsg: torch.Tensor,
-                      n_steps: int):
+                      n_steps: int, mdt: Optional[torch.dtype] = None):
     """The packed weight gradients ``(dek, deb, dwi, dbi, dwh, dbh)`` of
-    ``n_steps`` steps (see :func:`step_weight_grad_reference`). CUDA
-    tensors: ``step_weight_grad_kernel``."""
+    ``n_steps`` steps (see :func:`step_weight_grad_reference`), f32. CUDA
+    tensors: ``step_weight_grad_kernel``; for bf16 ``h0`` (``hist`` and
+    ``x`` bf16, ``dp`` and ``dmsg`` f32) ``step_weight_grad_kernel_bf16``,
+    which rounds ``dp``, and ``dmsg`` when the message dtype ``mdt`` is
+    bf16, to its product operands on load."""
     if h0.device.type == "cpu":
-        return step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps)
-    _refuse_bf16_backward(h0, "step_weight_grad_kernel")
+        return step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps, mdt)
     if not h0.is_cuda:
         raise ValueError(f"the gated-step kernels take CPU tensors (plain "
                          f"version) or CUDA tensors, got {h0.device}")
     n, hidden = h0.shape
-    want = {"x": (x, (n_steps, n, hidden)), "dp": (dp, (n_steps, n,
-                                                        4 * hidden)),
-            "dmsg": (dmsg, (n_steps, n, hidden))}
+    rows = h0.dtype  # h0, hist and x: f32, or bf16 for the bf16 instance
+    if rows not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"step_weight_grad_kernel takes f32 or "
+                                  f"bf16 rows, got {rows}")
+    want = {"x": (x, (n_steps, n, hidden), rows),
+            "dp": (dp, (n_steps, n, 4 * hidden), torch.float32),
+            "dmsg": (dmsg, (n_steps, n, hidden), torch.float32)}
     if n_steps > 1:
-        want["hist"] = (hist, (n_steps - 1, n, hidden))
-    for name, (t, shape) in want.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
+        want["hist"] = (hist, (n_steps - 1, n, hidden), rows)
+    for name, (t, shape, dtype) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != h0.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
                              f"{h0.device}")
-    if h0.dtype != torch.float32 or not h0.is_contiguous():
-        raise ValueError("h0 must be contiguous float32")
+    if not h0.is_contiguous():
+        raise ValueError("h0 must be contiguous")
     from deepdfa_tpu_torch.ops import _build
 
+    bf16 = rows == torch.bfloat16
     with torch.cuda.device(h0.device):
         lib = _build.load("fused_gnn_bwd")
         f32 = dict(dtype=torch.float32, device=h0.device)
@@ -932,17 +1119,26 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
             splits * n_steps * (7 * hidden * hidden + 7 * hidden), **f32)
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(h0.device).cuda_stream)
-        err = lib.step_weight_grad_launch(
-            _ptr(h0), ctypes.c_void_p(hist.data_ptr() if n_steps > 1 else 0),
-            _ptr(x), _ptr(dp), _ptr(dmsg), n, hidden, n_steps,
-            rows_per_split, _ptr(partial), _ptr(dek), _ptr(deb),
-            _ptr(dwi), _ptr(dbi), _ptr(dwh), _ptr(dbh), stream)
-        _raise_on_error(err, "step_weight_grad_kernel")
-    step_weight_grads.launches += 1
+        args = (_ptr(h0), ctypes.c_void_p(hist.data_ptr() if n_steps > 1
+                                          else 0),
+                _ptr(x), _ptr(dp), _ptr(dmsg))
+        tail = (n, hidden, n_steps, rows_per_split, _ptr(partial), _ptr(dek),
+                _ptr(deb), _ptr(dwi), _ptr(dbi), _ptr(dwh), _ptr(dbh), stream)
+        if bf16:
+            round_msg = int((mdt or rows) == torch.bfloat16)
+            err = lib.step_weight_grad_bf16_launch(*args, round_msg, *tail)
+            _raise_on_error(err, "step_weight_grad_kernel_bf16")
+        else:
+            err = lib.step_weight_grad_launch(*args, *tail)
+            _raise_on_error(err, "step_weight_grad_kernel")
+    if bf16:
+        step_weight_grads.launches_bf16 += 1
+    else:
+        step_weight_grads.launches += 1
     return dek, deb, dwi, dbi, dwh, dbh
 
 
-step_weight_grads.launches = 0
+step_weight_grads.launches = step_weight_grads.launches_bf16 = 0
 
 
 def fused_step_backward(params: Optional[Mapping], h: torch.Tensor,
@@ -950,13 +1146,13 @@ def fused_step_backward(params: Optional[Mapping], h: torch.Tensor,
                         packed: Optional[Sequence[torch.Tensor]] = None):
     """The step VJP ``(dh, dek, deb, dwi, dbi, dwh, dbh)``: CPU tensors
     :func:`fused_step_backward_reference`; CUDA tensors
-    ``fused_step_bwd_kernel`` then ``step_weight_grad_kernel``."""
+    ``fused_step_bwd_kernel`` then ``step_weight_grad_kernel`` (bf16
+    ``h``: their bf16 instances). The weight gradients are f32."""
     if h.device.type == "cpu":
-        return fused_step_backward_reference(params, h, adj, g)
-    _refuse_bf16_backward(h, "fused_step_bwd_kernel")
+        return fused_step_backward_reference(params, h, adj, g, packed)
     dh, x, dp, dmsg = fused_step_bwd_rows(params, h, adj, g, packed)
     return (dh, *step_weight_grads(h.contiguous(), None, x[None], dp[None],
-                                   dmsg[None], 1))
+                                   dmsg[None], 1, msg_dtype(adj, h.dtype)))
 
 
 def persistent_hist(params: Optional[Mapping], h: torch.Tensor,
@@ -1044,7 +1240,7 @@ def persistent_backward(params: Optional[Mapping], h0: torch.Tensor,
     sweep, the reverse sweep and the weight gradients, three launches."""
     if h0.device.type == "cpu":
         return persistent_backward_reference(params, h0, adj, g, n_steps)
-    _refuse_bf16_backward(h0, "persistent_bwd_kernel")
+    _refuse_bf16_backward(h0, "persistent_backward")
     packed = _packed(params, packed)
     hist = persistent_hist(None, h0, adj, n_steps, packed=packed)
     dh, x, dp, dmsg = persistent_bwd_rows(None, h0, hist, adj, g, n_steps,
@@ -1063,6 +1259,8 @@ _COUNTED = {
     "step_weight_grad_kernel": (step_weight_grads, "launches"),
     "fused_step_kernel_bf16": (fused_gate_step, "launches_bf16"),
     "persistent_fwd_kernel_bf16": (persistent_unroll, "launches_bf16"),
+    "fused_step_bwd_kernel_bf16": (fused_step_bwd_rows, "launches_bf16"),
+    "step_weight_grad_kernel_bf16": (step_weight_grads, "launches_bf16"),
 }
 
 
@@ -1102,37 +1300,74 @@ def _step_bwd_flops(n: int, hidden: int, nnz: int) -> float:
 KERNELS = tuple(_COUNTED)
 
 
-def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
-                    kernel: str, nnz: int) -> Dict[str, float]:
-    """:func:`kernel_cost` of a bf16 instance: ``h`` in and out and the
-    packed weights at 2 bytes, the band as stored. The products of two
-    bf16 values (h W_e, x W_i, h W_h, and A msg when the band values are
-    bf16) at the dense bf16 tensor-core rate, the rest (A msg with f32
-    values, ~20 elementwise operations a gate element: the reference's
-    bf16 gate, op for op) at the f32 SIMT rate; ``peak_flops`` is the one
-    rate that gives the sum of the two times."""
-    n = adj.n_tiles * adj.tile
-    plane = 2.0 * n * hidden
-    band = float(adj.vals.numel() * adj.vals.element_size())
-    weights = (7.0 * hidden * hidden + 7.0 * hidden) * 2
-    dense = 2.0 * n * hidden * hidden + 2.0 * 2.0 * n * hidden * 3 * hidden
-    sparse = 2.0 * nnz * hidden
-    bf16_vals = adj.vals.dtype == torch.bfloat16
-    flops_bf16 = n_steps * (dense + (sparse if bf16_vals else 0.0))
-    flops_f32 = n_steps * ((0.0 if bf16_vals else sparse)
-                           + 20.0 * n * hidden)
-    launches = n_steps if kernel == "fused_step_kernel_bf16" else 1
-    nbytes = 2 * plane * launches + (band + weights) * launches
-    seconds = flops_bf16 / PEAK_BF16[1] + flops_f32 / PEAK_F32_SIMT[1]
+def _rated(parts, nbytes: float, nnz: int) -> Dict[str, float]:
+    """A cost of operations done at several peak rates: ``parts`` is
+    ``[(operations, (name, rate)), ...]``; ``peak_flops`` is the one rate
+    that gives the sum of the parts' times; ``flops_bf16`` the operations
+    at the bf16 tensor-core rate."""
+    flops = sum(f for f, _ in parts)
+    seconds = sum(f / peak[1] for f, peak in parts)
+    names = []
+    for _, peak in parts:
+        if peak[0] not in names:
+            names.append(peak[0])
+    what = {PEAK_BF16[0]: "bf16 x bf16 products"}
     return {
-        "flops": flops_bf16 + flops_f32,
-        "flops_bf16": flops_bf16,
+        "flops": flops,
+        "flops_bf16": sum(f for f, peak in parts if peak == PEAK_BF16),
         "bytes": nbytes,
-        "peak": f"{PEAK_BF16[0]} (bf16 x bf16 products), {PEAK_F32_SIMT[0]} "
-                "(the rest)",
-        "peak_flops": (flops_bf16 + flops_f32) / seconds,
+        "peak": ", ".join(f"{n} ({what.get(n, 'the rest')})" for n in names),
+        "peak_flops": flops / seconds,
         "nnz": nnz,
     }
+
+
+def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
+                    kernel: str, nnz: int) -> Dict[str, float]:
+    """:func:`kernel_cost` of a bf16 instance: ``h``, ``g``, ``dh`` and
+    ``x`` and the packed weights at 2 bytes, the band as stored, ``dp``
+    and ``dmsg`` f32. The products of two bf16 values at the dense bf16
+    tensor-core rate (the forward's h W_e, x W_i, h W_h, and A msg when
+    the band values are bf16; the backward's dpre_i W_i^T, dpre_h W_h^T,
+    and A^T dx and dmsg W_e^T when the messages are bf16; the weight
+    pass's x^T dpre_i, h^T dpre_h, and h^T dmsg when the messages are
+    bf16), the rest at its own rate: the f32-message terms and ~20
+    elementwise operations a gate element forward, ~30 backward (the
+    reference's bf16 gate, op for op), at the f32 SIMT rate; the weight
+    pass's f32 h^T dmsg at the 3xTF32 rate and its bias sums at the f32
+    SIMT rate."""
+    n = adj.n_tiles * adj.tile
+    plane = 2.0 * n * hidden  # a bf16 [N, H] array
+    band = float(adj.vals.numel() * adj.vals.element_size())
+    weights = (7.0 * hidden * hidden + 7.0 * hidden) * 2
+    sparse = 2.0 * nnz * hidden
+    edge = 2.0 * n * hidden * hidden  # [N, H] x [H, H]
+    gate = 2.0 * 2.0 * n * hidden * 3 * hidden  # two [N, H] x [H, 3H]
+    bf16_msg = adj.vals.dtype == torch.bfloat16
+    msg_rate = PEAK_BF16 if bf16_msg else PEAK_F32_SIMT
+    fwd = [(edge + gate, PEAK_BF16), (sparse, msg_rate),
+           (20.0 * n * hidden, PEAK_F32_SIMT)]
+    if kernel in ("fused_step_kernel_bf16", "persistent_fwd_kernel_bf16"):
+        launches = n_steps if kernel == "fused_step_kernel_bf16" else 1
+        return _rated([(n_steps * f, r) for f, r in fwd],
+                      2 * plane * launches + (band + weights) * launches,
+                      nnz)
+    if kernel == "fused_step_bwd_kernel_bf16":
+        parts = fwd + [(gate, PEAK_BF16), (sparse + edge, msg_rate),
+                       (30.0 * n * hidden, PEAK_F32_SIMT)]
+        # h, g in; dh, x out (bf16); dp (4H) and dmsg out (f32); A and
+        # A^T; the weights and their transposes.
+        nbytes = (4 * plane + 5 * 2 * plane + 2 * band + weights
+                  + 7.0 * hidden * hidden * 2)
+        return _rated(parts, nbytes, nnz)
+    # step_weight_grad_kernel_bf16: h, x (bf16), dp, dmsg (f32) in a step,
+    # the f32 gradients out.
+    parts = [(n_steps * 2 * 2.0 * n * hidden * 3 * hidden, PEAK_BF16),
+             (n_steps * edge, PEAK_BF16 if bf16_msg else PEAK_3XTF32),
+             (n_steps * 7.0 * n * hidden, PEAK_F32_SIMT)]
+    nbytes = (n_steps * (2 * plane + 5 * 2 * plane)
+              + (7.0 * hidden * hidden + 7.0 * hidden) * 4)
+    return _rated(parts, nbytes, nnz)
 
 
 def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
@@ -1158,9 +1393,11 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
       ``n_steps`` steps; each step's ``h``, ``x``, ``dp``, ``dmsg`` in,
       the gradients out.
 
-    - ``fused_step_kernel_bf16``/``persistent_fwd_kernel_bf16``: as the
-      f32 forwards, at bf16 (:func:`_bf16_step_cost`: bf16 ``h`` and
-      weights, two rates, ``flops_bf16``).
+    - ``fused_step_kernel_bf16``/``persistent_fwd_kernel_bf16``,
+      ``fused_step_bwd_kernel_bf16``, ``step_weight_grad_kernel_bf16``:
+      as their f32 kernels, at bf16 (:func:`_bf16_step_cost`: 2 bytes a
+      bf16 element, the products of two bf16 values at the bf16 rate and
+      the rest at its own, ``flops_bf16``).
 
     ``peak_flops``/``peak``: the rate the operations bound divides by:
     the f32 work of 3xTF32 products on the tensor cores for
@@ -1173,7 +1410,9 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
     """
     n = adj.n_tiles * adj.tile
     nnz = int(torch.count_nonzero(adj.vals))
-    if kernel in ("fused_step_kernel_bf16", "persistent_fwd_kernel_bf16"):
+    if kernel.endswith("_bf16"):
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
         return _bf16_step_cost(adj, hidden, n_steps, kernel, nnz)
     plane = 4.0 * n * hidden
     band = float(adj.vals.numel() * adj.vals.element_size())

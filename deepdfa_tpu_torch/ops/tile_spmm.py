@@ -28,7 +28,10 @@ PyTorch version here:
 - :func:`tile_spmm` launches ``tile_spmm_kernel``: one warp a receiver
   row walks the row's nonzeros in list order; replaces the TPU kernel
   ``_spmm_kernel``. Plain version :func:`tile_spmm_reference` (gather,
-  scale, ``index_add_`` in f32).
+  scale, ``index_add_`` in f32). A bf16 ``msg``
+  (``FlowGNN(dtype="bfloat16")`` training) launches
+  ``tile_spmm_kernel_bf16``, the same kernel at ``dt = bfloat16``: f32
+  sums rounded once to bf16, as the plain version computes.
 - :class:`_TileSpmm` differentiates it in ``msg``, as the reference's
   ``custom_vjp``: ``d msg = A^T @ g`` by the same kernel over the
   transposed lists (:meth:`CsrAdjacency.transposed`). The adjacency gets
@@ -36,8 +39,9 @@ PyTorch version here:
 
 Dispatch: the wrapper takes the plain version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises. It counts its
-launches in ``tile_spmm.launches`` (:func:`launch_counts`), bumped where
-the kernel is launched and nowhere else.
+launches in ``tile_spmm.launches`` (``launches_bf16`` for the bf16
+instance; :func:`launch_counts`), bumped where the kernel is launched
+and nowhere else.
 
 Not ported here (several GPUs): ``stack_tile_adjacencies``,
 ``tile_spmm_sharded`` and ``combine_tile_stats``.
@@ -52,7 +56,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import PEAK_BF16, PEAK_F32_SIMT
 
 # The tile edge batching callers align node budgets to
 # (:func:`align_to_tile`), and the reference layout's tile.
@@ -338,17 +342,17 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _check_cuda(adj: CsrAdjacency, msg: torch.Tensor) -> None:
-    """Raise on what the kernel does not take: a CUDA f32 ``msg``
+    """Raise on what the kernel does not take: a CUDA f32 or bf16 ``msg``
     ``[n_rows, H]``, contiguous; int32 ``ptr`` ``[n_rows + 1]``, int32
     ``src`` and f32 ``val`` of one length, all contiguous on ``msg``'s
     device."""
-    if msg.dtype != torch.float32:
-        raise NotImplementedError(
-            f"tile_spmm_kernel takes float32 messages, got {msg.dtype}: "
-            "its bf16 instance comes with ROADMAP A3b-2")
     if not msg.is_cuda:
         raise ValueError(f"tile_spmm_kernel takes CPU tensors (plain "
                          f"version) or CUDA tensors, got {msg.device}")
+    if msg.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"tile_spmm_kernel takes float32 messages (bfloat16 ones: "
+            f"tile_spmm_kernel_bf16), got {msg.dtype}")
     n = adj.n_rows
     if msg.dim() != 2 or msg.shape[0] != n or msg.shape[1] < 1:
         raise ValueError(f"msg {tuple(msg.shape)} does not match "
@@ -370,8 +374,9 @@ def _check_cuda(adj: CsrAdjacency, msg: torch.Tensor) -> None:
 def tile_spmm(adj: CsrAdjacency, msg: torch.Tensor) -> torch.Tensor:
     """``agg = A @ msg`` over the nonzero lists; differentiable in ``msg``
     through :class:`_TileSpmm` when a gradient is needed. CPU tensors:
-    :func:`tile_spmm_reference`. CUDA tensors: ``tile_spmm_kernel``, or an
-    exception."""
+    :func:`tile_spmm_reference`. CUDA tensors: ``tile_spmm_kernel``, for
+    bf16 ``msg`` ``tile_spmm_kernel_bf16`` (f32 sums rounded once to
+    bf16), or an exception."""
     if torch.is_grad_enabled() and msg.requires_grad:
         return _TileSpmm.apply(msg, adj)
     if msg.device.type == "cpu":
@@ -379,21 +384,26 @@ def tile_spmm(adj: CsrAdjacency, msg: torch.Tensor) -> torch.Tensor:
     _check_cuda(adj, msg)
     from deepdfa_tpu_torch.ops import _build
 
+    bf16 = msg.dtype == torch.bfloat16
     out = torch.empty_like(msg)
     with torch.cuda.device(msg.device):
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(msg.device).cuda_stream)
-        err = _build.load("tile_spmm").tile_spmm_launch(
-            _ptr(adj.ptr), _ptr(adj.src), _ptr(adj.val), _ptr(msg),
-            _ptr(out), adj.n_rows, msg.shape[1], stream)
+        lib = _build.load("tile_spmm")
+        launch = lib.tile_spmm_bf16_launch if bf16 else lib.tile_spmm_launch
+        err = launch(_ptr(adj.ptr), _ptr(adj.src), _ptr(adj.val), _ptr(msg),
+                     _ptr(out), adj.n_rows, msg.shape[1], stream)
+    name = "tile_spmm_kernel_bf16" if bf16 else "tile_spmm_kernel"
     if err != 0:
-        raise RuntimeError(f"tile_spmm_kernel launch failed: cudaError_t "
-                           f"{err}")
-    tile_spmm.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    if bf16:
+        tile_spmm.launches_bf16 += 1
+    else:
+        tile_spmm.launches += 1
     return out
 
 
-tile_spmm.launches = 0
+tile_spmm.launches = tile_spmm.launches_bf16 = 0
 
 
 class _TileSpmm(torch.autograd.Function):
@@ -411,16 +421,17 @@ class _TileSpmm(torch.autograd.Function):
         return tile_spmm(ctx.adj.transposed(), g.contiguous()), None
 
 
-KERNELS = ("tile_spmm_kernel",)
+KERNELS = ("tile_spmm_kernel", "tile_spmm_kernel_bf16")
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel name -> launches so far."""
-    return {"tile_spmm_kernel": tile_spmm.launches}
+    return {"tile_spmm_kernel": tile_spmm.launches,
+            "tile_spmm_kernel_bf16": tile_spmm.launches_bf16}
 
 
 def reset_launch_counts() -> None:
-    tile_spmm.launches = 0
+    tile_spmm.launches = tile_spmm.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +440,15 @@ def reset_launch_counts() -> None:
 
 
 def kernel_cost(adj: CsrAdjacency, hidden: int, transposed: bool = False,
-                tile: int = DEFAULT_TILE) -> Dict[str, float]:
+                tile: int = DEFAULT_TILE,
+                dtype: torch.dtype = torch.float32) -> Dict[str, float]:
     """Operations and compulsory bytes of one ``tile_spmm_kernel`` call
     (over A, or over A^T when ``transposed``) with f32 ``msg`` ``[N,
-    hidden]``, as the sparse product needs them on this data, whatever
-    stores A:
+    hidden]`` (``dtype`` bf16: ``tile_spmm_kernel_bf16``, msg and out at
+    2 bytes an element, and, where the reference keeps its values bf16
+    (every multiplicity <= 256), a product of two bf16 values at the bf16
+    tensor-core rate), as the sparse product needs them on this data,
+    whatever stores A:
 
     - ``flops``: 2 operations a multiply-add, ``2 * E * hidden`` for the
       E nonzeros (distinct edges; a repeated edge is one nonzero with its
@@ -461,13 +476,18 @@ def kernel_cost(adj: CsrAdjacency, hidden: int, transposed: bool = False,
     filler_tiles = n_tiles - covered
     budget = _round_up_pow2(max(edge_tiles, n_tiles) + n_tiles)
     flops = 2.0 * nnz * hidden
+    item = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_F32_SIMT
+    if (dtype == torch.bfloat16
+            and _multiplicity_dtype(a.val.numpy()) == torch.bfloat16):
+        peak = PEAK_BF16
     return {
         "flops": flops,
-        "bytes": (8.0 * nnz + 4.0 * a.ptr.numel() + 4.0 * sender_rows * hidden
-                  + 4.0 * n * hidden),
+        "bytes": (8.0 * nnz + 4.0 * a.ptr.numel()
+                  + item * sender_rows * hidden + item * n * hidden),
         "executed_flops": flops,
-        "peak": PEAK_F32_SIMT[0],
-        "peak_flops": PEAK_F32_SIMT[1],
+        "peak": peak[0],
+        "peak_flops": peak[1],
         "nnz": nnz,
         "sender_rows": sender_rows,
         "edge_tiles": edge_tiles,

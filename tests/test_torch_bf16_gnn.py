@@ -465,34 +465,45 @@ def test_f32_path_is_unchanged_bit_for_bit(impl):
 
 
 def test_bf16_backward_kernels_refuse_naming_a3b2():
-    """The bf16 backward (training at bf16) is ROADMAP A3b-2: each
-    backward wrapper of the fused and persistent lanes, and the tile
-    product, raises on a bf16 tensor bound for the card (here a meta
-    tensor, which needs no card) before it launches anything."""
+    """Of the bf16 backward (training at bf16), the persistent lane's is
+    ROADMAP A3b-2b: its backward wrappers, and a persistent pass that
+    needs a gradient, raise on a bf16 tensor bound for the card (here a
+    meta tensor, which needs no card) before they launch anything. The
+    fused lane's backward wrappers and the tile product take bf16 now
+    (A3b-2a): on a meta tensor they get past the dtype and stop at the
+    device check."""
     _, padj, params, _, ph = _step_case(8, 4, 2, 16, False)
     tp = _tree(params, lambda a: torch.from_numpy(a).to("meta"))
     h = ph.to("meta")
     adj = padj.to("meta")
     pt_fused.reset_launch_counts()
-    calls = [
-        lambda: pt_fused.fused_step_backward(tp, h, adj, h),
+    refused = [
         lambda: pt_fused.persistent_backward(tp, h, adj, h, 3),
         lambda: pt_fused.persistent_hist(tp, h, adj, 3),
-        lambda: pt_fused.fused_step_bwd_rows(tp, h, adj, h),
         lambda: pt_fused.persistent_bwd_rows(tp, h, h[None], adj, h, 2),
-        lambda: pt_fused.step_weight_grads(h, None, h[None], h[None],
-                                           h[None], 1),
+        lambda: pt_fused.refuse_bf16_persistent_training(h),
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A3b-2"):
+    for call in refused:
+        with pytest.raises(NotImplementedError, match="A3b-2b"):
+            call()
+    taken = [
+        lambda: pt_fused.fused_step_backward(tp, h, adj, h),
+        lambda: pt_fused.fused_step_bwd_rows(tp, h, adj, h),
+        lambda: pt_fused.step_weight_grads(h, None, h[None],
+                                           h.float()[None].repeat(1, 1, 4),
+                                           h.float()[None], 1),
+    ]
+    for call in taken:
+        with pytest.raises(ValueError, match="CUDA tensors, got meta"):
             call()
     assert sum(pt_fused.launch_counts().values()) == 0
     rng = np.random.default_rng(0)
     s = rng.integers(0, 32, 64)
     csr = pt_tile.build_csr_adjacency(s, s, np.ones(64, bool), 32)
-    with pytest.raises(NotImplementedError, match="A3b-2"):
+    with pytest.raises(ValueError, match="CUDA tensors, got meta"):
         pt_tile.tile_spmm(csr, torch.zeros(32, 16, dtype=torch.bfloat16,
                                            device="meta"))
+    assert pt_tile.launch_counts()["tile_spmm_kernel_bf16"] == 0
 
 
 def test_bf16_gates_plans_and_costs():

@@ -35,7 +35,12 @@ with bf16 and f32 band values at the serving, flagship and training
 shapes, the persistent one bit for bit the scan of the per-step one;
 their launch geometry to the host plan; a batch over the bf16 persistent
 gate serves through the per-step instance; and the bf16 model on the card
-to the CPU's, its backward refused (ROADMAP A3b-2).
+to the CPU's. The fused lane's backward instances and the tile product's
+bf16 instance are held to their plain versions (the weight pass's K steps
+bit for bit the fold of one-step calls, each repeating its bits), their
+geometry to the host plan, a bf16 ``fit`` on the fused and tile lanes to
+the CPU's losses, and the persistent lane's bf16 training refused
+(ROADMAP A3b-2b).
 """
 
 import dataclasses
@@ -65,7 +70,8 @@ SUBKEYS = ["api", "datatype", "literal", "operator"]
 ALL_KERNELS = ("fused_step_kernel", "persistent_fwd_kernel",
                "fused_step_bwd_kernel", "persistent_fwd_hist_kernel",
                "persistent_bwd_kernel", "step_weight_grad_kernel",
-               "fused_step_kernel_bf16", "persistent_fwd_kernel_bf16")
+               "fused_step_kernel_bf16", "persistent_fwd_kernel_bf16",
+               "fused_step_bwd_kernel_bf16", "step_weight_grad_kernel_bf16")
 
 
 @pytest.fixture
@@ -192,10 +198,15 @@ def test_refusals(cuda):
     h = torch.randn(256, 128, device=cuda)
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         fused_gnn.fused_gate_step(params, h.half(), adj)
-    # bf16 h takes bf16 weights (the model packs them at its dtype).
-    with pytest.raises(ValueError, match="bfloat16 on"):
-        fused_gnn.fused_gate_step(None, h.bfloat16(), adj,
-                                  packed=fused_gnn.packed_weights(params))
+    # f32 h takes f32 weights; bf16 h bf16 ones or the f32 masters,
+    # rounded at launch (the model packs the masters), the same bits.
+    p32 = fused_gnn.packed_weights(params)
+    p16 = fused_gnn.packed_weights(params, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 on"):
+        fused_gnn.fused_gate_step(None, h, adj, packed=p16)
+    assert torch.equal(
+        fused_gnn.fused_gate_step(None, h.bfloat16(), adj, packed=p32),
+        fused_gnn.fused_gate_step(None, h.bfloat16(), adj, packed=p16))
     with pytest.raises(ValueError, match="rows"):
         fused_gnn.fused_gate_step(params, h[:128], adj)
     with pytest.raises(ValueError, match="hidden"):
@@ -622,7 +633,8 @@ def test_tile_spmm_kernel_matches_plain_version(cuda, n, sizes, hidden):
     T.reset_launch_counts()
     got = T.tile_spmm(adj, msg)
     torch.cuda.synchronize()
-    assert T.launch_counts() == {"tile_spmm_kernel": 1}
+    assert T.launch_counts() == {"tile_spmm_kernel": 1,
+                                 "tile_spmm_kernel_bf16": 0}
     torch.testing.assert_close(got, T.tile_spmm_reference(adj, msg),
                                **STEP_TOL)
     assert not got[used:].any()  # rows no edge reaches
@@ -643,7 +655,8 @@ def test_tile_spmm_kernel_matches_plain_version(cuda, n, sizes, hidden):
     mc = msg.cpu().requires_grad_()
     T.tile_spmm(adj.to("cpu"), mc).backward(g.cpu())
     torch.testing.assert_close(m.grad.cpu(), mc.grad, **STEP_TOL)
-    assert T.launch_counts() == {"tile_spmm_kernel": 7}
+    assert T.launch_counts() == {"tile_spmm_kernel": 7,
+                                 "tile_spmm_kernel_bf16": 0}
 
 
 def test_tile_spmm_kernel_fillers_only_and_heavy_multiplicity(cuda):
@@ -670,8 +683,8 @@ def test_tile_spmm_refusals(cuda):
     adj, _ = _tile_lists([40, 30], 128)
     on_card = adj.to(cuda)
     msg = torch.randn(128, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        T.tile_spmm(on_card, msg.bfloat16())
+    with pytest.raises(NotImplementedError, match="float32 messages"):
+        T.tile_spmm(on_card, msg.half())
     with pytest.raises(ValueError, match="does not match"):
         T.tile_spmm(on_card, msg[:64])
     with pytest.raises(ValueError, match="ptr must be"):
@@ -696,7 +709,8 @@ def test_tile_flowgnn_backward_matches_cpu(cuda):
     _, counts = _grad_parity(cfg, batch, cuda)
     assert counts == dict.fromkeys(ALL_KERNELS, 0)
     # Each gated step: one launch forward, one over A^T backward.
-    assert T.launch_counts() == {"tile_spmm_kernel": 2 * cfg.n_steps}
+    assert T.launch_counts() == {"tile_spmm_kernel": 2 * cfg.n_steps,
+                                 "tile_spmm_kernel_bf16": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1610,8 +1624,9 @@ def test_bf16_over_gate_batch_serves_through_the_fused_instance(cuda):
 def test_bf16_flowgnn_serves_the_cpu_logits(cuda, impl):
     """The bf16 model on the card (the bf16 instances, the matmul
     pooling) against the same model on the CPU (the plain versions, the
-    segment pooling) at the serving bucket; then a backward at bf16 on
-    the card raises, naming A3b-2."""
+    segment pooling) at the serving bucket; then a training pass at bf16
+    on the card: the fused lane's backward runs its bf16 instances, the
+    persistent lane's raises before anything launches, naming A3b-2b."""
     cfg = FlowGNNConfig(message_impl=impl, dtype="bfloat16")
     graphs = synthetic_bigvul(16, cfg.feature, seed=1)
     batch = bucket_batch(ServeConfig(), graphs, 16, SUBKEYS, band=True)
@@ -1631,6 +1646,183 @@ def test_bf16_flowgnn_serves_the_cpu_logits(cuda, impl):
         want = cpu(batch)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, **GNN_BF16_UNROLL_TOL)
-    logits = model.train()(batch.to(cuda))
-    with pytest.raises(NotImplementedError, match="A3b-2"):
-        logits.sum().backward()
+    fused_gnn.reset_launch_counts()
+    if impl == "persistent":
+        with pytest.raises(NotImplementedError, match="A3b-2b"):
+            model.train()(batch.to(cuda)).sum().backward()
+        torch.cuda.synchronize()
+        assert sum(fused_gnn.launch_counts().values()) == 0
+        return
+    model.train()(batch.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    counts = fused_gnn.launch_counts()
+    assert counts["fused_step_bwd_kernel_bf16"] == cfg.n_steps
+    assert counts["step_weight_grad_kernel_bf16"] == cfg.n_steps
+    assert counts["fused_step_bwd_kernel"] == counts[
+        "step_weight_grad_kernel"] == 0
+    assert all(p.grad.dtype == torch.float32 and bool(
+        torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# The bf16 backward instances (training at bf16: the fused and tile lanes)
+# ---------------------------------------------------------------------------
+
+# A bf16 backward output against its plain version (chip_smoke's rule): a
+# rounded intermediate may land one bf16 step apart, which moves a later
+# sum by one step of its term: one bf16 step of the element plus half a
+# step at the tensor's scale.
+def _close_bf16_bwd(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    limit = 2.0 ** -7 * w.abs() + 2.0 ** -8 * w.abs().max()
+    assert bool(((g - w).abs() <= limit).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("f32_vals", [False, True])
+@pytest.mark.parametrize("case", ["serving", "training", "over_a_tile_bwd",
+                                  "h32"])
+def test_bf16_backward_instances_match_plain_versions(cuda, case, f32_vals):
+    """``fused_step_bwd_kernel_bf16`` and ``step_weight_grad_kernel_bf16``
+    against their plain versions: ``dh`` and ``x`` bf16, ``dp`` and
+    ``dmsg`` f32; the weight pass over 3 steps bit for bit the fold of
+    one-step calls and its own second launch; the f32 masters' gradients
+    f32; only the bf16 instances launch."""
+    adj, hidden = _bf16_case(case, cuda)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    n, k = adj.n_tiles * adj.tile, 3
+    mdt = fused_gnn.msg_dtype(adj, torch.bfloat16)
+    p32 = fused_gnn.packed_weights(_params(hidden, cuda, seed=6))
+    gen = torch.Generator().manual_seed(7)
+    h, g = (torch.randn(n, hidden, generator=gen).to(cuda).bfloat16()
+            for _ in range(2))
+    fused_gnn.reset_launch_counts()
+    got = fused_gnn.fused_step_bwd_rows(None, h, adj, g, p32)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16,
+                                      torch.float32, torch.float32]
+    for a, b in zip(got, fused_gnn.fused_step_bwd_rows_reference(
+            None, h, adj, g, p32)):
+        _close_bf16_bwd(a, b)
+    for a, b in zip(fused_gnn.fused_step_bwd_rows(None, h, adj, g, p32),
+                    got):
+        assert torch.equal(a, b)
+    states = [h]
+    for _ in range(k - 1):
+        states.append(fused_gnn.fused_gate_step(None, states[-1], adj,
+                                                packed=p32))
+    hist = torch.stack(states[1:]).contiguous()
+    rows, gs = [None] * k, g
+    for s in reversed(range(k)):
+        gs, *rows[s] = fused_gnn.fused_step_bwd_rows(None, states[s], adj, gs,
+                                                     p32)
+    x, dp, dmsg = (torch.stack([r[j] for r in rows]).contiguous()
+                   for j in range(3))
+    grads = fused_gnn.step_weight_grads(h, hist, x, dp, dmsg, k, mdt)
+    want = fused_gnn.step_weight_grad_reference(h, hist, x, dp, dmsg, k, mdt)
+    for a, b in zip(grads, want):
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= GRAD_TOL * float(b.abs().max())
+    fold = None
+    for s in reversed(range(k)):
+        one = fused_gnn.step_weight_grads(states[s].contiguous(), None,
+                                          x[s:s + 1], dp[s:s + 1],
+                                          dmsg[s:s + 1], 1, mdt)
+        fold = one if fold is None else [a + b for a, b in zip(fold, one)]
+    again = fused_gnn.step_weight_grads(h, hist, x, dp, dmsg, k, mdt)
+    for a, b, c in zip(grads, fold, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0), "fused_step_kernel_bf16": k - 1,
+        "fused_step_bwd_kernel_bf16": 2 + k,
+        "step_weight_grad_kernel_bf16": 2 + k}
+
+
+def test_bf16_backward_geometry_follows_the_host_plan(cuda):
+    """The bf16 backward instance's three passes take the plan
+    ``step_plan`` mirrors on this card, with ``step_smem_bytes``'s shared
+    memory; the gate pass holds one block an SM (96 gate sums a thread)."""
+    name = "fused_step_bwd_kernel_bf16"
+    for case in ("serving", "flagship", "training"):
+        adj, hidden = _bf16_case(case, cuda)
+        n = adj.n_tiles * adj.tile
+        geo = fused_gnn.step_geometry(adj, hidden, name)
+        plan = fused_gnn.step_plan(n, hidden, geo["sms"], name)
+        for key in ("row_tile", "slab_rows", "blocks"):
+            assert geo[key] == plan[key], (case, key)
+        for p, key in ((0, "smem_bytes"), (1, "smem_bytes_pass1"),
+                       (2, "smem_bytes_pass2")):
+            assert geo[key] == fused_gnn.step_smem_bytes(n, hidden,
+                                                         geo["sms"], name, p)
+        assert geo["blocks_per_sm_pass1"] >= 1
+        assert geo["blocks_per_sm"] >= 1 and geo["blocks_per_sm_pass2"] >= 1
+
+
+@pytest.mark.parametrize("n,sizes", [(1024, [40] * 20), (16384, [60] * 250)])
+@pytest.mark.parametrize("hidden", [32, 128, 30])  # 30: one value a lane
+def test_tile_spmm_bf16_instance_matches_plain_version(cuda, n, sizes,
+                                                       hidden):
+    """``tile_spmm_kernel_bf16`` over A and A^T against its plain version
+    (f32 sums rounded once: bit for bit but for sums that land on a
+    rounding boundary in another order), its bits twice, a multiplicity
+    of 300 (f32, not bf16-exact) taken as the reference's upcast does."""
+    adj, _ = _tile_lists(sizes, n)
+    adj = adj.to(cuda)
+    msg = torch.randn(n, hidden, generator=torch.Generator().manual_seed(1)
+                      ).to(cuda).bfloat16()
+    T.reset_launch_counts()
+    for a in (adj, adj.transposed()):
+        got = T.tile_spmm(a, msg)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), T.tile_spmm_reference(
+            a, msg).float(), **GNN_BF16_STEP_TOL)
+        assert torch.equal(T.tile_spmm(a, msg), got)
+    heavy = T.build_csr_adjacency(np.zeros(300, np.int64),
+                                  np.ones(300, np.int64),
+                                  np.ones(300, bool), 16).to(cuda)
+    one = T.tile_spmm(heavy, torch.ones(16, 4, device=cuda).bfloat16())
+    assert one[1].float().tolist() == [300.0] * 4 and not one[2:].any()
+    torch.cuda.synchronize()
+    assert T.launch_counts() == {"tile_spmm_kernel": 0,
+                                 "tile_spmm_kernel_bf16": 5}
+
+
+@pytest.mark.parametrize("impl", ["fused", "tile"])
+def test_bf16_fit_matches_cpu(cuda, impl):
+    """``loop.fit`` at bf16 for one epoch on the card against the same
+    weights and batches on the CPU: per-step losses within 5e-2 (the
+    reference's bf16 tolerance; the card pools by matmul, the CPU by
+    bf16 segment sums); the bf16 instances launch, their f32 kernels do
+    not; the parameters stay f32."""
+    from deepdfa_tpu_torch.core.config import DataConfig, TrainConfig
+    from deepdfa_tpu_torch.data.splits import make_splits
+    from deepdfa_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepdfa_tpu_torch.train import loop
+
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    cfg = FlowGNNConfig(feature=feature, message_impl=impl,
+                        dtype="bfloat16")
+    examples = synthetic_bigvul(160, feature, positive_fraction=0.5, seed=3)
+    splits = make_splits(examples, "random", seed=0)
+    tcfg = TrainConfig(max_epochs=1, learning_rate=2e-3)
+    dcfg = DataConfig(batch_size=32, eval_batch_size=32)
+    model = FlowGNN(cfg, device=cuda, seed=4)
+    cpu = FlowGNN(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    reset_launch_counts()
+    _, hist = loop.fit(model, examples, splits, tcfg, dcfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _, cpu_hist = loop.fit(cpu, examples, splits, tcfg, dcfg)
+    got = [x for e in hist["epochs"] for x in e["step_losses"]]
+    want = [x for e in cpu_hist["epochs"] for x in e["step_losses"]]
+    assert len(got) == len(want) >= 3
+    np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
+    names = (("fused_step_kernel_bf16", "fused_step_bwd_kernel_bf16",
+              "step_weight_grad_kernel_bf16") if impl == "fused"
+             else ("tile_spmm_kernel_bf16",))
+    assert all(counts[k] > 0 for k in names)
+    assert all(v == 0 for k, v in counts.items() if not k.endswith("_bf16"))
+    assert all(p.dtype == torch.float32 for p in model.parameters())

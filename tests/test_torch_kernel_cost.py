@@ -136,3 +136,63 @@ def test_fused_step_bytes_count_every_launch(n, tile, hidden):
     for cost in (one, five, p5) if hidden == 128 else ():
         assert (cost["flops"] / cost["peak_flops"]
                 > cost["bytes"] / PEAK_BYTES_PER_S)
+
+
+@pytest.mark.parametrize("f32_vals", [False, True])
+def test_bf16_backward_costs_bytes_and_rates(f32_vals):
+    """The fused lane's bf16 backward instances: bf16 arrays at 2 bytes
+    an element (dp and dmsg f32), the products of two bf16 values at the
+    bf16 tensor-core rate and the rest at its own: with f32 band values
+    (f32 messages) A^T dx and dmsg W_e^T leave the bf16 rate for the f32
+    SIMT one, and the weight pass's h^T dmsg for 3xTF32."""
+    import dataclasses
+
+    adj = _band(256, 64)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    n, h, k = 256, 32, 5
+    nnz = int(torch.count_nonzero(adj.vals))
+    band = adj.vals.numel() * adj.vals.element_size()
+    plane = 2.0 * n * h
+    edge, gate, sparse = 2.0 * n * h * h, 12.0 * n * h * h, 2.0 * nnz * h
+    bwd = fused_gnn.kernel_cost(adj, h, 1, "fused_step_bwd_kernel_bf16")
+    assert bwd["bytes"] == (14 * plane + 2 * band
+                            + (7 * h * h + 7 * h) * 2 + 7 * h * h * 2)
+    msg = 0.0 if f32_vals else 2 * sparse + edge
+    assert bwd["flops_bf16"] == edge + 2 * gate + msg
+    assert bwd["flops"] == edge + 2 * gate + 2 * sparse + edge + 50.0 * n * h
+    wgrad = fused_gnn.kernel_cost(adj, h, k, "step_weight_grad_kernel_bf16")
+    assert wgrad["bytes"] == k * 12 * plane + (7 * h * h + 7 * h) * 4
+    assert wgrad["flops_bf16"] == k * (gate + (0.0 if f32_vals else edge))
+    assert wgrad["flops"] == k * (gate + edge + 7.0 * n * h)
+    seconds = (wgrad["flops_bf16"] / PEAK_BF16[1]
+               + (k * edge if f32_vals else 0.0) / PEAK_3XTF32[1]
+               + k * 7.0 * n * h / PEAK_F32_SIMT[1])
+    assert wgrad["peak_flops"] == pytest.approx(wgrad["flops"] / seconds)
+    assert (PEAK_3XTF32[0] in wgrad["peak"]) == f32_vals
+    for cost in (bwd, wgrad):
+        assert cost["peak"].startswith(PEAK_BF16[0])
+
+
+def test_bf16_tile_cost_bytes_and_rate():
+    """``tile_spmm_kernel_bf16``: msg's sender rows and the output at 2
+    bytes an element, the lists as at f32; bf16-exact multiplicities make
+    the products bf16 x bf16 (the bf16 tensor-core rate), a multiplicity
+    of 300 keeps them f32 (the reference upcasts msg)."""
+    from deepdfa_tpu_torch.ops import tile_spmm as T
+
+    s = np.array([0, 1, 2, 3, 3])
+    r = np.array([1, 2, 3, 0, 0])
+    adj = T.build_csr_adjacency(s, r, np.ones(5, bool), 8)
+    f32 = T.kernel_cost(adj, 16, tile=8)
+    bf16 = T.kernel_cost(adj, 16, tile=8, dtype=torch.bfloat16)
+    lists = 8.0 * adj.nnz + 4.0 * adj.ptr.numel()
+    assert f32["bytes"] - lists == 2 * (bf16["bytes"] - lists)
+    assert bf16["flops"] == f32["flops"] == 2.0 * adj.nnz * 16
+    assert (bf16["peak"], bf16["peak_flops"]) == PEAK_BF16
+    assert (f32["peak"], f32["peak_flops"]) == PEAK_F32_SIMT
+    heavy = T.build_csr_adjacency(np.zeros(300, np.int64),
+                                  np.ones(300, np.int64), np.ones(300, bool),
+                                  8)
+    assert T.kernel_cost(heavy, 16, tile=8,
+                         dtype=torch.bfloat16)["peak"] == PEAK_F32_SIMT[0]

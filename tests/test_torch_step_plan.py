@@ -158,3 +158,29 @@ def test_plan_covers_the_rows_within_the_budget(n_rows, hidden, sms):
 def test_plan_names_only_the_per_step_kernels():
     with pytest.raises(ValueError, match="per-step"):
         fused_gnn.step_plan(1024, 128, H100_SMS, "persistent_fwd_kernel")
+
+
+BWD16 = "fused_step_bwd_kernel_bf16"
+
+
+@pytest.mark.parametrize("shape,want", [
+    # The bf16 backward takes the f32 backward's tiles; its three passes
+    # hold h (the messages' pass), the cotangent, h, the messages and the
+    # aggregate (the gate's, one block an SM: 96 gate sums a thread), dx
+    # and dmsg (A^T's). The card reads 53,760 / 104,576 / 70,784 bytes
+    # back at the training shape (chip_smoke.py's geometry).
+    ("serving", (16, 64, (45_312, 70_720, 53_824))),
+    ("flagship", (32, 256, (53_760, 104_576, 70_784))),
+    ("training", (32, 512, (53_760, 104_576, 70_784))),
+])
+def test_bf16_backward_plan_and_shared_memory(shape, want):
+    adj = {"serving": _serving, "flagship": _flagship,
+           "training": _training}[shape](_model())
+    n = adj.n_tiles * adj.tile
+    row_tile, blocks, smem = want
+    plan = fused_gnn.step_plan(n, 128, H100_SMS, BWD16)
+    assert plan == dict(fused_gnn.step_plan(n, 128, H100_SMS, BWD),
+                        row_tile=row_tile, blocks=blocks)
+    got = tuple(fused_gnn.step_smem_bytes(n, 128, H100_SMS, BWD16, p)
+                for p in range(3))
+    assert got == smem and max(got) <= BUDGET
