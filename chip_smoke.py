@@ -223,26 +223,38 @@ one:
    process over HTTP, GNN lane, 512 one-function POSTs from 16 clients
    (p50/p99 ms, requests/s), a chunk again (cache hits), the launches
    from ``/metrics``, the answers against the CPU engine.
-27. The fused and tile lanes' backward at bf16 (``FlowGNN(dtype=
-   "bfloat16")`` training; run last, with 28) at the
-   training shape (N 16384, H 128, 5 steps), bf16 and f32 band values:
-   ``fused_step_bwd_kernel_bf16`` against its plain version (each output
-   within a bf16 step of the element plus half a step at the tensor's
-   scale, the elements apart counted), ``step_weight_grad_kernel_bf16``
-   over the 5 steps' cotangents against its plain version (1e-4 of each
-   gradient's largest entry) and bit for bit the fold of 5 one-step
-   calls, ``tile_spmm_kernel_bf16`` over A and A^T against its plain
+27. The backward at bf16 (``FlowGNN(dtype="bfloat16")`` training; run
+   last, with 28) at the training shape (N 16384, H 128, 5 steps), bf16
+   and f32 band values: ``fused_step_bwd_kernel_bf16`` against its plain
+   version (each output within a bf16 step of the element plus half a
+   step at the tensor's scale, the elements apart counted),
+   ``step_weight_grad_kernel_bf16`` over the 5 steps' cotangents against
+   its plain version (1e-4 of each gradient's largest entry) and bit for
+   bit the fold of 5 one-step calls; the persistent lane's
+   ``persistent_fwd_hist_kernel_bf16`` and ``persistent_bwd_kernel_bf16``
+   against their plain versions (within 5e-2 of the element and of the
+   tensor's scale over the 5 steps, the elements apart counted) and bit
+   for bit the scans of the per-step instances (``scan_bits_equal``,
+   timed beside them: ``scan_ms``);
+   ``tile_spmm_kernel_bf16`` over A and A^T against its plain
    version; each run twice for its bits and timed beside its bound,
    its plain version, the f32 kernel on the same inputs widened and its
    library call (the three products as stacked ``torch.mm`` at bf16;
-   ``torch.sparse.mm`` on a bf16 CSR matrix).
+   ``torch.sparse.mm`` on a bf16 CSR matrix; none for the gated steps).
 28. Train at bf16, in a process of its own (fresh profiler state):
-   ``train.loop.fit`` as phases 8-10 on the fused, tile and band lanes with ``FlowGNNConfig(dtype="bfloat16")`` (f32 master
-   parameters), losses against the CPU within 5e-2, the bf16 instances'
-   launches exact and no f32 GNN or tile kernel launched, the step's
-   breakdown and device ms by kernel beside the f32 lanes'; and the
-   persistent lane at bf16 refused before anything launches (ROADMAP
-   A3b-2b).
+   ``train.loop.fit`` as phases 8-10 on the persistent (the CLI's
+   default), fused, tile and band lanes with
+   ``FlowGNNConfig(dtype="bfloat16")`` (f32 master parameters), losses
+   against the CPU within 5e-2, the bf16 instances' launches exact (the
+   persistent lane: no batch over its gate) and no f32 GNN or tile
+   kernel launched, the step's breakdown and device ms by kernel beside
+   the f32 lanes'.
+29. DeepDFA+LineVul with a bf16 graph encoder (``fit-text --set
+   model.dtype=bfloat16 --set model.message_impl=persistent``; the text
+   encoder f32), as phase 13: full width, 2 layers, batch 4, dropout off,
+   3 steps on the card and on the CPU from the same weights, losses
+   within 5e-2; the persistent lane's bf16 instances launched as the
+   batches' gates say.
 
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
@@ -458,13 +470,19 @@ GNN_BF16_UNROLL_TOL = dict(rtol=5e-2, atol=5e-2)
 BF16_GNN_TOL = 5e-2
 # The bf16 backward instances and the bf16 tile product: the same TPU
 # kernels at dt = bfloat16.
-for _name in ("fused_step_bwd_kernel", "step_weight_grad_kernel"):
+for _name in ("fused_step_bwd_kernel", "step_weight_grad_kernel",
+              "persistent_fwd_hist_kernel", "persistent_bwd_kernel"):
     REPLACES[_name + "_bf16"] = REPLACES[_name]
     SOURCES[_name + "_bf16"] = SOURCES[_name]
 REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
 SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
 REPLACES["tile_spmm_kernel_bf16"] = REPLACES["tile_spmm_kernel"]
 SOURCES["tile_spmm_kernel_bf16"] = SOURCES["tile_spmm_kernel"]
+# A bf16 persistent sweep's output against its plain version over the 5
+# steps: a value one bf16 step apart carries onward, as in the forward
+# (GNN_BF16_UNROLL_TOL): within 5e-2 of the element plus 5e-2 of the
+# tensor's scale (the backward's cotangents are not of h's scale).
+GNN_BF16_SWEEP_TOL = 5e-2
 # A bf16 backward output against its plain version: each sums in f32 in
 # another order and rounds at the reference's points, so a rounded
 # intermediate (dpre, dx, dmsg) may land one bf16 step apart, and that
@@ -481,16 +499,18 @@ TILE_TOL = dict(rtol=1e-5, atol=1e-5)
 TILE_LIBRARY_COVERS = ["agg = A @ msg"]
 # Every __global__ function of csrc/ by its name in the source, as
 # torch.profiler reports it: the kernels above (persistent_fwd_hist_kernel
-# is an instance of persistent_fwd_kernel and counts under that name) and
-# the second steps of two of them, the weight gradients' and the fused
-# flash backward's reductions.
-PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel"}) | {
+# is an instance of persistent_fwd_kernel and counts under that name, its
+# bf16 instance likewise under persistent_fwd_kernel_bf16) and the second
+# steps of two of them, the weight gradients' and the fused flash
+# backward's reductions.
+PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel",
+                                 "persistent_fwd_hist_kernel_bf16"}) | {
     "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel",
     "flash_dq_sum_kernel_bf16"}
 # The launch counters that must move where the profile files time under
 # a name: the reductions' parent kernels (the weight pass's reduction is
-# shared by its f32 and bf16 instances), and the hist instance of the
-# persistent forward, which the profile files under its name.
+# shared by its f32 and bf16 instances), and the hist instances of the
+# persistent forwards, which the profile files under their names.
 PROFILE_COUNTERS = {
     "step_weight_grad_reduce_kernel": ("step_weight_grad_kernel",
                                        "step_weight_grad_kernel_bf16"),
@@ -498,6 +518,8 @@ PROFILE_COUNTERS = {
     "flash_dq_sum_kernel_bf16": ("flash_bwd_fused_kernel_bf16",),
     "persistent_fwd_kernel": ("persistent_fwd_kernel",
                               "persistent_fwd_hist_kernel"),
+    "persistent_fwd_kernel_bf16": ("persistent_fwd_kernel_bf16",
+                                   "persistent_fwd_hist_kernel_bf16"),
 }
 # What the weight pass's library_ms covers: three torch.mm calls over the
 # step-stacked operands ([K N, H]^T x [K N, .]) and three column sums.
@@ -637,7 +659,8 @@ def _scan_record(name, kernel, scan, adj, hidden,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cluster = (fused_gnn.persistent_cluster_size(adj, hidden, sms)
                if which in ("persistent_fwd_kernel",
-                            "persistent_fwd_kernel_bf16") else 1)
+                            "persistent_fwd_kernel_bf16",
+                            "persistent_fwd_hist_kernel_bf16") else 1)
     return dict(scan_ms=_time_ms(scan, iters, reps), cluster=cluster,
                 **fused_gnn.persistent_occupancy(adj, hidden, which,
                                                  cluster))
@@ -1590,10 +1613,19 @@ def phase_train(impl: str, dtype: str = "float32") -> dict:
               if not k.endswith("_bf16")} if bf16
              else {"tile_spmm_kernel": 0})
     if impl == "persistent":
-        need = ("persistent_fwd_kernel", "persistent_fwd_hist_kernel",
-                "persistent_bwd_kernel", "step_weight_grad_kernel")
+        need = tuple(name + sfx for name in (
+            "persistent_fwd_kernel", "persistent_fwd_hist_kernel",
+            "persistent_bwd_kernel", "step_weight_grad_kernel"))
         if model.over_gate_dispatches == 0:
-            exact["persistent_bwd_kernel"] = steps
+            exact[f"persistent_bwd_kernel{sfx}"] = steps
+            if bf16:
+                # One forward launch a train step and an evaluation
+                # batch; each step's VJP one hist sweep, one reverse
+                # sweep and one weight pass over the K steps.
+                exact.update({
+                    "persistent_fwd_kernel_bf16": steps + val_batches,
+                    "persistent_fwd_hist_kernel_bf16": steps,
+                    "step_weight_grad_kernel_bf16": steps})
     elif impl == "fused":
         need = (f"fused_step_kernel{sfx}", f"fused_step_bwd_kernel{sfx}",
                 f"step_weight_grad_kernel{sfx}")
@@ -1643,10 +1675,13 @@ def phase_train(impl: str, dtype: str = "float32") -> dict:
     return rec
 
 
-def _check_bf16_bwd(name, got, want) -> dict:
-    """A bf16 backward output against its plain version: within one bf16
-    step of the element plus half a step at the tensor's scale
-    (``GNN_BF16_BWD_*``); the largest difference and the elements apart."""
+def _check_bf16_bwd(name, got, want, rtol=GNN_BF16_BWD_RTOL,
+                    scale=GNN_BF16_BWD_SCALE) -> dict:
+    """A bf16 backward output against its plain version: within ``rtol``
+    of the element plus ``scale`` of the tensor's largest entry (one bf16
+    step plus half a step, ``GNN_BF16_BWD_*``; a K-step sweep's
+    ``GNN_BF16_SWEEP_TOL``); the largest difference and the elements
+    apart."""
     torch.cuda.synchronize()
     g, w = got.float(), want.float()
     if got.dtype != want.dtype or g.shape != w.shape or not bool(
@@ -1654,11 +1689,11 @@ def _check_bf16_bwd(name, got, want) -> dict:
         raise AssertionError(f"{name}: {got.dtype} {tuple(g.shape)} vs "
                              f"{want.dtype} {tuple(w.shape)}, or non-finite")
     err = (g - w).abs()
-    limit = (GNN_BF16_BWD_RTOL * w.abs()
-             + GNN_BF16_BWD_SCALE * float(w.abs().max()))
+    limit = rtol * w.abs() + scale * float(w.abs().max())
     if bool((err > limit).any()):
         raise AssertionError(f"{name}: max |diff| {err.max().item():.3e} "
-                             f"over one bf16 step")
+                             f"over {rtol} of the element plus {scale} "
+                             "of the tensor's scale")
     return dict(max_abs_err=float(err.max()), **_bf16_diff(got, want))
 
 
@@ -1680,12 +1715,102 @@ def _bf16_record(name, adj, hidden, steps, kernel, plain, f32, cost, iters,
                 timing_launches=launches, **extra)
 
 
+def _persistent_bwd_bf16(adj, vals, h, h32, g, p32, states, k) -> dict:
+    """The persistent lane's bf16 backward sweeps at the training shape
+    (phase 27): ``persistent_fwd_hist_kernel_bf16`` and
+    ``persistent_bwd_kernel_bf16`` against their plain versions, bit for
+    bit the scans of ``fused_step_kernel_bf16`` (``states``: h_0 and the
+    scan's states) and ``fused_step_bwd_kernel_bf16``, twice for their
+    bits; with bf16 band values timed beside their scans, bounds, plain
+    versions and the f32 kernels on the inputs widened. Returns the
+    records by kernel at bf16 band values."""
+    hidden = h.shape[1]
+    out = {}
+    if not fused_gnn.persistent_bwd_smem_ok(adj, hidden, torch.bfloat16):
+        raise AssertionError("training batch over the bf16 backward gate")
+    none = ["none: no PyTorch call computes a GRU gated graph step or its "
+            "VJP"]
+    # The hist sweep: h_1..h_{K-1}.
+    name = "persistent_fwd_hist_kernel_bf16"
+    sweep = lambda: fused_gnn.persistent_hist(None, h, adj, k, p32)
+    plain = lambda: fused_gnn.persistent_hist_reference(None, h, adj, k, p32)
+    hist = sweep()
+    sweep_tol = (GNN_BF16_SWEEP_TOL, GNN_BF16_SWEEP_TOL)
+    rec = dict(kernel=name, band_vals=vals, n_rows=h.shape[0],
+               **_check_bf16_bwd(f"{name}@{vals}", hist, plain(),
+                                 *sweep_tol))
+    _same_bits(f"{name}@{vals} twice", [sweep()], [hist])
+
+    def hist_scan():
+        states = [h]
+        for _ in range(k - 1):
+            states.append(fused_gnn.fused_gate_step(None, states[-1], adj,
+                                                    packed=p32))
+        return states[1:]
+
+    _same_bits(f"{name}@{vals} vs the phase's states", list(hist),
+               states[1:])
+    rec.update(bits_repeat=True, scan_bits_equal=True, **_scan_record(
+        f"{name}@{vals}", lambda: list(sweep()), hist_scan, adj, hidden,
+        which=name, iters=10, reps=3))
+    if vals == "bf16":
+        rec.update(_bf16_record(
+            name, adj, hidden, k, sweep, plain,
+            lambda: fused_gnn.persistent_hist(None, h32, adj, k, p32),
+            fused_gnn.kernel_cost(adj, hidden, k, name), 10, 3,
+            library_ms=None, library_covers=none))
+        out[name] = rec
+    emit(phase="train_kernels_bf16", **rec)
+    # The reverse sweep over that hist: dh_0 and each step's x, dp, dmsg.
+    name = "persistent_bwd_kernel_bf16"
+    sweep = lambda: fused_gnn.persistent_bwd_rows(None, h, hist, adj, g, k,
+                                                  p32)
+    plain = lambda: fused_gnn.persistent_bwd_rows_reference(
+        None, h, hist, adj, g, k, p32)
+    rows = sweep()
+    outputs = {key: _check_bf16_bwd(f"{name}[{key}]@{vals}", a, b,
+                                    *sweep_tol)
+               for key, a, b in zip(("dh", "x", "dp", "dmsg"), rows,
+                                    plain())}
+    _same_bits(f"{name}@{vals} twice", sweep(), rows)
+
+    def bwd_scan():
+        gs, scan = g, [None] * k
+        for s in reversed(range(k)):
+            gs, *scan[s] = fused_gnn.fused_step_bwd_rows(None, states[s],
+                                                         adj, gs, p32)
+        return [gs] + [c[j] for j in range(3) for c in scan]
+
+    def bwd_kernel():
+        dh, *per_step = sweep()
+        return [dh] + [t for c in per_step for t in c.unbind(0)]
+
+    rec = dict(kernel=name, band_vals=vals, n_rows=h.shape[0],
+               max_abs_err=max(o["max_abs_err"] for o in outputs.values()),
+               elements_differing=sum(o["elements_differing"]
+                                      for o in outputs.values()),
+               outputs=outputs, bits_repeat=True, scan_bits_equal=True,
+               **_scan_record(f"{name}@{vals}", bwd_kernel, bwd_scan, adj,
+                              hidden, which=name, iters=5, reps=3))
+    if vals == "bf16":
+        rec.update(_bf16_record(
+            name, adj, hidden, k, sweep, plain,
+            lambda: fused_gnn.persistent_bwd_rows(
+                None, h32, hist.float(), adj, g.float(), k, p32),
+            fused_gnn.kernel_cost(adj, hidden, k, name), 5, 3,
+            library_ms=None, library_covers=none))
+        out[name] = rec
+    emit(phase="train_kernels_bf16", **rec)
+    return out
+
+
 def phase_train_kernels_bf16(model: FlowGNN) -> dict:
     """Phase 27: the bf16 backward instances and the bf16 tile product at
     the training shape against their plain versions, their bits twice,
-    the weight pass's K steps bit for bit the fold of one-step calls,
-    each timed beside its bound, plain version, f32 kernel and library
-    call; returns the numbers by kernel (bf16 band values)."""
+    the weight pass's K steps bit for bit the fold of one-step calls, the
+    persistent sweeps bit for bit the per-step scans, each timed beside
+    its bound, plain version, f32 kernel and library call; returns the
+    numbers by kernel (bf16 band values)."""
     cfg = model.config
     k_steps, hidden = cfg.n_steps, cfg.ggnn_hidden
     out = {}
@@ -1800,6 +1925,8 @@ def phase_train_kernels_bf16(model: FlowGNN) -> dict:
                     library_max_rel_diff=lib_rel))
                 out[name] = rec
             emit(phase="train_kernels_bf16", **rec)
+            out.update(_persistent_bwd_bf16(adj, vals, h, h32, g, p32,
+                                            states, k_steps))
         # tile_spmm_kernel_bf16 over A and A^T, the tile lane's batch.
         name = "tile_spmm_kernel_bf16"
         tmodel = FlowGNN(FlowGNNConfig(message_impl="tile"), device="cpu")
@@ -1840,15 +1967,19 @@ def phase_train_kernels_bf16(model: FlowGNN) -> dict:
 
 
 def phase_train_bf16(f32: dict) -> dict:
-    """Phase 28: ``fit`` at bf16 on the fused, tile and band lanes
-    (``phase_train`` at bf16), each step's device ms beside the f32
-    lane's (``f32``: lane -> phases 8-10's ``device_busy_ms`` and
-    ``graphs_per_s``); then the persistent lane at bf16 refused before
-    anything launches. Returns the lanes' launches summed."""
+    """Phase 28: ``fit`` at bf16 on the persistent (the CLI's default),
+    fused, tile and band lanes (``phase_train`` at bf16), each step's
+    device ms beside the f32 lane's (``f32``: lane -> phases 8-10's
+    ``device_busy_ms`` and ``graphs_per_s``); the persistent lane with
+    no batch over its gate. Returns the lanes' launches summed."""
     launches = {k: 0 for k in REPLACES}
     lanes = {}
-    for impl in ("fused", "tile", "band"):
+    for impl in ("persistent", "fused", "tile", "band"):
         rec = phase_train(impl, "bfloat16")
+        if impl == "persistent" and rec["over_gate_dispatches"]:
+            raise AssertionError(f"persistent lane at bf16: "
+                                 f"{rec['over_gate_dispatches']} passes "
+                                 "over the gate")
         for k in launches:
             launches[k] += rec["launches"][k]
         base = f32.get(impl, {})
@@ -1858,22 +1989,7 @@ def phase_train_bf16(f32: dict) -> dict:
             max_abs_loss_diff_vs_cpu=rec["max_abs_loss_diff_vs_cpu"],
             f32_device_busy_ms=base.get("device_busy_ms"),
             f32_graphs_per_s=base.get("graphs_per_s"))
-    train_cfg = dataclasses.replace(TrainConfig(), max_epochs=TRAIN_EPOCHS)
-    model = FlowGNN(FlowGNNConfig(message_impl="persistent",
-                                  dtype="bfloat16"), device="cuda",
-                    seed=SEED)
-    examples, splits = _train_data(model.config.feature, train_cfg.seed)
-    reset_launch_counts()
-    try:
-        loop.fit(model, examples, splits, train_cfg, DataConfig())
-    except NotImplementedError as exc:
-        refusal = str(exc)
-    else:
-        raise AssertionError("fit on the persistent lane at bf16 ran")
-    if "A3b-2b" not in refusal or any(launch_counts().values()):
-        raise AssertionError(f"persistent lane at bf16: {refusal!r}, "
-                             f"launches {launch_counts()}")
-    emit(phase="train_bf16_summary", lanes=lanes, persistent_refusal=refusal)
+    emit(phase="train_bf16_summary", lanes=lanes)
     return dict(launches=launches, lanes=lanes)
 
 
@@ -2116,12 +2232,12 @@ def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
 
 
 def _text_setup(enc: EncoderConfig, n: int, batch: int, block: int,
-                message_impl: str = "segment"):
+                message_impl: str = "segment", graph_dtype: str = "float32"):
     """The model, data and fit_text arguments of ``cli fit-text
-    --graphs synthetic [--set model.message_impl=...]`` at these sizes
-    (one epoch)."""
+    --graphs synthetic [--set model.message_impl=...] [--set
+    model.dtype=...]`` at these sizes (one epoch)."""
     graph_cfg = FlowGNNConfig(encoder_mode=True, label_style="graph",
-                              message_impl=message_impl)
+                              message_impl=message_impl, dtype=graph_dtype)
     tcfg = TransformerTrainConfig(max_epochs=1, batch_size=batch,
                                   eval_batch_size=batch, block_size=block,
                                   seed=TEXT_SEED)
@@ -2297,6 +2413,64 @@ def phase_fit_text_vs_cpu(message_impl: str = "segment") -> dict:
                batch_size=tcfg.batch_size, **grads, losses=losses,
                cpu_losses=cpu_losses,
                max_abs_loss_diff_vs_cpu=float(diffs.max()),
+               val_loss_diff_vs_cpu=abs(
+                   history["epochs"][-1]["val_loss"]
+                   - cpu_history["epochs"][-1]["val_loss"]),
+               launches=launches, fit_wall_s=wall_s, cpu_fit_s=cpu_s)
+    emit(**rec)
+    return rec
+
+
+def phase_fit_text_bf16_graph() -> dict:
+    """Phase 29: DeepDFA+LineVul as phase 13 (full width, 2 layers, batch
+    4, dropout off; the text encoder f32) with the graph encoder at bf16
+    on the persistent lane, ``fit-text --set model.dtype=bfloat16 --set
+    model.message_impl=persistent``: 3 steps on the card and on the CPU
+    from the same weights, losses within ``BF16_GNN_TOL``, the persistent
+    lane's bf16 instances launched as the batches' gates say."""
+    enc = dataclasses.replace(EncoderConfig(), attention_impl="auto",
+                              num_layers=2, dropout_rate=0.0)
+    graph_cfg, tcfg, data, splits, kw = _text_setup(
+        enc, TEXT_N_VS_CPU, 4, 512, "persistent", "bfloat16")
+    model = LineVul(enc, graph_cfg, device="cuda", seed=SEED)
+    cpu_model = LineVul(enc, graph_cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    history, launches, _, wall_s = _fit_text_counted(model, data, splits,
+                                                     tcfg, kw)
+    losses = _text_steps(history)
+    t0 = time.perf_counter()
+    _, cpu_history = text_loop.fit_text(cpu_model, data, splits, tcfg, **kw)
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = _text_steps(cpu_history)
+    diffs = np.abs(np.asarray(losses) - np.asarray(cpu_losses))
+    if len(losses) != 3 or len(cpu_losses) != 3 or diffs.max() > \
+            BF16_GNN_TOL:
+        raise AssertionError(f"fit_text, bf16 graph encoder: card {losses} "
+                             f"against cpu {cpu_losses} (limit "
+                             f"{BF16_GNN_TOL})")
+    val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    gnn = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    _require_launches("fit_text, bf16 graph encoder", launches, {
+        "flash_fwd_kernel": enc.num_layers * (3 + val_batches),
+        "flash_bwd_fused_kernel": enc.num_layers * 3,
+        **{k: v for k, v in gnn.items() if v}})
+    for name in ("persistent_fwd_hist_kernel_bf16",
+                 "persistent_bwd_kernel_bf16"):
+        if launches[name] <= 0:
+            raise AssertionError(f"fit_text, bf16 graph encoder: {name} "
+                                 f"never ran ({launches})")
+    rec = dict(phase="fit_text_bf16_graph", graph_dtype=graph_cfg.dtype,
+               graph_message_impl=graph_cfg.message_impl,
+               text_dtype=enc.dtype, layers=enc.num_layers,
+               batch_size=tcfg.batch_size, losses=losses,
+               cpu_losses=cpu_losses,
+               max_abs_loss_diff_vs_cpu=float(diffs.max()),
+               tol=BF16_GNN_TOL,
                val_loss_diff_vs_cpu=abs(
                    history["epochs"][-1]["val_loss"]
                    - cpu_history["epochs"][-1]["val_loss"]),
@@ -3935,10 +4109,13 @@ def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
     """The GNN kernels a graph encoder of ``graph_cfg.message_impl``
     (fused or persistent) launches over the batches fit_text makes of
     ``indices`` (train: a gradient through the encoder; else forward
-    only, as an evaluation or a frozen encoder runs it). A persistent
-    batch over its gate runs the fused kernel per step
+    only, as an evaluation or a frozen encoder runs it), the bf16
+    instances for a bf16 encoder. A persistent batch over its gate (at
+    the encoder's dtype) runs the fused kernel per step
     (``FlowGNN._message_pass``)."""
     k, hidden = graph_cfg.n_steps, graph_cfg.ggnn_hidden
+    dtype = getattr(torch, graph_cfg.dtype)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
     gate = (fused_gnn.persistent_bwd_smem_ok if train
             else fused_gnn.persistent_smem_ok)
     rng = (np.random.default_rng(shuffle_seed) if shuffle_seed is not None
@@ -3948,18 +4125,18 @@ def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
             data, indices, tcfg.batch_size if train else tcfg.eval_batch_size,
             shuffle_rng=rng, build_band_adj=True, **kw):
         if graph_cfg.message_impl == "persistent" and gate(
-                b.graphs.band_adj, hidden):
+                b.graphs.band_adj, hidden, dtype):
             names = (["persistent_fwd_kernel", "persistent_fwd_hist_kernel",
                       "persistent_bwd_kernel", "step_weight_grad_kernel"]
                      if train else ["persistent_fwd_kernel"])
             for name in names:
-                out[name] += 1
+                out[name + sfx] += 1
         else:
             names = (["fused_step_kernel", "fused_step_bwd_kernel",
                       "step_weight_grad_kernel"] if train
                      else ["fused_step_kernel"])
             for name in names:
-                out[name] += k
+                out[name + sfx] += k
     return out
 
 
@@ -4301,6 +4478,7 @@ def main() -> int:
             ("fit_text", phase_fit_text, ()),
             ("fit_text_vs_cpu", phase_fit_text_vs_cpu, ()),
             ("fit_text_vs_cpu_tile", phase_fit_text_vs_cpu, ("tile",)),
+            ("fit_text_bf16_graph", phase_fit_text_bf16_graph, ()),
             ("fit_text_long", phase_fit_text_long, ()),
             ("recipe", phase_recipe, ()),
             ("inputs", phase_inputs, ()),

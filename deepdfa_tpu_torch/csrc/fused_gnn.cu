@@ -493,7 +493,11 @@ int fwd_occupancy(int max_group_rows, int hidden, int* blocks,
 // fused_step_kernel_bf16     replaces _fwd_kernel at dt = bfloat16 (the
 //                            same Pallas kernel, generic over the dtype).
 // persistent_fwd_kernel_bf16 replaces _persist_fwd_kernel at dt = bfloat16
-//                            (emit_hist=False; its hist sweep is training's).
+//                            (emit_hist=False).
+// persistent_fwd_hist_kernel_bf16 (the kHist instance of
+//                            persistent_fwd_kernel_bf16) replaces its
+//                            emit_hist=True variant at bf16: the bf16
+//                            backward's recompute sweep h_1..h_{K-1}.
 //
 // Unlike the f32 kernels, the reference rounds inside the step at bf16
 // (gated_step.cuh: edge_msg_bf16, gate_out_bf16): the message h W_e + b_e
@@ -672,8 +676,13 @@ int launch_step_bf16(const void* h, const void* vals, const void* ek,
 
 // K steps with the group resident: h_s (h), m_s (the messages; with kCS > 1
 // every block's message slice lands there, and later the block's h' slice),
-// x_s (the aggregate, then x), the row sums.
-template <typename VT, int kCS>
+// x_s (the aggregate, then x), the row sums. kHist = true (the bf16
+// backward's recompute sweep): after each of the n_steps steps each block
+// writes its slice of the group's h_{k+1} (bf16) to hist[k] ([n_steps,
+// n_rows, H]) and out is not written, as persistent_fwd_kernel's kHist
+// instance; the step code is the same, so hist[k] equals this kernel's h
+// after k + 1 steps bit for bit.
+template <typename VT, bool kHist, int kCS>
 __global__ void __launch_bounds__(kGroupThreads, 1)
     persistent_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ h0,
                                const VT* __restrict__ vals,
@@ -686,7 +695,7 @@ __global__ void __launch_bounds__(kGroupThreads, 1)
                                const int* __restrict__ groups,
                                __nv_bfloat16* __restrict__ out, int H,
                                int tile, int n_tiles, int bw, int n_steps,
-                               int max_rows) {
+                               int n_rows, int max_rows) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) float smem[];
   constexpr bool kRoundMsg = sizeof(VT) == 2;
@@ -764,11 +773,14 @@ __global__ void __launch_bounds__(kGroupThreads, 1)
       }
       cg::this_cluster().sync();  // every h' slice in
     }
+    if constexpr (kHist)
+      rows_to_global(out + (static_cast<size_t>(step) * n_rows + g0) * H,
+                     h_s, ld, R, H, t.lo, hi);
   }
-  rows_to_global(out + goff, h_s, ld, R, H, t.lo, hi);
+  if constexpr (!kHist) rows_to_global(out + goff, h_s, ld, R, H, t.lo, hi);
 }
 
-template <typename VT, int kCS>
+template <typename VT, bool kHist, int kCS>
 int persistent_bf16_instance(const void* h0, const void* vals, const void* ek,
                              const void* eb, const void* wi, const void* bi,
                              const void* wh, const void* bh,
@@ -776,7 +788,7 @@ int persistent_bf16_instance(const void* h0, const void* vals, const void* ek,
                              int max_group_rows, int n_steps, void* out,
                              int hidden, int tile, int n_tiles, int bw,
                              cudaStream_t st, int* blocks, int* clusters) {
-  const auto kernel = persistent_fwd_kernel_bf16<VT, kCS>;
+  const auto kernel = persistent_fwd_kernel_bf16<VT, kHist, kCS>;
   // Three row arrays at any cluster size, as the f32 kernel's in a
   // cluster (ops/fused_gnn.py:persistent_smem_bytes mirrors it).
   const size_t smem = persistent_fwd_smem(max_group_rows, hidden, 2);
@@ -801,7 +813,7 @@ int persistent_bf16_instance(const void* h0, const void* vals, const void* ek,
         static_cast<const float*>(wi), static_cast<const float*>(bi),
         static_cast<const float*>(wh), static_cast<const float*>(bh),
         static_cast<const int*>(groups), static_cast<__nv_bfloat16*>(out),
-        hidden, tile, n_tiles, bw, n_steps, max_group_rows);
+        hidden, tile, n_tiles, bw, n_steps, n_tiles * tile, max_group_rows);
     return static_cast<int>(cudaGetLastError());
   }
   const cudaLaunchConfig_t cfg =
@@ -813,12 +825,12 @@ int persistent_bf16_instance(const void* h0, const void* vals, const void* ek,
       static_cast<const float*>(bi), static_cast<const float*>(wh),
       static_cast<const float*>(bh), static_cast<const int*>(groups),
       static_cast<__nv_bfloat16*>(out), hidden, tile, n_tiles, bw, n_steps,
-      max_group_rows);
+      n_tiles * tile, max_group_rows);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename VT>
+template <typename VT, bool kHist>
 int launch_persistent_bf16(const void* h0, const void* vals, const void* ek,
                            const void* eb, const void* wi, const void* bi,
                            const void* wh, const void* bh, const void* groups,
@@ -828,11 +840,11 @@ int launch_persistent_bf16(const void* h0, const void* vals, const void* ek,
                            int* blocks = nullptr, int* clusters = nullptr) {
   switch (cluster) {
     case 1:
-      return persistent_bf16_instance<VT, 1>(
+      return persistent_bf16_instance<VT, kHist, 1>(
           h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
           n_steps, out, hidden, tile, n_tiles, bw, st, blocks, clusters);
     case 2:
-      return persistent_bf16_instance<VT, 2>(
+      return persistent_bf16_instance<VT, kHist, 2>(
           h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
           n_steps, out, hidden, tile, n_tiles, bw, st, blocks, clusters);
     default:
@@ -1010,29 +1022,56 @@ int persistent_fwd_bf16_launch(const void* h0, const void* vals,
                                int n_tiles, int bandwidth, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
-    return launch_persistent_bf16<__nv_bfloat16>(
+    return launch_persistent_bf16<__nv_bfloat16, false>(
         h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
         n_steps, cluster, out, hidden, tile, n_tiles, bandwidth, st);
-  return launch_persistent_bf16<float>(
+  return launch_persistent_bf16<float, false>(
       h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
       n_steps, cluster, out, hidden, tile, n_tiles, bandwidth, st);
 }
 
-// persistent_fwd_occupancy for the instance of persistent_fwd_kernel_bf16
-// a launch runs.
-int persistent_fwd_bf16_occupancy(int vals_bf16, int max_group_rows,
-                                  int hidden, int cluster, int* blocks,
-                                  int* clusters) {
-  *clusters = 0;
+// The bf16 backward's recompute sweep (persistent_fwd_hist_kernel_bf16):
+// n_steps bf16 gated steps from h0 (the caller passes K - 1), writing each
+// step's h into hist [n_steps, n_rows, hidden] bf16. Otherwise as
+// persistent_fwd_bf16_launch.
+int persistent_fwd_hist_bf16_launch(const void* h0, const void* vals,
+                                    int vals_bf16, const void* ek,
+                                    const void* eb, const void* wi,
+                                    const void* bi, const void* wh,
+                                    const void* bh, const void* groups,
+                                    int n_groups, int max_group_rows,
+                                    int n_steps, int cluster, void* hist,
+                                    int hidden, int tile, int n_tiles,
+                                    int bandwidth, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
-    return launch_persistent_bf16<__nv_bfloat16>(
-        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, 0, max_group_rows, 0, cluster, nullptr, hidden, 0,
-        0, 0, nullptr, blocks, clusters);
-  return launch_persistent_bf16<float>(
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, 0, max_group_rows, 0, cluster, nullptr, hidden, 0, 0, 0,
-      nullptr, blocks, clusters);
+    return launch_persistent_bf16<__nv_bfloat16, true>(
+        h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+        n_steps, cluster, hist, hidden, tile, n_tiles, bandwidth, st);
+  return launch_persistent_bf16<float, true>(
+      h0, vals, ek, eb, wi, bi, wh, bh, groups, n_groups, max_group_rows,
+      n_steps, cluster, hist, hidden, tile, n_tiles, bandwidth, st);
+}
+
+// persistent_fwd_occupancy for the instance of persistent_fwd_kernel_bf16
+// a launch runs (hist != 0: of its kHist instance,
+// persistent_fwd_hist_kernel_bf16).
+int persistent_fwd_bf16_occupancy(int vals_bf16, int max_group_rows,
+                                  int hidden, int cluster, int hist,
+                                  int* blocks, int* clusters) {
+  *clusters = 0;
+#define BF16_OCCUPANCY(VT, HIST)                                            \
+  return launch_persistent_bf16<VT, HIST>(                                  \
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,       \
+      nullptr, nullptr, 0, max_group_rows, 0, cluster, nullptr, hidden, 0, \
+      0, 0, nullptr, blocks, clusters)
+  if (vals_bf16) {
+    if (hist) BF16_OCCUPANCY(__nv_bfloat16, true);
+    BF16_OCCUPANCY(__nv_bfloat16, false);
+  }
+  if (hist) BF16_OCCUPANCY(float, true);
+  BF16_OCCUPANCY(float, false);
+#undef BF16_OCCUPANCY
 }
 
 }  // extern "C"

@@ -10,6 +10,11 @@
 //                          _run_persistent_bwd): the reverse sweep over
 //                          steps K-1..0 in one launch, the inter-step
 //                          cotangent resident on chip.
+// persistent_bwd_kernel_bf16 (its own __global__, not an instance of
+//                          persistent_bwd_kernel) replaces
+//                          _persist_bwd_kernel at dt = bfloat16: the
+//                          reverse sweep of the bf16 backward (see its
+//                          section below).
 // step_weight_grad_kernel  the weight-gradient reduction that both TPU
 //                          kernels fold into their bodies
 //                          (_bwd_kernel's dwi/dwh/dek accumulators,
@@ -634,7 +639,7 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 instances: FlowGNN(dtype="bfloat16") training, the fused lane
+// The bf16 instances: FlowGNN(dtype="bfloat16") training
 // ---------------------------------------------------------------------------
 //
 // fused_step_bwd_kernel_bf16    replaces _bwd_kernel at dt = bfloat16 (the
@@ -849,6 +854,180 @@ int launch_fused_bwd_bf16(BwdBf16Args a, cudaStream_t st,
   e = bwd_bf16_pass<VT, 1>(a, p, st, occupancy ? occupancy + 1 : nullptr);
   if (e != 0) return e;
   return bwd_bf16_pass<VT, 2>(a, p, st, occupancy ? occupancy + 2 : nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// persistent_bwd_kernel_bf16: the persistent lane's reverse sweep at bf16
+// ---------------------------------------------------------------------------
+//
+// Replaces _persist_bwd_kernel at dt = bfloat16. One block per closed row
+// group, steps K-1 down to 0, the work of fused_step_bwd_kernel_bf16's three
+// passes in one launch: no edge leaves a group, so the block needs no other
+// block's messages or dx, and the passes' device-memory crossings (the
+// message scratch, dx, dhl) stay in shared memory. Per step: the group's
+// messages from h (edge_msg_bf16, pass 0), their aggregate rounded to x
+// (written out, bf16), the split gate products and gate_bwd_out_bf16 (dp
+// written out, f32; the carry cotangent in dh_s), dx = dpre_i W_i^T and dhl =
+// dhc + dpre_h W_h^T with dp rounded on load, dx rounded to the message
+// dtype, dmsg = A^T dx (written out unrounded, then rounded to the message
+// dtype in place) and dh = round_bf16(dhl + dmsg W_e^T), the next step's
+// cotangent. Every element keeps the per-step instance's chain (the same
+// device functions in the same order; group_aggregate sums a row's
+// senders as tile_aggregate does), so the sweep equals the scan of
+// fused_step_bwd_kernel_bf16 bit for bit.
+//
+// Shared memory: kStages weight-slab stages, then four [max_rows, ld]
+// arrays: dh_s (the resident cotangent, g then dhc then dhl then dh), h_s (the
+// step's input h, then dx), m_s (the messages) and a_s (the aggregate, then
+// x, then dmsg), then the row sums (unused at bf16). The messages and the
+// aggregate are live together, so the bf16 sweep holds one array more than
+// persistent_bwd_kernel: 138,432 bytes for groups of 48 rows at H 128, one
+// block an SM (ops/fused_gnn.py:persistent_bwd_smem_bytes mirrors it; its
+// gate admits 92 rows, and a batch over it runs fused_step_bwd_kernel_bf16
+// K times instead).
+struct PersistBwdBf16Args {
+  const __nv_bfloat16* h0;
+  const __nv_bfloat16* hist;
+  const void* vals;
+  const void* tvals;
+  const __nv_bfloat16* g;
+  const float *ek, *eb, *wi, *bi, *wh, *bh, *wiT, *whT, *ekT;
+  const int* groups;
+  __nv_bfloat16* x;
+  float *dp, *dmsg;
+  __nv_bfloat16* dh;
+  int n_rows, H, tile, n_tiles, bw, n_steps, max_rows;
+};
+
+template <typename VT>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+    persistent_bwd_kernel_bf16(const PersistBwdBf16Args a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kRoundMsg = sizeof(VT) == 2;
+  const VT* vals = static_cast<const VT*>(a.vals);
+  const VT* tvals = static_cast<const VT*>(a.tvals);
+  const int H = a.H;
+  const Tile t(H, 0, 1);
+  const int g0 = a.groups[blockIdx.x], g1 = a.groups[blockIdx.x + 1];
+  const int R = g1 - g0, ld = t.ld, q = H / 4;
+  float* stages = smem;                                     // [kStages][stage]
+  float* dh_s = stages + kStages * group_stage_floats(H);  // [R, ld] cotangent
+  float* h_s = dh_s + a.max_rows * ld;                      // [R, ld] h, dx
+  float* m_s = h_s + a.max_rows * ld;                       // [R, ld] messages
+  float* a_s = m_s + a.max_rows * ld;                       // [R, ld] agg, x, dmsg
+  float* rs_s = a_s + a.max_rows * ld;                      // [R] row sums
+  const size_t goff = static_cast<size_t>(g0) * H;
+  const size_t plane = static_cast<size_t>(a.n_rows) * H;
+  rows_to_shared(dh_s, ld, a.g + goff, R, H);
+  for (int s = a.n_steps - 1; s >= 0; --s) {
+    const __nv_bfloat16* src = s == 0 ? a.h0 : a.hist + (s - 1) * plane;
+    rows_to_shared(h_s, ld, src + goff, R, H);
+    __syncthreads();
+    // The messages (fused_step_bwd_kernel_bf16's pass 0).
+    group_rows_times<false>(t, h_s, R, a.ek, stages,
+                            [&](int r, const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        m_s[r * ld + t.c0 + j] =
+            edge_msg_bf16(acc[j], __ldg(a.eb + t.c0 + j), kRoundMsg);
+    });
+    // The aggregate, rounded: x.
+    group_aggregate(vals, a.tile, a.n_tiles, a.bw, m_s, ld, g0, g1, H, a_s,
+                    rs_s);
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * H; e += kGroupThreads) {
+      const int i = (e / H) * ld + e % H;
+      a_s[i] = round_bf16(a_s[i]);
+    }
+    __syncthreads();
+    rows_to_global(a.x + s * plane + goff, a_s, ld, R, H, 0, H);
+    float* dp_step = a.dp + 4 * (s * plane + goff);
+    group_gate_split<false>(
+        t, a_s, h_s, R, a.wi, a.wh, stages,
+        [&](int r, const float* ir, const float* hr, const float* iz,
+            const float* hz, const float* in, const float* hn) {
+          float d[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = r * ld + t.c0 + j;
+            const GateGrads gg = gate_bwd_out_bf16(
+                ir[j], hr[j], iz[j], hz[j], in[j], hn[j],
+                gate_bias_bf16(a.bi, a.bh, H, t.c0 + j), h_s[e], dh_s[e]);
+            d[0][j] = gg.dr;
+            d[1][j] = gg.dz;
+            d[2][j] = gg.dn;
+            d[3][j] = gg.dhn;
+            dh_s[e] = gg.dhc;
+          }
+          float* dprow = dp_step + static_cast<size_t>(r) * 4 * H;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            *reinterpret_cast<float4*>(dprow + b * H + t.c0) =
+                make_float4(d[b][0], d[b][1], d[b][2], d[b][3]);
+        });
+    // dp (device memory) of every row is visible to the block: dx into
+    // h_s, dhl into dh_s.
+    group_gate_bwd_b<kGateRows, true>(t, dp_step, R, a.wiT, a.whT, stages,
+                                      h_s, dh_s);
+    // dx at the message dtype (bf16 messages: rounded).
+    if constexpr (kRoundMsg) {
+      for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
+        float4* p = reinterpret_cast<float4*>(h_s + (e / q) * ld +
+                                              4 * (e % q));
+        *p = round_bf16x4(*p);
+      }
+      __syncthreads();
+    }
+    // dmsg = A^T dx, out unrounded; the product with W_e^T takes it at the
+    // message dtype.
+    group_aggregate(tvals, a.tile, a.n_tiles, a.bw, h_s, ld, g0, g1, H, a_s,
+                    rs_s);
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
+      const int r = e / q, c = 4 * (e % q);
+      float4* p = reinterpret_cast<float4*>(a_s + r * ld + c);
+      *reinterpret_cast<float4*>(a.dmsg + s * plane + goff +
+                                 static_cast<size_t>(r) * H + c) = *p;
+      if constexpr (kRoundMsg) *p = round_bf16x4(*p);
+    }
+    __syncthreads();
+    group_rows_times<false>(t, a_s, R, a.ekT, stages,
+                            [&](int r, const float* acc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = r * ld + t.c0 + j;
+        dh_s[e] = round_bf16(__fadd_rn(dh_s[e], acc[j]));
+      }
+    });
+  }
+  rows_to_global(a.dh + goff, dh_s, ld, R, H, 0, H);
+}
+
+// Dynamic shared memory of persistent_bwd_kernel_bf16 for groups of up to
+// max_rows rows: four row arrays (ops/fused_gnn.py:persistent_bwd_smem_bytes
+// mirrors it).
+size_t persistent_bwd_bf16_smem(int max_rows, int hidden) {
+  return sizeof(float) *
+         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
+          4 * static_cast<size_t>(max_rows) * group_ld(hidden) + max_rows);
+}
+
+// Launches the sweep over n_groups groups (blocks == nullptr) or queries
+// the blocks of it one SM holds.
+template <typename VT>
+int launch_persistent_bwd_bf16(const PersistBwdBf16Args& a, int n_groups,
+                               cudaStream_t st, int* blocks = nullptr) {
+  const auto kernel = persistent_bwd_kernel_bf16<VT>;
+  const size_t smem = persistent_bwd_bf16_smem(a.max_rows, a.H);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, kGroupThreads, smem));
+  kernel<<<n_groups, kGroupThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Row stride of a bf16 L slab: 136 values (272 bytes, 16-byte pieces).
@@ -1287,5 +1466,52 @@ int step_weight_grad_bf16_launch(const void* h0, const void* hist,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // extern "C"
+// The bf16 reverse sweep (persistent_bwd_kernel_bf16) of n_steps steps in
+// one launch, one block per closed row group: h0, g, dh [n_rows, hidden]
+// and hist [n_steps - 1, n_rows, hidden] bf16 (hist unread when n_steps
+// == 1); x [n_steps, n_rows, hidden] bf16, dp [n_steps, n_rows, 4 *
+// hidden] and dmsg [n_steps, n_rows, hidden] f32 receive each step's
+// per-row cotangents for step_weight_grad_bf16_launch; the weights and
+// their transposes f32 arrays of bf16 values; otherwise as
+// persistent_bwd_launch.
+int persistent_bwd_bf16_launch(const void* h0, const void* hist,
+                               const void* vals, const void* tvals,
+                               int vals_bf16, const void* g, const void* ek,
+                               const void* eb, const void* wi, const void* bi,
+                               const void* wh, const void* bh,
+                               const void* wiT, const void* whT,
+                               const void* ekT, const void* groups,
+                               int n_groups, int max_group_rows, int n_steps,
+                               void* x, void* dp, void* dmsg, void* dh,
+                               int hidden, int tile, int n_tiles,
+                               int bandwidth, void* stream) {
+  const PersistBwdBf16Args a{
+      static_cast<const __nv_bfloat16*>(h0),
+      static_cast<const __nv_bfloat16*>(hist), vals, tvals,
+      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(ek),
+      static_cast<const float*>(eb), static_cast<const float*>(wi),
+      static_cast<const float*>(bi), static_cast<const float*>(wh),
+      static_cast<const float*>(bh), static_cast<const float*>(wiT),
+      static_cast<const float*>(whT), static_cast<const float*>(ekT),
+      static_cast<const int*>(groups), static_cast<__nv_bfloat16*>(x),
+      static_cast<float*>(dp), static_cast<float*>(dmsg),
+      static_cast<__nv_bfloat16*>(dh), n_tiles * tile, hidden, tile, n_tiles,
+      bandwidth, n_steps, max_group_rows};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vals_bf16 ? launch_persistent_bwd_bf16<__nv_bfloat16>(a, n_groups, st)
+                   : launch_persistent_bwd_bf16<float>(a, n_groups, st);
+}
 
+// Blocks of persistent_bwd_kernel_bf16 that fit one SM for groups of up to
+// max_group_rows rows, into *blocks.
+int persistent_bwd_bf16_occupancy(int vals_bf16, int max_group_rows,
+                                  int hidden, int* blocks) {
+  PersistBwdBf16Args a{};
+  a.H = hidden;
+  a.max_rows = max_group_rows;
+  return vals_bf16
+             ? launch_persistent_bwd_bf16<__nv_bfloat16>(a, 0, 0, blocks)
+             : launch_persistent_bwd_bf16<float>(a, 0, 0, blocks);
+}
+
+}  // extern "C"

@@ -34,11 +34,11 @@ elementwise op of the GRU rounds; the explicit casts of ``_dense`` and
 ``ops/fused_gnn.py``'s bf16 helpers, not ``torch.autocast``); the head
 takes the pooled bf16 rows widened and gives f32 logits. The fused and
 persistent lanes launch the kernels' bf16 instances on the card. Training
-at bf16 runs the fused lane's backward instances (their VJP, the
-reference's custom VJP, on the CPU too: ``ops/fused_gnn._FusedStep``),
-the tile product's and autograd of the segment and band lanes, with the
-parameters f32 masters; the persistent lane's backward at bf16 raises on
-the card before anything launches (ROADMAP A3b-2b).
+at bf16 runs the fused and persistent lanes' backward instances (their
+VJPs, the reference's custom VJPs, on the CPU too:
+``ops/fused_gnn._FusedStep`` and ``_PersistentUnroll``), the tile
+product's and autograd of the segment and band lanes, with the parameters
+f32 masters.
 """
 
 from __future__ import annotations
@@ -329,14 +329,13 @@ class FlowGNN(nn.Module):
             if batch.band_adj is None:
                 raise ValueError("message_impl='persistent' needs "
                                  "batch_graphs(build_band_adj=True)")
-            if self.dtype == torch.bfloat16 and fused_gnn.needs_grad(
-                    h, packed):
-                fused_gnn.refuse_bf16_persistent_training(h)
             # A pass that needs a gradient runs the persistent backward
-            # too, which holds more a row: its gate decides.
+            # too, which holds more a row: its gate decides (at the
+            # model's dtype: the bf16 instances hold more).
             if h.is_cuda and not (
                     fused_gnn.persistent_bwd_smem_ok(batch.band_adj,
-                                                     cfg.ggnn_hidden)
+                                                     cfg.ggnn_hidden,
+                                                     self.dtype)
                     if fused_gnn.needs_grad(h, packed)
                     else fused_gnn.persistent_smem_ok(
                         batch.band_adj, cfg.ggnn_hidden, self.dtype)):

@@ -92,8 +92,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "persistent_fwd_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _P, _I, _I, _I,
                                        _I, _P],
-        # as persistent_fwd_occupancy
-        "persistent_fwd_bf16_occupancy": [_I, _I, _I, _I, _P, _P],
+        # the hist instance: as persistent_fwd_hist_launch
+        "persistent_fwd_hist_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P,
+                                            _P, _P, _I, _I, _I, _I, _P, _I,
+                                            _I, _I, _I, _P],
+        # vals_bf16, max_group_rows, hidden, cluster, hist (the kHist
+        # instance's), blocks, clusters (int outs)
+        "persistent_fwd_bf16_occupancy": [_I, _I, _I, _I, _I, _P, _P],
     },
     "fused_gnn_bwd": {
         # h, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT, whT,
@@ -135,6 +140,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "step_weight_grad_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P, _P, _P, _P, _P, _P, _P,
                                          _P],
+        # as persistent_bwd_launch (h0, hist, g, x, dh bf16)
+        "persistent_bwd_bf16_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _P],
+        # as persistent_bwd_occupancy
+        "persistent_bwd_bf16_occupancy": [_I, _I, _I, _P],
     },
     "flash_attn": {
         # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream

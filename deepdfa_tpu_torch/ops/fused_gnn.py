@@ -36,8 +36,12 @@ on bf16 ``h``, with it), counted apart (``launches_bf16``). The fused
 lane's backward has its bf16 instances too: :func:`fused_step_bwd_rows`
 launches ``fused_step_bwd_kernel_bf16`` and :func:`step_weight_grads`
 ``step_weight_grad_kernel_bf16`` (plain versions, the same functions on
-bf16 ``h``: :func:`_bwd_rows_bf16`). The persistent lane's backward takes
-f32 only: a bf16 backward there raises on the card (ROADMAP A3b-2b).
+bf16 ``h``: :func:`_bwd_rows_bf16`), and so does the persistent lane's:
+:func:`persistent_hist` launches ``persistent_fwd_hist_kernel_bf16`` and
+:func:`persistent_bwd_rows` ``persistent_bwd_kernel_bf16`` (plain
+versions, :func:`persistent_hist_reference` and
+:func:`persistent_bwd_rows_reference` on bf16 ``h``), each bit for bit
+the scan of its per-step instance.
 
 :func:`fused_step_backward` and :func:`persistent_backward` compose the
 backward kernels into the step VJP and the K-step VJP (plain versions
@@ -313,20 +317,27 @@ def persistent_cluster_size(adj: BandAdjacency, hidden: int,
     return 1
 
 
-def persistent_bwd_smem_bytes(adj: BandAdjacency, hidden: int) -> int:
+def persistent_bwd_smem_bytes(adj: BandAdjacency, hidden: int,
+                              dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of ``persistent_bwd_kernel``'s blocks: the weight-slab
     stages, the group's resident cotangent, h (then dx) and the aggregate
     (then x, then dmsg), one row sum a row. 113,088 bytes for groups of
-    48 rows at H 128: two blocks an SM."""
-    return _persistent_smem(adj, hidden, 3)
+    48 rows at H 128: two blocks an SM. ``dtype`` bf16: the instance
+    ``persistent_bwd_kernel_bf16``, whose group holds its messages apart
+    from the aggregate: four arrays (138,432 bytes at 48 rows, one block
+    an SM)."""
+    return _persistent_smem(adj, hidden,
+                            4 if dtype == torch.bfloat16 else 3)
 
 
-def persistent_bwd_smem_ok(adj: BandAdjacency, hidden: int) -> bool:
+def persistent_bwd_smem_ok(adj: BandAdjacency, hidden: int,
+                           dtype: torch.dtype = torch.float32) -> bool:
     """The persistent backward's gate, as :func:`persistent_smem_ok` with
-    three row arrays (123 rows at H 128). A training batch over it runs
-    the fused step forward and backward ``n_steps`` times."""
+    three row arrays (123 rows at H 128; the bf16 instance's four, 92
+    rows). A training batch over it runs the fused step forward and
+    backward (at bf16 their bf16 instances) ``n_steps`` times."""
     return (adj.row_groups is not None
-            and persistent_bwd_smem_bytes(adj, hidden)
+            and persistent_bwd_smem_bytes(adj, hidden, dtype)
             <= PERSISTENT_SMEM_BUDGET_BYTES)
 
 
@@ -335,25 +346,34 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
                          cluster: int = 1) -> dict:
     """The CUDA occupancy query (registers, shared memory, threads) for the
     instance of ``persistent_fwd_kernel`` (its hist instance is the same
-    code), ``persistent_fwd_kernel_bf16`` or ``persistent_bwd_kernel``
-    that a launch at this adjacency's largest group runs, ``cluster``
-    blocks a group (the forwards only): ``blocks_per_sm``, the blocks one
-    SM holds, and ``active_clusters``, the clusters the card holds at once
+    code), ``persistent_fwd_kernel_bf16``,
+    ``persistent_fwd_hist_kernel_bf16`` (its kHist instance),
+    ``persistent_bwd_kernel`` or ``persistent_bwd_kernel_bf16`` that a
+    launch at this adjacency's largest group runs, ``cluster`` blocks a
+    group (the forwards only): ``blocks_per_sm``, the blocks one SM
+    holds, and ``active_clusters``, the clusters the card holds at once
     (None for cluster 1)."""
     from deepdfa_tpu_torch.ops import _build
 
     bf16 = int(adj.vals.dtype == torch.bfloat16)
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    if kernel in ("persistent_fwd_kernel", "persistent_fwd_kernel_bf16"):
-        lib = _build.load("fused_gnn")
-        query = (lib.persistent_fwd_occupancy
-                 if kernel == "persistent_fwd_kernel"
-                 else lib.persistent_fwd_bf16_occupancy)
-        err = query(bf16, adj.max_group_rows, hidden, cluster,
-                    ctypes.byref(blocks), ctypes.byref(clusters))
-    elif kernel == "persistent_bwd_kernel" and cluster == 1:
-        err = _build.load("fused_gnn_bwd").persistent_bwd_occupancy(
-            bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
+    if kernel == "persistent_fwd_kernel":
+        err = _build.load("fused_gnn").persistent_fwd_occupancy(
+            bf16, adj.max_group_rows, hidden, cluster, ctypes.byref(blocks),
+            ctypes.byref(clusters))
+    elif kernel in ("persistent_fwd_kernel_bf16",
+                    "persistent_fwd_hist_kernel_bf16"):
+        err = _build.load("fused_gnn").persistent_fwd_bf16_occupancy(
+            bf16, adj.max_group_rows, hidden, cluster,
+            int(kernel == "persistent_fwd_hist_kernel_bf16"),
+            ctypes.byref(blocks), ctypes.byref(clusters))
+    elif kernel in ("persistent_bwd_kernel",
+                    "persistent_bwd_kernel_bf16") and cluster == 1:
+        lib = _build.load("fused_gnn_bwd")
+        query = (lib.persistent_bwd_occupancy
+                 if kernel == "persistent_bwd_kernel"
+                 else lib.persistent_bwd_bf16_occupancy)
+        err = query(bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
     else:
         raise ValueError(f"no occupancy query for {kernel} in clusters of "
                          f"{cluster}")
@@ -591,11 +611,9 @@ def fused_step_bwd_rows_reference(params: Optional[Mapping], h: torch.Tensor,
     packed = _packed(params, packed)
     if h.dtype == torch.bfloat16:
         return _bwd_rows_bf16(packed, h, adj, g)
-    ek, eb, wi, bi, wh, bh = packed
+    ek, _, wi, _, wh, _ = packed
     hid = h.shape[1]
-    x = band_spmm(adj, h @ ek + eb)
-    gi = x @ wi + bi
-    gh = h @ wh + bh
+    x, gi, gh = _gates_f32(packed, h, adj)
     r = torch.sigmoid(gi[:, :hid] + gh[:, :hid])
     z = torch.sigmoid(gi[:, hid:2 * hid] + gh[:, hid:2 * hid])
     pre_hn = gh[:, 2 * hid:]
@@ -614,6 +632,33 @@ def fused_step_bwd_rows_reference(params: Optional[Mapping], h: torch.Tensor,
     dmsg = band_spmm(transpose_band(adj), dx)
     dh = dhl + dmsg @ ek.T
     return dh, x, torch.cat([dpre_i, dpre_hn], dim=1), dmsg
+
+
+def _gates_f32(packed: Sequence[torch.Tensor], h: torch.Tensor,
+               adj: BandAdjacency):
+    """The aggregate ``x`` and the gate pre-activations ``gi``, ``gh`` of
+    one f32 step from packed weights."""
+    ek, eb, wi, bi, wh, bh = packed
+    x = band_spmm(adj, h @ ek + eb)
+    return x, x @ wi + bi, h @ wh + bh
+
+
+def _plain_step(params: Optional[Mapping], h: torch.Tensor,
+                adj: BandAdjacency,
+                packed: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+    """One step of the plain versions: :func:`fused_step_reference` of
+    ``params``, or from ``packed`` weights (bf16 ``h``: :func:`_step_bf16`,
+    the f32 masters rounded inside; f32: the packed products)."""
+    if packed is None:
+        return fused_step_reference(params, h, adj)
+    if h.dtype == torch.bfloat16:
+        return _step_bf16(packed, h, adj)
+    hid = h.shape[1]
+    _, gi, gh = _gates_f32(packed, h, adj)
+    r = torch.sigmoid(gi[:, :hid] + gh[:, :hid])
+    z = torch.sigmoid(gi[:, hid:2 * hid] + gh[:, hid:2 * hid])
+    n = torch.tanh(gi[:, 2 * hid:] + r * gh[:, 2 * hid:])
+    return (1.0 - z) * n + z * h
 
 
 def _bwd_rows_bf16(packed: Sequence[torch.Tensor], h: torch.Tensor,
@@ -727,43 +772,57 @@ def fused_step_backward_reference(params: Optional[Mapping],
                                             msg_dtype(adj, h.dtype)))
 
 
-def persistent_hist_reference(params: Mapping, h: torch.Tensor,
-                              adj: BandAdjacency, n_steps: int
+def persistent_hist_reference(params: Optional[Mapping], h: torch.Tensor,
+                              adj: BandAdjacency, n_steps: int,
+                              packed: Optional[Sequence[torch.Tensor]] = None
                               ) -> torch.Tensor:
-    """Plain version of ``persistent_fwd_hist_kernel``: ``h_1..h_{K-1}``
-    of ``n_steps = K`` steps, stacked ``[K-1, N, H]``."""
+    """Plain version of ``persistent_fwd_hist_kernel`` (bf16 ``h``: of
+    ``persistent_fwd_hist_kernel_bf16``): ``h_1..h_{K-1}`` of ``n_steps =
+    K`` steps, stacked ``[K-1, N, H]``, in ``h``'s dtype. ``packed``: the
+    steps from packed weights (:func:`_plain_step`; at bf16 the f32
+    masters, rounded inside)."""
     hs = []
     for _ in range(n_steps - 1):
-        h = fused_step_reference(params, h, adj)
+        h = _plain_step(params, h, adj, packed)
         hs.append(h)
     if not hs:
         return h.new_zeros((0,) + tuple(h.shape))
     return torch.stack(hs)
 
 
-def persistent_bwd_rows_reference(params: Mapping, h0: torch.Tensor,
-                                  hist: torch.Tensor, adj: BandAdjacency,
-                                  g: torch.Tensor, n_steps: int):
-    """Plain version of ``persistent_bwd_kernel``: the reverse loop of
+def persistent_bwd_rows_reference(params: Optional[Mapping],
+                                  h0: torch.Tensor, hist: torch.Tensor,
+                                  adj: BandAdjacency, g: torch.Tensor,
+                                  n_steps: int,
+                                  packed: Optional[Sequence[torch.Tensor]]
+                                  = None):
+    """Plain version of ``persistent_bwd_kernel`` (bf16 ``h0``, ``hist``
+    and ``g``: of ``persistent_bwd_kernel_bf16``): the reverse loop of
     :func:`fused_step_bwd_rows_reference` over steps K-1..0. Returns
-    ``(dh_0, x, dp, dmsg)`` with the per-row cotangents stacked by step."""
+    ``(dh_0, x, dp, dmsg)`` with the per-row cotangents stacked by step
+    (at bf16 ``dh_0`` and ``x`` bf16, ``dp`` and ``dmsg`` f32)."""
     xs, dps, dmsgs = [None] * n_steps, [None] * n_steps, [None] * n_steps
     for s in reversed(range(n_steps)):
         hs = h0 if s == 0 else hist[s - 1]
         g, xs[s], dps[s], dmsgs[s] = fused_step_bwd_rows_reference(
-            params, hs, adj, g)
+            params, hs, adj, g, packed)
     return g, torch.stack(xs), torch.stack(dps), torch.stack(dmsgs)
 
 
-def persistent_backward_reference(params: Mapping, h0: torch.Tensor,
-                                  adj: BandAdjacency, g: torch.Tensor,
-                                  n_steps: int):
+def persistent_backward_reference(params: Optional[Mapping],
+                                  h0: torch.Tensor, adj: BandAdjacency,
+                                  g: torch.Tensor, n_steps: int,
+                                  packed: Optional[Sequence[torch.Tensor]]
+                                  = None):
     """The K-step VJP in plain torch: the hist, the reverse loop of the
     step VJP, each step's weight gradients folded into the totals in
-    descending step order. ``(dh_0, dek, deb, dwi, dbi, dwh, dbh)``."""
-    hist = persistent_hist_reference(params, h0, adj, n_steps)
+    descending step order. ``(dh_0, dek, deb, dwi, dbi, dwh, dbh)``, the
+    weight gradients f32 at either dtype. At bf16 the scan of
+    :func:`fused_step_backward_reference` bit for bit, as the reference's
+    persistent VJP is the scan of its step VJP."""
+    hist = persistent_hist_reference(params, h0, adj, n_steps, packed)
     dh, x, dp, dmsg = persistent_bwd_rows_reference(params, h0, hist, adj, g,
-                                                    n_steps)
+                                                    n_steps, packed)
     return (dh, *step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps,
                                             msg_dtype(adj, h0.dtype)))
 
@@ -814,8 +873,9 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
                        packed: Sequence[torch.Tensor], n_steps: int,
                        hist: bool = False) -> torch.Tensor:
     """``persistent_fwd_kernel`` (h_K; ``persistent_fwd_kernel_bf16`` for
-    bf16 ``h``), or with ``hist`` its emit-hist instance running
-    ``n_steps - 1`` steps (``[K-1, N, H]``)."""
+    bf16 ``h``), or with ``hist`` its emit-hist instance
+    (``persistent_fwd_hist_kernel``, ``persistent_fwd_hist_kernel_bf16``)
+    running ``n_steps - 1`` steps (``[K-1, N, H]``)."""
     groups = _row_groups(adj, h)
     with torch.cuda.device(h.device):
         lib, (ek, eb, wi, bi, wh, bh), bf16, stream = _launch_args(
@@ -824,8 +884,12 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
         if hist:
             out = torch.empty((n_steps - 1,) + tuple(h.shape),
                               dtype=h.dtype, device=h.device)
-            fn, steps, name = (lib.persistent_fwd_hist_launch, n_steps - 1,
-                               "persistent_fwd_hist_kernel")
+            fn, steps, name = (
+                (lib.persistent_fwd_hist_bf16_launch, n_steps - 1,
+                 "persistent_fwd_hist_kernel_bf16")
+                if h.dtype == torch.bfloat16 else
+                (lib.persistent_fwd_hist_launch, n_steps - 1,
+                 "persistent_fwd_hist_kernel"))
         elif h.dtype == torch.bfloat16:
             out = torch.empty_like(h)
             fn, steps, name = (lib.persistent_fwd_bf16_launch, n_steps,
@@ -849,16 +913,6 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
 def _transposed(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     ek, _, wi, _, wh, _ = weights
     return wi.t().contiguous(), wh.t().contiguous(), ek.t().contiguous()
-
-
-def _refuse_bf16_backward(h: torch.Tensor, kernel: str) -> None:
-    if h.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{kernel} takes float32 only: the persistent lane's bf16 "
-            "backward (persistent_fwd_hist_kernel and persistent_bwd_kernel "
-            "at bf16, training the persistent lane at bf16) comes with "
-            "ROADMAP A3b-2b; train at bf16 on the fused, tile, band or "
-            "segment lane")
 
 
 def _fused_step_run(h: torch.Tensor, adj: BandAdjacency,
@@ -897,17 +951,34 @@ class _FusedStep(torch.autograd.Function):
         return (None, dh, *dw)
 
 
+def _persistent_run(h: torch.Tensor, adj: BandAdjacency,
+                    packed: Sequence[torch.Tensor],
+                    n_steps: int) -> torch.Tensor:
+    """``n_steps`` steps on packed weights: the kernel for a CUDA ``h``;
+    for a CPU one (bf16 only) the plain version, :func:`_step_bf16`
+    ``n_steps`` times."""
+    if h.device.type == "cpu":
+        for _ in range(n_steps):
+            h = _step_bf16(packed, h, adj)
+        return h
+    return _persistent_unroll_launch(h, adj, packed, n_steps)
+
+
 class _PersistentUnroll(torch.autograd.Function):
     """``persistent_fwd_kernel`` forward; backward
     ``persistent_fwd_hist_kernel``, ``persistent_bwd_kernel`` and
-    ``step_weight_grad_kernel``. Saves only ``h_0``, the packed weights
-    and the adjacency. f32 only (ROADMAP A3b-2b)."""
+    ``step_weight_grad_kernel``; at bf16 ``h`` their bf16 instances.
+    Saves only ``h_0``, the packed weights and the adjacency. At bf16 the
+    packed weights are the f32 masters, rounded inside, so their f32
+    gradients reach the masters unrounded (as :class:`_FusedStep`'s). On
+    the CPU (bf16 only) the plain versions run in the kernels' place: the
+    K-step VJP in plain torch, the scan of :class:`_FusedStep`'s."""
 
     @staticmethod
     def forward(ctx, adj, n_steps, h, *packed):
         ctx.adj, ctx.n_steps = adj, n_steps
         ctx.save_for_backward(h, *packed)
-        return _persistent_unroll_launch(h, adj, packed, n_steps)
+        return _persistent_run(h, adj, packed, n_steps)
 
     @staticmethod
     def backward(ctx, g):
@@ -959,52 +1030,43 @@ def _persistent_unroll_launch(h: torch.Tensor, adj: BandAdjacency,
     return out
 
 
-def refuse_bf16_persistent_training(h: torch.Tensor) -> None:
-    """Raise for a persistent pass at bf16 on the card that needs a
-    gradient: its backward kernels' bf16 instances are ROADMAP A3b-2b.
-    Called before anything launches."""
-    if h.device.type != "cpu":
-        _refuse_bf16_backward(h, "persistent_unroll (training)")
-
-
 def persistent_unroll(params: Optional[Mapping], h: torch.Tensor,
                       adj: BandAdjacency, n_steps: int,
                       packed: Optional[Sequence[torch.Tensor]] = None
                       ) -> torch.Tensor:
     """``n_steps`` shared-weight gated steps.
 
-    CPU tensors: :func:`persistent_reference`; at bf16 with a gradient,
-    ``n_steps`` steps of :class:`_FusedStep` (the reference's K-step VJP
-    is the scan of its step VJP). CUDA tensors: one
+    CPU tensors: :func:`persistent_reference` at f32 (autograd
+    differentiates it); at bf16 its plain version, through
+    :class:`_PersistentUnroll` when a gradient is needed (the kernels'
+    K-step VJP in plain torch). CUDA tensors: one
     ``persistent_fwd_kernel`` launch (``persistent_fwd_kernel_bf16`` for
-    bf16 ``h``), through :class:`_PersistentUnroll`
-    when a gradient is needed (f32 only: at bf16 it raises, ROADMAP
-    A3b-2b). The adjacency's closed row groups must pass
+    bf16 ``h``), through :class:`_PersistentUnroll` when a gradient is
+    needed. The adjacency's closed row groups must pass
     :func:`persistent_smem_ok`, and :func:`persistent_bwd_smem_ok` when a
-    gradient is needed — callers check the gate and run
-    :func:`fused_gate_step` per step when it fails (the model does); here
-    a failed gate raises. ``packed`` as in :func:`fused_gate_step`.
+    gradient is needed (each at ``h``'s dtype) — callers check the gate
+    and run :func:`fused_gate_step` per step when it fails (the model
+    does); here a failed gate raises. ``packed`` as in
+    :func:`fused_gate_step`.
     """
     if n_steps < 1:
         raise ValueError(f"persistent_unroll needs n_steps >= 1, "
                          f"got {n_steps}")
     bf16 = h.dtype == torch.bfloat16
-    if h.device.type == "cpu":
-        packed = _packed(params, packed) if bf16 else packed
-        if bf16 and needs_grad(h, packed):
-            for _ in range(n_steps):
-                h = _FusedStep.apply(adj, h, *packed)
-            return h
+    if h.device.type == "cpu" and not bf16:
         return persistent_reference(params, h, adj, n_steps)
-    _check_cuda_inputs(h, adj)
+    if h.device.type != "cpu":
+        _check_cuda_inputs(h, adj)
     packed = _packed(params, packed)
     grad = needs_grad(h, packed)
-    if grad:
-        refuse_bf16_persistent_training(h)
+    if h.device.type == "cpu":
+        if grad:
+            return _PersistentUnroll.apply(adj, n_steps, h, *packed)
+        return _persistent_run(h, adj, packed, n_steps)
     hidden = h.shape[1]
     if not persistent_smem_ok(adj, hidden, h.dtype) or (
-            grad and not persistent_bwd_smem_ok(adj, hidden)):
-        need = (persistent_bwd_smem_bytes(adj, hidden) if grad
+            grad and not persistent_bwd_smem_ok(adj, hidden, h.dtype)):
+        need = (persistent_bwd_smem_bytes(adj, hidden, h.dtype) if grad
                 else persistent_smem_bytes(adj, hidden, 1, h.dtype))
         raise ValueError(
             f"row groups need {need} B of shared memory > "
@@ -1160,24 +1222,27 @@ def persistent_hist(params: Optional[Mapping], h: torch.Tensor,
                     packed: Optional[Sequence[torch.Tensor]] = None
                     ) -> torch.Tensor:
     """``h_1..h_{K-1}`` of ``n_steps = K`` steps, ``[K-1, N, H]``. CUDA
-    tensors: ``persistent_fwd_hist_kernel`` (nothing to launch for K = 1;
-    the forward gate :func:`persistent_smem_ok` applies)."""
+    tensors: ``persistent_fwd_hist_kernel``, for bf16 ``h``
+    ``persistent_fwd_hist_kernel_bf16`` (nothing to launch for K = 1; the
+    forward gate :func:`persistent_smem_ok` at ``h``'s dtype applies)."""
     if h.device.type == "cpu":
-        return persistent_hist_reference(params, h, adj, n_steps)
-    _refuse_bf16_backward(h, "persistent_fwd_hist_kernel")
+        return persistent_hist_reference(params, h, adj, n_steps, packed)
     _check_cuda_inputs(h, adj)
     if n_steps < 2:
         return h.new_empty((0,) + tuple(h.shape))
-    if not persistent_smem_ok(adj, h.shape[1]):
+    if not persistent_smem_ok(adj, h.shape[1], h.dtype):
         raise ValueError("row groups over the persistent kernel's shared "
                          "memory gate")
     out = _persistent_launch(h, adj, _packed(params, packed), n_steps,
                              hist=True)
-    persistent_hist.launches += 1
+    if h.dtype == torch.bfloat16:
+        persistent_hist.launches_bf16 += 1
+    else:
+        persistent_hist.launches += 1
     return out
 
 
-persistent_hist.launches = 0
+persistent_hist.launches = persistent_hist.launches_bf16 = 0
 
 
 def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
@@ -1186,24 +1251,28 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
                         packed: Optional[Sequence[torch.Tensor]] = None):
     """The reverse sweep ``(dh_0, x, dp, dmsg)`` of ``n_steps`` steps (see
     :func:`persistent_bwd_rows_reference`). CUDA tensors: one
-    ``persistent_bwd_kernel`` launch, which needs
-    :func:`persistent_bwd_smem_ok` (a failed gate raises)."""
+    ``persistent_bwd_kernel`` launch, for bf16 ``h0``, ``hist`` and ``g``
+    one ``persistent_bwd_kernel_bf16`` launch (``dh_0`` and ``x`` bf16,
+    ``dp`` and ``dmsg`` f32); each needs :func:`persistent_bwd_smem_ok`
+    at its dtype (a failed gate raises)."""
     if h0.device.type == "cpu":
         return persistent_bwd_rows_reference(params, h0, hist, adj, g,
-                                             n_steps)
-    _refuse_bf16_backward(h0, "persistent_bwd_kernel")
+                                             n_steps, packed)
     _check_cuda_inputs(h0, adj)
     g = _check_like(g, h0, "the output cotangent")
     n, hidden = h0.shape
-    if not persistent_bwd_smem_ok(adj, hidden):
+    bf16_h = h0.dtype == torch.bfloat16
+    if not persistent_bwd_smem_ok(adj, hidden, h0.dtype):
+        need = persistent_bwd_smem_bytes(adj, hidden, h0.dtype)
         raise ValueError(
-            f"row groups need {persistent_bwd_smem_bytes(adj, hidden)} B of "
-            f"shared memory > {PERSISTENT_SMEM_BUDGET_BYTES} (or the band "
-            "has no row groups): run fused_step_backward per step")
+            f"row groups need {need} B of shared memory > "
+            f"{PERSISTENT_SMEM_BUDGET_BYTES} (or the band has no row "
+            "groups): run fused_step_backward per step")
     if n_steps > 1 and (tuple(hist.shape) != (n_steps - 1, n, hidden)
+                        or hist.dtype != h0.dtype
                         or not hist.is_contiguous()):
-        raise ValueError(f"hist must be contiguous [{n_steps - 1}, {n}, "
-                         f"{hidden}]")
+        raise ValueError(f"hist must be contiguous {h0.dtype} "
+                         f"[{n_steps - 1}, {n}, {hidden}]")
     groups = _row_groups(adj, h0)
     tv = adj.transpose_vals()
     with torch.cuda.device(h0.device):
@@ -1212,24 +1281,32 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
         ek, eb, wi, bi, wh, bh = weights
         wiT, whT, ekT = _transposed(weights)
         f32 = dict(dtype=torch.float32, device=h0.device)
-        x = torch.empty((n_steps, n, hidden), **f32)
+        # x at the rows' dtype (the weight pass reads bf16 x at bf16).
+        x = torch.empty((n_steps, n, hidden), dtype=h0.dtype,
+                        device=h0.device)
         dmsg = torch.empty((n_steps, n, hidden), **f32)
         dp = torch.empty((n_steps, n, 4 * hidden), **f32)
         dh = torch.empty_like(h0)
         hist_ptr = ctypes.c_void_p(hist.data_ptr() if n_steps > 1 else 0)
-        err = lib.persistent_bwd_launch(
+        fn, name = ((lib.persistent_bwd_bf16_launch,
+                     "persistent_bwd_kernel_bf16") if bf16_h else
+                    (lib.persistent_bwd_launch, "persistent_bwd_kernel"))
+        err = fn(
             _ptr(h0), hist_ptr, _ptr(adj.vals), _ptr(tv), bf16, _ptr(g),
             _ptr(ek), _ptr(eb), _ptr(wi), _ptr(bi), _ptr(wh), _ptr(bh),
             _ptr(wiT), _ptr(whT), _ptr(ekT), _ptr(groups),
             groups.numel() - 1, adj.max_group_rows, n_steps, _ptr(x),
             _ptr(dp), _ptr(dmsg), _ptr(dh), hidden, adj.tile, adj.n_tiles,
             adj.bandwidth, stream)
-        _raise_on_error(err, "persistent_bwd_kernel")
-    persistent_bwd_rows.launches += 1
+        _raise_on_error(err, name)
+    if bf16_h:
+        persistent_bwd_rows.launches_bf16 += 1
+    else:
+        persistent_bwd_rows.launches += 1
     return dh, x, dp, dmsg
 
 
-persistent_bwd_rows.launches = 0
+persistent_bwd_rows.launches = persistent_bwd_rows.launches_bf16 = 0
 
 
 def persistent_backward(params: Optional[Mapping], h0: torch.Tensor,
@@ -1237,16 +1314,18 @@ def persistent_backward(params: Optional[Mapping], h0: torch.Tensor,
                         packed: Optional[Sequence[torch.Tensor]] = None):
     """The K-step VJP ``(dh_0, dek, deb, dwi, dbi, dwh, dbh)``: CPU tensors
     :func:`persistent_backward_reference`; CUDA tensors the recompute
-    sweep, the reverse sweep and the weight gradients, three launches."""
+    sweep, the reverse sweep and the weight gradients, three launches
+    (bf16 ``h0``: their bf16 instances, the weight pass at the band's
+    message dtype). The weight gradients are f32."""
     if h0.device.type == "cpu":
-        return persistent_backward_reference(params, h0, adj, g, n_steps)
-    _refuse_bf16_backward(h0, "persistent_backward")
+        return persistent_backward_reference(params, h0, adj, g, n_steps,
+                                             packed)
     packed = _packed(params, packed)
     hist = persistent_hist(None, h0, adj, n_steps, packed=packed)
     dh, x, dp, dmsg = persistent_bwd_rows(None, h0, hist, adj, g, n_steps,
                                           packed=packed)
     return (dh, *step_weight_grads(h0.contiguous(), hist, x, dp, dmsg,
-                                   n_steps))
+                                   n_steps, msg_dtype(adj, h0.dtype)))
 
 
 #: Kernel (instance) name -> (wrapper, the attribute counting it).
@@ -1261,6 +1340,8 @@ _COUNTED = {
     "persistent_fwd_kernel_bf16": (persistent_unroll, "launches_bf16"),
     "fused_step_bwd_kernel_bf16": (fused_step_bwd_rows, "launches_bf16"),
     "step_weight_grad_kernel_bf16": (step_weight_grads, "launches_bf16"),
+    "persistent_fwd_hist_kernel_bf16": (persistent_hist, "launches_bf16"),
+    "persistent_bwd_kernel_bf16": (persistent_bwd_rows, "launches_bf16"),
 }
 
 
@@ -1352,14 +1433,23 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
         return _rated([(n_steps * f, r) for f, r in fwd],
                       2 * plane * launches + (band + weights) * launches,
                       nnz)
+    if kernel == "persistent_fwd_hist_kernel_bf16":
+        # K - 1 steps: h_0 in, K - 1 planes of hist out.
+        return _rated([((n_steps - 1) * f, r) for f, r in fwd],
+                      n_steps * plane + band + weights, nnz)
+    bwd = fwd + [(gate, PEAK_BF16), (sparse + edge, msg_rate),
+                 (30.0 * n * hidden, PEAK_F32_SIMT)]
+    # A and A^T; the weights and their transposes.
+    fixed = 2 * band + weights + 7.0 * hidden * hidden * 2
     if kernel == "fused_step_bwd_kernel_bf16":
-        parts = fwd + [(gate, PEAK_BF16), (sparse + edge, msg_rate),
-                       (30.0 * n * hidden, PEAK_F32_SIMT)]
-        # h, g in; dh, x out (bf16); dp (4H) and dmsg out (f32); A and
-        # A^T; the weights and their transposes.
-        nbytes = (4 * plane + 5 * 2 * plane + 2 * band + weights
-                  + 7.0 * hidden * hidden * 2)
-        return _rated(parts, nbytes, nnz)
+        # h, g in; dh, x out (bf16); dp (4H) and dmsg out (f32).
+        return _rated(bwd, 4 * plane + 5 * 2 * plane + fixed, nnz)
+    if kernel == "persistent_bwd_kernel_bf16":
+        # h_0, the K - 1 hist planes and g in, dh out (bf16); each step's
+        # x (bf16), dp and dmsg (f32) out.
+        return _rated([(n_steps * f, r) for f, r in bwd],
+                      (n_steps + 2) * plane
+                      + n_steps * (plane + 5 * 2 * plane) + fixed, nnz)
     # step_weight_grad_kernel_bf16: h, x (bf16), dp, dmsg (f32) in a step,
     # the f32 gradients out.
     parts = [(n_steps * 2 * 2.0 * n * hidden * 3 * hidden, PEAK_BF16),
@@ -1394,7 +1484,8 @@ def kernel_cost(adj: BandAdjacency, hidden: int, n_steps: int = 1,
       the gradients out.
 
     - ``fused_step_kernel_bf16``/``persistent_fwd_kernel_bf16``,
-      ``fused_step_bwd_kernel_bf16``, ``step_weight_grad_kernel_bf16``:
+      ``persistent_fwd_hist_kernel_bf16``, ``fused_step_bwd_kernel_bf16``,
+      ``persistent_bwd_kernel_bf16``, ``step_weight_grad_kernel_bf16``:
       as their f32 kernels, at bf16 (:func:`_bf16_step_cost`: 2 bytes a
       bf16 element, the products of two bf16 values at the bf16 rate and
       the rest at its own, ``flops_bf16``).

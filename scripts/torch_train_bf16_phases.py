@@ -3,15 +3,17 @@
     python3 scripts/torch_train_bf16_phases.py     # from the repository root
 
 Builds the kernels, then runs ``train_kernels_bf16`` (the bf16 backward
-pair and tile product at the training shape against their plain
+instances and tile product at the training shape against their plain
 versions, the weight pass's 5 steps bit for bit the fold of one-step
-calls, each timed beside its bound, plain version, f32 kernel and
-library call), the f32 fused train lane (the base of the bf16 lanes'
-device ms) and ``train_bf16`` (``fit`` at bf16 on the fused, tile and
-band lanes against the CPU, each step's device ms by kernel, and the
-persistent lane's refusal), as chip_smoke.py runs them; chip_smoke's
-JSON records on stdout, then each phase's seconds. About 1.5 minutes
-with the build. Needs one NVIDIA GPU.
+calls, the persistent sweeps bit for bit the per-step scans, each timed
+beside its bound, plain version, f32 kernel and library call), the f32
+persistent and fused train lanes (the base of the bf16 lanes' device
+ms), ``train_bf16`` (``fit`` at bf16 on the persistent, fused, tile and
+band lanes against the CPU, each step's device ms by kernel) and
+``fit_text_bf16_graph`` (DeepDFA+LineVul with a bf16 graph encoder on
+the persistent lane against the CPU), as chip_smoke.py runs them;
+chip_smoke's JSON records on stdout, then each phase's seconds. About 3
+minutes with the build. Needs one NVIDIA GPU.
 """
 
 import json
@@ -39,10 +41,13 @@ def main() -> int:
     model = FlowGNN(FlowGNNConfig(message_impl="persistent"), device="cuda",
                     seed=C.SEED)
     timed("train_kernels_bf16", C.phase_train_kernels_bf16, model)
-    fused = timed("train_fused", C.phase_train, "fused")
-    timed("train_bf16", C.phase_train_bf16, {"fused": dict(
-        device_busy_ms=fused["step_profile"]["device_busy_ms"],
-        graphs_per_s=fused["graphs_per_s"])})
+    f32 = {}
+    for impl in ("persistent", "fused"):
+        rec = timed(f"train_{impl}", C.phase_train, impl)
+        f32[impl] = dict(device_busy_ms=rec["step_profile"]["device_busy_ms"],
+                         graphs_per_s=rec["graphs_per_s"])
+    timed("train_bf16", C.phase_train_bf16, f32)
+    timed("fit_text_bf16_graph", C.phase_fit_text_bf16_graph)
     print(json.dumps({"seconds": seconds}), flush=True)
     return 0
 

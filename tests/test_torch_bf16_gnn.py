@@ -465,28 +465,23 @@ def test_f32_path_is_unchanged_bit_for_bit(impl):
 
 
 def test_bf16_backward_kernels_refuse_naming_a3b2():
-    """Of the bf16 backward (training at bf16), the persistent lane's is
-    ROADMAP A3b-2b: its backward wrappers, and a persistent pass that
-    needs a gradient, raise on a bf16 tensor bound for the card (here a
-    meta tensor, which needs no card) before they launch anything. The
-    fused lane's backward wrappers and the tile product take bf16 now
-    (A3b-2a): on a meta tensor they get past the dtype and stop at the
-    device check."""
+    """No bf16 backward wrapper refuses the dtype any more: the fused
+    lane's and the persistent lane's (a persistent pass that needs a
+    gradient included) take bf16, so on a bf16 meta tensor (which needs
+    no card) each gets past the dtype and stops at the device check
+    before it launches anything; so does the tile product."""
     _, padj, params, _, ph = _step_case(8, 4, 2, 16, False)
     tp = _tree(params, lambda a: torch.from_numpy(a).to("meta"))
     h = ph.to("meta")
     adj = padj.to("meta")
     pt_fused.reset_launch_counts()
-    refused = [
+    assert not hasattr(pt_fused, "refuse_bf16_persistent_training")
+    packed = [w.requires_grad_() for w in pt_fused.packed_weights(tp)]
+    taken = [
         lambda: pt_fused.persistent_backward(tp, h, adj, h, 3),
         lambda: pt_fused.persistent_hist(tp, h, adj, 3),
         lambda: pt_fused.persistent_bwd_rows(tp, h, h[None], adj, h, 2),
-        lambda: pt_fused.refuse_bf16_persistent_training(h),
-    ]
-    for call in refused:
-        with pytest.raises(NotImplementedError, match="A3b-2b"):
-            call()
-    taken = [
+        lambda: pt_fused.persistent_unroll(None, h, adj, 3, packed=packed),
         lambda: pt_fused.fused_step_backward(tp, h, adj, h),
         lambda: pt_fused.fused_step_bwd_rows(tp, h, adj, h),
         lambda: pt_fused.step_weight_grads(h, None, h[None],

@@ -38,9 +38,13 @@ gate serves through the per-step instance; and the bf16 model on the card
 to the CPU's. The fused lane's backward instances and the tile product's
 bf16 instance are held to their plain versions (the weight pass's K steps
 bit for bit the fold of one-step calls, each repeating its bits), their
-geometry to the host plan, a bf16 ``fit`` on the fused and tile lanes to
-the CPU's losses, and the persistent lane's bf16 training refused
-(ROADMAP A3b-2b).
+geometry to the host plan, and a bf16 ``fit`` on the fused and tile lanes
+to the CPU's losses. The persistent lane's backward instances are held
+bit for bit to the scans of the per-step ones at the serving and
+training shapes, with bf16 and f32 band values, the K-step VJP to the
+step VJP's scan in all seven outputs; a batch over their gate trains
+through the per-step instances, and a bf16 ``fit`` on the persistent
+lane gives the CPU's losses.
 """
 
 import dataclasses
@@ -71,7 +75,9 @@ ALL_KERNELS = ("fused_step_kernel", "persistent_fwd_kernel",
                "fused_step_bwd_kernel", "persistent_fwd_hist_kernel",
                "persistent_bwd_kernel", "step_weight_grad_kernel",
                "fused_step_kernel_bf16", "persistent_fwd_kernel_bf16",
-               "fused_step_bwd_kernel_bf16", "step_weight_grad_kernel_bf16")
+               "fused_step_bwd_kernel_bf16", "step_weight_grad_kernel_bf16",
+               "persistent_fwd_hist_kernel_bf16",
+               "persistent_bwd_kernel_bf16")
 
 
 @pytest.fixture
@@ -1625,8 +1631,9 @@ def test_bf16_flowgnn_serves_the_cpu_logits(cuda, impl):
     """The bf16 model on the card (the bf16 instances, the matmul
     pooling) against the same model on the CPU (the plain versions, the
     segment pooling) at the serving bucket; then a training pass at bf16
-    on the card: the fused lane's backward runs its bf16 instances, the
-    persistent lane's raises before anything launches, naming A3b-2b."""
+    on the card: each lane's backward runs its bf16 instances (the
+    persistent lane's once each: the hist sweep, the reverse sweep and
+    the weight pass over the K steps)."""
     cfg = FlowGNNConfig(message_impl=impl, dtype="bfloat16")
     graphs = synthetic_bigvul(16, cfg.feature, seed=1)
     batch = bucket_batch(ServeConfig(), graphs, 16, SUBKEYS, band=True)
@@ -1647,19 +1654,21 @@ def test_bf16_flowgnn_serves_the_cpu_logits(cuda, impl):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, **GNN_BF16_UNROLL_TOL)
     fused_gnn.reset_launch_counts()
-    if impl == "persistent":
-        with pytest.raises(NotImplementedError, match="A3b-2b"):
-            model.train()(batch.to(cuda)).sum().backward()
-        torch.cuda.synchronize()
-        assert sum(fused_gnn.launch_counts().values()) == 0
-        return
     model.train()(batch.to(cuda)).sum().backward()
     torch.cuda.synchronize()
     counts = fused_gnn.launch_counts()
-    assert counts["fused_step_bwd_kernel_bf16"] == cfg.n_steps
-    assert counts["step_weight_grad_kernel_bf16"] == cfg.n_steps
-    assert counts["fused_step_bwd_kernel"] == counts[
-        "step_weight_grad_kernel"] == 0
+    if impl == "persistent":
+        assert counts == {**dict.fromkeys(ALL_KERNELS, 0),
+                          **dict.fromkeys((
+                              "persistent_fwd_kernel_bf16",
+                              "persistent_fwd_hist_kernel_bf16",
+                              "persistent_bwd_kernel_bf16",
+                              "step_weight_grad_kernel_bf16"), 1)}
+    else:
+        assert counts["fused_step_bwd_kernel_bf16"] == cfg.n_steps
+        assert counts["step_weight_grad_kernel_bf16"] == cfg.n_steps
+        assert counts["fused_step_bwd_kernel"] == counts[
+            "step_weight_grad_kernel"] == 0
     assert all(p.grad.dtype == torch.float32 and bool(
         torch.isfinite(p.grad).all()) for p in model.parameters())
 
@@ -1672,11 +1681,11 @@ def test_bf16_flowgnn_serves_the_cpu_logits(cuda, impl):
 # rounded intermediate may land one bf16 step apart, which moves a later
 # sum by one step of its term: one bf16 step of the element plus half a
 # step at the tensor's scale.
-def _close_bf16_bwd(got, want):
+def _close_bf16_bwd(got, want, rtol=2.0 ** -7, scale=2.0 ** -8):
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w = got.float(), want.float()
     assert bool(torch.isfinite(g).all())
-    limit = 2.0 ** -7 * w.abs() + 2.0 ** -8 * w.abs().max()
+    limit = rtol * w.abs() + scale * w.abs().max()
     assert bool(((g - w).abs() <= limit).all()), float((g - w).abs().max())
 
 
@@ -1789,7 +1798,7 @@ def test_tile_spmm_bf16_instance_matches_plain_version(cuda, n, sizes,
                                  "tile_spmm_kernel_bf16": 5}
 
 
-@pytest.mark.parametrize("impl", ["fused", "tile"])
+@pytest.mark.parametrize("impl", ["fused", "tile", "persistent"])
 def test_bf16_fit_matches_cpu(cuda, impl):
     """``loop.fit`` at bf16 for one epoch on the card against the same
     weights and batches on the CPU: per-step losses within 5e-2 (the
@@ -1820,9 +1829,154 @@ def test_bf16_fit_matches_cpu(cuda, impl):
     want = [x for e in cpu_hist["epochs"] for x in e["step_losses"]]
     assert len(got) == len(want) >= 3
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
-    names = (("fused_step_kernel_bf16", "fused_step_bwd_kernel_bf16",
-              "step_weight_grad_kernel_bf16") if impl == "fused"
-             else ("tile_spmm_kernel_bf16",))
+    names = {"fused": ("fused_step_kernel_bf16",
+                       "fused_step_bwd_kernel_bf16",
+                       "step_weight_grad_kernel_bf16"),
+             "tile": ("tile_spmm_kernel_bf16",),
+             "persistent": ("persistent_fwd_kernel_bf16",
+                            "persistent_fwd_hist_kernel_bf16",
+                            "persistent_bwd_kernel_bf16",
+                            "step_weight_grad_kernel_bf16")}[impl]
     assert all(counts[k] > 0 for k in names)
     assert all(v == 0 for k, v in counts.items() if not k.endswith("_bf16"))
     assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.over_gate_dispatches == 0
+
+
+# ---------------------------------------------------------------------------
+# The persistent lane's backward at bf16 (training the default lane)
+# ---------------------------------------------------------------------------
+
+
+# A K-step bf16 sweep's output against its plain version: a value one
+# bf16 step apart carries onward over the steps (the CPU tests' bf16
+# tolerance, 5e-2 of the element and of the tensor's scale).
+SWEEP_TOL = dict(rtol=5e-2, scale=5e-2)
+
+
+@pytest.mark.parametrize("f32_vals", [False, True])
+@pytest.mark.parametrize("case", ["serving", "training"])
+def test_bf16_persistent_backward_equals_the_per_step_scan(cuda, case,
+                                                           f32_vals):
+    """``persistent_fwd_hist_kernel_bf16``: h_1..h_{K-1} bit for bit the
+    scan of ``fused_step_kernel_bf16`` and the first K-1 outputs of
+    ``persistent_fwd_kernel_bf16``; ``persistent_bwd_kernel_bf16``: dh_0
+    and each step's x, dp and dmsg bit for bit the reverse scan of
+    ``fused_step_bwd_kernel_bf16``; ``persistent_backward`` at bf16 bit
+    for bit ``fused_step_backward``'s scan in all seven outputs (the
+    weight pass over K steps the fold of one-step calls); each near its
+    plain version and repeating its bits."""
+    adj, hidden = _bf16_case(case, cuda)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    n, k = adj.n_tiles * adj.tile, 5
+    bf16 = torch.bfloat16
+    assert fused_gnn.persistent_bwd_smem_ok(adj, hidden, bf16)
+    p32 = fused_gnn.packed_weights(_params(hidden, cuda, seed=8))
+    gen = torch.Generator().manual_seed(9)
+    h, g = (torch.randn(n, hidden, generator=gen).to(cuda).bfloat16()
+            for _ in range(2))
+    fused_gnn.reset_launch_counts()
+    hist = fused_gnn.persistent_hist(None, h, adj, k, p32)
+    assert hist.dtype == bf16 and hist.shape == (k - 1, n, hidden)
+    states = [h]
+    for _ in range(k - 1):
+        states.append(fused_gnn.fused_gate_step(None, states[-1], adj,
+                                                packed=p32))
+    assert torch.equal(hist, torch.stack(states[1:]))
+    for j in range(1, k):
+        assert torch.equal(hist[j - 1], fused_gnn.persistent_unroll(
+            None, h, adj, j, packed=p32))
+    assert torch.equal(fused_gnn.persistent_hist(None, h, adj, k, p32), hist)
+    _close_bf16_bwd(hist, fused_gnn.persistent_hist_reference(
+        None, h, adj, k, p32), **SWEEP_TOL)
+    rows = fused_gnn.persistent_bwd_rows(None, h, hist, adj, g, k, p32)
+    assert [t.dtype for t in rows] == [bf16, bf16, torch.float32,
+                                       torch.float32]
+    gs, scan = g, [None] * k
+    for s in reversed(range(k)):
+        gs, *scan[s] = fused_gnn.fused_step_bwd_rows(None, states[s], adj,
+                                                     gs, p32)
+    assert torch.equal(rows[0], gs)
+    for j in range(3):
+        assert torch.equal(rows[1 + j], torch.stack([c[j] for c in scan]))
+    for a, b in zip(fused_gnn.persistent_bwd_rows(None, h, hist, adj, g, k,
+                                                  p32), rows):
+        assert torch.equal(a, b)
+    for a, b in zip(rows, fused_gnn.persistent_bwd_rows_reference(
+            None, h, hist, adj, g, k, p32)):
+        _close_bf16_bwd(a, b, **SWEEP_TOL)
+    full = fused_gnn.persistent_backward(None, h, adj, g, k, packed=p32)
+    gs, fold = g, None
+    for s in reversed(range(k)):
+        gs, *one = fused_gnn.fused_step_backward(None, states[s], adj, gs,
+                                                 packed=p32)
+        fold = one if fold is None else [a + b for a, b in zip(fold, one)]
+    assert [t.dtype for t in full] == [bf16] + [torch.float32] * 6
+    for a, b in zip(full, [gs] + fold):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0),
+        "persistent_fwd_hist_kernel_bf16": 3,
+        "persistent_fwd_kernel_bf16": k - 1,
+        "fused_step_kernel_bf16": k - 1,
+        "persistent_bwd_kernel_bf16": 3,
+        "fused_step_bwd_kernel_bf16": 2 * k,
+        "step_weight_grad_kernel_bf16": 1 + k}
+
+
+def test_bf16_persistent_backward_occupancy(cuda):
+    """The bf16 sweeps' launched instances report their occupancy: the
+    hist sweep as the bf16 forward (one block an SM, 2-block clusters at
+    serving), the reverse sweep one block an SM with its four row
+    arrays."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for case in ("serving", "training"):
+        adj, hidden = _bf16_case(case, cuda)
+        cluster = fused_gnn.persistent_cluster_size(adj, hidden, sms)
+        occ = fused_gnn.persistent_occupancy(
+            adj, hidden, "persistent_fwd_hist_kernel_bf16", cluster)
+        assert occ["blocks_per_sm"] >= 1
+        assert (occ["active_clusters"] or 0) >= (cluster > 1)
+        occ = fused_gnn.persistent_occupancy(adj, hidden,
+                                             "persistent_bwd_kernel_bf16")
+        assert occ["blocks_per_sm"] >= 1
+
+
+def test_bf16_over_bwd_gate_batch_trains_through_the_per_step_instances(
+        cuda):
+    """A group of 110 rows fits the bf16 forward gate (123 rows) and the
+    f32 backward gate (123) but not the bf16 backward gate (92: four row
+    arrays): a training pass at bf16 runs the per-step bf16 instances K
+    times (``over_gate_dispatches`` 1), and its parameter gradients are
+    the CPU model's."""
+    feature = FeatureSpec(limit_all=20, limit_subkeys=20)
+    graph = synthetic_bigvul(1, feature, seed=0, min_nodes=110,
+                             max_nodes=110)
+    cfg = FlowGNNConfig(feature=feature, message_impl="persistent",
+                        dtype="bfloat16")
+    batch = batch_graphs(graph, 1, 256, 1024, SUBKEYS,
+                         build_band_adj=True).to(cuda)
+    adj = batch.band_adj
+    assert fused_gnn.persistent_smem_ok(adj, 128, torch.bfloat16)
+    assert fused_gnn.persistent_bwd_smem_ok(adj, 128)
+    assert not fused_gnn.persistent_bwd_smem_ok(adj, 128, torch.bfloat16)
+    model = FlowGNN(cfg, device=cuda, seed=0)
+    cpu = FlowGNN(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    fused_gnn.reset_launch_counts()
+    model(batch).sum().backward()
+    torch.cuda.synchronize()
+    assert model.over_gate_dispatches == 1
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0),
+        **dict.fromkeys(("fused_step_kernel_bf16",
+                         "fused_step_bwd_kernel_bf16",
+                         "step_weight_grad_kernel_bf16"), cfg.n_steps)}
+    cpu(batch.to("cpu")).sum().backward()
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        if name == "pooling.gate.bias":  # 0 in exact arithmetic
+            continue
+        gap = float((p.grad.cpu() - q.grad).abs().max())
+        assert gap <= 5e-2 * float(q.grad.abs().max()), (name, gap)

@@ -162,7 +162,8 @@ def test_cpu_wrappers_take_plain_version_and_count_nothing():
          "fused_step_bwd_kernel", "persistent_fwd_hist_kernel",
          "persistent_bwd_kernel", "step_weight_grad_kernel",
          "fused_step_kernel_bf16", "persistent_fwd_kernel_bf16",
-         "fused_step_bwd_kernel_bf16", "step_weight_grad_kernel_bf16"), 0)
+         "fused_step_bwd_kernel_bf16", "step_weight_grad_kernel_bf16",
+         "persistent_fwd_hist_kernel_bf16", "persistent_bwd_kernel_bf16"), 0)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():

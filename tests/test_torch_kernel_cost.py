@@ -174,6 +174,42 @@ def test_bf16_backward_costs_bytes_and_rates(f32_vals):
         assert cost["peak"].startswith(PEAK_BF16[0])
 
 
+@pytest.mark.parametrize("f32_vals", [False, True])
+def test_bf16_persistent_costs_bytes_and_rates(f32_vals):
+    """The persistent lane's bf16 instances: the hist sweep does K - 1
+    forward steps with h_0 in and K - 1 bf16 planes out; the reverse
+    sweep does K of ``fused_step_bwd_kernel_bf16``'s steps with h_0, the
+    K - 1 hist planes and g in, dh out, each step's x (bf16), dp and dmsg
+    (f32) out, A, A^T and the weights once; the products of two bf16
+    values at the bf16 rate, the rest at its own."""
+    import dataclasses
+
+    adj = _band(256, 64)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    n, h, k = 256, 32, 5
+    band = adj.vals.numel() * adj.vals.element_size()
+    weights = (7 * h * h + 7 * h) * 2
+    plane = 2.0 * n * h
+    fwd = fused_gnn.kernel_cost(adj, h, 1, "persistent_fwd_kernel_bf16")
+    hist = fused_gnn.kernel_cost(adj, h, k, "persistent_fwd_hist_kernel_bf16")
+    assert hist["bytes"] == k * plane + band + weights
+    assert hist["flops"] == (k - 1) * fwd["flops"]
+    assert hist["flops_bf16"] == (k - 1) * fwd["flops_bf16"]
+    one = fused_gnn.kernel_cost(adj, h, 1, "fused_step_bwd_kernel_bf16")
+    bwd = fused_gnn.kernel_cost(adj, h, k, "persistent_bwd_kernel_bf16")
+    fixed = 2 * band + weights + 7 * h * h * 2
+    assert bwd["bytes"] == (k + 2) * plane + k * 11 * plane + fixed
+    assert one["bytes"] == 14 * plane + fixed
+    assert bwd["flops"] == k * one["flops"]
+    assert bwd["flops_bf16"] == k * one["flops_bf16"]
+    for cost in (hist, bwd):
+        assert cost["peak_flops"] == pytest.approx(
+            fwd["peak_flops"] if cost is hist else one["peak_flops"])
+        assert cost["peak"].startswith(PEAK_BF16[0])
+        assert (PEAK_F32_SIMT[0] in cost["peak"])
+
+
 def test_bf16_tile_cost_bytes_and_rate():
     """``tile_spmm_kernel_bf16``: msg's sender rows and the output at 2
     bytes an element, the lists as at f32; bf16-exact multiplicities make
