@@ -414,6 +414,10 @@ BWD_COVERS = ["dq", "dk", "dv"]
 # rows = 6 steps of 16 and 12 validation rows = one batch. Card against
 # CPU: 12 rows = 3 steps of 4. Long context: 16 rows = 2 steps of 8.
 TEXT_N_FULL, TEXT_N_VS_CPU, TEXT_N_LONG = 120, 15, 20
+# Long context at bf16 against the CPU (1 layer): of synthetic:10's 8
+# training rows the first 4 = 2 steps of 2 (the CPU's plain attention at
+# T 4096 takes about 8 s a layer and row), and its 1 validation row.
+TEXT_N_LONG_VS_CPU, TEXT_LONG_VS_CPU_ROWS = 10, 4
 TEXT_SEED = 1
 # Per-step losses of the 2-layer run, card against CPU (f32 order, and
 # the FlowGNN scatters' atomics on the card). The schedule's first update
@@ -449,6 +453,17 @@ for _name in ("flash_fwd_kernel", "flash_bwd_fused_kernel",
 # atol); lse is f32 (ATTN_FWD_TOL).
 ATTN_BF16_FWD_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 ATTN_BF16_GRAD_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+# The bf16 two-pass pair (bf16 products grouped 16 deep, P and dS split
+# three ways) against the f32 kernels on the widened inputs, rounded once
+# to bf16: each element within one bf16 step, or within 1e-5 (the f32
+# kernels' order gap, for values near 0 where sums cancel); and, as a
+# mean over each output, no further from a float64 evaluation of the
+# reference's formulas than 1.02 times the f32 kernels' rounded result
+# (f32 summation order), at this shape and these lengths (the card
+# test's).
+ATTN_BF16_PAIR_ATOL = 1e-5
+ATTN_BF16_PAIR_F64_RATIO = 1.02
+ATTN_PAIR_F64_SHAPE, ATTN_PAIR_F64_LENGTHS = (2, 4096, 2, 64), (3000, 100)
 # The bf16 text paths against the CPU: the CPU tests' tolerance
 # (tests/test_torch_bf16_text.py, the reference's own bf16 tolerance):
 # logits and losses within 5e-2 absolute and relative.
@@ -1431,12 +1446,12 @@ def _device_profile(step, n_steps: int) -> dict:
                              f"{PROFILE_SESSIONS} sessions")
     kernels.sort(reverse=True)
     # The port's own kernels, by the name in their source, wherever they
-    # rank. A flash kernel's bf16 instance is a template instance whose
-    # first argument, the element type, is __nv_bfloat16: filed under
-    # its _bf16 name. The GNN and tile kernels' bf16 instances carry
-    # _bf16 in their own __global__ names; their template arguments
-    # (the band-value type VT is bf16 in the f32 GNN kernels too) name
-    # nothing.
+    # rank. The flash forward's and fused backward's bf16 instances are
+    # template instances whose first argument, the element type, is
+    # __nv_bfloat16: filed under their _bf16 names. The two-pass pair's,
+    # the GNN and tile kernels' bf16 instances carry _bf16 in their own
+    # __global__ names; their template arguments (the band-value type VT
+    # is bf16 in the f32 GNN kernels too) name nothing.
     port = {}
     for ms, key, calls in kernels:
         found = re.search(r"(\w+)(<[^(]*>)?\(", key)
@@ -2066,34 +2081,127 @@ def _wide(xs) -> list:
             and x.dtype == torch.bfloat16 else x for x in xs]
 
 
+def _bf16_ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two bf16 tensors in bf16 steps (the bit
+    patterns in order; +0 and -0 one value)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _pair_apart(name: str, got, want) -> dict:
+    """The bf16 pair's outputs ``got`` against ``want``, the f32 kernel's
+    on the widened inputs rounded once: raises where an element is more
+    than one bf16 step and more than ATTN_BF16_PAIR_ATOL apart; returns
+    the elements apart and the largest gap in steps."""
+    torch.cuda.synchronize()
+    apart, worst = 0, 0
+    for i, (a, w) in enumerate(zip(got, want)):
+        ulps = _bf16_ulps_apart(a, w)
+        gap = (a.float() - w.float()).abs()
+        bad = (ulps > 1) & (gap > ATTN_BF16_PAIR_ATOL)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{name}[{i}]: {int(bad.sum())} elements over one bf16 step "
+                f"and {ATTN_BF16_PAIR_ATOL} from the f32 kernel rounded "
+                f"(max {int(ulps.max())} steps, |diff| "
+                f"{float(gap.max()):.3e})")
+        apart += int((ulps > 0).sum())
+        worst = max(worst, int(ulps.max()))
+    return dict(bits_equal_f32_kernel_rounded=apart == 0,
+                elements_apart_f32_kernel_rounded=apart,
+                max_ulps_apart=worst, within_ulp_or_atol=True)
+
+
+def _pair_f64_errors() -> dict:
+    """The bf16 pair and the f32 pair on the widened inputs (rounded
+    once) against a float64 evaluation of the reference's formulas (P
+    from the forward's lse, dS = P (dO V^T - delta)), one (batch, head)
+    at a time, at ATTN_PAIR_F64_SHAPE: the mean absolute error of dq, dk
+    and dv for each. Raises where the bf16 pair's passes
+    ATTN_BF16_PAIR_F64_RATIO times the f32 pair's."""
+    b, t, h, d = ATTN_PAIR_F64_SHAPE
+    q, k, v, _, g = _attn_inputs(ATTN_PAIR_F64_SHAPE, SEED)
+    q, k, v, g = (x.bfloat16() for x in (q, k, v, g))
+    mask = torch.arange(t, device="cuda")[None, :] < torch.tensor(
+        ATTN_PAIR_F64_LENGTHS, device="cuda")[:, None]
+    o, lse = attention.flash_fwd(q, k, v, mask)
+    args = (q, k, v, mask, g, lse, attention.flash_delta(o, g))
+    wide = _wide(args)
+    outs = {"bf16": (attention.flash_bwd_dq(*args),
+                     *attention.flash_bwd_dkv(*args)),
+            "f32_rounded": tuple(x.bfloat16() for x in (
+                attention.flash_bwd_dq(*wide),
+                *attention.flash_bwd_dkv(*wide)))}
+    sums = {which: [0.0, 0.0, 0.0] for which in outs}
+    scale = 1.0 / d ** 0.5
+    for bi in range(b):
+        for hi in range(h):
+            qd, kd, vd, gd = (x[bi, :, hi].double() for x in (q, k, v, g))
+            p = torch.where(mask[bi][None, :], torch.exp(
+                (qd * scale) @ kd.T - lse[bi, hi].double()[:, None]), 0.0)
+            ds = p * (gd @ vd.T - args[6][bi, hi].double()[:, None])
+            ref = (scale * ds @ kd, scale * ds.T @ qd, p.T @ gd)
+            for which, got in outs.items():
+                for i, (x, r) in enumerate(zip(got, ref)):
+                    sums[which][i] += float(
+                        (x[bi, :, hi].double() - r).abs().sum())
+            del p, ds, ref
+    n = b * t * h * d
+    rec = {f"{grad}_mean_abs_err_f64": {which: sums[which][i] / n
+                                         for which in outs}
+           for i, grad in enumerate(("dq", "dk", "dv"))}
+    for grad, errs in rec.items():
+        if errs["bf16"] > ATTN_BF16_PAIR_F64_RATIO * errs["f32_rounded"]:
+            raise AssertionError(
+                f"bf16 pair {grad}: {errs['bf16']:.4e} > "
+                f"{ATTN_BF16_PAIR_F64_RATIO} x the f32 pair's "
+                f"{errs['f32_rounded']:.4e}")
+    return dict(f64_shape=list(ATTN_PAIR_F64_SHAPE),
+                f64_lengths=list(ATTN_PAIR_F64_LENGTHS), **rec)
+
+
 def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
     """Each flash kernel's ``dtype`` instance against its plain version
     at the text training shape and the long shape, timed beside its bound
-    and SDPA (at the same dtype). A bf16 instance is also held bit for bit
-    to the f32 kernel on the widened inputs, rounded once to bf16 (the
-    identity its design keeps). Returns the numbers at the main-path
-    shapes by kernel instance: the forward and the fused backward at
-    T 512, the two-pass pair at T 4096."""
+    and SDPA (at the same dtype). A bf16 forward or fused backward is also
+    held bit for bit to the f32 kernel on the widened inputs, rounded once
+    to bf16 (the identity its design keeps); the bf16 two-pass pair within
+    a bf16 step of it element by element, and no further than it from a
+    float64 evaluation (``_pair_apart``, ``_pair_f64_errors``). Returns the
+    numbers at the main-path shapes by kernel instance: the forward and
+    the fused backward at T 512, the two-pass pair at T 4096."""
     bf16 = dtype == torch.bfloat16
     sfx = "_bf16" if bf16 else ""
     fwd_tol = ATTN_BF16_FWD_TOL if bf16 else ATTN_FWD_TOL
     grad_tol = ATTN_BF16_GRAD_TOL if bf16 else ATTN_GRAD_TOL
+    pair = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
     def check(name, got, want, tol):
         return _check(name + sfx, got.float(), want.float(), tol)
 
-    def identity(name, got, fn, args):
-        """bf16: ``got`` is the f32 kernel's output on the widened
-        inputs, rounded once."""
-        if bf16:
-            want = fn(*_wide(args))
-            want = [want] if torch.is_tensor(want) else list(want)
-            got = [got] if torch.is_tensor(got) else list(got)
-            _same_bits(f"{name}_bf16 = {name} on the widened inputs", got,
-                       [w.bfloat16() if w.dtype == torch.float32
-                        and g.dtype == torch.bfloat16 else w
-                        for g, w in zip(got, want)])
+    def identity(name, got, fn, args) -> dict:
+        """bf16: ``got`` against the f32 kernel's output on the widened
+        inputs, rounded once: bit for bit, or (the two-pass pair) within
+        a bf16 step. Returns the record's fields."""
+        if not bf16:
+            return {}
+        want = fn(*_wide(args))
+        want = [want] if torch.is_tensor(want) else list(want)
+        got = [got] if torch.is_tensor(got) else list(got)
+        want = [w.bfloat16() if w.dtype == torch.float32
+                and g.dtype == torch.bfloat16 else w
+                for g, w in zip(got, want)]
+        if name in pair:
+            return _pair_apart(name + sfx, got, want)
+        _same_bits(f"{name}_bf16 = {name} on the widened inputs", got, want)
+        return {"bits_equal_f32_kernel_rounded": True}
 
+    f64 = _pair_f64_errors() if bf16 else {}
+    if f64:
+        emit(phase="attention_kernels_bf16_f64", **f64)
     out = {}
     for shape_name, shape, iters, reps in (("train", ATTN_TRAIN_SHAPE, 10, 3),
                                            ("long", ATTN_LONG_SHAPE, 2, 3)):
@@ -2114,8 +2222,9 @@ def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
             raise AssertionError("flash_fwd_kernel: the all-pad row is not 0")
         _same_bits(f"flash_fwd_kernel{sfx} twice@{shape_name}",
                    list(attention.flash_fwd(q, k, v, mask)), [o, lse])
-        identity("flash_fwd_kernel", (o, lse), attention.flash_fwd,
-                 (q, k, v, mask))
+        ident = {"flash_fwd_kernel": identity(
+            "flash_fwd_kernel", (o, lse), attention.flash_fwd,
+            (q, k, v, mask))}
         delta = attention.flash_delta(o_ref, g)
         args = (q, k, v, mask, g, lse_ref, delta)
         runs = {"flash_fwd_kernel": (
@@ -2124,9 +2233,10 @@ def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
             ["o"])}
         dq = attention.flash_bwd_dq(*args)
         dk, dv = attention.flash_bwd_dkv(*args)
-        identity("flash_bwd_dq_kernel", dq, attention.flash_bwd_dq, args)
-        identity("flash_bwd_dkv_kernel", (dk, dv), attention.flash_bwd_dkv,
-                 args)
+        ident["flash_bwd_dq_kernel"] = identity(
+            "flash_bwd_dq_kernel", dq, attention.flash_bwd_dq, args)
+        ident["flash_bwd_dkv_kernel"] = identity(
+            "flash_bwd_dkv_kernel", (dk, dv), attention.flash_bwd_dkv, args)
         if attention.flash_fused_bwd_ok(t, d):
             want = attention.flash_bwd_fused_reference(*args)
             fused = attention.flash_bwd_fused(*args)
@@ -2141,8 +2251,9 @@ def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
                       grad_tol)
             _same_bits(f"flash_bwd_fused_kernel{sfx} twice@{shape_name}",
                        list(attention.flash_bwd_fused(*args)), list(fused))
-            identity("flash_bwd_fused_kernel", fused,
-                     attention.flash_bwd_fused, args)
+            ident["flash_bwd_fused_kernel"] = identity(
+                "flash_bwd_fused_kernel", fused, attention.flash_bwd_fused,
+                args)
             runs["flash_bwd_fused_kernel"] = (
                 err, lambda: attention.flash_bwd_fused(*args),
                 lambda: attention.flash_bwd_fused_reference(*args), lib_bwd,
@@ -2202,8 +2313,9 @@ def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
             recs[name].update(bitwise_repeatable=True,
                               key_tiles=b * h * -(-t // 64),
                               key_tiles_skipped=cost["dead_key_tiles"])
-            if bf16:
-                recs[name]["bits_equal_f32_kernel_rounded"] = True
+            recs[name].update(ident[base])
+            if base in pair and shape_name == "long":
+                recs[name].update(f64)
             if base != "flash_fwd_kernel":
                 # Each backward kernel's device ms a launch by the profiler
                 # (the fused kernel's two launches apart: the products, then
@@ -2216,13 +2328,13 @@ def phase_attention_kernels(dtype: torch.dtype = torch.float32) -> dict:
                                         for k, v in split.items()})
         # SDPA's backward computes dq, dk and dv together: set the
         # two-pass pair's summed time beside it.
-        pair = ("flash_bwd_dq_kernel" + sfx, "flash_bwd_dkv_kernel" + sfx)
-        pair_ms = sum(recs[name]["kernel_ms"] for name in pair)
+        pair_ms = sum(recs[name + sfx]["kernel_ms"] for name in pair)
         for name in pair:
-            recs[name]["pair_ms"] = pair_ms
+            recs[name + sfx]["pair_ms"] = pair_ms
         for name, rec in recs.items():
             emit(phase="attention_kernels" + sfx, **rec)
-            main_shape = "long" if name in pair else "train"
+            main_shape = ("long" if name.removesuffix(sfx) in pair
+                          else "train")
             if shape_name == main_shape:
                 out[name] = rec
         del q, k, v, g, o, o_ref, args, dq, dk, dv, lib_fwd, lib_bwd, runs, \
@@ -2567,8 +2679,8 @@ def _vs_cpu_bf16(model, cpu_model, data, splits, tcfg, kw) -> dict:
         ids, _, _, graphs = text_loop._on_device(batch, "cpu")
         want = cpu_model(ids, graphs)
     logit_gap = _check("bf16 logits card vs cpu", card, want, BF16_TEXT_TOL)
-    history, launches, _, wall_s = _fit_text_counted(model, data, splits,
-                                                     tcfg, kw)
+    history, launches, two_pass, wall_s = _fit_text_counted(
+        model, data, splits, tcfg, kw)
     losses = _text_steps(history)
     t0 = time.perf_counter()
     _, cpu_history = text_loop.fit_text(cpu_model, data, splits, tcfg, **kw)
@@ -2579,7 +2691,8 @@ def _vs_cpu_bf16(model, cpu_model, data, splits, tcfg, kw) -> dict:
     return dict(batch_size=tcfg.batch_size, logit_gap=logit_gap,
                 losses=losses, cpu_losses=cpu_losses,
                 max_abs_loss_diff_vs_cpu=gap, tol=BF16_TEXT_TOL,
-                launches=launches, fit_wall_s=wall_s, cpu_fit_s=cpu_s)
+                launches=launches, two_pass_dispatches=two_pass,
+                fit_wall_s=wall_s, cpu_fit_s=cpu_s)
 
 
 def phase_fit_text_bf16() -> dict:
@@ -2685,7 +2798,9 @@ def phase_fit_text_bf16() -> dict:
 
 def phase_fit_text_long_bf16() -> dict:
     """fit_text at T 4096 (batch 8, 2 layers) at bf16: the backward's
-    gate sends it to the bf16 two-pass pair; the step's profile."""
+    gate sends it to the bf16 two-pass pair; the step's profile and the
+    pair's share of it; a 1-layer copy with dropout off against the CPU
+    (``_vs_cpu_bf16``: 2 steps of 2, losses within BF16_TEXT_TOL)."""
     enc = _bf16(dataclasses.replace(EncoderConfig(), attention_impl="auto",
                                     num_layers=2))
     b, t = ATTN_LONG_SHAPE[:2]
@@ -2714,13 +2829,28 @@ def phase_fit_text_long_bf16() -> dict:
                                "flash_bwd_dkv_kernel_bf16"))
     del model, step
     torch.cuda.empty_cache()
+    # A 1-layer copy with dropout off against the CPU on the same weights,
+    # through the bf16 pair: 2 steps of 2 at T 4096.
+    enc0 = dataclasses.replace(enc, dropout_rate=0.0, num_layers=1)
+    graph0, tcfg0, data0, splits0, kw0 = _text_setup(
+        enc0, TEXT_N_LONG_VS_CPU, 2, t)
+    splits0 = dict(splits0, train=splits0["train"][:TEXT_LONG_VS_CPU_ROWS])
+    vs_cpu = _vs_cpu_bf16(LineVul(enc0, graph0, device="cuda", seed=SEED),
+                          LineVul(enc0, graph0, device="cpu"), data0,
+                          splits0, tcfg0, kw0)
+    if vs_cpu["two_pass_dispatches"] != enc0.num_layers * len(
+            vs_cpu["losses"]):
+        raise AssertionError(f"T 4096 against the CPU: "
+                             f"{vs_cpu['two_pass_dispatches']} two-pass "
+                             "dispatches")
     rec = dict(phase="fit_text_long_bf16", dtype=enc.dtype,
                layers=enc.num_layers, block_size=t, batch_size=b,
                steps=steps, losses=losses, launches=launches,
                two_pass_dispatches=two_pass, fit_wall_s=wall_s,
                step_s=wall_s / max(steps, 1), step_profile=profile,
                pair_ms_per_step=pair_ms,
-               pair_share_of_device=pair_ms / profile["device_busy_ms"])
+               pair_share_of_device=pair_ms / profile["device_busy_ms"],
+               vs_cpu=vs_cpu)
     emit(**rec)
     return rec
 

@@ -18,9 +18,10 @@
 //
 // The single-pass backward (_flash_bwd_fused_kernel) is
 // flash_bwd_fused_kernel in flash_bwd_fused.cu. The 3xTF32 products are
-// in tf32_mma.cuh, which the fused backward shares. Plain PyTorch
-// versions: flash_fwd_reference, flash_bwd_dq_reference and
-// flash_bwd_dkv_reference in deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
+// in tf32_mma.cuh, which the fused backward shares; the bf16 pair's bf16
+// products in bf16_mma.cuh. Plain PyTorch versions: flash_fwd_reference,
+// flash_bwd_dq_reference and flash_bwd_dkv_reference in
+// deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with the plain C interface at the bottom of this file.
 //
@@ -29,10 +30,11 @@
 // keys: only the (query, key) pairs the mask leaves count) against at
 // most 25 MB of compulsory traffic (q, k, v in, o out); the two-pass
 // backward pair 14 B H T^2 D against ~60 MB. Every kernel is bound by
-// f32 operations (ops/attention.py:kernel_cost counts them on the call's
-// mask; chip_smoke.py prints the bound beside the measured time), all
-// run as 3xTF32 on the tensor cores: f32 work at a third of the H100 SXM
-// data-sheet 495 TFLOP/s for a 700 W card.
+// operations (ops/attention.py:kernel_cost counts them on the call's
+// mask; chip_smoke.py prints the bound beside the measured time): f32
+// work as 3xTF32 on the tensor cores, a third of the H100 SXM data-sheet
+// 495 TFLOP/s for a 700 W card; at bf16 S and dP at the dense bf16 rate
+// (989 TFLOP/s) and the products with P or dS at a third of it.
 //
 // Shared design. One block a (batch, head, 64 query rows) for the
 // forward, a (batch, head, 128 query rows) for the dq kernel and a
@@ -45,16 +47,16 @@
 //   the products. The forward's online softmax (row max, row sum, the
 //   rescale of the O accumulator) runs on those registers, a row's four
 //   lanes combined by quad shuffles.
-// * Every product is 3xTF32 mma.sync (tf32_mma.cuh). Each operand is
-//   split into hi and lo once: the resident one (scale Q, dO; K and V)
-//   once a block, into the A-fragment order its warp reads with one
+// * The f32 instances' products are 3xTF32 mma.sync (tf32_mma.cuh). Each
+//   operand is split into hi and lo once: the resident one (scale Q, dO; K
+//   and V) once a block, into the A-fragment order its warp reads with one
 //   128-bit load a part; each streamed tile once a load, in place.
 // * The streamed tiles (K and V; Q, dO, lse and delta) arrive by
-//   cp.async: in the pair double buffered (the next tile's copies overlap
-//   this one's split and products), in the forward single buffered with
-//   two blocks an SM (one block's copies overlap the other's products).
-//   Streamed tiles are XOR-swizzled by row (swz), so the B-fragment reads
-//   of both orientations hit 32 banks.
+//   cp.async: in the pair through a ring (the next tiles' copies overlap
+//   this one's products), in the forward single buffered with two blocks
+//   an SM (one block's copies overlap the other's products). Streamed
+//   tiles are XOR-swizzled by row, so the fragment reads of both
+//   orientations hit 32 banks.
 // * Dead key tiles are skipped with no approximation: a key tile with no
 //   real key has P = dS = 0 and leaves the forward's running max and sum
 //   as they were. The forward and the dq kernel mark the live tiles of
@@ -89,26 +91,70 @@
 // (flash_fused_bwd_ok in ops/attention.py: T 4096 at D 64) the pair runs:
 // flash_bwd_dq_kernel with one block per (batch, head, 128 query rows)
 // walking the key tiles, flash_bwd_dkv_kernel with one block per (batch,
-// head, 128 keys) walking the query tiles. Both parts of everything take
-// 225 KB of shared memory, one block an SM.
+// head, 128 keys) walking the query tiles. The f32 instances hold both
+// parts of everything, double buffered: 225 KB of shared memory, one
+// block an SM.
 //
-// The bf16 instances. A bf16 streamed tile lands by cp.async in a row-major
-// bf16 staging buffer (two for the pair's two stages) and is widened and
-// split from there into the same swizzled f32 hi and lo tiles the f32
-// instance splits in place; the resident operands are widened as they load.
-// Everything after is the f32 instance's code: the 3xTF32 products of
-// widened values (exact splits, lo = 0) and of f32 P and dS, so a bf16
-// instance gives bit for bit the f32 kernel's result on the widened inputs,
-// rounded once to bf16 (RNE) as it is stored. Shared memory: the forward
-// 112 KB (two blocks an SM), the pair 224 and 226 KB (the streamed hi and
-// lo tiles single, their bf16 stages double). Their bound counts S and dP,
-// products of two bf16 inputs, at the dense bf16 tensor-core rate (989
-// TFLOP/s) and the rest at 3xTF32's (ops/attention.py:kernel_cost), so
-// they run further from it than the f32 instances from theirs.
+// The forward's bf16 instance. A bf16 streamed tile lands by cp.async in a
+// row-major bf16 staging buffer and is widened and split from there into
+// the same swizzled f32 hi and lo tiles the f32 instance splits in place;
+// scale Q is widened as it loads. Everything after is the f32 instance's
+// code, so it gives bit for bit the f32 kernel's result on the widened
+// inputs, rounded once to bf16 (RNE) as it is stored; 112 KB, two blocks
+// an SM.
+//
+// The bf16 pair (flash_bwd_dq_kernel_bf16, flash_bwd_dkv_kernel_bf16) has
+// its own kernels, built for Hopper's bf16 tensor cores (bf16_mma.cuh).
+// * bf16 stays bf16: the resident tiles (Q and dO; K and V) and the
+//   streamed ones land by cp.async, 16 bytes a copy, as bf16 in shared
+//   memory, each row's 16-byte chunks XOR'd by row (bf16mma::swz), and
+//   reach the products by ldmatrix (.trans for the B operand of dS K,
+//   P^T dO and dS^T Q). No hi or lo tile, no widening pass: 32 KB of
+//   residents and 16 KB a ring stage.
+// * S = Q K^T and dP = dO V^T (S^T and dP^T in the dk/dv kernel): one
+//   m16n8k16 bf16 mma.sync with f32 sums, the products of two bf16 values
+//   exact. scale = 1/sqrt(64) = 1/8 is a power of two, so S is scaled in
+//   f32 after the product and dq and dk as they are stored, exactly as
+//   the reference's scale Q.
+// * dq += dS K, dV += P^T dO, dK += dS^T Q: P and dS stay in the
+//   accumulator registers that made them; each value is split there into
+//   three bf16 parts (bf16mma::split3), exact, and the three parts' mma.sync
+//   share one B fragment, the smallest first: the product at f32 accuracy
+//   (each part times a bf16 value exact in f32), where 3xTF32 kept 22 of
+//   P's bits. Counted in m16n8k16-sized steps for a 16-deep slice of a
+//   16 x 8 output: 1 + 1 + 3 = 5 for dq and 8 for dk/dv, against the
+//   3xTF32 design's 18 and 24.
+// * Not the f32 kernels' bits: the sums group 16 products where 3xTF32
+//   grouped 8, so an output may land one bf16 step from the f32 kernel's
+//   rounded result (or, near 0 where sums cancel, within 1e-5 of it); as a
+//   mean over each output it lies no further from a float64 evaluation of
+//   the reference's formulas (chip_smoke.py's attention_kernels_bf16).
+// * The walk is as above (dead key tiles, causal tiles, masks, no
+//   atomics). Ring: BSTAGES tiles in flight; a warp takes a streamed
+//   tile BNC columns at a time, so its S and dP pieces take 8 registers
+//   each beside the 64 of the dk/dv accumulators.
+// Layouts built and timed by scripts/torch_flash_bf16_layouts.py (B 8,
+// T 4096, H 12, on an H100 SXM at 700 W, two calls, each running the kept
+// layout first and last; ms dq, dk/dv):
+//   two blocks an SM, 3-stage ring, 16 columns a pass (kept; 80 and 81.5
+//     KB, 128 registers, 24 and 26 bytes spilled): 2.538-2.568,
+//     3.524-3.592;
+//   the same at 32 columns (24 and 94 bytes spilled): 2.550-2.556,
+//     3.864-3.866;
+//   two blocks, 4-stage ring, 32 columns: 2.535-2.581, 3.901-3.926;
+//   one block an SM, 4-stage ring, 64 columns (201 and 230 registers, no
+//     spill): 3.536-3.563, 4.679-4.716.
+// Half the warps on an SM hide less of the mma.sync and ldmatrix latency
+// than a few spilled bytes cost; a deeper ring gains nothing measurable.
+// A wgmma version would take 64-row warpgroup tiles (4 warps together),
+// K, V, Q or dO as the B operand straight from the swizzled shared tiles,
+// and S, dP and the split parts of P and dS as A from registers; the split
+// keeps its three products, each one wgmma.
 
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace flash {
@@ -390,9 +436,10 @@ __device__ __forceinline__ void store_rows(T* dst, const float acc[8][4],
   }
 }
 
-__device__ __forceinline__ void zero(float acc[8][4]) {
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
@@ -434,8 +481,19 @@ __device__ __forceinline__ int next_live(const unsigned* live, int kt,
   return kt;
 }
 
-// Start the copies of key tile kt (K into ks, V into vs; not waited for);
-// warps 0 and 1 vote its real keys into kbits[0] and kbits[1].
+// Warps 0 and 1 vote key tile kt's real keys into kbits[0] and kbits[1].
+__device__ __forceinline__ void vote_keys(
+    unsigned* kbits, const unsigned char* __restrict__ mrow, int kt, int tk) {
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int key = kt * PT + threadIdx.x;
+    const unsigned vote = __ballot_sync(0xffffffffu, key < tk && mrow[key]);
+    if ((threadIdx.x & 31) == 0) kbits[warp] = vote;
+  }
+}
+
+// Start the copies of key tile kt (K into ks, V into vs; not waited for)
+// and vote its real keys into kbits[0] and kbits[1].
 template <int NTH, typename T>
 __device__ __forceinline__ void issue_kv(T* ks, T* vs,
                                          unsigned* kbits,
@@ -445,11 +503,20 @@ __device__ __forceinline__ void issue_kv(T* ks, T* vs,
                                          int kt, int tk, long rs) {
   issue_tile<NTH>(ks, kb, kt * PT, tk, rs);
   issue_tile<NTH>(vs, vb, kt * PT, tk, rs);
-  const int warp = threadIdx.x >> 5;
-  if (warp < 2) {
-    const int key = kt * PT + threadIdx.x;
-    const unsigned vote = __ballot_sync(0xffffffffu, key < tk && mrow[key]);
-    if ((threadIdx.x & 31) == 0) kbits[warp] = vote;
+  vote_keys(kbits, mrow, kt, tk);
+}
+
+// A query tile's lse and delta (rows row0 .. row0 + PT - 1 of the (batch,
+// head) at offset base) into dst[0, PT) and dst[PT, 2 PT) by cp.async;
+// rows at or past n_rows are zero.
+__device__ __forceinline__ void issue_rows(float* dst,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           long base, int row0, int n_rows) {
+  for (int i = threadIdx.x; i < 2 * PT; i += PNT) {
+    const int r = row0 + i % PT;
+    const float* src = (i < PT ? lse : delta) + base;
+    cp_async4(dst + i, src + (r < n_rows ? r : 0), r < n_rows);
   }
 }
 
@@ -611,63 +678,38 @@ __global__ void __launch_bounds__(FNT, 2)
 // The two-pass backward pair.
 // ---------------------------------------------------------------------------
 
-// f32 tiles a streamed operand of the pair takes for its hi parts: both
-// stages in place (f32), or one widened from the stage that landed (bf16).
-template <typename T>
-constexpr int kHiStages = kBf16<T> ? 1 : 2;
-
 // Shared memory of flash_bwd_dq_kernel: scale Q and dO split (4 resident
-// parts), K and V in two stages (bf16: their hi parts once and two bf16
-// stages), their lo parts, a stage's key bits, and one bit a key tile of
-// the walk.
-template <typename T>
+// parts), K and V in two stages, their lo parts, a stage's key bits, and
+// one bit a key tile of the walk.
 size_t dq_smem(int tk) {
   const int nk = (tk + PT - 1) / PT;
-  return sizeof(float) * (4 * RES + (2 * kHiStages<T> + 2) * TILE)
-         + (kBf16<T> ? sizeof(bf16) * 4 * TILE : 0)
+  return sizeof(float) * (4 * RES + 6 * TILE)
          + sizeof(unsigned) * (4 + (nk + 31) / 32);
 }
 
-// Shared memory of flash_bwd_dkv_kernel: K and V split (4 resident parts),
-// Q and dO in two stages (bf16: as dq_smem), their lo parts, a stage's lse
-// and delta.
-template <typename T>
+// Shared memory of flash_bwd_dkv_kernel: K and V split (4 resident
+// parts), Q and dO in two stages, their lo parts, a stage's lse and delta.
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * RES + (2 * kHiStages<T> + 2) * TILE + 4 * PT)
-         + (kBf16<T> ? sizeof(bf16) * 4 * TILE : 0);
+  return sizeof(float) * (4 * RES + 6 * TILE + 4 * PT);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const unsigned char* __restrict__ mask,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int H, int tq,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const unsigned char* __restrict__ mask,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int H, int tq,
     int tk, int causal, float scale) {
-  constexpr int HS = kHiStages<T>;
   extern __shared__ float4 smem_dq[];
   float* Qhi = reinterpret_cast<float*>(smem_dq);
   float* Qlo = Qhi + RES;
   float* Ohi = Qlo + RES;
   float* Olo = Ohi + RES;
-  float* Ks = Olo + RES;  // [HS][TILE]: hi parts (f32: a stage's landed tile)
-  float* Vs = Ks + HS * TILE;
-  float* Klo = Vs + HS * TILE;
+  float* Ks = Olo + RES;  // [2][TILE]: a stage's landed tile, its hi part
+  float* Vs = Ks + 2 * TILE;
+  float* Klo = Vs + 2 * TILE;
   float* Vlo = Klo + TILE;
-  bf16* stage = reinterpret_cast<bf16*>(Vlo + TILE);  // bf16: [2][K, V]
-  unsigned* kbits = reinterpret_cast<unsigned*>(
-      kBf16<T> ? (void*)(stage + 4 * TILE) : (void*)(Vlo + TILE));  // [2][2]
+  unsigned* kbits = reinterpret_cast<unsigned*>(Vlo + TILE);  // [2][2]
   unsigned* live = kbits + 4;
-  // Where stage st's K and V land.
-  auto kland = [&](int st) {
-    return reinterpret_cast<T*>(kBf16<T> ? (void*)(stage + 2 * st * TILE)
-                                         : (void*)(Ks + st * TILE));
-  };
-  auto vland = [&](int st) {
-    return reinterpret_cast<T*>(kBf16<T>
-                                    ? (void*)(stage + (2 * st + 1) * TILE)
-                                    : (void*)(Vs + st * TILE));
-  };
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * PR;
@@ -684,8 +726,8 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
   // Start the copies of key tile kt into stage st, its real keys into
   // kbits[st].
   auto issue = [&](int kt, int st) {
-    issue_kv<PNT>(kland(st), vland(st), kbits + 2 * st, k + koff, v + koff,
-                  mrow, kt, tk, rs);
+    issue_kv<PNT>(Ks + st * TILE, Vs + st * TILE, kbits + 2 * st, k + koff,
+                  v + koff, mrow, kt, tk, rs);
   };
 
   mark_live_tiles<PNT>(live, mrow, kend, tk);
@@ -713,10 +755,10 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
     const int kn = next_live(live, kt + 1, kend);
     if (kn < kend) issue(kn, st ^ 1);  // overlaps this tile's products
     cp_async_commit();
-    float* Khi = Ks + (st % HS) * TILE;
-    float* Vhi = Vs + (st % HS) * TILE;
-    split_landed(kland(st), Khi, Klo, 1.f);
-    split_landed(vland(st), Vhi, Vlo, 1.f);
+    float* Khi = Ks + st * TILE;
+    float* Vhi = Vs + st * TILE;
+    split_tile(Khi, Klo, 1.f);
+    split_tile(Vhi, Vlo, 1.f);
     __syncthreads();
     const int k0 = kt * PT;
     // Causal: a query tile wholly before the key tile sees none of it.
@@ -745,34 +787,22 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dq_kernel(
   store_rows(dq + qoff, dq_acc, q0, tq, rs, scale);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const unsigned char* __restrict__ mask,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk,
-    T* __restrict__ dv, int H, int tq, int tk, int causal, float scale) {
-  constexpr int HS = kHiStages<T>;
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const unsigned char* __restrict__ mask,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int H, int tq, int tk, int causal, float scale) {
   extern __shared__ float4 smem_dkv[];
   float* Khi = reinterpret_cast<float*>(smem_dkv);
   float* Klo = Khi + RES;
   float* Vhi = Klo + RES;
   float* Vlo = Vhi + RES;
-  float* Qs = Vlo + RES;  // [HS][TILE]: hi parts (f32: a stage's landed tile)
-  float* Os = Qs + HS * TILE;
-  float* Qlo = Os + HS * TILE;
+  float* Qs = Vlo + RES;  // [2][TILE]: a stage's landed tile, its hi part
+  float* Os = Qs + 2 * TILE;
+  float* Qlo = Os + 2 * TILE;
   float* Olo = Qlo + TILE;
   float* rowv = Olo + TILE;  // [2][2][PT]: a stage's lse, then delta
-  bf16* stage = reinterpret_cast<bf16*>(rowv + 4 * PT);  // bf16: [2][Q, dO]
-  auto qland = [&](int st) {
-    return reinterpret_cast<T*>(kBf16<T> ? (void*)(stage + 2 * st * TILE)
-                                         : (void*)(Qs + st * TILE));
-  };
-  auto oland = [&](int st) {
-    return reinterpret_cast<T*>(kBf16<T>
-                                    ? (void*)(stage + (2 * st + 1) * TILE)
-                                    : (void*)(Os + st * TILE));
-  };
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = blockIdx.x * PR;
@@ -803,13 +833,9 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
   }
   // Start the copies of query tile qt (Q, dO, lse, delta) into stage st.
   auto issue = [&](int qt, int st) {
-    issue_tile(qland(st), q + qoff, qt * PT, tq, rs);
-    issue_tile(oland(st), dout + qoff, qt * PT, tq, rs);
-    for (int i = tid; i < 2 * PT; i += PNT) {
-      const int r = qt * PT + i % PT;
-      const float* src = (i < PT ? lse : delta) + (long)bh * tq;
-      cp_async4(rowv + 2 * PT * st + i, src + (r < tq ? r : 0), r < tq);
-    }
+    issue_tile(Qs + st * TILE, q + qoff, qt * PT, tq, rs);
+    issue_tile(Os + st * TILE, dout + qoff, qt * PT, tq, rs);
+    issue_rows(rowv + 2 * PT * st, lse, delta, (long)bh * tq, qt * PT, tq);
   };
 
   const int nq = (tq + PT - 1) / PT;
@@ -826,10 +852,10 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
     __syncthreads();  // stage st landed; stage st ^ 1 and the lo parts free
     if (qt + 1 < nq) issue(qt + 1, st ^ 1);  // overlaps this tile's products
     cp_async_commit();
-    float* Qhi = Qs + (st % HS) * TILE;
-    float* Ohi = Os + (st % HS) * TILE;
-    split_landed(qland(st), Qhi, Qlo, scale);  // scale Q: S and dK
-    split_landed(oland(st), Ohi, Olo, 1.f);
+    float* Qhi = Qs + st * TILE;
+    float* Ohi = Os + st * TILE;
+    split_tile(Qhi, Qlo, scale);  // scale Q: S and dK
+    split_tile(Ohi, Olo, 1.f);
     __syncthreads();
     const int q0 = qt * PT;
     // A dead key tile, or (causal) a query tile wholly before it: skipped.
@@ -861,6 +887,310 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
   store_rows(dv + koff, dv_acc, k0, tk, rs, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 two-pass backward pair: bf16 tiles, bf16 mma.sync (bf16_mma.cuh).
+// ---------------------------------------------------------------------------
+
+using bf16mma::frag_a;
+using bf16mma::frag_acc3;
+using bf16mma::frag_bn;
+using bf16mma::frag_bt;
+
+// The layout kept (the note at the head of this file has the others
+// measured):
+constexpr int BSTAGES = 3;  // the streamed tiles' ring
+constexpr int BBLOCKS = 2;  // blocks an SM (__launch_bounds__)
+constexpr int BNC = 16;     // a streamed tile's columns a warp takes at once
+constexpr int BRES = PR * D;  // bf16 elements of a resident tile
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + ROWS - 1 of one (batch, head) slice into a swizzled
+// bf16 tile (bf16mma::swz) by cp.async, 16 bytes a copy (not waited for);
+// rows at or past n_rows are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void issue_bf16(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int row0, int n_rows,
+                                           long row_stride) {
+  for (int e = threadIdx.x; e < ROWS * D / 8; e += PNT) {
+    const int r = e >> 3, c = e & 7;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + bf16mma::swz(r, c),
+               src + (long)(in ? row0 + r : 0) * row_stride + 8 * c, in);
+  }
+}
+
+// Shared memory of flash_bwd_dq_kernel_bf16: Q and dO resident, K and V in
+// the ring, a stage's key bits, and one bit a key tile of the walk.
+size_t dq_smem_bf16(int tk) {
+  const int nk = (tk + PT - 1) / PT;
+  return sizeof(bf16) * (2 * BRES + 2 * BSTAGES * TILE)
+         + sizeof(unsigned) * (2 * BSTAGES + (nk + 31) / 32);
+}
+
+// Shared memory of flash_bwd_dkv_kernel_bf16: K and V resident, Q and dO in
+// the ring with a stage's lse and delta.
+constexpr size_t dkv_smem_bf16() {
+  return sizeof(bf16) * (2 * BRES + 2 * BSTAGES * TILE)
+         + sizeof(float) * 2 * BSTAGES * PT;
+}
+
+// acc += A B^T over this warp's 16 rows and BNC columns c0 ..: A the
+// resident tile's rows r0 .., B a streamed tile's rows c0 .., contracted
+// over D; one bf16 mma.sync a product.
+__device__ __forceinline__ void mma_bf16(float (&acc)[BNC / 8][4],
+                                         const bf16* res, int r0,
+                                         const bf16* tile, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, res, r0, kk);
+#pragma unroll
+    for (int jp = 0; jp < BNC / 16; ++jp) {
+      uint32_t b[4];
+      frag_bt(b, tile, kk, c0 / 8 + 2 * jp);
+      bf16mma::mma(acc[2 * jp], a, b[0], b[1]);
+      bf16mma::mma(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc += X T over this warp's 16 rows: X [16, BNC] f32 accumulators (P or
+// dS over a streamed tile's rows c0 ..), T those rows of the tile [64, D];
+// each slice of X split three ways, three bf16 mma.sync a product.
+__device__ __forceinline__ void mma_split(float (&acc)[8][4],
+                                          const float (&x)[BNC / 8][4],
+                                          const bf16* tile, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < BNC / 16; ++kk) {
+    uint32_t a[3][4];
+    frag_acc3(a, x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      uint32_t b[4];
+      frag_bn(b, tile, c0 / 16 + kk, 2 * jp);
+      bf16mma::mma3(acc[2 * jp], a, b[0], b[1]);
+      bf16mma::mma3(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// One block a (batch, head, 128 query rows), 8 warps of 16 rows, walking
+// the live key tiles through a BSTAGES ring; Q and dO resident as bf16.
+__global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dq_kernel_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int tq,
+    int tk, int causal, float scale) {
+  extern __shared__ float4 smem_dq16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_dq16);
+  bf16* Os = Qs + BRES;
+  bf16* ring = Os + BRES;  // [BSTAGES][K, V][TILE]
+  unsigned* kbits = reinterpret_cast<unsigned*>(ring + 2 * BSTAGES * TILE);
+  unsigned* live = kbits + 2 * BSTAGES;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * PR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows of Qs and Os
+  const long rs = (long)H * D;
+  const long qoff = ((long)b * tq * H + h) * D;
+  const long koff = ((long)b * tk * H + h) * D;
+  const unsigned char* mrow = mask + (long)b * tk;
+  int kend = (tk + PT - 1) / PT;
+  // Causal: key tiles wholly above the block's last query row see nothing.
+  if (causal) kend = min(kend, (q0 + PR - 1) / PT + 1);
+
+  // Start the copies of key tile kt into stage st, its real keys into
+  // kbits[st].
+  auto issue = [&](int kt, int st) {
+    bf16* ks = ring + 2 * st * TILE;
+    issue_bf16<PT>(ks, k + koff, kt * PT, tk, rs);
+    issue_bf16<PT>(ks + TILE, v + koff, kt * PT, tk, rs);
+    vote_keys(kbits + 2 * st, mrow, kt, tk);
+  };
+
+  mark_live_tiles<PNT>(live, mrow, kend, tk);
+  // Q and dO join the first copy group; then BSTAGES - 1 live key tiles
+  // are in flight, a group each (empty past the last).
+  issue_bf16<PR>(Qs, q + qoff, q0, tq, rs);
+  issue_bf16<PR>(Os, dout + qoff, q0, tq, rs);
+  int kt = next_live(live, 0, kend), ki = kt;
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {
+    if (ki < kend) {
+      issue(ki, st);
+      ki = next_live(live, ki + 1, kend);
+    }
+    cp_async_commit();
+  }
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + r0 + g + 8 * half;
+    lse_r[half] = r < tq ? lse[(long)bh * tq + r] : 0.f;
+    delta_r[half] = r < tq ? delta[(long)bh * tq + r] : 0.f;
+  }
+  // This warp's 64-row query tile: past tq, it has nothing to compute.
+  const int qtile0 = q0 + 64 * (warp >> 2);
+  float dq_acc[8][4];
+  zero(dq_acc);
+  for (int s = 0; kt < kend; ++s) {
+    const int st = s % BSTAGES;
+    cp_async_wait<BSTAGES - 2>();
+    __syncthreads();  // tile s landed; the stage tile s - 1 used is free
+    if (ki < kend) {  // overlaps this tile's products
+      issue(ki, (s + BSTAGES - 1) % BSTAGES);
+      ki = next_live(live, ki + 1, kend);
+    }
+    cp_async_commit();
+    const bf16* Kt = ring + 2 * st * TILE;
+    const bf16* Vt = Kt + TILE;
+    const int k0 = kt * PT;
+    // Causal: a query tile wholly before the key tile sees none of it.
+    if (qtile0 < tq && (!causal || k0 <= qtile0 + PT - 1)) {
+      const unsigned kb0 = kbits[2 * st], kb1 = kbits[2 * st + 1];
+#pragma unroll
+      for (int c0 = 0; c0 < PT; c0 += BNC) {  // keys k0 + c0 ..
+        float s_acc[BNC / 8][4], dp[BNC / 8][4];
+        zero(s_acc);
+        zero(dp);
+        mma_bf16(s_acc, Qs, r0, Kt, c0);  // S / scale = Q K^T
+        mma_bf16(dp, Os, r0, Vt, c0);     // dP = dO V^T
+#pragma unroll
+        for (int j = 0; j < BNC / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = q0 + r0 + g + 8 * (i >> 1);
+            const int c = c0 + 8 * j + 2 * t + (i & 1);
+            const unsigned bits = c0 + 8 * j < 32 ? kb0 : kb1;
+            const bool real = (bits >> (c & 31)) & 1u;
+            const bool keep = r < tq && real && (!causal || r >= k0 + c);
+            const float p =
+                keep ? expf(s_acc[j][i] * scale - lse_r[i >> 1]) : 0.f;
+            s_acc[j][i] = p * (dp[j][i] - delta_r[i >> 1]);  // dS
+          }
+        mma_split(dq_acc, s_acc, Kt, c0);  // dq += dS K
+      }
+    }
+    kt = next_live(live, kt + 1, kend);
+  }
+  cp_async_wait_all();  // a walk with no live tile leaves Q and dO in flight
+  store_rows(dq + qoff, dq_acc, q0, tq, rs, scale);
+}
+
+// One block a (batch, head, 128 keys), 8 warps of 16 keys, walking the
+// query tiles through a BSTAGES ring; K and V resident as bf16.
+__global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dkv_kernel_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int tq, int tk, int causal, float scale) {
+  extern __shared__ float4 smem_dkv16[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_dkv16);
+  bf16* Vs = Ks + BRES;
+  bf16* ring = Vs + BRES;  // [BSTAGES][Q, dO][TILE]
+  // [BSTAGES][2][PT]: a stage's lse, then delta
+  float* rowv = reinterpret_cast<float*>(ring + 2 * BSTAGES * TILE);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * PR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows of Ks and Vs
+  const long rs = (long)H * D;
+  const long qoff = ((long)b * tq * H + h) * D;
+  const long koff = ((long)b * tk * H + h) * D;
+  const unsigned char* mrow = mask + (long)b * tk;
+
+  // This warp's 64-key tile (warps 0-3 the block's first, 4-7 its second)
+  // and whether it holds a real key; this thread's keys (rows g, g + 8).
+  const int ktile0 = k0 + PT * (warp >> 2);
+  const int key = ktile0 + lane;
+  const bool tile_live =
+      __any_sync(0xffffffffu, (key < tk && mrow[key]) ||
+                                  (key + 32 < tk && mrow[key + 32]));
+  const int kr = k0 + r0 + g;
+  const bool real[2] = {kr < tk && mrow[kr], kr + 8 < tk && mrow[kr + 8]};
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (!__syncthreads_or(tile_live)) {
+    // No real key: P = dS = 0, so dk = dv = 0; nothing is loaded.
+    store_rows(dk + koff, dk_acc, k0, tk, rs, 1.f);
+    store_rows(dv + koff, dv_acc, k0, tk, rs, 1.f);
+    return;
+  }
+  // Start the copies of query tile qt (Q, dO, lse, delta) into stage st.
+  auto issue = [&](int qt, int st) {
+    bf16* qs = ring + 2 * st * TILE;
+    issue_bf16<PT>(qs, q + qoff, qt * PT, tq, rs);
+    issue_bf16<PT>(qs + TILE, dout + qoff, qt * PT, tq, rs);
+    issue_rows(rowv + 2 * PT * st, lse, delta, (long)bh * tq, qt * PT, tq);
+  };
+
+  const int nq = (tq + PT - 1) / PT;
+  // Causal: query tiles wholly before the block's first key see none of it.
+  int qt = causal ? min(nq, k0 / PT) : 0;
+  // K and V join the first copy group; then BSTAGES - 1 query tiles.
+  issue_bf16<PR>(Ks, k + koff, k0, tk, rs);
+  issue_bf16<PR>(Vs, v + koff, k0, tk, rs);
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {
+    if (qt + st < nq) issue(qt + st, st);
+    cp_async_commit();
+  }
+  for (int s = 0; qt < nq; ++s, ++qt) {
+    const int st = s % BSTAGES;
+    cp_async_wait<BSTAGES - 2>();
+    __syncthreads();  // tile s landed; the stage tile s - 1 used is free
+    if (qt + BSTAGES - 1 < nq)  // overlaps this tile's products
+      issue(qt + BSTAGES - 1, (s + BSTAGES - 1) % BSTAGES);
+    cp_async_commit();
+    const bf16* Qt = ring + 2 * st * TILE;
+    const bf16* Ot = Qt + TILE;
+    const float* lse_s = rowv + 2 * PT * st;
+    const float* delta_s = lse_s + PT;
+    const int q0 = qt * PT;
+    // A dead key tile, or (causal) a query tile wholly before it: skipped.
+    if (tile_live && (!causal || q0 + PT - 1 >= ktile0)) {
+#pragma unroll
+      for (int c0 = 0; c0 < PT; c0 += BNC) {  // queries q0 + c0 ..
+        float s_acc[BNC / 8][4], dp[BNC / 8][4];
+        zero(s_acc);
+        zero(dp);
+        mma_bf16(s_acc, Ks, r0, Qt, c0);  // S^T / scale = K Q^T
+        mma_bf16(dp, Vs, r0, Ot, c0);     // dP^T = V dO^T
+#pragma unroll
+        for (int j = 0; j < BNC / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = kr + 8 * (i >> 1);                  // key
+            const int c = c0 + 8 * j + 2 * t + (i & 1);       // query q0 + c
+            const bool keep = real[i >> 1] && q0 + c < tq &&
+                              (!causal || q0 + c >= r);
+            const float p =
+                keep ? expf(s_acc[j][i] * scale - lse_s[c]) : 0.f;
+            s_acc[j][i] = p;                         // P^T
+            dp[j][i] = p * (dp[j][i] - delta_s[c]);  // dS^T
+          }
+        mma_split(dv_acc, s_acc, Ot, c0);  // dV += P^T dO
+        mma_split(dk_acc, dp, Qt, c0);     // dK / scale += dS^T Q
+      }
+    }
+  }
+  cp_async_wait_all();  // a walk with no query tile leaves K and V in flight
+  store_rows(dk + koff, dk_acc, k0, tk, rs, scale);
+  store_rows(dv + koff, dv_acc, k0, tk, rs, 1.f);
+}
+
 // Opt the kernel into ``bytes`` of dynamic shared memory (above 48 KB
 // needs it), then launch ``threads`` a block; returns the first CUDA error.
 template <typename Kernel, typename... Args>
@@ -882,24 +1212,40 @@ int fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* o,
                 v, mask, o, lse, H, tq, tk, causal, scale);
 }
 
-template <typename T>
-int bwd_dq(const T* q, const T* k, const T* v, const unsigned char* mask,
-           const T* dout, const float* lse, const float* delta, T* dq, int B,
-           int H, int tq, int tk, int causal, float scale,
-           cudaStream_t stream) {
+int bwd_dq(const float* q, const float* k, const float* v,
+           const unsigned char* mask, const float* dout, const float* lse,
+           const float* delta, float* dq, int B, int H, int tq, int tk,
+           int causal, float scale, cudaStream_t stream) {
   dim3 grid((tq + PR - 1) / PR, B * H);
-  return launch(flash_bwd_dq_kernel<T>, grid, PNT, dq_smem<T>(tk), stream, q,
-                k, v, mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
+  return launch(flash_bwd_dq_kernel, grid, PNT, dq_smem(tk), stream, q, k, v,
+                mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
 }
 
-template <typename T>
-int bwd_dkv(const T* q, const T* k, const T* v, const unsigned char* mask,
-            const T* dout, const float* lse, const float* delta, T* dk, T* dv,
-            int B, int H, int tq, int tk, int causal, float scale,
-            cudaStream_t stream) {
+int bwd_dq(const bf16* q, const bf16* k, const bf16* v,
+           const unsigned char* mask, const bf16* dout, const float* lse,
+           const float* delta, bf16* dq, int B, int H, int tq, int tk,
+           int causal, float scale, cudaStream_t stream) {
+  dim3 grid((tq + PR - 1) / PR, B * H);
+  return launch(flash_bwd_dq_kernel_bf16, grid, PNT, dq_smem_bf16(tk), stream,
+                q, k, v, mask, dout, lse, delta, dq, H, tq, tk, causal, scale);
+}
+
+int bwd_dkv(const float* q, const float* k, const float* v,
+            const unsigned char* mask, const float* dout, const float* lse,
+            const float* delta, float* dk, float* dv, int B, int H, int tq,
+            int tk, int causal, float scale, cudaStream_t stream) {
   dim3 grid((tk + PR - 1) / PR, B * H);
-  return launch(flash_bwd_dkv_kernel<T>, grid, PNT, dkv_smem<T>(), stream, q,
-                k, v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal,
+  return launch(flash_bwd_dkv_kernel, grid, PNT, dkv_smem(), stream, q, k, v,
+                mask, dout, lse, delta, dk, dv, H, tq, tk, causal, scale);
+}
+
+int bwd_dkv(const bf16* q, const bf16* k, const bf16* v,
+            const unsigned char* mask, const bf16* dout, const float* lse,
+            const float* delta, bf16* dk, bf16* dv, int B, int H, int tq,
+            int tk, int causal, float scale, cudaStream_t stream) {
+  dim3 grid((tk + PR - 1) / PR, B * H);
+  return launch(flash_bwd_dkv_kernel_bf16, grid, PNT, dkv_smem_bf16(), stream,
+                q, k, v, mask, dout, lse, delta, dk, dv, H, tq, tk, causal,
                 scale);
 }
 
@@ -924,16 +1270,16 @@ int bwd_dkv(const T* q, const T* k, const T* v, const unsigned char* mask,
       const T* q, const T* k, const T* v, const unsigned char* mask,          \
       const T* dout, const float* lse, const float* delta, T* dq, int B,      \
       int H, int tq, int tk, int causal, float scale, cudaStream_t stream) {  \
-    return flash::bwd_dq<T>(q, k, v, mask, dout, lse, delta, dq, B, H, tq,    \
-                            tk, causal, scale, stream);                       \
+    return flash::bwd_dq(q, k, v, mask, dout, lse, delta, dq, B, H, tq, tk, \
+                         causal, scale, stream);                              \
   }                                                                           \
   extern "C" int flash_bwd_dkv##SUFFIX##_launch(                              \
       const T* q, const T* k, const T* v, const unsigned char* mask,          \
       const T* dout, const float* lse, const float* delta, T* dk, T* dv,      \
       int B, int H, int tq, int tk, int causal, float scale,                  \
       cudaStream_t stream) {                                                  \
-    return flash::bwd_dkv<T>(q, k, v, mask, dout, lse, delta, dk, dv, B, H,   \
-                             tq, tk, causal, scale, stream);                  \
+    return flash::bwd_dkv(q, k, v, mask, dout, lse, delta, dk, dv, B, H, tq, \
+                          tk, causal, scale, stream);                         \
   }
 
 FLASH_ATTN_C_INTERFACE(, float)

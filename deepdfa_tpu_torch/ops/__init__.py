@@ -13,10 +13,14 @@ from typing import Dict
 #: cores (each product split into TF32 high and low parts, three TF32
 #: products summed in f32: a third of the 495 TFLOP/s TF32 rate); and
 #: a product of two bf16 operands with f32 sums on the tensor cores
-#: (dense bf16, 989 TFLOP/s).
+#: (dense bf16, 989 TFLOP/s); and a product of an f32 operand with a bf16
+#: one, exact, as three bf16 products (the f32 operand split into three
+#: bf16 parts: a third of the bf16 rate).
 PEAK_F32_SIMT = ("f32 SIMT FMA, 67 TFLOP/s", 67e12)
 PEAK_3XTF32 = ("3xTF32 tensor cores, 495/3 TFLOP/s", 495e12 / 3)
 PEAK_BF16 = ("bf16 tensor cores, 989 TFLOP/s", 989e12)
+PEAK_BF16X3 = ("f32 x bf16 as three bf16 products, 989/3 TFLOP/s",
+               989e12 / 3)
 #: The card's memory rate the bytes bound divides by (HBM3, 3.35 TB/s).
 PEAK_BYTES_PER_S = 3.35e12
 

@@ -41,7 +41,8 @@ HEADERS: Dict[str, Tuple[str, ...]] = {
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),
                       os.path.join("csrc", "group_step.cuh"),
                       os.path.join("csrc", "tf32_mma.cuh")),
-    "flash_attn": (os.path.join("csrc", "tf32_mma.cuh"),),
+    "flash_attn": (os.path.join("csrc", "bf16_mma.cuh"),
+                   os.path.join("csrc", "tf32_mma.cuh")),
     "flash_bwd_fused": (os.path.join("csrc", "tf32_mma.cuh"),),
     "tile_spmm": (),
 }

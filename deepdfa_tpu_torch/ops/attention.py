@@ -27,9 +27,11 @@ and how they are laid out), each with its plain PyTorch version here:
   :func:`flash_bwd_fused_reference`.
 - :func:`flash_bwd_dq` launches ``flash_bwd_dq_kernel`` and
   :func:`flash_bwd_dkv` ``flash_bwd_dkv_kernel``, the two-pass backward
-  (the products as 3xTF32 on the tensor cores, the key tiles with no real
-  key skipped); they replace ``_flash_bwd_dq_kernel`` and
-  ``_flash_bwd_dkv_kernel``. Plain versions
+  (the key tiles with no real key skipped; the f32 instances' products as
+  3xTF32 on the tensor cores, the bf16 instances' as bf16 ``mma.sync``:
+  one for a product of two inputs, three for one with P or dS, split in
+  registers as :func:`split_bf16x3` splits); they replace
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``. Plain versions
   :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`.
 
 :func:`flash_attention` differentiates through :class:`_FlashAttention`,
@@ -49,9 +51,14 @@ every length runs through them.
 Dtypes. Every kernel has an f32 instance and a bf16 one (``*_bf16`` in
 :func:`launch_counts`), as the reference's Pallas kernels are generic over
 the input dtype: q, k, v and dO in bf16, every score, probability and
-sum in f32, lse and delta f32, and o, dq, dk and dv written in bf16. A
-bf16 instance gives bit for bit the f32 kernel's result on the widened
-inputs, rounded once to bf16. The plain versions widen and compute in
+sum in f32, lse and delta f32, and o, dq, dk and dv written in bf16. The
+forward's and the fused backward's bf16 instances give bit for bit the
+f32 kernel's result on the widened inputs, rounded once to bf16. The
+two-pass pair's bf16 instances take bf16 tiles and bf16 tensor-core
+products with f32 sums, exact products grouped 16 deep rather than 8, so
+each output lies within one bf16 step (or 1e-5) of the f32 kernel's
+rounded result, and no further from a float64 evaluation of the
+reference's formulas than it. The plain versions widen and compute in
 f32 and cast at the same points.
 
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
@@ -73,7 +80,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BF16
+from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BF16, PEAK_BF16X3
 
 NEG_INF = -1e30
 
@@ -266,6 +273,24 @@ def flash_bwd_dkv_reference(q, k, v, kv_mask, do, lse, delta,
         dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, do.float()))
         dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qs))
     return torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+
+
+def split_bf16x3(x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An f32 tensor as three bf16 tensors ``(x1, x2, x3)``: ``x1 =
+    bf16(x)``, ``x2 = bf16(x - x1)``, ``x3 = bf16(x - x1 - x2)`` (round to
+    nearest even; each subtraction exact in f32). Each part keeps 8
+    significant bits and bf16 has f32's exponent range, so ``x1 + x2 +
+    x3 == x`` exactly where ``x3`` stays normal (``|x| >= 2^-100``), and
+    each part's product with a bf16 value is exact in f32. The split the
+    bf16 two-pass kernels do in registers on P and dS before three bf16
+    ``mma.sync`` (``csrc/bf16_mma.cuh``); nothing on the main path calls
+    it."""
+    x = x.float()
+    x1 = x.bfloat16()
+    r = x - x1.float()
+    x2 = r.bfloat16()
+    return x1, x2, (r - x2.float()).bfloat16()
 
 
 def flash_bwd_fused_reference(q, k, v, kv_mask, do, lse, delta,
@@ -652,9 +677,11 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     - ``peak_flops``/``peak``: the rate the operations bound divides by.
       f32: the f32 work of the 3xTF32 products on the tensor cores. bf16:
       the products of two bf16 inputs (``_INPUT_PRODUCTS``) at the dense
-      bf16 tensor-core rate and those with an f32 operand at the 3xTF32
-      rate, as one rate over all the products (``flops`` over the sum of
-      the two times); ``flops_bf16`` counts the first kind."""
+      bf16 tensor-core rate and those with an f32 operand (P or dS) at a
+      third of it (``PEAK_BF16X3``: the f32 operand split into three bf16
+      parts, each product exact), as one rate over all the products
+      (``flops`` over the sum of the two times); ``flops_bf16`` counts
+      the first kind."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
     bf16 = kernel.endswith("_bf16")
@@ -698,9 +725,9 @@ def kernel_cost(kv_mask: torch.Tensor, tq: int, h: int, d: int,
     if bf16:
         n, nb = _PRODUCTS[kernel], _INPUT_PRODUCTS[kernel]
         flops_bf16 = unit * pairs * nb / n
-        peak = (f"{PEAK_BF16[0]} ({nb} of {n} products), {PEAK_3XTF32[0]} "
+        peak = (f"{PEAK_BF16[0]} ({nb} of {n} products), {PEAK_BF16X3[0]} "
                 f"({n - nb})",
-                n / (nb / PEAK_BF16[1] + (n - nb) / PEAK_3XTF32[1]))
+                n / (nb / PEAK_BF16[1] + (n - nb) / PEAK_BF16X3[1]))
     return {"flops": unit * pairs, "flops_bf16": flops_bf16,
             "bytes": nbytes, "executed_flops": unit * tiles * TILE * TILE,
             "dead_key_tiles": h * int((~live_tiles).sum()),

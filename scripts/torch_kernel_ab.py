@@ -7,8 +7,9 @@ Each checkout's own ``chip_smoke.py`` runs its device, build, ``kernels``
 (the two GNN forward kernels at the serving and flagship shapes),
 ``train_kernels`` (the GNN kernels at the training shape, the persistent
 pair and the weight pass ``step_weight_grad_kernel`` among them),
-``tile_kernels`` and ``attention_kernels`` phases in a process of its
-own, in the order OLD, NEW, NEW, OLD, so that a drift of the card or its
+``tile_kernels``, ``attention_kernels`` and ``attention_kernels_bf16``
+(the flash kernels' bf16 instances) phases in a process of its own, in
+the order OLD, NEW, NEW, OLD, so that a drift of the card or its
 host over the call shows as a gap between the two runs of one checkout.
 Prints one JSON object: for each checkout and run, each kernel's
 ``kernel_ms``, ``plain_ms``, ``library_ms``, ``scan_ms`` (a persistent
@@ -37,6 +38,7 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           "device='cuda', seed=cs.SEED); cs.phase_kernels(model); "
           "cs.phase_train_kernels(model); "
           "cs.phase_tile_kernels(); cs.phase_attention_kernels(); "
+          "cs.phase_attention_kernels(cs.torch.bfloat16); "
           # The fused flash backward's output bits, and the forward's, on
           # chip_smoke's seeded T 512 inputs.
           "import hashlib, torch; A = cs.attention; F = cs.fused_gnn; "
@@ -81,7 +83,8 @@ def run(checkout: str) -> dict:
                                   "gnn_step_bits"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
         elif rec.get("phase") in ("kernels", "train_kernels",
-                                  "tile_kernels", "attention_kernels"):
+                                  "tile_kernels", "attention_kernels",
+                                  "attention_kernels_bf16"):
             where = rec.get("over") or rec.get("shape")
             out[f"{rec['kernel']}@{where}"] = {k: rec.get(k) for k in KEYS}
     return out

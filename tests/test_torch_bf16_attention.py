@@ -187,14 +187,16 @@ def test_bf16_instances_are_counted_and_costed_apart():
         assert bf["flops"] == f32["flops"]
         assert bf["executed_flops"] == f32["executed_flops"]
         # The products of two bf16 inputs (QK^T, dO V^T) at the bf16
-        # tensor-core rate, those with an f32 operand at 3xTF32's.
+        # tensor-core rate, those with an f32 operand (P or dS, split
+        # into three bf16 parts) at a third of it.
         n, nb = {"flash_fwd_kernel": (2, 1), "flash_bwd_fused_kernel": (5, 2),
                  "flash_bwd_dq_kernel": (3, 2),
                  "flash_bwd_dkv_kernel": (4, 2)}[name]
         assert f32["flops_bf16"] == 0.0
         assert bf["flops_bf16"] == pytest.approx(bf["flops"] * nb / n)
         seconds = bf["flops_bf16"] / 989e12 + (bf["flops"]
-                                               - bf["flops_bf16"]) / 165e12
+                                               - bf["flops_bf16"]) / (
+                                                   989e12 / 3)
         assert bf["flops"] / bf["peak_flops"] == pytest.approx(seconds)
         assert f32["peak_flops"] == 165e12
         # Only the [H, D] rows shrink to 2 bytes an element: the mask's

@@ -1326,6 +1326,12 @@ def test_codet5_combined_train_step_matches_cpu(cuda, impl):
 # another order) and round once to bf16, so they land within a bf16 step
 # of each other, plus the f32 order gap of the f32 kernels (1e-5).
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+# The same past T 512, where a gradient sums up to 4096 tensor-core
+# products with real keys: the f32 order gap grows to chip_smoke's
+# ATTN_BF16_GRAD_TOL (at T 4096 with lengths [3000, 100] the f32 pair is
+# up to 9.2e-5 from a float64 evaluation in dk and dv, the f32 plain
+# version 1.1e-5; its bf16 design rounded missed BF16_TOL at 3 elements).
+BF16_LONG_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
 
 
 def _bf16_inputs(b, t, h, d, dev):
@@ -1382,10 +1388,12 @@ def test_flash_bf16_instances_match_plain_versions(cuda, b, t, h, d,
 ])
 def test_flash_bf16_instances_are_the_f32_kernels_rounded(cuda, t, lengths,
                                                           causal):
-    """The identity the bf16 design keeps: each bf16 instance gives bit
-    for bit the f32 kernel's output on the widened inputs, rounded once
-    to bf16 (lse bit for bit), so it skips the same dead key tiles; and
-    two launches give the same bits."""
+    """The identity the forward's and the fused backward's bf16 design
+    keeps: each gives bit for bit the f32 kernel's output on the widened
+    inputs, rounded once to bf16 (lse bit for bit), so it skips the same
+    dead key tiles; and two launches give the same bits. (The two-pass
+    pair's bf16 instances sum in another grouping: their contract is
+    test_flash_bf16_pair_within_an_ulp_of_the_f32_kernels.)"""
     from deepdfa_tpu_torch.ops import attention as A
 
     b, h, d = len(lengths), 2, 64
@@ -1401,9 +1409,7 @@ def test_flash_bf16_instances_are_the_f32_kernels_rounded(cuda, t, lengths,
     delta = A.flash_delta(o, g)
     args = (q, k, v, mask, g, lse, delta, causal)
     args32 = (*wide(q, k, v), mask, g.float(), lse, delta, causal)
-    fns = [A.flash_bwd_dq, A.flash_bwd_dkv]
-    if A.flash_fused_bwd_ok(t, d):
-        fns.append(A.flash_bwd_fused)
+    fns = [A.flash_bwd_fused] if A.flash_fused_bwd_ok(t, d) else []
     for fn in fns:
         got, want, rep = fn(*args), fn(*args32), fn(*args)
         got, want, rep = ([x] if torch.is_tensor(x) else list(x)
@@ -1416,6 +1422,127 @@ def test_flash_bf16_instances_are_the_f32_kernels_rounded(cuda, t, lengths,
         "dead_key_tiles"]
     assert dead == A.kernel_cost(mask, t, h, d, "flash_fwd_kernel", causal)[
         "dead_key_tiles"] > 0
+
+
+def _bf16_ulps_apart(a, b):
+    """Elementwise distance of two bf16 tensors in bf16 steps (the bit
+    patterns in order; +0 and -0 one value)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _pair_f64(q, k, v, mask, g, lse, delta, causal):
+    """dq, dk and dv of the reference's formulas in float64, one (batch,
+    head) at a time: P = exp(S - lse) on the keys each query may see,
+    dS = P (dO V^T - delta)."""
+    b, t, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    out = [torch.zeros(q.shape, dtype=torch.float64, device=q.device)
+           for _ in range(3)]
+    seen = mask[:, None, :].expand(b, t, t)
+    if causal:
+        seen = seen & torch.ones(t, t, dtype=torch.bool,
+                                 device=q.device).tril()
+    for bi in range(b):
+        for hi in range(h):
+            qd, kd, vd, gd = (x[bi, :, hi].double() for x in (q, k, v, g))
+            p = torch.where(seen[bi], torch.exp(
+                (qd * scale) @ kd.T - lse[bi, hi].double()[:, None]), 0.0)
+            ds = p * (gd @ vd.T - delta[bi, hi].double()[:, None])
+            for x, r in zip(out, (scale * ds @ kd, scale * ds.T @ qd,
+                                  p.T @ gd)):
+                x[bi, :, hi] = r
+    return out
+
+
+@pytest.mark.parametrize("t,lengths,causal", [
+    (512, [70, 0, 300], False),   # dead key tiles in two rows, one all-pad
+    (200, [10, 130, 0], True),    # ragged T, causal
+    (4096, [3000, 100], False),   # the two-pass pair's gate
+    (1000, [1000, 450], True),    # causal over many tiles, ragged T
+])
+def test_flash_bf16_pair_within_an_ulp_of_the_f32_kernels(cuda, t, lengths,
+                                                          causal):
+    """The bf16 two-pass pair (bf16 mma.sync, P and dS split three ways)
+    against the f32 kernels on the widened inputs, rounded once to bf16:
+    (a) each element within one bf16 step or 1e-5; (b) as a mean over
+    each of dq, dk and dv, no further from a float64 evaluation of the
+    reference's formulas than 1.02 times the f32 kernels' rounded result;
+    (c) within BF16_TOL of the plain versions (BF16_LONG_TOL past
+    T 512); (d) two launches give the same bits, the same dead key tiles
+    are skipped, padded keys get zero dk and dv and the all-pad row
+    zeros."""
+    from deepdfa_tpu_torch.ops import attention as A
+
+    b, h, d = len(lengths), 2, 64
+    q, k, v, _, g = _bf16_inputs(b, t, h, d, cuda)
+    mask = torch.arange(t, device=cuda)[None, :] < torch.tensor(
+        lengths, device=cuda)[:, None]
+    o, lse = A.flash_fwd(q, k, v, mask, causal)
+    delta = A.flash_delta(o, g)
+    args = (q, k, v, mask, g, lse, delta, causal)
+    wide = (q.float(), k.float(), v.float(), mask, g.float(), lse, delta,
+            causal)
+    A.reset_launch_counts()
+    got = [A.flash_bwd_dq(*args), *A.flash_bwd_dkv(*args)]
+    torch.cuda.synchronize()
+    assert A.launch_counts() == {**dict.fromkeys(FLASH_KERNELS, 0),
+                                 "flash_bwd_dq_kernel_bf16": 1,
+                                 "flash_bwd_dkv_kernel_bf16": 1}
+    rounded = [x.bfloat16() for x in (A.flash_bwd_dq(*wide),
+                                      *A.flash_bwd_dkv(*wide))]
+    plain = [A.flash_bwd_dq_reference(*args),
+             *A.flash_bwd_dkv_reference(*args)]
+    f64 = _pair_f64(q, k, v, mask, g, lse, delta, causal)
+    for name, x, r, w, ref in zip(("dq", "dk", "dv"), got, rounded, plain,
+                                  f64):
+        assert x.dtype == torch.bfloat16
+        gap = (x.float() - r.float()).abs()
+        over = (_bf16_ulps_apart(x, r) > 1) & (gap > 1e-5)
+        assert not over.any(), (name, int(over.sum()), float(gap.max()))
+        err = (x.double() - ref).abs().mean()
+        err_f32 = (r.double() - ref).abs().mean()
+        assert err <= 1.02 * err_f32, (name, float(err), float(err_f32))
+        _close_bf16(x, w, BF16_TOL if t <= 512 else BF16_LONG_TOL)
+    again = [A.flash_bwd_dq(*args), *A.flash_bwd_dkv(*args)]
+    assert all(torch.equal(a, x) for a, x in zip(again, got))
+    for x in got[1:]:  # padded keys: P = dS = 0
+        assert not x[~mask].any()
+    for x in got:
+        if lengths[-1] == 0:
+            assert torch.all(x[-1] == 0)
+    for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        assert A.kernel_cost(mask, t, h, d, kernel + "_bf16", causal)[
+            "dead_key_tiles"] == A.kernel_cost(mask, t, h, d, kernel,
+                                               causal)["dead_key_tiles"]
+
+
+def test_flash_bf16_pair_profile_files_each_kernel_once(cuda):
+    """chip_smoke's profile tally files the bf16 pair's kernels, each its
+    own __global__, under their own names (no doubled _bf16), one launch
+    each a backward at T 4096, and nothing under an f32 name."""
+    import os
+    import sys
+
+    from deepdfa_tpu_torch.ops import attention as A
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    q, k, v, _, g = _bf16_inputs(2, 4096, 2, 64, cuda)
+    mask = torch.arange(4096, device=cuda)[None, :] < torch.tensor(
+        [3000, 100], device=cuda)[:, None]
+    o, lse = A.flash_fwd(q, k, v, mask)
+    tally = chip_smoke._device_profile(
+        lambda: A.flash_backward(q, k, v, mask, o, lse, g), 2)["port_kernels"]
+    assert set(tally) == {"flash_bwd_dq_kernel_bf16",
+                          "flash_bwd_dkv_kernel_bf16"}, tally
+    for entry in tally.values():
+        assert entry["calls"] == 1, tally
 
 
 def _text_step_states(make_model, batch, cfg, cuda, runs=2, steps=2):
