@@ -1,6 +1,8 @@
-// bf16 products on Hopper's tensor cores with f32 sums, shared by the
-// bf16 two-pass flash backward (flash_bwd_dq_kernel_bf16 and
-// flash_bwd_dkv_kernel_bf16 in flash_attn.cu).
+// bf16 products on Hopper's tensor cores with f32 sums, and the cp.async
+// ring that feeds them: shared by the bf16 flash kernels, the forward
+// (flash_fwd_kernel_bf16) and the two-pass backward (flash_bwd_dq_kernel_bf16,
+// flash_bwd_dkv_kernel_bf16) in flash_attn.cu and the fused backward
+// (flash_bwd_fused_kernel_bf16) in flash_bwd_fused.cu.
 //
 // * mma.sync.m16n8k16 with bf16 operands and f32 accumulation: a product
 //   of two bf16 values is exact in f32, so S = Q K^T and dP = dO V^T of
@@ -141,6 +143,128 @@ __device__ __forceinline__ void frag_bn(uint32_t b[4], const __nv_bfloat16* t,
                                         int kk, int jn) {
   const int l = threadIdx.x & 31, m = l >> 3;
   ldsm4_t(b, t + swz(16 * kk + ((m & 1) << 3) + (l & 7), jn + (m >> 1)));
+}
+
+// A fragments of a 16 x 16 slice of A(m, k) = T[k][m] (the tile stored
+// transposed, rows are k): k in slice kk (rows 16 kk ..), m in rows 16 mi ..
+// (columns 16 mi ..), by ldmatrix.trans.
+__device__ __forceinline__ void frag_at(uint32_t a[4], const __nv_bfloat16* t,
+                                        int kk, int mi) {
+  const int l = threadIdx.x & 31, m = l >> 3;
+  ldsm4_t(a, t + swz(16 * kk + ((m >> 1) << 3) + (l & 7), 2 * mi + (m & 1)));
+}
+
+// ---------------------------------------------------------------------------
+// Streamed tiles: [64, 64] bf16 tiles through a ring of cp.async stages.
+// ---------------------------------------------------------------------------
+
+constexpr int D = 64;         // the head width: a row is 128 bytes
+constexpr int PT = 64;        // rows of a streamed tile
+constexpr int TILE = PT * D;  // elements of a streamed tile
+
+// The two-pass pair's layout (flash_attn.cu's head note has the others
+// measured):
+constexpr int BSTAGES = 3;  // the streamed tiles' ring
+constexpr int BBLOCKS = 2;  // blocks an SM (__launch_bounds__)
+constexpr int BNC = 16;     // a streamed tile's columns a warp takes at once
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + ROWS - 1 of one (batch, head) slice into a swizzled
+// bf16 tile (swz) by cp.async, 16 bytes a copy (not waited for), NTH
+// threads; rows at or past n_rows are zero-filled.
+template <int ROWS, int NTH>
+__device__ __forceinline__ void issue_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* __restrict__ src,
+                                           int row0, int n_rows,
+                                           long row_stride) {
+  for (int e = threadIdx.x; e < ROWS * D / 8; e += NTH) {
+    const int r = e >> 3, c = e & 7;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + swz(r, c),
+               src + (long)(in ? row0 + r : 0) * row_stride + 8 * c, in);
+  }
+}
+
+// A query tile's lse and delta (rows row0 .. row0 + PT - 1 of the (batch,
+// head) at offset base) into dst[0, PT) and dst[PT, 2 PT) by cp.async, NTH
+// threads; rows at or past n_rows are zero.
+template <int NTH>
+__device__ __forceinline__ void issue_rows(float* dst,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           long base, int row0, int n_rows) {
+  for (int i = threadIdx.x; i < 2 * PT; i += NTH) {
+    const int r = row0 + i % PT;
+    const float* src = (i < PT ? lse : delta) + base;
+    cp_async4(dst + i, src + (r < n_rows ? r : 0), r < n_rows);
+  }
+}
+
+// acc += A B^T over this warp's 16 rows and NC columns c0 ..: A the
+// resident tile's rows r0 .., B a streamed tile's rows c0 .., contracted
+// over D; one bf16 mma.sync a product.
+template <int NC>
+__device__ __forceinline__ void mma_bf16(float (&acc)[NC / 8][4],
+                                         const __nv_bfloat16* res, int r0,
+                                         const __nv_bfloat16* tile, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, res, r0, kk);
+#pragma unroll
+    for (int jp = 0; jp < NC / 16; ++jp) {
+      uint32_t b[4];
+      frag_bt(b, tile, kk, c0 / 8 + 2 * jp);
+      mma(acc[2 * jp], a, b[0], b[1]);
+      mma(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc += X T over this warp's 16 rows: X [16, NC] f32 accumulators (P or
+// dS over a streamed tile's rows c0 ..), T those rows of the tile [64, D];
+// each slice of X split three ways, three bf16 mma.sync a product.
+template <int NC>
+__device__ __forceinline__ void mma_split(float (&acc)[8][4],
+                                          const float (&x)[NC / 8][4],
+                                          const __nv_bfloat16* tile, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk) {
+    uint32_t a[3][4];
+    frag_acc3(a, x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      uint32_t b[4];
+      frag_bn(b, tile, c0 / 16 + kk, 2 * jp);
+      mma3(acc[2 * jp], a, b[0], b[1]);
+      mma3(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
 }
 
 }  // namespace bf16mma

@@ -18,10 +18,10 @@
 //
 // The single-pass backward (_flash_bwd_fused_kernel) is
 // flash_bwd_fused_kernel in flash_bwd_fused.cu. The 3xTF32 products are
-// in tf32_mma.cuh, which the fused backward shares; the bf16 pair's bf16
-// products in bf16_mma.cuh. Plain PyTorch versions: flash_fwd_reference,
-// flash_bwd_dq_reference and flash_bwd_dkv_reference in
-// deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
+// in tf32_mma.cuh, which the fused backward shares; the bf16 kernels'
+// bf16 products and cp.async ring in bf16_mma.cuh. Plain PyTorch
+// versions: flash_fwd_reference, flash_bwd_dq_reference and
+// flash_bwd_dkv_reference in deepdfa_tpu_torch/ops/attention.py. Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with the plain C interface at the bottom of this file.
 //
@@ -74,7 +74,7 @@
 // * Every output element has one owner thread and a fixed summation
 //   order: no atomics, so two launches give the same bits.
 //
-// Forward block size: 64 query rows (4 warps), K and V single buffered,
+// The f32 forward's block: 64 query rows (4 warps), K and V single buffered,
 // 96 KB of shared memory, two blocks an SM. Two layouts were built and
 // timed: this one, and 128 query rows (8 warps) with K and V double
 // buffered, 160 KB, one block an SM (64-row blocks double buffered would
@@ -95,16 +95,11 @@
 // parts of everything, double buffered: 225 KB of shared memory, one
 // block an SM.
 //
-// The forward's bf16 instance. A bf16 streamed tile lands by cp.async in a
-// row-major bf16 staging buffer and is widened and split from there into
-// the same swizzled f32 hi and lo tiles the f32 instance splits in place;
-// scale Q is widened as it loads. Everything after is the f32 instance's
-// code, so it gives bit for bit the f32 kernel's result on the widened
-// inputs, rounded once to bf16 (RNE) as it is stored; 112 KB, two blocks
-// an SM.
-//
-// The bf16 pair (flash_bwd_dq_kernel_bf16, flash_bwd_dkv_kernel_bf16) has
-// its own kernels, built for Hopper's bf16 tensor cores (bf16_mma.cuh).
+// The bf16 kernels (flash_fwd_kernel_bf16 and the bf16 pair,
+// flash_bwd_dq_kernel_bf16 and flash_bwd_dkv_kernel_bf16) are kernels of
+// their own, built for Hopper's bf16 tensor cores (bf16_mma.cuh; the
+// fused backward's bf16 kernel in flash_bwd_fused.cu is built the same
+// way).
 // * bf16 stays bf16: the resident tiles (Q and dO; K and V) and the
 //   streamed ones land by cp.async, 16 bytes a copy, as bf16 in shared
 //   memory, each row's 16-byte chunks XOR'd by row (bf16mma::swz), and
@@ -116,7 +111,7 @@
 //   exact. scale = 1/sqrt(64) = 1/8 is a power of two, so S is scaled in
 //   f32 after the product and dq and dk as they are stored, exactly as
 //   the reference's scale Q.
-// * dq += dS K, dV += P^T dO, dK += dS^T Q: P and dS stay in the
+// * O += P V, dq += dS K, dV += P^T dO, dK += dS^T Q: P and dS stay in the
 //   accumulator registers that made them; each value is split there into
 //   three bf16 parts (bf16mma::split3), exact, and the three parts' mma.sync
 //   share one B fragment, the smallest first: the product at f32 accuracy
@@ -129,6 +124,14 @@
 //   rounded result (or, near 0 where sums cancel, within 1e-5 of it); as a
 //   mean over each output it lies no further from a float64 evaluation of
 //   the reference's formulas (chip_smoke.py's attention_kernels_bf16).
+// * The forward: one block a (batch, head, 128 query rows), Q resident,
+//   K and V through a 3-stage ring over the live key tiles; a warp takes a
+//   key tile FWD_NC keys at a time: S, its masks and the online softmax
+//   on those registers (the fully masked row's shift pinned to 0, lse =
+//   shift + log(max(l, 1e-30)), as the f32 kernel), then O += P V; O stays
+//   f32 in registers and is rounded once to bf16 as it is stored. Keys
+//   past a warp's last row (causal) are skipped: they leave m, l and O as
+//   they are.
 // * The walk is as above (dead key tiles, causal tiles, masks, no
 //   atomics). Ring: BSTAGES tiles in flight; a warp takes a streamed
 //   tile BNC columns at a time, so its S and dP pieces take 8 registers
@@ -146,13 +149,21 @@
 //     spill): 3.536-3.563, 4.679-4.716.
 // Half the warps on an SM hide less of the mma.sync and ldmatrix latency
 // than a few spilled bytes cost; a deeper ring gains nothing measurable.
+// The forward's layouts (B 16, T 512 and B 8, T 4096, H 12, the same card,
+// one call, the kept one first and last; ms):
+//   128 query rows, two blocks an SM, 64 keys at once (kept; 128
+//     registers, 4 bytes spilled): 0.1054, 2.3485;
+//   the same 16 keys at once (8 bytes spilled): 0.1159, 2.6145-2.6344;
+//   64 query rows, three blocks an SM, 64 keys at once (159 registers):
+//     0.1160, 2.4843; 16 keys at once (140 registers): 0.1339, 2.8792.
+// A whole key tile a pass rescales O once a tile, not four times, and
+// issues its 16 S products back to back.
 // A wgmma version would take 64-row warpgroup tiles (4 warps together),
 // K, V, Q or dO as the B operand straight from the swizzled shared tiles,
 // and S, dP and the split parts of P and dS as A from registers; the split
 // keeps its three products, each one wgmma.
 
 #include <cuda_runtime.h>
-#include <type_traits>
 
 #include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
@@ -169,15 +180,16 @@ constexpr float NEG_INF = -1e30f;  // the reference's NEG_INF
 // Device code shared by the forward and the two-pass backward pair.
 // ---------------------------------------------------------------------------
 
+using bf16mma::cp_async16;
+using bf16mma::cp_async_commit;
+using bf16mma::cp_async_wait;
+using bf16mma::issue_bf16;
+using bf16mma::issue_rows;
 using tf32x3::load4;
 using tf32x3::mma3;
 using tf32x3::split;
 using tf32x3::store2;
 using bf16 = __nv_bfloat16;
-
-// True for the bf16 instances.
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, bf16>::value;
 
 constexpr int PW = 8;         // warps a block of the pair
 constexpr int PNT = 32 * PW;  // threads a block of the pair
@@ -194,38 +206,16 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * D + (c ^ ((r & 7) << 2));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // Rows row0 .. row0 + ROWS - 1 of one (batch, head) slice (row_stride
-// elements apart), widened to f32, times scale, split once into TF32 hi and
+// elements apart), times scale, split once into TF32 hi and
 // lo parts, each stored in the order warp r / 16 reads them as mma A
 // fragments: float4 (w * 8 + kc) * 32 + lane holds a0..a3 of contraction
 // chunk kc. Rows at or past n_rows are zero. NTH threads share the work.
-template <int ROWS = PR, int NTH = PNT, typename T>
+template <int ROWS = PR, int NTH = PNT>
 __device__ void load_resident(float* hi, float* lo,
-                              const T* __restrict__ src, int row0,
+                              const float* __restrict__ src, int row0,
                               int n_rows, long row_stride, float scale) {
   for (int e = threadIdx.x; e < ROWS * D / 4; e += NTH) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
@@ -262,21 +252,6 @@ __device__ __forceinline__ void issue_tile(float* dst,
   }
 }
 
-// The bf16 instance's copy: the rows into a row-major bf16 staging tile,
-// 8 elements a copy.
-template <int NTH = PNT>
-__device__ __forceinline__ void issue_tile(bf16* dst,
-                                           const bf16* __restrict__ src,
-                                           int row0, int n_rows,
-                                           long row_stride) {
-  for (int e = threadIdx.x; e < TILE / 8; e += NTH) {
-    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-    const bool in = row0 + r < n_rows;
-    cp_async16(dst + r * D + c, src + (long)(in ? row0 + r : 0) * row_stride
-                                    + c, in);
-  }
-}
-
 // A landed tile, times scale, split once: the hi part in place, the lo part
 // beside it (the same swizzled positions).
 template <int NTH = PNT>
@@ -293,36 +268,6 @@ __device__ __forceinline__ void split_tile(float* tile, float* lo,
         make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
                     __uint_as_float(h[2]), __uint_as_float(h[3]));
     reinterpret_cast<float4*>(lo)[e] =
-        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                    __uint_as_float(l[2]), __uint_as_float(l[3]));
-  }
-}
-
-// A landed tile split: an f32 one in place (hi is where it landed), a bf16
-// one widened from its staging tile into hi and lo at the swizzled positions
-// an f32 tile takes, so the hi and lo tiles are the f32 instance's on the
-// widened values.
-template <int NTH = PNT>
-__device__ __forceinline__ void split_landed(const float* landed, float* hi,
-                                             float* lo, float scale) {
-  split_tile<NTH>(hi, lo, scale);
-}
-
-template <int NTH = PNT>
-__device__ __forceinline__ void split_landed(const bf16* landed, float* hi,
-                                             float* lo, float scale) {
-  for (int e = threadIdx.x; e < TILE / 4; e += NTH) {
-    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
-    const float4 x = load4(landed + r * D + c);
-    uint32_t h[4], l[4];
-    split(x.x * scale, h[0], l[0]);
-    split(x.y * scale, h[1], l[1]);
-    split(x.z * scale, h[2], l[2]);
-    split(x.w * scale, h[3], l[3]);
-    *reinterpret_cast<float4*>(hi + swz(r, c)) =
-        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                    __uint_as_float(h[2]), __uint_as_float(h[3]));
-    *reinterpret_cast<float4*>(lo + swz(r, c)) =
         make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
                     __uint_as_float(l[2]), __uint_as_float(l[3]));
   }
@@ -494,30 +439,16 @@ __device__ __forceinline__ void vote_keys(
 
 // Start the copies of key tile kt (K into ks, V into vs; not waited for)
 // and vote its real keys into kbits[0] and kbits[1].
-template <int NTH, typename T>
-__device__ __forceinline__ void issue_kv(T* ks, T* vs,
+template <int NTH>
+__device__ __forceinline__ void issue_kv(float* ks, float* vs,
                                          unsigned* kbits,
-                                         const T* __restrict__ kb,
-                                         const T* __restrict__ vb,
+                                         const float* __restrict__ kb,
+                                         const float* __restrict__ vb,
                                          const unsigned char* __restrict__ mrow,
                                          int kt, int tk, long rs) {
   issue_tile<NTH>(ks, kb, kt * PT, tk, rs);
   issue_tile<NTH>(vs, vb, kt * PT, tk, rs);
   vote_keys(kbits, mrow, kt, tk);
-}
-
-// A query tile's lse and delta (rows row0 .. row0 + PT - 1 of the (batch,
-// head) at offset base) into dst[0, PT) and dst[PT, 2 PT) by cp.async;
-// rows at or past n_rows are zero.
-__device__ __forceinline__ void issue_rows(float* dst,
-                                           const float* __restrict__ lse,
-                                           const float* __restrict__ delta,
-                                           long base, int row0, int n_rows) {
-  for (int i = threadIdx.x; i < 2 * PT; i += PNT) {
-    const int r = row0 + i % PT;
-    const float* src = (i < PT ? lse : delta) + base;
-    cp_async4(dst + i, src + (r < n_rows ? r : 0), r < n_rows);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -539,14 +470,11 @@ constexpr int FNT = 32 * FW;  // threads a block of the forward
 constexpr int FR = 16 * FW;   // query rows a block of the forward
 
 // Shared memory of flash_fwd_kernel: scale Q split (2 resident parts), K
-// and V, their lo parts, (bf16) K and V's staging tiles, the tile's key
-// bits, and one bit a key tile of the walk: 96 KB (bf16 112 KB), two
-// blocks an SM.
-template <typename T>
+// and V, their lo parts, the tile's key bits, and one bit a key tile of
+// the walk: 96 KB, two blocks an SM.
 size_t fwd_smem(int tk) {
   const int nk = (tk + PT - 1) / PT;
   return sizeof(float) * (2 * FR * D + 4 * TILE)
-         + (kBf16<T> ? sizeof(bf16) * 2 * TILE : 0)
          + sizeof(unsigned) * (2 + (nk + 31) / 32);
 }
 
@@ -554,27 +482,20 @@ size_t fwd_smem(int tk) {
 // walking the live key tiles: a tile is split once it lands, multiplied,
 // and only then is the next one's copy issued (the other block on the SM
 // runs its products meanwhile).
-template <typename T>
 __global__ void __launch_bounds__(FNT, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
                      const unsigned char* __restrict__ mask,
-                     T* __restrict__ o, float* __restrict__ lse, int H,
+                     float* __restrict__ o, float* __restrict__ lse, int H,
                      int tq, int tk, int causal, float scale) {
   extern __shared__ float4 smem_fwd[];
   float* Qhi = reinterpret_cast<float*>(smem_fwd);
   float* Qlo = Qhi + FR * D;
-  float* Khi = Qlo + FR * D;  // f32: the landed tile, its hi part once split
+  float* Khi = Qlo + FR * D;  // the landed tile, its hi part once split
   float* Vhi = Khi + TILE;
   float* Klo = Vhi + TILE;
   float* Vlo = Klo + TILE;
-  bf16* stage = reinterpret_cast<bf16*>(Vlo + TILE);  // bf16: K, V landed
-  // Where a key tile's K and V land: in place (f32) or staged (bf16).
-  T* Kland = reinterpret_cast<T*>(kBf16<T> ? (void*)stage : (void*)Khi);
-  T* Vland = reinterpret_cast<T*>(kBf16<T> ? (void*)(stage + TILE)
-                                           : (void*)Vhi);
-  unsigned* kbits = reinterpret_cast<unsigned*>(
-      kBf16<T> ? (void*)(stage + 2 * TILE) : (void*)(Vlo + TILE));  // [2]
+  unsigned* kbits = reinterpret_cast<unsigned*>(Vlo + TILE);  // [2]
   unsigned* live = kbits + 2;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -589,7 +510,7 @@ __global__ void __launch_bounds__(FNT, 2)
   // Causal: key tiles wholly above the block's last query row see nothing.
   if (causal) kend = min(kend, (q0 + FR - 1) / PT + 1);
   auto issue = [&](int kt) {
-    issue_kv<FNT>(Kland, Vland, kbits, k + koff, v + koff, mrow, kt, tk, rs);
+    issue_kv<FNT>(Khi, Vhi, kbits, k + koff, v + koff, mrow, kt, tk, rs);
   };
 
   mark_live_tiles<FNT>(live, mrow, kend, tk);
@@ -605,8 +526,8 @@ __global__ void __launch_bounds__(FNT, 2)
   while (kt < kend) {
     cp_async_wait_all();
     __syncthreads();  // tile kt landed
-    split_landed<FNT>(Kland, Khi, Klo, 1.f);
-    split_landed<FNT>(Vland, Vhi, Vlo, 1.f);
+    split_tile<FNT>(Khi, Klo, 1.f);
+    split_tile<FNT>(Vhi, Vlo, 1.f);
     __syncthreads();
     const int k0 = kt * PT;
     // Causal: a query tile wholly before the key tile sees none of it.
@@ -661,7 +582,7 @@ __global__ void __launch_bounds__(FNT, 2)
     const int r = q0 + 16 * warp + g + 8 * half;
     if (r >= tq) continue;
     const float lc = fmaxf(l_r[half], 1e-30f);
-    T* orow = o + qoff + (long)r * rs;
+    float* orow = o + qoff + (long)r * rs;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       store2(orow + 8 * j + 2 * t, o_acc[j][2 * half] / lc,
@@ -835,7 +756,8 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
   auto issue = [&](int qt, int st) {
     issue_tile(Qs + st * TILE, q + qoff, qt * PT, tq, rs);
     issue_tile(Os + st * TILE, dout + qoff, qt * PT, tq, rs);
-    issue_rows(rowv + 2 * PT * st, lse, delta, (long)bh * tq, qt * PT, tq);
+    issue_rows<PNT>(rowv + 2 * PT * st, lse, delta, (long)bh * tq, qt * PT,
+                    tq);
   };
 
   const int nq = (tq + PT - 1) / PT;
@@ -891,38 +813,12 @@ __global__ void __launch_bounds__(PNT, 1) flash_bwd_dkv_kernel(
 // The bf16 two-pass backward pair: bf16 tiles, bf16 mma.sync (bf16_mma.cuh).
 // ---------------------------------------------------------------------------
 
-using bf16mma::frag_a;
-using bf16mma::frag_acc3;
-using bf16mma::frag_bn;
-using bf16mma::frag_bt;
-
-// The layout kept (the note at the head of this file has the others
-// measured):
-constexpr int BSTAGES = 3;  // the streamed tiles' ring
-constexpr int BBLOCKS = 2;  // blocks an SM (__launch_bounds__)
-constexpr int BNC = 16;     // a streamed tile's columns a warp takes at once
+using bf16mma::BBLOCKS;
+using bf16mma::BNC;
+using bf16mma::BSTAGES;
+using bf16mma::mma_bf16;
+using bf16mma::mma_split;
 constexpr int BRES = PR * D;  // bf16 elements of a resident tile
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows row0 .. row0 + ROWS - 1 of one (batch, head) slice into a swizzled
-// bf16 tile (bf16mma::swz) by cp.async, 16 bytes a copy (not waited for);
-// rows at or past n_rows are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void issue_bf16(bf16* dst,
-                                           const bf16* __restrict__ src,
-                                           int row0, int n_rows,
-                                           long row_stride) {
-  for (int e = threadIdx.x; e < ROWS * D / 8; e += PNT) {
-    const int r = e >> 3, c = e & 7;
-    const bool in = row0 + r < n_rows;
-    cp_async16(dst + bf16mma::swz(r, c),
-               src + (long)(in ? row0 + r : 0) * row_stride + 8 * c, in);
-  }
-}
 
 // Shared memory of flash_bwd_dq_kernel_bf16: Q and dO resident, K and V in
 // the ring, a stage's key bits, and one bit a key tile of the walk.
@@ -937,46 +833,6 @@ size_t dq_smem_bf16(int tk) {
 constexpr size_t dkv_smem_bf16() {
   return sizeof(bf16) * (2 * BRES + 2 * BSTAGES * TILE)
          + sizeof(float) * 2 * BSTAGES * PT;
-}
-
-// acc += A B^T over this warp's 16 rows and BNC columns c0 ..: A the
-// resident tile's rows r0 .., B a streamed tile's rows c0 .., contracted
-// over D; one bf16 mma.sync a product.
-__device__ __forceinline__ void mma_bf16(float (&acc)[BNC / 8][4],
-                                         const bf16* res, int r0,
-                                         const bf16* tile, int c0) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, res, r0, kk);
-#pragma unroll
-    for (int jp = 0; jp < BNC / 16; ++jp) {
-      uint32_t b[4];
-      frag_bt(b, tile, kk, c0 / 8 + 2 * jp);
-      bf16mma::mma(acc[2 * jp], a, b[0], b[1]);
-      bf16mma::mma(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc += X T over this warp's 16 rows: X [16, BNC] f32 accumulators (P or
-// dS over a streamed tile's rows c0 ..), T those rows of the tile [64, D];
-// each slice of X split three ways, three bf16 mma.sync a product.
-__device__ __forceinline__ void mma_split(float (&acc)[8][4],
-                                          const float (&x)[BNC / 8][4],
-                                          const bf16* tile, int c0) {
-#pragma unroll
-  for (int kk = 0; kk < BNC / 16; ++kk) {
-    uint32_t a[3][4];
-    frag_acc3(a, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int jp = 0; jp < D / 16; ++jp) {
-      uint32_t b[4];
-      frag_bn(b, tile, c0 / 16 + kk, 2 * jp);
-      bf16mma::mma3(acc[2 * jp], a, b[0], b[1]);
-      bf16mma::mma3(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // One block a (batch, head, 128 query rows), 8 warps of 16 rows, walking
@@ -1011,16 +867,16 @@ __global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dq_kernel_bf16(
   // kbits[st].
   auto issue = [&](int kt, int st) {
     bf16* ks = ring + 2 * st * TILE;
-    issue_bf16<PT>(ks, k + koff, kt * PT, tk, rs);
-    issue_bf16<PT>(ks + TILE, v + koff, kt * PT, tk, rs);
+    issue_bf16<PT, PNT>(ks, k + koff, kt * PT, tk, rs);
+    issue_bf16<PT, PNT>(ks + TILE, v + koff, kt * PT, tk, rs);
     vote_keys(kbits + 2 * st, mrow, kt, tk);
   };
 
   mark_live_tiles<PNT>(live, mrow, kend, tk);
   // Q and dO join the first copy group; then BSTAGES - 1 live key tiles
   // are in flight, a group each (empty past the last).
-  issue_bf16<PR>(Qs, q + qoff, q0, tq, rs);
-  issue_bf16<PR>(Os, dout + qoff, q0, tq, rs);
+  issue_bf16<PR, PNT>(Qs, q + qoff, q0, tq, rs);
+  issue_bf16<PR, PNT>(Os, dout + qoff, q0, tq, rs);
   int kt = next_live(live, 0, kend), ki = kt;
 #pragma unroll
   for (int st = 0; st < BSTAGES - 1; ++st) {
@@ -1061,8 +917,8 @@ __global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dq_kernel_bf16(
         float s_acc[BNC / 8][4], dp[BNC / 8][4];
         zero(s_acc);
         zero(dp);
-        mma_bf16(s_acc, Qs, r0, Kt, c0);  // S / scale = Q K^T
-        mma_bf16(dp, Os, r0, Vt, c0);     // dP = dO V^T
+        mma_bf16<BNC>(s_acc, Qs, r0, Kt, c0);  // S / scale = Q K^T
+        mma_bf16<BNC>(dp, Os, r0, Vt, c0);     // dP = dO V^T
 #pragma unroll
         for (int j = 0; j < BNC / 8; ++j)
 #pragma unroll
@@ -1076,7 +932,7 @@ __global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dq_kernel_bf16(
                 keep ? expf(s_acc[j][i] * scale - lse_r[i >> 1]) : 0.f;
             s_acc[j][i] = p * (dp[j][i] - delta_r[i >> 1]);  // dS
           }
-        mma_split(dq_acc, s_acc, Kt, c0);  // dq += dS K
+        mma_split<BNC>(dq_acc, s_acc, Kt, c0);  // dq += dS K
       }
     }
     kt = next_live(live, kt + 1, kend);
@@ -1131,17 +987,18 @@ __global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dkv_kernel_bf16(
   // Start the copies of query tile qt (Q, dO, lse, delta) into stage st.
   auto issue = [&](int qt, int st) {
     bf16* qs = ring + 2 * st * TILE;
-    issue_bf16<PT>(qs, q + qoff, qt * PT, tq, rs);
-    issue_bf16<PT>(qs + TILE, dout + qoff, qt * PT, tq, rs);
-    issue_rows(rowv + 2 * PT * st, lse, delta, (long)bh * tq, qt * PT, tq);
+    issue_bf16<PT, PNT>(qs, q + qoff, qt * PT, tq, rs);
+    issue_bf16<PT, PNT>(qs + TILE, dout + qoff, qt * PT, tq, rs);
+    issue_rows<PNT>(rowv + 2 * PT * st, lse, delta, (long)bh * tq, qt * PT,
+                    tq);
   };
 
   const int nq = (tq + PT - 1) / PT;
   // Causal: query tiles wholly before the block's first key see none of it.
   int qt = causal ? min(nq, k0 / PT) : 0;
   // K and V join the first copy group; then BSTAGES - 1 query tiles.
-  issue_bf16<PR>(Ks, k + koff, k0, tk, rs);
-  issue_bf16<PR>(Vs, v + koff, k0, tk, rs);
+  issue_bf16<PR, PNT>(Ks, k + koff, k0, tk, rs);
+  issue_bf16<PR, PNT>(Vs, v + koff, k0, tk, rs);
 #pragma unroll
   for (int st = 0; st < BSTAGES - 1; ++st) {
     if (qt + st < nq) issue(qt + st, st);
@@ -1166,8 +1023,8 @@ __global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dkv_kernel_bf16(
         float s_acc[BNC / 8][4], dp[BNC / 8][4];
         zero(s_acc);
         zero(dp);
-        mma_bf16(s_acc, Ks, r0, Qt, c0);  // S^T / scale = K Q^T
-        mma_bf16(dp, Vs, r0, Ot, c0);     // dP^T = V dO^T
+        mma_bf16<BNC>(s_acc, Ks, r0, Qt, c0);  // S^T / scale = K Q^T
+        mma_bf16<BNC>(dp, Vs, r0, Ot, c0);     // dP^T = V dO^T
 #pragma unroll
         for (int j = 0; j < BNC / 8; ++j)
 #pragma unroll
@@ -1181,14 +1038,173 @@ __global__ void __launch_bounds__(PNT, BBLOCKS) flash_bwd_dkv_kernel_bf16(
             s_acc[j][i] = p;                         // P^T
             dp[j][i] = p * (dp[j][i] - delta_s[c]);  // dS^T
           }
-        mma_split(dv_acc, s_acc, Ot, c0);  // dV += P^T dO
-        mma_split(dk_acc, dp, Qt, c0);     // dK / scale += dS^T Q
+        mma_split<BNC>(dv_acc, s_acc, Ot, c0);  // dV += P^T dO
+        mma_split<BNC>(dk_acc, dp, Qt, c0);     // dK / scale += dS^T Q
       }
     }
   }
   cp_async_wait_all();  // a walk with no query tile leaves K and V in flight
   store_rows(dk + koff, dk_acc, k0, tk, rs, scale);
   store_rows(dv + koff, dv_acc, k0, tk, rs, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward: bf16 tiles, bf16 mma.sync (bf16_mma.cuh).
+// ---------------------------------------------------------------------------
+
+// The layout kept (the note at the head of this file has the others
+// measured):
+constexpr int FWD_WARPS = 8;   // warps a block, 16 query rows each
+constexpr int FWD_BLOCKS = 2;  // blocks an SM (__launch_bounds__)
+constexpr int FWD_NC = 64;     // a key tile's columns a warp takes at once
+constexpr int FWD_STAGES = 3;  // the key tiles' ring
+constexpr int FWD_NT = 32 * FWD_WARPS;
+constexpr int FWD_ROWS = 16 * FWD_WARPS;
+
+// Shared memory of flash_fwd_kernel_bf16: Q resident, K and V in the ring,
+// a stage's key bits, and one bit a key tile of the walk.
+size_t fwd_smem_bf16(int tk) {
+  const int nk = (tk + PT - 1) / PT;
+  return sizeof(bf16) * (FWD_ROWS * D + 2 * FWD_STAGES * TILE)
+         + sizeof(unsigned) * (2 * FWD_STAGES + (nk + 31) / 32);
+}
+
+// One block a (batch, head, FWD_ROWS query rows), a warp a 16-row slice,
+// walking the live key tiles through a FWD_STAGES ring; Q resident as bf16.
+// A warp takes a tile FWD_NC keys at a time: S = Q K^T by one bf16
+// mma.sync a product, scaled in f32 (scale is a power of two: exact); the
+// online softmax on those registers; O += P V with P split three ways.
+__global__ void __launch_bounds__(FWD_NT, FWD_BLOCKS) flash_fwd_kernel_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int tq, int tk,
+    int causal, float scale) {
+  extern __shared__ float4 smem_fwd16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_fwd16);
+  bf16* ring = Qs + FWD_ROWS * D;  // [FWD_STAGES][K, V][TILE]
+  unsigned* kbits =
+      reinterpret_cast<unsigned*>(ring + 2 * FWD_STAGES * TILE);
+  unsigned* live = kbits + 2 * FWD_STAGES;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * FWD_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows of Qs
+  const long rs = (long)H * D;
+  const long qoff = ((long)b * tq * H + h) * D;
+  const long koff = ((long)b * tk * H + h) * D;
+  const unsigned char* mrow = mask + (long)b * tk;
+  int kend = (tk + PT - 1) / PT;
+  // Causal: key tiles wholly above the block's last query row see nothing.
+  if (causal) kend = min(kend, (q0 + FWD_ROWS - 1) / PT + 1);
+  // Start the copies of key tile kt into stage st, its real keys into
+  // kbits[2 st ..].
+  auto issue = [&](int kt, int st) {
+    bf16* ks = ring + 2 * st * TILE;
+    issue_bf16<PT, FWD_NT>(ks, k + koff, kt * PT, tk, rs);
+    issue_bf16<PT, FWD_NT>(ks + TILE, v + koff, kt * PT, tk, rs);
+    vote_keys(kbits + 2 * st, mrow, kt, tk);
+  };
+
+  mark_live_tiles<FWD_NT>(live, mrow, kend, tk);
+  // Q joins the first copy group; then FWD_STAGES - 1 live key tiles are
+  // in flight, a group each (empty past the last).
+  issue_bf16<FWD_ROWS, FWD_NT>(Qs, q + qoff, q0, tq, rs);
+  int kt = next_live(live, 0, kend), ki = kt;
+#pragma unroll
+  for (int st = 0; st < FWD_STAGES - 1; ++st) {
+    if (ki < kend) {
+      issue(ki, st);
+      ki = next_live(live, ki + 1, kend);
+    }
+    cp_async_commit();
+  }
+  // Rows g and g + 8 of the warp: running max, sum, and the O accumulator.
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o_acc[8][4];
+  zero(o_acc);
+  const int last = q0 + r0 + 15;  // this warp's last query row
+  for (int s = 0; kt < kend; ++s) {
+    const int st = s % FWD_STAGES;
+    cp_async_wait<FWD_STAGES - 2>();
+    __syncthreads();  // tile s landed; the stage tile s - 1 used is free
+    if (ki < kend) {  // overlaps this tile's products
+      issue(ki, (s + FWD_STAGES - 1) % FWD_STAGES);
+      ki = next_live(live, ki + 1, kend);
+    }
+    cp_async_commit();
+    const bf16* Kt = ring + 2 * st * TILE;
+    const bf16* Vt = Kt + TILE;
+    const int k0 = kt * PT;
+    const unsigned kb0 = kbits[2 * st], kb1 = kbits[2 * st + 1];
+#pragma unroll
+    for (int c0 = 0; c0 < PT; c0 += FWD_NC) {  // keys k0 + c0 ..
+      // Causal: keys past the warp's last row are masked for all of its
+      // rows, which leaves m, l and O as they are: skipped.
+      if (causal && k0 + c0 > last) break;
+      float s_acc[FWD_NC / 8][4];
+      zero(s_acc);
+      mma_bf16<FWD_NC>(s_acc, Qs, r0, Kt, c0);  // S / scale = Q K^T
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < FWD_NC / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + r0 + g + 8 * (i >> 1);
+          const int c = c0 + 8 * j + 2 * t + (i & 1);
+          const unsigned bits = c0 + 8 * j < 32 ? kb0 : kb1;
+          const bool real = (bits >> (c & 31)) & 1u;
+          s_acc[j][i] = real && (!causal || r >= k0 + c)
+                            ? s_acc[j][i] * scale : NEG_INF;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s_acc[j][i]);
+        }
+      float shift[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float m_new = fmaxf(m_r[half], quad_max(mx[half]));
+        // Fully masked so far: pin the shift to 0 so the exps stay finite.
+        shift[half] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+        corr[half] = expf((m_r[half] <= NEG_INF / 2 ? NEG_INF : m_r[half])
+                          - shift[half]);
+        m_r[half] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < FWD_NC / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sv = s_acc[j][i];
+          const float p = sv <= NEG_INF / 2 ? 0.f : expf(sv - shift[i >> 1]);
+          s_acc[j][i] = p;  // P, split three ways as the A operand of P V
+          sum[i >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o_acc[j][i] *= corr[i >> 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        l_r[half] = l_r[half] * corr[half] + quad_sum(sum[half]);
+      mma_split<FWD_NC>(o_acc, s_acc, Vt, c0);  // O += P V
+    }
+    kt = next_live(live, kt + 1, kend);
+  }
+  cp_async_wait<0>();  // a walk with no live tile leaves Q in flight
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + r0 + g + 8 * half;
+    if (r >= tq) continue;
+    const float lc = fmaxf(l_r[half], 1e-30f);
+    bf16* orow = o + qoff + (long)r * rs;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)  // rounded once to bf16 (RNE)
+      store2(orow + 8 * j + 2 * t, o_acc[j][2 * half] / lc,
+             o_acc[j][2 * half + 1] / lc);
+    // lse = shift + log(l), as the f32 kernel's.
+    if (t == 0)
+      lse[(long)bh * tq + r] =
+          (m_r[half] <= NEG_INF / 2 ? 0.f : m_r[half]) + logf(lc);
+  }
 }
 
 // Opt the kernel into ``bytes`` of dynamic shared memory (above 48 KB
@@ -1203,13 +1219,20 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* o,
-        float* lse, int B, int H, int tq, int tk, int causal, float scale,
-        cudaStream_t stream) {
+int fwd(const float* q, const float* k, const float* v,
+        const unsigned char* mask, float* o, float* lse, int B, int H,
+        int tq, int tk, int causal, float scale, cudaStream_t stream) {
   dim3 grid((tq + FR - 1) / FR, B * H);
-  return launch(flash_fwd_kernel<T>, grid, FNT, fwd_smem<T>(tk), stream, q, k,
-                v, mask, o, lse, H, tq, tk, causal, scale);
+  return launch(flash_fwd_kernel, grid, FNT, fwd_smem(tk), stream, q, k, v,
+                mask, o, lse, H, tq, tk, causal, scale);
+}
+
+int fwd(const bf16* q, const bf16* k, const bf16* v,
+        const unsigned char* mask, bf16* o, float* lse, int B, int H,
+        int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  dim3 grid((tq + FWD_ROWS - 1) / FWD_ROWS, B * H);
+  return launch(flash_fwd_kernel_bf16, grid, FWD_NT, fwd_smem_bf16(tk),
+                stream, q, k, v, mask, o, lse, H, tq, tk, causal, scale);
 }
 
 int bwd_dq(const float* q, const float* k, const float* v,
@@ -1263,8 +1286,8 @@ int bwd_dkv(const bf16* q, const bf16* k, const bf16* v,
       const T* q, const T* k, const T* v, const unsigned char* mask, T* o,    \
       float* lse, int B, int H, int tq, int tk, int causal, float scale,      \
       cudaStream_t stream) {                                                  \
-    return flash::fwd<T>(q, k, v, mask, o, lse, B, H, tq, tk, causal, scale,  \
-                         stream);                                             \
+    return flash::fwd(q, k, v, mask, o, lse, B, H, tq, tk, causal, scale,     \
+                      stream);                                                \
   }                                                                           \
   extern "C" int flash_bwd_dq##SUFFIX##_launch(                               \
       const T* q, const T* k, const T* v, const unsigned char* mask,          \

@@ -11,10 +11,8 @@
 // PyTorch's own f32 memory-efficient attention): f32 accuracy, as the
 // reference runs f32 at Precision.HIGHEST. Single-pass TF32 is never used.
 //
-// The flash kernels' bf16 instances read bf16 inputs through load4 and write
-// bf16 outputs through store2/store4: a bf16 value widens to f32 exactly, and
-// its TF32 split is exact (lo = 0), so such an instance computes what the f32
-// kernel computes on the widened inputs, rounded once (RNE) on the way out.
+// store2/store4 also write the bf16 flash kernels' outputs (bf16_mma.cuh),
+// each f32 result rounded once (RNE) on the way out.
 //
 // Fragments of mma.sync.m16n8k8 (lane = 4 g + t): A (16 x 8, row-major)
 // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8)
@@ -29,18 +27,9 @@
 
 namespace tf32x3 {
 
-// Four consecutive elements as f32: one 16-byte load of f32, one 8-byte load
-// of bf16 widened (a bf16 value is the high half of its f32).
+// Four consecutive f32 elements: one 16-byte load.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // Two or four consecutive f32 results stored as the output's type; bf16

@@ -43,7 +43,8 @@ HEADERS: Dict[str, Tuple[str, ...]] = {
                       os.path.join("csrc", "tf32_mma.cuh")),
     "flash_attn": (os.path.join("csrc", "bf16_mma.cuh"),
                    os.path.join("csrc", "tf32_mma.cuh")),
-    "flash_bwd_fused": (os.path.join("csrc", "tf32_mma.cuh"),),
+    "flash_bwd_fused": (os.path.join("csrc", "bf16_mma.cuh"),
+                        os.path.join("csrc", "tf32_mma.cuh")),
     "tile_spmm": (),
 }
 
@@ -182,6 +183,8 @@ for _lib in ("flash_attn", "flash_bwd_fused"):
     SIGNATURES[_lib].update({
         fn.replace("_launch", "_bf16_launch"): argtypes
         for fn, argtypes in list(SIGNATURES[_lib].items())})
+# The keys a dq partial of the bf16 fused backward covers.
+SIGNATURES["flash_bwd_fused"]["flash_bwd_fused_bf16_key_rows"] = []
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

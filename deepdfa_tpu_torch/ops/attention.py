@@ -16,23 +16,23 @@ and ``csrc/flash_bwd_fused.cu``; their header notes say what bounds them
 and how they are laid out), each with its plain PyTorch version here:
 
 - :func:`flash_fwd` launches ``flash_fwd_kernel``: O and the row
-  logsumexp (the products as 3xTF32 on the tensor cores, the key tiles
-  with no real key skipped); replaces the TPU kernel ``_flash_kernel``.
-  Plain version :func:`flash_fwd_reference`.
+  logsumexp (the key tiles with no real key skipped); replaces the TPU
+  kernel ``_flash_kernel``. Plain version :func:`flash_fwd_reference`.
 - :func:`flash_bwd_fused` launches ``flash_bwd_fused_kernel``: dq, dk and
-  dv in one pass (one block a key tile, the products as 3xTF32 on the
-  tensor cores, the key tiles' dq partials then summed in a fixed order by
-  its second step, ``flash_dq_sum_kernel``); replaces
+  dv in one pass (one block a key block, whose dq partials its second
+  step, ``flash_dq_sum_kernel``, then sums in a fixed order); replaces
   ``_flash_bwd_fused_kernel``. Plain version
   :func:`flash_bwd_fused_reference`.
 - :func:`flash_bwd_dq` launches ``flash_bwd_dq_kernel`` and
   :func:`flash_bwd_dkv` ``flash_bwd_dkv_kernel``, the two-pass backward
-  (the key tiles with no real key skipped; the f32 instances' products as
-  3xTF32 on the tensor cores, the bf16 instances' as bf16 ``mma.sync``:
-  one for a product of two inputs, three for one with P or dS, split in
-  registers as :func:`split_bf16x3` splits); they replace
+  (the key tiles with no real key skipped); they replace
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``. Plain versions
   :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`.
+
+Every f32 kernel runs its products as 3xTF32 on the tensor cores; every
+bf16 one as bf16 ``mma.sync``: one for a product of two inputs (S = Q K^T,
+dP = dO V^T), three for one with P or dS, split in registers as
+:func:`split_bf16x3` splits.
 
 :func:`flash_attention` differentiates through :class:`_FlashAttention`,
 which saves ``q, k, v, mask, o, lse`` as the reference's ``_flash_fwd``
@@ -52,14 +52,14 @@ Dtypes. Every kernel has an f32 instance and a bf16 one (``*_bf16`` in
 :func:`launch_counts`), as the reference's Pallas kernels are generic over
 the input dtype: q, k, v and dO in bf16, every score, probability and
 sum in f32, lse and delta f32, and o, dq, dk and dv written in bf16. The
-forward's and the fused backward's bf16 instances give bit for bit the
-f32 kernel's result on the widened inputs, rounded once to bf16. The
-two-pass pair's bf16 instances take bf16 tiles and bf16 tensor-core
-products with f32 sums, exact products grouped 16 deep rather than 8, so
-each output lies within one bf16 step (or 1e-5) of the f32 kernel's
-rounded result, and no further from a float64 evaluation of the
-reference's formulas than it. The plain versions widen and compute in
-f32 and cast at the same points.
+bf16 instances take bf16 tiles and bf16 tensor-core products with f32
+sums, exact products grouped 16 deep rather than 8 (the fused backward's
+dq partials over 128-key blocks rather than 64), so each output lies
+within one bf16 step (or 1e-5) of the f32 kernel's result on the widened
+inputs rounded once, lse within 1e-5 of its, and no output further from a
+float64 evaluation of the reference's formulas than 1.02 times the f32
+kernel's rounded. The plain versions widen and compute in f32 and cast
+at the same points.
 
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches its kernel (the instance of the inputs'
@@ -89,10 +89,15 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
 #: The kernels' query and key tile (rows).
 TILE = 64
-#: The fused backward's dq partials for one (batch, head) at most: T 512
-#: at D 64 (192 MiB of scratch at B 16, H 12). They grow as T^2: T 4096
-#: would need 64 MiB a (batch, head), 6 GiB at B 8, H 12.
+#: The fused backward's dq partials for one (batch, head) at most, counted
+#: over the f32 kernel's 64-key tiles: T 512 at D 64 (192 MiB of scratch
+#: at B 16, H 12). They grow as T^2: T 4096 would need 64 MiB a (batch,
+#: head), 6 GiB at B 8, H 12.
 FUSED_BWD_PARTIAL_BYTES = 1 << 20
+#: The keys one dq partial of the fused backward covers, by instance: the
+#: f32 kernel's 64-key tiles, the bf16 kernel's 128-key blocks (``FKR`` in
+#: ``csrc/flash_bwd_fused.cu``, which the wrapper checks before a launch).
+FUSED_KEY_ROWS = {torch.float32: TILE, torch.bfloat16: 128}
 #: Key block of the plain versions' streaming softmax (the reference's
 #: blockwise default).
 PLAIN_BLOCK = 512
@@ -316,13 +321,22 @@ def flash_bwd_fused_reference(q, k, v, kv_mask, do, lse, delta,
 # ---------------------------------------------------------------------------
 
 
-def fused_bwd_partial_bytes(tq: int, d: int, tk: Optional[int] = None
-                             ) -> int:
-    """The f32 dq partials ``flash_bwd_fused_kernel`` writes for one
-    (batch, head): a ``[Tq, D]`` plane for each of the ``ceil(Tk / 64)``
-    key tiles (``Tk`` defaults to ``Tq``)."""
+def fused_bwd_partial_bytes(tq: int, d: int, tk: Optional[int] = None,
+                            key_rows: int = TILE) -> int:
+    """The f32 dq partials the fused backward writes for one (batch,
+    head): a ``[Tq, D]`` plane for each of the ``ceil(Tk / key_rows)`` key
+    blocks (``Tk`` defaults to ``Tq``; ``key_rows`` to the f32 kernel's
+    64-key tiles, which the gate counts)."""
     tk = tq if tk is None else tk
-    return 4 * -(-tk // TILE) * tq * d
+    return 4 * -(-tk // key_rows) * tq * d
+
+
+def fused_bwd_partials_shape(q: torch.Tensor, tk: int) -> tuple:
+    """The dq partials' shape ``[ceil(Tk / key_rows), B, Tq, H, D]`` that
+    :func:`flash_bwd_fused` allocates for q's instance (f32:
+    ``FUSED_KEY_ROWS``)."""
+    b, tq, h, d = q.shape
+    return (-(-tk // FUSED_KEY_ROWS[q.dtype]), b, tq, h, d)
 
 
 def flash_fused_bwd_ok(tq: int, d: int, tk: Optional[int] = None) -> bool:
@@ -460,6 +474,18 @@ def _bwd_rows(q: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
             ("delta", delta, (b, h, tq), False))
 
 
+def _check_key_rows() -> None:
+    """Raise unless the built bf16 fused kernel's key blocks are
+    ``FUSED_KEY_ROWS``' (the partials the wrapper allocates)."""
+    from deepdfa_tpu_torch.ops import _build
+
+    built = _build.load("flash_bwd_fused").flash_bwd_fused_bf16_key_rows()
+    if built != FUSED_KEY_ROWS[torch.bfloat16]:
+        raise RuntimeError(
+            f"flash_bwd_fused_kernel_bf16 is built for {built}-key blocks, "
+            f"FUSED_KEY_ROWS says {FUSED_KEY_ROWS[torch.bfloat16]}")
+
+
 def flash_bwd_fused(q, k, v, kv_mask, do, lse, delta, causal: bool = False):
     """``(dq, dk, dv)`` in one pass. CPU tensors:
     :func:`flash_bwd_fused_reference`. CUDA tensors:
@@ -481,11 +507,13 @@ def flash_bwd_fused(q, k, v, kv_mask, do, lse, delta, causal: bool = False):
             f"(batch, head) > {FUSED_BWD_PARTIAL_BYTES}: use the two-pass "
             "kernels")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    part = torch.empty((-(-tk // TILE), b, tq, h, d), dtype=torch.float32,
+    part = torch.empty(fused_bwd_partials_shape(q, tk), dtype=torch.float32,
                        device=q.device)
     with torch.cuda.device(q.device):
         launch, stream = _launcher(q, "flash_bwd_fused_launch",
                                    "flash_bwd_fused")
+        if q.dtype == torch.bfloat16:
+            _check_key_rows()
         err = launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do),
                      _ptr(lse), _ptr(delta), _ptr(part), _ptr(dq), _ptr(dk),
                      _ptr(dv), *_dims(q, k, causal), stream)

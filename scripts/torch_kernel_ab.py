@@ -18,7 +18,9 @@ shape (and over A and A^T for the tile product), and the card's name and
 power limit; whether the fused flash backward gave the same output bits
 in every run (``fused_bits_equal``), whether the flash forward's output
 and lse did in the two runs of each checkout (``fwd_bits_equal``: each
-run hashes them on chip_smoke's seeded T 512 inputs), and whether
+run hashes them on chip_smoke's seeded T 512 inputs), the same at bf16
+across the checkouts (``fused_bits_equal_bf16``, ``fwd_bits_equal_bf16``)
+and within each (``*_bits_repeat_bf16``), and whether
 ``fused_step_kernel``'s output and ``fused_step_bwd_kernel``'s four
 outputs on the training batch hashed equal in every run of both
 checkouts (``gnn_step_bits_equal``). Needs one NVIDIA GPU; the checkouts
@@ -42,13 +44,20 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           # The fused flash backward's output bits, and the forward's, on
           # chip_smoke's seeded T 512 inputs.
           "import hashlib, torch; A = cs.attention; F = cs.fused_gnn; "
-          "sha = lambda xs: hashlib.sha256(b''.join("
-          "x.cpu().numpy().tobytes() for x in xs)).hexdigest(); "
+          "sha = lambda xs: hashlib.sha256(b''.join(x.cpu().contiguous()"
+          ".view(torch.uint8).numpy().tobytes() for x in xs)).hexdigest(); "
           "q, k, v, m, g = cs._attn_inputs(cs.ATTN_TRAIN_SHAPE, cs.SEED); "
           "o, lse = A.flash_fwd_reference(q, k, v, m); "
           "out = A.flash_bwd_fused(q, k, v, m, g, lse, A.flash_delta(o, g)); "
           "cs.emit(phase='fused_bits', sha256=sha(out)); "
           "cs.emit(phase='fwd_bits', sha256=sha(A.flash_fwd(q, k, v, m))); "
+          # The same at bf16.
+          "q, k, v, g = (x.bfloat16() for x in (q, k, v, g)); "
+          "o, lse = A.flash_fwd_reference(q, k, v, m); "
+          "out = A.flash_bwd_fused(q, k, v, m, g, lse, A.flash_delta(o, g)); "
+          "cs.emit(phase='fused_bits_bf16', sha256=sha(out)); "
+          "cs.emit(phase='fwd_bits_bf16', sha256=sha(A.flash_fwd(q, k, v, "
+          "m))); "
           # fused_step_kernel's and fused_step_bwd_kernel's outputs on the
           # training batch (embeddings of the seeded model, a seeded
           # cotangent).
@@ -80,6 +89,7 @@ def run(checkout: str) -> dict:
         if rec.get("phase") == "device":
             out["device"] = rec["device"]
         elif rec.get("phase") in ("fused_bits", "fwd_bits",
+                                  "fused_bits_bf16", "fwd_bits_bf16",
                                   "gnn_step_bits"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
         elif rec.get("phase") in ("kernels", "train_kernels",
@@ -105,13 +115,30 @@ def main() -> int:
     for label in ("old", "new", "new", "old"):
         checkout = os.path.abspath(getattr(args, label))
         runs.append({"checkout": label, **run(checkout)})
-    fwd = {label: {run["fwd_bits_sha256"] for run in runs
-                   if run["checkout"] == label} for label in ("old", "new")}
+
+    def hashes(key, label=None):
+        return {run[key + "_sha256"] for run in runs
+                if label in (None, run["checkout"])}
+
     result = {"nvidia_smi": smi, "runs": runs,
-              "fused_bits_equal": len({run["fused_bits_sha256"]
-                                       for run in runs}) == 1,
-              "fwd_bits_equal": {label: len(hashes) == 1
-                                 for label, hashes in fwd.items()},
+              "fused_bits_equal": len(hashes("fused_bits")) == 1,
+              "fwd_bits_equal": {label: len(hashes("fwd_bits", label)) == 1
+                                 for label in ("old", "new")},
+              "fused_bits_equal_bf16": len(hashes("fused_bits_bf16")) == 1,
+              "fwd_bits_equal_bf16": len(hashes("fwd_bits_bf16")) == 1,
+              **{f"{key}_repeat_bf16": {
+                  label: len(hashes(key, label)) == 1
+                  for label in ("old", "new")}
+                 for key in ("fused_bits_bf16", "fwd_bits_bf16")},
+              # Against a checkout from before the bf16 forward and fused
+              # backward took bf16 tensor-core products: the f32 kernels
+              # keep their bits, the bf16 ones regroup their sums (bf16
+              # products 16 deep, dq partials over 128 keys), so their
+              # bits differ; each checkout repeats its own.
+              "expected": {"fused_bits_equal": True,
+                           "fused_bits_equal_bf16": False,
+                           "fwd_bits_equal_bf16": False,
+                           "repeat_bf16": True},
               "gnn_step_bits_equal": len({run["gnn_step_bits_sha256"]
                                           for run in runs}) == 1}
     text = json.dumps(result)
