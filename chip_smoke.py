@@ -1902,6 +1902,8 @@ def phase_train_kernels_bf16(model: FlowGNN) -> dict:
             rec = dict(kernel=name, band_vals=vals, n_rows=h.shape[0],
                        max_abs_err=max(o["max_abs_err"]
                                        for o in outputs.values()),
+                       elements_differing=sum(o["elements_differing"]
+                                              for o in outputs.values()),
                        outputs=outputs, bits_repeat=True,
                        **_step_geometry(adj, hidden, name))
             if vals == "bf16":
@@ -4723,8 +4725,9 @@ def main() -> int:
                                        "active_clusters", "row_tile",
                                        "slab_rows", "blocks", "wide",
                                        "blocks_per_sm_pass1",
-                                       "blocks_per_sm_pass2", "f32_kernel_ms",
-                                       "elements_differing",
+                                       "blocks_per_sm_pass2", "smem_bytes",
+                                       "smem_bytes_pass1", "smem_bytes_pass2",
+                                       "f32_kernel_ms", "elements_differing",
                                        "scan_bits_equal", "fold_bits_equal")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,11 +10,11 @@
 //                          _run_persistent_bwd): the reverse sweep over
 //                          steps K-1..0 in one launch, the inter-step
 //                          cotangent resident on chip.
-// persistent_bwd_kernel_bf16 (its own __global__, not an instance of
-//                          persistent_bwd_kernel) replaces
-//                          _persist_bwd_kernel at dt = bfloat16: the
-//                          reverse sweep of the bf16 backward (see its
-//                          section below).
+// fused_step_bwd_kernel_bf16, persistent_bwd_kernel_bf16 (__global__s
+//                          of their own) replace _bwd_kernel and
+//                          _persist_bwd_kernel at dt = bfloat16, their
+//                          products on the bf16 tensor cores
+//                          (gnn_bf16_mma.cuh; see their section below).
 // step_weight_grad_kernel  the weight-gradient reduction that both TPU
 //                          kernels fold into their bodies
 //                          (_bwd_kernel's dwi/dwh/dek accumulators,
@@ -26,7 +26,8 @@
 // persistent_backward_reference and step_weight_grad_reference in
 // deepdfa_tpu_torch/ops/fused_gnn.py. Built by ops/_build.py like
 // fused_gnn.cu; the device functions shared with the forward are in
-// gated_step.cuh.
+// gated_step.cuh and group_step.cuh, the bf16 instances' products in
+// gnn_bf16_mma.cuh.
 //
 // The math (per row; g is the output cotangent; x the edge message
 // aggregate A (h W_e + b_e), recomputed as the forward computes it):
@@ -114,6 +115,9 @@
 
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "gnn_bf16_mma.cuh"
 #include "group_step.cuh"
 #include "tf32_mma.cuh"
 
@@ -646,30 +650,45 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
 //                               same Pallas kernel, generic over the
 //                               dtype; its bf16 body, fused_gnn.py:
 //                               405-476), down to the per-row cotangents.
-// step_weight_grad_kernel_bf16  its weight-gradient accumulation at bf16.
+// persistent_bwd_kernel_bf16    replaces _persist_bwd_kernel at dt =
+//                               bfloat16: the reverse sweep.
+// step_weight_grad_kernel_bf16  their weight-gradient accumulation at bf16.
 //
-// The reference rounds inside the step at bf16, so the f32 kernels'
-// reassociation (aggregate h before the edge linear) would skip a rounding
-// point, as in the forward instance (fused_gnn.cu, bf16 section). The
-// backward instance therefore runs three passes over fused_step_bwd_kernel's
-// row tiles (step_bwd_plan), one launch count: pass 0 writes every row's
-// message (edge_msg_bf16, fused_step_kernel_bf16's pass 0) into an f32
-// scratch, since a tile's halo messages belong to other blocks; pass 1
-// stages the tile's h, g and messages, aggregates the messages, rounds x
-// (written out, bf16), runs the gate products with the input and recurrent
-// sums apart (group_gate_split: each rounds before its bias) and the gate
-// backward (gate_bwd_out_bf16: f32 cotangents from the gates, dp written
-// out f32 and unrounded), then dx = dpre_i W_i^T and dhl = dhc + dpre_h
-// W_h^T with dp rounded to bf16 on load, and writes dx rounded to the
-// message dtype and dhl; pass 2 aggregates A^T dx (f32 sums; dmsg written
-// out unrounded), rounds dmsg to the message dtype in place and ends with
-// dh = round_bf16(dhl + dmsg W_e^T). Every row array holds f32 (bf16 values
-// widened, exact) and the weights arrive as f32 arrays of bf16 values.
-// The products stay the f32 kernels' register-tiled SIMT FMAs: bound by
-// f32 operations like them (kernel_cost counts the products of two bf16
-// values at the bf16 tensor-core rate, the function's bound, which this
-// instance does not reach). Pass 1 holds 96 gate sums a thread: one block
-// an SM.
+// The reference rounds inside the step at bf16 (each message before the
+// aggregate, x, each gate product before its bias, dpre before its
+// products, dx and dmsg at the message dtype), and every one of its dense
+// products multiplies two bf16 values and sums in f32. Both kernels run
+// those products on the bf16 tensor cores through the device functions
+// of gnn_bf16_mma.cuh (one bf16 mma.sync a 16-deep k-slice, f32 sums;
+// with f32 band values dmsg's product with W_e^T takes dmsg split three
+// ways), on the weights as bf16 copies (the wrapper rounds the f32
+// masters once a call) and on bf16 row tiles; the epilogues are the f32
+// gate code's bf16 twins (gated_step.cuh: edge_msg_bf16,
+// gate_bwd_out_bf16: f32 cotangents from the gates, dp written out f32
+// and unrounded). What bounds them: the bytes of the rows, dp and dmsg
+// (0.025 ms a step at the training batch; ops/fused_gnn.py:kernel_cost),
+// the products being 7.5 GFLOP a step at 989 TFLOP/s. What holds them
+// above it (scripts/torch_gnn_bwd_bf16_layouts.py --ablations): the band
+// aggregates (a warp a row), the gate's epilogue and the rows' traffic
+// (dp out and back) more than the products, and each weight slab's load
+// (one stage: a slab crosses L2 once a pass of up to 32 rows).
+//
+// fused_step_bwd_kernel_bf16 runs three passes over fixed row tiles
+// (step_bwd_plan), one launch count, since a tile's halo needs other
+// blocks' messages and dx: pass 0 writes every row's message at the
+// message dtype (bf16 band values: bf16; f32: f32); pass 1 stages the
+// tile's h, g and messages, aggregates the messages (the halo's from
+// device memory) and rounds x (written out, bf16), runs the gate's six
+// sums and its backward (dp out, dhc kept), then dx and the recurrent
+// product with dp staged back rounded to bf16, and writes dx at the
+// message dtype and dhl (f32); pass 2 aggregates A^T dx (dmsg written out
+// unrounded) and ends with dh = round_bf16(dhl + dmsg_c W_e^T).
+// persistent_bwd_kernel_bf16 does the three passes' work for one closed
+// row group a block, steps K-1 down to 0 in one launch: no edge leaves a
+// group, so the messages, dx and dhl stay in shared memory. Each element
+// keeps one chain in both (the same device functions in the same k order;
+// group_aggregate sums a row's senders as tile_aggregate does), so the
+// sweep equals the scan of the per-step kernel bit for bit.
 //
 // The weight pass takes h, hist and x as bf16 and dp, dmsg as f32: each
 // block stages its L slabs as bf16 by cp.async and widens them (a bf16
@@ -681,148 +700,162 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
 // step on the grid and step_weight_grad_reduce_kernel are the f32
 // pass's: a K-step call equals the fold of K one-step calls bit for bit.
 
-// Pointers and sizes of one bf16 backward step.
+// Blocks an SM of the per-step passes and of the sweep (__launch_bounds__:
+// at most 128 registers a thread). With one weight stage (kRingStages)
+// the sweep fits two blocks an SM at the training batch's 48-row groups;
+// scripts/torch_gnn_bwd_bf16_layouts.py times the other layouts.
+constexpr int kStepBf16Blocks = 2;
+constexpr int kPersistBf16Blocks = 2;
+
+// Pointers and sizes of one bf16 backward step: the weights bf16 ([K, N]
+// row-major: ek, wi, wh and their transposes ekT, wiT, whT), the biases
+// f32 arrays of bf16 values; msg and dx scratch at the message dtype.
 struct BwdBf16Args {
   const __nv_bfloat16* h;
   const void* vals;
   const void* tvals;
   const __nv_bfloat16* g;
-  const float *ek, *eb, *wi, *bi, *wh, *bh, *wiT, *whT, *ekT;
-  float* msg;
+  const __nv_bfloat16 *ek, *wi, *wh, *ekT, *wiT, *whT;
+  const float *eb, *bi, *bh;
+  void* msg;
   __nv_bfloat16* x;
-  float *dp, *dx, *dhl, *dmsg;
+  float* dp;
+  void* dx;
+  float *dhl, *dmsg;
   __nv_bfloat16* dh;
   int n_rows, H, tile, n_tiles, bw, row_tile;
 };
 
-// Shared memory: kStages weight-slab stages, then pass 0: h_s; pass 1: d_s
-// (g, then dhc, then dhl), h_s (h, then dx), m_s (the tile's messages),
-// a_s (the aggregate, then x), the row sums; pass 2: x_s (dx), a_s (dmsg,
-// then its rounding), the row sums.
-template <typename VT, int kPass>
-__global__ void __launch_bounds__(kGroupThreads, 1)
-    fused_step_bwd_kernel_bf16(const BwdBf16Args a) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr bool kRoundMsg = sizeof(VT) == 2;
-  const VT* vals = static_cast<const VT*>(a.vals);
-  const VT* tvals = static_cast<const VT*>(a.tvals);
-  const int H = a.H;
-  const Tile t(H, 0, 1);
-  const int r0 = blockIdx.x * a.row_tile;
-  const int R = min(a.row_tile, a.n_rows - r0), ld = t.ld;
-  const size_t off = static_cast<size_t>(r0) * H;
-  const int sf = kStages * group_stage_floats(H);
-  float* stages = smem;  // [kStages][stage]
-  float* rows = stages + sf;
-  if constexpr (kPass == 0) {
-    float* h_s = rows;
-    rows_to_shared(h_s, ld, a.h + off, R, H);
-    __syncthreads();
-    float* dst = a.msg + off;
-    group_rows_times<false>(t, h_s, R, a.ek, stages,
-                            [&](int r, const float* acc) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = edge_msg_bf16(acc[j], __ldg(a.eb + t.c0 + j), kRoundMsg);
-      *reinterpret_cast<float4*>(dst + r * H + t.c0) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    });
-  } else if constexpr (kPass == 1) {
-    float* d_s = rows;                    // [R, ld] g, dhc, dhl
-    float* h_s = d_s + a.row_tile * ld;   // [R, ld] h, then dx
-    float* m_s = h_s + a.row_tile * ld;   // [R, ld] the tile's messages
-    float* a_s = m_s + a.row_tile * ld;   // [R, ld] the aggregate, then x
-    float* rs_s = a_s + a.row_tile * ld;  // [R] row sums (unused at bf16)
-    rows_to_shared(h_s, ld, a.h + off, R, H);
-    rows_to_shared(d_s, ld, a.g + off, R, H);
-    rows_to_shared(m_s, ld, a.msg + off, R, H);
-    __syncthreads();
-    tile_aggregate(vals, a.tile, a.n_tiles, a.bw, a.msg, m_s, r0, R, ld, H,
-                   a_s, rs_s, stages, sf);
-    for (int e = threadIdx.x; e < R * H; e += kGroupThreads) {
-      const int i = (e / H) * ld + e % H;
-      a_s[i] = round_bf16(a_s[i]);
-    }
-    __syncthreads();
-    rows_to_global(a.x + off, a_s, ld, R, H, 0, H);
-    float* dp_t = a.dp + 4 * off;
-    group_gate_split<false>(
-        t, a_s, h_s, R, a.wi, a.wh, stages,
-        [&](int r, const float* ir, const float* hr, const float* iz,
-            const float* hz, const float* in, const float* hn) {
-          float d[4][4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int e = r * ld + t.c0 + j;
-            const GateGrads gg = gate_bwd_out_bf16(
-                ir[j], hr[j], iz[j], hz[j], in[j], hn[j],
-                gate_bias_bf16(a.bi, a.bh, H, t.c0 + j), h_s[e], d_s[e]);
-            d[0][j] = gg.dr;
-            d[1][j] = gg.dz;
-            d[2][j] = gg.dn;
-            d[3][j] = gg.dhn;
-            d_s[e] = gg.dhc;
-          }
-          float* dprow = dp_t + static_cast<size_t>(r) * 4 * H;
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            *reinterpret_cast<float4*>(dprow + b * H + t.c0) =
-                make_float4(d[b][0], d[b][1], d[b][2], d[b][3]);
-        });
-    // dp (device memory) of every row of the tile is visible to the block.
-    group_gate_bwd_b<kGateRows, true>(t, dp_t, R, a.wiT, a.whT, stages, h_s,
-                                      d_s);
-    // dx at the message dtype (bf16 messages: rounded), then dhl.
-    const int q = H / 4;
-    for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
-      const int r = e / q, c = 4 * (e % q);
-      float4 v = *reinterpret_cast<const float4*>(h_s + r * ld + c);
-      if constexpr (kRoundMsg) v = round_bf16x4(v);
-      *reinterpret_cast<float4*>(a.dx + off + static_cast<size_t>(r) * H +
-                                 c) = v;
-    }
-    rows_to_global(a.dhl + off, d_s, ld, R, H);
-  } else {
-    float* x_s = rows;                    // [R, ld] dx of the tile
-    float* a_s = x_s + a.row_tile * ld;   // [R, ld] dmsg, then rounded
-    float* rs_s = a_s + a.row_tile * ld;  // [R] row sums (unused)
-    rows_to_shared(x_s, ld, a.dx + off, R, H);
-    __syncthreads();
-    tile_aggregate(tvals, a.tile, a.n_tiles, a.bw, a.dx, x_s, r0, R, ld, H,
-                   a_s, rs_s, stages, sf);
-    // dmsg out unrounded (the weight pass sums db_e from it); the product
-    // with W_e^T takes it at the message dtype.
-    const int q = H / 4;
-    for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
-      const int r = e / q, c = 4 * (e % q);
-      float4* p = reinterpret_cast<float4*>(a_s + r * ld + c);
-      *reinterpret_cast<float4*>(a.dmsg + off + static_cast<size_t>(r) * H +
-                                 c) = *p;
-      if constexpr (kRoundMsg) *p = round_bf16x4(*p);
-    }
-    __syncthreads();
-    const float* dhl_t = a.dhl + off;
-    __nv_bfloat16* dh_t = a.dh + off;
-    group_rows_times<false>(t, a_s, R, a.ekT, stages,
-                            [&](int r, const float* acc) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = __fadd_rn(dhl_t[r * H + t.c0 + j], acc[j]);
-      store_bf16x4(dh_t + r * H + t.c0, v[0], v[1], v[2], v[3]);
-    });
-  }
+// Bytes of the weight ring.
+__host__ __device__ inline int ring_bytes(int H) {
+  return gnnmma::kRingStages * gnnmma::ring_stage_bytes(H);
 }
 
-// Dynamic shared memory of fused_step_bwd_kernel_bf16's pass
-// (ops/fused_gnn.py:step_smem_bytes mirrors it).
+// The gate's epilogue on one element pair (row r, columns c, c + 1) of
+// the six sums v: dp's four blocks out (f32, unrounded, at dp_row), the
+// carry cotangent dhc into cot (the tile's f32 cotangent, g on entry);
+// hb: the step's h.
+__device__ __forceinline__ void gate_epilogue(
+    const float (&v)[6][2], int r, int c, int H, const float* bi,
+    const float* bh, const __nv_bfloat16* hb, float* cot, float* dp_row) {
+  const int ld = gnnmma::tile_ld(H);
+  float d[4][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = r * ld + c + e;
+    const GateGrads gg = gate_bwd_out_bf16(
+        v[0][e], v[3][e], v[1][e], v[4][e], v[2][e], v[5][e],
+        gate_bias_bf16(bi, bh, H, c + e), __bfloat162float(hb[i]), cot[i]);
+    d[0][e] = gg.dr;
+    d[1][e] = gg.dz;
+    d[2][e] = gg.dn;
+    d[3][e] = gg.dhn;
+    cot[i] = gg.dhc;
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    *reinterpret_cast<float2*>(dp_row + b * H + c) =
+        make_float2(d[b][0], d[b][1]);
+}
+
+// Dynamic shared memory of fused_step_bwd_kernel_bf16's pass for tiles of
+// row_tile rows (a multiple of 16; ops/fused_gnn.py:step_smem_bytes
+// mirrors it): the ring, then pass 0: h; pass 1: the cotangent (f32),
+// then h, x and the messages (sized f32) or, once the gate is done, the
+// dp rows, then the row sums; pass 2: dx (sized f32), dmsg, the row sums.
 size_t step_bwd_bf16_smem(int pass, int row_tile, int hidden) {
-  const int arrays = pass == 0 ? 1 : (pass == 1 ? 4 : 2);
-  return sizeof(float) *
-         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
-          arrays * static_cast<size_t>(row_tile) * group_ld(hidden) +
-          (pass == 0 ? 0 : row_tile));
+  const size_t ld = gnnmma::tile_ld(hidden), rows = row_tile * ld;
+  size_t b = ring_bytes(hidden);
+  if (pass == 0) return b + 2 * rows;
+  if (pass == 2) return b + 8 * rows + 4 * row_tile;
+  const size_t dp = static_cast<size_t>(gnnmma::dp_rows(hidden, row_tile)) *
+                    gnnmma::dp_ld(hidden) * 2;
+  return b + 4 * rows + std::max(8 * rows, dp) + 4 * row_tile;
+}
+
+template <typename VT, int kPass>
+__global__ void __launch_bounds__(kGroupThreads, kStepBf16Blocks)
+    fused_step_bwd_kernel_bf16(const BwdBf16Args a) {
+  using namespace gnnmma;
+  using MT = VT;  // the messages and dx at the message dtype (the band's)
+  constexpr bool kRoundMsg = sizeof(VT) == 2;
+  extern __shared__ __align__(16) char bsmem[];
+  const int H = a.H, ld = tile_ld(H), rt = a.row_tile;
+  const int r0 = blockIdx.x * rt, R = min(rt, a.n_rows - r0);
+  const size_t off = static_cast<size_t>(r0) * H;
+  char* stages = bsmem;
+  char* rows = bsmem + ring_bytes(H);
+  float* buf = reinterpret_cast<float*>(stages);  // the aggregate's staging
+  const int buf_floats = ring_bytes(H) / 4;
+  if constexpr (kPass == 0) {
+    __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(rows);
+    tile_in(hb, a.h + off, R, H);
+    __syncthreads();
+    MT* msg = static_cast<MT*>(a.msg) + off;
+    messages(R, H, hb, a.ek, a.eb, kRoundMsg, stages,
+             [&](int r, int c, const float(&m)[2]) {
+               put2(msg + r * H + c, m[0], m[1]);
+             });
+  } else if constexpr (kPass == 1) {
+    float* cot = reinterpret_cast<float*>(rows);  // [rt, ld] g, then dhc
+    char* u = rows + 4 * rt * ld;
+    __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(u);  // [rt, ld]
+    __nv_bfloat16* xb = hb + rt * ld;                         // [rt, ld]
+    MT* mt = reinterpret_cast<MT*>(xb + rt * ld);  // [rt, ld] own messages
+    __nv_bfloat16* dpb = hb;  // after the gate: the dp rows
+    float* rs = reinterpret_cast<float*>(
+        u + max(8 * rt * ld, dp_rows(H, rt) * dp_ld(H) * 2));
+    const MT* msg = static_cast<const MT*>(a.msg);
+    tile_in(hb, a.h + off, R, H);
+    tile_in(cot, a.g + off, R, H);
+    tile_in(mt, msg + off, R, H);
+    __syncthreads();
+    tile_aggregate(static_cast<const VT*>(a.vals), a.tile, a.n_tiles, a.bw,
+                   msg, static_cast<const MT*>(mt), r0, R, ld, H, xb, rs,
+                   buf, buf_floats);
+    zero_pad(xb, R, H);
+    __syncthreads();
+    tile_out(a.x + off, xb, R, H);
+    float* dp_t = a.dp + 4 * off;
+    gate_sums(R, H, xb, hb, a.wi, a.wh, stages,
+              [&](int r, int c, const float(&v)[6][2]) {
+                gate_epilogue(v, r, c, H, a.bi, a.bh, hb, cot,
+                              dp_t + static_cast<size_t>(r) * 4 * H);
+              });
+    // dp (device memory) of every row of the tile is visible to the block.
+    MT* dx = static_cast<MT*>(a.dx) + off;
+    float* dhl = a.dhl + off;
+    gate_bwd_products(R, H, dp_t, dpb, a.wiT, a.whT, stages,
+                      [&](int r, int c, const float(&v)[2][2]) {
+                        const float* hc = cot + r * ld + c;
+                        put2(dx + r * H + c, v[0][0], v[0][1]);
+                        put2(dhl + r * H + c, __fadd_rn(hc[0], v[1][0]),
+                             __fadd_rn(hc[1], v[1][1]));
+                      });
+  } else {
+    MT* dxt = reinterpret_cast<MT*>(rows);                 // [rt, ld] dx
+    float* dm = reinterpret_cast<float*>(rows + 4 * rt * ld);  // dmsg
+    float* rs = dm + rt * ld;
+    const MT* dx = static_cast<const MT*>(a.dx);
+    tile_in(dxt, dx + off, R, H);
+    __syncthreads();
+    tile_aggregate(static_cast<const VT*>(a.tvals), a.tile, a.n_tiles, a.bw,
+                   dx, static_cast<const MT*>(dxt), r0, R, ld, H, dm, rs, buf,
+                   buf_floats);
+    zero_pad(dm, R, H);
+    __syncthreads();
+    // dmsg out unrounded (the weight pass sums db_e from it); the product
+    // with W_e^T takes it at the message dtype.
+    tile_out(a.dmsg + off, dm, R, H);
+    const float* dhl = a.dhl + off;
+    __nv_bfloat16* dh = a.dh + off;
+    dmsg_times_ekT<kRoundMsg ? 1 : 3>(
+        R, H, dm, a.ekT, stages, [&](int r, int c, const float(&v)[1][2]) {
+          const float* l = dhl + r * H + c;
+          put2(dh + r * H + c, __fadd_rn(l[0], v[0][0]),
+               __fadd_rn(l[1], v[0][1]));
+        });
+  }
 }
 
 // Launches pass kPass over plan p (occupancy == nullptr) or queries its
@@ -860,38 +893,29 @@ int launch_fused_bwd_bf16(BwdBf16Args a, cudaStream_t st,
 // persistent_bwd_kernel_bf16: the persistent lane's reverse sweep at bf16
 // ---------------------------------------------------------------------------
 //
-// Replaces _persist_bwd_kernel at dt = bfloat16. One block per closed row
-// group, steps K-1 down to 0, the work of fused_step_bwd_kernel_bf16's three
-// passes in one launch: no edge leaves a group, so the block needs no other
-// block's messages or dx, and the passes' device-memory crossings (the
-// message scratch, dx, dhl) stay in shared memory. Per step: the group's
-// messages from h (edge_msg_bf16, pass 0), their aggregate rounded to x
-// (written out, bf16), the split gate products and gate_bwd_out_bf16 (dp
-// written out, f32; the carry cotangent in dh_s), dx = dpre_i W_i^T and dhl =
-// dhc + dpre_h W_h^T with dp rounded on load, dx rounded to the message
-// dtype, dmsg = A^T dx (written out unrounded, then rounded to the message
-// dtype in place) and dh = round_bf16(dhl + dmsg W_e^T), the next step's
-// cotangent. Every element keeps the per-step instance's chain (the same
-// device functions in the same order; group_aggregate sums a row's
-// senders as tile_aggregate does), so the sweep equals the scan of
-// fused_step_bwd_kernel_bf16 bit for bit.
+// One block per closed row group, steps K-1 down to 0. Per step: h in (a
+// bf16 tile), the messages (the per-step pass 0's product), their
+// aggregate rounded to x (written out), the gate's six sums and its
+// backward (dp written out, dhc into the resident cotangent), dx and dhl
+// with dp staged back rounded (dx kept at the message dtype), dmsg = A^T
+// dx (written out unrounded) and dh = round_bf16(dhl + dmsg_c W_e^T), the
+// next step's cotangent.
 //
-// Shared memory: kStages weight-slab stages, then four [max_rows, ld]
-// arrays: dh_s (the resident cotangent, g then dhc then dhl then dh), h_s (the
-// step's input h, then dx), m_s (the messages) and a_s (the aggregate, then
-// x, then dmsg), then the row sums (unused at bf16). The messages and the
-// aggregate are live together, so the bf16 sweep holds one array more than
-// persistent_bwd_kernel: 138,432 bytes for groups of 48 rows at H 128, one
-// block an SM (ops/fused_gnn.py:persistent_bwd_smem_bytes mirrors it; its
-// gate admits 92 rows, and a batch over it runs fused_step_bwd_kernel_bf16
-// K times instead).
+// Shared memory (ops/fused_gnn.py:persistent_bwd_bf16_smem_bytes mirrors
+// it; persistent_occupancy reports it): the ring, the cotangent (f32),
+// then one region that holds h, x and the messages (sized f32) until the
+// gate is done, then dx (sized f32) beside the dp rows, then dmsg; the row
+// sums. 111,808 bytes for groups of 48 rows at H 128, two blocks an SM;
+// 183,168 at the 92 rows that persistent_bwd_smem_ok admits (its count,
+// 232,448 bytes for four f32 row arrays, stays the gate).
 struct PersistBwdBf16Args {
   const __nv_bfloat16* h0;
   const __nv_bfloat16* hist;
   const void* vals;
   const void* tvals;
   const __nv_bfloat16* g;
-  const float *ek, *eb, *wi, *bi, *wh, *bh, *wiT, *whT, *ekT;
+  const __nv_bfloat16 *ek, *wi, *wh, *ekT, *wiT, *whT;
+  const float *eb, *bi, *bh;
   const int* groups;
   __nv_bfloat16* x;
   float *dp, *dmsg;
@@ -899,117 +923,91 @@ struct PersistBwdBf16Args {
   int n_rows, H, tile, n_tiles, bw, n_steps, max_rows;
 };
 
-template <typename VT>
-__global__ void __launch_bounds__(kGroupThreads, 1)
-    persistent_bwd_kernel_bf16(const PersistBwdBf16Args a) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr bool kRoundMsg = sizeof(VT) == 2;
-  const VT* vals = static_cast<const VT*>(a.vals);
-  const VT* tvals = static_cast<const VT*>(a.tvals);
-  const int H = a.H;
-  const Tile t(H, 0, 1);
-  const int g0 = a.groups[blockIdx.x], g1 = a.groups[blockIdx.x + 1];
-  const int R = g1 - g0, ld = t.ld, q = H / 4;
-  float* stages = smem;                                     // [kStages][stage]
-  float* dh_s = stages + kStages * group_stage_floats(H);  // [R, ld] cotangent
-  float* h_s = dh_s + a.max_rows * ld;                      // [R, ld] h, dx
-  float* m_s = h_s + a.max_rows * ld;                       // [R, ld] messages
-  float* a_s = m_s + a.max_rows * ld;                       // [R, ld] agg, x, dmsg
-  float* rs_s = a_s + a.max_rows * ld;                      // [R] row sums
-  const size_t goff = static_cast<size_t>(g0) * H;
-  const size_t plane = static_cast<size_t>(a.n_rows) * H;
-  rows_to_shared(dh_s, ld, a.g + goff, R, H);
-  for (int s = a.n_steps - 1; s >= 0; --s) {
-    const __nv_bfloat16* src = s == 0 ? a.h0 : a.hist + (s - 1) * plane;
-    rows_to_shared(h_s, ld, src + goff, R, H);
-    __syncthreads();
-    // The messages (fused_step_bwd_kernel_bf16's pass 0).
-    group_rows_times<false>(t, h_s, R, a.ek, stages,
-                            [&](int r, const float* acc) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        m_s[r * ld + t.c0 + j] =
-            edge_msg_bf16(acc[j], __ldg(a.eb + t.c0 + j), kRoundMsg);
-    });
-    // The aggregate, rounded: x.
-    group_aggregate(vals, a.tile, a.n_tiles, a.bw, m_s, ld, g0, g1, H, a_s,
-                    rs_s);
-    __syncthreads();
-    for (int e = threadIdx.x; e < R * H; e += kGroupThreads) {
-      const int i = (e / H) * ld + e % H;
-      a_s[i] = round_bf16(a_s[i]);
-    }
-    __syncthreads();
-    rows_to_global(a.x + s * plane + goff, a_s, ld, R, H, 0, H);
-    float* dp_step = a.dp + 4 * (s * plane + goff);
-    group_gate_split<false>(
-        t, a_s, h_s, R, a.wi, a.wh, stages,
-        [&](int r, const float* ir, const float* hr, const float* iz,
-            const float* hz, const float* in, const float* hn) {
-          float d[4][4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int e = r * ld + t.c0 + j;
-            const GateGrads gg = gate_bwd_out_bf16(
-                ir[j], hr[j], iz[j], hz[j], in[j], hn[j],
-                gate_bias_bf16(a.bi, a.bh, H, t.c0 + j), h_s[e], dh_s[e]);
-            d[0][j] = gg.dr;
-            d[1][j] = gg.dz;
-            d[2][j] = gg.dn;
-            d[3][j] = gg.dhn;
-            dh_s[e] = gg.dhc;
-          }
-          float* dprow = dp_step + static_cast<size_t>(r) * 4 * H;
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            *reinterpret_cast<float4*>(dprow + b * H + t.c0) =
-                make_float4(d[b][0], d[b][1], d[b][2], d[b][3]);
-        });
-    // dp (device memory) of every row is visible to the block: dx into
-    // h_s, dhl into dh_s.
-    group_gate_bwd_b<kGateRows, true>(t, dp_step, R, a.wiT, a.whT, stages,
-                                      h_s, dh_s);
-    // dx at the message dtype (bf16 messages: rounded).
-    if constexpr (kRoundMsg) {
-      for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
-        float4* p = reinterpret_cast<float4*>(h_s + (e / q) * ld +
-                                              4 * (e % q));
-        *p = round_bf16x4(*p);
-      }
-      __syncthreads();
-    }
-    // dmsg = A^T dx, out unrounded; the product with W_e^T takes it at the
-    // message dtype.
-    group_aggregate(tvals, a.tile, a.n_tiles, a.bw, h_s, ld, g0, g1, H, a_s,
-                    rs_s);
-    __syncthreads();
-    for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
-      const int r = e / q, c = 4 * (e % q);
-      float4* p = reinterpret_cast<float4*>(a_s + r * ld + c);
-      *reinterpret_cast<float4*>(a.dmsg + s * plane + goff +
-                                 static_cast<size_t>(r) * H + c) = *p;
-      if constexpr (kRoundMsg) *p = round_bf16x4(*p);
-    }
-    __syncthreads();
-    group_rows_times<false>(t, a_s, R, a.ekT, stages,
-                            [&](int r, const float* acc) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = r * ld + t.c0 + j;
-        dh_s[e] = round_bf16(__fadd_rn(dh_s[e], acc[j]));
-      }
-    });
-  }
-  rows_to_global(a.dh + goff, dh_s, ld, R, H, 0, H);
+// The region's bytes for groups padded to rp rows.
+__host__ __device__ inline int persist_region_bytes(int rp, int hidden) {
+  const int rows = rp * gnnmma::tile_ld(hidden);
+  const int dp = gnnmma::dp_rows(hidden, rp) * gnnmma::dp_ld(hidden) * 2;
+  const int after = 4 * rows + (dp > 4 * rows ? dp : 4 * rows);
+  return 8 * rows > after ? 8 * rows : after;
 }
 
-// Dynamic shared memory of persistent_bwd_kernel_bf16 for groups of up to
-// max_rows rows: four row arrays (ops/fused_gnn.py:persistent_bwd_smem_bytes
-// mirrors it).
 size_t persistent_bwd_bf16_smem(int max_rows, int hidden) {
-  return sizeof(float) *
-         (kStages * static_cast<size_t>(group_stage_floats(hidden)) +
-          4 * static_cast<size_t>(max_rows) * group_ld(hidden) + max_rows);
+  const int rp = (max_rows + 15) & ~15;
+  return ring_bytes(hidden) +
+         4 * static_cast<size_t>(rp) * gnnmma::tile_ld(hidden) +
+         persist_region_bytes(rp, hidden) + 4 * static_cast<size_t>(rp);
+}
+
+template <typename VT>
+__global__ void __launch_bounds__(kGroupThreads, kPersistBf16Blocks)
+    persistent_bwd_kernel_bf16(const PersistBwdBf16Args a) {
+  using namespace gnnmma;
+  using MT = VT;
+  constexpr bool kRoundMsg = sizeof(VT) == 2;
+  extern __shared__ __align__(16) char bsmem[];
+  const VT* vals = static_cast<const VT*>(a.vals);
+  const VT* tvals = static_cast<const VT*>(a.tvals);
+  const int H = a.H, ld = tile_ld(H), rp = (a.max_rows + 15) & ~15;
+  const int g0 = a.groups[blockIdx.x], g1 = a.groups[blockIdx.x + 1];
+  const int R = g1 - g0;
+  char* stages = bsmem;
+  float* cot = reinterpret_cast<float*>(bsmem + ring_bytes(H));  // [rp, ld]
+  char* u = reinterpret_cast<char*>(cot + rp * ld);
+  __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(u);  // [rp, ld]
+  __nv_bfloat16* xb = hb + rp * ld;                         // [rp, ld]
+  MT* mt = reinterpret_cast<MT*>(xb + rp * ld);  // [rp, ld] the messages
+  MT* dxt = reinterpret_cast<MT*>(u);            // [rp, ld] dx, after the gate
+  char* v = u + 4 * rp * ld;
+  __nv_bfloat16* dpb = reinterpret_cast<__nv_bfloat16*>(v);  // the dp rows
+  float* dm = reinterpret_cast<float*>(v);                   // then dmsg
+  float* rs = reinterpret_cast<float*>(u + persist_region_bytes(rp, H));
+  const size_t goff = static_cast<size_t>(g0) * H;
+  const size_t plane = static_cast<size_t>(a.n_rows) * H;
+  tile_in(cot, a.g + goff, R, H);
+  for (int s = a.n_steps - 1; s >= 0; --s) {
+    const __nv_bfloat16* src = s == 0 ? a.h0 : a.hist + (s - 1) * plane;
+    tile_in(hb, src + goff, R, H);
+    __syncthreads();
+    messages(R, H, hb, a.ek, a.eb, kRoundMsg, stages,
+             [&](int r, int c, const float(&m)[2]) {
+               put2(mt + r * ld + c, m[0], m[1]);
+             });
+    // The aggregate, rounded: x.
+    group_aggregate(vals, a.tile, a.n_tiles, a.bw,
+                    static_cast<const MT*>(mt), ld, g0, g1, H, xb, rs);
+    zero_pad(xb, R, H);
+    __syncthreads();
+    tile_out(a.x + s * plane + goff, xb, R, H);
+    float* dp_step = a.dp + 4 * (s * plane + goff);
+    gate_sums(R, H, xb, hb, a.wi, a.wh, stages,
+              [&](int r, int c, const float(&w)[6][2]) {
+                gate_epilogue(w, r, c, H, a.bi, a.bh, hb, cot,
+                              dp_step + static_cast<size_t>(r) * 4 * H);
+              });
+    // dp (device memory) of every row is visible to the block: dx into
+    // dxt at the message dtype, dhl into the cotangent.
+    gate_bwd_products(R, H, dp_step, dpb, a.wiT, a.whT, stages,
+                      [&](int r, int c, const float(&w)[2][2]) {
+                        float* hc = cot + r * ld + c;
+                        put2(dxt + r * ld + c, w[0][0], w[0][1]);
+                        hc[0] = __fadd_rn(hc[0], w[1][0]);
+                        hc[1] = __fadd_rn(hc[1], w[1][1]);
+                      });
+    // dmsg = A^T dx, out unrounded; the product with W_e^T takes it at the
+    // message dtype.
+    group_aggregate(tvals, a.tile, a.n_tiles, a.bw,
+                    static_cast<const MT*>(dxt), ld, g0, g1, H, dm, rs);
+    zero_pad(dm, R, H);
+    __syncthreads();
+    tile_out(a.dmsg + s * plane + goff, dm, R, H);
+    dmsg_times_ekT<kRoundMsg ? 1 : 3>(
+        R, H, dm, a.ekT, stages, [&](int r, int c, const float(&w)[1][2]) {
+          float* hc = cot + r * ld + c;
+          hc[0] = round_bf16(__fadd_rn(hc[0], w[0][0]));
+          hc[1] = round_bf16(__fadd_rn(hc[1], w[0][1]));
+        });
+  }
+  rows_to_global(a.dh + goff, cot, ld, R, H, 0, H);
 }
 
 // Launches the sweep over n_groups groups (blocks == nullptr) or queries
@@ -1354,9 +1352,11 @@ int persistent_bwd_occupancy(int vals_bf16, int max_group_rows, int hidden,
 }
 
 // One bf16 step's backward (fused_step_bwd_kernel_bf16, three launches,
-// its passes): h, g, x, dh [n_rows, hidden] bf16; msg, dx, dhl (scratch)
-// and dmsg [n_rows, hidden] f32, dp [n_rows, 4 * hidden] f32; the weights
-// and their transposes f32 arrays of bf16 values; otherwise as
+// its passes): h, g, x, dh [n_rows, hidden] bf16; msg and dx (scratch)
+// [n_rows, hidden] at the message dtype (bf16 for bf16 band values, else
+// f32), dhl (scratch) and dmsg [n_rows, hidden] f32, dp [n_rows, 4 *
+// hidden] f32; the weights ek, wi, wh and their transposes ekT, wiT, whT
+// bf16, the biases eb, bi, bh f32 arrays of bf16 values; otherwise as
 // fused_step_bwd_launch.
 int fused_step_bwd_bf16_launch(const void* h, const void* vals,
                                const void* tvals, int vals_bf16,
@@ -1368,32 +1368,42 @@ int fused_step_bwd_bf16_launch(const void* h, const void* vals,
                                void* dmsg, void* dh, int n_rows, int hidden,
                                int tile, int n_tiles, int bandwidth,
                                void* stream) {
-  const BwdBf16Args a{static_cast<const __nv_bfloat16*>(h), vals, tvals,
-                      static_cast<const __nv_bfloat16*>(g),
-                      static_cast<const float*>(ek),
+  using B = const __nv_bfloat16*;
+  const BwdBf16Args a{static_cast<B>(h),
+                      vals,
+                      tvals,
+                      static_cast<B>(g),
+                      static_cast<B>(ek),
+                      static_cast<B>(wi),
+                      static_cast<B>(wh),
+                      static_cast<B>(ekT),
+                      static_cast<B>(wiT),
+                      static_cast<B>(whT),
                       static_cast<const float*>(eb),
-                      static_cast<const float*>(wi),
                       static_cast<const float*>(bi),
-                      static_cast<const float*>(wh),
                       static_cast<const float*>(bh),
-                      static_cast<const float*>(wiT),
-                      static_cast<const float*>(whT),
-                      static_cast<const float*>(ekT),
-                      static_cast<float*>(msg),
+                      msg,
                       static_cast<__nv_bfloat16*>(x),
-                      static_cast<float*>(dp), static_cast<float*>(dx),
-                      static_cast<float*>(dhl), static_cast<float*>(dmsg),
-                      static_cast<__nv_bfloat16*>(dh), n_rows, hidden, tile,
-                      n_tiles, bandwidth, 0};
+                      static_cast<float*>(dp),
+                      dx,
+                      static_cast<float*>(dhl),
+                      static_cast<float*>(dmsg),
+                      static_cast<__nv_bfloat16*>(dh),
+                      n_rows,
+                      hidden,
+                      tile,
+                      n_tiles,
+                      bandwidth,
+                      0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return vals_bf16 ? launch_fused_bwd_bf16<__nv_bfloat16>(a, st)
                    : launch_fused_bwd_bf16<float>(a, st);
 }
 
 // fused_step_bwd_bf16_launch's geometry over n_rows rows: the row tile,
-// the k rows of a gate slab, the blocks of each pass, and for each pass
-// the blocks of its instance one SM holds and its blocks' dynamic shared
-// memory, and the SMs the plan filled.
+// the gate's k rows a stage of the weight ring, the blocks of each pass,
+// and for each pass the blocks of its instance one SM holds and its
+// blocks' dynamic shared memory, and the SMs the plan filled.
 int fused_step_bwd_bf16_geometry(int vals_bf16, int n_rows, int hidden,
                                  int* row_tile, int* slab_rows, int* blocks,
                                  int* blocks_per_sm, int* blocks_per_sm_pass1,
@@ -1403,7 +1413,7 @@ int fused_step_bwd_bf16_geometry(int vals_bf16, int n_rows, int hidden,
   *sms = device_sms();
   const StepPlan p = step_bwd_plan(n_rows, *sms);
   *row_tile = p.row_tile;
-  *slab_rows = p.slab_rows;
+  *slab_rows = gnnmma::kKS;
   *blocks = p.blocks;
   *smem_bytes = static_cast<int>(step_bwd_bf16_smem(0, p.row_tile, hidden));
   *smem_bytes_pass1 =
@@ -1472,7 +1482,7 @@ int step_weight_grad_bf16_launch(const void* h0, const void* hist,
 // == 1); x [n_steps, n_rows, hidden] bf16, dp [n_steps, n_rows, 4 *
 // hidden] and dmsg [n_steps, n_rows, hidden] f32 receive each step's
 // per-row cotangents for step_weight_grad_bf16_launch; the weights and
-// their transposes f32 arrays of bf16 values; otherwise as
+// biases as fused_step_bwd_bf16_launch's; otherwise as
 // persistent_bwd_launch.
 int persistent_bwd_bf16_launch(const void* h0, const void* hist,
                                const void* vals, const void* tvals,
@@ -1485,30 +1495,48 @@ int persistent_bwd_bf16_launch(const void* h0, const void* hist,
                                void* x, void* dp, void* dmsg, void* dh,
                                int hidden, int tile, int n_tiles,
                                int bandwidth, void* stream) {
-  const PersistBwdBf16Args a{
-      static_cast<const __nv_bfloat16*>(h0),
-      static_cast<const __nv_bfloat16*>(hist), vals, tvals,
-      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(ek),
-      static_cast<const float*>(eb), static_cast<const float*>(wi),
-      static_cast<const float*>(bi), static_cast<const float*>(wh),
-      static_cast<const float*>(bh), static_cast<const float*>(wiT),
-      static_cast<const float*>(whT), static_cast<const float*>(ekT),
-      static_cast<const int*>(groups), static_cast<__nv_bfloat16*>(x),
-      static_cast<float*>(dp), static_cast<float*>(dmsg),
-      static_cast<__nv_bfloat16*>(dh), n_tiles * tile, hidden, tile, n_tiles,
-      bandwidth, n_steps, max_group_rows};
+  using B = const __nv_bfloat16*;
+  const PersistBwdBf16Args a{static_cast<B>(h0),
+                             static_cast<B>(hist),
+                             vals,
+                             tvals,
+                             static_cast<B>(g),
+                             static_cast<B>(ek),
+                             static_cast<B>(wi),
+                             static_cast<B>(wh),
+                             static_cast<B>(ekT),
+                             static_cast<B>(wiT),
+                             static_cast<B>(whT),
+                             static_cast<const float*>(eb),
+                             static_cast<const float*>(bi),
+                             static_cast<const float*>(bh),
+                             static_cast<const int*>(groups),
+                             static_cast<__nv_bfloat16*>(x),
+                             static_cast<float*>(dp),
+                             static_cast<float*>(dmsg),
+                             static_cast<__nv_bfloat16*>(dh),
+                             n_tiles * tile,
+                             hidden,
+                             tile,
+                             n_tiles,
+                             bandwidth,
+                             n_steps,
+                             max_group_rows};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return vals_bf16 ? launch_persistent_bwd_bf16<__nv_bfloat16>(a, n_groups, st)
                    : launch_persistent_bwd_bf16<float>(a, n_groups, st);
 }
 
 // Blocks of persistent_bwd_kernel_bf16 that fit one SM for groups of up to
-// max_group_rows rows, into *blocks.
+// max_group_rows rows, into *blocks, and its blocks' dynamic shared memory,
+// into *smem_bytes.
 int persistent_bwd_bf16_occupancy(int vals_bf16, int max_group_rows,
-                                  int hidden, int* blocks) {
+                                  int hidden, int* blocks, int* smem_bytes) {
   PersistBwdBf16Args a{};
   a.H = hidden;
   a.max_rows = max_group_rows;
+  *smem_bytes =
+      static_cast<int>(persistent_bwd_bf16_smem(max_group_rows, hidden));
   return vals_bf16
              ? launch_persistent_bwd_bf16<__nv_bfloat16>(a, 0, 0, blocks)
              : launch_persistent_bwd_bf16<float>(a, 0, 0, blocks);

@@ -219,8 +219,17 @@ __device__ __forceinline__ void band_vec(const __nv_bfloat16* p, float* f) {
   for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(b[e]);
 }
 
+// A sum stored at an aggregate's output type: f32, or rounded to bf16
+// (the bf16 backward's x).
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // agg_row[:] = sum_s A[r, s] * hsrc[s][:] and *rs_out = sum_s A[r, s]
-// over the senders s of receiver row r's band window. One warp. arow
+// over the senders s of receiver row r's band window (sender rows ST and
+// output OT f32, or bf16 where the bf16 backward holds them so: a bf16
+// value widens exactly, so the sums are the same). One warp. arow
 // points at row r's band values of window tile d = 0, tile d at arow + d
 // * d_step (device memory: the band's own layout; shared memory: the
 // row's staged window). The warp adds the nonzeros' rows in ascending
@@ -238,12 +247,12 @@ __device__ __forceinline__ void band_vec(const __nv_bfloat16* p, float* f) {
 // the lanes: integer multiplicities, exact in any order. The caller's row
 // tile [r0, r0 + R) of hsrc is also in shared memory (hloc, stride ld):
 // its senders are read there and only the halo's from device memory.
-template <typename VT>
+template <typename VT, typename ST, typename OT>
 __device__ void warp_aggregate_row(const VT* arow, size_t d_step, int r,
                                    int tile, int n_tiles, int bw,
-                                   const float* __restrict__ hsrc,
-                                   const float* hloc, int r0, int R, int ld,
-                                   int H, float* agg_row, float* rs_out,
+                                   const ST* __restrict__ hsrc,
+                                   const ST* hloc, int r0, int R, int ld,
+                                   int H, OT* agg_row, float* rs_out,
                                    int lane) {
   constexpr int V = 16 / sizeof(VT);
   const int tr = r / tile;
@@ -254,13 +263,13 @@ __device__ void warp_aggregate_row(const VT* arow, size_t d_step, int r,
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   float rs = 0.f;
   const auto add = [&](float av, int s) {  // sender s, value av != 0
-    const float* hs = s >= r0 && s < r0 + R
-                          ? hloc + (s - r0) * ld
-                          : hsrc + static_cast<size_t>(s) * H;
+    const ST* hs = s >= r0 && s < r0 + R
+                       ? hloc + (s - r0) * ld
+                       : hsrc + static_cast<size_t>(s) * H;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int col = lane + 32 * k;
-      if (col < H) acc[k] = fmaf(av, hs[col], acc[k]);
+      if (col < H) acc[k] = fmaf(av, band_val(hs + col), acc[k]);
     }
   };
   for (int d = d_lo; d <= d_hi; ++d) {
@@ -308,7 +317,7 @@ __device__ void warp_aggregate_row(const VT* arow, size_t d_step, int r,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int col = lane + 32 * k;
-    if (col < H) agg_row[col] = acc[k];
+    if (col < H) store_val(agg_row + col, acc[k]);
   }
   if (lane == 0) *rs_out = rs;
 }

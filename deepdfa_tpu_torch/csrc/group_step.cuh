@@ -28,6 +28,12 @@
 // gate_bwd_out (gated_step.cuh). Which rows a thread holds, and how the
 // weights reach it, change no chain. So a persistent kernel equals the
 // scan of its per-step counterpart bit for bit.
+//
+// The bf16 forward instances (fused_gnn.cu) run these products on bf16
+// values widened (group_gate_split keeps the gate's six sums apart). The
+// bf16 backward instances (fused_gnn_bwd.cu) run theirs on the bf16
+// tensor cores (gnn_bf16_mma.cuh) and take from here the aggregates,
+// which also read and write bf16 rows there, and the cp.async helpers.
 
 #pragma once
 
@@ -129,11 +135,11 @@ struct Tile {
 // warp_aggregate_row's, whose lanes take the same senders in the same
 // order when the tile is a multiple of 32 (and any order adds integer
 // multiplicities exactly). Senders outside the band are no edge.
-template <typename VT>
+template <typename VT, typename ST, typename OT>
 __device__ void group_aggregate_row(const VT* __restrict__ vals, int r,
                                     int tile, int n_tiles, int bw,
-                                    const float* hsrc, int ld, int g0, int g1,
-                                    int H, float* agg_row, float* rs_out,
+                                    const ST* hsrc, int ld, int g0, int g1,
+                                    int H, OT* agg_row, float* rs_out,
                                     int lane) {
   const int tr = r / tile, rr = r % tile;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -153,11 +159,11 @@ __device__ void group_aggregate_row(const VT* __restrict__ vals, int r,
       const int src = __ffs(nz) - 1;
       nz &= nz - 1;
       const float av = __shfl_sync(kFull, a, src);
-      const float* hs = hsrc + (s0 + src - g0) * ld;
+      const ST* hs = hsrc + (s0 + src - g0) * ld;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = lane + 32 * q;
-        if (col < H) acc[q] = fmaf(av, hs[col], acc[q]);
+        if (col < H) acc[q] = fmaf(av, band_val(hs + col), acc[q]);
       }
     }
   }
@@ -166,7 +172,7 @@ __device__ void group_aggregate_row(const VT* __restrict__ vals, int r,
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int col = lane + 32 * q;
-    if (col < H) agg_row[col] = acc[q];
+    if (col < H) store_val(agg_row + col, acc[q]);
   }
   if (lane == 0) *rs_out = rs;
 }
@@ -186,11 +192,11 @@ constexpr int kAggSlots = 4;
 // multiple of 16 bytes, the warps read the band in device memory instead.
 // Not inlined: its registers stay apart from the products'. Ends with a
 // barrier.
-template <typename VT>
+template <typename VT, typename ST, typename OT>
 __device__ __noinline__ void tile_aggregate(
     const VT* __restrict__ vals, int tile, int n_tiles, int bw,
-    const float* __restrict__ hsrc, const float* hloc, int r0, int R, int ld,
-    int H, float* agg, float* rs, float* buf, int buf_floats) {
+    const ST* __restrict__ hsrc, const ST* hloc, int r0, int R, int ld,
+    int H, OT* agg, float* rs, float* buf, int buf_floats) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int W = 2 * bw + 1, seg = tile * static_cast<int>(sizeof(VT));
   const int row_bytes = W * seg;
@@ -244,10 +250,10 @@ __device__ __noinline__ void tile_aggregate(
 }
 
 // Every warp aggregates the group's rows, one row at a time.
-template <typename VT>
+template <typename VT, typename ST, typename OT>
 __device__ void group_aggregate(const VT* __restrict__ vals, int tile,
-                                int n_tiles, int bw, const float* hsrc,
-                                int ld, int g0, int g1, int H, float* agg,
+                                int n_tiles, int bw, const ST* hsrc,
+                                int ld, int g0, int g1, int H, OT* agg,
                                 float* rs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int lr = warp; lr < g1 - g0; lr += kGroupWarps)
@@ -676,19 +682,11 @@ __device__ void wide_gate(const Tile& t, const float* x_s, const float* h_s,
   __syncthreads();
 }
 
-// 4 values rounded to bf16 (kept f32).
-__device__ __forceinline__ float4 round_bf16x4(float4 v) {
-  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
-                     round_bf16(v.w));
-}
-
 // The gate backward's second half on rows [0, R): with dp (device memory,
 // [R, 4H] from row 0, written by this block: plain loads, no read-only
 // path) dx[r] = dpre_i[r] w_i^T -> dx_s, dh_s[r] += dpre_h[r] w_h^T, each
-// a chain over j ascending (wiT, whT: [3H, H]). kRoundDp (the bf16
-// instance): dp rounded to bf16 as it is loaded, the products' operands
-// at bf16. Ends with a barrier.
-template <int kGR = kGateRows, bool kRoundDp = false>
+// a chain over j ascending (wiT, whT: [3H, H]). Ends with a barrier.
+template <int kGR = kGateRows>
 __device__ void group_gate_bwd_b(const Tile& t, const float* dp, int R,
                                  const float* __restrict__ wiT,
                                  const float* __restrict__ whT,
@@ -723,10 +721,6 @@ __device__ void group_gate_bwd_b(const Tile& t, const float* dp, int R,
             for (int i = 0; i < kTR; ++i) {
               di[i] = *reinterpret_cast<const float4*>(dprow[i] + j);
               dh4[i] = *reinterpret_cast<const float4*>(dprow[i] + jh);
-              if constexpr (kRoundDp) {
-                di[i] = round_bf16x4(di[i]);
-                dh4[i] = round_bf16x4(dh4[i]);
-              }
             }
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {

@@ -40,7 +40,9 @@ HEADERS: Dict[str, Tuple[str, ...]] = {
                   os.path.join("csrc", "group_step.cuh")),
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),
                       os.path.join("csrc", "group_step.cuh"),
-                      os.path.join("csrc", "tf32_mma.cuh")),
+                      os.path.join("csrc", "tf32_mma.cuh"),
+                      os.path.join("csrc", "bf16_mma.cuh"),
+                      os.path.join("csrc", "gnn_bf16_mma.cuh")),
     "flash_attn": (os.path.join("csrc", "bf16_mma.cuh"),
                    os.path.join("csrc", "tf32_mma.cuh")),
     "flash_bwd_fused": (os.path.join("csrc", "bf16_mma.cuh"),
@@ -127,8 +129,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "fused_step_bwd_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                     _P],
         # the bf16 instances: h, vals, tvals, vals_bf16, g, ek, eb, wi, bi,
-        # wh, bh, wiT, whT, ekT, msg (f32 scratch), x, dp, dx, dhl, dmsg,
-        # dh, n_rows, hidden, tile, n_tiles, bandwidth, stream
+        # wh, bh, wiT, whT, ekT (the weights bf16, the biases f32), msg
+        # (scratch at the message dtype), x, dp, dx (scratch at the message
+        # dtype), dhl, dmsg, dh, n_rows, hidden, tile, n_tiles, bandwidth,
+        # stream
         "fused_step_bwd_bf16_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -147,8 +151,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                        _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _P],
-        # as persistent_bwd_occupancy
-        "persistent_bwd_bf16_occupancy": [_I, _I, _I, _P],
+        # as persistent_bwd_occupancy, then smem_bytes (int out)
+        "persistent_bwd_bf16_occupancy": [_I, _I, _I, _P, _P],
     },
     "flash_attn": {
         # q, k, v, mask, o, lse, B, H, tq, tk, causal, scale, stream

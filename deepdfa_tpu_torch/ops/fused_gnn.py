@@ -74,7 +74,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BF16, PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import (PEAK_3XTF32, PEAK_BF16, PEAK_BF16X3,
+                                   PEAK_F32_SIMT)
 from deepdfa_tpu_torch.ops.band_spmm import (
     BandAdjacency,
     band_spmm,
@@ -322,10 +323,10 @@ def persistent_bwd_smem_bytes(adj: BandAdjacency, hidden: int,
     """Shared memory of ``persistent_bwd_kernel``'s blocks: the weight-slab
     stages, the group's resident cotangent, h (then dx) and the aggregate
     (then x, then dmsg), one row sum a row. 113,088 bytes for groups of
-    48 rows at H 128: two blocks an SM. ``dtype`` bf16: the instance
-    ``persistent_bwd_kernel_bf16``, whose group holds its messages apart
-    from the aggregate: four arrays (138,432 bytes at 48 rows, one block
-    an SM)."""
+    48 rows at H 128: two blocks an SM. ``dtype`` bf16: the count the
+    bf16 backward's gate keeps, four such arrays (138,432 bytes at 48
+    rows), so the same batches take the sweep as before its tensor-core
+    layout, which needs less (:func:`persistent_bwd_bf16_smem_bytes`)."""
     return _persistent_smem(adj, hidden,
                             4 if dtype == torch.bfloat16 else 3)
 
@@ -341,6 +342,47 @@ def persistent_bwd_smem_ok(adj: BandAdjacency, hidden: int,
             <= PERSISTENT_SMEM_BUDGET_BYTES)
 
 
+#: The bf16 backward instances' layout (``csrc/gnn_bf16_mma.cuh``): the
+#: weight stages (one: ``scripts/torch_gnn_bwd_bf16_layouts.py`` timed
+#: two), each the gate's six slabs of :data:`GNN_BF16_SLAB_ROWS` k rows
+#: (``kRingStages``, ``kKS``); a warp's item, 16 rows by
+#: :data:`GNN_BF16_ITEM_COLS` output columns (``kNC``).
+GNN_BF16_RING_STAGES = 1
+GNN_BF16_SLAB_ROWS = 16
+GNN_BF16_ITEM_COLS = 32
+
+
+def _bf16_bwd_layout(hidden: int, rows: int) -> Tuple[int, int, int]:
+    """(elements of ``rows`` rows of a row tile, the weight ring's bytes,
+    the dp tile's bytes) of the bf16 backward instances: row tiles at a
+    stride of hp + 8 elements (hp: ``hidden`` rounded up to 16), the
+    ring's stages of six [16, hp + 8] bf16 slabs, the dp tile [rows of a
+    pass, 4 hp + 8] bf16 (a pass: the 8 warps over the row tiles' column
+    items)."""
+    hp = -(-hidden // 16) * 16
+    ld = hp + 8
+    ring = GNN_BF16_RING_STAGES * 6 * GNN_BF16_SLAB_ROWS * ld * 2
+    pass_rows = 16 * (8 // -(-hp // GNN_BF16_ITEM_COLS))
+    dp = min(-(-rows // 16) * 16, pass_rows) * (4 * hp + 8) * 2
+    return rows * ld, ring, dp
+
+
+def persistent_bwd_bf16_smem_bytes(adj: BandAdjacency, hidden: int) -> int:
+    """Shared memory of ``persistent_bwd_kernel_bf16``'s blocks
+    (``csrc/fused_gnn_bwd.cu:persistent_bwd_bf16_smem``; the library's
+    figure comes back from :func:`persistent_occupancy`): the weight ring,
+    the cotangent (f32), one region that holds h and x (bf16) and the
+    messages (sized f32) until the gate is done, then dx (sized f32)
+    beside the dp rows or dmsg (f32), and the row sums, for the largest
+    group padded to 16 rows. 111,808 bytes at 48 rows (two blocks an
+    SM), 183,168 at 92 (H 128). The gate stays
+    :func:`persistent_bwd_smem_ok`'s count, which this never exceeds."""
+    rp = -(-adj.max_group_rows // 16) * 16
+    rows, ring, dp = _bf16_bwd_layout(hidden, rp)
+    return (ring + 4 * rows + max(8 * rows, 4 * rows + max(dp, 4 * rows))
+            + 4 * rp)
+
+
 def persistent_occupancy(adj: BandAdjacency, hidden: int,
                          kernel: str = "persistent_fwd_kernel",
                          cluster: int = 1) -> dict:
@@ -351,12 +393,14 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
     ``persistent_bwd_kernel`` or ``persistent_bwd_kernel_bf16`` that a
     launch at this adjacency's largest group runs, ``cluster`` blocks a
     group (the forwards only): ``blocks_per_sm``, the blocks one SM
-    holds, and ``active_clusters``, the clusters the card holds at once
-    (None for cluster 1)."""
+    holds, ``active_clusters``, the clusters the card holds at once
+    (None for cluster 1), and, for ``persistent_bwd_kernel_bf16``,
+    ``smem_bytes``, its blocks' dynamic shared memory as the library
+    sizes it."""
     from deepdfa_tpu_torch.ops import _build
 
     bf16 = int(adj.vals.dtype == torch.bfloat16)
-    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    blocks, clusters, smem = ctypes.c_int(0), ctypes.c_int(0), None
     if kernel == "persistent_fwd_kernel":
         err = _build.load("fused_gnn").persistent_fwd_occupancy(
             bf16, adj.max_group_rows, hidden, cluster, ctypes.byref(blocks),
@@ -367,19 +411,23 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
             bf16, adj.max_group_rows, hidden, cluster,
             int(kernel == "persistent_fwd_hist_kernel_bf16"),
             ctypes.byref(blocks), ctypes.byref(clusters))
-    elif kernel in ("persistent_bwd_kernel",
-                    "persistent_bwd_kernel_bf16") and cluster == 1:
-        lib = _build.load("fused_gnn_bwd")
-        query = (lib.persistent_bwd_occupancy
-                 if kernel == "persistent_bwd_kernel"
-                 else lib.persistent_bwd_bf16_occupancy)
-        err = query(bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
+    elif kernel == "persistent_bwd_kernel" and cluster == 1:
+        err = _build.load("fused_gnn_bwd").persistent_bwd_occupancy(
+            bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
+    elif kernel == "persistent_bwd_kernel_bf16" and cluster == 1:
+        smem = ctypes.c_int(0)
+        err = _build.load("fused_gnn_bwd").persistent_bwd_bf16_occupancy(
+            bf16, adj.max_group_rows, hidden, ctypes.byref(blocks),
+            ctypes.byref(smem))
     else:
         raise ValueError(f"no occupancy query for {kernel} in clusters of "
                          f"{cluster}")
     _raise_on_error(err, f"{kernel} occupancy")
-    return dict(blocks_per_sm=blocks.value,
-                active_clusters=clusters.value if cluster > 1 else None)
+    out = dict(blocks_per_sm=blocks.value,
+               active_clusters=clusters.value if cluster > 1 else None)
+    if smem is not None:
+        out["smem_bytes"] = smem.value
+    return out
 
 
 #: Rows of a per-step forward tile where 32-row tiles fill the SMs
@@ -407,8 +455,9 @@ def step_plan(n_rows: int, hidden: int, sms: int,
     width leaves each block 32; slabs of 8 k rows where 8 divides
     ``hidden``, else 4: two blocks an SM either way).
     ``fused_step_bwd_kernel`` and ``fused_step_bwd_kernel_bf16``: 32-row
-    tiles, 16 where those are fewer than ``sms`` blocks, slabs of 4, no
-    clusters.
+    tiles, 16 where those are fewer than ``sms`` blocks, no clusters;
+    slabs of 4 k rows (the bf16 instance: its weight ring's stages of
+    :data:`GNN_BF16_SLAB_ROWS` k rows of the gate's slabs).
     ``fused_step_kernel_bf16``: ``fused_step_kernel``'s tiles and blocks
     a tile (``cluster``: they split the product columns, without a
     hardware cluster), slabs of 4, the 4 x 4 products. Returns
@@ -427,6 +476,8 @@ def step_plan(n_rows: int, hidden: int, sms: int,
             gr, wide = PERSISTENT_SLAB_ROWS, False
     elif kernel in ("fused_step_bwd_kernel", "fused_step_bwd_kernel_bf16"):
         cs, gr = 1, PERSISTENT_SLAB_ROWS
+        if kernel == "fused_step_bwd_kernel_bf16":
+            gr = GNN_BF16_SLAB_ROWS
         rt = 16 if cdiv(n_rows, 32) < sms else 32
     else:
         raise ValueError(f"no per-step plan for {kernel}")
@@ -444,11 +495,20 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
     and the aggregate, and x apart from it in a cluster; the bf16
     forward's pass 0: h, its pass 1: h, the messages and x; the
     backward's pass 0: the cotangent, h and the aggregate; pass 1: dx and
-    dmsg; the bf16 backward's pass 0: h, its pass 1: the cotangent, h,
-    the messages and the aggregate, its pass 2: dx and dmsg), one row sum
-    a row (not in the bf16 passes 0). Bounded by the tile, never by a
-    graph. ``bwd_pass`` names the pass of a two- or three-pass kernel."""
+    dmsg), one row sum a row (not in the bf16 forward's pass 0). The bf16
+    backward (``csrc/fused_gnn_bwd.cu:step_bwd_bf16_smem``): its weight
+    ring, then its pass 0: h (bf16); pass 1: the cotangent (f32), then h
+    and x (bf16) and the messages (sized f32), or the dp rows once the
+    gate is done, whichever is larger; pass 2: dx (sized f32) and dmsg;
+    row tiles at a stride of hp + 8 elements; one row sum a row but in
+    pass 0. Bounded by the tile, never by a graph. ``bwd_pass`` names the
+    pass of a two- or three-pass kernel."""
     p = step_plan(n_rows, hidden, sms, kernel)
+    if kernel == "fused_step_bwd_kernel_bf16":
+        rt = p["row_tile"]
+        rows, ring, dp = _bf16_bwd_layout(hidden, rt)
+        return ring + (2 * rows, 4 * rows + max(8 * rows, dp) + 4 * rt,
+                       8 * rows + 4 * rt)[bwd_pass]
     ld = persistent_row_stride(hidden)
     stages = PERSISTENT_STAGES * p["slab_rows"] * 6 * (ld - 4)
     sums = p["row_tile"]
@@ -456,9 +516,6 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
         arrays = 3 if p["cluster"] > 1 else 2
     elif kernel == "fused_step_kernel_bf16":
         arrays, sums = (1, 0) if bwd_pass == 0 else (3, p["row_tile"])
-    elif kernel == "fused_step_bwd_kernel_bf16":
-        arrays = (1, 4, 2)[bwd_pass]
-        sums = 0 if bwd_pass == 0 else p["row_tile"]
     else:
         arrays = 3 if bwd_pass == 0 else 2
     return 4 * (stages + arrays * p["row_tile"] * ld + sums)
@@ -540,7 +597,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _launch_args(params: Mapping, h: torch.Tensor, adj: BandAdjacency,
                  packed: Optional[Sequence[torch.Tensor]],
-                 library: str = "fused_gnn"):
+                 library: str = "fused_gnn", bf16_matrices: bool = False):
     from deepdfa_tpu_torch.ops import _build
 
     if packed is None:
@@ -550,8 +607,11 @@ def _launch_args(params: Mapping, h: torch.Tensor, adj: BandAdjacency,
         raise ValueError(f"step weights must be {h.dtype} on {h.device}, "
                          "as h (or, at bf16 h, the f32 masters)")
     # The kernels read f32 weights: at bf16, the bf16 values (the f32
-    # masters rounded) widened.
-    weights = [w.detach().to(h.dtype).float().contiguous() for w in packed]
+    # masters rounded) widened; the bf16 backward instances read the
+    # matrices (ek, wi, wh) as bf16, rounded once a call.
+    weights = [w.detach().to(h.dtype) for w in packed]
+    weights = [(w if bf16_matrices and i % 2 == 0 else w.float()).contiguous()
+               for i, w in enumerate(weights)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(h.device).cuda_stream)
     bf16 = int(adj.vals.dtype == torch.bfloat16)
     return _build.load(library), weights, bf16, stream
@@ -1087,8 +1147,9 @@ def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
     :func:`fused_step_bwd_rows_reference`). CUDA tensors:
     ``fused_step_bwd_kernel`` (two passes, one count), reading A^T from
     :meth:`BandAdjacency.transpose_vals`; for bf16 ``h`` and ``g``
-    ``fused_step_bwd_kernel_bf16`` (three passes, one count): ``dh`` and
-    ``x`` bf16, ``dp`` and ``dmsg`` f32."""
+    ``fused_step_bwd_kernel_bf16`` (three passes, one count, its products
+    on the bf16 tensor cores): ``dh`` and ``x`` bf16, ``dp`` and ``dmsg``
+    f32."""
     if h.device.type == "cpu":
         return fused_step_bwd_rows_reference(params, h, adj, g, packed)
     _check_cuda_inputs(h, adj)
@@ -1096,27 +1157,29 @@ def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
     tv = adj.transpose_vals()
     bf16_h = h.dtype == torch.bfloat16
     with torch.cuda.device(h.device):
-        lib, weights, bf16, stream = _launch_args(params, h, adj, packed,
-                                                  "fused_gnn_bwd")
+        lib, weights, bf16, stream = _launch_args(
+            params, h, adj, packed, "fused_gnn_bwd", bf16_matrices=bf16_h)
         ek, eb, wi, bi, wh, bh = weights
         wiT, whT, ekT = _transposed(weights)
         n, hidden = h.shape
         f32 = dict(dtype=torch.float32, device=h.device)
         x, dh = torch.empty_like(h), torch.empty_like(h)
-        dx, dhl, dmsg = (torch.empty((n, hidden), **f32) for _ in range(3))
+        dhl, dmsg = (torch.empty((n, hidden), **f32) for _ in range(2))
         dp = torch.empty((n, 4 * hidden), **f32)
         common = (_ptr(g), _ptr(ek), _ptr(eb), _ptr(wi), _ptr(bi), _ptr(wh),
                   _ptr(bh), _ptr(wiT), _ptr(whT), _ptr(ekT))
         if bf16_h:
-            # The messages cross device memory (f32 scratch), as in
-            # fused_step_kernel_bf16.
-            msg = torch.empty((n, hidden), **f32)
+            # The messages and dx cross device memory at the message
+            # dtype (a tile's halo belongs to other blocks).
+            mdt = dict(dtype=msg_dtype(adj, torch.bfloat16), device=h.device)
+            msg, dx = (torch.empty((n, hidden), **mdt) for _ in range(2))
             err = lib.fused_step_bwd_bf16_launch(
                 _ptr(h), _ptr(adj.vals), _ptr(tv), bf16, *common, _ptr(msg),
                 _ptr(x), _ptr(dp), _ptr(dx), _ptr(dhl), _ptr(dmsg), _ptr(dh),
                 n, hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
             _raise_on_error(err, "fused_step_bwd_kernel_bf16")
         else:
+            dx = torch.empty((n, hidden), **f32)
             err = lib.fused_step_bwd_launch(
                 _ptr(h), _ptr(adj.vals), _ptr(tv), bf16, *common, _ptr(x),
                 _ptr(dp), _ptr(dx), _ptr(dhl), _ptr(dmsg), _ptr(dh), n,
@@ -1252,9 +1315,10 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
     """The reverse sweep ``(dh_0, x, dp, dmsg)`` of ``n_steps`` steps (see
     :func:`persistent_bwd_rows_reference`). CUDA tensors: one
     ``persistent_bwd_kernel`` launch, for bf16 ``h0``, ``hist`` and ``g``
-    one ``persistent_bwd_kernel_bf16`` launch (``dh_0`` and ``x`` bf16,
-    ``dp`` and ``dmsg`` f32); each needs :func:`persistent_bwd_smem_ok`
-    at its dtype (a failed gate raises)."""
+    one ``persistent_bwd_kernel_bf16`` launch (its products on the bf16
+    tensor cores; ``dh_0`` and ``x`` bf16, ``dp`` and ``dmsg`` f32); each
+    needs :func:`persistent_bwd_smem_ok` at its dtype (a failed gate
+    raises)."""
     if h0.device.type == "cpu":
         return persistent_bwd_rows_reference(params, h0, hist, adj, g,
                                              n_steps, packed)
@@ -1276,8 +1340,8 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
     groups = _row_groups(adj, h0)
     tv = adj.transpose_vals()
     with torch.cuda.device(h0.device):
-        lib, weights, bf16, stream = _launch_args(params, h0, adj, packed,
-                                                  "fused_gnn_bwd")
+        lib, weights, bf16, stream = _launch_args(
+            params, h0, adj, packed, "fused_gnn_bwd", bf16_matrices=bf16_h)
         ek, eb, wi, bi, wh, bh = weights
         wiT, whT, ekT = _transposed(weights)
         f32 = dict(dtype=torch.float32, device=h0.device)
@@ -1392,7 +1456,8 @@ def _rated(parts, nbytes: float, nnz: int) -> Dict[str, float]:
     for _, peak in parts:
         if peak[0] not in names:
             names.append(peak[0])
-    what = {PEAK_BF16[0]: "bf16 x bf16 products"}
+    what = {PEAK_BF16[0]: "bf16 x bf16 products",
+            PEAK_BF16X3[0]: "dmsg W_e^T, f32 dmsg split"}
     return {
         "flops": flops,
         "flops_bf16": sum(f for f, peak in parts if peak == PEAK_BF16),
@@ -1412,11 +1477,13 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
     the band values are bf16; the backward's dpre_i W_i^T, dpre_h W_h^T,
     and A^T dx and dmsg W_e^T when the messages are bf16; the weight
     pass's x^T dpre_i, h^T dpre_h, and h^T dmsg when the messages are
-    bf16), the rest at its own rate: the f32-message terms and ~20
-    elementwise operations a gate element forward, ~30 backward (the
-    reference's bf16 gate, op for op), at the f32 SIMT rate; the weight
-    pass's f32 h^T dmsg at the 3xTF32 rate and its bias sums at the f32
-    SIMT rate."""
+    bf16), the rest at its own rate: the backward's dmsg W_e^T with f32
+    messages at the bf16 rate over three (``PEAK_BF16X3``: dmsg split into
+    three bf16 parts, as the kernels run it); the other f32-message terms
+    and ~20 elementwise operations a gate element forward, ~30 backward
+    (the reference's bf16 gate, op for op), at the f32 SIMT rate; the
+    weight pass's f32 h^T dmsg at the 3xTF32 rate and its bias sums at the
+    f32 SIMT rate."""
     n = adj.n_tiles * adj.tile
     plane = 2.0 * n * hidden  # a bf16 [N, H] array
     band = float(adj.vals.numel() * adj.vals.element_size())
@@ -1428,6 +1495,8 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
     msg_rate = PEAK_BF16 if bf16_msg else PEAK_F32_SIMT
     fwd = [(edge + gate, PEAK_BF16), (sparse, msg_rate),
            (20.0 * n * hidden, PEAK_F32_SIMT)]
+    # The backward's dmsg_c W_e^T: with f32 messages dmsg is split into
+    # three bf16 parts (three exact bf16 products, PEAK_BF16X3).
     if kernel in ("fused_step_kernel_bf16", "persistent_fwd_kernel_bf16"):
         launches = n_steps if kernel == "fused_step_kernel_bf16" else 1
         return _rated([(n_steps * f, r) for f, r in fwd],
@@ -1437,7 +1506,8 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
         # K - 1 steps: h_0 in, K - 1 planes of hist out.
         return _rated([((n_steps - 1) * f, r) for f, r in fwd],
                       n_steps * plane + band + weights, nnz)
-    bwd = fwd + [(gate, PEAK_BF16), (sparse + edge, msg_rate),
+    bwd = fwd + [(gate, PEAK_BF16), (sparse, msg_rate),
+                 (edge, PEAK_BF16 if bf16_msg else PEAK_BF16X3),
                  (30.0 * n * hidden, PEAK_F32_SIMT)]
     # A and A^T; the weights and their transposes.
     fixed = 2 * band + weights + 7.0 * hidden * hidden * 2

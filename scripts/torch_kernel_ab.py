@@ -7,8 +7,11 @@ Each checkout's own ``chip_smoke.py`` runs its device, build, ``kernels``
 (the two GNN forward kernels at the serving and flagship shapes),
 ``train_kernels`` (the GNN kernels at the training shape, the persistent
 pair and the weight pass ``step_weight_grad_kernel`` among them),
-``tile_kernels``, ``attention_kernels`` and ``attention_kernels_bf16``
-(the flash kernels' bf16 instances) phases in a process of its own, in
+``tile_kernels``, ``attention_kernels``, ``attention_kernels_bf16``
+(the flash kernels' bf16 instances) and ``train_kernels_bf16`` (the GNN
+backward's bf16 instances, the bf16 weight pass and the bf16 tile product
+at the training shape, each beside the f32 kernel on the widened inputs)
+phases in a process of its own, in
 the order OLD, NEW, NEW, OLD, so that a drift of the card or its
 host over the call shows as a gap between the two runs of one checkout.
 Prints one JSON object: for each checkout and run, each kernel's
@@ -23,8 +26,17 @@ across the checkouts (``fused_bits_equal_bf16``, ``fwd_bits_equal_bf16``)
 and within each (``*_bits_repeat_bf16``), and whether
 ``fused_step_kernel``'s output and ``fused_step_bwd_kernel``'s four
 outputs on the training batch hashed equal in every run of both
-checkouts (``gnn_step_bits_equal``). Needs one NVIDIA GPU; the checkouts
-build their kernels into their own trees.
+checkouts (``gnn_step_bits_equal``). On the training batch at bf16 (h
+the model's embeddings rounded, a seeded bf16 cotangent): the bf16
+forward instances' outputs (``fused_step_kernel_bf16``'s,
+``persistent_fwd_kernel_bf16``'s over 5 steps and its hist instance's),
+expected equal across the checkouts (``gnn_fwd_bits_equal_bf16``), and
+the bf16 backward instances' (``fused_step_bwd_kernel_bf16``'s four
+outputs, ``persistent_bwd_kernel_bf16``'s over 5 steps), expected to
+repeat within each checkout (``gnn_bwd_bits_repeat_bf16``) and, against a
+checkout from before their tensor-core redesign, to differ across them
+(``gnn_bwd_bits_equal_bf16``). Needs one NVIDIA GPU; the checkouts build
+their kernels into their own trees.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           "cs.phase_train_kernels(model); "
           "cs.phase_tile_kernels(); cs.phase_attention_kernels(); "
           "cs.phase_attention_kernels(cs.torch.bfloat16); "
+          "cs.phase_train_kernels_bf16(model); "
           # The fused flash backward's output bits, and the forward's, on
           # chip_smoke's seeded T 512 inputs.
           "import hashlib, torch; A = cs.attention; F = cs.fused_gnn; "
@@ -70,9 +83,21 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           "gc = torch.randn(h.shape, generator=gn, device='cuda'); "
           "cs.emit(phase='gnn_step_bits', sha256=sha("
           "[F.fused_gate_step(p, h, adj)] + list(F.fused_step_bwd_rows("
-          "p, h, adj, gc))))")
+          "p, h, adj, gc)))); "
+          # At bf16: the forward instances, then the backward instances.
+          "hb, gb = h.bfloat16(), gc.bfloat16(); "
+          "hist = F.persistent_hist(p, hb, adj, 5); "
+          "cs.emit(phase='gnn_fwd_bits_bf16', sha256=sha("
+          "[F.fused_gate_step(p, hb, adj), F.persistent_unroll(p, hb, adj, "
+          "5), hist])); "
+          "cs.emit(phase='gnn_bwd_bits_bf16', sha256=sha("
+          "list(F.fused_step_bwd_rows(p, hb, adj, gb)) + list("
+          "F.persistent_bwd_rows(p, hb, hist, adj, gb, 5))))")
 KEYS = ("kernel_ms", "plain_ms", "library_ms", "scan_ms", "bound_us",
-        "max_abs_err", "blocks_per_sm", "cluster", "active_clusters")
+        "max_abs_err", "blocks_per_sm", "cluster", "active_clusters",
+        "f32_kernel_ms", "elements_differing", "smem_bytes",
+        "smem_bytes_pass1", "smem_bytes_pass2", "blocks_per_sm_pass1",
+        "blocks_per_sm_pass2")
 
 
 def run(checkout: str) -> dict:
@@ -90,12 +115,16 @@ def run(checkout: str) -> dict:
             out["device"] = rec["device"]
         elif rec.get("phase") in ("fused_bits", "fwd_bits",
                                   "fused_bits_bf16", "fwd_bits_bf16",
-                                  "gnn_step_bits"):
+                                  "gnn_step_bits", "gnn_fwd_bits_bf16",
+                                  "gnn_bwd_bits_bf16"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
         elif rec.get("phase") in ("kernels", "train_kernels",
                                   "tile_kernels", "attention_kernels",
-                                  "attention_kernels_bf16"):
+                                  "attention_kernels_bf16",
+                                  "train_kernels_bf16"):
             where = rec.get("over") or rec.get("shape")
+            if rec.get("band_vals"):  # train_kernels_bf16: by band values
+                where = f"{where or 'training'}/{rec['band_vals']}_vals"
             out[f"{rec['kernel']}@{where}"] = {k: rec.get(k) for k in KEYS}
     return out
 
@@ -130,17 +159,29 @@ def main() -> int:
                   label: len(hashes(key, label)) == 1
                   for label in ("old", "new")}
                  for key in ("fused_bits_bf16", "fwd_bits_bf16")},
-              # Against a checkout from before the bf16 forward and fused
-              # backward took bf16 tensor-core products: the f32 kernels
-              # keep their bits, the bf16 ones regroup their sums (bf16
-              # products 16 deep, dq partials over 128 keys), so their
-              # bits differ; each checkout repeats its own.
+              # Against a checkout whose bf16 flash forward and fused
+              # backward already run bf16 tensor-core products and whose
+              # bf16 GNN backward pair does not yet: the f32 kernels, the
+              # bf16 flash kernels and the bf16 GNN forward keep their
+              # bits, the GNN backward pair regroups its sums (bf16
+              # products 16 deep), so its bits differ; each checkout
+              # repeats its own.
               "expected": {"fused_bits_equal": True,
-                           "fused_bits_equal_bf16": False,
-                           "fwd_bits_equal_bf16": False,
-                           "repeat_bf16": True},
+                           "fused_bits_equal_bf16": True,
+                           "fwd_bits_equal_bf16": True,
+                           "repeat_bf16": True,
+                           "gnn_fwd_bits_equal_bf16": True,
+                           "gnn_bwd_bits_equal_bf16": False,
+                           "gnn_bwd_bits_repeat_bf16": True},
               "gnn_step_bits_equal": len({run["gnn_step_bits_sha256"]
-                                          for run in runs}) == 1}
+                                          for run in runs}) == 1,
+              "gnn_fwd_bits_equal_bf16": len(hashes("gnn_fwd_bits_bf16"))
+              == 1,
+              "gnn_bwd_bits_equal_bf16": len(hashes("gnn_bwd_bits_bf16"))
+              == 1,
+              "gnn_bwd_bits_repeat_bf16": {
+                  label: len(hashes("gnn_bwd_bits_bf16", label)) == 1
+                  for label in ("old", "new")}}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -1916,7 +1916,9 @@ def test_bf16_backward_instances_match_plain_versions(cuda, case, f32_vals):
 def test_bf16_backward_geometry_follows_the_host_plan(cuda):
     """The bf16 backward instance's three passes take the plan
     ``step_plan`` mirrors on this card, with ``step_smem_bytes``'s shared
-    memory; the gate pass holds one block an SM (96 gate sums a thread)."""
+    memory; the gate pass holds two blocks an SM (its products on the
+    bf16 tensor cores, at most 128 registers a thread), the others at
+    least two."""
     name = "fused_step_bwd_kernel_bf16"
     for case in ("serving", "flagship", "training"):
         adj, hidden = _bf16_case(case, cuda)
@@ -1929,8 +1931,8 @@ def test_bf16_backward_geometry_follows_the_host_plan(cuda):
                        (2, "smem_bytes_pass2")):
             assert geo[key] == fused_gnn.step_smem_bytes(n, hidden,
                                                          geo["sms"], name, p)
-        assert geo["blocks_per_sm_pass1"] >= 1
-        assert geo["blocks_per_sm"] >= 1 and geo["blocks_per_sm_pass2"] >= 1
+        assert geo["blocks_per_sm_pass1"] == 2, case
+        assert geo["blocks_per_sm"] >= 2 and geo["blocks_per_sm_pass2"] >= 2
 
 
 @pytest.mark.parametrize("n,sizes", [(1024, [40] * 20), (16384, [60] * 250)])
@@ -2090,11 +2092,53 @@ def test_bf16_persistent_backward_equals_the_per_step_scan(cuda, case,
         "step_weight_grad_kernel_bf16": 1 + k}
 
 
+@pytest.mark.parametrize("hidden", [36, 100])
+def test_bf16_backward_pair_at_widths_off_the_mma_tile(cuda, hidden):
+    """Widths that are no multiple of 16 (the tensor-core products pad k
+    and the columns with zeros) nor of 8 (the weights copy in 8-byte
+    pieces): ``fused_step_bwd_kernel_bf16`` within the one-step rule of
+    its plain version, ``persistent_bwd_kernel_bf16`` bit for bit the
+    reverse scan of it and within the sweep rule of its plain version,
+    at bf16 and f32 band values."""
+    for f32_vals in (False, True):
+        adj = _graph_adj([30, 20, 9], 64, 16, bandwidth=4).to(cuda)
+        if f32_vals:
+            adj = dataclasses.replace(adj, vals=adj.vals.float())
+        n, k = adj.n_tiles * adj.tile, 3
+        p32 = fused_gnn.packed_weights(_params(hidden, cuda, seed=10))
+        gen = torch.Generator().manual_seed(11)
+        h, g = (torch.randn(n, hidden, generator=gen).to(cuda).bfloat16()
+                for _ in range(2))
+        for a, b in zip(fused_gnn.fused_step_bwd_rows(None, h, adj, g, p32),
+                        fused_gnn.fused_step_bwd_rows_reference(
+                            None, h, adj, g, p32)):
+            _close_bf16_bwd(a, b)
+        states = [h]
+        for _ in range(k - 1):
+            states.append(fused_gnn.fused_gate_step(None, states[-1], adj,
+                                                    packed=p32))
+        hist = torch.stack(states[1:]).contiguous()
+        rows = fused_gnn.persistent_bwd_rows(None, h, hist, adj, g, k, p32)
+        gs, scan = g, [None] * k
+        for s in reversed(range(k)):
+            gs, *scan[s] = fused_gnn.fused_step_bwd_rows(None, states[s],
+                                                         adj, gs, p32)
+        assert torch.equal(rows[0], gs)
+        for j in range(3):
+            assert torch.equal(rows[1 + j],
+                               torch.stack([c[j] for c in scan]))
+        for a, b in zip(rows, fused_gnn.persistent_bwd_rows_reference(
+                None, h, hist, adj, g, k, p32)):
+            _close_bf16_bwd(a, b, **SWEEP_TOL)
+
+
 def test_bf16_persistent_backward_occupancy(cuda):
     """The bf16 sweeps' launched instances report their occupancy: the
     hist sweep as the bf16 forward (one block an SM, 2-block clusters at
-    serving), the reverse sweep one block an SM with its four row
-    arrays."""
+    serving), the reverse sweep two blocks an SM where its shared memory
+    lets it (groups of up to 48 rows at H 128; the training case's 60-row
+    groups one), that memory as ``persistent_bwd_bf16_smem_bytes``
+    mirrors it, within the gate's count of four f32 row arrays."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for case in ("serving", "training"):
         adj, hidden = _bf16_case(case, cuda)
@@ -2105,7 +2149,11 @@ def test_bf16_persistent_backward_occupancy(cuda):
         assert (occ["active_clusters"] or 0) >= (cluster > 1)
         occ = fused_gnn.persistent_occupancy(adj, hidden,
                                              "persistent_bwd_kernel_bf16")
-        assert occ["blocks_per_sm"] >= 1
+        two = 2 * (occ["smem_bytes"] + 1024) <= 228 * 1024
+        assert occ["blocks_per_sm"] == (2 if two else 1), case
+        assert occ["smem_bytes"] == fused_gnn.persistent_bwd_bf16_smem_bytes(
+            adj, hidden) <= fused_gnn.persistent_bwd_smem_bytes(
+                adj, hidden, torch.bfloat16)
 
 
 def test_bf16_over_bwd_gate_batch_trains_through_the_per_step_instances(

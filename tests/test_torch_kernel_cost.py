@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from deepdfa_tpu_torch.ops import (PEAK_3XTF32, PEAK_BF16, PEAK_BYTES_PER_S,
-                                   PEAK_F32_SIMT)
+from deepdfa_tpu_torch.ops import (PEAK_3XTF32, PEAK_BF16, PEAK_BF16X3,
+                                   PEAK_BYTES_PER_S, PEAK_F32_SIMT)
 from deepdfa_tpu_torch.ops import attention as A
 from deepdfa_tpu_torch.ops import fused_gnn
 from deepdfa_tpu_torch.ops.band_spmm import build_band_adjacency
@@ -143,8 +143,9 @@ def test_bf16_backward_costs_bytes_and_rates(f32_vals):
     """The fused lane's bf16 backward instances: bf16 arrays at 2 bytes
     an element (dp and dmsg f32), the products of two bf16 values at the
     bf16 tensor-core rate and the rest at its own: with f32 band values
-    (f32 messages) A^T dx and dmsg W_e^T leave the bf16 rate for the f32
-    SIMT one, and the weight pass's h^T dmsg for 3xTF32."""
+    (f32 messages) A^T dx leaves the bf16 rate for the f32 SIMT one,
+    dmsg W_e^T for a third of the bf16 rate (the kernels split f32 dmsg
+    into three bf16 parts), and the weight pass's h^T dmsg for 3xTF32."""
     import dataclasses
 
     adj = _band(256, 64)
@@ -161,6 +162,12 @@ def test_bf16_backward_costs_bytes_and_rates(f32_vals):
     msg = 0.0 if f32_vals else 2 * sparse + edge
     assert bwd["flops_bf16"] == edge + 2 * gate + msg
     assert bwd["flops"] == edge + 2 * gate + 2 * sparse + edge + 50.0 * n * h
+    seconds = (bwd["flops_bf16"] / PEAK_BF16[1]
+               + (edge if f32_vals else 0.0) / PEAK_BF16X3[1]
+               + ((2 * sparse if f32_vals else 0.0) + 50.0 * n * h)
+               / PEAK_F32_SIMT[1])
+    assert bwd["peak_flops"] == pytest.approx(bwd["flops"] / seconds)
+    assert (PEAK_BF16X3[0] in bwd["peak"]) == f32_vals
     wgrad = fused_gnn.kernel_cost(adj, h, k, "step_weight_grad_kernel_bf16")
     assert wgrad["bytes"] == k * 12 * plane + (7 * h * h + 7 * h) * 4
     assert wgrad["flops_bf16"] == k * (gate + (0.0 if f32_vals else edge))

@@ -164,14 +164,14 @@ BWD16 = "fused_step_bwd_kernel_bf16"
 
 
 @pytest.mark.parametrize("shape,want", [
-    # The bf16 backward takes the f32 backward's tiles; its three passes
-    # hold h (the messages' pass), the cotangent, h, the messages and the
-    # aggregate (the gate's, one block an SM: 96 gate sums a thread), dx
-    # and dmsg (A^T's). The card reads 53,760 / 104,576 / 70,784 bytes
-    # back at the training shape (chip_smoke.py's geometry).
-    ("serving", (16, 64, (45_312, 70_720, 53_824))),
-    ("flagship", (32, 256, (53_760, 104_576, 70_784))),
-    ("training", (32, 512, (53_760, 104_576, 70_784))),
+    # The bf16 backward takes the f32 backward's tiles, its weight stage
+    # 16 k rows of the gate's six slabs (26,112 bytes at H 128); its
+    # three passes hold h (the messages' pass), the cotangent and either
+    # h, x and the messages or the dp rows (the gate's), dx and dmsg
+    # (A^T's), rows at a stride of 136 elements.
+    ("serving", (16, 64, (30_464, 52_288, 43_584))),
+    ("flagship", (32, 256, (34_816, 78_464, 61_056))),
+    ("training", (32, 512, (34_816, 78_464, 61_056))),
 ])
 def test_bf16_backward_plan_and_shared_memory(shape, want):
     adj = {"serving": _serving, "flagship": _flagship,
@@ -180,7 +180,7 @@ def test_bf16_backward_plan_and_shared_memory(shape, want):
     row_tile, blocks, smem = want
     plan = fused_gnn.step_plan(n, 128, H100_SMS, BWD16)
     assert plan == dict(fused_gnn.step_plan(n, 128, H100_SMS, BWD),
-                        row_tile=row_tile, blocks=blocks)
+                        row_tile=row_tile, blocks=blocks, slab_rows=16)
     got = tuple(fused_gnn.step_smem_bytes(n, 128, H100_SMS, BWD16, p)
                 for p in range(3))
     assert got == smem and max(got) <= BUDGET
