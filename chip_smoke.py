@@ -520,17 +520,19 @@ TILE_LIBRARY_COVERS = ["agg = A @ msg"]
 # Every __global__ function of csrc/ by its name in the source, as
 # torch.profiler reports it: the kernels above (persistent_fwd_hist_kernel
 # is an instance of persistent_fwd_kernel and counts under that name, its
-# bf16 instance likewise under persistent_fwd_kernel_bf16) and the second
+# bf16 instance likewise under persistent_fwd_kernel_bf16), the second
 # steps of two of them, the weight gradients' and the fused flash
-# backward's reductions.
+# backward's reductions, and the first step of the bf16 GNN forwards, their
+# weights' prep.
 PORT_KERNELS = (set(REPLACES) - {"persistent_fwd_hist_kernel",
                                  "persistent_fwd_hist_kernel_bf16"}) | {
     "step_weight_grad_reduce_kernel", "flash_dq_sum_kernel",
-    "flash_dq_sum_kernel_bf16"}
+    "flash_dq_sum_kernel_bf16", "fwd_bf16_prep_kernel"}
 # The launch counters that must move where the profile files time under
 # a name: the reductions' parent kernels (the weight pass's reduction is
-# shared by its f32 and bf16 instances), and the hist instances of the
-# persistent forwards, which the profile files under their names.
+# shared by its f32 and bf16 instances), the hist instances of the
+# persistent forwards, which the profile files under their names, and the
+# bf16 forwards' prep.
 PROFILE_COUNTERS = {
     "step_weight_grad_reduce_kernel": ("step_weight_grad_kernel",
                                        "step_weight_grad_kernel_bf16"),
@@ -540,6 +542,9 @@ PROFILE_COUNTERS = {
                               "persistent_fwd_hist_kernel"),
     "persistent_fwd_kernel_bf16": ("persistent_fwd_kernel_bf16",
                                    "persistent_fwd_hist_kernel_bf16"),
+    "fwd_bf16_prep_kernel": ("fused_step_kernel_bf16",
+                             "persistent_fwd_kernel_bf16",
+                             "persistent_fwd_hist_kernel_bf16"),
 }
 # What the weight pass's library_ms covers: three torch.mm calls over the
 # step-stacked operands ([K N, H]^T x [K N, .]) and three column sums.
@@ -673,17 +678,30 @@ def _scan_record(name, kernel, scan, adj, hidden,
     the same bits, the scan's time (``scan_ms``), the blocks a group gets
     (``cluster``) and, for the instance that this batch launches, the
     blocks one SM holds (``blocks_per_sm``) and, in clusters, the
-    clusters the card holds at once (``active_clusters``)."""
+    clusters the card holds at once (``active_clusters``); for a bf16
+    instance its blocks' shared memory as the library sizes it
+    (``smem_bytes``), held to the host's mirror."""
     _same_bits(f"{name} vs the per-step scan", _as_list(kernel()),
                _as_list(scan()))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cluster = (fused_gnn.persistent_cluster_size(adj, hidden, sms)
+    cluster = (fused_gnn.persistent_cluster_size(
+        adj, hidden, sms,
+        torch.bfloat16 if which.endswith("_bf16") else torch.float32)
                if which in ("persistent_fwd_kernel",
                             "persistent_fwd_kernel_bf16",
                             "persistent_fwd_hist_kernel_bf16") else 1)
-    return dict(scan_ms=_time_ms(scan, iters, reps), cluster=cluster,
-                **fused_gnn.persistent_occupancy(adj, hidden, which,
-                                                 cluster))
+    occ = fused_gnn.persistent_occupancy(adj, hidden, which, cluster)
+    mirror = {"persistent_fwd_kernel_bf16":
+              fused_gnn.persistent_fwd_bf16_smem_bytes,
+              "persistent_fwd_hist_kernel_bf16":
+              fused_gnn.persistent_fwd_bf16_smem_bytes,
+              "persistent_bwd_kernel_bf16":
+              fused_gnn.persistent_bwd_bf16_smem_bytes}.get(which)
+    if mirror is not None and occ["smem_bytes"] != mirror(adj, hidden):
+        raise AssertionError(f"{name}: the library sizes {occ['smem_bytes']}"
+                             f" B of shared memory, the host "
+                             f"{mirror(adj, hidden)}")
+    return dict(scan_ms=_time_ms(scan, iters, reps), cluster=cluster, **occ)
 
 
 def _step_geometry(adj, hidden, kernel) -> dict:

@@ -726,10 +726,8 @@ struct BwdBf16Args {
   int n_rows, H, tile, n_tiles, bw, row_tile;
 };
 
-// Bytes of the weight ring.
-__host__ __device__ inline int ring_bytes(int H) {
-  return gnnmma::kRingStages * gnnmma::ring_stage_bytes(H);
-}
+// Bytes of the weight ring (gnnmma::kRingStages stages).
+using gnnmma::ring_bytes;
 
 // The gate's epilogue on one element pair (row r, columns c, c + 1) of
 // the six sums v: dp's four blocks out (f32, unrounded, at dp_row), the

@@ -1,18 +1,21 @@
-// The bf16 gated-step backward's dense products on Hopper's tensor cores:
-// the device functions that fused_step_bwd_kernel_bf16 and
-// persistent_bwd_kernel_bf16 (fused_gnn_bwd.cu) both call, so that each
-// output element keeps one chain in both kernels.
+// The bf16 gated step's dense products on Hopper's tensor cores: the
+// device functions that the bf16 forward (fused_step_kernel_bf16,
+// persistent_fwd_kernel_bf16 and its hist instance, fused_gnn.cu) and the
+// bf16 backward (fused_step_bwd_kernel_bf16, persistent_bwd_kernel_bf16,
+// fused_gnn_bwd.cu) all call, so that each output element keeps one
+// chain in every kernel.
 //
-// Every product of the reference's bf16 backward (_bwd_kernel at dt =
-// bfloat16, deepdfa_tpu/ops/fused_gnn.py:405-476) multiplies two bf16
-// values and sums in f32: the messages h W_e, the gate's six sums x W_ir,
-// h W_hr, x W_iz, h W_hz, x W_in, h W_hn (apart: each rounds before its
-// bias), dx = bf16(dpre_i) W_i^T, dhl = dhc + bf16(dpre_h) W_h^T and dh =
-// dhl + dmsg_c W_e^T. Each is one bf16 mma.sync.m16n8k16 a 16-deep
-// k-slice with f32 accumulation (bf16_mma.cuh: mma, ldsm4, ldsm4_t). With
-// f32 band values the messages, dx and dmsg stay f32: dmsg_c W_e^T takes
-// dmsg split three ways (split3, mma3, smallest part first), which gives
-// the f32 product exactly as the flash kernels' split does.
+// Every product of the reference's bf16 step and its backward (_fwd_kernel
+// and _bwd_kernel at dt = bfloat16, deepdfa_tpu/ops/fused_gnn.py:271,
+// 405-476) multiplies two bf16 values and sums in f32: the messages h W_e,
+// the gate's six sums x W_ir, h W_hr, x W_iz, h W_hz, x W_in, h W_hn
+// (apart: each rounds before its bias), dx = bf16(dpre_i) W_i^T, dhl = dhc
+// + bf16(dpre_h) W_h^T and dh = dhl + dmsg_c W_e^T. Each is one bf16
+// mma.sync.m16n8k16 a 16-deep k-slice with f32 accumulation (bf16_mma.cuh:
+// mma, ldsm4, ldsm4_t). With f32 band values the messages, dx and dmsg
+// stay f32: dmsg_c W_e^T takes dmsg split three ways (split3, mma3,
+// smallest part first), which gives the f32 product exactly as the flash
+// kernels' split does.
 //
 // Layout. Rows sit in shared memory as tiles at a row stride of hp + 8
 // elements (hp: H rounded up to 16; the k columns [H, hp) hold zeros, so
@@ -35,10 +38,10 @@
 // of row tiles and streams the k slabs through the ring once; a product
 // takes as many passes as its row tiles need. Each accumulator starts at
 // 0 and adds its 16-deep k-slices in ascending order, whichever warp,
-// pass or stage holds it, and an mma.sync element depends only on its
-// own row of A and column of B: so every element keeps one chain in both
-// kernels, and the persistent sweep equals the per-step scan bit for
-// bit.
+// pass, ring stage or kernel holds it, and an mma.sync element depends
+// only on its own row of A and column of B: so every element keeps one
+// chain in every kernel, and a persistent sweep equals the per-step scan
+// bit for bit.
 
 #pragma once
 
@@ -60,10 +63,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNC = 32;      // output columns of a warp's item
 constexpr int kKS = 16;      // the gate's k rows a stage (one k-slice)
 constexpr int kGateSets = 6;  // the widest product's column blocks
-// The weight ring's stages: one (a slab loads, then its products run),
-// so that the sweep holds two blocks an SM, which hide each other's loads
-// better than a second stage does (scripts/torch_gnn_bwd_bf16_layouts.py
-// times both).
+// The backward's weight ring: one stage (a slab loads, then its products
+// run), so that its sweep holds two blocks an SM, which hide each other's
+// loads better than a second stage does (scripts/torch_gnn_bwd_bf16_layouts.py
+// times both). A kernel may take another count: the products' template
+// argument kS (the forward's is fused_gnn.cu's kFwdRingStages).
 constexpr int kRingStages = 1;
 
 // H rounded up to 16; the row stride of a row tile (elements, bf16 or
@@ -75,6 +79,11 @@ __host__ __device__ inline int dp_ld(int H) { return 4 * hp16(H) + 8; }
 // slabs; the narrower products fit more k rows in it.
 __host__ __device__ inline int ring_stage_bytes(int H) {
   return kGateSets * kKS * tile_ld(H) * 2;
+}
+// Bytes of a ring of kS stages.
+template <int kS = kRingStages>
+__host__ __device__ inline int ring_bytes(int H) {
+  return kS * ring_stage_bytes(H);
 }
 // Row tiles a pass covers: the warps over the items of one row tile.
 __host__ __device__ inline int pass_tiles(int H) {
@@ -224,19 +233,27 @@ __device__ __forceinline__ void frag_a_f32(uint32_t (&a)[NP][4],
 // One product over rows [0, R): NA A operands, each against NB column
 // blocks of its weights (w[a][b]), over a padded k space of kdim (a
 // multiple of 16) in slabs of ks k rows (a multiple of 16; the stage
-// holds NA NB of them). Per pass: stage(t0, nt) readies the A operands of
-// row tiles [t0, t0 + nt); each warp's item, row tile t0 + lt, takes
+// holds NA NB of them), the weights through a ring of kS stages. Per
+// pass: stage(t0, nt) readies the A operands of row tiles [t0, t0 + nt);
+// each warp's item, row tile t0 + lt, takes
 // load_a(a, t0, lt, k0, frag) for each A operand's k-slice (NP parts,
 // frag[p] part p, the largest first; the mma's take the smallest first)
 // into its NA NB sets of kNC / 8 n-tiles, then calls epi(row, col, v) for
 // each of its rows below R and even columns col below H, v[set][0..1] the
-// set's sums at (row, col) and (row, col + 1). Ends with a barrier.
-template <int NA, int NB, int NP, typename Stage, typename LoadA,
-          typename Epi>
+// set's sums at (row, col) and (row, col + 1), and after a barrier
+// post(t0, nt) (the ring's stages are free then; post ends with a barrier
+// if it does anything). Ends with a barrier.
+struct NoPost {
+  __device__ void operator()(int, int) const {}
+};
+
+template <int NA, int NB, int NP, int kS = kRingStages, typename Stage,
+          typename LoadA, typename Epi, typename Post = NoPost>
 __device__ __forceinline__ void product(int R, int H, int kdim, int ks,
                                         const WBlock (&w)[NA][NB],
                                         char* stages, Stage stage,
-                                        LoadA load_a, Epi epi) {
+                                        LoadA load_a, Epi epi,
+                                        Post post = Post()) {
   constexpr int NS = NA * NB, NT = kNC / 8;
   const int hp = hp16(H), ld = tile_ld(H);
   const int cc_n = (hp + kNC - 1) / kNC, pt = kWarps / cc_n;
@@ -260,7 +277,7 @@ __device__ __forceinline__ void product(int R, int H, int kdim, int ks,
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[s][j][i] = 0.f;
-    ring<kRingStages>(
+    ring<kS>(
         (kdim + ks - 1) / ks, stages, sb,
         [&](int s, char* st) {
           issue_w<NS>(st, flat, s * ks, min(ks, kdim - s * ks), ks, H);
@@ -315,6 +332,7 @@ __device__ __forceinline__ void product(int R, int H, int kdim, int ks,
         }
     }
     __syncthreads();
+    post(t0, nt);
   }
 }
 
@@ -325,7 +343,7 @@ __device__ __forceinline__ int stage_k_rows(int H, int ns) {
 
 // The messages of rows [0, R): m = h W_e (hb: h as a bf16 tile), then
 // epi(row, col, m[0..1]) with m = edge_msg_bf16(sum, b_e, round_msg).
-template <typename Epi>
+template <int kS = kRingStages, typename Epi>
 __device__ __forceinline__ void messages(int R, int H,
                                          const __nv_bfloat16* hb,
                                          const __nv_bfloat16* ek,
@@ -334,7 +352,7 @@ __device__ __forceinline__ void messages(int R, int H,
                                          Epi epi) {
   const WBlock w[1][1] = {{{ek, H, 0}}};
   const int ld = tile_ld(H);
-  product<1, 1, 1>(
+  product<1, 1, 1, kS>(
       R, H, hp16(H), stage_k_rows(H, 1), w, stages, [](int, int) {},
       [&](int, int t0, int lt, int k0, uint32_t(&f)[1][4]) {
         frag_a(f[0], hb, ld, 16 * (t0 + lt), k0);
@@ -351,23 +369,26 @@ __device__ __forceinline__ void messages(int R, int H,
 // The gate's six sums of rows [0, R) from the bf16 tiles xb (x) and hb
 // (h): ir, iz, in = x W_i[:, r|z|n], hr, hz, hn = h W_h[:, r|z|n], each
 // apart; then epi(row, col, v) with v[0..5] = ir, iz, in, hr, hz, hn, two
-// columns each.
-template <typename Epi>
+// columns each, and post(t0, nt) after each pass (product's). wi and wh
+// have rows of wld columns (0: their own 3H).
+template <int kS = kRingStages, typename Epi, typename Post = NoPost>
 __device__ __forceinline__ void gate_sums(int R, int H,
                                           const __nv_bfloat16* xb,
                                           const __nv_bfloat16* hb,
                                           const __nv_bfloat16* wi,
                                           const __nv_bfloat16* wh,
-                                          char* stages, Epi epi) {
-  const WBlock w[2][3] = {{{wi, 3 * H, 0}, {wi, 3 * H, H}, {wi, 3 * H, 2 * H}},
-                          {{wh, 3 * H, 0}, {wh, 3 * H, H}, {wh, 3 * H, 2 * H}}};
+                                          char* stages, Epi epi,
+                                          Post post = Post(), int wld = 0) {
+  const int n = wld > 0 ? wld : 3 * H;
+  const WBlock w[2][3] = {{{wi, n, 0}, {wi, n, H}, {wi, n, 2 * H}},
+                          {{wh, n, 0}, {wh, n, H}, {wh, n, 2 * H}}};
   const int ld = tile_ld(H);
-  product<2, 3, 1>(
+  product<2, 3, 1, kS>(
       R, H, hp16(H), kKS, w, stages, [](int, int) {},
       [&](int a, int t0, int lt, int k0, uint32_t(&f)[1][4]) {
         frag_a(f[0], a == 0 ? xb : hb, ld, 16 * (t0 + lt), k0);
       },
-      epi);
+      epi, post);
 }
 
 // dx = bf16(dpre_i) W_i^T and the recurrent product bf16(dpre_h) W_h^T of

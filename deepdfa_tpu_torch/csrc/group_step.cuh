@@ -29,11 +29,10 @@
 // weights reach it, change no chain. So a persistent kernel equals the
 // scan of its per-step counterpart bit for bit.
 //
-// The bf16 forward instances (fused_gnn.cu) run these products on bf16
-// values widened (group_gate_split keeps the gate's six sums apart). The
-// bf16 backward instances (fused_gnn_bwd.cu) run theirs on the bf16
-// tensor cores (gnn_bf16_mma.cuh) and take from here the aggregates,
-// which also read and write bf16 rows there, and the cp.async helpers.
+// The bf16 instances (fused_gnn.cu, fused_gnn_bwd.cu) run their products
+// on the bf16 tensor cores (gnn_bf16_mma.cuh) and take from here the
+// aggregates, which also read and write bf16 rows there, and the cp.async
+// helpers.
 
 #pragma once
 
@@ -483,92 +482,6 @@ __device__ void group_gate(const Tile& t, const float* x_s, const float* h_s,
   __syncthreads();
 }
 
-// The bf16 instances' gate products: as group_gate, but the input and
-// recurrent products of each gate kept apart (at bf16 each is rounded
-// before its bias is added and the two are summed): six sums an element,
-// ir = x w_ir, hr = h w_hr, iz, hz, in = x w_in, hn = h w_hn, each a chain
-// of fmaf over k ascending from 0; then epi(row, ir, hr, iz, hz, in, hn)
-// for the rows below R after a barrier (epi may write h_s in place). 96
-// accumulators a thread: the kernels that call it are built for one block
-// an SM. Ends with a barrier.
-template <bool kExact = false, int kGR = kGateRows, typename Epi>
-__device__ void group_gate_split(const Tile& t, const float* x_s,
-                                 const float* h_s, int R,
-                                 const float* __restrict__ wi,
-                                 const float* __restrict__ wh, float* stages,
-                                 Epi epi) {
-  const int H = t.H, H3 = 3 * H, sf = group_stage_floats<kGR>(H);
-  for (int base = 0; base < R; base += t.pass_rows()) {
-    const int nri = min(kTR, (R - base + t.RL - 1) / t.RL);
-    int row[kTR];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) row[i] = min(base + t.rl + t.RL * i, R - 1);
-    float ir[kTR][4], hr[kTR][4], iz[kTR][4], hz[kTR][4], in[kTR][4],
-        hn[kTR][4];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ir[i][j] = hr[i][j] = iz[i][j] = hz[i][j] = in[i][j] = hn[i][j] = 0.f;
-    const int ks = kGR;  // divides H
-    slab_pipeline(
-        H / ks, stages, sf,
-        [&](int s, float* st) { issue_slab(t, st, s * ks, ks, wi, wh, H3); },
-        [&](int s, const float* st) {
-          if (!t.active) return;
-          const int k0 = s * ks;
-          with_rows<kExact>(nri, [&](auto nr) {
-            constexpr int NR = decltype(nr)::value;
-#pragma unroll
-            for (int kq = 0; kq < kGR; kq += 4) {
-              float4 xv[NR], hv[NR];
-#pragma unroll
-              for (int i = 0; i < NR; ++i) {
-                xv[i] = *reinterpret_cast<const float4*>(x_s + row[i] * t.ld +
-                                                         k0 + kq);
-                hv[i] = *reinterpret_cast<const float4*>(h_s + row[i] * t.ld +
-                                                         k0 + kq);
-              }
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk) {
-                const float* wrow = st + (kq + kk) * 2 * H3 + t.c0;
-                const float4 wir = *reinterpret_cast<const float4*>(wrow);
-                const float4 wiz = *reinterpret_cast<const float4*>(wrow + H);
-                const float4 win =
-                    *reinterpret_cast<const float4*>(wrow + 2 * H);
-                const float4 whr = *reinterpret_cast<const float4*>(wrow + H3);
-                const float4 whz =
-                    *reinterpret_cast<const float4*>(wrow + H3 + H);
-                const float4 whn =
-                    *reinterpret_cast<const float4*>(wrow + H3 + 2 * H);
-#pragma unroll
-                for (int i = 0; i < NR; ++i) {
-                  const float x = f4(xv[i], kk), h = f4(hv[i], kk);
-#pragma unroll
-                  for (int j = 0; j < 4; ++j) {
-                    ir[i][j] = fmaf(x, f4(wir, j), ir[i][j]);
-                    hr[i][j] = fmaf(h, f4(whr, j), hr[i][j]);
-                    iz[i][j] = fmaf(x, f4(wiz, j), iz[i][j]);
-                    hz[i][j] = fmaf(h, f4(whz, j), hz[i][j]);
-                    in[i][j] = fmaf(x, f4(win, j), in[i][j]);
-                    hn[i][j] = fmaf(h, f4(whn, j), hn[i][j]);
-                  }
-                }
-              }
-            }
-          });
-        });
-    if (t.active) {
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) {
-        const int r = base + t.rl + t.RL * i;
-        if (r < R) epi(r, ir[i], hr[i], iz[i], hz[i], in[i], hn[i]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
 // The per-step forward's products at H > 64 (hp = 128, one block an SM:
 // 128 gate accumulators a thread) over a tile of exactly one pass: thread
 // (column group, row lane rl) holds kWideRows rows rl + kWideRL * i, so
@@ -767,24 +680,6 @@ __device__ __forceinline__ void rows_to_shared(float* dst, int ld,
     const int r = e / q, c = 4 * (e % q);
     *reinterpret_cast<float4*>(dst + r * ld + c) =
         *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * H + c);
-  }
-}
-
-// Rows [0, R) of a [.., H] row-major bf16 global array into a shared f32
-// array at stride ld (widened: exact), 4 values (8 bytes) a piece.
-__device__ __forceinline__ void rows_to_shared(float* dst, int ld,
-                                               const __nv_bfloat16* src,
-                                               int R, int H) {
-  const int q = H / 4;
-  for (int e = threadIdx.x; e < R * q; e += kGroupThreads) {
-    const int r = e / q, c = 4 * (e % q);
-    const uint2 u =
-        *reinterpret_cast<const uint2*>(src + static_cast<size_t>(r) * H + c);
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-    *reinterpret_cast<float4*>(dst + r * ld + c) =
-        make_float4(__low2float(a), __high2float(a), __low2float(b),
-                    __high2float(b));
   }
 }
 

@@ -37,7 +37,9 @@ SOURCES: Dict[str, str] = {
 #: only the libraries that include it).
 HEADERS: Dict[str, Tuple[str, ...]] = {
     "fused_gnn": (os.path.join("csrc", "gated_step.cuh"),
-                  os.path.join("csrc", "group_step.cuh")),
+                  os.path.join("csrc", "group_step.cuh"),
+                  os.path.join("csrc", "bf16_mma.cuh"),
+                  os.path.join("csrc", "gnn_bf16_mma.cuh")),
     "fused_gnn_bwd": (os.path.join("csrc", "gated_step.cuh"),
                       os.path.join("csrc", "group_step.cuh"),
                       os.path.join("csrc", "tf32_mma.cuh"),
@@ -82,27 +84,28 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # vals_bf16, n_rows, hidden, row_tile, cluster, slab_rows, blocks,
         # blocks_per_sm, smem_bytes, sms (int outs)
         "fused_step_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-        # the bf16 instances: h, vals, vals_bf16, ek, eb, wi, bi, wh, bh,
-        # msg (f32 scratch), out, n_rows, hidden, tile, n_tiles,
+        # the bf16 instances: h, vals, vals_bf16, ek, eb, wi, bi, wh, bh
+        # (the packed weights, f32 or bf16), weights_bf16, ws, fs (the
+        # weights' prep scratch: bf16 [14 H^2], f32 [14 H]), msg (scratch
+        # at the message dtype), out, n_rows, hidden, tile, n_tiles,
         # bandwidth, stream
-        "fused_step_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _I, _I, _I, _P],
+        "fused_step_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                   _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # vals_bf16, n_rows, hidden, row_tile, cluster, slab_rows, blocks,
         # blocks_per_sm, blocks_per_sm_pass1, smem_bytes,
         # smem_bytes_pass1, sms (int outs)
         "fused_step_bf16_geometry": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P],
-        # as persistent_fwd_launch
+        # h0, vals, vals_bf16, the packed weights, weights_bf16, ws, fs
+        # (as fused_step_bf16_launch's), groups, n_groups, max_group_rows,
+        # n_steps, cluster, hist (the kHist instance: out is hist), out,
+        # hidden, tile, n_tiles, bandwidth, stream
         "persistent_fwd_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                       _P, _I, _I, _I, _I, _P, _I, _I, _I,
-                                       _I, _P],
-        # the hist instance: as persistent_fwd_hist_launch
-        "persistent_fwd_hist_bf16_launch": [_P, _P, _I, _P, _P, _P, _P, _P,
-                                            _P, _P, _I, _I, _I, _I, _P, _I,
-                                            _I, _I, _I, _P],
-        # vals_bf16, max_group_rows, hidden, cluster, hist (the kHist
-        # instance's), blocks, clusters (int outs)
-        "persistent_fwd_bf16_occupancy": [_I, _I, _I, _I, _I, _P, _P],
+                                       _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P, _I, _I, _I, _I, _P],
+        # vals_bf16, max_group_rows, hidden, hist (the kHist instance's),
+        # blocks, smem_bytes (int outs)
+        "persistent_fwd_bf16_occupancy": [_I, _I, _I, _I, _P, _P],
     },
     "fused_gnn_bwd": {
         # h, vals, tvals, vals_bf16, g, ek, eb, wi, bi, wh, bh, wiT, whT,

@@ -32,7 +32,8 @@ launches ``fused_step_kernel_bf16`` and :func:`persistent_unroll`
 ``persistent_fwd_kernel_bf16``, the same TPU kernels at ``dt =
 bfloat16``: they round where the reference's kernel rounds (the plain
 versions, :func:`fused_step_reference` and :func:`persistent_reference`
-on bf16 ``h``, with it), counted apart (``launches_bf16``). The fused
+on bf16 ``h``, with it), counted apart (``launches_bf16``), their
+products on the bf16 tensor cores (``csrc/gnn_bf16_mma.cuh``). The fused
 lane's backward has its bf16 instances too: :func:`fused_step_bwd_rows`
 launches ``fused_step_bwd_kernel_bf16`` and :func:`step_weight_grads`
 ``step_weight_grad_kernel_bf16`` (plain versions, the same functions on
@@ -274,10 +275,11 @@ def persistent_smem_bytes(adj: BandAdjacency, hidden: int,
     resident h and its aggregate (x) at :func:`persistent_row_stride`, a
     third such array (x apart from the aggregate) when ``cluster`` blocks
     share a group, one row sum a row. 87,744 bytes for groups of 48 rows
-    at H 128 (two blocks an SM). ``dtype`` bf16: the instance
-    ``persistent_fwd_kernel_bf16``, whose group holds its messages apart
-    from h and x: three arrays at any cluster size (113,088 bytes at 48
-    rows)."""
+    at H 128 (two blocks an SM). ``dtype`` bf16: the count the bf16
+    forward's gate keeps, three such arrays at any cluster size (113,088
+    bytes at 48 rows), so the same batches take the sweep as before its
+    tensor-core layout, which needs less
+    (:func:`persistent_fwd_bf16_smem_bytes`)."""
     three = cluster > 1 or dtype == torch.bfloat16
     return _persistent_smem(adj, hidden, 3 if three else 2)
 
@@ -300,14 +302,18 @@ def persistent_smem_ok(adj: BandAdjacency, hidden: int,
 PERSISTENT_CLUSTER = 2
 
 
-def persistent_cluster_size(adj: BandAdjacency, hidden: int,
-                            sms: int) -> int:
+def persistent_cluster_size(adj: BandAdjacency, hidden: int, sms: int,
+                            dtype: torch.dtype = torch.float32) -> int:
     """Blocks of ``persistent_fwd_kernel`` a row group gets on a card with
     ``sms`` SMs: :data:`PERSISTENT_CLUSTER` where those blocks still fit
     one to an SM, each owning a slice of at least 32 product columns, with
     the three row arrays in shared memory; else 1. The serving bucket (34
     groups of up to 48 rows, H 128, 132 SMs) gets 2, the training batch
-    (523 groups) 1. Host ints only: no device read."""
+    (523 groups) 1. ``dtype`` bf16: ``persistent_fwd_kernel_bf16`` and its
+    hist instance, one block a group at any batch (1). Host ints only: no
+    device read."""
+    if dtype == torch.bfloat16:
+        return 1
     n_groups = adj.row_groups.numel() - 1
     hp = persistent_row_stride(hidden) - 4
     cs = PERSISTENT_CLUSTER
@@ -346,10 +352,19 @@ def persistent_bwd_smem_ok(adj: BandAdjacency, hidden: int,
 #: weight stages (one: ``scripts/torch_gnn_bwd_bf16_layouts.py`` timed
 #: two), each the gate's six slabs of :data:`GNN_BF16_SLAB_ROWS` k rows
 #: (``kRingStages``, ``kKS``); a warp's item, 16 rows by
-#: :data:`GNN_BF16_ITEM_COLS` output columns (``kNC``).
+#: :data:`GNN_BF16_ITEM_COLS` output columns (``kNC``). The bf16 forward
+#: instances' weight stages (``kFwdRingStages`` in ``csrc/fused_gnn.cu``;
+#: ``scripts/torch_gnn_fwd_bf16_layouts.py`` times other counts).
 GNN_BF16_RING_STAGES = 1
 GNN_BF16_SLAB_ROWS = 16
 GNN_BF16_ITEM_COLS = 32
+GNN_BF16_FWD_RING_STAGES = 2
+
+
+def _bf16_ring_bytes(hidden: int, stages: int) -> int:
+    """Bytes of a weight ring of ``stages`` stages of the gate's six [16,
+    hp + 8] bf16 slabs (hp: ``hidden`` rounded up to 16)."""
+    return stages * 6 * GNN_BF16_SLAB_ROWS * (-(-hidden // 16) * 16 + 8) * 2
 
 
 def _bf16_bwd_layout(hidden: int, rows: int) -> Tuple[int, int, int]:
@@ -361,7 +376,7 @@ def _bf16_bwd_layout(hidden: int, rows: int) -> Tuple[int, int, int]:
     items)."""
     hp = -(-hidden // 16) * 16
     ld = hp + 8
-    ring = GNN_BF16_RING_STAGES * 6 * GNN_BF16_SLAB_ROWS * ld * 2
+    ring = _bf16_ring_bytes(hidden, GNN_BF16_RING_STAGES)
     pass_rows = 16 * (8 // -(-hp // GNN_BF16_ITEM_COLS))
     dp = min(-(-rows // 16) * 16, pass_rows) * (4 * hp + 8) * 2
     return rows * ld, ring, dp
@@ -383,6 +398,22 @@ def persistent_bwd_bf16_smem_bytes(adj: BandAdjacency, hidden: int) -> int:
             + 4 * rp)
 
 
+def persistent_fwd_bf16_smem_bytes(adj: BandAdjacency, hidden: int) -> int:
+    """Shared memory of ``persistent_fwd_kernel_bf16``'s blocks (and its
+    hist instance's; ``csrc/fused_gnn.cu:persistent_fwd_bf16_smem``, the
+    library's figure comes back from :func:`persistent_occupancy`): the
+    forward's weight ring (:data:`GNN_BF16_FWD_RING_STAGES`), then h and x
+    (bf16) and the messages (sized f32) at a row stride of hp + 8, for
+    the largest group padded to 16 rows, and the row sums and x's and h's
+    row norms. 105,024 bytes at 48 rows (two blocks an SM), 193,024 at
+    the 123 rows the gate admits (H 128). The gate
+    stays :func:`persistent_smem_ok`'s count, which this never exceeds."""
+    rp = -(-adj.max_group_rows // 16) * 16
+    ld = -(-hidden // 16) * 16 + 8
+    return (_bf16_ring_bytes(hidden, GNN_BF16_FWD_RING_STAGES)
+            + 8 * rp * ld + 12 * rp + 28 * hidden)
+
+
 def persistent_occupancy(adj: BandAdjacency, hidden: int,
                          kernel: str = "persistent_fwd_kernel",
                          cluster: int = 1) -> dict:
@@ -394,9 +425,9 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
     launch at this adjacency's largest group runs, ``cluster`` blocks a
     group (the forwards only): ``blocks_per_sm``, the blocks one SM
     holds, ``active_clusters``, the clusters the card holds at once
-    (None for cluster 1), and, for ``persistent_bwd_kernel_bf16``,
-    ``smem_bytes``, its blocks' dynamic shared memory as the library
-    sizes it."""
+    (None for cluster 1), and, for the bf16 instances,
+    ``smem_bytes``, their blocks' dynamic shared memory as the library
+    sizes it (the bf16 forwards run one block a group: cluster 1)."""
     from deepdfa_tpu_torch.ops import _build
 
     bf16 = int(adj.vals.dtype == torch.bfloat16)
@@ -406,11 +437,12 @@ def persistent_occupancy(adj: BandAdjacency, hidden: int,
             bf16, adj.max_group_rows, hidden, cluster, ctypes.byref(blocks),
             ctypes.byref(clusters))
     elif kernel in ("persistent_fwd_kernel_bf16",
-                    "persistent_fwd_hist_kernel_bf16"):
+                    "persistent_fwd_hist_kernel_bf16") and cluster == 1:
+        smem = ctypes.c_int(0)
         err = _build.load("fused_gnn").persistent_fwd_bf16_occupancy(
-            bf16, adj.max_group_rows, hidden, cluster,
+            bf16, adj.max_group_rows, hidden,
             int(kernel == "persistent_fwd_hist_kernel_bf16"),
-            ctypes.byref(blocks), ctypes.byref(clusters))
+            ctypes.byref(blocks), ctypes.byref(smem))
     elif kernel == "persistent_bwd_kernel" and cluster == 1:
         err = _build.load("fused_gnn_bwd").persistent_bwd_occupancy(
             bf16, adj.max_group_rows, hidden, ctypes.byref(blocks))
@@ -454,29 +486,26 @@ def step_plan(n_rows: int, hidden: int, sms: int,
     over 16-row tiles that split the product columns (while the padded
     width leaves each block 32; slabs of 8 k rows where 8 divides
     ``hidden``, else 4: two blocks an SM either way).
-    ``fused_step_bwd_kernel`` and ``fused_step_bwd_kernel_bf16``: 32-row
-    tiles, 16 where those are fewer than ``sms`` blocks, no clusters;
-    slabs of 4 k rows (the bf16 instance: its weight ring's stages of
-    :data:`GNN_BF16_SLAB_ROWS` k rows of the gate's slabs).
-    ``fused_step_kernel_bf16``: ``fused_step_kernel``'s tiles and blocks
-    a tile (``cluster``: they split the product columns, without a
-    hardware cluster), slabs of 4, the 4 x 4 products. Returns
+    ``fused_step_bwd_kernel``, ``fused_step_bwd_kernel_bf16`` and
+    ``fused_step_kernel_bf16``: 32-row tiles, 16 where those are fewer
+    than ``sms`` blocks, no clusters; slabs of 4 k rows (the bf16
+    instances: their weight ring's stages of :data:`GNN_BF16_SLAB_ROWS` k
+    rows of the gate's slabs). Returns
     ``row_tile``, ``cluster``, ``slab_rows``, ``blocks`` (each pass's
     grid) and ``wide``. Host ints only."""
     cdiv = lambda a, b: -(-a // b)
     hp = persistent_row_stride(hidden) - 4
     wide = False
-    if kernel in ("fused_step_kernel", "fused_step_kernel_bf16"):
+    if kernel == "fused_step_kernel":
         if cdiv(n_rows, 32) >= sms or hp // 2 < 32:
             cs, rt, wide = 1, STEP_WIDE_TILE, hp == 128
             gr = 16 if wide and hidden % 16 == 0 else 4
         else:
             cs, rt, gr = 2, 16, 8 if hidden % 8 == 0 else 4
-        if kernel == "fused_step_kernel_bf16":
-            gr, wide = PERSISTENT_SLAB_ROWS, False
-    elif kernel in ("fused_step_bwd_kernel", "fused_step_bwd_kernel_bf16"):
+    elif kernel in ("fused_step_bwd_kernel", "fused_step_bwd_kernel_bf16",
+                    "fused_step_kernel_bf16"):
         cs, gr = 1, PERSISTENT_SLAB_ROWS
-        if kernel == "fused_step_bwd_kernel_bf16":
+        if kernel.endswith("_bf16"):
             gr = GNN_BF16_SLAB_ROWS
         rt = 16 if cdiv(n_rows, 32) < sms else 32
     else:
@@ -489,13 +518,15 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
                     kernel: str = "fused_step_kernel", bwd_pass: int = 0
                     ) -> int:
     """Dynamic shared memory of a per-step block (``csrc``'s
-    ``step_fwd_smem`` / ``step_bf16_smem`` / ``step_bwd_smem``, which
-    :func:`step_geometry` reports): the weight-slab stages, then row
-    arrays of the tile at :func:`persistent_row_stride` (the forward: h
-    and the aggregate, and x apart from it in a cluster; the bf16
-    forward's pass 0: h, its pass 1: h, the messages and x; the
-    backward's pass 0: the cotangent, h and the aggregate; pass 1: dx and
-    dmsg), one row sum a row (not in the bf16 forward's pass 0). The bf16
+    ``step_fwd_smem`` / ``step_bwd_smem``, which :func:`step_geometry`
+    reports): the weight-slab stages, then row arrays of the tile at
+    :func:`persistent_row_stride` (the forward: h and the aggregate, and x
+    apart from it in a cluster; the backward's pass 0: the cotangent, h
+    and the aggregate; pass 1: dx and dmsg), one row sum a row. The bf16
+    forward (``csrc/fused_gnn.cu:step_bf16_smem``): its weight ring
+    (:data:`GNN_BF16_FWD_RING_STAGES`), then its pass 0: h (bf16) and its
+    row norms; pass 1: h and x (bf16), the messages (sized f32), one row
+    sum and x's and h's norms a row. The bf16
     backward (``csrc/fused_gnn_bwd.cu:step_bwd_bf16_smem``): its weight
     ring, then its pass 0: h (bf16); pass 1: the cotangent (f32), then h
     and x (bf16) and the messages (sized f32), or the dp rows once the
@@ -504,6 +535,12 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
     pass 0. Bounded by the tile, never by a graph. ``bwd_pass`` names the
     pass of a two- or three-pass kernel."""
     p = step_plan(n_rows, hidden, sms, kernel)
+    if kernel == "fused_step_kernel_bf16":
+        rt = p["row_tile"]
+        rows = rt * (-(-hidden // 16) * 16 + 8)
+        return (_bf16_ring_bytes(hidden, GNN_BF16_FWD_RING_STAGES)
+                + (2 * rows + 4 * rt if bwd_pass == 0
+                   else 8 * rows + 12 * rt) + 28 * hidden)
     if kernel == "fused_step_bwd_kernel_bf16":
         rt = p["row_tile"]
         rows, ring, dp = _bf16_bwd_layout(hidden, rt)
@@ -514,8 +551,6 @@ def step_smem_bytes(n_rows: int, hidden: int, sms: int,
     sums = p["row_tile"]
     if kernel == "fused_step_kernel":
         arrays = 3 if p["cluster"] > 1 else 2
-    elif kernel == "fused_step_kernel_bf16":
-        arrays, sums = (1, 0) if bwd_pass == 0 else (3, p["row_tile"])
     else:
         arrays = 3 if bwd_pass == 0 else 2
     return 4 * (stages + arrays * p["row_tile"] * ld + sums)
@@ -597,7 +632,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _launch_args(params: Mapping, h: torch.Tensor, adj: BandAdjacency,
                  packed: Optional[Sequence[torch.Tensor]],
-                 library: str = "fused_gnn", bf16_matrices: bool = False):
+                 library: str = "fused_gnn"):
     from deepdfa_tpu_torch.ops import _build
 
     if packed is None:
@@ -606,10 +641,11 @@ def _launch_args(params: Mapping, h: torch.Tensor, adj: BandAdjacency,
            for w in packed):
         raise ValueError(f"step weights must be {h.dtype} on {h.device}, "
                          "as h (or, at bf16 h, the f32 masters)")
-    # The kernels read f32 weights: at bf16, the bf16 values (the f32
-    # masters rounded) widened; the bf16 backward instances read the
-    # matrices (ek, wi, wh) as bf16, rounded once a call.
+    # The f32 kernels read f32 weights; the bf16 instances read the
+    # matrices (ek, wi, wh) as bf16 (the f32 masters rounded once a call)
+    # and the biases as f32 arrays of bf16 values.
     weights = [w.detach().to(h.dtype) for w in packed]
+    bf16_matrices = h.dtype == torch.bfloat16
     weights = [(w if bf16_matrices and i % 2 == 0 else w.float()).contiguous()
                for i, w in enumerate(weights)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(h.device).cuda_stream)
@@ -902,30 +938,79 @@ def needs_grad(h: torch.Tensor, packed: Sequence[torch.Tensor]) -> bool:
 
 def _fused_step_launch(h: torch.Tensor, adj: BandAdjacency,
                        packed: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``fused_step_kernel``, or for bf16 ``h`` the two passes of
-    ``fused_step_kernel_bf16`` (one count), whose messages cross device
-    memory in an f32 scratch array."""
+    """``fused_step_kernel``, or for bf16 ``h`` ``fused_step_kernel_bf16``
+    (the weights' prep and two passes, one count), whose messages cross
+    device memory at the message dtype (a tile's halo belongs to other
+    blocks)."""
+    if h.dtype == torch.bfloat16:
+        out = _bf16_fwd_launch(h, adj, packed, 1, "fused_step_kernel_bf16")
+        fused_gate_step.launches_bf16 += 1
+        return out
     with torch.cuda.device(h.device):
         lib, (ek, eb, wi, bi, wh, bh), bf16, stream = _launch_args(
             None, h, adj, packed)
         out = torch.empty_like(h)
         n, hidden = h.shape
-        if h.dtype == torch.bfloat16:
-            msg = torch.empty((n, hidden), dtype=torch.float32,
-                              device=h.device)
-            err = lib.fused_step_bf16_launch(
-                _ptr(h), _ptr(adj.vals), bf16, _ptr(ek), _ptr(eb), _ptr(wi),
-                _ptr(bi), _ptr(wh), _ptr(bh), _ptr(msg), _ptr(out), n,
-                hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
-            _raise_on_error(err, "fused_step_kernel_bf16")
-            fused_gate_step.launches_bf16 += 1
-            return out
         err = lib.fused_step_launch(
             _ptr(h), _ptr(adj.vals), bf16, _ptr(ek), _ptr(eb), _ptr(wi),
             _ptr(bi), _ptr(wh), _ptr(bh), _ptr(out), n, hidden, adj.tile,
             adj.n_tiles, adj.bandwidth, stream)
         _raise_on_error(err, "fused_step_kernel")
     fused_gate_step.launches += 1
+    return out
+
+
+def _bf16_fwd_launch(h: torch.Tensor, adj: BandAdjacency,
+                     packed: Sequence[torch.Tensor], n_steps: int,
+                     name: str) -> torch.Tensor:
+    """One call of a bf16 forward instance (``name``:
+    ``fused_step_kernel_bf16``, one step; ``persistent_fwd_kernel_bf16``,
+    ``n_steps`` steps, h_K; ``persistent_fwd_hist_kernel_bf16``,
+    ``n_steps - 1`` steps, their states ``[K-1, N, H]``), its weights'
+    prep first: the packed weights go in as they are (the f32 masters, or
+    bf16 ones), and the kernel rounds, lays out and transposes them once
+    a call. Counts nothing: the callers count."""
+    if any(w.device != h.device for w in packed):
+        raise ValueError(f"step weights must be on {h.device}, as h")
+    dt = (packed[0].dtype if all(w.dtype == packed[0].dtype for w in packed)
+          else torch.float32)
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the bf16 step's weights must be f32 or bf16, got "
+                         f"{dt}")
+    from deepdfa_tpu_torch.ops import _build
+
+    n, hidden = h.shape
+    with torch.cuda.device(h.device):
+        lib = _build.load("fused_gnn")
+        weights = [w.detach().to(dt).contiguous() for w in packed]
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(h.device).cuda_stream)
+        ws = torch.empty(14 * hidden * hidden, dtype=torch.bfloat16,
+                         device=h.device)
+        fs = torch.empty(14 * hidden, dtype=torch.float32, device=h.device)
+        common = (_ptr(h), _ptr(adj.vals),
+                  int(adj.vals.dtype == torch.bfloat16),
+                  *map(_ptr, weights), int(dt == torch.bfloat16), _ptr(ws),
+                  _ptr(fs))
+        if name == "fused_step_kernel_bf16":
+            msg = torch.empty((n, hidden),
+                              dtype=msg_dtype(adj, torch.bfloat16),
+                              device=h.device)
+            out = torch.empty_like(h)
+            err = lib.fused_step_bf16_launch(
+                *common, _ptr(msg), _ptr(out), n, hidden, adj.tile,
+                adj.n_tiles, adj.bandwidth, stream)
+        else:
+            hist = name == "persistent_fwd_hist_kernel_bf16"
+            groups = _row_groups(adj, h)
+            out = (torch.empty((n_steps - 1, n, hidden), dtype=h.dtype,
+                               device=h.device) if hist
+                   else torch.empty_like(h))
+            err = lib.persistent_fwd_bf16_launch(
+                *common, _ptr(groups), groups.numel() - 1,
+                adj.max_group_rows, n_steps - hist, 1, int(hist), _ptr(out),
+                hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
+        _raise_on_error(err, name)
     return out
 
 
@@ -936,6 +1021,11 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
     bf16 ``h``), or with ``hist`` its emit-hist instance
     (``persistent_fwd_hist_kernel``, ``persistent_fwd_hist_kernel_bf16``)
     running ``n_steps - 1`` steps (``[K-1, N, H]``)."""
+    if h.dtype == torch.bfloat16:
+        return _bf16_fwd_launch(
+            h, adj, packed, n_steps,
+            "persistent_fwd_hist_kernel_bf16" if hist
+            else "persistent_fwd_kernel_bf16")
     groups = _row_groups(adj, h)
     with torch.cuda.device(h.device):
         lib, (ek, eb, wi, bi, wh, bh), bf16, stream = _launch_args(
@@ -944,16 +1034,8 @@ def _persistent_launch(h: torch.Tensor, adj: BandAdjacency,
         if hist:
             out = torch.empty((n_steps - 1,) + tuple(h.shape),
                               dtype=h.dtype, device=h.device)
-            fn, steps, name = (
-                (lib.persistent_fwd_hist_bf16_launch, n_steps - 1,
-                 "persistent_fwd_hist_kernel_bf16")
-                if h.dtype == torch.bfloat16 else
-                (lib.persistent_fwd_hist_launch, n_steps - 1,
-                 "persistent_fwd_hist_kernel"))
-        elif h.dtype == torch.bfloat16:
-            out = torch.empty_like(h)
-            fn, steps, name = (lib.persistent_fwd_bf16_launch, n_steps,
-                               "persistent_fwd_kernel_bf16")
+            fn, steps, name = (lib.persistent_fwd_hist_launch, n_steps - 1,
+                               "persistent_fwd_hist_kernel")
         else:
             out = torch.empty_like(h)
             fn, steps, name = (lib.persistent_fwd_launch, n_steps,
@@ -1158,7 +1240,7 @@ def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
     bf16_h = h.dtype == torch.bfloat16
     with torch.cuda.device(h.device):
         lib, weights, bf16, stream = _launch_args(
-            params, h, adj, packed, "fused_gnn_bwd", bf16_matrices=bf16_h)
+            params, h, adj, packed, "fused_gnn_bwd")
         ek, eb, wi, bi, wh, bh = weights
         wiT, whT, ekT = _transposed(weights)
         n, hidden = h.shape
@@ -1341,7 +1423,7 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
     tv = adj.transpose_vals()
     with torch.cuda.device(h0.device):
         lib, weights, bf16, stream = _launch_args(
-            params, h0, adj, packed, "fused_gnn_bwd", bf16_matrices=bf16_h)
+            params, h0, adj, packed, "fused_gnn_bwd")
         ek, eb, wi, bi, wh, bh = weights
         wiT, whT, ekT = _transposed(weights)
         f32 = dict(dtype=torch.float32, device=h0.device)
@@ -1473,8 +1555,12 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
     """:func:`kernel_cost` of a bf16 instance: ``h``, ``g``, ``dh`` and
     ``x`` and the packed weights at 2 bytes, the band as stored, ``dp``
     and ``dmsg`` f32. The products of two bf16 values at the dense bf16
-    tensor-core rate (the forward's h W_e, x W_i, h W_h, and A msg when
-    the band values are bf16; the backward's dpre_i W_i^T, dpre_h W_h^T,
+    tensor-core rate, the rate of the bf16 ``mma.sync`` every instance
+    runs its dense products on (the forward's h W_e, x W_i, h W_h, and A
+    msg when the band values are bf16, which the kernels aggregate with
+    f32 FMAs; the forward's near-midpoint chains recompute about 1.5 % of
+    its sums, work the function does not need and the cost leaves out;
+    the backward's dpre_i W_i^T, dpre_h W_h^T,
     and A^T dx and dmsg W_e^T when the messages are bf16; the weight
     pass's x^T dpre_i, h^T dpre_h, and h^T dmsg when the messages are
     bf16), the rest at its own rate: the backward's dmsg W_e^T with f32

@@ -77,6 +77,11 @@ def main() -> None:
                 scan = h
                 for _ in range(5):
                     scan = F.fused_gate_step(params, scan, adj, packed=p16)
+                # x as the kernels compute it (the bf16 backward's pass 1
+                # runs the forward's device functions) against the plain
+                # version's x.
+                x = F.fused_step_bwd_rows(params, h, adj, h, packed=p16)[1]
+                r["x"] = stats(x, F._gates_bf16(p16, h, adj)[0])
                 r["scan5_vs_plain"] = stats(scan, F.persistent_reference(
                     params, h, adj, 5))
                 if F.persistent_smem_ok(adj, 128, torch.bfloat16):
@@ -87,7 +92,8 @@ def main() -> None:
                         params, h, adj, 5))
                     sms = torch.cuda.get_device_properties(
                         0).multi_processor_count
-                    cl = F.persistent_cluster_size(adj, 128, sms)
+                    cl = F.persistent_cluster_size(adj, 128, sms,
+                                                   torch.bfloat16)
                     r["cluster"] = cl
                     r["occ"] = F.persistent_occupancy(
                         adj, 128, "persistent_fwd_kernel_bf16", cl)

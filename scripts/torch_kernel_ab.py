@@ -5,7 +5,9 @@ checkouts on one card, in turns.
 
 Each checkout's own ``chip_smoke.py`` runs its device, build, ``kernels``
 (the two GNN forward kernels at the serving and flagship shapes),
-``train_kernels`` (the GNN kernels at the training shape, the persistent
+``kernels_bf16`` (their bf16 instances there, bf16 band values, and f32
+ones at serving), ``train_kernels`` (the GNN kernels at the training
+shape, the persistent
 pair and the weight pass ``step_weight_grad_kernel`` among them),
 ``tile_kernels``, ``attention_kernels``, ``attention_kernels_bf16``
 (the flash kernels' bf16 instances) and ``train_kernels_bf16`` (the GNN
@@ -30,13 +32,16 @@ checkouts (``gnn_step_bits_equal``). On the training batch at bf16 (h
 the model's embeddings rounded, a seeded bf16 cotangent): the bf16
 forward instances' outputs (``fused_step_kernel_bf16``'s,
 ``persistent_fwd_kernel_bf16``'s over 5 steps and its hist instance's),
-expected equal across the checkouts (``gnn_fwd_bits_equal_bf16``), and
-the bf16 backward instances' (``fused_step_bwd_kernel_bf16``'s four
-outputs, ``persistent_bwd_kernel_bf16``'s over 5 steps), expected to
-repeat within each checkout (``gnn_bwd_bits_repeat_bf16``) and, against a
-checkout from before their tensor-core redesign, to differ across them
-(``gnn_bwd_bits_equal_bf16``). Needs one NVIDIA GPU; the checkouts build
-their kernels into their own trees.
+expected to repeat within each checkout (``gnn_fwd_bits_repeat_bf16``)
+and to equal across them, against a checkout from before their
+tensor-core redesign too (``gnn_fwd_bits_equal_bf16``); and the bf16 backward
+instances' and the bf16 weight pass's (``fused_step_bwd_kernel_bf16``'s
+four outputs, ``persistent_bwd_kernel_bf16``'s over 5 steps on the plain
+version's h_1..h_4, ``step_weight_grad_kernel_bf16``'s gradients of
+those), the same inputs in both checkouts, expected equal across them
+(``gnn_bwd_bits_equal_bf16``) and to repeat within each
+(``gnn_bwd_bits_repeat_bf16``). Needs one NVIDIA GPU; the checkouts
+build their kernels into their own trees.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import sys
 PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           "model = cs.FlowGNN(cs.FlowGNNConfig(message_impl='persistent'), "
           "device='cuda', seed=cs.SEED); cs.phase_kernels(model); "
+          "cs.phase_kernels_bf16(model); "
           "cs.phase_train_kernels(model); "
           "cs.phase_tile_kernels(); cs.phase_attention_kernels(); "
           "cs.phase_attention_kernels(cs.torch.bfloat16); "
@@ -90,9 +96,14 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           "cs.emit(phase='gnn_fwd_bits_bf16', sha256=sha("
           "[F.fused_gate_step(p, hb, adj), F.persistent_unroll(p, hb, adj, "
           "5), hist])); "
+          # The backward on the plain version's states: the same inputs
+          # in both checkouts.
+          "hp = F.persistent_hist_reference(p, hb, adj, 5); "
+          "rows = F.persistent_bwd_rows(p, hb, hp, adj, gb, 5); "
           "cs.emit(phase='gnn_bwd_bits_bf16', sha256=sha("
-          "list(F.fused_step_bwd_rows(p, hb, adj, gb)) + list("
-          "F.persistent_bwd_rows(p, hb, hist, adj, gb, 5))))")
+          "list(F.fused_step_bwd_rows(p, hb, adj, gb)) + list(rows) + list("
+          "F.step_weight_grads(hb, hp, *rows[1:], 5, F.msg_dtype(adj, "
+          "torch.bfloat16)))))")
 KEYS = ("kernel_ms", "plain_ms", "library_ms", "scan_ms", "bound_us",
         "max_abs_err", "blocks_per_sm", "cluster", "active_clusters",
         "f32_kernel_ms", "elements_differing", "smem_bytes",
@@ -118,7 +129,7 @@ def run(checkout: str) -> dict:
                                   "gnn_step_bits", "gnn_fwd_bits_bf16",
                                   "gnn_bwd_bits_bf16"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
-        elif rec.get("phase") in ("kernels", "train_kernels",
+        elif rec.get("phase") in ("kernels", "kernels_bf16", "train_kernels",
                                   "tile_kernels", "attention_kernels",
                                   "attention_kernels_bf16",
                                   "train_kernels_bf16"):
@@ -159,19 +170,21 @@ def main() -> int:
                   label: len(hashes(key, label)) == 1
                   for label in ("old", "new")}
                  for key in ("fused_bits_bf16", "fwd_bits_bf16")},
-              # Against a checkout whose bf16 flash forward and fused
-              # backward already run bf16 tensor-core products and whose
-              # bf16 GNN backward pair does not yet: the f32 kernels, the
-              # bf16 flash kernels and the bf16 GNN forward keep their
-              # bits, the GNN backward pair regroups its sums (bf16
-              # products 16 deep), so its bits differ; each checkout
-              # repeats its own.
+              # Against a checkout whose bf16 flash kernels and bf16 GNN
+              # backward pair already run bf16 tensor-core products and
+              # whose bf16 GNN forward does not yet: every kernel keeps
+              # its bits on the same inputs. The GNN forward's tensor-core
+              # sums round as the reference's FMA chain does (the chain
+              # where a rounding midpoint is near; the f32 messages the
+              # chain), as the SIMT design's did, so its outputs stay the
+              # same; each checkout repeats its own.
               "expected": {"fused_bits_equal": True,
                            "fused_bits_equal_bf16": True,
                            "fwd_bits_equal_bf16": True,
                            "repeat_bf16": True,
                            "gnn_fwd_bits_equal_bf16": True,
-                           "gnn_bwd_bits_equal_bf16": False,
+                           "gnn_fwd_bits_repeat_bf16": True,
+                           "gnn_bwd_bits_equal_bf16": True,
                            "gnn_bwd_bits_repeat_bf16": True},
               "gnn_step_bits_equal": len({run["gnn_step_bits_sha256"]
                                           for run in runs}) == 1,
@@ -179,9 +192,10 @@ def main() -> int:
               == 1,
               "gnn_bwd_bits_equal_bf16": len(hashes("gnn_bwd_bits_bf16"))
               == 1,
-              "gnn_bwd_bits_repeat_bf16": {
-                  label: len(hashes("gnn_bwd_bits_bf16", label)) == 1
-                  for label in ("old", "new")}}
+              **{f"{key}_repeat_bf16": {
+                  label: len(hashes(f"{key}_bf16", label)) == 1
+                  for label in ("old", "new")}
+                 for key in ("gnn_fwd_bits", "gnn_bwd_bits")}}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -504,9 +504,9 @@ def test_bf16_backward_kernels_refuse_naming_a3b2():
 def test_bf16_gates_plans_and_costs():
     """The bf16 instances' host side: the persistent gate holds three row
     arrays (123 rows at H 128, against 184 at f32), the per-step plan
-    keeps fused_step_kernel's tiles with the 4 x 4 products, and the cost
-    counts h and the weights at 2 bytes and the bf16 x bf16 products at
-    the bf16 tensor-core rate."""
+    takes the bf16 backward's tiles (its tensor-core products), and the
+    cost counts h and the weights at 2 bytes and the bf16 x bf16 products
+    at the bf16 tensor-core rate."""
     def chain(rows, n):
         s = np.arange(rows - 1)
         return pt_band.build_band_adjacency(s, s + 1, np.ones(rows - 1, bool),
@@ -521,13 +521,13 @@ def test_bf16_gates_plans_and_costs():
     assert pt_fused.persistent_smem_bytes(chain(48, 256), 128, 1,
                                           torch.bfloat16) == 113_088
     for n in (1024, 8192, 16384):
-        f32 = pt_fused.step_plan(n, 128, 132)
+        bwd = pt_fused.step_plan(n, 128, 132, "fused_step_bwd_kernel_bf16")
         bf16 = pt_fused.step_plan(n, 128, 132, "fused_step_kernel_bf16")
-        assert bf16 == dict(f32, slab_rows=4, wide=False)
+        assert bf16 == bwd
+        rt = bf16["row_tile"]
         assert pt_fused.step_smem_bytes(
-            n, 128, 132, "fused_step_kernel_bf16", 1) == 4 * (
-                3 * 4 * 6 * 128 + 3 * bf16["row_tile"] * 132
-                + bf16["row_tile"])
+            n, 128, 132, "fused_step_kernel_bf16", 1) == (
+                2 * 6 * 16 * 136 * 2 + 8 * rt * 136 + 12 * rt + 28 * 128)
     adj = chain(48, 256)
     c32 = pt_fused.kernel_cost(adj, 128, 5, "persistent_fwd_kernel")
     c16 = pt_fused.kernel_cost(adj, 128, 5, "persistent_fwd_kernel_bf16")

@@ -1737,9 +1737,11 @@ def test_bf16_instances_match_plain_and_equal_the_scan(cuda, case,
 
 def test_bf16_geometry_and_occupancy_follow_the_host_plan(cuda):
     """The bf16 per-step instance's two passes take the plan
-    ``step_plan`` mirrors on this card; the persistent instance's launched
-    variant reports its occupancy (one block an SM: 96 gate accumulators
-    a thread)."""
+    ``step_plan`` mirrors on this card, the gate pass two blocks an SM;
+    the persistent instance runs one block a group (no cluster) and
+    reports its occupancy and shared memory, as
+    ``persistent_fwd_bf16_smem_bytes`` mirrors it: one block an SM, as
+    it is built (255 registers)."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     name = "fused_step_kernel_bf16"
     for case in ("serving", "flagship", "training"):
@@ -1752,12 +1754,16 @@ def test_bf16_geometry_and_occupancy_follow_the_host_plan(cuda):
         for p, key in ((0, "smem_bytes"), (1, "smem_bytes_pass1")):
             assert geo[key] == fused_gnn.step_smem_bytes(n, hidden,
                                                          geo["sms"], name, p)
-        assert geo["blocks_per_sm"] >= 1 and geo["blocks_per_sm_pass1"] >= 1
-        cluster = fused_gnn.persistent_cluster_size(adj, hidden, sms)
-        occ = fused_gnn.persistent_occupancy(
-            adj, hidden, "persistent_fwd_kernel_bf16", cluster)
-        assert occ["blocks_per_sm"] >= 1
-        assert (occ["active_clusters"] or 0) >= (cluster > 1)
+        assert geo["blocks_per_sm"] >= 2 and geo["blocks_per_sm_pass1"] == 2
+        assert fused_gnn.persistent_cluster_size(adj, hidden, sms,
+                                                 torch.bfloat16) == 1
+        for kernel in ("persistent_fwd_kernel_bf16",
+                       "persistent_fwd_hist_kernel_bf16"):
+            occ = fused_gnn.persistent_occupancy(adj, hidden, kernel)
+            smem = fused_gnn.persistent_fwd_bf16_smem_bytes(adj, hidden)
+            assert occ["smem_bytes"] == smem, (case, kernel)
+            assert occ["blocks_per_sm"] == 1, (case, kernel)
+            assert occ["active_clusters"] is None
 
 
 def test_bf16_over_gate_batch_serves_through_the_fused_instance(cuda):
@@ -1788,6 +1794,56 @@ def test_bf16_over_gate_batch_serves_through_the_fused_instance(cuda):
     with torch.inference_mode():
         want = cpu(batch.to("cpu"))
     torch.testing.assert_close(got.cpu(), want, **GNN_BF16_UNROLL_TOL)
+
+
+@pytest.mark.parametrize("f32_vals", [False, True])
+@pytest.mark.parametrize("sizes,n,tile,hidden", [
+    ([40, 33, 20], 128, 64, 36),   # H 36: k and the columns padded to 48
+    ([60, 50, 18], 128, 64, 100),  # H 100: padded to 112
+    ([123, 5], 256, 128, 128),     # the largest group the bf16 gate admits
+])
+def test_bf16_forward_mma_off_the_tile_and_at_the_gate(cuda, sizes, n, tile,
+                                                       hidden, f32_vals):
+    """The tensor-core forward at widths off the mma tile (k and the
+    product columns padded with zeros) and at the largest group the
+    unchanged bf16 gate admits (123 rows at H 128; 124 refused): the
+    per-step instance within a bf16 step of its plain version, the sweep
+    bit for bit its scan and within 5e-2 of its plain version, the hist
+    sweep bit for bit the scan's states, each kernel repeating its bits;
+    only the bf16 instances launch."""
+    adj = _graph_adj(sizes, n, tile).to(cuda)
+    if f32_vals:
+        adj = dataclasses.replace(adj, vals=adj.vals.float())
+    assert adj.max_group_rows == max(sizes)
+    assert fused_gnn.persistent_smem_ok(adj, hidden, torch.bfloat16)
+    if hidden == 128:
+        assert not fused_gnn.persistent_smem_ok(
+            _graph_adj([124, 5], n, tile), hidden, torch.bfloat16)
+    k = 5
+    params = _params(hidden, cuda, seed=6)
+    h = torch.randn(n, hidden, generator=torch.Generator().manual_seed(7)
+                    ).to(cuda).bfloat16()
+    fused_gnn.reset_launch_counts()
+    step = fused_gnn.fused_gate_step(params, h, adj)
+    torch.testing.assert_close(step.float(), fused_gnn.fused_step_reference(
+        params, h, adj).float(), **GNN_BF16_STEP_TOL)
+    assert torch.equal(fused_gnn.fused_gate_step(params, h, adj), step)
+    states = [h]
+    for _ in range(k):
+        states.append(fused_gnn.fused_gate_step(params, states[-1], adj))
+    out = fused_gnn.persistent_unroll(params, h, adj, k)
+    assert torch.equal(out, states[-1])
+    assert torch.equal(fused_gnn.persistent_unroll(params, h, adj, k), out)
+    torch.testing.assert_close(out.float(), fused_gnn.persistent_reference(
+        params, h, adj, k).float(), **GNN_BF16_UNROLL_TOL)
+    hist = fused_gnn.persistent_hist(params, h, adj, k)
+    assert torch.equal(hist, torch.stack(states[1:k]))
+    assert torch.equal(fused_gnn.persistent_hist(params, h, adj, k), hist)
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0), "fused_step_kernel_bf16": 2 + k,
+        "persistent_fwd_kernel_bf16": 2,
+        "persistent_fwd_hist_kernel_bf16": 2}
 
 
 @pytest.mark.parametrize("impl", ["persistent", "fused"])
@@ -2134,19 +2190,21 @@ def test_bf16_backward_pair_at_widths_off_the_mma_tile(cuda, hidden):
 
 def test_bf16_persistent_backward_occupancy(cuda):
     """The bf16 sweeps' launched instances report their occupancy: the
-    hist sweep as the bf16 forward (one block an SM, 2-block clusters at
-    serving), the reverse sweep two blocks an SM where its shared memory
+    hist sweep as the bf16 forward (one block a group), the reverse sweep
+    two blocks an SM where its shared memory
     lets it (groups of up to 48 rows at H 128; the training case's 60-row
     groups one), that memory as ``persistent_bwd_bf16_smem_bytes``
     mirrors it, within the gate's count of four f32 row arrays."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for case in ("serving", "training"):
         adj, hidden = _bf16_case(case, cuda)
-        cluster = fused_gnn.persistent_cluster_size(adj, hidden, sms)
+        assert fused_gnn.persistent_cluster_size(adj, hidden, sms,
+                                                 torch.bfloat16) == 1
         occ = fused_gnn.persistent_occupancy(
-            adj, hidden, "persistent_fwd_hist_kernel_bf16", cluster)
+            adj, hidden, "persistent_fwd_hist_kernel_bf16")
         assert occ["blocks_per_sm"] >= 1
-        assert (occ["active_clusters"] or 0) >= (cluster > 1)
+        assert occ["smem_bytes"] == fused_gnn.persistent_fwd_bf16_smem_bytes(
+            adj, hidden)
         occ = fused_gnn.persistent_occupancy(adj, hidden,
                                              "persistent_bwd_kernel_bf16")
         two = 2 * (occ["smem_bytes"] + 1024) <= 228 * 1024
