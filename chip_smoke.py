@@ -233,14 +233,17 @@ one:
    step at the tensor's scale, the elements apart counted),
    ``step_weight_grad_kernel_bf16`` over the 5 steps' cotangents against
    its plain version (1e-4 of each gradient's largest entry) and bit for
-   bit the fold of 5 one-step calls; the persistent lane's
+   bit the fold of 5 one-step calls, its one-step call (the fused lane's)
+   timed beside it, the instance's blocks an SM and shared memory held to
+   the host's mirror; the persistent lane's
    ``persistent_fwd_hist_kernel_bf16`` and ``persistent_bwd_kernel_bf16``
    against their plain versions (within 5e-2 of the element and of the
    tensor's scale over the 5 steps, the elements apart counted) and bit
    for bit the scans of the per-step instances (``scan_bits_equal``,
    timed beside them: ``scan_ms``);
-   ``tile_spmm_kernel_bf16`` over A and A^T against its plain
-   version; each run twice for its bits and timed beside its bound,
+   ``tile_spmm_kernel_bf16`` over A and A^T bit for bit its plain
+   version (on the CPU, where its sums run in list order); each run
+   twice for its bits and timed beside its bound,
    its plain version, the f32 kernel on the same inputs widened and its
    library call (the three products as stacked ``torch.mm`` at bf16;
    ``torch.sparse.mm`` on a bf16 CSR matrix; none for the gated steps).
@@ -1966,11 +1969,27 @@ def phase_train_kernels_bf16(model: FlowGNN) -> dict:
             _same_bits(f"{name}@{vals} vs the fold of one-step calls", grads,
                        fold)
             _same_bits(f"{name}@{vals} twice", wgrads(), grads)
+            # The instance this launch runs, held to the host's mirror.
+            geo = fused_gnn.wgrad_bf16_geometry(mdt == torch.bfloat16)
+            smem = fused_gnn.wgrad_bf16_smem_bytes(mdt == torch.bfloat16)
+            if geo["smem_bytes"] != smem or geo["blocks_per_sm"] < 1:
+                raise AssertionError(f"{name}@{vals}: geometry {geo}, the "
+                                     f"mirror's shared memory {smem}")
+            rows_per_split = fused_gnn.wgrad_bf16_rows_per_split(
+                h.shape[0], hidden)
             rec = dict(kernel=name, band_vals=vals, n_rows=h.shape[0],
                        max_abs_err=err, max_rel_err=rel, tol=dict(
                            rel=GRAD_TOL), fold_bits_equal=True,
-                       bits_repeat=True)
+                       bits_repeat=True, **geo,
+                       rows_per_split=rows_per_split,
+                       splits=-(-h.shape[0] // rows_per_split))
             if vals == "bf16":
+                # The fused lane's call: one step's sums (five a train
+                # step), timed beside the K-step call.
+                s0 = states[0].contiguous()
+                rec["one_step_ms"] = _time_ms(
+                    lambda: fused_gnn.step_weight_grads(
+                        s0, None, x[:1], dp[:1], dmsg[:1], 1, mdt), 10, 3)
                 # The yardstick: the three products as torch.mm at bf16
                 # (cuBLAS, bf16 out) over every step's rows stacked
                 # [K N, .], dpre rounded as the kernel rounds it, and the
@@ -2012,12 +2031,20 @@ def phase_train_kernels_bf16(model: FlowGNN) -> dict:
         lists = _training_batch(tmodel, device="cpu").tile_adj.to("cuda")
         msg = torch.randn(h.shape, generator=gen, device="cuda").bfloat16()
         recs = {}
-        for direction, a in (("A", lists), ("A^T", lists.transposed())):
+        cpu_lists, msg_cpu = lists.to("cpu"), msg.cpu()
+        for direction, a, a_cpu in (
+                ("A", lists, cpu_lists),
+                ("A^T", lists.transposed(), cpu_lists.transposed())):
             run = lambda: tile_spmm.tile_spmm(a, msg)
             got = run()
             diff = _check_bf16_bwd(f"{name}@{direction}", got,
                                    tile_spmm.tile_spmm_reference(a, msg))
             _same_bits(f"{name}@{direction} twice", [run()], [got])
+            # Its plain version sums each row in list order on the CPU
+            # (on the card index_add_ adds with atomics): bit for bit.
+            _same_bits(f"{name}@{direction} vs its plain version",
+                       [got.cpu()],
+                       [tile_spmm.tile_spmm_reference(a_cpu, msg_cpu)])
             n = a.n_rows
             try:
                 csr = torch.sparse_csr_tensor(a.ptr.long(), a.src.long(),
@@ -2031,7 +2058,8 @@ def phase_train_kernels_bf16(model: FlowGNN) -> dict:
                     f"none: torch.sparse.mm refuses a bf16 CSR matrix "
                     f"here ({str(exc).splitlines()[0][:120]})"])
             recs[direction] = dict(
-                over=direction, n_rows=n, bits_repeat=True, **diff,
+                over=direction, n_rows=n, bits_repeat=True,
+                plain_bits_equal=True, **diff,
                 **_bf16_record(
                     name, a, hidden, 1, run,
                     lambda: tile_spmm.tile_spmm_reference(a, msg),
@@ -4746,7 +4774,9 @@ def main() -> int:
                                        "blocks_per_sm_pass2", "smem_bytes",
                                        "smem_bytes_pass1", "smem_bytes_pass2",
                                        "f32_kernel_ms", "elements_differing",
-                                       "scan_bits_equal", "fold_bits_equal")
+                                       "scan_bits_equal", "fold_bits_equal",
+                                       "one_step_ms", "stages",
+                                       "rows_per_split", "plain_bits_equal")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -690,15 +690,10 @@ int launch_persistent_bwd(const void* h0, const void* hist, const void* vals,
 // group_aggregate sums a row's senders as tile_aggregate does), so the
 // sweep equals the scan of the per-step kernel bit for bit.
 //
-// The weight pass takes h, hist and x as bf16 and dp, dmsg as f32: each
-// block stages its L slabs as bf16 by cp.async and widens them (a bf16
-// value is a TF32 value: no low part), rounds its R slab to bf16 on load
-// (dp always, dmsg when the messages are bf16; no low part either), so
-// each product of two bf16 values is one exact TF32 mma.sync; dW_e with
-// f32 messages keeps an f32 R operand split in two (2xTF32: its L has no
-// low part). The bias columns sum the unrounded R values. Splits, the
-// step on the grid and step_weight_grad_reduce_kernel are the f32
-// pass's: a K-step call equals the fold of K one-step calls bit for bit.
+// The weight pass (step_weight_grad_kernel_bf16, its section below) runs
+// its products on the bf16 tensor cores too, on the f32 pass's grid and
+// fold (its own splits, from the row count and width alone): a K-step
+// call equals the fold of K one-step calls bit for bit.
 
 // Blocks an SM of the per-step passes and of the sweep (__launch_bounds__:
 // at most 128 registers a thread). With one weight stage (kRingStages)
@@ -1026,19 +1021,67 @@ int launch_persistent_bwd_bf16(const PersistBwdBf16Args& a, int n_groups,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row stride of a bf16 L slab: 136 values (272 bytes, 16-byte pieces).
-constexpr int kWLdB = kWTile + 8;
-// Shared memory: R slabs in two stages and the lo part, the widened L
-// slab, half of the bias sums, then the bf16 L slabs in two stages.
-constexpr size_t kWSmemBf16 =
-    sizeof(float) * (4 * kWSlab * kWLd + kWTile) +
-    sizeof(__nv_bfloat16) * 2 * kWSlab * kWLdB;
+// ---------------------------------------------------------------------------
+// step_weight_grad_kernel_bf16: the weight pass on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+//
+// Pass 1 of step_weight_grad_launch at bf16, for the sums of _bwd_kernel's
+// bf16 body (deepdfa_tpu/ops/fused_gnn.py:446-454) and of
+// _persist_bwd_kernel's (:854-895): dW_i = x^T bf16(dpre_i), dW_h = h^T
+// bf16(dpre_h), dW_e = h^T dmsg_c (dmsg rounded to bf16 when the messages
+// are bf16), f32 sums; the bias gradients sum the unrounded f32 columns.
+// L (h, hist, x) comes as bf16, R (dp, dmsg) as f32.
+//
+// What bounds it: bytes. At the training batch (N 16384, H 128, 5 steps)
+// its operands are 250 MB (0.075 ms at 3.35 TB/s; ops/fused_gnn.py:
+// kernel_cost), its products 18.8 GFLOP (0.019 ms at 989 TFLOP/s). The
+// block, grid and fold are the f32 pass's (one 128 x 128 output tile of
+// one gradient, one step, one split of the rows a block; 8 warps of 32 x
+// 64), so a K-step call equals the fold of K one-step calls bit for bit.
+// The design:
+// * Every product is one bf16 mma.sync.m16n8k16 a 16-deep k-slice (rows),
+//   f32 accumulators (bf16_mma.cuh: mma, ldsm4_t); each accumulator adds
+//   its k-slices in ascending row order over its split.
+// * L lands by cp.async as bf16 and is used as it lands: A(m, k) = L[k][m]
+//   read by ldmatrix.trans. A slab row is kW16Ld = 136 bf16 (272 bytes),
+//   so ldmatrix's 8 rows of 16 bytes hit 32 banks.
+// * R lands by cp.async as f32 in a stage of its own; each thread rounds
+//   the pieces it copied itself (4 floats, after its own wait_group: no
+//   barrier) into a bf16 slab, B(k, n) = R[k][n] by ldmatrix.trans, and
+//   sums the unrounded values into its 4 bias columns. With f32 messages
+//   dW_e's R is split three ways there (split3: x = x1 + x2 + x3 exactly,
+//   each part bf16; three mma.sync, the smallest part first), so each of
+//   its products is exact too.
+// * One barrier a slab: after it the slab's L and rounded R are whole,
+//   the stage of slab i - 1 is free for slab i + kS - 1 (kS - 1 slabs in
+//   flight) and the bf16 slab of i - 1 for i + 1 (double buffered).
+// * Splits: as many as one step's tiles can take within one block an SM
+//   (ops/fused_gnn.py:wgrad_bf16_rows_per_split, from the row count and
+//   width alone; 18 of 928 rows, 126 blocks a step at the training
+//   batch): a one-step call is one wave, a K-step call fills the two
+//   blocks an SM, and the f32 partials (read back by the fold) stay few.
+//   Measured against filling every resident block (37 splits) and 64-row
+//   slabs at one block an SM: scripts/torch_wgrad_bf16_layouts.py.
 
-// step_weight_grad_kernel at bf16: L (h, hist, x) bf16, R (dp, dmsg) f32,
-// rounded to bf16 on load where round_r (dp always; dmsg when round_msg).
-// vec: every row of L starts 16-byte aligned (H % 8 == 0) and of R too,
-// so the slabs copy in 16-byte pieces; else 4-byte ones (H % 4 == 0).
-__global__ void __launch_bounds__(kWThreads, 2)
+// The layout (scripts/torch_wgrad_bf16_layouts.py times the others, with
+// the mirrors WGRAD_BF16_* in ops/fused_gnn.py):
+constexpr int kW16Slab = 32;        // rows a slab: kW16Slab / 16 k-slices
+constexpr int kW16Stages = 3;       // the cp.async ring's slab stages
+constexpr int kW16SplitStages = 2;  // with f32 messages (three R parts)
+constexpr int kW16Blocks = 2;       // blocks an SM (__launch_bounds__)
+constexpr int kW16Ld = kWTile + 8;  // a bf16 slab row: 272 bytes
+// R pieces (4 floats) a thread copies and rounds a slab.
+constexpr int kW16Pieces = kW16Slab * kWTile / 4 / kWThreads;
+
+// Dynamic shared memory of the instance with kS stages and kP R parts:
+// the f32 R stages, the bf16 L stages, two bf16 R slabs of kP parts.
+__host__ __device__ constexpr size_t wgrad_bf16_smem(int kS, int kP) {
+  return static_cast<size_t>(kS) * kW16Slab * (kWTile * 4 + kW16Ld * 2) +
+         2 * static_cast<size_t>(kP) * kW16Slab * kW16Ld * 2;
+}
+
+template <int kS, int kP>
+__global__ void __launch_bounds__(kWThreads, kW16Blocks)
     step_weight_grad_kernel_bf16(const __nv_bfloat16* __restrict__ h0,
                                  const __nv_bfloat16* __restrict__ hist,
                                  const __nv_bfloat16* __restrict__ xbuf,
@@ -1046,16 +1089,15 @@ __global__ void __launch_bounds__(kWThreads, 2)
                                  const float* __restrict__ dmsgbuf,
                                  float* __restrict__ partial, int n_rows,
                                  int H, int n_steps, int rows_per_split,
-                                 int round_msg, int vec) {
+                                 int vec) {
   extern __shared__ __align__(16) float wsmem[];
-  float* Rs = wsmem;                    // [2][kWSlab * kWLd]
-  float* Rlo = Rs + 2 * kWSlab * kWLd;  // [kWSlab * kWLd]
-  float* Lw = Rlo + kWSlab * kWLd;      // [kWSlab * kWLd] L widened
-  float* bias_s = Lw + kWSlab * kWLd;   // [kWTile]
-  __nv_bfloat16* Lb =
-      reinterpret_cast<__nv_bfloat16*>(bias_s + kWTile);  // [2][slab]
+  float* Rf = wsmem;  // [kS][kW16Slab][kWTile] f32
+  __nv_bfloat16* Lb = reinterpret_cast<__nv_bfloat16*>(
+      Rf + kS * kW16Slab * kWTile);          // [kS][kW16Slab][kW16Ld]
+  __nv_bfloat16* Rb = Lb + kS * kW16Slab * kW16Ld;  // [2][kP][..]
+  constexpr int kSlabB = kW16Slab * kW16Ld;  // elements of a bf16 slab
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int g = lane >> 2, t4 = lane & 3, q = lane >> 3;
   const int tiles_a = (H + kWTile - 1) / kWTile;
   const int tiles_g = tiles_a * ((3 * H + kWTile - 1) / kWTile);
   int tile = blockIdx.x, prod;
@@ -1070,7 +1112,8 @@ __global__ void __launch_bounds__(kWThreads, 2)
   }
   const int s = blockIdx.z;
   const int width = prod == 2 ? H : 3 * H;
-  const bool round_r = prod != 2 || round_msg;  // R exact in TF32: no lo
+  // The instance with three R parts runs for f32 messages: dW_e splits.
+  const bool split = kP == 3 && prod == 2;
   const int a0 = (tile % tiles_a) * kWTile, b0 = (tile / tiles_a) * kWTile;
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(n_rows, r_begin + rows_per_split);
@@ -1081,35 +1124,71 @@ __global__ void __launch_bounds__(kWThreads, 2)
   const int rstride = prod == 2 ? H : 4 * H;
   // dpre_h's n block (prod 1) is dpre_hn, stored H columns on.
   auto rcol = [&](int b) { return (prod == 1 && b >= 2 * H) ? b + H : b; };
+  // This thread's R pieces: rows warp + 8 p, columns 4 lane .. 4 lane + 3.
+  const int pc = 4 * lane;
 
-  // Slab i (rows r_begin + 32 i ..) into stage st, zeros past r_end, H or
-  // width; not waited for.
+  // Slab i (rows r_begin + kW16Slab i ..) into stage st, zeros past r_end,
+  // H or width; not waited for.
   auto issue = [&](int i, int st) {
-    const int r0 = r_begin + i * kWSlab;
-    __nv_bfloat16* ld = Lb + st * kWSlab * kWLdB;
-    float* rd = Rs + st * kWSlab * kWLd;
-    const int lv = vec ? 8 : 2, rv = vec ? 4 : 1;  // values a piece
-    for (int e = tid; e < kWSlab * kWTile / lv; e += kWThreads) {
+    const int r0 = r_begin + i * kW16Slab;
+    __nv_bfloat16* ld = Lb + st * kSlabB;
+    float* rd = Rf + st * kW16Slab * kWTile;
+    const int lv = vec ? 8 : 2;  // L values a piece: 16 or 4 bytes
+    for (int e = tid; e < kW16Slab * kWTile / lv; e += kWThreads) {
       const int rr = e / (kWTile / lv), c = (e % (kWTile / lv)) * lv;
-      const size_t row = static_cast<size_t>(r0 + rr);
-      const bool in_l = r0 + rr < r_end && a0 + c < H;
-      float* dst = reinterpret_cast<float*>(ld + rr * kWLdB + c);
+      const bool in = r0 + rr < r_end && a0 + c < H;
+      float* dst = reinterpret_cast<float*>(ld + rr * kW16Ld + c);
       const float* src = reinterpret_cast<const float*>(
-          in_l ? L + row * H + a0 + c : L);
+          in ? L + static_cast<size_t>(r0 + rr) * H + a0 + c : L);
       if (vec)
-        cp_async16(dst, src, in_l);
+        cp_async16(dst, src, in);
       else
-        cp_async4(dst, src, in_l);
+        cp_async4(dst, src, in);
     }
-    for (int e = tid; e < kWSlab * kWTile / rv; e += kWThreads) {
-      const int rr = e / (kWTile / rv), c = (e % (kWTile / rv)) * rv;
-      const size_t row = static_cast<size_t>(r0 + rr);
-      const bool in_b = r0 + rr < r_end && b0 + c < width;
-      const float* src = in_b ? Rm + row * rstride + rcol(b0 + c) : Rm;
-      if (vec)
-        cp_async16(rd + rr * kWLd + c, src, in_b);
-      else
-        cp_async4(rd + rr * kWLd + c, src, in_b);
+#pragma unroll
+    for (int p = 0; p < kW16Pieces; ++p) {
+      const int rr = warp + p * (kWThreads / 32);
+      const size_t row = static_cast<size_t>(r0 + rr) * rstride;
+      const bool in_r = r0 + rr < r_end;
+      float* dst = rd + rr * kWTile + pc;
+      if (vec) {
+        const bool in = in_r && b0 + pc < width;
+        cp_async16(dst, in ? Rm + row + rcol(b0 + pc) : Rm, in);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = in_r && b0 + pc + j < width;
+          cp_async4(dst + j, in ? Rm + row + rcol(b0 + pc + j) : Rm, in);
+        }
+      }
+    }
+  };
+
+  // Slab i's R, this thread's pieces, rounded (or split) into bf16 slab
+  // buf; the unrounded values into the bias sums.
+  float bias[4] = {0.f, 0.f, 0.f, 0.f};
+  auto convert = [&](int st, int buf) {
+    const float* rs = Rf + st * kW16Slab * kWTile;
+    __nv_bfloat16* rb = Rb + buf * kP * kSlabB;
+#pragma unroll
+    for (int p = 0; p < kW16Pieces; ++p) {
+      const int rr = warp + p * (kWThreads / 32);
+      const float4 v = *reinterpret_cast<const float4*>(rs + rr * kWTile + pc);
+      bias[0] += v.x;
+      bias[1] += v.y;
+      bias[2] += v.z;
+      bias[3] += v.w;
+      uint2* d = reinterpret_cast<uint2*>(rb + rr * kW16Ld + pc);
+      if (split) {
+        uint32_t x0, x1, x2, y0, y1, y2;
+        bf16mma::split3(v.x, v.y, x0, x1, x2);
+        bf16mma::split3(v.z, v.w, y0, y1, y2);
+        d[0] = make_uint2(x0, y0);
+        d[kSlabB / 4] = make_uint2(x1, y1);
+        d[2 * (kSlabB / 4)] = make_uint2(x2, y2);
+      } else {
+        d[0] = make_uint2(bf16mma::pack(v.x, v.y), bf16mma::pack(v.z, v.w));
+      }
     }
   };
 
@@ -1120,83 +1199,130 @@ __global__ void __launch_bounds__(kWThreads, 2)
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
-  const int bc = tid & (kWTile - 1), brow = tid >> 7;
-  float bias = 0.f;
   const int wa = (warp >> 1) * 32, wb = (warp & 1) * 64;
-  const int n_slabs = (r_end - r_begin + kWSlab - 1) / kWSlab;
-  if (n_slabs > 0) issue(0, 0);
-  cp_async_commit();
-  for (int i = 0; i < n_slabs; ++i) {
-    const int st = i & 1;
-    cp_async_wait_all();
-    __syncthreads();  // slab i landed; stage st ^ 1, Lw and Rlo free
-    if (i + 1 < n_slabs) issue(i + 1, st ^ 1);  // overlaps this slab's work
-    cp_async_commit();
-    const __nv_bfloat16* lb = Lb + st * kWSlab * kWLdB;
-    float* rh = Rs + st * kWSlab * kWLd;
-    for (int rr = brow; rr < kWSlab; rr += 2) {
-      const int e = rr * kWLd + bc;
-      Lw[e] = __bfloat162float(lb[rr * kWLdB + bc]);
-      const float rv = rh[e];
-      bias += rv;
-      if (round_r) {
-        rh[e] = round_bf16(rv);
-      } else {
-        uint32_t hi, lo;
-        tf32x3::split(rv, hi, lo);
-        rh[e] = __uint_as_float(hi);
-        Rlo[e] = __uint_as_float(lo);
-      }
-    }
-    __syncthreads();
+  // ldmatrix addresses: lane l gives row l % 8 of matrix q = l / 8; A
+  // takes matrices (m +8 q & 1, k +8 q >> 1), B (k +8 q & 1, n +8 q >> 1).
+  const int a_frag =
+      (((q >> 1) << 3) + (lane & 7)) * kW16Ld + wa + ((q & 1) << 3);
+  const int b_frag =
+      (((q & 1) << 3) + (lane & 7)) * kW16Ld + wb + ((q >> 1) << 3);
+
+  // Slab i's products: 16-deep k-slices in row order.
+  auto products = [&](int st, int buf) {
+    const __nv_bfloat16* lb = Lb + st * kSlabB + a_frag;
+    const __nv_bfloat16* rb = Rb + buf * kP * kSlabB + b_frag;
 #pragma unroll
-    for (int kc = 0; kc < kWSlab / 8; ++kc) {
-      uint32_t ahi[2][4];
+    for (int kk = 0; kk < kW16Slab / 16; ++kk) {
+      uint32_t a[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
+        bf16mma::ldsm4_t(a[mi], lb + 16 * kk * kW16Ld + 16 * mi);
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          ahi[mi][u] = __float_as_uint(
-              Lw[(8 * kc + t4 + 4 * (u >> 1)) * kWLd + wa + 16 * mi + g +
-                 8 * (u & 1)]);
+      for (int jp = 0; jp < 4; ++jp) {
+        const __nv_bfloat16* bp = rb + 16 * kk * kW16Ld + 16 * jp;
+        if (split) {
+          uint32_t b[3][4];
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj) {
-        uint32_t bhi[2], blo[2];
+          for (int part = 0; part < 3; ++part)
+            bf16mma::ldsm4_t(b[part], bp + part * kSlabB);
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int e = (8 * kc + t4 + 4 * u) * kWLd + wb + 8 * nj + g;
-          bhi[u] = __float_as_uint(rh[e]);
-          blo[u] = round_r ? 0u : __float_as_uint(Rlo[e]);
-        }
+          for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          // The small term first, as mma3 (L has no low part).
-          if (!round_r) tf32x3::mma(acc[mi][nj], ahi[mi], blo);
-          tf32x3::mma(acc[mi][nj], ahi[mi], bhi);
+            for (int part = 2; part >= 0; --part) {
+              bf16mma::mma(acc[mi][2 * jp], a[mi], b[part][0], b[part][1]);
+              bf16mma::mma(acc[mi][2 * jp + 1], a[mi], b[part][2],
+                           b[part][3]);
+            }
+        } else {
+          uint32_t b[4];
+          bf16mma::ldsm4_t(b, bp);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            bf16mma::mma(acc[mi][2 * jp], a[mi], b[0], b[1]);
+            bf16mma::mma(acc[mi][2 * jp + 1], a[mi], b[2], b[3]);
+          }
         }
       }
     }
+  };
+
+  const int n_slabs = (r_end - r_begin + kW16Slab - 1) / kW16Slab;
+#pragma unroll
+  for (int i = 0; i < kS - 1; ++i) {
+    if (i < n_slabs) issue(i, i);
+    cp_async_commit();
   }
+  for (int i = 0; i < n_slabs; ++i) {
+    cp_async_wait_group<kS - 2>();  // this thread's copies of slab i
+    convert(i % kS, i & 1);
+    __syncthreads();  // slab i whole; stage (i - 1) % kS free
+    if (i + kS - 1 < n_slabs) issue(i + kS - 1, (i + kS - 1) % kS);
+    cp_async_commit();
+    products(i % kS, i & 1);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp's products done: the R stages are free
+
   const size_t n_out = 7 * static_cast<size_t>(H) * H + 7 * H;
   const size_t w_off = static_cast<size_t>(prod) * 3 * H * H;
   const size_t b_off = 7 * static_cast<size_t>(H) * H + prod * 3 * H;
   float* out =
       partial + (static_cast<size_t>(blockIdx.y) * n_steps + s) * n_out;
+  // Columns b, b + 1 of rows a, a + 8 (H % 4 == 0: both or neither).
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int a = a0 + wa + 16 * mi + g + 8 * (i >> 1);
-        const int b = b0 + wb + 8 * nj + 2 * t4 + (i & 1);
-        if (a < H && b < width)
-          out[w_off + static_cast<size_t>(a) * width + b] = acc[mi][nj][i];
-      }
-  if (brow == 1) bias_s[bc] = bias;
+    for (int nj = 0; nj < 8; ++nj) {
+      const int a = a0 + wa + 16 * mi + g;
+      const int b = b0 + wb + 8 * nj + 2 * t4;
+      if (b >= width) continue;
+      if (a < H)
+        *reinterpret_cast<float2*>(out + w_off + static_cast<size_t>(a) *
+                                                     width + b) =
+            make_float2(acc[mi][nj][0], acc[mi][nj][1]);
+      if (a + 8 < H)
+        *reinterpret_cast<float2*>(out + w_off + static_cast<size_t>(a + 8) *
+                                                     width + b) =
+            make_float2(acc[mi][nj][2], acc[mi][nj][3]);
+    }
+  // The bias: each warp's rows' sums, added in warp order.
+  float* bias_s = Rf;  // [kWThreads / 32][kWTile]
+  *reinterpret_cast<float4*>(bias_s + warp * kWTile + pc) =
+      make_float4(bias[0], bias[1], bias[2], bias[3]);
   __syncthreads();
-  if (a0 == 0 && brow == 0 && b0 + bc < width)
-    out[b_off + b0 + bc] = bias + bias_s[bc];
+  if (a0 == 0 && tid < kWTile && b0 + tid < width) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWThreads / 32; ++w) sum += bias_s[w * kWTile + tid];
+    out[b_off + b0 + tid] = sum;
+  }
+}
+
+// Launches step_weight_grad_kernel_bf16's instance with kS stages and kP
+// R parts over grid, or (blocks != nullptr) queries the blocks of it one
+// SM holds.
+template <int kS, int kP>
+int launch_wgrad_bf16(const void* h0, const void* hist, const void* x,
+                      const void* dp, const void* dmsg, void* partial,
+                      int n_rows, int hidden, int n_steps, int rows_per_split,
+                      int vec, dim3 grid, cudaStream_t st,
+                      int* blocks = nullptr) {
+  const auto kernel = step_weight_grad_kernel_bf16<kS, kP>;
+  const size_t smem = wgrad_bf16_smem(kS, kP);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, kWThreads, smem));
+  kernel<<<grid, kWThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(h0),
+      static_cast<const __nv_bfloat16*>(hist),
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dp),
+      static_cast<const float*>(dmsg), static_cast<float*>(partial), n_rows,
+      hidden, n_steps, rows_per_split, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1432,7 +1558,8 @@ int fused_step_bwd_bf16_geometry(int vals_bf16, int n_rows, int hidden,
 
 // step_weight_grad_launch at bf16 (step_weight_grad_kernel_bf16): h0,
 // hist and x bf16, dp and dmsg f32 (rounded to bf16 on load: dp always,
-// dmsg when round_msg); the gradients and partial f32, as there.
+// dmsg when round_msg; split three ways when not); the gradients and
+// partial f32, as there. rows_per_split: a multiple of kW16Slab.
 int step_weight_grad_bf16_launch(const void* h0, const void* hist,
                                  const void* x, const void* dp,
                                  const void* dmsg, int round_msg, int n_rows,
@@ -1441,29 +1568,24 @@ int step_weight_grad_bf16_launch(const void* h0, const void* hist,
                                  void* dwi, void* dbi, void* dwh, void* dbh,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows_per_split <= 0 || rows_per_split % kWSlab || hidden % 4)
+  if (rows_per_split <= 0 || rows_per_split % kW16Slab || hidden % 4)
     return 1;  // invalid value
   const void* rows[] = {h0, hist, x, dp, dmsg};
   int vec = hidden % 8 == 0;
   for (const void* p : rows)
     vec &= reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      step_weight_grad_kernel_bf16,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kWSmemBf16));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_a = (hidden + kWTile - 1) / kWTile;
   const dim3 grid(tiles_a * (2 * ((3 * hidden + kWTile - 1) / kWTile) +
                              (hidden + kWTile - 1) / kWTile),
                   (n_rows + rows_per_split - 1) / rows_per_split, n_steps);
-  step_weight_grad_kernel_bf16<<<grid, kWThreads, kWSmemBf16, st>>>(
-      static_cast<const __nv_bfloat16*>(h0),
-      static_cast<const __nv_bfloat16*>(hist),
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dp),
-      static_cast<const float*>(dmsg), static_cast<float*>(partial), n_rows,
-      hidden, n_steps, rows_per_split, round_msg, vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  int e = round_msg
+              ? launch_wgrad_bf16<kW16Stages, 1>(
+                    h0, hist, x, dp, dmsg, partial, n_rows, hidden, n_steps,
+                    rows_per_split, vec, grid, st)
+              : launch_wgrad_bf16<kW16SplitStages, 3>(
+                    h0, hist, x, dp, dmsg, partial, n_rows, hidden, n_steps,
+                    rows_per_split, vec, grid, st);
+  if (e != 0) return e;
   const long long n_out = 7LL * hidden * hidden + 7LL * hidden;
   step_weight_grad_reduce_kernel<<<static_cast<int>((n_out + 255) / 256), 256,
                                    0, st>>>(
@@ -1472,6 +1594,26 @@ int step_weight_grad_bf16_launch(const void* h0, const void* hist,
       static_cast<float*>(dbi), static_cast<float*>(dwh),
       static_cast<float*>(dbh), hidden, n_steps, static_cast<int>(grid.y));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance step_weight_grad_bf16_launch runs for round_msg: the blocks
+// of it one SM holds, its blocks' dynamic shared memory, the rows of a
+// slab and the stages of its ring.
+int step_weight_grad_bf16_geometry(int round_msg, int* blocks_per_sm,
+                                   int* smem_bytes, int* slab_rows,
+                                   int* stages) {
+  *slab_rows = kW16Slab;
+  *stages = round_msg ? kW16Stages : kW16SplitStages;
+  *smem_bytes = static_cast<int>(round_msg ? wgrad_bf16_smem(kW16Stages, 1)
+                                           : wgrad_bf16_smem(kW16SplitStages,
+                                                             3));
+  const dim3 none(1, 1, 1);
+  return round_msg ? launch_wgrad_bf16<kW16Stages, 1>(
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         0, 0, 0, 0, 0, none, 0, blocks_per_sm)
+                   : launch_wgrad_bf16<kW16SplitStages, 3>(
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         0, 0, 0, 0, 0, none, 0, blocks_per_sm);
 }
 
 // The bf16 reverse sweep (persistent_bwd_kernel_bf16) of n_steps steps in

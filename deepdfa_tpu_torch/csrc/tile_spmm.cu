@@ -45,16 +45,29 @@
 //                  is exact in f32 (or, for a multiplicity that is not
 //                  bf16-exact, the f32 product the reference takes), the
 //                  sums are f32 and the output is rounded once to bf16.
-//                  The same warp-per-row walk in list order, msg read as
-//                  4 bf16 values (8 bytes) a lane and widened, the output
-//                  stored as 4 bf16 values a lane. Half the bytes of the
-//                  f32 kernel's msg rows and output: bound by bytes
-//                  (kernel_cost at 2 bytes a bf16 element).
+//                  Half the bytes of the f32 kernel's msg rows and
+//                  output: bound by bytes (kernel_cost at 2 bytes a bf16
+//                  element). Its rows hold under one nonzero each on
+//                  average, so a row's work is two ptr reads, a pair or
+//                  none and one output row: the launch and the issue of
+//                  many near-empty rows, not the bytes, set its time. So
+//                  a row takes a group of lanes, as few as its width
+//                  needs at 8 bf16 values (16 bytes) a lane (H 128: 16
+//                  lanes, two rows a warp, 16 rows a block, one wave of
+//                  blocks at the training batch); the warp's row pointers
+//                  come in one load, its rows' (src, val) pairs, which
+//                  are contiguous in the lists, in one more (32 at a
+//                  time), and each group takes its row's pairs from their
+//                  lanes by shuffles. The sum is the f32 kernel's: list
+//                  order, f32 FMAs, one rounding, so the output is its
+//                  plain version's bit for bit.
+//                  Widths that are no multiple of 8, or unaligned rows,
+//                  take 4 values (8 bytes) or one a lane, 32 lanes a row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <stdint.h>
 
 namespace {
 
@@ -85,29 +98,60 @@ struct Vec<1> {
   __device__ static T pack(const float* acc) { return acc[0]; }
 };
 
-// bf16 rows: 4 values (8 bytes) a lane, widened (exact); the sums
-// rounded once (nearest even) on the way out.
-struct Bf16x4 {
+// bf16 rows: VEC values a lane (8: 16 bytes, 4: 8 bytes, or 1), widened
+// (exact); the sums rounded once (nearest even) on the way out.
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t bf16_pair(float x0, float x1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int VEC>
+struct Bf16Vec;
+template <>
+struct Bf16Vec<8> {
+  using T = uint4;
+  __device__ static T load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static void fma(float v, T m, float* acc) {
+    const uint32_t w[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      acc[2 * q] = fmaf(v, bf16_lo(w[q]), acc[2 * q]);
+      acc[2 * q + 1] = fmaf(v, bf16_hi(w[q]), acc[2 * q + 1]);
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* acc) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(bf16_pair(acc[0], acc[1]), bf16_pair(acc[2], acc[3]),
+                   bf16_pair(acc[4], acc[5]), bf16_pair(acc[6], acc[7]));
+  }
+};
+template <>
+struct Bf16Vec<4> {
   using T = uint2;
   __device__ static T load(const __nv_bfloat16* p) {
     return __ldg(reinterpret_cast<const uint2*>(p));
   }
   __device__ static void fma(float v, T m, float* acc) {
-    acc[0] = fmaf(v, __uint_as_float(m.x << 16), acc[0]);
-    acc[1] = fmaf(v, __uint_as_float(m.x & 0xffff0000u), acc[1]);
-    acc[2] = fmaf(v, __uint_as_float(m.y << 16), acc[2]);
-    acc[3] = fmaf(v, __uint_as_float(m.y & 0xffff0000u), acc[3]);
+    acc[0] = fmaf(v, bf16_lo(m.x), acc[0]);
+    acc[1] = fmaf(v, bf16_hi(m.x), acc[1]);
+    acc[2] = fmaf(v, bf16_lo(m.y), acc[2]);
+    acc[3] = fmaf(v, bf16_hi(m.y), acc[3]);
   }
   __device__ static void store(__nv_bfloat16* p, const float* acc) {
-    uint2 u;
-    *reinterpret_cast<__nv_bfloat162*>(&u.x) =
-        __floats2bfloat162_rn(acc[0], acc[1]);
-    *reinterpret_cast<__nv_bfloat162*>(&u.y) =
-        __floats2bfloat162_rn(acc[2], acc[3]);
-    *reinterpret_cast<uint2*>(p) = u;
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bf16_pair(acc[0], acc[1]), bf16_pair(acc[2], acc[3]));
   }
 };
-struct Bf16x1 {
+template <>
+struct Bf16Vec<1> {
   using T = float;
   __device__ static T load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
@@ -119,6 +163,14 @@ struct Bf16x1 {
     *p = __float2bfloat16_rn(acc[0]);
   }
 };
+
+// tile_spmm_kernel_bf16's layout (scripts/torch_wgrad_bf16_layouts.py
+// times others): row sets a warp takes (each 32 / lanes rows), threads a
+// block.
+constexpr int kRowSets = 1;
+constexpr int kBf16Threads = 256;
+constexpr int kBf16Warps = kBf16Threads / 32;
+static_assert(kRowSets >= 1 && kRowSets <= 16, "a warp's rows: at most 16");
 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -161,44 +213,91 @@ __global__ void __launch_bounds__(kThreads)
         Vec<VEC>::pack(acc);
 }
 
-// The bf16 instance: as tile_spmm_kernel, bf16 msg and out, VEC values a
-// lane (Bf16x4 or Bf16x1).
+// The bf16 instance: bf16 msg and out, VEC values a lane (Bf16Vec), a
+// group of 2^lanes_log2 lanes a row (2..32), 32 >> lanes_log2 rows a set,
+// kRowSets sets a warp; blockIdx.y picks the columns. The warp's rows'
+// pairs are contiguous in the lists: it loads them 32 at a time, one a
+// lane, and each group takes its row's from their lanes by shuffles; the
+// sets' msg rows load together before their FMAs.
 template <int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBf16Threads)
     tile_spmm_kernel_bf16(const int* __restrict__ ptr,
                           const int* __restrict__ src,
                           const float* __restrict__ val,
                           const __nv_bfloat16* __restrict__ msg,
                           __nv_bfloat16* __restrict__ out, int n_rows,
-                          int hidden) {
-  using B = typename std::conditional<VEC == 4, Bf16x4, Bf16x1>::type;
+                          int hidden, int lanes_log2) {
+  using B = Bf16Vec<VEC>;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lanes = 1 << lanes_log2, per_set = 32 >> lanes_log2;
   const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (r >= n_rows) return;  // the whole warp: no block-wide barrier below
-  const int col = (blockIdx.y * 32 + lane) * VEC;
-  const bool live = col < hidden;  // VEC 4 needs hidden % 4 == 0
-  float acc[VEC];
+  const int w0 =
+      (blockIdx.x * kBf16Warps + threadIdx.x / 32) * kRowSets * per_set;
+  if (w0 >= n_rows) return;  // the whole warp: no block-wide barrier below
+  // The warp's row pointers, ptr[w0 + j] in lane j (j <= its rows).
+  const int rows = min(kRowSets * per_set, n_rows - w0);
+  const int pj = lane <= rows ? ptr[w0 + lane] : 0;
+  const int base = __shfl_sync(kAll, pj, 0);
+  const int total = __shfl_sync(kAll, pj, rows) - base;
+  const int col = (blockIdx.y * lanes + (lane & (lanes - 1))) * VEC;
+  // Each set's row: its pairs [b, e) counted from base.
+  int b[kRowSets], e[kRowSets];
+  bool live[kRowSets];
 #pragma unroll
-  for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
-
-  const int begin = ptr[r], end = ptr[r + 1];
-  for (int e0 = begin; e0 < end; e0 += 32) {
-    const int n = min(32, end - e0);
+  for (int set = 0; set < kRowSets; ++set) {
+    const int j = set * per_set + (lane >> lanes_log2);
+    b[set] = __shfl_sync(kAll, pj, j) - base;
+    e[set] = __shfl_sync(kAll, pj, j + 1) - base;
+    live[set] = j < rows && col < hidden;  // VEC 4, 8: H % VEC == 0
+    if (j >= rows) e[set] = b[set];
+  }
+  float acc[kRowSets][VEC];
+#pragma unroll
+  for (int set = 0; set < kRowSets; ++set)
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[set][q] = 0.f;
+  for (int c0 = 0; c0 < total; c0 += 32) {
     int s_lane = 0;
     float v_lane = 0.f;
-    if (lane < n) {
-      s_lane = src[e0 + lane];
-      v_lane = val[e0 + lane];
+    if (c0 + lane < total) {
+      s_lane = src[base + c0 + lane];
+      v_lane = val[base + c0 + lane];
     }
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const int s = __shfl_sync(0xffffffffu, s_lane, j);
-      const float v = __shfl_sync(0xffffffffu, v_lane, j);
-      if (live)
-        B::fma(v, B::load(msg + static_cast<size_t>(s) * hidden + col), acc);
+    // Each set's pairs in this chunk: lanes lo .. lo + cnt - 1.
+    int lo[kRowSets], cnt[kRowSets], most = 0;
+#pragma unroll
+    for (int set = 0; set < kRowSets; ++set) {
+      lo[set] = max(b[set], c0) - c0;
+      cnt[set] = max(0, min(e[set], c0 + 32) - c0 - lo[set]);
+      most = max(most, cnt[set]);
+    }
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1)
+      most = max(most, __shfl_xor_sync(kAll, most, o));
+    for (int k = 0; k < most; ++k) {
+      typename B::T m[kRowSets];
+      float v[kRowSets];
+      bool on[kRowSets];
+#pragma unroll
+      for (int set = 0; set < kRowSets; ++set) {
+        const int idx = min(lo[set] + k, 31);
+        const int s = __shfl_sync(kAll, s_lane, idx);
+        v[set] = __shfl_sync(kAll, v_lane, idx);
+        on[set] = live[set] && k < cnt[set];
+        if (on[set])
+          m[set] = B::load(msg + static_cast<size_t>(s) * hidden + col);
+      }
+#pragma unroll
+      for (int set = 0; set < kRowSets; ++set)
+        if (on[set]) B::fma(v[set], m[set], acc[set]);
     }
   }
-  if (live) B::store(out + static_cast<size_t>(r) * hidden + col, acc);
+#pragma unroll
+  for (int set = 0; set < kRowSets; ++set)
+    if (live[set]) {
+      const int r = w0 + set * per_set + (lane >> lanes_log2);
+      B::store(out + static_cast<size_t>(r) * hidden + col, acc[set]);
+    }
 }
 
 }  // namespace
@@ -245,17 +344,30 @@ int tile_spmm_bf16_launch(const void* ptr, const void* src, const void* val,
   const float* v = static_cast<const float*>(val);
   const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(msg);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  const bool vec4 = hidden % 4 == 0 &&
-                    reinterpret_cast<size_t>(msg) % 8 == 0 &&
-                    reinterpret_cast<size_t>(out) % 8 == 0;
-  const int cols = vec4 ? 128 : 32;  // H columns a warp covers
-  const dim3 grid((n_rows + kWarps - 1) / kWarps, (hidden + cols - 1) / cols);
-  if (vec4)
-    tile_spmm_kernel_bf16<4><<<grid, kThreads, 0, st>>>(
-        p, s, v, m, o, n_rows, hidden);
-  else
-    tile_spmm_kernel_bf16<1><<<grid, kThreads, 0, st>>>(
-        p, s, v, m, o, n_rows, hidden);
+  auto aligned = [&](size_t a) {
+    return reinterpret_cast<size_t>(msg) % a == 0 &&
+           reinterpret_cast<size_t>(out) % a == 0;
+  };
+  const int vec = hidden % 8 == 0 && aligned(16)  ? 8
+                  : hidden % 4 == 0 && aligned(8) ? 4
+                                                  : 1;
+  // Lanes a row: 16-byte lanes as few as cover H, else 32; enough that a
+  // warp's rows are at most 16 (their 17 pointers in one load).
+  int lanes_log2 = 5;
+  if (vec == 8) {
+    lanes_log2 = 1;
+    while (lanes_log2 < 5 && ((8 << lanes_log2) < hidden ||
+                              kRowSets * (32 >> lanes_log2) > 16))
+      ++lanes_log2;
+  }
+  const int rows = kBf16Warps * kRowSets * (32 >> lanes_log2);  // a block
+  const int cols = vec << lanes_log2;  // H columns a group covers
+  const dim3 grid((n_rows + rows - 1) / rows, (hidden + cols - 1) / cols);
+  const auto kernel = vec == 8   ? tile_spmm_kernel_bf16<8>
+                      : vec == 4 ? tile_spmm_kernel_bf16<4>
+                                 : tile_spmm_kernel_bf16<1>;
+  kernel<<<grid, kBf16Threads, 0, st>>>(p, s, v, m, o, n_rows, hidden,
+                                        lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -149,6 +149,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "step_weight_grad_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P, _P, _P, _P, _P, _P, _P,
                                          _P],
+        # round_msg, blocks_per_sm, smem_bytes, slab_rows, stages (int
+        # outs)
+        "step_weight_grad_bf16_geometry": [_I, _P, _P, _P, _P],
         # as persistent_bwd_launch (h0, hist, g, x, dh bf16)
         "persistent_bwd_bf16_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _P, _I, _I,

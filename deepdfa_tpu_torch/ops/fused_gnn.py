@@ -36,8 +36,10 @@ on bf16 ``h``, with it), counted apart (``launches_bf16``), their
 products on the bf16 tensor cores (``csrc/gnn_bf16_mma.cuh``). The fused
 lane's backward has its bf16 instances too: :func:`fused_step_bwd_rows`
 launches ``fused_step_bwd_kernel_bf16`` and :func:`step_weight_grads`
-``step_weight_grad_kernel_bf16`` (plain versions, the same functions on
-bf16 ``h``: :func:`_bwd_rows_bf16`), and so does the persistent lane's:
+``step_weight_grad_kernel_bf16`` (bf16 tensor-core products on its own
+splits, :func:`wgrad_bf16_rows_per_split`; plain versions, the same
+functions on bf16 ``h``: :func:`_bwd_rows_bf16`), and so does the
+persistent lane's:
 :func:`persistent_hist` launches ``persistent_fwd_hist_kernel_bf16`` and
 :func:`persistent_bwd_rows` ``persistent_bwd_kernel_bf16`` (plain
 versions, :func:`persistent_hist_reference` and
@@ -108,11 +110,59 @@ def wgrad_rows_per_split(n_rows: int, hidden: int) -> int:
     steps), so a K-step call sums each step exactly as a one-step call
     does. The training batch (N = 16384, H = 128): 7 tiles, 19 splits of
     864 rows."""
-    tiles_a = -(-hidden // WGRAD_TILE)  # output tiles a side: x^T . and h^T .
-    tiles = tiles_a * (2 * -(-3 * hidden // WGRAD_TILE) + tiles_a)
-    splits = -(-WGRAD_FILL_SMS // tiles)
+    splits = -(-WGRAD_FILL_SMS // _wgrad_tiles(hidden))
     rows = -(-n_rows // splits)
     return max(WGRAD_SLAB_ROWS, -(-rows // WGRAD_SLAB_ROWS) * WGRAD_SLAB_ROWS)
+
+
+#: step_weight_grad_kernel_bf16's layout, mirrors of ``kW16Slab``,
+#: ``kW16Stages``, ``kW16SplitStages`` and ``kW16Blocks`` in
+#: ``csrc/fused_gnn_bwd.cu``: rows a slab (two 16-deep k-slices), the
+#: ``cp.async`` ring's slab stages (f32 messages: three bf16 parts of
+#: dmsg a slab, in fewer stages), blocks an SM; and the blocks one step's
+#: tiles may take: one an SM of an H100 SXM (a K-step call's steps fill
+#: the second).
+WGRAD_BF16_SLAB_ROWS = 32
+WGRAD_BF16_STAGES = 3
+WGRAD_BF16_SPLIT_STAGES = 2
+WGRAD_BF16_BLOCKS = 2
+WGRAD_BF16_FILL_BLOCKS = WGRAD_FILL_SMS
+
+
+def _wgrad_tiles(hidden: int) -> int:
+    """Output tiles of one step's weight pass: ``x^T dpre_i``, ``h^T
+    dpre_h`` ([H, 3H] each) and ``h^T dmsg`` ([H, H]) in
+    ``WGRAD_TILE``-wide tiles."""
+    tiles_a = -(-hidden // WGRAD_TILE)
+    return tiles_a * (2 * -(-3 * hidden // WGRAD_TILE) + tiles_a)
+
+
+def wgrad_bf16_rows_per_split(n_rows: int, hidden: int) -> int:
+    """Rows a block of ``step_weight_grad_kernel_bf16`` sums: as many
+    splits as one step's output tiles can take without passing
+    ``WGRAD_BF16_FILL_BLOCKS`` resident blocks (so a step's blocks are
+    one wave, not one and a block), each a multiple of
+    ``WGRAD_BF16_SLAB_ROWS`` rows; from the row count and width alone, so
+    a K-step call sums each step exactly as a one-step call does. The
+    training batch (N 16384, H 128): 7 tiles, 18 splits of 928 rows, 126
+    blocks a step."""
+    splits = max(1, WGRAD_BF16_FILL_BLOCKS // _wgrad_tiles(hidden))
+    rows = -(-n_rows // splits)
+    slab = WGRAD_BF16_SLAB_ROWS
+    return max(slab, -(-rows // slab) * slab)
+
+
+def wgrad_bf16_smem_bytes(round_msg: bool) -> int:
+    """Dynamic shared memory of the ``step_weight_grad_kernel_bf16``
+    instance a launch runs (``wgrad_bf16_smem`` in the source): the ring's
+    f32 R and bf16 L slab stages, two bf16 R slabs of one part (bf16
+    messages: dmsg rounded) or three (f32 messages: dmsg split)."""
+    stages = WGRAD_BF16_STAGES if round_msg else WGRAD_BF16_SPLIT_STAGES
+    parts = 1 if round_msg else 3
+    ld = WGRAD_TILE + 8  # a bf16 slab row, padded
+    slab = WGRAD_BF16_SLAB_ROWS
+    return (stages * slab * (WGRAD_TILE * 4 + ld * 2)
+            + 2 * parts * slab * ld * 2)
 
 
 def _dense(p: Mapping, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -1285,7 +1335,8 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
     tensors: ``step_weight_grad_kernel``; for bf16 ``h0`` (``hist`` and
     ``x`` bf16, ``dp`` and ``dmsg`` f32) ``step_weight_grad_kernel_bf16``,
     which rounds ``dp``, and ``dmsg`` when the message dtype ``mdt`` is
-    bf16, to its product operands on load."""
+    bf16, to its product operands on load (f32 messages: splits ``dmsg``
+    three ways), on the splits of :func:`wgrad_bf16_rows_per_split`."""
     if h0.device.type == "cpu":
         return step_weight_grad_reference(h0, hist, x, dp, dmsg, n_steps, mdt)
     if not h0.is_cuda:
@@ -1320,7 +1371,8 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
         deb = torch.empty((1, hidden), **f32)
         dbi = torch.empty((1, 3 * hidden), **f32)
         dbh = torch.empty((1, 3 * hidden), **f32)
-        rows_per_split = wgrad_rows_per_split(n, hidden)
+        rows_per_split = (wgrad_bf16_rows_per_split if bf16
+                          else wgrad_rows_per_split)(n, hidden)
         splits = -(-n // rows_per_split)
         partial = torch.empty(
             splits * n_steps * (7 * hidden * hidden + 7 * hidden), **f32)
@@ -1346,6 +1398,21 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
 
 
 step_weight_grads.launches = step_weight_grads.launches_bf16 = 0
+
+
+def wgrad_bf16_geometry(round_msg: bool) -> Dict[str, int]:
+    """The ``step_weight_grad_kernel_bf16`` instance a launch with
+    ``round_msg`` runs, as the library built for the current card has it:
+    ``blocks_per_sm`` (the occupancy query), ``smem_bytes`` (held to
+    :func:`wgrad_bf16_smem_bytes`), ``slab_rows`` and ``stages``."""
+    from deepdfa_tpu_torch.ops import _build
+
+    outs = [ctypes.c_int(0) for _ in range(4)]
+    err = _build.load("fused_gnn_bwd").step_weight_grad_bf16_geometry(
+        int(round_msg), *(ctypes.byref(o) for o in outs))
+    _raise_on_error(err, "step_weight_grad_bf16_geometry")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "slab_rows", "stages"),
+                    (o.value for o in outs)))
 
 
 def fused_step_backward(params: Optional[Mapping], h: torch.Tensor,
@@ -1539,7 +1606,7 @@ def _rated(parts, nbytes: float, nnz: int) -> Dict[str, float]:
         if peak[0] not in names:
             names.append(peak[0])
     what = {PEAK_BF16[0]: "bf16 x bf16 products",
-            PEAK_BF16X3[0]: "dmsg W_e^T, f32 dmsg split"}
+            PEAK_BF16X3[0]: "the products of f32 dmsg, split three ways"}
     return {
         "flops": flops,
         "flops_bf16": sum(f for f, peak in parts if peak == PEAK_BF16),
@@ -1568,8 +1635,9 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
     three bf16 parts, as the kernels run it); the other f32-message terms
     and ~20 elementwise operations a gate element forward, ~30 backward
     (the reference's bf16 gate, op for op), at the f32 SIMT rate; the
-    weight pass's f32 h^T dmsg at the 3xTF32 rate and its bias sums at the
-    f32 SIMT rate."""
+    weight pass's h^T dmsg with f32 messages at ``PEAK_BF16X3`` (dmsg split
+    three ways, as the kernel runs it) and its bias sums at the f32 SIMT
+    rate."""
     n = adj.n_tiles * adj.tile
     plane = 2.0 * n * hidden  # a bf16 [N, H] array
     band = float(adj.vals.numel() * adj.vals.element_size())
@@ -1609,7 +1677,7 @@ def _bf16_step_cost(adj: BandAdjacency, hidden: int, n_steps: int,
     # step_weight_grad_kernel_bf16: h, x (bf16), dp, dmsg (f32) in a step,
     # the f32 gradients out.
     parts = [(n_steps * 2 * 2.0 * n * hidden * 3 * hidden, PEAK_BF16),
-             (n_steps * edge, PEAK_BF16 if bf16_msg else PEAK_3XTF32),
+             (n_steps * edge, PEAK_BF16 if bf16_msg else PEAK_BF16X3),
              (n_steps * 7.0 * n * hidden, PEAK_F32_SIMT)]
     nbytes = (n_steps * (2 * plane + 5 * 2 * plane)
               + (7.0 * hidden * hidden + 7.0 * hidden) * 4)

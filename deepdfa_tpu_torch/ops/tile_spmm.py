@@ -30,8 +30,10 @@ PyTorch version here:
   ``_spmm_kernel``. Plain version :func:`tile_spmm_reference` (gather,
   scale, ``index_add_`` in f32). A bf16 ``msg``
   (``FlowGNN(dtype="bfloat16")`` training) launches
-  ``tile_spmm_kernel_bf16``, the same kernel at ``dt = bfloat16``: f32
-  sums rounded once to bf16, as the plain version computes.
+  ``tile_spmm_kernel_bf16``, the same walk at ``dt = bfloat16`` with a
+  group of 16-byte lanes a row (H 128: two rows a warp): f32 sums in
+  list order rounded once to bf16, as the plain version computes them
+  on the CPU, bit for bit.
 - :class:`_TileSpmm` differentiates it in ``msg``, as the reference's
   ``custom_vjp``: ``d msg = A^T @ g`` by the same kernel over the
   transposed lists (:meth:`CsrAdjacency.transposed`). The adjacency gets

@@ -37,11 +37,15 @@ and to equal across them, against a checkout from before their
 tensor-core redesign too (``gnn_fwd_bits_equal_bf16``); and the bf16 backward
 instances' and the bf16 weight pass's (``fused_step_bwd_kernel_bf16``'s
 four outputs, ``persistent_bwd_kernel_bf16``'s over 5 steps on the plain
-version's h_1..h_4, ``step_weight_grad_kernel_bf16``'s gradients of
-those), the same inputs in both checkouts, expected equal across them
-(``gnn_bwd_bits_equal_bf16``) and to repeat within each
-(``gnn_bwd_bits_repeat_bf16``). Needs one NVIDIA GPU; the checkouts
-build their kernels into their own trees.
+version's h_1..h_4), the same inputs in both checkouts, expected equal
+across them (``gnn_bwd_bits_equal_bf16``) and to repeat within each
+(``gnn_bwd_bits_repeat_bf16``); ``step_weight_grad_kernel_bf16``'s
+gradients of those (``wgrad_bits_*_bf16``: against a checkout from
+before its tensor-core redesign not equal, its sums in another order,
+but repeating within each) and ``tile_spmm_kernel_bf16``'s output over A
+and A^T on the tile lane's training lists (``tile_bits_*_bf16``, expected
+equal and repeating: its sums keep their order). Needs one NVIDIA GPU;
+the checkouts build their kernels into their own trees.
 """
 
 from __future__ import annotations
@@ -101,14 +105,27 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           "hp = F.persistent_hist_reference(p, hb, adj, 5); "
           "rows = F.persistent_bwd_rows(p, hb, hp, adj, gb, 5); "
           "cs.emit(phase='gnn_bwd_bits_bf16', sha256=sha("
-          "list(F.fused_step_bwd_rows(p, hb, adj, gb)) + list(rows) + list("
+          "list(F.fused_step_bwd_rows(p, hb, adj, gb)) + list(rows))); "
+          # The bf16 weight pass on those rows, apart: its redesign sums
+          # in another order.
+          "cs.emit(phase='wgrad_bits_bf16', sha256=sha(list("
           "F.step_weight_grads(hb, hp, *rows[1:], 5, F.msg_dtype(adj, "
-          "torch.bfloat16)))))")
+          "torch.bfloat16))))); "
+          # The bf16 tile product over A and A^T on the tile lane's
+          # training lists and a seeded bf16 msg.
+          "tm = cs.FlowGNN(cs.FlowGNNConfig(message_impl='tile'), "
+          "device='cpu'); "
+          "tl = cs._training_batch(tm, device='cpu').tile_adj.to('cuda'); "
+          "mb = torch.randn(hb.shape, generator=gn, device='cuda')"
+          ".bfloat16(); "
+          "cs.emit(phase='tile_bits_bf16', sha256=sha(["
+          "cs.tile_spmm.tile_spmm(tl, mb), "
+          "cs.tile_spmm.tile_spmm(tl.transposed(), mb)]))")
 KEYS = ("kernel_ms", "plain_ms", "library_ms", "scan_ms", "bound_us",
         "max_abs_err", "blocks_per_sm", "cluster", "active_clusters",
         "f32_kernel_ms", "elements_differing", "smem_bytes",
         "smem_bytes_pass1", "smem_bytes_pass2", "blocks_per_sm_pass1",
-        "blocks_per_sm_pass2")
+        "blocks_per_sm_pass2", "one_step_ms", "transpose_ms")
 
 
 def run(checkout: str) -> dict:
@@ -127,7 +144,8 @@ def run(checkout: str) -> dict:
         elif rec.get("phase") in ("fused_bits", "fwd_bits",
                                   "fused_bits_bf16", "fwd_bits_bf16",
                                   "gnn_step_bits", "gnn_fwd_bits_bf16",
-                                  "gnn_bwd_bits_bf16"):
+                                  "gnn_bwd_bits_bf16", "wgrad_bits_bf16",
+                                  "tile_bits_bf16"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
         elif rec.get("phase") in ("kernels", "kernels_bf16", "train_kernels",
                                   "tile_kernels", "attention_kernels",
@@ -170,14 +188,11 @@ def main() -> int:
                   label: len(hashes(key, label)) == 1
                   for label in ("old", "new")}
                  for key in ("fused_bits_bf16", "fwd_bits_bf16")},
-              # Against a checkout whose bf16 flash kernels and bf16 GNN
-              # backward pair already run bf16 tensor-core products and
-              # whose bf16 GNN forward does not yet: every kernel keeps
-              # its bits on the same inputs. The GNN forward's tensor-core
-              # sums round as the reference's FMA chain does (the chain
-              # where a rounding midpoint is near; the f32 messages the
-              # chain), as the SIMT design's did, so its outputs stay the
-              # same; each checkout repeats its own.
+              # Against a checkout from before the bf16 weight pass's
+              # tensor-core redesign: every other kernel keeps its bits on
+              # the same inputs (the GNN forward's tensor-core sums round
+              # as the reference's FMA chain does, as the SIMT design's
+              # did); each checkout repeats its own.
               "expected": {"fused_bits_equal": True,
                            "fused_bits_equal_bf16": True,
                            "fwd_bits_equal_bf16": True,
@@ -185,17 +200,29 @@ def main() -> int:
                            "gnn_fwd_bits_equal_bf16": True,
                            "gnn_fwd_bits_repeat_bf16": True,
                            "gnn_bwd_bits_equal_bf16": True,
-                           "gnn_bwd_bits_repeat_bf16": True},
+                           "gnn_bwd_bits_repeat_bf16": True,
+                           # The bf16 weight pass's tensor-core sums take
+                           # another order than the TF32 design's (within
+                           # GRAD_TOL of the plain version, checked in the
+                           # runs); each checkout repeats its own. The
+                           # tile product's sums keep their order.
+                           "wgrad_bits_equal_bf16": False,
+                           "wgrad_bits_repeat_bf16": True,
+                           "tile_bits_equal_bf16": True,
+                           "tile_bits_repeat_bf16": True},
               "gnn_step_bits_equal": len({run["gnn_step_bits_sha256"]
                                           for run in runs}) == 1,
               "gnn_fwd_bits_equal_bf16": len(hashes("gnn_fwd_bits_bf16"))
               == 1,
               "gnn_bwd_bits_equal_bf16": len(hashes("gnn_bwd_bits_bf16"))
               == 1,
+              "wgrad_bits_equal_bf16": len(hashes("wgrad_bits_bf16")) == 1,
+              "tile_bits_equal_bf16": len(hashes("tile_bits_bf16")) == 1,
               **{f"{key}_repeat_bf16": {
                   label: len(hashes(f"{key}_bf16", label)) == 1
                   for label in ("old", "new")}
-                 for key in ("gnn_fwd_bits", "gnn_bwd_bits")}}
+                 for key in ("gnn_fwd_bits", "gnn_bwd_bits", "wgrad_bits",
+                             "tile_bits")}}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -39,8 +39,14 @@ to the CPU's. The fused lane's backward instances and the tile product's
 bf16 instance are held to their plain versions (the weight pass's K steps
 bit for bit the fold of one-step calls, each repeating its bits), their
 geometry to the host plan, and a bf16 ``fit`` on the fused and tile lanes
-to the CPU's losses. The persistent lane's backward instances are held
-bit for bit to the scans of the per-step ones at the serving and
+to the CPU's losses. The bf16 weight pass (bf16 tensor-core products) is
+held to its plain version at H 36, 100 and 128 with row counts off its
+slab and split, bf16 and f32 messages, 1 and 5 steps, the fold bit for
+bit, its instances' geometry to the host's mirror; the bf16 tile product
+bit for bit to its plain version on the CPU at H 36, 100 and 128, with
+msg off a 16-byte boundary and rows of more than 32 nonzeros. The
+persistent lane's backward instances are held bit for bit to the scans
+of the per-step ones at the serving and
 training shapes, with bf16 and f32 band values, the K-step VJP to the
 step VJP's scan in all seven outputs; a batch over their gate trains
 through the per-step instances, and a bf16 ``fit`` on the persistent
@@ -2018,6 +2024,108 @@ def test_tile_spmm_bf16_instance_matches_plain_version(cuda, n, sizes,
     torch.cuda.synchronize()
     assert T.launch_counts() == {"tile_spmm_kernel": 0,
                                  "tile_spmm_kernel_bf16": 5}
+
+
+@pytest.mark.parametrize("f32_msg", [False, True])
+@pytest.mark.parametrize("n,hidden", [
+    (1000, 36),    # 108 columns of dW_i: ragged tiles; 4-byte copies
+    (1000, 100),   # 300 columns in three tiles, the last ragged
+    (16456, 128),  # the training width, splits of 928, the last 680 rows
+])
+def test_bf16_weight_pass_ragged_widths_rows_and_the_fold(cuda, n, hidden,
+                                                          f32_msg):
+    """``step_weight_grad_kernel_bf16`` (bf16 ``mma.sync``; f32 messages:
+    dmsg split three ways) on seeded cotangents against its plain version
+    within ``GRAD_TOL``, at 1 and 5 steps, row counts that are no multiple
+    of a slab or a split; the 5-step call bit for bit the fold of 5
+    one-step calls and its own second launch; only the bf16 instance
+    launches."""
+    k = 5
+    mdt = torch.float32 if f32_msg else torch.bfloat16
+    rng = np.random.default_rng(11)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    h0, hist = rand(n, hidden).bfloat16(), rand(k - 1, n, hidden).bfloat16()
+    x = rand(k, n, hidden).bfloat16()
+    dp, dmsg = rand(k, n, 4 * hidden, scale=1e-2), rand(k, n, hidden)
+    rows = fused_gnn.wgrad_bf16_rows_per_split(n, hidden)
+    assert n % fused_gnn.WGRAD_BF16_SLAB_ROWS and n % rows
+    fused_gnn.reset_launch_counts()
+    for steps in (1, k):
+        args = (h0, hist[:steps - 1] if steps > 1 else None, x[:steps],
+                dp[:steps], dmsg[:steps], steps, mdt)
+        got = fused_gnn.step_weight_grads(*args)
+        assert all(torch.equal(a, c)
+                   for a, c in zip(got, fused_gnn.step_weight_grads(*args)))
+        _grads_close(got, fused_gnn.step_weight_grad_reference(*args))
+    fold = None
+    for s in reversed(range(k)):
+        hs = (h0 if s == 0 else hist[s - 1]).contiguous()
+        one = fused_gnn.step_weight_grads(hs, None, x[s:s + 1], dp[s:s + 1],
+                                          dmsg[s:s + 1], 1, mdt)
+        fold = one if fold is None else tuple(a + b for a, b in zip(fold,
+                                                                    one))
+    assert all(torch.equal(a, b) for a, b in zip(got, fold))
+    torch.cuda.synchronize()
+    assert fused_gnn.launch_counts() == {
+        **dict.fromkeys(ALL_KERNELS, 0),
+        "step_weight_grad_kernel_bf16": 4 + k}
+
+
+def test_bf16_weight_pass_geometry_follows_the_mirror(cuda):
+    """The library's bf16 weight-pass instances (bf16 and f32 messages)
+    hold ``WGRAD_BF16_BLOCKS`` blocks an SM with the shared memory
+    ``wgrad_bf16_smem_bytes`` mirrors."""
+    for round_msg in (True, False):
+        geo = fused_gnn.wgrad_bf16_geometry(round_msg)
+        assert geo == dict(
+            blocks_per_sm=fused_gnn.WGRAD_BF16_BLOCKS,
+            smem_bytes=fused_gnn.wgrad_bf16_smem_bytes(round_msg),
+            slab_rows=fused_gnn.WGRAD_BF16_SLAB_ROWS,
+            stages=(fused_gnn.WGRAD_BF16_STAGES if round_msg
+                    else fused_gnn.WGRAD_BF16_SPLIT_STAGES)), round_msg
+
+
+@pytest.mark.parametrize("hidden", [36, 100, 128])
+def test_tile_spmm_bf16_widths_alignment_and_long_rows(cuda, hidden):
+    """``tile_spmm_kernel_bf16`` bit for bit its plain version (on the CPU:
+    the sums in list order) over A and A^T: 16-byte lanes (H 128), 8-byte
+    and one-value lanes (H 36 and 100, and msg at an offset of 4 or 1
+    values from a 16-byte boundary), a hub row of 70 senders and a sender
+    of 40 receivers (more than a lane group's pairs at once), repeated
+    edges."""
+    n = 640
+    adj, _ = _tile_lists([120, 200, 90, 150], n, seed=4)
+    rng = np.random.default_rng(5)
+    hub_s = np.concatenate([rng.choice(n, 70, replace=False), [7] * 40,
+                            rng.integers(0, n, 30)])
+    hub_r = np.concatenate([[300] * 70, rng.choice(n, 40, replace=False),
+                            rng.integers(0, n, 30)])
+    s = np.concatenate([adj.src.numpy(), hub_s])
+    r = np.concatenate([adj.row_ids().numpy(), hub_r])
+    lists = T.build_csr_adjacency(s, r, np.ones(len(s), bool), n)
+    assert int((lists.ptr[1:] - lists.ptr[:-1]).max()) > 32
+    assert int((lists.t_ptr[1:] - lists.t_ptr[:-1]).max()) > 32
+    card = lists.to(cuda)
+    flat = torch.from_numpy(rng.standard_normal(n * hidden + 8).astype(
+        np.float32)).bfloat16()
+    T.reset_launch_counts()
+    for offset in (0, 4, 1):
+        msg_cpu = flat[offset:offset + n * hidden].view(n, hidden)
+        msg = flat.to(cuda)[offset:offset + n * hidden].view(n, hidden)
+        for a, a_cpu in ((card, lists), (card.transposed(),
+                                         lists.transposed())):
+            got = T.tile_spmm(a, msg)
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got.cpu(), T.tile_spmm_reference(a_cpu,
+                                                                msg_cpu))
+            assert torch.equal(T.tile_spmm(a, msg), got)
+    torch.cuda.synchronize()
+    assert T.launch_counts() == {"tile_spmm_kernel": 0,
+                                 "tile_spmm_kernel_bf16": 12}
 
 
 @pytest.mark.parametrize("impl", ["fused", "tile", "persistent"])

@@ -144,8 +144,8 @@ def test_bf16_backward_costs_bytes_and_rates(f32_vals):
     an element (dp and dmsg f32), the products of two bf16 values at the
     bf16 tensor-core rate and the rest at its own: with f32 band values
     (f32 messages) A^T dx leaves the bf16 rate for the f32 SIMT one,
-    dmsg W_e^T for a third of the bf16 rate (the kernels split f32 dmsg
-    into three bf16 parts), and the weight pass's h^T dmsg for 3xTF32."""
+    dmsg W_e^T and the weight pass's h^T dmsg for a third of the bf16 rate
+    (the kernels split f32 dmsg into three bf16 parts)."""
     import dataclasses
 
     adj = _band(256, 64)
@@ -173,10 +173,11 @@ def test_bf16_backward_costs_bytes_and_rates(f32_vals):
     assert wgrad["flops_bf16"] == k * (gate + (0.0 if f32_vals else edge))
     assert wgrad["flops"] == k * (gate + edge + 7.0 * n * h)
     seconds = (wgrad["flops_bf16"] / PEAK_BF16[1]
-               + (k * edge if f32_vals else 0.0) / PEAK_3XTF32[1]
+               + (k * edge if f32_vals else 0.0) / PEAK_BF16X3[1]
                + k * 7.0 * n * h / PEAK_F32_SIMT[1])
     assert wgrad["peak_flops"] == pytest.approx(wgrad["flops"] / seconds)
-    assert (PEAK_3XTF32[0] in wgrad["peak"]) == f32_vals
+    assert (PEAK_BF16X3[0] in wgrad["peak"]) == f32_vals
+    assert PEAK_3XTF32[0] not in wgrad["peak"]
     for cost in (bwd, wgrad):
         assert cost["peak"].startswith(PEAK_BF16[0])
 
