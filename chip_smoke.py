@@ -262,6 +262,25 @@ one:
    within 5e-2; the persistent lane's bf16 instances launched as the
    batches' gates say.
 
+30. The serving fleet (run after 19), the published FlowGNN (persistent
+   lane, f32) from a seed: 200 bursty requests through a 2-replica
+   ``ServeFleet`` on the card (both replicas on the one card, sharing
+   its model) and through one ``ServeEngine``, bit for bit, both
+   replicas flushing, no compile after warmup; the reference's fleet
+   bench (640 open-loop requests at 20,000 a second, 8 slots, a 250 ms
+   deadline, a 64-request queue, no cache, adaptive flush on) replayed
+   through 1 and 4 replicas, primed first: every request completed or
+   shed, no compile after warmup, the admitted p99 within the deadline,
+   rps, p50, p99, sheds and the policies' decisions (the 4-replica rps
+   modelled: one replica timeline stands for one card); then a live
+   2-replica fleet over HTTP in this process with adaptive flush, 512
+   one-function POSTs from 16 client threads (a 429 retried after its
+   Retry-After), r1 out of rotation mid-traffic (``/healthz`` 503
+   degraded, then 200 ok) and rolled (``roll_replica``): every function
+   answered, the replica sections summing to ``/metrics``, compiles
+   flat, ``persistent_fwd_kernel``'s launches those of the flushes
+   (two pump threads counting), HTTP p50/p99 and requests/s.
+
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
 counts just after. Every number goes on a line of its own before the
@@ -345,10 +364,18 @@ from deepdfa_tpu_torch.ops import (
     tile_spmm,
 )
 from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE, align_to_tile
-from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
+from deepdfa_tpu_torch.core.metrics import ServingStats
+from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine, ServeFleet
 from deepdfa_tpu_torch.serve.batcher import ServeRequest
 from deepdfa_tpu_torch.serve.engine import bucket_batch
-from deepdfa_tpu_torch.serve.replay import VirtualClock, bursty_trace, replay
+from deepdfa_tpu_torch.serve.replay import (
+    ReplicaTimeline,
+    VirtualClock,
+    bursty_trace,
+    open_loop_trace,
+    replay,
+    replay_fleet,
+)
 from deepdfa_tpu_torch.train import checkpoint as train_checkpoint
 from deepdfa_tpu_torch.train import loop, text_loop
 
@@ -1138,7 +1165,7 @@ def _serve_bf16(root: str) -> dict:
                              f"cache hits, launches {delta}")
     for key in launches:
         launches[key] += delta[key]
-    cpu_engine, _ = cli._build_serve_engine(cli.build_parser().parse_args(
+    cpu_engine, _, _ = cli._build_serve_engine(cli.build_parser().parse_args(
         ["serve", *bf16, "--device", "cpu"]))
     cpu_engine.warmup()
     want = np.asarray([r["prob"] for r in cpu_engine.score_sync(graphs)])
@@ -3968,8 +3995,8 @@ def _combined_bucket_ms(run: str) -> dict:
     launches a forward under ``torch.profiler``), and the whole flush
     (``flush_wall_ms``, host clock: packing on the host, the copies, the
     forward)."""
-    engine, _ = cli._build_serve_engine(_serve_args(run, "persistent",
-                                                    "cuda"))
+    engine, _, _ = cli._build_serve_engine(_serve_args(run, "persistent",
+                                                       "cuda"))
     graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=SEED + 9)
     texts = attach_synthetic_text([dict(g) for g in graphs], seed=TEXT_SEED)
     reqs = []
@@ -4210,8 +4237,8 @@ def _serve_http(root: str) -> dict:
                                  f"degraded")
         # The same engine on the CPU: the checked functions, the gnn
         # lane's load and a bucket of the combined lane's load.
-        cpu_engine, _ = cli._build_serve_engine(_serve_args(run, impl,
-                                                            "cpu"))
+        cpu_engine, _, _ = cli._build_serve_engine(_serve_args(run, impl,
+                                                               "cpu"))
         cpu_engine.warmup()
         n_cpu = 16
         want = {"gnn": cpu_engine.score_sync(graphs),
@@ -4304,6 +4331,263 @@ def phase_replay() -> dict:
                latency_p99_ms=m["latency_p99_ms"],
                graphs_per_sec_virtual=m["graphs_per_sec"], wall_s=wall_s,
                max_abs_prob_diff_vs_offline=gap, launches=launches)
+    emit(**rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The serving fleet
+# ---------------------------------------------------------------------------
+
+# The reference's fleet bench (bench.py's bench_serve_fleet): 640
+# open-loop requests at 20,000 a second through 1 and 4 replicas, 8 slots,
+# a 250 ms deadline, a 64-request queue, no cache, adaptive flush on.
+FLEET_PARITY_REQUESTS = 200
+FLEET_TRACE_REQUESTS = 640
+FLEET_RPS = 20000.0
+FLEET_REPLICAS = (1, 4)
+FLEET_BENCH = dict(batch_slots=8, deadline_ms=250.0, queue_capacity=64,
+                   cache_capacity=0, adaptive_flush=True)
+# The live fleet: 512 one-function POSTs from 16 client threads over 2
+# replicas, r1 taken out and brought back mid-traffic, then rolled.
+FLEET_HTTP_REPLICAS = 2
+FLEET_HTTP_CLIENTS = 16
+FLEET_HTTP_POSTS = 512
+
+
+def _fleet_parity(model: FlowGNN) -> dict:
+    """200 bursty requests through a 2-replica fleet on the card and
+    through one engine: the same bits, both replicas flushing, no
+    compile after warmup, the persistent kernel launched."""
+    config = ServeConfig(batch_slots=8, deadline_ms=100.0)
+    graphs = [e.graph for e in bursty_trace(FLEET_PARITY_REQUESTS,
+                                            model.config.feature, seed=1)]
+    single = ServeEngine(model, config, device="cuda")
+    single.warmup()
+    t0 = time.perf_counter()
+    want = [r["prob"] for r in single.score_sync(graphs)]
+    single_s = time.perf_counter() - t0
+    fleet = ServeFleet.build(model, config, n_replicas=2)
+    fleet.warmup()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [r["prob"] for r in fleet.score_sync(graphs)]
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    launches = launch_counts()
+    batches = [r.engine.stats.batches for r in fleet.replicas]
+    apart = sum(a != b for a, b in zip(got, want))
+    if (apart or len(got) != FLEET_PARITY_REQUESTS
+            or fleet.compiles_after_warmup != 0
+            or any(r.engine.compiles_after_warmup != 0
+                   for r in fleet.replicas)
+            or not all(batches) or launches["persistent_fwd_kernel"] == 0
+            or any(r.engine.model is not model for r in fleet.replicas)):
+        raise AssertionError(
+            f"fleet parity: {apart} probabilities apart from one engine, "
+            f"batches {batches}, compiles after warmup "
+            f"{fleet.compiles_after_warmup}, launches {launches}")
+    return dict(requests=len(got), probs_apart=apart,
+                replica_batches=batches,
+                replica_devices=[str(r.engine.device)
+                                 for r in fleet.replicas],
+                cache_hits=fleet.snapshot()["cache_hits"],
+                single_engine_s=single_s, fleet_s=fleet_s,
+                launches=launches)
+
+
+def _fleet_bench(model: FlowGNN) -> tuple:
+    """The reference's fleet bench on the card: the same open-loop trace
+    replayed through 1 and 4 replicas. Every replica's flushes are
+    measured on the one card; the replay credits each to its own
+    timeline, so the 4-replica rate models four cards."""
+    config = ServeConfig(**FLEET_BENCH)
+    trace = open_loop_trace(FLEET_TRACE_REQUESTS, model.config.feature,
+                            seed=0, rps=FLEET_RPS, duplicate_fraction=0.0)
+    primer = synthetic_bigvul(sum(config.slot_buckets),
+                              model.config.feature, positive_fraction=0.5,
+                              seed=1)
+    runs, launches = {}, {}
+    for n in FLEET_REPLICAS:
+        clock = VirtualClock()
+        timelines = [ReplicaTimeline(clock) for _ in range(n)]
+        fleet = ServeFleet.build(model, config, n_replicas=n,
+                                 clock_factory=lambda i: timelines[i])
+        fleet.warmup()
+        fleet.prime(primer)
+        primed = fleet.snapshot()["batches"]
+        over0 = model.over_gate_dispatches
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = replay_fleet(fleet, trace, clock)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        flushes = rep["metrics"]["batches"] - primed
+        if (rep["completed"] + rep["shed"] != FLEET_TRACE_REQUESTS
+                or rep["compiles_after_warmup"] != 0
+                or rep["latency_p99_ms"] > config.deadline_ms
+                or rep["metrics"]["failures"]
+                or counts["persistent_fwd_kernel"]
+                + model.over_gate_dispatches - over0 != flushes):
+            raise AssertionError(
+                f"fleet bench, {n} replica(s): completed {rep['completed']}"
+                f" + shed {rep['shed']} of {FLEET_TRACE_REQUESTS}, compiles "
+                f"after warmup {rep['compiles_after_warmup']}, p99 "
+                f"{rep['latency_p99_ms']} ms, launches {counts} over "
+                f"{flushes} flushes")
+        key = "rps_modelled" if n > 1 else "rps"
+        runs[f"replicas_{n}"] = {
+            key: rep["rps"], "latency_p50_ms": rep["latency_p50_ms"],
+            "latency_p99_ms": rep["latency_p99_ms"],
+            "completed": rep["completed"], "shed": rep["shed"],
+            "offered_rps": rep["offered_rps"], "span_s": rep["span_s"],
+            "flushes": flushes,
+            "batch_occupancy": rep["metrics"]["batch_occupancy"],
+            "policy_decisions": sum(r.engine.policy.decisions
+                                    for r in fleet.replicas),
+            "flush_fractions": [r.engine.batcher.flush_fraction
+                                for r in fleet.replicas],
+            "fill_slots": [r.engine.batcher.fill_slots
+                           for r in fleet.replicas],
+            "replay_wall_s": wall_s,
+            "launches": {k: v for k, v in counts.items() if v}}
+    runs["modelled"] = ("replicas_4's rps_modelled: one replica timeline "
+                        "stands for one card; its flushes ran on this "
+                        "one card")
+    return runs, launches
+
+
+def _fleet_http(model: FlowGNN) -> dict:
+    """A live 2-replica fleet over HTTP on the one card: 512 one-function
+    POSTs from 16 threads (a 429 retried after its Retry-After), r1
+    taken out of rotation and brought back mid-traffic (``/healthz`` 503
+    degraded, then 200 ok), then rolled with ``roll_replica``; every
+    function answered, the replica sections summing to ``/metrics``,
+    compiles flat, the launches those of the flushes."""
+    from deepdfa_tpu_torch.serve.http import ServeHTTPServer
+
+    fleet = ServeFleet.build(model, ServeConfig(adaptive_flush=True),
+                             n_replicas=FLEET_HTTP_REPLICAS)
+    fleet.warmup()
+    server = ServeHTTPServer(("127.0.0.1", 0), fleet)
+    server.start_pump()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    bodies = [{"functions": [fn]} for fn in _functions(synthetic_bigvul(
+        FLEET_HTTP_POSTS, model.config.feature, seed=SEED + 3))]
+    lat_ms = [0.0] * len(bodies)
+    results = [None] * len(bodies)
+    retries = [0]
+    done = [0]
+    lock = threading.Lock()
+    cursor = iter(range(len(bodies)))
+
+    def client():
+        while True:
+            with lock:
+                i = next(cursor, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            while True:
+                status, headers, body = _http(base, "/score", bodies[i])
+                if status != 429:
+                    break
+                with lock:
+                    retries[0] += 1
+                time.sleep(float(headers["Retry-After"]))
+            lat_ms[i] = (time.perf_counter() - t0) * 1e3
+            results[i] = (status, body)
+            with lock:
+                done[0] += 1
+
+    clients = [threading.Thread(target=client)
+               for _ in range(FLEET_HTTP_CLIENTS)]
+
+    def wait_for(n):
+        while done[0] < n and any(c.is_alive() for c in clients):
+            time.sleep(0.005)
+
+    try:
+        _, _, m0 = _http(base, "/metrics")
+        over0 = model.over_gate_dispatches
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        wait_for(len(bodies) // 3)
+        fleet.begin_replica_drain("r1")
+        mid_status, _, mid = _http(base, "/healthz")
+        drained = fleet.await_replica_drained("r1", deadline_s=30.0)
+        fleet.restore_replica("r1")
+        after_status, _, after = _http(base, "/healthz")
+        wait_for(2 * len(bodies) // 3)
+        rolled = fleet.roll_replica("r1", deadline_s=30.0)
+        for c in clients:
+            c.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        _, _, m1 = _http(base, "/metrics")
+        end_status, _, end = _http(base, "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+    answered = sum(1 for r in results if r is not None and r[0] == 200
+                   and "prob" in r[1]["results"][0])
+    sections = {name: sum(m[name] for m in m1["replicas"].values())
+                for name in ServingStats.COUNTERS}
+    flushes = m1["batches"] - m0["batches"]
+    over = model.over_gate_dispatches - over0
+    if (answered != len(bodies) or any(c.is_alive() for c in clients)
+            or (mid_status, mid["status"]) != (503, "degraded")
+            or mid["fleet"]["replicas"]["r1"]["status"] != "draining"
+            or (after_status, after["status"]) != (200, "ok")
+            or (end_status, end["status"]) != (200, "ok")
+            or not drained or not rolled
+            or any(m1[k] != v for k, v in sections.items())
+            or m1["compiles"] != m0["compiles"]
+            or fleet.compiles_after_warmup != 0 or m1["failures"]
+            or launches["persistent_fwd_kernel"] + over != flushes
+            or not all(m["batches"] for m in m1["replicas"].values())):
+        raise AssertionError(
+            f"fleet over HTTP: {answered} of {len(bodies)} answered, "
+            f"healthz {mid_status} {mid['status']} during the drain, "
+            f"{after_status} {after['status']} after, {end_status} at the "
+            f"end; drained {drained}, rolled {rolled}; /metrics {m1} "
+            f"against its sections {sections}; launches {launches} over "
+            f"{flushes} flushes ({over} over the gate)")
+    return dict(replicas=FLEET_HTTP_REPLICAS, clients=FLEET_HTTP_CLIENTS,
+                posts=len(bodies), retries_429=retries[0], wall_s=wall_s,
+                requests_per_s=len(bodies) / wall_s,
+                latency_p50_ms=statistics.median(lat_ms),
+                latency_p99_ms=float(np.percentile(lat_ms, 99)),
+                server_p99_ms=m1["latency_p99_ms"], flushes=flushes,
+                replica_batches={rid: m["batches"] for rid, m in
+                                 m1["replicas"].items()},
+                policy_decisions=[r.engine.policy.decisions
+                                  for r in fleet.replicas],
+                compiles=m1["compiles"], launches=launches)
+
+
+def phase_fleet() -> dict:
+    """The serving fleet on the card (phase 30): offline parity with one
+    engine, the reference's fleet bench at 1 and 4 replicas, a live
+    2-replica fleet over HTTP with a roll; the published FlowGNN
+    (persistent lane, f32) from ``SEED``."""
+    model = FlowGNN(FlowGNNConfig(message_impl="persistent"), device="cuda",
+                    seed=SEED)
+    parity = _fleet_parity(model)
+    bench, bench_launches = _fleet_bench(model)
+    live = _fleet_http(model)
+    launches = {k: parity["launches"][k] + bench_launches.get(k, 0)
+                + live["launches"][k] for k in parity["launches"]}
+    rec = dict(phase="fleet", parity=parity, bench=bench, http=live,
+               launches=launches)
     emit(**rec)
     return rec
 
@@ -4727,6 +5011,7 @@ def main() -> int:
             ("inputs", phase_inputs, ()),
             ("serve_http", phase_serve_http, ()),
             ("replay", phase_replay, ()),
+            ("fleet", phase_fleet, ()),
             ("codet5", phase_codet5, ()),
             ("fit_text_bf16", phase_fit_text_bf16, ()),
             ("fit_text_long_bf16", phase_fit_text_long_bf16, ()),

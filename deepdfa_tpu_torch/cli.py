@@ -46,11 +46,13 @@ result record; ``--resume`` continues from the run dir's newest intact
 snapshot. ``test`` restores a snapshot (verified; a damaged one falls
 back, and the report says which was loaded) and evaluates the test
 split. ``score`` is the offline client of the serving path: it scores a
-dataset (or one split of it) through ``ServeEngine.score_sync``, writes
-``score_predictions.csv`` and prints the reference's JSON report plus
-the hand-written kernels' launch counts; without ``--checkpoint-dir``
-the weights are a random init from ``--seed``. ``fit-text`` trains
-DeepDFA+LineVul (the codebert-base encoder from a seeded random init,
+dataset (or one split of it) through ``score_sync`` of the engine that
+``serve`` builds, writes ``score_predictions.csv`` and prints the
+reference's JSON report plus the hand-written kernels' launch counts;
+without ``--checkpoint-dir`` the weights are a random init from
+``--seed``. Both take ``--replicas N`` (a ``ServeFleet`` of N engines
+behind the content-affine router) and ``--adaptive-flush``. ``fit-text``
+trains DeepDFA+LineVul (the codebert-base encoder from a seeded random init,
 combined with the FlowGNN graph encoder), optionally from a ``fit``
 run's trained graph encoder, frozen or not; pretrained HF weights reach
 ``fit_text`` through the library (``models/pretrained.load_pretrained``),
@@ -234,25 +236,11 @@ def _restored_fields(ckpt, which: str, what: str) -> Dict[str, Any]:
 def cmd_score(args) -> Dict[str, Any]:
     import numpy as np
 
-    from deepdfa_tpu_torch.models.flowgnn import FlowGNN
     from deepdfa_tpu_torch.ops import fused_gnn
-    from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
-    from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+    from deepdfa_tpu_torch.serve import ServeFleet
 
-    cfgs = _configs(args, {"message_impl": "persistent", "seed": 0})
+    engine, cfgs, restored = _build_serve_engine(args)
     model_cfg, seed = cfgs["model"], cfgs["train"].seed
-    model = FlowGNN(model_cfg, device=args.device, seed=seed)
-    restored: Dict[str, Any] = {}
-    if args.checkpoint_dir:
-        ckpt = CheckpointManager(args.checkpoint_dir)
-        model.load_state_dict(ckpt.restore_params(args.which))
-        restored = _restored_fields(ckpt, args.which, "score")
-    else:
-        logger.warning("no --checkpoint-dir: serving RANDOM-INIT weights "
-                       "(seed %d): the serving stack is real, the scores "
-                       "are not", seed)
-    engine = ServeEngine(model, ServeConfig(batch_slots=args.batch_slots),
-                         device=args.device)
     engine.warmup()
     examples, splits = load_dataset(args.dataset, model_cfg.feature,
                                     seed=seed, split_mode=args.split_mode)
@@ -271,14 +259,19 @@ def cmd_score(args) -> Dict[str, Any]:
         labels.append(int(ex.get("label", 0)))
         ids.append(int(ex.get("id", i)))
     out = _dump_predictions(args.out_dir, ids, probs, labels)
+    fleet = (engine if isinstance(engine, ServeFleet)
+             else ServeFleet.from_engine(engine))
+    # Replicas of one device share one model: count each model once.
+    models = {id(r.engine.model): r.engine.model for r in fleet.replicas}
     report = {"n_scored": len(probs), "n_errors": len(errors),
               "errors": errors[:10], "split": args.split, "out": out,
               **restored,
               "serving": engine.snapshot(),
-              "device": str(engine.device),
+              "device": str(fleet.primary.engine.device),
               "message_impl": model_cfg.message_impl,
               "kernel_launches": launches,
-              "over_gate_dispatches": model.over_gate_dispatches}
+              "over_gate_dispatches": sum(m.over_gate_dispatches
+                                          for m in models.values())}
     print(json.dumps(report))
     return report
 
@@ -523,14 +516,24 @@ def _combined_model(args):
 
 
 def _build_serve_engine(args):
-    """(engine, model_cfg): the serving engine from ``fit`` and
-    ``fit-text`` run dirs (the reference's ``_build_serve_engine``).
-    Without ``--checkpoint-dir`` the GNN lane serves a random init
-    from ``train.seed`` (the serving stack is real, the scores are not);
+    """(engine, configs, restored): the serving engine of ``serve`` and
+    ``score`` from ``fit`` and ``fit-text`` run dirs (the reference's
+    ``_build_serve_engine``), with the configs it was built from and the
+    report fields of a restore that fell back. Without
+    ``--checkpoint-dir`` the GNN lane serves a random init from
+    ``train.seed`` (the serving stack is real, the scores are not);
     ``--combined-checkpoint-dir`` attaches the DeepDFA+LineVul lane, at
-    its recorded block size."""
+    its recorded block size. ``--replicas N`` over 1 gives a
+    ``ServeFleet`` of N engines over the visible cards (all on the CPU
+    under ``--device cpu``, on that card under ``--device cuda:K``);
+    ``--adaptive-flush`` gives each engine its flush policy."""
     from deepdfa_tpu_torch.models.flowgnn import FlowGNN
-    from deepdfa_tpu_torch.serve import ServeConfig, ServeEngine
+    from deepdfa_tpu_torch.serve import (
+        AdaptiveFlushPolicy,
+        ServeConfig,
+        ServeEngine,
+        ServeFleet,
+    )
     from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
 
     cfgs = _configs(args, {"message_impl": "persistent", "seed": 0})
@@ -538,9 +541,11 @@ def _build_serve_engine(args):
     if model_cfg.label_style != "graph":
         raise ValueError("serving scores functions; use label_style=graph")
     model = FlowGNN(model_cfg, device=args.device, seed=seed)
+    restored: Dict[str, Any] = {}
     if args.checkpoint_dir:
-        model.load_state_dict(
-            CheckpointManager(args.checkpoint_dir).restore_params(args.which))
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        model.load_state_dict(ckpt.restore_params(args.which))
+        restored = _restored_fields(ckpt, args.which, args.command)
     else:
         logger.warning("no --checkpoint-dir: serving RANDOM-INIT weights "
                        "(seed %d): the serving stack is real, the scores "
@@ -549,12 +554,23 @@ def _build_serve_engine(args):
     knobs: Dict[str, Any] = dict(
         batch_slots=args.batch_slots, deadline_ms=args.deadline_ms,
         queue_capacity=args.queue_capacity,
-        cache_capacity=args.cache_capacity)
-    if args.combined_checkpoint_dir:
+        cache_capacity=args.cache_capacity, replicas=args.replicas,
+        adaptive_flush=args.adaptive_flush)
+    if getattr(args, "combined_checkpoint_dir", None):
         combined, tok, knobs["block_size"] = _combined_model(args)
-    engine = ServeEngine(model, ServeConfig(**knobs), device=args.device,
-                         combined_model=combined, tokenizer=tok)
-    return engine, model_cfg
+    config = ServeConfig(**knobs)
+    if config.replicas > 1:
+        fleet = ServeFleet.build(
+            model, config, combined_model=combined, tokenizer=tok,
+            devices=None if args.device == "cuda" else [args.device])
+        logger.info("serving fleet: %d replicas on %s", fleet.size,
+                    sorted({str(r.engine.device) for r in fleet.replicas}))
+        return fleet, cfgs, restored
+    policy = AdaptiveFlushPolicy(config) if config.adaptive_flush else None
+    engine = ServeEngine(model, config, device=args.device,
+                         combined_model=combined, tokenizer=tok,
+                         policy=policy)
+    return engine, cfgs, restored
 
 
 def _smoke_http(engine, host: str, port: int, n: int, feature
@@ -596,13 +612,13 @@ def _smoke_http(engine, host: str, port: int, n: int, feature
                                  for k, v in g["feats"].items()}}}
             for g in graphs]
         results = []
-        chunk = max(engine.config.batch_slots // 2, 1)
+        chunk = max(server.fleet.config.batch_slots // 2, 1)
         for start in range(0, n, chunk):
             results += post({"functions": payload[start:start + chunk]}
                             )["results"]
         dup = post({"functions": payload[:chunk]})["results"]
         lanes = {"gnn": all(r.get("model") == "gnn" for r in results)}
-        if engine.combined_model is not None:
+        if server.engine.combined_model is not None:
             coded = [dict(p, code=f"int f_{p['id']}(char *p) "
                                   "{ return p[0]; }") for p in payload]
             combined = []
@@ -632,7 +648,8 @@ def cmd_serve(args) -> Dict[str, Any]:
     and exits (1 when a check failed); otherwise serve until Ctrl-C."""
     from deepdfa_tpu_torch.serve.http import serve_forever
 
-    engine, model_cfg = _build_serve_engine(args)
+    engine, cfgs, _ = _build_serve_engine(args)
+    model_cfg = cfgs["model"]
     if not args.no_warmup:
         logger.info("warmed %d (lane, bucket) pairs", engine.warmup())
     if args.smoke is not None:
@@ -863,6 +880,39 @@ def build_parser() -> argparse.ArgumentParser:
         parser.add_argument("--device", default="cuda",
                             help="cuda (default; raises without CUDA) or cpu")
 
+    def serve_knobs(parser):
+        parser.add_argument("--batch-slots", type=int, default=16,
+                            help="largest micro-batch (slot-bucket ladder "
+                                 "top)")
+        parser.add_argument("--deadline-ms", type=float, default=100.0,
+                            help="per-request latency budget; a bucket "
+                                 "flushes once the oldest request has spent "
+                                 "half of it")
+        parser.add_argument("--queue-capacity", type=int, default=256,
+                            help="pending requests before 429 rejections")
+        parser.add_argument("--cache-capacity", type=int, default=4096,
+                            help="content-hash result cache entries (0 = "
+                                 "off)")
+        # A string default: argparse runs type= over it when it parses,
+        # so a malformed DEEPDFA_SERVE_REPLICAS is a parser error of the
+        # serving commands alone.
+        parser.add_argument("--replicas", type=int,
+                            default=os.environ.get(
+                                "DEEPDFA_SERVE_REPLICAS", "1"),
+                            help="engine replicas behind the content-affine "
+                                 "router, each on its shard of the visible "
+                                 "cards with its own micro-batcher and pump "
+                                 "thread (env DEEPDFA_SERVE_REPLICAS; at "
+                                 "most 8)")
+        parser.add_argument("--adaptive-flush", action="store_true",
+                            default=os.environ.get(
+                                "DEEPDFA_ADAPTIVE_FLUSH", "") not in (
+                                    "", "0"),
+                            help="each replica tunes its flush deadline "
+                                 "fraction and fill threshold from its own "
+                                 "p99 and occupancy (clamped, with "
+                                 "hysteresis; env DEEPDFA_ADAPTIVE_FLUSH=1)")
+
     def common(parser, set_help=None,
                dataset_help="synthetic[:N] or an etl export .jsonl"):
         parser.add_argument("--config", action="append", default=[],
@@ -929,7 +979,7 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--which", default="best")
     sc.add_argument("--split", default="all",
                     choices=["all", "train", "val", "test"])
-    sc.add_argument("--batch-slots", type=int, default=16)
+    serve_knobs(sc)
     device_flag(sc)
     sc.add_argument("--seed", type=int, default=None,
                     help="train.seed: the data and split seed, and the "
@@ -1067,15 +1117,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--smoke", type=int, default=None, metavar="N",
                     help="drive the HTTP stack with N synthetic functions, "
                          "print the report, exit")
-    sv.add_argument("--batch-slots", type=int, default=16,
-                    help="largest micro-batch (slot-bucket ladder top)")
-    sv.add_argument("--deadline-ms", type=float, default=100.0,
-                    help="per-request latency budget; a bucket flushes once "
-                         "the oldest request has spent half of it")
-    sv.add_argument("--queue-capacity", type=int, default=256,
-                    help="pending requests before 429 rejections")
-    sv.add_argument("--cache-capacity", type=int, default=4096,
-                    help="content-hash result cache entries (0 = off)")
+    serve_knobs(sv)
     device_flag(sv)
     sv.set_defaults(func=cmd_serve)
     return p

@@ -211,6 +211,40 @@ class ServingStats:
         return out
 
 
+# A padding cell's counts, each summable across engines; the pct keys
+# are recomputed from the sums.
+_PADDING_SUM_KEYS = (
+    "used", "slots", "flushes", "elems_used", "elems_budget",
+    "elems_slot_underfill", "elems_inslot_pad", "elems_flush_overhead",
+)
+
+
+def merge_padding_cells(cell_maps) -> Dict[str, Dict[str, float]]:
+    """The per-(lane, bucket) padding cells of several engine snapshots
+    (their ``padding_waste`` maps; None entries skipped) merged: counts
+    summed, ``waste_pct`` and the element-axis pct keys recomputed from
+    the sums (the fleet's ``/metrics``)."""
+    merged: Dict[str, Dict[str, float]] = {}
+    for cells in cell_maps:
+        for key, cell in (cells or {}).items():
+            acc = merged.setdefault(key, {"used": 0, "slots": 0})
+            for k in _PADDING_SUM_KEYS:
+                if k in cell:
+                    acc[k] = acc.get(k, 0) + cell[k]
+    for cell in merged.values():
+        cell["waste_pct"] = round(
+            100.0 * (1.0 - cell["used"] / cell["slots"]), 2
+        ) if cell["slots"] else 0.0
+        b = cell.get("elems_budget")
+        if b:
+            cell["elem_waste_pct"] = round(
+                100.0 * (1.0 - cell.get("elems_used", 0) / b), 2)
+            for part in ("slot_underfill", "inslot_pad", "flush_overhead"):
+                cell[f"{part}_pct"] = round(
+                    100.0 * cell.get(f"elems_{part}", 0) / b, 2)
+    return merged
+
+
 class IngestStats:
     """Per-boundary ingestion counters (``contracts.STATS``).
 

@@ -231,7 +231,14 @@ class GlobalAttentionPool(nn.Module):
     logit, the segment form's values) carries no gradient. On CUDA
     ``index_add_`` adds with atomics in whatever order the threads
     arrive; the matmuls sum in one order, so a training run on the card
-    repeats its bits. ``impl="auto"``: matmul on CUDA, segment on the CPU.
+    repeats its bits. ``impl="auto"``: on the CPU segment; on CUDA matmul
+    where a gradient flows, and otherwise (serving, evaluation) the
+    matmul form with its two sums over nodes taken per graph
+    (``torch.segment_reduce`` over each graph's rows in row order): cuBLAS
+    groups a graph's terms by where its rows sit in the batch, so a
+    served graph's probability moved by an f32 ulp with the flush that
+    carried it (``scripts/torch_serve_batch_bits.py``); per graph, it is
+    the same wherever the graph sits.
     """
 
     def __init__(self, width: int, gen: torch.Generator, impl: str = "auto",
@@ -245,7 +252,13 @@ class GlobalAttentionPool(nn.Module):
         gate = _dense(self.gate, feat, self.dtype)[:, 0]
         impl = self.impl
         if impl == "auto":
-            impl = "matmul" if feat.is_cuda else "segment"
+            if not feat.is_cuda:
+                impl = "segment"
+            elif torch.is_grad_enabled() and (
+                    feat.requires_grad or self.gate.weight.requires_grad):
+                impl = "matmul"
+            else:
+                impl = "rows"
         if impl == "segment":
             # At bf16 each op of the softmax rounds and the sums add row
             # by row in bf16, as XLA's (graphs/segment.py).
@@ -264,10 +277,23 @@ class GlobalAttentionPool(nn.Module):
                                 -torch.inf).amax(dim=1)
             shift = torch.where(torch.isneginf(shift), 0.0, shift)
         e = torch.where(node_mask, torch.exp(gate - shift @ onehot), 0.0)
-        denom = onehot @ e
-        denom = torch.where(denom > 0, denom, 1.0)  # empty graphs pool to 0
         weighted = feat * e[:, None].to(feat.dtype)
-        return ((onehot @ weighted.float()) / denom[:, None]).to(feat.dtype)
+        if impl == "rows":
+            # Each graph's rows in row order, then the padding rows (zero
+            # weights) as one more segment, dropped.
+            key = torch.where(node_mask, node_graph.long(), n_graphs)
+            order = torch.sort(key, stable=True).indices
+            lengths = (key[None, :] == torch.arange(
+                n_graphs + 1, device=key.device)[:, None]).sum(1)
+            denom = torch.segment_reduce(e[order], "sum",
+                                         lengths=lengths)[:n_graphs]
+            sums = torch.segment_reduce(weighted[order].float(), "sum",
+                                        lengths=lengths, axis=0)[:n_graphs]
+        else:
+            denom = onehot @ e
+            sums = onehot @ weighted.float()
+        denom = torch.where(denom > 0, denom, 1.0)  # empty graphs pool to 0
+        return (sums / denom[:, None]).to(feat.dtype)
 
 
 class FlowGNN(nn.Module):

@@ -5,6 +5,7 @@ and the fused GNN step kernels (``fused_gnn``), the tile SpMM
 :func:`launch_counts` and :func:`reset_launch_counts` cover every kernel
 of the port, by kernel name."""
 
+import threading
 from typing import Dict
 
 #: The peak rates a kernel's operations bound divides by, as (name,
@@ -23,6 +24,19 @@ PEAK_BF16X3 = ("f32 x bf16 as three bf16 products, 989/3 TFLOP/s",
                989e12 / 3)
 #: The card's memory rate the bytes bound divides by (HBM3, 3.35 TB/s).
 PEAK_BYTES_PER_S = 3.35e12
+
+
+# Serializes the launch counts' read-modify-writes: a fleet launches from
+# one pump thread a replica, and a bare ``+= 1`` from two threads can
+# lose an increment.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one launch to ``wrapper``'s ``attr`` count, under the lock
+    (taken after the launch, never around it)."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def _counted_modules():

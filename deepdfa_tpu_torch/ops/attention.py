@@ -66,8 +66,9 @@ For a CUDA tensor it launches its kernel (the instance of the inputs'
 dtype) or raises: no fallback, no switch that puts the plain version on
 the card. Each wrapper counts its launches in plain integer attributes,
 ``launches`` for the f32 instance and ``launches_bf16`` for the bf16 one
-(``flash_fwd.launches`` and so on; :func:`launch_counts`), bumped where
-the kernel is launched and nowhere else. ``impl="auto"`` means
+(``flash_fwd.launches`` and so on; :func:`launch_counts`), bumped under
+``ops.count_launch``'s lock where the kernel is launched and nowhere
+else. ``impl="auto"`` means
 ``"flash"`` on every device: the kernels on the card, their plain
 versions (the blockwise composition) on the CPU.
 """
@@ -80,7 +81,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_3XTF32, PEAK_BF16, PEAK_BF16X3
+from deepdfa_tpu_torch.ops import (PEAK_3XTF32, PEAK_BF16, PEAK_BF16X3,
+                                   count_launch)
 
 NEG_INF = -1e30
 
@@ -432,8 +434,7 @@ def _launcher(q: torch.Tensor, fn: str, name: str = "flash_attn"):
 
 def _count(wrapper, q: torch.Tensor) -> None:
     """One launch of ``wrapper``'s kernel, on the count of q's instance."""
-    attr = "launches" + INSTANCES[q.dtype]
-    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    count_launch(wrapper, "launches" + INSTANCES[q.dtype])
 
 
 def _dims(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple:

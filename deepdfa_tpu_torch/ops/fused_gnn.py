@@ -60,7 +60,8 @@ For a CUDA tensor it launches its kernel or raises — there is no
 fallback and no switch that puts the plain version on the card. Each
 wrapper counts its launches in a plain integer attribute
 (``fused_gate_step.launches`` and so on; :func:`launch_counts`), bumped
-where the kernel is launched and nowhere else.
+under ``ops.count_launch``'s lock where the kernel is launched and
+nowhere else.
 
 ``params`` is the step's parameter tree in the reference's layout:
 ``{"edge_linear": {"kernel": [H_in, H], "bias": [H]}, "gru": {"ir",
@@ -78,7 +79,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from deepdfa_tpu_torch.ops import (PEAK_3XTF32, PEAK_BF16, PEAK_BF16X3,
-                                   PEAK_F32_SIMT)
+                                   PEAK_F32_SIMT, count_launch)
 from deepdfa_tpu_torch.ops.band_spmm import (
     BandAdjacency,
     band_spmm,
@@ -994,7 +995,7 @@ def _fused_step_launch(h: torch.Tensor, adj: BandAdjacency,
     blocks)."""
     if h.dtype == torch.bfloat16:
         out = _bf16_fwd_launch(h, adj, packed, 1, "fused_step_kernel_bf16")
-        fused_gate_step.launches_bf16 += 1
+        count_launch(fused_gate_step, "launches_bf16")
         return out
     with torch.cuda.device(h.device):
         lib, (ek, eb, wi, bi, wh, bh), bf16, stream = _launch_args(
@@ -1006,7 +1007,7 @@ def _fused_step_launch(h: torch.Tensor, adj: BandAdjacency,
             _ptr(bi), _ptr(wh), _ptr(bh), _ptr(out), n, hidden, adj.tile,
             adj.n_tiles, adj.bandwidth, stream)
         _raise_on_error(err, "fused_step_kernel")
-    fused_gate_step.launches += 1
+    count_launch(fused_gate_step)
     return out
 
 
@@ -1216,9 +1217,9 @@ def _persistent_unroll_launch(h: torch.Tensor, adj: BandAdjacency,
                               n_steps: int) -> torch.Tensor:
     out = _persistent_launch(h, adj, packed, n_steps)
     if h.dtype == torch.bfloat16:
-        persistent_unroll.launches_bf16 += 1
+        count_launch(persistent_unroll, "launches_bf16")
     else:
-        persistent_unroll.launches += 1
+        count_launch(persistent_unroll)
     return out
 
 
@@ -1318,9 +1319,9 @@ def fused_step_bwd_rows(params: Optional[Mapping], h: torch.Tensor,
                 hidden, adj.tile, adj.n_tiles, adj.bandwidth, stream)
             _raise_on_error(err, "fused_step_bwd_kernel")
     if bf16_h:
-        fused_step_bwd_rows.launches_bf16 += 1
+        count_launch(fused_step_bwd_rows, "launches_bf16")
     else:
-        fused_step_bwd_rows.launches += 1
+        count_launch(fused_step_bwd_rows)
     return dh, x, dp, dmsg
 
 
@@ -1391,9 +1392,9 @@ def step_weight_grads(h0: torch.Tensor, hist: Optional[torch.Tensor],
             err = lib.step_weight_grad_launch(*args, *tail)
             _raise_on_error(err, "step_weight_grad_kernel")
     if bf16:
-        step_weight_grads.launches_bf16 += 1
+        count_launch(step_weight_grads, "launches_bf16")
     else:
-        step_weight_grads.launches += 1
+        count_launch(step_weight_grads)
     return dek, deb, dwi, dbi, dwh, dbh
 
 
@@ -1448,9 +1449,9 @@ def persistent_hist(params: Optional[Mapping], h: torch.Tensor,
     out = _persistent_launch(h, adj, _packed(params, packed), n_steps,
                              hist=True)
     if h.dtype == torch.bfloat16:
-        persistent_hist.launches_bf16 += 1
+        count_launch(persistent_hist, "launches_bf16")
     else:
-        persistent_hist.launches += 1
+        count_launch(persistent_hist)
     return out
 
 
@@ -1513,9 +1514,9 @@ def persistent_bwd_rows(params: Optional[Mapping], h0: torch.Tensor,
             adj.bandwidth, stream)
         _raise_on_error(err, name)
     if bf16_h:
-        persistent_bwd_rows.launches_bf16 += 1
+        count_launch(persistent_bwd_rows, "launches_bf16")
     else:
-        persistent_bwd_rows.launches += 1
+        count_launch(persistent_bwd_rows)
     return dh, x, dp, dmsg
 
 

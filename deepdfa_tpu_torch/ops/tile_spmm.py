@@ -42,8 +42,8 @@ PyTorch version here:
 Dispatch: the wrapper takes the plain version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises. It counts its
 launches in ``tile_spmm.launches`` (``launches_bf16`` for the bf16
-instance; :func:`launch_counts`), bumped where the kernel is launched
-and nowhere else.
+instance; :func:`launch_counts`), bumped under ``ops.count_launch``'s
+lock where the kernel is launched and nowhere else.
 
 Not ported here (several GPUs): ``stack_tile_adjacencies``,
 ``tile_spmm_sharded`` and ``combine_tile_stats``.
@@ -58,7 +58,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.ops import PEAK_BF16, PEAK_F32_SIMT
+from deepdfa_tpu_torch.ops import PEAK_BF16, PEAK_F32_SIMT, count_launch
 
 # The tile edge batching callers align node budgets to
 # (:func:`align_to_tile`), and the reference layout's tile.
@@ -399,9 +399,9 @@ def tile_spmm(adj: CsrAdjacency, msg: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     if bf16:
-        tile_spmm.launches_bf16 += 1
+        count_launch(tile_spmm, "launches_bf16")
     else:
-        tile_spmm.launches += 1
+        count_launch(tile_spmm)
     return out
 
 

@@ -6,9 +6,13 @@ the lane holds a full ``batch_slots`` bucket (fill-flush) or its oldest
 request has spent ``flush_fraction`` of its deadline waiting
 (deadline-flush). When several lanes are due, the one with the least
 remaining budget flushes first. A bucket is sealed when the pump takes
-it, so admissions that land in between ride along. Backpressure is
-explicit: :class:`RejectedError` past ``queue_capacity``,
-:class:`OversizedError` for a graph no slot could hold.
+it, so admissions that land in between ride along. Both thresholds
+are live: :meth:`MicroBatcher.set_flush_policy` (the adaptive policy's
+levers, clamped here) moves the deadline fraction and the fill count,
+and drain mode makes every non-empty lane due at once (a replica
+leaving rotation). Backpressure is explicit: :class:`RejectedError` past
+``queue_capacity``, :class:`OversizedError` for a graph no slot could
+hold.
 """
 
 from __future__ import annotations
@@ -73,6 +77,43 @@ class MicroBatcher:
         self._pending: Dict[str, Deque[ServeRequest]] = {
             lane: collections.deque() for lane in lanes}
         self._lock = threading.Lock()
+        # Drain mode: any non-empty lane is due now, so a replica leaving
+        # rotation answers what it admitted without waiting out a flush.
+        self._drain_mode = False
+        # The live flush thresholds; the defaults are the config's.
+        self._flush_fraction = config.flush_fraction
+        self._fill_slots = config.batch_slots
+
+    def set_flush_policy(self, fraction: Optional[float] = None,
+                         fill_slots: Optional[int] = None) -> None:
+        """Retune the two flush thresholds. ``fraction`` clamps to
+        [flush_fraction_min, flush_fraction_max], ``fill_slots`` to
+        [1, batch_slots]: the clamp lives here, so no policy can push the
+        batcher past the band."""
+        with self._lock:
+            if fraction is not None:
+                self._flush_fraction = min(
+                    max(float(fraction), self.config.flush_fraction_min),
+                    self.config.flush_fraction_max)
+            if fill_slots is not None:
+                self._fill_slots = min(max(int(fill_slots), 1),
+                                       self.config.batch_slots)
+
+    @property
+    def flush_fraction(self) -> float:
+        return self._flush_fraction
+
+    @property
+    def fill_slots(self) -> int:
+        return self._fill_slots
+
+    def set_drain_mode(self, on: bool = True) -> None:
+        with self._lock:
+            self._drain_mode = bool(on)
+
+    @property
+    def drain_mode(self) -> bool:
+        return self._drain_mode
 
     @property
     def lanes(self) -> Tuple[str, ...]:
@@ -96,8 +137,7 @@ class MicroBatcher:
             if sum(len(q) for q in self._pending.values()) \
                     >= self.config.queue_capacity:
                 raise RejectedError(
-                    self.config.flush_fraction * self.config.deadline_ms
-                    / 1000.0)
+                    self._flush_fraction * self.config.deadline_ms / 1000.0)
             self._pending[req.lane].append(req)
 
     def due(self, now: float) -> Optional[str]:
@@ -109,10 +149,10 @@ class MicroBatcher:
             for lane, q in self._pending.items():
                 if not q:
                     continue
-                filled = len(q) >= self.config.batch_slots
+                filled = len(q) >= self._fill_slots
                 deadline_due = now >= min(
-                    r.flush_at(self.config.flush_fraction) for r in q)
-                if not (filled or deadline_due):
+                    r.flush_at(self._flush_fraction) for r in q)
+                if not (filled or deadline_due or self._drain_mode):
                     continue
                 remaining = min(r.arrival + r.deadline_s for r in q) - now
                 if best is None or remaining < best[0]:
@@ -126,8 +166,9 @@ class MicroBatcher:
             for q in self._pending.values():
                 if not q:
                     continue
-                when = (now if len(q) >= self.config.batch_slots
-                        else min(r.flush_at(self.config.flush_fraction)
+                when = (now if (len(q) >= self._fill_slots
+                                or self._drain_mode)
+                        else min(r.flush_at(self._flush_fraction)
                                  for r in q))
                 if t is None or when < t:
                     t = when
@@ -135,7 +176,9 @@ class MicroBatcher:
 
     def take(self, lane: str) -> List[ServeRequest]:
         """Pop the lane's next micro-batch (FIFO, up to batch_slots) — the
-        seal point of the bucket."""
+        seal point of the bucket. It always caps at the static
+        ``batch_slots``: the fill threshold decides when to flush, never
+        a new shape."""
         with self._lock:
             q = self._pending[lane]
             return [q.popleft()

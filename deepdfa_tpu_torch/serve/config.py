@@ -4,8 +4,10 @@
 Every batch shape the engine runs derives from this config alone: slot
 counts round up the power-of-two ladder (``select_bucket``), node and
 edge budgets scale per slot, the band bandwidth is pinned and the
-combined lane's token rows are ``block_size`` long. The gen lane's
-geometry, fleet geometry and adaptive flush are not ported yet.
+combined lane's token rows are ``block_size`` long. ``replicas`` sizes
+the serving fleet (``serve/fleet.py``) and the ``adaptive_*`` fields
+drive each replica's flush policy (``serve/policy.py``). The gen lane's
+geometry is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from deepdfa_tpu_torch.graphs.batch import select_bucket
+
+# The replica ids a fleet may use, fixed in code: every per-replica name
+# (a /metrics section, a pump thread) comes from this tuple, never from
+# runtime state. A wider fleet is a code change.
+REPLICA_IDS = ("r0", "r1", "r2", "r3", "r4", "r5", "r6", "r7")
+MAX_REPLICAS = len(REPLICA_IDS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +42,21 @@ class ServeConfig:
     latency_window: int = 8192
     # Pinned block-band width (1 covers any packing of <= 128-node graphs).
     band_bandwidth: int = 1
+    # Engine replicas behind the fleet's router, each on its own shard of
+    # the devices with its own batcher and pump thread.
+    replicas: int = 1
+    # Adaptive flush: each replica's policy moves its batcher's deadline
+    # fraction and fill threshold from its own p99 and occupancy, within
+    # [flush_fraction_min, flush_fraction_max], one adaptive_step after
+    # adaptive_patience consecutive signals, at most once an
+    # adaptive_interval_s of engine clock.
+    adaptive_flush: bool = False
+    flush_fraction_min: float = 0.1
+    flush_fraction_max: float = 0.9
+    adaptive_interval_s: float = 0.25
+    adaptive_step: float = 0.1
+    adaptive_patience: int = 2
+    adaptive_target_p99_frac: float = 0.8  # p99 target, share of deadline
 
     def __post_init__(self):
         if self.batch_slots < 1:
@@ -43,6 +66,16 @@ class ServeConfig:
         if self.queue_capacity < self.batch_slots:
             raise ValueError(
                 "queue_capacity below batch_slots could never fill a bucket")
+        if not 1 <= self.replicas <= MAX_REPLICAS:
+            raise ValueError(
+                f"replicas must be in [1, {MAX_REPLICAS}] (the replica ids "
+                "are fixed in REPLICA_IDS; grow it to go wider)")
+        if not (0.0 < self.flush_fraction_min
+                <= self.flush_fraction_max <= 1.0):
+            raise ValueError(
+                "need 0 < flush_fraction_min <= flush_fraction_max <= 1")
+        if self.adaptive_patience < 1:
+            raise ValueError("adaptive_patience must be >= 1")
 
     @property
     def slot_buckets(self) -> List[int]:

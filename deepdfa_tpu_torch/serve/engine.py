@@ -23,10 +23,15 @@ is built and loaded before the first request. ``stats.compiles`` counts
 warmed pairs, and also a flush of a pair warmup did not run: after
 warmup it must not move (``compiles_after_warmup`` stays 0).
 
-Time comes from an injected ``clock`` (monotonic seconds); virtual
-clocks exposing ``advance(dt)`` are advanced by each flush's measured
-time, as in the reference. The gen lane, fleet, policy, telemetry spans,
-fault-injection hooks and lame-duck drain are not ported yet.
+Time comes from an injected ``clock`` (monotonic seconds). A clock with
+``flush_done(dt)`` (a fleet replay's replica timeline) takes each
+flush's measured time and returns its completion time; otherwise a
+virtual clock exposing ``advance(dt)`` is advanced by it, as in the
+reference. In a fleet (``serve/fleet.py``) an engine carries its
+``replica`` id, its adaptive flush ``policy`` (driven from ``pump``), the
+requests of the flush it is running (``in_flight``, the router's busy
+signal) and its lame-duck state. The gen lane, telemetry spans and
+fault-injection hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -100,15 +105,26 @@ class ServeEngine:
     ``combined_model`` (a ``LineVul`` with a graph encoder) and
     ``tokenizer``: the DeepDFA+LineVul lane for requests that carry
     source code. The models move to ``device`` (default ``cuda``; raises
-    without CUDA unless "cpu" is asked for). ``submit`` may run on
-    several threads; ``pump``/``drain`` on one.
+    without CUDA unless "cpu" is asked for). ``replica``: the engine's id
+    in a fleet (one of ``REPLICA_IDS``); ``policy``: its adaptive flush
+    controller. ``submit`` may run on several threads; ``pump``/``drain``
+    on one.
     """
 
     def __init__(self, gnn_model: FlowGNN, config: Optional[ServeConfig] = None,
                  clock: Callable[[], float] = time.monotonic,
                  device: DeviceLike = None, combined_model=None,
-                 tokenizer=None):
+                 tokenizer=None, replica: Optional[str] = None,
+                 policy=None):
         self.config = config or ServeConfig()
+        self.replica = replica
+        self.policy = policy
+        # Requests of the flush now running (the router reads it to send
+        # arrivals to a replica that is not mid-flush).
+        self.in_flight = 0
+        # Lame duck (enter_lame_duck): the batcher flushes at once and the
+        # fleet's router stops choosing this engine.
+        self.lame_duck = False
         self.device = resolve_device(device)
         self.model = gnn_model.to(self.device)
         self._infer = make_gnn_infer(self.model)
@@ -134,6 +150,11 @@ class ServeEngine:
 
     def now(self) -> float:
         return self._clock()
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        """The injected clock (the fleet replay reads its timelines)."""
+        return self._clock
 
     @property
     def required_subkeys(self) -> List[str]:
@@ -288,6 +309,10 @@ class ServeEngine:
             if reqs:
                 self._run_batch(lane, reqs)
                 n += 1
+        if self.policy is not None:
+            # Rate-limited inside, on the engine clock, so a replayed
+            # policy decides the same way every run.
+            self.policy.maybe_update(self)
         return n
 
     def drain(self) -> int:
@@ -304,6 +329,18 @@ class ServeEngine:
     def pending(self) -> int:
         return self.batcher.depth()
 
+    def load(self) -> int:
+        """Queued and in-flight requests: the fleet router's load signal."""
+        return self.batcher.depth() + self.in_flight
+
+    def enter_lame_duck(self) -> None:
+        """Flush partially filled buckets at once from now on, so the pump
+        answers every admitted request as fast as the device allows (the
+        fleet stops routing here). Idempotent."""
+        if not self.lame_duck:
+            self.lame_duck = True
+            self.batcher.set_drain_mode(True)
+
     def next_flush_time(self) -> Optional[float]:
         return self.batcher.next_flush_time(self._clock())
 
@@ -314,6 +351,7 @@ class ServeEngine:
         budget = self.config.budget_for(
             slots, tile=DEFAULT_TILE if band else None)
         e_used = sum(int(r.graph["num_nodes"]) for r in reqs)
+        self.in_flight = len(reqs)
         try:
             # One host transfer per micro-batch (it is also the flush's
             # device barrier).
@@ -323,6 +361,7 @@ class ServeEngine:
         except Exception as e:
             # Flush isolation: this micro-batch's requests fail (HTTP 500
             # class); the queue keeps draining.
+            self.in_flight = 0
             logger.exception("micro-batch failed (%s lane, %d requests)",
                              lane_name, len(reqs))
             self.stats.bump("failures", by=len(reqs))
@@ -332,10 +371,17 @@ class ServeEngine:
                           "cached": False, "degraded": r.degraded})
             return
         elapsed = time.perf_counter() - w0
-        advance = getattr(self._clock, "advance", None)
-        if advance is not None:
-            advance(elapsed)
-        done = self._clock()
+        flush_done = getattr(self._clock, "flush_done", None)
+        if flush_done is not None:
+            # A replica timeline: the flush runs on this replica's own
+            # busy horizon, so N replicas' flushes overlap in the replay.
+            done = flush_done(elapsed)
+        else:
+            advance = getattr(self._clock, "advance", None)
+            if advance is not None:
+                advance(elapsed)
+            done = self._clock()
+        self.in_flight = 0
         self.stats.record_batch(len(reqs), slots, lane=lane_name,
                                 elems_used=e_used,
                                 elems_per_slot=self.config.max_nodes_per_graph,

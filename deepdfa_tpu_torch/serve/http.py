@@ -1,6 +1,5 @@
-"""A JSON endpoint over one serving engine, on the standard library's
-``http.server`` (port of the single-engine part of
-``deepdfa_tpu/serve/http.py``).
+"""A JSON endpoint over a serving engine or fleet, on the standard
+library's ``http.server`` (port of ``deepdfa_tpu/serve/http.py``).
 
     POST /score
         {"functions": [{"id"?, "graph": {"num_nodes", "senders",
@@ -16,13 +15,15 @@
         -> 500 {"results": [{"error": "internal", ...}, ...]} when every
            function died in a failed micro-batch (flush isolation: only
            that flush fails, the queue keeps draining)
-    GET /metrics -> the engine's ServingStats snapshot as JSON (queue
-                    depth, occupancy, p50/p99 latency, cache hit rate,
-                    compile count; ``n_replicas`` and ``replicas`` as the
-                    reference's one-replica fleet reports them), and the
-                    process's ``kernel_launches`` by kernel name
+    GET /metrics -> the fleet's snapshot as JSON (queue depth,
+                    occupancy, p50/p99 latency, cache hit rate, compile
+                    count, summed over the replicas; ``n_replicas`` and
+                    each replica's own snapshot under ``replicas``), and
+                    the process's ``kernel_launches`` by kernel name
     GET /healthz -> {"status": "ok", "warm_buckets": N} (+ the card's
-                    allocated and peak bytes on CUDA)
+                    allocated and peak bytes on CUDA; + a ``fleet``
+                    section with more than one replica: some replicas
+                    draining reads "degraded", all "draining", both 503)
     anything else -> 404 {"error": "not_found"}
 
 A function whose code scores on the combined lane answers
@@ -31,11 +32,13 @@ lane's probability with ``"degraded": true``. The reference answers an
 all-oversized POST 200 with the errors inline; here it is 413, the
 errors still inline.
 
-Transport threads (``ThreadingHTTPServer``, one a connection) submit and
-block on each request's event; one pump thread owns execution, waking at
-the batcher's flush horizon, so no device work runs on a transport
-thread. The reference's telemetry (``telemetry_drops``, trace context),
-SLO monitor, scan service, fleet and lame-duck drain are not ported yet.
+Transport threads (``ThreadingHTTPServer``, one a connection) submit
+through the fleet's router and block on each request's event; each
+replica has one pump thread that owns its execution, waking at its
+batcher's flush horizon, so no device work runs on a transport thread.
+The reference's telemetry (``telemetry_drops``, trace context), SLO
+monitor, scan service and server-wide lame-duck drain are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from typing import Dict, Optional, Tuple
 
 from deepdfa_tpu_torch.serve.batcher import OversizedError, RejectedError
 from deepdfa_tpu_torch.serve.engine import BadRequestError, ServeEngine
+from deepdfa_tpu_torch.serve.fleet import ServeFleet
 
 logger = logging.getLogger(__name__)
 
@@ -57,8 +61,6 @@ logger = logging.getLogger(__name__)
 # spin.
 _PUMP_MIN_SLEEP_S = 0.002
 _PUMP_MAX_SLEEP_S = 0.050
-# The reference's one-replica fleet names its replica so.
-_REPLICA_ID = "r0"
 
 
 def _retry_header(seconds: float) -> Dict[str, str]:
@@ -67,11 +69,13 @@ def _retry_header(seconds: float) -> Dict[str, str]:
 
 
 class _PumpThread(threading.Thread):
-    """The engine's one execution thread: pumps whatever is due, then
-    sleeps until the batcher's next flush horizon; drains on stop."""
+    """One replica's execution thread: pumps whatever is due, then sleeps
+    until its batcher's next flush horizon; drains on stop."""
 
     def __init__(self, engine: ServeEngine):
-        super().__init__(name="serve-pump", daemon=True)
+        super().__init__(name=(f"serve-pump-{engine.replica}"
+                               if engine.replica else "serve-pump"),
+                         daemon=True)
         self.engine = engine
         self._halt = threading.Event()
 
@@ -117,17 +121,27 @@ class ServeHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self) -> None:
-        engine = self.server.engine
+        fleet = self.server.fleet
         if self.path == "/healthz":
-            doc: Dict = {"status": "ok", "warm_buckets": engine.n_warm}
-            if engine.device.type == "cuda":
+            doc: Dict = {"status": "ok", "warm_buckets": fleet.n_warm}
+            if fleet.size > 1:
+                # A replica mid-roll degrades the fleet (part of its
+                # capacity is out) without taking it out of rotation.
+                health = fleet.health()
+                doc["fleet"] = health
+                if health["live"] == 0:
+                    doc["status"] = "draining"
+                elif health["live"] < health["size"]:
+                    doc["status"] = "degraded"
+            device = self.server.engine.device
+            if device.type == "cuda":
                 import torch
 
                 doc["device_bytes_in_use"] = torch.cuda.memory_allocated(
-                    engine.device)
+                    device)
                 doc["device_peak_bytes_in_use"] = \
-                    torch.cuda.max_memory_allocated(engine.device)
-            self._send_json(200, doc)
+                    torch.cuda.max_memory_allocated(device)
+            self._send_json(200 if doc["status"] == "ok" else 503, doc)
         elif self.path == "/metrics":
             self._send_json(200, self.server.metrics())
         else:
@@ -151,13 +165,13 @@ class ServeHandler(BaseHTTPRequestHandler):
         except Exception as e:
             self._send_json(400, {"error": "bad_request", "detail": str(e)})
             return
-        engine = self.server.engine
+        fleet = self.server.fleet
         submitted, results = [], []
         for fn in functions:
             entry: Dict = {}
             try:
                 lane = fn.get("lane")
-                req = engine.submit(
+                req = fleet.submit(
                     fn["graph"] if lane != "gen" else fn.get("graph"),
                     code=fn.get("code"), deadline_ms=deadline_ms, lane=lane)
                 submitted.append((req, entry))
@@ -188,7 +202,7 @@ class ServeHandler(BaseHTTPRequestHandler):
             return
         # Block until the pump answers each admitted request; generous,
         # so a stuck pump surfaces as an error rather than a hang.
-        wait_s = ((deadline_ms or engine.config.deadline_ms) / 1000.0) \
+        wait_s = ((deadline_ms or fleet.config.deadline_ms) / 1000.0) \
             * 10 + 30.0
         for req, entry in submitted:
             if req.event.wait(timeout=wait_s) and req.result is not None:
@@ -201,45 +215,58 @@ class ServeHandler(BaseHTTPRequestHandler):
 
 
 class ServeHTTPServer(ThreadingHTTPServer):
-    """The threaded HTTP server over ``engine`` with its pump thread
-    (started by :meth:`start_pump`, stopped and drained by
+    """The threaded HTTP server over ``engine`` (a ``ServeEngine``, taken
+    as a one-replica fleet, or a ``ServeFleet``) with one pump thread a
+    replica (started by :meth:`start_pump`, stopped and drained by
     :meth:`shutdown`)."""
 
     daemon_threads = True
+    # The listen backlog: socketserver's default of 5 drops the SYNs of a
+    # burst of new connections beyond it, and each dropped client retries
+    # a second later (16 clients on a 2-replica fleet: p99 over 1 s).
+    request_queue_size = 128
 
-    def __init__(self, address: Tuple[str, int], engine: ServeEngine):
+    def __init__(self, address: Tuple[str, int], engine):
         super().__init__(address, ServeHandler)
-        self.engine = engine
-        self.pump_thread = _PumpThread(engine)
+        self.fleet = (engine if isinstance(engine, ServeFleet)
+                      else ServeFleet.from_engine(engine))
+        self.pump_threads = [_PumpThread(r.engine)
+                             for r in self.fleet.replicas]
+        self.pump_thread = self.pump_threads[0]
+
+    @property
+    def engine(self) -> ServeEngine:
+        """The primary replica's engine."""
+        return self.fleet.primary.engine
 
     def metrics(self) -> Dict:
-        """The ``/metrics`` body: the engine's snapshot, with the
-        reference's one-replica fleet sections, and every kernel's
+        """The ``/metrics`` body: the fleet's snapshot and every kernel's
         launches in this process (a client reads them before and after
         its traffic)."""
         from deepdfa_tpu_torch.ops import launch_counts
 
-        snap = self.engine.snapshot()
-        replica = dict(snap, lame_duck=False, in_flight=0)
-        return dict(snap, n_replicas=1, replicas={_REPLICA_ID: replica},
-                    kernel_launches=launch_counts())
+        return dict(self.fleet.snapshot(), kernel_launches=launch_counts())
 
     def start_pump(self) -> None:
-        self.pump_thread.start()
+        for t in self.pump_threads:
+            t.start()
 
     def shutdown(self) -> None:  # type: ignore[override]
-        self.pump_thread.stop()
+        for t in self.pump_threads:
+            t.stop()
         super().shutdown()
-        self.pump_thread.join(timeout=10.0)
+        for t in self.pump_threads:
+            t.join(timeout=10.0)
 
 
-def serve_forever(engine: ServeEngine, host: str = "127.0.0.1",
+def serve_forever(engine, host: str = "127.0.0.1",
                   port: int = 8080, port_file: Optional[str] = None) -> None:
-    """Blocking entry: start the pump and serve until interrupted.
-    Ctrl-C (KeyboardInterrupt) shuts the server down cleanly: the pump
-    answers what is queued and the socket closes. ``port_file`` gets the
-    bound port after bind (how a client finds an ephemeral ``port=0``).
-    Warm the engine first."""
+    """Blocking entry: start the pumps and serve until interrupted.
+    ``engine`` is a ``ServeEngine`` or a ``ServeFleet`` (one pump thread
+    a replica). Ctrl-C (KeyboardInterrupt) shuts the server down cleanly:
+    the pumps answer what is queued and the socket closes. ``port_file``
+    gets the bound port after bind (how a client finds an ephemeral
+    ``port=0``). Warm the engine or fleet first."""
     server = ServeHTTPServer((host, port), engine)
     thread = threading.Thread(target=server.serve_forever,
                               name="serve-http", daemon=True)
@@ -251,8 +278,9 @@ def serve_forever(engine: ServeEngine, host: str = "127.0.0.1",
             with open(tmp, "w", encoding="utf-8") as f:
                 f.write(str(server.server_address[1]))
             os.replace(tmp, port_file)
-        logger.info("serving on %s:%d (%d warm buckets)", host,
-                    server.server_address[1], engine.n_warm)
+        logger.info("serving on %s:%d (%d replica(s), %d warm buckets)",
+                    host, server.server_address[1], server.fleet.size,
+                    server.fleet.n_warm)
         try:
             while thread.is_alive():
                 thread.join(timeout=0.5)
@@ -260,8 +288,10 @@ def serve_forever(engine: ServeEngine, host: str = "127.0.0.1",
             logger.info("interrupted: shutting down")
     finally:
         if thread.is_alive():
-            server.shutdown()  # the pump drains and stops too
-        elif server.pump_thread.is_alive():
-            server.pump_thread.stop()
-            server.pump_thread.join(timeout=10.0)
+            server.shutdown()  # the pumps drain and stop too
+        else:
+            for pump in server.pump_threads:
+                if pump.is_alive():
+                    pump.stop()
+                    pump.join(timeout=10.0)
         server.server_close()

@@ -50,7 +50,10 @@ of the per-step ones at the serving and
 training shapes, with bf16 and f32 band values, the K-step VJP to the
 step VJP's scan in all seven outputs; a batch over their gate trains
 through the per-step instances, and a bf16 ``fit`` on the persistent
-lane gives the CPU's losses.
+lane gives the CPU's losses. A 2-replica serving fleet on the one card
+answers with the single engine's bits on the persistent and fused lanes
+at f32 and bf16, and after a threaded HTTP run on its two pump threads
+the kernel's launch count is exactly its flushes'.
 """
 
 import dataclasses
@@ -2358,3 +2361,93 @@ def test_bf16_over_bwd_gate_batch_trains_through_the_per_step_instances(
             continue
         gap = float((p.grad.cpu() - q.grad).abs().max())
         assert gap <= 5e-2 * float(q.grad.abs().max()), (name, gap)
+
+
+# ---------------------------------------------------------------------------
+# The serving fleet on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["persistent", "fused"])
+def test_fleet_on_one_card_equals_one_engine(cuda, impl, dtype):
+    """Two replicas on the one card (sharing its model) answer 96
+    requests with the single engine's bits, both replicas flushing and
+    nothing compiled after warmup."""
+    from deepdfa_tpu_torch.serve import ServeEngine, ServeFleet
+
+    cfg = FlowGNNConfig(message_impl=impl, dtype=dtype)
+    model = FlowGNN(cfg, device=cuda, seed=4)
+    config = ServeConfig(batch_slots=8)
+    graphs = synthetic_bigvul(96, cfg.feature, seed=6)
+    single = ServeEngine(model, config, device=cuda)
+    single.warmup()
+    want = [r["prob"] for r in single.score_sync(graphs)]
+    fleet = ServeFleet.build(model, config, n_replicas=2, devices=[cuda])
+    fleet.warmup()
+    got = [r["prob"] for r in fleet.score_sync(graphs)]
+    assert got == want
+    assert all(r.engine.model is model for r in fleet.replicas)
+    assert all(r.engine.stats.batches for r in fleet.replicas)
+    assert fleet.compiles_after_warmup == 0
+
+
+def test_fleet_http_pump_threads_count_every_launch(cuda):
+    """Two pump threads launching on one card: after a threaded HTTP run
+    the persistent kernel's count is exactly the flushes' launches (one
+    a flush), none lost between the threads."""
+    import json
+    import threading
+    import urllib.request
+
+    from deepdfa_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepdfa_tpu_torch.serve import ServeFleet
+    from deepdfa_tpu_torch.serve.http import ServeHTTPServer
+
+    cfg = FlowGNNConfig(message_impl="persistent")
+    model = FlowGNN(cfg, device=cuda, seed=5)
+    fleet = ServeFleet.build(model, ServeConfig(batch_slots=4,
+                                                deadline_ms=20.0),
+                             n_replicas=2, devices=[cuda])
+    fleet.warmup()
+    server = ServeHTTPServer(("127.0.0.1", 0), fleet)
+    server.start_pump()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    graphs = synthetic_bigvul(192, cfg.feature, seed=7)
+    answers = []
+
+    def client(part):
+        for g in part:
+            doc = {"functions": [{"graph": {
+                "num_nodes": int(g["num_nodes"]),
+                "senders": np.asarray(g["senders"]).tolist(),
+                "receivers": np.asarray(g["receivers"]).tolist(),
+                "feats": {k: np.asarray(v).tolist()
+                          for k, v in g["feats"].items()}}}]}
+            req = urllib.request.Request(
+                f"{base}/score", data=json.dumps(doc).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                answers.append(json.loads(resp.read())["results"][0])
+
+    try:
+        reset_launch_counts()
+        clients = [threading.Thread(target=client, args=(graphs[i::12],))
+                   for i in range(12)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=120)
+        assert not any(c.is_alive() for c in clients)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        snap = fleet.snapshot()
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert len(answers) == 192 and all("prob" in a for a in answers)
+    assert all(m["batches"] for m in snap["replicas"].values())
+    assert launches["persistent_fwd_kernel"] + model.over_gate_dispatches \
+        == snap["batches"] > 0
+    assert sum(launches.values()) == launches["persistent_fwd_kernel"]
