@@ -281,6 +281,25 @@ one:
    flat, ``persistent_fwd_kernel``'s launches those of the flushes
    (two pump threads counting), HTTP p50/p99 and requests/s.
 
+31. Serving as captured CUDA graphs (in a process of its own,
+   run last): nine engines at the published FlowGNN width (the gnn lane
+   on the persistent, fused, band and segment lanes at f32 and bf16, and
+   the combined lane at codebert-base width, block 512, at f32) each
+   capture every (lane, slot bucket) pair once at warmup; on each bucket
+   the replay equals the eager forward (the lane's forward op by op on
+   a fresh device copy of the packed batch) bit for bit on a full batch and on a partial batch
+   after it, with eager and replay flush wall ms and device ms (medians
+   of 20) and the staged bytes; 20 replays of the 16-slot pair under
+   torch.profiler, each port kernel name's launches equal to what its
+   launch counters moved by; ``bursty_trace(200, seed=1)`` replayed on
+   the engine's virtual clock with nothing captured after warmup; each
+   engine's graph-pool bytes. Phase 3 also holds ``segment_sum_kernel``
+   (the pooling's per-graph sums) and phase 25 ``segment_sum_kernel_bf16``
+   (the segment lane's bf16 aggregate) bit for bit to their plain
+   versions at the serving bucket, beside their bounds and ``index_add_``;
+   phases 4-5, 18-19, 26 and 30 serve through the captured graphs, phase
+   30's roll with no capture after warmup.
+
 Each phase's seconds go into a ``phase_seconds`` record. Each main-path
 run sets every kernel's launch count to 0 just before it and reads the
 counts just after. Every number goes on a line of its own before the
@@ -343,6 +362,7 @@ from deepdfa_tpu_torch.data.text import (
     encode_function,
     load_bpe_tokenizer,
 )
+from deepdfa_tpu_torch.graphs import segment
 from deepdfa_tpu_torch.graphs.batch import (
     batch_graphs,
     batch_iterator,
@@ -528,6 +548,16 @@ REPLACES["tile_spmm_kernel"] = "deepdfa_tpu/ops/tile_spmm.py:364"
 SOURCES["tile_spmm_kernel"] = "deepdfa_tpu_torch/csrc/tile_spmm.cu"
 REPLACES["tile_spmm_kernel_bf16"] = REPLACES["tile_spmm_kernel"]
 SOURCES["tile_spmm_kernel_bf16"] = SOURCES["tile_spmm_kernel"]
+# The port's own kernel, no Pallas site: the ordered segment sum
+# (graphs/segment.py) stands where the reference leaves
+# jax.ops.segment_sum to XLA (the segment lane's aggregate, the pooling's
+# per-graph sums); its f32 instance serves the pooling on the card.
+for _name in ("segment_sum_kernel", "segment_sum_kernel_bf16"):
+    REPLACES[_name] = "deepdfa_tpu/graphs/segment.py:24"
+    SOURCES[_name] = "deepdfa_tpu_torch/csrc/segment_sum.cu"
+# What index_add_ (the library_ms of the segment sums) computes of them:
+# the same sums, in the order its atomics arrive.
+SEGMENT_LIBRARY_COVERS = ["the per-bucket sums, by index_add_"]
 # A bf16 persistent sweep's output against its plain version over the 5
 # steps: a value one bf16 step apart carries onward, as in the forward
 # (GNN_BF16_UNROLL_TOL): within 5e-2 of the element plus 5e-2 of the
@@ -761,6 +791,46 @@ def _as_list(out) -> list:
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
+def _segment_record(phase: str, name: str, data, ids, n, mask) -> dict:
+    """The ordered segment sum (``name``'s instance) against its plain
+    version, bit for bit, timed (the wrapper's call: the mask's keying,
+    the device index plan and the kernel) beside its bound (the rows the
+    mask keeps read once, the ids and the mask read once, the output
+    written once, over 3.35 TB/s; an add a kept element at the f32 SIMT
+    rate), its plain version and ``index_add_`` on the same rows (the
+    same sums in its atomics' order)."""
+    kernel = lambda: segment.segment_sum_rows(data, ids, n, mask=mask)
+    keyed = segment._bucket_ids(ids, n, mask)
+    plain = lambda: segment._segment_sum_ordered(data, keyed, n)
+    library = lambda: torch.zeros(
+        (n + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
+        device=data.device).index_add_(0, keyed, data)[:n]
+    before = launch_counts()[name]
+    got = kernel()
+    launches = launch_counts()[name] - before
+    _same_bits(f"{name} vs its plain version", [got], [plain()])
+    err = float((got.float() - library().float()).abs().max())
+    cols = int(np.prod(data.shape[1:]))
+    kept = data.shape[0] if mask is None else int(mask.sum())
+    nbytes = (_nbytes(ids, mask) + (kept + n) * cols * data.element_size())
+    flops = float(kept * cols)
+    t_ops, t_bytes = flops / 67e12, nbytes / PEAK_BYTES_PER_S
+    rec = dict(kernel=name, rows=data.shape[0], kept_rows=kept, cols=cols,
+               buckets=n,
+               dtype=str(data.dtype), max_abs_err=0.0,
+               max_abs_diff_vs_index_add=err, plain_bits_equal=True,
+               kernel_ms=_time_ms(kernel), plain_ms=_time_ms(plain),
+               library_ms=_time_ms(library),
+               library_covers=SEGMENT_LIBRARY_COVERS,
+               bound_us=max(t_ops, t_bytes) * 1e6,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_peak="f32 SIMT FMA, 67 TFLOP/s",
+               bound_peak_tflops=67.0, bytes=nbytes, flops=flops,
+               launches=launches)
+    emit(phase=phase, **rec)
+    return rec
+
+
 def phase_kernels(model: FlowGNN) -> dict:
     """Both kernels against their plain versions at both shapes; returns
     the serving-shape numbers by kernel."""
@@ -850,6 +920,16 @@ def phase_kernels(model: FlowGNN) -> dict:
                      bytes=cost["bytes"], launches=launches,
                      **_step_geometry(adj, cfg.ggnn_hidden,
                                       "fused_step_bwd_kernel"))
+        # The pooling's per-graph sums at the serving bucket: the weighted
+        # node rows (the GGNN output beside the embedding) by graph.
+        batch = _serving_batch(model)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = torch.randn((batch.max_nodes, cfg.out_dim), generator=gen,
+                           device="cuda")
+        rows = torch.where(batch.node_mask[:, None], rows, 0.0)
+        serving["segment_sum_kernel"] = _segment_record(
+            "kernels", "segment_sum_kernel", rows, batch.node_graph,
+            batch.n_graphs, batch.node_mask)
     return serving
 
 
@@ -861,27 +941,28 @@ def _requests():
 
 
 def _flush_breakdown(engine: ServeEngine, graphs, reps: int = 10) -> dict:
-    """Median host seconds of one full 16-slot flush's parts: packing the
-    batch on the host, the copy to the card, and the forward (launches
-    and device work, ended by a synchronize); plus the forward's device
-    time from CUDA events."""
+    """Median host ms of one full 16-slot flush's parts: packing the batch
+    on the host, staging it into the pair's buffers and on to the card in
+    one transfer, and the forward (the pair's graph replayed, ended by a
+    synchronize); plus the replay's device time from CUDA events."""
     parts = {"pack_ms": [], "to_device_ms": [], "forward_ms": [],
              "forward_device_ms": []}
     slots = engine.config.batch_slots
     for _ in range(reps):
         t0 = time.perf_counter()
-        gb = bucket_batch(engine.config, graphs, slots,
-                          engine.required_subkeys, band=True)
+        gb, ids = engine._pack("gnn", graphs, slots)
         t1 = time.perf_counter()
-        gb = gb.to(engine.device)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        engine._infer(gb)
-        end.record()
-        torch.cuda.synchronize()
+        with engine._on_stream():
+            prog = engine._program("gnn", slots, gb, ids)
+            prog.staged.stage(gb, ids)
+            torch.cuda.current_stream().synchronize()
+            t2 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog.graph.replay()
+            end.record()
+            end.synchronize()
         t3 = time.perf_counter()
         parts["pack_ms"].append((t1 - t0) * 1e3)
         parts["to_device_ms"].append((t2 - t1) * 1e3)
@@ -958,7 +1039,8 @@ def phase_serve(impl: str, dtype: str = "float32") -> dict:
         raise AssertionError(f"{impl}: |cuda - cpu| prob {max_diff:.3e} > "
                              f"{tol}")
     rec = dict(phase="serve", message_impl=impl, dtype=dtype,
-               warmed_buckets=warmed,
+               warmed_buckets=warmed, graphs_captured=engine.graphs_captured,
+               graph_pool_bytes=engine.graph_pool_bytes,
                warmup_s=warm_s, requests=len(results), flushes=flushes,
                cache_hits=snap["cache_hits"], launches=launches,
                over_gate_dispatches=model.over_gate_dispatches,
@@ -1071,6 +1153,17 @@ def phase_kernels_bf16(model: FlowGNN) -> dict:
                     emit(phase="kernels_bf16", **rec)
                     if shape == "serving" and vals == "bf16":
                         serving[name] = rec
+        # The segment lane's aggregate at bf16 at the serving bucket: each
+        # edge's message summed into its receiver in edge order, rounded
+        # after each add, the padded edges left out.
+        batch = _serving_batch(model)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        msg = torch.randn((batch.max_edges, cfg.ggnn_hidden), generator=gen,
+                          device="cuda").bfloat16()
+        msg = torch.where(batch.edge_mask[:, None], msg, 0.0)
+        serving["segment_sum_kernel_bf16"] = _segment_record(
+            "kernels_bf16", "segment_sum_kernel_bf16", msg, batch.receivers,
+            batch.max_nodes, batch.edge_mask)
     return serving
 
 
@@ -2128,7 +2221,8 @@ def phase_train_bf16(f32: dict) -> dict:
 
 
 #: Phases run in a process of their own (``_phase_in_child``).
-CHILD_PHASES = {"train_bf16": phase_train_bf16}
+CHILD_PHASES = {"train_bf16": phase_train_bf16,
+                "serve_graphs": lambda arg: phase_serve_graphs(arg)}
 
 
 def _phase_in_child(name: str, arg: dict) -> dict:
@@ -2559,7 +2653,13 @@ def phase_fit_text() -> dict:
     losses = _text_steps(history)
     val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
     layers = enc.num_layers
+    gnn = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
     _require_launches("fit_text", launches, {
+        **{k: v for k, v in gnn.items() if v},
         "flash_fwd_kernel": layers * (len(losses) + val_batches),
         "flash_bwd_fused_kernel": layers * len(losses)})
     batch = next(text_loop.text_graph_batches(data, splits["train"],
@@ -2654,12 +2754,14 @@ def phase_fit_text_vs_cpu(message_impl: str = "segment") -> dict:
         raise AssertionError(f"fit_text card {losses} against cpu "
                              f"{cpu_losses} (limit {TEXT_LOSS_TOL})")
     val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
-    want = {"flash_fwd_kernel": enc.num_layers * (3 + val_batches),
+    gnn = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    want = {**{k: v for k, v in gnn.items() if v},
+            "flash_fwd_kernel": enc.num_layers * (3 + val_batches),
             "flash_bwd_fused_kernel": enc.num_layers * 3}
-    if graph_cfg.uses_tile_adj:
-        # The graph encoder: n_steps launches forward, n_steps backward a
-        # train step; n_steps forward an evaluation batch.
-        want["tile_spmm_kernel"] = graph_cfg.n_steps * (2 * 3 + val_batches)
     _require_launches(f"fit_text vs cpu ({message_impl})", launches, want)
     rec = dict(phase="fit_text_vs_cpu", graph_message_impl=message_impl,
                layers=enc.num_layers,
@@ -2747,7 +2849,13 @@ def phase_fit_text_long() -> dict:
     losses = _text_steps(history)
     steps = len(losses)
     val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
+    gnn = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
     _require_launches("fit_text at T 4096", launches, {
+        **{k: v for k, v in gnn.items() if v},
         "flash_fwd_kernel": enc.num_layers * (steps + val_batches),
         "flash_bwd_dq_kernel": enc.num_layers * steps,
         "flash_bwd_dkv_kernel": enc.num_layers * steps})
@@ -2954,8 +3062,15 @@ def phase_fit_text_long_bf16() -> dict:
     losses = _text_steps(history)
     steps = len(losses)
     val_batches = -(-len(splits["val"]) // tcfg.eval_batch_size)
-    _require_launches("fit_text bf16 at T 4096", launches, _flash_want(
-        enc.num_layers, steps + val_batches, steps, two_pass=True))
+    gnn = _sum_launches(
+        _gnn_lane_launches(graph_cfg, data, splits["train"], tcfg, kw,
+                           train=True, shuffle_seed=TEXT_SEED),
+        _gnn_lane_launches(graph_cfg, data, splits["val"], tcfg, kw,
+                           train=False))
+    _require_launches("fit_text bf16 at T 4096", launches, {
+        **{k: v for k, v in gnn.items() if v},
+        **_flash_want(enc.num_layers, steps + val_batches, steps,
+                      two_pass=True)})
     if two_pass != enc.num_layers * steps:
         raise AssertionError(f"{two_pass} two-pass dispatches")
     batch = next(text_loop.text_graph_batches(data, splits["train"],
@@ -3194,7 +3309,9 @@ def _recipe(root: str) -> dict:
         "flash_fwd_kernel": enc.num_layers * batches,
         "flash_bwd_fused_kernel": enc.num_layers * steps,
         "persistent_fwd_kernel": batches - over_gate,
-        "fused_step_kernel": graph_cfg.n_steps * over_gate})
+        "fused_step_kernel": graph_cfg.n_steps * over_gate,
+        # The frozen encoder's pooling: two per-graph sums a batch.
+        "segment_sum_kernel": 2 * batches})
 
     # The frozen encoder: T's best holds D's best encoder bit for bit,
     # and the pooling at the combined model's seeded init.
@@ -3994,9 +4111,10 @@ def _combined_bucket_ms(run: str) -> dict:
     events; ``busy_ms`` and ``kernels``, the device-busy ms and kernel
     launches a forward under ``torch.profiler``), and the whole flush
     (``flush_wall_ms``, host clock: packing on the host, the copies, the
-    forward)."""
+    forward: the pair's graph replayed)."""
     engine, _, _ = cli._build_serve_engine(_serve_args(run, "persistent",
                                                        "cuda"))
+    engine.warmup()
     graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=SEED + 9)
     texts = attach_synthetic_text([dict(g) for g in graphs], seed=TEXT_SEED)
     reqs = []
@@ -4006,11 +4124,10 @@ def _combined_bucket_ms(run: str) -> dict:
             rid=i, key="", graph=norm, lane="combined", arrival=0.0,
             deadline_s=0.1, input_ids=encode_function(
                 t["code"], engine.tokenizer, engine.config.block_size)))
-    lane = engine._lanes["combined"]
     out = {}
     for slots in engine.config.slot_buckets:
-        gb = engine._graph_batch(lane, [r.graph for r in reqs[:slots]],
-                                 slots)
+        gb = engine._pack("combined", [r.graph for r in reqs[:slots]],
+                          slots)[0].to("cuda")
         ids = torch.from_numpy(np.stack(
             [r.input_ids for r in reqs[:slots]])).to("cuda")
         with torch.inference_mode():
@@ -4472,6 +4589,7 @@ def _fleet_http(model: FlowGNN) -> dict:
     fleet = ServeFleet.build(model, ServeConfig(adaptive_flush=True),
                              n_replicas=FLEET_HTTP_REPLICAS)
     fleet.warmup()
+    captured = fleet.graphs_captured
     server = ServeHTTPServer(("127.0.0.1", 0), fleet)
     server.start_pump()
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -4552,6 +4670,8 @@ def _fleet_http(model: FlowGNN) -> dict:
             or any(m1[k] != v for k, v in sections.items())
             or m1["compiles"] != m0["compiles"]
             or fleet.compiles_after_warmup != 0 or m1["failures"]
+            or m1["compiles_after_warmup"] != 0
+            or fleet.graphs_captured != captured
             or launches["persistent_fwd_kernel"] + over != flushes
             or not all(m["batches"] for m in m1["replicas"].values())):
         raise AssertionError(
@@ -4571,7 +4691,8 @@ def _fleet_http(model: FlowGNN) -> dict:
                                  m1["replicas"].items()},
                 policy_decisions=[r.engine.policy.decisions
                                   for r in fleet.replicas],
-                compiles=m1["compiles"], launches=launches)
+                compiles=m1["compiles"], graphs_captured=captured,
+                graph_pool_bytes=m1["graph_pool_bytes"], launches=launches)
 
 
 def phase_fleet() -> dict:
@@ -4590,6 +4711,247 @@ def phase_fleet() -> dict:
                launches=launches)
     emit(**rec)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Serving as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+# Every (lane, bucket) pair the engine captures: the gnn lane on each
+# message lane at f32 and bf16, and the combined lane (codebert-base,
+# block 512) at f32, each at the published FlowGNN width.
+SERVE_GRAPH_LANES = tuple(("gnn", impl, dtype)
+                          for impl in ("persistent", "fused", "band",
+                                       "segment")
+                          for dtype in ("float32", "bfloat16")) + (
+    ("combined", "persistent", "float32"),)
+SERVE_GRAPH_REPS = 20
+SERVE_GRAPH_TRACE = 200
+# Profiler launches (by __global__ name) of one counted launch of each
+# counter: the bf16 per-step forward is two passes after the weights'
+# prep, the bf16 sweep one after it.
+SERVE_PROFILE_LAUNCHES = {
+    "persistent_fwd_kernel": {"persistent_fwd_kernel": 1},
+    "fused_step_kernel": {"fused_step_kernel": 1},
+    "persistent_fwd_kernel_bf16": {"persistent_fwd_kernel_bf16": 1},
+    "fused_step_kernel_bf16": {"fused_step_kernel_bf16": 2},
+    "fwd_bf16_prep_kernel": {"fused_step_kernel_bf16": 1,
+                             "persistent_fwd_kernel_bf16": 1},
+    "flash_fwd_kernel": {"flash_fwd_kernel": 1},
+    "segment_sum_kernel": {"segment_sum_kernel": 1},
+    "segment_sum_kernel_bf16": {"segment_sum_kernel_bf16": 1},
+}
+
+
+def _graphs_engine(lane: str, impl: str, dtype: str) -> tuple:
+    """(engine, its virtual clock): the published FlowGNN on ``impl`` at
+    ``dtype`` from ``SEED``; for the combined lane also DeepDFA+LineVul
+    at codebert-base width from ``TEXT_SEED`` with the hashing
+    tokenizer."""
+    cfg = FlowGNNConfig(message_impl=impl, dtype=dtype)
+    model = FlowGNN(cfg, device="cuda", seed=SEED)
+    clock = VirtualClock()
+    kw = {}
+    if lane == "combined":
+        enc = EncoderConfig()
+        kw = dict(combined_model=LineVul(
+            enc, dataclasses.replace(cfg, encoder_mode=True), device="cuda",
+            seed=TEXT_SEED), tokenizer=HashingCodeTokenizer(enc.vocab_size))
+    return ServeEngine(model, ServeConfig(), clock=clock, device="cuda",
+                       **kw), clock
+
+
+def _graph_inputs(engine: ServeEngine, lane: str, n: int, seed: int):
+    """(graphs as admission leaves them, token rows) of ``n`` functions."""
+    made = synthetic_bigvul(n, engine.model.config.feature, seed=seed)
+    graphs = [engine._normalize_graph(g) for g in made]
+    if lane != "combined":
+        return graphs, []
+    codes = [t["code"] for t in attach_synthetic_text(
+        [dict(g) for g in made], seed=TEXT_SEED)]
+    return graphs, [encode_function(c, engine.tokenizer,
+                                    engine.config.block_size) for c in codes]
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host ms of ``fn`` (a flush, ended by its host transfer)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _stream_ms(engine: ServeEngine, fn, reps: int) -> float:
+    """Median device ms of ``fn`` on the engine's stream, between two
+    CUDA events."""
+    out = []
+    with engine._on_stream():
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def _profile_held(what: str, fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under torch.profiler: each port kernel name's
+    launches (by its ``__global__`` name) equal to what its counters moved
+    by (``SERVE_PROFILE_LAUNCHES``), name by name. A session that records
+    no device activity, or other counts (the profiler has dropped
+    launches late in a long process), is run again, up to
+    ``PROFILE_SESSIONS`` in all. Returns the names' launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    last = "no device activity"
+    for _ in range(PROFILE_SESSIONS):
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        after = launch_counts()
+        seen, device = {}, False
+        for evt in prof.key_averages():
+            if "cuda" not in str(evt.device_type).lower():
+                continue
+            device = True
+            found = re.search(r"(\w+)(<[^(]*>)?\(", evt.key)
+            if found and found.group(1) in PORT_KERNELS:
+                seen[found.group(1)] = seen.get(found.group(1), 0) \
+                    + int(evt.count)
+        if not device:
+            continue
+        want = {name: sum(m * (after[c] - before[c]) for c, m in per.items())
+                for name, per in SERVE_PROFILE_LAUNCHES.items()}
+        want = {name: v for name, v in want.items() if v}
+        if seen == want:
+            return seen
+        last = f"the profiler saw {seen}, the launch counters give {want}"
+    raise AssertionError(f"{what}: {last} ({PROFILE_SESSIONS} sessions)")
+
+
+def _eager_flush(engine: ServeEngine, lane: str, graphs, slots, ids):
+    """The lane's forward op by op on a fresh device copy of the packed
+    batch: the host probabilities a replay must equal bit for bit."""
+    gb, ids_t = engine._pack(lane, graphs, slots, ids)
+    with engine._on_stream():
+        return engine._forward(
+            lane, gb.to(engine.device),
+            None if ids_t is None else ids_t.to(engine.device)).cpu()
+
+
+def _graph_pairs(engine: ServeEngine, lane: str, impl: str,
+                 dtype: str) -> list:
+    """Each of the lane's buckets: the replay bit for bit the eager
+    forward on a full batch and on a partial one after it; eager and
+    replay flush wall and device ms (medians of ``SERVE_GRAPH_REPS``)."""
+    reps = SERVE_GRAPH_REPS
+    pairs = []
+    for slots in engine.config.slot_buckets:
+        full = _graph_inputs(engine, lane, slots, SEED + 40 + slots)
+        part = _graph_inputs(engine, lane, max(1, slots // 3),
+                             SEED + 80 + slots)
+        for graphs, ids in (full, part):
+            got = engine.forward(lane, graphs, slots, ids)
+            want = _eager_flush(engine, lane, graphs, slots, ids)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{lane}/{impl}/{dtype}, {slots} slots, {len(graphs)} "
+                    f"graphs: the replay is not the eager forward bit for "
+                    f"bit (max |diff| {(got - want).abs().max().item()})")
+        graphs, ids = full
+        gb, ids_t = engine._pack(lane, graphs, slots, ids)
+        key = (lane, slots, None if gb.band_adj is None
+               else gb.band_adj.vals.dtype)
+        prog = engine._programs[key]
+        dev = gb.to(engine.device)
+        dev_ids = None if ids_t is None else ids_t.to(engine.device)
+        with torch.inference_mode():
+            eager_dev = _stream_ms(
+                engine, lambda: engine._forward(lane, dev, dev_ids), reps)
+        with engine._on_stream():
+            prog.staged.stage(gb, ids_t)
+        replay_dev = _stream_ms(engine, prog.graph.replay, reps)
+        eager_wall = _wall_ms(
+            lambda: _eager_flush(engine, lane, graphs, slots, ids), reps)
+        replay_wall = _wall_ms(lambda: engine.forward(
+            lane, graphs, slots, ids), reps)
+        pairs.append(dict(
+            lane=lane, message_impl=impl, dtype=dtype, slots=slots,
+            bits_equal_full=True, bits_equal_partial=True,
+            partial_graphs=len(part[0]),
+            eager_flush_ms=eager_wall, replay_flush_ms=replay_wall,
+            eager_device_ms=eager_dev, replay_device_ms=replay_dev,
+            staged_bytes=prog.staged.nbytes))
+    return pairs
+
+
+def phase_serve_graphs(_arg=None) -> dict:
+    """Phase 31: serving as captured CUDA graphs, in a process of its own
+    (fresh profiler state). For each engine of ``SERVE_GRAPH_LANES``:
+    warmup captures every (lane, bucket) pair once; each pair's replay
+    equals the eager forward bit for bit on a full batch and on a partial
+    batch after it, with eager and replay flush wall and device ms; 20
+    replays of the 16-slot pair under torch.profiler, each port kernel
+    name's launches equal to its counters'; then ``bursty_trace(200,
+    seed=1)`` replayed on the engine's virtual clock with nothing captured
+    after warmup; the graph pool's bytes."""
+    launches = {k: 0 for k in REPLACES}
+    engines = {}
+    for lane, impl, dtype in SERVE_GRAPH_LANES:
+        name = f"{lane}/{impl}/{dtype}"
+        before = launch_counts()
+        engine, clock = _graphs_engine(lane, impl, dtype)
+        t0 = time.perf_counter()
+        warmed = engine.warmup()
+        warm_s = time.perf_counter() - t0
+        n_pairs = len(engine.warm_buckets())
+        if warmed != n_pairs or engine.graphs_captured != n_pairs:
+            raise AssertionError(f"{name}: warmup built {warmed} programs, "
+                                 f"captured {engine.graphs_captured}, of "
+                                 f"{n_pairs} pairs")
+        pairs = _graph_pairs(engine, lane, impl, dtype)
+        graphs, ids = _graph_inputs(engine, lane, 16, SEED + 120)
+        profile = _profile_held(
+            name, lambda: engine.forward(lane, graphs, 16, ids),
+            SERVE_GRAPH_REPS)
+        captured = engine.graphs_captured
+        trace = bursty_trace(SERVE_GRAPH_TRACE, engine.model.config.feature,
+                             seed=1, with_code=lane == "combined")
+        out = replay(engine, trace, clock)
+        m = out["metrics"]
+        lanes_seen = {r.result.get("model") for r in out["requests"]}
+        if (engine.compiles_after_warmup != 0
+                or engine.graphs_captured != captured
+                or m["completed"] != SERVE_GRAPH_TRACE or m["failures"]
+                or lanes_seen != {lane}):
+            raise AssertionError(f"{name}: over the bursty trace {m}, lanes "
+                                 f"{lanes_seen}, captured "
+                                 f"{engine.graphs_captured} (was {captured})")
+        torch.cuda.synchronize()
+        after = launch_counts()
+        for k in launches:
+            launches[k] += after[k] - before[k]
+        engines[name] = dict(
+            warmup_s=warm_s, captured=captured,
+            graph_pool_bytes=engine.graph_pool_bytes,
+            profile_launches=profile, trace_flushes=m["batches"],
+            compiles_after_warmup=engine.compiles_after_warmup)
+        for rec in pairs:
+            emit(phase="serve_graphs", **rec)
+        emit(phase="serve_graphs", engine=name, **engines[name])
+        del engine
+        torch.cuda.empty_cache()
+    return dict(launches=launches, engines=engines)
 
 
 # ---------------------------------------------------------------------------
@@ -4634,14 +4996,18 @@ def _codet5_setup(n: int, batch: int, block: int, message_impl: str):
 
 def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
                        shuffle_seed=None) -> dict:
-    """The GNN kernels a graph encoder of ``graph_cfg.message_impl``
-    (fused or persistent) launches over the batches fit_text makes of
-    ``indices`` (train: a gradient through the encoder; else forward
-    only, as an evaluation or a frozen encoder runs it), the bf16
-    instances for a bf16 encoder. A persistent batch over its gate (at
-    the encoder's dtype) runs the fused kernel per step
-    (``FlowGNN._message_pass``)."""
+    """The kernels a graph encoder of ``graph_cfg.message_impl`` launches
+    over the batches fit_text makes of ``indices`` (train: a gradient
+    through the encoder; else forward only, as an evaluation or a frozen
+    encoder runs it), the bf16 instances for a bf16 encoder. A persistent
+    batch over its gate (at the encoder's dtype) runs the fused kernel per
+    step (``FlowGNN._message_pass``); the segment lane aggregates with
+    ``segment_sum_kernel`` each step, the tile lane with
+    ``tile_spmm_kernel`` each step forward and backward; where no gradient
+    flows the pooling's two per-graph sums are ``segment_sum_kernel``
+    (f32 at either dtype)."""
     k, hidden = graph_cfg.n_steps, graph_cfg.ggnn_hidden
+    impl = graph_cfg.message_impl
     dtype = getattr(torch, graph_cfg.dtype)
     sfx = "_bf16" if dtype == torch.bfloat16 else ""
     gate = (fused_gnn.persistent_bwd_smem_ok if train
@@ -4651,9 +5017,19 @@ def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
     out = dict.fromkeys(REPLACES, 0)
     for b in text_loop.text_graph_batches(
             data, indices, tcfg.batch_size if train else tcfg.eval_batch_size,
-            shuffle_rng=rng, build_band_adj=True, **kw):
-        if graph_cfg.message_impl == "persistent" and gate(
-                b.graphs.band_adj, hidden, dtype):
+            shuffle_rng=rng, build_band_adj=graph_cfg.uses_band_adj,
+            build_tile_adj=graph_cfg.uses_tile_adj, **kw):
+        if not train:
+            out["segment_sum_kernel"] += 2
+        if impl == "segment":
+            out["segment_sum_kernel" + sfx] += k
+            continue
+        if impl == "tile":
+            out["tile_spmm_kernel" + sfx] += k * (2 if train else 1)
+            continue
+        if impl == "band":
+            continue
+        if impl == "persistent" and gate(b.graphs.band_adj, hidden, dtype):
             names = (["persistent_fwd_kernel", "persistent_fwd_hist_kernel",
                       "persistent_bwd_kernel", "step_weight_grad_kernel"]
                      if train else ["persistent_fwd_kernel"])
@@ -5031,6 +5407,9 @@ def main() -> int:
         for impl, rec in train_f32.items()}
     for k, v in timed("train_bf16", _phase_in_child, "train_bf16",
                       f32_lanes)["launches"].items():
+        path_launches[k] += v
+    for k, v in timed("serve_graphs", _phase_in_child, "serve_graphs",
+                      {})["launches"].items():
         path_launches[k] += v
     emit(phase_seconds=seconds, total_s=sum(seconds.values()))
     kernels = []

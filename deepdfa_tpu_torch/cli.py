@@ -241,7 +241,7 @@ def cmd_score(args) -> Dict[str, Any]:
 
     engine, cfgs, restored = _build_serve_engine(args)
     model_cfg, seed = cfgs["model"], cfgs["train"].seed
-    engine.warmup()
+    _log_warmup(engine)
     examples, splits = load_dataset(args.dataset, model_cfg.feature,
                                     seed=seed, split_mode=args.split_mode)
     indices = (np.arange(len(examples)) if args.split == "all"
@@ -267,6 +267,9 @@ def cmd_score(args) -> Dict[str, Any]:
               "errors": errors[:10], "split": args.split, "out": out,
               **restored,
               "serving": engine.snapshot(),
+              "compiles_after_warmup": engine.compiles_after_warmup,
+              "graphs_captured": engine.graphs_captured,
+              "graph_pool_bytes": engine.graph_pool_bytes,
               "device": str(fleet.primary.engine.device),
               "message_impl": model_cfg.message_impl,
               "kernel_launches": launches,
@@ -284,6 +287,7 @@ def cmd_fit(args) -> Dict[str, Any]:
     import dataclasses
 
     from deepdfa_tpu_torch.models.flowgnn import FlowGNN
+    from deepdfa_tpu_torch.graphs import segment
     from deepdfa_tpu_torch.ops import fused_gnn, reset_launch_counts, tile_spmm
     from deepdfa_tpu_torch.train.loop import fit
 
@@ -303,7 +307,7 @@ def cmd_fit(args) -> Dict[str, Any]:
         reset_launch_counts()
         _, history = fit(model, examples, splits, train_cfg, data_cfg,
                          resume=args.resume)
-        history["kernel_launches"] = _launches(fused_gnn, tile_spmm)
+        history["kernel_launches"] = _launches(fused_gnn, tile_spmm, segment)
         history["over_gate_dispatches"] = model.over_gate_dispatches
         result = {
             "best_epoch": history["best_epoch"],
@@ -573,6 +577,16 @@ def _build_serve_engine(args):
     return engine, cfgs, restored
 
 
+def _log_warmup(engine) -> int:
+    """Warm the engine or fleet and log its (lane, bucket) programs, the
+    CUDA graphs captured and their pools' bytes."""
+    built = engine.warmup()
+    logger.info("warmed %d (lane, bucket) pairs: %d CUDA graphs captured, "
+                "graph pools %d bytes", built, engine.graphs_captured,
+                engine.graph_pool_bytes)
+    return built
+
+
 def _smoke_http(engine, host: str, port: int, n: int, feature
                 ) -> Dict[str, Any]:
     """Drive the HTTP stack with ``n`` synthetic functions in half-bucket
@@ -651,7 +665,7 @@ def cmd_serve(args) -> Dict[str, Any]:
     engine, cfgs, _ = _build_serve_engine(args)
     model_cfg = cfgs["model"]
     if not args.no_warmup:
-        logger.info("warmed %d (lane, bucket) pairs", engine.warmup())
+        _log_warmup(engine)
     if args.smoke is not None:
         report = _smoke_http(engine, args.host, args.port, args.smoke,
                              model_cfg.feature)
@@ -674,6 +688,7 @@ def cmd_fit_text(args) -> Dict[str, Any]:
         graph_join_and_budget,
         load_combined_dataset,
     )
+    from deepdfa_tpu_torch.graphs import segment
     from deepdfa_tpu_torch.ops import (
         attention,
         fused_gnn,
@@ -752,7 +767,8 @@ def cmd_fit_text(args) -> Dict[str, Any]:
         history["kernel_launches"] = _launches(attention)
         history["two_pass_dispatches"] = (
             attention.flash_backward.two_pass_dispatches)
-        history["graph_kernel_launches"] = _launches(fused_gnn, tile_spmm)
+        history["graph_kernel_launches"] = _launches(fused_gnn, tile_spmm,
+                                                     segment)
         # Params only: restoring for evaluation must not depend on the
         # optimizer's state, whose layout changes with --freeze-graph.
         ckpt.save_best({"params": best_state.params}, history["best_epoch"],
@@ -1112,8 +1128,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the bound port here after bind (how a "
                          "client finds an ephemeral --port 0)")
     sv.add_argument("--no-warmup", action="store_true",
-                    help="skip the warmup (first requests then load the "
-                         "kernels and count as compiles)")
+                    help="skip the warmup (each pair's first flush then "
+                         "loads the kernels, captures its CUDA graph and "
+                         "counts as a compile)")
     sv.add_argument("--smoke", type=int, default=None, metavar="N",
                     help="drive the HTTP stack with N synthetic functions, "
                          "print the report, exit")

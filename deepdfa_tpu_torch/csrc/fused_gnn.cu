@@ -92,6 +92,10 @@
 //   other blocks' shared memory through distributed shared memory between
 //   cluster barriers. Every element keeps fused_step_kernel's chain of
 //   FMAs, so K steps here equal K fused_step_kernel launches bit for bit.
+//   A serving bucket launches on a static geometry (its CUDA graph is
+//   captured once): its cut points are padded to a bound that holds for
+//   any mix of graphs (63 groups of up to 64 rows at 16 slots; serve/
+//   engine.py:bucket_batch), and the padded groups' blocks return at once.
 //   PERF.md has the measured times.
 
 #include "gnn_bf16_mma.cuh"  // group_step.cuh, bf16_mma.cuh
@@ -132,6 +136,11 @@ __global__ void __launch_bounds__(kGroupThreads, 2)
   const Tile t(H, rank, kCS);
   const int g0 = groups[grp], g1 = groups[grp + 1];
   const int R = g1 - g0, ld = t.ld, hi = min(t.hi, H);
+  // An empty group (a serving bucket's cut points are padded to a static
+  // count, ops/band_spmm.py:pad_row_groups): the whole cluster shares it,
+  // so every block returns here, before it stages a weight slab or meets
+  // a cluster barrier.
+  if (R == 0) return;
   float* stages = smem;                                   // [kStages][stage]
   float* h_s = stages + kStages * group_stage_floats(H);  // [R, ld] h
   float* a_s = h_s + max_rows * ld;                       // [R, ld] agg (x)
@@ -1102,6 +1111,7 @@ __global__ void __launch_bounds__(kGroupThreads, kFwdPersistBlocks)
   const int H = a.H, ld = tile_ld(H), rp = (a.max_rows + 15) & ~15;
   const int g0 = a.groups[blockIdx.x], g1 = a.groups[blockIdx.x + 1];
   const int R = g1 - g0;
+  if (R == 0) return;  // an empty (padded) group: nothing to stage
   char* stages = fsmem;
   __nv_bfloat16* hb =
       reinterpret_cast<__nv_bfloat16*>(fsmem + fwd_ring_bytes(H));  // [rp, ld]

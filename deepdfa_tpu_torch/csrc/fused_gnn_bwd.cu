@@ -253,6 +253,7 @@ __global__ void __launch_bounds__(kGroupThreads, 2)
   const Tile t(H, 0, 1);
   const int g0 = groups[blockIdx.x], g1 = groups[blockIdx.x + 1];
   const int R = g1 - g0, ld = t.ld;
+  if (R == 0) return;  // an empty (padded) group owns no rows
   float* stages = smem;                              // [kStages][stage]
   float* dh_s = stages + kStages * group_stage_floats(H);  // [R, ld] cotangent
   float* h_s = dh_s + max_rows * ld;                 // [R, ld] h, then dx
@@ -943,6 +944,7 @@ __global__ void __launch_bounds__(kGroupThreads, kPersistBf16Blocks)
   const int H = a.H, ld = tile_ld(H), rp = (a.max_rows + 15) & ~15;
   const int g0 = a.groups[blockIdx.x], g1 = a.groups[blockIdx.x + 1];
   const int R = g1 - g0;
+  if (R == 0) return;  // an empty (padded) group owns no rows
   char* stages = bsmem;
   float* cot = reinterpret_cast<float*>(bsmem + ring_bytes(H));  // [rp, ld]
   char* u = reinterpret_cast<char*>(cot + rp * ld);

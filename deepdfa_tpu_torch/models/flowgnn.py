@@ -57,8 +57,9 @@ from deepdfa_tpu_torch.graphs.segment import (
     segment_onehot,
     segment_softmax,
     segment_sum,
+    segment_sum_rows,
 )
-from deepdfa_tpu_torch.ops import fused_gnn
+from deepdfa_tpu_torch.ops import count_launch, fused_gnn
 from deepdfa_tpu_torch.ops.band_spmm import band_spmm
 from deepdfa_tpu_torch.ops.tile_spmm import tile_spmm
 
@@ -214,7 +215,8 @@ class GatedGraphStep(nn.Module):
         elif impl == "segment":
             gathered = msg[batch.senders.long()]
             gathered = torch.where(batch.edge_mask[:, None], gathered, 0.0)
-            agg = segment_sum(gathered, batch.receivers, batch.max_nodes)
+            agg = segment_sum(gathered, batch.receivers, batch.max_nodes,
+                              mask=batch.edge_mask)
         else:
             raise ValueError(f"message_impl {impl!r} is not ported")
         return self._gru(agg, h)
@@ -234,11 +236,12 @@ class GlobalAttentionPool(nn.Module):
     repeats its bits. ``impl="auto"``: on the CPU segment; on CUDA matmul
     where a gradient flows, and otherwise (serving, evaluation) the
     matmul form with its two sums over nodes taken per graph
-    (``torch.segment_reduce`` over each graph's rows in row order): cuBLAS
-    groups a graph's terms by where its rows sit in the batch, so a
+    (``graphs.segment.segment_sum_rows``, each graph's rows in row order):
+    cuBLAS groups a graph's terms by where its rows sit in the batch, so a
     served graph's probability moved by an f32 ulp with the flush that
     carried it (``scripts/torch_serve_batch_bits.py``); per graph, it is
-    the same wherever the graph sits.
+    the same wherever the graph sits, and no step of it reads the device
+    from the host, so a CUDA graph captures it.
     """
 
     def __init__(self, width: int, gen: torch.Generator, impl: str = "auto",
@@ -279,16 +282,13 @@ class GlobalAttentionPool(nn.Module):
         e = torch.where(node_mask, torch.exp(gate - shift @ onehot), 0.0)
         weighted = feat * e[:, None].to(feat.dtype)
         if impl == "rows":
-            # Each graph's rows in row order, then the padding rows (zero
-            # weights) as one more segment, dropped.
-            key = torch.where(node_mask, node_graph.long(), n_graphs)
-            order = torch.sort(key, stable=True).indices
-            lengths = (key[None, :] == torch.arange(
-                n_graphs + 1, device=key.device)[:, None]).sum(1)
-            denom = torch.segment_reduce(e[order], "sum",
-                                         lengths=lengths)[:n_graphs]
-            sums = torch.segment_reduce(weighted[order].float(), "sum",
-                                        lengths=lengths, axis=0)[:n_graphs]
+            # Each graph's rows in row order, the padding rows (zero
+            # weights) left out: segment_sum_rows, whose index plan reads
+            # nothing back to the host.
+            denom = segment_sum_rows(e, node_graph, n_graphs,
+                                     mask=node_mask)
+            sums = segment_sum_rows(weighted.float(), node_graph, n_graphs,
+                                    mask=node_mask)
         else:
             denom = onehot @ e
             sums = onehot @ weighted.float()
@@ -365,8 +365,9 @@ class FlowGNN(nn.Module):
                     if fused_gnn.needs_grad(h, packed)
                     else fused_gnn.persistent_smem_ok(
                         batch.band_adj, cfg.ggnn_hidden, self.dtype)):
-                # Over the shared-memory gate: the fused kernel per step.
-                self.over_gate_dispatches += 1
+                # Over the shared-memory gate: the fused kernel per step
+                # (counted as a launch is, so a graph's replays count it).
+                count_launch(self, "over_gate_dispatches")
             else:
                 return fused_gnn.persistent_unroll(
                     step.step_params(), h, batch.band_adj, cfg.n_steps,

@@ -3,10 +3,14 @@ and the fused GNN step kernels (``fused_gnn``), the tile SpMM
 (``tile_spmm``) and the flash-attention kernels (``attention``).
 
 :func:`launch_counts` and :func:`reset_launch_counts` cover every kernel
-of the port, by kernel name."""
+of the port, by kernel name. A CUDA graph's capture launches nothing:
+under :func:`recording_launches` the counts a thread would add go to a
+record instead, and :func:`add_launches` adds that record on every
+replay of the graph, so the counts go on counting launches on the card."""
 
+import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Iterator, Mapping, Tuple
 
 #: The peak rates a kernel's operations bound divides by, as (name,
 #: operations a second): NVIDIA's H100 SXM data sheet at the full 700 W.
@@ -30,19 +34,51 @@ PEAK_BYTES_PER_S = 3.35e12
 # one pump thread a replica, and a bare ``+= 1`` from two threads can
 # lose an increment.
 _COUNT_LOCK = threading.Lock()
+# The thread's record while it captures a CUDA graph (recording_launches).
+_RECORD = threading.local()
 
 
 def count_launch(wrapper, attr: str = "launches") -> None:
     """Add one launch to ``wrapper``'s ``attr`` count, under the lock
-    (taken after the launch, never around it)."""
+    (taken after the launch, never around it); inside
+    :func:`recording_launches` on this thread, to its record instead."""
+    record = getattr(_RECORD, "counts", None)
+    if record is not None:
+        key = (wrapper, attr)
+        record[key] = record.get(key, 0) + 1
+        return
     with _COUNT_LOCK:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[Tuple[object, str], int]]:
+    """Within the block, this thread's :func:`count_launch` calls add to
+    the yielded record ((wrapper, attr) -> launches) and to no count:
+    what a CUDA graph capture queues, which runs on its replays. Other
+    threads count as before."""
+    if getattr(_RECORD, "counts", None) is not None:
+        raise RuntimeError("recording_launches does not nest")
+    _RECORD.counts = {}
+    try:
+        yield _RECORD.counts
+    finally:
+        _RECORD.counts = None
+
+
+def add_launches(record: Mapping[Tuple[object, str], int]) -> None:
+    """Add a :func:`recording_launches` record to the counts (one replay
+    of the captured graph), under the lock."""
+    with _COUNT_LOCK:
+        for (wrapper, attr), n in record.items():
+            setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
 def _counted_modules():
+    from deepdfa_tpu_torch.graphs import segment
     from deepdfa_tpu_torch.ops import attention, fused_gnn, tile_spmm
 
-    return fused_gnn, tile_spmm, attention
+    return fused_gnn, tile_spmm, attention, segment
 
 
 def launch_counts() -> Dict[str, int]:

@@ -31,6 +31,7 @@ SOURCES: Dict[str, str] = {
     "flash_attn": os.path.join("csrc", "flash_attn.cu"),
     "flash_bwd_fused": os.path.join("csrc", "flash_bwd_fused.cu"),
     "tile_spmm": os.path.join("csrc", "tile_spmm.cu"),
+    "segment_sum": os.path.join("csrc", "segment_sum.cu"),
 }
 #: library name -> the headers its source includes; their text joins
 #: that library's hash (and no other's, so editing one header rebuilds
@@ -50,6 +51,7 @@ HEADERS: Dict[str, Tuple[str, ...]] = {
     "flash_bwd_fused": (os.path.join("csrc", "bf16_mma.cuh"),
                         os.path.join("csrc", "tf32_mma.cuh")),
     "tile_spmm": (),
+    "segment_sum": (),
 }
 
 NVCC_FLAGS: Tuple[str, ...] = (
@@ -184,6 +186,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tile_spmm_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
         # the same, msg and out bf16
         "tile_spmm_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "segment_sum": {
+        # data, order, offsets, out, n_seg, cols, bf16, stream
+        "segment_sum_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -12,7 +12,10 @@ The same fact gives the persistent CUDA kernels their work split: the
 host cuts the rows into ranges that no edge crosses
 (:func:`closed_row_groups`) so one thread block, or one thread-block
 cluster, can own a range and keep its hidden state on chip across all
-gated steps.
+gated steps. A serving bucket pads its cut points to a bound that holds
+for any mix of graphs it admits (:func:`closed_group_bound`,
+:func:`pad_row_groups`), so its launch geometry is static and a CUDA
+graph captured once per bucket serves every batch.
 """
 
 from __future__ import annotations
@@ -123,6 +126,37 @@ def closed_row_groups(senders: np.ndarray, receivers: np.ndarray,
             i = np.searchsorted(cuts, start, side="right")
         out.append(int(cuts[i]))
     return np.asarray(out, np.int32)
+
+
+def closed_group_bound(n_rows: int, max_component_rows: int,
+                       target_rows: int = PERSISTENT_GROUP_ROWS
+                       ) -> Tuple[int, int]:
+    """(groups, rows): bounds on the count of :func:`closed_row_groups`'
+    groups and on its largest group, over every edge set on ``n_rows`` rows
+    whose closed components (the row ranges no edge crosses, such as a
+    batch's graphs packed contiguously, or a padding row) hold at most
+    ``max_component_rows`` rows. A group ends at the furthest valid cut
+    within ``target_rows`` of its start, so the group after it ends past
+    that reach: any two consecutive groups span more than ``target_rows``
+    rows, hence at most ``2 * (n_rows // (target_rows + 1)) + 1`` groups.
+    A group is either within ``target_rows`` or one component alone.
+    Host ints, a pure function of its arguments: the serving buckets' static
+    launch geometry (``ServeConfig.group_bound``)."""
+    groups = min(n_rows, 2 * (n_rows // (target_rows + 1)) + 1)
+    rows = min(n_rows, max(target_rows, max_component_rows))
+    return max(groups, 1), max(rows, 1)
+
+
+def pad_row_groups(groups: np.ndarray, n_groups: int) -> np.ndarray:
+    """Cut points ``[0, ..., n_rows]`` padded to ``n_groups + 1`` entries
+    by repeating ``n_rows``: the trailing groups are empty (their blocks
+    of the persistent forward return before they stage anything)."""
+    groups = np.asarray(groups, np.int32)
+    if groups.shape[0] > n_groups + 1:
+        raise ValueError(f"{groups.shape[0] - 1} row groups exceed the "
+                         f"bound of {n_groups}")
+    pad = np.full(n_groups + 1 - groups.shape[0], groups[-1], np.int32)
+    return np.concatenate([groups, pad])
 
 
 def build_band_adjacency(

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from deepdfa_tpu_torch.graphs.batch import select_bucket
+from deepdfa_tpu_torch.ops.band_spmm import closed_group_bound
 
 # The replica ids a fleet may use, fixed in code: every per-replica name
 # (a /metrics section, a pump thread) comes from this tuple, never from
@@ -103,6 +104,18 @@ class ServeConfig:
             "max_nodes": max_nodes,
             "max_edges": select_bucket(max_nodes * self.max_edges_per_node),
         }
+
+    def group_bound(self, slots: int, tile: int) -> Dict[str, int]:
+        """The ``slots``-slot band bucket's static row-group geometry:
+        ``groups``, the closed row groups any admitted mix of graphs cuts
+        its ``max_nodes`` rows into at most, and ``rows``, its largest
+        group at most (``ops.band_spmm.closed_group_bound``: graphs pack
+        contiguously and no CFG edge crosses two, so a component holds at
+        most ``max_nodes_per_graph`` rows). A pure function of (slots,
+        ``max_nodes_per_graph``, tile)."""
+        n_rows = self.budget_for(slots, tile=tile)["max_nodes"]
+        groups, rows = closed_group_bound(n_rows, self.max_nodes_per_graph)
+        return {"groups": groups, "rows": rows}
 
     def admission_caps(self, num_nodes: int, num_edges: int) -> Optional[str]:
         """None when a graph fits one slot, else the rejection reason

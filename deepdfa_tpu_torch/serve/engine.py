@@ -13,15 +13,32 @@ bucket ladder of ``ServeConfig``. Two lanes:
   request degrades to the ``gnn`` lane and its answer says
   ``degraded``.
 
-Each flush packs its graphs on the host, moves the batch to the engine's
-device, runs the lane's model under ``torch.inference_mode`` and brings
-the probabilities back in one transfer. A flush that raises fails only
-its own requests (flush isolation); the queue keeps draining.
+Each (lane, slot bucket) pair owns a program: a resident device batch
+(every field of its ``GraphBatch``, and on the combined lane the
+``input_ids`` block, as views of one device buffer, staged through one
+pinned host buffer) and, on a CUDA device, a CUDA graph of the lane's
+forward over it (the counterpart of the reference's AOT executable). A
+flush packs its graphs on the host, copies every field whole into the
+pair's host buffer and on in one transfer (a flush of fewer graphs than
+the last leaves no stale slot, node, edge or row group), replays the
+graph on the engine's own stream and brings the probabilities back in
+one transfer. On the CPU the same buffers run the forward eagerly. A
+flush that raises fails only its own requests (flush isolation); the
+queue keeps draining.
 
-Warmup runs every (lane, slot bucket) pair once, so every kernel library
-is built and loaded before the first request. ``stats.compiles`` counts
-warmed pairs, and also a flush of a pair warmup did not run: after
-warmup it must not move (``compiles_after_warmup`` stays 0).
+Warmup builds every pair's program, largest bucket first: one eager run
+on its buffers, so every kernel library is built and every module
+loaded, then the capture under ``torch.inference_mode`` into a memory
+pool the engine's pairs share. A band batch whose values need f32 (an
+edge repeated more than 256 times) is a pair of its own, captured at its
+first flush: it is never rounded into the bf16 pair's buffer.
+``stats.compiles`` counts programs built, one a capture, as the
+reference counts one a compile, and also those a flush builds after
+warmup: ``compiles_after_warmup`` must stay 0. A capture that fails
+raises, naming the lane, the bucket and the op; no flush runs eagerly in
+its place. The launch counts (``ops.launch_counts``) and
+``FlowGNN.over_gate_dispatches`` move by what one capture queued at
+every replay.
 
 Time comes from an injected ``clock`` (monotonic seconds). A clock with
 ``flush_done(dt)`` (a fleet replay's replica timeline) takes each
@@ -36,10 +53,13 @@ fault-injection hooks are not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
+import os
 import time
+import traceback
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Set, \
     Tuple
 
@@ -53,6 +73,8 @@ from deepdfa_tpu_torch.core.metrics import ServingStats
 from deepdfa_tpu_torch.graphs.batch import GraphBatch, batch_graphs
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.models.infer import make_combined_infer, make_gnn_infer
+from deepdfa_tpu_torch.ops import add_launches, recording_launches
+from deepdfa_tpu_torch.ops.band_spmm import pad_row_groups
 from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE
 from deepdfa_tpu_torch.serve.batcher import (
     MicroBatcher,
@@ -79,12 +101,162 @@ class _Lane:
 def bucket_batch(config: ServeConfig, graphs: Sequence[Mapping], slots: int,
                  subkeys: Sequence[str], band: bool = False) -> GraphBatch:
     """Pack ``graphs`` into the ``slots``-slot bucket shape on the host —
-    the one constructor for warmup and live batches alike."""
+    the one constructor for warmup and live batches alike. A band batch's
+    row-group cut points are padded to the bucket's bound with empty
+    trailing groups, and its ``max_group_rows`` is the bound's
+    (``ServeConfig.group_bound``): every batch of the bucket launches the
+    persistent forward with one grid, one shared-memory size and one gate
+    decision. Raises ValueError when a group of the batch is larger than
+    the bound (a graph over ``max_nodes_per_graph``: admission turns
+    those away first)."""
     budget = config.budget_for(slots, tile=DEFAULT_TILE if band else None)
-    return batch_graphs(
+    gb = batch_graphs(
         graphs, slots, budget["max_nodes"], budget["max_edges"], subkeys,
         build_band_adj=band,
         band_bandwidth=config.band_bandwidth if band else None)
+    if band:
+        bound = config.group_bound(slots, DEFAULT_TILE)
+        adj = gb.band_adj
+        if adj.max_group_rows > bound["rows"]:
+            raise ValueError(
+                f"a row group of {adj.max_group_rows} rows is over the "
+                f"{slots}-slot bucket's bound of {bound['rows']} (a graph "
+                f"over max_nodes_per_graph "
+                f"{config.max_nodes_per_graph})")
+        gb.band_adj = dataclasses.replace(
+            adj, row_groups=torch.from_numpy(pad_row_groups(
+                adj.row_groups.numpy(), bound["groups"])),
+            max_group_rows=bound["rows"])
+    return gb
+
+
+class CaptureError(RuntimeError):
+    """A (lane, bucket) pair's CUDA graph capture failed."""
+
+
+#: Byte alignment of each field in a program's staging buffer.
+_ALIGN = 256
+
+
+def _batch_fields(gb: GraphBatch) -> List[Tuple[str, torch.Tensor]]:
+    """Every tensor of a serving batch, by name (the band adjacency's
+    values and cut points included)."""
+    fields = [(f"node_feats.{k}", v) for k, v in sorted(gb.node_feats.items())]
+    fields += [(name, getattr(gb, name)) for name in (
+        "node_vuln", "senders", "receivers", "node_graph", "node_mask",
+        "edge_mask", "graph_mask", "graph_ids")]
+    if gb.band_adj is not None:
+        fields += [("band_adj.vals", gb.band_adj.vals),
+                   ("band_adj.row_groups", gb.band_adj.row_groups)]
+    return fields
+
+
+class _Staged:
+    """A pair's resident inputs: each field of its batch (and the
+    combined lane's ``input_ids``) a view of one device buffer at a fixed
+    offset, filled from one host buffer (pinned on CUDA) in one transfer.
+    ``batch`` and ``input_ids`` are the views the forward reads."""
+
+    def __init__(self, template: GraphBatch, ids: Optional[torch.Tensor],
+                 device: torch.device):
+        fields = _batch_fields(template)
+        if ids is not None:
+            fields.append(("input_ids", ids))
+        # (name, byte offset, shape, dtype, bytes) of each field.
+        self.layout: List[Tuple[str, int, torch.Size, torch.dtype, int]] = []
+        size = 0
+        for name, t in fields:
+            nbytes = t.numel() * t.element_size()
+            self.layout.append((name, size, t.shape, t.dtype, nbytes))
+            size += -(-nbytes // _ALIGN) * _ALIGN
+        self.device = device
+        self.host = torch.zeros(max(size, _ALIGN), dtype=torch.uint8,
+                                pin_memory=device.type == "cuda")
+        self.dev = torch.zeros_like(self.host, device=device)
+        self.host_views = self._views(self.host)
+        views = self._views(self.dev)
+        band = template.band_adj
+        self.batch = GraphBatch(
+            node_feats={k: views[f"node_feats.{k}"]
+                        for k in template.node_feats},
+            **{name: views[name] for name in (
+                "node_vuln", "senders", "receivers", "node_graph",
+                "node_mask", "edge_mask", "graph_mask", "graph_ids")},
+            band_adj=None if band is None else dataclasses.replace(
+                band, vals=views["band_adj.vals"],
+                row_groups=views["band_adj.row_groups"]))
+        self.input_ids = views.get("input_ids")
+        # Recorded after each transfer; the next stage waits for it.
+        self._copied = (torch.cuda.Event() if device.type == "cuda"
+                        else None)
+
+    @property
+    def nbytes(self) -> int:
+        return self.dev.numel()
+
+    def _views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {name: buf[offset:offset + nbytes].view(dtype).view(shape)
+                for name, offset, shape, dtype, nbytes in self.layout}
+
+    def stage(self, gb: GraphBatch, ids: Optional[torch.Tensor]) -> None:
+        """Copy every field of ``gb`` whole into the host buffer, then the
+        buffer to the device on the current stream (asynchronous on
+        CUDA: the next stage waits for this copy before it writes)."""
+        if self._copied is not None:
+            self._copied.synchronize()  # a no-op before the first record
+        fields = _batch_fields(gb)
+        if ids is not None:
+            fields.append(("input_ids", ids))
+        if len(fields) != len(self.layout):
+            raise ValueError("batch fields do not match the pair's layout")
+        for name, t in fields:
+            view = self.host_views[name]
+            if t.shape != view.shape or t.dtype != view.dtype:
+                raise ValueError(
+                    f"{name}: {tuple(t.shape)} {t.dtype} does not match the "
+                    f"pair's {tuple(view.shape)} {view.dtype}")
+            view.copy_(t)
+        self.dev.copy_(self.host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+
+@dataclasses.dataclass
+class _Program:
+    """One pair's staged inputs and, on CUDA, its captured forward:
+    ``out`` the probabilities a replay writes, ``launches`` the counts the
+    capture queued (``ops.recording_launches``)."""
+
+    staged: _Staged
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    out: Optional[torch.Tensor] = None
+    launches: Dict = dataclasses.field(default_factory=dict)
+
+
+def _failing_op(exc: BaseException) -> str:
+    """The innermost frame of the port's code in ``exc``'s traceback
+    (where a capture hit an op it cannot capture), as ``function
+    (file:line)``."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if os.path.abspath(f.filename).startswith(root)]
+    if not frames:
+        return "capture_end"
+    f = frames[-1]
+    return (f"{f.name} ({os.path.relpath(f.filename, os.path.dirname(root))}"
+            f":{f.lineno}: {f.line})")
+
+
+def _pool_bytes(pool, device: torch.device) -> int:
+    """Bytes of the caching allocator's segments that belong to the
+    graph memory pool ``pool`` on ``device``."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    want = tuple(pool)
+    return sum(int(seg["total_size"])
+               for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == want
+               and seg.get("device", index) == index)
 
 
 def _make_lane(graph_cfg) -> _Lane:
@@ -143,10 +315,20 @@ class ServeEngine:
         self._clock = clock
         self._rid = itertools.count()
         self._warm: Set[Tuple[str, int]] = set()
+        # (lane, slots, band value dtype or None) -> its program.
+        self._programs: Dict[Tuple, _Program] = {}
         # Compile count at the end of warmup(): the baseline of
         # compiles_after_warmup (None until warmed).
         self.warmup_compiles: Optional[int] = None
         self.batcher = MicroBatcher(self.config, lanes=tuple(self._lanes))
+        # On a card: the engine's own stream (every copy, capture and
+        # replay of its flushes) and the memory pool its graphs share.
+        self._stream = self._pool = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        #: Bytes of the graph memory pool, read after each capture.
+        self.graph_pool_bytes = 0
 
     def now(self) -> float:
         return self._clock()
@@ -167,61 +349,161 @@ class ServeEngine:
 
     @property
     def n_warm(self) -> int:
-        """(lane, slot bucket) pairs run so far."""
+        """(lane, slot bucket) pairs with a program."""
         return len(self._warm)
+
+    @property
+    def graphs_captured(self) -> int:
+        """Programs with a CUDA graph (0 on the CPU)."""
+        return sum(p.graph is not None
+                   for p in list(self._programs.values()))
 
     def warm_buckets(self) -> List[Tuple[str, int]]:
         return [(lane, slots) for lane in self._lanes
                 for slots in self.config.slot_buckets]
 
     def warmup(self) -> int:
-        """Run every (lane, slot bucket) pair not yet run once, on an
-        empty batch, so each kernel library is built and loaded before
-        the first request; returns the pairs run now (0 when already
+        """Build every (lane, slot bucket) pair's program not built yet,
+        largest bucket first, from an empty batch (on CUDA: one eager run,
+        then the capture); returns the programs built now (0 when already
         warm)."""
         before = self.stats.compiles
-        for lane, slots in self.warm_buckets():
-            if (lane, slots) in self._warm:
-                continue
-            self._execute(lane, [], slots)
+        for lane, slots in sorted(self.warm_buckets(),
+                                  key=lambda pair: -pair[1]):
+            gb, ids = self._pack(lane, [], slots)
+            with self._on_stream():
+                self._program(lane, slots, gb, ids)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.warmup_compiles = self.stats.compiles
+        if self.graphs_captured:
+            logger.info("captured %d CUDA graphs (%s), pool %d bytes",
+                        self.graphs_captured, self.replica or "engine",
+                        self.graph_pool_bytes)
         return self.stats.compiles - before
 
     @property
     def compiles_after_warmup(self) -> Optional[int]:
-        """Pairs first run after warmup() (must stay 0); None before."""
+        """Programs first built after warmup() (must stay 0); None
+        before."""
         if self.warmup_compiles is None:
             return None
         return self.stats.compiles - self.warmup_compiles
 
-    def _graph_batch(self, lane: _Lane, graphs: Sequence[Mapping],
-                     slots: int) -> GraphBatch:
+    def _pack(self, lane_name: str, graphs: Sequence[Mapping], slots: int,
+              input_ids: Sequence = ()) -> Tuple[GraphBatch,
+                                                 Optional[torch.Tensor]]:
+        """A flush's inputs on the host: the bucket batch and, on the
+        combined lane, the [slots, block_size] token block (pad rows
+        past the requests)."""
+        lane = self._lanes[lane_name]
         gb = bucket_batch(self.config, graphs, slots, lane.subkeys,
                           band=lane.band)
-        return gb.to(self.device)
+        ids = None
+        if lane_name == "combined":
+            block = np.full((slots, self.config.block_size),
+                            int(self.tokenizer.pad_token_id), np.int32)
+            for i, row in enumerate(input_ids):
+                block[i] = row
+            ids = torch.from_numpy(block)
+        return gb, ids
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The engine's stream as the current one (CUDA), after the work
+        already queued on the caller's (the model's weights)."""
+        if self._stream is None:
+            yield
+            return
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            yield
+
+    def _forward(self, lane_name: str, batch: GraphBatch,
+                 ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """The lane's forward, eagerly, on device tensors."""
+        if lane_name == "combined":
+            return self._combined_infer(ids, batch)
+        return self._infer(batch)
+
+    def _program(self, lane_name: str, slots: int, gb: GraphBatch,
+                 ids: Optional[torch.Tensor]) -> _Program:
+        """The pair's program for this batch's band value dtype, built
+        first if there is none (counted as a compile): its buffers staged
+        with ``gb``, one eager run on them, then on CUDA the capture."""
+        key = (lane_name, slots,
+               None if gb.band_adj is None else gb.band_adj.vals.dtype)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        staged = _Staged(gb, ids, self.device)
+        staged.stage(gb, ids)
+        prog = _Program(staged)
+        self._forward(lane_name, staged.batch, staged.input_ids)
+        if self._stream is not None:
+            self._capture(lane_name, slots, prog)
+        self._programs[key] = prog
+        self._warm.add((lane_name, slots))
+        self.stats.bump("compiles")
+        return prog
+
+    def _capture(self, lane_name: str, slots: int, prog: _Program) -> None:
+        """Capture the lane's forward over the pair's buffers on the
+        engine's stream, in ``thread_local`` error mode (other replicas'
+        threads may launch and allocate meanwhile), into the engine's
+        pool; record the launch counts it queued. Raises CaptureError
+        naming the lane, the bucket and the op."""
+        staged = prog.staged
+        self._stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with recording_launches() as launches, torch.inference_mode():
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = self._forward(lane_name, staged.batch,
+                                        staged.input_ids)
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            # After an op the capture refused, capture_end fails too:
+            # report the op's exception, which capture_end's replaced.
+            if e.__context__ is not None and traceback.extract_tb(
+                    e.__traceback__)[-1].name == "capture_end":
+                e = e.__context__
+            raise CaptureError(
+                f"CUDA graph capture of the {lane_name} lane's {slots}-slot "
+                f"bucket failed at {_failing_op(e)}: {type(e).__name__}: "
+                f"{e}") from e
+        prog.graph, prog.out, prog.launches = graph, out, dict(launches)
+        self.graph_pool_bytes = _pool_bytes(self._pool, self.device)
+
+    def forward(self, lane_name: str, graphs: Sequence[Mapping], slots: int,
+                input_ids: Sequence = ()) -> torch.Tensor:
+        """Per-slot probabilities (host float32 [slots]) of ``graphs``
+        packed in the ``slots``-slot bucket: the pair's program (built
+        first if needed), staged and replayed on the engine's stream."""
+        gb, ids = self._pack(lane_name, graphs, slots, input_ids)
+        with self._on_stream():
+            prog = self._program(lane_name, slots, gb, ids)
+            prog.staged.stage(gb, ids)
+            if prog.graph is None:
+                probs = self._forward(lane_name, prog.staged.batch,
+                                      prog.staged.input_ids)
+            else:
+                prog.graph.replay()
+                add_launches(prog.launches)
+                probs = prog.out
+            # One host transfer per micro-batch (it is also the flush's
+            # device barrier), on the engine's stream.
+            return probs.cpu()
 
     def _execute(self, lane_name: str, reqs: Sequence[ServeRequest],
                  slots: int) -> torch.Tensor:
         """One lane's forward over ``reqs`` packed in the ``slots``-slot
-        bucket: per-slot probabilities on the device. The first run of a
-        (lane, bucket) pair counts as a compile."""
-        lane = self._lanes[lane_name]
-        gb = self._graph_batch(lane, [r.graph for r in reqs], slots)
-        if lane_name == "combined":
-            ids = np.full((slots, self.config.block_size),
-                          int(self.tokenizer.pad_token_id), np.int32)
-            for i, r in enumerate(reqs):
-                ids[i] = r.input_ids
-            probs = self._combined_infer(
-                torch.from_numpy(ids).to(self.device), gb)
-        else:
-            probs = self._infer(gb)
-        if (lane_name, slots) not in self._warm:
-            self._warm.add((lane_name, slots))
-            self.stats.bump("compiles")
-        return probs
+        bucket: per-slot probabilities on the host (:meth:`forward`)."""
+        return self.forward(lane_name, [r.graph for r in reqs], slots,
+                            [r.input_ids for r in reqs])
 
     # -- admission ---------------------------------------------------------
 
@@ -353,9 +635,7 @@ class ServeEngine:
         e_used = sum(int(r.graph["num_nodes"]) for r in reqs)
         self.in_flight = len(reqs)
         try:
-            # One host transfer per micro-batch (it is also the flush's
-            # device barrier).
-            p = self._execute(lane_name, reqs, slots).cpu().numpy()
+            p = self._execute(lane_name, reqs, slots).numpy()
             values = [{"prob": float(p[i]), "model": lane_name}
                       for i in range(len(reqs))]
         except Exception as e:
@@ -426,4 +706,8 @@ class ServeEngine:
                 for i, r in enumerate(out)]
 
     def snapshot(self) -> Dict[str, float]:
-        return self.stats.snapshot(queue_depth=self.batcher.depth())
+        """The stats' snapshot plus ``compiles_after_warmup`` and the
+        bytes of the engine's graph pool (``graph_pool_bytes``)."""
+        return dict(self.stats.snapshot(queue_depth=self.batcher.depth()),
+                    compiles_after_warmup=self.compiles_after_warmup,
+                    graph_pool_bytes=self.graph_pool_bytes)

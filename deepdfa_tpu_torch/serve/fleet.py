@@ -213,6 +213,14 @@ class ServeFleet:
         return sum(r.engine.n_warm for r in self.replicas)
 
     @property
+    def graphs_captured(self) -> int:
+        return sum(r.engine.graphs_captured for r in self.replicas)
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        return sum(r.engine.graph_pool_bytes for r in self.replicas)
+
+    @property
     def compiles_after_warmup(self) -> Optional[int]:
         """Buckets first run after warmup, summed over the replicas (must
         stay 0); None until every replica is warm."""
@@ -399,9 +407,10 @@ class ServeFleet:
 
     def snapshot(self) -> Dict[str, Any]:
         """The ``/metrics`` body: the single engine's keys (counters
-        summed, latency quantiles over the pooled windows, rates
-        recomputed, padding cells merged) plus ``n_replicas`` and each
-        replica's own snapshot with its drain state under ``replicas``."""
+        summed, ``compiles_after_warmup`` and ``graph_pool_bytes`` too,
+        latency quantiles over the pooled windows, rates recomputed,
+        padding cells merged) plus ``n_replicas`` and each replica's own
+        snapshot with its drain state under ``replicas``."""
         per: Dict[str, Dict[str, Any]] = {}
         out: Dict[str, Any] = {name: 0 for name in ServingStats.COUNTERS}
         used = slots = depth = 0
@@ -420,6 +429,9 @@ class ServeFleet:
         lat = np.concatenate(pools)
         looked = out["cache_hits"] + out["cache_misses"]
         out.update(
+            compiles_after_warmup=self.compiles_after_warmup,
+            graph_pool_bytes=sum(snap["graph_pool_bytes"]
+                                 for snap in per.values()),
             queue_depth=depth,
             batch_occupancy=(used / slots) if slots else 0.0,
             cache_hit_rate=(out["cache_hits"] / looked) if looked else 0.0,

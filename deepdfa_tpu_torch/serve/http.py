@@ -16,10 +16,11 @@ library's ``http.server`` (port of ``deepdfa_tpu/serve/http.py``).
            function died in a failed micro-batch (flush isolation: only
            that flush fails, the queue keeps draining)
     GET /metrics -> the fleet's snapshot as JSON (queue depth,
-                    occupancy, p50/p99 latency, cache hit rate, compile
-                    count, summed over the replicas; ``n_replicas`` and
-                    each replica's own snapshot under ``replicas``), and
-                    the process's ``kernel_launches`` by kernel name
+                    occupancy, p50/p99 latency, cache hit rate, compiles
+                    and compiles after warmup, graph-pool bytes, summed
+                    over the replicas; ``n_replicas`` and each replica's
+                    own snapshot under ``replicas``), and the process's
+                    ``kernel_launches`` by kernel name
     GET /healthz -> {"status": "ok", "warm_buckets": N} (+ the card's
                     allocated and peak bytes on CUDA; + a ``fleet``
                     section with more than one replica: some replicas

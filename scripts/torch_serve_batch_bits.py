@@ -13,8 +13,8 @@ embeddings, the message pass, the pooling gate, its softmax numerators
 and denominator, the pooled vector, each head layer, the probability),
 with the pooling's two sums over nodes taken three ways: ``matmul``
 (the assignment-matrix products, which training runs), ``rows`` (per
-graph, ``torch.segment_reduce`` over its rows in row order: what
-serving runs) and ``f64`` (the assignment products in float64). For
+graph, ``graphs.segment.segment_sum_rows`` over its rows in row order:
+what serving runs) and ``f64`` (the assignment products in float64). For
 each way, the requests whose probability differs between their two
 flushes, and for those the first stage whose rows for that graph
 differ, with each side's bucket and slot. Prints one JSON line;
@@ -34,7 +34,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from deepdfa_tpu_torch.core.config import FlowGNNConfig  # noqa: E402
-from deepdfa_tpu_torch.graphs.segment import segment_onehot  # noqa: E402
+from deepdfa_tpu_torch.graphs.segment import (  # noqa: E402
+    segment_onehot,
+    segment_sum_rows,
+)
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN, _dense  # noqa: E402
 from deepdfa_tpu_torch.serve import (  # noqa: E402
     ServeConfig,
@@ -82,13 +85,10 @@ def _pool(pooling, feat, batch, how):
         sums = (onehot.double() @ weighted.double()).float()
     else:
         g = batch.n_graphs
-        key = torch.where(batch.node_mask, batch.node_graph.long(), g)
-        order = torch.sort(key, stable=True).indices
-        lengths = (key[None, :] == torch.arange(
-            g + 1, device=key.device)[:, None]).sum(1)
-        denom = torch.segment_reduce(e[order], "sum", lengths=lengths)[:g]
-        sums = torch.segment_reduce(weighted[order].float(), "sum",
-                                    lengths=lengths, axis=0)[:g]
+        denom = segment_sum_rows(e, batch.node_graph, g,
+                                 mask=batch.node_mask)
+        sums = segment_sum_rows(weighted.float(), batch.node_graph, g,
+                                mask=batch.node_mask)
     denom = torch.where(denom > 0, denom, 1.0)
     stages.update(e=e, denom=denom)
     stages["pooled"] = (sums / denom[:, None]).to(feat.dtype)

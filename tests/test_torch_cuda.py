@@ -53,7 +53,14 @@ through the per-step instances, and a bf16 ``fit`` on the persistent
 lane gives the CPU's losses. A 2-replica serving fleet on the one card
 answers with the single engine's bits on the persistent and fused lanes
 at f32 and bf16, and after a threaded HTTP run on its two pump threads
-the kernel's launch count is exactly its flushes'.
+the kernel's launch count is exactly its flushes'. Serving replays CUDA
+graphs: on every lane and dtype (and the combined lane) a replay answers
+a full and then a partial batch with the eager forward's bits and N
+replays move the launch counts by N eager forwards'; a replica captures
+its buckets at its first flushes while another's thread serves; the
+ordered segment sum is bit for bit its plain version at in-degrees up to
+1000; and the persistent forward on a serving bucket's padded cut points
+gives the unpadded batch's bits.
 """
 
 import dataclasses
@@ -294,13 +301,27 @@ def test_backward_kernels_match_plain_versions(cuda, sizes, n, tile, hidden,
         params, h, adj, g, k)[1:])
 
 
+def _serving_adj(graphs, padded=True, config=None):
+    """The 16-slot serving bucket's band: as the engine packs it
+    (``bucket_batch``, the cut points padded to the bucket's bound) or
+    with the batch's own cut points."""
+    config = config or ServeConfig()
+    if padded:
+        return bucket_batch(config, graphs, 16, SUBKEYS, band=True).band_adj
+    budget = config.budget_for(16, tile=128)
+    return batch_graphs(graphs, 16, budget["max_nodes"], budget["max_edges"],
+                        SUBKEYS, build_band_adj=True,
+                        band_bandwidth=config.band_bandwidth).band_adj
+
+
 def _persistent_case(case):
     """(band adjacency, hidden) of one persistent-kernel case."""
-    if case == "serving":
-        # The serving bucket: 16 synthetic graphs in 1024 rows, 34 groups.
+    if case in ("serving", "serving_padded"):
+        # The serving bucket: 16 synthetic graphs in 1024 rows, 34 groups;
+        # as the engine packs it, their cut points padded to the bucket's
+        # static 63 groups of up to 64 rows.
         graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=0)
-        return bucket_batch(ServeConfig(), graphs, 16, SUBKEYS,
-                            band=True).band_adj, 128
+        return _serving_adj(graphs, padded=case == "serving_padded"), 128
     sizes, n, tile, hidden, bandwidth = {
         # Groups over a tile, several passes each; 300 rows at H 64 pass
         # the forward's gate, not the backward's.
@@ -317,9 +338,9 @@ def _persistent_case(case):
     return _graph_adj(sizes, n, tile, bandwidth=bandwidth), hidden
 
 
-@pytest.mark.parametrize("case", ["serving", "over_a_tile",
-                                  "over_a_tile_bwd", "h32", "one_group",
-                                  "training"])
+@pytest.mark.parametrize("case", ["serving", "serving_padded",
+                                  "over_a_tile", "over_a_tile_bwd", "h32",
+                                  "one_group", "training"])
 def test_persistent_kernels_equal_the_per_step_scan(cuda, case):
     # The persistent pair's claim: persistent_fwd_kernel is K launches of
     # fused_step_kernel, its hist instance the states between them, and
@@ -328,7 +349,8 @@ def test_persistent_kernels_equal_the_per_step_scan(cuda, case):
     adj, hidden = _persistent_case(case)
     adj = adj.to(cuda)
     groups = adj.row_groups.numel() - 1
-    assert {"serving": groups == 34, "one_group": groups == 1}.get(case, True)
+    assert {"serving": groups == 34, "serving_padded": groups == 63,
+            "one_group": groups == 1}.get(case, True)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     # 2-block clusters where the groups are fewer than the SMs and the
     # cluster's three row arrays fit (300 rows at H 64 do not; H 32 has
@@ -2171,7 +2193,15 @@ def test_bf16_fit_matches_cpu(cuda, impl):
                             "persistent_bwd_kernel_bf16",
                             "step_weight_grad_kernel_bf16")}[impl]
     assert all(counts[k] > 0 for k in names)
-    assert all(v == 0 for k, v in counts.items() if not k.endswith("_bf16"))
+    # No f32 GNN or tile kernel: the bf16 instances replace them. The
+    # pooling's per-graph sums are f32 at either dtype: two launches of
+    # segment_sum_kernel a validation batch (no gradient flows there).
+    val_batches = sum(1 for _ in loop._batches(
+        examples, splits["val"], dcfg, SUBKEYS, dcfg.eval_batch_size,
+        build_band_adj=cfg.uses_band_adj, build_tile_adj=cfg.uses_tile_adj))
+    assert counts["segment_sum_kernel"] == 2 * val_batches > 0
+    assert all(v == 0 for k, v in counts.items()
+               if not k.endswith("_bf16") and k != "segment_sum_kernel")
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert model.over_gate_dispatches == 0
 
@@ -2450,4 +2480,200 @@ def test_fleet_http_pump_threads_count_every_launch(cuda):
     assert all(m["batches"] for m in snap["replicas"].values())
     assert launches["persistent_fwd_kernel"] + model.over_gate_dispatches \
         == snap["batches"] > 0
-    assert sum(launches.values()) == launches["persistent_fwd_kernel"]
+    # The pooling's two per-graph sums a flush (segment_sum_kernel), and
+    # no other kernel.
+    assert launches["segment_sum_kernel"] == 2 * snap["batches"]
+    assert sum(launches.values()) == launches["persistent_fwd_kernel"] \
+        + launches["segment_sum_kernel"]
+
+
+# ---------------------------------------------------------------------------
+# Serving as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _serve_engine(cuda, impl, dtype, slots=16, lane="gnn", seed=8):
+    """A warmed engine on the card at the published FlowGNN width (the
+    combined lane: a 2-layer, 128-wide encoder over 128 tokens)."""
+    from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
+    from deepdfa_tpu_torch.models.linevul import LineVul
+    from deepdfa_tpu_torch.models.transformer import EncoderConfig
+    from deepdfa_tpu_torch.serve import ServeEngine
+
+    cfg = FlowGNNConfig(message_impl=impl, dtype=dtype)
+    model = FlowGNN(cfg, device=cuda, seed=seed)
+    kw = {}
+    config = ServeConfig(batch_slots=slots)
+    if lane == "combined":
+        enc = EncoderConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                            num_heads=2, intermediate_size=256,
+                            max_position_embeddings=130, dropout_rate=0.0)
+        kw = dict(combined_model=LineVul(
+            enc, dataclasses.replace(cfg, encoder_mode=True), device=cuda,
+            seed=seed), tokenizer=HashingCodeTokenizer(512))
+        config = ServeConfig(batch_slots=slots, block_size=128)
+    engine = ServeEngine(model, config, device=cuda, **kw)
+    assert engine.warmup() == len(engine.warm_buckets())
+    return engine
+
+
+def _eager_flush(engine, lane, graphs, slots, ids):
+    """The lane's forward op by op on a fresh device copy of the packed
+    batch: the host probabilities a replay must equal bit for bit."""
+    gb, ids_t = engine._pack(lane, graphs, slots, ids)
+    with engine._on_stream():
+        return engine._forward(
+            lane, gb.to(engine.device),
+            None if ids_t is None else ids_t.to(engine.device)).cpu()
+
+
+def _flush_inputs(engine, lane, n, seed):
+    from deepdfa_tpu_torch.data.text import encode_function
+
+    graphs = [engine._normalize_graph(g) for g in synthetic_bigvul(
+        n, engine.model.config.feature, seed=seed)]
+    ids = []
+    if lane == "combined":
+        ids = [encode_function(f"int f_{i}(char *p) {{ return p[{i}]; }}",
+                               engine.tokenizer, engine.config.block_size)
+               for i in range(n)]
+    return graphs, ids
+
+
+@pytest.mark.parametrize("lane,impl,dtype", [
+    ("gnn", impl, dtype) for impl in ("persistent", "fused", "band",
+                                      "segment")
+    for dtype in ("float32", "bfloat16")] + [
+    ("combined", "persistent", "float32")])
+def test_replay_equals_the_eager_forward_and_counts_its_launches(
+        cuda, lane, impl, dtype):
+    """Every (lane, bucket) pair is captured once at warmup; a replay
+    answers a full batch, and then a partial one in the same bucket, with
+    the eager forward's bits; N replays move each launch count by N
+    times the eager forward's; nothing is captured after warmup."""
+    from deepdfa_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    engine = _serve_engine(cuda, impl, dtype, lane=lane)
+    assert engine.graphs_captured == len(engine.warm_buckets())
+    assert engine.graph_pool_bytes > 0
+    for slots, n_full, n_part in ((16, 16, 3), (4, 4, 1), (1, 1, 1)):
+        full = _flush_inputs(engine, lane, n_full, seed=slots)
+        part = _flush_inputs(engine, lane, n_part, seed=slots + 100)
+        for graphs, ids in (full, part):
+            got = engine.forward(lane, graphs, slots, ids)
+            want = _eager_flush(engine, lane, graphs, slots, ids)
+            assert torch.equal(got, want), (slots, len(graphs))
+    graphs, ids = _flush_inputs(engine, lane, 16, seed=5)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    over0 = engine.model.over_gate_dispatches
+    _eager_flush(engine, lane, graphs, 16, ids)
+    eager = launch_counts()
+    assert any(eager.values())
+    reset_launch_counts()
+    for _ in range(20):
+        engine.forward(lane, graphs, 16, ids)
+    assert launch_counts() == {k: 20 * v for k, v in eager.items()}
+    assert engine.model.over_gate_dispatches == over0
+    assert engine.compiles_after_warmup == 0
+
+
+def test_a_replica_captures_a_missing_bucket_while_another_serves(cuda):
+    """Two replicas on the one card: r1 captures its pairs at its first
+    flushes, on its own stream, while r0's thread flushes on its own; both
+    answer with one engine's bits."""
+    import threading
+
+    from deepdfa_tpu_torch.serve import ServeEngine, ServeFleet
+
+    cfg = FlowGNNConfig(message_impl="persistent")
+    model = FlowGNN(cfg, device=cuda, seed=4)
+    config = ServeConfig(batch_slots=8)
+    graphs = synthetic_bigvul(160, cfg.feature, seed=9)
+    single = ServeEngine(model, config, device=cuda)
+    single.warmup()
+    want = [r["prob"] for r in single.score_sync(graphs)]
+    fleet = ServeFleet.build(model, config, n_replicas=2, devices=[cuda])
+    r0, r1 = (r.engine for r in fleet.replicas)
+    r0.warmup()
+    got0 = []
+
+    def serve_r0():
+        for g in graphs[:80]:
+            got0.append(r0.submit(g))
+            r0.pump()
+        r0.drain()
+
+    thread = threading.Thread(target=serve_r0)
+    thread.start()
+    got1 = r1.score_sync(graphs[80:])
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    assert r1.graphs_captured >= 1 and r1.stats.compiles >= 1
+    assert r0.compiles_after_warmup == 0
+    assert [h.result["prob"] for h in got0] + [r["prob"] for r in got1] \
+        == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("degrees", [(0, 1, 5), (64, 0, 300), (1,) * 40,
+                                     (2, 3, 1000, 7)])
+def test_segment_sum_kernel_equals_its_plain_version(cuda, dtype, degrees):
+    """``segment_sum_kernel`` (bf16: ``_bf16``) bit for bit its plain
+    version, the level loop, at in-degrees from 0 to 1000 (rows in a
+    shuffled order, masked rows left out), at widths 1, 3 and 128."""
+    from deepdfa_tpu_torch.graphs import segment
+
+    rng = np.random.default_rng(sum(degrees))
+    ids = np.repeat(np.arange(len(degrees)), degrees)
+    rng.shuffle(ids)
+    ids_t = torch.from_numpy(ids.astype(np.int32))
+    mask = torch.from_numpy(rng.random(len(ids)) > 0.2)
+    for width in (1, 3, 128):
+        shape = (len(ids),) if width == 1 else (len(ids), width)
+        data = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dtype)
+        for m in (None, mask):
+            x = data if m is None else torch.where(
+                m if width == 1 else m[:, None], data, 0.0)
+            want = segment.segment_sum_rows(x, ids_t, len(degrees), mask=m)
+            segment.reset_launch_counts()
+            got = segment.segment_sum_rows(x.to(cuda), ids_t.to(cuda),
+                                           len(degrees),
+                                           mask=None if m is None
+                                           else m.to(cuda))
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (width, m is None)
+            name = ("segment_sum_kernel_bf16" if dtype == torch.bfloat16
+                    else "segment_sum_kernel")
+            assert segment.launch_counts()[name] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_persistent_forward_on_the_padded_geometry_equals_unpadded(cuda,
+                                                                   dtype):
+    """The serving bucket's padded cut points (63 groups, the trailing
+    ones empty, every block sized for 64 rows) give the unpadded batch's
+    bits, in ``persistent_unroll`` and in the served FlowGNN."""
+    graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=12)
+    padded = _serving_adj(graphs).to(cuda)
+    plain = _serving_adj(graphs, padded=False).to(cuda)
+    assert padded.row_groups.numel() - 1 == 63 > plain.row_groups.numel() - 1
+    params = _params(128, cuda, seed=6)
+    h = torch.randn(plain.n_tiles * plain.tile, 128,
+                    generator=torch.Generator().manual_seed(7)).to(cuda)
+    if dtype == torch.bfloat16:
+        h = h.to(dtype)
+    with torch.inference_mode():
+        got = fused_gnn.persistent_unroll(params, h, padded, 5)
+        want = fused_gnn.persistent_unroll(params, h, plain, 5)
+    assert torch.equal(got, want)
+    cfg = FlowGNNConfig(message_impl="persistent",
+                        dtype="bfloat16" if dtype == torch.bfloat16
+                        else "float32")
+    model = FlowGNN(cfg, device=cuda, seed=3).eval()
+    batch = bucket_batch(ServeConfig(), graphs, 16, SUBKEYS, band=True)
+    with torch.inference_mode():
+        a = model(batch.to(cuda))
+        b = model(dataclasses.replace(batch, band_adj=plain).to(cuda))
+    assert torch.equal(a, b)

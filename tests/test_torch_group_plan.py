@@ -19,6 +19,7 @@ from deepdfa_tpu_torch.data.combined import load_graph_source
 from deepdfa_tpu_torch.data.sampling import epoch_indices
 from deepdfa_tpu_torch.data.splits import make_splits
 from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
+from deepdfa_tpu_torch.graphs.batch import batch_graphs
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN
 from deepdfa_tpu_torch.ops import band_spmm, fused_gnn
 from deepdfa_tpu_torch.serve import ServeConfig
@@ -93,18 +94,33 @@ def test_plan_at_the_serving_and_training_shapes():
     model = FlowGNN(FlowGNNConfig(message_impl="persistent"), device="cpu",
                     seed=0)
     graphs = synthetic_bigvul(16, model.config.feature, seed=0)
-    serving = bucket_batch(ServeConfig(), graphs, 16, list(model.subkeys),
-                           band=True).band_adj
+    config = ServeConfig()
+    budget = config.budget_for(16, tile=128)
+    own = batch_graphs(graphs, 16, budget["max_nodes"], budget["max_edges"],
+                       list(model.subkeys), build_band_adj=True,
+                       band_bandwidth=config.band_bandwidth).band_adj
     training = _fit_first_batch(model).band_adj
     # Groups of up to 48 rows at both shapes; a block's row arrays and
     # weight stages at 48 rows: 87,744 bytes forward (113,088 with the
     # cluster's third array), 113,088 backward: two blocks an SM.
-    assert _plan(serving) == dict(groups=34, max_rows=48, cluster=2,
-                                  fwd=87_744, bwd=113_088)
+    assert _plan(own) == dict(groups=34, max_rows=48, cluster=2,
+                              fwd=87_744, bwd=113_088)
     assert _plan(training) == dict(groups=523, max_rows=48, cluster=1,
                                    fwd=87_744, bwd=113_088)
-    assert fused_gnn.persistent_smem_bytes(serving, 128, 2) == 113_088
-    for adj in (serving, training):
+    assert fused_gnn.persistent_smem_bytes(own, 128, 2) == 113_088
+    # As the engine packs the serving bucket: its cut points padded to the
+    # bucket's bound, 63 groups of up to 64 rows whatever the graphs, so
+    # every batch of it has one grid (126 blocks in clusters of 2) and one
+    # shared-memory size (138,496 bytes with the cluster's third array:
+    # one block an SM).
+    serving = bucket_batch(config, graphs, 16, list(model.subkeys),
+                           band=True).band_adj
+    assert _plan(serving) == dict(groups=63, max_rows=64, cluster=2,
+                                  fwd=104_704, bwd=138_496)
+    assert fused_gnn.persistent_smem_bytes(serving, 128, 2) == 138_496
+    assert np.array_equal(serving.row_groups.numpy()[:35],
+                          own.row_groups.numpy())
+    for adj in (own, serving, training):
         assert fused_gnn.persistent_smem_ok(adj, 128)
         assert fused_gnn.persistent_bwd_smem_ok(adj, 128)
 

@@ -40,6 +40,10 @@ BLOCK = 32
 UNENCODABLE = "int f(char *p) { return '\ud800'; }"
 # The /healthz keys the reference adds from parts not ported yet.
 NOT_PORTED = {"telemetry_drops", "slo", "scan_pool"}
+# The port's own /metrics keys, fleet-wide and in each replica's section:
+# programs built after warmup, and the bytes of the replicas' CUDA graph
+# pools.
+PORT_ONLY = {"compiles_after_warmup", "graph_pool_bytes"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -255,9 +259,10 @@ def test_healthz_and_metrics_keys_match_the_reference():
             server.shutdown()
     (jh, jm), (ph, pm) = bodies["jax"], bodies["port"]
     assert set(ph) == set(jh) - NOT_PORTED
-    assert set(pm) == set(jm) | {"kernel_launches"}
+    assert set(pm) == set(jm) | {"kernel_launches"} | PORT_ONLY
     assert not any(pm["kernel_launches"].values())  # the CPU: none
-    assert set(pm["replicas"]["r0"]) == set(jm["replicas"]["r0"])
+    assert set(pm["replicas"]["r0"]) == set(jm["replicas"]["r0"]) | PORT_ONLY
+    assert pm["compiles_after_warmup"] == 0 and pm["graph_pool_bytes"] == 0
     assert set(pm["padding_waste"]["gnn:b2"]) == set(
         jm["padding_waste"]["gnn:b2"])
     for key in ("submitted", "completed", "cache_hits", "batches",
