@@ -294,9 +294,14 @@ one:
    launch counters moved by; ``bursty_trace(200, seed=1)`` replayed on
    the engine's virtual clock with nothing captured after warmup; each
    engine's graph-pool bytes. Phase 3 also holds ``segment_sum_kernel``
-   (the pooling's per-graph sums) and phase 25 ``segment_sum_kernel_bf16``
-   (the segment lane's bf16 aggregate) bit for bit to their plain
-   versions at the serving bucket, beside their bounds and ``index_add_``;
+   (the pooling's per-graph sums and softmax weights in one launch, the
+   ids searched as they are, narrow lanes; the segment lane's f32
+   aggregate over its plan, wide lanes) and phase 25
+   ``segment_sum_kernel_bf16`` (the segment lane's bf16 aggregate over a
+   plan built in the call and given: wide lanes at 16 slots, narrow at
+   1) bit for bit to their plain versions at the serving buckets, each
+   record naming the lanes the launcher chose, beside their bounds, a
+   one-row launch (``floor_ms``) and ``index_add_``;
    phases 4-5, 18-19, 26 and 30 serve through the captured graphs, phase
    30's roll with no capture after warmup.
 
@@ -791,44 +796,99 @@ def _as_list(out) -> list:
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def _segment_record(phase: str, name: str, data, ids, n, mask) -> dict:
-    """The ordered segment sum (``name``'s instance) against its plain
-    version, bit for bit, timed (the wrapper's call: the mask's keying,
-    the device index plan and the kernel) beside its bound (the rows the
-    mask keeps read once, the ids and the mask read once, the output
-    written once, over 3.35 TB/s; an add a kept element at the f32 SIMT
-    rate), its plain version and ``index_add_`` on the same rows (the
-    same sums in its atomics' order)."""
-    kernel = lambda: segment.segment_sum_rows(data, ids, n, mask=mask)
+def _segment_record(phase: str, name: str, parts, ids, n, mask,
+                    indices_are_sorted: bool, instance: str,
+                    lanes: tuple) -> dict:
+    """The ordered segment sum (``name``'s instance) over ``parts`` (one
+    launch for all) against its plain version, bit for bit, timed beside
+    its bound (the rows the mask keeps read once, the ids and the mask
+    read once, the output written once, over 3.35 TB/s; an add a kept
+    element at the f32 SIMT rate), its floor (the same wrapper's call on
+    one row into one bucket: a launch and little else), its plain version
+    and ``index_add_`` on the same rows side by side in one tensor (the
+    same sums in its atomics' order). ``indices_are_sorted``: the ids are
+    searched as they are (the pooling); else the call builds its plan
+    (``kernel_ms``), and the record adds the call with the plan given
+    (``plan_given_ms``: what each of a forward's steps pays) and the plan
+    alone (``plan_ms``). ``instance`` names the call; ``lanes`` are the
+    lane kinds the launcher must choose for the operands (recorded as
+    ``lanes``), so the record holds that instance of the kernel."""
+    parts = tuple(parts)
+    plan = lambda: segment.segment_sum_plan(
+        ids, n, mask, indices_are_sorted=indices_are_sorted)
+    kernel = lambda: segment.segment_sum_rows(parts, plan())
     keyed = segment._bucket_ids(ids, n, mask)
-    plain = lambda: segment._segment_sum_ordered(data, keyed, n)
+    plain = lambda: tuple(segment._segment_sum_ordered(x, keyed, n)
+                          for x in parts)
+    wide = torch.cat([x.reshape(x.shape[0], -1) for x in parts], 1)
     library = lambda: torch.zeros(
-        (n + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
-        device=data.device).index_add_(0, keyed, data)[:n]
+        (n + 1, wide.shape[1]), dtype=wide.dtype,
+        device=wide.device).index_add_(0, keyed, wide)[:n]
     before = launch_counts()[name]
     got = kernel()
     launches = launch_counts()[name] - before
-    _same_bits(f"{name} vs its plain version", [got], [plain()])
-    err = float((got.float() - library().float()).abs().max())
-    cols = int(np.prod(data.shape[1:]))
-    kept = data.shape[0] if mask is None else int(mask.sum())
-    nbytes = (_nbytes(ids, mask) + (kept + n) * cols * data.element_size())
+    want = plain()
+    _same_bits(f"{name} ({instance}) vs its plain version", list(got),
+               list(want))
+    chosen = segment.segment_sum_lanes(parts, got)
+    if chosen != tuple(lanes):
+        raise AssertionError(f"{name} ({instance}): the launcher chose "
+                             f"{chosen} lanes, the record holds {lanes}")
+    got_wide = torch.cat([x.reshape(n, -1) for x in got], 1)
+    err = float((got_wide.float() - library().float()).abs().max())
+    cols = wide.shape[1]
+    kept = wide.shape[0] if mask is None else int(mask.sum())
+    elem = wide.element_size()
+    nbytes = _nbytes(ids, *([] if mask is None else [mask])) + (
+        kept + n) * cols * elem
     flops = float(kept * cols)
     t_ops, t_bytes = flops / 67e12, nbytes / PEAK_BYTES_PER_S
-    rec = dict(kernel=name, rows=data.shape[0], kept_rows=kept, cols=cols,
-               buckets=n,
-               dtype=str(data.dtype), max_abs_err=0.0,
+    one = torch.zeros(1, dtype=wide.dtype, device=wide.device)
+    one_id = torch.zeros(1, dtype=torch.int32, device=wide.device)
+    rec = dict(kernel=name, instance=instance,
+               mode="sorted" if indices_are_sorted else "plan",
+               lanes=list(chosen), rows=wide.shape[0], kept_rows=kept,
+               cols=cols, operands=[list(x.shape) for x in parts],
+               buckets=n, dtype=str(wide.dtype), max_abs_err=0.0,
                max_abs_diff_vs_index_add=err, plain_bits_equal=True,
                kernel_ms=_time_ms(kernel), plain_ms=_time_ms(plain),
                library_ms=_time_ms(library),
                library_covers=SEGMENT_LIBRARY_COVERS,
+               floor_ms=_time_ms(lambda: segment.segment_sum_rows(
+                   one, segment.segment_sum_plan(
+                       one_id, 1, indices_are_sorted=True))),
                bound_us=max(t_ops, t_bytes) * 1e6,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                bound_peak="f32 SIMT FMA, 67 TFLOP/s",
                bound_peak_tflops=67.0, bytes=nbytes, flops=flops,
                launches=launches)
+    if not indices_are_sorted:
+        given_plan = plan()
+        given = lambda: segment.segment_sum_rows(parts, given_plan)
+        _same_bits(f"{name} ({instance}) with its plan given vs its plain "
+                   f"version", list(given()), list(want))
+        rec.update(plan_given_ms=_time_ms(given), plan_ms=_time_ms(plan))
     emit(phase=phase, **rec)
     return rec
+
+
+def _segment_checked(main: dict, *others: dict) -> dict:
+    """``main`` (the record the ``kernels`` line times) with ``checked``:
+    every instance of the kernel held bit for bit to its plain version in
+    this run, by call, mode, lanes and shape."""
+    return dict(main, checked=[
+        {key: r[key] for key in ("instance", "mode", "lanes", "rows",
+                                 "buckets", "cols", "kernel_ms")}
+        for r in (main,) + others])
+
+
+def _aggregate_rows(batch, width: int, dtype, seed: int):
+    """The segment lane's messages over ``batch``'s edges (padded edges
+    zero), seeded."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    msg = torch.randn((batch.max_edges, width), generator=gen,
+                      device="cuda").to(dtype)
+    return torch.where(batch.edge_mask[:, None], msg, 0.0)
 
 
 def phase_kernels(model: FlowGNN) -> dict:
@@ -920,16 +980,32 @@ def phase_kernels(model: FlowGNN) -> dict:
                      bytes=cost["bytes"], launches=launches,
                      **_step_geometry(adj, cfg.ggnn_hidden,
                                       "fused_step_bwd_kernel"))
-        # The pooling's per-graph sums at the serving bucket: the weighted
-        # node rows (the GGNN output beside the embedding) by graph.
+        # The pooling's per-graph sums at the serving bucket, both in one
+        # launch: the weighted node rows (the GGNN output beside the
+        # embedding) and the softmax weights, by graph, node_graph
+        # searched as it is.
         batch = _serving_batch(model)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         rows = torch.randn((batch.max_nodes, cfg.out_dim), generator=gen,
                            device="cuda")
         rows = torch.where(batch.node_mask[:, None], rows, 0.0)
-        serving["segment_sum_kernel"] = _segment_record(
-            "kernels", "segment_sum_kernel", rows, batch.node_graph,
-            batch.n_graphs, batch.node_mask)
+        e = torch.where(batch.node_mask, torch.rand(
+            batch.max_nodes, generator=gen, device="cuda"), 0.0)
+        if not batch.node_graph_sorted:
+            raise AssertionError("the serving bucket's node_graph is not "
+                                 "sorted")
+        pool = _segment_record(
+            "kernels", "segment_sum_kernel", (rows, e), batch.node_graph,
+            batch.n_graphs, batch.node_mask, True, "pooling, 16 slots",
+            ("narrow", "narrow"))
+        # The segment lane's f32 aggregate at the same bucket: one bucket
+        # a node, 16-byte lanes over a plan's order.
+        agg = _segment_record(
+            "kernels", "segment_sum_kernel",
+            (_aggregate_rows(batch, cfg.ggnn_hidden, torch.float32,
+                             SEED + 2),), batch.receivers, batch.max_nodes,
+            batch.edge_mask, False, "aggregate, 16 slots", ("wide",))
+        serving["segment_sum_kernel"] = _segment_checked(pool, agg)
     return serving
 
 
@@ -1156,14 +1232,20 @@ def phase_kernels_bf16(model: FlowGNN) -> dict:
         # The segment lane's aggregate at bf16 at the serving bucket: each
         # edge's message summed into its receiver in edge order, rounded
         # after each add, the padded edges left out.
-        batch = _serving_batch(model)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-        msg = torch.randn((batch.max_edges, cfg.ggnn_hidden), generator=gen,
-                          device="cuda").bfloat16()
-        msg = torch.where(batch.edge_mask[:, None], msg, 0.0)
-        serving["segment_sum_kernel_bf16"] = _segment_record(
-            "kernels_bf16", "segment_sum_kernel_bf16", msg, batch.receivers,
-            batch.max_nodes, batch.edge_mask)
+        # The 16-slot bucket takes 16-byte lanes; the 1-slot bucket's few
+        # nodes take 4-byte lanes of bf16 pairs.
+        aggs = []
+        for slots, lanes in ((16, "wide"), (1, "narrow")):
+            batch = (_serving_batch(model) if slots == 16 else bucket_batch(
+                ServeConfig(), synthetic_bigvul(1, cfg.feature, seed=SEED),
+                1, list(model.subkeys), band=True).to("cuda"))
+            aggs.append(_segment_record(
+                "kernels_bf16", "segment_sum_kernel_bf16",
+                (_aggregate_rows(batch, cfg.ggnn_hidden, torch.bfloat16,
+                                 SEED + 1),), batch.receivers,
+                batch.max_nodes, batch.edge_mask, False,
+                f"aggregate, {slots} slot{'s' * (slots > 1)}", (lanes,)))
+        serving["segment_sum_kernel_bf16"] = _segment_checked(*aggs)
     return serving
 
 
@@ -3310,8 +3392,9 @@ def _recipe(root: str) -> dict:
         "flash_bwd_fused_kernel": enc.num_layers * steps,
         "persistent_fwd_kernel": batches - over_gate,
         "fused_step_kernel": graph_cfg.n_steps * over_gate,
-        # The frozen encoder's pooling: two per-graph sums a batch.
-        "segment_sum_kernel": 2 * batches})
+        # The frozen encoder's pooling: its per-graph sums, one launch a
+        # batch.
+        "segment_sum_kernel": batches})
 
     # The frozen encoder: T's best holds D's best encoder bit for bit,
     # and the pooling at the combined model's seeded init.
@@ -5004,8 +5087,8 @@ def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
     step (``FlowGNN._message_pass``); the segment lane aggregates with
     ``segment_sum_kernel`` each step, the tile lane with
     ``tile_spmm_kernel`` each step forward and backward; where no gradient
-    flows the pooling's two per-graph sums are ``segment_sum_kernel``
-    (f32 at either dtype)."""
+    flows the pooling's per-graph sums are one ``segment_sum_kernel``
+    launch (f32 at either dtype)."""
     k, hidden = graph_cfg.n_steps, graph_cfg.ggnn_hidden
     impl = graph_cfg.message_impl
     dtype = getattr(torch, graph_cfg.dtype)
@@ -5020,7 +5103,7 @@ def _gnn_lane_launches(graph_cfg, data, indices, tcfg, kw, train: bool,
             shuffle_rng=rng, build_band_adj=graph_cfg.uses_band_adj,
             build_tile_adj=graph_cfg.uses_tile_adj, **kw):
         if not train:
-            out["segment_sum_kernel"] += 2
+            out["segment_sum_kernel"] += 1
         if impl == "segment":
             out["segment_sum_kernel" + sfx] += k
             continue
@@ -5440,7 +5523,10 @@ def main() -> int:
                                        "f32_kernel_ms", "elements_differing",
                                        "scan_bits_equal", "fold_bits_equal",
                                        "one_step_ms", "stages",
-                                       "rows_per_split", "plain_bits_equal")
+                                       "rows_per_split", "plain_bits_equal",
+                                       "mode", "lanes", "checked",
+                                       "floor_ms", "plan_given_ms",
+                                       "plan_ms")
                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,15 @@ class GraphBatch:
                   dense tiles of them)
     node_df_in, node_df_out : optional int32[max_nodes] dataflow-solution
                   bits (``with_dataflow``; the dataflow label styles)
+    node_graph_sorted : whether ``node_graph`` keyed by ``node_mask`` (a
+                  padded node's id ``n_graphs``) is non-decreasing: graphs
+                  packed contiguously, the padding after the last graph.
+                  The pooling's segment sums on the card then search it as
+                  it is (``segment_sum_plan(indices_are_sorted=True)``),
+                  which the card cannot check: a wrong True gives wrong
+                  sums. False (the default, for a batch built by hand, and
+                  slot packing, which leaves padding inside the slots):
+                  they build an index plan.
     """
 
     node_feats: Dict[str, torch.Tensor]
@@ -69,6 +78,7 @@ class GraphBatch:
     tile_adj: Optional[CsrAdjacency] = None
     node_df_in: Optional[torch.Tensor] = None
     node_df_out: Optional[torch.Tensor] = None
+    node_graph_sorted: bool = False
 
     @property
     def n_graphs(self) -> int:
@@ -343,6 +353,7 @@ def batch_graphs(
         tile_adj=tile_adj,
         node_df_in=t(df_in) if df_in is not None else None,
         node_df_out=t(df_out) if df_out is not None else None,
+        node_graph_sorted=slot_nodes is None,
     )
 
 

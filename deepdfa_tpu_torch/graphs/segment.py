@@ -15,22 +15,27 @@ bf16, as the reference's does.
 
 On the card :func:`segment_sum` is a hand kernel (``csrc/segment_sum.cu``,
 ``segment_sum_kernel`` and ``segment_sum_kernel_bf16``): each bucket's
-rows in row order, one thread a (bucket, column), the running sum in the
-data's dtype (bf16: rounded after each add). Its index plan
-(:func:`segment_sum_plan`: the rows ordered by bucket by a stable device
-sort, the buckets' offsets from a ``scatter_add_`` of ones and a
-``cumsum``) reads nothing back to the host, so a CUDA graph captures it;
-and its sums take one order whatever the threads do, where
-``index_add_``'s atomics take the order the threads arrive in. It
-replaces no Pallas kernel: the reference leaves ``jax.ops.segment_sum``
-to XLA. It is bound by the bytes it reads (each row once).
+rows in row order, the running sum in the data's dtype (bf16: rounded
+after each add), one warp a (bucket, column slab). It finds each
+bucket's rows in sorted keys by a search of its own, so it takes no
+offsets. Its :class:`SegmentPlan` is the ids themselves where the
+caller says that, keyed, they are non-decreasing
+(``indices_are_sorted``, the reference's ``jax.ops.segment_sum`` flag:
+the pooling's ``node_graph``), and otherwise one stable sort of the
+int32 keys (the segment lane builds one a forward). Neither reads
+anything back to the host, so a CUDA graph captures the call; and its
+sums take one order whatever the threads do, where ``index_add_``'s
+atomics take the order the threads arrive in. It replaces no Pallas
+kernel: the reference leaves ``jax.ops.segment_sum`` to XLA. Its bound
+is the bytes it reads (each kept row once); at the shapes the port gives
+it, a launch costs more.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -39,101 +44,181 @@ from deepdfa_tpu_torch.ops import count_launch
 #: The kernels of this module, by name (``launch_counts``).
 KERNELS = ("segment_sum_kernel", "segment_sum_kernel_bf16")
 
+Rows = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+#: ``segment_sum_lanes``' names of the kernel's lane kinds.
+LANE_KINDS = ("scalar", "narrow", "wide")
+
+
+class SegmentPlan(NamedTuple):
+    """How the kernel finds each bucket's rows: ids on their device,
+    built with no host read (:func:`segment_sum_plan`). ``ids``: the ids
+    in row order (int32), keyed by ``mask`` where it is given (a row where
+    it is False is in no bucket: its key is ``num_segments``), already
+    keyed where it is None. ``order`` None: the keyed ids are
+    non-decreasing (the caller's word), and ``keys`` is ``ids``, searched
+    as it is. Else ``keys`` is the keyed ids sorted by one stable sort,
+    ``order`` (int64) the rows in that order, and ``mask`` None: bucket
+    ``s`` owns ``order[k]`` for the ``k`` where ``keys[k] == s``, in row
+    order."""
+
+    ids: torch.Tensor
+    keys: torch.Tensor
+    order: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor]
+    num_segments: int
+
+    def keyed(self) -> torch.Tensor:
+        """The keyed ids in row order (what the plain version and the
+        backward read)."""
+        return _bucket_ids(self.ids, self.num_segments, self.mask)
+
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """Sum rows of ``data`` into ``num_segments`` buckets. Callers zero
     padded rows first (padded ids point at slot 0); ``mask`` (False on
     those rows) also leaves them out of every bucket
     (:func:`_bucket_ids`). bf16 data: the running sum of each bucket
-    rounds to bf16 after each row, in row order. CUDA data (f32 or bf16):
-    :func:`segment_sum_rows`, the kernel."""
-    ids = _bucket_ids(segment_ids, num_segments, mask)
-    if data.is_cuda or data.dtype == torch.bfloat16:
-        return _SegmentSum.apply(data, ids, num_segments)
-    rows = num_segments if mask is None else num_segments + 1
-    out = torch.zeros((rows,) + tuple(data.shape[1:]), dtype=data.dtype,
-                      device=data.device).index_add_(0, ids, data)
+    rounds to bf16 after each row, in row order. ``plan``: the plan of
+    these ids and mask, when the caller reuses one; CUDA data (f32 or
+    bf16) is summed by :func:`segment_sum_rows`, the kernel, over it or
+    over a plan of its own."""
+    if data.is_cuda:
+        if plan is None:
+            plan = segment_sum_plan(segment_ids, num_segments, mask)
+        return _SegmentSum.apply(data, plan.keyed(), num_segments, plan)
+    ids = (plan.keyed() if plan is not None
+           else _bucket_ids(segment_ids, num_segments, mask))
+    if data.dtype == torch.bfloat16:
+        return _SegmentSum.apply(data, ids, num_segments, None)
+    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device).index_add_(
+        0, ids, data)
     return out[:num_segments]
 
 
 def _bucket_ids(segment_ids: torch.Tensor, num_segments: int,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The ids as int64; with ``mask``, rows where it is False take the
-    id ``num_segments``, which names no bucket: the plan sorts them last
-    and no bucket's chain of adds walks them (a batch's padded edges all
+    """The ids as int32; with ``mask``, rows where it is False take the
+    id ``num_segments``, which names no bucket: a plan sorts them last and
+    no bucket's chain of adds walks them (a batch's padded edges all
     point at node 0)."""
-    ids = segment_ids.long()
+    ids = segment_ids.int()
     if mask is None:
         return ids
     return torch.where(mask, ids, num_segments)
 
 
-def segment_sum_plan(segment_ids: torch.Tensor, num_segments: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's index plan, on the ids' device with no host read:
-    ``order``, the row indices sorted by bucket (stable, so row order
-    within a bucket; rows of id ``num_segments`` last), and ``offsets``
-    [num_segments + 1], where bucket ``s`` owns
-    ``order[offsets[s]:offsets[s + 1]]`` (int64 both)."""
-    ids = segment_ids.long()
-    order = torch.argsort(ids, stable=True)
-    counts = torch.zeros(num_segments + 1, dtype=torch.long,
-                         device=ids.device).scatter_add_(
-        0, ids, torch.ones_like(ids))
-    offsets = torch.cat([counts.new_zeros(1),
-                         torch.cumsum(counts[:num_segments], 0)])
-    return order, offsets
+def segment_sum_plan(segment_ids: torch.Tensor, num_segments: int,
+                     mask: Optional[torch.Tensor] = None, *,
+                     indices_are_sorted: bool = False) -> SegmentPlan:
+    """The kernel's :class:`SegmentPlan` of ``segment_ids`` and ``mask``,
+    on the ids' device with no host read. ``indices_are_sorted`` (the
+    reference's ``jax.ops.segment_sum`` flag): the caller's word that the
+    keyed ids are non-decreasing, and the plan is the ids and the mask as
+    they are (no op for int32 ids and a bool mask); else the keying and
+    one stable sort of the int32 keys."""
+    if indices_are_sorted:
+        ids = segment_ids.int().contiguous()
+        mask = None if mask is None else mask.bool().contiguous()
+        return SegmentPlan(ids, ids, None, mask, num_segments)
+    ids = _bucket_ids(segment_ids, num_segments, mask)
+    keys, order = torch.sort(ids, stable=True)
+    return SegmentPlan(ids, keys, order, None, num_segments)
 
 
-def segment_sum_rows(data: torch.Tensor, segment_ids: torch.Tensor,
-                     num_segments: int,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def segment_sum_rows(data: Rows, plan: SegmentPlan) -> Rows:
     """Each bucket's rows added in row order, the running sum in the
-    data's dtype (f32 or bf16); ``mask`` as :func:`segment_sum`'s. CUDA
-    tensors: ``segment_sum_kernel`` (bf16: ``segment_sum_kernel_bf16``)
-    over :func:`segment_sum_plan`, or an exception; CPU tensors: the plain
-    version, :func:`_segment_sum_ordered`. No gradient
-    (:func:`segment_sum` carries it)."""
-    segment_ids = _bucket_ids(segment_ids, num_segments, mask)
-    if not data.is_cuda:
-        return _segment_sum_ordered(data, segment_ids, num_segments)
-    if data.dtype not in (torch.float32, torch.bfloat16):
+    data's dtype (f32 or bf16), the buckets' rows found by ``plan``
+    (:func:`segment_sum_plan`). ``data`` is a tensor, or a tuple of up to
+    two tensors with the same rows and dtype summed by the same plan in
+    one launch (a tuple back). CUDA tensors: ``segment_sum_kernel``
+    (bf16: ``segment_sum_kernel_bf16``), one launch, or an exception; CPU
+    tensors: the plain version, :func:`_segment_sum_ordered`, which
+    checks a sorted plan's ids (ValueError where they decrease). No
+    gradient (:func:`segment_sum` carries it)."""
+    parts = tuple(data) if isinstance(data, (tuple, list)) else (data,)
+    n_seg = plan.num_segments
+    if not parts[0].is_cuda:
+        keyed = plan.keyed()
+        if plan.order is None and bool((keyed[1:] < keyed[:-1]).any()):
+            raise ValueError(
+                "a sorted plan's keyed segment ids (masked rows keyed to "
+                "num_segments) decrease")
+        out = tuple(_segment_sum_ordered(x, keyed, n_seg) for x in parts)
+        return out if isinstance(data, (tuple, list)) else out[0]
+    dtype = parts[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"segment_sum_kernel takes float32 or bfloat16 data, got "
-            f"{data.dtype}")
-    if segment_ids.device != data.device or segment_ids.shape[:1] != \
-            data.shape[:1]:
+            f"{dtype}")
+    if len(parts) > 2:
+        raise NotImplementedError(
+            f"segment_sum_kernel sums up to 2 operands a launch, got "
+            f"{len(parts)}")
+    n = parts[0].shape[0]
+    for x in parts:
+        if x.dtype != dtype or x.device != parts[0].device or \
+                x.shape[:1] != (n,):
+            raise ValueError(
+                f"segment_sum_rows operands {[tuple(p.shape) for p in parts]}"
+                f" of {[p.dtype for p in parts]} differ in rows, dtype or "
+                f"device")
+    if plan.keys.device != parts[0].device or plan.keys.shape != (n,):
         raise ValueError(
-            f"segment ids {tuple(segment_ids.shape)} on "
-            f"{segment_ids.device} do not match data {tuple(data.shape)} on "
-            f"{data.device}")
+            f"segment ids {tuple(plan.keys.shape)} on {plan.keys.device} do "
+            f"not match data {tuple(parts[0].shape)} on {parts[0].device}")
     from deepdfa_tpu_torch.ops import _build
 
-    data = data.contiguous()
-    cols = math.prod(data.shape[1:])
-    out = torch.empty((num_segments,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    order, offsets = segment_sum_plan(segment_ids, num_segments)
-    bf16 = data.dtype == torch.bfloat16
-    with torch.cuda.device(data.device):
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(data.device).cuda_stream)
+    parts = tuple(x.contiguous() for x in parts)
+    outs = tuple(torch.empty((n_seg,) + tuple(x.shape[1:]), dtype=dtype,
+                             device=x.device) for x in parts)
+    bf16 = dtype == torch.bfloat16
+    with torch.cuda.device(parts[0].device):
         err = _build.load("segment_sum").segment_sum_launch(
-            ctypes.c_void_p(data.data_ptr()),
-            ctypes.c_void_p(order.data_ptr()),
-            ctypes.c_void_p(offsets.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), num_segments, cols, int(bf16),
-            stream)
+            plan.keys.data_ptr(),
+            None if plan.mask is None else plan.mask.data_ptr(),
+            None if plan.order is None else plan.order.data_ptr(), n,
+            *_operand_args(parts, outs), n_seg, int(bf16),
+            torch.cuda.current_stream(parts[0].device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum_kernel launch failed: cudaError_t "
                            f"{err}")
     count_launch(segment_sum_rows, "launches_bf16" if bf16 else "launches")
-    return out
+    return outs if isinstance(data, (tuple, list)) else outs[0]
 
 
 segment_sum_rows.launches = segment_sum_rows.launches_bf16 = 0
+
+
+def _operand_args(parts: Tuple[torch.Tensor, ...],
+                  outs: Tuple[torch.Tensor, ...]) -> list:
+    """(data, out, cols) of each of the kernel's two operands, the second
+    (None, None, 0) where the call has one."""
+    args = []
+    for x, o in zip(parts, outs):
+        args += [x.data_ptr(), o.data_ptr(), math.prod(x.shape[1:])]
+    return args + [None, None, 0] * (2 - len(parts))
+
+
+def segment_sum_lanes(data: Rows, out: Rows) -> Tuple[str, ...]:
+    """The lane kind (``LANE_KINDS``) of each operand of a kernel call
+    that summed ``data`` (CUDA tensors, contiguous) into ``out``: what the
+    launcher chose from their widths, alignment and bucket count."""
+    from deepdfa_tpu_torch.ops import _build
+
+    parts = tuple(data) if isinstance(data, (tuple, list)) else (data,)
+    outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+    lanes = (ctypes.c_int * 2)()
+    err = _build.load("segment_sum").segment_sum_lanes(
+        *_operand_args(parts, outs), outs[0].shape[0],
+        int(parts[0].dtype == torch.bfloat16), lanes)
+    if err != 0:
+        raise RuntimeError(f"segment_sum_lanes failed: cudaError_t {err}")
+    return tuple(LANE_KINDS[k] for k in lanes[:len(parts)])
 
 
 def _segment_sum_ordered(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -170,23 +255,26 @@ def _segment_sum_ordered(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 class _SegmentSum(torch.autograd.Function):
-    """:func:`segment_sum_rows` with XLA's transpose of a segment sum as
-    its backward: each row's gradient is its bucket's, gathered (exact at
-    any dtype). Autograd of the forward's level loop would gather the
-    same values but give the all-zero rows the loop leaves out none.
-    Rows of id ``num_segments`` (masked) are in no bucket: zero
-    gradient."""
+    """The segment sum with XLA's transpose of a segment sum as its
+    backward: each row's gradient is its bucket's, gathered by the keyed
+    ids (exact at any dtype; no plan needed). The forward is
+    :func:`segment_sum_rows` over ``plan``, or (CPU, no plan) the plain
+    version. Autograd of the forward's level loop would gather the same
+    values but give the all-zero rows the loop leaves out none. Rows of
+    id ``num_segments`` (masked) are in no bucket: zero gradient."""
 
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments):
-        ctx.save_for_backward(segment_ids)
-        return segment_sum_rows(data, segment_ids, num_segments)
+    def forward(ctx, data, ids, num_segments, plan):
+        ctx.save_for_backward(ids)
+        if plan is None:
+            return _segment_sum_ordered(data, ids, num_segments)
+        return segment_sum_rows(data, plan)
 
     @staticmethod
     def backward(ctx, g):
         (segment_ids,) = ctx.saved_tensors
         g = torch.cat([g, g.new_zeros((1,) + tuple(g.shape[1:]))])
-        return g[segment_ids], None, None
+        return g[segment_ids], None, None, None
 
 
 def launch_counts() -> Dict[str, int]:

@@ -54,9 +54,11 @@ from deepdfa_tpu_torch.core.config import FlowGNNConfig, subkeys_for
 from deepdfa_tpu_torch.core.device import DeviceLike, resolve_device
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
 from deepdfa_tpu_torch.graphs.segment import (
+    SegmentPlan,
     segment_onehot,
     segment_softmax,
     segment_sum,
+    segment_sum_plan,
     segment_sum_rows,
 )
 from deepdfa_tpu_torch.ops import count_launch, fused_gnn
@@ -193,10 +195,12 @@ class GatedGraphStep(nn.Module):
         return (1.0 - z) * n + z * h
 
     def forward(self, h: torch.Tensor, batch: GraphBatch,
-                packed: Optional[Tuple[torch.Tensor, ...]] = None
-                ) -> torch.Tensor:
+                packed: Optional[Tuple[torch.Tensor, ...]] = None,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
         """``packed``: the kernels' packed weights, when the caller packs
-        them once for all steps (fused and persistent only)."""
+        them once for all steps (fused and persistent only). ``plan``: the
+        receivers' segment-sum plan, when the caller builds it once for
+        all steps (segment only)."""
         impl = self.message_impl
         if impl in ("band", "fused", "persistent") and batch.band_adj is None:
             raise ValueError(f"message_impl={impl!r} needs batch_graphs("
@@ -216,7 +220,7 @@ class GatedGraphStep(nn.Module):
             gathered = msg[batch.senders.long()]
             gathered = torch.where(batch.edge_mask[:, None], gathered, 0.0)
             agg = segment_sum(gathered, batch.receivers, batch.max_nodes,
-                              mask=batch.edge_mask)
+                              mask=batch.edge_mask, plan=plan)
         else:
             raise ValueError(f"message_impl {impl!r} is not ported")
         return self._gru(agg, h)
@@ -235,8 +239,11 @@ class GlobalAttentionPool(nn.Module):
     arrive; the matmuls sum in one order, so a training run on the card
     repeats its bits. ``impl="auto"``: on the CPU segment; on CUDA matmul
     where a gradient flows, and otherwise (serving, evaluation) the
-    matmul form with its two sums over nodes taken per graph
-    (``graphs.segment.segment_sum_rows``, each graph's rows in row order):
+    matmul form with its two sums over nodes taken per graph, in one
+    launch (``graphs.segment.segment_sum_rows``, each graph's rows in row
+    order, found in ``node_graph`` as it is where ``node_graph_sorted``
+    says that, keyed by the mask, it is non-decreasing, else through an
+    index plan):
     cuBLAS groups a graph's terms by where its rows sit in the batch, so a
     served graph's probability moved by an f32 ulp with the flush that
     carried it (``scripts/torch_serve_batch_bits.py``); per graph, it is
@@ -251,7 +258,8 @@ class GlobalAttentionPool(nn.Module):
         self.impl = impl
         self.dtype = dtype
 
-    def forward(self, feat, node_graph, node_mask, n_graphs: int):
+    def forward(self, feat, node_graph, node_mask, n_graphs: int,
+                node_graph_sorted: bool = False):
         gate = _dense(self.gate, feat, self.dtype)[:, 0]
         impl = self.impl
         if impl == "auto":
@@ -283,12 +291,15 @@ class GlobalAttentionPool(nn.Module):
         weighted = feat * e[:, None].to(feat.dtype)
         if impl == "rows":
             # Each graph's rows in row order, the padding rows (zero
-            # weights) left out: segment_sum_rows, whose index plan reads
-            # nothing back to the host.
-            denom = segment_sum_rows(e, node_graph, n_graphs,
-                                     mask=node_mask)
-            sums = segment_sum_rows(weighted.float(), node_graph, n_graphs,
-                                    mask=node_mask)
+            # weights) left out: one segment_sum_rows launch for both
+            # sums, which reads nothing back to the host. A contiguous
+            # batch's node_graph (graph by graph, the padding after the
+            # last graph, keyed past every graph by the mask) is searched
+            # as it is, with no index plan.
+            sums, denom = segment_sum_rows(
+                (weighted.float(), e), segment_sum_plan(
+                    node_graph, n_graphs, node_mask,
+                    indices_are_sorted=node_graph_sorted))
         else:
             denom = onehot @ e
             sums = onehot @ weighted.float()
@@ -372,8 +383,14 @@ class FlowGNN(nn.Module):
                 return fused_gnn.persistent_unroll(
                     step.step_params(), h, batch.band_adj, cfg.n_steps,
                     packed=packed)
+        plan = None
+        if cfg.message_impl == "segment" and h.is_cuda:
+            # The receivers' index plan, once for every step's aggregate
+            # on the card (the CPU's sums key the ids in each call).
+            plan = segment_sum_plan(batch.receivers, batch.max_nodes,
+                                    batch.edge_mask)
         for _ in range(cfg.n_steps):
-            h = step(h, batch, packed=packed)
+            h = step(h, batch, packed=packed, plan=plan)
         return h
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
@@ -385,7 +402,7 @@ class FlowGNN(nn.Module):
         out = torch.cat([ggnn_out, feat_embed], dim=-1)
         if cfg.label_style == "graph":
             out = self.pooling(out, batch.node_graph, batch.node_mask,
-                               batch.n_graphs)
+                               batch.n_graphs, batch.node_graph_sorted)
         if cfg.encoder_mode:
             return out
         # The head carries no dtype (flax promotes a bf16 input to the f32

@@ -188,8 +188,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tile_spmm_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "segment_sum": {
-        # data, order, offsets, out, n_seg, cols, bf16, stream
-        "segment_sum_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # keys, mask, order, n_rows, data0, out0, cols0, data1, out1,
+        # cols1, n_seg, bf16, stream
+        "segment_sum_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+                               _I, _P],
+        # data0, out0, cols0, data1, out1, cols1, n_seg, bf16, lanes[2]
+        "segment_sum_lanes": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
     },
 }
 

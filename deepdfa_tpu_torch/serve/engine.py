@@ -184,7 +184,8 @@ class _Staged:
                 "node_mask", "edge_mask", "graph_mask", "graph_ids")},
             band_adj=None if band is None else dataclasses.replace(
                 band, vals=views["band_adj.vals"],
-                row_groups=views["band_adj.row_groups"]))
+                row_groups=views["band_adj.row_groups"]),
+            node_graph_sorted=template.node_graph_sorted)
         self.input_ids = views.get("input_ids")
         # Recorded after each transfer; the next stage waits for it.
         self._copied = (torch.cuda.Event() if device.type == "cuda"
@@ -209,6 +210,10 @@ class _Staged:
             fields.append(("input_ids", ids))
         if len(fields) != len(self.layout):
             raise ValueError("batch fields do not match the pair's layout")
+        if self.batch.node_graph_sorted and not gb.node_graph_sorted:
+            # The pair's pooling searches node_graph as it is.
+            raise ValueError("the batch's node_graph is not sorted; the "
+                             "pair's forward takes it as sorted")
         for name, t in fields:
             view = self.host_views[name]
             if t.shape != view.shape or t.dtype != view.dtype:

@@ -167,11 +167,14 @@ def _slotted_graph_batch(slot_graphs, n_slots: int, max_nodes: int,
         graph_mask[row] = True
         graph_ids[row] = int(old_ids[k])
     # The band and tile adjacencies depend only on senders/receivers,
-    # which the slot remap leaves untouched.
+    # which the slot remap leaves untouched. The remapped node_graph stays
+    # non-decreasing (keyed by the mask) where the slots ascend with k.
     return dataclasses.replace(
         b, node_graph=torch.from_numpy(remap[b.node_graph.numpy()]),
         graph_mask=torch.from_numpy(graph_mask),
-        graph_ids=torch.from_numpy(graph_ids))
+        graph_ids=torch.from_numpy(graph_ids),
+        node_graph_sorted=b.node_graph_sorted and bool(
+            np.all(np.diff(remap[:len(ordered)]) > 0)))
 
 
 def text_graph_batches(

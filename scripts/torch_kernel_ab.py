@@ -44,7 +44,12 @@ gradients of those (``wgrad_bits_*_bf16``: against a checkout from
 before its tensor-core redesign not equal, its sums in another order,
 but repeating within each) and ``tile_spmm_kernel_bf16``'s output over A
 and A^T on the tile lane's training lists (``tile_bits_*_bf16``, expected
-equal and repeating: its sums keep their order). Needs one NVIDIA GPU;
+equal and repeating: its sums keep their order). The ordered segment sums
+as each checkout's callers make them at the serving bucket
+(``segment_callers``: the pooling's forward where no gradient flows, and
+the segment lane's message pass at f32 and bf16, device ms) and their
+output bits, expected equal across the checkouts
+(``segment_bits_equal``). Needs one NVIDIA GPU;
 the checkouts build their kernels into their own trees.
 """
 
@@ -120,12 +125,37 @@ PHASES = ("import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
           ".bfloat16(); "
           "cs.emit(phase='tile_bits_bf16', sha256=sha(["
           "cs.tile_spmm.tile_spmm(tl, mb), "
-          "cs.tile_spmm.tile_spmm(tl.transposed(), mb)]))")
+          "cs.tile_spmm.tile_spmm(tl.transposed(), mb)])); "
+          # The segment sums as each checkout's callers make them, at the
+          # serving bucket: the pooling's forward (its per-graph sums on
+          # the card where no gradient flows) and the segment lane's
+          # message pass (five aggregates), f32 and bf16.
+          "import inspect; sb = cs._serving_batch(model); "
+          "pf = torch.randn((sb.max_nodes, model.config.out_dim), "
+          "generator=gn, device='cuda'); "
+          "pkw = {'node_graph_sorted': sb.node_graph_sorted} if "
+          "'node_graph_sorted' in inspect.signature("
+          "model.pooling.forward).parameters else {}; "
+          "pool = lambda: model.pooling(pf, sb.node_graph, sb.node_mask, "
+          "sb.n_graphs, **pkw); "
+          "sms = {dt: cs.FlowGNN(cs.FlowGNNConfig(message_impl='segment', "
+          "dtype=dt), device='cuda', seed=cs.SEED) "
+          "for dt in ('float32', 'bfloat16')}; "
+          "sh = {dt: torch.cat([m.embeds[s](sb.node_feats[s]) "
+          "for s in m.subkeys], dim=-1) for dt, m in sms.items()}; "
+          "mp = {dt: (lambda m=m, x=sh[dt]: m._message_pass(x, sb)) "
+          "for dt, m in sms.items()}; "
+          "cs.emit(phase='segment_bits', sha256=sha([pool()] + "
+          "[f() for f in mp.values()])); "
+          "cs.emit(phase='segment_callers', pooling_ms=cs._time_ms(pool), "
+          "**{f'message_pass_{dt}_ms': cs._time_ms(f) "
+          "for dt, f in mp.items()})")
 KEYS = ("kernel_ms", "plain_ms", "library_ms", "scan_ms", "bound_us",
         "max_abs_err", "blocks_per_sm", "cluster", "active_clusters",
         "f32_kernel_ms", "elements_differing", "smem_bytes",
         "smem_bytes_pass1", "smem_bytes_pass2", "blocks_per_sm_pass1",
-        "blocks_per_sm_pass2", "one_step_ms", "transpose_ms")
+        "blocks_per_sm_pass2", "one_step_ms", "transpose_ms", "cols",
+        "mode", "floor_ms", "plan_given_ms", "plan_ms")
 
 
 def run(checkout: str) -> dict:
@@ -145,8 +175,11 @@ def run(checkout: str) -> dict:
                                   "fused_bits_bf16", "fwd_bits_bf16",
                                   "gnn_step_bits", "gnn_fwd_bits_bf16",
                                   "gnn_bwd_bits_bf16", "wgrad_bits_bf16",
-                                  "tile_bits_bf16"):
+                                  "tile_bits_bf16", "segment_bits"):
             out[f"{rec['phase']}_sha256"] = rec["sha256"]
+        elif rec.get("phase") == "segment_callers":
+            out["segment_callers"] = {k: v for k, v in rec.items()
+                                      if k != "phase"}
         elif rec.get("phase") in ("kernels", "kernels_bf16", "train_kernels",
                                   "tile_kernels", "attention_kernels",
                                   "attention_kernels_bf16",
@@ -209,7 +242,10 @@ def main() -> int:
                            "wgrad_bits_equal_bf16": False,
                            "wgrad_bits_repeat_bf16": True,
                            "tile_bits_equal_bf16": True,
-                           "tile_bits_repeat_bf16": True},
+                           "tile_bits_repeat_bf16": True,
+                           # The segment sums add each bucket's rows in
+                           # row order in every design.
+                           "segment_bits_equal": True},
               "gnn_step_bits_equal": len({run["gnn_step_bits_sha256"]
                                           for run in runs}) == 1,
               "gnn_fwd_bits_equal_bf16": len(hashes("gnn_fwd_bits_bf16"))
@@ -218,6 +254,7 @@ def main() -> int:
               == 1,
               "wgrad_bits_equal_bf16": len(hashes("wgrad_bits_bf16")) == 1,
               "tile_bits_equal_bf16": len(hashes("tile_bits_bf16")) == 1,
+              "segment_bits_equal": len(hashes("segment_bits")) == 1,
               **{f"{key}_repeat_bf16": {
                   label: len(hashes(f"{key}_bf16", label)) == 1
                   for label in ("old", "new")}

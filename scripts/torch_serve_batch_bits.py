@@ -36,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from deepdfa_tpu_torch.core.config import FlowGNNConfig  # noqa: E402
 from deepdfa_tpu_torch.graphs.segment import (  # noqa: E402
     segment_onehot,
+    segment_sum_plan,
     segment_sum_rows,
 )
 from deepdfa_tpu_torch.models.flowgnn import FlowGNN, _dense  # noqa: E402
@@ -84,11 +85,10 @@ def _pool(pooling, feat, batch, how):
         denom = (onehot.double() @ e.double()).float()
         sums = (onehot.double() @ weighted.double()).float()
     else:
-        g = batch.n_graphs
-        denom = segment_sum_rows(e, batch.node_graph, g,
-                                 mask=batch.node_mask)
-        sums = segment_sum_rows(weighted.float(), batch.node_graph, g,
-                                mask=batch.node_mask)
+        sums, denom = segment_sum_rows(
+            (weighted.float(), e), segment_sum_plan(
+                batch.node_graph, batch.n_graphs, batch.node_mask,
+                indices_are_sorted=batch.node_graph_sorted))
     denom = torch.where(denom > 0, denom, 1.0)
     stages.update(e=e, denom=denom)
     stages["pooled"] = (sums / denom[:, None]).to(feat.dtype)

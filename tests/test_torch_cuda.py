@@ -59,7 +59,8 @@ a full and then a partial batch with the eager forward's bits and N
 replays move the launch counts by N eager forwards'; a replica captures
 its buckets at its first flushes while another's thread serves; the
 ordered segment sum is bit for bit its plain version at in-degrees up to
-1000; and the persistent forward on a serving bucket's padded cut points
+1000 in both its modes (ids sorted, or a plan), and a CUDA graph of
+either replays its eager bits; and the persistent forward on a serving bucket's padded cut points
 gives the unpadded batch's bits.
 """
 
@@ -2194,12 +2195,12 @@ def test_bf16_fit_matches_cpu(cuda, impl):
                             "step_weight_grad_kernel_bf16")}[impl]
     assert all(counts[k] > 0 for k in names)
     # No f32 GNN or tile kernel: the bf16 instances replace them. The
-    # pooling's per-graph sums are f32 at either dtype: two launches of
+    # pooling's per-graph sums are f32 at either dtype: one launch of
     # segment_sum_kernel a validation batch (no gradient flows there).
     val_batches = sum(1 for _ in loop._batches(
         examples, splits["val"], dcfg, SUBKEYS, dcfg.eval_batch_size,
         build_band_adj=cfg.uses_band_adj, build_tile_adj=cfg.uses_tile_adj))
-    assert counts["segment_sum_kernel"] == 2 * val_batches > 0
+    assert counts["segment_sum_kernel"] == val_batches > 0
     assert all(v == 0 for k, v in counts.items()
                if not k.endswith("_bf16") and k != "segment_sum_kernel")
     assert all(p.dtype == torch.float32 for p in model.parameters())
@@ -2480,9 +2481,9 @@ def test_fleet_http_pump_threads_count_every_launch(cuda):
     assert all(m["batches"] for m in snap["replicas"].values())
     assert launches["persistent_fwd_kernel"] + model.over_gate_dispatches \
         == snap["batches"] > 0
-    # The pooling's two per-graph sums a flush (segment_sum_kernel), and
-    # no other kernel.
-    assert launches["segment_sum_kernel"] == 2 * snap["batches"]
+    # The pooling's per-graph sums, one launch a flush
+    # (segment_sum_kernel), and no other kernel.
+    assert launches["segment_sum_kernel"] == snap["batches"]
     assert sum(launches.values()) == launches["persistent_fwd_kernel"] \
         + launches["segment_sum_kernel"]
 
@@ -2615,38 +2616,197 @@ def test_a_replica_captures_a_missing_bucket_while_another_serves(cuda):
         == want
 
 
+def _segment_case(degrees, masked, shuffle, rng):
+    """ids of ``len(degrees)`` buckets and the mask: in bucket order with
+    7 masked padding rows (id 0) after them, or all shuffled with a fifth
+    of the rows masked; without a mask, no padding."""
+    ids = np.repeat(np.arange(len(degrees)), degrees)
+    if masked:
+        ids = np.concatenate([ids, np.zeros(7, ids.dtype)])
+    live = np.arange(len(ids)) < len(ids) - (7 if masked else 0)
+    if shuffle:
+        perm = rng.permutation(len(ids))
+        ids, live = ids[perm], live[perm] & (rng.random(len(ids)) > 0.2)
+    return (torch.from_numpy(ids.astype(np.int32)),
+            torch.from_numpy(live) if masked else None)
+
+
+def _segment_rows(n, width, dtype, rng, mask, cuda):
+    """The operands of one call on the card: widths 1, 3 and 128 (f32 and
+    bf16 16-byte lanes), 129 (one column a lane), "offset" (128 columns
+    from a base 4 or 2 bytes past 16-byte alignment: one column a lane)
+    and "merged" (the pooling's 256 + 1 in one launch); masked rows
+    zero."""
+    widths = {"merged": (256, 1), "offset": (128,)}.get(width, (width,))
+    parts = []
+    for w in widths:
+        shape = (n,) if w == 1 else (n, w)
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                             ).to(dtype)
+        if mask is not None:
+            x = torch.where(mask if w == 1 else mask[:, None], x, 0.0)
+        x = x.to(cuda)
+        if width == "offset":
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+            x = buf[1:].view(x.shape).copy_(x)
+            assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        parts.append(x)
+    return tuple(parts)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("degrees", [(0, 1, 5), (64, 0, 300), (1,) * 40,
-                                     (2, 3, 1000, 7)])
+                                     (2, 3, 1000, 7), (0, 1, 2, 3, 1) * 120])
 def test_segment_sum_kernel_equals_its_plain_version(cuda, dtype, degrees):
     """``segment_sum_kernel`` (bf16: ``_bf16``) bit for bit its plain
-    version, the level loop, at in-degrees from 0 to 1000 (rows in a
-    shuffled order, masked rows left out), at widths 1, 3 and 128."""
+    version, the level loop, at in-degrees from 0 to 1000, one launch a
+    call, in both modes: sorted (rows in bucket order, masked padding
+    after them: the ids searched as they are) and a plan (rows shuffled,
+    masked rows anywhere), at widths 1, 3 and 128, 129, an unaligned base
+    and the pooling's merged pair; every lane kind the launcher chose is
+    one the case expects (narrow lanes for a few buckets, wide ones for
+    the 600, one column a lane where a width or base is not aligned)."""
     from deepdfa_tpu_torch.graphs import segment
 
     rng = np.random.default_rng(sum(degrees))
-    ids = np.repeat(np.arange(len(degrees)), degrees)
-    rng.shuffle(ids)
-    ids_t = torch.from_numpy(ids.astype(np.int32))
-    mask = torch.from_numpy(rng.random(len(ids)) > 0.2)
-    for width in (1, 3, 128):
-        shape = (len(ids),) if width == 1 else (len(ids), width)
-        data = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
-                                ).to(dtype)
-        for m in (None, mask):
-            x = data if m is None else torch.where(
-                m if width == 1 else m[:, None], data, 0.0)
-            want = segment.segment_sum_rows(x, ids_t, len(degrees), mask=m)
-            segment.reset_launch_counts()
-            got = segment.segment_sum_rows(x.to(cuda), ids_t.to(cuda),
-                                           len(degrees),
-                                           mask=None if m is None
-                                           else m.to(cuda))
-            torch.cuda.synchronize()
-            assert torch.equal(got.cpu(), want), (width, m is None)
-            name = ("segment_sum_kernel_bf16" if dtype == torch.bfloat16
-                    else "segment_sum_kernel")
-            assert segment.launch_counts()[name] == 1
+    n_seg = len(degrees)
+    name = ("segment_sum_kernel_bf16" if dtype == torch.bfloat16
+            else "segment_sum_kernel")
+    lanes = set()
+    for shuffle in (False, True):
+        for masked in (False, True):
+            ids, mask = _segment_case(degrees, masked, shuffle, rng)
+            plan = lambda ids, mask: segment.segment_sum_plan(
+                ids, n_seg, mask, indices_are_sorted=not shuffle)
+            on_card = plan(ids.to(cuda),
+                           None if mask is None else mask.to(cuda))
+            for width in (1, 3, 128, 129, "offset", "merged"):
+                parts = _segment_rows(len(ids), width, dtype, rng, mask,
+                                      cuda)
+                want = segment.segment_sum_rows(
+                    tuple(x.cpu() for x in parts), plan(ids, mask))
+                segment.reset_launch_counts()
+                got = segment.segment_sum_rows(parts, on_card)
+                torch.cuda.synchronize()
+                assert segment.launch_counts()[name] == 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w), (shuffle, masked, width)
+                kinds = segment.segment_sum_lanes(parts, got)
+                assert kinds == _segment_lanes(parts, n_seg), width
+                lanes.update(kinds)
+    # Every lane kind the cases reach: 16-byte lanes only at 600 buckets,
+    # where bf16's even widths all take them; one column a lane for
+    # bf16's odd widths and unaligned base (an f32 column is a 4-byte
+    # lane of its own).
+    assert ("wide" in lanes) == (n_seg >= 512)
+    assert ("narrow" in lanes) == (n_seg < 512 or dtype == torch.float32)
+    assert ("scalar" in lanes) == (dtype == torch.bfloat16)
+
+
+def _segment_lanes(parts, n_seg):
+    """The lane kind the launcher should give each operand (the outputs
+    are fresh, so aligned): 16-byte lanes where the width and base fit
+    them and the call has 512 or more such warps, else 4-byte lanes where
+    they fit (f32: always), else one column a lane."""
+    kinds = []
+    for x in parts:
+        elem = x.element_size()
+        cols = x.numel() // x.shape[0]
+        fits = lambda vec: cols % vec == 0 and x.data_ptr() % (vec * elem) == 0
+        wide = 16 // elem
+        kinds.append("wide" if fits(wide) and n_seg * -(-cols // (32 * wide))
+                     >= 512 else "narrow" if fits(4 // elem) else "scalar")
+    return tuple(kinds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sorted", "plan"])
+def test_segment_sum_kernel_replays_its_eager_bits_in_a_cuda_graph(
+        cuda, dtype, mode):
+    """A CUDA graph captured over one call (the pooling's merged pair over
+    a serving batch's node_graph in sorted mode; the segment lane's
+    aggregate over its receivers with the plan built inside the capture)
+    replays the eager call's bits, on the captured rows and after new rows
+    are copied into them."""
+    from deepdfa_tpu_torch.graphs import segment
+
+    graphs = synthetic_bigvul(16, FlowGNNConfig().feature, seed=21)
+    gb = bucket_batch(ServeConfig(), graphs, 16, SUBKEYS, band=True).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if mode == "sorted":
+        assert gb.node_graph_sorted
+        plan = lambda: segment.segment_sum_plan(
+            gb.node_graph, gb.n_graphs, gb.node_mask,
+            indices_are_sorted=True)
+        shapes = ((gb.max_nodes, 256), (gb.max_nodes,))
+    else:
+        plan = lambda: segment.segment_sum_plan(
+            gb.receivers, gb.max_nodes, gb.edge_mask)
+        shapes = ((gb.max_edges, 128),)
+    rows = [torch.randn(s, generator=gen, device=cuda).to(dtype)
+            for s in shapes]
+    fresh = [torch.randn(s, generator=gen, device=cuda).to(dtype)
+             for s in shapes]
+    call = lambda: segment.segment_sum_rows(tuple(rows), plan())
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for step in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        want = call()
+        for o, w in zip(out, want):
+            assert torch.equal(o, w), step
+        for r, f in zip(rows, fresh):
+            r.copy_(f)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_segment_lane_builds_one_plan_a_forward_on_the_card(
+        cuda, dtype, monkeypatch):
+    """FlowGNN's segment lane on the card builds the receivers' plan once
+    a forward and hands it to every step: the logits and every
+    parameter's gradient equal those of a plan built in each step's call,
+    bit for bit."""
+    from deepdfa_tpu_torch.graphs import segment
+    from deepdfa_tpu_torch.models import flowgnn as pt_flowgnn
+
+    cfg = FlowGNNConfig(message_impl="segment", dtype=dtype)
+    graphs = synthetic_bigvul(16, cfg.feature, seed=23)
+    gb = batch_graphs(graphs, 16, 2048, 8192, SUBKEYS).to(cuda)
+    plans = []
+    real_plan = segment.segment_sum_plan
+
+    def counted(*args, **kw):
+        plans.append(args[0])
+        return real_plan(*args, **kw)
+
+    def run():
+        model = FlowGNN(cfg, device=cuda, seed=4)
+        logits = model(gb)
+        logits.sum().backward()
+        return logits.detach(), {n: p.grad.clone()
+                                 for n, p in model.named_parameters()
+                                 if p.grad is not None}
+
+    monkeypatch.setattr(segment, "segment_sum_plan", counted)
+    monkeypatch.setattr(pt_flowgnn, "segment_sum_plan", counted)
+    once = run()
+    n_once = sum(p is gb.receivers for p in plans)
+    monkeypatch.setattr(pt_flowgnn, "segment_sum_plan",
+                        lambda *a, **k: None)
+    per_call = run()
+    n_per_call = sum(p is gb.receivers for p in plans) - n_once
+    assert (n_once, n_per_call) == (1, cfg.n_steps)
+    assert torch.equal(once[0], per_call[0])
+    assert once[1].keys() == per_call[1].keys() and once[1]
+    for name, g in once[1].items():
+        assert torch.equal(g, per_call[1][name]), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

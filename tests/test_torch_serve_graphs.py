@@ -366,13 +366,15 @@ class _HostReads(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _kernel_walk(data, order, offsets, n):
-    """The kernel's arithmetic: each bucket's rows of ``order`` in turn,
-    one add at the data's dtype each."""
+def _kernel_walk(data, keys, order, n):
+    """The kernel's arithmetic: bucket ``s`` owns the rows ``order[k]``
+    for ``k`` between the lower bounds of ``s`` and ``s + 1`` in the
+    sorted ``keys``, added in turn, one add at the data's dtype each."""
     out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype)
+    bounds = torch.searchsorted(keys, torch.arange(n + 1, dtype=keys.dtype))
     for s in range(n):
         acc = torch.zeros(data.shape[1:], dtype=data.dtype)
-        for k in range(int(offsets[s]), int(offsets[s + 1])):
+        for k in range(int(bounds[s]), int(bounds[s + 1])):
             acc = acc + data[int(order[k])]
         out[s] = acc
     return out
@@ -390,21 +392,26 @@ def test_segment_sum_plan_reads_no_host_and_walks_the_level_loop(dtype,
     mask = torch.from_numpy(rng.random(n_rows) > 0.3) if masked else None
     if masked:
         data = torch.where(mask[:, None], data, 0.0)
-    keyed = segment._bucket_ids(ids, n_seg, mask)
     with _HostReads() as mode:
-        order, offsets = segment.segment_sum_plan(keyed, n_seg)
+        plan = segment.segment_sum_plan(ids, n_seg, mask)
     assert mode.seen == []
-    # The masked rows (id n_seg) sort last, past every bucket's rows.
+    # One stable sort of the int32 keyed ids: the masked rows (id n_seg)
+    # sort last, past every bucket's rows.
+    keyed = segment._bucket_ids(ids, n_seg, mask)
     kept = n_rows if mask is None else int(mask.sum())
-    assert offsets.shape == (n_seg + 1,)
-    assert offsets[0] == 0 and offsets[-1] == kept
-    assert torch.all(keyed[order][1:] >= keyed[order][:-1])
-    assert torch.all(keyed[order][kept:] == n_seg)
-    got = _kernel_walk(data, order, offsets, n_seg)
+    assert plan.num_segments == n_seg
+    assert plan.ids.dtype == plan.keys.dtype == torch.int32
+    assert torch.equal(plan.ids, keyed)
+    assert torch.equal(plan.keys, keyed[plan.order])
+    assert torch.all(plan.keys[1:] >= plan.keys[:-1])
+    assert torch.all(plan.keys[kept:] == n_seg)
+    assert torch.all(plan.order[1:][plan.keys[1:] == plan.keys[:-1]]
+                     > plan.order[:-1][plan.keys[1:] == plan.keys[:-1]])
+    got = _kernel_walk(data, plan.keys, plan.order, n_seg)
     want = segment._segment_sum_ordered(data, ids.long(), n_seg)
     assert torch.equal(got, want)
-    assert torch.equal(segment.segment_sum_rows(data, ids, n_seg, mask=mask),
-                       want)
+    assert plan.mask is None and torch.equal(plan.keyed(), keyed)
+    assert torch.equal(segment.segment_sum_rows(data, plan), want)
     if dtype == torch.bfloat16:
         # A sum rounded once differs from the chain of roundings.
         once = segment._segment_sum_ordered(data.float(), ids.long(),
