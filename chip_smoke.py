@@ -149,8 +149,18 @@ one:
    oversized POST (400, 413); every answer held to the same engine on
    the CPU within 1e-5; no compile after warmup; the kernels' launches
    read from ``/metrics`` just before and just after the traffic (the
-   server's counts, taken as a difference); stopped with Ctrl-C (exit
-   0). Then the combined lane's device ms a flush at each slot bucket.
+   server's counts, taken as a difference); the first stopped with
+   Ctrl-C (the lifecycle's drain: exit 75). The second records a
+   telemetry run (``--run-dir``, ``--slo smoke``): ``/metrics`` as
+   Prometheus text and as JSON, ``/healthz`` with ``slo`` and no
+   telemetry drop, the run's ``serve.flush`` spans one a batch; then
+   SIGTERM in a load window of 16 clients, one more holding a half-sent
+   POST open so the drain lasts while probes see a new POST answered 503
+   with Retry-After and ``/healthz`` "draining": exit 75, every 200 with
+   its probabilities, every request the trace enqueued answered in it,
+   its flush spans the exit record's batches, ``events.jsonl`` and
+   ``trace.json`` written. Then the combined lane's device ms a flush at
+   each slot bucket.
 19. The reference's 200-request replay gate (``tests/test_serve.py``)
    on the card: a seeded bursty trace through a warmed 8-slot engine
    (published FlowGNN, persistent lane) on a virtual clock: all
@@ -279,7 +289,9 @@ one:
    degraded, then 200 ok) and rolled (``roll_replica``): every function
    answered, the replica sections summing to ``/metrics``, compiles
    flat, ``persistent_fwd_kernel``'s launches those of the flushes
-   (two pump threads counting), HTTP p50/p99 and requests/s.
+   (two pump threads counting), HTTP p50/p99 and requests/s; under a
+   telemetry run, whose trace shows r1's ``fleet.replica_drain`` and
+   ``fleet.replica_restore`` around the drain and again around the roll.
 
 31. Serving as captured CUDA graphs (in a process of its own,
    run last): nine engines at the published FlowGNN width (the gnn lane
@@ -293,7 +305,13 @@ one:
    torch.profiler, each port kernel name's launches equal to what its
    launch counters moved by; ``bursty_trace(200, seed=1)`` replayed on
    the engine's virtual clock with nothing captured after warmup; each
-   engine's graph-pool bytes. Phase 3 also holds ``segment_sum_kernel``
+   engine's graph-pool bytes. The phase runs under a telemetry run: a
+   fenced ``serve.compile`` span a capture, a fenced ``serve.flush`` span
+   a flush, nothing dropped; and ``span_cost``, the persistent f32
+   lane's flush wall at 1 and 16 slots with telemetry off and with the
+   run active, 300 interleaved pairs, the paired difference's median
+   with its 95 % interval and quartiles. Phase 3
+   also holds ``segment_sum_kernel``
    (the pooling's per-graph sums and softmax weights in one launch, the
    ids searched as they are, narrow lanes; the segment lane's f32
    aggregate over its plan, wide lanes) and phase 25
@@ -322,10 +340,12 @@ import heapq
 import http.client
 import io
 import json
+import math
 import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -341,6 +361,7 @@ import torch
 
 from deepdfa_tpu_torch import cli
 from deepdfa_tpu_torch import entry as port_entry
+from deepdfa_tpu_torch import telemetry
 from deepdfa_tpu_torch.contracts import ingest, schema
 from deepdfa_tpu_torch.core import config as core_config
 from deepdfa_tpu_torch.core.config import (
@@ -401,6 +422,8 @@ from deepdfa_tpu_torch.serve.replay import (
     replay,
     replay_fleet,
 )
+from deepdfa_tpu_torch.resilience import lifecycle
+from deepdfa_tpu_torch.telemetry import export as telemetry_export
 from deepdfa_tpu_torch.train import checkpoint as train_checkpoint
 from deepdfa_tpu_torch.train import loop, text_loop
 
@@ -1323,7 +1346,7 @@ def _serve_bf16(root: str) -> dict:
         _, _, m1 = _http(base, "/metrics")
     finally:
         rc = _stop_server(proc)
-    if rc != 0:
+    if rc != lifecycle.EXIT_PREEMPTED:
         with open(log) as f:
             raise AssertionError(f"cli serve (bf16) exited {rc}: "
                                  f"{f.read()[-3000:]}")
@@ -3502,6 +3525,15 @@ HTTP_START_S = 600
 # 16-slot bucket and a flush does not wait out the deadline.
 LOAD_CLIENTS = 16
 LOAD_POSTS = 32
+# The second server records its telemetry run (--run-dir, --slo smoke)
+# and is drained by a SIGTERM in a load window of its own: LOAD_CLIENTS
+# closed-loop clients over DRAIN_POSTS new functions, the signal after
+# DRAIN_AFTER answers, and one client holding a half-sent POST open so
+# the drain lasts until the probes (503 with Retry-After, /healthz
+# "draining") have been answered.
+DRAIN_POSTS = 512
+DRAIN_AFTER = 64
+DRAIN_WAIT_S = 60
 # A lone surrogate cannot be encoded to UTF-8: the tokenizer raises on
 # such code, which forces the request onto the gnn lane, degraded.
 UNENCODABLE = "int f(char *p) { return '\ud800'; }"
@@ -4176,7 +4208,8 @@ def _start_server(extra, name: str, root: str) -> tuple:
 
 
 def _stop_server(proc) -> int:
-    """Ctrl-C, as a user stops it; killed if it does not exit."""
+    """Ctrl-C, as a user stops it (the lifecycle's drain, exit 75);
+    killed if it does not exit."""
     if proc.poll() is None:
         proc.send_signal(signal.SIGINT)
         try:
@@ -4361,6 +4394,209 @@ def _check_http(base: str, graphs, coded, codes, fresh) -> dict:
             "bad_request_codes": list(codes_seen)}
 
 
+def _http_text(base: str, path: str, accept: str) -> tuple:
+    """(status, Content-Type, body text) of a GET with ``accept``."""
+    req = urllib.request.Request(f"{base}{path}", headers={"Accept": accept})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, resp.headers["Content-Type"], \
+            resp.read().decode()
+
+
+def _prometheus(text: str) -> dict:
+    """{series: value} of a Prometheus text exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _run_events(run_dir: str) -> list:
+    return telemetry_export.read_run_dir(run_dir)[0]
+
+
+def _named(events, name: str) -> list:
+    return [e for e in events if e.get("name") == name]
+
+
+def _telemetry_scrape(base: str, run_dir: str) -> dict:
+    """The server quiet: ``/metrics`` as Prometheus text and as JSON (the
+    same batches), ``/healthz`` with ``slo`` and no telemetry drop, and
+    the run's ``serve.flush`` spans on disk (the pump flushes its rings
+    every pass), one a batch."""
+    t0 = time.monotonic()
+    while _http(base, "/metrics")[2]["queue_depth"]:
+        if time.monotonic() - t0 > DRAIN_WAIT_S:
+            raise AssertionError("the server never went quiet")
+        time.sleep(0.05)
+    status, ctype, text = _http_text(base, "/metrics", "text/plain")
+    prom = _prometheus(text)
+    _, _, js = _http(base, "/metrics")
+    h_status, _, health = _http(base, "/healthz")
+    batches = int(prom.get("deepdfa_serve_batches_total", -1))
+    if (status != 200 or not ctype.startswith("text/plain")
+            or batches != js["batches"] or "kernel_launches" not in js
+            or "slo" not in health or health["telemetry_drops"] != 0
+            or prom.get("deepdfa_serve_compiles_after_warmup") != 0.0):
+        raise AssertionError(f"telemetry scrape: {status} {ctype}, "
+                             f"Prometheus batches {batches} against "
+                             f"{js.get('batches')}, /healthz {h_status} "
+                             f"{health}")
+    while True:
+        spans = len(_named(_run_events(run_dir), "serve.flush"))
+        if spans == batches:
+            break
+        if time.monotonic() - t0 > DRAIN_WAIT_S:
+            raise AssertionError(f"{spans} serve.flush spans on disk, "
+                                 f"{batches} batches")
+        time.sleep(0.1)
+    return dict(prometheus_series=sum(
+        1 for line in text.splitlines() if line.startswith("# TYPE")),
+        prometheus_bytes=len(text), batches=batches, flush_spans=spans,
+        healthz_status=health["status"], slo=health["slo"],
+        telemetry_drops=health["telemetry_drops"])
+
+
+def _drain_window(base: str, proc, run_dir: str, log: str, graphs) -> dict:
+    """SIGTERM in the middle of a load window: ``LOAD_CLIENTS`` closed-loop
+    clients POST new one-function bodies; after ``DRAIN_AFTER`` answers
+    the server gets SIGTERM while one client holds a half-sent POST open
+    (its handler counts in flight, so the drain waits for it). Probes
+    then see a new POST answered 503 with Retry-After and ``/healthz``
+    "draining"; the held POST is finished (its answer: 429, the engine
+    admits nothing new); the server exits 75. Every 200 carries
+    probabilities, every client ends on a 503 with Retry-After or a
+    closed connection, the trace answers every request it enqueued
+    (``serve.enqueue`` rid against ``serve.request``), and its
+    ``serve.flush`` spans equal the batches in the exit record."""
+    url = urllib.parse.urlsplit(base)
+    bodies = [json.dumps({"functions": [fn]}).encode()
+              for fn in _functions(graphs)]
+    held_body = bodies.pop()
+    counts = {"ok": 0, "draining": 0, "closed": 0}
+    faults = []
+    lock = threading.Lock()
+    cursor = iter(range(len(bodies)))
+
+    def client():
+        conn = http.client.HTTPConnection(url.hostname, url.port,
+                                          timeout=120)
+        try:
+            while True:
+                with lock:
+                    i = next(cursor, None)
+                if i is None:
+                    return
+                try:
+                    conn.request("POST", "/score", body=bodies[i], headers={
+                        "Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    doc = json.loads(resp.read())
+                except (OSError, http.client.HTTPException):
+                    with lock:  # the server closed after its drain
+                        counts["closed"] += 1
+                    return
+                if resp.status == 200 and all(
+                        "prob" in r for r in doc["results"]):
+                    with lock:
+                        counts["ok"] += 1
+                    continue
+                if (resp.status == 503 and doc.get("error") == "draining"
+                        and int(resp.getheader("Retry-After", "0")) >= 1):
+                    with lock:
+                        counts["draining"] += 1
+                    return
+                with lock:
+                    faults.append((resp.status, doc))
+                return
+        finally:
+            conn.close()
+
+    held = socket.create_connection((url.hostname, url.port), timeout=120)
+    try:
+        held.sendall((f"POST /score HTTP/1.1\r\nHost: {url.hostname}\r\n"
+                      "Content-Type: application/json\r\nContent-Length: "
+                      f"{len(held_body)}\r\n\r\n").encode()
+                     + held_body[:len(held_body) // 2])
+        clients = [threading.Thread(target=client)
+                   for _ in range(LOAD_CLIENTS)]
+        for c in clients:
+            c.start()
+        t0 = time.monotonic()
+        while counts["ok"] < DRAIN_AFTER:
+            if time.monotonic() - t0 > DRAIN_WAIT_S or faults:
+                raise AssertionError(f"drain load: {counts}, {faults[:3]}")
+            time.sleep(0.005)
+        t_signal = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        probe = probe_health = None
+        while probe is None or probe_health is None:
+            if time.monotonic() - t_signal > DRAIN_WAIT_S:
+                raise AssertionError(f"no drain seen: {probe} "
+                                     f"{probe_health}")
+            status, headers, body = _http(base, "/score",
+                                          {"functions": _functions(
+                                              graphs[-1:])})
+            if status == 503 and body.get("error") == "draining":
+                probe = (status, int(headers["Retry-After"]), body)
+            h_status, _, health = _http(base, "/healthz")
+            if h_status == 503 and health["status"] == "draining":
+                probe_health = health
+            time.sleep(0.01)
+        held.sendall(held_body[len(held_body) // 2:])
+        held_answer = held.recv(65536).decode(errors="replace")
+    finally:
+        held.close()
+    for c in clients:
+        c.join(timeout=DRAIN_WAIT_S)
+    rc = proc.wait(timeout=DRAIN_WAIT_S)
+    exit_s = time.monotonic() - t_signal
+    with open(log) as f:
+        exit_rec = [json.loads(line) for line in f
+                    if line.startswith('{"preempted"')]
+    events = _run_events(run_dir)
+    enqueued = {e["attrs"]["rid"] for e in _named(events, "serve.enqueue")}
+    answered = {e["attrs"]["rid"] for e in _named(events, "serve.request")}
+    dropped = sorted(enqueued - answered)
+    drains = _named(events, "lifecycle.drain")
+    notices = _named(events, "lifecycle.notice")
+    tdir = os.path.join(run_dir, "telemetry")
+    serving = exit_rec[-1]["serving"] if exit_rec else {}
+    flush_spans = len(_named(events, "serve.flush"))
+    if (rc != lifecycle.EXIT_PREEMPTED or faults
+            or any(c.is_alive() for c in clients)
+            or counts["draining"] + counts["closed"] != LOAD_CLIENTS
+            or probe[1] < 1 or "slo" not in probe_health
+            or probe_health["telemetry_drops"] != 0
+            or not held_answer.startswith("HTTP/1.1 429")
+            or dropped or not enqueued
+            or [n["attrs"]["reason"] for n in notices] != ["SIGTERM"]
+            or [(d["attrs"]["participant"], d["attrs"]["ok"])
+                for d in drains] != [("serve", True)]
+            or not exit_rec or serving["compiles_after_warmup"] != 0
+            or flush_spans != serving["batches"]
+            or not os.path.exists(os.path.join(tdir, "events.jsonl"))
+            or not os.path.exists(os.path.join(tdir, "trace.json"))):
+        raise AssertionError(
+            f"SIGTERM drain: exit {rc}, clients {counts}, faults "
+            f"{faults[:3]}, probe {probe}, /healthz {probe_health}, held "
+            f"POST {held_answer[:80]!r}, {len(dropped)} enqueued rids "
+            f"unanswered of {len(enqueued)}, notices {notices}, drains "
+            f"{drains}, {flush_spans} serve.flush spans against the exit "
+            f"record {exit_rec[-1:]}")
+    return dict(exit_code=rc, exit_s=exit_s, answered_200=counts["ok"],
+                answered_503=counts["draining"] + 1,
+                closed_after_drain=counts["closed"],
+                retry_after_s=probe[1], held_post=held_answer.split(
+                    "\r\n", 1)[0], enqueued=len(enqueued),
+                dropped=len(dropped),
+                drain_ms=drains[0]["attrs"]["drain_ms"],
+                final_batches=serving["batches"], final_flush_spans=flush_spans,
+                trace_json_bytes=os.path.getsize(
+                    os.path.join(tdir, "trace.json")))
+
+
 def phase_serve_http() -> dict:
     """``cli serve`` on the card over real HTTP, the combined lane at
     codebert-base width beside the GNN lane on the persistent (default)
@@ -4395,24 +4631,40 @@ def _serve_http(root: str) -> dict:
     launches = {k: 0 for k in REPLACES}
     lanes = {}
     load_probs = {}
+    drain_graphs, _ = functions(DRAIN_POSTS + 1, SEED + 14)
+    telemetry_rec = None
     for impl in ("persistent", "fused"):
+        # The second server records its run and is drained by SIGTERM.
+        run_dir = os.path.join(root, "run_fused") if impl == "fused" \
+            else None
+        extra = ["--run-dir", run_dir, "--slo", "smoke"] if run_dir else []
         t0 = time.perf_counter()
         proc, base, log = _start_server(
             ["--combined-checkpoint-dir", run, "--set",
-             f"model.message_impl={impl}"], impl, root)
+             f"model.message_impl={impl}", *extra], impl, root)
         start_s = time.perf_counter() - t0
         try:
             _, _, m0 = _http(base, "/metrics")
             _, _, health = _http(base, "/healthz")
+            if ("slo" not in health or health["telemetry_drops"] != 0
+                    or not 0 < health.get("device_bytes_in_use", 0)
+                    <= health.get("device_peak_bytes_in_use", 0)):
+                raise AssertionError(f"{impl}: /healthz {health}")
             load = {"gnn": _load_http(base, "gnn", load_graphs)}
             _, _, m_gnn = _http(base, "/metrics")
             load["combined"] = _load_http(base, "combined", load_coded,
                                           load_codes)
             traffic = _check_http(base, graphs, coded, codes, fresh)
             _, _, m1 = _http(base, "/metrics")
+            if run_dir:
+                t1 = time.perf_counter()
+                telemetry_rec = _telemetry_scrape(base, run_dir)
+                telemetry_rec.update(_drain_window(base, proc, run_dir, log,
+                                                   drain_graphs))
+                telemetry_rec["seconds"] = time.perf_counter() - t1
         finally:
             rc = _stop_server(proc)
-        if rc != 0:
+        if rc != lifecycle.EXIT_PREEMPTED:
             with open(log) as f:
                 raise AssertionError(f"cli serve ({impl}) exited {rc}: "
                                      f"{f.read()[-3000:]}")
@@ -4479,6 +4731,7 @@ def _serve_http(root: str) -> dict:
     t0 = time.perf_counter()
     bucket_ms = _combined_bucket_ms(run)
     rec = dict(phase="serve_http", write_checkpoint_s=write_s, lanes=lanes,
+               telemetry=telemetry_rec,
                combined_load_persistent_vs_fused=combined_load_gap,
                combined_flush_by_bucket=bucket_ms,
                bucket_timing_s=time.perf_counter() - t0, launches=launches)
@@ -4787,7 +5040,22 @@ def phase_fleet() -> dict:
                     seed=SEED)
     parity = _fleet_parity(model)
     bench, bench_launches = _fleet_bench(model)
-    live = _fleet_http(model)
+    root = tempfile.mkdtemp(prefix="fleet_run_")
+    try:
+        with telemetry.run_scope(root):
+            live = _fleet_http(model)
+        events = _run_events(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # The roll's trace: r1 drained and restored mid-traffic, then rolled.
+    roll = [(e["name"], e["attrs"]["replica"]) for e in events
+            if e["name"].startswith("fleet.replica_")]
+    if roll != [("fleet.replica_drain", "r1"),
+                ("fleet.replica_restore", "r1")] * 2 \
+            or len(_named(events, "lifecycle.lame_duck")) != 2:
+        raise AssertionError(f"fleet roll events {roll}")
+    live["roll_events"] = roll
+    live["flush_spans"] = len(_named(events, "serve.flush"))
     launches = {k: parity["launches"][k] + bench_launches.get(k, 0)
                 + live["launches"][k] for k in parity["launches"]}
     rec = dict(phase="fleet", parity=parity, bench=bench, http=live,
@@ -4810,6 +5078,8 @@ SERVE_GRAPH_LANES = tuple(("gnn", impl, dtype)
     ("combined", "persistent", "float32"),)
 SERVE_GRAPH_REPS = 20
 SERVE_GRAPH_TRACE = 200
+# Pairs of flushes (one off, one on) of the spans' cost, a slot count.
+SPAN_COST_PAIRS = 300
 # Profiler launches (by __global__ name) of one counted launch of each
 # counter: the bf16 per-step forward is two passes after the weights'
 # prep, the bf16 sweep one after it.
@@ -4978,7 +5248,85 @@ def _graph_pairs(engine: ServeEngine, lane: str, impl: str,
     return pairs
 
 
+def _paired_ms(off: list[float], on: list[float]) -> dict:
+    """The on-off difference of paired flush walls: its median with the
+    median's 95 % interval (order statistics of the sorted differences),
+    its quartiles, the share of pairs where on was slower, and the medians
+    of the two walls."""
+    diff = sorted(b - a for a, b in zip(off, on))
+    n = len(diff)
+    half = 0.98 * math.sqrt(n)
+    q1, _, q3 = statistics.quantiles(diff, n=4)
+    return dict(
+        pairs=n, off_ms=statistics.median(off), on_ms=statistics.median(on),
+        cost_ms=statistics.median(diff),
+        cost_ci95_ms=[diff[max(int(n / 2 - half), 0)],
+                      diff[min(int(math.ceil(n / 2 + half)), n - 1)]],
+        cost_q1_ms=q1, cost_q3_ms=q3,
+        on_slower_share=sum(d > 0 for d in diff) / n)
+
+
+def _span_cost(engine: ServeEngine) -> dict:
+    """The flush wall (``_run_batch``, packing to the answers) on the
+    engine's gnn lane at 1 and 16 slots, with telemetry off
+    (``DEEPDFA_TELEMETRY=0``'s switch) and with the run active, flush by
+    flush: ``SPAN_COST_PAIRS`` pairs, one flush off and one on, the order
+    alternating pair by pair (:func:`_paired_ms`)."""
+    out = {}
+    for slots in (1, 16):
+        graphs, _ = _graph_inputs(engine, "gnn", slots, SEED + 160 + slots)
+        reqs = [ServeRequest(rid=i, key=f"span{i}", graph=g, lane="gnn",
+                             arrival=0.0, deadline_s=1.0,
+                             t_submit=telemetry.now())
+                for i, g in enumerate(graphs)]
+        walls: dict[str, list[float]] = {"off": [], "on": []}
+        try:
+            for i in range(SPAN_COST_PAIRS):
+                for mode in ("off", "on")[::1 if i % 2 == 0 else -1]:
+                    telemetry.set_enabled(False if mode == "off" else None)
+                    t0 = time.perf_counter()
+                    engine._run_batch("gnn", reqs)
+                    walls[mode].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            telemetry.set_enabled(None)
+        if any("prob" not in r.result for r in reqs):
+            raise AssertionError(f"span cost flush: {reqs[0].result}")
+        out[str(slots)] = _paired_ms(walls["off"], walls["on"])
+    return out
+
+
 def phase_serve_graphs(_arg=None) -> dict:
+    """Phase 31 with a telemetry run active (a temporary directory): the
+    captures' ``serve.compile`` spans fence after ``capture_end``, every
+    flush of the traces is a fenced ``serve.flush`` span, and nothing is
+    dropped; plus the spans' cost on the persistent lane's flush wall."""
+    root = tempfile.mkdtemp(prefix="serve_graphs_run_")
+    try:
+        with telemetry.run_scope(root):
+            rec = _serve_graphs()
+            drops = telemetry.drop_count()
+        events = _run_events(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    compiles = _named(events, "serve.compile")
+    flushes = _named(events, "serve.flush")
+    want_flushes = sum(e["trace_flushes"] for e in rec["engines"].values()) \
+        + 2 * SPAN_COST_PAIRS
+    captured = sum(e["captured"] for e in rec["engines"].values())
+    if (drops or len(compiles) != captured or len(flushes) != want_flushes
+            or not all(s.get("fenced") for s in compiles + flushes)
+            or any("error" in s for s in compiles + flushes)):
+        raise AssertionError(
+            f"serve_graphs trace: {drops} drops, {len(compiles)} compile "
+            f"spans for {captured} captures, {len(flushes)} flush spans for "
+            f"{want_flushes} flushes")
+    rec["trace"] = dict(compile_spans=len(compiles), flush_spans=len(flushes),
+                        drops=drops)
+    emit(phase="serve_graphs", span_cost=rec["span_cost"], **rec["trace"])
+    return rec
+
+
+def _serve_graphs() -> dict:
     """Phase 31: serving as captured CUDA graphs, in a process of its own
     (fresh profiler state). For each engine of ``SERVE_GRAPH_LANES``:
     warmup captures every (lane, bucket) pair once; each pair's replay
@@ -5020,6 +5368,8 @@ def phase_serve_graphs(_arg=None) -> dict:
             raise AssertionError(f"{name}: over the bursty trace {m}, lanes "
                                  f"{lanes_seen}, captured "
                                  f"{engine.graphs_captured} (was {captured})")
+        if (lane, impl, dtype) == ("gnn", "persistent", "float32"):
+            span_cost = _span_cost(engine)
         torch.cuda.synchronize()
         after = launch_counts()
         for k in launches:
@@ -5029,12 +5379,13 @@ def phase_serve_graphs(_arg=None) -> dict:
             graph_pool_bytes=engine.graph_pool_bytes,
             profile_launches=profile, trace_flushes=m["batches"],
             compiles_after_warmup=engine.compiles_after_warmup)
+        telemetry.flush()
         for rec in pairs:
             emit(phase="serve_graphs", **rec)
         emit(phase="serve_graphs", engine=name, **engines[name])
         del engine
         torch.cuda.empty_cache()
-    return dict(launches=launches, engines=engines)
+    return dict(launches=launches, engines=engines, span_cost=span_cost)
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,10 @@ dataset (or one split of it) through ``score_sync`` of the engine that
 reference's JSON report plus the hand-written kernels' launch counts;
 without ``--checkpoint-dir`` the weights are a random init from
 ``--seed``. Both take ``--replicas N`` (a ``ServeFleet`` of N engines
-behind the content-affine router) and ``--adaptive-flush``. ``fit-text``
+behind the content-affine router) and ``--adaptive-flush``, and
+``--run-dir`` (the run's telemetry: ``events.jsonl``, ``trace.json``)
+and ``--slo`` (an SLO spec); ``serve`` drains on SIGTERM or SIGINT
+(new requests 503, every admitted one answered) and exits 75. ``fit-text``
 trains DeepDFA+LineVul (the codebert-base encoder from a seeded random init,
 combined with the FlowGNN graph encoder), optionally from a ``fit``
 run's trained graph encoder, frozen or not; pretrained HF weights reach
@@ -233,11 +236,27 @@ def _restored_fields(ckpt, which: str, what: str) -> Dict[str, Any]:
     return {"restored_snapshot": restored["name"], "restored_fallback": True}
 
 
+def _telemetry_scope(run_dir: Optional[str]):
+    """The command's telemetry run (``<run_dir>/telemetry/events.jsonl``
+    and ``trace.json``), or none without ``--run-dir``."""
+    from deepdfa_tpu_torch import telemetry
+
+    return (telemetry.run_scope(run_dir) if run_dir
+            else contextlib.nullcontext())
+
+
 def cmd_score(args) -> Dict[str, Any]:
+    with _telemetry_scope(args.run_dir):
+        return _score(args)
+
+
+def _score(args) -> Dict[str, Any]:
     import numpy as np
 
     from deepdfa_tpu_torch.ops import fused_gnn
     from deepdfa_tpu_torch.serve import ServeFleet
+    from deepdfa_tpu_torch.serve.http import slo_values
+    from deepdfa_tpu_torch.telemetry import slo as slo_mod
 
     engine, cfgs, restored = _build_serve_engine(args)
     model_cfg, seed = cfgs["model"], cfgs["train"].seed
@@ -275,6 +294,13 @@ def cmd_score(args) -> Dict[str, Any]:
               "kernel_launches": launches,
               "over_gate_dispatches": sum(m.over_gate_dispatches
                                           for m in models.values())}
+    if args.slo != "none":
+        # The spec over the engine's final state (the live monitor's
+        # snapshot); a breach exits 1.
+        gate = slo_mod.evaluate_report(slo_values(engine), args.slo)
+        report["slo_gate"] = gate
+        if not gate["ok"]:
+            report["exit_code"] = 1
     print(json.dumps(report))
     return report
 
@@ -587,13 +613,15 @@ def _log_warmup(engine) -> int:
     return built
 
 
-def _smoke_http(engine, host: str, port: int, n: int, feature
-                ) -> Dict[str, Any]:
+def _smoke_http(engine, host: str, port: int, n: int, feature,
+                slo_monitor=None) -> Dict[str, Any]:
     """Drive the HTTP stack with ``n`` synthetic functions in half-bucket
     chunks, then the first chunk again (it must come back from the
     cache); with a combined lane the same graphs once more with their
     source. ``ok`` when every function was scored on its lane, the
-    replay was cached and nothing compiled after warmup."""
+    replay was cached and nothing compiled after warmup. Every POST
+    carries a traceparent header, so each request's ``serve.request``
+    span joins its client's trace id."""
     import threading
     import urllib.request
 
@@ -601,8 +629,9 @@ def _smoke_http(engine, host: str, port: int, n: int, feature
 
     from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
     from deepdfa_tpu_torch.serve.http import ServeHTTPServer
+    from deepdfa_tpu_torch.telemetry import context as trace_context
 
-    server = ServeHTTPServer((host, port), engine)
+    server = ServeHTTPServer((host, port), engine, slo_monitor=slo_monitor)
     server.start_pump()
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -611,7 +640,9 @@ def _smoke_http(engine, host: str, port: int, n: int, feature
     def post(doc):
         req = urllib.request.Request(
             f"{base}/score", data=json.dumps(doc).encode(),
-            headers={"Content-Type": "application/json"})
+            headers={"Content-Type": "application/json",
+                     trace_context.TRACEPARENT_HEADER:
+                         trace_context.make_traceparent()})
         with urllib.request.urlopen(req, timeout=120) as resp:
             return json.loads(resp.read())
 
@@ -646,9 +677,12 @@ def _smoke_http(engine, host: str, port: int, n: int, feature
         after = engine.compiles_after_warmup
         ok = (all("prob" in r for r in results) and all(lanes.values())
               and all(r.get("cached") for r in dup) and not after)
-        return {"smoke": n, "ok": ok, "cached_replay": len(dup),
-                "lanes": lanes, "compiles_after_warmup": after,
-                "metrics": metrics}
+        report = {"smoke": n, "ok": ok, "cached_replay": len(dup),
+                  "lanes": lanes, "compiles_after_warmup": after,
+                  "metrics": metrics}
+        if slo_monitor is not None:
+            report["slo"] = slo_monitor.status()
+        return report
     finally:
         server.shutdown()
         server.server_close()
@@ -659,22 +693,48 @@ def cmd_serve(args) -> Dict[str, Any]:
     micro-batching, warmup of every (lane, bucket) pair, content-hash
     caching, 429 backpressure, GNN-only degradation. ``--smoke N``
     drives the HTTP stack with N synthetic functions, prints the report
-    and exits (1 when a check failed); otherwise serve until Ctrl-C."""
+    and exits (1 when a check failed). Otherwise serve until SIGTERM or
+    SIGINT: the server drains (503 with Retry-After for new requests,
+    every admitted one answered), closes the telemetry run and exits 75.
+    ``--run-dir`` records the run's telemetry; ``--slo`` runs an SLO spec
+    as the live burn-rate monitor behind ``/healthz``'s ``slo``."""
+    from deepdfa_tpu_torch.resilience import lifecycle
     from deepdfa_tpu_torch.serve.http import serve_forever
+    from deepdfa_tpu_torch.telemetry import slo as slo_mod
 
-    engine, cfgs, _ = _build_serve_engine(args)
-    model_cfg = cfgs["model"]
-    if not args.no_warmup:
-        _log_warmup(engine)
-    if args.smoke is not None:
-        report = _smoke_http(engine, args.host, args.port, args.smoke,
-                             model_cfg.feature)
-        if not report["ok"]:
-            report["exit_code"] = 1
-        print(json.dumps(report))
-        return report
-    serve_forever(engine, args.host, args.port, port_file=args.port_file)
-    return {}
+    slo_monitor = (slo_mod.SLOMonitor(args.slo)
+                   if args.slo != "none" else None)
+    with _telemetry_scope(args.run_dir):
+        engine, cfgs, _ = _build_serve_engine(args)
+        model_cfg = cfgs["model"]
+        if not args.no_warmup:
+            _log_warmup(engine)
+        if args.smoke is not None:
+            report = _smoke_http(engine, args.host, args.port, args.smoke,
+                                 model_cfg.feature, slo_monitor=slo_monitor)
+            if not report["ok"]:
+                report["exit_code"] = 1
+            print(json.dumps(report))
+            return report
+        # SIGTERM/SIGINT become the lifecycle's notice (the handlers set
+        # a flag; its monitor thread runs the drain).
+        coordinator = lifecycle.fresh()
+        try:
+            notice = serve_forever(engine, args.host, args.port,
+                                   slo_monitor=slo_monitor,
+                                   port_file=args.port_file)
+        finally:
+            coordinator.uninstall()
+    if notice is None:
+        return {}
+    coordinator.complete()
+    # The reference's record, plus the serving counters at exit (every
+    # admitted request is in them).
+    report = {"preempted": True, "reason": notice.reason,
+              "exit_code": lifecycle.EXIT_PREEMPTED,
+              "serving": engine.snapshot()}
+    print(json.dumps(report))
+    return report
 
 
 def cmd_fit_text(args) -> Dict[str, Any]:
@@ -929,6 +989,19 @@ def build_parser() -> argparse.ArgumentParser:
                                  "p99 and occupancy (clamped, with "
                                  "hysteresis; env DEEPDFA_ADAPTIVE_FLUSH=1)")
 
+    def telemetry_flags(parser, slo_default):
+        parser.add_argument("--run-dir", default=None,
+                            help="telemetry sink: <run-dir>/telemetry/"
+                                 "events.jsonl and trace.json (default: "
+                                 "none: no events are written)")
+        parser.add_argument("--slo", default=slo_default,
+                            help="SLO spec: a JSON file, a built-in name "
+                                 "(smoke, chaos, default) or 'none'. serve "
+                                 "runs it as the live burn-rate monitor "
+                                 "behind /healthz; score checks the final "
+                                 f"state and exits 1 on a breach (default "
+                                 f"{slo_default})")
+
     def common(parser, set_help=None,
                dataset_help="synthetic[:N] or an etl export .jsonl"):
         parser.add_argument("--config", action="append", default=[],
@@ -1002,6 +1075,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "random init's without --checkpoint-dir "
                          "(default 0)")
     sc.add_argument("--out-dir", default="runs/score")
+    telemetry_flags(sc, slo_default="none")
     sc.set_defaults(func=cmd_score)
     an = sub.add_parser(
         "analyze", help="abstract-dataflow feature coverage of a dataset "
@@ -1136,6 +1210,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "print the report, exit")
     serve_knobs(sv)
     device_flag(sv)
+    telemetry_flags(sv, slo_default="smoke")
     sv.set_defaults(func=cmd_serve)
     return p
 

@@ -12,8 +12,8 @@ recorded under ``<cache>/quarantine/`` with
 
 Writes are append-only line writes: a crash mid-quarantine loses at most
 one line, and two processes quarantining into the same directory
-interleave whole lines. The reference also emits a telemetry event per
-item; the port has no telemetry yet.
+interleave whole lines. Each item is also a ``quarantine`` telemetry
+event (a no-op without an active run), as in the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+from deepdfa_tpu_torch import telemetry
 from deepdfa_tpu_torch.contracts.schema import ContractError, fragment_of
 
 MANIFEST_NAME = "manifest.jsonl"
@@ -86,6 +87,8 @@ class Quarantine:
                 }) + "\n")
             self._ordinal += 1
             self.counts[error.reason] += 1
+        telemetry.event("quarantine", boundary=error.boundary,
+                        reason=error.reason, item_id=error.item_id)
 
     @property
     def total(self) -> int:

@@ -5,8 +5,9 @@
 
 Confusion counts are summable tensors, so a training epoch folds them on
 the device and reads them once. Serving keeps host-side counters, a
-rolling latency window and per-(lane, bucket) padding cells; unlike the
-reference there is no process-wide telemetry registry yet.
+rolling latency window and per-(lane, bucket) padding cells, each bump
+mirrored into the process registry (``telemetry.REGISTRY``) under the
+reference's series names; ingest counters are mirrored there too.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from deepdfa_tpu_torch.telemetry.registry import REGISTRY, sanitize
 
 
 class BinaryStats(NamedTuple):
@@ -79,9 +82,11 @@ def latency_quantile(samples_ms, q: float) -> float:
 class ServingStats:
     """Thread-safe counters, latency ring and padding cells of one engine.
 
-    ``compiles`` counts warmed buckets: PyTorch compiles nothing per
-    shape, but warmup still runs each bucket once (loading the kernel
-    library), and the counter keeps the reference's report shape.
+    ``compiles`` counts the engine's programs (one a CUDA graph capture),
+    as the reference counts its compiles. Every bump also lands in the
+    process registry: the fleet-wide ``serve_<counter>_total`` series
+    and, for an engine with a ``replica`` id (one of the fixed
+    ``REPLICA_IDS``), that replica's own ``serve_<rid>_*`` series.
     """
 
     COUNTERS = (
@@ -89,10 +94,12 @@ class ServingStats:
         "cache_misses", "degraded", "batches", "compiles", "failures",
     )
 
-    def __init__(self, latency_window: int = 8192):
+    def __init__(self, latency_window: int = 8192,
+                 replica: Optional[str] = None):
         self._lock = threading.Lock()
         for name in self.COUNTERS:
             setattr(self, name, 0)
+        self._replica = replica
         self.occupancy_used = 0
         self.occupancy_slots = 0
         self._padding: Dict[tuple, Dict[str, int]] = {}
@@ -105,6 +112,10 @@ class ServingStats:
             raise ValueError(f"unknown serving counter {counter!r}")
         with self._lock:
             setattr(self, counter, getattr(self, counter) + by)
+        REGISTRY.counter(f"serve_{counter}_total").inc(by)
+        if self._replica is not None:
+            REGISTRY.counter(
+                f"serve_{self._replica}_{counter}_total").inc(by)
 
     def observe_latency(self, seconds: float) -> None:
         with self._lock:
@@ -112,6 +123,11 @@ class ServingStats:
                 self._latency_count % self._latency_window
             ] = seconds * 1000.0
             self._latency_count += 1
+        REGISTRY.histogram("serve_latency_ms").observe(seconds * 1000.0)
+        if self._replica is not None:
+            REGISTRY.histogram(
+                f"serve_{self._replica}_latency_ms").observe(
+                    seconds * 1000.0)
 
     def record_batch(self, n_real: int, n_slots: int,
                      lane: Optional[str] = None,
@@ -130,24 +146,49 @@ class ServingStats:
             self.batches += 1
             self.occupancy_used += n_real
             self.occupancy_slots += n_slots
-            if lane is None:
-                return
-            cell = self._padding.setdefault(
-                (lane, int(n_slots)), {"used": 0, "slots": 0, "flushes": 0})
-            cell["used"] += n_real
-            cell["slots"] += n_slots
-            cell["flushes"] += 1
+            if lane is not None:
+                cell = self._padding.setdefault(
+                    (lane, int(n_slots)),
+                    {"used": 0, "slots": 0, "flushes": 0})
+                cell["used"] += n_real
+                cell["slots"] += n_slots
+                cell["flushes"] += 1
+                if elems:
+                    per_slot = int(elems_per_slot)
+                    for key, add in (
+                        ("elems_used", int(elems_used)),
+                        ("elems_budget", int(elems_budget)),
+                        ("elems_slot_underfill",
+                         (n_slots - n_real) * per_slot),
+                        ("elems_inslot_pad",
+                         n_real * per_slot - int(elems_used)),
+                        ("elems_flush_overhead",
+                         int(elems_budget) - n_slots * per_slot),
+                    ):
+                        cell[key] = cell.get(key, 0) + add
+                    elem_waste = 100.0 * (
+                        1.0 - cell["elems_used"] / cell["elems_budget"])
+                waste_pct = 100.0 * (1.0 - cell["used"] / cell["slots"])
+        if lane is not None:
+            # Gauge names from the lane, the slot ladder and the fixed
+            # replica id: never from request data.
+            suffix = f"_{self._replica}" if self._replica else ""
+            REGISTRY.gauge(
+                f"serve_padding_waste_pct_{lane}_b{int(n_slots)}{suffix}"
+            ).set(round(waste_pct, 4))
             if elems:
-                per_slot = int(elems_per_slot)
-                for key, add in (
-                    ("elems_used", int(elems_used)),
-                    ("elems_budget", int(elems_budget)),
-                    ("elems_slot_underfill", (n_slots - n_real) * per_slot),
-                    ("elems_inslot_pad", n_real * per_slot - int(elems_used)),
-                    ("elems_flush_overhead",
-                     int(elems_budget) - n_slots * per_slot),
-                ):
-                    cell[key] = cell.get(key, 0) + add
+                REGISTRY.gauge(
+                    f"serve_elem_waste_pct_{lane}_b{int(n_slots)}{suffix}"
+                ).set(round(elem_waste, 4))
+        REGISTRY.counter("serve_batches_total").inc()
+        REGISTRY.counter("serve_slots_occupied_total").inc(n_real)
+        REGISTRY.counter("serve_slots_padded_total").inc(n_slots - n_real)
+        if elems:
+            REGISTRY.counter("serve_elems_used_total").inc(int(elems_used))
+            REGISTRY.counter("serve_elems_budget_total").inc(
+                int(elems_budget))
+        if self._replica is not None:
+            REGISTRY.counter(f"serve_{self._replica}_batches_total").inc()
 
     @property
     def latencies_ms(self) -> np.ndarray:
@@ -250,8 +291,9 @@ class IngestStats:
 
     Boundaries are free-form strings ("cache", "serve", ...); fields are
     ``seen``/``valid``/``rejected``/``repaired`` plus ``reason:<code>``
-    and ``repair:<code>`` counters. Host-side and thread-safe; the port
-    has no process registry to mirror them into.
+    and ``repair:<code>`` counters. Host-side and thread-safe; every
+    bump is mirrored into the process registry as
+    ``ingest_<boundary>_<field>_total`` (sanitized).
     """
 
     def __init__(self):
@@ -262,6 +304,8 @@ class IngestStats:
         with self._lock:
             b = self._counts.setdefault(boundary, {})
             b[field] = b.get(field, 0) + by
+        REGISTRY.counter(
+            f"ingest_{sanitize(boundary)}_{sanitize(field)}_total").inc(by)
 
     def get(self, boundary: str, field: str) -> int:
         with self._lock:

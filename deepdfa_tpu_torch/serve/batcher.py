@@ -24,6 +24,7 @@ from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deepdfa_tpu_torch import telemetry
 from deepdfa_tpu_torch.serve.config import ServeConfig
 
 
@@ -52,7 +53,13 @@ class ServeRequest:
     lane: str                     # "gnn" | "combined"
     arrival: float                # engine-clock seconds
     deadline_s: float
+    t_submit: float = 0.0         # telemetry clock (perf_counter seconds)
     input_ids: Optional[np.ndarray] = None   # the combined lane's row
+    # The distributed trace this request rides (continued from a client's
+    # traceparent header, or minted at admission): the serve.request span
+    # carries both.
+    trace_id: Optional[str] = None
+    trace_continued: bool = False
     degraded: bool = False        # tokenizer failed -> gnn lane
     completed_at: Optional[float] = None
     result: Optional[Dict] = None
@@ -70,10 +77,13 @@ class ServeRequest:
 
 class MicroBatcher:
     """Per-lane FIFO queues with the two-condition flush policy; time
-    comes from the caller (the engine's clock), never the wall."""
+    comes from the caller (the engine's clock), never the wall.
+    ``replica`` tags the ``serve.enqueue`` events (rids are per engine)."""
 
-    def __init__(self, config: ServeConfig, lanes: Sequence[str] = ("gnn",)):
+    def __init__(self, config: ServeConfig, lanes: Sequence[str] = ("gnn",),
+                 replica: Optional[str] = None):
         self.config = config
+        self._replica = replica
         self._pending: Dict[str, Deque[ServeRequest]] = {
             lane: collections.deque() for lane in lanes}
         self._lock = threading.Lock()
@@ -83,6 +93,9 @@ class MicroBatcher:
         # The live flush thresholds; the defaults are the config's.
         self._flush_fraction = config.flush_fraction
         self._fill_slots = config.batch_slots
+        # Why each lane's last bucket sealed (fill / deadline / drain): the
+        # engine stamps it onto the serve.flush span.
+        self._last_cause: Dict[str, str] = {}
 
     def set_flush_policy(self, fraction: Optional[float] = None,
                          fill_slots: Optional[int] = None) -> None:
@@ -139,6 +152,12 @@ class MicroBatcher:
                 raise RejectedError(
                     self._flush_fraction * self.config.deadline_ms / 1000.0)
             self._pending[req.lane].append(req)
+            depth = sum(len(q) for q in self._pending.values())
+        # Outside the lock: the enqueue step of the request's trace.
+        attrs = dict(rid=req.rid, lane=req.lane, depth=depth)
+        if self._replica is not None:
+            attrs["replica"] = self._replica
+        telemetry.event("serve.enqueue", **attrs)
 
     def due(self, now: float) -> Optional[str]:
         """The lane to flush at ``now`` (least remaining budget first), or
@@ -181,5 +200,18 @@ class MicroBatcher:
         a new shape."""
         with self._lock:
             q = self._pending[lane]
+            # Classified under the lock that seals: a full bucket is a
+            # fill-flush even in drain mode.
+            if len(q) >= self._fill_slots:
+                self._last_cause[lane] = "fill"
+            elif self._drain_mode:
+                self._last_cause[lane] = "drain"
+            else:
+                self._last_cause[lane] = "deadline"
             return [q.popleft()
                     for _ in range(min(len(q), self.config.batch_slots))]
+
+    def last_flush_cause(self, lane: str) -> Optional[str]:
+        """Why ``lane``'s most recent bucket sealed (None before any)."""
+        with self._lock:
+            return self._last_cause.get(lane)

@@ -47,8 +47,19 @@ virtual clock exposing ``advance(dt)`` is advanced by it, as in the
 reference. In a fleet (``serve/fleet.py``) an engine carries its
 ``replica`` id, its adaptive flush ``policy`` (driven from ``pump``), the
 requests of the flush it is running (``in_flight``, the router's busy
-signal) and its lame-duck state. The gen lane, telemetry spans and
-fault-injection hooks are not ported yet.
+signal) and its lame-duck state.
+
+Telemetry (``deepdfa_tpu_torch/telemetry``) sees what the reference's
+engine shows: a ``serve.compile`` span around each program built (its
+fence after the capture ends), ``serve.warmup_done``, the raw node and
+edge counts of each admitted graph (``observe_shape``), a ``serve.flush``
+span a micro-batch (lane, n, slots, ordinal, elems, elems_slot,
+elems_budget, the batcher's seal cause, the replica), whose fence is
+the probabilities' host copy (no device event), and a ``serve.request``
+span a request with its trace id; ``lifecycle.lame_duck`` when the
+engine leaves rotation. The ``serve.batch`` fault site fires on the host before
+each flush's replay: a raise there fails that flush alone. The gen lane
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,7 +77,12 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Set, \
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.contracts.schema import ContractError, validate_example
+from deepdfa_tpu_torch import telemetry
+from deepdfa_tpu_torch.contracts.schema import (
+    STATS,
+    ContractError,
+    validate_example,
+)
 from deepdfa_tpu_torch.core.config import subkeys_for
 from deepdfa_tpu_torch.core.device import DeviceLike, resolve_device
 from deepdfa_tpu_torch.core.metrics import ServingStats
@@ -76,6 +92,7 @@ from deepdfa_tpu_torch.models.infer import make_combined_infer, make_gnn_infer
 from deepdfa_tpu_torch.ops import add_launches, recording_launches
 from deepdfa_tpu_torch.ops.band_spmm import pad_row_groups
 from deepdfa_tpu_torch.ops.tile_spmm import DEFAULT_TILE
+from deepdfa_tpu_torch.resilience import inject
 from deepdfa_tpu_torch.serve.batcher import (
     MicroBatcher,
     OversizedError,
@@ -315,17 +332,20 @@ class ServeEngine:
             self.combined_model = combined_model.to(self.device)
             self._combined_infer = make_combined_infer(self.combined_model)
             self._lanes["combined"] = _make_lane(combined_model.graph_config)
-        self.stats = ServingStats(self.config.latency_window)
+        self.stats = ServingStats(self.config.latency_window,
+                                  replica=replica)
         self.cache = ResultCache(self.config.cache_capacity)
         self._clock = clock
         self._rid = itertools.count()
+        self._flush_ordinal = itertools.count()
         self._warm: Set[Tuple[str, int]] = set()
         # (lane, slots, band value dtype or None) -> its program.
         self._programs: Dict[Tuple, _Program] = {}
         # Compile count at the end of warmup(): the baseline of
         # compiles_after_warmup (None until warmed).
         self.warmup_compiles: Optional[int] = None
-        self.batcher = MicroBatcher(self.config, lanes=tuple(self._lanes))
+        self.batcher = MicroBatcher(self.config, lanes=tuple(self._lanes),
+                                    replica=replica)
         # On a card: the engine's own stream (every copy, capture and
         # replay of its flushes) and the memory pool its graphs share.
         self._stream = self._pool = None
@@ -380,6 +400,11 @@ class ServeEngine:
                 self._program(lane, slots, gb, ids)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # The trace's warmup marker: a serve.compile span after it is a
+        # program built after warmup.
+        telemetry.event("serve.warmup_done",
+                        warmed=self.stats.compiles - before,
+                        buckets=self.n_warm)
         self.warmup_compiles = self.stats.compiles
         if self.graphs_captured:
             logger.info("captured %d CUDA graphs (%s), pool %d bytes",
@@ -441,12 +466,16 @@ class ServeEngine:
         prog = self._programs.get(key)
         if prog is not None:
             return prog
-        staged = _Staged(gb, ids, self.device)
-        staged.stage(gb, ids)
-        prog = _Program(staged)
-        self._forward(lane_name, staged.batch, staged.input_ids)
-        if self._stream is not None:
-            self._capture(lane_name, slots, prog)
+        with telemetry.span("serve.compile", lane=lane_name,
+                            slots=slots) as sp:
+            staged = _Staged(gb, ids, self.device)
+            staged.stage(gb, ids)
+            prog = _Program(staged)
+            out = self._forward(lane_name, staged.batch, staged.input_ids)
+            if self._stream is not None:
+                self._capture(lane_name, slots, prog)
+            # After capture_end: the eager run and the staging copy.
+            sp.fence(out)
         self._programs[key] = prog
         self._warm.add((lane_name, slots))
         self.stats.bump("compiles")
@@ -484,10 +513,12 @@ class ServeEngine:
         self.graph_pool_bytes = _pool_bytes(self._pool, self.device)
 
     def forward(self, lane_name: str, graphs: Sequence[Mapping], slots: int,
-                input_ids: Sequence = ()) -> torch.Tensor:
+                input_ids: Sequence = (), span=None) -> torch.Tensor:
         """Per-slot probabilities (host float32 [slots]) of ``graphs``
         packed in the ``slots``-slot bucket: the pair's program (built
-        first if needed), staged and replayed on the engine's stream."""
+        first if needed), staged and replayed on the engine's stream.
+        ``span`` (a telemetry span) is marked just before their host
+        copy, which is its fence."""
         gb, ids = self._pack(lane_name, graphs, slots, input_ids)
         with self._on_stream():
             prog = self._program(lane_name, slots, gb, ids)
@@ -499,36 +530,42 @@ class ServeEngine:
                 prog.graph.replay()
                 add_launches(prog.launches)
                 probs = prog.out
+            if span is not None:
+                span.mark()
             # One host transfer per micro-batch (it is also the flush's
             # device barrier), on the engine's stream.
             return probs.cpu()
 
     def _execute(self, lane_name: str, reqs: Sequence[ServeRequest],
-                 slots: int) -> torch.Tensor:
+                 slots: int, span=None) -> torch.Tensor:
         """One lane's forward over ``reqs`` packed in the ``slots``-slot
         bucket: per-slot probabilities on the host (:meth:`forward`)."""
         return self.forward(lane_name, [r.graph for r in reqs], slots,
-                            [r.input_ids for r in reqs])
+                            [r.input_ids for r in reqs], span=span)
 
     # -- admission ---------------------------------------------------------
 
     def _normalize_graph(self, graph: Mapping) -> Dict:
         try:
             return validate_example(graph, self.required_subkeys,
-                                    boundary="serve")
+                                    boundary="serve", stats=STATS)
         except ContractError as e:
             raise BadRequestError(str(e))
 
     def submit(self, graph: Optional[Mapping], code: Optional[str] = None,
                deadline_ms: Optional[float] = None,
-               lane: Optional[str] = None) -> ServeRequest:
+               lane: Optional[str] = None,
+               trace_id: Optional[str] = None,
+               trace_continued: bool = False) -> ServeRequest:
         """Admit one scoring request. A request with ``code`` rides the
         combined lane when the engine has one (the ``gnn`` lane, flagged
         ``degraded``, when the tokenizer fails on it); ``lane`` must be
         omitted (the gen lane is not ported). Cache hits complete at
         once; misses enqueue for the next micro-batch. Raises
         BadRequestError / OversizedError / RejectedError (HTTP 400 / 413
-        / 429)."""
+        / 429). ``trace_id``/``trace_continued``: the distributed trace
+        the request rides (the HTTP layer continues a client's
+        traceparent), carried on its ``serve.request`` span."""
         now = self._clock()
         self.stats.bump("submitted")
         deadline_s = (deadline_ms if deadline_ms is not None
@@ -556,11 +593,18 @@ class ServeEngine:
                                exc_info=True)
                 degraded = True
                 self.stats.bump("degraded")
+        # The raw pre-bucket shape at admission (a fixed series a lane).
+        telemetry.observe_shape(f"traffic_shape_serve_{lane}_nodes",
+                                int(norm["num_nodes"]))
+        telemetry.observe_shape(f"traffic_shape_serve_{lane}_edges",
+                                len(norm["senders"]))
         req = ServeRequest(
             rid=next(self._rid),
             key=content_hash(norm, code if lane == "combined" else None),
             graph=norm, lane=lane, arrival=now, deadline_s=deadline_s,
-            input_ids=input_ids, degraded=degraded)
+            t_submit=telemetry.now(), input_ids=input_ids,
+            trace_id=trace_id, trace_continued=trace_continued,
+            degraded=degraded)
         cached = self.cache.get(req.key)
         if cached is not None:
             self.stats.bump("cache_hits")
@@ -569,6 +613,11 @@ class ServeEngine:
             req.completed_at = now
             req.finish(dict(cached, rid=req.rid, cached=True,
                             degraded=req.degraded))
+            hit_attrs: Dict = dict(rid=req.rid, lane=req.lane, cached=True,
+                                   **self._trace_attrs(req))
+            if self.replica is not None:
+                hit_attrs["replica"] = self.replica
+            telemetry.record_span("serve.request", req.t_submit, **hit_attrs)
             return req
         try:
             self.batcher.admit(req)
@@ -627,22 +676,46 @@ class ServeEngine:
         if not self.lame_duck:
             self.lame_duck = True
             self.batcher.set_drain_mode(True)
+            telemetry.event("lifecycle.lame_duck", pending=self.pending())
 
     def next_flush_time(self) -> Optional[float]:
         return self.batcher.next_flush_time(self._clock())
 
+    @staticmethod
+    def _trace_attrs(req: ServeRequest) -> Dict:
+        """The request's trace identity for its span (none untraced)."""
+        if req.trace_id is None:
+            return {}
+        return {"trace_id": req.trace_id,
+                "trace_continued": req.trace_continued}
+
     def _run_batch(self, lane_name: str, reqs: List[ServeRequest]) -> None:
         slots = self.config.bucket_for(len(reqs))
+        ordinal = next(self._flush_ordinal)
         w0 = time.perf_counter()
         band = self._lanes[lane_name].band
         budget = self.config.budget_for(
             slots, tile=DEFAULT_TILE if band else None)
         e_used = sum(int(r.graph["num_nodes"]) for r in reqs)
+        e_slot = self.config.max_nodes_per_graph
+        span_attrs: Dict = dict(lane=lane_name, n=len(reqs), slots=slots,
+                                ordinal=ordinal, elems=e_used,
+                                elems_slot=e_slot,
+                                elems_budget=budget["max_nodes"])
+        cause = self.batcher.last_flush_cause(lane_name)
+        if cause is not None:
+            span_attrs["cause"] = cause
+        if self.replica is not None:
+            span_attrs["replica"] = self.replica
         self.in_flight = len(reqs)
         try:
-            p = self._execute(lane_name, reqs, slots).numpy()
-            values = [{"prob": float(p[i]), "model": lane_name}
-                      for i in range(len(reqs))]
+            with telemetry.span("serve.flush", **span_attrs) as sp:
+                # Fault site (index = flush ordinal), on the host before
+                # the replay: a raise stands for a device failure.
+                inject.fire("serve.batch", index=ordinal)
+                p = self._execute(lane_name, reqs, slots, span=sp).numpy()
+                values = [{"prob": float(p[i]), "model": lane_name}
+                          for i in range(len(reqs))]
         except Exception as e:
             # Flush isolation: this micro-batch's requests fail (HTTP 500
             # class); the queue keeps draining.
@@ -654,6 +727,10 @@ class ServeEngine:
             for r in reqs:
                 r.finish({"rid": r.rid, "error": "internal", "detail": detail,
                           "cached": False, "degraded": r.degraded})
+                telemetry.record_span("serve.request", r.t_submit,
+                                      rid=r.rid, lane=lane_name,
+                                      cached=False, error=type(e).__name__,
+                                      **self._trace_attrs(r))
             return
         elapsed = time.perf_counter() - w0
         flush_done = getattr(self._clock, "flush_done", None)
@@ -666,10 +743,10 @@ class ServeEngine:
             if advance is not None:
                 advance(elapsed)
             done = self._clock()
+        t_done = telemetry.now()
         self.in_flight = 0
         self.stats.record_batch(len(reqs), slots, lane=lane_name,
-                                elems_used=e_used,
-                                elems_per_slot=self.config.max_nodes_per_graph,
+                                elems_used=e_used, elems_per_slot=e_slot,
                                 elems_budget=budget["max_nodes"])
         for r, value in zip(reqs, values):
             # The cache line holds content-derived values only; "degraded"
@@ -680,6 +757,17 @@ class ServeEngine:
                           degraded=r.degraded))
             self.stats.bump("completed")
             self.stats.observe_latency(done - r.arrival)
+            # Admission to response on the telemetry clock (never the
+            # engine's virtual one); queue_ms is the wait before the flush.
+            req_attrs: Dict = dict(
+                rid=r.rid, lane=lane_name, cached=False,
+                degraded=r.degraded,
+                queue_ms=max(w0 - r.t_submit, 0.0) * 1e3,
+                flush_ordinal=ordinal, **self._trace_attrs(r))
+            if self.replica is not None:
+                req_attrs["replica"] = self.replica
+            telemetry.record_span("serve.request", r.t_submit, t_done,
+                                  **req_attrs)
 
     # -- offline client ----------------------------------------------------
 

@@ -28,9 +28,10 @@ back: the replica's batcher flushes partial buckets at once, the router
 stops choosing it, every admitted request is answered, and it comes back
 with its warmed buckets, so a roll never counts a compile.
 
-The reference's per-replica telemetry series
-(``predeclare_fleet_metrics``) and its ``fleet.replica_*`` trace events
-need the process registry, which is not ported yet.
+Telemetry: a fleet predeclares each tagged replica's ``serve_<rid>_*``
+series in the process registry (:func:`predeclare_fleet_metrics`), so the
+Prometheus exposition carries every replica from the first scrape, and a
+roll emits ``fleet.replica_drain`` and ``fleet.replica_restore`` events.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from deepdfa_tpu_torch import telemetry
 from deepdfa_tpu_torch.core.device import resolve_device
 from deepdfa_tpu_torch.core.metrics import (
     ServingStats,
@@ -60,7 +62,19 @@ from deepdfa_tpu_torch.serve.config import MAX_REPLICAS, REPLICA_IDS, ServeConfi
 from deepdfa_tpu_torch.serve.engine import BadRequestError, ServeEngine
 from deepdfa_tpu_torch.serve.policy import AdaptiveFlushPolicy
 
-__all__ = ["Replica", "ServeFleet"]
+__all__ = ["Replica", "ServeFleet", "predeclare_fleet_metrics"]
+
+
+def predeclare_fleet_metrics(active: Sequence[str]) -> None:
+    """Create every active replica's counter and histogram series up front
+    (``active`` chooses which of ``REPLICA_IDS`` materialize)."""
+    wanted = set(active)
+    for rid in REPLICA_IDS:
+        if rid not in wanted:
+            continue
+        for counter in ServingStats.COUNTERS:
+            telemetry.REGISTRY.counter(f"serve_{rid}_{counter}_total")
+        telemetry.REGISTRY.histogram(f"serve_{rid}_latency_ms")
 
 
 def _stable_hash(text: str) -> int:
@@ -126,6 +140,11 @@ class ServeFleet:
                 f"fleet size {len(replicas)} exceeds the replica ids "
                 f"fixed in REPLICA_IDS ({MAX_REPLICAS})")
         self.replicas: List[Replica] = list(replicas)
+        # Only tagged replicas: an untagged engine (from_engine) never
+        # writes serve_r0_*, so declaring them would show a replica with
+        # no traffic.
+        predeclare_fleet_metrics([r.rid for r in self.replicas
+                                  if r.engine.replica is not None])
         # Round-robin cursor for load ties: a burst on an idle fleet
         # would otherwise pile onto r0 until its queue visibly deepens.
         self._rr = 0
@@ -300,11 +319,13 @@ class ServeFleet:
 
     def submit(self, graph: Optional[Mapping], code: Optional[str] = None,
                deadline_ms: Optional[float] = None,
-               lane: Optional[str] = None) -> ServeRequest:
+               lane: Optional[str] = None,
+               trace_id: Optional[str] = None,
+               trace_continued: bool = False) -> ServeRequest:
         """Admit one request through the router. A rejection by the routed
         replica (its queue filled between the load read and the admit) is
         retried once on the least-loaded live sibling before it reaches
-        the caller."""
+        the caller. ``trace_id``/``trace_continued`` go to the engine."""
         try:
             # The graph alone is the routing key (code left out), so every
             # cache line one function may write lands on one replica.
@@ -316,14 +337,18 @@ class ServeFleet:
         replica = self.route(key)
         try:
             return replica.engine.submit(graph, code=code,
-                                         deadline_ms=deadline_ms, lane=lane)
+                                         deadline_ms=deadline_ms, lane=lane,
+                                         trace_id=trace_id,
+                                         trace_continued=trace_continued)
         except RejectedError:
             others = [r for r in self.live if r is not replica]
             if not others:
                 raise
             fallback = min(others, key=lambda r: r.load())
             return fallback.engine.submit(graph, code=code,
-                                          deadline_ms=deadline_ms, lane=lane)
+                                          deadline_ms=deadline_ms, lane=lane,
+                                          trace_id=trace_id,
+                                          trace_continued=trace_continued)
 
     def score_sync(self, graphs: Sequence[Mapping],
                    codes: Optional[Sequence[Optional[str]]] = None
@@ -365,6 +390,8 @@ class ServeFleet:
         it admitted; the rest of the fleet keeps serving."""
         replica = self._replica(rid)
         replica.engine.enter_lame_duck()
+        telemetry.event("fleet.replica_drain", replica=rid, reason="roll",
+                        pending=replica.engine.pending())
         return replica
 
     def await_replica_drained(self, rid: str, deadline_s: float,
@@ -386,6 +413,7 @@ class ServeFleet:
         replica = self._replica(rid)
         replica.engine.lame_duck = False
         replica.engine.batcher.set_drain_mode(False)
+        telemetry.event("fleet.replica_restore", replica=rid)
         return replica
 
     def roll_replica(self, rid: str, deadline_s: float = 30.0) -> bool:

@@ -13,7 +13,7 @@ target flushes sooner; an idle one waits longer for fuller buckets.
 - Hysteresis: a move needs ``adaptive_patience`` consecutive signals in
   one direction.
 - Recorded: every decision (a move or a hold) is returned as a dict and
-  logged at debug level by this module's logger.
+  emitted as a ``serve.flush_policy`` trace event, as in the reference.
 
 Time comes from the engine's clock, so a replayed run decides the same
 way every time.
@@ -22,15 +22,13 @@ way every time.
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Any, Dict, Optional
 
+from deepdfa_tpu_torch import telemetry
 from deepdfa_tpu_torch.core.metrics import latency_quantile
 from deepdfa_tpu_torch.serve.config import ServeConfig
 
 __all__ = ["AdaptiveFlushPolicy"]
-
-logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -114,7 +112,7 @@ class AdaptiveFlushPolicy:
             "pressure": self._pressure,
             "slack": self._slack,
         }
-        logger.debug("flush policy: %s", doc)
+        telemetry.event("serve.flush_policy", **doc)
         return doc
 
     def _decide(self, p99_ms: float, occupancy: float) -> _Decision:

@@ -61,7 +61,11 @@ its buckets at its first flushes while another's thread serves; the
 ordered segment sum is bit for bit its plain version at in-degrees up to
 1000 in both its modes (ids sorted, or a plan), and a CUDA graph of
 either replays its eager bits; and the persistent forward on a serving bucket's padded cut points
-gives the unpadded batch's bits.
+gives the unpadded batch's bits. Under a telemetry run a replayed flush
+is a fenced ``serve.flush`` span and each capture a fenced
+``serve.compile`` span, nothing is captured after warmup, the
+probabilities are the same bits with telemetry on and off, and a fence
+asked for during a capture raises.
 """
 
 import dataclasses
@@ -2837,3 +2841,152 @@ def test_persistent_forward_on_the_padded_geometry_equals_unpadded(cuda,
         a = model(batch.to(cuda))
         b = model(dataclasses.replace(batch, band_adj=plain).to(cuda))
     assert torch.equal(a, b)
+
+
+def _telemetry_events(run_dir):
+    import json
+    import os
+
+    with open(os.path.join(run_dir, "telemetry", "events.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def test_a_replayed_flush_is_a_fenced_serve_flush_span(cuda, tmp_path):
+    """Under a telemetry run, each flush of a warmed engine (the captured
+    graph replayed) is a ``serve.flush`` span fenced by the host copy of
+    its probabilities, and each capture a ``serve.compile`` span fenced
+    on a CUDA event after ``capture_end``; no capture after warmup."""
+    from deepdfa_tpu_torch import telemetry
+
+    with telemetry.run_scope(str(tmp_path)):
+        engine = _serve_engine(cuda, "persistent", "float32")
+        graphs = synthetic_bigvul(40, engine.model.config.feature, seed=21)
+        results = engine.score_sync(graphs)
+    assert all("prob" in r for r in results)
+    assert engine.compiles_after_warmup == 0
+    events = _telemetry_events(str(tmp_path))
+    flushes = [e for e in events if e["name"] == "serve.flush"]
+    compiles = [e for e in events if e["name"] == "serve.compile"]
+    assert len(flushes) == engine.stats.batches >= 3
+    assert len(compiles) == engine.graphs_captured == len(
+        engine.warm_buckets())
+    for span in flushes + compiles:
+        assert span["fenced"] and 0 <= span["host_ms"] <= span["dur_ms"]
+        assert "error" not in span
+    assert [f["attrs"]["ordinal"] for f in flushes] == list(
+        range(len(flushes)))
+    assert sum(f["attrs"]["n"] for f in flushes) == 40
+    assert sum(1 for e in events if e["name"] == "serve.request") == 40
+
+
+@pytest.mark.parametrize("impl,dtype", [("persistent", "float32"),
+                                        ("fused", "bfloat16")])
+def test_probabilities_are_bit_for_bit_with_telemetry_on_and_off(
+        cuda, tmp_path, impl, dtype):
+    from deepdfa_tpu_torch import telemetry
+
+    graphs = synthetic_bigvul(48, FlowGNNConfig().feature, seed=22)
+    probs = {}
+    for mode in ("off", "on"):
+        telemetry.set_enabled(mode == "on")
+        try:
+            with telemetry.run_scope(str(tmp_path / mode)):
+                engine = _serve_engine(cuda, impl, dtype, seed=5)
+                probs[mode] = [r["prob"] for r in engine.score_sync(graphs)]
+                assert engine.compiles_after_warmup == 0
+        finally:
+            telemetry.set_enabled(None)
+    assert probs["on"] == probs["off"]
+    assert not (tmp_path / "off" / "telemetry").exists()
+    assert (tmp_path / "on" / "telemetry" / "events.jsonl").exists()
+
+
+def test_a_fence_asked_for_during_a_capture_raises(cuda):
+    """A fence records a CUDA event and waits on it: in a capture that
+    would break the graph, so it raises, and the capture is abandoned;
+    after capture_end the same fence waits on the stream's work."""
+    from deepdfa_tpu_torch import telemetry
+    from deepdfa_tpu_torch.telemetry.spans import FenceError
+
+    x = torch.ones(1024, device=cuda)
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            y = x * 2
+            with pytest.raises(FenceError, match="capturing"):
+                with telemetry.span("inside") as sp:
+                    sp.fence(y)
+        finally:
+            graph.capture_end()
+        graph.replay()
+        with telemetry.span("after") as sp:
+            sp.fence(y)
+    assert sp.host_s is not None and sp.host_s <= sp.dur_s
+    assert torch.equal(y, x * 2)
+
+
+def test_no_capture_after_warmup_with_a_run_active(cuda, tmp_path):
+    """A bursty trace through a warmed engine with a telemetry run: every
+    pair was captured at warmup (the compile spans), none after."""
+    from deepdfa_tpu_torch import telemetry
+    from deepdfa_tpu_torch.serve.replay import bursty_trace, replay
+
+    with telemetry.run_scope(str(tmp_path)):
+        engine = _serve_engine(cuda, "persistent", "float32", slots=16)
+        from deepdfa_tpu_torch.serve.replay import VirtualClock
+
+        clock = VirtualClock()
+        engine._clock = clock
+        captured = engine.graphs_captured
+        out = replay(engine, bursty_trace(
+            120, engine.model.config.feature, seed=1), clock)
+    assert out["metrics"]["completed"] == 120
+    assert engine.compiles_after_warmup == 0
+    assert engine.graphs_captured == captured
+    events = _telemetry_events(str(tmp_path))
+    warm = [i for i, e in enumerate(events)
+            if e["name"] == "serve.warmup_done"]
+    assert len(warm) == 1
+    assert not [e for e in events[warm[0]:] if e["name"] == "serve.compile"]
+
+
+def test_healthz_reports_the_cards_bytes_after_a_cpu_sample_telemetry_off(
+        cuda, monkeypatch):
+    """``/healthz`` on a card's server carries the allocator's bytes in
+    use and peak, read through the memory sampler when it is asked: a
+    sample of a CPU device earlier in the process and
+    ``DEEPDFA_TELEMETRY=0`` take nothing away."""
+    import json
+    import threading
+    import urllib.request
+
+    from deepdfa_tpu_torch import telemetry
+    from deepdfa_tpu_torch.serve.http import ServeHTTPServer
+    from deepdfa_tpu_torch.telemetry.memory import SAMPLER
+
+    assert SAMPLER.sample(torch.device("cpu")) is None
+    monkeypatch.setenv("DEEPDFA_TELEMETRY", "0")
+    telemetry.set_enabled(None)
+    try:
+        engine = _serve_engine(cuda, "persistent", "float32", slots=4)
+        server = ServeHTTPServer(("127.0.0.1", 0), engine)
+        server.start_pump()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/healthz"
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                health = json.loads(resp.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        monkeypatch.delenv("DEEPDFA_TELEMETRY")
+        telemetry.set_enabled(None)
+    assert 0 < health["device_bytes_in_use"] <= \
+        health["device_peak_bytes_in_use"]
+    assert health["device_peak_bytes_in_use"] <= \
+        torch.cuda.max_memory_allocated(cuda)

@@ -3,7 +3,7 @@ CPU, over real sockets: 200 with inline per-function results (the gnn
 and combined lanes, a degraded answer), cached replays, 400, 404, 413,
 429 with an integer Retry-After, 500 for a failed flush, ``/healthz`` and
 ``/metrics`` with the reference's keys, and a clean Ctrl-C shutdown of
-``cli serve``."""
+``cli serve`` (the lifecycle's drain: exit 75, as the reference's)."""
 
 import dataclasses
 import json
@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from deepdfa_tpu_torch import telemetry
 from deepdfa_tpu_torch.core.config import FeatureSpec, FlowGNNConfig
 from deepdfa_tpu_torch.data.synthetic import synthetic_bigvul
 from deepdfa_tpu_torch.data.text import HashingCodeTokenizer
@@ -39,7 +40,7 @@ BLOCK = 32
 # such code, and the request degrades to the gnn lane.
 UNENCODABLE = "int f(char *p) { return '\ud800'; }"
 # The /healthz keys the reference adds from parts not ported yet.
-NOT_PORTED = {"telemetry_drops", "slo", "scan_pool"}
+NOT_PORTED = {"scan_pool"}
 # The port's own /metrics keys, fleet-wide and in each replica's section:
 # programs built after warmup, and the bytes of the replicas' CUDA graph
 # pools.
@@ -168,8 +169,10 @@ def test_score_answers_and_status_codes():
                                            + _payload(g[:1])})
         assert status == 200 and body["results"][1]["cached"]
         status, health = _get(srv.base, "/healthz")
-        assert status == 200 and health == {"status": "ok",
-                                            "warm_buckets": 4}
+        # The process's drop count (other tests may have dropped events).
+        assert status == 200 and health == {
+            "status": "ok", "warm_buckets": 4,
+            "telemetry_drops": telemetry.drop_count()}
         status, metrics = _get(srv.base, "/metrics")
         assert metrics["degraded"] == 2 and metrics["oversized"] == 3
         assert metrics["compiles"] == 4 and metrics["n_replicas"] == 1
@@ -335,13 +338,20 @@ def test_cli_serve_over_http_and_a_clean_shutdown(tmp_path):
         big = synthetic_bigvul(1, FeatureSpec(), seed=1, min_nodes=70,
                                max_nodes=80)
         assert _post(base, {"functions": _payload(big)})[0] == 413
-        health = _get(base, "/healthz")
-        assert health == (200, {"status": "ok", "warm_buckets": 6})
+        status, health = _get(base, "/healthz")
+        assert status == 200 and health["slo"]["ok"]
+        assert health == {"status": "ok", "warm_buckets": 6,
+                          "telemetry_drops": 0, "slo": health["slo"]}
         metrics = _get(base, "/metrics")[1]
         assert metrics["compiles"] == 6 and metrics["degraded"] == 1
         assert metrics["cache_hits"] == 4 and metrics["rejected"] == 1
     finally:
         proc.send_signal(signal.SIGINT)
         out, err = proc.communicate(timeout=60)
-    assert proc.returncode == 0, err[-3000:]
+    # Ctrl-C is a preemption notice: drained, then the reference's 75.
+    assert proc.returncode == 75, err[-3000:]
+    last = json.loads(out.strip().splitlines()[-1])
+    assert {k: last[k] for k in ("preempted", "reason", "exit_code")} == {
+        "preempted": True, "reason": "SIGINT", "exit_code": 75}
+    assert last["serving"]["degraded"] == 1
     assert "KeyboardInterrupt" not in err
